@@ -1,0 +1,83 @@
+"""Feature extraction (patch descriptor mode): kernel A -> per-cell corner
+selection -> patch kernel -> BRIEF from patches + subpixel refinement.
+
+Port of lvt_tpu/core/extract.py (``_extract_patch_mode`` and
+``extract_features_stereo``). Left and right are one batch of 2.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function as stage
+
+from lvt_tpu.config import VOConfig
+from lvt_tpu_torch.core.features import FrameFeatures
+from lvt_tpu_torch.ops import brief, detect
+from lvt_tpu_torch.ops import patches as pt
+from lvt_tpu_torch.ops.perception import perception_patch_maps_batched
+
+
+def _pad_to(arr: torch.Tensor, capacity: int, axis: int = 0) -> torch.Tensor:
+    n = arr.shape[axis]
+    if n == capacity:
+        return arr
+    assert n < capacity, f"detector output {n} exceeds capacity {capacity}"
+    shape = list(arr.shape)
+    shape[axis] = capacity - n
+    return torch.cat([arr, arr.new_zeros(shape)], dim=axis)
+
+
+def _spread_ties(imgs: torch.Tensor) -> bool:
+    """Plateau-dither selection only for integer-valued (uint8) frames."""
+    return imgs.dtype == torch.uint8
+
+
+def _extract_patch_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
+    bsz, h, w = imgs.shape
+    if imgs.dtype != torch.uint8:
+        imgs = imgs.float()
+    spread_ties = _spread_ties(imgs)
+    with stage("perception"):
+        nms, raw, smooth = perception_patch_maps_batched(imgs)
+    with stage("corner_select"):
+        det = detect.select_corners(
+            nms, config.agast_threshold,
+            cell_size=config.detection_cell_size,
+            max_per_cell=config.max_keypoints_per_cell,
+            corners_low_threshold=config.corners_low_threshold,
+            img_hw=(h, w), spread_ties=spread_ties,
+        )
+    cap = config.kp_capacity
+
+    def pad(a):
+        return _pad_to(a, cap, axis=1)
+
+    xi = pad(det.kp_int[..., 0])
+    yi = pad(det.kp_int[..., 1])
+    sel_valid = pad(det.valid)
+    xc, yc = pt.clamp_coords(xi, yi, h, w)
+    with stage("patch_extract"):
+        patches, rawp = pt.extract_patches_batched(
+            smooth, raw, xc.contiguous(), yc.contiguous(),
+            sel_valid.contiguous())
+    with stage("describe_refine"):
+        desc, valid = brief.descriptors_from_patches(patches, xi, yi,
+                                                     sel_valid, h, w)
+        xf, yf = detect.subpixel_from_patches(rawp, xi, yi)
+    return FrameFeatures(
+        kp=torch.stack([xf, yf], dim=-1), desc=desc, score=pad(det.score),
+        depth=torch.zeros((bsz, cap), dtype=torch.float32, device=imgs.device),
+        valid=valid,
+    )
+
+
+def extract_features_batched(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
+    """[B, H, W] images -> batched FrameFeatures [B, kp_capacity]."""
+    return _extract_patch_mode(imgs, config)
+
+
+def extract_features_stereo(img_left: torch.Tensor, img_right: torch.Tensor,
+                            config: VOConfig):
+    feats = extract_features_batched(torch.stack([img_left, img_right]), config)
+    return (FrameFeatures(*(a[0] for a in feats)),
+            FrameFeatures(*(a[1] for a in feats)))

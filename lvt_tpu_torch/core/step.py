@@ -1,0 +1,267 @@
+"""The per-frame tracking step: extraction + one predicated tracking body.
+
+Port of lvt_tpu/core/step.py (stereo, local BA off, single device). The
+reference's state machine is ONE computation: the init frame is a tracking
+frame over an empty map at a forced-identity pose with triangulation
+forced on, and the lost frame is an output select. Every retry and policy
+branch is computed and then selected with ``torch.where``, so the step has
+fixed shapes and no data-dependent Python branch or host sync — the form a
+CUDA graph can capture. ``lax.scan`` over a chunk is a Python loop.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function as stage
+
+from lvt_tpu.config import MATCHES_WINDOW_INIT, VOConfig
+from lvt_tpu_torch.core import extract
+from lvt_tpu_torch.core import map as map_ops
+from lvt_tpu_torch.core.features import FrameFeatures
+from lvt_tpu_torch.core.motion import predict_next_pose
+from lvt_tpu_torch.core.state import (LOST, NOT_INITIALIZED, TRACKING,
+                                      StepMetrics, VOState)
+from lvt_tpu_torch.geometry import se3
+from lvt_tpu_torch.geometry.se3 import Pose
+from lvt_tpu_torch.ops import hamming, matching, triangulate
+from lvt_tpu_torch.solver.pnp import solve_pnp
+from lvt_tpu_torch.tree import tree_map
+
+
+def _select(pred, a, b):
+    """Leaf-wise select of two containers on a scalar predicate."""
+    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def _image_bounds(config: VOConfig):
+    """Visible pixel bounds. Stereo input is rectified (k1 = 0), where the
+    undistorted bounds are the image itself."""
+    if abs(config.k1) >= 1e-5:
+        raise NotImplementedError("distorted input (k1 != 0) is not ported")
+    return 0.0, float(config.img_width), 0.0, float(config.img_height)
+
+
+def _camera_kwargs(config: VOConfig) -> dict:
+    min_x, max_x, min_y, max_y = _image_bounds(config)
+    return dict(fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy,
+                near=config.near_plane_distance, far=config.far_plane_distance,
+                min_x=min_x, max_x=max_x, min_y=min_y, max_y=max_y)
+
+
+def _triangulate_new_points(left: FrameFeatures, right: FrameFeatures,
+                            feature_matched, pose: Pose, config: VOConfig):
+    """Row-match the untracked left features and triangulate them.
+    Returns (points_world [K, 3], desc [K, W], valid [K])."""
+    rm = matching.row_match(
+        left, right, feature_matched,
+        vertical_search_radius=config.row_matching_vertical_search_radius,
+        ratio_threshold=config.triangulation_ratio_test_threshold,
+        abs_threshold=config.descriptor_matching_threshold,
+        img_rows=config.img_height,
+    )
+    k = left.kp.shape[0]
+    uv_right = right.kp[torch.clamp(rm.right_idx, 0, k - 1)]
+    res = triangulate.triangulate_stereo(
+        left.kp, uv_right, rm.left_matched, pose,
+        baseline=config.baseline, reprojection_th2=config.reprojection_th2,
+        **_camera_kwargs(config))
+    return res.points_world, left.desc, res.valid
+
+
+def _policy_need_triangulation(config: VOConfig, window, map_size):
+    """Triangulation policies; ``window`` is oldest-first [3] f32 including
+    the current frame's match count."""
+    if config.triangulation_policy == 2:
+        return torch.ones((), dtype=torch.bool, device=window.device)
+    if config.triangulation_policy == 3:
+        return map_size < 1000
+    ratio = 0.99
+    return (window[1] <= ratio * window[0]) & (window[2] <= ratio * window[1])
+
+
+def _staged_update(staged, pose: Pose, feats: FrameFeatures, feature_matched,
+                   map_size, config: VOConfig):
+    """Re-match staged points against the unmatched features; delete misses,
+    promote survivors. Returns (staged', promotion candidates, marks)."""
+    cam = _camera_kwargs(config)
+    k = feats.kp.shape[0]
+    w2c = se3.world_to_camera(pose)
+    pts_cam = se3.transform_points(w2c, staged.pos)
+    uv = se3.project_points(pts_cam, config.fx, config.fy, config.cx, config.cy)
+    visible = staged.valid & se3.visibility_mask(
+        pts_cam, uv, cam["near"], cam["far"],
+        cam["min_x"], cam["max_x"], cam["min_y"], cam["max_y"])
+    dist = hamming.hamming_matrix(staged.desc, feats.desc)
+    (d1, d2, best, n_cand), _ = matching.dual_radius_top2(
+        dist, uv, visible, feats.kp, feats.valid & ~feature_matched,
+        config.tracking_radius, config.tracking_radius)
+    idx = hamming.accept_matches(d1, d2, best, n_cand,
+                                 config.tracking_ratio_test_threshold,
+                                 config.descriptor_matching_threshold)
+    idx = hamming.resolve_one_to_one(idx, d1, k)
+    matched = idx >= 0
+    feature_matched = feature_matched | hamming.claim_mask(idx, k)
+
+    ctr = torch.where(matched, staged.counter + 1, staged.counter)
+    promote = staged.valid & matched & (
+        (staged.counter + 1 == config.staged_threshold)
+        | (map_size < config.map_soft_cap))
+    staged_out = staged._replace(counter=ctr,
+                                 valid=staged.valid & matched & ~promote)
+    promo = (staged.pos, staged.desc, ctr, staged.age, promote)
+    return staged_out, promo, feature_matched
+
+
+def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
+                  config: VOConfig, is_init):
+    """Tracking frame, and through ``is_init`` the initialization frame.
+    Stages carry profiler ranges named as lvt_tpu's jax.named_scope."""
+    cam = _camera_kwargs(config)
+    k = left.kp.shape[0]
+    identity = Pose.identity(left.kp.device)
+
+    with stage("motion_predict"):
+        motion, predicted = predict_next_pose(state.motion, state.pose)
+        predicted = _select(is_init, identity, predicted)
+        motion = _select(is_init, state.motion, motion)
+
+    with stage("map_matching"):
+        mm = matching.find_map_matches(
+            state.map.pos, state.map.desc, state.map.valid, predicted, left,
+            tracking_radius=config.tracking_radius,
+            ratio_threshold=config.tracking_ratio_test_threshold,
+            abs_threshold=config.descriptor_matching_threshold,
+            retry_min_matches=config.n_matches_threshold, **cam)
+    matches_count = mm.matches_count
+    is_tracking = (matches_count >= config.min_num_matches_for_tracking) | is_init
+
+    obs = left.kp[torch.clamp(mm.match_idx, 0, k - 1)]
+    weights = (mm.match_idx >= 0).float()
+    with stage("pnp_solve"):
+        pnp = solve_pnp(predicted, state.map.pos, obs, weights,
+                        fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy,
+                        reprojection_th2=config.reprojection_th2)
+    pose_opt = _select(is_init, identity, pnp.pose)
+
+    with stage("map_bookkeeping"):
+        map_bookkept = map_ops.apply_match_bookkeeping(state.map, mm.match_idx)
+        map_clean, feature_matched = map_ops.clean_untracked(
+            map_bookkept, mm.match_idx, mm.feature_matched,
+            config.untracked_threshold)
+    map_size = map_clean.size()
+
+    if config.staged_threshold > 0:
+        with stage("staged_update"):
+            staged_out, promo, feature_matched = _staged_update(
+                state.staged, pose_opt, left, feature_matched, map_size,
+                config)
+            p_pos, p_desc, p_ctr, p_age, p_mask = promo
+            map_after_promo = map_ops.insert_points(
+                map_clean, p_pos, p_desc, p_mask, new_counter=p_ctr,
+                new_age=p_age).store
+    else:
+        staged_out = state.staged
+        map_after_promo = map_clean
+
+    window = torch.cat([state.last_matches[1:], matches_count[None].float()])
+    map_size_after_promo = map_after_promo.size()
+    need_tri = _policy_need_triangulation(
+        config, window, map_size_after_promo) | is_init
+
+    with stage("triangulation"):
+        pts, desc, tri_valid = _triangulate_new_points(
+            left, right, feature_matched, pose_opt, config)
+        tri_valid = tri_valid & need_tri
+        to_map = ((map_size_after_promo < config.map_soft_cap)
+                  | (config.staged_threshold == 0))
+        ins_map = map_ops.insert_points(map_after_promo, pts, desc,
+                                        tri_valid & to_map)
+        ins_staged = map_ops.insert_points(staged_out, pts, desc,
+                                           tri_valid & ~to_map)
+
+    map_size_final = ins_map.store.size()
+    init_window = torch.stack([
+        map_size_final.float(),
+        torch.full((), MATCHES_WINDOW_INIT, device=window.device),
+        torch.full((), MATCHES_WINDOW_INIT, device=window.device)])
+    window = torch.where(is_init, init_window, window)
+    new_state = VOState(
+        map=_select(is_tracking, ins_map.store, map_bookkept),
+        staged=_select(is_tracking, ins_staged.store, state.staged),
+        pose=_select(is_tracking, pose_opt, state.pose),
+        motion=motion,
+        last_matches=torch.where(is_tracking, window, state.last_matches),
+        frame_number=state.frame_number + 1,
+        status=torch.where(is_tracking, TRACKING, LOST).to(torch.int32),
+        ba=state.ba,
+    )
+    out_pose = _select(is_tracking, pose_opt, state.pose)
+
+    matched_mask = mm.match_idx >= 0
+    n_matched = torch.clamp(matches_count, min=1)
+
+    def mean_of(v):
+        return torch.where(matched_mask, v, 0.0).sum() / n_matched
+
+    metrics = StepMetrics(
+        map_points_count=torch.where(is_init, map_size_final,
+                                     state.map.size()).to(torch.int32),
+        staged_points_count=state.staged.size().to(torch.int32),
+        image_keypoints=left.count().to(torch.int32),
+        tracked_map_points=matches_count.to(torch.int32),
+        mean_age=mean_of(map_bookkept.age.float()),
+        mean_closest_descriptor_distance=mean_of(mm.d1),
+        mean_second_descriptor_distance=mean_of(mm.d2),
+        mean_feature_x=mean_of(obs[:, 0]),
+        mean_feature_y=mean_of(obs[:, 1]),
+        inlier_count=pnp.inlier_count.to(torch.int32),
+        triangulated_points=torch.where(
+            is_tracking, ins_map.n_inserted + ins_staged.n_inserted,
+            0).to(torch.int32),
+        used_wide_radius=mm.used_wide_radius & ~is_init,
+        status=new_state.status,
+    )
+    return new_state, out_pose, metrics
+
+
+def track_features(state: VOState, left: FrameFeatures, right: FrameFeatures,
+                   config: VOConfig):
+    """Status dispatch over extracted features: the lost frame returns the
+    last pose and bumps the frame counter, as a pure output select."""
+    is_init = state.status == NOT_INITIALIZED
+    is_lost = state.status == LOST
+    tracked_state, pose, metrics = _track_branch(state, left, right, config,
+                                                 is_init)
+    lost_state = state._replace(frame_number=state.frame_number + 1)
+    lost_metrics = StepMetrics.zero(state.status.device)._replace(
+        map_points_count=state.map.size().to(torch.int32),
+        status=torch.full((), LOST, dtype=torch.int32,
+                          device=state.status.device))
+    return (_select(is_lost, lost_state, tracked_state),
+            _select(is_lost, state.pose, pose),
+            _select(is_lost, lost_metrics, metrics))
+
+
+def _check_config(config: VOConfig) -> None:
+    if config.local_ba_window > 0:
+        raise NotImplementedError("local BA (local_ba_window > 0) is not ported")
+
+
+def track_step_stereo(state: VOState, img_left: torch.Tensor,
+                      img_right: torch.Tensor, config: VOConfig):
+    """Full stereo frame: extraction + tracking -> (state, pose, metrics)."""
+    _check_config(config)
+    left, right = extract.extract_features_stereo(img_left, img_right, config)
+    return track_features(state, left, right, config)
+
+
+def track_chunk_stereo(state: VOState, imgs_left: torch.Tensor,
+                       imgs_right: torch.Tensor, config: VOConfig):
+    """N frames in order; returns (state, poses [N], metrics [N])."""
+    poses, metrics = [], []
+    for il, ir in zip(imgs_left, imgs_right):
+        state, pose, m = track_step_stereo(state, il, ir, config)
+        poses.append(pose)
+        metrics.append(m)
+    stack = lambda *xs: torch.stack(xs)  # noqa: E731
+    return state, tree_map(stack, *poses), tree_map(stack, *metrics)

@@ -1,0 +1,128 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels are plain-C-interface CUDA C++ for ``sm_90a`` (Hopper), built
+with ``nvcc`` into one shared library under ``build/lvt_tpu_torch/`` at the
+first call that needs them and loaded with ``ctypes``. Nothing here runs at
+import: the CPU tests import every module on machines without ``nvcc``.
+
+The library name carries a hash of the sources and flags, so an edited
+kernel never loads a stale build. Each kernel launches on the stream it is
+given (the wrapper passes ``torch.cuda.current_stream()``), allocates
+nothing, and returns ``cudaGetLastError()``; :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lvt_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream are c_void_p
+_SIGNATURES = {
+    "lvt_perception": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "lvt_extract_patches": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lvt_masked_dual_top2": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,
+                             _P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None   # wall time of the nvcc run, if any
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"liblvt_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` into one shared library (skipped when
+    the library for these exact sources exists). ``verbose`` adds
+    ``-Xptxas -v`` and prints nvcc's report of registers and spills."""
+    global build_seconds
+    out = library_path()
+    if out.exists() and not verbose:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, out)   # atomic: a concurrent loader never sees a partial .so
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.lvt_error_string.argtypes = [ctypes.c_int]
+        handle.lvt_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = lib().lvt_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+            device: torch.device | None = None) -> None:
+    """Wrapper-side argument checks: the kernels trust their inputs."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

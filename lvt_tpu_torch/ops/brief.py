@@ -1,0 +1,107 @@
+"""BRIEF-256 binary descriptors from per-keypoint patches.
+
+Port of lvt_tpu/ops/brief.py (patch mode). The pattern — 256 comparison
+pairs over a pool of 64 Gaussian sample points — is regenerated here in
+numpy from the same seeds, so it is bit-identical to
+``lvt_tpu.ops.brief.test_pattern()`` without importing JAX.
+
+Where the JAX package samples the pool with one-hot matmuls at
+``Precision.HIGHEST``, the port indexes: the 64 pool values are a gather
+from the flattened 32x32 patch, and the 256 bits compare two gathers of
+those. That is exact by construction — no matmul, so no TF32 risk.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from lvt_tpu_torch.ops.patches import PATCH, PATCH_C0, PATCH_R0
+
+KERNEL_SIZE = 9
+N_BITS = 256
+POOL_SIZE = 64
+BORDER = PATCH // 2 + KERNEL_SIZE // 2  # 20
+_PATTERN_SEED = 0x5F3759DF
+
+
+@functools.lru_cache(maxsize=1)
+def sample_pool() -> np.ndarray:
+    """[POOL_SIZE, 2] int32 (dx, dy) distinct sample offsets."""
+    rs = np.random.RandomState(_PATTERN_SEED)
+    sigma = PATCH / 5.0
+    half = PATCH // 2 - 1
+    pts: list[tuple[int, int]] = []
+    seen = set()
+    while len(pts) < POOL_SIZE:
+        cand = np.clip(np.round(rs.randn(2) * sigma), -half, half).astype(int)
+        key = (int(cand[0]), int(cand[1]))
+        if key not in seen:
+            seen.add(key)
+            pts.append(key)
+    return np.array(pts, np.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def pair_indices() -> np.ndarray:
+    """[N_BITS, 2] int32 (i, j) pool indices; bit = S(p_i) < S(p_j)."""
+    rs = np.random.RandomState(_PATTERN_SEED ^ 0xA5A5A5)
+    pairs: list[tuple[int, int]] = []
+    seen = set()
+    while len(pairs) < N_BITS:
+        i, j = rs.randint(0, POOL_SIZE, 2)
+        if i != j and (i, j) not in seen and (j, i) not in seen:
+            seen.add((i, j))
+            pairs.append((int(i), int(j)))
+    return np.array(pairs, np.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def test_pattern() -> np.ndarray:
+    """[256, 2, 2] int32 (pair, point, (dx, dy)) sampling offsets."""
+    return sample_pool()[pair_indices()]
+
+
+@functools.lru_cache(maxsize=None)
+def _pattern_tensors(device: torch.device):
+    """(pool index into a flattened 32x32 patch [64] and pair endpoints
+    [256] x 2 as long tensors, bit shifts [32] int32) on ``device``."""
+    pool = sample_pool()
+    flat = (PATCH_R0 + pool[:, 1]) * PATCH + (PATCH_C0 + pool[:, 0])
+    pairs = pair_indices()
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    return (as_t(flat), as_t(pairs[:, 0]), as_t(pairs[:, 1]),
+            torch.arange(32, dtype=torch.int32, device=device))
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[..., 256] bool -> [..., 8] int32 words, bit i of word w = bits[32w+i]
+    (bit 31 sets the sign, so the words hold lvt_tpu's uint32 bits)."""
+    shifts = _pattern_tensors(bits.device)[3]
+    words = bits.reshape(*bits.shape[:-1], 8, 32).to(torch.int32) << shifts
+    while words.shape[-1] > 1:   # OR the 32 shifted bits together, 5 halvings
+        half = words.shape[-1] // 2
+        words = words[..., :half] | words[..., half:]
+    return words[..., 0]
+
+
+def descriptors_from_patches(
+    patches: torch.Tensor,   # [..., K, PATCH, PATCH] f32 smooth patches
+    x: torch.Tensor,         # [..., K] int32 original (unclamped) column
+    y: torch.Tensor,         # [..., K] int32 ... row
+    kp_valid: torch.Tensor,  # [..., K] bool
+    img_h: int,
+    img_w: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """BRIEF-256 from per-keypoint smooth patches -> (desc [..., K, 8]
+    int32, valid [..., K]); keypoints within BORDER of the image edge are
+    invalid and their descriptor is zero."""
+    pool_idx, p0, p1, _ = _pattern_tensors(patches.device)
+    vals = patches.reshape(*patches.shape[:-2], PATCH * PATCH)[..., pool_idx]
+    desc = pack_bits(vals[..., p0] < vals[..., p1])
+    inside = ((x >= BORDER) & (x < img_w - BORDER)
+              & (y >= BORDER) & (y < img_h - BORDER))
+    valid = kp_valid & inside
+    return torch.where(valid[..., None], desc, 0), valid

@@ -1,0 +1,205 @@
+"""Corner detection: FAST-9/16 score map, 3x3 NMS, per-cell top-k.
+
+Port of lvt_tpu/ops/detect.py (the patch-mode path: ``fast_score_map``,
+``nms3x3``, ``select_corners`` without subpixel refinement, and
+``subpixel_from_patches``). On the main path the two maps come from
+kernel A (ops/perception.py), whose plain version is built from these.
+
+Tie order (lvt_tpu's ``approx_max_k`` returns the lowest index first among
+equal scores, ``torch.topk`` does not): :func:`top_k_lowest_index_first`
+ranks packed int64 keys (score bits << 32 | reversed index), which are
+unique, so the selection is deterministic and equal to JAX's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+# Bresenham circle of radius 3 (dx, dy), the FAST-9/16 ring, clockwise.
+RING_OFFSETS = (
+    (0, -3), (1, -3), (2, -2), (3, -1),
+    (3, 0), (3, 1), (2, 2), (1, 3),
+    (0, 3), (-1, 3), (-2, 2), (-3, 1),
+    (-3, 0), (-3, -1), (-2, -2), (-1, -3),
+)
+BORDER = 3
+
+
+def _arc9(ds, op):
+    """op over each circular 9-arc of the 16 ring values, by doubling
+    windows 2 -> 4 -> 8 -> 9."""
+    b2 = [op(ds[k], ds[(k + 1) % 16]) for k in range(16)]
+    b4 = [op(b2[k], b2[(k + 2) % 16]) for k in range(16)]
+    b8 = [op(b4[k], b4[(k + 4) % 16]) for k in range(16)]
+    return [op(b8[k], ds[(k + 8) % 16]) for k in range(16)]
+
+
+def _reduce(xs, op):
+    out = xs[0]
+    for x in xs[1:]:
+        out = op(out, x)
+    return out
+
+
+def fast_score_map(imgs: torch.Tensor) -> torch.Tensor:
+    """FAST-9/16 max-threshold score of [B, H, W] frames: the largest t for
+    which 9 contiguous ring pixels are all brighter than p + t (or darker
+    than p - t), clamped >= 0 and zero within BORDER of the edge. uint8
+    frames score in int32 (exact); other dtypes in f32."""
+    b, h, w = imgs.shape
+    a = imgs.to(torch.int32) if imgs.dtype == torch.uint8 else imgs.float()
+    p = F.pad(a, (BORDER, BORDER, BORDER, BORDER))
+    diffs = [p[:, BORDER + dy:BORDER + dy + h, BORDER + dx:BORDER + dx + w] - a
+             for dx, dy in RING_OFFSETS]
+    bright = _reduce(_arc9(diffs, torch.minimum), torch.maximum)
+    dark = -_reduce(_arc9(diffs, torch.maximum), torch.minimum)
+    score = torch.clamp(torch.maximum(bright, dark), min=0)
+    ys = torch.arange(h, device=imgs.device)[:, None]
+    xs = torch.arange(w, device=imgs.device)[None, :]
+    interior = ((ys >= BORDER) & (ys < h - BORDER)
+                & (xs >= BORDER) & (xs < w - BORDER))
+    return torch.where(interior, score, torch.zeros_like(score))
+
+
+def nms3x3(score: torch.Tensor) -> torch.Tensor:
+    """Plateau-collapsing 3x3 non-max suppression of [B, H, W] scores: a
+    pixel survives if it is strictly above its earlier neighbours (above,
+    left) and at least its later ones (right, below); outside the image
+    counts as the dtype's lowest value."""
+    b, h, w = score.shape
+    low = (-float("inf") if score.dtype.is_floating_point
+           else torch.iinfo(score.dtype).min)
+    sp = F.pad(score, (1, 1, 1, 1), value=low)
+
+    def neigh(dy, dx):
+        return sp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+    before = torch.maximum(torch.maximum(neigh(-1, -1), neigh(-1, 0)),
+                           torch.maximum(neigh(-1, 1), neigh(0, -1)))
+    after = torch.maximum(torch.maximum(neigh(0, 1), neigh(1, -1)),
+                          torch.maximum(neigh(1, 0), neigh(1, 1)))
+    return torch.where((score > before) & (score >= after), score,
+                       torch.zeros_like(score))
+
+
+class Detections(NamedTuple):
+    kp: torch.Tensor      # [B, N, 2] f32 (x, y) integer corner positions
+    score: torch.Tensor   # [B, N] f32
+    valid: torch.Tensor   # [B, N] bool
+    count: torch.Tensor   # [B] int64
+    threshold_used: torch.Tensor  # [B] f32 (after the low-corner fallback)
+    kp_int: torch.Tensor  # [B, N, 2] int32 detected corner
+
+
+def _bitrev8(v: torch.Tensor) -> torch.Tensor:
+    v = v & 0xFF
+    v = ((v & 0x55) << 1) | ((v >> 1) & 0x55)
+    v = ((v & 0x33) << 2) | ((v >> 2) & 0x33)
+    return ((v & 0x0F) << 4) | ((v >> 4) & 0x0F)
+
+
+def _dither_at(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plateau tie-break at integer positions: van der Corput bit reversal
+    per axis, quantised to multiples of 2^-15 (score + dither is exact in
+    f32 for integer scores < 512)."""
+    key = _bitrev8(y) * 128 + (_bitrev8(x) >> 1)
+    return key.float() * (2.0 ** -15)
+
+
+def _plateau_dither(h: int, w: int, device) -> torch.Tensor:
+    return _dither_at(torch.arange(h, dtype=torch.int32, device=device)[:, None],
+                      torch.arange(w, dtype=torch.int32, device=device)[None, :])
+
+
+def _cell_geometry(h: int, w: int, cell_size: int):
+    s_x = min(cell_size, w)
+    s_y = min(cell_size, h)
+    return s_y, s_x, -(-h // s_y), -(-w // s_x)
+
+
+def _parab_offset(sm, s0, sp):
+    """Parabolic 3-point peak offset in [-0.5, 0.5]."""
+    denom = sm - 2.0 * s0 + sp
+    small = torch.abs(denom) < 1e-6
+    off = 0.5 * (sm - sp) / torch.where(small, 1e-6, denom)
+    return torch.clamp(torch.where(small, 0.0, off), -0.5, 0.5)
+
+
+def subpixel_from_patches(rawp: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Subpixel refinement from [..., K, 8, 8] raw-score patches (corner at
+    (3, 4)) -> (x f32, y f32)."""
+    sc = rawp[..., 3, 4]
+    dx = _parab_offset(rawp[..., 3, 3], sc, rawp[..., 3, 5])
+    dy = _parab_offset(rawp[..., 2, 4], sc, rawp[..., 4, 4])
+    return x.float() + dx, y.float() + dy
+
+
+def top_k_lowest_index_first(vals: torch.Tensor, k: int):
+    """Top-k along the last axis of an f32 tensor, descending, equal values
+    ordered by ascending index (lax.top_k / approx_max_k order).
+    Returns (values, indices int64)."""
+    n = vals.shape[-1]
+    bits = (vals + 0.0).view(torch.int32)   # + 0.0 folds -0.0 into +0.0
+    # order-preserving map of f32 bits onto signed integers
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    rev = (n - 1) - torch.arange(n, dtype=torch.int64, device=vals.device)
+    keys = (bits << 32) | rev
+    top = torch.topk(keys, k, dim=-1, largest=True, sorted=True).values
+    idx = (n - 1) - (top & 0xFFFFFFFF)
+    return torch.gather(vals, -1, idx), idx
+
+
+def select_corners(
+    score: torch.Tensor,   # [B, H', W'] NMS'd score map (H' >= h, W' >= w)
+    threshold,
+    *,
+    cell_size: int,
+    max_per_cell: int,
+    corners_low_threshold: int = 200,
+    img_hw: tuple[int, int] | None = None,
+    spread_ties: bool,
+) -> Detections:
+    """Adaptive threshold + per-cell top-k selection, batched over images.
+
+    Output is cell-major, score-descending within a cell. ``spread_ties``
+    adds the plateau dither (integer score maps only: uint8 frames); it
+    has no default on purpose — take it from the frame dtype."""
+    bsz = score.shape[0]
+    h, w = img_hw if img_hw is not None else score.shape[1:]
+    s_y, s_x, ncy, ncx = _cell_geometry(h, w, cell_size)
+    gy, gx = ncy * s_y, ncx * s_x
+    sp = score[:, :min(gy, score.shape[1]), :min(gx, score.shape[2])]
+    sp = F.pad(sp, (0, gx - sp.shape[2], 0, gy - sp.shape[1]))
+    if spread_ties:
+        sp = sp + _plateau_dither(gy, gx, score.device)
+    cells = sp.reshape(bsz, ncy, s_y, ncx, s_x).permute(0, 1, 3, 2, 4)
+    cells = cells.reshape(bsz, ncy * ncx, s_y * s_x)
+
+    top_keys, flat_idx = top_k_lowest_index_first(cells, max_per_cell)
+    cell_ids = torch.arange(ncy * ncx, device=score.device)[:, None]
+    y2 = (cell_ids // ncx) * s_y + flat_idx // s_x
+    x2 = (cell_ids % ncx) * s_x + flat_idx % s_x
+    top_scores = top_keys - _dither_at(y2, x2) if spread_ties else top_keys
+    y = y2.reshape(bsz, -1)
+    x = x2.reshape(bsz, -1)
+    top_scores = top_scores.reshape(bsz, -1)
+
+    t = np.float32(threshold)
+    t_low = float(np.floor(t * np.float32(0.5) + np.float32(0.5)))
+    use_low = (top_scores > float(t)).sum(dim=-1) < corners_low_threshold
+    t_eff = torch.where(use_low, t_low, float(t))            # [B] f32
+    valid = top_scores > t_eff[:, None]
+
+    xi = torch.clamp(x, max=w - 1)
+    yi = torch.clamp(y, max=h - 1)
+    kp_int = torch.stack([xi, yi], dim=-1).to(torch.int32)
+    return Detections(
+        kp=kp_int.float(), score=top_scores, valid=valid,
+        count=valid.sum(dim=-1), threshold_used=t_eff, kp_int=kp_int,
+    )
+

@@ -1,0 +1,156 @@
+"""Motion-only bundle adjustment: robust Levenberg-Marquardt PnP on SE(3).
+
+Port of lvt_tpu/solver/pnp.py (single device): analytic 2x6 Jacobians,
+Cauchy weights (delta^2 = reprojection_th2), a 6x6 normal-equation solve,
+2 passes of 5 iterations, and chi-square demotion after each pass. The
+iteration loop is a Python loop of fixed length; rejected steps keep the
+state and only adapt lambda. ``torch.linalg.solve_ex`` skips the error
+check (no host sync); a singular system yields a non-finite step, which
+the accept test rejects, as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from lvt_tpu_torch.device import scalar
+from lvt_tpu_torch.geometry import quaternion as quat
+from lvt_tpu_torch.geometry.se3 import Pose, matvec
+
+N_PASSES = 2
+N_ITERS_PER_PASS = 5
+LM_TAU = 1e-5
+
+
+class PnPResult(NamedTuple):
+    pose: Pose
+    inlier_mask: torch.Tensor   # [M] bool
+    inlier_count: torch.Tensor  # [] int64
+    chi2: torch.Tensor          # [] f32 robust total error
+
+
+def _project_residuals(r_wc, t_wc, points, obs, fx, fy, cx, cy):
+    p_cam = matvec(r_wc, points) + t_wc
+    z = p_cam[:, 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    u = fx * p_cam[:, 0] * inv_z + cx
+    v = fy * p_cam[:, 1] * inv_z + cy
+    return torch.stack([u, v], -1) - obs, p_cam, inv_z
+
+
+def _jacobians(p_cam, inv_z, fx, fy):
+    """d(proj)/d(xi) for a left-multiplicative update of world->camera."""
+    x, y = p_cam[:, 0], p_cam[:, 1]
+    fxz = fx * inv_z
+    fyz = fy * inv_z
+    fxxz = fxz * x * inv_z
+    fyyz = fyz * y * inv_z
+    zeros = torch.zeros_like(fxz)
+    ju = torch.stack([fxz, zeros, -fxxz, -fxxz * y, fx + fxxz * x, -fxz * y], -1)
+    jv = torch.stack([zeros, fyz, -fyyz, -fy - fyyz * y, fyyz * x, fyz * x], -1)
+    return torch.stack([ju, jv], -2)  # [M, 2, 6]
+
+
+def _cauchy_weights(e2, delta2):
+    return 1.0 / (1.0 + e2 / delta2)
+
+
+def _retract(r_wc, t_wc, delta):
+    """R' = exp([w]x) R, t' = exp([w]x) t + v for xi = (v, w)."""
+    v, w = delta[:3], delta[3:]
+    theta2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2]
+    theta = torch.sqrt(theta2 + 1e-20)
+    half = 0.5 * theta
+    sinc = torch.where(theta < 1e-6, 0.5 - theta2 / scalar(48.0, theta2),
+                       torch.sin(half) / theta)
+    dq = torch.cat([torch.cos(half)[None], sinc * w])
+    dr = quat.to_matrix(quat.normalize(dq))
+    return matvec(dr, r_wc.T).T, matvec(dr, t_wc) + v
+
+
+class _LMState(NamedTuple):
+    r_wc: torch.Tensor
+    t_wc: torch.Tensor
+    lam: torch.Tensor
+    nu: torch.Tensor
+    chi2: torch.Tensor
+    r: torch.Tensor
+    p_cam: torch.Tensor
+    inv_z: torch.Tensor
+    e2: torch.Tensor
+
+
+def solve_pnp(
+    initial_pose: Pose,
+    points: torch.Tensor,   # [M, 3] world points (fixed)
+    obs: torch.Tensor,      # [M, 2] observed pixels
+    weights: torch.Tensor,  # [M] 0/1 validity of each correspondence
+    *, fx, fy, cx, cy, reprojection_th2: float = 5.991,
+) -> PnPResult:
+    delta2 = scalar(reprojection_th2, points)   # a divisor: see device.scalar
+    three = scalar(3.0, points)
+    eye6 = torch.eye(6, dtype=points.dtype, device=points.device)
+
+    def project(r_wc, t_wc):
+        r, p_cam, inv_z = _project_residuals(r_wc, t_wc, points, obs,
+                                             fx, fy, cx, cy)
+        return r, p_cam, inv_z, (r * r).sum(-1)
+
+    def robust_chi2(e2, w_mask):
+        return (w_mask * (delta2 * torch.log1p(e2 / delta2))).sum()
+
+    def lm_iteration(s: _LMState, w_mask) -> _LMState:
+        w = w_mask * _cauchy_weights(s.e2, delta2)
+        jac = _jacobians(s.p_cam, s.inv_z, fx, fy)
+        jw = jac * w[:, None, None]
+        h = torch.einsum("mki,mkj->ij", jw, jac)
+        g = torch.einsum("mki,mk->i", jw, s.r)
+        step = torch.linalg.solve_ex(h + s.lam * eye6, -g)[0]
+        r_wc_new, t_wc_new = _retract(s.r_wc, s.t_wc, step)
+        r_new, p_new, iz_new, e2_new = project(r_wc_new, t_wc_new)
+        chi2_new = robust_chi2(e2_new, w_mask)
+        accept = (chi2_new < s.chi2) & torch.isfinite(step).all()
+
+        def sel(a, b):
+            return torch.where(accept, a, b)
+
+        return _LMState(
+            r_wc=sel(r_wc_new, s.r_wc), t_wc=sel(t_wc_new, s.t_wc),
+            lam=torch.where(accept, s.lam / three, s.lam * s.nu),
+            nu=torch.where(accept, 2.0, s.nu * 2.0),
+            chi2=sel(chi2_new, s.chi2), r=sel(r_new, s.r),
+            p_cam=sel(p_new, s.p_cam), inv_z=sel(iz_new, s.inv_z),
+            e2=sel(e2_new, s.e2),
+        )
+
+    def run_pass(r_wc, t_wc, w_mask) -> _LMState:
+        r, p_cam, inv_z, e2 = project(r_wc, t_wc)
+        w = w_mask * _cauchy_weights(e2, delta2)
+        jac = _jacobians(p_cam, inv_z, fx, fy)
+        h_diag = torch.einsum("m,mki,mki->i", w, jac, jac)
+        lam0 = LM_TAU * h_diag.max() + 1e-12
+        s = _LMState(r_wc, t_wc, lam0, torch.full_like(lam0, 2.0),
+                     robust_chi2(e2, w_mask), r, p_cam, inv_z, e2)
+        for _ in range(N_ITERS_PER_PASS):
+            s = lm_iteration(s, w_mask)
+        return s
+
+    r_cw = quat.to_matrix(initial_pose.q)
+    r_wc = r_cw.T
+    t_wc = -matvec(r_wc, initial_pose.t)
+    w_mask = weights.to(points.dtype)
+    for _ in range(N_PASSES):
+        s = run_pass(r_wc, t_wc, w_mask)
+        r_wc, t_wc = s.r_wc, s.t_wc
+        # raw chi2 > threshold leaves the next pass and the inlier count
+        w_mask = w_mask * (s.e2 <= delta2)
+
+    inlier_mask = w_mask > 0
+    r_cw = r_wc.T
+    return PnPResult(
+        pose=Pose(-matvec(r_cw, t_wc), quat.from_matrix(r_cw)),
+        inlier_mask=inlier_mask, inlier_count=inlier_mask.sum(),
+        chi2=s.chi2,
+    )

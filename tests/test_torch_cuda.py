@@ -1,0 +1,183 @@
+"""The hand-written CUDA kernels (lvt_tpu_torch/csrc) against their plain
+PyTorch versions, and the wrappers' contract.
+
+Tests marked ``cuda`` need an NVIDIA GPU with nvcc and skip elsewhere.
+On a GPU machine without JAX, skip tests/conftest.py (it imports JAX):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerance: none — kernels A (uint8 frames), P and T are bit-exact with
+their plain versions by construction (integer arithmetic, copies, packed
+integer keys). The unmarked tests run anywhere: a wrapper given a tensor
+that is not on the CPU launches its kernel or raises, never falls back.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lvt_tpu_torch import kernels
+from lvt_tpu_torch.ops import hamming, patches, perception, top2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _frames(rs, b, h, w):
+    return rs.randint(0, 256, (b, h, w)).astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 376, 1241), (1, 37, 53), (3, 64, 96)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_perception_kernel_matches_plain(cuda, shape, dtype):
+    rs = np.random.RandomState(0)
+    imgs = torch.from_numpy(_frames(rs, *shape)).to(cuda, dtype)
+    before = perception.perception_patch_maps_batched.launches
+    got = perception.perception_patch_maps_batched(imgs)
+    torch.cuda.synchronize()
+    assert perception.perception_patch_maps_batched.launches == before + 1
+    for g, w in zip(got, perception.perception_plain(imgs)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1536, 77])
+def test_patch_kernel_matches_plain(cuda, k):
+    rs = np.random.RandomState(1)
+    h, w = 376, 1241
+    smooth = torch.from_numpy(rs.rand(2, h, w).astype(np.float32)).to(cuda)
+    raw = torch.from_numpy(rs.rand(2, h, w).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rs.randint(-4, w + 4, (2, k)).astype(np.int32))
+    y = torch.from_numpy(rs.randint(-4, h + 4, (2, k)).astype(np.int32))
+    x, y = (c.to(cuda) for c in patches.clamp_coords(x, y, h, w))
+    valid = torch.from_numpy(rs.rand(2, k) > 0.3).to(cuda)
+    got = patches.extract_patches_batched(smooth, raw, x, y, valid)
+    torch.cuda.synchronize()
+    for g, r in zip(got, patches.extract_patches_plain(smooth, raw, x, y,
+                                                       valid)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+@pytest.mark.parametrize("mk", [(1024, 1536), (100, 333)])
+def test_top2_kernel_matches_plain(cuda, mode, mk):
+    rs = np.random.RandomState(2)
+    m, k = mk
+    desc = lambda n: torch.from_numpy(  # noqa: E731
+        rs.randint(-2**31, 2**31, (n, 8), dtype=np.int64).astype(np.int32))
+    dist = hamming.hamming_matrix(desc(m), desc(k)).to(cuda)
+    t_kp = torch.from_numpy(rs.uniform(0, 300, (k, 2)).astype(np.float32))
+    if mode == "row":
+        y = np.floor(rs.uniform(0, 300, m)).astype(np.float32)
+        q = torch.from_numpy(np.stack([y - 2, y + 2], -1))
+        kw = dict(r2a=0.0, r2b=0.0, row_mode=True)
+    else:
+        q = torch.from_numpy(rs.uniform(0, 300, (m, 2)).astype(np.float32))
+        kw = dict(r2a=25.0**2, r2b=(50.0 if mode == "dual" else 25.0)**2)
+    args = (dist, q.to(cuda), torch.from_numpy(rs.rand(m) > 0.1).to(cuda),
+            t_kp.to(cuda), torch.from_numpy(rs.rand(k) > 0.1).to(cuda))
+    got = top2.masked_dual_top2(*args, **kw)
+    torch.cuda.synchronize()
+    want = top2.masked_dual_top2_plain(*args, **kw)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    imgs = torch.zeros(2, 40, 48, dtype=torch.int16, device=cuda)
+    with pytest.raises(TypeError):
+        perception.perception_patch_maps_batched(imgs)
+    dist = torch.zeros(8, 16, dtype=torch.int32, device=cuda)
+    q = torch.zeros(2, 8, device=cuda).T           # not contiguous
+    ok = torch.ones(8, dtype=torch.bool, device=cuda)
+    tk = torch.zeros(16, 2, device=cuda)
+    tv = torch.ones(16, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        top2.masked_dual_top2(dist, q, ok, tk, tv, r2a=1.0, r2b=1.0)
+    with pytest.raises(ValueError, match="K="):
+        top2.masked_dual_top2(torch.zeros(8, 4096, dtype=torch.int32,
+                                          device=cuda), q.contiguous(), ok,
+                              torch.zeros(4096, 2, device=cuda),
+                              torch.ones(4096, dtype=torch.bool, device=cuda),
+                              r2a=1.0, r2b=1.0)
+
+
+@pytest.mark.cuda
+def test_main_path_on_the_card_matches_the_cpu(cuda):
+    """A few synthetic frames through VOSystem on both devices: the
+    extracted features are bit-equal and the poses agree within 1e-4 m."""
+    from lvt_tpu.config import VOConfig
+    from lvt_tpu.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.core.extract import extract_features_stereo
+    from lvt_tpu_torch.core.system import TrackingState, VOSystem
+
+    world = SyntheticWorld(width=320, height=240, fx=260.0, fy=260.0,
+                           cx=160.0, cy=120.0, baseline=0.3, n_points=1500,
+                           extent_x=40.0, extent_y=18.0, extent_z=90.0)
+    cfg = VOConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
+                   baseline=world.baseline, img_width=320, img_height=240,
+                   detection_cell_size=80, max_keypoints_per_cell=60,
+                   agast_threshold=15, near_plane_distance=0.5,
+                   far_plane_distance=150.0)
+    frames = [(l.astype(np.uint8), r.astype(np.uint8))
+              for l, r, _ in world.stereo_sequence(4, speed=0.5)]
+    il = torch.from_numpy(np.stack([f[0] for f in frames]))
+    ir = torch.from_numpy(np.stack([f[1] for f in frames]))
+    for g, c in zip(extract_features_stereo(il[1].to(cuda), ir[1].to(cuda),
+                                            cfg),
+                    extract_features_stereo(il[1], ir[1], cfg)):
+        for a, b in zip(g, c):
+            assert torch.equal(a.cpu(), b)
+    gpu, cpu = VOSystem(cfg, device=cuda), VOSystem(cfg, device="cpu")
+    pg, _ = gpu.track_chunk(il.to(cuda), ir.to(cuda))
+    pc, _ = cpu.track_chunk(il, ir)
+    assert gpu.get_state() == TrackingState.TRACKING
+    torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("call", ["perception", "patches", "top2"])
+def test_wrapper_never_falls_back_off_the_cpu(call):
+    """A tensor on another device than the CPU goes to the kernel path,
+    whose argument checks refuse anything that is not on a CUDA device."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        if call == "perception":
+            perception.perception_patch_maps_batched(
+                torch.empty(2, 40, 48, dtype=torch.uint8, **meta))
+        elif call == "patches":
+            f = torch.empty(2, 40, 48, **meta)
+            i = torch.empty(2, 5, dtype=torch.int32, **meta)
+            patches.extract_patches_batched(
+                f, f, i, i, torch.empty(2, 5, dtype=torch.bool, **meta))
+        else:
+            top2.masked_dual_top2(
+                torch.empty(4, 6, dtype=torch.int32, **meta),
+                torch.empty(4, 2, **meta),
+                torch.empty(4, dtype=torch.bool, **meta),
+                torch.empty(6, 2, **meta),
+                torch.empty(6, dtype=torch.bool, **meta), r2a=1.0, r2b=1.0)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build()
+
+
+def test_library_name_follows_the_sources():
+    path = kernels.library_path()
+    assert path.parent == kernels.BUILD_DIR
+    assert path == kernels.library_path()
+    assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
+    assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
+        "perception.cu", "patches.cu", "top2.cu"}
