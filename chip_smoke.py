@@ -7,22 +7,32 @@ Run from the root of a checkout. Phases, one line each; any failure raises
 and the script exits non-zero without printing the final line:
 
 1. device: the card's name and power limit, then the build of the CUDA
-   kernels (``lvt_tpu_torch/csrc/*.cu``, nvcc for sm_90a) with its seconds;
-2. kernels: A (perception), P (patches) and T (masked top-2) against their
-   plain PyTorch versions on the card, at the stereo main path's shapes
-   (a uint8 KITTI pair, 1536 keypoints, 1024x1536 dual and single radius,
-   1536x1536 row mode) -- bit for bit -- with median times of both;
-3. main path: a synthetic KITTI-geometry stereo sequence (uint8, as bench.py
-   builds it) through ``VOSystem(config, device="cuda").track_chunk`` in
-   chunks of 16; the final status must be TRACKING, the ATE under 5% of
-   the distance travelled, and every kernel's launch count must have grown
-   (A and P once per frame, T three times). Prints the host syncs of one
-   chunk under ``torch.cuda.set_sync_debug_mode("warn")`` and the frames/s
-   of the timed chunks;
-4. the card against the CPU: frame 0's features bit for bit, and the poses
-   of frames 0-3 within 1e-3 m;
+   kernels (``lvt_tpu_torch/csrc/*.cu``, one nvcc per source for sm_90a,
+   in parallel) with its seconds;
+2. kernels: A (perception), B (dense BRIEF planes), P (patches) and T
+   (masked top-2) against their plain PyTorch versions on the card, at the
+   main paths' shapes (a uint8 KITTI pair, its [2, 376, 1241] box sums,
+   1536 keypoints, 1024x1536 dual and single radius, 1536x1536 row mode)
+   -- bit for bit -- with median times of both;
+3. path 1, the main path (patch descriptors, BA off): a synthetic
+   KITTI-geometry stereo sequence (uint8, as bench.py builds it) through
+   ``VOSystem(config, device="cuda").track_chunk`` in chunks of 16; the
+   final status must be TRACKING, the ATE under 5% of the distance
+   travelled, and the kernels must have launched (A and P once per frame,
+   T three times). Prints the host syncs of one chunk under
+   ``torch.cuda.set_sync_debug_mode("warn")`` and the frames/s of the
+   timed chunks; then the card against the CPU: frame 0's features bit for
+   bit, and the poses of frames 0-3 within 1e-3 m;
+4. path 2, the shipped KITTI config (lvt_tpu/configs/kitti/vo_config.yaml:
+   local BA, window 4 every 4 frames) in the dense descriptor mode, 48
+   frames in the same way: A, B once per frame and T four times; the
+   number of frames that ran BA (read once after the run) must be the
+   schedule's; then the card against the CPU over frames 0-8 (two BA runs);
 5. a JSON line with each kernel's launches, error and times, then the
    last line ``{"ok": true, "device": {...}}``.
+
+Every kernel's launch count is set to 0 just before a path runs and read
+just after it; the comparisons of phase 2 are not counted.
 
 ``--profile DIR`` also writes a torch.profiler table of one tracked chunk
 to DIR. Imports nothing of JAX.
@@ -45,8 +55,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 CHUNK = 16
-N_CHUNKS = 5          # chunk 0 warms up, chunk 1 counts host syncs, 2.. timed
-N_CPU_FRAMES = 4
+# chunk 0 warms up, chunk 1 counts host syncs, the rest are timed
+N_CHUNKS = {"path1": 5, "path2": 3}
+N_CPU_FRAMES = {"path1": 4, "path2": 9}
 REPS = 20
 DEVICE = "cuda"
 
@@ -54,10 +65,17 @@ KERNELS = {
     # name: (route, source, TPU kernel it replaces)
     "perception": ("cuda", "lvt_tpu_torch/csrc/perception.cu",
                    "lvt_tpu/ops/perception_pallas.py:153"),
+    "brief": ("cuda", "lvt_tpu_torch/csrc/brief.cu",
+              "lvt_tpu/ops/perception_pallas.py:288"),
     "patches": ("cuda", "lvt_tpu_torch/csrc/patches.cu",
                 "lvt_tpu/ops/patches_pallas.py:109"),
     "top2": ("cuda", "lvt_tpu_torch/csrc/top2.cu",
              "lvt_tpu/ops/top2_pallas.py:35"),
+}
+# launches each path needs per frame
+NEED_PER_FRAME = {
+    "path1": {"perception": 1, "patches": 1, "top2": 3},
+    "path2": {"perception": 1, "brief": 1, "top2": 4},
 }
 
 
@@ -109,6 +127,25 @@ def _world(config):
     )
 
 
+def _kitti_config():
+    """Path 1: KITTI sequence 00 geometry, patch descriptors, BA off."""
+    from __graft_entry__ import _kitti_config as config
+
+    return config()
+
+
+def _kitti_ba_dense_config():
+    """Path 2: the shipped KITTI YAML (local BA on) with sequence 00's
+    calibration and frame size, in the dense descriptor mode."""
+    from lvt_tpu.config import load_config, load_kitti_calib
+
+    cfg_dir = os.path.join(ROOT, "lvt_tpu", "configs", "kitti")
+    calib = load_kitti_calib(os.path.join(cfg_dir, "00.yaml"))
+    return load_config(os.path.join(cfg_dir, "vo_config.yaml"), **calib,
+                       img_width=1241, img_height=376,
+                       descriptor_mode="dense")
+
+
 def phase_device() -> str:
     from lvt_tpu_torch import kernels
 
@@ -151,8 +188,17 @@ def phase_kernels(config, frame_l, frame_r) -> dict:
         ms=_median_ms(lambda: perception.perception_patch_maps_batched(imgs)),
         plain_ms=_median_ms(lambda: perception.perception_plain(imgs)))
 
-    # ---- P: the selected corners of that pair, padded to kp_capacity
+    # ---- B: the dense BRIEF planes of that pair's box sums
     nms, raw, smooth = kern
+    kern = [perception.brief_planes(smooth)]
+    plain = [perception.brief_planes_plain(smooth)]
+    _require_equal("brief", kern, plain)
+    report["brief"] = dict(
+        max_abs_err=_max_abs_err(kern, plain),
+        ms=_median_ms(lambda: perception.brief_planes(smooth)),
+        plain_ms=_median_ms(lambda: perception.brief_planes_plain(smooth)))
+
+    # ---- P: the selected corners of that pair, padded to kp_capacity
     h, w = imgs.shape[1:]
     det = detect.select_corners(
         nms, config.agast_threshold, cell_size=config.detection_cell_size,
@@ -238,12 +284,13 @@ def _counters():
     from lvt_tpu_torch.ops import patches, perception, top2
 
     return {"perception": perception.perception_patch_maps_batched,
+            "brief": perception.brief_planes,
             "patches": patches.extract_patches_batched,
             "top2": top2.masked_dual_top2}
 
 
-def phase_main_path(config, il, ir, gt, profile_dir=None):
-    """The main path: VOSystem.track_chunk on the card, chunk by chunk."""
+def phase_path(path, config, il, ir, gt, profile_dir=None):
+    """One path: VOSystem.track_chunk on the card, chunk by chunk."""
     from lvt_tpu.io.synthetic import ate_rmse
     from lvt_tpu_torch.core.system import TrackingState, VOSystem
 
@@ -252,7 +299,7 @@ def phase_main_path(config, il, ir, gt, profile_dir=None):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    poses_t, poses = [], []
+    poses_t, poses, ba_ran = [], [], []
     syncs = None
     t_timed = 0.0
     for c in range(n // CHUNK):
@@ -263,7 +310,7 @@ def phase_main_path(config, il, ir, gt, profile_dir=None):
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
                 try:
-                    p, _ = vo.track_chunk(a, b)
+                    p, m = vo.track_chunk(a, b)
                     torch.cuda.synchronize()
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
@@ -271,13 +318,19 @@ def phase_main_path(config, il, ir, gt, profile_dir=None):
                         for x in caught)
         else:
             t0 = time.perf_counter()
-            p, _ = vo.track_chunk(a, b)
+            p, m = vo.track_chunk(a, b)
             torch.cuda.synchronize()
             if c >= 2:
                 t_timed += time.perf_counter() - t0
         poses.append(p)
+        ba_ran.append(m.local_ba_ran)
         poses_t.append(p.t.cpu().numpy())
     launches = {k: fn.launches for k, fn in counters.items()}
+    n_ba = int(torch.cat(ba_ran).sum())
+    window, every = config.local_ba_window, config.local_ba_every
+    # every frame tracks; BA runs once the window is full, on its schedule
+    want_ba = (sum(f >= window and f % every == 0 for f in range(n))
+               if window > 0 else 0)
 
     status = vo.get_state()
     est = np.concatenate(poses_t)
@@ -285,35 +338,44 @@ def phase_main_path(config, il, ir, gt, profile_dir=None):
     dist = float(np.linalg.norm(gt[n - 1] - gt[0]))
     timed_frames = n - 2 * CHUNK
     fps = timed_frames / t_timed
-    _say("main", f"{n} frames {il.shape[1]}x{il.shape[2]} uint8 in chunks of "
-                 f"{CHUNK}: status {status.name}, map {vo.map_size} points")
-    _say("main", f"host syncs in one tracked chunk "
-                 f"(set_sync_debug_mode warn): {syncs}")
-    _say("main", f"{fps:.2f} frames/s over {timed_frames} timed frames "
-                 f"(after a warm-up chunk and the sync-count chunk)")
-    _say("main", f"ATE RMSE {err:.4f} m over {dist:.2f} m "
-                 f"({100 * err / dist:.3f}%)")
-    _say("main", f"launches during the run: {launches}")
+    _say(path, f"{n} frames {il.shape[1]}x{il.shape[2]} uint8 in chunks of "
+               f"{CHUNK}, descriptor mode {config.descriptor_mode or 'patch'}, "
+               f"BA window {window}: status {status.name}, map {vo.map_size} "
+               f"points")
+    _say(path, f"host syncs in one tracked chunk "
+               f"(set_sync_debug_mode warn): {syncs}")
+    _say(path, f"{fps:.2f} frames/s over {timed_frames} timed frames "
+               f"(after a warm-up chunk and the sync-count chunk)")
+    _say(path, f"ATE RMSE {err:.4f} m over {dist:.2f} m "
+               f"({100 * err / dist:.3f}%)")
+    _say(path, f"frames that ran local BA: {n_ba} (schedule: {want_ba})")
+    _say(path, f"launches during the run: {launches}")
     if status != TrackingState.TRACKING:
-        raise AssertionError(f"final status {status.name}, not TRACKING")
+        raise AssertionError(f"{path}: final status {status.name}, not TRACKING")
     if not err < 0.05 * dist:
-        raise AssertionError(f"ATE {err:.4f} m is not under 5% of {dist:.2f} m")
-    need = {"perception": n, "patches": n, "top2": 3 * n}
+        raise AssertionError(
+            f"{path}: ATE {err:.4f} m is not under 5% of {dist:.2f} m")
+    if n_ba != want_ba:
+        raise AssertionError(f"{path}: {n_ba} frames ran BA, the schedule "
+                             f"says {want_ba}")
+    need = {k: v * n for k, v in NEED_PER_FRAME[path].items()}
     short = {k: (launches[k], v) for k, v in need.items() if launches[k] < v}
     if short:
-        raise AssertionError(f"kernels launched too rarely (got, need): {short}")
+        raise AssertionError(
+            f"{path}: kernels launched too rarely (got, need): {short}")
 
     if profile_dir:
-        _profile(vo, il[-CHUNK:], ir[-CHUNK:], profile_dir)
+        _profile(vo, il[-CHUNK:], ir[-CHUNK:], os.path.join(profile_dir, path))
     from lvt_tpu_torch.tree import tree_map
 
-    first = tree_map(lambda x: x[:N_CPU_FRAMES], poses[0])
-    return dict(launches=launches, first_poses=first)
+    first = tree_map(lambda *xs: torch.cat(xs)[:N_CPU_FRAMES[path]], *poses)
+    return dict(launches=launches, first_poses=first, fps=fps, syncs=syncs)
 
 
 STAGES = ("perception", "corner_select", "patch_extract", "describe_refine",
-          "motion_predict", "map_matching", "pnp_solve", "map_bookkeeping",
-          "staged_update", "triangulation")
+          "corner_select_describe", "motion_predict", "map_matching",
+          "pnp_solve", "map_bookkeeping", "staged_update", "triangulation",
+          "local_ba")
 
 
 def _profile(vo, a, b, out_dir):
@@ -343,8 +405,8 @@ def _profile(vo, a, b, out_dir):
     _say("profile", f"op table of one chunk written to {out_dir}")
 
 
-def phase_cpu(config, il, ir, first_poses):
-    """The first frames again through the port on the CPU."""
+def phase_cpu(path, config, il, ir, first_poses):
+    """The first frames of a path again through the port on the CPU."""
     from lvt_tpu_torch.core.extract import extract_features_stereo
     from lvt_tpu_torch.core.system import VOSystem
 
@@ -353,21 +415,24 @@ def phase_cpu(config, il, ir, first_poses):
     for side, g, c in zip(("left", "right"), cuda_feats, cpu_feats):
         g = type(g)(*(x.cpu() for x in g))
         if not torch.equal(g.valid, c.valid):
-            raise AssertionError(f"frame 0 {side}: valid differs card vs CPU")
+            raise AssertionError(
+                f"{path} frame 0 {side}: valid differs card vs CPU")
         v = c.valid
         for field in ("kp", "desc"):
             if not torch.equal(getattr(g, field)[v], getattr(c, field)[v]):
                 raise AssertionError(
-                    f"frame 0 {side}: {field} differs card vs CPU")
+                    f"{path} frame 0 {side}: {field} differs card vs CPU")
+    n = N_CPU_FRAMES[path]
     vo = VOSystem(config, device="cpu")
-    poses, _ = vo.track_chunk(il[:N_CPU_FRAMES].cpu(), ir[:N_CPU_FRAMES].cpu())
+    poses, _ = vo.track_chunk(il[:n].cpu(), ir[:n].cpu())
     dt = float((poses.t - first_poses.t.cpu()).abs().max())
-    _say("cpu", f"frame 0 features bit-equal card vs CPU "
-                f"({int(cpu_feats[0].valid.sum())} + "
-                f"{int(cpu_feats[1].valid.sum())} valid); poses of frames "
-                f"0-{N_CPU_FRAMES - 1} differ by at most {dt:.3g} m")
+    _say(path, f"card vs CPU: frame 0 features bit-equal "
+               f"({int(cpu_feats[0].valid.sum())} + "
+               f"{int(cpu_feats[1].valid.sum())} valid); poses of frames "
+               f"0-{n - 1} differ by at most {dt:.3g} m")
     if not dt < 1e-3:
-        raise AssertionError(f"CPU vs card pose difference {dt} m >= 1e-3 m")
+        raise AssertionError(
+            f"{path}: CPU vs card pose difference {dt} m >= 1e-3 m")
 
 
 def main(argv=None) -> int:
@@ -377,24 +442,28 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     name = phase_device()
-    from __graft_entry__ import _kitti_config
-
-    config = _kitti_config()
-    n = CHUNK * N_CHUNKS
-    frames = list(_world(config).stereo_sequence(n, speed=0.9))
+    configs = {"path1": _kitti_config(), "path2": _kitti_ba_dense_config()}
+    n = CHUNK * max(N_CHUNKS.values())
+    frames = list(_world(configs["path1"]).stereo_sequence(n, speed=0.9))
     il = torch.from_numpy(np.stack([f[0].astype(np.uint8) for f in frames]))
     ir = torch.from_numpy(np.stack([f[1].astype(np.uint8) for f in frames]))
     gt = np.array([f[2][1] for f in frames])
 
-    report = phase_kernels(config, il[0].numpy(), ir[0].numpy())
+    report = phase_kernels(configs["path1"], il[0].numpy(), ir[0].numpy())
     il, ir = il.to(DEVICE), ir.to(DEVICE)
     torch.cuda.synchronize()
-    main_rep = phase_main_path(config, il, ir, gt, args.profile)
-    phase_cpu(config, il, ir, main_rep["first_poses"])
+    runs = {}
+    for path, config in configs.items():
+        k = CHUNK * N_CHUNKS[path]
+        runs[path] = phase_path(path, config, il[:k], ir[:k], gt,
+                                args.profile)
+        phase_cpu(path, config, il, ir, runs[path]["first_poses"])
 
     print(json.dumps({"kernels": [
         dict(name=k, route=KERNELS[k][0], source=KERNELS[k][1],
-             replaces=KERNELS[k][2], launches=main_rep["launches"][k],
+             replaces=KERNELS[k][2],
+             launches=sum(r["launches"][k] for r in runs.values()),
+             launches_by_path={p: r["launches"][k] for p, r in runs.items()},
              **report[k])
         for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {

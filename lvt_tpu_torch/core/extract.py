@@ -1,8 +1,16 @@
-"""Feature extraction (patch descriptor mode): kernel A -> per-cell corner
-selection -> patch kernel -> BRIEF from patches + subpixel refinement.
+"""Feature extraction in two descriptor modes, bit-identical at valid
+keypoints:
 
-Port of lvt_tpu/core/extract.py (``_extract_patch_mode`` and
-``extract_features_stereo``). Left and right are one batch of 2.
+* patch (the default): kernel A -> per-cell corner selection -> patch
+  kernel -> BRIEF from patches + subpixel refinement;
+* dense: kernel A -> kernel B (BRIEF bit planes of every pixel) ->
+  per-cell selection with subpixel refinement on the raw map -> one
+  descriptor gather from the planes.
+
+Port of lvt_tpu/core/extract.py (``_descriptor_mode``,
+``perception_batched``, ``_select_and_describe``, ``_extract_patch_mode``,
+``extract_features_batched`` and ``extract_features_stereo``). Left and
+right are one batch of 2.
 """
 
 from __future__ import annotations
@@ -14,7 +22,8 @@ from lvt_tpu.config import VOConfig
 from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.ops import brief, detect
 from lvt_tpu_torch.ops import patches as pt
-from lvt_tpu_torch.ops.perception import perception_patch_maps_batched
+from lvt_tpu_torch.ops.perception import (perception_maps_batched,
+                                          perception_patch_maps_batched)
 
 
 def _pad_to(arr: torch.Tensor, capacity: int, axis: int = 0) -> torch.Tensor:
@@ -71,8 +80,58 @@ def _extract_patch_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
     )
 
 
+def _descriptor_mode(config: VOConfig) -> str:
+    """Resolve config.descriptor_mode as lvt_tpu does, except that an unset
+    mode is "patch" on every device (lvt_tpu picks "dense" off the TPU:
+    both give the same features). The sparse mode is not ported."""
+    mode = config.descriptor_mode
+    if mode is None:
+        mode = "patch" if config.use_dense_brief else "sparse"
+    if mode == "sparse":
+        raise NotImplementedError(
+            "the sparse descriptor mode (descriptor_mode='sparse' or "
+            "use_dense_brief=False) is not ported (ROADMAP Queue 1 item 13)")
+    if mode not in ("patch", "dense"):
+        raise ValueError(f"unknown descriptor_mode {mode!r}")
+    return mode
+
+
+def _extract_dense_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
+    """Kernel A, kernel B, then per-cell selection and one descriptor
+    gather from the planes. Descriptors sample at the integer corner; the
+    subpixel position is the observation only."""
+    spread_ties = _spread_ties(imgs)
+    if imgs.dtype != torch.uint8:
+        imgs = imgs.float()
+    with stage("perception"):
+        raw, nms, planes = perception_maps_batched(imgs)
+    with stage("corner_select_describe"):
+        det = detect.select_corners(
+            nms, config.agast_threshold,
+            cell_size=config.detection_cell_size,
+            max_per_cell=config.max_keypoints_per_cell,
+            corners_low_threshold=config.corners_low_threshold,
+            spread_ties=spread_ties, score_raw=raw,
+        )
+        desc, valid = brief.descriptors_from_planes(
+            planes, det.kp_int.float(), det.valid)
+        cap = config.kp_capacity
+
+        def pad(a):
+            return _pad_to(a, cap, axis=1)
+
+        return FrameFeatures(
+            kp=pad(det.kp), desc=pad(desc), score=pad(det.score),
+            depth=torch.zeros((imgs.shape[0], cap), dtype=torch.float32,
+                              device=imgs.device),
+            valid=pad(valid),
+        )
+
+
 def extract_features_batched(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
     """[B, H, W] images -> batched FrameFeatures [B, kp_capacity]."""
+    if _descriptor_mode(config) == "dense":
+        return _extract_dense_mode(imgs, config)
     return _extract_patch_mode(imgs, config)
 
 

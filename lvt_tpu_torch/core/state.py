@@ -51,16 +51,18 @@ class PointStore(NamedTuple):
 
 
 class ObsWindow(NamedTuple):
-    """Sliding observation window for local BA. The port runs BA off, so
-    the window is zero-sized; it is carried for checkpoint parity."""
+    """Sliding observation window of local BA, F = config.local_ba_window
+    frames (zero-sized with BA off). The frame axis is oldest-first; the
+    point axis is the map's slot index, so a slot's history is dropped
+    when the slot is culled or recycled."""
 
     poses_t: torch.Tensor  # [F, 3]
     poses_q: torch.Tensor  # [F, 4]
-    obs: torch.Tensor      # [F, M, 2]
-    w: torch.Tensor        # [F, M]
-    obs_r: torch.Tensor    # [F, M, 2]
-    w_r: torch.Tensor      # [F, M]
-    n: torch.Tensor        # [] int32
+    obs: torch.Tensor      # [F, M, 2] left-camera pixel observations
+    w: torch.Tensor        # [F, M] observation validity 0/1
+    obs_r: torch.Tensor    # [F, M, 2] right-camera pixel observations
+    w_r: torch.Tensor      # [F, M] right validity
+    n: torch.Tensor        # [] int32 frames accumulated (saturates at F)
 
     @staticmethod
     def empty(window: int, capacity: int, device=None) -> "ObsWindow":
@@ -84,7 +86,7 @@ class VOState(NamedTuple):
     last_matches: torch.Tensor   # [3] float32, oldest-first match counts
     frame_number: torch.Tensor   # [] int32
     status: torch.Tensor         # [] int32 (NOT_INITIALIZED/TRACKING/LOST)
-    ba: ObsWindow                # zero-sized while BA is off
+    ba: ObsWindow                # local-BA window ([0]-sized with BA off)
 
     @staticmethod
     def initial(max_map_points: int, max_staged_points: int,
@@ -105,7 +107,8 @@ class VOState(NamedTuple):
 
 class StepMetrics(NamedTuple):
     """Per-frame observability (the reference's recorded series, with
-    per-point series aggregated to means)."""
+    per-point series aggregated to means). ``local_ba_ran``, which lvt_tpu
+    does not record, says whether local BA refined the map this frame."""
 
     map_points_count: torch.Tensor
     staged_points_count: torch.Tensor
@@ -120,10 +123,11 @@ class StepMetrics(NamedTuple):
     triangulated_points: torch.Tensor
     used_wide_radius: torch.Tensor
     status: torch.Tensor
+    local_ba_ran: torch.Tensor
 
     @staticmethod
     def zero(device=None) -> "StepMetrics":
         z = torch.zeros((), dtype=torch.int32, device=device)
         f = torch.zeros((), dtype=torch.float32, device=device)
-        return StepMetrics(z, z, z, z, f, f, f, f, f, z, z,
-                           torch.zeros((), dtype=torch.bool, device=device), z)
+        no = torch.zeros((), dtype=torch.bool, device=device)
+        return StepMetrics(z, z, z, z, f, f, f, f, f, z, z, no, z, no)

@@ -1,12 +1,15 @@
 """The per-frame tracking step: extraction + one predicated tracking body.
 
-Port of lvt_tpu/core/step.py (stereo, local BA off, single device). The
-reference's state machine is ONE computation: the init frame is a tracking
-frame over an empty map at a forced-identity pose with triangulation
-forced on, and the lost frame is an output select. Every retry and policy
-branch is computed and then selected with ``torch.where``, so the step has
-fixed shapes and no data-dependent Python branch or host sync — the form a
-CUDA graph can capture. ``lax.scan`` over a chunk is a Python loop.
+Port of lvt_tpu/core/step.py (stereo, single device, windowed local BA
+optional). The reference's state machine is ONE computation: the init
+frame is a tracking frame over an empty map at a forced-identity pose with
+triangulation forced on, and the lost frame is an output select. Every
+retry and policy branch is computed and then selected with
+``torch.where``, so the step has fixed shapes and no data-dependent Python
+branch or host sync — the form a CUDA graph can capture. That includes
+local BA: lvt_tpu's ``lax.cond`` on the BA schedule becomes BA computed on
+every frame and selected, as JAX's vmapped path lowers it. ``lax.scan``
+over a chunk is a Python loop.
 """
 
 from __future__ import annotations
@@ -20,10 +23,12 @@ from lvt_tpu_torch.core import map as map_ops
 from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.core.motion import predict_next_pose
 from lvt_tpu_torch.core.state import (LOST, NOT_INITIALIZED, TRACKING,
-                                      StepMetrics, VOState)
+                                      ObsWindow, PointStore, StepMetrics,
+                                      VOState)
 from lvt_tpu_torch.geometry import se3
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.ops import hamming, matching, triangulate
+from lvt_tpu_torch.solver import bundle
 from lvt_tpu_torch.solver.pnp import solve_pnp
 from lvt_tpu_torch.tree import tree_map
 
@@ -48,17 +53,23 @@ def _camera_kwargs(config: VOConfig) -> dict:
                 min_x=min_x, max_x=max_x, min_y=min_y, max_y=max_y)
 
 
-def _triangulate_new_points(left: FrameFeatures, right: FrameFeatures,
-                            feature_matched, pose: Pose, config: VOConfig):
-    """Row-match the untracked left features and triangulate them.
-    Returns (points_world [K, 3], desc [K, W], valid [K])."""
-    rm = matching.row_match(
-        left, right, feature_matched,
+def _row_match(left: FrameFeatures, right: FrameFeatures, left_excluded,
+               config: VOConfig, dist=None):
+    return matching.row_match(
+        left, right, left_excluded,
         vertical_search_radius=config.row_matching_vertical_search_radius,
         ratio_threshold=config.triangulation_ratio_test_threshold,
         abs_threshold=config.descriptor_matching_threshold,
-        img_rows=config.img_height,
+        img_rows=config.img_height, dist=dist,
     )
+
+
+def _triangulate_new_points(left: FrameFeatures, right: FrameFeatures,
+                            feature_matched, pose: Pose, config: VOConfig,
+                            row_dist=None):
+    """Row-match the untracked left features and triangulate them.
+    Returns (points_world [K, 3], desc [K, W], valid [K])."""
+    rm = _row_match(left, right, feature_matched, config, row_dist)
     k = left.kp.shape[0]
     uv_right = right.kp[torch.clamp(rm.right_idx, 0, k - 1)]
     res = triangulate.triangulate_stereo(
@@ -112,6 +123,69 @@ def _staged_update(staged, pose: Pose, feats: FrameFeatures, feature_matched,
     return staged_out, promo, feature_matched
 
 
+def _norm3(v):
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                      + v[..., 2] * v[..., 2])
+
+
+def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig):
+    """One windowed BA over the map: chi-square gate, refine, then keep a
+    refined point only inside a relative trust region (10% of its distance
+    to the camera + 0.5 m) and only if it fits the gated observations
+    better under the original window poses. Returns positions [M, 3]."""
+    cam = dict(fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy)
+    stereo = dict(baseline=config.baseline, obs_right=obs_r)
+    w, w_r = bundle.chi2_gate_weights(poses, pos, obs, w, w_right=w_r,
+                                      **stereo, **cam)
+    # only points with >= 2 left observations and >= 1 stereo pair
+    n_l = (w > 0).sum(0)
+    n_s = ((w > 0) & (w_r > 0)).sum(0)
+    use = ((n_l >= 2) & (n_s >= 1)).float()
+    w, w_r = w * use[None], w_r * use[None]
+    res = bundle.refine_window(
+        poses, pos, obs, w, w_right=w_r, **stereo, **cam,
+        iterations=config.local_ba_iterations,
+        reprojection_th2=config.reprojection_th2, n_fixed_poses=1)
+    dist = _norm3(pos - poses.t[-1][None])
+    ok = (use > 0) & (_norm3(res.points - pos) <= 0.1 * dist + 0.5)
+    e2_old = bundle.weighted_point_e2(poses, pos, obs, w, w_right=w_r,
+                                      **stereo, **cam)
+    e2_new = bundle.weighted_point_e2(poses, res.points, obs, w, w_right=w_r,
+                                      **stereo, **cam)
+    ok = ok & (e2_new <= e2_old)
+    return torch.where(ok[:, None], res.points, pos)
+
+
+def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
+                     obs_new, w_new, obs_r_new, w_r_new, slots_invalidated,
+                     frame_number, config: VOConfig):
+    """Slide the observation window by this frame and, every
+    ``local_ba_every`` frames once it is full, refine the map structure.
+    Returns (window', the window's newest pose, map positions, whether BA
+    ran). BA is computed on every frame and selected (no host sync); the
+    trajectory stays the PnP output."""
+    alive = (map_store.valid & ~slots_invalidated)[None, :].float()
+
+    def slide(old, new):
+        return torch.cat([old[1:], new[None]], 0)
+
+    window = ObsWindow(
+        poses_t=slide(ba.poses_t, pose_opt.t),
+        poses_q=slide(ba.poses_q, pose_opt.q),
+        obs=slide(ba.obs, obs_new), w=slide(ba.w, w_new) * alive,
+        obs_r=slide(ba.obs_r, obs_r_new), w_r=slide(ba.w_r, w_r_new) * alive,
+        n=torch.clamp(ba.n + 1, max=config.local_ba_window),
+    )
+    do_ba = ((window.n >= config.local_ba_window)
+             & (frame_number % config.local_ba_every == 0))
+    refined = _refine_structure(
+        Pose(window.poses_t, window.poses_q), map_store.pos, window.obs,
+        window.w, window.obs_r, window.w_r, config)
+    map_pos = torch.where(do_ba, refined, map_store.pos)
+    return (window, Pose(window.poses_t[-1], window.poses_q[-1]), map_pos,
+            do_ba)
+
+
 def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
                   config: VOConfig, is_init):
     """Tracking frame, and through ``is_init`` the initialization frame.
@@ -156,9 +230,10 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
                 state.staged, pose_opt, left, feature_matched, map_size,
                 config)
             p_pos, p_desc, p_ctr, p_age, p_mask = promo
-            map_after_promo = map_ops.insert_points(
+            ins_promo = map_ops.insert_points(
                 map_clean, p_pos, p_desc, p_mask, new_counter=p_ctr,
-                new_age=p_age).store
+                new_age=p_age)
+            map_after_promo = ins_promo.store
     else:
         staged_out = state.staged
         map_after_promo = map_clean
@@ -168,9 +243,16 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
     need_tri = _policy_need_triangulation(
         config, window, map_size_after_promo) | is_init
 
+    # with BA on, one stereo Hamming matrix serves the triangulation row
+    # match (untracked features) and the BA row match (tracked features);
+    # the port is stereo only, so BA always has its right camera
+    want_ba_rm = config.local_ba_window > 0
+    row_dist = (hamming.hamming_matrix(left.desc, right.desc) if want_ba_rm
+                else None)
+
     with stage("triangulation"):
         pts, desc, tri_valid = _triangulate_new_points(
-            left, right, feature_matched, pose_opt, config)
+            left, right, feature_matched, pose_opt, config, row_dist)
         tri_valid = tri_valid & need_tri
         to_map = ((map_size_after_promo < config.map_soft_cap)
                   | (config.staged_threshold == 0))
@@ -179,6 +261,26 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
         ins_staged = map_ops.insert_points(staged_out, pts, desc,
                                            tri_valid & ~to_map)
 
+    final_map, pose_final, ba_window = ins_map.store, pose_opt, state.ba
+    ba_ran = torch.zeros((), dtype=torch.bool, device=left.kp.device)
+    if want_ba_rm:
+        removed = map_bookkept.valid & ~map_clean.valid
+        recycled = ins_map.taken
+        if config.staged_threshold > 0:
+            recycled = recycled | ins_promo.taken
+        with stage("local_ba"):
+            # right-camera observations of the map-matched features
+            rm_ba = _row_match(left, right, ~mm.feature_matched, config,
+                               row_dist)
+            slot_feat = torch.clamp(mm.match_idx, 0, k - 1)
+            r_idx = rm_ba.right_idx[slot_feat]
+            ba_window, pose_final, refined_pos, ba_ran = _local_ba_update(
+                state.ba, final_map, pose_opt, obs, weights,
+                right.kp[torch.clamp(r_idx, 0, k - 1)],
+                ((mm.match_idx >= 0) & (r_idx >= 0)).float(),
+                removed | recycled, state.frame_number, config)
+        final_map = final_map._replace(pos=refined_pos)
+
     map_size_final = ins_map.store.size()
     init_window = torch.stack([
         map_size_final.float(),
@@ -186,16 +288,16 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
         torch.full((), MATCHES_WINDOW_INIT, device=window.device)])
     window = torch.where(is_init, init_window, window)
     new_state = VOState(
-        map=_select(is_tracking, ins_map.store, map_bookkept),
+        map=_select(is_tracking, final_map, map_bookkept),
         staged=_select(is_tracking, ins_staged.store, state.staged),
-        pose=_select(is_tracking, pose_opt, state.pose),
+        pose=_select(is_tracking, pose_final, state.pose),
         motion=motion,
         last_matches=torch.where(is_tracking, window, state.last_matches),
         frame_number=state.frame_number + 1,
         status=torch.where(is_tracking, TRACKING, LOST).to(torch.int32),
-        ba=state.ba,
+        ba=_select(is_tracking & ~is_init, ba_window, state.ba),
     )
-    out_pose = _select(is_tracking, pose_opt, state.pose)
+    out_pose = _select(is_tracking, pose_final, state.pose)
 
     matched_mask = mm.match_idx >= 0
     n_matched = torch.clamp(matches_count, min=1)
@@ -220,6 +322,7 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
             0).to(torch.int32),
         used_wide_radius=mm.used_wide_radius & ~is_init,
         status=new_state.status,
+        local_ba_ran=ba_ran & is_tracking & ~is_init,
     )
     return new_state, out_pose, metrics
 
@@ -243,8 +346,7 @@ def track_features(state: VOState, left: FrameFeatures, right: FrameFeatures,
 
 
 def _check_config(config: VOConfig) -> None:
-    if config.local_ba_window > 0:
-        raise NotImplementedError("local BA (local_ba_window > 0) is not ported")
+    extract._descriptor_mode(config)
 
 
 def track_step_stereo(state: VOState, img_left: torch.Tensor,

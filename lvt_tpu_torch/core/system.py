@@ -109,8 +109,16 @@ class VOSystem:
         np.savez(path, _sensor=np.int64(int(self.sensor_type)), **arrays)
 
     def load_checkpoint(self, path: str) -> None:
+        """Load a checkpoint of either package; its shapes (map and staged
+        capacity, BA window) must be this system's config's."""
         data = np.load(path)
-        leaves = {key: data[key] for key, _ in flatten_with_path(self.state)}
+        leaves = {}
+        for key, leaf in flatten_with_path(self.state):
+            leaves[key] = data[key]
+            if leaves[key].shape != tuple(leaf.shape):
+                raise ValueError(
+                    f"checkpoint {key} has shape {leaves[key].shape}, this "
+                    f"config needs {tuple(leaf.shape)}")
         self.state = convert.to_port(unflatten_like(self.state, leaves),
                                      self.device)
 

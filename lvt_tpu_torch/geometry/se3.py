@@ -43,10 +43,11 @@ class Pose(NamedTuple):
 
 
 def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """m [3, 3] @ v [..., 3] as three products and two sums in a fixed
-    order, so the card and the CPU give the same bits (a matmul may sum in
-    another order on each)."""
-    return v[..., 0:1] * m[:, 0] + v[..., 1:2] * m[:, 1] + v[..., 2:3] * m[:, 2]
+    """m [..., 3, 3] @ v [..., 3] (leading dims broadcast) as three
+    products and two sums in a fixed order, so the card and the CPU give
+    the same bits (a matmul may sum in another order on each)."""
+    return (v[..., 0:1] * m[..., 0] + v[..., 1:2] * m[..., 1]
+            + v[..., 2:3] * m[..., 2])
 
 
 def world_to_camera(pose: Pose) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels are plain-C-interface CUDA C++ for ``sm_90a`` (Hopper), built
-with ``nvcc`` into one shared library under ``build/lvt_tpu_torch/`` at the
-first call that needs them and loaded with ``ctypes``. Nothing here runs at
+with ``nvcc`` (one process per source, in parallel) into one shared library
+under ``build/lvt_tpu_torch/`` at the first call that needs them and loaded
+with ``ctypes``. Nothing here runs at
 import: the CPU tests import every module on machines without ``nvcc``.
 
 The library name carries a hash of the sources and flags, so an edited
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lvt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,7 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p
 _SIGNATURES = {
     "lvt_perception": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "lvt_brief_planes": [_P, _P, _I, _I, _I, _P],
     "lvt_extract_patches": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lvt_masked_dual_top2": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,
                              _P],
@@ -65,26 +67,48 @@ def library_path() -> Path:
     return BUILD_DIR / f"liblvt_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise on the first that fails, else return
+    their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` into one shared library (skipped when
-    the library for these exact sources exists). ``verbose`` adds
-    ``-Xptxas -v`` and prints nvcc's report of registers and spills."""
+    the library for these exact sources exists): one nvcc per source, all
+    started together, then one link. ``verbose`` adds ``-Xptxas -v`` and
+    prints nvcc's report of registers and spills."""
     global build_seconds
     out = library_path()
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        report = _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj),
+                        str(src)] for src, obj in zip(sources, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
     if verbose:
-        print(res.stdout + res.stderr)
+        print(report)
     os.replace(tmp, out)   # atomic: a concurrent loader never sees a partial .so
     return out
 

@@ -1,9 +1,10 @@
-"""BRIEF-256 binary descriptors from per-keypoint patches.
+"""BRIEF-256 binary descriptors: from per-keypoint patches (patch mode) or
+from dense bit planes of every pixel (dense mode).
 
-Port of lvt_tpu/ops/brief.py (patch mode). The pattern — 256 comparison
-pairs over a pool of 64 Gaussian sample points — is regenerated here in
-numpy from the same seeds, so it is bit-identical to
-``lvt_tpu.ops.brief.test_pattern()`` without importing JAX.
+Port of lvt_tpu/ops/brief.py. The pattern — 256 comparison pairs over a
+pool of 64 Gaussian sample points — is regenerated here in numpy from the
+same seeds, so it is bit-identical to ``lvt_tpu.ops.brief.test_pattern()``
+without importing JAX.
 
 Where the JAX package samples the pool with one-hot matmuls at
 ``Precision.HIGHEST``, the port indexes: the 64 pool values are a gather
@@ -17,6 +18,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lvt_tpu_torch.ops.patches import PATCH, PATCH_C0, PATCH_R0
 
@@ -24,6 +26,7 @@ KERNEL_SIZE = 9
 N_BITS = 256
 POOL_SIZE = 64
 BORDER = PATCH // 2 + KERNEL_SIZE // 2  # 20
+_HALF = PATCH // 2 - 1                  # pattern offsets lie in [-15, 15]
 _PATTERN_SEED = 0x5F3759DF
 
 
@@ -105,3 +108,43 @@ def descriptors_from_patches(
               & (y >= BORDER) & (y < img_h - BORDER))
     valid = kp_valid & inside
     return torch.where(valid[..., None], desc, 0), valid
+
+
+def dense_descriptor_planes(smooth: torch.Tensor) -> torch.Tensor:
+    """Packed BRIEF bit planes of EVERY pixel: smooth [B, H, W] f32 ->
+    [B, 8, H, W] int32, bit i of word w = s[pi] < s[pj] for pair 32w + i,
+    the 64 pool samples read zero outside the image. The plain version of
+    kernel B (ops/perception.py)."""
+    b, h, w = smooth.shape
+    pad = _HALF + 1
+    sp = F.pad(smooth, (pad, pad, pad, pad))
+    samples = [sp[:, pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+               for dx, dy in sample_pool().tolist()]
+    pairs = pair_indices().tolist()
+    words = []
+    for word in range(N_BITS // 32):
+        acc = torch.zeros((b, h, w), dtype=torch.int32, device=smooth.device)
+        for i in range(32):
+            pi, pj = pairs[32 * word + i]
+            acc |= (samples[pi] < samples[pj]).to(torch.int32) << i
+        words.append(acc)
+    return torch.stack(words, dim=1)
+
+
+def descriptors_from_planes(
+    planes: torch.Tensor,    # [B, 8, H, W] int32 packed bit planes
+    kp: torch.Tensor,        # [B, K, 2] f32 (x, y)
+    kp_valid: torch.Tensor,  # [B, K] bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-keypoint descriptors gathered from dense bit planes -> (desc
+    [B, K, 8] int32, valid [B, K]); keypoints within BORDER of the image
+    edge are invalid and their descriptor is zero."""
+    b, words, h, w = planes.shape
+    x = torch.round(kp[..., 0]).to(torch.int64)
+    y = torch.round(kp[..., 1]).to(torch.int64)
+    inside = (x >= BORDER) & (x < w - BORDER) & (y >= BORDER) & (y < h - BORDER)
+    valid = kp_valid & inside
+    flat = torch.clamp(y, 0, h - 1) * w + torch.clamp(x, 0, w - 1)   # [B, K]
+    desc = torch.gather(planes.reshape(b, words, h * w), 2,
+                        flat[:, None, :].expand(b, words, flat.shape[1]))
+    return torch.where(valid[..., None], desc.transpose(1, 2), 0), valid

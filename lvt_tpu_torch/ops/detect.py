@@ -1,9 +1,10 @@
 """Corner detection: FAST-9/16 score map, 3x3 NMS, per-cell top-k.
 
-Port of lvt_tpu/ops/detect.py (the patch-mode path: ``fast_score_map``,
-``nms3x3``, ``select_corners`` without subpixel refinement, and
-``subpixel_from_patches``). On the main path the two maps come from
-kernel A (ops/perception.py), whose plain version is built from these.
+Port of lvt_tpu/ops/detect.py: ``fast_score_map``, ``nms3x3``,
+``select_corners`` (subpixel refinement on the raw map for the dense
+descriptor mode, the "scatter" gather) and ``subpixel_from_patches`` (patch
+mode). The two maps come from kernel A (ops/perception.py), whose plain
+version is built from these.
 
 Tie order (lvt_tpu's ``approx_max_k`` returns the lowest index first among
 equal scores, ``torch.topk`` does not): :func:`top_k_lowest_index_first`
@@ -139,6 +140,25 @@ def subpixel_from_patches(rawp: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     return x.float() + dx, y.float() + dy
 
 
+def _subpixel_refine(score_raw: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Parabolic refinement of corners [B, K] on the raw score map
+    [B, H, W] (lvt_tpu's ``_subpixel_refine``, the "scatter" gather) ->
+    (x f32, y f32)."""
+    b, h, w = score_raw.shape
+    xc = torch.clamp(x, 1, w - 2).to(torch.int64)
+    yc = torch.clamp(y, 1, h - 2).to(torch.int64)
+    flat = score_raw.reshape(b, h * w)
+    base = yc * w + xc
+
+    def at(offset):
+        return torch.gather(flat, 1, base + offset)
+
+    sc = at(0)
+    dx = _parab_offset(at(-1), sc, at(1))
+    dy = _parab_offset(at(-w), sc, at(w))
+    return x.float() + dx, y.float() + dy
+
+
 def top_k_lowest_index_first(vals: torch.Tensor, k: int):
     """Top-k along the last axis of an f32 tensor, descending, equal values
     ordered by ascending index (lax.top_k / approx_max_k order).
@@ -163,12 +183,15 @@ def select_corners(
     corners_low_threshold: int = 200,
     img_hw: tuple[int, int] | None = None,
     spread_ties: bool,
+    score_raw: torch.Tensor | None = None,
 ) -> Detections:
     """Adaptive threshold + per-cell top-k selection, batched over images.
 
     Output is cell-major, score-descending within a cell. ``spread_ties``
     adds the plateau dither (integer score maps only: uint8 frames); it
-    has no default on purpose — take it from the frame dtype."""
+    has no default on purpose — take it from the frame dtype. Given the raw
+    score map [B, H, W], ``kp`` is refined on it to subpixel positions
+    (lvt_tpu's ``subpixel=True``); else ``kp`` is the integer corner."""
     bsz = score.shape[0]
     h, w = img_hw if img_hw is not None else score.shape[1:]
     s_y, s_x, ncy, ncx = _cell_geometry(h, w, cell_size)
@@ -198,8 +221,12 @@ def select_corners(
     xi = torch.clamp(x, max=w - 1)
     yi = torch.clamp(y, max=h - 1)
     kp_int = torch.stack([xi, yi], dim=-1).to(torch.int32)
+    if score_raw is None:
+        kp = kp_int.float()
+    else:
+        kp = torch.stack(_subpixel_refine(score_raw, xi, yi), dim=-1)
     return Detections(
-        kp=kp_int.float(), score=top_scores, valid=valid,
+        kp=kp, score=top_scores, valid=valid,
         count=valid.sum(dim=-1), threshold_used=t_eff, kp_int=kp_int,
     )
 

@@ -85,15 +85,19 @@ def row_match(
     left: FrameFeatures, right: FrameFeatures, left_excluded: torch.Tensor, *,
     vertical_search_radius: int, ratio_threshold: float,
     abs_threshold: float, img_rows: int,
+    dist: torch.Tensor | None = None,
 ) -> RowMatchResult:
     """Epipolar row matching: right candidates lie within
-    floor(y_l) -+ r rows (clamped to the image)."""
+    floor(y_l) -+ r rows (clamped to the image). ``dist`` is the stereo
+    Hamming matrix [K, K] when the caller has it already (two row matches
+    of one pair with complementary exclusion masks build it once)."""
     k = left.kp.shape[0]
     query_ok = left.valid & ~left_excluded
     y_l = torch.floor(left.kp[:, 1])
     lo = torch.clamp(y_l - vertical_search_radius, min=0.0)
     hi = torch.clamp(y_l + vertical_search_radius, max=float(img_rows))
-    dist = hamming.hamming_matrix(left.desc, right.desc)
+    if dist is None:
+        dist = hamming.hamming_matrix(left.desc, right.desc)
     (d1, d2, best, n_cand), _ = masked_dual_top2(
         dist, torch.stack([lo, hi], dim=-1), query_ok, right.kp, right.valid,
         r2a=0.0, r2b=0.0, row_mode=True)

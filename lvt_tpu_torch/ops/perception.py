@@ -1,9 +1,12 @@
-"""Kernel A: 9x9 box sum, FAST-9/16 score and plateau-collapsing 3x3 NMS.
+"""Kernel A: 9x9 box sum, FAST-9/16 score and plateau-collapsing 3x3 NMS;
+kernel B: dense BRIEF bit planes of A's box sum.
 
 Port of lvt_tpu/ops/perception_pallas.py (``_score_smooth_kernel`` through
-``perception_patch_maps_batched``). CUDA tensors go through the
-hand-written kernel ``csrc/perception.cu``; CPU tensors through
-:func:`perception_plain`, the same arithmetic in plain torch ops.
+``perception_patch_maps_batched``, and ``_brief_kernel`` through
+``perception_maps_batched``). CUDA tensors go through the hand-written
+kernels ``csrc/perception.cu`` and ``csrc/brief.cu``; CPU tensors through
+:func:`perception_plain` and :func:`brief_planes_plain`, the same
+arithmetic in plain torch ops.
 
 Semantics, both versions:
   * the image is zero-padded (the Pallas wrapper's ``jnp.pad``);
@@ -25,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from lvt_tpu_torch import kernels
-from lvt_tpu_torch.ops import detect
+from lvt_tpu_torch.device import DESC_DTYPE
+from lvt_tpu_torch.ops import brief, detect
 
 _R = 4       # box-sum radius (9x9)
 
@@ -81,3 +85,48 @@ def perception_patch_maps_batched(imgs: torch.Tensor):
 
 
 perception_patch_maps_batched.launches = 0
+
+
+def brief_planes_plain(smooth: torch.Tensor) -> torch.Tensor:
+    """Plain-torch kernel B: smooth [B, H, W] f32 -> planes [B, 8, H, W]
+    int32."""
+    return brief.dense_descriptor_planes(smooth)
+
+
+def brief_planes(smooth: torch.Tensor) -> torch.Tensor:
+    """Kernel B: dense BRIEF-256 bit planes of kernel A's ``smooth``
+    [B, H, W] f32 -> [B, 8, H, W] int32 (lvt_tpu's uint32 bits), samples
+    zero outside the image.
+
+    CUDA: ``csrc/brief.cu`` (replaces perception_pallas.py
+    ``_brief_kernel``; one thread per pixel, a 32x16 tile plus a 16-px halo
+    in shared memory, the pattern compiled in). CPU: the plain version.
+    Only comparisons, so both are bit-exact for any input. Unlike the TPU
+    kernel, which reads kernel A's tile padding past the right edge, every
+    sample outside the image is zero; no valid descriptor (BORDER = 20)
+    reads there.
+    """
+    if smooth.device.type == "cpu":
+        return brief_planes_plain(smooth)
+    kernels.require(smooth, "smooth", torch.float32)
+    if smooth.dim() != 3:
+        raise ValueError(f"smooth: expected [B, H, W], got {tuple(smooth.shape)}")
+    b, h, w = smooth.shape
+    planes = torch.empty((b, brief.N_BITS // 32, h, w), dtype=DESC_DTYPE,
+                         device=smooth.device)
+    err = kernels.lib().lvt_brief_planes(smooth.data_ptr(), planes.data_ptr(),
+                                         b, h, w, kernels.stream_ptr(smooth))
+    kernels.check(err, "brief_planes")
+    brief_planes.launches += 1
+    return planes
+
+
+brief_planes.launches = 0
+
+
+def perception_maps_batched(imgs: torch.Tensor):
+    """Dense descriptor mode: imgs [B, H, W] uint8 or f32 -> (raw, nms
+    [B, H, W] f32, planes [B, 8, H, W] int32): kernel A, then kernel B on
+    A's zero-padded ``smooth`` (perception_pallas.perception_maps_batched)."""
+    nms, raw, smooth = perception_patch_maps_batched(imgs)
+    return raw, nms, brief_planes(smooth)

@@ -1,0 +1,309 @@
+"""Windowed bundle adjustment: joint refinement of the last F camera poses
+and the M map points they observe, with the point block eliminated by the
+Schur complement:
+
+    S       = H_cc - H_cp H_pp^-1 H_cp^T          (reduced camera system)
+    g_red   = g_c  - H_cp H_pp^-1 g_p
+    dc      = solve(S, -g_red);   dp_m = -H_pp_m^-1 (g_p_m + H_cp[:,m]^T dc)
+
+Port of lvt_tpu/solver/bundle.py for one device (the ``psum_axis`` of the
+sharded modes is not ported). Stereo observations pin the scale gauge;
+Cauchy-robust, LM-damped, the oldest pose fixed. ``lax.fori_loop`` becomes
+a Python loop of predicated iterations: a rejected step keeps the state
+and only adapts lambda. ``torch.linalg.solve_ex`` skips the error check
+(no host sync); a singular system gives a non-finite step, which the
+accept test rejects, as in JAX. The card and the CPU round alike:
+divisors are device scalars, 3-vector products are written out
+(``se3.matvec``), and every sum over points, every contraction and the
+reduced solve run in float64 and round once to float32 (:func:`_einsum64`).
+lvt_tpu sums in float32, so the port differs from it by float32 rounding,
+which this ill-conditioned solve amplifies.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from lvt_tpu_torch.device import scalar
+from lvt_tpu_torch.geometry import quaternion as quat
+from lvt_tpu_torch.geometry.se3 import Pose, matvec
+from lvt_tpu_torch.solver.pnp import _cauchy_weights, _retract
+
+
+def _einsum64(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of float32 operands accumulated in float64 and
+    rounded once to float32. A float32 sum over many terms depends on the
+    order the device sums in; in float64 the order moves the result by
+    ~1e-16 relative, so after the one rounding the card and the CPU agree
+    except where the exact sum lies that close to a float32 rounding
+    boundary. With float32 sums the Schur solve amplified that order noise
+    until the port's refined points left lvt_tpu's by up to 1.2e-2 m."""
+    return torch.einsum(equation, *(x.double() for x in operands)).float()
+
+
+def _sum64(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``x.sum(dim)`` accumulated in float64, rounded once to float32 (see
+    :func:`_einsum64`)."""
+    x = x.double()
+    return (x.sum() if dim is None else x.sum(dim)).float()
+
+
+class BAResult(NamedTuple):
+    poses: Pose            # [F] refined camera-in-world poses
+    points: torch.Tensor   # [M, 3] refined world points
+    chi2: torch.Tensor     # robust total error after refinement
+    n_obs: torch.Tensor    # observations used
+
+
+def _poses_to_w2c(poses: Pose):
+    r_wc = quat.to_matrix(poses.q).transpose(-1, -2)     # [F, 3, 3]
+    return r_wc, -matvec(r_wc, poses.t)
+
+
+def _w2c_to_poses(r_wc, t_wc) -> Pose:
+    r_cw = r_wc.transpose(-1, -2)
+    return Pose(-matvec(r_cw, t_wc), quat.from_matrix(r_cw))
+
+
+def _inv33(m, damp):
+    """Batched inverse of (m + damp*I) via the adjugate."""
+    m = m + damp * torch.eye(3, dtype=m.dtype, device=m.device)
+    a00, a01, a02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    a10, a11, a12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    a20, a21, a22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    inv_det = scalar(1.0, det) / torch.where(torch.abs(det) < 1e-18, 1e-18, det)
+    adj = torch.stack([
+        torch.stack([c00, c01, c02], -1),
+        torch.stack([c10, c11, c12], -1),
+        torch.stack([c20, c21, c22], -1),
+    ], -2)
+    return adj * inv_det[..., None, None]
+
+
+def _skew(p):
+    """[..., 3, 3] cross-product matrix."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    zeros = torch.zeros_like(x)
+    return torch.stack([
+        torch.stack([zeros, -z, y], -1),
+        torch.stack([z, zeros, -x], -1),
+        torch.stack([-y, x, zeros], -1),
+    ], -2)
+
+
+def _camera_points(r_wc, t_wc, points):
+    """[F, M, 3] left-camera coordinates of every point in every pose."""
+    return matvec(r_wc[:, None], points[None]) + t_wc[:, None, :]
+
+
+def _project(p_l, x_off: float, obs_b, fx, fy, cx, cy):
+    """Residuals [F, M, 2] of one observation block whose camera sits at
+    x_off in the left frame, with the camera point and 1/z they came from."""
+    p = p_l if x_off == 0.0 else torch.stack(
+        [p_l[..., 0] + x_off, p_l[..., 1], p_l[..., 2]], -1)
+    z = p[..., 2]
+    inv_z = scalar(1.0, z) / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    u = fx * p[..., 0] * inv_z + cx
+    v = fy * p[..., 1] * inv_z + cy
+    return torch.stack([u, v], -1) - obs_b, p, inv_z
+
+
+def _sq(r):
+    """Squared norm of [..., 2] residuals."""
+    return r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]
+
+
+def _blocks(obs, w, baseline, obs_right, w_right):
+    """Observation blocks: (pixels, weights, camera x-offset)."""
+    blocks = [(obs, w.float(), 0.0)]
+    if obs_right is not None:
+        if w_right is None or not baseline:
+            raise ValueError("right-camera observations need w_right and a "
+                             "nonzero baseline")
+        blocks.append((obs_right, w_right.float(), -float(baseline)))
+    return blocks
+
+
+def chi2_gate_weights(
+    poses: Pose,           # [F] camera-in-world (left camera)
+    points: torch.Tensor,  # [M, 3]
+    obs: torch.Tensor,     # [F, M, 2]
+    w: torch.Tensor,       # [F, M]
+    *, fx, fy, cx, cy,
+    baseline: float = 0.0,
+    obs_right: torch.Tensor | None = None,
+    w_right: torch.Tensor | None = None,
+    gate_th2: float = 0.5,
+):
+    """Per-observation chi-square gate at the current state, before BA:
+    gate = max(gate_th2, 3 * trimmed mean of e2), the trimmed mean over
+    observations with e2 <= 4 * plain mean. Cuts mismatched associations
+    while noise passes. Returns gated (w, w_right)."""
+    r_wc, t_wc = _poses_to_w2c(poses)
+    p_l = _camera_points(r_wc, t_wc, points)
+    blocks = _blocks(obs, w, baseline, obs_right, w_right)
+    e2_all = [_sq(_project(p_l, x_off, obs_b, fx, fy, cx, cy)[0])
+              for obs_b, _, x_off in blocks]
+    w_all = [w_b for _, w_b, _ in blocks]
+
+    def mean_e2(weights):
+        n = torch.clamp(sum(_sum64(wb) for wb in weights), min=1.0)
+        return sum(_sum64(wb * e2) for wb, e2 in zip(weights, e2_all)) / n
+
+    m1 = mean_e2(w_all)
+    trim = [wb * (e2 <= 4.0 * m1) for wb, e2 in zip(w_all, e2_all)]
+    gate = torch.clamp(3.0 * mean_e2(trim), min=gate_th2)
+
+    gated = [wb * (e2 <= gate) for wb, e2 in zip(w_all, e2_all)]
+    return gated[0], (gated[1] if obs_right is not None else None)
+
+
+def weighted_point_e2(
+    poses: Pose, points: torch.Tensor, obs: torch.Tensor, w: torch.Tensor,
+    *, fx, fy, cx, cy,
+    baseline: float = 0.0,
+    obs_right: torch.Tensor | None = None,
+    w_right: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """[M] per-point weighted sum of squared reprojection errors over the
+    window, both stereo blocks: the accept test of the BA writeback."""
+    r_wc, t_wc = _poses_to_w2c(poses)
+    p_l = _camera_points(r_wc, t_wc, points)
+    total = 0.0
+    for obs_b, w_b, x_off in _blocks(obs, w, baseline, obs_right, w_right):
+        r = _project(p_l, x_off, obs_b, fx, fy, cx, cy)[0]
+        total = total + _sum64(w_b * _sq(r), 0)
+    return total
+
+
+class _BAState(NamedTuple):
+    r_wc: torch.Tensor    # [F, 3, 3]
+    t_wc: torch.Tensor    # [F, 3]
+    points: torch.Tensor  # [M, 3]
+    lam: torch.Tensor
+    nu: torch.Tensor
+    chi2: torch.Tensor
+
+
+def refine_window(
+    poses: Pose,           # [F] camera-in-world (left camera)
+    points: torch.Tensor,  # [M, 3]
+    obs: torch.Tensor,     # [F, M, 2] left-camera pixel observations
+    w: torch.Tensor,       # [F, M] observation validity (0/1)
+    *, fx, fy, cx, cy,
+    baseline: float = 0.0,
+    obs_right: torch.Tensor | None = None,   # [F, M, 2] right-camera pixels
+    w_right: torch.Tensor | None = None,     # [F, M]
+    iterations: int = 8,
+    reprojection_th2: float = 5.991,
+    n_fixed_poses: int = 1,
+) -> BAResult:
+    """LM-damped Schur-complement BA over an F-pose window."""
+    f_dim = obs.shape[0]
+    dev, dtype = points.device, points.dtype
+    delta2 = scalar(reprojection_th2, points)   # divisors: see device.scalar
+    three = scalar(3.0, points)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    same_pose = torch.eye(f_dim, dtype=torch.bool, device=dev)[:, :, None, None]
+    fix = torch.arange(6 * f_dim, device=dev) < 6 * n_fixed_poses
+    fix_rc = fix[:, None] | fix[None, :]
+    eye_flat = torch.eye(6 * f_dim, dtype=dtype, device=dev)
+    blocks = _blocks(obs, w, baseline, obs_right, w_right)
+
+    def robust_chi2(r_wc, t_wc, pts):
+        p_l = _camera_points(r_wc, t_wc, pts)
+        total = 0.0
+        for obs_b, w_b, x_off in blocks:
+            e2 = _sq(_project(p_l, x_off, obs_b, fx, fy, cx, cy)[0])
+            total = total + _sum64(w_b * delta2 * torch.log1p(e2 / delta2))
+        return total
+
+    def block_jacobians(r_wc, p_l, p, inv_z):
+        """(jc [F,M,2,6], jp [F,M,2,3]) for one observation block."""
+        x, y = p[..., 0], p[..., 1]
+        fxz = fx * inv_z
+        fyz = fy * inv_z
+        zeros = torch.zeros_like(fxz)
+        dpi = torch.stack([                 # d(pixel)/d(camera point)
+            torch.stack([fxz, zeros, -fxz * x * inv_z], -1),
+            torch.stack([zeros, fyz, -fyz * y * inv_z], -1),
+        ], -2)
+        # dp/dxi = [I | -[p_l]x] (the pose perturbation acts on the left frame)
+        dp_dxi = torch.cat([eye3.expand(*p_l.shape[:-1], 3, 3), -_skew(p_l)],
+                           dim=-1)
+        jc = _einsum64("fmij,fmjk->fmik", dpi, dp_dxi)
+        jp = _einsum64("fmij,fjk->fmik", dpi, r_wc)
+        return jc, jp
+
+    def iteration(s: _BAState) -> _BAState:
+        h_cc = g_c = h_cp = h_pp = g_p = 0.0
+        p_l = _camera_points(s.r_wc, s.t_wc, s.points)
+        for obs_b, w_b, x_off in blocks:
+            r, p, inv_z = _project(p_l, x_off, obs_b, fx, fy, cx, cy)
+            wr = w_b * _cauchy_weights(_sq(r), delta2)
+            jc, jp = block_jacobians(s.r_wc, p_l, p, inv_z)
+            jc_w = jc * wr[..., None, None]
+            h_cc = h_cc + _einsum64("fmki,fmkj->fij", jc_w, jc)
+            h_cp = h_cp + _einsum64("fmki,fmkj->fmij", jc_w, jp)
+            h_pp = h_pp + _einsum64("fmki,fmkj,fm->mij", jp, jp, wr)
+            g_c = g_c + _einsum64("fmki,fmk->fi", jc_w, r)
+            g_p = g_p + _einsum64("fmki,fmk,fm->mi", jp, r, wr)
+
+        hpp_inv = _inv33(h_pp, s.lam)                              # [M, 3, 3]
+        # Schur complement onto the camera block
+        hcp_hppinv = _einsum64("fmij,mjk->fmik", h_cp, hpp_inv)
+        sc = -_einsum64("fmik,gmjk->fgij", hcp_hppinv, h_cp)
+        diag = h_cc + s.lam * eye6
+        sc = torch.where(same_pose, sc + diag[:, None], sc)
+        g_red = g_c - _einsum64("fmik,mk->fi", hcp_hppinv, g_p)
+
+        # gauge fix: the n_fixed_poses oldest poses held (identity rows and
+        # columns, zero right-hand side)
+        s_flat = sc.permute(0, 2, 1, 3).reshape(6 * f_dim, 6 * f_dim)
+        s_flat = torch.where(fix_rc, eye_flat, s_flat)
+        g_flat = torch.where(fix, 0.0, g_red.reshape(6 * f_dim))
+        dc = torch.linalg.solve_ex(s_flat.double(), -g_flat.double())[0]
+        dc = dc.float().reshape(f_dim, 6)
+        dp = -_einsum64("mij,mj->mi", hpp_inv,
+                        g_p + _einsum64("fmij,fi->mj", h_cp, dc))
+
+        r_new, t_new = _retract(s.r_wc, s.t_wc, dc)
+        pts_new = s.points + dp
+        chi2_new = robust_chi2(r_new, t_new, pts_new)
+        ok = ((chi2_new < s.chi2) & torch.isfinite(dc).all()
+              & torch.isfinite(dp).all())
+        return _BAState(
+            r_wc=torch.where(ok, r_new, s.r_wc),
+            t_wc=torch.where(ok, t_new, s.t_wc),
+            points=torch.where(ok, pts_new, s.points),
+            lam=torch.where(ok, s.lam / three, s.lam * s.nu),
+            nu=torch.where(ok, 2.0, s.nu * 2.0),
+            chi2=torch.where(ok, chi2_new, s.chi2),
+        )
+
+    r_wc, t_wc = _poses_to_w2c(poses)
+    state = _BAState(r_wc, t_wc, points,
+                     lam=torch.full((), 1e-4, dtype=dtype, device=dev),
+                     nu=torch.full((), 2.0, dtype=dtype, device=dev),
+                     chi2=robust_chi2(r_wc, t_wc, points))
+    for _ in range(iterations):
+        state = iteration(state)
+    return BAResult(
+        poses=_w2c_to_poses(state.r_wc, state.t_wc),
+        points=state.points,
+        chi2=state.chi2,
+        n_obs=sum((w_b > 0).sum() for _, w_b, _ in blocks),
+    )

@@ -58,16 +58,18 @@ def _cauchy_weights(e2, delta2):
 
 
 def _retract(r_wc, t_wc, delta):
-    """R' = exp([w]x) R, t' = exp([w]x) t + v for xi = (v, w)."""
-    v, w = delta[:3], delta[3:]
-    theta2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2]
+    """R' = exp([w]x) R, t' = exp([w]x) t + v for xi = (v, w); any leading
+    batch dims (one per pose)."""
+    v, w = delta[..., :3], delta[..., 3:]
+    theta2 = w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1] + w[..., 2] * w[..., 2]
     theta = torch.sqrt(theta2 + 1e-20)
     half = 0.5 * theta
     sinc = torch.where(theta < 1e-6, 0.5 - theta2 / scalar(48.0, theta2),
                        torch.sin(half) / theta)
-    dq = torch.cat([torch.cos(half)[None], sinc * w])
+    dq = torch.cat([torch.cos(half)[..., None], sinc[..., None] * w], -1)
     dr = quat.to_matrix(quat.normalize(dq))
-    return matvec(dr, r_wc.T).T, matvec(dr, t_wc) + v
+    r_new = matvec(dr[..., None, :, :], r_wc.transpose(-1, -2)).transpose(-1, -2)
+    return r_new, matvec(dr, t_wc) + v
 
 
 class _LMState(NamedTuple):

@@ -6,11 +6,14 @@ On a GPU machine without JAX, skip tests/conftest.py (it imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance: none — kernels A (uint8 frames), P and T are bit-exact with
-their plain versions by construction (integer arithmetic, copies, packed
-integer keys). The unmarked tests run anywhere: a wrapper given a tensor
-that is not on the CPU launches its kernel or raises, never falls back.
+Tolerance: none — kernels A (uint8 frames), B, P and T are bit-exact
+with their plain versions by construction (integer arithmetic, float
+comparisons, copies, packed integer keys). The unmarked tests run
+anywhere: a wrapper given a tensor that is not on the CPU launches its
+kernel or raises, never falls back.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -43,6 +46,21 @@ def test_perception_kernel_matches_plain(cuda, shape, dtype):
     assert perception.perception_patch_maps_batched.launches == before + 1
     for g, w in zip(got, perception.perception_plain(imgs)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 376, 1241), (1, 37, 53), (3, 64, 96)])
+def test_brief_kernel_matches_plain(cuda, shape):
+    rs = np.random.RandomState(3)
+    smooth = rs.randint(0, 20656, shape).astype(np.float32)
+    smooth[:, ::5] = 4321.0                       # ties compare false
+    smooth = torch.from_numpy(smooth).to(cuda)
+    before = perception.brief_planes.launches
+    got = perception.brief_planes(smooth)
+    torch.cuda.synchronize()
+    assert perception.brief_planes.launches == before + 1
+    assert got.shape == (shape[0], 8, *shape[1:]) and got.dtype == torch.int32
+    assert torch.equal(got, perception.brief_planes_plain(smooth))
 
 
 @pytest.mark.cuda
@@ -143,7 +161,47 @@ def test_main_path_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("call", ["perception", "patches", "top2"])
+@pytest.mark.cuda
+def test_dense_ba_path_on_the_card_matches_the_cpu(cuda):
+    """Path 2 (dense descriptors, local BA on) through VOSystem on both
+    devices over 6 frames, BA running at frame 4: features bit-equal and
+    poses within 1e-3 m, the bound chip_smoke.py holds over a span with BA
+    runs."""
+    from lvt_tpu.config import VOConfig
+    from lvt_tpu.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.core.extract import extract_features_stereo
+    from lvt_tpu_torch.core.system import TrackingState, VOSystem
+
+    world = SyntheticWorld(width=320, height=240, fx=260.0, fy=260.0,
+                           cx=160.0, cy=120.0, baseline=0.3, n_points=1500,
+                           extent_x=40.0, extent_y=18.0, extent_z=90.0)
+    cfg = VOConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
+                   baseline=world.baseline, img_width=320, img_height=240,
+                   detection_cell_size=80, max_keypoints_per_cell=60,
+                   agast_threshold=15, near_plane_distance=0.5,
+                   far_plane_distance=150.0, descriptor_mode="dense",
+                   local_ba_window=4, local_ba_every=4)
+    frames = [(l.astype(np.uint8), r.astype(np.uint8))
+              for l, r, _ in world.stereo_sequence(6, speed=0.5)]
+    il = torch.from_numpy(np.stack([f[0] for f in frames]))
+    ir = torch.from_numpy(np.stack([f[1] for f in frames]))
+    before = perception.brief_planes.launches
+    for g, c in zip(extract_features_stereo(il[1].to(cuda), ir[1].to(cuda),
+                                            cfg),
+                    extract_features_stereo(il[1], ir[1], cfg)):
+        for a, b in zip(g, c):
+            assert torch.equal(a.cpu(), b)
+    assert perception.brief_planes.launches == before + 1
+    gpu, cpu = VOSystem(cfg, device=cuda), VOSystem(cfg, device="cpu")
+    pg, mg = gpu.track_chunk(il.to(cuda), ir.to(cuda))
+    pc, mc = cpu.track_chunk(il, ir)
+    assert gpu.get_state() == TrackingState.TRACKING
+    assert torch.equal(mg.local_ba_ran.cpu(), mc.local_ba_ran)
+    assert bool(mc.local_ba_ran[4])
+    torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2"])
 def test_wrapper_never_falls_back_off_the_cpu(call):
     """A tensor on another device than the CPU goes to the kernel path,
     whose argument checks refuse anything that is not on a CUDA device."""
@@ -152,6 +210,8 @@ def test_wrapper_never_falls_back_off_the_cpu(call):
         if call == "perception":
             perception.perception_patch_maps_batched(
                 torch.empty(2, 40, 48, dtype=torch.uint8, **meta))
+        elif call == "brief":
+            perception.brief_planes(torch.empty(2, 40, 48, **meta))
         elif call == "patches":
             f = torch.empty(2, 40, 48, **meta)
             i = torch.empty(2, 5, dtype=torch.int32, **meta)
@@ -180,4 +240,33 @@ def test_library_name_follows_the_sources():
     assert path == kernels.library_path()
     assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
-        "perception.cu", "patches.cu", "top2.cu"}
+        "perception.cu", "brief.cu", "patches.cu", "top2.cu"}
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One nvcc per source (all started before any is waited on), then one
+    link of the objects; the objects are removed afterwards. A stand-in
+    nvcc records its arguments and writes its output file."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    log = tmp_path / "nvcc.log"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {log}\n'
+        'while [ $# -gt 0 ]; do\n'
+        '  if [ "$1" = "-o" ]; then touch "$2"; fi; shift\n'
+        "done\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    out = kernels.build()
+    assert out.exists() and out.parent == tmp_path / "build"
+    lines = log.read_text().splitlines()
+    sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
+    compiles = [line for line in lines if " -c " in line]
+    assert sorted(line.rsplit("/", 1)[1] for line in compiles) == sources
+    assert all("arch=compute_90a,code=sm_90a" in line for line in lines)
+    link = [line for line in lines if "-shared" in line]
+    assert len(link) == 1 and link[0].count(".o") == len(sources)
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [out.name]

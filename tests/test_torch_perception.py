@@ -22,6 +22,7 @@ from lvt_tpu.ops import detect as jx_detect
 from lvt_tpu.ops.perception_pallas import perception_patch_maps_batched
 from lvt_tpu_torch.core import extract
 from lvt_tpu_torch.ops import brief, detect, perception
+from test_torch_system import share_the_cores  # noqa: F401
 
 
 def _t(a):

@@ -14,9 +14,16 @@ the XLA paths (no Pallas kernels, no MXU Hamming). Tolerances:
     moved this frame's pose by 1.1e-4 m against its own op-by-op run;
   * 8 chunked frames: every pose within 1e-3 m of the jitted JAX chunk,
     both TRACKING (the same rounding, carried from frame to frame);
+  * 8 chunked frames in dense mode with local BA on (window 4, every 4
+    frames; BA runs at frame 4): every pose within 2e-3 m of the jitted
+    JAX chunk. On this sequence the jitted JAX chunk moves 1.37e-3 m from
+    its own op-by-op run at frame 5, after the BA frame (the FMA
+    contraction above, amplified by the BA solve), while the port stays
+    within 1.1e-4 m of the op-by-op run at every frame;
   * `fast` scenario: the margins of test_parity_oracle.py.
 """
 
+import os
 import pathlib
 import subprocess
 import sys
@@ -48,6 +55,20 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN_DIR = REPO / "tests" / "golden"
 K_FRAMES = 3       # frames tracked by JAX before the checkpoint
 N_CHUNK = 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def share_the_cores():
+    """Under pytest-xdist, torch in each worker would spin one thread per
+    core beside the other workers: four 8-thread processes on 8 cores ran
+    a 640x480 BA frame in 19 s, against 1.1 s with 2 threads each. Give
+    torch the worker's share of the cores while a module runs. Imported by
+    the other heavy tests/test_torch_*.py files."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+    yield
+    torch.set_num_threads(before)
 
 
 def _world():
@@ -180,6 +201,28 @@ def test_chunked_sequence_matches_lvt_tpu(sequence):
     assert ate_rmse(poses.t.numpy(), gt) < 0.05 * np.linalg.norm(gt[-1] - gt[0])
 
 
+def test_chunked_ba_dense_sequence_matches_lvt_tpu(sequence):
+    cfg, frames = sequence
+    cfg = cfg.replace(descriptor_mode="dense", local_ba_window=4,
+                      local_ba_every=4)
+    il = np.stack([f[0] for f in frames])
+    ir = np.stack([f[1] for f in frames])
+    vo = VOSystem(cfg, device="cpu")
+    poses, metrics = vo.track_chunk(il, ir)
+    jvo = JxVOSystem(cfg)
+    jposes, _ = jvo.track_chunk(il, ir)
+    np.testing.assert_array_equal(metrics.local_ba_ran.numpy(),
+                                  np.arange(N_CHUNK) == 4)
+    np.testing.assert_allclose(poses.t.numpy(), np.asarray(jposes.t),
+                               atol=2e-3)
+    assert vo.get_state() == TrackingState.TRACKING
+    assert int(jvo.state.status) == TrackingState.TRACKING
+    np.testing.assert_array_equal(vo.state.ba.w.numpy() > 0,
+                                  np.asarray(jvo.state.ba.w) > 0)
+    gt = np.array([f[2] for f in frames])
+    assert ate_rmse(poses.t.numpy(), gt) < 0.05 * np.linalg.norm(gt[-1] - gt[0])
+
+
 def test_track_chunk_equals_per_frame_track(sequence):
     cfg, frames = sequence
     a = VOSystem.create(cfg, device="cpu")
@@ -256,6 +299,6 @@ def test_cuda_device_without_cuda_fails_loudly(monkeypatch):
 def test_unported_options_raise():
     cfg = _config(_world())
     with pytest.raises(NotImplementedError):
-        VOSystem(cfg.replace(local_ba_window=4), device="cpu")
+        VOSystem(cfg.replace(descriptor_mode="sparse"), device="cpu")
     with pytest.raises(NotImplementedError):
         VOSystem(cfg, sensor_type=2, device="cpu")
