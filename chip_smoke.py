@@ -6,36 +6,48 @@
 Run from the root of a checkout. Phases, one line each; any failure raises
 and the script exits non-zero without printing the final line:
 
-1. device: the card's name and power limit, then the build of the CUDA
-   kernels (``lvt_tpu_torch/csrc/*.cu``, one nvcc per source for sm_90a,
-   in parallel) with its seconds;
-2. kernels: A (perception), B (dense BRIEF planes), P (patches) and T
-   (masked top-2) against their plain PyTorch versions on the card, at the
-   main paths' shapes (a uint8 KITTI pair, its [2, 376, 1241] box sums,
-   1536 keypoints, 1024x1536 dual and single radius, 1536x1536 row mode)
-   -- bit for bit -- with median times of both;
+1. device: the card's name and power limit, its SM count and maximum SM
+   clock (for the bounds below), then the build of the CUDA kernels
+   (``lvt_tpu_torch/csrc/*.cu``, one nvcc per source for sm_90a, in
+   parallel, with ptxas's registers and spills) with its seconds;
+2. kernels: A (perception), B (dense BRIEF planes), P (describe + refine
+   at the keypoints) and T (Hamming distances + masked dual top-2) against
+   their plain PyTorch versions on the card, bit for bit, at the main
+   paths' shapes: a uint8 KITTI pair and its [2, 376, 1241] maps, the 2 x
+   1536 keypoint slots selected on it, and T at its four sites with the
+   real descriptor sets of two frames (map match, dual radius, 1024 x 1536;
+   staged re-match, one radius, 1024 x 1536; row match and BA row match,
+   row window, 1536 x 1536). Each kernel is timed as the mean of REPS
+   back-to-back launches between one pair of CUDA events (queued while a
+   spin kernel holds the card, so host time between launches is not
+   counted); the plain versions the same way with PLAIN_REPS; and each
+   gets its bound (see ``bound``) and, where one PyTorch call computes
+   the same function, that call's time;
 3. path 1, the main path (patch descriptors, BA off): a synthetic
    KITTI-geometry stereo sequence (uint8, as bench.py builds it) through
    ``VOSystem(config, device="cuda").track_chunk`` in chunks of 16; the
    final status must be TRACKING, the ATE under 5% of the distance
-   travelled, and the kernels must have launched (A and P once per frame,
-   T three times). Prints the host syncs of one chunk under
-   ``torch.cuda.set_sync_debug_mode("warn")`` and the frames/s of the
-   timed chunks; then the card against the CPU: frame 0's features bit for
-   bit, and the poses of frames 0-3 within 1e-3 m;
-4. path 2, the shipped KITTI config (lvt_tpu/configs/kitti/vo_config.yaml:
-   local BA, window 4 every 4 frames) in the dense descriptor mode, 48
-   frames in the same way: A, B once per frame and T four times; the
-   number of frames that ran BA (read once after the run) must be the
-   schedule's; then the card against the CPU over frames 0-8 (two BA runs);
-5. a JSON line with each kernel's launches, error and times, then the
-   last line ``{"ok": true, "device": {...}}``.
+   travelled, the host syncs of one chunk (under
+   ``torch.cuda.set_sync_debug_mode("warn")``) 0, and the kernels must have
+   launched (A and P once per frame, T three times); prints the frames/s of
+   the timed chunks; then the card against the CPU: frame 0's features bit
+   for bit, and the poses of frames 0-3 within 1e-3 m;
+4. path 2, the shipped KITTI config (lvt_tpu_torch/configs/kitti/
+   vo_config.yaml: local BA, window 4 every 4 frames) in the dense
+   descriptor mode, 48 frames in the same way: A, B once per frame and T
+   four times; the number of frames that ran BA (read once after the run)
+   must be the schedule's; then the card against the CPU over frames 0-8
+   (two BA runs);
+5. a JSON line with each kernel's launches, error, times and bound (T per
+   site and per frame of each path), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 just before a path runs and read
 just after it; the comparisons of phase 2 are not counted.
 
 ``--profile DIR`` also writes a torch.profiler table of one tracked chunk
-to DIR. Imports nothing of JAX.
+per path to DIR, and prints the profiler's mean device time per launch of
+each kernel beside the event times of phase 2. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -58,7 +70,8 @@ CHUNK = 16
 # chunk 0 warms up, chunk 1 counts host syncs, the rest are timed
 N_CHUNKS = {"path1": 5, "path2": 3}
 N_CPU_FRAMES = {"path1": 4, "path2": 9}
-REPS = 20
+REPS = 200          # back-to-back launches per kernel timing
+PLAIN_REPS = 5      # ... per plain-version timing
 DEVICE = "cuda"
 
 KERNELS = {
@@ -67,36 +80,89 @@ KERNELS = {
                    "lvt_tpu/ops/perception_pallas.py:153"),
     "brief": ("cuda", "lvt_tpu_torch/csrc/brief.cu",
               "lvt_tpu/ops/perception_pallas.py:288"),
-    "patches": ("cuda", "lvt_tpu_torch/csrc/patches.cu",
-                "lvt_tpu/ops/patches_pallas.py:109"),
-    "top2": ("cuda", "lvt_tpu_torch/csrc/top2.cu",
-             "lvt_tpu/ops/top2_pallas.py:35"),
+    "describe_refine": ("cuda", "lvt_tpu_torch/csrc/patches.cu",
+                        "lvt_tpu/ops/patches_pallas.py:109"),
+    "hamming_top2": ("cuda", "lvt_tpu_torch/csrc/top2.cu",
+                     "lvt_tpu/ops/top2_pallas.py:35"),
 }
+# the kernels' CUDA function names, as the profiler lists them
+SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
+           "describe_refine": "describe_refine_kernel",
+           "hamming_top2": "hamming_top2_kernel"}
 # launches each path needs per frame
 NEED_PER_FRAME = {
-    "path1": {"perception": 1, "patches": 1, "top2": 3},
-    "path2": {"perception": 1, "brief": 1, "top2": 4},
+    "path1": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
+    "path2": {"perception": 1, "brief": 1, "hamming_top2": 4},
 }
+# kernel T's sites in one frame of each path
+T_SITES = {"path1": ("map", "staged", "row"),
+           "path2": ("map", "staged", "row", "ba_row")}
+
+# ---- the card model behind every bound
+# device memory: H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+# issue rates per SM per clock, compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): 32-bit integer
+# add/subtract/min/max/logic/compare and float compare on the ALU pipe 64;
+# float32 add/multiply 128; population count 16
+RATE_PER_SM_CLOCK = {"alu": 64, "fp32": 128, "popc": 16}
+# kernel A per pixel: 9x9 box sum as two separable passes (16 adds); FAST:
+# 16 ring differences, 2 x 16 arcs by doubling windows (2 x 64 min/max),
+# 2 x 15 to reduce the arcs, clamp, negate and max (3); NMS: 6 max, 2
+# compares, 1 select
+A_ALU_PER_PIXEL = 16 + 16 + 128 + 30 + 3 + 9
+# kernel B per pixel: 256 comparisons and 256 bit inserts
+B_ALU_PER_PIXEL = 2 * 256
 
 
 def _say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def _median_ms(fn, reps: int = REPS) -> float:
-    """Median of ``reps`` launches, each bracketed by CUDA events."""
+def bound(card: dict, nbytes: int, ops: dict) -> tuple[float, str]:
+    """The least time the card could take for ``nbytes`` of device-memory
+    traffic (each input read once, each output written once) and ``ops``
+    ({pipe: count} of RATE_PER_SM_CLOCK's pipes, which run side by side):
+    the larger of the two, in ms, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    per_s = card["sms"] * card["clock_hz"]
+    t_ops = max([n / (RATE_PER_SM_CLOCK[p] * per_s) for p, n in ops.items()],
+                default=0.0)
+    return ((1e3 * t_bytes, "bytes") if t_bytes >= t_ops
+            else (1e3 * t_ops, "operations"))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of one call of ``fn`` over ``reps`` calls queued
+    back to back between one pair of CUDA events. A spin kernel holds the
+    card while the host queues the calls, so the host's time between
+    launches is not counted; the spin grows until the host has queued them
+    all before it ends (or reaches about a second)."""
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    while True:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        for _ in range(reps):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        ev[2].synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]) or cycles >= 1 << 30:
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles <<= 2
+
+
+def _flat(out):
+    """Output tensors of a call, nested tuples flattened."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
 
 
 def _max_abs_err(got, want) -> float:
@@ -106,17 +172,34 @@ def _max_abs_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def _require_equal(name: str, got, want) -> None:
+def _require_equal(name: str, got, want) -> float:
+    got, want = _flat(got), _flat(want)
+    torch.cuda.synchronize()
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} outputs, plain {len(want)}")
     for i, (g, w) in enumerate(zip(got, want)):
-        torch.cuda.synchronize()
         if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
             raise AssertionError(
                 f"{name}: output {i} differs from the plain version "
                 f"(max abs err {_max_abs_err([g], [w])})")
+    return _max_abs_err(got, want)
+
+
+def _measure(card, name, run_k, run_p, nbytes, ops, library=None) -> dict:
+    """Kernel vs plain bit for bit, then both timed, the bound, and the
+    library call's time (None where no one PyTorch call computes the same
+    function)."""
+    err = _require_equal(name, run_k(), run_p())
+    b_ms, b_by = bound(card, nbytes, ops)
+    return dict(max_abs_err=err, ms=device_ms(run_k, REPS),
+                plain_ms=device_ms(run_p, PLAIN_REPS), bound_ms=b_ms,
+                bound_by=b_by,
+                library_ms=None if library is None else device_ms(library,
+                                                                  REPS))
 
 
 def _world(config):
-    from lvt_tpu.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
 
     # bench.py's KITTI-geometry world
     return SyntheticWorld(
@@ -127,78 +210,55 @@ def _world(config):
     )
 
 
-def _kitti_config():
-    """Path 1: KITTI sequence 00 geometry, patch descriptors, BA off."""
-    from __graft_entry__ import _kitti_config as config
-
-    return config()
-
-
-def _kitti_ba_dense_config():
-    """Path 2: the shipped KITTI YAML (local BA on) with sequence 00's
-    calibration and frame size, in the dense descriptor mode."""
-    from lvt_tpu.config import load_config, load_kitti_calib
-
-    cfg_dir = os.path.join(ROOT, "lvt_tpu", "configs", "kitti")
-    calib = load_kitti_calib(os.path.join(cfg_dir, "00.yaml"))
-    return load_config(os.path.join(cfg_dir, "vo_config.yaml"), **calib,
-                       img_width=1241, img_height=376,
-                       descriptor_mode="dense")
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
 
 
-def phase_device() -> str:
+def phase_device() -> dict:
     from lvt_tpu_torch import kernels
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: chip_smoke "
                            "needs one CUDA device")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     _say("device", f"{name}; torch {torch.__version__}, CUDA "
                    f"{torch.version.cuda}")
-    print(smi.splitlines()[0], flush=True)
+    print(_smi("name,power.limit"), flush=True)
+    card = dict(name=name, sms=torch.cuda.get_device_properties(0)
+                .multi_processor_count,
+                clock_hz=1e6 * float(_smi("clocks.max.sm").split()[0]))
+    _say("device", f"{card['sms']} SMs, max SM clock "
+                   f"{card['clock_hz'] / 1e6:.0f} MHz; bounds at "
+                   f"{HBM_BYTES_PER_S / 1e12} TB/s and {RATE_PER_SM_CLOCK} "
+                   f"per SM per clock")
     kernels.build(verbose=True)
     kernels.lib()
     _say("device", f"kernels built in {kernels.build_seconds:.2f} s "
                    f"({kernels.library_path().name})")
-    return name
+    return card
 
 
-def phase_kernels(config, frame_l, frame_r) -> dict:
-    """Each kernel against its plain version on the card, bit for bit."""
-    from lvt_tpu_torch.core.extract import _spread_ties
-    from lvt_tpu_torch.ops import detect, hamming
+def _distinct(shape, b, rows, cols) -> int:
+    """Distinct map elements that the (b, rows, cols) index triples touch."""
+    hit = torch.zeros(shape, dtype=torch.bool, device=rows.device)
+    hit[b, rows, cols] = True
+    return int(hit.sum())
+
+
+def kernel_inputs(config, il, ir) -> dict:
+    """The kernels' inputs at the main paths' shapes, from two uint8 frames
+    per side (``il``, ``ir`` on the card): the first pair; its maps (kernel
+    A); its corners selected and padded to kp_capacity with P's arguments;
+    and T's arguments at its four sites, from the real descriptor sets of
+    both frames."""
+    from lvt_tpu_torch.core.extract import _spread_ties, extract_features_stereo
+    from lvt_tpu_torch.ops import detect, perception
     from lvt_tpu_torch.ops import patches as pt
-    from lvt_tpu_torch.ops import perception, top2
 
-    dev = torch.device(DEVICE)
-    rs = np.random.RandomState(0)
-    report = {}
-
-    # ---- A: a uint8 KITTI stereo pair
-    imgs = torch.from_numpy(np.stack([frame_l, frame_r])).to(dev)
-    kern = perception.perception_patch_maps_batched(imgs)
-    plain = perception.perception_plain(imgs)
-    _require_equal("perception", kern, plain)
-    report["perception"] = dict(
-        max_abs_err=_max_abs_err(kern, plain),
-        ms=_median_ms(lambda: perception.perception_patch_maps_batched(imgs)),
-        plain_ms=_median_ms(lambda: perception.perception_plain(imgs)))
-
-    # ---- B: the dense BRIEF planes of that pair's box sums
-    nms, raw, smooth = kern
-    kern = [perception.brief_planes(smooth)]
-    plain = [perception.brief_planes_plain(smooth)]
-    _require_equal("brief", kern, plain)
-    report["brief"] = dict(
-        max_abs_err=_max_abs_err(kern, plain),
-        ms=_median_ms(lambda: perception.brief_planes(smooth)),
-        plain_ms=_median_ms(lambda: perception.brief_planes_plain(smooth)))
-
-    # ---- P: the selected corners of that pair, padded to kp_capacity
+    imgs = torch.stack([il[0], ir[0]])
+    nms, raw, smooth = perception.perception_patch_maps_batched(imgs)
     h, w = imgs.shape[1:]
     det = detect.select_corners(
         nms, config.agast_threshold, cell_size=config.detection_cell_size,
@@ -207,76 +267,155 @@ def phase_kernels(config, frame_l, frame_r) -> dict:
         img_hw=(h, w), spread_ties=_spread_ties(imgs))
     cap = config.kp_capacity
     pad = cap - det.valid.shape[1]
-    xi = torch.nn.functional.pad(det.kp_int[..., 0], (0, pad))
-    yi = torch.nn.functional.pad(det.kp_int[..., 1], (0, pad))
-    valid = torch.nn.functional.pad(det.valid, (0, pad))
-    xc, yc = pt.clamp_coords(xi, yi, h, w)
-    args = (smooth, raw, xc.contiguous(), yc.contiguous(), valid.contiguous())
-    kern = pt.extract_patches_batched(*args)
-    plain = pt.extract_patches_plain(*args)
-    _require_equal("patches", kern, plain)
-    report["patches"] = dict(
-        max_abs_err=_max_abs_err(kern, plain),
-        ms=_median_ms(lambda: pt.extract_patches_batched(*args)),
-        plain_ms=_median_ms(lambda: pt.extract_patches_plain(*args)))
+    xi = torch.nn.functional.pad(det.kp_int[..., 0], (0, pad)).contiguous()
+    yi = torch.nn.functional.pad(det.kp_int[..., 1], (0, pad)).contiguous()
+    sel = torch.nn.functional.pad(det.valid, (0, pad)).contiguous()
+    xc, yc = (c.contiguous() for c in pt.clamp_coords(xi, yi, h, w))
 
-    # ---- T: map match (dual radius), staged re-match (single), row match
-    m, k = config.max_map_points, cap
-    r = float(config.tracking_radius)
-
-    def desc(n):
-        return torch.from_numpy(
-            rs.randint(-2**31, 2**31, (n, 8), dtype=np.int64)
-            .astype(np.int32)).to(dev)
-
-    def uv(n):
-        return torch.from_numpy(np.stack(
-            [rs.uniform(0, w, n), rs.uniform(0, h, n)], -1)
-            .astype(np.float32)).to(dev)
-
-    def mask(n, p):
-        return torch.from_numpy(rs.rand(n) < p).to(dev)
-
-    t_desc, t_kp, t_valid = desc(k), uv(k), mask(k, 0.8)
-    dist_map = hamming.hamming_matrix(desc(m), t_desc)
-    q_uv, q_valid = uv(m), mask(m, 0.9)
-    y_l = torch.floor(uv(k)[:, 1])
+    (l0, r0), (l1, _) = (extract_features_stereo(il[i], ir[i], config)
+                         for i in (0, 1))
+    m, rad = config.max_map_points, float(config.tracking_radius)
+    y_l = torch.floor(l0.kp[:, 1])
     vr = config.row_matching_vertical_search_radius
     window = torch.stack([torch.clamp(y_l - vr, min=0.0),
                           torch.clamp(y_l + vr, max=float(h))], -1)
+    # the BA row match queries the map-matched features, the triangulation
+    # row match the rest: half and half here
+    matched = torch.from_numpy(np.random.RandomState(0).rand(cap) < 0.5).to(
+        imgs.device)
     sites = {
-        "dual": (dist_map, q_uv, q_valid, t_kp, t_valid,
-                 dict(r2a=r * r, r2b=4 * r * r)),
-        "single": (dist_map, q_uv, q_valid, t_kp, t_valid,
-                   dict(r2a=r * r, r2b=r * r)),
-        "row": (hamming.hamming_matrix(desc(k), t_desc), window,
-                mask(k, 0.6), t_kp, t_valid,
-                dict(r2a=0.0, r2b=0.0, row_mode=True)),
+        # frame 1's features stand for the map and staged points
+        "map": ((l1.desc[:m], l0.desc, l1.kp[:m], l1.valid[:m], l0.kp,
+                 l0.valid), dict(r2a=rad * rad, r2b=4 * rad * rad)),
+        "staged": ((l1.desc[-m:], l0.desc, l1.kp[-m:], l1.valid[-m:], l0.kp,
+                    l0.valid & ~matched), dict(r2a=rad * rad, r2b=rad * rad)),
+        "row": ((l0.desc, r0.desc, window, l0.valid & ~matched, r0.kp,
+                 r0.valid), dict(r2a=0.0, r2b=0.0, row_mode=True)),
+        "ba_row": ((l0.desc, r0.desc, window, l0.valid & matched, r0.kp,
+                    r0.valid), dict(r2a=0.0, r2b=0.0, row_mode=True)),
     }
-    t_rep = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, sites={})
-    for site, (dist, qm, qv, tm, tv, kw) in sites.items():
-        def run_k():
-            return top2.masked_dual_top2(dist, qm, qv, tm, tv, **kw)
+    return dict(imgs=imgs, p_args=(smooth, raw, xc, yc, xi, yi, sel, h, w),
+                sites={k: (tuple(x.contiguous() for x in a), kw)
+                       for k, (a, kw) in sites.items()})
 
-        def run_p():
-            return top2.masked_dual_top2_plain(dist, qm, qv, tm, tv, **kw)
 
-        kern = [x for pair in run_k() for x in pair]
-        plain = [x for pair in run_p() for x in pair]
-        _require_equal(f"top2/{site}", kern, plain)
-        err = _max_abs_err(kern, plain)
-        ms, plain_ms = _median_ms(run_k), _median_ms(run_p)
-        t_rep["sites"][site] = dict(ms=ms, plain_ms=plain_ms)
-        t_rep["max_abs_err"] = max(t_rep["max_abs_err"], err)
-        # one frame of the main path runs each site once
-        t_rep["ms"] += ms
-        t_rep["plain_ms"] += plain_ms
-    report["top2"] = t_rep
+def p_bytes(p_args) -> int:
+    """Kernel P's device-memory bytes at these slots: the pool samples and
+    5-point raw stencils of the selected slots (distinct pixels), the slot
+    inputs (4 int32 + 1 bool) and the outputs (8 int32 + 1 bool + 2 f32)."""
+    from lvt_tpu_torch.ops import brief
+
+    smooth, _, xc, yc, _, _, sel, _, _ = p_args
+    dev = smooth.device
+    bi = torch.arange(sel.shape[0], device=dev)[:, None].expand_as(xc)[sel]
+    pool = torch.as_tensor(brief.sample_pool(), device=dev).long()
+    stencil = torch.tensor([[0, 0], [-1, 0], [1, 0], [0, -1], [0, 1]],
+                           device=dev)
+
+    def touched(offsets):
+        return _distinct(smooth.shape, bi[:, None].expand(-1, len(offsets)),
+                         yc[sel].long()[:, None] + offsets[:, 1],
+                         xc[sel].long()[:, None] + offsets[:, 0])
+
+    return 4 * (touched(pool) + touched(stencil)) + sel.numel() * (17 + 41)
+
+
+def t_work(args, kw, out) -> tuple[int, dict]:
+    """Kernel T's bytes and operations at one site, from its arguments and
+    its (plain) outputs: descriptors, coordinates and flags in; d1, d2,
+    best, n_cand for two predicates out; per valid pair the mask test
+    (radius: 2 sub, 2 mul, 1 add and 2 compares; window: 2 compares); per
+    candidate pair 8 XOR + popcount, 7 adds and 4 to pack and keep the
+    key."""
+    q_n, t_n = args[0].shape[0], args[1].shape[0]
+    n_valid = int(args[3].sum()) * int(args[5].sum())
+    n_cand = int(out[1 if kw["r2b"] > kw["r2a"] else 0][3].sum())
+    radius = not kw.get("row_mode", False)
+    return ((q_n + t_n) * (32 + 8 + 1) + q_n * 2 * (4 + 4 + 8 + 8),
+            {"fp32": 5 * n_valid * radius, "alu": 2 * n_valid + 19 * n_cand,
+             "popc": 8 * n_cand})
+
+
+def measure_a_b(card, imgs, smooth) -> dict:
+    """Kernels A (on a uint8 pair) and B (on its box sums), each against
+    its plain version, timed, with its bound."""
+    from lvt_tpu_torch.ops import perception
+
+    n_px = imgs.numel()
+    return {
+        "perception": _measure(
+            card, "perception",
+            lambda: perception.perception_patch_maps_batched(imgs),
+            lambda: perception.perception_plain(imgs),
+            nbytes=n_px * (1 + 3 * 4), ops={"alu": n_px * A_ALU_PER_PIXEL}),
+        "brief": _measure(
+            card, "brief", lambda: perception.brief_planes(smooth),
+            lambda: perception.brief_planes_plain(smooth),
+            nbytes=n_px * (4 + 32), ops={"alu": n_px * B_ALU_PER_PIXEL}),
+    }
+
+
+def phase_kernels(card, inp) -> dict:
+    """Each kernel against its plain version on the card, bit for bit,
+    with times and bounds, on ``kernel_inputs``."""
+    from lvt_tpu_torch.ops import brief, top2
+    from lvt_tpu_torch.ops import patches as pt
+
+    imgs, args = inp["imgs"], inp["p_args"]
+    smooth = args[0]
+    report = measure_a_b(card, imgs, smooth)
+
+    # ---- P: the selected corners of that pair, padded to kp_capacity
+    xc, yc, sel = args[2], args[3], args[6]
+    n_sel = int(sel.sum())
+    rows, cols = pt.window_index(xc, yc, brief.PATCH, brief.PATCH_R0,
+                                 brief.PATCH_C0)
+    b_idx = torch.arange(imgs.shape[0], device=imgs.device)[:, None, None, None]
+    report["describe_refine"] = _measure(
+        card, "describe_refine", lambda: pt.describe_refine_batched(*args),
+        lambda: pt.describe_refine_plain(*args), nbytes=p_bytes(args),
+        ops={"alu": n_sel * (2 * brief.N_BITS), "fp32": n_sel * 2 * 6},
+        # one advanced-indexing call: the 32x32 smooth windows that the TPU
+        # kernel copies out (ops/patches.py::_windows' gather)
+        library=lambda: smooth[b_idx, rows, cols])
+
+    # ---- T at its four sites
+    t_sites = {}
+    for site, (a, kw) in inp["sites"].items():
+        nbytes, ops = t_work(a, kw, top2.hamming_top2_plain(*a, **kw))
+        t_sites[site] = _measure(
+            card, f"hamming_top2/{site}",
+            lambda a=a, kw=kw: top2.hamming_top2(*a, **kw),
+            lambda a=a, kw=kw: top2.hamming_top2_plain(*a, **kw),
+            nbytes=nbytes, ops=ops)
+        t_sites[site].update(m=a[0].shape[0], k=a[1].shape[0],
+                             candidates=ops["popc"] // 8)
+    per_frame = {path: {key: sum(t_sites[s][key] for s in names)
+                        for key in ("ms", "plain_ms", "bound_ms")}
+                 for path, names in T_SITES.items()}
+    report["hamming_top2"] = dict(
+        t_sites["map"], site="map",
+        max_abs_err=max(s["max_abs_err"] for s in t_sites.values()),
+        sites=t_sites, per_frame=per_frame)
 
     for name, rep in report.items():
+        lib = ("" if rep["library_ms"] is None
+               else f", library call {rep['library_ms']:.4f} ms")
         _say("kernels", f"{name}: bit-exact vs plain, kernel "
-                        f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms "
-                        f"(median of {REPS})")
+                        f"{rep['ms']:.4f} ms (bound {rep['bound_ms']:.4f} ms, "
+                        f"{rep['bound_by']}), plain {rep['plain_ms']:.4f} ms"
+                        f"{lib}")
+    for site, rep in t_sites.items():
+        _say("kernels", f"hamming_top2 at {site} ({rep['m']} x {rep['k']}, "
+                        f"{rep['candidates']} candidate pairs): "
+                        f"{rep['ms']:.4f} ms (bound {rep['bound_ms']:.4f} ms, "
+                        f"{rep['bound_by']}), plain {rep['plain_ms']:.4f} ms")
+    for path, rep in per_frame.items():
+        _say("kernels", f"hamming_top2 per frame of {path} "
+                        f"({' + '.join(T_SITES[path])}): {rep['ms']:.4f} ms, "
+                        f"plain {rep['plain_ms']:.4f} ms")
+    _say("kernels", f"times: mean of {REPS} back-to-back launches "
+                    f"({PLAIN_REPS} for plain versions) between two events")
     return report
 
 
@@ -285,14 +424,14 @@ def _counters():
 
     return {"perception": perception.perception_patch_maps_batched,
             "brief": perception.brief_planes,
-            "patches": patches.extract_patches_batched,
-            "top2": top2.masked_dual_top2}
+            "describe_refine": patches.describe_refine_batched,
+            "hamming_top2": top2.hamming_top2}
 
 
 def phase_path(path, config, il, ir, gt, profile_dir=None):
     """One path: VOSystem.track_chunk on the card, chunk by chunk."""
-    from lvt_tpu.io.synthetic import ate_rmse
     from lvt_tpu_torch.core.system import TrackingState, VOSystem
+    from lvt_tpu_torch.io.synthetic import ate_rmse
 
     n = il.shape[0]
     vo = VOSystem(config, device=DEVICE)
@@ -358,29 +497,51 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
     if n_ba != want_ba:
         raise AssertionError(f"{path}: {n_ba} frames ran BA, the schedule "
                              f"says {want_ba}")
+    if syncs != 0:
+        raise AssertionError(f"{path}: {syncs} host syncs in one chunk")
     need = {k: v * n for k, v in NEED_PER_FRAME[path].items()}
     short = {k: (launches[k], v) for k, v in need.items() if launches[k] < v}
     if short:
         raise AssertionError(
             f"{path}: kernels launched too rarely (got, need): {short}")
 
+    prof = None
     if profile_dir:
-        _profile(vo, il[-CHUNK:], ir[-CHUNK:], os.path.join(profile_dir, path))
+        prof = _profile(vo, il[-CHUNK:], ir[-CHUNK:],
+                        os.path.join(profile_dir, path))
+        busy = prof["busy_ms_per_frame"]
+        _say(path, f"device busy {busy:.3f} ms per frame: "
+                   f"{100 * busy * fps / 1e3:.1f}% of the unprofiled frame "
+                   f"time ({1e3 / fps:.2f} ms)")
     from lvt_tpu_torch.tree import tree_map
 
     first = tree_map(lambda *xs: torch.cat(xs)[:N_CPU_FRAMES[path]], *poses)
-    return dict(launches=launches, first_poses=first, fps=fps, syncs=syncs)
+    return dict(launches=launches, first_poses=first, fps=fps, syncs=syncs,
+                profile=prof)
 
 
-STAGES = ("perception", "corner_select", "patch_extract", "describe_refine",
+STAGES = ("perception", "corner_select", "patch_describe",
           "corner_select_describe", "motion_predict", "map_matching",
           "pnp_solve", "map_bookkeeping", "staged_update", "triangulation",
           "local_ba")
 
 
-def _profile(vo, a, b, out_dir):
-    """torch.profiler over one chunk: the op table, and host and device
-    time per stage (the profiler ranges of core/step.py and extract.py)."""
+def _device_us(e) -> float:
+    dev = getattr(e, "device_time_total", None)
+    return e.cuda_time_total if dev is None else dev
+
+
+def _on_device(e) -> bool:
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def _profile(vo, a, b, out_dir) -> dict:
+    """torch.profiler over one chunk: the op table; per stage (the profiler
+    ranges of core/step.py and extract.py) the host time and the device
+    time of the torch ops' kernels inside it (the hand-written kernels,
+    launched through ctypes, are listed on their own); each hand-written
+    kernel's launches and mean device time per launch; and the device's
+    busy time, the sum of all kernel times."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -390,19 +551,35 @@ def _profile(vo, a, b, out_dir):
         torch.cuda.synchronize()
     events = prof.key_averages()
     n = a.shape[0]
-    lines = [f"{'stage':<16} {'host ms/frame':>14} {'device ms/frame':>16}"]
+    lines = [f"{'stage':<22} {'host ms/frame':>14} {'device ms/frame':>16}"]
     for e in events:
-        if e.key in STAGES:
-            dev = getattr(e, "device_time_total", None)
-            dev = e.cuda_time_total if dev is None else dev
-            lines.append(f"{e.key:<16} {e.cpu_time_total / 1e3 / n:>14.3f} "
-                         f"{dev / 1e3 / n:>16.3f}")
+        # a range is listed twice: on the host, and as its span on the
+        # device's timeline (idle gaps included), which is left out
+        if e.key in STAGES and not _on_device(e):
+            lines.append(f"{e.key:<22} {e.cpu_time_total / 1e3 / n:>14.3f} "
+                         f"{_device_us(e) / 1e3 / n:>16.3f}")
+    kernels = {}
+    for name, sym in SYMBOLS.items():
+        rows = [e for e in events if sym in e.key and e.count > 0
+                and _device_us(e) > 0]
+        if rows:
+            count = sum(e.count for e in rows)
+            kernels[name] = dict(launches=count, device_ms=sum(
+                _device_us(e) for e in rows) / 1e3 / count)
+            lines.append(f"kernel {name:<15} {count:>5} launches, "
+                         f"{kernels[name]['device_ms']:.4f} ms each "
+                         f"(profiler device time)")
+    busy = sum(_device_us(e) for e in events
+               if _on_device(e) and e.key not in STAGES) / 1e3
+    lines.append(f"device busy {busy:.2f} ms in {n} frames "
+                 f"({busy / n:.3f} ms per frame, the sum of kernel times)")
     with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
         f.write("\n".join(lines) + "\n\n")
         f.write(events.table(sort_by="cuda_time_total", row_limit=40))
     for line in lines:
         _say("profile", line)
     _say("profile", f"op table of one chunk written to {out_dir}")
+    return dict(kernels, busy_ms_per_frame=busy / n)
 
 
 def phase_cpu(path, config, il, ir, first_poses):
@@ -441,16 +618,19 @@ def main(argv=None) -> int:
                    help="write a torch.profiler table of one chunk to DIR")
     args = p.parse_args(argv)
 
-    name = phase_device()
-    configs = {"path1": _kitti_config(), "path2": _kitti_ba_dense_config()}
+    card = phase_device()
+    from lvt_tpu_torch.configs import kitti_ba_dense_config, kitti_config
+
+    configs = {"path1": kitti_config(), "path2": kitti_ba_dense_config()}
     n = CHUNK * max(N_CHUNKS.values())
     frames = list(_world(configs["path1"]).stereo_sequence(n, speed=0.9))
     il = torch.from_numpy(np.stack([f[0].astype(np.uint8) for f in frames]))
     ir = torch.from_numpy(np.stack([f[1].astype(np.uint8) for f in frames]))
     gt = np.array([f[2][1] for f in frames])
 
-    report = phase_kernels(configs["path1"], il[0].numpy(), ir[0].numpy())
     il, ir = il.to(DEVICE), ir.to(DEVICE)
+    report = phase_kernels(card, kernel_inputs(configs["path1"], il[:2],
+                                               ir[:2]))
     torch.cuda.synchronize()
     runs = {}
     for path, config in configs.items():
@@ -459,15 +639,21 @@ def main(argv=None) -> int:
                                 args.profile)
         phase_cpu(path, config, il, ir, runs[path]["first_poses"])
 
-    print(json.dumps({"kernels": [
-        dict(name=k, route=KERNELS[k][0], source=KERNELS[k][1],
-             replaces=KERNELS[k][2],
-             launches=sum(r["launches"][k] for r in runs.values()),
-             launches_by_path={p: r["launches"][k] for p, r in runs.items()},
-             **report[k])
-        for k in KERNELS]}), flush=True)
+    entries = []
+    for k, (route, source, replaces) in KERNELS.items():
+        entry = dict(name=k, route=route, source=source, replaces=replaces,
+                     launches=sum(r["launches"][k] for r in runs.values()),
+                     launches_by_path={p: r["launches"][k]
+                                       for p, r in runs.items()},
+                     reps=REPS, plain_reps=PLAIN_REPS, **report[k])
+        if args.profile:
+            entry["profiler_ms_by_path"] = {
+                p: r["profile"].get(k, {}).get("device_ms")
+                for p, r in runs.items()}
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card["name"],
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

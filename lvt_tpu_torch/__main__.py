@@ -1,7 +1,7 @@
 """Command line of the port: ``python -m lvt_tpu_torch synthetic``.
 
-Tracks a dataset-free synthetic stereo sequence (lvt_tpu.io.synthetic,
-the same world and config as ``python -m lvt_tpu synthetic``) on the given
+Tracks a dataset-free synthetic stereo sequence (``io/synthetic.py``: the
+same world and config as ``python -m lvt_tpu synthetic``) on the given
 device and prints the absolute trajectory error. The default device is
 ``cuda``; without CUDA the run fails instead of falling back to the CPU.
 """
@@ -16,8 +16,8 @@ import numpy as np
 
 
 def run_synthetic(args) -> int:
-    from lvt_tpu.config import VOConfig
-    from lvt_tpu.io.synthetic import SyntheticWorld, ate_rmse
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld, ate_rmse
     from lvt_tpu_torch.core.system import VOSystem
 
     world = SyntheticWorld()

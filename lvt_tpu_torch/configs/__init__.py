@@ -1,0 +1,44 @@
+"""Shipped configurations of the port.
+
+* :func:`kitti_config` — path 1, the stereo main path: KITTI odometry
+  sequence 00 intrinsics and baseline at 1241x376, 250-px cells of 150
+  corners (1536 keypoint slots per image), 1024 map and 1024 staged
+  points, patch descriptors, local BA off (the configuration of lvt_tpu's
+  ``bench.py`` and ``__graft_entry__._kitti_config``);
+* :func:`kitti_ba_dense_config` — path 2: ``kitti/vo_config.yaml`` (local
+  BA window 4 every 4 frames) with ``kitti/00.yaml``'s calibration, in the
+  dense descriptor mode.
+
+The YAML files are copies of lvt_tpu/configs/kitti/.
+"""
+
+from __future__ import annotations
+
+import os
+
+from lvt_tpu_torch.config import VOConfig, load_config, load_kitti_calib
+
+KITTI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kitti")
+
+
+def kitti_config() -> VOConfig:
+    """Path 1: KITTI sequence 00 geometry, patch descriptors, BA off."""
+    return VOConfig(
+        fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+        baseline=0.537165718864,
+        img_width=1241, img_height=376,
+        near_plane_distance=0.01, far_plane_distance=500.0,
+        detection_cell_size=250, max_keypoints_per_cell=150,
+        agast_threshold=25, staged_threshold=2, untracked_threshold=10,
+        triangulation_policy=1,
+        max_map_points=1024, max_staged_points=1024,
+    )
+
+
+def kitti_ba_dense_config() -> VOConfig:
+    """Path 2: the shipped KITTI YAML (local BA on) with sequence 00's
+    calibration and frame size, in the dense descriptor mode."""
+    calib = load_kitti_calib(os.path.join(KITTI_DIR, "00.yaml"))
+    return load_config(os.path.join(KITTI_DIR, "vo_config.yaml"), **calib,
+                       img_width=1241, img_height=376,
+                       descriptor_mode="dense")

@@ -1,8 +1,8 @@
 """Feature extraction in two descriptor modes, bit-identical at valid
 keypoints:
 
-* patch (the default): kernel A -> per-cell corner selection -> patch
-  kernel -> BRIEF from patches + subpixel refinement;
+* patch (the default): kernel A -> per-cell corner selection -> kernel P
+  (BRIEF and subpixel refinement of each slot, read from A's maps);
 * dense: kernel A -> kernel B (BRIEF bit planes of every pixel) ->
   per-cell selection with subpixel refinement on the raw map -> one
   descriptor gather from the planes.
@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function as stage
 
-from lvt_tpu.config import VOConfig
+from lvt_tpu_torch.config import VOConfig
 from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.ops import brief, detect
 from lvt_tpu_torch.ops import patches as pt
@@ -65,16 +65,12 @@ def _extract_patch_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
     yi = pad(det.kp_int[..., 1])
     sel_valid = pad(det.valid)
     xc, yc = pt.clamp_coords(xi, yi, h, w)
-    with stage("patch_extract"):
-        patches, rawp = pt.extract_patches_batched(
-            smooth, raw, xc.contiguous(), yc.contiguous(),
-            sel_valid.contiguous())
-    with stage("describe_refine"):
-        desc, valid = brief.descriptors_from_patches(patches, xi, yi,
-                                                     sel_valid, h, w)
-        xf, yf = detect.subpixel_from_patches(rawp, xi, yi)
+    with stage("patch_describe"):
+        desc, valid, kp = pt.describe_refine_batched(
+            smooth, raw, xc.contiguous(), yc.contiguous(), xi.contiguous(),
+            yi.contiguous(), sel_valid.contiguous(), h, w)
     return FrameFeatures(
-        kp=torch.stack([xf, yf], dim=-1), desc=desc, score=pad(det.score),
+        kp=kp, desc=desc, score=pad(det.score),
         depth=torch.zeros((bsz, cap), dtype=torch.float32, device=imgs.device),
         valid=valid,
     )

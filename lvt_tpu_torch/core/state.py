@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from lvt_tpu.config import MATCHES_WINDOW_INIT
+from lvt_tpu_torch.config import MATCHES_WINDOW_INIT
 from lvt_tpu_torch.core.features import DESC_WORDS
 from lvt_tpu_torch.core.motion import MotionState
 from lvt_tpu_torch.device import DESC_DTYPE

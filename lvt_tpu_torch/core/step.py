@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function as stage
 
-from lvt_tpu.config import MATCHES_WINDOW_INIT, VOConfig
+from lvt_tpu_torch.config import MATCHES_WINDOW_INIT, VOConfig
 from lvt_tpu_torch.core import extract
 from lvt_tpu_torch.core import map as map_ops
 from lvt_tpu_torch.core.features import FrameFeatures
@@ -54,22 +54,21 @@ def _camera_kwargs(config: VOConfig) -> dict:
 
 
 def _row_match(left: FrameFeatures, right: FrameFeatures, left_excluded,
-               config: VOConfig, dist=None):
+               config: VOConfig):
     return matching.row_match(
         left, right, left_excluded,
         vertical_search_radius=config.row_matching_vertical_search_radius,
         ratio_threshold=config.triangulation_ratio_test_threshold,
         abs_threshold=config.descriptor_matching_threshold,
-        img_rows=config.img_height, dist=dist,
+        img_rows=config.img_height,
     )
 
 
 def _triangulate_new_points(left: FrameFeatures, right: FrameFeatures,
-                            feature_matched, pose: Pose, config: VOConfig,
-                            row_dist=None):
+                            feature_matched, pose: Pose, config: VOConfig):
     """Row-match the untracked left features and triangulate them.
     Returns (points_world [K, 3], desc [K, W], valid [K])."""
-    rm = _row_match(left, right, feature_matched, config, row_dist)
+    rm = _row_match(left, right, feature_matched, config)
     k = left.kp.shape[0]
     uv_right = right.kp[torch.clamp(rm.right_idx, 0, k - 1)]
     res = triangulate.triangulate_stereo(
@@ -102,9 +101,9 @@ def _staged_update(staged, pose: Pose, feats: FrameFeatures, feature_matched,
     visible = staged.valid & se3.visibility_mask(
         pts_cam, uv, cam["near"], cam["far"],
         cam["min_x"], cam["max_x"], cam["min_y"], cam["max_y"])
-    dist = hamming.hamming_matrix(staged.desc, feats.desc)
     (d1, d2, best, n_cand), _ = matching.dual_radius_top2(
-        dist, uv, visible, feats.kp, feats.valid & ~feature_matched,
+        staged.desc, feats.desc, uv, visible, feats.kp,
+        feats.valid & ~feature_matched,
         config.tracking_radius, config.tracking_radius)
     idx = hamming.accept_matches(d1, d2, best, n_cand,
                                  config.tracking_ratio_test_threshold,
@@ -243,16 +242,16 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
     need_tri = _policy_need_triangulation(
         config, window, map_size_after_promo) | is_init
 
-    # with BA on, one stereo Hamming matrix serves the triangulation row
-    # match (untracked features) and the BA row match (tracked features);
-    # the port is stereo only, so BA always has its right camera
+    # the port is stereo only, so BA always has its right camera. lvt_tpu
+    # builds one stereo Hamming matrix for the triangulation row match and
+    # the BA row match; here each row match computes its distances inside
+    # kernel T, since recomputing 1536 x 1536 distances costs less than
+    # writing and reading back a 9.4 MB matrix
     want_ba_rm = config.local_ba_window > 0
-    row_dist = (hamming.hamming_matrix(left.desc, right.desc) if want_ba_rm
-                else None)
 
     with stage("triangulation"):
         pts, desc, tri_valid = _triangulate_new_points(
-            left, right, feature_matched, pose_opt, config, row_dist)
+            left, right, feature_matched, pose_opt, config)
         tri_valid = tri_valid & need_tri
         to_map = ((map_size_after_promo < config.map_soft_cap)
                   | (config.staged_threshold == 0))
@@ -270,8 +269,7 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
             recycled = recycled | ins_promo.taken
         with stage("local_ba"):
             # right-camera observations of the map-matched features
-            rm_ba = _row_match(left, right, ~mm.feature_matched, config,
-                               row_dist)
+            rm_ba = _row_match(left, right, ~mm.feature_matched, config)
             slot_feat = torch.clamp(mm.match_idx, 0, k - 1)
             r_idx = rm_ba.right_idx[slot_feat]
             ba_window, pose_final, refined_pos, ba_ran = _local_ba_update(

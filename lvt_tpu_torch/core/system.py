@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lvt_tpu.config import VOConfig
+from lvt_tpu_torch.config import VOConfig
 from lvt_tpu_torch import convert
 from lvt_tpu_torch.core import step as step_mod
 from lvt_tpu_torch.core.state import StepMetrics, VOState

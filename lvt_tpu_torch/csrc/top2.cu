@@ -1,25 +1,37 @@
-// Masked top-2 selection over a Hamming distance matrix, for Hopper.
+// Kernel T for Hopper: masked dual top-2 straight from BRIEF descriptors.
 //
 // Replaces lvt_tpu/ops/top2_pallas.py::_top2_kernel (reached through
-// masked_dual_top2) at its three main-path sites: map matching (two radii),
-// the staged re-match (one radius) and the stereo row match (row window).
+// masked_dual_top2) at its four sites: map matching (two radii), the staged
+// re-match (one radius), the stereo row match and the BA row match (row
+// window). In lvt_tpu the [M, K] Hamming matrix it reads is XLA's work
+// (XOR + popcount, outside the Pallas kernel); here the distance is
+// computed in the kernel and the matrix never exists.
+//
 // Per query row it builds the candidate mask from the validity flags and
 // either the radius tests (dx*dx + dy*dy < r2) or the row window
-// (lo <= y_r <= hi), packs keys (d << 11 | col) and keeps the smallest and
-// second-smallest key and the candidate count. Keys are unique per row, so
-// their minimum is the top-1 with the lowest column winning ties, exactly
-// as in the TPU kernel; the decode to (d1, d2, best, n_cand) is the one in
-// top2_pallas.py. Radius arithmetic uses explicit round-to-nearest
-// intrinsics so no FMA contraction can move a point across the radius.
+// (lo <= y_r <= hi). For a candidate the distance is the sum of
+// __popc(q[w] ^ t[w]) over the 8 descriptor words; keys (d << 11 | col)
+// are unique per row, so their minimum is the top-1 with the lowest column
+// winning ties, exactly as in the TPU kernel, and the decode to
+// (d1, d2, best, n_cand) is the one in top2_pallas.py. Radius arithmetic
+// uses explicit round-to-nearest intrinsics so no FMA contraction can move
+// a point across the radius.
 //
-// Design: one warp per query row; lanes stride over the K columns (one
-// coalesced 128-byte read of the row per step), each lane keeps a running
-// (min, second min, count) per predicate in registers, then a butterfly of
-// warp shuffles merges the 32 partial results.
-//
-// What bounds it on the card: device-memory reads of the [M, K] int32
-// matrix (6 MB at 1024 x 1536) plus the target coordinates, which stay in
-// L1/L2 across rows; compute is a few integer ops per element.
+// What bounds it: with the matrix gone it reads ~0.1 MB of descriptors,
+// coordinates and flags, and computes 8 XOR + popcount pairs per candidate
+// pair (popcount: 16 per SM per clock) plus a few float operations per
+// valid pair; at the main path's shapes (1024 or 1536 x 1536, a few
+// percent of pairs are candidates) both are microseconds, so launch
+// latency and the dependent loop set its time. What the design does about
+// the old kernel's limits (under one block per SM, one 48-step latency-
+// bound loop per lane, and a 6-9 MB matrix built by ~15 elementwise passes
+// over a [M, K, 8] tensor): a block owns ROWS query rows, keeps their
+// descriptor words in registers and lets its warps split the K columns, so
+// M = 1024 runs 256 blocks of 8 warps (some 16 warps per SM) and each lane
+// takes ~6 columns; a lane loads a target's 8 words as two 16-byte loads
+// plus its coordinates and validity once, and tests it against all ROWS
+// rows. Running (k1, k2, n) per row and predicate are merged by a shuffle
+// butterfly within each warp, then across the warps through shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,7 +42,8 @@ constexpr int COL_BITS = 11;
 constexpr int COL_MASK = (1 << COL_BITS) - 1;
 constexpr int IMAX = 0x7fffffff;
 constexpr float BIG = 1.0e9f;   // ops/hamming.py BIG
-constexpr int WARPS_PER_BLOCK = 8;
+constexpr int ROWS = 4;         // query rows per block
+constexpr int WARPS = 8;        // warps per block, splitting the columns
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Mode { RADIUS_DUAL = 0, RADIUS_SINGLE = 1, ROW = 2 };
@@ -50,17 +63,26 @@ __device__ __forceinline__ void push(Top2& t, int key) {
 }
 
 // merge of two (smallest, second smallest) pairs of distinct keys
-__device__ __forceinline__ Top2 warp_reduce(Top2 t) {
+__device__ __forceinline__ void merge(Top2& t, int o1, int o2, int onc) {
+  t.k2 = min(max(t.k1, o1), min(t.k2, o2));
+  t.k1 = min(t.k1, o1);
+  t.nc += onc;
+}
+
+__device__ __forceinline__ void warp_reduce(Top2& t) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const int o1 = __shfl_xor_sync(FULL, t.k1, off);
     const int o2 = __shfl_xor_sync(FULL, t.k2, off);
     const int onc = __shfl_xor_sync(FULL, t.nc, off);
-    t.k2 = min(max(t.k1, o1), min(t.k2, o2));
-    t.k1 = min(t.k1, o1);
-    t.nc += onc;
+    merge(t, o1, o2, onc);
   }
-  return t;
+}
+
+__device__ __forceinline__ int hamming(const uint32_t* q, int4 lo, int4 hi) {
+  return __popc(q[0] ^ lo.x) + __popc(q[1] ^ lo.y) + __popc(q[2] ^ lo.z) +
+         __popc(q[3] ^ lo.w) + __popc(q[4] ^ hi.x) + __popc(q[5] ^ hi.y) +
+         __popc(q[6] ^ hi.z) + __popc(q[7] ^ hi.w);
 }
 
 // out layout: fout [2 (d1, d2), 2 (predicate), m], iout [2 (best, n_cand), 2, m]
@@ -74,60 +96,124 @@ __device__ __forceinline__ void write(const Top2& t, int p, int row, int m,
   iout[(1 * 2 + p) * m + row] = t.nc;
 }
 
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) top2_kernel(
-    const int* __restrict__ dist, const float* __restrict__ qm,
-    const uint8_t* __restrict__ qv, const float* __restrict__ tm,
-    const uint8_t* __restrict__ tv, int m, int k, float r2a, float r2b,
-    int mode, float* __restrict__ fout, long long* __restrict__ iout) {
+template <int MODE>
+__global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
+    const int4* __restrict__ q_desc, const int4* __restrict__ t_desc,
+    const float* __restrict__ qm, const uint8_t* __restrict__ qv,
+    const float* __restrict__ tm, const uint8_t* __restrict__ tv, int m,
+    int k, float r2a, float r2b, float* __restrict__ fout,
+    long long* __restrict__ iout) {
+  __shared__ int part[WARPS][ROWS][2][3];
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= m) return;  // uniform across the warp
-  Top2 a{IMAX, IMAX, 0};
-  Top2 b{IMAX, IMAX, 0};
-  if (qv[row]) {  // uniform across the warp
-    const float q0 = qm[2 * row];
-    const float q1 = qm[2 * row + 1];
-    const int* drow = dist + static_cast<size_t>(row) * k;
-    for (int c = lane; c < k; c += 32) {
-      if (!tv[c]) continue;
-      const int key = (drow[c] << COL_BITS) | c;
-      const float tx = tm[2 * c];
-      const float ty = tm[2 * c + 1];
-      if (mode == ROW) {
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * ROWS;
+
+  uint32_t q[ROWS][8];
+  float q0[ROWS], q1[ROWS];
+  bool ok[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int row = row0 + r;
+    ok[r] = row < m && qv[row];
+    const int4 lo = ok[r] ? q_desc[2 * row] : make_int4(0, 0, 0, 0);
+    const int4 hi = ok[r] ? q_desc[2 * row + 1] : make_int4(0, 0, 0, 0);
+    q[r][0] = lo.x; q[r][1] = lo.y; q[r][2] = lo.z; q[r][3] = lo.w;
+    q[r][4] = hi.x; q[r][5] = hi.y; q[r][6] = hi.z; q[r][7] = hi.w;
+    q0[r] = ok[r] ? qm[2 * row] : 0.0f;
+    q1[r] = ok[r] ? qm[2 * row + 1] : 0.0f;
+  }
+
+  Top2 a[ROWS], b[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    a[r] = Top2{IMAX, IMAX, 0};
+    b[r] = Top2{IMAX, IMAX, 0};
+  }
+
+  for (int c = warp * 32 + lane; c < k; c += WARPS * 32) {
+    if (!tv[c]) continue;
+    const float tx = tm[2 * c];
+    const float ty = tm[2 * c + 1];
+    bool any = false;
+    bool pa[ROWS], pb[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (MODE == ROW) {
         // (q0, q1) is the (lo, hi) row window
-        if (ty >= q0 && ty <= q1) push(a, key);
+        pa[r] = ok[r] && ty >= q0[r] && ty <= q1[r];
+        pb[r] = false;
       } else {
-        const float dx = __fsub_rn(tx, q0);
-        const float dy = __fsub_rn(ty, q1);
+        const float dx = __fsub_rn(tx, q0[r]);
+        const float dy = __fsub_rn(ty, q1[r]);
         const float dr2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        if (dr2 < r2a) push(a, key);
-        if (mode == RADIUS_DUAL && dr2 < r2b) push(b, key);
+        pa[r] = ok[r] && dr2 < r2a;
+        pb[r] = MODE == RADIUS_DUAL && ok[r] && dr2 < r2b;
       }
+      any = any || pa[r] || pb[r];
+    }
+    if (!any) continue;
+    const int4 lo = t_desc[2 * c];
+    const int4 hi = t_desc[2 * c + 1];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (!(pa[r] || pb[r])) continue;
+      const int key = (hamming(q[r], lo, hi) << COL_BITS) | c;
+      if (pa[r]) push(a[r], key);
+      if (pb[r]) push(b[r], key);
     }
   }
-  a = warp_reduce(a);
-  b = (mode == RADIUS_DUAL) ? warp_reduce(b) : a;
-  if (lane == 0) {
-    write(a, 0, row, m, fout, iout);
-    write(b, 1, row, m, fout, iout);
+
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    warp_reduce(a[r]);
+    if (MODE == RADIUS_DUAL) warp_reduce(b[r]);
+    if (lane == 0) {
+      part[warp][r][0][0] = a[r].k1;
+      part[warp][r][0][1] = a[r].k2;
+      part[warp][r][0][2] = a[r].nc;
+      part[warp][r][1][0] = b[r].k1;
+      part[warp][r][1][1] = b[r].k2;
+      part[warp][r][1][2] = b[r].nc;
+    }
   }
+  __syncthreads();
+
+  // one thread per (row, predicate) merges the warps' partial results
+  const int t = threadIdx.x;
+  if (t >= ROWS * 2) return;
+  const int r = t >> 1;
+  const int row = row0 + r;
+  if (row >= m) return;
+  const int p = (MODE == RADIUS_DUAL) ? (t & 1) : 0;  // one predicate, twice
+  Top2 acc{IMAX, IMAX, 0};
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w)
+    merge(acc, part[w][r][p][0], part[w][r][p][1], part[w][r][p][2]);
+  write(acc, t & 1, row, m, fout, iout);
 }
 
 }  // namespace
 
-extern "C" int lvt_masked_dual_top2(const int* dist, const float* q_meta,
-                                    const uint8_t* q_valid,
-                                    const float* t_meta,
-                                    const uint8_t* t_valid, int m, int k,
-                                    float r2a, float r2b, int mode,
-                                    float* fout, long long* iout,
-                                    void* stream) {
-  const int blocks = (m + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+extern "C" int lvt_hamming_top2(const int* q_desc, const int* t_desc,
+                                const float* q_meta, const uint8_t* q_valid,
+                                const float* t_meta, const uint8_t* t_valid,
+                                int m, int k, float r2a, float r2b, int mode,
+                                float* fout, long long* iout, void* stream) {
+  const int blocks = (m + ROWS - 1) / ROWS;
   if (blocks > 0) {
-    top2_kernel<<<blocks, WARPS_PER_BLOCK * 32, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-        dist, q_meta, q_valid, t_meta, t_valid, m, k, r2a, r2b, mode, fout,
-        iout);
+    const auto* qd = reinterpret_cast<const int4*>(q_desc);
+    const auto* td = reinterpret_cast<const int4*>(t_desc);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (mode == RADIUS_DUAL) {
+      hamming_top2_kernel<RADIUS_DUAL><<<blocks, WARPS * 32, 0, s>>>(
+          qd, td, q_meta, q_valid, t_meta, t_valid, m, k, r2a, r2b, fout, iout);
+    } else if (mode == RADIUS_SINGLE) {
+      hamming_top2_kernel<RADIUS_SINGLE><<<blocks, WARPS * 32, 0, s>>>(
+          qd, td, q_meta, q_valid, t_meta, t_valid, m, k, r2a, r2b, fout, iout);
+    } else {
+      hamming_top2_kernel<ROW><<<blocks, WARPS * 32, 0, s>>>(
+          qd, td, q_meta, q_valid, t_meta, t_valid, m, k, r2a, r2b, fout, iout);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,9 @@ under ``build/lvt_tpu_torch/`` at the first call that needs them and loaded
 with ``ctypes``. Nothing here runs at
 import: the CPU tests import every module on machines without ``nvcc``.
 
-The library name carries a hash of the sources and flags, so an edited
-kernel never loads a stale build. Each kernel launches on the stream it is
+The library name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited kernel never loads a stale
+build. Each kernel launches on the stream it is
 given (the wrapper passes ``torch.cuda.current_stream()``), allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code.
@@ -37,9 +38,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lvt_perception": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     "lvt_brief_planes": [_P, _P, _I, _I, _I, _P],
-    "lvt_extract_patches": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "lvt_masked_dual_top2": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,
-                             _P],
+    "lvt_describe_refine": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _P],
+    "lvt_hamming_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,
+                         _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -59,7 +61,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())

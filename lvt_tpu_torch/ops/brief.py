@@ -20,8 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lvt_tpu_torch.ops.patches import PATCH, PATCH_C0, PATCH_R0
-
+PATCH = 32        # smooth patch extent; pool offsets live in [-15, 15]
+PATCH_R0 = 15     # pool sample (dx, dy) maps to patch row PATCH_R0 + dy
+PATCH_C0 = 16     # ... and patch col PATCH_C0 + dx
 KERNEL_SIZE = 9
 N_BITS = 256
 POOL_SIZE = 64

@@ -1,8 +1,9 @@
 """Projection matching (map -> frame) and stereo row matching.
 
 Port of lvt_tpu/ops/matching.py (the single-device branch). Both radii of
-the map match, and the row window of the row match, reduce through the
-masked top-2 kernel (ops/top2.py) over one Hamming matrix.
+the map match, and the row window of the row match, reduce through kernel
+T (ops/top2.py), which takes the descriptors and computes the Hamming
+distances itself.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.geometry import se3
 from lvt_tpu_torch.ops import hamming
-from lvt_tpu_torch.ops.top2 import masked_dual_top2
+from lvt_tpu_torch.ops.top2 import hamming_top2
 
 
 class MapMatchResult(NamedTuple):
@@ -28,11 +29,12 @@ class MapMatchResult(NamedTuple):
     used_wide_radius: torch.Tensor  # [] bool
 
 
-def dual_radius_top2(dist, q_uv, q_valid, t_kp, t_valid, radius_a, radius_b):
-    """Masked top-2 under two radius predicates from one distance matrix
-    (radius_b == radius_a gives one predicate, returned twice)."""
-    return masked_dual_top2(dist, q_uv, q_valid, t_kp, t_valid,
-                            r2a=float(radius_a) ** 2, r2b=float(radius_b) ** 2)
+def dual_radius_top2(q_desc, t_desc, q_uv, q_valid, t_kp, t_valid,
+                     radius_a, radius_b):
+    """Masked top-2 of Hamming distances under two radius predicates in one
+    pass (radius_b == radius_a gives one predicate, returned twice)."""
+    return hamming_top2(q_desc, t_desc, q_uv, q_valid, t_kp, t_valid,
+                        r2a=float(radius_a) ** 2, r2b=float(radius_b) ** 2)
 
 
 def _accept_resolve(top2, ratio_th, abs_th, num_feats):
@@ -53,9 +55,8 @@ def find_map_matches(
     uv = se3.project_points(pts_cam, fx, fy, cx, cy)
     visible = map_valid & se3.visibility_mask(pts_cam, uv, near, far,
                                               min_x, max_x, min_y, max_y)
-    dist = hamming.hamming_matrix(map_desc, feats.desc)
     top2_narrow, top2_wide = dual_radius_top2(
-        dist, uv, visible, feats.kp, feats.valid,
+        map_desc, feats.desc, uv, visible, feats.kp, feats.valid,
         tracking_radius, 2 * tracking_radius)
     idx1, d1a, d2a = _accept_resolve(top2_narrow, ratio_threshold,
                                      abs_threshold, k)
@@ -85,22 +86,17 @@ def row_match(
     left: FrameFeatures, right: FrameFeatures, left_excluded: torch.Tensor, *,
     vertical_search_radius: int, ratio_threshold: float,
     abs_threshold: float, img_rows: int,
-    dist: torch.Tensor | None = None,
 ) -> RowMatchResult:
     """Epipolar row matching: right candidates lie within
-    floor(y_l) -+ r rows (clamped to the image). ``dist`` is the stereo
-    Hamming matrix [K, K] when the caller has it already (two row matches
-    of one pair with complementary exclusion masks build it once)."""
+    floor(y_l) -+ r rows (clamped to the image)."""
     k = left.kp.shape[0]
     query_ok = left.valid & ~left_excluded
     y_l = torch.floor(left.kp[:, 1])
     lo = torch.clamp(y_l - vertical_search_radius, min=0.0)
     hi = torch.clamp(y_l + vertical_search_radius, max=float(img_rows))
-    if dist is None:
-        dist = hamming.hamming_matrix(left.desc, right.desc)
-    (d1, d2, best, n_cand), _ = masked_dual_top2(
-        dist, torch.stack([lo, hi], dim=-1), query_ok, right.kp, right.valid,
-        r2a=0.0, r2b=0.0, row_mode=True)
+    (d1, d2, best, n_cand), _ = hamming_top2(
+        left.desc, right.desc, torch.stack([lo, hi], dim=-1), query_ok,
+        right.kp, right.valid, r2a=0.0, r2b=0.0, row_mode=True)
     idx = hamming.accept_matches(d1, d2, best, n_cand, ratio_threshold,
                                  abs_threshold)
     idx = hamming.resolve_one_to_one(idx, d1, k)

@@ -8,7 +8,8 @@ On a GPU machine without JAX, skip tests/conftest.py (it imports JAX):
 
 Tolerance: none — kernels A (uint8 frames), B, P and T are bit-exact
 with their plain versions by construction (integer arithmetic, float
-comparisons, copies, packed integer keys). The unmarked tests run
+comparisons, packed integer keys, and P's subpixel fit in the plain
+version's order of f32 operations, rounded to nearest). The unmarked tests run
 anywhere: a wrapper given a tensor that is not on the CPU launches its
 kernel or raises, never falls back.
 """
@@ -63,33 +64,50 @@ def test_brief_kernel_matches_plain(cuda, shape):
     assert torch.equal(got, perception.brief_planes_plain(smooth))
 
 
+def _desc(rs, n):
+    return rs.randint(-2**31, 2**31, (n, 8), dtype=np.int64).astype(np.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1536, 77])
-def test_patch_kernel_matches_plain(cuda, k):
+@pytest.mark.parametrize("selected", ["some", "none"])
+def test_patch_kernel_matches_plain(cuda, k, selected):
+    """Kernel P (describe + refine) against its plain composition: desc,
+    valid and kp bit-equal for every slot, on integer-valued maps (ties
+    in the comparisons and flat parabolas) with corners anywhere."""
     rs = np.random.RandomState(1)
     h, w = 376, 1241
-    smooth = torch.from_numpy(rs.rand(2, h, w).astype(np.float32)).to(cuda)
-    raw = torch.from_numpy(rs.rand(2, h, w).astype(np.float32)).to(cuda)
+    smooth = torch.from_numpy(rs.randint(0, 8, (2, h, w)).astype(np.float32))
+    raw = torch.from_numpy(rs.randint(0, 60, (2, h, w)).astype(np.float32))
     x = torch.from_numpy(rs.randint(-4, w + 4, (2, k)).astype(np.int32))
     y = torch.from_numpy(rs.randint(-4, h + 4, (2, k)).astype(np.int32))
-    x, y = (c.to(cuda) for c in patches.clamp_coords(x, y, h, w))
-    valid = torch.from_numpy(rs.rand(2, k) > 0.3).to(cuda)
-    got = patches.extract_patches_batched(smooth, raw, x, y, valid)
+    xc, yc = patches.clamp_coords(x, y, h, w)
+    sel = torch.from_numpy(rs.rand(2, k) > (0.3 if selected == "some" else 2))
+    args = [t.to(cuda) for t in (smooth, raw, xc, yc, x, y, sel)] + [h, w]
+    before = patches.describe_refine_batched.launches
+    got = patches.describe_refine_batched(*args)
     torch.cuda.synchronize()
-    for g, r in zip(got, patches.extract_patches_plain(smooth, raw, x, y,
-                                                       valid)):
-        assert torch.equal(g, r)
+    assert patches.describe_refine_batched.launches == before + 1
+    want = patches.describe_refine_plain(*args)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert got[1].any() == (selected == "some")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["dual", "single", "row"])
-@pytest.mark.parametrize("mk", [(1024, 1536), (100, 333)])
+@pytest.mark.parametrize("mk", [(1024, 1536), (1536, 1536), (101, 2048),
+                                (3, 333)])
 def test_top2_kernel_matches_plain(cuda, mode, mk):
+    """Kernel T (Hamming distances + masked dual top-2) against the matrix
+    followed by the plain top-2: equal bit for bit, with duplicate
+    target descriptors, invalid query rows, and M not a multiple of the
+    kernel's 4 rows per block."""
     rs = np.random.RandomState(2)
     m, k = mk
-    desc = lambda n: torch.from_numpy(  # noqa: E731
-        rs.randint(-2**31, 2**31, (n, 8), dtype=np.int64).astype(np.int32))
-    dist = hamming.hamming_matrix(desc(m), desc(k)).to(cuda)
+    t_desc = _desc(rs, k)
+    t_desc[1::3] = t_desc[::3][:t_desc[1::3].shape[0]]
+    q_desc = _desc(rs, m)
     t_kp = torch.from_numpy(rs.uniform(0, 300, (k, 2)).astype(np.float32))
     if mode == "row":
         y = np.floor(rs.uniform(0, 300, m)).astype(np.float32)
@@ -98,14 +116,38 @@ def test_top2_kernel_matches_plain(cuda, mode, mk):
     else:
         q = torch.from_numpy(rs.uniform(0, 300, (m, 2)).astype(np.float32))
         kw = dict(r2a=25.0**2, r2b=(50.0 if mode == "dual" else 25.0)**2)
-    args = (dist, q.to(cuda), torch.from_numpy(rs.rand(m) > 0.1).to(cuda),
-            t_kp.to(cuda), torch.from_numpy(rs.rand(k) > 0.1).to(cuda))
-    got = top2.masked_dual_top2(*args, **kw)
+    q_valid = rs.rand(m) > 0.1
+    q_valid[:2] = False
+    args = [torch.from_numpy(a).to(cuda) for a in (q_desc, t_desc)] + [
+        q.to(cuda), torch.from_numpy(q_valid).to(cuda), t_kp.to(cuda),
+        torch.from_numpy(rs.rand(k) > 0.1).to(cuda)]
+    before = top2.hamming_top2.launches
+    got = top2.hamming_top2(*args, **kw)
     torch.cuda.synchronize()
-    want = top2.masked_dual_top2_plain(*args, **kw)
+    assert top2.hamming_top2.launches == before + 1
+    want = top2.hamming_top2_plain(*args, **kw)
     for g, w in zip(got, want):
         for a, b in zip(g, w):
-            assert torch.equal(a, b)
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_top2_kernel_all_invalid(cuda):
+    """No valid query or no valid target: every row comes back empty
+    (BIG, BIG, 0, 0), as in the plain version."""
+    rs = np.random.RandomState(4)
+    m, k = 37, 64
+    d = [torch.from_numpy(_desc(rs, n)).to(cuda) for n in (m, k)]
+    meta = [torch.zeros(n, 2, device=cuda) for n in (m, k)]
+    for qv, tv in ((False, True), (True, False)):
+        args = (d[0], d[1], meta[0], torch.full((m,), qv, device=cuda),
+                meta[1], torch.full((k,), tv, device=cuda))
+        got = top2.hamming_top2(*args, r2a=4.0, r2b=9.0)
+        for g, w in zip(got, top2.hamming_top2_plain(*args, r2a=4.0,
+                                                     r2b=9.0)):
+            for a, b in zip(g, w):
+                assert torch.equal(a, b)
+        assert not got[0][3].any() and (got[0][0] == hamming.BIG).all()
 
 
 @pytest.mark.cuda
@@ -113,27 +155,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     imgs = torch.zeros(2, 40, 48, dtype=torch.int16, device=cuda)
     with pytest.raises(TypeError):
         perception.perception_patch_maps_batched(imgs)
-    dist = torch.zeros(8, 16, dtype=torch.int32, device=cuda)
+    desc = torch.zeros(8, 8, dtype=torch.int32, device=cuda)
+    tdesc = torch.zeros(16, 8, dtype=torch.int32, device=cuda)
     q = torch.zeros(2, 8, device=cuda).T           # not contiguous
     ok = torch.ones(8, dtype=torch.bool, device=cuda)
     tk = torch.zeros(16, 2, device=cuda)
     tv = torch.ones(16, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        top2.masked_dual_top2(dist, q, ok, tk, tv, r2a=1.0, r2b=1.0)
+        top2.hamming_top2(desc, tdesc, q, ok, tk, tv, r2a=1.0, r2b=1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(16 * 8 + 1, dtype=torch.int32, device=cuda)
+        top2.hamming_top2(desc, flat[1:].view(16, 8), q.contiguous(), ok, tk,
+                          tv, r2a=1.0, r2b=1.0)
     with pytest.raises(ValueError, match="K="):
-        top2.masked_dual_top2(torch.zeros(8, 4096, dtype=torch.int32,
-                                          device=cuda), q.contiguous(), ok,
-                              torch.zeros(4096, 2, device=cuda),
-                              torch.ones(4096, dtype=torch.bool, device=cuda),
-                              r2a=1.0, r2b=1.0)
+        top2.hamming_top2(desc, torch.zeros(4096, 8, dtype=torch.int32,
+                                            device=cuda), q.contiguous(), ok,
+                          torch.zeros(4096, 2, device=cuda),
+                          torch.ones(4096, dtype=torch.bool, device=cuda),
+                          r2a=1.0, r2b=1.0)
 
 
 @pytest.mark.cuda
 def test_main_path_on_the_card_matches_the_cpu(cuda):
     """A few synthetic frames through VOSystem on both devices: the
     extracted features are bit-equal and the poses agree within 1e-4 m."""
-    from lvt_tpu.config import VOConfig
-    from lvt_tpu.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
     from lvt_tpu_torch.core.extract import extract_features_stereo
     from lvt_tpu_torch.core.system import TrackingState, VOSystem
 
@@ -167,8 +214,8 @@ def test_dense_ba_path_on_the_card_matches_the_cpu(cuda):
     devices over 6 frames, BA running at frame 4: features bit-equal and
     poses within 1e-3 m, the bound chip_smoke.py holds over a span with BA
     runs."""
-    from lvt_tpu.config import VOConfig
-    from lvt_tpu.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
     from lvt_tpu_torch.core.extract import extract_features_stereo
     from lvt_tpu_torch.core.system import TrackingState, VOSystem
 
@@ -215,11 +262,13 @@ def test_wrapper_never_falls_back_off_the_cpu(call):
         elif call == "patches":
             f = torch.empty(2, 40, 48, **meta)
             i = torch.empty(2, 5, dtype=torch.int32, **meta)
-            patches.extract_patches_batched(
-                f, f, i, i, torch.empty(2, 5, dtype=torch.bool, **meta))
+            patches.describe_refine_batched(
+                f, f, i, i, i, i, torch.empty(2, 5, dtype=torch.bool, **meta),
+                40, 48)
         else:
-            top2.masked_dual_top2(
-                torch.empty(4, 6, dtype=torch.int32, **meta),
+            d = torch.empty(4, 8, dtype=torch.int32, **meta)
+            top2.hamming_top2(
+                d, torch.empty(6, 8, dtype=torch.int32, **meta),
                 torch.empty(4, 2, **meta),
                 torch.empty(4, dtype=torch.bool, **meta),
                 torch.empty(6, 2, **meta),

@@ -141,11 +141,15 @@ def test_dense_planes_match_xla_on_any_smooth():
 
 
 def test_brief_source_tables_match_the_pattern():
-    """csrc/brief.cu compiles the pattern in; its X-macro tables must be
-    sample_pool() and pair_indices()."""
+    """csrc/brief.cu and csrc/patches.cu compile the pattern in; the
+    X-macro tables of the header they share must be sample_pool() and
+    pair_indices()."""
     import re
 
-    src = (perception.kernels.CSRC / "brief.cu").read_text()
+    for name in ("brief.cu", "patches.cu"):
+        assert '#include "brief_pattern.cuh"' in (
+            perception.kernels.CSRC / name).read_text()
+    src = (perception.kernels.CSRC / "brief_pattern.cuh").read_text()
 
     def table(name):
         body = src.split(f"#define {name}(X)")[1].split("\n\n")[0]

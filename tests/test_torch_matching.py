@@ -83,7 +83,7 @@ def test_top2_plain_matches_pallas_kernel(top2_problem, mode):
           "row": dict(r2a=0.0, r2b=0.0, row_mode=True)}[mode]
     args = (p["dist"], q, p["q_valid"], p["t_kp"], p["t_valid"])
     want = jx_top2(*map(jnp.asarray, args), interpret=True, **kw)
-    got = top2.masked_dual_top2(*map(_t, args), **kw)
+    got = top2.masked_dual_top2_plain(*map(_t, args), **kw)
     for g, w in zip(got, want):
         d1, d2, best, nc = (np.asarray(x) for x in w)
         np.testing.assert_array_equal(g[3].numpy(), nc)
@@ -92,6 +92,49 @@ def test_top2_plain_matches_pallas_kernel(top2_problem, mode):
         has = nc > 0
         np.testing.assert_array_equal(g[2].numpy()[has], best[has])
         assert has.sum() > 20 and (nc > 1).sum() > 5
+
+
+@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+def test_hamming_top2_plain_matches_hamming_then_pallas_kernel(mode):
+    """Kernel T's plain version, which takes descriptors, against lvt_tpu's
+    Hamming matrix followed by its Pallas top-2 kernel (interpret mode):
+    repeated target descriptors give equal distances, whole query rows
+    are invalid or have no valid target in reach, and a few targets sit
+    on the radius."""
+    rs = np.random.RandomState({"dual": 5, "single": 6, "row": 7}[mode])
+    m, k = 150, 260
+    q_desc, t_desc = _desc(rs, m), _desc(rs, k)
+    t_desc[1::5] = t_desc[::5][:t_desc[1::5].shape[0]]   # duplicate targets
+    q_desc[:30] = _flip_bits(rs, t_desc[rs.choice(k, 30)], 20)
+    t_kp = rs.uniform(0, 200, (k, 2)).astype(np.float32)
+    q_valid = rs.rand(m) > 0.1
+    q_valid[:4] = False                                  # all-invalid rows
+    t_valid = rs.rand(k) > 0.1
+    if mode == "row":
+        y = np.floor(rs.uniform(0, 200, m)).astype(np.float32)
+        q = np.stack([np.maximum(y - 2, 0), np.minimum(y + 2, 200)],
+                     -1).astype(np.float32)
+        q[4:8] = [-50.0, -40.0]                          # no target in reach
+        kw = dict(r2a=0.0, r2b=0.0, row_mode=True)
+    else:
+        q = rs.uniform(0, 200, (m, 2)).astype(np.float32)
+        q[4:8] = -500.0                                  # no target in reach
+        q[8] = t_kp[0] + np.float32([30.0, 0.0])         # target 0 on the radius
+        kw = dict(r2a=30.0**2, r2b=(60.0 if mode == "dual" else 30.0)**2)
+    args = (q, q_valid, t_kp, t_valid)
+    got = top2.hamming_top2(_t(q_desc), _t(t_desc), *map(_t, args), **kw)
+    dist = jx_hamming.hamming_matrix(jnp.asarray(q_desc), jnp.asarray(t_desc))
+    want = jx_top2(dist, *map(jnp.asarray, args), interpret=True, **kw)
+    for g, w in zip(got, want):
+        d1, d2, best, nc = (np.asarray(x) for x in w)
+        np.testing.assert_array_equal(g[3].numpy(), nc)
+        np.testing.assert_array_equal(g[0].numpy(), d1)
+        np.testing.assert_array_equal(g[1].numpy(), d2)
+        has = nc > 0
+        np.testing.assert_array_equal(g[2].numpy()[has], best[has])
+        assert not g[2].numpy()[~has].any()
+        assert (~has[:8]).all() and has.sum() > 40 and (nc > 1).sum() > 10
+        assert (g[0].numpy()[has] == g[1].numpy()[has]).any()  # equal d1, d2
 
 
 def test_masked_top2_int_accept_and_resolve_exact(top2_problem):

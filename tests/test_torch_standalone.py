@@ -1,0 +1,140 @@
+"""lvt_tpu_torch stands on its own: it imports neither JAX nor anything of
+lvt_tpu, and its copies of lvt_tpu's jax-free modules (the configuration,
+the shipped KITTI configs, the synthetic world) agree with the originals.
+
+Tolerance: none. Config fields are compared as values, rendered frames and
+poses bit for bit, and the two ATE functions to the last bit.
+"""
+
+import ast
+import dataclasses
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import __graft_entry__
+from lvt_tpu import config as jx_config
+from lvt_tpu.io import synthetic as jx_synthetic
+from lvt_tpu_torch import config, configs
+from lvt_tpu_torch.io import synthetic
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("lvt_tpu", "__graft_entry__", "jax")
+
+
+def _port_sources():
+    return sorted((ROOT / "lvt_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            # ``from lvt_tpu import x`` names its package in ``module``;
+            # ``from . import x`` stays inside the port
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax_and_nothing_of_lvt_tpu():
+    sources = _port_sources()
+    assert len(sources) > 30
+    bad = [(p.relative_to(ROOT).as_posix(), mod)
+           for p in sources for mod in _imported_modules(p)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, f"imports of the JAX package or JAX: {bad}"
+
+
+def test_import_scan_catches_each_form(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import jax.numpy as jnp\nfrom lvt_tpu.config import X\n"
+                   "from __graft_entry__ import y\n"
+                   "import importlib\nimportlib.import_module('lvt_tpu.io')\n"
+                   "from lvt_tpu_torch import config\n")
+    mods = list(_imported_modules(src))
+    assert [m for m in mods if m.split(".")[0] in FORBIDDEN] == [
+        "jax.numpy", "lvt_tpu.config", "__graft_entry__", "lvt_tpu.io"]
+
+
+def test_vo_config_has_lvt_tpu_fields_and_defaults():
+    ours = {f.name: (f.type, f.default) for f in
+            dataclasses.fields(config.VOConfig)}
+    theirs = {f.name: (f.type, f.default) for f in
+              dataclasses.fields(jx_config.VOConfig)}
+    assert ours == theirs
+    assert config.MATCHES_WINDOW_INIT == jx_config.MATCHES_WINDOW_INIT
+    kw = dict(img_width=1241, img_height=376, detection_cell_size=100)
+    a, b = config.VOConfig(**kw), jx_config.VOConfig(**kw)
+    assert (a.kp_capacity, a.num_cells) == (b.kp_capacity, b.num_cells)
+    assert dataclasses.asdict(a.replace(tracking_radius=9)) == \
+        dataclasses.asdict(b.replace(tracking_radius=9))
+    for cfg in (config.VOConfig(), config.VOConfig(img_width=8,
+                                                   img_height=8,
+                                                   tracking_radius=0)):
+        with pytest.raises(AssertionError):
+            cfg.validate()
+
+
+def test_copied_yamls_load_as_lvt_tpus():
+    jx_dir = ROOT / "lvt_tpu" / "configs" / "kitti"
+    for name in ("vo_config.yaml", "00.yaml"):
+        assert (Path(configs.KITTI_DIR) / name).read_bytes() == (
+            jx_dir / name).read_bytes()
+    calib = config.load_kitti_calib(os.path.join(configs.KITTI_DIR, "00.yaml"))
+    assert calib == jx_config.load_kitti_calib(str(jx_dir / "00.yaml"))
+    ours = config.load_config(
+        os.path.join(configs.KITTI_DIR, "vo_config.yaml"), **calib)
+    theirs = jx_config.load_config(str(jx_dir / "vo_config.yaml"), **calib)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.local_ba_window == 4
+    text = "%YAML:1.0\nm: !!opencv-matrix\n  data: [1, 2]\n"
+    assert config.parse_opencv_yaml(text) == jx_config.parse_opencv_yaml(text)
+
+
+def test_shipped_configs():
+    assert dataclasses.asdict(configs.kitti_config()) == dataclasses.asdict(
+        __graft_entry__._kitti_config())
+    path2 = configs.kitti_ba_dense_config()
+    jx_dir = ROOT / "lvt_tpu" / "configs" / "kitti"
+    want = jx_config.load_config(
+        str(jx_dir / "vo_config.yaml"),
+        **jx_config.load_kitti_calib(str(jx_dir / "00.yaml")),
+        img_width=1241, img_height=376, descriptor_mode="dense")
+    assert dataclasses.asdict(path2) == dataclasses.asdict(want)
+    assert path2.kp_capacity == configs.kitti_config().kp_capacity == 1536
+
+
+@pytest.mark.parametrize("world", ["SyntheticWorld", "TexturedWorld"])
+def test_synthetic_worlds_render_as_lvt_tpus(world):
+    kw = dict(width=96, height=64, fx=60.0, fy=60.0, cx=48.0, cy=32.0)
+    if world == "SyntheticWorld":
+        kw.update(n_points=300, extent_x=20.0, extent_y=8.0, extent_z=40.0)
+    else:
+        kw.update(n_occluders=1, stripe_walls=True)
+    ours = getattr(synthetic, world)(**kw)
+    theirs = getattr(jx_synthetic, world)(**kw)
+    for a, b in zip(ours.stereo_sequence(3, speed=0.7),
+                    theirs.stereo_sequence(3, speed=0.7)):
+        for x, y in zip(a[:2], b[:2]):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(a[2][0], b[2][0])
+        np.testing.assert_array_equal(a[2][1], b[2][1])
+    (img, depth, _), = ours.rgbd_sequence(1)
+    (jimg, jdepth, _), = theirs.rgbd_sequence(1)
+    np.testing.assert_array_equal(img, jimg)
+    np.testing.assert_array_equal(depth, jdepth)
+
+
+def test_ate_rmse_agrees():
+    rs = np.random.RandomState(3)
+    est, gt = rs.randn(40, 3), rs.randn(40, 3)
+    assert synthetic.ate_rmse(est, gt) == jx_synthetic.ate_rmse(est, gt)
+    assert synthetic.ate_rmse(gt, gt) == 0.0
