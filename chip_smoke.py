@@ -13,7 +13,8 @@ and the script exits non-zero without printing the final line:
 2. kernels: A (perception), B (dense BRIEF planes), P (describe + refine
    at the keypoints) and T (Hamming distances + masked dual top-2) against
    their plain PyTorch versions on the card, bit for bit, at the main
-   paths' shapes: a uint8 KITTI pair and its [2, 376, 1241] maps, the 2 x
+   paths' shapes: a uint8 KITTI pair and its [2, 376, 1241] maps (A also
+   on the same pair made non-integer float32), the 2 x
    1536 keypoint slots selected on it, and T at its four sites with the
    real descriptor sets of two frames (map match, dual radius, 1024 x 1536;
    staged re-match, one radius, 1024 x 1536; row match and BA row match,
@@ -21,8 +22,9 @@ and the script exits non-zero without printing the final line:
    back-to-back launches between one pair of CUDA events (queued while a
    spin kernel holds the card, so host time between launches is not
    counted); the plain versions the same way with PLAIN_REPS; and each
-   gets its bound (see ``bound``) and, where one PyTorch call computes
-   the same function, that call's time;
+   gets its bound (see ``bound``; A and B also the bound of the
+   one-pixel-per-thread designs they replaced) and, where one PyTorch call
+   computes the same function, that call's time;
 3. path 1, the main path (patch descriptors, BA off): a synthetic
    KITTI-geometry stereo sequence (uint8, as bench.py builds it) through
    ``VOSystem(config, device="cuda").track_chunk`` in chunks of 16; the
@@ -106,13 +108,26 @@ HBM_BYTES_PER_S = 3.35e12
 # add/subtract/min/max/logic/compare and float compare on the ALU pipe 64;
 # float32 add/multiply 128; population count 16
 RATE_PER_SM_CLOCK = {"alu": 64, "fp32": 128, "popc": 16}
-# kernel A per pixel: 9x9 box sum as two separable passes (16 adds); FAST:
-# 16 ring differences, 2 x 16 arcs by doubling windows (2 x 64 min/max),
-# 2 x 15 to reduce the arcs, clamp, negate and max (3); NMS: 6 max, 2
-# compares, 1 select
-A_ALU_PER_PIXEL = 16 + 16 + 128 + 30 + 3 + 9
-# kernel B per pixel: 256 comparisons and 256 bit inserts
+# kernel A on uint8 frames, per PAIR of pixels: Hopper's DPX instructions
+# take the min or max of 3 values in each of two 16-bit lanes, one
+# instruction for two pixels (csrc/perception.cu). FAST: per arc type 16
+# windows of 3 and 16 of 9 (3 x 3), then 8 to reduce the 16 arcs (2 x 40),
+# and 4 to take the centre off and clamp; NMS: 2 for the earlier
+# neighbours, 3 for the later ones and the + 1, 4 to select; box sum: one
+# 3-input add per pass of sliding sums (2); 6 byte permutes to unpack the
+# three maps' lanes (ALU), then 6 f32 adds. The f32 adds run on their own
+# pipe.
+A_ALU_PER_PIXEL = (2 * 40 + 4 + 9 + 2 + 6) / 2
+A_FP32_PER_PIXEL = 3
+# kernel B per pixel: 256 comparisons and 256 bit inserts (the SASS of
+# csrc/brief.cu has exactly these: FSETP and a predicated VIADD per bit)
 B_ALU_PER_PIXEL = 2 * 256
+# the model of the designs these replaced, one pixel per thread in 32-bit
+# operations, kept for comparison: A (box 16 adds; FAST 16 differences,
+# 2 x 64 min/max in doubling windows, 2 x 15 to reduce the arcs, 3 to
+# clamp; NMS 6 max, 2 compares, 1 select), B as above
+ONE_PIXEL_ALU_PER_PIXEL = {"perception": 16 + 16 + 128 + 30 + 3 + 9,
+                           "brief": 2 * 256}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -336,23 +351,49 @@ def t_work(args, kw, out) -> tuple[int, dict]:
              "popc": 8 * n_cand})
 
 
+def float_frames(imgs):
+    """A non-integer float32 pair from a uint8 one: each pixel plus a
+    fraction in [0, 1) drawn with a fixed seed."""
+    frac = np.random.RandomState(0).rand(*imgs.shape).astype(np.float32)
+    return imgs.float() + torch.from_numpy(frac).to(imgs.device)
+
+
 def measure_a_b(card, imgs, smooth) -> dict:
     """Kernels A (on a uint8 pair) and B (on its box sums), each against
-    its plain version, timed, with its bound."""
+    its plain version, timed, with its bound and the bound of the
+    one-pixel-per-thread model;
+    then A on a non-integer float32 pair, bit for bit and timed."""
     from lvt_tpu_torch.ops import perception
 
     n_px = imgs.numel()
-    return {
+    fimgs = float_frames(imgs)
+    rep = {
         "perception": _measure(
             card, "perception",
             lambda: perception.perception_patch_maps_batched(imgs),
             lambda: perception.perception_plain(imgs),
-            nbytes=n_px * (1 + 3 * 4), ops={"alu": n_px * A_ALU_PER_PIXEL}),
+            nbytes=n_px * (1 + 3 * 4),
+            ops={"alu": n_px * A_ALU_PER_PIXEL,
+                 "fp32": n_px * A_FP32_PER_PIXEL}),
         "brief": _measure(
             card, "brief", lambda: perception.brief_planes(smooth),
             lambda: perception.brief_planes_plain(smooth),
             nbytes=n_px * (4 + 32), ops={"alu": n_px * B_ALU_PER_PIXEL}),
     }
+    for name, nbytes in (("perception", 1 + 3 * 4), ("brief", 4 + 32)):
+        rep[name]["bound_ms_one_pixel"] = bound(
+            card, n_px * nbytes,
+            {"alu": n_px * ONE_PIXEL_ALU_PER_PIXEL[name]})[0]
+    rep["perception"]["float_frames"] = dict(
+        max_abs_err=_require_equal(
+            "perception (float32 frames)",
+            perception.perception_patch_maps_batched(fimgs),
+            perception.perception_plain(fimgs)),
+        ms=device_ms(lambda: perception.perception_patch_maps_batched(fimgs),
+                     REPS),
+        plain_ms=device_ms(lambda: perception.perception_plain(fimgs),
+                           PLAIN_REPS))
+    return rep
 
 
 def phase_kernels(card, inp) -> dict:
@@ -405,6 +446,15 @@ def phase_kernels(card, inp) -> dict:
                         f"{rep['ms']:.4f} ms (bound {rep['bound_ms']:.4f} ms, "
                         f"{rep['bound_by']}), plain {rep['plain_ms']:.4f} ms"
                         f"{lib}")
+    for name in ("perception", "brief"):
+        _say("kernels", f"{name}: bound {report[name]['bound_ms']:.4f} ms "
+                        f"(this PR's instruction model), "
+                        f"{report[name]['bound_ms_one_pixel']:.4f} ms (one pixel per "
+                        f"thread in 32-bit operations)")
+    ff = report["perception"]["float_frames"]
+    _say("kernels", f"perception on a non-integer float32 pair: bit-exact vs "
+                    f"plain, kernel {ff['ms']:.4f} ms, plain "
+                    f"{ff['plain_ms']:.4f} ms")
     for site, rep in t_sites.items():
         _say("kernels", f"hamming_top2 at {site} ({rep['m']} x {rep['k']}, "
                         f"{rep['candidates']} candidate pairs): "

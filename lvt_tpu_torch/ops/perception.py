@@ -62,9 +62,11 @@ def perception_patch_maps_batched(imgs: torch.Tensor):
     """imgs [B, H, W] uint8 or f32 -> (nms, raw, smooth) [B, H, W] f32.
 
     CUDA: ``csrc/perception.cu`` (replaces perception_pallas.py
-    ``_score_smooth_kernel``; one block per 32x16 output tile, the uint8
-    tile plus a 5-px halo staged in shared memory; bound by device-memory
-    traffic: 1 byte in and 12 bytes out per pixel). CPU: the plain version.
+    ``_score_smooth_kernel``; uint8 frames: one block per 64x32 output
+    tile, two pixels per register in 16-bit lanes, the FAST arc test on
+    Hopper's DPX 3-input min/max, so it needs sm_90; float frames: one f32
+    pixel per thread; bound by device-memory traffic: 1 byte in and 12
+    bytes out per pixel). CPU: the plain version.
     """
     if imgs.device.type == "cpu":
         return perception_plain(imgs)
@@ -99,8 +101,9 @@ def brief_planes(smooth: torch.Tensor) -> torch.Tensor:
     zero outside the image.
 
     CUDA: ``csrc/brief.cu`` (replaces perception_pallas.py
-    ``_brief_kernel``; one thread per pixel, a 32x16 tile plus a 16-px halo
-    in shared memory, the pattern compiled in). CPU: the plain version.
+    ``_brief_kernel``; two pixels per thread, a 64x32 tile plus the
+    pattern's reach staged twice in shared memory, once shifted by a
+    column, the pattern compiled in). CPU: the plain version.
     Only comparisons, so both are bit-exact for any input. Unlike the TPU
     kernel, which reads kernel A's tile padding past the right edge, every
     sample outside the image is zero; no valid descriptor (BORDER = 20)

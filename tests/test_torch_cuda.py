@@ -6,10 +6,11 @@ On a GPU machine without JAX, skip tests/conftest.py (it imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance: none — kernels A (uint8 frames), B, P and T are bit-exact
-with their plain versions by construction (integer arithmetic, float
-comparisons, packed integer keys, and P's subpixel fit in the plain
-version's order of f32 operations, rounded to nearest). The unmarked tests run
+Tolerance: none — kernels A, B, P and T are bit-exact with their plain
+versions by construction (integer arithmetic, or on float frames A's f32
+sums in the plain version's order; float comparisons; packed integer
+keys; and P's subpixel fit in the plain version's order of f32
+operations, rounded to nearest). The unmarked tests run
 anywhere: a wrapper given a tensor that is not on the CPU launches its
 kernel or raises, never falls back.
 """
@@ -36,11 +37,19 @@ def _frames(rs, b, h, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 376, 1241), (1, 37, 53), (3, 64, 96)])
-@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
-def test_perception_kernel_matches_plain(cuda, shape, dtype):
+@pytest.mark.parametrize("shape", [
+    (2, 376, 1241), (1, 37, 53), (3, 64, 96),
+    # ragged for kernel A's 64x32 tiles and 4-pixel groups: w % 4 = 1, 2,
+    # 3; h below the 4-row halo and not a multiple of 32; batch 1 and 3
+    (3, 33, 65), (1, 70, 130), (3, 41, 131), (1, 3, 7), (1, 6, 250)])
+@pytest.mark.parametrize("frames", ["uint8", "float32", "float32-fraction"])
+def test_perception_kernel_matches_plain(cuda, shape, frames):
     rs = np.random.RandomState(0)
-    imgs = torch.from_numpy(_frames(rs, *shape)).to(cuda, dtype)
+    imgs = _frames(rs, *shape)
+    if frames == "float32-fraction":   # non-integer frames (ROADMAP H4)
+        imgs = imgs + rs.rand(*shape).astype(np.float32)
+    dtype = torch.uint8 if frames == "uint8" else torch.float32
+    imgs = torch.from_numpy(imgs).to(cuda, dtype)
     before = perception.perception_patch_maps_batched.launches
     got = perception.perception_patch_maps_batched(imgs)
     torch.cuda.synchronize()
@@ -50,11 +59,24 @@ def test_perception_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 376, 1241), (1, 37, 53), (3, 64, 96)])
-def test_brief_kernel_matches_plain(cuda, shape):
+@pytest.mark.parametrize("shape", [(2, 376, 1241), (1, 37, 53), (3, 64, 96),
+                                   (1, 5, 131)])
+@pytest.mark.parametrize("values", ["integer", "special"])
+def test_brief_kernel_matches_plain(cuda, shape, values):
     rs = np.random.RandomState(3)
     smooth = rs.randint(0, 20656, shape).astype(np.float32)
     smooth[:, ::5] = 4321.0                       # ties compare false
+    if values == "special":
+        # non-integers, negatives, -0.0 beside 0.0, infinities and NaN,
+        # and runs of ties
+        smooth = (smooth - 10000.0) * rs.rand(*shape).astype(np.float32)
+        pick = rs.randint(0, 8, shape)
+        smooth[pick == 0] = -0.0
+        smooth[pick == 1] = 0.0
+        smooth[pick == 2] = np.inf
+        smooth[pick == 3] = -np.inf
+        smooth[pick == 4] = np.nan
+        smooth[:, :, 7:19] = 2.5
     smooth = torch.from_numpy(smooth).to(cuda)
     before = perception.brief_planes.launches
     got = perception.brief_planes(smooth)

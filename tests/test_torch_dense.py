@@ -163,6 +163,38 @@ def test_brief_source_tables_match_the_pattern():
     np.testing.assert_array_equal(pairs[:, 1:], brief.pair_indices())
 
 
+def test_brief_schedule_loads_each_sample_once_and_compares_each_pair_once():
+    """csrc/brief.cu runs the pattern in the order of LVT_BRIEF_SCHEDULE:
+    every pool sample loaded once with its (dx, dy), every pair compared
+    once as its bit, after both of its samples were loaded, and no more
+    than 29 samples live at once (the register budget the kernel's
+    comment gives)."""
+    import re
+
+    src = (perception.kernels.CSRC / "brief_pattern.cuh").read_text()
+    body = src.split("#define LVT_BRIEF_SCHEDULE(L, X)")[1]
+    steps = re.findall(r"([LX])\((-?\d+), (-?\d+), (-?\d+)\)", body)
+    pool, pairs = brief.sample_pool(), brief.pair_indices()
+    loads = [int(k) for op, k, _, _ in steps if op == "L"]
+    assert sorted(loads) == list(range(brief.POOL_SIZE))
+    bits = sorted(int(b) for op, b, _, _ in steps if op == "X")
+    assert bits == list(range(brief.N_BITS))
+    loaded, done, max_live = set(), set(), 0
+    for op, a, b, c in steps:
+        a, b, c = int(a), int(b), int(c)
+        if op == "L":
+            assert [b, c] == pool[a].tolist()
+            loaded.add(a)
+        else:
+            assert [b, c] == pairs[a].tolist() and {b, c} <= loaded
+            done.add(a)
+        live = {s for s in loaded
+                if any(s in pairs[k] and k not in done
+                       for k in range(brief.N_BITS))}
+        max_live = max(max_live, len(live))
+    assert max_live <= 29
+
+
 def test_descriptors_from_planes_match_lvt_tpu():
     rs = np.random.RandomState(5)
     h, w, k = 64, 96, 50

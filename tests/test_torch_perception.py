@@ -68,6 +68,46 @@ def test_kernel_a_plain_matches_pallas_interpret(frames, port_maps):
     assert (port_maps[0] > 0).sum() > 100  # real corners survived NMS
 
 
+def _pallas_a(imgs):
+    """lvt_tpu's kernel A in interpret mode, cropped to the true image."""
+    b, h, w = imgs.shape
+    return [np.asarray(m)[:, :h, :w] for m in perception_patch_maps_batched(
+        jnp.asarray(imgs), interpret=True)]
+
+
+def test_kernel_a_plain_matches_pallas_on_non_integer_float_frames():
+    """ROADMAP H4: float frames that are not integers. The port sums the
+    9x9 box in the Pallas kernel's order (rows +d then -d, then columns),
+    and the FAST score and NMS are subtractions, min, max and compares of
+    the same operands, so nms, raw and smooth are bit-equal (no
+    tolerance)."""
+    imgs = (np.random.RandomState(9).rand(2, 70, 131) * 255).astype(np.float32)
+    got = perception.perception_plain(torch.from_numpy(imgs))
+    for name, g, want in zip(("nms", "raw", "smooth"), got, _pallas_a(imgs)):
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=name)
+    assert (got[0] > 0).sum() > 50
+    assert not np.array_equal(got[2].numpy(), np.round(got[2].numpy()))
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 53), (2, 70, 131), (3, 5, 6),
+                                   (1, 9, 66)])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_kernel_a_plain_matches_pallas_at_ragged_shapes(shape, dtype):
+    """Kernel A's plain version against the Pallas kernel in interpret
+    mode at shapes the CUDA kernel's 64x32 tiles and 4-pixel groups cut
+    raggedly: widths 1, 2 and 3 past a multiple of 4, heights not a
+    multiple of 32, an image smaller than the 4-px halo, batch 1-3;
+    uint8 and non-integer float32 frames, bit-equal."""
+    rs = np.random.RandomState(sum(shape))
+    imgs = (_uint8_frames(rs, *shape) if min(shape[1:]) > 8 and dtype == "uint8"
+            else rs.randint(0, 256, shape).astype(np.uint8))
+    if dtype == "float32":
+        imgs = imgs + rs.rand(*shape).astype(np.float32)
+    got = perception.perception_plain(torch.from_numpy(imgs))
+    for name, g, want in zip(("nms", "raw", "smooth"), got, _pallas_a(imgs)):
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=name)
+
+
 def test_kernel_a_plain_matches_unfused_detector(frames, port_maps):
     nms, raw, _ = port_maps
     for i, img in enumerate(frames):
