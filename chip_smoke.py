@@ -12,8 +12,8 @@ and the script exits non-zero without printing the final line:
    parallel, with ptxas's registers and spills) with its seconds;
 2. kernels: A (perception), B (dense BRIEF planes), P (describe + refine
    at the keypoints) and T (Hamming distances + masked dual top-2) against
-   their plain PyTorch versions on the card, bit for bit, at the main
-   paths' shapes: a uint8 KITTI pair and its [2, 376, 1241] maps (A also
+   their plain PyTorch versions on the card, bit for bit, at paths 1 and
+   2's shapes: a uint8 KITTI pair and its [2, 376, 1241] maps (A also
    on the same pair made non-integer float32), the 2 x
    1536 keypoint slots selected on it, and T at its four sites with the
    real descriptor sets of two frames (map match, dual radius, 1024 x 1536;
@@ -40,12 +40,41 @@ and the script exits non-zero without printing the final line:
    four times; the number of frames that ran BA (read once after the run)
    must be the schedule's; then the card against the CPU over frames 0-8
    (two BA runs);
-5. a JSON line with each kernel's launches, error, times and bound (T per
-   site and per frame of each path), then the last line
-   ``{"ok": true, "device": {...}}``.
+5. path 3, many streams (bench.py --multistream's shape): path 1's config
+   through ``MultiStreamVO(config, 8, device="cuda").track_chunk`` in
+   chunks of 8 frames, stream i from frame 2i of the same sequence: every
+   stream TRACKING with its ATE under 5% of its distance, 0 host syncs in
+   a chunk, and per frame exactly one launch of A and P and three of T
+   for all 8 streams; prints the aggregate and per-stream frames/s; then
+   at the shapes of the path's frame 0, bit for bit against the plain
+   versions: A on all 16 images, P on their [16, 1536] slots, T in one
+   launch over the 8 streams at each of the path's sites (map, staged,
+   row), and frame 0's features of all 16 images card against CPU;
+   streams 0 and 1 within 1e-3 m of the card's single-stream VOSystem
+   over the same frames, and streams 0-1 over frames 0-3 within 1e-3 m of
+   the CPU; phase 2 has also timed T's batched launch at 8 streams of
+   real descriptor sets (and at TUM fr1's 8192 x 1024) beside its bound
+   and 8 single launches;
+6. path 4, RGB-D at 640x480 (the oracle's `rgbd` scenario: its world and
+   config): ``VOSystem(config, SensorType.RGBD, device="cuda")
+   .track_chunk`` over 48 frames (TRACKING, ATE under 5%, 0 syncs, per
+   frame exactly one A, one P and two T: map match and staged re-match),
+   A, P and T against their plain versions at the shapes of frame 0 for
+   one stream and for 4 (T at both sites), frame 0's features card
+   against CPU, the card against the CPU over frames 0-3 (1e-3 m), then
+   ``MultiStreamVO(rgbd=True)`` with 4 streams over 16 frames (all
+   TRACKING), then one frame through ``extract_features_rgbd`` at the TUM
+   fr1 YAML with its distortion, card against CPU (``valid`` and ``desc``
+   equal, ``kp`` within 1e-3 px). The synthetic world renders an ideal
+   pinhole, so tracking a sequence under the YAML's distortion would be
+   meaningless: the distortion is checked on extraction only;
+7. a JSON line with each kernel's launches and largest error against its
+   plain version (in all, and by path), times and bound (T per site, per frame of paths 1-2 and batched), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 just before a path runs and read
-just after it; the comparisons of phase 2 are not counted.
+just after it; the comparisons of phase 2 and the cross-checks after each
+path are not counted.
 
 ``--profile DIR`` also writes a torch.profiler table of one tracked chunk
 per path to DIR, and prints the profiler's mean device time per launch of
@@ -71,7 +100,7 @@ import torch  # noqa: E402
 CHUNK = 16
 # chunk 0 warms up, chunk 1 counts host syncs, the rest are timed
 N_CHUNKS = {"path1": 5, "path2": 3}
-N_CPU_FRAMES = {"path1": 4, "path2": 9}
+N_CPU_FRAMES = {"path1": 4, "path2": 9, "path4": 4}
 REPS = 200          # back-to-back launches per kernel timing
 PLAIN_REPS = 5      # ... per plain-version timing
 DEVICE = "cuda"
@@ -91,14 +120,32 @@ KERNELS = {
 SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
            "describe_refine": "describe_refine_kernel",
            "hamming_top2": "hamming_top2_kernel"}
-# launches each path needs per frame
+# path 3: bench.py --multistream's shape, S streams in chunks of MS_CHUNK
+# frames (warm-up, sync count, then timed chunks); stream i starts at
+# frame MS_START_STEP * i of the path-1 sequence, so the streams differ
+MS_STREAMS = 8
+MS_CHUNK = 8
+MS_CHUNKS = 4
+MS_START_STEP = 2
+MS_CPU = (2, 4)         # streams x frames rerun on the CPU
+# path 4: RGB-D at 640x480 (the oracle's `rgbd` scenario), then S = 4
+# streams of RGB-D over 16 frames
+RGBD_CHUNKS = 3
+RGBD_SPEED = 0.5
+RGBD_MS = (4, 16)
+# launches each path makes per frame, exactly (path 3's for all S streams
+# at once: one batch, not S)
 NEED_PER_FRAME = {
     "path1": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
     "path2": {"perception": 1, "brief": 1, "hamming_top2": 4},
+    "path3": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
+    "path4": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
 }
 # kernel T's sites in one frame of each path
 T_SITES = {"path1": ("map", "staged", "row"),
-           "path2": ("map", "staged", "row", "ba_row")}
+           "path2": ("map", "staged", "row", "ba_row"),
+           "path3": ("map", "staged", "row"),
+           "path4": ("map", "staged")}
 
 # ---- the card model behind every bound
 # device memory: H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
@@ -262,17 +309,14 @@ def _distinct(shape, b, rows, cols) -> int:
     return int(hit.sum())
 
 
-def kernel_inputs(config, il, ir) -> dict:
-    """The kernels' inputs at the main paths' shapes, from two uint8 frames
-    per side (``il``, ``ir`` on the card): the first pair; its maps (kernel
-    A); its corners selected and padded to kp_capacity with P's arguments;
-    and T's arguments at its four sites, from the real descriptor sets of
-    both frames."""
-    from lvt_tpu_torch.core.extract import _spread_ties, extract_features_stereo
+def p_inputs(config, imgs) -> tuple:
+    """Kernel P's arguments as extraction builds them for ``imgs`` [B, H,
+    W] on the card: kernel A's maps, and the corners selected on them,
+    padded to kp_capacity."""
+    from lvt_tpu_torch.core.extract import _spread_ties
     from lvt_tpu_torch.ops import detect, perception
     from lvt_tpu_torch.ops import patches as pt
 
-    imgs = torch.stack([il[0], ir[0]])
     nms, raw, smooth = perception.perception_patch_maps_batched(imgs)
     h, w = imgs.shape[1:]
     det = detect.select_corners(
@@ -280,37 +324,74 @@ def kernel_inputs(config, il, ir) -> dict:
         max_per_cell=config.max_keypoints_per_cell,
         corners_low_threshold=config.corners_low_threshold,
         img_hw=(h, w), spread_ties=_spread_ties(imgs))
-    cap = config.kp_capacity
-    pad = cap - det.valid.shape[1]
+    pad = config.kp_capacity - det.valid.shape[1]
     xi = torch.nn.functional.pad(det.kp_int[..., 0], (0, pad)).contiguous()
     yi = torch.nn.functional.pad(det.kp_int[..., 1], (0, pad)).contiguous()
     sel = torch.nn.functional.pad(det.valid, (0, pad)).contiguous()
     xc, yc = (c.contiguous() for c in pt.clamp_coords(xi, yi, h, w))
+    return smooth, raw, xc, yc, xi, yi, sel, h, w
 
-    (l0, r0), (l1, _) = (extract_features_stereo(il[i], ir[i], config)
-                         for i in (0, 1))
-    m, rad = config.max_map_points, float(config.tracking_radius)
-    y_l = torch.floor(l0.kp[:, 1])
-    vr = config.row_matching_vertical_search_radius
-    window = torch.stack([torch.clamp(y_l - vr, min=0.0),
-                          torch.clamp(y_l + vr, max=float(h))], -1)
-    # the BA row match queries the map-matched features, the triangulation
-    # row match the rest: half and half here
-    matched = torch.from_numpy(np.random.RandomState(0).rand(cap) < 0.5).to(
-        imgs.device)
+
+def _slots(x, m: int, last: bool = False):
+    """``m`` rows of a [S, K, ...] feature field: its first m slots (the
+    last m with ``last``), cycling through the K slots when m > K."""
+    k = x.shape[1]
+    start = k - m if last else 0
+    return x[:, (torch.arange(m, device=x.device) + start) % k]
+
+
+def t_site_inputs(config, l0, l1, r0=None) -> dict:
+    """Kernel T's arguments at its sites in one frame, each with a leading
+    stream axis, from real descriptor sets: FrameFeatures [S, K] of frame 0
+    (left ``l0``, right ``r0``) and of frame 1 (left ``l1``). Frame 1's
+    features stand for the map points (max_map_points of them) and the
+    staged points (max_staged_points); with ``r0`` also the row matches of
+    frame 0's left features against its right ones (the triangulation row
+    match queries the unmatched features, the BA row match the matched
+    ones: half and half here)."""
+    rad = float(config.tracking_radius)
+    m, ms = config.max_map_points, config.max_staged_points
+    matched = torch.from_numpy(np.random.RandomState(0).rand(
+        l0.valid.shape[1]) < 0.5).to(l0.valid.device)
+    q_map = [_slots(x, m) for x in (l1.desc, l1.kp, l1.valid)]
+    q_staged = [_slots(x, ms, last=True) for x in (l1.desc, l1.kp, l1.valid)]
     sites = {
-        # frame 1's features stand for the map and staged points
-        "map": ((l1.desc[:m], l0.desc, l1.kp[:m], l1.valid[:m], l0.kp,
-                 l0.valid), dict(r2a=rad * rad, r2b=4 * rad * rad)),
-        "staged": ((l1.desc[-m:], l0.desc, l1.kp[-m:], l1.valid[-m:], l0.kp,
+        "map": ((q_map[0], l0.desc, q_map[1], q_map[2], l0.kp, l0.valid),
+                dict(r2a=rad * rad, r2b=4 * rad * rad)),
+        "staged": ((q_staged[0], l0.desc, q_staged[1], q_staged[2], l0.kp,
                     l0.valid & ~matched), dict(r2a=rad * rad, r2b=rad * rad)),
-        "row": ((l0.desc, r0.desc, window, l0.valid & ~matched, r0.kp,
-                 r0.valid), dict(r2a=0.0, r2b=0.0, row_mode=True)),
-        "ba_row": ((l0.desc, r0.desc, window, l0.valid & matched, r0.kp,
-                    r0.valid), dict(r2a=0.0, r2b=0.0, row_mode=True)),
     }
-    return dict(imgs=imgs, p_args=(smooth, raw, xc, yc, xi, yi, sel, h, w),
-                sites={k: (tuple(x.contiguous() for x in a), kw)
+    if r0 is not None:
+        y_l = torch.floor(l0.kp[..., 1])
+        vr = config.row_matching_vertical_search_radius
+        window = torch.stack(
+            [torch.clamp(y_l - vr, min=0.0),
+             torch.clamp(y_l + vr, max=float(config.img_height))], -1)
+        for site, left in (("row", ~matched), ("ba_row", matched)):
+            sites[site] = ((l0.desc, r0.desc, window, l0.valid & left, r0.kp,
+                            r0.valid), dict(r2a=0.0, r2b=0.0, row_mode=True))
+    return {k: (tuple(x.contiguous() for x in a), kw)
+            for k, (a, kw) in sites.items()}
+
+
+def _streams(feats, idx):
+    """FrameFeatures of the images ``idx`` of a batch."""
+    return type(feats)(*(x[idx] for x in feats))
+
+
+def kernel_inputs(config, il, ir) -> dict:
+    """The kernels' inputs at paths 1 and 2's shapes, from two uint8 frames
+    per side (``il``, ``ir`` on the card): the first pair (kernel A); P's
+    arguments on it; and T's arguments at its four sites, single-stream,
+    from the real descriptor sets of both frames."""
+    from lvt_tpu_torch.core.extract import extract_features_batched
+
+    imgs = torch.stack([il[0], ir[0]])
+    f = extract_features_batched(torch.cat([il[:2], ir[:2]]), config)
+    sites = t_site_inputs(config, _streams(f, [0]), _streams(f, [1]),
+                          _streams(f, [2]))
+    return dict(imgs=imgs, p_args=p_inputs(config, imgs),
+                sites={k: (tuple(x[0] for x in a), kw)
                        for k, (a, kw) in sites.items()})
 
 
@@ -349,6 +430,78 @@ def t_work(args, kw, out) -> tuple[int, dict]:
     return ((q_n + t_n) * (32 + 8 + 1) + q_n * 2 * (4 + 4 + 8 + 8),
             {"fp32": 5 * n_valid * radius, "alu": 2 * n_valid + 19 * n_cand,
              "popc": 8 * n_cand})
+
+
+def t_batched_inputs(config, il, config4, gray) -> dict:
+    """Kernel T's batched launch at two shapes, from real descriptor sets:
+    map matching of MS_STREAMS streams at path 3's shape (1024 map points
+    x 1536 keypoints per stream; stream i: frame 2i + 1's first 1024
+    features against frame 2i's), and one stream at TUM fr1's map-match
+    shape (8192 x 1024: path 4's frames 1-8 against frame 0)."""
+    from lvt_tpu_torch.core.extract import extract_features_batched
+
+    m, rad = config.max_map_points, float(config.tracking_radius)
+    f = extract_features_batched(il[:2 * MS_STREAMS], config)
+    q = [x[1::2, :m] for x in (f.desc, f.kp, f.valid)]
+    t = [x[0::2] for x in (f.desc, f.kp, f.valid)]
+    streams = (q[0], t[0], q[1], q[2], t[1], t[2])
+    g = extract_features_batched(gray[:9], config4)
+    rad4 = float(config4.tracking_radius)
+    tum = tuple(x[None] for x in (
+        g.desc[1:].reshape(-1, 8), g.desc[0], g.kp[1:].reshape(-1, 2),
+        g.valid[1:].reshape(-1), g.kp[0], g.valid[0]))
+    return {
+        f"s{MS_STREAMS}": (tuple(x.contiguous() for x in streams),
+                           dict(r2a=rad * rad, r2b=4 * rad * rad)),
+        "m8192": (tuple(x.contiguous() for x in tum),
+                  dict(r2a=rad4 * rad4, r2b=4 * rad4 * rad4)),
+    }
+
+
+def measure_t_batched(card, inputs) -> dict:
+    """The batched launch against the per-stream plain loop, bit for bit;
+    its device time beside its bound (the sum of each stream's bytes and
+    operations) and beside the same streams as single launches back to
+    back (``singles_ms``: the S launches together)."""
+    from lvt_tpu_torch.ops import top2
+
+    rep = {}
+    for name, (args, kw) in inputs.items():
+        s = args[0].shape[0]
+        want = top2.hamming_top2_plain_batched(*args, **kw)
+        err = _require_equal(f"hamming_top2 batched ({name})",
+                             top2.hamming_top2_batched(*args, **kw), want)
+        nbytes, ops = 0, {}
+        for i in range(s):
+            b, o = t_work(tuple(x[i] for x in args), kw,
+                          tuple(tuple(x[i] for x in p) for p in want))
+            nbytes += b
+            ops = {k: ops.get(k, 0) + v for k, v in o.items()}
+        b_ms, b_by = bound(card, nbytes, ops)
+
+        def singles(args=args, kw=kw, s=s):
+            for i in range(s):
+                top2.hamming_top2(*(x[i] for x in args), **kw)
+
+        rep[name] = dict(
+            s=s, m=args[0].shape[1], k=args[1].shape[1], max_abs_err=err,
+            candidates=ops["popc"] // 8,
+            ms=device_ms(lambda a=args, kw=kw: top2.hamming_top2_batched(
+                *a, **kw), REPS),
+            # as many launches queued as for the batched time (REPS)
+            singles_ms=device_ms(singles, max(1, REPS // s)),
+            plain_ms=device_ms(lambda a=args, kw=kw:
+                               top2.hamming_top2_plain_batched(*a, **kw),
+                               PLAIN_REPS),
+            bound_ms=b_ms, bound_by=b_by)
+        r = rep[name]
+        _say("kernels", f"hamming_top2 batched {name} ({s} x {r['m']} x "
+                        f"{r['k']}, {r['candidates']} candidate pairs): "
+                        f"bit-exact vs the per-stream plain loop, one launch "
+                        f"{r['ms']:.4f} ms (bound {b_ms:.4f} ms, {b_by}), "
+                        f"{s} single launches {r['singles_ms']:.4f} ms, "
+                        f"plain {r['plain_ms']:.4f} ms")
+    return rep
 
 
 def float_frames(imgs):
@@ -431,9 +584,9 @@ def phase_kernels(card, inp) -> dict:
             nbytes=nbytes, ops=ops)
         t_sites[site].update(m=a[0].shape[0], k=a[1].shape[0],
                              candidates=ops["popc"] // 8)
-    per_frame = {path: {key: sum(t_sites[s][key] for s in names)
+    per_frame = {path: {key: sum(t_sites[s][key] for s in T_SITES[path])
                         for key in ("ms", "plain_ms", "bound_ms")}
-                 for path, names in T_SITES.items()}
+                 for path in ("path1", "path2")}
     report["hamming_top2"] = dict(
         t_sites["map"], site="map",
         max_abs_err=max(s["max_abs_err"] for s in t_sites.values()),
@@ -478,6 +631,109 @@ def _counters():
             "hamming_top2": top2.hamming_top2}
 
 
+def _run_chunks(vo, a, b, chunk, n_chunks):
+    """``vo.track_chunk`` over ``n_chunks`` chunks of ``chunk`` frames
+    (the leading axis of ``a`` and ``b``), every launch count set to 0
+    just before: chunk 0 warms up, chunk 1 counts host syncs under
+    ``torch.cuda.set_sync_debug_mode("warn")``, the rest are timed. Returns
+    the poses and metrics (concatenated over frames), the launches, the
+    syncs and the timed seconds."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    poses, metrics = [], []
+    syncs = None
+    t_timed = 0.0
+    for c in range(n_chunks):
+        x, y = a[c * chunk:(c + 1) * chunk], b[c * chunk:(c + 1) * chunk]
+        torch.cuda.synchronize()
+        if c == 1:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    p, m = vo.track_chunk(x, y)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                        for w in caught)
+        else:
+            t0 = time.perf_counter()
+            p, m = vo.track_chunk(x, y)
+            torch.cuda.synchronize()
+            if c >= 2:
+                t_timed += time.perf_counter() - t0
+        poses.append(p)
+        metrics.append(m)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    from lvt_tpu_torch.tree import tree_map
+
+    cat = lambda *xs: torch.cat(xs)  # noqa: E731
+    return dict(poses=tree_map(cat, *poses), metrics=tree_map(cat, *metrics),
+                launches=launches, syncs=syncs, t_timed=t_timed)
+
+
+def _check_launches(path, launches, n_frames) -> None:
+    """Each kernel launched exactly NEED_PER_FRAME times per frame (and the
+    path's other kernels never)."""
+    need = {k: NEED_PER_FRAME[path].get(k, 0) * n_frames for k in launches}
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"{path}: kernels launched other than exactly "
+                             f"(got, need): {bad}")
+
+
+def _same_features(name, got, want) -> None:
+    """Features on the card (``got``) against the CPU's: ``valid`` equal,
+    and kp, desc and depth equal where valid."""
+    got = type(got)(*(x.cpu() for x in got))
+    if not torch.equal(got.valid, want.valid):
+        raise AssertionError(f"{name}: valid differs card vs CPU")
+    v = want.valid
+    for field in ("kp", "desc", "depth"):
+        if not torch.equal(getattr(got, field)[v], getattr(want, field)[v]):
+            raise AssertionError(f"{name}: {field} differs card vs CPU")
+
+
+def check_path_kernels(path, config, imgs, extract, sites) -> dict:
+    """Kernels A, P and T against their plain versions on the card, bit for
+    bit, at the shapes one frame of ``path`` gives them: A and P on the
+    frame's extraction batch ``imgs`` [B, H, W] (P at the corners selected
+    on it), T in one launch for all streams at each of ``sites``
+    (``t_site_inputs``); then ``extract(device)``, the path's extraction
+    of that frame, on the card against the CPU (``_same_features``).
+    Returns each kernel's largest error at these shapes."""
+    from lvt_tpu_torch.ops import patches as pt
+    from lvt_tpu_torch.ops import perception, top2
+
+    args = p_inputs(config, imgs)
+    err = {
+        "perception": _require_equal(
+            f"{path}: perception", perception.perception_patch_maps_batched(
+                imgs), perception.perception_plain(imgs)),
+        "describe_refine": _require_equal(
+            f"{path}: describe_refine", pt.describe_refine_batched(*args),
+            pt.describe_refine_plain(*args)),
+        "hamming_top2": max(
+            _require_equal(f"{path}: hamming_top2 at {site}",
+                           top2.hamming_top2_batched(*a, **kw),
+                           top2.hamming_top2_plain_batched(*a, **kw))
+            for site, (a, kw) in sites.items()),
+    }
+    feats = extract("cpu")
+    _same_features(f"{path} frame 0", extract(DEVICE), feats)
+    t_shapes = ", ".join(f"{s} {a[0].shape[0]} x {a[0].shape[1]} x "
+                         f"{a[1].shape[1]}" for s, (a, _) in sites.items())
+    _say(path, f"kernels at this path's shapes, bit-exact vs plain: A on "
+               f"{tuple(imgs.shape)} {str(imgs.dtype)[6:]}, P on "
+               f"{tuple(args[6].shape)} slots ({int(args[6].sum())} "
+               f"selected), T in one launch per site (streams x queries x "
+               f"targets: {t_shapes}); frame 0's features card vs CPU "
+               f"bit-equal ({int(feats.valid.sum())} valid)")
+    return err
+
+
 def phase_path(path, config, il, ir, gt, profile_dir=None):
     """One path: VOSystem.track_chunk on the card, chunk by chunk."""
     from lvt_tpu_torch.core.system import TrackingState, VOSystem
@@ -485,48 +741,20 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
 
     n = il.shape[0]
     vo = VOSystem(config, device=DEVICE)
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    poses_t, poses, ba_ran = [], [], []
-    syncs = None
-    t_timed = 0.0
-    for c in range(n // CHUNK):
-        a, b = il[c * CHUNK:(c + 1) * CHUNK], ir[c * CHUNK:(c + 1) * CHUNK]
-        torch.cuda.synchronize()
-        if c == 1:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    p, m = vo.track_chunk(a, b)
-                    torch.cuda.synchronize()
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            syncs = sum("called a synchronizing CUDA operation" in str(x.message)
-                        for x in caught)
-        else:
-            t0 = time.perf_counter()
-            p, m = vo.track_chunk(a, b)
-            torch.cuda.synchronize()
-            if c >= 2:
-                t_timed += time.perf_counter() - t0
-        poses.append(p)
-        ba_ran.append(m.local_ba_ran)
-        poses_t.append(p.t.cpu().numpy())
-    launches = {k: fn.launches for k, fn in counters.items()}
-    n_ba = int(torch.cat(ba_ran).sum())
+    run = _run_chunks(vo, il, ir, CHUNK, n // CHUNK)
+    launches, syncs = run["launches"], run["syncs"]
+    n_ba = int(run["metrics"].local_ba_ran.sum())
     window, every = config.local_ba_window, config.local_ba_every
     # every frame tracks; BA runs once the window is full, on its schedule
     want_ba = (sum(f >= window and f % every == 0 for f in range(n))
                if window > 0 else 0)
 
     status = vo.get_state()
-    est = np.concatenate(poses_t)
+    est = run["poses"].t.cpu().numpy()
     err = ate_rmse(est, gt[:n])
     dist = float(np.linalg.norm(gt[n - 1] - gt[0]))
     timed_frames = n - 2 * CHUNK
-    fps = timed_frames / t_timed
+    fps = timed_frames / run["t_timed"]
     _say(path, f"{n} frames {il.shape[1]}x{il.shape[2]} uint8 in chunks of "
                f"{CHUNK}, descriptor mode {config.descriptor_mode or 'patch'}, "
                f"BA window {window}: status {status.name}, map {vo.map_size} "
@@ -549,11 +777,7 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
                              f"says {want_ba}")
     if syncs != 0:
         raise AssertionError(f"{path}: {syncs} host syncs in one chunk")
-    need = {k: v * n for k, v in NEED_PER_FRAME[path].items()}
-    short = {k: (launches[k], v) for k, v in need.items() if launches[k] < v}
-    if short:
-        raise AssertionError(
-            f"{path}: kernels launched too rarely (got, need): {short}")
+    _check_launches(path, launches, n)
 
     prof = None
     if profile_dir:
@@ -565,9 +789,247 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
                    f"time ({1e3 / fps:.2f} ms)")
     from lvt_tpu_torch.tree import tree_map
 
-    first = tree_map(lambda *xs: torch.cat(xs)[:N_CPU_FRAMES[path]], *poses)
+    first = tree_map(lambda x: x[:N_CPU_FRAMES[path]], run["poses"])
     return dict(launches=launches, first_poses=first, fps=fps, syncs=syncs,
                 profile=prof)
+
+
+def _relative_gt(rot, pos, start, n):
+    """Ground-truth positions of frames start .. start + n - 1 in the
+    camera frame of the first (a stream's VO starts there, at identity)."""
+    return (pos[start:start + n] - pos[start]) @ rot[start]
+
+
+def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
+    """Path 3: MultiStreamVO.track_chunk with MS_STREAMS streams on the
+    card; then kernels A, P and T against their plain versions at the
+    shapes of its frame 0 (``check_path_kernels``), and streams 0 and 1
+    against the card's single-stream VOSystem over the same frames."""
+    from lvt_tpu_torch.core.extract import extract_features_batched
+    from lvt_tpu_torch.core.state import TRACKING
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.io.synthetic import ate_rmse
+    from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
+    s, n = MS_STREAMS, MS_CHUNK * MS_CHUNKS
+    starts = [MS_START_STEP * i for i in range(s)]
+    a = torch.stack([il[k:k + n] for k in starts], 1)     # [N, S, H, W]
+    b = torch.stack([ir[k:k + n] for k in starts], 1)
+    msvo = MultiStreamVO(config, s, device=DEVICE)
+    run = _run_chunks(msvo, a, b, MS_CHUNK, MS_CHUNKS)
+    status = msvo.status
+    est = run["poses"].t.cpu().numpy()
+    errs = []
+    for i, k in enumerate(starts):
+        g = _relative_gt(rot, pos, k, n)
+        errs.append((ate_rmse(est[:, i], g), float(np.linalg.norm(g[-1]))))
+    timed = n - 2 * MS_CHUNK
+    per_stream = timed / run["t_timed"]
+    launches = run["launches"]
+    _say("path3", f"{s} streams x {n} frames {il.shape[1]}x{il.shape[2]} "
+                  f"uint8 in chunks of {MS_CHUNK} (stream i from frame "
+                  f"{MS_START_STEP} i): statuses {status.tolist()}")
+    _say("path3", f"host syncs in one tracked chunk "
+                  f"(set_sync_debug_mode warn): {run['syncs']}")
+    _say("path3", f"{s * per_stream:.2f} frames/s aggregate ({s} x "
+                  f"{timed} timed frames), {per_stream:.2f} frames/s per "
+                  f"stream (after a warm-up chunk and the sync-count chunk)")
+    _say("path3", "ATE per stream: " + ", ".join(
+        f"{100 * e / d:.3f}%" for e, d in errs))
+    _say("path3", f"launches during the run: {launches} "
+                  f"({n} multi-stream frames)")
+    if not (status == TRACKING).all():
+        raise AssertionError(f"path3: statuses {status.tolist()}, not all "
+                             f"TRACKING")
+    bad = [i for i, (e, d) in enumerate(errs) if not e < 0.05 * d]
+    if bad:
+        raise AssertionError(f"path3: ATE of streams {bad} not under 5% "
+                             f"of their distance: {errs}")
+    if run["syncs"] != 0:
+        raise AssertionError(f"path3: {run['syncs']} host syncs in one chunk")
+    _check_launches("path3", launches, n)
+
+    # frame 0's extraction batch (all 2S images) and T at the path's
+    # three sites with every stream's frames 0 and 1
+    imgs = torch.cat([a[0], b[0]])
+    f0 = extract_features_batched(imgs, config)
+    f1 = extract_features_batched(a[1], config)
+    sites = t_site_inputs(config, _streams(f0, slice(0, s)), f1,
+                          _streams(f0, slice(s, 2 * s)))
+    kernel_errs = check_path_kernels(
+        "path3", config, imgs,
+        lambda dev: extract_features_batched(imgs.to(dev), config),
+        {k: sites[k] for k in T_SITES["path3"]})
+
+    gaps = []
+    for i in (0, 1):
+        vo = VOSystem(config, device=DEVICE)
+        p, _ = vo.track_chunk(il[starts[i]:starts[i] + n],
+                              ir[starts[i]:starts[i] + n])
+        gaps.append((p.t - run["poses"].t[:, i]).abs().amax(-1).cummax(0)
+                    .values[MS_CHUNK - 1::MS_CHUNK].tolist())
+    _say("path3", f"streams 0 and 1 against the card's single-stream "
+                  f"VOSystem, largest gap (m) over frames 0-7, 0-15, ... "
+                  f"0-{n - 1}: {gaps[0]} and {gaps[1]}")
+    gaps = [g[-1] for g in gaps]
+    if not max(gaps) < 1e-3:
+        raise AssertionError(f"path3: multi-stream vs single-stream gaps "
+                             f"{gaps} m, not under 1e-3 m")
+    prof = None
+    if profile_dir:
+        prof = _profile(msvo, a[-MS_CHUNK:], b[-MS_CHUNK:],
+                        os.path.join(profile_dir, "path3"))
+        busy = prof["busy_ms_per_frame"]
+        _say("path3", f"device busy {busy:.3f} ms per multi-stream frame: "
+                      f"{100 * busy * per_stream / 1e3:.1f}% of the "
+                      f"unprofiled frame time ({1e3 / per_stream:.2f} ms)")
+    return dict(launches=launches, fps=s * per_stream,
+                fps_per_stream=per_stream, syncs=run["syncs"], profile=prof,
+                kernel_errs=kernel_errs, gaps=gaps,
+                first_poses=run["poses"].t[:MS_CPU[1], :MS_CPU[0]],
+                inputs=(a[:MS_CPU[1], :MS_CPU[0]], b[:MS_CPU[1], :MS_CPU[0]]))
+
+
+def phase_multistream_cpu(config, first_poses, inputs):
+    """Streams 0-1 over frames 0-3 of path 3 again, on the CPU."""
+    from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
+    msvo = MultiStreamVO(config, MS_CPU[0], device="cpu")
+    poses, _ = msvo.track_chunk(*(x.cpu() for x in inputs))
+    dt = float((poses.t - first_poses.cpu()).abs().max())
+    _say("path3", f"card vs CPU, streams 0-{MS_CPU[0] - 1} over frames "
+                  f"0-{MS_CPU[1] - 1}: poses differ by at most {dt:.3g} m")
+    if not dt < 1e-3:
+        raise AssertionError(f"path3: CPU vs card pose difference {dt} m "
+                             f">= 1e-3 m")
+
+
+def rgbd_setup():
+    """Path 4's camera and frames: the oracle's `rgbd` scenario (the
+    default 640x480 synthetic world, 0.5 m per frame, the default config
+    at the world's intrinsics), uint8 gray and float32 metric depth."""
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+
+    world = SyntheticWorld()
+    config = VOConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
+                      baseline=world.baseline, img_width=world.width,
+                      img_height=world.height)
+    frames = list(world.rgbd_sequence(CHUNK * RGBD_CHUNKS, speed=RGBD_SPEED))
+    gray = np.stack([np.clip(g, 0, 255).astype(np.uint8) for g, _, _ in frames])
+    depth = np.stack([d.astype(np.float32) for _, d, _ in frames])
+    rot = np.array([r for _, _, (r, _) in frames])
+    pos = np.array([t for _, _, (_, t) in frames])
+    return config, torch.from_numpy(gray), torch.from_numpy(depth), rot, pos
+
+
+def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
+    """Path 4: VOSystem(SensorType.RGBD).track_chunk on the card; kernels
+    A, P and T against their plain versions at the shapes of its frame 0,
+    for one stream and for RGBD_MS[0] (``check_path_kernels``); the card
+    against the CPU; MultiStreamVO(rgbd=True); and the TUM fr1 camera's
+    extraction (with its distortion) card against CPU."""
+    from lvt_tpu_torch.configs import tum_rgbd_config
+    from lvt_tpu_torch.core.extract import extract_features_rgbd
+    from lvt_tpu_torch.core.state import TRACKING
+    from lvt_tpu_torch.core.system import SensorType, TrackingState, VOSystem
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld, ate_rmse
+    from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
+    n = gray.shape[0]
+    gd, dd = gray.to(DEVICE), depth.to(DEVICE)
+    vo = VOSystem(config, SensorType.RGBD, device=DEVICE)
+    run = _run_chunks(vo, gd, dd, CHUNK, RGBD_CHUNKS)
+    status = vo.get_state()
+    est = run["poses"].t.cpu().numpy()
+    err = ate_rmse(est, pos)
+    dist = float(np.linalg.norm(pos[-1] - pos[0]))
+    timed = n - 2 * CHUNK
+    fps = timed / run["t_timed"]
+    launches = run["launches"]
+    _say("path4", f"RGB-D, {n} frames {gray.shape[1]}x{gray.shape[2]} "
+                  f"(uint8 gray, float32 depth) in chunks of {CHUNK}: status "
+                  f"{status.name}, map {vo.map_size} points")
+    _say("path4", f"host syncs in one tracked chunk "
+                  f"(set_sync_debug_mode warn): {run['syncs']}")
+    _say("path4", f"{fps:.2f} frames/s over {timed} timed frames")
+    _say("path4", f"ATE RMSE {err:.4f} m over {dist:.2f} m "
+                  f"({100 * err / dist:.3f}%)")
+    _say("path4", f"launches during the run: {launches}")
+    if status != TrackingState.TRACKING:
+        raise AssertionError(f"path4: final status {status.name}")
+    if not err < 0.05 * dist:
+        raise AssertionError(f"path4: ATE {err:.4f} m not under 5% of "
+                             f"{dist:.2f} m")
+    if run["syncs"] != 0:
+        raise AssertionError(f"path4: {run['syncs']} host syncs in one chunk")
+    _check_launches("path4", launches, n)
+
+    def feats(idx, dev):
+        """extract_features_rgbd of the frames ``idx``, stacked."""
+        fs = [extract_features_rgbd(gd[i].to(dev), dd[i].to(dev), config)
+              for i in idx]
+        return type(fs[0])(*(torch.stack(x) for x in zip(*fs)))
+
+    # frame 0 of the single stream, and of the RGB-D streams below (stream
+    # i from frame 2i): A and P on its gray images, T at both sites
+    kernel_errs = {}
+    for s in (1, RGBD_MS[0]):
+        idx = [MS_START_STEP * i for i in range(s)]
+        sites = t_site_inputs(config, feats(idx, DEVICE),
+                              feats([i + 1 for i in idx], DEVICE))
+        errs = check_path_kernels(f"path4 ({s} stream{'s' * (s > 1)})",
+                                  config, gd[idx],
+                                  lambda dev, idx=idx: feats(idx, dev), sites)
+        kernel_errs = {k: max(v, kernel_errs.get(k, 0.0))
+                       for k, v in errs.items()}
+    prof = None
+    if profile_dir:
+        prof = _profile(vo, gd[-CHUNK:], dd[-CHUNK:],
+                        os.path.join(profile_dir, "path4"))
+
+    k = N_CPU_FRAMES["path4"]
+    cpu = VOSystem(config, SensorType.RGBD, device="cpu")
+    p, _ = cpu.track_chunk(gray[:k], depth[:k])
+    dt = float((p.t - run["poses"].t[:k].cpu()).abs().max())
+    _say("path4", f"card vs CPU: poses of frames 0-{k - 1} differ by at "
+                  f"most {dt:.3g} m")
+    if not dt < 1e-3:
+        raise AssertionError(f"path4: CPU vs card pose difference {dt} m")
+
+    s, m = RGBD_MS
+    a = torch.stack([gd[MS_START_STEP * i:MS_START_STEP * i + m]
+                     for i in range(s)], 1)
+    b = torch.stack([dd[MS_START_STEP * i:MS_START_STEP * i + m]
+                     for i in range(s)], 1)
+    msvo = MultiStreamVO(config, s, device=DEVICE, rgbd=True)
+    msvo.track_chunk(a, b)
+    _say("path4", f"MultiStreamVO(rgbd=True), {s} streams x {m} frames: "
+                  f"statuses {msvo.status.tolist()}")
+    if not (msvo.status == TRACKING).all():
+        raise AssertionError("path4: a multi-stream RGB-D stream is not "
+                             "TRACKING")
+
+    # TUM fr1's camera with its distortion, one frame of points 2-6 m away
+    tum = tum_rgbd_config(1)
+    (g1, d1, _), = SyntheticWorld(
+        fx=tum.fx, fy=tum.fy, cx=tum.cx, cy=tum.cy, extent_x=4.0,
+        extent_y=3.0, extent_z=6.0).rgbd_sequence(1)
+    g1 = torch.from_numpy(np.clip(g1, 0, 255).astype(np.uint8))
+    d1 = torch.from_numpy(d1.astype(np.float32))
+    fc = extract_features_rgbd(g1.to(DEVICE), d1.to(DEVICE), tum)
+    fh = extract_features_rgbd(g1, d1, tum)
+    dkp = float((fc.kp.cpu() - fh.kp).abs().max())
+    same = (torch.equal(fc.valid.cpu(), fh.valid)
+            and torch.equal(fc.desc.cpu(), fh.desc))
+    _say("path4", f"TUM fr1 extraction (k1 {tum.k1}), card vs CPU: "
+                  f"{int(fh.valid.sum())} valid of {tum.kp_capacity}, valid "
+                  f"and desc {'equal' if same else 'DIFFER'}, kp within "
+                  f"{dkp:.3g} px")
+    if not same or not dkp < 1e-3 or int(fh.valid.sum()) == 0:
+        raise AssertionError("path4: TUM fr1 extraction differs card vs CPU")
+    return dict(launches=launches, fps=fps, syncs=run["syncs"], profile=prof,
+                kernel_errs=kernel_errs)
 
 
 STAGES = ("perception", "corner_select", "patch_describe",
@@ -640,15 +1102,7 @@ def phase_cpu(path, config, il, ir, first_poses):
     cuda_feats = extract_features_stereo(il[0], ir[0], config)
     cpu_feats = extract_features_stereo(il[0].cpu(), ir[0].cpu(), config)
     for side, g, c in zip(("left", "right"), cuda_feats, cpu_feats):
-        g = type(g)(*(x.cpu() for x in g))
-        if not torch.equal(g.valid, c.valid):
-            raise AssertionError(
-                f"{path} frame 0 {side}: valid differs card vs CPU")
-        v = c.valid
-        for field in ("kp", "desc"):
-            if not torch.equal(getattr(g, field)[v], getattr(c, field)[v]):
-                raise AssertionError(
-                    f"{path} frame 0 {side}: {field} differs card vs CPU")
+        _same_features(f"{path} frame 0 {side}", g, c)
     n = N_CPU_FRAMES[path]
     vo = VOSystem(config, device="cpu")
     poses, _ = vo.track_chunk(il[:n].cpu(), ir[:n].cpu())
@@ -672,15 +1126,21 @@ def main(argv=None) -> int:
     from lvt_tpu_torch.configs import kitti_ba_dense_config, kitti_config
 
     configs = {"path1": kitti_config(), "path2": kitti_ba_dense_config()}
-    n = CHUNK * max(N_CHUNKS.values())
+    n = max(CHUNK * max(N_CHUNKS.values()),
+            MS_START_STEP * (MS_STREAMS - 1) + MS_CHUNK * MS_CHUNKS)
     frames = list(_world(configs["path1"]).stereo_sequence(n, speed=0.9))
     il = torch.from_numpy(np.stack([f[0].astype(np.uint8) for f in frames]))
     ir = torch.from_numpy(np.stack([f[1].astype(np.uint8) for f in frames]))
+    rot = np.array([f[2][0] for f in frames])
     gt = np.array([f[2][1] for f in frames])
+    config4, gray, depth, rot4, pos4 = rgbd_setup()
 
     il, ir = il.to(DEVICE), ir.to(DEVICE)
     report = phase_kernels(card, kernel_inputs(configs["path1"], il[:2],
                                                ir[:2]))
+    report["hamming_top2"]["batched"] = measure_t_batched(
+        card, t_batched_inputs(configs["path1"], il, config4,
+                               gray.to(DEVICE)))
     torch.cuda.synchronize()
     runs = {}
     for path, config in configs.items():
@@ -688,6 +1148,11 @@ def main(argv=None) -> int:
         runs[path] = phase_path(path, config, il[:k], ir[:k], gt,
                                 args.profile)
         phase_cpu(path, config, il, ir, runs[path]["first_poses"])
+    runs["path3"] = phase_multistream(configs["path1"], il, ir, rot, gt,
+                                      args.profile)
+    phase_multistream_cpu(configs["path1"], runs["path3"]["first_poses"],
+                          runs["path3"]["inputs"])
+    runs["path4"] = phase_rgbd(config4, gray, depth, rot4, pos4, args.profile)
 
     entries = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -696,11 +1161,22 @@ def main(argv=None) -> int:
                      launches_by_path={p: r["launches"][k]
                                        for p, r in runs.items()},
                      reps=REPS, plain_reps=PLAIN_REPS, **report[k])
+        # phase 2 checked paths 1 and 2's shapes, paths 3 and 4 their own
+        by_path = {p: report[k]["max_abs_err"] for p in ("path1", "path2")
+                   if NEED_PER_FRAME[p].get(k)}
+        by_path.update({p: r["kernel_errs"][k] for p, r in runs.items()
+                        if k in r.get("kernel_errs", {})})
+        entry.update(max_abs_err=max(by_path.values()),
+                     max_abs_err_by_path=by_path)
         if args.profile:
             entry["profiler_ms_by_path"] = {
                 p: r["profile"].get(k, {}).get("device_ms")
                 for p, r in runs.items()}
         entries.append(entry)
+    _say("summary", "frames/s: " + ", ".join(
+        f"{p} {r['fps']:.2f}" for p, r in runs.items())
+        + f" (path 3 aggregate of {MS_STREAMS} streams; "
+        f"{runs['path3']['fps_per_stream']:.2f} per stream)")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"],

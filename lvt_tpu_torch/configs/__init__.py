@@ -7,9 +7,14 @@
   ``bench.py`` and ``__graft_entry__._kitti_config``);
 * :func:`kitti_ba_dense_config` — path 2: ``kitti/vo_config.yaml`` (local
   BA window 4 every 4 frames) with ``kitti/00.yaml``'s calibration, in the
-  dense descriptor mode.
+  dense descriptor mode;
+* :func:`tum_rgbd_config` — the RGB-D sensor: ``tum_rgbd/config_tum{1,2,3}
+  .yaml``, the TUM RGB-D freiburg 1-3 cameras at 640x480 with their
+  distortion (fr1: k1 = 0.262, 8192 map points, one 2000-px cell of 1000
+  corners, so 1024 keypoint slots, ``staged_threshold`` 0, BA off).
 
-The YAML files are copies of lvt_tpu/configs/kitti/.
+The YAML files are copies of lvt_tpu/configs/kitti/ and
+lvt_tpu/configs/tum_rgbd/.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import os
 from lvt_tpu_torch.config import VOConfig, load_config, load_kitti_calib
 
 KITTI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kitti")
+TUM_RGBD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tum_rgbd")
 
 
 def kitti_config() -> VOConfig:
@@ -42,3 +49,10 @@ def kitti_ba_dense_config() -> VOConfig:
     return load_config(os.path.join(KITTI_DIR, "vo_config.yaml"), **calib,
                        img_width=1241, img_height=376,
                        descriptor_mode="dense")
+
+
+def tum_rgbd_config(freiburg: int = 1) -> VOConfig:
+    """The TUM RGB-D config of freiburg camera 1, 2 or 3, as lvt_tpu's TUM
+    entry point loads it."""
+    return load_config(os.path.join(TUM_RGBD_DIR,
+                                    f"config_tum{int(freiburg)}.yaml"))

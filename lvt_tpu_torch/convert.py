@@ -7,7 +7,10 @@ same name from any such tree (lvt_tpu's, or the port's own with numpy
 leaves); :func:`to_numpy` gives the port's tree with numpy leaves in
 lvt_tpu's dtypes. Descriptors are the one dtype change: lvt_tpu's uint32
 words are the port's int32 words with the same bits (``np.view``). bool,
-int32 and f32 keep their dtypes.
+int32 and f32 keep their dtypes. Leaves convert whole, so a batched state
+(every leaf with a leading stream axis: lvt_tpu's
+``batched_initial_state`` or multi-stream state, the port's
+``parallel.multistream`` states) crosses the same way.
 """
 
 from __future__ import annotations

@@ -9,8 +9,10 @@ keypoints:
 
 Port of lvt_tpu/core/extract.py (``_descriptor_mode``,
 ``perception_batched``, ``_select_and_describe``, ``_extract_patch_mode``,
-``extract_features_batched`` and ``extract_features_stereo``). Left and
-right are one batch of 2.
+``extract_features_batched``, ``extract_features``,
+``extract_features_stereo`` and ``extract_features_rgbd``). Left and right
+are one batch of 2; the S streams of the multi-stream step one batch of 2S
+(or S gray images for RGB-D).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from torch.profiler import record_function as stage
 
 from lvt_tpu_torch.config import VOConfig
 from lvt_tpu_torch.core.features import FrameFeatures
-from lvt_tpu_torch.ops import brief, detect
+from lvt_tpu_torch.ops import brief, detect, undistort
 from lvt_tpu_torch.ops import patches as pt
 from lvt_tpu_torch.ops.perception import (perception_maps_batched,
                                           perception_patch_maps_batched)
@@ -136,3 +138,35 @@ def extract_features_stereo(img_left: torch.Tensor, img_right: torch.Tensor,
     feats = extract_features_batched(torch.stack([img_left, img_right]), config)
     return (FrameFeatures(*(a[0] for a in feats)),
             FrameFeatures(*(a[1] for a in feats)))
+
+
+def extract_features(img: torch.Tensor, config: VOConfig) -> FrameFeatures:
+    """Detect + describe one grayscale image -> FrameFeatures [kp_capacity]."""
+    feats = extract_features_batched(img[None], config)
+    return FrameFeatures(*(a[0] for a in feats))
+
+
+def apply_depth(feats: FrameFeatures, img_depth: torch.Tensor,
+                config: VOConfig) -> FrameFeatures:
+    """The RGB-D tail of extraction, on one image's features: the depth at
+    the clipped integer keypoint, ``valid`` cleared outside [near, far]
+    (fixed shapes: nothing is compacted), and the keypoints undistorted
+    when |k1| > 1e-5. lvt_tpu's multi-stream ``_apply_depth`` is the same
+    function; the multi-stream step runs it under vmap."""
+    xi = torch.clamp(feats.kp[:, 0].to(torch.int32), 0, config.img_width - 1)
+    yi = torch.clamp(feats.kp[:, 1].to(torch.int32), 0, config.img_height - 1)
+    d = img_depth[yi.long(), xi.long()]
+    ok = (d >= config.near_plane_distance) & (d <= config.far_plane_distance)
+    kp = feats.kp
+    if abs(config.k1) > 1e-5:
+        kp = undistort.undistort_points(
+            kp, config.fx, config.fy, config.cx, config.cy,
+            config.k1, config.k2, config.p1, config.p2, config.k3)
+    return feats._replace(kp=kp, depth=d, valid=feats.valid & ok)
+
+
+def extract_features_rgbd(img_gray: torch.Tensor, img_depth: torch.Tensor,
+                          config: VOConfig) -> FrameFeatures:
+    """RGB-D frame: detect + describe the gray image, then keep only the
+    keypoints with a depth in [near, far] (:func:`apply_depth`)."""
+    return apply_depth(extract_features(img_gray, config), img_depth, config)

@@ -1,15 +1,20 @@
 """The per-frame tracking step: extraction + one predicated tracking body.
 
-Port of lvt_tpu/core/step.py (stereo, single device, windowed local BA
-optional). The reference's state machine is ONE computation: the init
-frame is a tracking frame over an empty map at a forced-identity pose with
-triangulation forced on, and the lost frame is an output select. Every
+Port of lvt_tpu/core/step.py (stereo and RGB-D, single device, windowed
+local BA optional). The reference's state machine is ONE computation: the
+init frame is a tracking frame over an empty map at a forced-identity pose
+with triangulation forced on, and the lost frame is an output select. Every
 retry and policy branch is computed and then selected with
 ``torch.where``, so the step has fixed shapes and no data-dependent Python
 branch or host sync — the form a CUDA graph can capture. That includes
 local BA: lvt_tpu's ``lax.cond`` on the BA schedule becomes BA computed on
 every frame and selected, as JAX's vmapped path lowers it. ``lax.scan``
 over a chunk is a Python loop.
+
+The step is also the body of the multi-stream step
+(parallel/multistream.py), which runs :func:`track_features` under
+``torch.func.vmap`` as lvt_tpu runs it under ``jax.vmap``: every op in it
+has a batching rule, kernel T's included (ops/top2.py).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from lvt_tpu_torch.core.state import (LOST, NOT_INITIALIZED, TRACKING,
                                       VOState)
 from lvt_tpu_torch.geometry import se3
 from lvt_tpu_torch.geometry.se3 import Pose
-from lvt_tpu_torch.ops import hamming, matching, triangulate
+from lvt_tpu_torch.ops import hamming, matching, triangulate, undistort
 from lvt_tpu_torch.solver import bundle
 from lvt_tpu_torch.solver.pnp import solve_pnp
 from lvt_tpu_torch.tree import tree_map
@@ -39,11 +44,12 @@ def _select(pred, a, b):
 
 
 def _image_bounds(config: VOConfig):
-    """Visible pixel bounds. Stereo input is rectified (k1 = 0), where the
-    undistorted bounds are the image itself."""
-    if abs(config.k1) >= 1e-5:
-        raise NotImplementedError("distorted input (k1 != 0) is not ported")
-    return 0.0, float(config.img_width), 0.0, float(config.img_height)
+    """Visible pixel bounds: for distorted (RGB-D) input the undistorted
+    image corners, computed once per camera on the host as plain floats;
+    the image itself when k1 = 0."""
+    return undistort.undistorted_image_bounds(
+        config.img_width, config.img_height, config.fx, config.fy, config.cx,
+        config.cy, config.k1, config.k2, config.p1, config.p2, config.k3)
 
 
 def _camera_kwargs(config: VOConfig) -> dict:
@@ -64,10 +70,17 @@ def _row_match(left: FrameFeatures, right: FrameFeatures, left_excluded,
     )
 
 
-def _triangulate_new_points(left: FrameFeatures, right: FrameFeatures,
+def _triangulate_new_points(left: FrameFeatures, right: FrameFeatures | None,
                             feature_matched, pose: Pose, config: VOConfig):
-    """Row-match the untracked left features and triangulate them.
-    Returns (points_world [K, 3], desc [K, W], valid [K])."""
+    """Stereo: row-match the untracked left features and triangulate them.
+    RGB-D (``right`` None): back-project every depth-valid feature, matched
+    or not, as the reference does; duplicates are culled by the untracked
+    counter. Returns (points_world [K, 3], desc [K, W], valid [K])."""
+    if right is None:
+        res = triangulate.backproject_rgbd(
+            left.kp, left.depth, left.valid, pose,
+            fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy)
+        return res.points_world, left.desc, res.valid
     rm = _row_match(left, right, feature_matched, config)
     k = left.kp.shape[0]
     uv_right = right.kp[torch.clamp(rm.right_idx, 0, k - 1)]
@@ -185,10 +198,11 @@ def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
             do_ba)
 
 
-def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
-                  config: VOConfig, is_init):
-    """Tracking frame, and through ``is_init`` the initialization frame.
-    Stages carry profiler ranges named as lvt_tpu's jax.named_scope."""
+def _track_branch(state: VOState, left: FrameFeatures,
+                  right: FrameFeatures | None, config: VOConfig, is_init):
+    """Tracking frame, and through ``is_init`` the initialization frame;
+    ``right`` is None for RGB-D. Stages carry profiler ranges named as
+    lvt_tpu's jax.named_scope."""
     cam = _camera_kwargs(config)
     k = left.kp.shape[0]
     identity = Pose.identity(left.kp.device)
@@ -242,12 +256,12 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
     need_tri = _policy_need_triangulation(
         config, window, map_size_after_promo) | is_init
 
-    # the port is stereo only, so BA always has its right camera. lvt_tpu
-    # builds one stereo Hamming matrix for the triangulation row match and
-    # the BA row match; here each row match computes its distances inside
-    # kernel T, since recomputing 1536 x 1536 distances costs less than
-    # writing and reading back a 9.4 MB matrix
-    want_ba_rm = config.local_ba_window > 0
+    # lvt_tpu builds one stereo Hamming matrix for the triangulation row
+    # match and the BA row match; here each row match computes its
+    # distances inside kernel T, since recomputing 1536 x 1536 distances
+    # costs less than writing and reading back a 9.4 MB matrix
+    want_ba_rm = (config.local_ba_window > 0 and right is not None
+                  and config.baseline != 0.0)
 
     with stage("triangulation"):
         pts, desc, tri_valid = _triangulate_new_points(
@@ -262,20 +276,23 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
 
     final_map, pose_final, ba_window = ins_map.store, pose_opt, state.ba
     ba_ran = torch.zeros((), dtype=torch.bool, device=left.kp.device)
-    if want_ba_rm:
+    if config.local_ba_window > 0:
         removed = map_bookkept.valid & ~map_clean.valid
         recycled = ins_map.taken
         if config.staged_threshold > 0:
             recycled = recycled | ins_promo.taken
         with stage("local_ba"):
-            # right-camera observations of the map-matched features
-            rm_ba = _row_match(left, right, ~mm.feature_matched, config)
-            slot_feat = torch.clamp(mm.match_idx, 0, k - 1)
-            r_idx = rm_ba.right_idx[slot_feat]
+            if want_ba_rm:
+                # right-camera observations of the map-matched features
+                rm_ba = _row_match(left, right, ~mm.feature_matched, config)
+                r_idx = rm_ba.right_idx[torch.clamp(mm.match_idx, 0, k - 1)]
+                obs_r = right.kp[torch.clamp(r_idx, 0, k - 1)]
+                w_r = ((mm.match_idx >= 0) & (r_idx >= 0)).float()
+            else:
+                # no right camera: no stereo anchor, so BA is inert
+                obs_r, w_r = torch.zeros_like(obs), torch.zeros_like(weights)
             ba_window, pose_final, refined_pos, ba_ran = _local_ba_update(
-                state.ba, final_map, pose_opt, obs, weights,
-                right.kp[torch.clamp(r_idx, 0, k - 1)],
-                ((mm.match_idx >= 0) & (r_idx >= 0)).float(),
+                state.ba, final_map, pose_opt, obs, weights, obs_r, w_r,
                 removed | recycled, state.frame_number, config)
         final_map = final_map._replace(pos=refined_pos)
 
@@ -325,10 +342,11 @@ def _track_branch(state: VOState, left: FrameFeatures, right: FrameFeatures,
     return new_state, out_pose, metrics
 
 
-def track_features(state: VOState, left: FrameFeatures, right: FrameFeatures,
-                   config: VOConfig):
-    """Status dispatch over extracted features: the lost frame returns the
-    last pose and bumps the frame counter, as a pure output select."""
+def track_features(state: VOState, left: FrameFeatures,
+                   right: FrameFeatures | None, config: VOConfig):
+    """Status dispatch over extracted features (``right`` None: RGB-D, with
+    ``left.depth`` set): the lost frame returns the last pose and bumps the
+    frame counter, as a pure output select."""
     is_init = state.status == NOT_INITIALIZED
     is_lost = state.status == LOST
     tracked_state, pose, metrics = _track_branch(state, left, right, config,
@@ -355,6 +373,11 @@ def track_step_stereo(state: VOState, img_left: torch.Tensor,
     return track_features(state, left, right, config)
 
 
+def _stack_frames(state, poses, metrics):
+    stack = lambda *xs: torch.stack(xs)  # noqa: E731
+    return state, tree_map(stack, *poses), tree_map(stack, *metrics)
+
+
 def track_chunk_stereo(state: VOState, imgs_left: torch.Tensor,
                        imgs_right: torch.Tensor, config: VOConfig):
     """N frames in order; returns (state, poses [N], metrics [N])."""
@@ -363,5 +386,24 @@ def track_chunk_stereo(state: VOState, imgs_left: torch.Tensor,
         state, pose, m = track_step_stereo(state, il, ir, config)
         poses.append(pose)
         metrics.append(m)
-    stack = lambda *xs: torch.stack(xs)  # noqa: E731
-    return state, tree_map(stack, *poses), tree_map(stack, *metrics)
+    return _stack_frames(state, poses, metrics)
+
+
+def track_step_rgbd(state: VOState, img_gray: torch.Tensor,
+                    img_depth: torch.Tensor, config: VOConfig):
+    """Full RGB-D frame (gray image, float32 metric depth): extraction with
+    the depth lookup + tracking -> (state, pose, metrics)."""
+    _check_config(config)
+    left = extract.extract_features_rgbd(img_gray, img_depth, config)
+    return track_features(state, left, None, config)
+
+
+def track_chunk_rgbd(state: VOState, imgs_gray: torch.Tensor,
+                     imgs_depth: torch.Tensor, config: VOConfig):
+    """N RGB-D frames in order; returns (state, poses [N], metrics [N])."""
+    poses, metrics = [], []
+    for g, d in zip(imgs_gray, imgs_depth):
+        state, pose, m = track_step_rgbd(state, g, d, config)
+        poses.append(pose)
+        metrics.append(m)
+    return _stack_frames(state, poses, metrics)

@@ -1,10 +1,12 @@
 """VOSystem: the host-side object around the tracking step.
 
-Port of lvt_tpu/core/system.py (stereo). The VOState lives on ``device``;
-``track`` uploads one stereo pair and returns its pose, ``track_chunk``
-runs N frames and returns N poses. Checkpoints are npz files keyed by
-state path (``.map.pos``, ...), the same keys and dtypes lvt_tpu writes,
-so a checkpoint crosses between the two packages in both directions.
+Port of lvt_tpu/core/system.py (stereo and RGB-D). The VOState lives on
+``device`` (default ``cuda``); ``track`` uploads one frame (a rectified
+stereo pair, or a gray image and its metric depth) and returns its pose,
+``track_chunk`` runs N frames and returns N poses. Checkpoints are npz
+files keyed by state path (``.map.pos``, ...), the same keys and dtypes
+lvt_tpu writes, so a checkpoint crosses between the two packages in both
+directions.
 """
 
 from __future__ import annotations
@@ -36,13 +38,13 @@ class TrackingState(enum.IntEnum):
 
 
 class VOSystem:
-    """Visual odometry over one stereo camera stream on ``device``."""
+    """Visual odometry over one camera stream (stereo or RGB-D) on
+    ``device``."""
 
     def __init__(self, config: VOConfig,
-                 sensor_type: SensorType = SensorType.STEREO, *, device):
+                 sensor_type: SensorType = SensorType.STEREO, *,
+                 device="cuda"):
         config.validate()
-        if SensorType(sensor_type) != SensorType.STEREO:
-            raise NotImplementedError("only the stereo sensor is ported")
         step_mod._check_config(config)
         self.config = config
         self.sensor_type = SensorType(sensor_type)
@@ -52,7 +54,7 @@ class VOSystem:
 
     @staticmethod
     def create(config: VOConfig, sensor_type: SensorType = SensorType.STEREO,
-               *, device) -> "VOSystem":
+               *, device="cuda") -> "VOSystem":
         return VOSystem(config, sensor_type, device=device)
 
     def reset(self) -> None:
@@ -84,22 +86,32 @@ class VOSystem:
         # uint8 uploads 4x less than f32 and kernel A widens on the card
         return a if a.dtype == torch.uint8 else a.float()
 
-    def track(self, img_left, img_right) -> Pose:
-        """One stereo frame (rectified grayscale left and right)."""
-        self.state, pose, self.last_metrics = step_mod.track_step_stereo(
-            self.state, self._prep(img_left, 2), self._prep(img_right, 2),
-            self.config)
-        return pose
+    def _prep2(self, img, ndim: int) -> torch.Tensor:
+        """The second input: the right image, or the metric depth (float32)
+        for RGB-D."""
+        if self.sensor_type == SensorType.STEREO:
+            return self._prep(img, ndim)
+        return self._prep(torch.as_tensor(img, dtype=torch.float32), ndim)
 
-    def track_chunk(self, imgs_left, imgs_right):
+    def track(self, img1, img2) -> Pose:
+        """One frame, a chunk of one. Stereo: rectified grayscale (left,
+        right); RGB-D: (gray, metric depth)."""
+        poses, _ = self.track_chunk(self._prep(img1, 2)[None],
+                                    self._prep2(img2, 2)[None])
+        return tree_map(lambda x: x[0], poses)
+
+    def track_chunk(self, imgs1, imgs2):
         """N frames, same result as N ``track`` calls; returns (poses,
         metrics) with a leading N axis."""
-        a = self._prep(imgs_left, 3)
-        b = self._prep(imgs_right, 3)
+        a = self._prep(imgs1, 3)
+        b = self._prep2(imgs2, 3)
         if a.shape != b.shape:
-            raise ValueError(f"right chunk {tuple(b.shape)} != left {tuple(a.shape)}")
-        self.state, poses, metrics = step_mod.track_chunk_stereo(
-            self.state, a, b, self.config)
+            raise ValueError(f"second-input chunk {tuple(b.shape)} != image "
+                             f"chunk {tuple(a.shape)}")
+        chunk = (step_mod.track_chunk_stereo
+                 if self.sensor_type == SensorType.STEREO
+                 else step_mod.track_chunk_rgbd)
+        self.state, poses, metrics = chunk(self.state, a, b, self.config)
         self.last_metrics = tree_map(lambda x: x[-1], metrics)
         return poses, metrics
 

@@ -7,6 +7,12 @@
 // (XOR + popcount, outside the Pallas kernel); here the distance is
 // computed in the kernel and the matrix never exists.
 //
+// One launch serves S independent streams (the multi-stream step, where
+// lvt_tpu vmaps the matching): blockIdx.y is the stream, and each stream
+// reads its own [M] queries and [K] targets and writes its own outputs, at
+// a stride of one stream's slice. The radii and the mode are shared. With
+// S = 1 it is the single-stream launch.
+//
 // Per query row it builds the candidate mask from the validity flags and
 // either the radius tests (dx*dx + dy*dy < r2) or the row window
 // (lo <= y_r <= hi). For a candidate the distance is the sum of
@@ -107,6 +113,16 @@ __global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * ROWS;
+  // this block's stream: its slices of every input and output
+  const long long s = blockIdx.y;
+  q_desc += s * m * 2;
+  t_desc += s * k * 2;
+  qm += s * m * 2;
+  qv += s * m;
+  tm += s * k * 2;
+  tv += s * k;
+  fout += s * 4 * m;
+  iout += s * 4 * m;
 
   uint32_t q[ROWS][8];
   float q0[ROWS], q1[ROWS];
@@ -194,13 +210,17 @@ __global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
 
 }  // namespace
 
+// Inputs [S, M, 8], [S, K, 8], [S, M, 2], [S, M], [S, K, 2], [S, K];
+// outputs fout, iout [S, 2, 2, M]. The grid is (row blocks, S).
 extern "C" int lvt_hamming_top2(const int* q_desc, const int* t_desc,
                                 const float* q_meta, const uint8_t* q_valid,
                                 const float* t_meta, const uint8_t* t_valid,
-                                int m, int k, float r2a, float r2b, int mode,
-                                float* fout, long long* iout, void* stream) {
-  const int blocks = (m + ROWS - 1) / ROWS;
-  if (blocks > 0) {
+                                int n_streams, int m, int k, float r2a,
+                                float r2b, int mode, float* fout,
+                                long long* iout, void* stream) {
+  if (n_streams > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 blocks((m + ROWS - 1) / ROWS, n_streams);
+  if (blocks.x > 0 && blocks.y > 0) {
     const auto* qd = reinterpret_cast<const int4*>(q_desc);
     const auto* td = reinterpret_cast<const int4*>(t_desc);
     const auto s = static_cast<cudaStream_t>(stream);

@@ -40,8 +40,8 @@ _SIGNATURES = {
     "lvt_brief_planes": [_P, _P, _I, _I, _I, _P],
     "lvt_describe_refine": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _P],
-    "lvt_hamming_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,
-                         _P],
+    "lvt_hamming_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
+                         _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

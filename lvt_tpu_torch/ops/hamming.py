@@ -30,21 +30,23 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [N, W] int32, b [K, W] int32 -> [N, K] int32 Hamming distances."""
-    x = a[:, None, :] ^ b[None, :, :]
+    """a [..., N, W] int32, b [..., K, W] int32 -> [..., N, K] int32
+    Hamming distances."""
+    x = a[..., :, None, :] ^ b[..., None, :, :]
     return popcount32(x).sum(dim=-1, dtype=torch.int32)
 
 
 def masked_top2_int(dist: torch.Tensor, cand_mask: torch.Tensor):
     """Per-row best/second distances among masked candidates of an integer
     distance matrix, via packed keys d * K + col (lowest column wins ties).
-    Returns (d1 f32, d2 f32, best int64, n_cand int64), each [Q]."""
-    q, k = dist.shape
+    Returns (d1 f32, d2 f32, best int64, n_cand int64), each [Q] (or
+    [..., Q] for [..., Q, K] inputs)."""
+    k = dist.shape[-1]
     col = torch.arange(k, dtype=torch.int32, device=dist.device)
     key = torch.where(cand_mask, dist.to(torch.int32) * k + col,
                       torch.full_like(dist, _IMAX, dtype=torch.int32))
     k1 = key.amin(dim=-1)
-    k2 = torch.where(key == k1[:, None], _IMAX, key).amin(dim=-1)
+    k2 = torch.where(key == k1[..., None], _IMAX, key).amin(dim=-1)
     has1 = k1 != _IMAX
     has2 = k2 != _IMAX
     d1 = torch.where(has1, (k1 // k).float(), BIG)

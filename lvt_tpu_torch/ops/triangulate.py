@@ -1,7 +1,8 @@
 """Batched stereo triangulation (left-camera frame, closed-form 3x3 normal
 equations) with the reference's visibility and chi-square gating.
 
-Port of lvt_tpu/ops/triangulate.py (stereo).
+Port of lvt_tpu/ops/triangulate.py (``triangulate_stereo``, and
+``backproject_rgbd`` for the RGB-D sensor).
 
 The normal equations are ill-conditioned for distant points: their
 determinant is 2 (x1 - x2)^2 + 2 (y1 - y2)^2 left over from terms near 4,
@@ -100,3 +101,16 @@ def triangulate_stereo(
           & (err_l <= reprojection_th2) & (err_r <= reprojection_th2))
     pts_world = se3.transform_points(pose.matrix34(), pts_cam)
     return TriangulationResult(pts_cam, pts_world, ok)
+
+
+def backproject_rgbd(uv: torch.Tensor, depth: torch.Tensor,
+                     valid: torch.Tensor, pose: se3.Pose, *, fx, fy, cx,
+                     cy) -> TriangulationResult:
+    """Direct depth back-projection of [N, 2] pixels with [N] metric depth.
+    Depth validity ([near, far]) is set at extraction, so ``valid``
+    carries it."""
+    x = (uv[:, 0] - cx) * depth / scalar(fx, uv)
+    y = (uv[:, 1] - cy) * depth / scalar(fy, uv)
+    pts_cam = torch.stack([x, y, depth], dim=-1)
+    pts_world = se3.transform_points(pose.matrix34(), pts_cam)
+    return TriangulationResult(pts_cam, pts_world, valid)

@@ -1,0 +1,170 @@
+"""Multi-stream VO on one card: S independent camera streams as a batch
+axis of one step.
+
+Port of lvt_tpu/parallel/multistream.py for one device. Per frame, all 2S
+stereo images (or S gray images) go through extraction as one batch, so
+kernels A and P (A and B in dense mode) launch once for all streams; the
+per-stream state machine is then ``torch.func.vmap`` of the single-stream
+body ``core/step.py::track_features`` (lvt_tpu's ``jax.vmap``), in which
+kernel T's batching rule (ops/top2.py) makes one launch per site for all
+S streams. Per-stream LOST flags live in the batched VOState, so a lost
+stream never stalls the others: ``reset`` re-initializes just its slice,
+keeping its pose. The mesh and the sharding over several devices are not
+ported (ROADMAP Queue 1 item 16): one card holds the whole batch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from lvt_tpu_torch.config import VOConfig
+from lvt_tpu_torch.core import extract
+from lvt_tpu_torch.core import step as step_mod
+from lvt_tpu_torch.core.features import FrameFeatures
+from lvt_tpu_torch.core.state import LOST, VOState
+from lvt_tpu_torch.device import resolve_device
+from lvt_tpu_torch.tree import tree_map
+
+
+def _initial_state(config: VOConfig, device) -> VOState:
+    return VOState.initial(config.max_map_points, config.max_staged_points,
+                           config.local_ba_window, device=device)
+
+
+def batched_initial_state(config: VOConfig, n_streams: int, *,
+                          device="cuda") -> VOState:
+    """The initial VOState of every stream, each leaf with a leading [S]."""
+    return tree_map(lambda x: x[None].expand(n_streams, *x.shape).clone(),
+                    _initial_state(config, device))
+
+
+def _split(feats: FrameFeatures, s: int):
+    return (FrameFeatures(*(a[:s] for a in feats)),
+            FrameFeatures(*(a[s:] for a in feats)))
+
+
+def multistream_step_stereo(states: VOState, imgs_left: torch.Tensor,
+                            imgs_right: torch.Tensor, config: VOConfig):
+    """One frame for every stream: [S, H, W] left and right -> (states,
+    poses [S], metrics [S]). One extraction over the 2S images, then the
+    vmapped tracking body."""
+    step_mod._check_config(config)
+    s = imgs_left.shape[0]
+    left, right = _split(extract.extract_features_batched(
+        torch.cat([imgs_left, imgs_right]), config), s)
+    return vmap(lambda st, lf, rf: step_mod.track_features(st, lf, rf,
+                                                           config))(
+        states, left, right)
+
+
+def multistream_step_rgbd(states: VOState, imgs_gray: torch.Tensor,
+                          imgs_depth: torch.Tensor, config: VOConfig):
+    """One RGB-D frame for every stream: [S, H, W] gray and float32 metric
+    depth -> (states, poses [S], metrics [S]). One extraction over the S
+    gray images, then per stream (vmapped) the depth lookup and
+    tracking."""
+    step_mod._check_config(config)
+    feats = extract.extract_features_batched(imgs_gray, config)
+
+    def one(st, f, depth):
+        return step_mod.track_features(
+            st, extract.apply_depth(f, depth, config), None, config)
+
+    return vmap(one)(states, feats, imgs_depth)
+
+
+def _reset_lost(states: VOState, fresh: VOState) -> VOState:
+    """Every LOST stream takes ``fresh`` (one stream's initial state) in
+    its slice, keeping its last pose; the others are untouched."""
+    lost = states.status == LOST
+
+    def sel(new, old):
+        return torch.where(lost.reshape(lost.shape + (1,) * (old.ndim - 1)),
+                           new, old)
+
+    return tree_map(sel, fresh, states)._replace(pose=states.pose)
+
+
+def reset_lost_streams(states: VOState, config: VOConfig) -> VOState:
+    """Per-stream auto-reset: a stream in LOST is re-initialized in place
+    (the ROS shell's reset-on-lost policy). Its accumulated pose is kept,
+    so odometry continues from where tracking was lost."""
+    return _reset_lost(states, _initial_state(config, states.status.device))
+
+
+def multistream_chunk(states: VOState, imgs1: torch.Tensor,
+                      imgs2: torch.Tensor, config: VOConfig,
+                      auto_reset: bool = True, rgbd: bool = False):
+    """N frames of S streams, in order: imgs [N, S, H, W] (left and right,
+    or gray and float32 depth); with ``auto_reset`` a lost stream is reset
+    after its frame. Returns (states, poses [N, S], metrics [N, S])."""
+    step = multistream_step_rgbd if rgbd else multistream_step_stereo
+    fresh = _initial_state(config, states.status.device)
+    poses, metrics = [], []
+    for a, b in zip(imgs1, imgs2):
+        states, p, m = step(states, a, b, config)
+        if auto_reset:
+            states = _reset_lost(states, fresh)
+        poses.append(p)
+        metrics.append(m)
+    return step_mod._stack_frames(states, poses, metrics)
+
+
+class MultiStreamVO:
+    """Driver for a batch of S concurrent VO streams (stereo or RGB-D) on
+    one device."""
+
+    def __init__(self, config: VOConfig, n_streams: int, *, device="cuda",
+                 auto_reset: bool = True, rgbd: bool = False):
+        config.validate()
+        step_mod._check_config(config)
+        self.config = config
+        self.n_streams = n_streams
+        self.device = resolve_device(device)
+        self.auto_reset = auto_reset
+        self.rgbd = rgbd
+        self.states = batched_initial_state(config, n_streams,
+                                            device=self.device)
+
+    def _prep(self, imgs, ndim: int, second: bool) -> torch.Tensor:
+        a = torch.as_tensor(imgs)
+        if second and self.rgbd:
+            a = a.to(self.device, torch.float32)     # metric depth
+        else:
+            # uint8 uploads 4x less than f32 and kernel A widens on the card
+            a = a.to(self.device)
+            a = a if a.dtype == torch.uint8 else a.float()
+        hw = (self.config.img_height, self.config.img_width)
+        if a.ndim != ndim or a.shape[-3] != self.n_streams or \
+                tuple(a.shape[-2:]) != hw:
+            raise ValueError(f"expected {ndim}-d images of [{self.n_streams}, "
+                             f"{hw[0]}, {hw[1]}], got {tuple(a.shape)}")
+        return a
+
+    def track(self, imgs1, imgs2):
+        """One frame per stream: imgs [S, H, W], stereo (left, right) or
+        RGB-D (gray, metric depth); a chunk of one frame. Returns (poses
+        [S], metrics [S])."""
+        poses, metrics = self.track_chunk(self._prep(imgs1, 3, False)[None],
+                                          self._prep(imgs2, 3, True)[None])
+        return (tree_map(lambda x: x[0], poses),
+                tree_map(lambda x: x[0], metrics))
+
+    def track_chunk(self, imgs1, imgs2):
+        """N frames for every stream: imgs [N, S, H, W]. The same result as
+        N ``track`` calls; returns (poses [N, S], metrics [N, S])."""
+        a, b = self._prep(imgs1, 4, False), self._prep(imgs2, 4, True)
+        if a.shape != b.shape:
+            raise ValueError(f"second-input chunk {tuple(b.shape)} != image "
+                             f"chunk {tuple(a.shape)}")
+        self.states, poses, metrics = multistream_chunk(
+            self.states, a, b, self.config, auto_reset=self.auto_reset,
+            rgbd=self.rgbd)
+        return poses, metrics
+
+    @property
+    def status(self) -> np.ndarray:
+        """[S] int32 tracking state of each stream (read from the device)."""
+        return self.states.status.cpu().numpy()

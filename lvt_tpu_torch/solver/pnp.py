@@ -107,8 +107,13 @@ def solve_pnp(
         w = w_mask * _cauchy_weights(s.e2, delta2)
         jac = _jacobians(s.p_cam, s.inv_z, fx, fy)
         jw = jac * w[:, None, None]
-        h = torch.einsum("mki,mkj->ij", jw, jac)
-        g = torch.einsum("mki,mk->i", jw, s.r)
+        # H and g in one product, g as a 7th column against the residual:
+        # under vmap (the multi-stream step) a matrix-vector einsum sums
+        # in another order than alone on the CPU, this matrix product in
+        # the same, so each stream gets the single-stream step's bits
+        hg = torch.einsum("mki,mkj->ij", jw,
+                          torch.cat([jac, s.r[..., None]], -1))
+        h, g = hg[:, :6], hg[:, 6]
         step = torch.linalg.solve_ex(h + s.lam * eye6, -g)[0]
         r_wc_new, t_wc_new = _retract(s.r_wc, s.t_wc, step)
         r_new, p_new, iz_new, e2_new = project(r_wc_new, t_wc_new)

@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""lvt_tpu_torch's kernels A and B of two trees on one NVIDIA GPU, in one run.
+"""lvt_tpu_torch's kernels A, B and T of two trees on one NVIDIA GPU, in
+one run.
 
     git archive <parent commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_before_after.py --parent build/parent
 
-Runs kernels A (perception) and B (dense BRIEF planes) of the parent tree
+Runs kernels A (perception), B (dense BRIEF planes) and T (Hamming
+top-2, the single-stream call at its four sites) of the parent tree
 ("old") and of this tree ("new") in turns, old, new, new, old, one process
 each, on the same inputs: those of ``chip_smoke.kernel_inputs`` at the
-main paths' shapes (a uint8 KITTI pair and its box sums), made once by
-this tree. Each process builds its tree's kernels (printing ptxas's
-registers and spills) and measures them with this tree's
-``chip_smoke.measure_a_b``: each kernel against its plain version, bit for
-bit, timed with ``chip_smoke.device_ms``, with ``chip_smoke.bound``; A also
-on the pair made non-integer float32. The parent tree's wrappers must take
-the same arguments as this tree's.
+main paths' shapes (a uint8 KITTI pair, its box sums, and T's arguments
+from the descriptors of two frames), made once by this tree. Each process
+builds its tree's kernels (printing ptxas's registers and spills) and
+measures them with this tree's ``chip_smoke.measure_a_b``: each kernel
+against its plain version, bit for bit, timed with
+``chip_smoke.device_ms``, with ``chip_smoke.bound``; A also on the pair
+made non-integer float32; T timed with ``device_ms`` at each site. The
+parent tree's wrappers must take the same arguments as this tree's.
 
 The script then checks that old and new give the same bits (A's three maps
-on both pairs, B's planes), says for A and B whether every new run was
-faster than every old run, and writes every run and the mean of each side
-to ``--out`` (default ``build/before_after/result.json``, under the
-checkout). It needs the card: without one it fails.
+on both pairs, B's planes, T's outputs at every site), says for A and B
+whether every new run was faster than every old run, prints T's times,
+and writes every run and the mean of each side to ``--out`` (default
+``build/before_after/result.json``, under the checkout). It needs the
+card: without one it fails.
 """
 
 from __future__ import annotations
@@ -61,13 +65,14 @@ def prepare(path: str) -> None:
                                          for f in frames])).cuda()
               for i in (0, 1))
     inp = smoke.kernel_inputs(config, il, ir)
-    torch.save(dict(imgs=inp["imgs"], smooth=inp["p_args"][0]), path)
+    torch.save(dict(imgs=inp["imgs"], smooth=inp["p_args"][0],
+                    t_sites=inp["sites"]), path)
 
 
 def worker(side: str, root: str, inputs: str, out: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import lvt_tpu_torch  # noqa: F401  (this side's package, first)
-    from lvt_tpu_torch.ops import perception
+    from lvt_tpu_torch.ops import perception, top2
 
     smoke = _smoke()
     card = smoke.phase_device()
@@ -78,6 +83,11 @@ def worker(side: str, root: str, inputs: str, out: str) -> None:
             "a_float32": perception.perception_patch_maps_batched(
                 smoke.float_frames(imgs)),
             "b": (perception.brief_planes(smooth),)}
+    rep["hamming_top2"] = {}
+    for site, (a, kw) in inp["t_sites"].items():
+        outs[f"t_{site}"] = smoke._flat(top2.hamming_top2(*a, **kw))
+        rep["hamming_top2"][site] = dict(ms=smoke.device_ms(
+            lambda a=a, kw=kw: top2.hamming_top2(*a, **kw), smoke.REPS))
     torch.save({k: [t.cpu() for t in v] for k, v in outs.items()}, out)
     print(json.dumps(dict(side=side, card=card, kernels=rep)), flush=True)
 
@@ -133,7 +143,13 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{key}: the new kernel differs from "
                                      "the old one")
     print("old and new give the same bits: A's nms, raw and smooth on the "
-          "uint8 and the float32 pair, B's planes", flush=True)
+          "uint8 and the float32 pair, B's planes, T's outputs at "
+          f"{', '.join(k[2:] for k in old if k.startswith('t_'))}",
+          flush=True)
+    for site in runs[0]["kernels"]["hamming_top2"]:
+        print(f"hamming_top2 at {site} ms by run ({', '.join(ORDER)}): "
+              f"{[r['kernels']['hamming_top2'][site]['ms'] for r in runs]}",
+              flush=True)
     for name in ("perception", "brief"):
         ms = {s: [r["kernels"][name]["ms"] for r in runs if r["side"] == s]
               for s in ("old", "new")}

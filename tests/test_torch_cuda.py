@@ -6,7 +6,8 @@ On a GPU machine without JAX, skip tests/conftest.py (it imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance: none — kernels A, B, P and T are bit-exact with their plain
+Tolerance: none — kernels A, B, P and T (one stream, or S streams in one
+launch) are bit-exact with their plain
 versions by construction (integer arithmetic, or on float frames A's f32
 sums in the plain version's order; float comparisons; packed integer
 keys; and P's subpixel fit in the plain version's order of f32
@@ -153,6 +154,102 @@ def test_top2_kernel_matches_plain(cuda, mode, mk):
             assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def _top2_streams(rs, s, m, k, mode, device):
+    """Kernel T's arguments for ``s`` streams ([S, ...], contiguous) with
+    duplicate targets and invalid rows, and its keyword arguments."""
+    t_desc = np.stack([_desc(rs, k) for _ in range(s)])
+    t_desc[:, 1::3] = t_desc[:, ::3][:, :t_desc[:, 1::3].shape[1]]
+    q_desc = np.stack([_desc(rs, m) for _ in range(s)])
+    t_kp = rs.uniform(0, 300, (s, k, 2)).astype(np.float32)
+    if mode == "row":
+        y = np.floor(rs.uniform(0, 300, (s, m))).astype(np.float32)
+        q = np.stack([y - 2, y + 2], -1)
+        kw = dict(r2a=0.0, r2b=0.0, row_mode=True)
+    else:
+        q = rs.uniform(0, 300, (s, m, 2)).astype(np.float32)
+        kw = dict(r2a=25.0**2, r2b=(50.0 if mode == "dual" else 25.0)**2)
+    q_valid = rs.rand(s, m) > 0.1
+    q_valid[:, :2] = False
+    args = [torch.from_numpy(a).to(device) for a in (
+        q_desc, t_desc, q, q_valid, t_kp, rs.rand(s, k) > 0.1)]
+    return args, kw
+
+
+def _equal_outputs(got, want):
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+@pytest.mark.parametrize("s", [1, 3, 8])
+@pytest.mark.parametrize("mk", [(1024, 1536), (101, 2048), (3, 333)])
+def test_top2_batched_launch_matches_plain(cuda, mode, s, mk):
+    """Kernel T over a stream axis: one launch for S streams, bit-equal to
+    the plain version stream by stream, at ragged M and K."""
+    args, kw = _top2_streams(np.random.RandomState(s), s, *mk, mode, cuda)
+    before = top2.hamming_top2.launches
+    got = top2.hamming_top2_batched(*args, **kw)
+    torch.cuda.synchronize()
+    assert top2.hamming_top2.launches == before + 1
+    _equal_outputs(got, top2.hamming_top2_plain_batched(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dual", "single"])
+def test_top2_kernel_at_tum_map_match_shape(cuda, mode):
+    """M = 8192 map points against K = 1024 keypoints (TUM fr1's map
+    match): 2048 row blocks."""
+    args, kw = _top2_streams(np.random.RandomState(8), 1, 8192, 1024, mode,
+                             cuda)
+    _equal_outputs(top2.hamming_top2_batched(*args, **kw),
+                   top2.hamming_top2_plain_batched(*args, **kw))
+    got = top2.hamming_top2(*(a[0] for a in args), **kw)
+    _equal_outputs(tuple(tuple(x.cpu() for x in o) for o in got),
+                   top2.hamming_top2_plain(*(a[0].cpu() for a in args),
+                                           **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+def test_top2_single_stream_is_a_batch_of_one(cuda, mode):
+    """The single-stream call (S = 1) gives the bits of the plain version,
+    which the kernel before the stream axis matched bit for bit, and each
+    stream of a batched launch gives the bits of its own single launch."""
+    args, kw = _top2_streams(np.random.RandomState(11), 5, 700, 1536, mode,
+                             cuda)
+    batched = top2.hamming_top2_batched(*args, **kw)
+    for i in range(5):
+        one = [a[i] for a in args]
+        got = top2.hamming_top2(*one, **kw)
+        _equal_outputs(tuple(tuple(x.cpu() for x in o) for o in got),
+                       top2.hamming_top2_plain(*(a.cpu() for a in one), **kw))
+        _equal_outputs(got, tuple(tuple(x[i] for x in o) for o in batched))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unbatched", [None, 2, 5])
+def test_top2_vmap_rule_launches_once(cuda, unbatched):
+    """Under torch.func.vmap the single-stream call reaches the kernel in
+    one launch for all streams, an unbatched argument expanded."""
+    args, kw = _top2_streams(np.random.RandomState(12), 4, 300, 500, "dual",
+                             cuda)
+    in_dims = [0] * 6
+    if unbatched is not None:
+        in_dims[unbatched] = None
+        args[unbatched] = args[unbatched][0]
+    before = top2.hamming_top2.launches
+    got = torch.func.vmap(lambda *a: top2.hamming_top2(*a, **kw),
+                          in_dims=tuple(in_dims))(*args)
+    torch.cuda.synchronize()
+    assert top2.hamming_top2.launches == before + 1
+    full = [a if d == 0 else a.expand(4, *a.shape).contiguous()
+            for a, d in zip(args, in_dims)]
+    _equal_outputs(got, top2.hamming_top2_plain_batched(*full, **kw))
+
+
 @pytest.mark.cuda
 def test_top2_kernel_all_invalid(cuda):
     """No valid query or no valid target: every row comes back empty
@@ -268,6 +365,46 @@ def test_dense_ba_path_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(mg.local_ba_ran.cpu(), mc.local_ba_ran)
     assert bool(mc.local_ba_ran[4])
     torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensor", ["stereo", "rgbd"])
+def test_multistream_on_the_card_matches_the_cpu(cuda, sensor):
+    """MultiStreamVO with 2 streams of different content over 4 frames on
+    both devices: poses within 1e-4 m, and kernel T launched once per
+    site for both streams (3 per stereo frame, 2 per RGB-D frame)."""
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.core.state import TRACKING
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
+    kw = dict(width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+              baseline=0.3, n_points=1500, extent_x=40.0, extent_y=18.0,
+              extent_z=90.0)
+    worlds = [SyntheticWorld(**kw), SyntheticWorld(**kw, seed=99)]
+    cfg = VOConfig(fx=260.0, fy=260.0, cx=160.0, cy=120.0, baseline=0.3,
+                   img_width=320, img_height=240, detection_cell_size=80,
+                   max_keypoints_per_cell=60, agast_threshold=15,
+                   near_plane_distance=0.5, far_plane_distance=150.0,
+                   triangulation_policy=2 if sensor == "rgbd" else 1)
+    seqs = [list(w.rgbd_sequence(4, speed=0.5) if sensor == "rgbd"
+                 else w.stereo_sequence(4, speed=0.5)) for w in worlds]
+    a = torch.from_numpy(np.stack([[np.clip(f[0], 0, 255).astype(np.uint8)
+                                    for f in fs] for fs in zip(*seqs)]))
+    b = torch.from_numpy(np.stack([[
+        f[1].astype(np.float32) if sensor == "rgbd"
+        else np.clip(f[1], 0, 255).astype(np.uint8) for f in fs]
+        for fs in zip(*seqs)]))
+    rgbd = sensor == "rgbd"
+    gpu = MultiStreamVO(cfg, 2, device=cuda, rgbd=rgbd)
+    cpu = MultiStreamVO(cfg, 2, device="cpu", rgbd=rgbd)
+    before = top2.hamming_top2.launches
+    pg, _ = gpu.track_chunk(a.to(cuda), b.to(cuda))
+    torch.cuda.synchronize()
+    assert top2.hamming_top2.launches - before == 4 * (2 if rgbd else 3)
+    pc, _ = cpu.track_chunk(a, b)
+    assert (gpu.status == TRACKING).all()
+    torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2"])

@@ -95,6 +95,19 @@ def test_copied_yamls_load_as_lvt_tpus():
     theirs = jx_config.load_config(str(jx_dir / "vo_config.yaml"), **calib)
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert ours.local_ba_window == 4
+    # the TUM RGB-D YAMLs: equal files, loaded as lvt_tpu's TUM entry
+    # point does
+    tum_dir = ROOT / "lvt_tpu" / "configs" / "tum_rgbd"
+    for n in (1, 2, 3):
+        name = f"config_tum{n}.yaml"
+        assert (Path(configs.TUM_RGBD_DIR) / name).read_bytes() == (
+            tum_dir / name).read_bytes()
+        assert dataclasses.asdict(configs.tum_rgbd_config(n)) == \
+            dataclasses.asdict(jx_config.load_config(str(tum_dir / name)))
+    fr1 = configs.tum_rgbd_config(1)
+    assert (fr1.k1, fr1.max_map_points, fr1.kp_capacity,
+            fr1.staged_threshold, fr1.local_ba_window) == (
+                0.262383, 8192, 1024, 0, 0)
     text = "%YAML:1.0\nm: !!opencv-matrix\n  data: [1, 2]\n"
     assert config.parse_opencv_yaml(text) == jx_config.parse_opencv_yaml(text)
 

@@ -297,8 +297,16 @@ def test_cuda_device_without_cuda_fails_loudly(monkeypatch):
 
 
 def test_unported_options_raise():
+    """The sparse descriptor mode is not ported, in VOSystem or
+    MultiStreamVO; the RGB-D sensor is (tests/test_torch_rgbd.py), and no
+    other exists."""
+    from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
     cfg = _config(_world())
     with pytest.raises(NotImplementedError):
         VOSystem(cfg.replace(descriptor_mode="sparse"), device="cpu")
     with pytest.raises(NotImplementedError):
-        VOSystem(cfg, sensor_type=2, device="cpu")
+        MultiStreamVO(cfg.replace(descriptor_mode="sparse"), 2, device="cpu")
+    with pytest.raises(ValueError):
+        VOSystem(cfg, sensor_type=3, device="cpu")
+    assert VOSystem(cfg, sensor_type=2, device="cpu").sensor_type == 2
