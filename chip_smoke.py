@@ -68,17 +68,49 @@ and the script exits non-zero without printing the final line:
    equal, ``kp`` within 1e-3 px). The synthetic world renders an ideal
    pinhole, so tracking a sequence under the YAML's distortion would be
    meaningless: the distortion is checked on extraction only;
-7. a JSON line with each kernel's launches and largest error against its
-   plain version (in all, and by path), times and bound (T per site, per frame of paths 1-2 and batched), then
-   the last line ``{"ok": true, "device": {...}}``.
+7. PnP's two reduction ops (``csrc/pnp.cu``; not TPU kernels: they fix
+   the order of lvt_tpu's XLA reductions): ``lvt_tpu_torch::pnp_normal_eqs``
+   (the normal equations, lvt_tpu/solver/pnp.py:155-156) and
+   ``lvt_tpu_torch::stream_sum`` (the robust chi-square's sum, :148), on
+   the inputs they took in one frame of path 3's 8 streams, at S = 1 and
+   S = 8: within 1e-5 of the sum of each output's term magnitudes of the
+   plain version, every stream of the S = 8 launch bit-equal to its S = 1
+   launch, timed beside the bound and one PyTorch call; path 3's streams
+   0 and 1 must equal the single stream (any gap printed, and under 1e-5
+   m);
+8. path 5, EuRoC rectified stereo (``configs.euroc_config()``: 752x480,
+   896 keypoint slots, 4096 map points, no staged points): raw distorted
+   uint8 frames of the EuRoC rig (``io.datasets.render_euroc_raw``)
+   through ``VOSystem(config, rectify_maps=io.datasets
+   .euroc_rectify_maps())``, remapped inside the step, 48 frames in chunks
+   of 16: every frame TRACKING, ATE under 5%, 0 host syncs per chunk,
+   exactly A 1, P 1, T 2 (map, row) per frame; frame 0's remapped pair and
+   features card vs CPU bit-equal; kernel A's float32 kernel, P and T (map
+   4096 x 896, row) against their plain versions at its shapes; poses of
+   frames 0-3 card vs CPU within 1e-3 m; PnP's two ops as in phase 7 at
+   this path's M = 4096 (the other paths have path 3's 1024), on the
+   inputs of one more frame: its launches 2-9 as S = 8 streams;
+9. path 6, external corners (``configs.kitti_config()``, path 1's frames):
+   corners from the port's own extraction on the card, passed as host
+   [N, 2] arrays to ``VOSystem.track_with_external_corners`` for 32 frames:
+   every frame TRACKING, ATE under 5%, 0 host syncs in the step, exactly A
+   0, P 0, T 3 per frame; frame 0's descriptors card vs CPU bit-equal;
+   poses of frames 0-3 card vs CPU within 1e-3 m;
+10. a JSON line with each kernel's launches and largest error against its
+   plain version (in all, and by path), times and bound (T per site, per
+   frame of paths 1-2 and batched; the PnP op at S = 1 and 8), then the
+   last line ``{"ok": true, "device": {...}}``.
 
+Every path launches each of PnP's two ops 12 times per frame (2 passes of
+the damping's diagonal or the starting chi-square, and 5 iterations).
 Every kernel's launch count is set to 0 just before a path runs and read
 just after it; the comparisons of phase 2 and the cross-checks after each
 path are not counted.
 
 ``--profile DIR`` also writes a torch.profiler table of one tracked chunk
-per path to DIR, and prints the profiler's mean device time per launch of
-each kernel beside the event times of phase 2. Imports nothing of JAX.
+per path (path 6: 16 frames) to DIR, and prints the profiler's mean device
+time per launch of each kernel beside the event times of phase 2. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -100,7 +132,8 @@ import torch  # noqa: E402
 CHUNK = 16
 # chunk 0 warms up, chunk 1 counts host syncs, the rest are timed
 N_CHUNKS = {"path1": 5, "path2": 3}
-N_CPU_FRAMES = {"path1": 4, "path2": 9, "path4": 4}
+N_CPU_FRAMES = {"path1": 4, "path2": 9, "path4": 4, "path5": 4,
+                "path6": 4}
 REPS = 200          # back-to-back launches per kernel timing
 PLAIN_REPS = 5      # ... per plain-version timing
 DEVICE = "cuda"
@@ -115,11 +148,21 @@ KERNELS = {
                         "lvt_tpu/ops/patches_pallas.py:109"),
     "hamming_top2": ("cuda", "lvt_tpu_torch/csrc/top2.cu",
                      "lvt_tpu/ops/top2_pallas.py:35"),
+    # not TPU kernels: lvt_tpu's PnP reductions (XLA) in a fixed order
+    "pnp_normal_eqs": ("cuda", "lvt_tpu_torch/csrc/pnp.cu",
+                       "lvt_tpu/solver/pnp.py:155-156"),
+    "stream_sum": ("cuda", "lvt_tpu_torch/csrc/pnp.cu",
+                   "lvt_tpu/solver/pnp.py:148"),
 }
+# the TPU kernels' counterparts, held against their plain versions at
+# every path's shapes
+SITE_KERNELS = ("perception", "brief", "describe_refine", "hamming_top2")
 # the kernels' CUDA function names, as the profiler lists them
 SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
            "describe_refine": "describe_refine_kernel",
-           "hamming_top2": "hamming_top2_kernel"}
+           "hamming_top2": "hamming_top2_kernel",
+           "pnp_normal_eqs": "pnp_normal_eqs_kernel",
+           "stream_sum": "stream_sum_kernel"}
 # path 3: bench.py --multistream's shape, S streams in chunks of MS_CHUNK
 # frames (warm-up, sync count, then timed chunks); stream i starts at
 # frame MS_START_STEP * i of the path-1 sequence, so the streams differ
@@ -133,6 +176,18 @@ MS_CPU = (2, 4)         # streams x frames rerun on the CPU
 RGBD_CHUNKS = 3
 RGBD_SPEED = 0.5
 RGBD_MS = (4, 16)
+# path 5: EuRoC rectified, raw frames of a point cloud (N_PTS points in
+# +-X x +-Y x [2, Z] m) seen from a rig moving EUROC_SPEED m per frame
+# along its optical axis
+EUROC_CHUNKS = 3
+EUROC_SPEED = 0.2
+EUROC_CLOUD = dict(n=4000, x=15.0, y=8.0, z=40.0)
+# path 6: external corners, frames of path 1; the first EXT_WARM untimed
+EXT_FRAMES = 32
+EXT_WARM = 8
+# PnP's normal equations and chi-square sums per frame: 2 passes x (the
+# damping's diagonal or the starting chi-square + 5 LM iterations)
+PNP = 12
 # launches each path makes per frame, exactly (path 3's for all S streams
 # at once: one batch, not S)
 NEED_PER_FRAME = {
@@ -140,12 +195,19 @@ NEED_PER_FRAME = {
     "path2": {"perception": 1, "brief": 1, "hamming_top2": 4},
     "path3": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
     "path4": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
+    # staged_threshold 0: no staged re-match
+    "path5": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
+    # descriptors from the box sums at the corners: no A, no P
+    "path6": {"hamming_top2": 3},
 }
+for _need in NEED_PER_FRAME.values():
+    _need.update(pnp_normal_eqs=PNP, stream_sum=PNP)
 # kernel T's sites in one frame of each path
 T_SITES = {"path1": ("map", "staged", "row"),
            "path2": ("map", "staged", "row", "ba_row"),
            "path3": ("map", "staged", "row"),
-           "path4": ("map", "staged")}
+           "path4": ("map", "staged"),
+           "path5": ("map", "row")}
 
 # ---- the card model behind every bound
 # device memory: H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
@@ -153,8 +215,9 @@ HBM_BYTES_PER_S = 3.35e12
 # issue rates per SM per clock, compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput): 32-bit integer
 # add/subtract/min/max/logic/compare and float compare on the ALU pipe 64;
-# float32 add/multiply 128; population count 16
-RATE_PER_SM_CLOCK = {"alu": 64, "fp32": 128, "popc": 16}
+# float32 add/multiply 128; float64 add/multiply/fused multiply-add 64;
+# population count 16
+RATE_PER_SM_CLOCK = {"alu": 64, "fp32": 128, "fp64": 64, "popc": 16}
 # kernel A on uint8 frames, per PAIR of pixels: Hopper's DPX instructions
 # take the min or max of 3 values in each of two 16-bit lanes, one
 # instruction for two pixels (csrc/perception.cu). FAST: per arc type 16
@@ -624,11 +687,36 @@ def phase_kernels(card, inp) -> dict:
 
 def _counters():
     from lvt_tpu_torch.ops import patches, perception, top2
+    from lvt_tpu_torch.solver import pnp
 
     return {"perception": perception.perception_patch_maps_batched,
             "brief": perception.brief_planes,
             "describe_refine": patches.describe_refine_batched,
-            "hamming_top2": top2.hamming_top2}
+            "hamming_top2": top2.hamming_top2,
+            "pnp_normal_eqs": pnp.normal_equations,
+            "stream_sum": pnp.stream_sum}
+
+
+def _zero_counters() -> dict:
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _count_syncs(fn):
+    """``fn()``'s result and the host syncs it made, counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
 
 
 def _run_chunks(vo, a, b, chunk, n_chunks):
@@ -638,9 +726,7 @@ def _run_chunks(vo, a, b, chunk, n_chunks):
     ``torch.cuda.set_sync_debug_mode("warn")``, the rest are timed. Returns
     the poses and metrics (concatenated over frames), the launches, the
     syncs and the timed seconds."""
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = _zero_counters()
     poses, metrics = [], []
     syncs = None
     t_timed = 0.0
@@ -648,16 +734,7 @@ def _run_chunks(vo, a, b, chunk, n_chunks):
         x, y = a[c * chunk:(c + 1) * chunk], b[c * chunk:(c + 1) * chunk]
         torch.cuda.synchronize()
         if c == 1:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    p, m = vo.track_chunk(x, y)
-                    torch.cuda.synchronize()
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            syncs = sum("called a synchronizing CUDA operation" in str(w.message)
-                        for w in caught)
+            (p, m), syncs = _count_syncs(lambda: vo.track_chunk(x, y))
         else:
             t0 = time.perf_counter()
             p, m = vo.track_chunk(x, y)
@@ -781,12 +858,9 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
 
     prof = None
     if profile_dir:
-        prof = _profile(vo, il[-CHUNK:], ir[-CHUNK:],
-                        os.path.join(profile_dir, path))
-        busy = prof["busy_ms_per_frame"]
-        _say(path, f"device busy {busy:.3f} ms per frame: "
-                   f"{100 * busy * fps / 1e3:.1f}% of the unprofiled frame "
-                   f"time ({1e3 / fps:.2f} ms)")
+        prof = _profile(lambda: vo.track_chunk(il[-CHUNK:], ir[-CHUNK:]),
+                        CHUNK, os.path.join(profile_dir, path))
+        _say_busy(path, prof, fps)
     from lvt_tpu_torch.tree import tree_map
 
     first = tree_map(lambda x: x[:N_CPU_FRAMES[path]], run["poses"])
@@ -861,33 +935,162 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
         lambda dev: extract_features_batched(imgs.to(dev), config),
         {k: sites[k] for k in T_SITES["path3"]})
 
-    gaps = []
+    gaps, equal = [], []
     for i in (0, 1):
         vo = VOSystem(config, device=DEVICE)
         p, _ = vo.track_chunk(il[starts[i]:starts[i] + n],
                               ir[starts[i]:starts[i] + n])
         gaps.append((p.t - run["poses"].t[:, i]).abs().amax(-1).cummax(0)
                     .values[MS_CHUNK - 1::MS_CHUNK].tolist())
+        equal.append(torch.equal(p.t, run["poses"].t[:, i])
+                     and torch.equal(p.q, run["poses"].q[:, i]))
     _say("path3", f"streams 0 and 1 against the card's single-stream "
-                  f"VOSystem, largest gap (m) over frames 0-7, 0-15, ... "
+                  f"VOSystem over {n} frames: poses "
+                  f"{'EQUAL' if all(equal) else 'differ'} ({equal}); "
+                  f"largest gap (m) over frames 0-7, 0-15, ... "
                   f"0-{n - 1}: {gaps[0]} and {gaps[1]}")
     gaps = [g[-1] for g in gaps]
     if not max(gaps) < 1e-3:
         raise AssertionError(f"path3: multi-stream vs single-stream gaps "
                              f"{gaps} m, not under 1e-3 m")
+    if not max(gaps) < 1e-5:
+        raise AssertionError(f"path3: multi-stream vs single-stream gaps "
+                             f"{gaps} m, not under 1e-5 m")
     prof = None
     if profile_dir:
-        prof = _profile(msvo, a[-MS_CHUNK:], b[-MS_CHUNK:],
-                        os.path.join(profile_dir, "path3"))
-        busy = prof["busy_ms_per_frame"]
-        _say("path3", f"device busy {busy:.3f} ms per multi-stream frame: "
-                      f"{100 * busy * per_stream / 1e3:.1f}% of the "
-                      f"unprofiled frame time ({1e3 / per_stream:.2f} ms)")
+        prof = _profile(
+            lambda: msvo.track_chunk(a[-MS_CHUNK:], b[-MS_CHUNK:]),
+            MS_CHUNK, os.path.join(profile_dir, "path3"))
+        _say_busy("path3", prof, per_stream, "multi-stream frame")
+    pnp_inputs = capture_pnp_inputs("path3", msvo, a[-1], b[-1])
     return dict(launches=launches, fps=s * per_stream,
                 fps_per_stream=per_stream, syncs=run["syncs"], profile=prof,
-                kernel_errs=kernel_errs, gaps=gaps,
+                kernel_errs=kernel_errs, gaps=gaps, equal=all(equal),
+                pnp_inputs=pnp_inputs,
                 first_poses=run["poses"].t[:MS_CPU[1], :MS_CPU[0]],
                 inputs=(a[:MS_CPU[1], :MS_CPU[0]], b[:MS_CPU[1], :MS_CPU[0]]))
+
+
+def capture_pnp_inputs(path, system, a, b) -> dict:
+    """The inputs that PnP's two ops launched with in one more frame
+    (``a``, ``b``) of ``system``: ``pnp_normal_eqs``'s (jac [S, M, 2, 6], w
+    [S, M], r [S, M, 2]) and ``stream_sum``'s (the robust chi-square's terms
+    [S, M]). A MultiStreamVO's vmapped calls reach each op's batching rule,
+    which launches the op once on the streams' real tensors: the first LM
+    iteration's launch is kept. A VOSystem launches at S = 1: launches 2-9
+    of its 12 are stacked as MS_STREAMS streams, so that the op is also
+    checked at S = 8 at this path's M."""
+    from lvt_tpu_torch.solver import pnp
+
+    seen = {"pnp_normal_eqs_op": [], "stream_sum_op": []}
+    real = {name: getattr(pnp, name) for name in seen}
+
+    def recorder(name):
+        def record(*args):
+            if not torch._C._functorch.is_batchedtensor(args[0]):
+                seen[name].append(tuple(x.clone() for x in args))
+            return real[name](*args)
+        return record
+
+    for name in seen:
+        setattr(pnp, name, recorder(name))
+    try:
+        system.track(a, b)
+    finally:
+        for name, fn in real.items():
+            setattr(pnp, name, fn)
+    for name, calls in seen.items():
+        if len(calls) != PNP:
+            raise AssertionError(f"{path}: {len(calls)} launches of {name} "
+                                 f"in one frame, not {PNP}")
+
+    def pick(calls):
+        if calls[0][0].shape[0] > 1:
+            return calls[1]
+        return tuple(torch.cat(x) for x in zip(*calls[1:1 + MS_STREAMS]))
+
+    return {"pnp_normal_eqs": pick(seen["pnp_normal_eqs_op"]),
+            "stream_sum": pick(seen["stream_sum_op"])}
+
+
+def measure_pnp(card, path, inputs) -> dict:
+    """PnP's two ops on a path's inputs (``capture_pnp_inputs``) at S = 1
+    (stream 0) and S = 8:
+    against their plain versions on the card stream by stream (each output
+    within 1e-5 of the sum of its terms' magnitudes: the ops sum in their
+    own order by design), each stream of the S = 8 launch
+    bit-equal to its own S = 1 launch, then timed beside the bound and one
+    PyTorch call. ``pnp_normal_eqs``: 60 bytes in per point, 48 floats out
+    per stream; per point 12 float32 products and 84 float64 fused
+    multiply-adds; the call is one torch.einsum making [H | g] from jw and
+    [jac | r] formed beforehand. ``stream_sum``: 4 bytes in per point, 4
+    out per stream, one float32 add per point; the call is ``x.sum(-1)``."""
+    from lvt_tpu_torch.solver import pnp
+
+    def per_stream(fn):
+        def run(*args):
+            outs = [fn(*x) for x in zip(*args)]
+            if isinstance(outs[0], tuple):
+                return tuple(torch.stack(o) for o in zip(*outs))
+            return torch.stack(outs)
+        return run
+
+    kinds = {
+        "pnp_normal_eqs": dict(
+            op=pnp.pnp_normal_eqs_op,
+            plain=per_stream(pnp.normal_equations_plain),
+            scale=lambda jac, w, r: (jac.abs(), w, r.abs()),
+            work=lambda s, m: (s * m * 15 * 4 + s * 48 * 4,
+                               {"fp32": s * m * 12, "fp64": s * m * 84}),
+            library=lambda jac, w, r: (lambda jw=jac * w[..., None, None],
+                                       x=torch.cat([jac, r[..., None]], -1):
+                                       torch.einsum("smki,smkj->sij", jw, x)),
+            call="torch.einsum"),
+        "stream_sum": dict(
+            op=pnp.stream_sum_op, plain=per_stream(torch.sum),
+            scale=lambda x: (x.abs(),),
+            work=lambda s, m: (s * m * 4 + s * 4, {"fp32": s * m}),
+            library=lambda x: (lambda: x.sum(-1)), call="x.sum(-1)"),
+    }
+    report = {}
+    for name, k in kinds.items():
+        rep = {}
+        n_streams = inputs[name][0].shape[0]
+        for s in (1, n_streams):
+            args = tuple(x[:s].contiguous() for x in inputs[name])
+            m = args[0].shape[1]
+            got, want = _flat(k["op"](*args)), _flat(k["plain"](*args))
+            scale = _flat(k["plain"](*k["scale"](*args)))
+            torch.cuda.synchronize()
+            rel = max(float(((g - x).abs() / (sc + 1e-30)).max())
+                      for g, x, sc in zip(got, want, scale))
+            err = _max_abs_err(got, want)
+            if not rel <= 1e-5:
+                raise AssertionError(f"{name} S={s}: relative error {rel} "
+                                     f"> 1e-5")
+            for i in range(s):
+                one = _flat(k["op"](*(x[i:i + 1] for x in args)))
+                if not all(torch.equal(a[0], b[i]) for a, b in zip(one, got)):
+                    raise AssertionError(f"{name}: stream {i} of S={s} "
+                                         f"differs from its S=1 launch")
+            b_ms, b_by = bound(card, *k["work"](s, m))
+            rep[s] = dict(
+                s=s, m=m, max_abs_err=err, max_rel_err=rel,
+                ms=device_ms(lambda a=args: k["op"](*a), REPS),
+                plain_ms=device_ms(lambda a=args: k["plain"](*a), PLAIN_REPS),
+                library_ms=device_ms(k["library"](*args), REPS),
+                bound_ms=b_ms, bound_by=b_by)
+            q = rep[s]
+            _say("pnp", f"{name} S={s} x M={m} ({path}'s inputs): within {rel:.3g} of each sum of term "
+                        f"magnitudes (max abs err {err:.3g}) of plain, every "
+                        f"stream bit-equal to its S=1 launch; kernel "
+                        f"{q['ms']:.4f} ms (bound {b_ms:.3g} ms, {b_by}), "
+                        f"{k['call']} {q['library_ms']:.4f} ms, plain "
+                        f"{q['plain_ms']:.4f} ms")
+        report[name] = dict(rep[1], batched=rep[n_streams],
+                            max_abs_err=max(r["max_abs_err"]
+                                            for r in rep.values()))
+    return report
 
 
 def phase_multistream_cpu(config, first_poses, inputs):
@@ -985,8 +1188,9 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
                        for k, v in errs.items()}
     prof = None
     if profile_dir:
-        prof = _profile(vo, gd[-CHUNK:], dd[-CHUNK:],
-                        os.path.join(profile_dir, "path4"))
+        prof = _profile(lambda: vo.track_chunk(gd[-CHUNK:], dd[-CHUNK:]),
+                        CHUNK, os.path.join(profile_dir, "path4"))
+        _say_busy("path4", prof, fps)
 
     k = N_CPU_FRAMES["path4"]
     cpu = VOSystem(config, SensorType.RGBD, device="cpu")
@@ -1032,7 +1236,208 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
                 kernel_errs=kernel_errs)
 
 
-STAGES = ("perception", "corner_select", "patch_describe",
+def euroc_setup():
+    """Path 5's config, maps and frames: raw uint8 frames of the EuRoC rig
+    seeing EUROC_CLOUD from positions 0, EUROC_SPEED, ... m along the
+    rectified optical axis, and those positions (the ground truth)."""
+    from lvt_tpu_torch.configs import euroc_config
+    from lvt_tpu_torch.io.datasets import euroc_rectify_maps, render_euroc_raw
+
+    c = EUROC_CLOUD
+    rs = np.random.RandomState(5)
+    points = np.stack([rs.uniform(-c["x"], c["x"], c["n"]),
+                       rs.uniform(-c["y"], c["y"], c["n"]),
+                       rs.uniform(2.0, c["z"], c["n"])], -1)
+    shade = rs.uniform(60.0, 215.0, c["n"])
+    n = CHUNK * EUROC_CHUNKS
+    gt = np.array([[0.0, 0.0, EUROC_SPEED * i] for i in range(n)])
+    raw = [torch.from_numpy(np.stack([render_euroc_raw(points, shade, t, rt)
+                                      for t in gt]))
+           for rt in (False, True)]
+    return euroc_config(), euroc_rectify_maps(), raw[0], raw[1], gt
+
+
+def _every_frame_tracking(path, status) -> None:
+    from lvt_tpu_torch.core.state import TRACKING
+
+    bad = [i for i, x in enumerate(status.tolist()) if x != TRACKING]
+    if bad:
+        raise AssertionError(f"{path}: frames {bad} not TRACKING")
+
+
+def _check_ate(path, est, gt) -> str:
+    from lvt_tpu_torch.io.synthetic import ate_rmse
+
+    err = ate_rmse(est, gt)
+    dist = float(np.linalg.norm(gt[-1] - gt[0]))
+    if not err < 0.05 * dist:
+        raise AssertionError(f"{path}: ATE {err:.4f} m is not under 5% of "
+                             f"{dist:.2f} m")
+    return f"ATE RMSE {err:.4f} m over {dist:.2f} m ({100 * err / dist:.3f}%)"
+
+
+def phase_rectified(config, maps, il, ir, gt, profile_dir=None):
+    """Path 5: raw EuRoC frames through VOSystem(rectify_maps=...) on the
+    card; the kernels at its shapes (A's float32 kernel on the remapped
+    pair); the card against the CPU."""
+    from lvt_tpu_torch.core import step
+    from lvt_tpu_torch.core.extract import extract_features_batched
+    from lvt_tpu_torch.core.system import VOSystem
+
+    n = il.shape[0]
+    ild, ird = il.to(DEVICE), ir.to(DEVICE)
+    vo = VOSystem(config, device=DEVICE, rectify_maps=maps)
+    run = _run_chunks(vo, ild, ird, CHUNK, EUROC_CHUNKS)
+    timed = n - 2 * CHUNK
+    fps = timed / run["t_timed"]
+    launches = run["launches"]
+    _say("path5", f"EuRoC rectified, {n} raw frames {il.shape[1]}x"
+                  f"{il.shape[2]} uint8 in chunks of {CHUNK}, remapped in "
+                  f"the step ({config.kp_capacity} slots, "
+                  f"{config.max_map_points} map points): status "
+                  f"{vo.get_state().name}, map {vo.map_size} points")
+    _say("path5", f"host syncs in one tracked chunk "
+                  f"(set_sync_debug_mode warn): {run['syncs']}")
+    _say("path5", f"{fps:.2f} frames/s over {timed} timed frames")
+    _say("path5", _check_ate("path5", run["poses"].t.cpu().numpy(), gt))
+    _say("path5", f"launches during the run: {launches}")
+    _every_frame_tracking("path5", run["metrics"].status)
+    if run["syncs"] != 0:
+        raise AssertionError(f"path5: {run['syncs']} host syncs in one chunk")
+    _check_launches("path5", launches, n)
+
+    # frames 0 and 1 remapped on the card (frame 0 also on the CPU), then
+    # the kernels at the shapes of frame 0
+    mc = [torch.from_numpy(m) for m in maps]
+    md = [m.to(DEVICE) for m in mc]
+    rect, rect1 = (torch.stack(step._rectify_pair(ild[i], ird[i], *md))
+                   for i in (0, 1))
+    rect_cpu = torch.stack(step._rectify_pair(il[0], ir[0], *mc))
+    if rect.dtype != torch.float32 or not torch.equal(rect.cpu(), rect_cpu):
+        raise AssertionError("path5: frame 0's remap differs card vs CPU")
+    f0 = extract_features_batched(rect, config)
+    f1 = extract_features_batched(rect1[:1], config)
+    sites = t_site_inputs(config, _streams(f0, [0]), f1, _streams(f0, [1]))
+    kernel_errs = check_path_kernels(
+        "path5", config, rect,
+        lambda dev: extract_features_batched(rect_cpu.to(dev), config),
+        {k: sites[k] for k in T_SITES["path5"]})
+    _say("path5", "frame 0's remapped pair card vs CPU bit-equal (float32)")
+    prof = None
+    if profile_dir:
+        prof = _profile(lambda: vo.track_chunk(ild[-CHUNK:], ird[-CHUNK:]),
+                        CHUNK, os.path.join(profile_dir, "path5"))
+        _say_busy("path5", prof, fps)
+    k = N_CPU_FRAMES["path5"]
+    cpu = VOSystem(config, device="cpu", rectify_maps=maps)
+    p, _ = cpu.track_chunk(il[:k], ir[:k])
+    dt = float((p.t - run["poses"].t[:k].cpu()).abs().max())
+    _say("path5", f"card vs CPU: poses of frames 0-{k - 1} differ by at "
+                  f"most {dt:.3g} m")
+    if not dt < 1e-3:
+        raise AssertionError(f"path5: CPU vs card pose difference {dt} m")
+    return dict(launches=launches, fps=fps, syncs=run["syncs"], profile=prof,
+                kernel_errs=kernel_errs,
+                pnp_inputs=capture_pnp_inputs("path5", vo, ild[-1], ird[-1]))
+
+
+def _external_corners(config, il, ir) -> list:
+    """Each frame's corners as a caller would pass them: the valid
+    keypoints of the port's own extraction on the card, host [N, 2] for
+    the left and the right image."""
+    from lvt_tpu_torch.core.extract import extract_features_batched
+
+    out = []
+    for i in range(il.shape[0]):
+        f = extract_features_batched(torch.stack([il[i], ir[i]]), config)
+        out.append(tuple(f.kp[j][f.valid[j]].cpu().numpy() for j in (0, 1)))
+    return out
+
+
+def _padded_corners(corners, cap: int):
+    """A frame's (left, right) [N, 2] corners padded to ``cap`` slots on
+    the card: corners [2, cap, 2] f32 and validity [2, cap]."""
+    packed = np.zeros((2, cap, 2), np.float32)
+    valid = np.zeros((2, cap), bool)
+    for side, c in enumerate(corners):
+        packed[side, :len(c)] = c[:cap]
+        valid[side, :len(c)] = True
+    return torch.from_numpy(packed).to(DEVICE), torch.from_numpy(valid).to(
+        DEVICE)
+
+
+def phase_external(config, il, ir, gt, profile_dir=None):
+    """Path 6: VOSystem.track_with_external_corners frame by frame on the
+    card; descriptors and poses card vs CPU."""
+    from lvt_tpu_torch.core import step
+    from lvt_tpu_torch.core.extract import describe_external_corners_batched
+    from lvt_tpu_torch.core.system import VOSystem
+
+    n = il.shape[0]
+    corners = _external_corners(config, il, ir)
+    vo = VOSystem(config, device=DEVICE)
+    counters = _zero_counters()
+    poses, status = [], []
+    t0 = None
+    for i, (cl, cr) in enumerate(corners):
+        if i == EXT_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        poses.append(vo.track_with_external_corners(il[i], ir[i], cl, cr))
+        status.append(vo.last_metrics.status)
+    torch.cuda.synchronize()
+    fps = (n - EXT_WARM) / (time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    est = torch.stack([p.t for p in poses]).cpu().numpy()
+
+    # host syncs inside the step, on one more frame, its corners uploaded
+    cap = config.kp_capacity
+    cd, vd = _padded_corners(corners[-1], cap)
+    _, syncs = _count_syncs(lambda: step.track_step_external_corners(
+        vo.state, il[-1], ir[-1], cd[0], vd[0], cd[1], vd[1], config))
+    _say("path6", f"external corners, {n} frames {il.shape[1]}x"
+                  f"{il.shape[2]} uint8 (corners per left image "
+                  f"{min(len(c[0]) for c in corners)}-"
+                  f"{max(len(c[0]) for c in corners)}): status "
+                  f"{vo.get_state().name}, map {vo.map_size} points")
+    _say("path6", f"host syncs in one step (set_sync_debug_mode warn): "
+                  f"{syncs}")
+    _say("path6", f"{fps:.2f} frames/s over {n - EXT_WARM} timed frames "
+                  f"(one track_with_external_corners call each)")
+    _say("path6", _check_ate("path6", est, gt[:n]))
+    _say("path6", f"launches during the run: {launches}")
+    _every_frame_tracking("path6", torch.stack(status))
+    if syncs != 0:
+        raise AssertionError(f"path6: {syncs} host syncs in the step")
+    _check_launches("path6", launches, n)
+
+    args = (torch.stack([il[0], ir[0]]), *_padded_corners(corners[0], cap))
+    got = describe_external_corners_batched(*args, config)
+    want = describe_external_corners_batched(*(a.cpu() for a in args),
+                                             config)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("path6: frame 0's descriptors differ card vs "
+                             "CPU")
+    prof = None
+    if profile_dir:
+        prof = _profile(lambda: [vo.track_with_external_corners(
+            il[i], ir[i], *corners[i]) for i in range(CHUNK)], CHUNK,
+            os.path.join(profile_dir, "path6"))
+        _say_busy("path6", prof, fps)
+    k = N_CPU_FRAMES["path6"]
+    cpu = VOSystem(config, device="cpu")
+    dt = max(float((cpu.track_with_external_corners(
+        il[i].cpu(), ir[i].cpu(), *corners[i]).t - poses[i].t.cpu()).abs()
+        .max()) for i in range(k))
+    _say("path6", f"card vs CPU: frame 0's descriptors bit-equal "
+                  f"({int(want.valid.sum())} valid of 2 x {cap}); poses of "
+                  f"frames 0-{k - 1} differ by at most {dt:.3g} m")
+    if not dt < 1e-3:
+        raise AssertionError(f"path6: CPU vs card pose difference {dt} m")
+    return dict(launches=launches, fps=fps, syncs=syncs, profile=prof)
+
+
+STAGES = ("rectify", "perception", "corner_select", "patch_describe",
           "corner_select_describe", "motion_predict", "map_matching",
           "pnp_solve", "map_bookkeeping", "staged_update", "triangulation",
           "local_ba")
@@ -1047,8 +1452,18 @@ def _on_device(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def _profile(vo, a, b, out_dir) -> dict:
-    """torch.profiler over one chunk: the op table; per stage (the profiler
+def _say_busy(path, prof, fps, frame="frame") -> None:
+    """The profiled device busy time per frame and its share of the
+    unprofiled frame time (1 / ``fps``)."""
+    busy = prof["busy_ms_per_frame"]
+    _say(path, f"device busy {busy:.3f} ms per {frame}: "
+               f"{100 * busy * fps / 1e3:.1f}% of the unprofiled frame time "
+               f"({1e3 / fps:.2f} ms)")
+
+
+def _profile(run, n, out_dir) -> dict:
+    """torch.profiler over ``run()``, one chunk of ``n`` frames: the op
+    table; per stage (the profiler
     ranges of core/step.py and extract.py) the host time and the device
     time of the torch ops' kernels inside it (the hand-written kernels,
     launched through ctypes, are listed on their own); each hand-written
@@ -1059,10 +1474,9 @@ def _profile(vo, a, b, out_dir) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        vo.track_chunk(a, b)
+        run()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    n = a.shape[0]
     lines = [f"{'stage':<22} {'host ms/frame':>14} {'device ms/frame':>16}"]
     for e in events:
         # a range is listed twice: on the host, and as its span on the
@@ -1153,17 +1567,32 @@ def main(argv=None) -> int:
     phase_multistream_cpu(configs["path1"], runs["path3"]["first_poses"],
                           runs["path3"]["inputs"])
     runs["path4"] = phase_rgbd(config4, gray, depth, rot4, pos4, args.profile)
+    for name, rep in measure_pnp(card, "path3",
+                                 runs["path3"].pop("pnp_inputs")).items():
+        report[name] = rep
+        runs["path3"]["kernel_errs"][name] = rep["max_abs_err"]
+    runs["path5"] = phase_rectified(*euroc_setup(), args.profile)
+    # path 5's M (4096 map points) is the one other than path 3's 1024
+    for name, rep in measure_pnp(card, "path5",
+                                 runs["path5"].pop("pnp_inputs")).items():
+        report[name]["path5"] = rep
+        runs["path5"]["kernel_errs"][name] = rep["max_abs_err"]
+    runs["path6"] = phase_external(configs["path1"], il[:EXT_FRAMES],
+                                   ir[:EXT_FRAMES], gt, args.profile)
 
     entries = []
     for k, (route, source, replaces) in KERNELS.items():
         entry = dict(name=k, route=route, source=source, replaces=replaces,
+                     tpu_kernel=k in SITE_KERNELS,
                      launches=sum(r["launches"][k] for r in runs.values()),
                      launches_by_path={p: r["launches"][k]
                                        for p, r in runs.items()},
                      reps=REPS, plain_reps=PLAIN_REPS, **report[k])
-        # phase 2 checked paths 1 and 2's shapes, paths 3 and 4 their own
+        # phase 2 checked A, B, P and T at paths 1 and 2's shapes, the
+        # other paths their own (the PnP ops: paths 3 and 5, M = 1024 and
+        # 4096; paths 1, 2, 4 and 6 have path 3's M)
         by_path = {p: report[k]["max_abs_err"] for p in ("path1", "path2")
-                   if NEED_PER_FRAME[p].get(k)}
+                   if NEED_PER_FRAME[p].get(k) and k in SITE_KERNELS}
         by_path.update({p: r["kernel_errs"][k] for p, r in runs.items()
                         if k in r.get("kernel_errs", {})})
         entry.update(max_abs_err=max(by_path.values()),
@@ -1173,6 +1602,10 @@ def main(argv=None) -> int:
                 p: r["profile"].get(k, {}).get("device_ms")
                 for p, r in runs.items()}
         entries.append(entry)
+    _say("summary", f"path 3's streams 0 and 1 "
+                    f"{'equal' if runs['path3']['equal'] else 'NOT equal'} "
+                    f"to the single stream (largest gap "
+                    f"{max(runs['path3']['gaps'])} m)")
     _say("summary", "frames/s: " + ", ".join(
         f"{p} {r['fps']:.2f}" for p, r in runs.items())
         + f" (path 3 aggregate of {MS_STREAMS} streams; "

@@ -11,10 +11,17 @@
 * :func:`tum_rgbd_config` — the RGB-D sensor: ``tum_rgbd/config_tum{1,2,3}
   .yaml``, the TUM RGB-D freiburg 1-3 cameras at 640x480 with their
   distortion (fr1: k1 = 0.262, 8192 map points, one 2000-px cell of 1000
-  corners, so 1024 keypoint slots, ``staged_threshold`` 0, BA off).
+  corners, so 1024 keypoint slots, ``staged_threshold`` 0, BA off);
+* :func:`euroc_config` — EuRoC MAV rectified stereo: ``euroc/vo_config
+  .yaml`` at the rig's rectified intrinsics and baseline, 752x480, 250-px
+  cells of 100 corners (896 keypoint slots), 4096 map points,
+  ``staged_threshold`` 0, BA off. Its frames come raw and are rectified
+  inside the step (``VOSystem(config, rectify_maps=io.datasets
+  .euroc_rectify_maps())``).
 
-The YAML files are copies of lvt_tpu/configs/kitti/ and
-lvt_tpu/configs/tum_rgbd/.
+The YAML files, and EuRoC's 11 sequence timestamp lists, are copies of
+lvt_tpu/configs/kitti/, lvt_tpu/configs/tum_rgbd/ and
+lvt_tpu/configs/euroc/.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from lvt_tpu_torch.config import VOConfig, load_config, load_kitti_calib
 KITTI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kitti")
 TUM_RGBD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tum_rgbd")
+EUROC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "euroc")
 
 
 def kitti_config() -> VOConfig:
@@ -56,3 +64,16 @@ def tum_rgbd_config(freiburg: int = 1) -> VOConfig:
     entry point loads it."""
     return load_config(os.path.join(TUM_RGBD_DIR,
                                     f"config_tum{int(freiburg)}.yaml"))
+
+
+def euroc_config() -> VOConfig:
+    """The EuRoC YAML with the rectified camera of the EuRoC rig, as
+    lvt_tpu's ``EurocSequence.configure`` sets it."""
+    from lvt_tpu_torch.io.datasets import EUROC_BASELINE, EUROC_P, EUROC_SIZE
+
+    w, h = EUROC_SIZE
+    return load_config(
+        os.path.join(EUROC_DIR, "vo_config.yaml"),
+        fx=float(EUROC_P[0, 0]), fy=float(EUROC_P[1, 1]),
+        cx=float(EUROC_P[0, 2]), cy=float(EUROC_P[1, 2]),
+        baseline=EUROC_BASELINE, img_width=w, img_height=h)

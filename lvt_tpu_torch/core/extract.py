@@ -10,9 +10,10 @@ keypoints:
 Port of lvt_tpu/core/extract.py (``_descriptor_mode``,
 ``perception_batched``, ``_select_and_describe``, ``_extract_patch_mode``,
 ``extract_features_batched``, ``extract_features``,
-``extract_features_stereo`` and ``extract_features_rgbd``). Left and right
-are one batch of 2; the S streams of the multi-stream step one batch of 2S
-(or S gray images for RGB-D).
+``extract_features_stereo``, ``extract_features_rgbd`` and
+``describe_external_corners``). Left and right are one batch of 2; the S
+streams of the multi-stream step one batch of 2S (or S gray images for
+RGB-D).
 """
 
 from __future__ import annotations
@@ -170,3 +171,30 @@ def extract_features_rgbd(img_gray: torch.Tensor, img_depth: torch.Tensor,
     """RGB-D frame: detect + describe the gray image, then keep only the
     keypoints with a depth in [near, far] (:func:`apply_depth`)."""
     return apply_depth(extract_features(img_gray, config), img_depth, config)
+
+
+def describe_external_corners_batched(imgs: torch.Tensor,
+                                      corners: torch.Tensor,
+                                      corners_valid: torch.Tensor,
+                                      config: VOConfig) -> FrameFeatures:
+    """Descriptors only, at caller-supplied corners: imgs [B, H, W], corners
+    [B, N, 2] f32 (x, y), corners_valid [B, N] -> FrameFeatures [B,
+    kp_capacity] with the corners as keypoints, BRIEF from the box sums
+    (``brief.compute_descriptors``), zero score and depth. No kernel runs:
+    lvt_tpu computes this with XLA ops."""
+    desc, valid = brief.compute_descriptors(imgs, corners, corners_valid)
+    cap = config.kp_capacity
+    zeros = torch.zeros((imgs.shape[0], cap), dtype=torch.float32,
+                        device=imgs.device)
+    return FrameFeatures(
+        kp=_pad_to(corners.float(), cap, axis=1), desc=_pad_to(desc, cap, 1),
+        score=zeros, depth=zeros.clone(), valid=_pad_to(valid, cap, 1))
+
+
+def describe_external_corners(img: torch.Tensor, corners: torch.Tensor,
+                              corners_valid: torch.Tensor,
+                              config: VOConfig) -> FrameFeatures:
+    """One image's :func:`describe_external_corners_batched`."""
+    feats = describe_external_corners_batched(img[None], corners[None],
+                                              corners_valid[None], config)
+    return FrameFeatures(*(a[0] for a in feats))

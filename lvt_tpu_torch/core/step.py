@@ -1,7 +1,8 @@
 """The per-frame tracking step: extraction + one predicated tracking body.
 
-Port of lvt_tpu/core/step.py (stereo and RGB-D, single device, windowed
-local BA optional). The reference's state machine is ONE computation: the
+Port of lvt_tpu/core/step.py (stereo, rectified stereo from raw frames,
+stereo at external corners and RGB-D; single device, windowed local BA
+optional). The reference's state machine is ONE computation: the
 init frame is a tracking frame over an empty map at a forced-identity pose
 with triangulation forced on, and the lost frame is an output select. Every
 retry and policy branch is computed and then selected with
@@ -378,15 +379,22 @@ def _stack_frames(state, poses, metrics):
     return state, tree_map(stack, *poses), tree_map(stack, *metrics)
 
 
-def track_chunk_stereo(state: VOState, imgs_left: torch.Tensor,
-                       imgs_right: torch.Tensor, config: VOConfig):
-    """N frames in order; returns (state, poses [N], metrics [N])."""
+def _scan(step, state: VOState, xs, ys, *args):
+    """``step(state, x, y, *args)`` over the frames of xs and ys in order
+    (lvt_tpu's ``lax.scan`` over a chunk); returns (state, poses [N],
+    metrics [N])."""
     poses, metrics = [], []
-    for il, ir in zip(imgs_left, imgs_right):
-        state, pose, m = track_step_stereo(state, il, ir, config)
+    for x, y in zip(xs, ys):
+        state, pose, m = step(state, x, y, *args)
         poses.append(pose)
         metrics.append(m)
     return _stack_frames(state, poses, metrics)
+
+
+def track_chunk_stereo(state: VOState, imgs_left: torch.Tensor,
+                       imgs_right: torch.Tensor, config: VOConfig):
+    """N frames in order; returns (state, poses [N], metrics [N])."""
+    return _scan(track_step_stereo, state, imgs_left, imgs_right, config)
 
 
 def track_step_rgbd(state: VOState, img_gray: torch.Tensor,
@@ -401,9 +409,55 @@ def track_step_rgbd(state: VOState, img_gray: torch.Tensor,
 def track_chunk_rgbd(state: VOState, imgs_gray: torch.Tensor,
                      imgs_depth: torch.Tensor, config: VOConfig):
     """N RGB-D frames in order; returns (state, poses [N], metrics [N])."""
-    poses, metrics = [], []
-    for g, d in zip(imgs_gray, imgs_depth):
-        state, pose, m = track_step_rgbd(state, g, d, config)
-        poses.append(pose)
-        metrics.append(m)
-    return _stack_frames(state, poses, metrics)
+    return _scan(track_step_rgbd, state, imgs_gray, imgs_depth, config)
+
+
+def _rectify_pair(img_left: torch.Tensor, img_right: torch.Tensor,
+                  map_left: torch.Tensor, map_right: torch.Tensor):
+    """Rectify a raw stereo pair inside the step (the maps are fixed per
+    sequence): both images as one batch of ``undistort.remap_bilinear``,
+    float32 out, so extraction takes kernel A's float32 kernel and no tie
+    dither."""
+    with stage("rectify"):
+        out = undistort.remap_bilinear(torch.stack([img_left, img_right]),
+                                       torch.stack([map_left, map_right]))
+    return out[0], out[1]
+
+
+def track_step_stereo_rectified(state: VOState, img_left: torch.Tensor,
+                                img_right: torch.Tensor,
+                                map_left: torch.Tensor,
+                                map_right: torch.Tensor, config: VOConfig):
+    """Raw (distorted, unrectified) stereo frame and its [H, W, 2] remaps:
+    rectification + extraction + tracking -> (state, pose, metrics)."""
+    left, right = _rectify_pair(img_left, img_right, map_left, map_right)
+    return track_step_stereo(state, left, right, config)
+
+
+def track_chunk_stereo_rectified(state: VOState, imgs_left: torch.Tensor,
+                                 imgs_right: torch.Tensor,
+                                 map_left: torch.Tensor,
+                                 map_right: torch.Tensor, config: VOConfig):
+    """N raw stereo frames in order, each rectified inside its step;
+    returns (state, poses [N], metrics [N])."""
+    return _scan(track_step_stereo_rectified, state, imgs_left, imgs_right,
+                 map_left, map_right, config)
+
+
+def track_step_external_corners(state: VOState, img_left: torch.Tensor,
+                                img_right: torch.Tensor,
+                                corners_left: torch.Tensor,
+                                corners_left_valid: torch.Tensor,
+                                corners_right: torch.Tensor,
+                                corners_right_valid: torch.Tensor,
+                                config: VOConfig):
+    """Stereo frame at caller-supplied corners ([kp_capacity, 2] each with
+    validity): BRIEF at the corners of both images as one batch, then the
+    tracking body (kernel T at its sites; kernels A and P do not run) ->
+    (state, pose, metrics)."""
+    feats = extract.describe_external_corners_batched(
+        torch.stack([img_left, img_right]),
+        torch.stack([corners_left, corners_right]),
+        torch.stack([corners_left_valid, corners_right_valid]), config)
+    left, right = (FrameFeatures(*(a[i] for a in feats)) for i in (0, 1))
+    return track_features(state, left, right, config)

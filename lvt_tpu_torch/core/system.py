@@ -2,11 +2,13 @@
 
 Port of lvt_tpu/core/system.py (stereo and RGB-D). The VOState lives on
 ``device`` (default ``cuda``); ``track`` uploads one frame (a rectified
-stereo pair, or a gray image and its metric depth) and returns its pose,
-``track_chunk`` runs N frames and returns N poses. Checkpoints are npz
-files keyed by state path (``.map.pos``, ...), the same keys and dtypes
-lvt_tpu writes, so a checkpoint crosses between the two packages in both
-directions.
+stereo pair, a raw pair when the system holds ``rectify_maps``, or a gray
+image and its metric depth) and returns its pose, ``track_chunk`` runs N
+frames and returns N poses, ``track_with_external_corners`` tracks a
+stereo pair at the caller's corners. Checkpoints are npz files keyed by
+state path (``.map.pos``, ...), the same keys and dtypes lvt_tpu writes,
+so a checkpoint crosses between the two packages in both directions;
+lvt_tpu's older positional files (``arr_0``, ...) load too.
 """
 
 from __future__ import annotations
@@ -43,19 +45,33 @@ class VOSystem:
 
     def __init__(self, config: VOConfig,
                  sensor_type: SensorType = SensorType.STEREO, *,
-                 device="cuda"):
+                 device="cuda", rectify_maps: tuple | None = None):
+        """``rectify_maps``: (left, right) [H, W, 2] source-pixel maps
+        (``ops.undistort.make_rectify_map``), stereo only; then raw
+        (distorted, unrectified) frames go in and are remapped inside the
+        step. The maps are uploaded to ``device`` once."""
         config.validate()
         step_mod._check_config(config)
         self.config = config
         self.sensor_type = SensorType(sensor_type)
         self.device = resolve_device(device)
+        self.rectify_maps = None
+        if rectify_maps is not None:
+            if self.sensor_type != SensorType.STEREO:
+                raise ValueError("rectify_maps: stereo input only")
+            hw2 = (config.img_height, config.img_width, 2)
+            self.rectify_maps = tuple(
+                torch.as_tensor(np.asarray(m, np.float32)).to(self.device)
+                for m in rectify_maps)
+            if any(tuple(m.shape) != hw2 for m in self.rectify_maps):
+                raise ValueError(f"rectify_maps: expected two maps of {hw2}")
         self.last_metrics: Optional[StepMetrics] = None
         self.reset()
 
     @staticmethod
     def create(config: VOConfig, sensor_type: SensorType = SensorType.STEREO,
-               *, device="cuda") -> "VOSystem":
-        return VOSystem(config, sensor_type, device=device)
+               **kw) -> "VOSystem":
+        return VOSystem(config, sensor_type, **kw)
 
     def reset(self) -> None:
         """Clear map, motion model and state machine."""
@@ -76,6 +92,12 @@ class VOSystem:
     def map_size(self) -> int:
         return int(self.state.map.size())
 
+    @property
+    def last_pose(self) -> Pose:
+        """The pose of the last tracked frame (camera in world), on the
+        device."""
+        return self.state.pose
+
     # -- tracking
     def _prep(self, img, ndim: int) -> torch.Tensor:
         a = torch.as_tensor(img).to(self.device)
@@ -94,8 +116,9 @@ class VOSystem:
         return self._prep(torch.as_tensor(img, dtype=torch.float32), ndim)
 
     def track(self, img1, img2) -> Pose:
-        """One frame, a chunk of one. Stereo: rectified grayscale (left,
-        right); RGB-D: (gray, metric depth)."""
+        """One frame, a chunk of one. Stereo: grayscale (left, right), raw
+        if the system holds ``rectify_maps``, rectified otherwise; RGB-D:
+        (gray, metric depth)."""
         poses, _ = self.track_chunk(self._prep(img1, 2)[None],
                                     self._prep2(img2, 2)[None])
         return tree_map(lambda x: x[0], poses)
@@ -108,12 +131,38 @@ class VOSystem:
         if a.shape != b.shape:
             raise ValueError(f"second-input chunk {tuple(b.shape)} != image "
                              f"chunk {tuple(a.shape)}")
-        chunk = (step_mod.track_chunk_stereo
-                 if self.sensor_type == SensorType.STEREO
-                 else step_mod.track_chunk_rgbd)
-        self.state, poses, metrics = chunk(self.state, a, b, self.config)
+        if self.sensor_type == SensorType.RGBD:
+            out = step_mod.track_chunk_rgbd(self.state, a, b, self.config)
+        elif self.rectify_maps is not None:
+            out = step_mod.track_chunk_stereo_rectified(
+                self.state, a, b, *self.rectify_maps, self.config)
+        else:
+            out = step_mod.track_chunk_stereo(self.state, a, b, self.config)
+        self.state, poses, metrics = out
         self.last_metrics = tree_map(lambda x: x[-1], metrics)
         return poses, metrics
+
+    def track_with_external_corners(self, left_image, right_image,
+                                    corners_left, corners_right) -> Pose:
+        """One stereo frame (rectified grayscale) described at the caller's
+        corners, [N, 2] (x, y) per image, N free per call: padded on the
+        host to kp_capacity (corners past it are dropped), uploaded with
+        their validity as one array, then tracked."""
+        if self.sensor_type != SensorType.STEREO:
+            raise ValueError("track_with_external_corners: stereo input only")
+        cap = self.config.kp_capacity
+        packed = np.zeros((2, cap, 3), np.float32)   # x, y, valid
+        for side, c in enumerate((corners_left, corners_right)):
+            c = np.asarray(c, np.float32).reshape(-1, 2)[:cap]
+            packed[side, :len(c), :2] = c
+            packed[side, :len(c), 2] = 1.0
+        dev = torch.from_numpy(packed).to(self.device)
+        corners, valid = dev[..., :2].contiguous(), dev[..., 2] > 0
+        self.state, pose, metrics = step_mod.track_step_external_corners(
+            self.state, self._prep(left_image, 2), self._prep(right_image, 2),
+            corners[0], valid[0], corners[1], valid[1], self.config)
+        self.last_metrics = metrics
+        return pose
 
     # -- checkpoint / resume
     def save_checkpoint(self, path: str) -> None:
@@ -122,10 +171,21 @@ class VOSystem:
 
     def load_checkpoint(self, path: str) -> None:
         """Load a checkpoint of either package; its shapes (map and staged
-        capacity, BA window) must be this system's config's."""
+        capacity, BA window) must be this system's config's. A file without
+        path keys is lvt_tpu's older positional format (``arr_0``,
+        ``arr_1``, ... as ``np.savez`` names its arguments), read in the
+        file's order as lvt_tpu's leaf order, which is the port's path
+        order."""
         data = np.load(path)
+        flat = flatten_with_path(self.state)
+        named = [k for k in data.files if not k.startswith("_")]
+        if not any(k.startswith(".") for k in named):
+            if len(named) != len(flat):
+                raise ValueError(f"positional checkpoint has {len(named)} "
+                                 f"arrays, the state {len(flat)} leaves")
+            data = {key: data[k] for (key, _), k in zip(flat, named)}
         leaves = {}
-        for key, leaf in flatten_with_path(self.state):
+        for key, leaf in flat:
             leaves[key] = data[key]
             if leaves[key].shape != tuple(leaf.shape):
                 raise ValueError(

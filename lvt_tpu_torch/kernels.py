@@ -42,6 +42,8 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "lvt_hamming_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
                          _P, _P],
+    "lvt_pnp_normal_eqs": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "lvt_stream_sum": [_P, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -137,6 +139,19 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fold_streams(info, in_dims, tensors) -> list[torch.Tensor]:
+    """For a ``register_vmap`` rule of an op over a leading stream axis S:
+    vmap's axis B moved to the front of every tensor (an unbatched one is
+    expanded to B) and folded with S, as contiguous [B * S, ...] tensors
+    that one launch takes; the rule unfolds the outputs to [B, S, ...]."""
+    b = info.batch_size
+    flat = []
+    for x, d in zip(tensors, in_dims):
+        x = x.expand(b, *x.shape) if d is None else x.movedim(d, 0)
+        flat.append(x.reshape(b * x.shape[1], *x.shape[2:]).contiguous())
+    return flat
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,

@@ -1,5 +1,6 @@
-"""BRIEF-256 binary descriptors: from per-keypoint patches (patch mode) or
-from dense bit planes of every pixel (dense mode).
+"""BRIEF-256 binary descriptors: from per-keypoint patches (patch mode),
+from dense bit planes of every pixel (dense mode), or sampled from the box
+sums at caller-supplied corners (external corners).
 
 Port of lvt_tpu/ops/brief.py. The pattern — 256 comparison pairs over a
 pool of 64 Gaussian sample points — is regenerated here in numpy from the
@@ -71,13 +72,14 @@ def test_pattern() -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _pattern_tensors(device: torch.device):
     """(pool index into a flattened 32x32 patch [64] and pair endpoints
-    [256] x 2 as long tensors, bit shifts [32] int32) on ``device``."""
+    [256] x 2 as long tensors, bit shifts [32] int32, pool offsets (dx, dy)
+    [64, 2] long) on ``device``, uploaded once."""
     pool = sample_pool()
     flat = (PATCH_R0 + pool[:, 1]) * PATCH + (PATCH_C0 + pool[:, 0])
     pairs = pair_indices()
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     return (as_t(flat), as_t(pairs[:, 0]), as_t(pairs[:, 1]),
-            torch.arange(32, dtype=torch.int32, device=device))
+            torch.arange(32, dtype=torch.int32, device=device), as_t(pool))
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -102,7 +104,7 @@ def descriptors_from_patches(
     """BRIEF-256 from per-keypoint smooth patches -> (desc [..., K, 8]
     int32, valid [..., K]); keypoints within BORDER of the image edge are
     invalid and their descriptor is zero."""
-    pool_idx, p0, p1, _ = _pattern_tensors(patches.device)
+    pool_idx, p0, p1, _, _ = _pattern_tensors(patches.device)
     vals = patches.reshape(*patches.shape[:-2], PATCH * PATCH)[..., pool_idx]
     desc = pack_bits(vals[..., p0] < vals[..., p1])
     inside = ((x >= BORDER) & (x < img_w - BORDER)
@@ -149,3 +151,58 @@ def descriptors_from_planes(
     desc = torch.gather(planes.reshape(b, words, h * w), 2,
                         flat[:, None, :].expand(b, words, flat.shape[1]))
     return torch.where(valid[..., None], desc.transpose(1, 2), 0), valid
+
+
+def box_smooth(img: torch.Tensor, size: int = KERNEL_SIZE) -> torch.Tensor:
+    """Separable box *sum* over a size x size window of img [..., H, W],
+    edge-replicated, float32 (lvt_tpu's ``box_smooth``): along each axis a
+    cumulative sum of the padded line, differenced ``size`` apart. The
+    cumulative sums are taken in float64 and rounded to float32, as torch's
+    CPU cumsum of float32 accumulates, so the card sums as the CPU does. On
+    integer-valued frames every sum is an exact integer below 2^24, equal to
+    lvt_tpu's whatever the order; on non-integer frames XLA's float32
+    cumsum rounds otherwise (tests/test_torch_external_corners.py states
+    the gap)."""
+    r = size // 2
+
+    def along(a, dim):
+        n = a.shape[dim]
+        idx = torch.clamp(torch.arange(-r - 1, n + r, device=a.device), 0,
+                          n - 1)
+        c = torch.cumsum(a.index_select(dim, idx).double(), dim).float()
+        return c.narrow(dim, size, n) - c.narrow(dim, 0, n)
+
+    return along(along(img.float(), -2), -1)
+
+
+def descriptors_sparse(
+    smooth: torch.Tensor,    # [..., H, W] f32 box sums
+    kp: torch.Tensor,        # [..., K, 2] f32 (x, y)
+    kp_valid: torch.Tensor,  # [..., K] bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """BRIEF-256 at each keypoint from the box sums, with one gather of the
+    64 pool samples per keypoint -> (desc [..., K, 8] int32, valid [..., K]).
+    The keypoint is rounded half to even; one within BORDER of the edge is
+    invalid and its descriptor zero, and every keypoint is clamped so its
+    samples index inside the image. Bit-equal to lvt_tpu's on the same
+    box sums."""
+    h, w = smooth.shape[-2:]
+    x = torch.round(kp[..., 0]).to(torch.int64)
+    y = torch.round(kp[..., 1]).to(torch.int64)
+    inside = (x >= BORDER) & (x < w - BORDER) & (y >= BORDER) & (y < h - BORDER)
+    valid = kp_valid & inside
+    xc = torch.clamp(x, _HALF + 1, w - _HALF - 2)
+    yc = torch.clamp(y, _HALF + 1, h - _HALF - 2)
+    _, p0, p1, _, pool = _pattern_tensors(smooth.device)
+    idx = ((yc[..., None] + pool[:, 1]) * w + (xc[..., None] + pool[:, 0]))
+    flat = smooth.reshape(*smooth.shape[:-2], h * w)
+    vals = torch.gather(flat, -1, idx.flatten(-2)).reshape(idx.shape)
+    desc = pack_bits(vals[..., p0] < vals[..., p1])
+    return torch.where(valid[..., None], desc, 0), valid
+
+
+def compute_descriptors(img: torch.Tensor, kp: torch.Tensor,
+                        kp_valid: torch.Tensor):
+    """img [..., H, W] (uint8 or float), keypoints [..., K, 2] -> (desc
+    [..., K, 8] int32, valid [..., K] with the border removed)."""
+    return descriptors_sparse(box_smooth(img), kp, kp_valid)

@@ -158,20 +158,14 @@ def _hamming_top2_fake(q_desc, t_desc, q_meta, q_valid, t_meta, t_valid, r2a,
 
 
 def _hamming_top2_vmap(info, in_dims, *args):
-    """Batching rule: vmap's axis B moves to the front of every tensor
-    argument (an unbatched one is expanded to B), B and the op's stream
-    axis S fold into one axis of B * S streams, and the op runs once on
-    contiguous inputs; the outputs unfold to [B, S, ...]."""
+    """Batching rule: vmap's axis B and the op's stream axis S fold into
+    one axis of B * S streams (``kernels.fold_streams``), and the op runs
+    once; the outputs unfold to [B, S, ...]."""
     b = info.batch_size
-    tensors = []
-    for x, d in zip(args[:6], in_dims[:6]):
-        x = x.expand(b, *x.shape) if d is None else x.movedim(d, 0)
-        tensors.append(x)
-    s = tensors[0].shape[1]
-    flat = [x.reshape(b * s, *x.shape[2:]).contiguous() for x in tensors]
+    flat = kernels.fold_streams(info, in_dims[:6], args[:6])
     fout, iout = hamming_top2_op(*flat, *args[6:])
-    return ((fout.view(b, s, *fout.shape[1:]), iout.view(b, s, *iout.shape[1:])),
-            (0, 0))
+    return ((fout.view(b, -1, *fout.shape[1:]),
+             iout.view(b, -1, *iout.shape[1:])), (0, 0))
 
 
 hamming_top2_op.register_vmap(_hamming_top2_vmap)

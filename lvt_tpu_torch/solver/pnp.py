@@ -7,6 +7,22 @@ iteration loop is a Python loop of fixed length; rejected steps keep the
 state and only adapt lambda. ``torch.linalg.solve_ex`` skips the error
 check (no host sync); a singular system yields a non-finite step, which
 the accept test rejects, as in JAX.
+
+The solver's two reductions over the points, the normal equations (H, g
+and H's diagonal) and the robust chi-square's sum, are the custom ops
+``lvt_tpu_torch::pnp_normal_eqs`` and ``lvt_tpu_torch::stream_sum`` over a
+leading stream axis S, built as kernel T's op is (ops/top2.py):
+
+* CUDA: one launch of a hand-written kernel of ``csrc/pnp.cu`` for all S
+  streams, one block per stream, each summing in an order fixed by M
+  alone (the normal equations in float64, rounded once; the chi-square in
+  float32), so a stream of the vmapped multi-stream step gets the bits of
+  the same stream tracked alone (ROADMAP H8). They are not TPU kernels:
+  lvt_tpu sums these with XLA ops (lvt_tpu/solver/pnp.py:148, 155-156);
+* CPU: the plain versions stream by stream, the einsums and the sum this
+  module used before the ops, so the CPU keeps its bits against lvt_tpu;
+* fake tensors: the output shapes; ``torch.func.vmap``: a rule that folds
+  vmap's axis into the stream axis.
 """
 
 from __future__ import annotations
@@ -15,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from lvt_tpu_torch import kernels
 from lvt_tpu_torch.device import scalar
 from lvt_tpu_torch.geometry import quaternion as quat
 from lvt_tpu_torch.geometry.se3 import Pose, matvec
@@ -22,6 +39,129 @@ from lvt_tpu_torch.geometry.se3 import Pose, matvec
 N_PASSES = 2
 N_ITERS_PER_PASS = 5
 LM_TAU = 1e-5
+NP = 6    # pose parameters
+
+
+def normal_equations_plain(jac: torch.Tensor, w: torch.Tensor,
+                           r: torch.Tensor):
+    """One stream's normal equations from jac [M, 2, 6], weights w [M] and
+    residuals r [M, 2]: (hg [6, 7] = [H | g] with H = sum jw^T jac and g =
+    sum jw^T r for jw = jac * w, h_diag [6] = sum w jac^2). H and g come
+    from one product, g as a 7th column against the residual: under vmap on
+    the CPU a matrix-vector einsum sums in another order than alone, this
+    matrix product in the same."""
+    jw = jac * w[:, None, None]
+    hg = torch.einsum("mki,mkj->ij", jw, torch.cat([jac, r[..., None]], -1))
+    return hg, torch.einsum("m,mki,mki->i", w, jac, jac)
+
+
+@torch.library.custom_op("lvt_tpu_torch::pnp_normal_eqs", mutates_args=(),
+                         device_types="cuda")
+def pnp_normal_eqs_op(jac: torch.Tensor, w: torch.Tensor,
+                      r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """PnP's normal equations of S streams: jac [S, M, 2, 6], w [S, M], r
+    [S, M, 2] float32 -> hg [S, 6, 7], h_diag [S, 6].
+
+    CUDA: one launch of ``csrc/pnp.cu`` for all streams (one block per
+    stream; its sums in an order fixed by M, whatever S)."""
+    s, m = jac.shape[0], jac.shape[1]
+    dev = jac.device
+    kernels.require(jac, "jac", torch.float32, (s, m, 2, NP), dev)
+    kernels.require(w, "w", torch.float32, (s, m), dev)
+    kernels.require(r, "r", torch.float32, (s, m, 2), dev)
+    hg = torch.empty((s, NP, NP + 1), dtype=torch.float32, device=dev)
+    h_diag = torch.empty((s, NP), dtype=torch.float32, device=dev)
+    err = kernels.lib().lvt_pnp_normal_eqs(
+        jac.data_ptr(), w.data_ptr(), r.data_ptr(), s, m, hg.data_ptr(),
+        h_diag.data_ptr(), kernels.stream_ptr(jac))
+    kernels.check(err, "pnp_normal_eqs")
+    normal_equations.launches += 1
+    return hg, h_diag
+
+
+@pnp_normal_eqs_op.register_kernel("cpu")
+def _pnp_normal_eqs_cpu(jac, w, r):
+    outs = [normal_equations_plain(*a) for a in zip(jac, w, r)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+@pnp_normal_eqs_op.register_fake
+def _pnp_normal_eqs_fake(jac, w, r):
+    s = jac.shape[0]
+    return jac.new_empty((s, NP, NP + 1)), jac.new_empty((s, NP))
+
+
+def _pnp_normal_eqs_vmap(info, in_dims, jac, w, r):
+    """Batching rule: vmap's axis and the stream axis fold into one
+    launch (``kernels.fold_streams``); the outputs unfold to [B, S, ...]."""
+    b = info.batch_size
+    hg, h_diag = pnp_normal_eqs_op(*kernels.fold_streams(info, in_dims,
+                                                         (jac, w, r)))
+    return ((hg.view(b, -1, *hg.shape[1:]), h_diag.view(b, -1, NP)), (0, 0))
+
+
+pnp_normal_eqs_op.register_vmap(_pnp_normal_eqs_vmap)
+
+
+@torch.library.custom_op("lvt_tpu_torch::stream_sum", mutates_args=(),
+                         device_types="cuda")
+def stream_sum_op(x: torch.Tensor) -> torch.Tensor:
+    """Each stream's sum: x [S, N] float32 -> [S]. CUDA: one launch of
+    ``csrc/pnp.cu``'s sum kernel for all streams (one block per stream, in
+    an order fixed by N, whatever S)."""
+    s, n = x.shape
+    kernels.require(x, "x", torch.float32, (s, n))
+    out = torch.empty((s,), dtype=torch.float32, device=x.device)
+    err = kernels.lib().lvt_stream_sum(x.data_ptr(), s, n, out.data_ptr(),
+                                       kernels.stream_ptr(x))
+    kernels.check(err, "stream_sum")
+    stream_sum.launches += 1
+    return out
+
+
+@stream_sum_op.register_kernel("cpu")
+def _stream_sum_cpu(x):
+    return torch.stack([row.sum() for row in x])
+
+
+@stream_sum_op.register_fake
+def _stream_sum_fake(x):
+    return x.new_empty((x.shape[0],))
+
+
+def _stream_sum_vmap(info, in_dims, x):
+    out = stream_sum_op(*kernels.fold_streams(info, in_dims, (x,)))
+    return out.view(info.batch_size, -1), 0
+
+
+stream_sum_op.register_vmap(_stream_sum_vmap)
+
+
+def stream_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of x [N] (a 0-d tensor): the op at S = 1. CPU tensors take
+    ``x.sum()``, CUDA tensors the kernel (any other device raises), and
+    under ``torch.func.vmap`` one launch serves every stream."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x: expected a CUDA tensor, got {x.device}")
+    return stream_sum_op(x[None])[0]
+
+
+stream_sum.launches = 0
+
+
+def normal_equations(jac: torch.Tensor, w: torch.Tensor, r: torch.Tensor):
+    """One stream's (hg [6, 7], h_diag [6]) from jac [M, 2, 6], w [M] and r
+    [M, 2]: the op at S = 1. CPU tensors take the plain version, CUDA
+    tensors the kernel (any other device raises), and under
+    ``torch.func.vmap`` one launch serves every stream."""
+    if jac.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"jac: expected a CUDA tensor, got {jac.device}")
+    hg, h_diag = pnp_normal_eqs_op(jac[None], w[None], r[None])
+    return hg[0], h_diag[0]
+
+
+normal_equations.launches = 0
 
 
 class PnPResult(NamedTuple):
@@ -101,18 +241,12 @@ def solve_pnp(
         return r, p_cam, inv_z, (r * r).sum(-1)
 
     def robust_chi2(e2, w_mask):
-        return (w_mask * (delta2 * torch.log1p(e2 / delta2))).sum()
+        return stream_sum(w_mask * (delta2 * torch.log1p(e2 / delta2)))
 
     def lm_iteration(s: _LMState, w_mask) -> _LMState:
         w = w_mask * _cauchy_weights(s.e2, delta2)
         jac = _jacobians(s.p_cam, s.inv_z, fx, fy)
-        jw = jac * w[:, None, None]
-        # H and g in one product, g as a 7th column against the residual:
-        # under vmap (the multi-stream step) a matrix-vector einsum sums
-        # in another order than alone on the CPU, this matrix product in
-        # the same, so each stream gets the single-stream step's bits
-        hg = torch.einsum("mki,mkj->ij", jw,
-                          torch.cat([jac, s.r[..., None]], -1))
+        hg, _ = normal_equations(jac, w, s.r)
         h, g = hg[:, :6], hg[:, 6]
         step = torch.linalg.solve_ex(h + s.lam * eye6, -g)[0]
         r_wc_new, t_wc_new = _retract(s.r_wc, s.t_wc, step)
@@ -136,7 +270,7 @@ def solve_pnp(
         r, p_cam, inv_z, e2 = project(r_wc, t_wc)
         w = w_mask * _cauchy_weights(e2, delta2)
         jac = _jacobians(p_cam, inv_z, fx, fy)
-        h_diag = torch.einsum("m,mki,mki->i", w, jac, jac)
+        _, h_diag = normal_equations(jac, w, r)
         lam0 = LM_TAU * h_diag.max() + 1e-12
         s = _LMState(r_wc, t_wc, lam0, torch.full_like(lam0, 2.0),
                      robust_chi2(e2, w_mask), r, p_cam, inv_z, e2)

@@ -11,7 +11,11 @@ launch) are bit-exact with their plain
 versions by construction (integer arithmetic, or on float frames A's f32
 sums in the plain version's order; float comparisons; packed integer
 keys; and P's subpixel fit in the plain version's order of f32
-operations, rounded to nearest). The unmarked tests run
+operations, rounded to nearest). PnP's two reduction ops sum in another
+order than their plain versions by design (one fixed order per stream,
+the same at every S): each output within 1e-5 of the sum of its terms'
+magnitudes, and every stream of an S-stream launch bit-equal to its own
+S = 1 launch. The unmarked tests run
 anywhere: a wrapper given a tensor that is not on the CPU launches its
 kernel or raises, never falls back.
 """
@@ -24,6 +28,7 @@ import torch
 
 from lvt_tpu_torch import kernels
 from lvt_tpu_torch.ops import hamming, patches, perception, top2
+from lvt_tpu_torch.solver import pnp
 
 
 @pytest.fixture
@@ -269,6 +274,84 @@ def test_top2_kernel_all_invalid(cuda):
         assert not got[0][3].any() and (got[0][0] == hamming.BIG).all()
 
 
+def _pnp_inputs(rs, s, m, device):
+    """PnP's normal-equation inputs for ``s`` streams of ``m`` points:
+    Jacobian columns at the main path's scales, Cauchy-like weights with
+    a fifth of the points masked, pixel residuals."""
+    jac = rs.randn(s, m, 2, 6) * [1e3, 1e3, 3e2, 5e2, 8e2, 4e2]
+    w = rs.rand(s, m) * (rs.rand(s, m) > 0.2)
+    r = rs.randn(s, m, 2) * 2.0
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (jac, w, r)]
+
+
+def _pnp_close(got, jac, w, r):
+    """got (hg [S, 6, 7], h_diag [S, 6]) within 1e-5 of each entry's sum
+    of term magnitudes of the plain version, stream by stream."""
+    for i in range(jac.shape[0]):
+        want = pnp.normal_equations_plain(jac[i], w[i], r[i])
+        scale = pnp.normal_equations_plain(jac[i].abs(), w[i], r[i].abs())
+        for g, x, sc in zip((got[0][i], got[1][i]), want, scale):
+            assert ((g - x).abs() <= 1e-5 * sc + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 3, 8])
+@pytest.mark.parametrize("m", [1024, 8192, 300, 7])
+def test_pnp_normal_eqs_kernel_matches_plain(cuda, s, m):
+    """The op over S streams in one launch: within its tolerance of the
+    plain version, H's diagonal equal to h_diag, and each stream bit-equal
+    to its own S = 1 launch (the sum order does not depend on S); M up to
+    TUM fr1's 8192 and ragged against the 256 threads of a block."""
+    jac, w, r = _pnp_inputs(np.random.RandomState(s + m), s, m, cuda)
+    before = pnp.normal_equations.launches
+    got = pnp.pnp_normal_eqs_op(jac, w, r)
+    torch.cuda.synchronize()
+    assert pnp.normal_equations.launches == before + 1
+    _pnp_close(got, jac, w, r)
+    assert torch.equal(torch.diagonal(got[0][:, :, :6], dim1=1, dim2=2),
+                       got[1])
+    for i in range(s):
+        one = pnp.normal_equations(jac[i], w[i], r[i])
+        assert torch.equal(one[0], got[0][i]) and torch.equal(one[1],
+                                                             got[1][i])
+
+
+@pytest.mark.cuda
+def test_pnp_normal_eqs_vmap_rule_launches_once(cuda):
+    """Under torch.func.vmap the single-stream call reaches the kernel in
+    one launch for all streams, with the bits of the direct launch."""
+    jac, w, r = _pnp_inputs(np.random.RandomState(5), 4, 1024, cuda)
+    before = pnp.normal_equations.launches
+    got = torch.func.vmap(pnp.normal_equations)(jac, w, r)
+    torch.cuda.synchronize()
+    assert pnp.normal_equations.launches == before + 1
+    want = pnp.pnp_normal_eqs_op(jac, w, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 3, 8])
+@pytest.mark.parametrize("n", [1024, 8192, 300, 7])
+def test_stream_sum_kernel_matches_plain(cuda, s, n):
+    """The sum op over S streams in one launch: within 1e-5 of the sum of
+    magnitudes of each stream's plain ``x.sum()``, each stream bit-equal
+    to its own S = 1 launch, and one launch under vmap."""
+    rs = np.random.RandomState(s + n)
+    x = torch.from_numpy((rs.randn(s, n) * 3).astype(np.float32)).to(cuda)
+    before = pnp.stream_sum.launches
+    got = pnp.stream_sum_op(x)
+    torch.cuda.synchronize()
+    assert pnp.stream_sum.launches == before + 1
+    for i in range(s):
+        assert abs(float(got[i] - x[i].sum())) <= 1e-5 * float(
+            x[i].abs().sum())
+        assert torch.equal(pnp.stream_sum(x[i]), got[i])
+    before = pnp.stream_sum.launches
+    assert torch.equal(torch.func.vmap(pnp.stream_sum)(x), got)
+    assert pnp.stream_sum.launches == before + 1
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     imgs = torch.zeros(2, 40, 48, dtype=torch.int16, device=cuda)
@@ -407,7 +490,108 @@ def test_multistream_on_the_card_matches_the_cpu(cuda, sensor):
     torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2"])
+@pytest.mark.cuda
+def test_rectified_path_on_the_card_matches_the_cpu(cuda):
+    """Raw EuRoC frames through VOSystem(rectify_maps=...) on both devices:
+    the remapped pair and its features bit-equal, the poses of 4 frames
+    within 1e-4 m, kernel T twice per frame at the EuRoC config's sites."""
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.core import step
+    from lvt_tpu_torch.core.extract import extract_features_stereo
+    from lvt_tpu_torch.core.system import TrackingState, VOSystem
+    from lvt_tpu_torch.io import datasets
+
+    rs = np.random.RandomState(5)
+    points = np.stack([rs.uniform(-15, 15, 2500), rs.uniform(-8, 8, 2500),
+                       rs.uniform(2.0, 30.0, 2500)], -1)
+    shade = rs.uniform(60.0, 215.0, 2500)
+    raw = [np.stack([datasets.render_euroc_raw(points, shade,
+                                               np.array([0, 0, 0.2 * i]), rt)
+                     for i in range(4)]) for rt in (False, True)]
+    il, ir = (torch.from_numpy(x) for x in raw)
+    p = datasets.EUROC_P
+    cfg = VOConfig(fx=float(p[0, 0]), fy=float(p[1, 1]), cx=float(p[0, 2]),
+                   cy=float(p[1, 2]), baseline=datasets.EUROC_BASELINE,
+                   img_width=752, img_height=480, agast_threshold=15,
+                   detection_cell_size=160, max_keypoints_per_cell=60,
+                   near_plane_distance=0.5, far_plane_distance=100.0,
+                   staged_threshold=0)
+    maps = datasets.euroc_rectify_maps()
+    mc = [torch.from_numpy(m) for m in maps]
+    rc = step._rectify_pair(il[0], ir[0], *mc)
+    rg = step._rectify_pair(il[0].to(cuda), ir[0].to(cuda),
+                            *(m.to(cuda) for m in mc))
+    for g, c in zip(rg, rc):
+        assert torch.equal(g.cpu(), c)
+    for g, c in zip(extract_features_stereo(*rg, cfg),
+                    extract_features_stereo(*rc, cfg)):
+        for a, b in zip(g, c):
+            assert torch.equal(a.cpu(), b)
+    gpu = VOSystem(cfg, device=cuda, rectify_maps=maps)
+    cpu = VOSystem(cfg, device="cpu", rectify_maps=maps)
+    before = top2.hamming_top2.launches
+    pg, _ = gpu.track_chunk(il.to(cuda), ir.to(cuda))
+    torch.cuda.synchronize()
+    assert top2.hamming_top2.launches - before == 4 * 2
+    pc, _ = cpu.track_chunk(il, ir)
+    assert gpu.get_state() == TrackingState.TRACKING
+    torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_external_corners_on_the_card_match_the_cpu(cuda):
+    """track_with_external_corners on both devices over 4 frames, corners
+    from the port's own extraction: the descriptors at the corners
+    bit-equal, the poses within 1e-4 m; kernel T three times per frame,
+    kernels A and P never."""
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.core.extract import (describe_external_corners,
+                                            extract_features)
+    from lvt_tpu_torch.core.system import TrackingState, VOSystem
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+
+    world = SyntheticWorld(width=320, height=240, fx=260.0, fy=260.0,
+                           cx=160.0, cy=120.0, baseline=0.3, n_points=1500,
+                           extent_x=40.0, extent_y=18.0, extent_z=90.0)
+    cfg = VOConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
+                   baseline=world.baseline, img_width=320, img_height=240,
+                   detection_cell_size=80, max_keypoints_per_cell=60,
+                   agast_threshold=15, near_plane_distance=0.5,
+                   far_plane_distance=150.0)
+
+    def corners(img):
+        f = extract_features(torch.from_numpy(img), cfg)
+        return f.kp[f.valid].numpy()
+
+    frames = [(l.astype(np.uint8), r.astype(np.uint8))
+              for l, r, _ in world.stereo_sequence(4, speed=0.5)]
+    seq = [(l, r, corners(l), corners(r)) for l, r in frames]
+    l0, _, c0, _ = seq[0]
+    cap = cfg.kp_capacity
+    pad = np.zeros((cap, 2), np.float32)
+    pad[:len(c0)] = c0
+    valid = torch.from_numpy(np.arange(cap) < len(c0))
+    args = (torch.from_numpy(l0), torch.from_numpy(pad), valid)
+    fc = describe_external_corners(*args, cfg)
+    fg = describe_external_corners(*(a.to(cuda) for a in args), cfg)
+    for a, b in zip(fg, fc):
+        assert torch.equal(a.cpu(), b)
+    gpu, cpu = VOSystem(cfg, device=cuda), VOSystem(cfg, device="cpu")
+    counts = [top2.hamming_top2, perception.perception_patch_maps_batched,
+              patches.describe_refine_batched]
+    before = [f.launches for f in counts]
+    pg = [gpu.track_with_external_corners(*f) for f in seq]
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counts, before)] == [4 * 3, 0, 0]
+    pc = [cpu.track_with_external_corners(*f) for f in seq]
+    assert gpu.get_state() == TrackingState.TRACKING
+    torch.testing.assert_close(torch.stack([p.t.cpu() for p in pg]),
+                               torch.stack([p.t for p in pc]), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2",
+                                  "pnp", "stream_sum"])
 def test_wrapper_never_falls_back_off_the_cpu(call):
     """A tensor on another device than the CPU goes to the kernel path,
     whose argument checks refuse anything that is not on a CUDA device."""
@@ -418,6 +602,12 @@ def test_wrapper_never_falls_back_off_the_cpu(call):
                 torch.empty(2, 40, 48, dtype=torch.uint8, **meta))
         elif call == "brief":
             perception.brief_planes(torch.empty(2, 40, 48, **meta))
+        elif call == "stream_sum":
+            pnp.stream_sum(torch.empty(5, **meta))
+        elif call == "pnp":
+            pnp.normal_equations(torch.empty(5, 2, 6, **meta),
+                                 torch.empty(5, **meta),
+                                 torch.empty(5, 2, **meta))
         elif call == "patches":
             f = torch.empty(2, 40, 48, **meta)
             i = torch.empty(2, 5, dtype=torch.int32, **meta)
@@ -448,7 +638,7 @@ def test_library_name_follows_the_sources():
     assert path == kernels.library_path()
     assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
-        "perception.cu", "brief.cu", "patches.cu", "top2.cu"}
+        "perception.cu", "brief.cu", "patches.cu", "top2.cu", "pnp.cu"}
 
 
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):

@@ -12,7 +12,9 @@ different content. The JAX side runs as the JAX tests run it on the CPU
     1e-3 m (test_torch_system.py's bound for the jitted JAX step, whose
     fused multiply-adds move poses by ~1e-4 m);
   * against the port's single-stream ``VOSystem`` per stream: patch mode,
-    BA off, 5 frames within 1e-4 m with equal statuses and match counts;
+    BA off, 5 frames bit-equal (PnP's reductions are the ops
+    ``lvt_tpu_torch::pnp_normal_eqs`` and ``stream_sum``, each stream
+    summed on its own) with equal statuses and match counts;
     dense mode with BA (window 4 every 4), 9 frames within 1e-3 m with BA
     on the same frames (vmapped reductions may sum in another order, and
     BA's accept tests amplify that, as on the card: ROADMAP H7);
@@ -154,6 +156,9 @@ def test_multistream_matches_single_stream(frames9, mode):
             lm = vo.last_metrics
             np.testing.assert_allclose(poses.t[s].numpy(), p.t.numpy(),
                                        atol=atol, err_msg=f"frame {i}/{s}")
+            if mode == "patch":
+                assert torch.equal(poses.t[s], p.t), f"frame {i}/{s}"
+                assert torch.equal(poses.q[s], p.q), f"frame {i}/{s}"
             assert int(m.status[s]) == int(lm.status)
             assert bool(m.local_ba_ran[s]) == bool(lm.local_ba_ran)
             if mode == "patch":

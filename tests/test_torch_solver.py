@@ -5,6 +5,10 @@ Tolerances:
   * solve_pnp: pose within 1e-4 m and 1e-4 rad, inlier count equal (the
     LM iterations reduce over points in different orders, so the poses
     agree to f32 rounding, not bit for bit);
+  * the normal-equation and sum ops (``lvt_tpu_torch::pnp_normal_eqs``,
+    ``lvt_tpu_torch::stream_sum``) on the CPU: bit-equal to the einsums
+    and the sum solve_pnp used before them, alone, over a stream axis and
+    under vmap;
   * triangulate_stereo: the validity mask equal, positions within 1e-5
     relative;
   * insert_points, apply_match_bookkeeping, clean_untracked: exact (they
@@ -27,6 +31,7 @@ from lvt_tpu_torch.core.state import PointStore
 from lvt_tpu_torch.geometry import quaternion as quat
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.ops import triangulate
+from lvt_tpu_torch.solver import pnp
 from lvt_tpu_torch.solver.pnp import solve_pnp
 
 FX, FY, CX, CY = 718.856, 718.856, 607.19, 185.21
@@ -96,6 +101,55 @@ def test_solve_pnp_matches_lvt_tpu(n_out):
     assert np.linalg.norm(got.pose.t.numpy() - t) < 0.05
     if n_out:
         assert int(got.inlier_count) < int(weights.sum()) - n_out // 2
+
+
+def _einsums(jac, w, r):
+    """The normal equations as solve_pnp formed them before the op."""
+    jw = jac * w[:, None, None]
+    hg = torch.einsum("mki,mkj->ij", jw, torch.cat([jac, r[..., None]], -1))
+    return hg, torch.einsum("m,mki,mki->i", w, jac, jac)
+
+
+@pytest.mark.parametrize("s,m", [(1, 300), (3, 1024), (2, 7)])
+def test_normal_equations_op_is_the_einsums_on_the_cpu(s, m):
+    """The op at S = 1 (solve_pnp's call), over S streams at once, and
+    under torch.func.vmap (the multi-stream step; here with the residuals
+    unbatched too): every stream's hg and h_diag bit-equal to the einsums
+    on that stream alone."""
+    rs = np.random.RandomState(s * m)
+    jac = torch.from_numpy((rs.randn(s, m, 2, 6) * [1e3, 1e3, 3e2, 5e2,
+                                                     8e2, 4e2])
+                           .astype(np.float32))
+    w = torch.from_numpy((rs.rand(s, m) * (rs.rand(s, m) > 0.2))
+                         .astype(np.float32))
+    r = torch.from_numpy(rs.randn(s, m, 2).astype(np.float32))
+    want = [_einsums(*a) for a in zip(jac, w, r)]
+    batched = pnp.pnp_normal_eqs_op(jac, w, r)
+    vmapped = torch.func.vmap(pnp.normal_equations)(jac, w, r)
+    shared = torch.func.vmap(pnp.normal_equations, in_dims=(0, 0, None))(
+        jac, w, r[0])
+    for i, (hg, h_diag) in enumerate(want):
+        for got in (pnp.normal_equations(jac[i], w[i], r[i]),
+                    (batched[0][i], batched[1][i]),
+                    (vmapped[0][i], vmapped[1][i])):
+            assert torch.equal(got[0], hg) and torch.equal(got[1], h_diag)
+        assert torch.equal(shared[0][i], _einsums(jac[i], w[i], r[0])[0])
+    assert batched[0].shape == (s, 6, 7) and batched[1].shape == (s, 6)
+
+
+@pytest.mark.parametrize("s,n", [(1, 1024), (8, 1024), (3, 8191)])
+def test_stream_sum_op_is_the_sum_on_the_cpu(s, n):
+    """The sum op alone (solve_pnp's chi-square), over S streams and under
+    vmap: each stream's result bit-equal to ``x.sum()`` of that stream."""
+    rs = np.random.RandomState(n + s)
+    x = torch.from_numpy((rs.exponential(2.0, (s, n))
+                          * (rs.rand(s, n) > 0.3)).astype(np.float32))
+    batched = pnp.stream_sum_op(x)
+    vmapped = torch.func.vmap(pnp.stream_sum)(x)
+    for i in range(s):
+        want = x[i].sum()
+        for got in (pnp.stream_sum(x[i]), batched[i], vmapped[i]):
+            assert got.shape == () and torch.equal(got, want)
 
 
 def test_triangulate_stereo_matches_lvt_tpu():

@@ -1,6 +1,7 @@
 """lvt_tpu_torch stands on its own: it imports neither JAX nor anything of
 lvt_tpu, and its copies of lvt_tpu's jax-free modules (the configuration,
-the shipped KITTI configs, the synthetic world) agree with the originals.
+the shipped KITTI, TUM and EuRoC configs with EuRoC's timestamp lists, the
+EuRoC calibration, the synthetic world) agree with the originals.
 
 Tolerance: none. Config fields are compared as values, rendered frames and
 poses bit for bit, and the two ATE functions to the last bit.
@@ -17,8 +18,9 @@ import pytest
 import __graft_entry__
 from lvt_tpu import config as jx_config
 from lvt_tpu.io import synthetic as jx_synthetic
+from lvt_tpu.io import datasets as jx_datasets
 from lvt_tpu_torch import config, configs
-from lvt_tpu_torch.io import synthetic
+from lvt_tpu_torch.io import datasets, synthetic
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("lvt_tpu", "__graft_entry__", "jax")
@@ -110,6 +112,42 @@ def test_copied_yamls_load_as_lvt_tpus():
                 0.262383, 8192, 1024, 0, 0)
     text = "%YAML:1.0\nm: !!opencv-matrix\n  data: [1, 2]\n"
     assert config.parse_opencv_yaml(text) == jx_config.parse_opencv_yaml(text)
+
+
+def test_euroc_copies_are_lvt_tpus():
+    """The EuRoC YAML and the 11 sequences' timestamp lists are byte-equal
+    copies, and every ``EUROC_*`` constant equals lvt_tpu's, value and
+    dtype."""
+    jx_dir = ROOT / "lvt_tpu" / "configs" / "euroc"
+    names = sorted(p.name for p in jx_dir.iterdir())
+    assert len([n for n in names if n.endswith(".txt")]) == 11
+    assert sorted(p.name for p in Path(configs.EUROC_DIR).iterdir()) == names
+    for name in names:
+        assert (Path(configs.EUROC_DIR) / name).read_bytes() == (
+            jx_dir / name).read_bytes(), name
+    theirs = {k: v for k, v in vars(jx_datasets).items()
+              if k.startswith("EUROC_")}
+    ours = {k: v for k, v in vars(datasets).items() if k.startswith("EUROC_")}
+    assert sorted(ours) == sorted(theirs) and len(ours) == 10
+    for k, v in theirs.items():
+        assert np.asarray(ours[k]).dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(ours[k], v, err_msg=k)
+
+
+def test_euroc_raw_frames_render_as_the_cli_tests():
+    """The port's raw EuRoC renderer is tests/test_cli.py's, frame for
+    frame, for both cameras."""
+    from tests.test_cli import _render_euroc_raw
+
+    rs = np.random.RandomState(5)
+    points = np.stack([rs.uniform(-30, 30, 300), rs.uniform(-15, 15, 300),
+                       rs.uniform(2.0, 60.0, 300)], -1)
+    shade = rs.uniform(60.0, 215.0, 300)
+    for right in (False, True):
+        t = np.array([0.0, 0.1, 0.5])
+        np.testing.assert_array_equal(
+            datasets.render_euroc_raw(points, shade, t, right),
+            _render_euroc_raw(points, shade, t, right))
 
 
 def test_shipped_configs():

@@ -49,6 +49,7 @@ from lvt_tpu_torch.core.motion import predict_next_pose
 from lvt_tpu_torch.core.system import TrackingState, VOSystem
 from lvt_tpu_torch.geometry import quaternion as quat
 from lvt_tpu_torch.ops import matching
+from lvt_tpu_torch.tree import flatten_with_path
 from tools.oracle.scenarios import SCENARIOS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -181,6 +182,56 @@ def test_checkpoint_round_trip_both_ways(sequence, jax_checkpoint, tmp_path):
     jvo.load_checkpoint(str(out))
     assert int(jvo.state.status) == int(vo.state.status)
     assert jvo.map_size == vo.map_size > 0
+
+
+def test_positional_checkpoint_of_lvt_tpu_loads(sequence, jax_checkpoint,
+                                                tmp_path):
+    """lvt_tpu's older positional format: its state's leaves, in its leaf
+    order, saved as np.savez's arr_0, arr_1, ... (lvt_tpu loads such a
+    file itself). The port loads it into the same state as the path-keyed
+    file, and refuses one with a leaf missing."""
+    cfg, _ = sequence
+    _, path = jax_checkpoint
+    jvo = JxVOSystem(cfg)
+    jvo.load_checkpoint(str(path))
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jvo.state)]
+    legacy = tmp_path / "positional.npz"
+    np.savez(legacy, *leaves)
+    assert np.load(legacy).files[:2] == ["arr_0", "arr_1"]
+    JxVOSystem(cfg).load_checkpoint(str(legacy))
+    keyed, positional = VOSystem(cfg, device="cpu"), VOSystem(cfg, device="cpu")
+    keyed.load_checkpoint(str(path))
+    positional.load_checkpoint(str(legacy))
+    pairs = list(zip(flatten_with_path(keyed.state),
+                     flatten_with_path(positional.state)))
+    assert len(pairs) == len(leaves)
+    for (key, a), (_, b) in pairs:
+        assert a.dtype == b.dtype and torch.equal(a, b), key
+    assert positional.get_state() == TrackingState.TRACKING
+    short = tmp_path / "short.npz"
+    np.savez(short, *leaves[:-1])
+    with pytest.raises(ValueError, match="positional"):
+        VOSystem(cfg, device="cpu").load_checkpoint(str(short))
+
+
+def test_last_pose_reads_as_lvt_tpus_callers_read_it(sequence,
+                                                     jax_checkpoint):
+    """``last_pose`` as lvt_tpu's C ABI and frame dumper read it
+    (``pose_to_numpy(vo.last_pose)``, ``np.asarray(vo.last_pose.t)``): the
+    checkpointed pose after a load, the returned pose after a track."""
+    cfg, frames = sequence
+    _, path = jax_checkpoint
+    vo = VOSystem(cfg, device="cpu")
+    vo.load_checkpoint(str(path))
+    data = np.load(path)
+    np.testing.assert_array_equal(np.asarray(vo.last_pose.t), data[".pose.t"])
+    np.testing.assert_array_equal(np.asarray(vo.last_pose.q), data[".pose.q"])
+    rot = np.asarray(quat.to_matrix(vo.last_pose.q))
+    assert rot.shape == (3, 3)
+    np.testing.assert_allclose(rot @ rot.T, np.eye(3), atol=1e-5)
+    pose = vo.track(frames[K_FRAMES][0], frames[K_FRAMES][1])
+    assert torch.equal(vo.last_pose.t, pose.t)
+    assert torch.equal(vo.last_pose.q, pose.q)
 
 
 def test_chunked_sequence_matches_lvt_tpu(sequence):
