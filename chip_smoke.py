@@ -96,16 +96,40 @@ and the script exits non-zero without printing the final line:
    every frame TRACKING, ATE under 5%, 0 host syncs in the step, exactly A
    0, P 0, T 3 per frame; frame 0's descriptors card vs CPU bit-equal;
    poses of frames 0-3 card vs CPU within 1e-3 m;
-10. a JSON line with each kernel's launches and largest error against its
+10. path 7, the dataset CLIs: 48 frames each of paths 1 and 5 and of
+   path 4's camera over a cloud 2-12 m deep (the TUM depth format holds
+   13.1 m) written as PNG trees in the KITTI, EuRoC and TUM layouts
+   (``write_png``: Python's zlib, no OpenCV), every PNG decoded bit-equal
+   by the port's decoder (built here with g++, its seconds printed), then
+   ``lvt_tpu_torch.cli.main`` kitti (the shipped YAML: patch mode, local
+   BA), euroc and tum in-process on the card with ``--chunk 16
+   --record``: each trajectory file byte-equal to ``dump_kitti`` /
+   ``dump_tum`` of an in-process ``VOSystem.track_chunk`` on the card over
+   the decoded arrays in the same chunks, every frame TRACKING, aligned
+   ATE under 5%, ``measurments.txt`` 48 rows and the reference titles,
+   per frame exactly A 1, P 1, T 4 / 2 / 2, each PnP op 12 and B 0, and
+   the host syncs of the whole run, by the Python line that made each,
+   exactly one per chunk in ``cli._track_sequence`` (statuses and poses)
+   and one in ``observability._series_on_host`` (the recorder); without
+   ``--record`` the first only, and the same file; A, P and T against
+   their plain versions at each tree's frame 0 (T at the BA row site on
+   kitti); frames/s end to end and in process, decode ms per frame and
+   the set-up apart;
+11. the C ABI: ``liblvt_c_torch.so`` and ``lvt_tpu_torch/native/
+   lvt_c_example.c`` built here, 8 KITTI frames through ``lvt_track`` on
+   the card in a subprocess: status 1, 2 after each frame, 1 after
+   ``lvt_reset``, every pose equal at ``%.9g`` to the in-process card run;
+12. a JSON line with each kernel's launches and largest error against its
    plain version (in all, and by path), times and bound (T per site, per
    frame of paths 1-2 and batched; the PnP op at S = 1 and 8), then the
    last line ``{"ok": true, "device": {...}}``.
 
 Every path launches each of PnP's two ops 12 times per frame (2 passes of
 the damping's diagonal or the starting chi-square, and 5 iterations).
-Every kernel's launch count is set to 0 just before a path runs and read
-just after it; the comparisons of phase 2 and the cross-checks after each
-path are not counted.
+Every kernel's launch count is set to 0 just before a path runs (on
+path 7, each CLI run) and read just after it; the comparisons of phase 2
+and the cross-checks after each path (path 7's in-process runs) are not
+counted.
 
 ``--profile DIR`` also writes a torch.profiler table of one tracked chunk
 per path (path 6: 16 frames) to DIR, and prints the profiler's mean device
@@ -118,10 +142,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
 import warnings
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -185,6 +211,15 @@ EUROC_CLOUD = dict(n=4000, x=15.0, y=8.0, z=40.0)
 # path 6: external corners, frames of path 1; the first EXT_WARM untimed
 EXT_FRAMES = 32
 EXT_WARM = 8
+# path 7: the dataset CLIs over 48 frames written as PNG trees: paths 1
+# and 5's frames; for TUM path 4's camera and config over a cloud within
+# the format's depth range (65535 / 5000 = 13.1 m; path 4's world reaches
+# 120 m), 2-12 m deep, the camera moving TUM_SPEED m per frame. EuRoC
+# stamps from MH_01_easy's first, 20 Hz
+CLI_STAMP0_NS = 1403636579763555584
+CLI_DT_NS = 50000000
+TUM_CLOUD = dict(x=6.0, y=4.5, z=12.0)
+TUM_SPEED = 0.05
 # PnP's normal equations and chi-square sums per frame: 2 passes x (the
 # damping's diagonal or the starting chi-square + 5 LM iterations)
 PNP = 12
@@ -199,6 +234,11 @@ NEED_PER_FRAME = {
     "path5": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
     # descriptors from the box sums at the corners: no A, no P
     "path6": {"hamming_top2": 3},
+    # the CLIs (patch mode): kitti with the shipped YAML's local BA (T also
+    # at the BA row match), euroc without staged points, tum with them
+    "path7-kitti": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    "path7-euroc": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
+    "path7-tum": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
 }
 for _need in NEED_PER_FRAME.values():
     _need.update(pnp_normal_eqs=PNP, stream_sum=PNP)
@@ -207,7 +247,10 @@ T_SITES = {"path1": ("map", "staged", "row"),
            "path2": ("map", "staged", "row", "ba_row"),
            "path3": ("map", "staged", "row"),
            "path4": ("map", "staged"),
-           "path5": ("map", "row")}
+           "path5": ("map", "row"),
+           "path7-kitti": ("map", "staged", "row", "ba_row"),
+           "path7-euroc": ("map", "row"),
+           "path7-tum": ("map", "staged")}
 
 # ---- the card model behind every bound
 # device memory: H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
@@ -238,6 +281,28 @@ B_ALU_PER_PIXEL = 2 * 256
 # clamp; NMS 6 max, 2 compares, 1 select), B as above
 ONE_PIXEL_ALU_PER_PIXEL = {"perception": 16 + 16 + 128 + 30 + 3 + 9,
                            "brief": 2 * 256}
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """A grayscale PNG of ``img`` (uint8: 8-bit, uint16: 16-bit), filter
+    type 0 on every row, deflated with Python's zlib: path 7's trees are
+    written without OpenCV, which the card's machine lacks."""
+    h, w = img.shape
+    depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}[img.dtype]
+    rows = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">")))
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          rows.view(np.uint8).reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0,
+                                             0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + chunk(b"IEND", b""))
 
 
 def _say(phase: str, msg: str) -> None:
@@ -1257,6 +1322,24 @@ def euroc_setup():
     return euroc_config(), euroc_rectify_maps(), raw[0], raw[1], gt
 
 
+def tum_setup():
+    """Path 7's TUM frames: path 4's camera and config (the default
+    synthetic world's) over TUM_CLOUD; uint8 gray, float32 metric depth
+    and the camera positions."""
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+
+    c = TUM_CLOUD
+    world = SyntheticWorld(extent_x=c["x"], extent_y=c["y"], extent_z=c["z"])
+    config = VOConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
+                      baseline=world.baseline, img_width=world.width,
+                      img_height=world.height)
+    frames = list(world.rgbd_sequence(CHUNK * 3, speed=TUM_SPEED))
+    gray = np.stack([np.clip(g, 0, 255).astype(np.uint8) for g, _, _ in frames])
+    depth = np.stack([d.astype(np.float32) for _, d, _ in frames])
+    return config, gray, depth, np.array([t for _, _, (_, t) in frames])
+
+
 def _every_frame_tracking(path, status) -> None:
     from lvt_tpu_torch.core.state import TRACKING
 
@@ -1437,6 +1520,402 @@ def phase_external(config, il, ir, gt, profile_dir=None):
     return dict(launches=launches, fps=fps, syncs=syncs, profile=prof)
 
 
+# ---- path 7: the dataset CLIs on the card
+def _sync_sites(fn):
+    """``fn()``'s result and its host syncs under
+    ``torch.cuda.set_sync_debug_mode("warn")``, counted by the function
+    whose line made each: {function name or file:line: count}."""
+    import inspect
+
+    from lvt_tpu_torch import cli, observability
+
+    sites = {}
+    for f in (cli._track_sequence, observability._series_on_host):
+        lines, start = inspect.getsourcelines(f)
+        sites[f.__name__] = (inspect.getsourcefile(f),
+                             range(start, start + len(lines)))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counts = {}
+    for w in caught:
+        if "called a synchronizing CUDA operation" not in str(w.message):
+            continue
+        key = next((name for name, (path, lines) in sites.items()
+                    if os.path.realpath(w.filename) == os.path.realpath(path)
+                    and w.lineno in lines),
+                   f"{os.path.basename(w.filename)}:{w.lineno}")
+        counts[key] = counts.get(key, 0) + 1
+    return out, counts
+
+
+def _write_trees(root, kitti, euroc, tum) -> dict:
+    """The three trees in the datasets' layouts, PNGs by ``write_png``:
+    KITTI ``sequences/00/image_{0,1}/%06d.png``; EuRoC
+    ``MH_01_easy/mav0/cam{0,1}/data/<ns>.png`` and a stamps file; TUM
+    ``rgb/<s>.png``, ``depth/<s>.png`` (uint16, depth x 5000 rounded) and
+    an association file, with path 4's config as YAML. Returns each tree's
+    CLI arguments and the arrays written."""
+    from lvt_tpu_torch.io.datasets import TUM_DEPTH_SCALE
+
+    trees = {}
+    il, ir, _ = kitti
+    seq = os.path.join(root, "kitti", "sequences", "00")
+    written = []
+    for side, imgs in (("image_0", il), ("image_1", ir)):
+        os.makedirs(os.path.join(seq, side))
+        for i, img in enumerate(imgs):
+            path = os.path.join(seq, side, f"{i:06d}.png")
+            write_png(path, img)
+            written.append((path, img))
+    trees["kitti"] = dict(args=["kitti", "--sequences-dir", os.path.dirname(
+        seq), "--seq", "0"], written=written)
+
+    el, er, _ = euroc
+    names = [str(CLI_STAMP0_NS + i * CLI_DT_NS) for i in range(len(el))]
+    written = []
+    for cam, imgs in (("cam0", el), ("cam1", er)):
+        d = os.path.join(root, "euroc", "MH_01_easy", "mav0", cam, "data")
+        os.makedirs(d)
+        for name, img in zip(names, imgs):
+            write_png(os.path.join(d, f"{name}.png"), img)
+            written.append((os.path.join(d, f"{name}.png"), img))
+    stamps = os.path.join(root, "euroc", "stamps.txt")
+    with open(stamps, "w") as f:
+        f.write("\n".join(names) + "\n")
+    trees["euroc"] = dict(args=["euroc", "--root", os.path.join(
+        root, "euroc"), "--dataset", "MH_01_easy", "--stamps", stamps],
+        written=written)
+
+    config4, gray, depth, _ = tum
+    d = os.path.join(root, "tum", "rgbd_dataset_synthetic")
+    os.makedirs(os.path.join(d, "rgb"))
+    os.makedirs(os.path.join(d, "depth"))
+    written, lines = [], []
+    for i, (g, z) in enumerate(zip(gray, depth)):
+        ts = f"{1305031102.175304 + i / 30:.6f}"
+        z16 = np.rint(z / TUM_DEPTH_SCALE)
+        if z16.max() > 65535:
+            raise ValueError("path7-tum: depth past the format's 13.1 m")
+        z16 = z16.astype(np.uint16)
+        for kind, img in (("rgb", g), ("depth", z16)):
+            path = os.path.join(d, kind, f"{ts}.png")
+            write_png(path, img)
+            written.append((path, img))
+        lines.append(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png")
+    assoc = os.path.join(root, "tum", "associations.txt")
+    with open(assoc, "w") as f:
+        f.write("# timestamp rgb timestamp depth\n" + "\n".join(lines) + "\n")
+    cfg = os.path.join(root, "tum", "rgbd.yaml")
+    with open(cfg, "w") as f:
+        for k in ("fx", "fy", "cx", "cy", "baseline", "img_width",
+                  "img_height"):
+            f.write(f"{k}: {getattr(config4, k)!r}\n")
+    trees["tum"] = dict(args=["tum", "--dataset-dir", d, "--association",
+                              assoc, "--config", cfg], written=written)
+    return trees
+
+
+def _cli_reference(name, tree, config_of):
+    """The sequence reader of ``tree`` and the config and VOSystem its CLI
+    builds, on the card: the in-process counterpart of one CLI run."""
+    from lvt_tpu_torch.config import load_config
+    from lvt_tpu_torch.core.system import SensorType, VOSystem
+    from lvt_tpu_torch.io import datasets
+
+    a = tree["args"]
+    if name == "kitti":
+        seq = datasets.KittiSequence(a[2], 0)
+        config = seq.configure(load_config(config_of("kitti")))
+        return seq, config, VOSystem(config, device=DEVICE)
+    if name == "euroc":
+        seq = datasets.EurocSequence(a[2], a[4], a[6])
+        config = seq.configure(load_config(config_of("euroc")))
+        return seq, config, VOSystem(config, rectify_maps=(seq.map_l,
+                                                           seq.map_r),
+                                     device=DEVICE)
+    seq = datasets.TumRgbdSequence(a[2], a[4])
+    config = load_config(a[6])
+    return seq, config, VOSystem(config, SensorType.RGBD, device=DEVICE)
+
+
+def _dump(name, path, poses, seq) -> None:
+    from lvt_tpu_torch.io import datasets, trajectory
+
+    if name == "kitti":
+        trajectory.dump_kitti(path, poses)
+    elif name == "euroc":
+        trajectory.dump_tum(path, [datasets.euroc_body_pose(p)
+                                   for p in poses], seq.stamps)
+    else:
+        trajectory.dump_tum(path, poses, seq.stamps)
+
+
+def _tree_kernels(name, config, frames, vo):
+    """check_path_kernels at the shapes frame 0 of the tree gives the
+    kernels (frame 1 for T's second descriptor set)."""
+    from lvt_tpu_torch.core import step
+    from lvt_tpu_torch.core.extract import (extract_features_batched,
+                                            extract_features_rgbd)
+
+    (a0, b0), (a1, b1) = frames[0], frames[1]
+    up = lambda x: torch.from_numpy(np.asarray(x)).to(DEVICE)  # noqa: E731
+    path = f"path7-{name}"
+    sites = T_SITES[path]
+    if name == "tum":
+        def feats(pairs, dev):
+            fs = [extract_features_rgbd(torch.from_numpy(g).to(dev),
+                                        torch.from_numpy(d).to(dev), config)
+                  for g, d in pairs]
+            return type(fs[0])(*(torch.stack(x) for x in zip(*fs)))
+
+        s = t_site_inputs(config, feats([(a0, b0)], DEVICE),
+                          feats([(a1, b1)], DEVICE))
+        return check_path_kernels(path, config, up(a0)[None],
+                                  lambda dev: feats([(a0, b0)], dev),
+                                  {k: s[k] for k in sites})
+    if name == "euroc":
+        maps = [(m, m.cpu()) for m in vo.rectify_maps]
+        imgs = torch.stack(step._rectify_pair(up(a0), up(b0),
+                                              *(m for m, _ in maps)))
+        cpu = torch.stack(step._rectify_pair(
+            torch.from_numpy(a0), torch.from_numpy(b0),
+            *(m for _, m in maps)))
+        if not torch.equal(imgs.cpu(), cpu):
+            raise AssertionError("path7-euroc: frame 0's remap differs card "
+                                 "vs CPU")
+        one = torch.stack(step._rectify_pair(up(a1), up(b1),
+                                             *(m for m, _ in maps)))[:1]
+        f0 = extract_features_batched(imgs, config)
+        f1 = extract_features_batched(one, config)
+        s = t_site_inputs(config, _streams(f0, [0]), f1, _streams(f0, [1]))
+        return check_path_kernels(
+            path, config, imgs,
+            lambda dev: extract_features_batched(cpu.to(dev), config),
+            {k: s[k] for k in sites})
+    imgs = torch.stack([up(a0), up(b0)])
+    f = extract_features_batched(torch.stack([up(a0), up(a1), up(b0)]),
+                                 config)
+    s = t_site_inputs(config, _streams(f, [0]), _streams(f, [1]),
+                      _streams(f, [2]))
+    return check_path_kernels(
+        path, config, imgs,
+        lambda dev: extract_features_batched(imgs.to(dev), config),
+        {k: s[k] for k in sites})
+
+
+def phase_cli(kitti, euroc, tum) -> dict:
+    """Path 7: ``lvt_tpu_torch.cli.main`` (kitti, euroc, tum) on PNG trees
+    written here, each run in-process on the card with ``--chunk 16
+    --record``, against an in-process ``VOSystem.track_chunk`` over the
+    decoded arrays. ``kitti``, ``euroc``: (left, right, positions);
+    ``tum``: (config, gray, depth, positions)."""
+    import shutil
+
+    from lvt_tpu_torch import cli
+    from lvt_tpu_torch.io import native_loader, trajectory
+    from lvt_tpu_torch.observability import REFERENCE_SERIES
+
+    root = os.path.join(ROOT, "build", "chip_smoke_path7")
+    shutil.rmtree(root, ignore_errors=True)
+    lib = native_loader.build()
+    built = native_loader.build_seconds
+    _say("path7", f"PNG decoder {lib.name}: "
+                  + (f"built in {built:.2f} s" if built is not None
+                     else "built before this run"))
+    t0 = time.perf_counter()
+    trees = _write_trees(root, kitti, euroc, tum)
+    _say("path7", f"trees written in {time.perf_counter() - t0:.2f} s")
+    gts = {"kitti": kitti[2], "euroc": euroc[2], "tum": tum[3]}
+    config_of = lambda n: os.path.join(cli.CONFIG_DIR, n,  # noqa: E731
+                                       "vo_config.yaml")
+    launches, kernel_errs, fps, configs = {}, {}, {}, {}
+    for name, tree in trees.items():
+        path = f"path7-{name}"
+        t_decode = 0.0
+        for file, img in tree["written"]:
+            t0 = time.perf_counter()
+            got = (native_loader.imread_native(file) if img.dtype == np.uint16
+                   else native_loader.imread_gray_native(file))
+            t_decode += time.perf_counter() - t0
+            if got.dtype != img.dtype or not np.array_equal(got, img):
+                raise AssertionError(f"{path}: {file} decodes other than "
+                                     f"written")
+        n = len(gts[name])
+        out = os.path.join(root, name, "cli.txt")
+        cwd = os.getcwd()
+        os.chdir(os.path.join(root, name))   # --record writes here
+        try:
+            counters = _zero_counters()
+            t0 = time.perf_counter()
+            rc, syncs = _sync_sites(lambda: cli.main(
+                tree["args"] + ["--output", out, "--chunk", str(CHUNK),
+                                "--record"]))
+            t_cli = time.perf_counter() - t0
+            run_launches = {k: fn.launches for k, fn in counters.items()}
+            rows = open("measurments.txt").read().splitlines()
+            titles = open("titles.txt").read().splitlines()
+        finally:
+            os.chdir(cwd)
+        if rc != 0:
+            raise AssertionError(f"{path}: the CLI returned {rc}")
+        _check_launches(path, run_launches, n)
+        n_chunks = -(-n // CHUNK)
+        # by design the loop's one read per chunk (its statuses and poses,
+        # cli._track_sequence) and the recorder's one transfer per chunk
+        # (observability._series_on_host); nothing else syncs
+        want = {"_track_sequence": n_chunks, "_series_on_host": n_chunks}
+        _say(path, f"host syncs of the CLI run (set_sync_debug_mode warn) "
+                   f"by site: {syncs}")
+        if syncs != want:
+            raise AssertionError(f"{path}: host syncs {syncs}, by design "
+                                 f"{want}")
+        if len(rows) != n or titles[:len(REFERENCE_SERIES)] != \
+                REFERENCE_SERIES:
+            raise AssertionError(f"{path}: measurments.txt has {len(rows)} "
+                                 f"rows, titles.txt {titles[:3]}...")
+
+        # in process: the sequence reader's decoded arrays, the same config
+        # and chunks, VOSystem.track_chunk on the card
+        t0 = time.perf_counter()
+        seq, config, vo = _cli_reference(name, tree, config_of)
+        t_setup = time.perf_counter() - t0
+        configs[name] = config
+        frames = list(seq)
+        t0 = time.perf_counter()
+        poses, status = [], []
+        for c in range(0, n, CHUNK):
+            a = np.stack([f[0] for f in frames[c:c + CHUNK]])
+            b = np.stack([f[1] for f in frames[c:c + CHUNK]])
+            p, m = vo.track_chunk(a, b)
+            poses += [type(p)(t, q) for t, q in zip(p.t.cpu(), p.q.cpu())]
+            status.append(m.status)
+        t_in = time.perf_counter() - t0
+        ref = os.path.join(root, name, "in_process.txt")
+        _dump(name, ref, poses, seq)
+        same = open(out, "rb").read() == open(ref, "rb").read()
+        _every_frame_tracking(path, torch.cat(status))
+        est = (trajectory.load_kitti(out)[:, :, 3] if name == "kitti"
+               else trajectory.load_tum(out)[1])
+        if est.shape != (n, 3):
+            raise AssertionError(f"{path}: {est.shape[0]} rows, not {n}")
+        if not same:
+            raise AssertionError(f"{path}: the CLI's trajectory differs from "
+                                 f"the in-process run's")
+        err = trajectory.ate_rmse_aligned(est, gts[name])
+        dist = float(np.linalg.norm(gts[name][-1] - gts[name][0]))
+        if not err < 0.05 * dist:
+            raise AssertionError(f"{path}: ATE {err:.4f} m is not under 5% "
+                                 f"of {dist:.2f} m")
+        fps[name] = (n / t_cli, n / t_in)
+        _say(path, f"{n} frames {config.img_width}x{config.img_height}: "
+                   f"trajectory byte-equal to the in-process run, every "
+                   f"frame TRACKING, aligned ATE {err:.4f} m over "
+                   f"{dist:.2f} m ({100 * err / dist:.3f}%), "
+                   f"measurments.txt {len(rows)} rows")
+        _say(path, f"{n / t_cli:.2f} frames/s end to end (the CLI, PNG "
+                   f"decode included), {n / t_in:.2f} frames/s in process "
+                   f"(track_chunk on the decoded arrays, upload included)")
+        _say(path, f"apart: PNG decode {1e3 * t_decode / n:.2f} ms per frame "
+                   f"({len(tree['written']) // n} PNGs), the reader's and "
+                   f"VOSystem's set-up {t_setup:.3f} s (EuRoC: the two "
+                   f"rectification maps)")
+        _say(path, f"launches during the CLI run: {run_launches}")
+        for k, v in run_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in _tree_kernels(name, config, frames, vo).items():
+            kernel_errs[k] = max(v, kernel_errs.get(k, 0.0))
+
+    # the kitti CLI without --record: one host sync per chunk
+    out = os.path.join(root, "kitti", "no_record.txt")
+    _, syncs = _sync_sites(lambda: cli.main(
+        trees["kitti"]["args"] + ["--output", out, "--chunk", str(CHUNK)]))
+    n_chunks = -(-len(gts["kitti"]) // CHUNK)
+    _say("path7-kitti", f"without --record: host syncs {syncs}")
+    if syncs != {"_track_sequence": n_chunks}:
+        raise AssertionError(f"path7-kitti: without --record, host syncs "
+                             f"{syncs}")
+    if open(out, "rb").read() != open(os.path.join(root, "kitti", "cli.txt"),
+                                      "rb").read():
+        raise AssertionError("path7-kitti: --record changed the trajectory")
+    return dict(launches=launches, kernel_errs=kernel_errs, fps=fps,
+                decoder_build_s=built, root=root, configs=configs)
+
+
+C_ABI_FRAMES = 8
+
+
+def phase_c_abi(root, config, il, ir) -> dict:
+    """The C ABI on the card: ``liblvt_c_torch.so`` and the C program
+    ``lvt_tpu_torch/native/lvt_c_example.c`` built here (g++ and gcc, the
+    embedded interpreter's flags from python3-config), run in a subprocess
+    (``LVT_TPU_TORCH_DEVICE=cuda``) over the kitti tree's first
+    C_ABI_FRAMES frames with the kitti CLI's config: the status 1 before,
+    2 after every frame and 1 after ``lvt_reset``, and every pose equal as
+    printed (``%.9g``) to an in-process ``track`` run on the card."""
+    import dataclasses
+
+    from lvt_tpu_torch import capi
+    from lvt_tpu_torch.config import VOConfig, load_config
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.io.trajectory import pose_to_rt
+
+    d = os.path.join(root, "c_abi")
+    os.makedirs(d)
+    cfg = os.path.join(d, "vo_config.yaml")
+    default = VOConfig()
+    with open(cfg, "w") as f:
+        for k, v in dataclasses.asdict(config).items():
+            if v != getattr(default, k):
+                f.write(f"{k}: {int(v) if isinstance(v, bool) else v!r}\n")
+    if load_config(cfg) != config:
+        raise AssertionError("c_abi: the config's YAML loads otherwise")
+    n, (h, w) = C_ABI_FRAMES, il.shape[1:]
+    for i in range(n):
+        with open(os.path.join(d, f"left_{i}.raw"), "wb") as f:
+            f.write(il[i].tobytes())
+        with open(os.path.join(d, f"right_{i}.raw"), "wb") as f:
+            f.write(ir[i].tobytes())
+    t0 = time.perf_counter()
+    exe = capi.build_example(os.path.join(d, "lvt_c_example"))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(exe), cfg, d, str(n), str(h), str(w)],
+                          capture_output=True, text=True, timeout=600,
+                          env=capi.example_env("cuda"))
+    run_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"c_abi: the C program exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    out = proc.stdout.splitlines()
+    status = [int(x.split()[1]) for x in out if x.startswith("status")]
+    if status != [1] + [2] * n + [1] or out[-1] != "done":
+        raise AssertionError(f"c_abi: statuses {status}")
+    vo = VOSystem(load_config(cfg), device=DEVICE)
+    want = []
+    for i in range(n):
+        vo.track(il[i], ir[i])
+        r, t = pose_to_rt(vo.last_pose)
+        want.append("pose " + " ".join(f"{v:.9g}" for v in
+                                       np.concatenate([r.reshape(-1), t])))
+    got = [x for x in out if x.startswith("pose")]
+    if got != want:
+        raise AssertionError(f"c_abi: poses differ from the in-process card "
+                             f"run:\n{got}\n{want}")
+    _say("c_abi", f"liblvt_c_torch.so and the C program built in "
+                  f"{build_s:.2f} s; {n} KITTI frames {w}x{h} through "
+                  f"lvt_track on the card in a subprocess ({run_s:.2f} s, "
+                  f"interpreter start and kernel load included): statuses "
+                  f"{status} (1, then 2, 1 after lvt_reset), every pose "
+                  f"equal at %.9g to the in-process card run")
+    return dict(build_s=build_s, run_s=run_s)
+
+
 STAGES = ("rectify", "perception", "corner_select", "patch_describe",
           "corner_select_describe", "motion_predict", "map_matching",
           "pnp_solve", "map_bookkeeping", "staged_update", "triangulation",
@@ -1571,7 +2050,8 @@ def main(argv=None) -> int:
                                  runs["path3"].pop("pnp_inputs")).items():
         report[name] = rep
         runs["path3"]["kernel_errs"][name] = rep["max_abs_err"]
-    runs["path5"] = phase_rectified(*euroc_setup(), args.profile)
+    euroc = euroc_setup()
+    runs["path5"] = phase_rectified(*euroc, args.profile)
     # path 5's M (4096 map points) is the one other than path 3's 1024
     for name, rep in measure_pnp(card, "path5",
                                  runs["path5"].pop("pnp_inputs")).items():
@@ -1579,6 +2059,11 @@ def main(argv=None) -> int:
         runs["path5"]["kernel_errs"][name] = rep["max_abs_err"]
     runs["path6"] = phase_external(configs["path1"], il[:EXT_FRAMES],
                                    ir[:EXT_FRAMES], gt, args.profile)
+    k = CHUNK * 3
+    runs["path7"] = phase_cli(
+        (il[:k].cpu().numpy(), ir[:k].cpu().numpy(), gt[:k]),
+        (euroc[2].numpy(), euroc[3].numpy(), euroc[4]),
+        tum_setup())
 
     entries = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -1599,17 +2084,25 @@ def main(argv=None) -> int:
                      max_abs_err_by_path=by_path)
         if args.profile:
             entry["profiler_ms_by_path"] = {
-                p: r["profile"].get(k, {}).get("device_ms")
+                p: (r.get("profile") or {}).get(k, {}).get("device_ms")
                 for p, r in runs.items()}
         entries.append(entry)
+    phase_c_abi(runs["path7"].pop("root"),
+                runs["path7"].pop("configs")["kitti"],
+                il[:C_ABI_FRAMES].cpu().numpy(),
+                ir[:C_ABI_FRAMES].cpu().numpy())
     _say("summary", f"path 3's streams 0 and 1 "
                     f"{'equal' if runs['path3']['equal'] else 'NOT equal'} "
                     f"to the single stream (largest gap "
                     f"{max(runs['path3']['gaps'])} m)")
     _say("summary", "frames/s: " + ", ".join(
-        f"{p} {r['fps']:.2f}" for p, r in runs.items())
+        f"{p} {r['fps']:.2f}" for p, r in runs.items() if p != "path7")
         + f" (path 3 aggregate of {MS_STREAMS} streams; "
         f"{runs['path3']['fps_per_stream']:.2f} per stream)")
+    _say("summary", "path 7 frames/s, end to end with PNG decode / in "
+                    "process: " + ", ".join(
+                        f"{name} {a:.2f} / {b:.2f}" for name, (a, b)
+                        in runs["path7"]["fps"].items()))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"],

@@ -1,14 +1,23 @@
 """VOSystem: the host-side object around the tracking step.
 
-Port of lvt_tpu/core/system.py (stereo and RGB-D). The VOState lives on
-``device`` (default ``cuda``); ``track`` uploads one frame (a rectified
-stereo pair, a raw pair when the system holds ``rectify_maps``, or a gray
-image and its metric depth) and returns its pose, ``track_chunk`` runs N
-frames and returns N poses, ``track_with_external_corners`` tracks a
-stereo pair at the caller's corners. Checkpoints are npz files keyed by
-state path (``.map.pos``, ...), the same keys and dtypes lvt_tpu writes,
-so a checkpoint crosses between the two packages in both directions;
-lvt_tpu's older positional files (``arr_0``, ...) load too.
+Port of lvt_tpu/core/system.py (stereo and RGB-D), with its constructor:
+``VOSystem(config, sensor_type, metrics_recorder, trace_log, log_dir,
+rectify_maps, *, device="cuda")``. The VOState lives on ``device``;
+``track`` uploads one frame (a rectified stereo pair, a raw pair when the
+system holds ``rectify_maps``, or a gray image and its metric depth) and
+returns its pose, ``track_chunk`` runs N frames and returns N poses,
+``track_with_external_corners`` tracks a stereo pair at the caller's
+corners. Host arrays go up from pinned memory without blocking the host
+(``device.upload``), so a chunk syncs the host only where a caller reads
+a result. A ``metrics_recorder`` (``observability.ValueRecorder``) gets
+every frame's metrics, a chunk's in one transfer; a ``trace_log``
+(``observability.TraceLog``, made in ``log_dir`` when
+``config.enable_logging`` is set) gets the parameters at creation, a line
+per ``track`` call and the resets. With neither, nothing is read back.
+Checkpoints are npz files keyed by state path (``.map.pos``, ...), the
+same keys and dtypes lvt_tpu writes, so a checkpoint crosses between the
+two packages in both directions; lvt_tpu's older positional files
+(``arr_0``, ...) load too.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ from lvt_tpu_torch.config import VOConfig
 from lvt_tpu_torch import convert
 from lvt_tpu_torch.core import step as step_mod
 from lvt_tpu_torch.core.state import StepMetrics, VOState
-from lvt_tpu_torch.device import resolve_device
+from lvt_tpu_torch.device import resolve_device, upload
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.tree import flatten_with_path, tree_map, unflatten_like
 
@@ -44,8 +53,9 @@ class VOSystem:
     ``device``."""
 
     def __init__(self, config: VOConfig,
-                 sensor_type: SensorType = SensorType.STEREO, *,
-                 device="cuda", rectify_maps: tuple | None = None):
+                 sensor_type: SensorType = SensorType.STEREO,
+                 metrics_recorder=None, trace_log=None, log_dir: str = ".",
+                 rectify_maps: tuple | None = None, *, device="cuda"):
         """``rectify_maps``: (left, right) [H, W, 2] source-pixel maps
         (``ops.undistort.make_rectify_map``), stereo only; then raw
         (distorted, unrectified) frames go in and are remapped inside the
@@ -55,30 +65,48 @@ class VOSystem:
         self.config = config
         self.sensor_type = SensorType(sensor_type)
         self.device = resolve_device(device)
+        self.metrics_recorder = metrics_recorder
         self.rectify_maps = None
         if rectify_maps is not None:
             if self.sensor_type != SensorType.STEREO:
                 raise ValueError("rectify_maps: stereo input only")
             hw2 = (config.img_height, config.img_width, 2)
             self.rectify_maps = tuple(
-                torch.as_tensor(np.asarray(m, np.float32)).to(self.device)
+                upload(np.asarray(m, np.float32), self.device)
                 for m in rectify_maps)
             if any(tuple(m.shape) != hw2 for m in self.rectify_maps):
                 raise ValueError(f"rectify_maps: expected two maps of {hw2}")
+        # the reference's LVT_ENABLE_LOG wiring (lvt_system.cpp:106-116):
+        # a trace log made when config.enable_logging is set (or given),
+        # the parameters dumped at creation
+        if trace_log is None and config.enable_logging:
+            from lvt_tpu_torch.observability import TraceLog
+
+            trace_log = TraceLog(out_dir=log_dir)
+        self.trace_log = trace_log
+        if self.trace_log is not None:
+            self.trace_log.log_params(config)
+        self.state = self._initial_state()
         self.last_metrics: Optional[StepMetrics] = None
-        self.reset()
 
     @staticmethod
     def create(config: VOConfig, sensor_type: SensorType = SensorType.STEREO,
                **kw) -> "VOSystem":
         return VOSystem(config, sensor_type, **kw)
 
-    def reset(self) -> None:
-        """Clear map, motion model and state machine."""
-        self.state = VOState.initial(
+    def _initial_state(self) -> VOState:
+        return VOState.initial(
             self.config.max_map_points, self.config.max_staged_points,
             self.config.local_ba_window, device=self.device)
+
+    def reset(self) -> None:
+        """Clear map, motion model and state machine."""
+        self.state = self._initial_state()
         self.last_metrics = None
+        if self.metrics_recorder is not None:
+            self.metrics_recorder.reset()
+        if self.trace_log is not None:
+            self.trace_log.log("VO was just reset.")
 
     # -- introspection (each reads one scalar back from the device)
     def get_state(self) -> TrackingState:
@@ -100,7 +128,7 @@ class VOSystem:
 
     # -- tracking
     def _prep(self, img, ndim: int) -> torch.Tensor:
-        a = torch.as_tensor(img).to(self.device)
+        a = upload(img, self.device)
         hw = (self.config.img_height, self.config.img_width)
         if a.ndim != ndim or tuple(a.shape[-2:]) != hw:
             raise ValueError(f"expected {ndim}-d grayscale image(s) of {hw}, "
@@ -115,17 +143,44 @@ class VOSystem:
             return self._prep(img, ndim)
         return self._prep(torch.as_tensor(img, dtype=torch.float32), ndim)
 
+    def _finish(self, pose: Pose, metrics: StepMetrics) -> Pose:
+        """One frame's pose, after its metrics went to the recorder and its
+        line to the trace log (the reference's per-frame logs,
+        lvt_system.cpp:159,174,258,265; one read of six scalars)."""
+        self.last_metrics = metrics
+        if self.metrics_recorder is not None:
+            self.metrics_recorder.record_step(metrics)
+        if self.trace_log is not None:
+            frame, status, matches, inliers, size, kps = torch.stack([
+                self.state.frame_number, self.state.status,
+                metrics.tracked_map_points, metrics.inlier_count,
+                metrics.map_points_count, metrics.image_keypoints,
+            ]).tolist()
+            self.trace_log.log(
+                f"Frame #{frame}: status={TrackingState(status).name} "
+                f"matches={matches} inliers={inliers} map={size} "
+                f"keypoints={kps}")
+        return pose
+
     def track(self, img1, img2) -> Pose:
         """One frame, a chunk of one. Stereo: grayscale (left, right), raw
         if the system holds ``rectify_maps``, rectified otherwise; RGB-D:
         (gray, metric depth)."""
-        poses, _ = self.track_chunk(self._prep(img1, 2)[None],
-                                    self._prep2(img2, 2)[None])
-        return tree_map(lambda x: x[0], poses)
+        poses, metrics = self._track_chunk(self._prep(img1, 2)[None],
+                                           self._prep2(img2, 2)[None])
+        first = lambda x: x[0]  # noqa: E731
+        return self._finish(tree_map(first, poses), tree_map(first, metrics))
 
     def track_chunk(self, imgs1, imgs2):
         """N frames, same result as N ``track`` calls; returns (poses,
-        metrics) with a leading N axis."""
+        metrics) with a leading N axis. The recorder, if any, reads the
+        chunk's metrics in one transfer."""
+        poses, metrics = self._track_chunk(imgs1, imgs2)
+        if self.metrics_recorder is not None:
+            self.metrics_recorder.record_chunk(metrics)
+        return poses, metrics
+
+    def _track_chunk(self, imgs1, imgs2):
         a = self._prep(imgs1, 3)
         b = self._prep2(imgs2, 3)
         if a.shape != b.shape:
@@ -156,13 +211,12 @@ class VOSystem:
             c = np.asarray(c, np.float32).reshape(-1, 2)[:cap]
             packed[side, :len(c), :2] = c
             packed[side, :len(c), 2] = 1.0
-        dev = torch.from_numpy(packed).to(self.device)
+        dev = upload(packed, self.device)
         corners, valid = dev[..., :2].contiguous(), dev[..., 2] > 0
         self.state, pose, metrics = step_mod.track_step_external_corners(
             self.state, self._prep(left_image, 2), self._prep(right_image, 2),
             corners[0], valid[0], corners[1], valid[1], self.config)
-        self.last_metrics = metrics
-        return pose
+        return self._finish(pose, metrics)
 
     # -- checkpoint / resume
     def save_checkpoint(self, path: str) -> None:

@@ -17,6 +17,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -41,3 +42,17 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False (this PyTorch build or machine has no CUDA device)")
     return dev
+
+
+def upload(x, device: torch.device) -> torch.Tensor:
+    """``x`` (an array or a tensor) on ``device``. A host array bound for a
+    CUDA device is staged in pinned memory and copied without blocking the
+    host, so the upload is no host sync (the caching host allocator keeps
+    the pinned block until the copy has run). A read-only array (a view of
+    a message buffer) is copied first: torch takes no read-only memory."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()
+    t = torch.as_tensor(x)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

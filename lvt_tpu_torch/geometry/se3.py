@@ -30,6 +30,17 @@ class Pose(NamedTuple):
         """Camera-to-world [R | t] (3x4)."""
         return torch.cat([self.rotation_matrix(), self.t[..., :, None]], dim=-1)
 
+    def matrix44(self) -> torch.Tensor:
+        """Camera-to-world homogeneous transform (4x4)."""
+        m34 = self.matrix34()
+        bottom = torch.zeros_like(m34[..., :1, :])
+        bottom[..., 0, 3] = 1.0
+        return torch.cat([m34, bottom], dim=-2)
+
+    @staticmethod
+    def from_matrix44(m: torch.Tensor) -> "Pose":
+        return Pose(m[..., :3, 3], quat.from_matrix(m[..., :3, :3]))
+
     def compose(self, other: "Pose") -> "Pose":
         """Composition self * other (apply other first, then self)."""
         return Pose(

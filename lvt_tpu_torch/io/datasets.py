@@ -1,20 +1,99 @@
-"""Dataset calibration the port needs: the EuRoC MAV stereo rig.
+"""Dataset readers: KITTI odometry, EuRoC MAV, TUM RGB-D.
 
-A copy of the EuRoC part of lvt_tpu/io/datasets.py (its ``EUROC_*``
-constants, the public calibration that the reference's EuRoC example
-hardcodes), the two rectification maps ``EurocSequence`` builds from them,
-and raw frames of the rig rendered from a point cloud (the renderer of
-lvt_tpu's EuRoC CLI test), for runs without the dataset. The KITTI, EuRoC
-and TUM sequence readers are not ported yet (ROADMAP Queue 1, the shells):
-they read images with OpenCV or lvt_tpu's native loader.
+Port of lvt_tpu/io/datasets.py: the three sequence readers of the
+reference's example drivers (examples/kitti/kitti_example.cpp:62-104,
+examples/euroc/euroc_example.cpp:63-143, examples/tum_rgbd/
+tum_rgbd_example.cpp:62-132), yielding numpy frames; the EuRoC rig's
+public calibration (the ``EUROC_*`` constants its example hardcodes) and
+the two rectification maps built from it; and raw frames of the rig
+rendered from a point cloud (the renderer of lvt_tpu's EuRoC CLI test),
+for runs without the dataset.
+
+PNGs are decoded by the port's own decoder (``io.native_loader``); OpenCV
+reads only files that are not PNGs, where it is installed. A PNG the
+decoder rejects raises: there is no silent fallback.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Iterator
+
 import numpy as np
+import torch
 
-from lvt_tpu_torch.ops.undistort import make_rectify_map
+from lvt_tpu_torch.config import VOConfig, load_kitti_calib
+from lvt_tpu_torch.geometry.se3 import Pose
+from lvt_tpu_torch.io import native_loader
+from lvt_tpu_torch.ops.undistort import make_rectify_map, remap_bilinear
 
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "configs")
+
+
+def _imread_cv2(path: str, flag_name: str) -> np.ndarray:
+    import cv2
+
+    img = cv2.imread(path, getattr(cv2, flag_name))
+    if img is None:
+        raise FileNotFoundError(path)
+    return img
+
+
+def imread_gray(path: str) -> np.ndarray:
+    """Grayscale image load (uint8 [H, W])."""
+    if native_loader.is_png(path):
+        return native_loader.imread_gray_native(path)
+    return _imread_cv2(path, "IMREAD_GRAYSCALE")
+
+
+def imread_raw(path: str) -> np.ndarray:
+    """Load keeping dtype and channels (16-bit TUM depth PNGs)."""
+    if native_loader.is_png(path):
+        return native_loader.imread_native(path)
+    return _imread_cv2(path, "IMREAD_UNCHANGED")
+
+
+# ----------------------------------------------------------------------
+# KITTI odometry
+# ----------------------------------------------------------------------
+class KittiSequence:
+    """KITTI odometry grayscale stereo sequence (image_0/image_1)."""
+
+    def __init__(self, sequences_dir: str, seq: int,
+                 calib_path: str | None = None):
+        self.seq = seq
+        self.dir = os.path.join(sequences_dir, f"{seq:02d}")
+        self.left_dir = os.path.join(self.dir, "image_0")
+        self.right_dir = os.path.join(self.dir, "image_1")
+        if calib_path is None:
+            calib_path = os.path.join(CONFIG_DIR, "kitti", f"{seq:02d}.yaml")
+        self.calib = load_kitti_calib(calib_path)
+        self.frames = sorted(
+            f for f in os.listdir(self.left_dir) if f.endswith(".png"))
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def probe_image_size(self) -> tuple[int, int]:
+        img = imread_gray(os.path.join(self.left_dir, self.frames[0]))
+        return img.shape[1], img.shape[0]
+
+    def configure(self, config: VOConfig) -> VOConfig:
+        w, h = self.probe_image_size()
+        return config.replace(img_width=w, img_height=h, **self.calib)
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        for name in self.frames:
+            yield (imread_gray(os.path.join(self.left_dir, name)),
+                   imread_gray(os.path.join(self.right_dir, name)))
+
+
+# ----------------------------------------------------------------------
+# EuRoC MAV
+# ----------------------------------------------------------------------
+# Public EuRoC camera calibration, as the reference's EuRoC example
+# hardcodes it (examples/euroc/euroc_example.cpp:95-119).
 EUROC_KL = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1.0]])
 EUROC_KR = np.array([[457.587, 0, 379.999], [0, 456.134, 255.238], [0, 0, 1.0]])
 EUROC_DL = np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0])
@@ -47,6 +126,104 @@ def euroc_rectify_maps() -> tuple[np.ndarray, np.ndarray]:
     w, h = EUROC_SIZE
     return (make_rectify_map(w, h, EUROC_KL, EUROC_DL, EUROC_RL, EUROC_P),
             make_rectify_map(w, h, EUROC_KR, EUROC_DR, EUROC_RR, EUROC_P))
+
+
+def euroc_body_pose(pose: Pose) -> Pose:
+    """A left-camera pose in the EuRoC body frame, ``T_BS @ T_cam``
+    (euroc_example.cpp:153-158), as lvt_tpu's EuRoC driver computes it: the
+    float32 4x4 times EUROC_T_BS in float64, rounded to float32, on the
+    CPU."""
+    m = EUROC_T_BS @ pose.matrix44().cpu().numpy()
+    return Pose.from_matrix44(torch.as_tensor(m, dtype=torch.float32))
+
+
+class EurocSequence:
+    """EuRoC stereo sequence; its frames are raw (distorted, unrectified),
+    for ``VOSystem(config, rectify_maps=(seq.map_l, seq.map_r))``, which
+    remaps them inside the step, or for :meth:`rectify`."""
+
+    def __init__(self, root_dir: str, dataset_name: str,
+                 stamps_path: str | None = None):
+        self.seq_dir = os.path.join(root_dir, dataset_name, "mav0")
+        if stamps_path is None:
+            stamps_path = os.path.join(CONFIG_DIR, "euroc",
+                                       f"{dataset_name}.txt")
+        self.titles: list[str] = []
+        self.stamps: list[float] = []
+        with open(stamps_path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                name = line.split()[0]
+                self.titles.append(name + ".png")
+                self.stamps.append(float(name) / 1e9)
+        self.map_l, self.map_r = euroc_rectify_maps()
+
+    def __len__(self) -> int:
+        return len(self.titles)
+
+    def configure(self, config: VOConfig) -> VOConfig:
+        w, h = EUROC_SIZE
+        return config.replace(
+            fx=float(EUROC_P[0, 0]), fy=float(EUROC_P[1, 1]),
+            cx=float(EUROC_P[0, 2]), cy=float(EUROC_P[1, 2]),
+            baseline=EUROC_BASELINE, img_width=w, img_height=h)
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Yields the raw frames."""
+        for name in self.titles:
+            yield (
+                imread_gray(os.path.join(self.seq_dir, "cam0", "data", name)),
+                imread_gray(os.path.join(self.seq_dir, "cam1", "data", name)),
+            )
+
+    def rectify(self, img_left, img_right):
+        """The rectified float32 pair, on the images' device (a numpy frame
+        is on the CPU): ``remap_bilinear`` through the two maps."""
+        left, right = torch.as_tensor(img_left), torch.as_tensor(img_right)
+        return (remap_bilinear(left, torch.as_tensor(self.map_l).to(
+                    left.device)),
+                remap_bilinear(right, torch.as_tensor(self.map_r).to(
+                    right.device)))
+
+
+# ----------------------------------------------------------------------
+# TUM RGB-D
+# ----------------------------------------------------------------------
+TUM_DEPTH_SCALE = 1.0 / 5000.0  # tum_rgbd_example.cpp:111
+
+
+class TumRgbdSequence:
+    """TUM RGB-D sequence through an association file (rgb <-> depth
+    pairs)."""
+
+    def __init__(self, dataset_dir: str, association_path: str | None = None):
+        self.dir = dataset_dir
+        if association_path is None:
+            name = os.path.basename(os.path.normpath(dataset_dir))
+            association_path = os.path.join(
+                CONFIG_DIR, "tum_rgbd", "associations", f"{name}.txt")
+        self.entries: list[tuple[float, str, str]] = []
+        with open(association_path) as f:
+            for line in f:
+                parts = line.strip().split()
+                if len(parts) >= 4 and not line.startswith("#"):
+                    self.entries.append((float(parts[0]), parts[1], parts[3]))
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    @property
+    def stamps(self) -> list[float]:
+        return [e[0] for e in self.entries]
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Yields (grayscale uint8, metric depth float32)."""
+        for _, rgb_rel, depth_rel in self.entries:
+            rgb = imread_gray(os.path.join(self.dir, rgb_rel))
+            depth_raw = imread_raw(os.path.join(self.dir, depth_rel))
+            yield rgb, depth_raw.astype(np.float32) * TUM_DEPTH_SCALE
 
 
 def render_euroc_raw(points: np.ndarray, intensities: np.ndarray,

@@ -590,6 +590,57 @@ def test_external_corners_on_the_card_match_the_cpu(cuda):
                                rtol=0)
 
 
+@pytest.mark.cuda
+def test_kitti_cli_on_the_card_is_the_in_process_run(cuda, tmp_path):
+    """``python -m lvt_tpu_torch kitti`` on the card (its default device)
+    over a small tree (tests/test_cli.py's world and YAML, PNGs by
+    chip_smoke's writer: the GPU machine has no OpenCV) writes, byte for
+    byte, the trajectory of an in-process ``track_chunk`` run on the card
+    over the decoded frames in the same chunks."""
+    import chip_smoke
+    from lvt_tpu_torch.cli import main
+    from lvt_tpu_torch.config import load_config
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.io.datasets import KittiSequence
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.io.trajectory import dump_kitti
+
+    world = SyntheticWorld(width=320, height=240, fx=260.0, fy=260.0,
+                           cx=160.0, cy=120.0, baseline=0.3, n_points=1500,
+                           extent_x=40.0, extent_y=18.0, extent_z=90.0)
+    seq_dir = tmp_path / "sequences" / "03"
+    for side in ("image_0", "image_1"):
+        (seq_dir / side).mkdir(parents=True)
+    for i, (l, r, _) in enumerate(world.stereo_sequence(10, speed=0.5)):
+        chip_smoke.write_png(str(seq_dir / "image_0" / f"{i:06d}.png"),
+                             l.astype(np.uint8))
+        chip_smoke.write_png(str(seq_dir / "image_1" / f"{i:06d}.png"),
+                             r.astype(np.uint8))
+    calib, cfg = tmp_path / "calib_03.yaml", tmp_path / "vo.yaml"
+    calib.write_text("camera_matrix:\n  data: [260.0, 0.0, 160.0, 0.0, "
+                     "260.0, 120.0, 0.0, 0.0, 1.0]\nbaseline: 0.3\n")
+    cfg.write_text("near_plane_distance: 0.5\nfar_plane_distance: 150.0\n"
+                   "agast_threshold: 15\ndetection_cell_size: 80\n"
+                   "max_keypoints_per_cell: 60\nmax_map_points: 1024\n"
+                   "max_staged_points: 1024\n")
+    out = tmp_path / "03.txt"
+    assert main(["kitti", "--sequences-dir", str(tmp_path / "sequences"),
+                 "--seq", "3", "--calib", str(calib), "--config", str(cfg),
+                 "--output", str(out), "--chunk", "4"]) == 0
+    seq = KittiSequence(str(tmp_path / "sequences"), 3, str(calib))
+    vo = VOSystem(seq.configure(load_config(str(cfg))), device=cuda)
+    frames, poses = list(seq), []
+    for c in range(0, len(frames), 4):
+        p, m = vo.track_chunk(np.stack([f[0] for f in frames[c:c + 4]]),
+                              np.stack([f[1] for f in frames[c:c + 4]]))
+        assert (m.status == 2).all()
+        poses += [type(p)(t, q) for t, q in zip(p.t, p.q)]
+    want = tmp_path / "in_process.txt"
+    dump_kitti(str(want), poses)
+    assert len(out.read_text().splitlines()) == 10
+    assert out.read_bytes() == want.read_bytes()
+
+
 @pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2",
                                   "pnp", "stream_sum"])
 def test_wrapper_never_falls_back_off_the_cpu(call):

@@ -189,3 +189,61 @@ def test_ate_rmse_agrees():
     est, gt = rs.randn(40, 3), rs.randn(40, 3)
     assert synthetic.ate_rmse(est, gt) == jx_synthetic.ate_rmse(est, gt)
     assert synthetic.ate_rmse(gt, gt) == 0.0
+
+
+SHELLS = ("cli.py", "capi.py", "observability.py", "viz.py", "viz_html.py",
+          "io/trajectory.py", "io/native_loader.py", "io/datasets.py",
+          "io/streaming.py", "io/ros2_bridge.py", "__main__.py")
+
+
+def test_the_shells_are_scanned():
+    scanned = {p.relative_to(ROOT / "lvt_tpu_torch").as_posix()
+               for p in _port_sources() if "lvt_tpu_torch" in p.parts}
+    assert set(SHELLS) <= scanned
+
+
+def test_shell_copies_are_lvt_tpus():
+    """The KITTI calibrations 00-21, the TUM associations, the C header
+    and the PNG decoder's source are byte-equal copies; the C ABI's
+    source is lvt_tpu's, forwarding to the port's capi module."""
+    jx, port = ROOT / "lvt_tpu", ROOT / "lvt_tpu_torch"
+    pairs = [(f"configs/kitti/{i:02d}.yaml",) for i in range(22)]
+    assoc = sorted((jx / "configs" / "tum_rgbd" / "associations").iterdir())
+    assert len(assoc) == 7
+    assert sorted(p.name for p in (port / "configs" / "tum_rgbd" /
+                                   "associations").iterdir()) == \
+        [p.name for p in assoc]
+    pairs += [(f"configs/tum_rgbd/associations/{p.name}",) for p in assoc]
+    pairs += [("native/lvt_c.h",), ("native/png_loader.cpp",)]
+    for (rel,) in pairs:
+        assert (port / rel).read_bytes() == (jx / rel).read_bytes(), rel
+    for i in range(22):
+        name = f"{i:02d}.yaml"
+        assert config.load_kitti_calib(os.path.join(configs.KITTI_DIR,
+                                                    name)) == \
+            jx_config.load_kitti_calib(str(jx / "configs" / "kitti" / name))
+    src = (port / "native" / "lvt_c.cpp").read_text()
+    assert 'PyImport_ImportModule("lvt_tpu_torch.capi")' in src
+    assert "lvt_tpu.capi" not in src
+    theirs = (jx / "native" / "lvt_c.cpp").read_text()
+    body = lambda s: s[s.index("#define PY_SSIZE_T_CLEAN"):]  # noqa: E731
+    assert body(src).replace("lvt_tpu_torch.capi", "lvt_tpu.capi") == \
+        body(theirs).replace("(jax, numpy)", "(torch, numpy)")
+
+
+def test_package_data_ships_every_data_file():
+    """pyproject.toml's package-data globs cover every file of the package
+    that is not Python (the configs, the CUDA and C++ sources)."""
+    import fnmatch
+    import tomllib
+
+    globs = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["package-data"]["lvt_tpu_torch"]
+    pkg = ROOT / "lvt_tpu_torch"
+    data = [p.relative_to(pkg).as_posix() for p in pkg.rglob("*")
+            if p.is_file() and p.suffix not in (".py", ".pyc")
+            and "__pycache__" not in p.parts]
+    assert len(data) > 50
+    missing = [f for f in data if not any(fnmatch.fnmatch(f, g)
+                                          for g in globs)]
+    assert not missing, missing
