@@ -119,17 +119,46 @@ and the script exits non-zero without printing the final line:
    lvt_c_example.c`` built here, 8 KITTI frames through ``lvt_track`` on
    the card in a subprocess: status 1, 2 after each frame, 1 after
    ``lvt_reset``, every pose equal at ``%.9g`` to the in-process card run;
-12. a JSON line with each kernel's launches and largest error against its
+12. path 8, the sharded modes on ``torch.distributed`` (ranks are
+   processes started with the ``spawn`` method by
+   ``lvt_tpu_torch.parallel.dryrun.spawn``, after the kernels are built
+   here; every rank on ``cuda:0``), with path 7 kitti's config (the
+   shipped KITTI YAML: patch mode, local BA window 4 every 4) on path 1's
+   frames: 8a, ``ShardedStreamVO`` on one NCCL rank in this process, 32
+   frames in chunks of 16: poses, statuses and map sizes bit-equal to
+   ``VOSystem`` on the card, 0 host syncs per chunk, per frame exactly A
+   1, P 1, T 4, each PnP op 12 and ``collectives_per_frame`` all-reduces;
+   kernels A, P and T (map and staged at M / 2 and M / 4 rows) against
+   their plain versions at the shard shapes, T's map site and the PnP ops
+   (and the wide normal equations the sharded solve launches, which must
+   round to the float32 op's bits) timed at M = 512 and 256; whether NCCL
+   takes 2 ranks on one card (if not, 8b-8d carry their collectives on
+   gloo with CUDA tensors, staged through the host, and the backend is
+   printed); 8b, ``ShardedStreamVO`` on 2 and 4 ranks over the same
+   frames: every rank and frame TRACKING, the poses equal on all ranks
+   and within 3e-4 m of the unsharded run (the gap printed), the summed
+   map size equal to the unsharded one (per-frame gaps printed), each
+   rank's valid points within its block, the launches and collectives of
+   8a on every rank; 8c, ``StreamPointVO`` with 2 streams x 2 point
+   shards on 4 ranks, 16 frames, stream i from frame 2i: each stream
+   within 3e-4 m of the card's ``VOSystem`` over its frames, every frame
+   TRACKING, no vmap fallback; 8d, ``MultiStreamVO`` on a 2-rank stream
+   mesh with path 3's 8 streams, 16 frames: each rank's 4 streams
+   bit-equal to path 3's one-process run, no collective; then 8b at 2
+   ranks on gloo CPU processes over frames 0-3, within 1e-3 m of the card;
+   frames/s of each;
+13. a JSON line with each kernel's launches and largest error against its
    plain version (in all, and by path), times and bound (T per site, per
-   frame of paths 1-2 and batched; the PnP op at S = 1 and 8), then the
-   last line ``{"ok": true, "device": {...}}``.
+   frame of paths 1-2, batched and at path 8's shard rows; the PnP op at
+   S = 1 and 8, and at path 8's M), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 Every path launches each of PnP's two ops 12 times per frame (2 passes of
 the damping's diagonal or the starting chi-square, and 5 iterations).
 Every kernel's launch count is set to 0 just before a path runs (on
-path 7, each CLI run) and read just after it; the comparisons of phase 2
-and the cross-checks after each path (path 7's in-process runs) are not
-counted.
+path 7, each CLI run; on path 8, in each rank) and read just after it;
+the comparisons of phase 2 and the cross-checks after each path (path
+7's in-process runs, path 8's unsharded reference) are not counted.
 
 ``--profile DIR`` also writes a torch.profiler table of one tracked chunk
 per path (path 6: 16 frames) to DIR, and prints the profiler's mean device
@@ -239,6 +268,13 @@ NEED_PER_FRAME = {
     "path7-kitti": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
     "path7-euroc": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
     "path7-tum": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
+    # the sharded modes, per rank: path 7 kitti's config (T also at the BA
+    # row match) on 8a-8c, path 3's on 8d (per rank, for its 4 streams)
+    "path8a": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    "path8b-2": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    "path8b-4": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    "path8c": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    "path8d": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
 }
 for _need in NEED_PER_FRAME.values():
     _need.update(pnp_normal_eqs=PNP, stream_sum=PNP)
@@ -750,40 +786,6 @@ def phase_kernels(card, inp) -> dict:
     return report
 
 
-def _counters():
-    from lvt_tpu_torch.ops import patches, perception, top2
-    from lvt_tpu_torch.solver import pnp
-
-    return {"perception": perception.perception_patch_maps_batched,
-            "brief": perception.brief_planes,
-            "describe_refine": patches.describe_refine_batched,
-            "hamming_top2": top2.hamming_top2,
-            "pnp_normal_eqs": pnp.normal_equations,
-            "stream_sum": pnp.stream_sum}
-
-
-def _zero_counters() -> dict:
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    return counters
-
-
-def _count_syncs(fn):
-    """``fn()``'s result and the host syncs it made, counted under
-    ``torch.cuda.set_sync_debug_mode("warn")``."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return out, sum("called a synchronizing CUDA operation" in str(w.message)
-                    for w in caught)
-
-
 def _run_chunks(vo, a, b, chunk, n_chunks):
     """``vo.track_chunk`` over ``n_chunks`` chunks of ``chunk`` frames
     (the leading axis of ``a`` and ``b``), every launch count set to 0
@@ -791,7 +793,9 @@ def _run_chunks(vo, a, b, chunk, n_chunks):
     ``torch.cuda.set_sync_debug_mode("warn")``, the rest are timed. Returns
     the poses and metrics (concatenated over frames), the launches, the
     syncs and the timed seconds."""
-    counters = _zero_counters()
+    from lvt_tpu_torch.parallel.dryrun import count_syncs, zero_kernel_counters
+
+    counters = zero_kernel_counters()
     poses, metrics = [], []
     syncs = None
     t_timed = 0.0
@@ -799,7 +803,7 @@ def _run_chunks(vo, a, b, chunk, n_chunks):
         x, y = a[c * chunk:(c + 1) * chunk], b[c * chunk:(c + 1) * chunk]
         torch.cuda.synchronize()
         if c == 1:
-            (p, m), syncs = _count_syncs(lambda: vo.track_chunk(x, y))
+            (p, m), syncs = count_syncs(lambda: vo.track_chunk(x, y))
         else:
             t0 = time.perf_counter()
             p, m = vo.track_chunk(x, y)
@@ -1033,6 +1037,7 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
                 kernel_errs=kernel_errs, gaps=gaps, equal=all(equal),
                 pnp_inputs=pnp_inputs,
                 first_poses=run["poses"].t[:MS_CPU[1], :MS_CPU[0]],
+                poses=tuple(x[:MD_FRAMES].cpu().numpy() for x in run["poses"]),
                 inputs=(a[:MS_CPU[1], :MS_CPU[0]], b[:MS_CPU[1], :MS_CPU[0]]))
 
 
@@ -1053,7 +1058,8 @@ def capture_pnp_inputs(path, system, a, b) -> dict:
     def recorder(name):
         def record(*args):
             if not torch._C._functorch.is_batchedtensor(args[0]):
-                seen[name].append(tuple(x.clone() for x in args))
+                seen[name].append(tuple(x.clone() for x in args
+                                        if isinstance(x, torch.Tensor)))
             return real[name](*args)
         return record
 
@@ -1455,11 +1461,12 @@ def phase_external(config, il, ir, gt, profile_dir=None):
     from lvt_tpu_torch.core import step
     from lvt_tpu_torch.core.extract import describe_external_corners_batched
     from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.parallel.dryrun import count_syncs, zero_kernel_counters
 
     n = il.shape[0]
     corners = _external_corners(config, il, ir)
     vo = VOSystem(config, device=DEVICE)
-    counters = _zero_counters()
+    counters = zero_kernel_counters()
     poses, status = [], []
     t0 = None
     for i, (cl, cr) in enumerate(corners):
@@ -1476,7 +1483,7 @@ def phase_external(config, il, ir, gt, profile_dir=None):
     # host syncs inside the step, on one more frame, its corners uploaded
     cap = config.kp_capacity
     cd, vd = _padded_corners(corners[-1], cap)
-    _, syncs = _count_syncs(lambda: step.track_step_external_corners(
+    _, syncs = count_syncs(lambda: step.track_step_external_corners(
         vo.state, il[-1], ir[-1], cd[0], vd[0], cd[1], vd[1], config))
     _say("path6", f"external corners, {n} frames {il.shape[1]}x"
                   f"{il.shape[2]} uint8 (corners per left image "
@@ -1720,6 +1727,7 @@ def phase_cli(kitti, euroc, tum) -> dict:
     from lvt_tpu_torch import cli
     from lvt_tpu_torch.io import native_loader, trajectory
     from lvt_tpu_torch.observability import REFERENCE_SERIES
+    from lvt_tpu_torch.parallel.dryrun import zero_kernel_counters
 
     root = os.path.join(ROOT, "build", "chip_smoke_path7")
     shutil.rmtree(root, ignore_errors=True)
@@ -1751,7 +1759,7 @@ def phase_cli(kitti, euroc, tum) -> dict:
         cwd = os.getcwd()
         os.chdir(os.path.join(root, name))   # --record writes here
         try:
-            counters = _zero_counters()
+            counters = zero_kernel_counters()
             t0 = time.perf_counter()
             rc, syncs = _sync_sites(lambda: cli.main(
                 tree["args"] + ["--output", out, "--chunk", str(CHUNK),
@@ -1916,6 +1924,396 @@ def phase_c_abi(root, config, il, ir) -> dict:
     return dict(build_s=build_s, run_s=run_s)
 
 
+# path 8: the sharded modes on torch.distributed, the ranks (processes)
+# sharing the one card. 8a: ShardedStreamVO on one NCCL rank in this
+# process; 8b: on SH_RANKS ranks; 8c: StreamPointVO on an SP_MESH mesh, 4
+# ranks, stream i from frame SP_START_STEP * i; 8d: MultiStreamVO on a
+# MD_RANKS-rank stream mesh with path 3's streams; then 8b at 2 ranks
+# again on gloo CPU processes over SH_CPU_FRAMES frames
+SH_FRAMES = 32
+SH_RANKS = (2, 4)
+SP_FRAMES = 16
+SP_CHUNK = 8
+SP_MESH = (2, 2)
+SP_START_STEP = 2
+MD_FRAMES = 16
+MD_RANKS = 2
+SH_CPU_FRAMES = 4
+SH_TIMEOUT_S = 600
+# sharded against unsharded: lvt_tpu's bound over lvt_tpu's horizon
+# (tests/test_sharded_stream.py tracks 7 frames). Past it the runs drift
+# apart: the sharded PnP's chi-square is a sum of per-rank float32
+# partials, the unsharded one a float32 sum over the whole map in its own
+# order, so LM accept tests at the rounding level go their own ways (BA
+# amplifies it); and with path 7's config the map is at its 1024-point
+# capacity from frame 0, where insertions partition over the ranks
+# (sharded_stream.py's capacity caveat). The whole run's gap is printed.
+SH_GAP_M = 3e-4
+SH_HORIZON = 7
+
+
+def sharded_config():
+    """Path 8's config, the one path 7's kitti run loads: the shipped
+    KITTI YAML (patch descriptors, local BA window 4 every 4 frames) with
+    sequence 00's calibration at 1241x376."""
+    from lvt_tpu_torch import configs
+    from lvt_tpu_torch.config import load_config, load_kitti_calib
+
+    calib = load_kitti_calib(os.path.join(configs.KITTI_DIR, "00.yaml"))
+    return load_config(os.path.join(configs.KITTI_DIR, "vo_config.yaml"),
+                       **calib, img_width=1241, img_height=376)
+
+
+def collectives_per_frame(config) -> int:
+    """All-reduces in one frame of the sharded step (the tests' count,
+    tests/test_torch_sharded.py): map match 5, PnP 25, the un-mark OR 1,
+    map sizes 3, the staged re-match 2, the metrics 8, the lost frame's
+    map size 1; with local BA 4 + 2 per iteration."""
+    n = 45 - (2 if config.staged_threshold == 0 else 0)
+    if config.local_ba_window > 0:
+        n += 4 + 2 * config.local_ba_iterations
+    return n
+
+
+def _ranks_sum(ranks, key="launches") -> dict:
+    return {k: sum(r[key][k] for r in ranks) for k in ranks[0][key]}
+
+
+def _fps(ranks, frames_per_rank) -> float:
+    """Frames/s over the chunks after the first (the warm-up), the slowest
+    rank's host time; ``frames_per_rank`` frames of one stream."""
+    n_chunks = len(ranks[0]["chunk_seconds"])
+    t = max(sum(r["chunk_seconds"][1:]) for r in ranks)
+    return frames_per_rank * (n_chunks - 1) / n_chunks / t
+
+
+def _gap(a, b) -> float:
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def _check_rank_counts(path, ranks, n_frames, need_coll) -> None:
+    for rank, r in enumerate(ranks):
+        _check_launches(path, r["launches"], n_frames)
+        if r["collectives"] != need_coll * n_frames:
+            raise AssertionError(f"{path}: rank {rank} ran {r['collectives']}"
+                                 f" collectives, not {need_coll} x "
+                                 f"{n_frames}")
+
+
+def _nccl_two_ranks() -> tuple[str, str]:
+    """Whether NCCL takes 2 ranks on the one card: (backend for 8b-8d,
+    NCCL's answer)."""
+    from lvt_tpu_torch.parallel import dryrun
+
+    try:
+        dryrun.spawn([dryrun.job(dryrun.collectives_check, device=DEVICE)],
+                     2, device=DEVICE, backend="nccl", timeout_s=180)
+        return "nccl", "NCCL accepted 2 ranks on one card"
+    except (RuntimeError, TimeoutError) as e:
+        lines = [x.strip() for x in str(e).splitlines() if x.strip()]
+        said = [x for x in lines if "Duplicate GPU" in x] or lines[-1:]
+        return "gloo", f"NCCL refused 2 ranks on one card: {said[0][:300]}"
+
+
+def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
+                  profile_dir=None) -> dict:
+    """Path 8: the sharded modes on the card (see the module docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lvt_tpu_torch.core.extract import extract_features_batched
+    from lvt_tpu_torch.core.state import TRACKING
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.io.synthetic import ate_rmse
+    from lvt_tpu_torch.ops import top2
+    from lvt_tpu_torch.parallel import dryrun, mesh as mesh_mod
+    from lvt_tpu_torch.parallel.sharded_stream import ShardedStreamVO
+    from lvt_tpu_torch.solver import pnp
+
+    n, m = SH_FRAMES, config.max_map_points
+    a, b = il[:n], ir[:n]
+    need_coll = collectives_per_frame(config)
+    marks = [("start", time.perf_counter())]
+
+    # the unsharded reference on the card, in the same chunks
+    vo = VOSystem(config, device=DEVICE)
+    ref = [vo.track_chunk(a[c:c + CHUNK], b[c:c + CHUNK])
+           for c in range(0, n, CHUNK)]
+    ref_t = torch.cat([p.t for p, _ in ref]).cpu().numpy()
+    ref_q = torch.cat([p.q for p, _ in ref]).cpu().numpy()
+    ref_status = torch.cat([x.status for _, x in ref]).cpu().numpy()
+    ref_sizes = torch.cat([x.map_points_count for _, x in ref]).cpu().numpy()
+    ref_size = vo.map_size
+    pnp_inputs = capture_pnp_inputs("path8", vo, il[n], ir[n])
+
+    # ---- 8a: one rank on NCCL, in this process
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_mod.init("nccl", 1, 0, "file://" + os.path.join(tmp, "rdv"),
+                      device=DEVICE)
+        try:
+            r = dryrun.sharded_stream(0, 1, config, a, b, chunk=CHUNK,
+                                      device=DEVICE)
+            prof = None
+            if profile_dir:
+                svo = ShardedStreamVO(config, device=DEVICE)
+                svo.track_chunk(a[:CHUNK], b[:CHUNK])
+                prof = _profile(lambda: svo.track_chunk(
+                    a[CHUNK:2 * CHUNK], b[CHUNK:2 * CHUNK]), CHUNK,
+                    os.path.join(profile_dir, "path8a"))
+        finally:
+            dist.destroy_process_group()
+    fps = _fps([r], n)
+    equal = (np.array_equal(r["poses"][0], ref_t)
+             and np.array_equal(r["poses"][1], ref_q)
+             and np.array_equal(r["metrics"].status, ref_status)
+             and np.array_equal(r["metrics"].map_points_count, ref_sizes)
+             and r["map_size"] == ref_size)
+    _say("path8a", f"ShardedStreamVO on 1 rank ({r['backend']}), {n} "
+                   f"frames {a.shape[2]}x{a.shape[1]} uint8 in chunks of "
+                   f"{CHUNK}, the shipped KITTI YAML (BA window "
+                   f"{config.local_ba_window}; chunk 0 warms up, chunk 1 "
+                   f"counts host syncs): poses, statuses and map "
+                   f"sizes {'bit-equal' if equal else 'NOT equal'} to "
+                   f"VOSystem on the card (map {r['map_size']} points)")
+    _say("path8a", f"host syncs in one chunk: {r['syncs']}; collectives "
+                   f"{r['collectives']} ({r['collectives'] / n:g} per "
+                   f"frame); launches {r['launches']}; {fps:.2f} frames/s "
+                   f"after chunk 0")
+    if prof is not None:
+        _say_busy("path8a", prof, fps)
+    if not equal:
+        raise AssertionError(f"path8a: one rank differs from VOSystem (pose "
+                             f"gap {_gap(r['poses'][0], ref_t)} m)")
+    if r["syncs"] != 0:
+        raise AssertionError(f"path8a: {r['syncs']} host syncs in a chunk")
+    _check_rank_counts("path8a", [r], n, need_coll)
+    runs["path8a"] = dict(launches=r["launches"], fps=fps, profile=prof,
+                          collectives_per_frame=need_coll)
+    marks.append(("reference and 8a", time.perf_counter()))
+
+    # ---- the kernels at the shard shapes: T at map and staged with M / n
+    # rows (row and BA row keep the replicated features' shapes), A and P
+    # on the replicated pair; the PnP ops (and the wide variant the
+    # sharded solve launches) at M / n points
+    f = extract_features_batched(torch.cat([a[:2], b[:1]]), config)
+    imgs = torch.stack([a[0], b[0]])
+    kernel_errs, shard_t, shard_pnp = {}, {}, {}
+    for k in SH_RANKS:
+        cfg = config.replace(max_map_points=m // k,
+                             max_staged_points=config.max_staged_points // k)
+        sites = t_site_inputs(cfg, _streams(f, [0]), _streams(f, [1]),
+                              _streams(f, [2]))
+        errs = check_path_kernels(
+            f"path8-{k}", cfg, imgs,
+            lambda dev: extract_features_batched(imgs.to(dev), config),
+            {s: sites[s] for s in ("map", "staged")})
+        for name, v in errs.items():
+            kernel_errs[name] = max(v, kernel_errs.get(name, 0.0))
+        args, kw = sites["map"]
+        args = tuple(x[0] for x in args)
+        nbytes, ops = t_work(args, kw, top2.hamming_top2_plain(*args, **kw))
+        shard_t[m // k] = _measure(
+            card, f"hamming_top2 map {m // k}",
+            lambda args=args, kw=kw: top2.hamming_top2(*args, **kw),
+            lambda args=args, kw=kw: top2.hamming_top2_plain(*args, **kw),
+            nbytes, ops)
+        shard_t[m // k].update(m=m // k, k=args[1].shape[0])
+        sliced = {name: tuple(x[:, :m // k].contiguous() for x in xs)
+                  for name, xs in pnp_inputs.items()}
+        shard_pnp[m // k] = measure_pnp(card, f"path8 M={m // k}", sliced)
+        jac, w, r_ = (x[:1] for x in sliced["pnp_normal_eqs"])
+        wide = pnp.pnp_normal_eqs_op(jac, w, r_, True)
+        narrow = pnp.pnp_normal_eqs_op(jac, w, r_)
+        if not all(torch.equal(x.float(), y) for x, y in zip(wide, narrow)):
+            raise AssertionError(f"path8: the wide normal equations at M = "
+                                 f"{m // k} do not round to the float32 op's")
+        shard_pnp[m // k]["wide_ms"] = device_ms(
+            lambda: pnp.pnp_normal_eqs_op(jac, w, r_, True), REPS)
+        t_rep, p_rep = shard_t[m // k], shard_pnp[m // k]["pnp_normal_eqs"]
+        _say(f"path8-{k}", f"at M = {m // k}: hamming_top2 map "
+                           f"{t_rep['ms']:.4f} ms (bound "
+                           f"{t_rep['bound_ms']:.4f}, plain "
+                           f"{t_rep['plain_ms']:.4f}); pnp_normal_eqs "
+                           f"{p_rep['ms']:.4f} ms, wide (float64 out, bit-"
+                           f"equal after rounding) "
+                           f"{shard_pnp[m // k]['wide_ms']:.4f} ms; "
+                           f"stream_sum "
+                           f"{shard_pnp[m // k]['stream_sum']['ms']:.4f} ms")
+        for name in ("pnp_normal_eqs", "stream_sum"):
+            kernel_errs[name] = max(shard_pnp[m // k][name]["max_abs_err"],
+                                    kernel_errs.get(name, 0.0))
+
+    marks.append(("kernels at the shard shapes", time.perf_counter()))
+
+    # ---- 8b-8d: several ranks sharing the card
+    backend, nccl_said = _nccl_two_ranks()
+    marks.append(("NCCL's answer", time.perf_counter()))
+    _say("path8b", f"{nccl_said}; the collectives of 8b-8d ride {backend}"
+                   + (" with CUDA tensors, staged through the host"
+                      if backend == "gloo" else ""))
+    starts = [MS_START_STEP * i for i in range(MS_STREAMS)]
+    md = tuple(torch.stack([x[k:k + MD_FRAMES] for k in starts], 1)
+               .cpu().numpy() for x in (il, ir))
+    sp = tuple(torch.stack([x[SP_START_STEP * i:SP_START_STEP * i
+                              + SP_FRAMES] for i in range(SP_MESH[0])], 1)
+               .cpu().numpy() for x in (il, ir))
+    host = a.cpu().numpy(), b.cpu().numpy()
+    sharded_job = dryrun.job(dryrun.sharded_stream, config, *host,
+                             chunk=CHUNK, device=DEVICE)
+    results = {
+        2: dryrun.spawn([sharded_job, dryrun.job(
+            dryrun.multistream, ms_config, *md, chunk=MS_CHUNK,
+            device=DEVICE)], 2, device=DEVICE, backend=backend,
+            timeout_s=SH_TIMEOUT_S),
+    }
+    marks.append(("2 ranks (8b, 8d)", time.perf_counter()))
+    results[4] = dryrun.spawn([sharded_job, dryrun.job(
+        dryrun.stream_point, config, *sp, n_stream=SP_MESH[0],
+        n_point=SP_MESH[1], chunk=SP_CHUNK, device=DEVICE)], 4,
+        device=DEVICE, backend=backend, timeout_s=SH_TIMEOUT_S)
+    marks.append(("4 ranks (8b, 8c)", time.perf_counter()))
+    card_2 = None
+    h = SH_HORIZON
+    for k in SH_RANKS:
+        path = f"path8b-{k}"
+        ranks = [res[0] for res in results[k]]
+        t = ranks[0]["poses"][0]
+        sizes = ranks[0]["metrics"].map_points_count
+        gap, gap_h = _gap(t, ref_t), _gap(t[:h], ref_t[:h])
+        size_gaps = {i: int(s - g) for i, (s, g) in
+                     enumerate(zip(sizes, ref_sizes)) if s != g}
+        err = ate_rmse(t, gt[:n])
+        dist = float(np.linalg.norm(gt[n - 1] - gt[0]))
+        fps = _fps(ranks, n)
+        _say(path, f"ShardedStreamVO on {k} ranks sharing the card "
+                   f"({ranks[0]['backend']}), {n} frames: every frame "
+                   f"{'TRACKING' if all((x['metrics'].status == TRACKING).all() for x in ranks) else 'NOT all TRACKING'}; "
+                   f"largest pose gap to the unsharded run over frames "
+                   f"0-{h - 1} {gap_h:.3g} m (bound {SH_GAP_M}), over all "
+                   f"{n} {gap:.3g} m; ATE {100 * err / dist:.3f}% of "
+                   f"{dist:.2f} m; map {ranks[0]['map_size']} points at the "
+                   f"end (unsharded {ref_size}); per-frame map size gaps "
+                   f"(sharded - unsharded, at each frame's start) "
+                   f"{size_gaps or 'none'}")
+        syncs = ("not counted (gloo syncs in its own threads, staging "
+                 "each collective through the host)" if backend == "gloo"
+                 else [x["syncs"] for x in ranks])
+        _say(path, f"valid points per rank {[x['local_valid'] for x in ranks]}"
+                   f" (blocks of {ranks[0]['block']}); host syncs in one "
+                   f"chunk per rank: {syncs}; collectives "
+                   f"{ranks[0]['collectives'] / n:g} per frame; {fps:.2f} "
+                   f"frames/s (one stream, {k} ranks)")
+        for rank, x in enumerate(ranks):
+            if not (x["metrics"].status == TRACKING).all():
+                raise AssertionError(f"{path}: rank {rank} lost track")
+            if not (np.array_equal(x["poses"][0], t)
+                    and np.array_equal(x["poses"][1], ranks[0]["poses"][1])):
+                raise AssertionError(f"{path}: rank {rank}'s poses differ "
+                                     f"from rank 0's")
+            if x["block"] != m // k or not x["local_valid"] <= m // k:
+                raise AssertionError(f"{path}: rank {rank} holds "
+                                     f"{x['local_valid']} of {x['block']}")
+        # the map after frame h - 1 is the size at frame h's start
+        if any(i <= h for i in size_gaps):
+            raise AssertionError(f"{path}: map sizes differ from the "
+                                 f"unsharded run's within frames 0-{h - 1}: "
+                                 f"{size_gaps}")
+        if not gap_h < SH_GAP_M:
+            raise AssertionError(f"{path}: poses {gap_h} m from the unsharded "
+                                 f"run within frames 0-{h - 1}, not under "
+                                 f"{SH_GAP_M} m")
+        if not err < 0.05 * dist:
+            raise AssertionError(f"{path}: ATE {err:.4f} m is not under 5% "
+                                 f"of {dist:.2f} m")
+        _check_rank_counts(path, ranks, n, need_coll)
+        runs[path] = dict(launches=_ranks_sum(ranks), fps=fps, gap=gap_h,
+                          gap_all=gap, ate_pct=100 * err / dist,
+                          size_gaps=size_gaps, backend=ranks[0]["backend"])
+        if k == 2:
+            card_2 = t
+
+    # 8c: StreamPointVO, each stream against VOSystem on its frames
+    ranks = [res[1] for res in results[4]]
+    refs = [ref_t[:SP_FRAMES]]
+    for i in range(1, SP_MESH[0]):
+        one = VOSystem(config, device=DEVICE)
+        p, _ = one.track_chunk(torch.from_numpy(sp[0][:, i]),
+                               torch.from_numpy(sp[1][:, i]))
+        refs.append(p.t.cpu().numpy())
+    gaps, gaps_all = [], []
+    for rank, x in enumerate(ranks):
+        (s,) = x["local_streams"]
+        gaps.append(_gap(x["poses"][0][:h, 0], refs[s][:h]))
+        gaps_all.append(_gap(x["poses"][0][:, 0], refs[s]))
+        if not (x["metrics"].status == TRACKING).all():
+            raise AssertionError(f"path8c: rank {rank} (stream {s}) lost "
+                                 f"track")
+        if x["fallback_warnings"]:
+            raise AssertionError(f"path8c: vmap fell back: "
+                                 f"{x['fallback_warnings'][:2]}")
+    fps = _fps(ranks, SP_FRAMES) * SP_MESH[0]
+    _say("path8c", f"StreamPointVO {SP_MESH[0]} streams x {SP_MESH[1]} point "
+                   f"shards on 4 ranks, {SP_FRAMES} frames in chunks of "
+                   f"{SP_CHUNK} (stream i from "
+                   f"frame {SP_START_STEP} i): every frame TRACKING, no vmap "
+                   f"fallback; gaps to each stream's VOSystem on the card by "
+                   f"rank over frames 0-{h - 1} {[f'{g:.3g}' for g in gaps]} "
+                   f"m (bound {SH_GAP_M}), over all {SP_FRAMES} "
+                   f"{[f'{g:.3g}' for g in gaps_all]} m; "
+                   f"collectives {ranks[0]['collectives'] / SP_FRAMES:g} per "
+                   f"frame; {fps:.2f} frames/s aggregate")
+    if not max(gaps) < SH_GAP_M:
+        raise AssertionError(f"path8c: streams {gaps} m from VOSystem")
+    _check_rank_counts("path8c", ranks, SP_FRAMES, need_coll)
+    runs["path8c"] = dict(launches=_ranks_sum(ranks), fps=fps, gap=max(gaps),
+                          gap_all=max(gaps_all))
+
+    # 8d: MultiStreamVO over a stream mesh against path 3's one process
+    ranks = [res[1] for res in results[2]]
+    equal = []
+    for x in ranks:
+        cols = x["local_streams"]
+        equal.append(np.array_equal(x["poses"][0], ms_poses[0][:, cols])
+                     and np.array_equal(x["poses"][1], ms_poses[1][:, cols]))
+    fps = _fps(ranks, MD_FRAMES) * MS_STREAMS
+    _say("path8d", f"MultiStreamVO on a {MD_RANKS}-rank stream mesh, "
+                   f"{MS_STREAMS} streams ({[x['local_streams'] for x in ranks]}"
+                   f"), {MD_FRAMES} frames in chunks of {MS_CHUNK}: each "
+                   f"rank's streams {'bit-equal' if all(equal) else 'NOT equal'}"
+                   f" to path 3's one-process run; collectives "
+                   f"{ranks[0]['collectives']}; {fps:.2f} frames/s aggregate")
+    if not all(equal):
+        raise AssertionError(f"path8d: streams differ from path 3's: {equal}")
+    for rank, x in enumerate(ranks):
+        _check_launches("path8d", x["launches"], MD_FRAMES)
+        if x["collectives"]:
+            raise AssertionError(f"path8d: rank {rank} ran collectives")
+    runs["path8d"] = dict(launches=_ranks_sum(ranks), fps=fps)
+
+    # card against CPU: 8b at 2 ranks over the first frames, on gloo CPU
+    # processes
+    k = SH_CPU_FRAMES
+    cpu = dryrun.spawn([dryrun.job(dryrun.sharded_stream, config,
+                                   host[0][:k], host[1][:k], chunk=k)], 2,
+                       timeout_s=SH_TIMEOUT_S)
+    dt = _gap(cpu[0][0]["poses"][0], card_2[:k])
+    _say("path8b-2", f"card vs CPU (2 gloo CPU ranks), frames 0-{k - 1}: "
+                     f"poses differ by at most {dt:.3g} m")
+    if not dt < 1e-3:
+        raise AssertionError(f"path8b-2: CPU vs card {dt} m >= 1e-3 m")
+    marks.append(("2 CPU ranks", time.perf_counter()))
+    _say("path8", "seconds by part (spawned ranks' start-up included): "
+                  + ", ".join(f"{name} {t - marks[i][1]:.1f}" for i, (name, t)
+                              in enumerate(marks[1:])))
+    for r in runs.values():
+        r["kernel_errs"] = {}
+    runs["path8a"]["kernel_errs"] = kernel_errs
+    return dict(runs=runs, shard_t=shard_t, shard_pnp=shard_pnp,
+                backend=backend, nccl=nccl_said)
+
+
 STAGES = ("rectify", "perception", "corner_select", "patch_describe",
           "corner_select_describe", "motion_predict", "map_matching",
           "pnp_solve", "map_bookkeeping", "staged_update", "triangulation",
@@ -2064,6 +2462,17 @@ def main(argv=None) -> int:
         (il[:k].cpu().numpy(), ir[:k].cpu().numpy(), gt[:k]),
         (euroc[2].numpy(), euroc[3].numpy(), euroc[4]),
         tum_setup())
+    config8 = sharded_config()
+    if config8 != runs["path7"]["configs"]["kitti"]:
+        raise AssertionError("path8: the config is not path 7 kitti's")
+    path8 = phase_sharded(card, config8, configs["path1"], il, ir, gt,
+                          runs["path3"].pop("poses"), args.profile)
+    runs.update(path8["runs"])
+    report["hamming_top2"]["path8"] = path8["shard_t"]
+    for name in ("pnp_normal_eqs", "stream_sum"):
+        report[name]["path8"] = {m: dict(rep[name], **(
+            {"wide_ms": rep["wide_ms"]} if name == "pnp_normal_eqs" else {}))
+            for m, rep in path8["shard_pnp"].items()}
 
     entries = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -2099,6 +2508,11 @@ def main(argv=None) -> int:
         f"{p} {r['fps']:.2f}" for p, r in runs.items() if p != "path7")
         + f" (path 3 aggregate of {MS_STREAMS} streams; "
         f"{runs['path3']['fps_per_stream']:.2f} per stream)")
+    _say("summary", f"path 8: {path8['nccl']}; 8b-8d on "
+                    f"{path8['backend']}; pose gaps to the unsharded run "
+                    f"over frames 0-{SH_HORIZON - 1} / all: " + ", ".join(
+                        f"{p} {runs[p]['gap']:.3g} / {runs[p]['gap_all']:.3g}"
+                        f" m" for p in ("path8b-2", "path8b-4", "path8c")))
     _say("summary", "path 7 frames/s, end to end with PNG decode / in "
                     "process: " + ", ".join(
                         f"{name} {a:.2f} / {b:.2f}" for name, (a, b)

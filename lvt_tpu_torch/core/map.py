@@ -10,6 +10,7 @@ from typing import NamedTuple
 import torch
 
 from lvt_tpu_torch.core.state import PointStore
+from lvt_tpu_torch.ops.collectives import por_if
 from lvt_tpu_torch.ops.hamming import claim_mask
 
 
@@ -55,10 +56,12 @@ def apply_match_bookkeeping(store: PointStore, match_idx) -> PointStore:
 
 
 def clean_untracked(store: PointStore, match_idx, feature_matched,
-                    untracked_threshold: int):
+                    untracked_threshold: int, group=None):
     """Drop points with counter >= threshold and un-mark the feature each
-    dropped point matched this frame. Returns (store, feature_matched)."""
+    dropped point matched this frame. Returns (store, feature_matched).
+    With ``group`` (the store is one rank's block), the un-mark mask is
+    OR-reduced across the group, so every rank sees the same marks."""
     k = feature_matched.shape[0]
     remove = store.valid & (store.counter >= untracked_threshold)
-    unmark = claim_mask(torch.where(remove, match_idx, -1), k)
+    unmark = por_if(claim_mask(torch.where(remove, match_idx, -1), k), group)
     return store._replace(valid=store.valid & ~remove), feature_matched & ~unmark

@@ -16,6 +16,17 @@ The step is also the body of the multi-stream step
 (parallel/multistream.py), which runs :func:`track_features` under
 ``torch.func.vmap`` as lvt_tpu runs it under ``jax.vmap``: every op in it
 has a batching rule, kernel T's included (ops/top2.py).
+
+With a ``group`` (lvt_tpu's ``axis_name``) the step is the body of the
+sharded-map modes (parallel/sharded_stream.py, parallel/stream_point.py):
+the map and staged stores and the BA window's point axis are this rank's
+blocks of stores sharded over the group's ranks, the features and the
+pose state are the same on every rank, per-point work is local, and the
+cross-shard quantities reduce over the group (ops/collectives.py): match
+counts and map sizes with ``psum``, the one-to-one claims with ``pmin``,
+the claimed features with an OR, the PnP and BA sums as their solvers
+say. New points are partitioned over the ranks by valid rank. Without a
+group the step is the one-process program, bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ from lvt_tpu_torch.core.state import (LOST, NOT_INITIALIZED, TRACKING,
 from lvt_tpu_torch.geometry import se3
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.ops import hamming, matching, triangulate, undistort
+from lvt_tpu_torch.ops.collectives import (axis_index, axis_size, por_if,
+                                           psum_if)
 from lvt_tpu_torch.solver import bundle
 from lvt_tpu_torch.solver.pnp import solve_pnp
 from lvt_tpu_torch.tree import tree_map
@@ -42,6 +55,17 @@ from lvt_tpu_torch.tree import tree_map
 def _select(pred, a, b):
     """Leaf-wise select of two containers on a scalar predicate."""
     return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def _shard_partition_mask(insert_mask, group):
+    """Partition insertion candidates, the same on every rank, across the
+    group's ranks so each point lands in exactly one shard, balanced by the
+    candidates' valid rank (round-robin over the feature index would let
+    clustered candidates overfill one shard)."""
+    if group is None:
+        return insert_mask
+    rank = torch.cumsum(insert_mask.to(torch.int32), dim=0) - 1
+    return insert_mask & (rank % axis_size(group) == axis_index(group))
 
 
 def _image_bounds(config: VOConfig):
@@ -104,7 +128,7 @@ def _policy_need_triangulation(config: VOConfig, window, map_size):
 
 
 def _staged_update(staged, pose: Pose, feats: FrameFeatures, feature_matched,
-                   map_size, config: VOConfig):
+                   map_size, config: VOConfig, group=None):
     """Re-match staged points against the unmatched features; delete misses,
     promote survivors. Returns (staged', promotion candidates, marks)."""
     cam = _camera_kwargs(config)
@@ -122,9 +146,10 @@ def _staged_update(staged, pose: Pose, feats: FrameFeatures, feature_matched,
     idx = hamming.accept_matches(d1, d2, best, n_cand,
                                  config.tracking_ratio_test_threshold,
                                  config.descriptor_matching_threshold)
-    idx = hamming.resolve_one_to_one(idx, d1, k)
+    idx = hamming.resolve_one_to_one(idx, d1, k, group)
     matched = idx >= 0
-    feature_matched = feature_matched | hamming.claim_mask(idx, k)
+    feature_matched = feature_matched | por_if(hamming.claim_mask(idx, k),
+                                               group)
 
     ctr = torch.where(matched, staged.counter + 1, staged.counter)
     promote = staged.valid & matched & (
@@ -141,7 +166,8 @@ def _norm3(v):
                       + v[..., 2] * v[..., 2])
 
 
-def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig):
+def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig,
+                      group=None):
     """One windowed BA over the map: chi-square gate, refine, then keep a
     refined point only inside a relative trust region (10% of its distance
     to the camera + 0.5 m) and only if it fits the gated observations
@@ -149,7 +175,7 @@ def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig):
     cam = dict(fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy)
     stereo = dict(baseline=config.baseline, obs_right=obs_r)
     w, w_r = bundle.chi2_gate_weights(poses, pos, obs, w, w_right=w_r,
-                                      **stereo, **cam)
+                                      group=group, **stereo, **cam)
     # only points with >= 2 left observations and >= 1 stereo pair
     n_l = (w > 0).sum(0)
     n_s = ((w > 0) & (w_r > 0)).sum(0)
@@ -158,7 +184,8 @@ def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig):
     res = bundle.refine_window(
         poses, pos, obs, w, w_right=w_r, **stereo, **cam,
         iterations=config.local_ba_iterations,
-        reprojection_th2=config.reprojection_th2, n_fixed_poses=1)
+        reprojection_th2=config.reprojection_th2, n_fixed_poses=1,
+        group=group)
     dist = _norm3(pos - poses.t[-1][None])
     ok = (use > 0) & (_norm3(res.points - pos) <= 0.1 * dist + 0.5)
     e2_old = bundle.weighted_point_e2(poses, pos, obs, w, w_right=w_r,
@@ -171,7 +198,7 @@ def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig):
 
 def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
                      obs_new, w_new, obs_r_new, w_r_new, slots_invalidated,
-                     frame_number, config: VOConfig):
+                     frame_number, config: VOConfig, group=None):
     """Slide the observation window by this frame and, every
     ``local_ba_every`` frames once it is full, refine the map structure.
     Returns (window', the window's newest pose, map positions, whether BA
@@ -193,14 +220,15 @@ def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
              & (frame_number % config.local_ba_every == 0))
     refined = _refine_structure(
         Pose(window.poses_t, window.poses_q), map_store.pos, window.obs,
-        window.w, window.obs_r, window.w_r, config)
+        window.w, window.obs_r, window.w_r, config, group)
     map_pos = torch.where(do_ba, refined, map_store.pos)
     return (window, Pose(window.poses_t[-1], window.poses_q[-1]), map_pos,
             do_ba)
 
 
 def _track_branch(state: VOState, left: FrameFeatures,
-                  right: FrameFeatures | None, config: VOConfig, is_init):
+                  right: FrameFeatures | None, config: VOConfig, is_init,
+                  group=None):
     """Tracking frame, and through ``is_init`` the initialization frame;
     ``right`` is None for RGB-D. Stages carry profiler ranges named as
     lvt_tpu's jax.named_scope."""
@@ -219,7 +247,8 @@ def _track_branch(state: VOState, left: FrameFeatures,
             tracking_radius=config.tracking_radius,
             ratio_threshold=config.tracking_ratio_test_threshold,
             abs_threshold=config.descriptor_matching_threshold,
-            retry_min_matches=config.n_matches_threshold, **cam)
+            retry_min_matches=config.n_matches_threshold, group=group,
+            **cam)
     matches_count = mm.matches_count
     is_tracking = (matches_count >= config.min_num_matches_for_tracking) | is_init
 
@@ -228,21 +257,22 @@ def _track_branch(state: VOState, left: FrameFeatures,
     with stage("pnp_solve"):
         pnp = solve_pnp(predicted, state.map.pos, obs, weights,
                         fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy,
-                        reprojection_th2=config.reprojection_th2)
+                        reprojection_th2=config.reprojection_th2,
+                        group=group)
     pose_opt = _select(is_init, identity, pnp.pose)
 
     with stage("map_bookkeeping"):
         map_bookkept = map_ops.apply_match_bookkeeping(state.map, mm.match_idx)
         map_clean, feature_matched = map_ops.clean_untracked(
             map_bookkept, mm.match_idx, mm.feature_matched,
-            config.untracked_threshold)
-    map_size = map_clean.size()
+            config.untracked_threshold, group)
+    map_size = psum_if(map_clean.size(), group)
 
     if config.staged_threshold > 0:
         with stage("staged_update"):
             staged_out, promo, feature_matched = _staged_update(
                 state.staged, pose_opt, left, feature_matched, map_size,
-                config)
+                config, group)
             p_pos, p_desc, p_ctr, p_age, p_mask = promo
             ins_promo = map_ops.insert_points(
                 map_clean, p_pos, p_desc, p_mask, new_counter=p_ctr,
@@ -253,7 +283,7 @@ def _track_branch(state: VOState, left: FrameFeatures,
         map_after_promo = map_clean
 
     window = torch.cat([state.last_matches[1:], matches_count[None].float()])
-    map_size_after_promo = map_after_promo.size()
+    map_size_after_promo = psum_if(map_after_promo.size(), group)
     need_tri = _policy_need_triangulation(
         config, window, map_size_after_promo) | is_init
 
@@ -267,7 +297,8 @@ def _track_branch(state: VOState, left: FrameFeatures,
     with stage("triangulation"):
         pts, desc, tri_valid = _triangulate_new_points(
             left, right, feature_matched, pose_opt, config)
-        tri_valid = tri_valid & need_tri
+        # with a group each rank inserts its share of the candidates
+        tri_valid = _shard_partition_mask(tri_valid & need_tri, group)
         to_map = ((map_size_after_promo < config.map_soft_cap)
                   | (config.staged_threshold == 0))
         ins_map = map_ops.insert_points(map_after_promo, pts, desc,
@@ -294,10 +325,10 @@ def _track_branch(state: VOState, left: FrameFeatures,
                 obs_r, w_r = torch.zeros_like(obs), torch.zeros_like(weights)
             ba_window, pose_final, refined_pos, ba_ran = _local_ba_update(
                 state.ba, final_map, pose_opt, obs, weights, obs_r, w_r,
-                removed | recycled, state.frame_number, config)
+                removed | recycled, state.frame_number, config, group)
         final_map = final_map._replace(pos=refined_pos)
 
-    map_size_final = ins_map.store.size()
+    map_size_final = psum_if(ins_map.store.size(), group)
     init_window = torch.stack([
         map_size_final.float(),
         torch.full((), MATCHES_WINDOW_INIT, device=window.device),
@@ -319,12 +350,15 @@ def _track_branch(state: VOState, left: FrameFeatures,
     n_matched = torch.clamp(matches_count, min=1)
 
     def mean_of(v):
-        return torch.where(matched_mask, v, 0.0).sum() / n_matched
+        return psum_if(torch.where(matched_mask, v, 0.0).sum(),
+                       group) / n_matched
 
     metrics = StepMetrics(
-        map_points_count=torch.where(is_init, map_size_final,
-                                     state.map.size()).to(torch.int32),
-        staged_points_count=state.staged.size().to(torch.int32),
+        map_points_count=torch.where(
+            is_init, map_size_final,
+            psum_if(state.map.size(), group)).to(torch.int32),
+        staged_points_count=psum_if(state.staged.size(),
+                                    group).to(torch.int32),
         image_keypoints=left.count().to(torch.int32),
         tracked_map_points=matches_count.to(torch.int32),
         mean_age=mean_of(map_bookkept.age.float()),
@@ -334,8 +368,8 @@ def _track_branch(state: VOState, left: FrameFeatures,
         mean_feature_y=mean_of(obs[:, 1]),
         inlier_count=pnp.inlier_count.to(torch.int32),
         triangulated_points=torch.where(
-            is_tracking, ins_map.n_inserted + ins_staged.n_inserted,
-            0).to(torch.int32),
+            is_tracking, psum_if(ins_map.n_inserted + ins_staged.n_inserted,
+                                 group), 0).to(torch.int32),
         used_wide_radius=mm.used_wide_radius & ~is_init,
         status=new_state.status,
         local_ba_ran=ba_ran & is_tracking & ~is_init,
@@ -344,17 +378,21 @@ def _track_branch(state: VOState, left: FrameFeatures,
 
 
 def track_features(state: VOState, left: FrameFeatures,
-                   right: FrameFeatures | None, config: VOConfig):
+                   right: FrameFeatures | None, config: VOConfig,
+                   group=None):
     """Status dispatch over extracted features (``right`` None: RGB-D, with
     ``left.depth`` set): the lost frame returns the last pose and bumps the
-    frame counter, as a pure output select."""
+    frame counter, as a pure output select. ``group``: the state's stores
+    are this rank's blocks of stores sharded over the group (module
+    docstring); the status is the same on every rank, so every rank takes
+    the same selects and the collectives line up."""
     is_init = state.status == NOT_INITIALIZED
     is_lost = state.status == LOST
     tracked_state, pose, metrics = _track_branch(state, left, right, config,
-                                                 is_init)
+                                                 is_init, group)
     lost_state = state._replace(frame_number=state.frame_number + 1)
     lost_metrics = StepMetrics.zero(state.status.device)._replace(
-        map_points_count=state.map.size().to(torch.int32),
+        map_points_count=psum_if(state.map.size(), group).to(torch.int32),
         status=torch.full((), LOST, dtype=torch.int32,
                           device=state.status.device))
     return (_select(is_lost, lost_state, tracked_state),

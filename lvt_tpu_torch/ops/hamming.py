@@ -1,6 +1,7 @@
 """Bit-packed binary descriptors and dense masked Hamming matching.
 
-Port of lvt_tpu/ops/hamming.py. Descriptors are 8 int32 words holding the
+Port of lvt_tpu/ops/hamming.py (the one-to-one resolution also sharded,
+over a process group). Descriptors are 8 int32 words holding the
 bits of lvt_tpu's uint32 words; the distance is XOR plus a SWAR popcount
 written so that no int32 operation overflows (torch has no popcount op).
 """
@@ -8,6 +9,8 @@ written so that no int32 operation overflows (torch has no popcount op).
 from __future__ import annotations
 
 import torch
+
+from lvt_tpu_torch.ops.collectives import axis_index, axis_size, pmin_if
 
 DESC_WORDS = 8
 BIG = 1.0e9
@@ -64,20 +67,27 @@ def accept_matches(d1, d2, best, n_cand, ratio_threshold, abs_threshold):
 
 
 def resolve_one_to_one(match_idx: torch.Tensor, d1: torch.Tensor,
-                       num_targets: int) -> torch.Tensor:
+                       num_targets: int, group=None) -> torch.Tensor:
     """Every target keeps only the query with the smallest distance (ties
-    to the lower query index); losers get -1."""
+    to the lower query index); losers get -1.
+
+    With ``group`` (the queries are map points sharded over its ranks, in
+    contiguous blocks), the query index is the global one, ``axis_index *
+    q + arange(q)``, and the per-target minimum a ``pmin`` over the group,
+    so every rank sees the same winner."""
     q = match_idx.shape[0]
     valid = match_idx >= 0
-    qid = torch.arange(q, dtype=torch.int32, device=match_idx.device)
+    qid = axis_index(group) * q + torch.arange(q, dtype=torch.int32,
+                                                device=match_idx.device)
     # unique ordering key: distance (<= 256) then query index; rejected
     # queries (d1 may be BIG) are masked before the multiply
-    key = torch.where(valid, d1, 0.0).to(torch.int32) * (q + 1) + qid
+    key = (torch.where(valid, d1, 0.0).to(torch.int32)
+           * (axis_size(group) * q + 1) + qid)
     key = torch.where(valid, key, _IMAX)
     tgt = torch.where(valid, match_idx, num_targets)
     best_key = torch.full((num_targets + 1,), _IMAX, dtype=torch.int32,
                           device=match_idx.device)
-    best_key = best_key.scatter_reduce(0, tgt, key, "amin")
+    best_key = pmin_if(best_key.scatter_reduce(0, tgt, key, "amin"), group)
     won = valid & (best_key[tgt] == key)
     return torch.where(won, match_idx, -1)
 

@@ -1,9 +1,12 @@
 """Projection matching (map -> frame) and stereo row matching.
 
-Port of lvt_tpu/ops/matching.py (the single-device branch). Both radii of
-the map match, and the row window of the row match, reduce through kernel
-T (ops/top2.py), which takes the descriptors and computes the Hamming
-distances itself.
+Port of lvt_tpu/ops/matching.py. Both radii of the map match, and the row
+window of the row match, reduce through kernel T (ops/top2.py), which
+takes the descriptors and computes the Hamming distances itself. With a
+``group``, the map match runs on this rank's block of the map (kernel T at
+its rows) and reduces across the group as lvt_tpu's does across a mesh
+axis: the one-to-one claims with a ``pmin``, both match counts with a
+``psum`` and the claimed features with an OR.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.geometry import se3
 from lvt_tpu_torch.ops import hamming
+from lvt_tpu_torch.ops.collectives import por_if, psum_if
 from lvt_tpu_torch.ops.top2 import hamming_top2
 
 
@@ -37,17 +41,17 @@ def dual_radius_top2(q_desc, t_desc, q_uv, q_valid, t_kp, t_valid,
                         r2a=float(radius_a) ** 2, r2b=float(radius_b) ** 2)
 
 
-def _accept_resolve(top2, ratio_th, abs_th, num_feats):
+def _accept_resolve(top2, ratio_th, abs_th, num_feats, group):
     d1, d2, best, n_cand = top2
     idx = hamming.accept_matches(d1, d2, best, n_cand, ratio_th, abs_th)
-    return hamming.resolve_one_to_one(idx, d1, num_feats), d1, d2
+    return hamming.resolve_one_to_one(idx, d1, num_feats, group), d1, d2
 
 
 def find_map_matches(
     map_pos, map_desc, map_valid, pose, feats: FrameFeatures, *,
     fx, fy, cx, cy, near, far, min_x, max_x, min_y, max_y,
     tracking_radius: int, ratio_threshold: float, abs_threshold: float,
-    retry_min_matches: int,
+    retry_min_matches: int, group=None,
 ) -> MapMatchResult:
     k = feats.kp.shape[0]
     w2c = se3.world_to_camera(pose)
@@ -59,18 +63,21 @@ def find_map_matches(
         map_desc, feats.desc, uv, visible, feats.kp, feats.valid,
         tracking_radius, 2 * tracking_radius)
     idx1, d1a, d2a = _accept_resolve(top2_narrow, ratio_threshold,
-                                     abs_threshold, k)
+                                     abs_threshold, k, group)
     idx2, d1b, d2b = _accept_resolve(top2_wide, ratio_threshold,
-                                     abs_threshold, k)
-    use_wide = (idx1 >= 0).sum() < retry_min_matches
+                                     abs_threshold, k, group)
+    use_wide = psum_if((idx1 >= 0).sum(), group) < retry_min_matches
     idx = torch.where(use_wide, idx2, idx1)
     d1 = torch.where(use_wide, d1b, d1a)
     d2 = torch.where(use_wide, d2b, d2a)
     match_idx = torch.where(visible, torch.where(idx >= 0, idx, -1), -2)
-    feature_matched = hamming.claim_mask(idx, k) & feats.valid
+    # one-to-one resolution leaves each feature at most one winner across
+    # the ranks, so the global claim mask is the OR of the ranks'
+    feature_matched = por_if(hamming.claim_mask(idx, k), group) & feats.valid
     return MapMatchResult(
         match_idx=match_idx, projection=uv, visible=visible, d1=d1, d2=d2,
-        feature_matched=feature_matched, matches_count=(idx >= 0).sum(),
+        feature_matched=feature_matched,
+        matches_count=psum_if((idx >= 0).sum(), group),
         used_wide_radius=use_wide,
     )
 

@@ -9,8 +9,12 @@ body ``core/step.py::track_features`` (lvt_tpu's ``jax.vmap``), in which
 kernel T's batching rule (ops/top2.py) makes one launch per site for all
 S streams. Per-stream LOST flags live in the batched VOState, so a lost
 stream never stalls the others: ``reset`` re-initializes just its slice,
-keeping its pose. The mesh and the sharding over several devices are not
-ported (ROADMAP Queue 1 item 16): one card holds the whole batch.
+keeping its pose.
+
+With a ``("stream",)`` mesh (parallel/mesh.py) the S streams split over
+its ranks (processes) in contiguous blocks of S / n, as lvt_tpu's
+``P("stream")`` lays them out: each rank holds and tracks its own block,
+and no collective runs (streams are independent).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from lvt_tpu_torch.core import step as step_mod
 from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.core.state import LOST, VOState
 from lvt_tpu_torch.device import resolve_device
+from lvt_tpu_torch.ops.collectives import axis_index, axis_size
 from lvt_tpu_torch.tree import tree_map
 
 
@@ -38,6 +43,22 @@ def batched_initial_state(config: VOConfig, n_streams: int, *,
     """The initial VOState of every stream, each leaf with a leading [S]."""
     return tree_map(lambda x: x[None].expand(n_streams, *x.shape).clone(),
                     _initial_state(config, device))
+
+
+def local_stream_indices(mesh, n_streams: int) -> np.ndarray:
+    """Global indices of the streams this rank holds on a 1-D ``stream``
+    mesh: rank k of n owns streams [k * S / n, (k + 1) * S / n), as
+    lvt_tpu's ``P("stream")`` lays them out (all S without a mesh)."""
+    if mesh is None:
+        return np.arange(n_streams)
+    if mesh.ndim != 1:
+        raise ValueError(f"expected a 1-D stream mesh, got {mesh.ndim}-D")
+    group = mesh.get_group(0)
+    n = axis_size(group)
+    if n_streams % n:
+        raise ValueError(f"{n_streams} streams do not divide over {n} ranks")
+    per = n_streams // n
+    return np.arange(per * axis_index(group), per * (axis_index(group) + 1))
 
 
 def _split(feats: FrameFeatures, s: int):
@@ -114,22 +135,34 @@ def multistream_chunk(states: VOState, imgs1: torch.Tensor,
 
 class MultiStreamVO:
     """Driver for a batch of S concurrent VO streams (stereo or RGB-D) on
-    one device."""
+    one device, or, with a 1-D ``mesh``, over its ranks: each rank then
+    takes the whole batch's frames (or only its own block's), tracks its
+    block of streams (``local_streams``) and returns their poses."""
 
-    def __init__(self, config: VOConfig, n_streams: int, *, device="cuda",
-                 auto_reset: bool = True, rgbd: bool = False):
+    def __init__(self, config: VOConfig, n_streams: int, mesh=None, *,
+                 device="cuda", auto_reset: bool = True, rgbd: bool = False):
         config.validate()
         step_mod._check_config(config)
         self.config = config
         self.n_streams = n_streams
+        self.mesh = mesh
+        self.local_streams = local_stream_indices(mesh, n_streams)
         self.device = resolve_device(device)
         self.auto_reset = auto_reset
         self.rgbd = rgbd
-        self.states = batched_initial_state(config, n_streams,
+        self.states = batched_initial_state(config, len(self.local_streams),
                                             device=self.device)
 
+    def _local(self, a: torch.Tensor) -> torch.Tensor:
+        """This rank's streams of a whole batch (axis -3); a block that is
+        not the whole batch is taken as this rank's already."""
+        if a.ndim < 3 or a.shape[-3] != self.n_streams:
+            return a        # the shape check below reports it
+        lo, hi = self.local_streams[0], self.local_streams[-1] + 1
+        return a if hi - lo == self.n_streams else a[..., lo:hi, :, :]
+
     def _prep(self, imgs, ndim: int, second: bool) -> torch.Tensor:
-        a = torch.as_tensor(imgs)
+        a = self._local(torch.as_tensor(imgs))
         if second and self.rgbd:
             a = a.to(self.device, torch.float32)     # metric depth
         else:
@@ -137,8 +170,8 @@ class MultiStreamVO:
             a = a.to(self.device)
             a = a if a.dtype == torch.uint8 else a.float()
         hw = (self.config.img_height, self.config.img_width)
-        if a.ndim != ndim or a.shape[-3] != self.n_streams or \
-                tuple(a.shape[-2:]) != hw:
+        n = len(self.local_streams)
+        if a.ndim != ndim or a.shape[-3] != n or tuple(a.shape[-2:]) != hw:
             raise ValueError(f"expected {ndim}-d images of [{self.n_streams}, "
                              f"{hw[0]}, {hw[1]}], got {tuple(a.shape)}")
         return a
@@ -166,5 +199,6 @@ class MultiStreamVO:
 
     @property
     def status(self) -> np.ndarray:
-        """[S] int32 tracking state of each stream (read from the device)."""
+        """[S] int32 tracking state of each stream this rank holds (read
+        from the device)."""
         return self.states.status.cpu().numpy()

@@ -6,8 +6,7 @@ Schur complement:
     g_red   = g_c  - H_cp H_pp^-1 g_p
     dc      = solve(S, -g_red);   dp_m = -H_pp_m^-1 (g_p_m + H_cp[:,m]^T dc)
 
-Port of lvt_tpu/solver/bundle.py for one device (the ``psum_axis`` of the
-sharded modes is not ported). Stereo observations pin the scale gauge;
+Port of lvt_tpu/solver/bundle.py. Stereo observations pin the scale gauge;
 Cauchy-robust, LM-damped, the oldest pose fixed. ``lax.fori_loop`` becomes
 a Python loop of predicated iterations: a rejected step keeps the state
 and only adapts lambda. ``torch.linalg.solve_ex`` skips the error check
@@ -18,6 +17,16 @@ divisors are device scalars, 3-vector products are written out
 reduced solve run in float64 and round once to float32 (:func:`_einsum64`).
 lvt_tpu sums in float32, so the port differs from it by float32 rounding,
 which this ill-conditioned solve amplifies.
+
+With a ``group`` (lvt_tpu's ``psum_axis``: the points are this rank's
+block of a map sharded over the group's ranks), every sum over the points
+is summed across the ranks before its one rounding: the float64 partials
+of the gate's moments, of the robust chi-square, of ``h_cc`` and ``g_c``
+and of the Schur terms go to the group together, one collective per use,
+and are rounded to float32 after it (:func:`_round_sums`); the
+observation count is a ``psum``. The per-point blocks (``h_pp``,
+``h_cp``, the point updates) stay local, and the reduced camera solve
+runs on every rank alike. On one rank the result is the unsharded bits.
 """
 
 from __future__ import annotations
@@ -29,7 +38,13 @@ import torch
 from lvt_tpu_torch.device import scalar
 from lvt_tpu_torch.geometry import quaternion as quat
 from lvt_tpu_torch.geometry.se3 import Pose, matvec
+from lvt_tpu_torch.ops.collectives import psum_if
 from lvt_tpu_torch.solver.pnp import _cauchy_weights, _retract
+
+
+def _wide(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of float32 operands in float64, not rounded."""
+    return torch.einsum(equation, *(x.double() for x in operands))
 
 
 def _einsum64(equation: str, *operands: torch.Tensor) -> torch.Tensor:
@@ -40,7 +55,7 @@ def _einsum64(equation: str, *operands: torch.Tensor) -> torch.Tensor:
     except where the exact sum lies that close to a float32 rounding
     boundary. With float32 sums the Schur solve amplified that order noise
     until the port's refined points left lvt_tpu's by up to 1.2e-2 m."""
-    return torch.einsum(equation, *(x.double() for x in operands)).float()
+    return _wide(equation, *operands).float()
 
 
 def _sum64(x: torch.Tensor, dim=None) -> torch.Tensor:
@@ -48,6 +63,16 @@ def _sum64(x: torch.Tensor, dim=None) -> torch.Tensor:
     :func:`_einsum64`)."""
     x = x.double()
     return (x.sum() if dim is None else x.sum(dim)).float()
+
+
+def _round_sums(parts: list, group) -> list:
+    """Float64 partial sums rounded once to float32, each first summed over
+    ``group`` (one collective for all of them) when there is one."""
+    if group is None:
+        return [p.float() for p in parts]
+    flat = psum_if(torch.cat([p.reshape(-1) for p in parts]), group)
+    return [x.reshape(p.shape).float()
+            for x, p in zip(flat.split([p.numel() for p in parts]), parts)]
 
 
 class BAResult(NamedTuple):
@@ -146,11 +171,13 @@ def chi2_gate_weights(
     obs_right: torch.Tensor | None = None,
     w_right: torch.Tensor | None = None,
     gate_th2: float = 0.5,
+    group=None,
 ):
     """Per-observation chi-square gate at the current state, before BA:
     gate = max(gate_th2, 3 * trimmed mean of e2), the trimmed mean over
     observations with e2 <= 4 * plain mean. Cuts mismatched associations
-    while noise passes. Returns gated (w, w_right)."""
+    while noise passes. With ``group`` the moments are sums over the whole
+    sharded map. Returns gated (w, w_right)."""
     r_wc, t_wc = _poses_to_w2c(poses)
     p_l = _camera_points(r_wc, t_wc, points)
     blocks = _blocks(obs, w, baseline, obs_right, w_right)
@@ -159,8 +186,11 @@ def chi2_gate_weights(
     w_all = [w_b for _, w_b, _ in blocks]
 
     def mean_e2(weights):
-        n = torch.clamp(sum(_sum64(wb) for wb in weights), min=1.0)
-        return sum(_sum64(wb * e2) for wb, e2 in zip(weights, e2_all)) / n
+        sums = _round_sums([x.double().sum() for x in (
+            *weights, *(wb * e2 for wb, e2 in zip(weights, e2_all)))], group)
+        nb = len(weights)
+        n = torch.clamp(sum(sums[:nb]), min=1.0)
+        return sum(sums[nb:]) / n
 
     m1 = mean_e2(w_all)
     trim = [wb * (e2 <= 4.0 * m1) for wb, e2 in zip(w_all, e2_all)]
@@ -209,8 +239,10 @@ def refine_window(
     iterations: int = 8,
     reprojection_th2: float = 5.991,
     n_fixed_poses: int = 1,
+    group=None,
 ) -> BAResult:
-    """LM-damped Schur-complement BA over an F-pose window."""
+    """LM-damped Schur-complement BA over an F-pose window; with ``group``
+    over a map sharded across the group's ranks (module docstring)."""
     f_dim = obs.shape[0]
     dev, dtype = points.device, points.dtype
     delta2 = scalar(reprojection_th2, points)   # divisors: see device.scalar
@@ -225,10 +257,14 @@ def refine_window(
 
     def robust_chi2(r_wc, t_wc, pts):
         p_l = _camera_points(r_wc, t_wc, pts)
-        total = 0.0
+        parts = []
         for obs_b, w_b, x_off in blocks:
             e2 = _sq(_project(p_l, x_off, obs_b, fx, fy, cx, cy)[0])
-            total = total + _sum64(w_b * delta2 * torch.log1p(e2 / delta2))
+            parts.append((w_b * delta2 * torch.log1p(e2 / delta2))
+                         .double().sum())
+        total = 0.0
+        for part in _round_sums(parts, group):
+            total = total + part
         return total
 
     def block_jacobians(r_wc, p_l, p, inv_z):
@@ -249,26 +285,34 @@ def refine_window(
         return jc, jp
 
     def iteration(s: _BAState) -> _BAState:
-        h_cc = g_c = h_cp = h_pp = g_p = 0.0
+        h_cp = h_pp = g_p = 0.0
+        cam_parts = []     # per block: h_cc's and g_c's float64 partials
         p_l = _camera_points(s.r_wc, s.t_wc, s.points)
         for obs_b, w_b, x_off in blocks:
             r, p, inv_z = _project(p_l, x_off, obs_b, fx, fy, cx, cy)
             wr = w_b * _cauchy_weights(_sq(r), delta2)
             jc, jp = block_jacobians(s.r_wc, p_l, p, inv_z)
             jc_w = jc * wr[..., None, None]
-            h_cc = h_cc + _einsum64("fmki,fmkj->fij", jc_w, jc)
+            cam_parts += [_wide("fmki,fmkj->fij", jc_w, jc),
+                          _wide("fmki,fmk->fi", jc_w, r)]
             h_cp = h_cp + _einsum64("fmki,fmkj->fmij", jc_w, jp)
             h_pp = h_pp + _einsum64("fmki,fmkj,fm->mij", jp, jp, wr)
-            g_c = g_c + _einsum64("fmki,fmk->fi", jc_w, r)
             g_p = g_p + _einsum64("fmki,fmk,fm->mi", jp, r, wr)
 
         hpp_inv = _inv33(h_pp, s.lam)                              # [M, 3, 3]
         # Schur complement onto the camera block
         hcp_hppinv = _einsum64("fmij,mjk->fmik", h_cp, hpp_inv)
-        sc = -_einsum64("fmik,gmjk->fgij", hcp_hppinv, h_cp)
+        *cam, sc_part, g_part = _round_sums(
+            cam_parts + [_wide("fmik,gmjk->fgij", hcp_hppinv, h_cp),
+                         _wide("fmik,mk->fi", hcp_hppinv, g_p)], group)
+        h_cc = g_c = 0.0
+        for hcc_b, gc_b in zip(cam[0::2], cam[1::2]):
+            h_cc = h_cc + hcc_b
+            g_c = g_c + gc_b
+        sc = -sc_part
         diag = h_cc + s.lam * eye6
         sc = torch.where(same_pose, sc + diag[:, None], sc)
-        g_red = g_c - _einsum64("fmik,mk->fi", hcp_hppinv, g_p)
+        g_red = g_c - g_part
 
         # gauge fix: the n_fixed_poses oldest poses held (identity rows and
         # columns, zero right-hand side)
@@ -305,5 +349,5 @@ def refine_window(
         poses=_w2c_to_poses(state.r_wc, state.t_wc),
         points=state.points,
         chi2=state.chi2,
-        n_obs=sum((w_b > 0).sum() for _, w_b, _ in blocks),
+        n_obs=psum_if(sum((w_b > 0).sum() for _, w_b, _ in blocks), group),
     )

@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment: robust Levenberg-Marquardt PnP on SE(3).
 
-Port of lvt_tpu/solver/pnp.py (single device): analytic 2x6 Jacobians,
+Port of lvt_tpu/solver/pnp.py: analytic 2x6 Jacobians,
 Cauchy weights (delta^2 = reprojection_th2), a 6x6 normal-equation solve,
 2 passes of 5 iterations, and chi-square demotion after each pass. The
 iteration loop is a Python loop of fixed length; rejected steps keep the
@@ -23,6 +23,22 @@ leading stream axis S, built as kernel T's op is (ops/top2.py):
   module used before the ops, so the CPU keeps its bits against lvt_tpu;
 * fake tensors: the output shapes; ``torch.func.vmap``: a rule that folds
   vmap's axis into the stream axis.
+
+With a ``group`` (the points sharded over its ranks, lvt_tpu's
+``axis_name``), every reduction over the points is summed across the
+ranks, in this order: each rank's normal equations come out of the op
+``wide``, as float64 partial sums before their one rounding (CUDA: the
+kernel's float64 sums; CPU: the float32 plain version, widened, so the CPU
+keeps lvt_tpu's bits), are summed over the group in float64 and then
+rounded once to float32; the shard count then changes only the order of
+float64 additions. The chi-square's partial is the float32 sum the op
+already gives (its terms are non-negative, so nothing cancels and the
+partial is within 1.7e-6 of its exact value at 4096 points), summed over
+the group in float64 and rounded once, so the order in which the ranks
+are added moves the total by float64 rounding only. On one rank both are
+the unsharded bits. The inlier count is a ``psum``; the 6x6 solve and the
+pose update run on every rank alike, so the LM loop needs no other
+communication.
 """
 
 from __future__ import annotations
@@ -35,6 +51,7 @@ from lvt_tpu_torch import kernels
 from lvt_tpu_torch.device import scalar
 from lvt_tpu_torch.geometry import quaternion as quat
 from lvt_tpu_torch.geometry.se3 import Pose, matvec
+from lvt_tpu_torch.ops.collectives import psum_if
 
 N_PASSES = 2
 N_ITERS_PER_PASS = 5
@@ -57,10 +74,12 @@ def normal_equations_plain(jac: torch.Tensor, w: torch.Tensor,
 
 @torch.library.custom_op("lvt_tpu_torch::pnp_normal_eqs", mutates_args=(),
                          device_types="cuda")
-def pnp_normal_eqs_op(jac: torch.Tensor, w: torch.Tensor,
-                      r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def pnp_normal_eqs_op(jac: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
+                      wide: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """PnP's normal equations of S streams: jac [S, M, 2, 6], w [S, M], r
-    [S, M, 2] float32 -> hg [S, 6, 7], h_diag [S, 6].
+    [S, M, 2] float32 -> hg [S, 6, 7], h_diag [S, 6], float32, or with
+    ``wide`` float64: the sums before their rounding to float32 (the
+    partials that a sharded solve adds across its ranks).
 
     CUDA: one launch of ``csrc/pnp.cu`` for all streams (one block per
     stream; its sums in an order fixed by M, whatever S)."""
@@ -69,35 +88,39 @@ def pnp_normal_eqs_op(jac: torch.Tensor, w: torch.Tensor,
     kernels.require(jac, "jac", torch.float32, (s, m, 2, NP), dev)
     kernels.require(w, "w", torch.float32, (s, m), dev)
     kernels.require(r, "r", torch.float32, (s, m, 2), dev)
-    hg = torch.empty((s, NP, NP + 1), dtype=torch.float32, device=dev)
-    h_diag = torch.empty((s, NP), dtype=torch.float32, device=dev)
+    out = torch.float64 if wide else torch.float32
+    hg = torch.empty((s, NP, NP + 1), dtype=out, device=dev)
+    h_diag = torch.empty((s, NP), dtype=out, device=dev)
     err = kernels.lib().lvt_pnp_normal_eqs(
         jac.data_ptr(), w.data_ptr(), r.data_ptr(), s, m, hg.data_ptr(),
-        h_diag.data_ptr(), kernels.stream_ptr(jac))
+        h_diag.data_ptr(), int(wide), kernels.stream_ptr(jac))
     kernels.check(err, "pnp_normal_eqs")
     normal_equations.launches += 1
     return hg, h_diag
 
 
 @pnp_normal_eqs_op.register_kernel("cpu")
-def _pnp_normal_eqs_cpu(jac, w, r):
+def _pnp_normal_eqs_cpu(jac, w, r, wide=False):
     outs = [normal_equations_plain(*a) for a in zip(jac, w, r)]
-    return (torch.stack([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]))
+    hg = torch.stack([o[0] for o in outs])
+    h_diag = torch.stack([o[1] for o in outs])
+    return (hg.double(), h_diag.double()) if wide else (hg, h_diag)
 
 
 @pnp_normal_eqs_op.register_fake
-def _pnp_normal_eqs_fake(jac, w, r):
+def _pnp_normal_eqs_fake(jac, w, r, wide=False):
     s = jac.shape[0]
-    return jac.new_empty((s, NP, NP + 1)), jac.new_empty((s, NP))
+    out = torch.float64 if wide else torch.float32
+    return (jac.new_empty((s, NP, NP + 1), dtype=out),
+            jac.new_empty((s, NP), dtype=out))
 
 
-def _pnp_normal_eqs_vmap(info, in_dims, jac, w, r):
+def _pnp_normal_eqs_vmap(info, in_dims, jac, w, r, wide=False):
     """Batching rule: vmap's axis and the stream axis fold into one
     launch (``kernels.fold_streams``); the outputs unfold to [B, S, ...]."""
     b = info.batch_size
-    hg, h_diag = pnp_normal_eqs_op(*kernels.fold_streams(info, in_dims,
-                                                         (jac, w, r)))
+    hg, h_diag = pnp_normal_eqs_op(
+        *kernels.fold_streams(info, in_dims[:3], (jac, w, r)), wide)
     return ((hg.view(b, -1, *hg.shape[1:]), h_diag.view(b, -1, NP)), (0, 0))
 
 
@@ -150,14 +173,16 @@ def stream_sum(x: torch.Tensor) -> torch.Tensor:
 stream_sum.launches = 0
 
 
-def normal_equations(jac: torch.Tensor, w: torch.Tensor, r: torch.Tensor):
+def normal_equations(jac: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
+                     wide: bool = False):
     """One stream's (hg [6, 7], h_diag [6]) from jac [M, 2, 6], w [M] and r
-    [M, 2]: the op at S = 1. CPU tensors take the plain version, CUDA
-    tensors the kernel (any other device raises), and under
-    ``torch.func.vmap`` one launch serves every stream."""
+    [M, 2] (float64 partial sums with ``wide``): the op at S = 1. CPU
+    tensors take the plain version, CUDA tensors the kernel (any other
+    device raises), and under ``torch.func.vmap`` one launch serves every
+    stream."""
     if jac.device.type not in ("cpu", "cuda"):
         raise ValueError(f"jac: expected a CUDA tensor, got {jac.device}")
-    hg, h_diag = pnp_normal_eqs_op(jac[None], w[None], r[None])
+    hg, h_diag = pnp_normal_eqs_op(jac[None], w[None], r[None], wide)
     return hg[0], h_diag[0]
 
 
@@ -229,8 +254,12 @@ def solve_pnp(
     points: torch.Tensor,   # [M, 3] world points (fixed)
     obs: torch.Tensor,      # [M, 2] observed pixels
     weights: torch.Tensor,  # [M] 0/1 validity of each correspondence
-    *, fx, fy, cx, cy, reprojection_th2: float = 5.991,
+    *, fx, fy, cx, cy, reprojection_th2: float = 5.991, group=None,
 ) -> PnPResult:
+    """Robust LM PnP with the reference's 2 x 5 + outlier-demotion
+    schedule. With ``group``, the points are this rank's block of a set
+    sharded over the group's ranks, and every reduction over them is
+    summed across the group (the module docstring gives the order)."""
     delta2 = scalar(reprojection_th2, points)   # a divisor: see device.scalar
     three = scalar(3.0, points)
     eye6 = torch.eye(6, dtype=points.dtype, device=points.device)
@@ -240,13 +269,18 @@ def solve_pnp(
                                              fx, fy, cx, cy)
         return r, p_cam, inv_z, (r * r).sum(-1)
 
+    def total(x):
+        """A partial sum over this rank's points, summed over the group in
+        float64 and rounded once."""
+        return x if group is None else psum_if(x.double(), group).float()
+
     def robust_chi2(e2, w_mask):
-        return stream_sum(w_mask * (delta2 * torch.log1p(e2 / delta2)))
+        return total(stream_sum(w_mask * (delta2 * torch.log1p(e2 / delta2))))
 
     def lm_iteration(s: _LMState, w_mask) -> _LMState:
         w = w_mask * _cauchy_weights(s.e2, delta2)
         jac = _jacobians(s.p_cam, s.inv_z, fx, fy)
-        hg, _ = normal_equations(jac, w, s.r)
+        hg = total(normal_equations(jac, w, s.r, wide=group is not None)[0])
         h, g = hg[:, :6], hg[:, 6]
         step = torch.linalg.solve_ex(h + s.lam * eye6, -g)[0]
         r_wc_new, t_wc_new = _retract(s.r_wc, s.t_wc, step)
@@ -270,7 +304,7 @@ def solve_pnp(
         r, p_cam, inv_z, e2 = project(r_wc, t_wc)
         w = w_mask * _cauchy_weights(e2, delta2)
         jac = _jacobians(p_cam, inv_z, fx, fy)
-        _, h_diag = normal_equations(jac, w, r)
+        h_diag = total(normal_equations(jac, w, r, wide=group is not None)[1])
         lam0 = LM_TAU * h_diag.max() + 1e-12
         s = _LMState(r_wc, t_wc, lam0, torch.full_like(lam0, 2.0),
                      robust_chi2(e2, w_mask), r, p_cam, inv_z, e2)
@@ -292,6 +326,7 @@ def solve_pnp(
     r_cw = r_wc.T
     return PnPResult(
         pose=Pose(-matvec(r_cw, t_wc), quat.from_matrix(r_cw)),
-        inlier_mask=inlier_mask, inlier_count=inlier_mask.sum(),
+        inlier_mask=inlier_mask,
+        inlier_count=psum_if(inlier_mask.sum(), group),
         chi2=s.chi2,
     )

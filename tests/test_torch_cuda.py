@@ -318,6 +318,29 @@ def test_pnp_normal_eqs_kernel_matches_plain(cuda, s, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,m", [(1, 512), (1, 256), (8, 512), (3, 300)])
+def test_pnp_normal_eqs_wide_output_rounds_to_the_float32_one(cuda, s, m):
+    """The ``wide`` op (float64 sums before their rounding, which a
+    sharded solve adds across its ranks) at the shard shapes of chip_smoke
+    path 8: rounded once, bit-equal to the float32 op; within 1e-5 of the
+    terms' magnitudes of the plain version; one launch under vmap."""
+    jac, w, r = _pnp_inputs(np.random.RandomState(s * m), s, m, cuda)
+    before = pnp.normal_equations.launches
+    wide = pnp.pnp_normal_eqs_op(jac, w, r, True)
+    narrow = pnp.pnp_normal_eqs_op(jac, w, r)
+    torch.cuda.synchronize()
+    assert pnp.normal_equations.launches == before + 2
+    for a, b in zip(wide, narrow):
+        assert a.dtype == torch.float64 and torch.equal(a.float(), b)
+    _pnp_close(tuple(x.float() for x in wide), jac, w, r)
+    before = pnp.normal_equations.launches
+    got = torch.func.vmap(lambda *a: pnp.normal_equations(*a, wide=True))(
+        jac, w, r)
+    assert pnp.normal_equations.launches == before + 1
+    assert torch.equal(got[0], wide[0]) and torch.equal(got[1], wide[1])
+
+
+@pytest.mark.cuda
 def test_pnp_normal_eqs_vmap_rule_launches_once(cuda):
     """Under torch.func.vmap the single-stream call reaches the kernel in
     one launch for all streams, with the bits of the direct launch."""
@@ -639,6 +662,60 @@ def test_kitti_cli_on_the_card_is_the_in_process_run(cuda, tmp_path):
     dump_kitti(str(want), poses)
     assert len(out.read_text().splitlines()) == 10
     assert out.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.cuda
+def test_collectives_vmap_rule_on_cuda_tensors(cuda):
+    """The collectives over 2 ranks sharing the card (gloo carries CUDA
+    tensors through the host), under vmap against a loop of unbatched
+    calls: equal, one collective per batched call, no vmap fallback."""
+    from lvt_tpu_torch.parallel import dryrun
+
+    res = dryrun.spawn([dryrun.job(dryrun.collectives_check, device="cuda")],
+                       2, device="cuda", backend="gloo")
+    x = sum(np.arange(12, dtype=np.float32).reshape(3, 4) * (r + 1)
+            for r in range(2))
+    for rank, (c,) in enumerate(res):
+        assert (c["axis_index"], c["axis_size"]) == (rank, 2)
+        np.testing.assert_array_equal(c["psum"], x)
+        assert c["batched_equal"] == {"psum": True, "pmin": True,
+                                      "por": True}
+        assert c["batched_calls"] == 3 and c["fallback_warnings"] == []
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_sharded_stream_is_vosystem(cuda):
+    """ShardedStreamVO on a 1-rank NCCL group over 8 frames: poses,
+    statuses and map size bit-equal to VOSystem on the card (one rank's
+    collectives return their input; the sums round as unsharded)."""
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.parallel import dryrun
+
+    world = SyntheticWorld(width=320, height=240, fx=260.0, fy=260.0,
+                           cx=160.0, cy=120.0, baseline=0.3, n_points=1500,
+                           extent_x=40.0, extent_y=18.0, extent_z=90.0)
+    cfg = VOConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
+                   baseline=world.baseline, img_width=320, img_height=240,
+                   detection_cell_size=80, max_keypoints_per_cell=60,
+                   agast_threshold=15, near_plane_distance=0.5,
+                   far_plane_distance=150.0, local_ba_window=4)
+    frames = [(l.astype(np.uint8), r.astype(np.uint8))
+              for l, r, _ in world.stereo_sequence(8, speed=0.5)]
+    il = np.stack([f[0] for f in frames])
+    ir = np.stack([f[1] for f in frames])
+    ((r,),) = dryrun.spawn([dryrun.job(dryrun.sharded_stream, cfg, il, ir,
+                                       chunk=8, device="cuda")], 1,
+                           device="cuda", backend="nccl")
+    vo = VOSystem(cfg, device=cuda)
+    poses, metrics = vo.track_chunk(il, ir)
+    assert r["backend"] == "nccl"
+    np.testing.assert_array_equal(r["poses"][0], poses.t.cpu().numpy())
+    np.testing.assert_array_equal(r["poses"][1], poses.q.cpu().numpy())
+    np.testing.assert_array_equal(r["metrics"].status,
+                                  metrics.status.cpu().numpy())
+    assert r["map_size"] == vo.map_size
 
 
 @pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2",

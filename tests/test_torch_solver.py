@@ -8,7 +8,9 @@ Tolerances:
   * the normal-equation and sum ops (``lvt_tpu_torch::pnp_normal_eqs``,
     ``lvt_tpu_torch::stream_sum``) on the CPU: bit-equal to the einsums
     and the sum solve_pnp used before them, alone, over a stream axis and
-    under vmap;
+    under vmap; the normal equations' ``wide`` (float64) outputs on the
+    CPU: the float32 ones widened, exactly (the sharded solve adds them
+    across ranks; one rank then keeps the unsharded bits);
   * triangulate_stereo: the validity mask equal, positions within 1e-5
     relative;
   * insert_points, apply_match_bookkeeping, clean_untracked: exact (they
@@ -135,6 +137,21 @@ def test_normal_equations_op_is_the_einsums_on_the_cpu(s, m):
             assert torch.equal(got[0], hg) and torch.equal(got[1], h_diag)
         assert torch.equal(shared[0][i], _einsums(jac[i], w[i], r[0])[0])
     assert batched[0].shape == (s, 6, 7) and batched[1].shape == (s, 6)
+
+
+@pytest.mark.parametrize("s,m", [(1, 300), (3, 1024)])
+def test_wide_normal_equations_are_the_narrow_ones_widened_on_the_cpu(s, m):
+    rs = np.random.RandomState(s + m)
+    jac = torch.from_numpy(rs.randn(s, m, 2, 6).astype(np.float32) * 300)
+    w = torch.from_numpy(rs.rand(s, m).astype(np.float32))
+    r = torch.from_numpy(rs.randn(s, m, 2).astype(np.float32))
+    narrow = pnp.pnp_normal_eqs_op(jac, w, r)
+    for wide in (pnp.pnp_normal_eqs_op(jac, w, r, True),
+                 torch.func.vmap(lambda *a: pnp.normal_equations(
+                     *a, wide=True))(jac, w, r)):
+        for a, b in zip(wide, narrow):
+            assert a.dtype == torch.float64
+            assert torch.equal(a, b.double())
 
 
 @pytest.mark.parametrize("s,n", [(1, 1024), (8, 1024), (3, 8191)])

@@ -55,6 +55,25 @@ def test_port_imports_no_jax_and_nothing_of_lvt_tpu():
     assert not bad, f"imports of the JAX package or JAX: {bad}"
 
 
+def test_sharded_modules_are_scanned_and_their_workers_import_no_jax():
+    """The sharded modes' modules are in the scan above, and a rank
+    spawned by parallel/dryrun.py, after running a sharded step, has
+    imported neither JAX nor anything of lvt_tpu or the tests."""
+    from lvt_tpu_torch.parallel import dryrun
+
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert {f"lvt_tpu_torch/{m}.py" for m in (
+        "ops/collectives", "parallel/mesh", "parallel/ba",
+        "parallel/sharded_stream", "parallel/stream_point",
+        "parallel/multihost", "parallel/dryrun")} <= scanned
+    config, il, ir, _, _ = dryrun._tiny()
+    ((_, loaded),) = dryrun.spawn([
+        dryrun.job(dryrun.sharded_stream, config, il[:2], ir[:2], chunk=2),
+        dryrun.job(dryrun.loaded_modules)], 1)
+    assert "lvt_tpu_torch" in loaded and "torch" in loaded
+    assert not set(loaded) & {*FORBIDDEN, "tests"}
+
+
 def test_import_scan_catches_each_form(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom lvt_tpu.config import X\n"
