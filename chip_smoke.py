@@ -27,22 +27,23 @@ and the script exits non-zero without printing the final line:
    computes the same function, that call's time;
 3. path 1, the main path (patch descriptors, BA off): a synthetic
    KITTI-geometry stereo sequence (uint8, as bench.py builds it) through
-   ``VOSystem(config, device="cuda").track_chunk`` in chunks of 16; the
+   ``VOSystem(config, device="cuda").track_chunk``, 112 frames in chunks
+   of 16, graph and eager (above); the
    final status must be TRACKING, the ATE under 5% of the distance
    travelled, the host syncs of one chunk (under
    ``torch.cuda.set_sync_debug_mode("warn")``) 0, and the kernels must have
-   launched (A and P once per frame, T three times); prints the frames/s of
-   the timed chunks; then the card against the CPU: frame 0's features bit
-   for bit, and the poses of frames 0-3 within 1e-3 m;
+   launched (A and P once per frame, T three times); then the card against
+   the CPU: frame 0's features bit for bit, and the poses of frames 0-3
+   within 1e-3 m;
 4. path 2, the shipped KITTI config (lvt_tpu_torch/configs/kitti/
    vo_config.yaml: local BA, window 4 every 4 frames) in the dense
-   descriptor mode, 48 frames in the same way: A, B once per frame and T
+   descriptor mode, 56 frames in chunks of 8: A, B once per frame and T
    four times; the number of frames that ran BA (read once after the run)
-   must be the schedule's; then the card against the CPU over frames 0-8
-   (two BA runs);
+   must be the schedule's; then the card against the CPU over frames 0-4
+   (BA runs at frame 4);
 5. path 3, many streams (bench.py --multistream's shape): path 1's config
-   through ``MultiStreamVO(config, 8, device="cuda").track_chunk`` in
-   chunks of 8 frames, stream i from frame 2i of the same sequence: every
+   through ``MultiStreamVO(config, 8, device="cuda").track_chunk``, 56
+   frames in chunks of 8, stream i from frame 2i of the same sequence: every
    stream TRACKING with its ATE under 5% of its distance, 0 host syncs in
    a chunk, and per frame exactly one launch of A and P and three of T
    for all 8 streams; prints the aggregate and per-stream frames/s; then
@@ -57,13 +58,13 @@ and the script exits non-zero without printing the final line:
    and 8 single launches;
 6. path 4, RGB-D at 640x480 (the oracle's `rgbd` scenario: its world and
    config): ``VOSystem(config, SensorType.RGBD, device="cuda")
-   .track_chunk`` over 48 frames (TRACKING, ATE under 5%, 0 syncs, per
+   .track_chunk`` over 56 frames (TRACKING, ATE under 5%, 0 syncs, per
    frame exactly one A, one P and two T: map match and staged re-match),
    A, P and T against their plain versions at the shapes of frame 0 for
    one stream and for 4 (T at both sites), frame 0's features card
    against CPU, the card against the CPU over frames 0-3 (1e-3 m), then
    ``MultiStreamVO(rgbd=True)`` with 4 streams over 16 frames (all
-   TRACKING), then one frame through ``extract_features_rgbd`` at the TUM
+   TRACKING, graph = eager bit for bit), then one frame through ``extract_features_rgbd`` at the TUM
    fr1 YAML with its distortion, card against CPU (``valid`` and ``desc``
    equal, ``kp`` within 1e-3 px). The synthetic world renders an ideal
    pinhole, so tracking a sequence under the YAML's distortion would be
@@ -82,8 +83,8 @@ and the script exits non-zero without printing the final line:
    896 keypoint slots, 4096 map points, no staged points): raw distorted
    uint8 frames of the EuRoC rig (``io.datasets.render_euroc_raw``)
    through ``VOSystem(config, rectify_maps=io.datasets
-   .euroc_rectify_maps())``, remapped inside the step, 48 frames in chunks
-   of 16: every frame TRACKING, ATE under 5%, 0 host syncs per chunk,
+   .euroc_rectify_maps())``, remapped inside the step, 56 frames in chunks
+   of 8: every frame TRACKING, ATE under 5%, 0 host syncs per chunk,
    exactly A 1, P 1, T 2 (map, row) per frame; frame 0's remapped pair and
    features card vs CPU bit-equal; kernel A's float32 kernel, P and T (map
    4096 x 896, row) against their plain versions at its shapes; poses of
@@ -92,7 +93,8 @@ and the script exits non-zero without printing the final line:
    inputs of one more frame: its launches 2-9 as S = 8 streams;
 9. path 6, external corners (``configs.kitti_config()``, path 1's frames):
    corners from the port's own extraction on the card, passed as host
-   [N, 2] arrays to ``VOSystem.track_with_external_corners`` for 32 frames:
+   [N, 2] arrays to ``VOSystem.track_with_external_corners`` for 32 frames
+   (one call each):
    every frame TRACKING, ATE under 5%, 0 host syncs in the step, exactly A
    0, P 0, T 3 per frame; frame 0's descriptors card vs CPU bit-equal;
    poses of frames 0-3 card vs CPU within 1e-3 m;
@@ -124,8 +126,9 @@ and the script exits non-zero without printing the final line:
    ``lvt_tpu_torch.parallel.dryrun.spawn``, after the kernels are built
    here; every rank on ``cuda:0``), with path 7 kitti's config (the
    shipped KITTI YAML: patch mode, local BA window 4 every 4) on path 1's
-   frames: 8a, ``ShardedStreamVO`` on one NCCL rank in this process, 32
-   frames in chunks of 16: poses, statuses and map sizes bit-equal to
+   frames: 8a, ``ShardedStreamVO`` on one NCCL rank in this process (its
+   all-reduces captured in the graph), 24 frames in units of 3, graph
+   and eager: poses, statuses and map sizes bit-equal to
    ``VOSystem`` on the card, 0 host syncs per chunk, per frame exactly A
    1, P 1, T 4, each PnP op 12 and ``collectives_per_frame`` all-reduces;
    kernels A, P and T (map and staged at M / 2 and M / 4 rows) against
@@ -145,7 +148,7 @@ and the script exits non-zero without printing the final line:
    TRACKING, no vmap fallback; 8d, ``MultiStreamVO`` on a 2-rank stream
    mesh with path 3's 8 streams, 16 frames: each rank's 4 streams
    bit-equal to path 3's one-process run, no collective; then 8b at 2
-   ranks on gloo CPU processes over frames 0-3, within 1e-3 m of the card;
+   ranks on gloo CPU processes over frames 0-2, within 1e-3 m of the card;
    frames/s of each;
 13. a JSON line with each kernel's launches and largest error against its
    plain version (in all, and by path), times and bound (T per site, per
@@ -153,17 +156,46 @@ and the script exits non-zero without printing the final line:
    S = 1 and 8, and at path 8's M), then the last line ``{"ok": true,
    "device": {...}}``.
 
+Every path runs its step as the port does by default: a CUDA graph of the
+step captured at the first frame of each system and entry point and
+replayed per frame (``lvt_tpu_torch/core/graphs.py``). Paths 1-6 and 8a
+also run the same frames on a second system under
+``graphs.disable_graphs()`` (the eager step), in turns with the graph,
+unit by unit (``RUNS``: a unit is one ``track_chunk`` call, on path 6
+EXT_UNIT calls of one frame): unit 0 warms up (the graphs are captured),
+unit 1 counts the host syncs of both modes (0 each), the rest (5 or more)
+are timed, the mode that goes first alternating. The graph must equal the
+eager step bit for bit (poses, statuses, every metrics leaf,
+``local_ba_ran``; a pose gap under 1e-5 m is printed and tolerated,
+1e-5 m fails); each path prints both modes' frames/s (median, min, max),
+the host ms per frame of the replay loop, the capture seconds per graph,
+the peak device memory, and, from one more graphed unit under
+``torch.profiler``, the device busy time against the span from its first
+kernel's start to its last one's end, the device kernels per frame and
+each hand-written kernel's launches as the card ran them. 8b and 8c run
+eagerly (gloo), 8d graphed, and each says so; path 7's StreamingVO runs
+16 frames graphed in its worker thread, its poses bit-equal to
+``VOSystem.track``'s.
+
 Every path launches each of PnP's two ops 12 times per frame (2 passes of
 the damping's diagonal or the starting chi-square, and 5 iterations).
 Every kernel's launch count is set to 0 just before a path runs (on
-path 7, each CLI run; on path 8, in each rank) and read just after it;
-the comparisons of phase 2 and the cross-checks after each path (path
-7's in-process runs, path 8's unsharded reference) are not counted.
+path 7, each CLI run; on path 8, in each rank) and read just after it. A
+wrapper counts where Python calls it: at every frame of an eager step,
+at a graph's warm-up and capture (a replay calls no Python). So where a
+graph ran, what the card ran is read from a kernel trace
+(``dryrun.device_launches``): on paths 1-6 and 8a the profiled graphed
+unit, on path 7 each CLI run, in path 8's graphed ranks (8d) chunk 0
+(with the graph's warm-up step). Each must be exactly NEED_PER_FRAME per frame;
+the wrappers' counts must be NEED_PER_FRAME per eager frame and twice per
+graph. The ``kernels`` line's launches are the traced ones where a graph
+ran, the wrappers' where the step ran eagerly (8b, 8c). The comparisons
+of phase 2 and the cross-checks after each path (path 7's in-process
+runs, path 8's unsharded reference) are not counted.
 
-``--profile DIR`` also writes a torch.profiler table of one tracked chunk
-per path (path 6: 16 frames) to DIR, and prints the profiler's mean device
-time per launch of each kernel beside the event times of phase 2. Imports
-nothing of JAX.
+``--profile DIR`` also writes a torch.profiler table of one eager unit per
+path to DIR, with host and device time per stage (the profiler ranges of
+the step fire only in an eager step). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -184,10 +216,14 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-CHUNK = 16
-# chunk 0 warms up, chunk 1 counts host syncs, the rest are timed
-N_CHUNKS = {"path1": 5, "path2": 3}
-N_CPU_FRAMES = {"path1": 4, "path2": 9, "path4": 4, "path5": 4,
+CHUNK = 16          # path 7's chunks, path 8's reference chunks
+# paths 1-5, 8a: (frames per unit, units): unit 0 warms up (the graphs are
+# captured), unit 1 counts host syncs, the rest are timed, graph and eager
+# in turns (a unit is a track_chunk call; path 3's and 4's streams and
+# path 8a's ranks as below)
+RUNS = {"path1": (16, 7), "path2": (6, 7), "path3": (8, 7), "path4": (8, 7),
+        "path5": (8, 7), "path8a": (3, 8)}
+N_CPU_FRAMES = {"path1": 4, "path2": 5, "path4": 4, "path5": 4,
                 "path6": 4}
 REPS = 200          # back-to-back launches per kernel timing
 PLAIN_REPS = 5      # ... per plain-version timing
@@ -212,34 +248,28 @@ KERNELS = {
 # the TPU kernels' counterparts, held against their plain versions at
 # every path's shapes
 SITE_KERNELS = ("perception", "brief", "describe_refine", "hamming_top2")
-# the kernels' CUDA function names, as the profiler lists them
-SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
-           "describe_refine": "describe_refine_kernel",
-           "hamming_top2": "hamming_top2_kernel",
-           "pnp_normal_eqs": "pnp_normal_eqs_kernel",
-           "stream_sum": "stream_sum_kernel"}
-# path 3: bench.py --multistream's shape, S streams in chunks of MS_CHUNK
-# frames (warm-up, sync count, then timed chunks); stream i starts at
-# frame MS_START_STEP * i of the path-1 sequence, so the streams differ
+# the two ways of running a step: the graph of it replayed (the main
+# path) and the step called eagerly (graphs.disable_graphs())
+MODES = ("graph", "eager")
+# path 3: bench.py --multistream's shape, S streams in RUNS' units; stream
+# i starts at frame MS_START_STEP * i of the path-1 sequence, so the
+# streams differ
 MS_STREAMS = 8
-MS_CHUNK = 8
-MS_CHUNKS = 4
 MS_START_STEP = 2
 MS_CPU = (2, 4)         # streams x frames rerun on the CPU
 # path 4: RGB-D at 640x480 (the oracle's `rgbd` scenario), then S = 4
 # streams of RGB-D over 16 frames
-RGBD_CHUNKS = 3
 RGBD_SPEED = 0.5
 RGBD_MS = (4, 16)
 # path 5: EuRoC rectified, raw frames of a point cloud (N_PTS points in
 # +-X x +-Y x [2, Z] m) seen from a rig moving EUROC_SPEED m per frame
 # along its optical axis
-EUROC_CHUNKS = 3
 EUROC_SPEED = 0.2
 EUROC_CLOUD = dict(n=4000, x=15.0, y=8.0, z=40.0)
-# path 6: external corners, frames of path 1; the first EXT_WARM untimed
+# path 6: external corners, frames of path 1, one call per frame; units
+# of EXT_UNIT frames for _run_modes
 EXT_FRAMES = 32
-EXT_WARM = 8
+EXT_UNIT = 4
 # path 7: the dataset CLIs over 48 frames written as PNG trees: paths 1
 # and 5's frames; for TUM path 4's camera and config over a cloud within
 # the format's depth range (65535 / 5000 = 13.1 m; path 4's world reaches
@@ -317,6 +347,11 @@ B_ALU_PER_PIXEL = 2 * 256
 # clamp; NMS 6 max, 2 compares, 1 select), B as above
 ONE_PIXEL_ALU_PER_PIXEL = {"perception": 16 + 16 + 128 + 30 + 3 + 9,
                            "brief": 2 * 256}
+
+
+def _n_frames(path: str) -> int:
+    chunk, n_units = RUNS[path]
+    return chunk * n_units
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -786,48 +821,157 @@ def phase_kernels(card, inp) -> dict:
     return report
 
 
-def _run_chunks(vo, a, b, chunk, n_chunks):
-    """``vo.track_chunk`` over ``n_chunks`` chunks of ``chunk`` frames
-    (the leading axis of ``a`` and ``b``), every launch count set to 0
-    just before: chunk 0 warms up, chunk 1 counts host syncs under
-    ``torch.cuda.set_sync_debug_mode("warn")``, the rest are timed. Returns
-    the poses and metrics (concatenated over frames), the launches, the
-    syncs and the timed seconds."""
-    from lvt_tpu_torch.parallel.dryrun import count_syncs, zero_kernel_counters
+def _run_modes(path, make, drive, n_units, unit_frames):
+    """A path twice on the same frames: the system ``make()`` returns,
+    replaying the graph of its step (the main path), and a second one run
+    eagerly under ``disable_graphs()``, unit by unit in turns
+    (``drive(system, u)`` tracks unit u, ``unit_frames`` frames, and
+    returns their poses and metrics). Unit 0 warms up (the graphs are
+    captured there), unit 1 counts host syncs under
+    ``torch.cuda.set_sync_debug_mode("warn")``, units 2.. are timed; the
+    mode that goes first alternates from unit to unit. Every launch count
+    and the collectives' count are set to 0 just before; each mode's are
+    what its own wrapper calls added (the graph's: its warm-up and
+    captured steps; a replay calls no wrapper). Returns per mode the poses
+    and metrics (concatenated over frames), launches, collectives, syncs,
+    each timed unit's seconds (to its end on the device) and the system;
+    the graph's host seconds per timed unit until the call returned, its
+    number of graphs and capture seconds per graph, and the peak device
+    memory of the path."""
+    from contextlib import nullcontext
 
-    counters = zero_kernel_counters()
-    poses, metrics = [], []
-    syncs = None
-    t_timed = 0.0
-    for c in range(n_chunks):
-        x, y = a[c * chunk:(c + 1) * chunk], b[c * chunk:(c + 1) * chunk]
-        torch.cuda.synchronize()
-        if c == 1:
-            (p, m), syncs = count_syncs(lambda: vo.track_chunk(x, y))
-        else:
-            t0 = time.perf_counter()
-            p, m = vo.track_chunk(x, y)
-            torch.cuda.synchronize()
-            if c >= 2:
-                t_timed += time.perf_counter() - t0
-        poses.append(p)
-        metrics.append(m)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    from lvt_tpu_torch.core.graphs import disable_graphs
+    from lvt_tpu_torch.ops.collectives import all_reduce
+    from lvt_tpu_torch.parallel.dryrun import count_syncs, zero_kernel_counters
     from lvt_tpu_torch.tree import tree_map
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_kernel_counters()
+    all_reduce.calls = 0
+    run = {m: dict(system=make(), out=[], times=[], collectives=0,
+                   launches=dict.fromkeys(counters, 0)) for m in MODES}
+    host = []
+    for u in range(n_units):
+        for mode in (MODES if u % 2 == 0 else MODES[::-1]):
+            r = run[mode]
+            before = {k: fn.launches for k, fn in counters.items()}
+            calls = all_reduce.calls
+            with disable_graphs() if mode == "eager" else nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if u == 1:
+                    out, r["syncs"] = count_syncs(
+                        lambda: drive(r["system"], u))
+                else:
+                    out = drive(r["system"], u)
+                t_host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                t_all = time.perf_counter() - t0
+            for k, fn in counters.items():
+                r["launches"][k] += fn.launches - before[k]
+            r["collectives"] += all_reduce.calls - calls
+            r["out"].append(out)
+            if u >= 2:
+                r["times"].append(t_all)
+                if mode == "graph":
+                    host.append(t_host)
     cat = lambda *xs: torch.cat(xs)  # noqa: E731
-    return dict(poses=tree_map(cat, *poses), metrics=tree_map(cat, *metrics),
-                launches=launches, syncs=syncs, t_timed=t_timed)
+    for r in run.values():
+        r["poses"], r["metrics"] = (tree_map(cat, *x) for x in zip(*r["out"]))
+        del r["out"]
+    runners = list(run["graph"]["system"].runners.values())
+    modes = sorted({x.mode for x in runners})
+    if modes != ["graph"]:
+        raise AssertionError(f"{path}: the main path ran {modes}, not the "
+                             f"graph")
+    return dict(run, unit_frames=unit_frames, host=host,
+                graphs=len(runners),
+                capture_s=[x.capture_seconds for x in runners],
+                memory=torch.cuda.max_memory_allocated())
+
+
+def _same_modes(path, run) -> None:
+    """Graph against eager: poses (t, q) and every metrics leaf bit-equal.
+    A gap is printed; a pose gap under 1e-5 m with equal statuses and BA
+    runs is tolerated (and named in ROADMAP Queue 3), 1e-5 m or more
+    fails."""
+    g, e = run["graph"], run["eager"]
+    names = ([f"pose.{k}" for k in g["poses"]._fields]
+             + [f"metrics.{k}" for k in g["metrics"]._fields])
+    differ = [name for name, a, b in zip(names, [*g["poses"], *g["metrics"]],
+                                         [*e["poses"], *e["metrics"]])
+              if not torch.equal(a, b)]
+    n = g["poses"].t.shape[0]
+    if not differ:
+        _say(path, f"graph = eager bit for bit over {n} frames: poses (t, "
+                   f"q), statuses, every metrics leaf, local_ba_ran")
+        return
+    gap = float((g["poses"].t - e["poses"].t).abs().max())
+    _say(path, f"graph vs eager over {n} frames: {differ} differ; largest "
+               f"pose gap {gap:.3g} m")
+    if not gap < 1e-5 or {"metrics.status", "metrics.local_ba_ran"} & set(
+            differ):
+        raise AssertionError(f"{path}: the graph differs from the eager "
+                             f"step ({differ}, pose gap {gap} m)")
+
+
+def _spread(xs) -> str:
+    return (f"median {np.median(xs):.2f}, min {min(xs):.2f}, max "
+            f"{max(xs):.2f} over {len(xs)}")
+
+
+def _report_modes(path, run, per=1) -> dict:
+    """Frames/s of both modes over the timed units (``per`` streams per
+    frame), host ms per frame of the replay loop, capture seconds, peak
+    memory, syncs; returns the summary."""
+    n = run["unit_frames"]
+    fps = {m: [per * n / t for t in run[m]["times"]] for m in MODES}
+    host_ms = [1e3 * t / n for t in run["host"]]
+    for m in MODES:
+        _say(path, f"{m}: frames/s {_spread(fps[m])} timed units of {n} "
+                   f"frames{f' x {per} streams' if per > 1 else ''} "
+                   f"(graph and eager in turns); host syncs in unit 1: "
+                   f"{run[m]['syncs']}")
+    _say(path, f"graph: host ms per frame of the replay loop (until "
+               f"track returned) {_spread(host_ms)}; capture (warm-up + "
+               f"capture + instantiation) "
+               f"{[round(x, 3) for x in run['capture_s']]} s per graph; "
+               f"peak device memory {run['memory'] / 2**20:.1f} MiB")
+    for m in MODES:
+        if run[m]["syncs"] != 0:
+            raise AssertionError(f"{path}: {run[m]['syncs']} host syncs in "
+                                 f"one {m} unit")
+    return dict(fps=float(np.median(fps["graph"])),
+                fps_eager=float(np.median(fps["eager"])),
+                fps_spread={m: [min(fps[m]), max(fps[m])] for m in MODES},
+                host_ms=float(np.median(host_ms)),
+                capture_s=run["capture_s"], memory=run["memory"],
+                syncs=run["graph"]["syncs"])
 
 
 def _check_launches(path, launches, n_frames) -> None:
     """Each kernel launched exactly NEED_PER_FRAME times per frame (and the
     path's other kernels never)."""
-    need = {k: NEED_PER_FRAME[path].get(k, 0) * n_frames for k in launches}
-    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    need = {k: NEED_PER_FRAME[path].get(k, 0) * n_frames for k in KERNELS}
+    bad = {k: (launches.get(k, 0), v) for k, v in need.items()
+           if launches.get(k, 0) != v}
     if bad:
         raise AssertionError(f"{path}: kernels launched other than exactly "
                              f"(got, need): {bad}")
+
+
+def _check_wrapper_counts(path, run, n_frames) -> None:
+    """The wrappers' counts in each mode of ``_run_modes``: the eager
+    step's launches, NEED_PER_FRAME per frame; the graph's calls, made at
+    each graph's warm-up and capture (a replay calls none), NEED_PER_FRAME
+    twice per graph."""
+    g, e = run["graph"]["launches"], run["eager"]["launches"]
+    _say(path, f"wrapper counts: eager {e} over {n_frames} frames; graph "
+               f"{g}, the calls of the warm-up and the captured step of "
+               f"{run['graphs']} graph(s)")
+    _check_launches(path, e, n_frames)
+    _check_launches(path, g, 2 * run["graphs"])
 
 
 def _same_features(name, got, want) -> None:
@@ -880,39 +1024,43 @@ def check_path_kernels(path, config, imgs, extract, sites) -> dict:
     return err
 
 
+def _chunks_of(a, b, chunk):
+    """``drive`` for ``_run_modes``: unit u is ``track_chunk`` of frames
+    u * chunk .. (u + 1) * chunk - 1 of ``a`` and ``b``."""
+    return lambda vo, u: vo.track_chunk(a[u * chunk:(u + 1) * chunk],
+                                        b[u * chunk:(u + 1) * chunk])
+
+
 def phase_path(path, config, il, ir, gt, profile_dir=None):
-    """One path: VOSystem.track_chunk on the card, chunk by chunk."""
+    """One path: VOSystem.track_chunk on the card, graph and eager."""
     from lvt_tpu_torch.core.system import TrackingState, VOSystem
     from lvt_tpu_torch.io.synthetic import ate_rmse
 
-    n = il.shape[0]
-    vo = VOSystem(config, device=DEVICE)
-    run = _run_chunks(vo, il, ir, CHUNK, n // CHUNK)
-    launches, syncs = run["launches"], run["syncs"]
-    n_ba = int(run["metrics"].local_ba_ran.sum())
+    chunk, n_units = RUNS[path]
+    n = chunk * n_units
+    drive = _chunks_of(il, ir, chunk)
+    run = _run_modes(path, lambda: VOSystem(config, device=DEVICE), drive,
+                     n_units, chunk)
+    vo, g = run["graph"]["system"], run["graph"]
+    n_ba = int(g["metrics"].local_ba_ran.sum())
     window, every = config.local_ba_window, config.local_ba_every
     # every frame tracks; BA runs once the window is full, on its schedule
     want_ba = (sum(f >= window and f % every == 0 for f in range(n))
                if window > 0 else 0)
 
     status = vo.get_state()
-    est = run["poses"].t.cpu().numpy()
+    est = g["poses"].t.cpu().numpy()
     err = ate_rmse(est, gt[:n])
     dist = float(np.linalg.norm(gt[n - 1] - gt[0]))
-    timed_frames = n - 2 * CHUNK
-    fps = timed_frames / run["t_timed"]
     _say(path, f"{n} frames {il.shape[1]}x{il.shape[2]} uint8 in chunks of "
-               f"{CHUNK}, descriptor mode {config.descriptor_mode or 'patch'}, "
+               f"{chunk}, descriptor mode {config.descriptor_mode or 'patch'}, "
                f"BA window {window}: status {status.name}, map {vo.map_size} "
                f"points")
-    _say(path, f"host syncs in one tracked chunk "
-               f"(set_sync_debug_mode warn): {syncs}")
-    _say(path, f"{fps:.2f} frames/s over {timed_frames} timed frames "
-               f"(after a warm-up chunk and the sync-count chunk)")
+    report = _report_modes(path, run)
+    _same_modes(path, run)
     _say(path, f"ATE RMSE {err:.4f} m over {dist:.2f} m "
                f"({100 * err / dist:.3f}%)")
     _say(path, f"frames that ran local BA: {n_ba} (schedule: {want_ba})")
-    _say(path, f"launches during the run: {launches}")
     if status != TrackingState.TRACKING:
         raise AssertionError(f"{path}: final status {status.name}, not TRACKING")
     if not err < 0.05 * dist:
@@ -921,20 +1069,50 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
     if n_ba != want_ba:
         raise AssertionError(f"{path}: {n_ba} frames ran BA, the schedule "
                              f"says {want_ba}")
-    if syncs != 0:
-        raise AssertionError(f"{path}: {syncs} host syncs in one chunk")
-    _check_launches(path, launches, n)
+    _check_wrapper_counts(path, run, n)
 
-    prof = None
-    if profile_dir:
-        prof = _profile(lambda: vo.track_chunk(il[-CHUNK:], ir[-CHUNK:]),
-                        CHUNK, os.path.join(profile_dir, path))
-        _say_busy(path, prof, fps)
+    prof = _profiles(path, run, drive, profile_dir)
+    if path == "path1":
+        prof.update(_inside_the_graph(path, vo, drive, n_units - 1, chunk))
     from lvt_tpu_torch.tree import tree_map
 
-    first = tree_map(lambda x: x[:N_CPU_FRAMES[path]], run["poses"])
-    return dict(launches=launches, first_poses=first, fps=fps, syncs=syncs,
-                profile=prof)
+    first = tree_map(lambda x: x[:N_CPU_FRAMES[path]], g["poses"])
+    return dict(report, first_poses=first, profile=prof,
+                launches=prof["launches"])
+
+
+def _inside_the_graph(path, vo, drive, u, n) -> dict:
+    """Where a graphed frame's time goes: unit ``u`` (``n`` frames) tracked
+    once more with a CUDA event before and after each graph replay, so the
+    device time inside the replays and the unit's time end to end come
+    from the same run; the rest of a frame is spent outside the graph
+    (copies in and out, the gaps between replays, the host)."""
+    (runner,) = vo.runners.values()
+    graph, spans = runner._graph, []
+
+    class Timed:
+        def replay(self):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            graph.replay()
+            ev[1].record()
+            spans.append(ev)
+
+    runner._graph = Timed()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drive(vo, u)
+        torch.cuda.synchronize()
+        frame_ms = 1e3 * (time.perf_counter() - t0) / n
+    finally:
+        runner._graph = graph
+    inside = sum(a.elapsed_time(b) for a, b in spans) / n
+    _say(path, f"a graphed frame ({n} frames of unit {u} again): "
+               f"{frame_ms:.3f} ms end to end, {inside:.3f} ms of it inside "
+               f"the graph's replay, {100 * (1 - inside / frame_ms):.1f}% "
+               f"outside it")
+    return dict(frame_ms=frame_ms, inside_ms=inside)
 
 
 def _relative_gt(rot, pos, start, n):
@@ -954,33 +1132,28 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
     from lvt_tpu_torch.io.synthetic import ate_rmse
     from lvt_tpu_torch.parallel.multistream import MultiStreamVO
 
-    s, n = MS_STREAMS, MS_CHUNK * MS_CHUNKS
+    chunk, n_units = RUNS["path3"]
+    s, n = MS_STREAMS, chunk * n_units
     starts = [MS_START_STEP * i for i in range(s)]
     a = torch.stack([il[k:k + n] for k in starts], 1)     # [N, S, H, W]
     b = torch.stack([ir[k:k + n] for k in starts], 1)
-    msvo = MultiStreamVO(config, s, device=DEVICE)
-    run = _run_chunks(msvo, a, b, MS_CHUNK, MS_CHUNKS)
+    drive = _chunks_of(a, b, chunk)
+    run = _run_modes("path3", lambda: MultiStreamVO(config, s, device=DEVICE),
+                     drive, n_units, chunk)
+    msvo, g = run["graph"]["system"], run["graph"]
     status = msvo.status
-    est = run["poses"].t.cpu().numpy()
+    est = g["poses"].t.cpu().numpy()
     errs = []
     for i, k in enumerate(starts):
-        g = _relative_gt(rot, pos, k, n)
-        errs.append((ate_rmse(est[:, i], g), float(np.linalg.norm(g[-1]))))
-    timed = n - 2 * MS_CHUNK
-    per_stream = timed / run["t_timed"]
-    launches = run["launches"]
+        gt = _relative_gt(rot, pos, k, n)
+        errs.append((ate_rmse(est[:, i], gt), float(np.linalg.norm(gt[-1]))))
     _say("path3", f"{s} streams x {n} frames {il.shape[1]}x{il.shape[2]} "
-                  f"uint8 in chunks of {MS_CHUNK} (stream i from frame "
+                  f"uint8 in chunks of {chunk} (stream i from frame "
                   f"{MS_START_STEP} i): statuses {status.tolist()}")
-    _say("path3", f"host syncs in one tracked chunk "
-                  f"(set_sync_debug_mode warn): {run['syncs']}")
-    _say("path3", f"{s * per_stream:.2f} frames/s aggregate ({s} x "
-                  f"{timed} timed frames), {per_stream:.2f} frames/s per "
-                  f"stream (after a warm-up chunk and the sync-count chunk)")
+    report = _report_modes("path3", run, per=s)
+    _same_modes("path3", run)
     _say("path3", "ATE per stream: " + ", ".join(
         f"{100 * e / d:.3f}%" for e, d in errs))
-    _say("path3", f"launches during the run: {launches} "
-                  f"({n} multi-stream frames)")
     if not (status == TRACKING).all():
         raise AssertionError(f"path3: statuses {status.tolist()}, not all "
                              f"TRACKING")
@@ -988,9 +1161,7 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
     if bad:
         raise AssertionError(f"path3: ATE of streams {bad} not under 5% "
                              f"of their distance: {errs}")
-    if run["syncs"] != 0:
-        raise AssertionError(f"path3: {run['syncs']} host syncs in one chunk")
-    _check_launches("path3", launches, n)
+    _check_wrapper_counts("path3", run, n)
 
     # frame 0's extraction batch (all 2S images) and T at the path's
     # three sites with every stream's frames 0 and 1
@@ -1009,10 +1180,10 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
         vo = VOSystem(config, device=DEVICE)
         p, _ = vo.track_chunk(il[starts[i]:starts[i] + n],
                               ir[starts[i]:starts[i] + n])
-        gaps.append((p.t - run["poses"].t[:, i]).abs().amax(-1).cummax(0)
-                    .values[MS_CHUNK - 1::MS_CHUNK].tolist())
-        equal.append(torch.equal(p.t, run["poses"].t[:, i])
-                     and torch.equal(p.q, run["poses"].q[:, i]))
+        gaps.append((p.t - g["poses"].t[:, i]).abs().amax(-1).cummax(0)
+                    .values[chunk - 1::chunk].tolist())
+        equal.append(torch.equal(p.t, g["poses"].t[:, i])
+                     and torch.equal(p.q, g["poses"].q[:, i]))
     _say("path3", f"streams 0 and 1 against the card's single-stream "
                   f"VOSystem over {n} frames: poses "
                   f"{'EQUAL' if all(equal) else 'differ'} ({equal}); "
@@ -1025,19 +1196,14 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
     if not max(gaps) < 1e-5:
         raise AssertionError(f"path3: multi-stream vs single-stream gaps "
                              f"{gaps} m, not under 1e-5 m")
-    prof = None
-    if profile_dir:
-        prof = _profile(
-            lambda: msvo.track_chunk(a[-MS_CHUNK:], b[-MS_CHUNK:]),
-            MS_CHUNK, os.path.join(profile_dir, "path3"))
-        _say_busy("path3", prof, per_stream, "multi-stream frame")
+    prof = _profiles("path3", run, drive, profile_dir, "multi-stream frame")
     pnp_inputs = capture_pnp_inputs("path3", msvo, a[-1], b[-1])
-    return dict(launches=launches, fps=s * per_stream,
-                fps_per_stream=per_stream, syncs=run["syncs"], profile=prof,
-                kernel_errs=kernel_errs, gaps=gaps, equal=all(equal),
+    return dict(report, fps_per_stream=report["fps"] / s, profile=prof,
+                launches=prof["launches"], kernel_errs=kernel_errs,
+                gaps=gaps, equal=all(equal),
                 pnp_inputs=pnp_inputs,
-                first_poses=run["poses"].t[:MS_CPU[1], :MS_CPU[0]],
-                poses=tuple(x[:MD_FRAMES].cpu().numpy() for x in run["poses"]),
+                first_poses=g["poses"].t[:MS_CPU[1], :MS_CPU[0]],
+                poses=tuple(x[:MD_FRAMES].cpu().numpy() for x in g["poses"]),
                 inputs=(a[:MS_CPU[1], :MS_CPU[0]], b[:MS_CPU[1], :MS_CPU[0]]))
 
 
@@ -1049,7 +1215,9 @@ def capture_pnp_inputs(path, system, a, b) -> dict:
     which launches the op once on the streams' real tensors: the first LM
     iteration's launch is kept. A VOSystem launches at S = 1: launches 2-9
     of its 12 are stacked as MS_STREAMS streams, so that the op is also
-    checked at S = 8 at this path's M."""
+    checked at S = 8 at this path's M. The frame runs eagerly
+    (``disable_graphs``) on the system's state."""
+    from lvt_tpu_torch.core.graphs import disable_graphs
     from lvt_tpu_torch.solver import pnp
 
     seen = {"pnp_normal_eqs_op": [], "stream_sum_op": []}
@@ -1066,7 +1234,9 @@ def capture_pnp_inputs(path, system, a, b) -> dict:
     for name in seen:
         setattr(pnp, name, recorder(name))
     try:
-        system.track(a, b)
+        # eager: a replay calls no Python, so nothing would be recorded
+        with disable_graphs():
+            system.track(a, b)
     finally:
         for name, fn in real.items():
             setattr(pnp, name, fn)
@@ -1189,7 +1359,7 @@ def rgbd_setup():
     config = VOConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
                       baseline=world.baseline, img_width=world.width,
                       img_height=world.height)
-    frames = list(world.rgbd_sequence(CHUNK * RGBD_CHUNKS, speed=RGBD_SPEED))
+    frames = list(world.rgbd_sequence(_n_frames("path4"), speed=RGBD_SPEED))
     gray = np.stack([np.clip(g, 0, 255).astype(np.uint8) for g, _, _ in frames])
     depth = np.stack([d.astype(np.float32) for _, d, _ in frames])
     rot = np.array([r for _, _, (r, _) in frames])
@@ -1205,6 +1375,7 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
     extraction (with its distortion) card against CPU."""
     from lvt_tpu_torch.configs import tum_rgbd_config
     from lvt_tpu_torch.core.extract import extract_features_rgbd
+    from lvt_tpu_torch.core.graphs import disable_graphs
     from lvt_tpu_torch.core.state import TRACKING
     from lvt_tpu_torch.core.system import SensorType, TrackingState, VOSystem
     from lvt_tpu_torch.io.synthetic import SyntheticWorld, ate_rmse
@@ -1212,32 +1383,29 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
 
     n = gray.shape[0]
     gd, dd = gray.to(DEVICE), depth.to(DEVICE)
-    vo = VOSystem(config, SensorType.RGBD, device=DEVICE)
-    run = _run_chunks(vo, gd, dd, CHUNK, RGBD_CHUNKS)
+    chunk, n_units = RUNS["path4"]
+    drive = _chunks_of(gd, dd, chunk)
+    run = _run_modes("path4", lambda: VOSystem(config, SensorType.RGBD,
+                                               device=DEVICE),
+                     drive, n_units, chunk)
+    vo, g = run["graph"]["system"], run["graph"]
     status = vo.get_state()
-    est = run["poses"].t.cpu().numpy()
+    est = g["poses"].t.cpu().numpy()
     err = ate_rmse(est, pos)
     dist = float(np.linalg.norm(pos[-1] - pos[0]))
-    timed = n - 2 * CHUNK
-    fps = timed / run["t_timed"]
-    launches = run["launches"]
     _say("path4", f"RGB-D, {n} frames {gray.shape[1]}x{gray.shape[2]} "
-                  f"(uint8 gray, float32 depth) in chunks of {CHUNK}: status "
+                  f"(uint8 gray, float32 depth) in chunks of {chunk}: status "
                   f"{status.name}, map {vo.map_size} points")
-    _say("path4", f"host syncs in one tracked chunk "
-                  f"(set_sync_debug_mode warn): {run['syncs']}")
-    _say("path4", f"{fps:.2f} frames/s over {timed} timed frames")
+    report = _report_modes("path4", run)
+    _same_modes("path4", run)
     _say("path4", f"ATE RMSE {err:.4f} m over {dist:.2f} m "
                   f"({100 * err / dist:.3f}%)")
-    _say("path4", f"launches during the run: {launches}")
     if status != TrackingState.TRACKING:
         raise AssertionError(f"path4: final status {status.name}")
     if not err < 0.05 * dist:
         raise AssertionError(f"path4: ATE {err:.4f} m not under 5% of "
                              f"{dist:.2f} m")
-    if run["syncs"] != 0:
-        raise AssertionError(f"path4: {run['syncs']} host syncs in one chunk")
-    _check_launches("path4", launches, n)
+    _check_wrapper_counts("path4", run, n)
 
     def feats(idx, dev):
         """extract_features_rgbd of the frames ``idx``, stacked."""
@@ -1257,16 +1425,12 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
                                   lambda dev, idx=idx: feats(idx, dev), sites)
         kernel_errs = {k: max(v, kernel_errs.get(k, 0.0))
                        for k, v in errs.items()}
-    prof = None
-    if profile_dir:
-        prof = _profile(lambda: vo.track_chunk(gd[-CHUNK:], dd[-CHUNK:]),
-                        CHUNK, os.path.join(profile_dir, "path4"))
-        _say_busy("path4", prof, fps)
+    prof = _profiles("path4", run, drive, profile_dir)
 
     k = N_CPU_FRAMES["path4"]
     cpu = VOSystem(config, SensorType.RGBD, device="cpu")
     p, _ = cpu.track_chunk(gray[:k], depth[:k])
-    dt = float((p.t - run["poses"].t[:k].cpu()).abs().max())
+    dt = float((p.t - g["poses"].t[:k].cpu()).abs().max())
     _say("path4", f"card vs CPU: poses of frames 0-{k - 1} differ by at "
                   f"most {dt:.3g} m")
     if not dt < 1e-3:
@@ -1278,12 +1442,21 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
     b = torch.stack([dd[MS_START_STEP * i:MS_START_STEP * i + m]
                      for i in range(s)], 1)
     msvo = MultiStreamVO(config, s, device=DEVICE, rgbd=True)
-    msvo.track_chunk(a, b)
+    p, mg = msvo.track_chunk(a, b)
+    with disable_graphs():
+        pe, me = MultiStreamVO(config, s, device=DEVICE,
+                               rgbd=True).track_chunk(a, b)
+    same = all(torch.equal(x, y) for x, y in zip([*p, *mg], [*pe, *me]))
     _say("path4", f"MultiStreamVO(rgbd=True), {s} streams x {m} frames: "
-                  f"statuses {msvo.status.tolist()}")
+                  f"statuses {msvo.status.tolist()}; graph "
+                  f"{'=' if same else 'DIFFERS FROM'} eager bit for bit "
+                  f"(poses, every metrics leaf)")
     if not (msvo.status == TRACKING).all():
         raise AssertionError("path4: a multi-stream RGB-D stream is not "
                              "TRACKING")
+    if not same:
+        raise AssertionError("path4: the multi-stream RGB-D graph differs "
+                             "from the eager step")
 
     # TUM fr1's camera with its distortion, one frame of points 2-6 m away
     tum = tum_rgbd_config(1)
@@ -1303,7 +1476,7 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
                   f"{dkp:.3g} px")
     if not same or not dkp < 1e-3 or int(fh.valid.sum()) == 0:
         raise AssertionError("path4: TUM fr1 extraction differs card vs CPU")
-    return dict(launches=launches, fps=fps, syncs=run["syncs"], profile=prof,
+    return dict(report, profile=prof, launches=prof["launches"],
                 kernel_errs=kernel_errs)
 
 
@@ -1320,7 +1493,7 @@ def euroc_setup():
                        rs.uniform(-c["y"], c["y"], c["n"]),
                        rs.uniform(2.0, c["z"], c["n"])], -1)
     shade = rs.uniform(60.0, 215.0, c["n"])
-    n = CHUNK * EUROC_CHUNKS
+    n = _n_frames("path5")
     gt = np.array([[0.0, 0.0, EUROC_SPEED * i] for i in range(n)])
     raw = [torch.from_numpy(np.stack([render_euroc_raw(points, shade, t, rt)
                                       for t in gt]))
@@ -1375,25 +1548,22 @@ def phase_rectified(config, maps, il, ir, gt, profile_dir=None):
 
     n = il.shape[0]
     ild, ird = il.to(DEVICE), ir.to(DEVICE)
-    vo = VOSystem(config, device=DEVICE, rectify_maps=maps)
-    run = _run_chunks(vo, ild, ird, CHUNK, EUROC_CHUNKS)
-    timed = n - 2 * CHUNK
-    fps = timed / run["t_timed"]
-    launches = run["launches"]
+    chunk, n_units = RUNS["path5"]
+    drive = _chunks_of(ild, ird, chunk)
+    run = _run_modes("path5", lambda: VOSystem(config, device=DEVICE,
+                                               rectify_maps=maps),
+                     drive, n_units, chunk)
+    vo, g = run["graph"]["system"], run["graph"]
     _say("path5", f"EuRoC rectified, {n} raw frames {il.shape[1]}x"
-                  f"{il.shape[2]} uint8 in chunks of {CHUNK}, remapped in "
+                  f"{il.shape[2]} uint8 in chunks of {chunk}, remapped in "
                   f"the step ({config.kp_capacity} slots, "
                   f"{config.max_map_points} map points): status "
                   f"{vo.get_state().name}, map {vo.map_size} points")
-    _say("path5", f"host syncs in one tracked chunk "
-                  f"(set_sync_debug_mode warn): {run['syncs']}")
-    _say("path5", f"{fps:.2f} frames/s over {timed} timed frames")
-    _say("path5", _check_ate("path5", run["poses"].t.cpu().numpy(), gt))
-    _say("path5", f"launches during the run: {launches}")
-    _every_frame_tracking("path5", run["metrics"].status)
-    if run["syncs"] != 0:
-        raise AssertionError(f"path5: {run['syncs']} host syncs in one chunk")
-    _check_launches("path5", launches, n)
+    report = _report_modes("path5", run)
+    _same_modes("path5", run)
+    _say("path5", _check_ate("path5", g["poses"].t.cpu().numpy(), gt))
+    _every_frame_tracking("path5", g["metrics"].status)
+    _check_wrapper_counts("path5", run, n)
 
     # frames 0 and 1 remapped on the card (frame 0 also on the CPU), then
     # the kernels at the shapes of frame 0
@@ -1412,20 +1582,16 @@ def phase_rectified(config, maps, il, ir, gt, profile_dir=None):
         lambda dev: extract_features_batched(rect_cpu.to(dev), config),
         {k: sites[k] for k in T_SITES["path5"]})
     _say("path5", "frame 0's remapped pair card vs CPU bit-equal (float32)")
-    prof = None
-    if profile_dir:
-        prof = _profile(lambda: vo.track_chunk(ild[-CHUNK:], ird[-CHUNK:]),
-                        CHUNK, os.path.join(profile_dir, "path5"))
-        _say_busy("path5", prof, fps)
+    prof = _profiles("path5", run, drive, profile_dir)
     k = N_CPU_FRAMES["path5"]
     cpu = VOSystem(config, device="cpu", rectify_maps=maps)
     p, _ = cpu.track_chunk(il[:k], ir[:k])
-    dt = float((p.t - run["poses"].t[:k].cpu()).abs().max())
+    dt = float((p.t - g["poses"].t[:k].cpu()).abs().max())
     _say("path5", f"card vs CPU: poses of frames 0-{k - 1} differ by at "
                   f"most {dt:.3g} m")
     if not dt < 1e-3:
         raise AssertionError(f"path5: CPU vs card pose difference {dt} m")
-    return dict(launches=launches, fps=fps, syncs=run["syncs"], profile=prof,
+    return dict(report, profile=prof, launches=prof["launches"],
                 kernel_errs=kernel_errs,
                 pnp_inputs=capture_pnp_inputs("path5", vo, ild[-1], ird[-1]))
 
@@ -1457,74 +1623,56 @@ def _padded_corners(corners, cap: int):
 
 def phase_external(config, il, ir, gt, profile_dir=None):
     """Path 6: VOSystem.track_with_external_corners frame by frame on the
-    card; descriptors and poses card vs CPU."""
-    from lvt_tpu_torch.core import step
+    card, graph and eager; descriptors and poses card vs CPU."""
     from lvt_tpu_torch.core.extract import describe_external_corners_batched
     from lvt_tpu_torch.core.system import VOSystem
-    from lvt_tpu_torch.parallel.dryrun import count_syncs, zero_kernel_counters
 
     n = il.shape[0]
     corners = _external_corners(config, il, ir)
-    vo = VOSystem(config, device=DEVICE)
-    counters = zero_kernel_counters()
-    poses, status = [], []
-    t0 = None
-    for i, (cl, cr) in enumerate(corners):
-        if i == EXT_WARM:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        poses.append(vo.track_with_external_corners(il[i], ir[i], cl, cr))
-        status.append(vo.last_metrics.status)
-    torch.cuda.synchronize()
-    fps = (n - EXT_WARM) / (time.perf_counter() - t0)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    est = torch.stack([p.t for p in poses]).cpu().numpy()
 
-    # host syncs inside the step, on one more frame, its corners uploaded
+    def drive(vo, u):
+        out = [(vo.track_with_external_corners(il[i], ir[i], *corners[i]),
+                vo.last_metrics)
+               for i in range(u * EXT_UNIT, (u + 1) * EXT_UNIT)]
+        stack = lambda *xs: torch.stack(xs)  # noqa: E731
+        return tuple(type(o[0])(*map(stack, *o)) for o in zip(*out))
+
+    run = _run_modes("path6", lambda: VOSystem(config, device=DEVICE), drive,
+                     n // EXT_UNIT, EXT_UNIT)
+    vo, g = run["graph"]["system"], run["graph"]
     cap = config.kp_capacity
-    cd, vd = _padded_corners(corners[-1], cap)
-    _, syncs = count_syncs(lambda: step.track_step_external_corners(
-        vo.state, il[-1], ir[-1], cd[0], vd[0], cd[1], vd[1], config))
     _say("path6", f"external corners, {n} frames {il.shape[1]}x"
                   f"{il.shape[2]} uint8 (corners per left image "
                   f"{min(len(c[0]) for c in corners)}-"
-                  f"{max(len(c[0]) for c in corners)}): status "
-                  f"{vo.get_state().name}, map {vo.map_size} points")
-    _say("path6", f"host syncs in one step (set_sync_debug_mode warn): "
-                  f"{syncs}")
-    _say("path6", f"{fps:.2f} frames/s over {n - EXT_WARM} timed frames "
-                  f"(one track_with_external_corners call each)")
-    _say("path6", _check_ate("path6", est, gt[:n]))
-    _say("path6", f"launches during the run: {launches}")
-    _every_frame_tracking("path6", torch.stack(status))
-    if syncs != 0:
-        raise AssertionError(f"path6: {syncs} host syncs in the step")
-    _check_launches("path6", launches, n)
+                  f"{max(len(c[0]) for c in corners)}), one "
+                  f"track_with_external_corners call per frame, units of "
+                  f"{EXT_UNIT}: status {vo.get_state().name}, map "
+                  f"{vo.map_size} points")
+    report = _report_modes("path6", run)
+    _same_modes("path6", run)
+    _say("path6", _check_ate("path6", g["poses"].t.cpu().numpy(), gt[:n]))
+    _every_frame_tracking("path6", g["metrics"].status)
+    _check_wrapper_counts("path6", run, n)
 
     args = (torch.stack([il[0], ir[0]]), *_padded_corners(corners[0], cap))
     got = describe_external_corners_batched(*args, config)
     want = describe_external_corners_batched(*(a.cpu() for a in args),
                                              config)
-    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(got, want)):
         raise AssertionError("path6: frame 0's descriptors differ card vs "
                              "CPU")
-    prof = None
-    if profile_dir:
-        prof = _profile(lambda: [vo.track_with_external_corners(
-            il[i], ir[i], *corners[i]) for i in range(CHUNK)], CHUNK,
-            os.path.join(profile_dir, "path6"))
-        _say_busy("path6", prof, fps)
+    prof = _profiles("path6", run, drive, profile_dir)
     k = N_CPU_FRAMES["path6"]
     cpu = VOSystem(config, device="cpu")
     dt = max(float((cpu.track_with_external_corners(
-        il[i].cpu(), ir[i].cpu(), *corners[i]).t - poses[i].t.cpu()).abs()
-        .max()) for i in range(k))
+        il[i].cpu(), ir[i].cpu(), *corners[i]).t - g["poses"].t[i].cpu())
+        .abs().max()) for i in range(k))
     _say("path6", f"card vs CPU: frame 0's descriptors bit-equal "
                   f"({int(want.valid.sum())} valid of 2 x {cap}); poses of "
                   f"frames 0-{k - 1} differ by at most {dt:.3g} m")
     if not dt < 1e-3:
         raise AssertionError(f"path6: CPU vs card pose difference {dt} m")
-    return dict(launches=launches, fps=fps, syncs=syncs, profile=prof)
+    return dict(report, profile=prof, launches=prof["launches"])
 
 
 # ---- path 7: the dataset CLIs on the card
@@ -1727,7 +1875,8 @@ def phase_cli(kitti, euroc, tum) -> dict:
     from lvt_tpu_torch import cli
     from lvt_tpu_torch.io import native_loader, trajectory
     from lvt_tpu_torch.observability import REFERENCE_SERIES
-    from lvt_tpu_torch.parallel.dryrun import zero_kernel_counters
+    from lvt_tpu_torch.parallel.dryrun import (device_launches,
+                                               zero_kernel_counters)
 
     root = os.path.join(ROOT, "build", "chip_smoke_path7")
     shutil.rmtree(root, ignore_errors=True)
@@ -1760,19 +1909,26 @@ def phase_cli(kitti, euroc, tum) -> dict:
         os.chdir(os.path.join(root, name))   # --record writes here
         try:
             counters = zero_kernel_counters()
-            t0 = time.perf_counter()
-            rc, syncs = _sync_sites(lambda: cli.main(
-                tree["args"] + ["--output", out, "--chunk", str(CHUNK),
-                                "--record"]))
-            t_cli = time.perf_counter() - t0
-            run_launches = {k: fn.launches for k, fn in counters.items()}
+
+            def cli_run():
+                t0 = time.perf_counter()
+                got = _sync_sites(lambda: cli.main(
+                    tree["args"] + ["--output", out, "--chunk", str(CHUNK),
+                                    "--record"]))
+                return got, time.perf_counter() - t0
+
+            ((rc, syncs), t_cli), run_launches = device_launches(cli_run)
+            calls = {k: fn.launches for k, fn in counters.items()}
             rows = open("measurments.txt").read().splitlines()
             titles = open("titles.txt").read().splitlines()
         finally:
             os.chdir(cwd)
         if rc != 0:
             raise AssertionError(f"{path}: the CLI returned {rc}")
-        _check_launches(path, run_launches, n)
+        # one graph: the card ran its warm-up step and n replays; the
+        # wrappers were called at its warm-up and capture
+        _check_launches(path, run_launches, n + 1)
+        _check_launches(path, calls, 2)
         n_chunks = -(-n // CHUNK)
         # by design the loop's one read per chunk (its statuses and poses,
         # cli._track_sequence) and the recorder's one transfer per chunk
@@ -1827,15 +1983,19 @@ def phase_cli(kitti, euroc, tum) -> dict:
                    f"{dist:.2f} m ({100 * err / dist:.3f}%), "
                    f"measurments.txt {len(rows)} rows")
         _say(path, f"{n / t_cli:.2f} frames/s end to end (the CLI, PNG "
-                   f"decode included), {n / t_in:.2f} frames/s in process "
-                   f"(track_chunk on the decoded arrays, upload included)")
+                   f"decode included, under the kernel trace), "
+                   f"{n / t_in:.2f} frames/s in process (track_chunk on the "
+                   f"decoded arrays, upload included)")
         _say(path, f"apart: PNG decode {1e3 * t_decode / n:.2f} ms per frame "
                    f"({len(tree['written']) // n} PNGs), the reader's and "
                    f"VOSystem's set-up {t_setup:.3f} s (EuRoC: the two "
                    f"rectification maps)")
-        _say(path, f"launches during the CLI run: {run_launches}")
-        for k, v in run_launches.items():
-            launches[k] = launches.get(k, 0) + v
+        _say(path, f"launches the card ran during the CLI run (kernel "
+                   f"trace; the graph's warm-up step and {n} replays): "
+                   f"{run_launches}; wrapper calls (the warm-up and the "
+                   f"captured step) {calls}")
+        for k in KERNELS:
+            launches[k] = launches.get(k, 0) + run_launches[k]
         for k, v in _tree_kernels(name, config, frames, vo).items():
             kernel_errs[k] = max(v, kernel_errs.get(k, 0.0))
 
@@ -1853,6 +2013,57 @@ def phase_cli(kitti, euroc, tum) -> dict:
         raise AssertionError("path7-kitti: --record changed the trajectory")
     return dict(launches=launches, kernel_errs=kernel_errs, fps=fps,
                 decoder_build_s=built, root=root, configs=configs)
+
+
+STREAM_FRAMES = 16
+
+
+def phase_streaming(config, il, ir) -> dict:
+    """Path 7's streaming shell: ``io.streaming.StreamingVO`` on the card
+    over STREAM_FRAMES frames of path 1 fed from this thread, tracked in
+    its worker thread (each frame a replay of the graph captured there):
+    the VO pose of every frame (``vo.last_pose``, read in the odometry
+    callback) bit-equal to ``VOSystem.track``'s on the same frames, no
+    frame dropped."""
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.io.streaming import StreamingVO
+
+    frames = [(il[i].cpu().numpy(), ir[i].cpu().numpy())
+              for i in range(STREAM_FRAMES)]
+    stream = StreamingVO(config, queue_size=STREAM_FRAMES, device=DEVICE)
+    seen = []
+    stream.on_odometry(lambda odo: seen.append(
+        (odo.frame_number, *(x.cpu() for x in stream.vo.last_pose))))
+    t0 = time.perf_counter()
+    stream.start()
+    try:
+        for i, (a, b) in enumerate(frames):
+            stream.feed(float(i), a, b)
+        deadline = time.monotonic() + 120
+        while len(seen) < STREAM_FRAMES and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        stream.stop()
+    seconds = time.perf_counter() - t0
+    vo = VOSystem(config, device=DEVICE)
+    want = [vo.track(a, b) for a, b in frames]
+    runners = list(stream.vo.runners.values())
+    equal = (len(seen) == STREAM_FRAMES
+             and [x[0] for x in seen] == list(range(1, STREAM_FRAMES + 1))
+             and all(torch.equal(t, w.t.cpu()) and torch.equal(q, w.q.cpu())
+                     for (_, t, q), w in zip(seen, want)))
+    _say("path7-streaming", f"StreamingVO on the card, {len(seen)} of "
+                            f"{STREAM_FRAMES} frames tracked in its worker "
+                            f"thread ({[r.mode for r in runners]}, "
+                            f"{sum(r.replays for r in runners)} replays, "
+                            f"dropped {stream.dropped_frames}) in "
+                            f"{seconds:.2f} s: poses "
+                            f"{'bit-equal' if equal else 'NOT equal'} to "
+                            f"VOSystem.track's")
+    if not equal or [r.mode for r in runners] != ["graph"]:
+        raise AssertionError("path7-streaming: StreamingVO's poses differ "
+                             "from VOSystem.track's, or it ran eagerly")
+    return dict(frames=len(seen), seconds=seconds)
 
 
 C_ABI_FRAMES = 8
@@ -1930,15 +2141,17 @@ def phase_c_abi(root, config, il, ir) -> dict:
 # ranks, stream i from frame SP_START_STEP * i; 8d: MultiStreamVO on a
 # MD_RANKS-rank stream mesh with path 3's streams; then 8b at 2 ranks
 # again on gloo CPU processes over SH_CPU_FRAMES frames
-SH_FRAMES = 32
+SH_FRAMES = 24
+SH_CHUNK = 12
 SH_RANKS = (2, 4)
 SP_FRAMES = 16
 SP_CHUNK = 8
 SP_MESH = (2, 2)
 SP_START_STEP = 2
 MD_FRAMES = 16
+MD_CHUNK = 8
 MD_RANKS = 2
-SH_CPU_FRAMES = 4
+SH_CPU_FRAMES = 3
 SH_TIMEOUT_S = 600
 # sharded against unsharded: lvt_tpu's bound over lvt_tpu's horizon
 # (tests/test_sharded_stream.py tracks 7 frames). Past it the runs drift
@@ -1975,8 +2188,12 @@ def collectives_per_frame(config) -> int:
     return n
 
 
-def _ranks_sum(ranks, key="launches") -> dict:
-    return {k: sum(r[key][k] for r in ranks) for k in ranks[0][key]}
+def _rank_launches(ranks) -> dict:
+    """The launches the ranks made, summed: an eager run's wrapper counts
+    (every frame), or where the ranks replayed a graph, the kernel trace
+    of chunk 0 (its warm-up step and replays)."""
+    key = "device_launches" if ranks[0]["modes"] == ["graph"] else "launches"
+    return {k: sum(r[key][k] for r in ranks) for k in KERNELS}
 
 
 def _fps(ranks, frames_per_rank) -> float:
@@ -1992,12 +2209,26 @@ def _gap(a, b) -> float:
 
 
 def _check_rank_counts(path, ranks, n_frames, need_coll) -> None:
+    """Each rank's counts (``dryrun._chunks``): the wrappers' launches and
+    the collectives' calls, per frame of an eager run or at a graph's
+    warm-up and capture (twice NEED_PER_FRAME); where a graph ran, the
+    kernels the card ran in chunk 0 (a kernel trace: NEED_PER_FRAME per
+    frame and the warm-up step)."""
+    r = ranks[0]
+    _say(path, f"rank 0 ({r['modes'][0]}): the wrappers counted "
+               f"{r['launches']}" + (
+                   f"; the card ran {r['device_launches']} in chunk 0 "
+                   f"({r['first_chunk']} frames; kernel trace)"
+                   if r["modes"] == ["graph"] else ""))
     for rank, r in enumerate(ranks):
-        _check_launches(path, r["launches"], n_frames)
-        if r["collectives"] != need_coll * n_frames:
+        graph = r["modes"] == ["graph"]
+        steps = 2 if graph else n_frames
+        _check_launches(path, r["launches"], steps)
+        if graph:
+            _check_launches(path, r["device_launches"], r["first_chunk"] + 1)
+        if r["collectives"] != need_coll * steps:
             raise AssertionError(f"{path}: rank {rank} ran {r['collectives']}"
-                                 f" collectives, not {need_coll} x "
-                                 f"{n_frames}")
+                                 f" collectives, not {need_coll} x {steps}")
 
 
 def _nccl_two_ranks() -> tuple[str, str]:
@@ -2047,49 +2278,55 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
     ref_size = vo.map_size
     pnp_inputs = capture_pnp_inputs("path8", vo, il[n], ir[n])
 
-    # ---- 8a: one rank on NCCL, in this process
+    # ---- 8a: one rank on NCCL, in this process, graph and eager
     runs = {}
+    chunk, n_units = RUNS["path8a"]
+    drive = _chunks_of(a, b, chunk)
     with tempfile.TemporaryDirectory() as tmp:
         mesh_mod.init("nccl", 1, 0, "file://" + os.path.join(tmp, "rdv"),
                       device=DEVICE)
         try:
-            r = dryrun.sharded_stream(0, 1, config, a, b, chunk=CHUNK,
-                                      device=DEVICE)
-            prof = None
-            if profile_dir:
-                svo = ShardedStreamVO(config, device=DEVICE)
-                svo.track_chunk(a[:CHUNK], b[:CHUNK])
-                prof = _profile(lambda: svo.track_chunk(
-                    a[CHUNK:2 * CHUNK], b[CHUNK:2 * CHUNK]), CHUNK,
-                    os.path.join(profile_dir, "path8a"))
+            run = _run_modes("path8a",
+                             lambda: ShardedStreamVO(config, device=DEVICE),
+                             drive, n_units, chunk)
+            svo = run["graph"]["system"]
+            map_size, backend8a = svo.map_size, dist.get_backend(svo.group)
+            report = _report_modes("path8a", run)
+            _same_modes("path8a", run)
+            prof = _profiles("path8a", run, drive, profile_dir)
         finally:
             dist.destroy_process_group()
-    fps = _fps([r], n)
-    equal = (np.array_equal(r["poses"][0], ref_t)
-             and np.array_equal(r["poses"][1], ref_q)
-             and np.array_equal(r["metrics"].status, ref_status)
-             and np.array_equal(r["metrics"].map_points_count, ref_sizes)
-             and r["map_size"] == ref_size)
-    _say("path8a", f"ShardedStreamVO on 1 rank ({r['backend']}), {n} "
+    g = run["graph"]
+    equal = (torch.equal(g["poses"].t.cpu(), torch.from_numpy(ref_t))
+             and torch.equal(g["poses"].q.cpu(), torch.from_numpy(ref_q))
+             and np.array_equal(g["metrics"].status.cpu().numpy(),
+                                ref_status)
+             and np.array_equal(g["metrics"].map_points_count.cpu().numpy(),
+                                ref_sizes)
+             and map_size == ref_size)
+    _say("path8a", f"ShardedStreamVO on 1 rank ({backend8a}), {n} "
                    f"frames {a.shape[2]}x{a.shape[1]} uint8 in chunks of "
-                   f"{CHUNK}, the shipped KITTI YAML (BA window "
-                   f"{config.local_ba_window}; chunk 0 warms up, chunk 1 "
-                   f"counts host syncs): poses, statuses and map "
-                   f"sizes {'bit-equal' if equal else 'NOT equal'} to "
-                   f"VOSystem on the card (map {r['map_size']} points)")
-    _say("path8a", f"host syncs in one chunk: {r['syncs']}; collectives "
-                   f"{r['collectives']} ({r['collectives'] / n:g} per "
-                   f"frame); launches {r['launches']}; {fps:.2f} frames/s "
-                   f"after chunk 0")
-    if prof is not None:
-        _say_busy("path8a", prof, fps)
+                   f"{chunk}, the shipped KITTI YAML (BA window "
+                   f"{config.local_ba_window}), its NCCL all-reduces inside "
+                   f"the graph: poses, statuses and map sizes "
+                   f"{'bit-equal' if equal else 'NOT equal'} to VOSystem on "
+                   f"the card (map {map_size} points)")
+    coll = {m: run[m]["collectives"] for m in MODES}
+    _say("path8a", f"collective calls: eager {coll['eager']} "
+                   f"({coll['eager'] / n:g} per frame); graph "
+                   f"{coll['graph']}, at the warm-up and the capture of "
+                   f"{run['graphs']} graph(s) ({need_coll} per step, "
+                   f"recorded once per replay; not counted per replay); "
+                   f"NCCL kernels the card ran in the profiled graphed unit "
+                   f"(kernel trace): {prof['nccl']} in {chunk} frames")
     if not equal:
         raise AssertionError(f"path8a: one rank differs from VOSystem (pose "
-                             f"gap {_gap(r['poses'][0], ref_t)} m)")
-    if r["syncs"] != 0:
-        raise AssertionError(f"path8a: {r['syncs']} host syncs in a chunk")
-    _check_rank_counts("path8a", [r], n, need_coll)
-    runs["path8a"] = dict(launches=r["launches"], fps=fps, profile=prof,
+                             f"gap {_gap(g['poses'].t.cpu(), ref_t)} m)")
+    _check_wrapper_counts("path8a", run, n)
+    if coll != dict(eager=need_coll * n, graph=need_coll * 2 * run["graphs"]):
+        raise AssertionError(f"path8a: collective calls {coll}, not "
+                             f"{need_coll} per frame and per captured step")
+    runs["path8a"] = dict(report, profile=prof, launches=prof["launches"],
                           collectives_per_frame=need_coll)
     marks.append(("reference and 8a", time.perf_counter()))
 
@@ -2161,10 +2398,10 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
                .cpu().numpy() for x in (il, ir))
     host = a.cpu().numpy(), b.cpu().numpy()
     sharded_job = dryrun.job(dryrun.sharded_stream, config, *host,
-                             chunk=CHUNK, device=DEVICE)
+                             chunk=SH_CHUNK, device=DEVICE)
     results = {
         2: dryrun.spawn([sharded_job, dryrun.job(
-            dryrun.multistream, ms_config, *md, chunk=MS_CHUNK,
+            dryrun.multistream, ms_config, *md, chunk=MD_CHUNK,
             device=DEVICE)], 2, device=DEVICE, backend=backend,
             timeout_s=SH_TIMEOUT_S),
     }
@@ -2200,6 +2437,13 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
         syncs = ("not counted (gloo syncs in its own threads, staging "
                  "each collective through the host)" if backend == "gloo"
                  else [x["syncs"] for x in ranks])
+        _say(path, f"runs {ranks[0]['modes']} on {ranks[0]['backend']} (a "
+                   f"graph needs NCCL: gloo syncs the host in its own "
+                   f"threads)")
+        want = ["eager"] if backend == "gloo" else ["graph"]
+        if any(x["modes"] != want for x in ranks):
+            raise AssertionError(f"{path}: ranks ran {ranks[0]['modes']} "
+                                 f"on {backend}, not {want}")
         _say(path, f"valid points per rank {[x['local_valid'] for x in ranks]}"
                    f" (blocks of {ranks[0]['block']}); host syncs in one "
                    f"chunk per rank: {syncs}; collectives "
@@ -2228,9 +2472,10 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
             raise AssertionError(f"{path}: ATE {err:.4f} m is not under 5% "
                                  f"of {dist:.2f} m")
         _check_rank_counts(path, ranks, n, need_coll)
-        runs[path] = dict(launches=_ranks_sum(ranks), fps=fps, gap=gap_h,
+        runs[path] = dict(launches=_rank_launches(ranks), fps=fps, gap=gap_h,
                           gap_all=gap, ate_pct=100 * err / dist,
-                          size_gaps=size_gaps, backend=ranks[0]["backend"])
+                          size_gaps=size_gaps, backend=ranks[0]["backend"],
+                          mode=ranks[0]["modes"][0])
         if k == 2:
             card_2 = t
 
@@ -2255,7 +2500,8 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
                                  f"{x['fallback_warnings'][:2]}")
     fps = _fps(ranks, SP_FRAMES) * SP_MESH[0]
     _say("path8c", f"StreamPointVO {SP_MESH[0]} streams x {SP_MESH[1]} point "
-                   f"shards on 4 ranks, {SP_FRAMES} frames in chunks of "
+                   f"shards on 4 ranks, {ranks[0]['modes']} on "
+                   f"{ranks[0]['backend']}, {SP_FRAMES} frames in chunks of "
                    f"{SP_CHUNK} (stream i from "
                    f"frame {SP_START_STEP} i): every frame TRACKING, no vmap "
                    f"fallback; gaps to each stream's VOSystem on the card by "
@@ -2267,8 +2513,9 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
     if not max(gaps) < SH_GAP_M:
         raise AssertionError(f"path8c: streams {gaps} m from VOSystem")
     _check_rank_counts("path8c", ranks, SP_FRAMES, need_coll)
-    runs["path8c"] = dict(launches=_ranks_sum(ranks), fps=fps, gap=max(gaps),
-                          gap_all=max(gaps_all))
+    runs["path8c"] = dict(launches=_rank_launches(ranks), fps=fps,
+                          gap=max(gaps), gap_all=max(gaps_all),
+                          mode=ranks[0]["modes"][0])
 
     # 8d: MultiStreamVO over a stream mesh against path 3's one process
     ranks = [res[1] for res in results[2]]
@@ -2279,18 +2526,21 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
                      and np.array_equal(x["poses"][1], ms_poses[1][:, cols]))
     fps = _fps(ranks, MD_FRAMES) * MS_STREAMS
     _say("path8d", f"MultiStreamVO on a {MD_RANKS}-rank stream mesh, "
-                   f"{MS_STREAMS} streams ({[x['local_streams'] for x in ranks]}"
-                   f"), {MD_FRAMES} frames in chunks of {MS_CHUNK}: each "
-                   f"rank's streams {'bit-equal' if all(equal) else 'NOT equal'}"
-                   f" to path 3's one-process run; collectives "
-                   f"{ranks[0]['collectives']}; {fps:.2f} frames/s aggregate")
+                   f"{ranks[0]['modes']} on {backend} (no "
+                   f"collective in the step), {MS_STREAMS} streams "
+                   f"({[x['local_streams'] for x in ranks]}), {MD_FRAMES} "
+                   f"frames in chunks of {MD_CHUNK}: each rank's streams "
+                   f"{'bit-equal' if all(equal) else 'NOT equal'} to path "
+                   f"3's one-process run (graph, itself bit-equal to its "
+                   f"eager run); collectives {ranks[0]['collectives']}; "
+                   f"{fps:.2f} frames/s aggregate")
     if not all(equal):
         raise AssertionError(f"path8d: streams differ from path 3's: {equal}")
-    for rank, x in enumerate(ranks):
-        _check_launches("path8d", x["launches"], MD_FRAMES)
-        if x["collectives"]:
-            raise AssertionError(f"path8d: rank {rank} ran collectives")
-    runs["path8d"] = dict(launches=_ranks_sum(ranks), fps=fps)
+    if any(x["modes"] != ["graph"] for x in ranks):
+        raise AssertionError("path8d: the stream mesh's ranks ran eagerly")
+    _check_rank_counts("path8d", ranks, MD_FRAMES, 0)
+    runs["path8d"] = dict(launches=_rank_launches(ranks), fps=fps,
+                          mode=ranks[0]["modes"][0])
 
     # card against CPU: 8b at 2 ranks over the first frames, on gloo CPU
     # processes
@@ -2329,60 +2579,110 @@ def _on_device(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def _say_busy(path, prof, fps, frame="frame") -> None:
-    """The profiled device busy time per frame and its share of the
-    unprofiled frame time (1 / ``fps``)."""
-    busy = prof["busy_ms_per_frame"]
-    _say(path, f"device busy {busy:.3f} ms per {frame}: "
-               f"{100 * busy * fps / 1e3:.1f}% of the unprofiled frame time "
-               f"({1e3 / fps:.2f} ms)")
+def _say_busy(path, prof, frame="frame") -> None:
+    """The profiled unit's device busy time per frame and its share of the
+    span from its first kernel's start to its last kernel's end, both from
+    the same trace."""
+    busy, span = prof["busy_ms_per_frame"], prof["span_ms_per_frame"]
+    _say(path, f"device busy {busy:.3f} ms per {frame} of a {span:.3f} ms "
+               f"span (first kernel start to last kernel end, the same "
+               f"trace): {100 * busy / span:.1f}%")
 
 
-def _profile(run, n, out_dir) -> dict:
-    """torch.profiler over ``run()``, one chunk of ``n`` frames: the op
-    table; per stage (the profiler
-    ranges of core/step.py and extract.py) the host time and the device
-    time of the torch ops' kernels inside it (the hand-written kernels,
-    launched through ctypes, are listed on their own); each hand-written
-    kernel's launches and mean device time per launch; and the device's
-    busy time, the sum of all kernel times."""
-    from torch.profiler import ProfilerActivity, profile
+def _profile(run, n, out_dir=None, host=False) -> dict:
+    """torch.profiler over ``run()``, one unit of ``n`` frames: each
+    hand-written kernel's launches and mean device time per launch; the
+    device kernels per frame (a graph's too: the trace lists the kernels a
+    replay launches); the device's busy time, the sum of all kernel and
+    copy times, and its span, from the first kernel's start to the last
+    one's end; the NCCL kernels; the trace's opening markers that it kept.
+    The trace is the device's only (``dryrun.traced``; read from Kineto's
+    records, ``dryrun.device_records``), unless ``host``: then also the
+    host's, and per stage (the profiler ranges of core/step.py and
+    extract.py, which fire in an eager step and not in a replay) the host
+    time and the device time of the torch ops' kernels inside it (the
+    hand-written kernels, launched through ctypes, are listed on their
+    own); tracing the host slows it. With ``out_dir`` and ``host``, the op
+    table is written there."""
+    from lvt_tpu_torch.parallel.dryrun import (KERNEL_SYMBOLS, TRACE_MARKERS,
+                                               device_records, traced)
 
-    os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    lines = [f"{'stage':<22} {'host ms/frame':>14} {'device ms/frame':>16}"]
-    for e in events:
-        # a range is listed twice: on the host, and as its span on the
-        # device's timeline (idle gaps included), which is left out
-        if e.key in STAGES and not _on_device(e):
-            lines.append(f"{e.key:<22} {e.cpu_time_total / 1e3 / n:>14.3f} "
-                         f"{_device_us(e) / 1e3 / n:>16.3f}")
+    _, prof = traced(run, host=host)
+    records = [r for r in device_records(prof) if r[0] not in STAGES]
+    n_markers = sum("spin_kernel" in name for name, _, _ in records)
+    records = [r for r in records if "spin_kernel" not in r[0]]
+    lines = []
+    if host:
+        events = prof.key_averages()
+        lines.append(f"{'stage':<22} {'host ms/frame':>14} "
+                     f"{'device ms/frame':>16}")
+        for e in events:
+            # a range is listed twice: on the host, and as its span on the
+            # device's timeline (idle gaps included), which is left out
+            if e.key in STAGES and not _on_device(e):
+                lines.append(f"{e.key:<22} "
+                             f"{e.cpu_time_total / 1e3 / n:>14.3f} "
+                             f"{_device_us(e) / 1e3 / n:>16.3f}")
     kernels = {}
-    for name, sym in SYMBOLS.items():
-        rows = [e for e in events if sym in e.key and e.count > 0
-                and _device_us(e) > 0]
-        if rows:
-            count = sum(e.count for e in rows)
-            kernels[name] = dict(launches=count, device_ms=sum(
-                _device_us(e) for e in rows) / 1e3 / count)
-            lines.append(f"kernel {name:<15} {count:>5} launches, "
+    for name, sym in KERNEL_SYMBOLS.items():
+        mine = [end - start for key, start, end in records if sym in key]
+        if mine:
+            kernels[name] = dict(launches=len(mine),
+                                 device_ms=sum(mine) / 1e6 / len(mine))
+            lines.append(f"kernel {name:<15} {len(mine):>5} launches, "
                          f"{kernels[name]['device_ms']:.4f} ms each "
                          f"(profiler device time)")
-    busy = sum(_device_us(e) for e in events
-               if _on_device(e) and e.key not in STAGES) / 1e3
+    busy = sum(end - start for _, start, end in records) / 1e6
+    span = (max(end for _, _, end in records)
+            - min(start for _, start, _ in records)) / 1e6
+    n_kernels = sum(not name.startswith(("Memcpy", "Memset"))
+                    for name, _, _ in records)
+    n_nccl = sum("nccl" in name.lower() for name, _, _ in records)
     lines.append(f"device busy {busy:.2f} ms in {n} frames "
-                 f"({busy / n:.3f} ms per frame, the sum of kernel times)")
-    with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
-        f.write("\n".join(lines) + "\n\n")
-        f.write(events.table(sort_by="cuda_time_total", row_limit=40))
+                 f"({busy / n:.3f} ms per frame, the sum of kernel and "
+                 f"copy times) of a {span:.2f} ms span; {n_kernels / n:.1f} "
+                 f"kernels per frame; the trace kept {n_markers} of its "
+                 f"{TRACE_MARKERS} opening markers")
+    if out_dir and host:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n\n")
+            f.write(events.table(sort_by="cuda_time_total", row_limit=40))
+        _say("profile", f"op table of one unit written to {out_dir}")
     for line in lines:
         _say("profile", line)
-    _say("profile", f"op table of one chunk written to {out_dir}")
-    return dict(kernels, busy_ms_per_frame=busy / n)
+    return dict(kernels, busy_ms_per_frame=busy / n,
+                span_ms_per_frame=span / n, kernels_per_frame=n_kernels / n,
+                nccl=n_nccl, markers=n_markers)
+
+
+def _profiles(path, run, drive, profile_dir=None, frame="frame") -> dict:
+    """One more unit of the graph system (its last unit's frames again)
+    under the profiler: its device busy share, its kernels per frame and
+    the launches of each hand-written kernel that the card ran, which must
+    be NEED_PER_FRAME per frame (returned as ``launches``). With
+    ``profile_dir`` also one unit of the eager system, whose stage table
+    the profiler ranges give."""
+    from lvt_tpu_torch.core.graphs import disable_graphs
+
+    n, last = run["unit_frames"], len(run["graph"]["times"]) + 1
+    _say(path, "profile of one graphed unit:")
+    prof = _profile(lambda: drive(run["graph"]["system"], last), n)
+    _say_busy(path, prof, frame)
+    got = {k: prof.get(k, {}).get("launches", 0) for k in KERNELS}
+    _say(path, f"launches the card ran in the profiled graphed unit ({n} "
+               f"frames, kernel trace): {got}; "
+               f"{prof['kernels_per_frame']:.1f} device kernels per {frame}")
+    _check_launches(path, got, n)
+    prof["launches"] = got
+    if profile_dir:
+        _say(path, "profile of one eager unit (stage table):")
+        with disable_graphs():
+            eager = _profile(lambda: drive(run["eager"]["system"], last), n,
+                             os.path.join(profile_dir, path), host=True)
+        _say_busy(path, eager, frame)
+        prof["eager"] = eager
+    return prof
 
 
 def phase_cpu(path, config, il, ir, first_poses):
@@ -2413,12 +2713,13 @@ def main(argv=None) -> int:
                    help="write a torch.profiler table of one chunk to DIR")
     args = p.parse_args(argv)
 
+    t_start = time.perf_counter()
     card = phase_device()
     from lvt_tpu_torch.configs import kitti_ba_dense_config, kitti_config
 
     configs = {"path1": kitti_config(), "path2": kitti_ba_dense_config()}
-    n = max(CHUNK * max(N_CHUNKS.values()),
-            MS_START_STEP * (MS_STREAMS - 1) + MS_CHUNK * MS_CHUNKS)
+    n = max(_n_frames("path1"),
+            MS_START_STEP * (MS_STREAMS - 1) + _n_frames("path3"))
     frames = list(_world(configs["path1"]).stereo_sequence(n, speed=0.9))
     il = torch.from_numpy(np.stack([f[0].astype(np.uint8) for f in frames]))
     ir = torch.from_numpy(np.stack([f[1].astype(np.uint8) for f in frames]))
@@ -2435,7 +2736,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     runs = {}
     for path, config in configs.items():
-        k = CHUNK * N_CHUNKS[path]
+        k = _n_frames(path)
         runs[path] = phase_path(path, config, il[:k], ir[:k], gt,
                                 args.profile)
         phase_cpu(path, config, il, ir, runs[path]["first_poses"])
@@ -2460,8 +2761,9 @@ def main(argv=None) -> int:
     k = CHUNK * 3
     runs["path7"] = phase_cli(
         (il[:k].cpu().numpy(), ir[:k].cpu().numpy(), gt[:k]),
-        (euroc[2].numpy(), euroc[3].numpy(), euroc[4]),
+        (euroc[2][:k].numpy(), euroc[3][:k].numpy(), euroc[4][:k]),
         tum_setup())
+    runs["path7"]["streaming"] = phase_streaming(configs["path1"], il, ir)
     config8 = sharded_config()
     if config8 != runs["path7"]["configs"]["kitti"]:
         raise AssertionError("path8: the config is not path 7 kitti's")
@@ -2491,10 +2793,11 @@ def main(argv=None) -> int:
                         if k in r.get("kernel_errs", {})})
         entry.update(max_abs_err=max(by_path.values()),
                      max_abs_err_by_path=by_path)
-        if args.profile:
-            entry["profiler_ms_by_path"] = {
-                p: (r.get("profile") or {}).get(k, {}).get("device_ms")
-                for p, r in runs.items()}
+        # the profiler's device time per launch in each path's graphed
+        # unit
+        entry["profiler_ms_by_path"] = {
+            p: (r.get("profile") or {}).get(k, {}).get("device_ms")
+            for p, r in runs.items()}
         entries.append(entry)
     phase_c_abi(runs["path7"].pop("root"),
                 runs["path7"].pop("configs")["kitti"],
@@ -2504,10 +2807,19 @@ def main(argv=None) -> int:
                     f"{'equal' if runs['path3']['equal'] else 'NOT equal'} "
                     f"to the single stream (largest gap "
                     f"{max(runs['path3']['gaps'])} m)")
-    _say("summary", "frames/s: " + ", ".join(
-        f"{p} {r['fps']:.2f}" for p, r in runs.items() if p != "path7")
+    _say("summary", "frames/s, median graph / eager: " + ", ".join(
+        f"{p} {r['fps']:.2f} / {r['fps_eager']:.2f}" if "fps_eager" in r
+        else f"{p} {r['fps']:.2f} ({r['mode']})"
+        for p, r in runs.items() if p != "path7")
         + f" (path 3 aggregate of {MS_STREAMS} streams; "
         f"{runs['path3']['fps_per_stream']:.2f} per stream)")
+    _say("summary", "device busy share of the span of a profiled graphed "
+                    "unit (first kernel start to last kernel end): "
+                    + ", ".join(
+        f"{p} {100 * r['profile']['busy_ms_per_frame'] / r['profile']['span_ms_per_frame']:.1f}%"
+        for p, r in runs.items() if "fps_eager" in r)
+        + f"; device kernels per frame on path 1: "
+        f"{runs['path1']['profile']['kernels_per_frame']:.1f}")
     _say("summary", f"path 8: {path8['nccl']}; 8b-8d on "
                     f"{path8['backend']}; pose gaps to the unsharded run "
                     f"over frames 0-{SH_HORIZON - 1} / all: " + ", ".join(
@@ -2517,6 +2829,7 @@ def main(argv=None) -> int:
                     "process: " + ", ".join(
                         f"{name} {a:.2f} / {b:.2f}" for name, (a, b)
                         in runs["path7"]["fps"].items()))
+    _say("summary", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"],

@@ -1,0 +1,250 @@
+"""One device program per tracking step: the step captured in a CUDA graph
+and replayed for every frame.
+
+Port of lvt_tpu's execution model. Every tracking entry point of lvt_tpu is
+one compiled device program: ``jax.jit`` of the step, a ``lax.scan`` over a
+chunk's frames (lvt_tpu/core/step.py, parallel/multistream.py), and the
+sharded modes' ``shard_map`` inside ``jit``. Here :class:`StepGraph`
+captures one call of a step function
+
+    ``step_fn(state, *frame) -> (state', pose, metrics)``
+
+in a ``torch.cuda.CUDAGraph`` and replays it for every frame, so a chunk of
+N frames is N replays of one graph (``jit`` of the step, as lvt_tpu's
+``track_step_*``; one graph serves a chunk of any length, ``track`` and
+the external corners). The state lives in static buffers between replays:
+the graph ends by copying the new state into them (one ``copy_`` per
+leaf), so replays chain with no host work. A frame is copied into static
+input buffers (device to device) before its replay; the replay's pose and
+metrics are static buffers too, which the next replay overwrites.
+:meth:`StepGraph.run` copies them out per frame.
+
+The step was built for capture: fixed shapes, no data-dependent branch, no
+host sync, and every hand-written kernel launches on the current stream and
+allocates nothing (kernels.py). Lazy set-up must not happen during
+capture, so a warm-up call runs first, on a side stream and a deep clone
+of the state (it never advances the real state): it builds the kernels,
+makes the cached uploads of ops/brief.py, creates cuSOLVER's handle and
+NCCL's communicator. Capture uses ``capture_error_mode="thread_local"``:
+io/streaming.py tracks in a worker thread while the feeding thread uploads
+through pinned memory. Captures in one process take turns (one lock), and
+no graph is destroyed while one runs: a runner dropped meanwhile, on any
+thread or by the cyclic garbage collector, leaves its graph to be
+destroyed when the capture ends.
+
+The eager step runs on the same static buffers (frame copied in, new state
+copied back) when the runner's :attr:`StepGraph.mode` is ``"eager"``:
+
+* on the CPU, always (the CPU has no graphs; this is the device the caller
+  asked for, not a fallback);
+* inside :func:`disable_graphs`, the counterpart of ``jax.disable_jit``;
+* when the step's collectives run on a group whose backend cannot be
+  captured: gloo carries CUDA tensors through the host and synchronises in
+  its own threads. NCCL's all-reduce is captured.
+
+The mode is decided before any capture, and a capture that fails raises:
+nothing turns it into an eager run.
+
+Launch counts: the kernel wrappers count their launches (``launches``,
+and the collective's ``calls``) where Python calls them. In graph mode
+that is the warm-up step and the captured one; a replay calls no Python,
+so it counts nothing. What a replay ran on the card is read from a kernel
+trace (``parallel/dryrun.py::device_launches``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import threading
+import time
+
+import torch
+
+from lvt_tpu_torch.tree import flatten_with_path, tree_map
+
+_disabled = 0
+_disabled_lock = threading.Lock()
+# captures take turns; graphs dropped while one runs wait in _dropped
+_capture_lock = threading.Lock()
+_dropped_lock = threading.Lock()
+_capturing = False
+_dropped: list = []
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Run every runner's step eagerly on its static buffers while the
+    context is open (process-wide, as ``jax.disable_jit``); a graph already
+    captured is kept for later."""
+    global _disabled
+    with _disabled_lock:
+        _disabled += 1
+    try:
+        yield
+    finally:
+        with _disabled_lock:
+            _disabled -= 1
+
+
+def graphs_disabled() -> bool:
+    return _disabled > 0
+
+
+def capturable(device, group=None) -> bool:
+    """Whether a step on ``device`` whose collectives run on ``group`` can
+    be captured: a CUDA device, and no group or an NCCL one."""
+    if torch.device(device).type != "cuda":
+        return False
+    if group is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_backend(group) == "nccl"
+
+
+def _leaves(tree) -> list:
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def copy_into(dst, src) -> None:
+    """Every leaf of ``src`` into the same leaf of ``dst`` (a state's
+    static buffers). A source that shares storage with a buffer is copied
+    first, so no buffer is read after it was overwritten."""
+    dsts, srcs = _leaves(dst), _leaves(src)
+    held = {d.untyped_storage().data_ptr() for d in dsts}
+    srcs = [s.clone() if s.untyped_storage().data_ptr() in held else s
+            for s in srcs]
+    for d, s in zip(dsts, srcs):
+        d.copy_(s)
+
+
+class StepGraph:
+    """``step_fn(state, *frame) -> (state', pose, metrics)`` run frame by
+    frame on static buffers: replayed from a CUDA graph captured at the
+    first frame, or called eagerly (module docstring).
+
+    ``state``: the state's buffers, written in place and never rebound
+    (several runners of one system share them). ``example_inputs``: one
+    frame's per-frame inputs (a frame pair, a depth image, corner arrays);
+    each gets a static buffer of its shape and dtype. Fixed inputs (the
+    rectification maps) are held by ``step_fn`` as they are. ``group``:
+    the process group of the step's collectives, if any."""
+
+    def __init__(self, step_fn, state, example_inputs, *, group=None):
+        self.step_fn = step_fn
+        self.state = state
+        self.device = _leaves(state)[0].device
+        self.capturable = capturable(self.device, group)
+        self.inputs = tuple(torch.empty_like(x, memory_format=torch
+                                             .contiguous_format)
+                            for x in example_inputs)
+        self.capture_seconds: float | None = None
+        self.replays = 0
+        self._graph = None
+        self._out = None
+
+    @property
+    def mode(self) -> str:
+        """``"graph"`` where the next frame replays the captured graph,
+        ``"eager"`` where it calls ``step_fn``."""
+        return ("graph" if self.capturable and not graphs_disabled()
+                else "eager")
+
+    def _step(self):
+        new, pose, metrics = self.step_fn(self.state, *self.inputs)
+        copy_into(self.state, new)
+        return pose, metrics
+
+    def _capture(self) -> None:
+        global _capturing
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            scratch = tree_map(torch.clone, self.state)
+            self.step_fn(scratch, *self.inputs)
+            del scratch
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with _capture_lock:
+            with _dropped_lock:
+                _capturing = True
+            # the cyclic collector stays off as well: on the card a
+            # capture was invalidated when it freed, mid-capture, a dropped
+            # system holding a graph of its own
+            gc_was_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(side):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        out = self._step()
+                    finally:
+                        graph.capture_end()
+            finally:
+                if gc_was_on:
+                    gc.enable()
+                with _dropped_lock:
+                    _capturing = False
+                    _dropped.clear()
+        self._graph, self._out = graph, out
+        self.capture_seconds = time.perf_counter() - t0
+
+    def __del__(self):
+        # a graph is not destroyed while a capture runs: it waits in
+        # _dropped until the capture ends (at interpreter exit this
+        # module's globals may already be None)
+        if _dropped_lock is None:
+            return
+        with _dropped_lock:
+            if _capturing and getattr(self, "_graph", None) is not None:
+                _dropped.append(self._graph)
+            self._graph = None
+
+    def replay(self, *frame):
+        """One frame: its inputs copied into the static buffers, then the
+        graph replayed (captured first if this is its first frame) or the
+        step called. Returns (pose, metrics); in graph mode these are
+        static buffers that the next replay overwrites."""
+        for buf, x in zip(self.inputs, frame):
+            if x.shape != buf.shape or x.dtype != buf.dtype:
+                raise ValueError(f"frame input {tuple(x.shape)} {x.dtype}, "
+                                 f"the runner's {tuple(buf.shape)} "
+                                 f"{buf.dtype}")
+            buf.copy_(x)
+        if self.mode == "eager":
+            return self._step()
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        self.replays += 1
+        return self._out
+
+    def run(self, *xs):
+        """The frames along the leading axis of ``xs``, in order (lvt_tpu's
+        ``lax.scan``); returns (poses [N], metrics [N]) in new tensors."""
+        n = xs[0].shape[0]
+        out = None
+        for i in range(n):
+            step_out = self.replay(*(x[i] for x in xs))
+            if out is None:
+                out = tuple(tree_map(lambda y: y.new_empty((n, *y.shape)), o)
+                            for o in step_out)
+            for o, s in zip(out, step_out):
+                tree_map(lambda d, y: d[i].copy_(y), o, s)
+        return out
+
+
+def runner(runners: dict, kind: str, make_step, state, xs, *,
+           group=None) -> StepGraph:
+    """The runner in ``runners`` (a system's) of entry point ``kind`` for
+    frames shaped as the leading-axis slices of ``xs`` (their dtypes and
+    shapes), made on first use with the step function ``make_step()``
+    returns."""
+    key = (kind, *((x.dtype, tuple(x.shape[1:])) for x in xs))
+    if key not in runners:
+        runners[key] = StepGraph(make_step(), state, [x[0] for x in xs],
+                                 group=group)
+    return runners[key]

@@ -9,8 +9,10 @@ retry and policy branch is computed and then selected with
 ``torch.where``, so the step has fixed shapes and no data-dependent Python
 branch or host sync — the form a CUDA graph can capture. That includes
 local BA: lvt_tpu's ``lax.cond`` on the BA schedule becomes BA computed on
-every frame and selected, as JAX's vmapped path lowers it. ``lax.scan``
-over a chunk is a Python loop.
+every frame and selected, as JAX's vmapped path lowers it. lvt_tpu's
+``jax.jit`` of the step and ``lax.scan`` over a chunk are one CUDA graph of
+the step, captured once and replayed per frame on the state's static
+buffers (core/graphs.py); ``graphs.disable_graphs()`` runs it eagerly.
 
 The step is also the body of the multi-stream step
 (parallel/multistream.py), which runs :func:`track_features` under
@@ -31,11 +33,13 @@ group the step is the one-process program, bit for bit.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch.profiler import record_function as stage
 
 from lvt_tpu_torch.config import MATCHES_WINDOW_INIT, VOConfig
-from lvt_tpu_torch.core import extract
+from lvt_tpu_torch.core import extract, graphs
 from lvt_tpu_torch.core import map as map_ops
 from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.core.motion import predict_next_pose
@@ -412,27 +416,25 @@ def track_step_stereo(state: VOState, img_left: torch.Tensor,
     return track_features(state, left, right, config)
 
 
-def _stack_frames(state, poses, metrics):
-    stack = lambda *xs: torch.stack(xs)  # noqa: E731
-    return state, tree_map(stack, *poses), tree_map(stack, *metrics)
-
-
-def _scan(step, state: VOState, xs, ys, *args):
-    """``step(state, x, y, *args)`` over the frames of xs and ys in order
-    (lvt_tpu's ``lax.scan`` over a chunk); returns (state, poses [N],
-    metrics [N])."""
-    poses, metrics = [], []
-    for x, y in zip(xs, ys):
-        state, pose, m = step(state, x, y, *args)
-        poses.append(pose)
-        metrics.append(m)
-    return _stack_frames(state, poses, metrics)
+def _scan(make_step, state: VOState, xs, runners: dict, kind: str, *,
+          group=None):
+    """The step over the frames of ``xs`` (their leading axis) in order,
+    lvt_tpu's ``lax.scan`` over a chunk: the runner of entry point ``kind``
+    in ``runners`` (the caller's cache, core/graphs.py; made on first use
+    from ``make_step()``) replays one graph of the step per frame, writing
+    ``state``'s leaves in place. Returns (state, poses [N], metrics [N])."""
+    poses, metrics = graphs.runner(runners, kind, make_step, state, xs,
+                                   group=group).run(*xs)
+    return state, poses, metrics
 
 
 def track_chunk_stereo(state: VOState, imgs_left: torch.Tensor,
-                       imgs_right: torch.Tensor, config: VOConfig):
-    """N frames in order; returns (state, poses [N], metrics [N])."""
-    return _scan(track_step_stereo, state, imgs_left, imgs_right, config)
+                       imgs_right: torch.Tensor, config: VOConfig,
+                       runners: dict):
+    """N frames in order, through the stereo runner in ``runners`` (which
+    writes ``state`` in place); returns (state, poses [N], metrics [N])."""
+    return _scan(lambda: partial(track_step_stereo, config=config), state,
+                 (imgs_left, imgs_right), runners, "stereo")
 
 
 def track_step_rgbd(state: VOState, img_gray: torch.Tensor,
@@ -445,9 +447,12 @@ def track_step_rgbd(state: VOState, img_gray: torch.Tensor,
 
 
 def track_chunk_rgbd(state: VOState, imgs_gray: torch.Tensor,
-                     imgs_depth: torch.Tensor, config: VOConfig):
-    """N RGB-D frames in order; returns (state, poses [N], metrics [N])."""
-    return _scan(track_step_rgbd, state, imgs_gray, imgs_depth, config)
+                     imgs_depth: torch.Tensor, config: VOConfig,
+                     runners: dict):
+    """N RGB-D frames in order, through the RGB-D runner in ``runners``;
+    returns (state, poses [N], metrics [N])."""
+    return _scan(lambda: partial(track_step_rgbd, config=config), state,
+                 (imgs_gray, imgs_depth), runners, "rgbd")
 
 
 def _rectify_pair(img_left: torch.Tensor, img_right: torch.Tensor,
@@ -475,11 +480,15 @@ def track_step_stereo_rectified(state: VOState, img_left: torch.Tensor,
 def track_chunk_stereo_rectified(state: VOState, imgs_left: torch.Tensor,
                                  imgs_right: torch.Tensor,
                                  map_left: torch.Tensor,
-                                 map_right: torch.Tensor, config: VOConfig):
-    """N raw stereo frames in order, each rectified inside its step;
-    returns (state, poses [N], metrics [N])."""
-    return _scan(track_step_stereo_rectified, state, imgs_left, imgs_right,
-                 map_left, map_right, config)
+                                 map_right: torch.Tensor, config: VOConfig,
+                                 runners: dict):
+    """N raw stereo frames in order, each rectified inside its step,
+    through the rectified runner in ``runners`` (the maps are fixed per
+    runner); returns (state, poses [N], metrics [N])."""
+    return _scan(lambda: partial(track_step_stereo_rectified,
+                                 map_left=map_left, map_right=map_right,
+                                 config=config),
+                 state, (imgs_left, imgs_right), runners, "rectified")
 
 
 def track_step_external_corners(state: VOState, img_left: torch.Tensor,

@@ -7,10 +7,18 @@ rectify_maps, *, device="cuda")``. The VOState lives on ``device``;
 system holds ``rectify_maps``, or a gray image and its metric depth) and
 returns its pose, ``track_chunk`` runs N frames and returns N poses,
 ``track_with_external_corners`` tracks a stereo pair at the caller's
-corners. Host arrays go up from pinned memory without blocking the host
-(``device.upload``), so a chunk syncs the host only where a caller reads
-a result. A ``metrics_recorder`` (``observability.ValueRecorder``) gets
-every frame's metrics, a chunk's in one transfer; a ``trace_log``
+corners. Each entry point (stereo, raw stereo with ``rectify_maps``,
+RGB-D, external corners) runs its step through its own runner
+(core/graphs.py): on the card a CUDA graph of the step, captured at the
+entry point's first frame and replayed for every frame, eager under
+``graphs.disable_graphs()`` and on the CPU. ``state``'s leaves are the
+runners' static buffers: later frames, ``reset`` and ``load_checkpoint``
+overwrite them in place, so a caller that keeps a state copies it; every
+pose and metric returned (and ``last_pose``) is a copy. Host arrays go
+up from pinned memory without blocking the host (``device.upload``), so
+a chunk syncs the host only where a caller reads a result. A
+``metrics_recorder`` (``observability.ValueRecorder``) gets every
+frame's metrics, a chunk's in one transfer; a ``trace_log``
 (``observability.TraceLog``, made in ``log_dir`` when
 ``config.enable_logging`` is set) gets the parameters at creation, a line
 per ``track`` call and the resets. With neither, nothing is read back.
@@ -23,6 +31,7 @@ two packages in both directions; lvt_tpu's older positional files
 from __future__ import annotations
 
 import enum
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -30,6 +39,7 @@ import torch
 
 from lvt_tpu_torch.config import VOConfig
 from lvt_tpu_torch import convert
+from lvt_tpu_torch.core import graphs
 from lvt_tpu_torch.core import step as step_mod
 from lvt_tpu_torch.core.state import StepMetrics, VOState
 from lvt_tpu_torch.device import resolve_device, upload
@@ -86,7 +96,9 @@ class VOSystem:
         self.trace_log = trace_log
         if self.trace_log is not None:
             self.trace_log.log_params(config)
+        # static buffers, written in place by the runners and never rebound
         self.state = self._initial_state()
+        self.runners: dict = {}
         self.last_metrics: Optional[StepMetrics] = None
 
     @staticmethod
@@ -101,7 +113,7 @@ class VOSystem:
 
     def reset(self) -> None:
         """Clear map, motion model and state machine."""
-        self.state = self._initial_state()
+        graphs.copy_into(self.state, self._initial_state())
         self.last_metrics = None
         if self.metrics_recorder is not None:
             self.metrics_recorder.reset()
@@ -123,8 +135,8 @@ class VOSystem:
     @property
     def last_pose(self) -> Pose:
         """The pose of the last tracked frame (camera in world), on the
-        device."""
-        return self.state.pose
+        device: a copy, which later frames leave as it is."""
+        return tree_map(torch.clone, self.state.pose)
 
     # -- tracking
     def _prep(self, img, ndim: int) -> torch.Tensor:
@@ -187,13 +199,16 @@ class VOSystem:
             raise ValueError(f"second-input chunk {tuple(b.shape)} != image "
                              f"chunk {tuple(a.shape)}")
         if self.sensor_type == SensorType.RGBD:
-            out = step_mod.track_chunk_rgbd(self.state, a, b, self.config)
+            out = step_mod.track_chunk_rgbd(self.state, a, b, self.config,
+                                            self.runners)
         elif self.rectify_maps is not None:
             out = step_mod.track_chunk_stereo_rectified(
-                self.state, a, b, *self.rectify_maps, self.config)
+                self.state, a, b, *self.rectify_maps, self.config,
+                self.runners)
         else:
-            out = step_mod.track_chunk_stereo(self.state, a, b, self.config)
-        self.state, poses, metrics = out
+            out = step_mod.track_chunk_stereo(self.state, a, b, self.config,
+                                              self.runners)
+        _, poses, metrics = out
         self.last_metrics = tree_map(lambda x: x[-1], metrics)
         return poses, metrics
 
@@ -213,10 +228,16 @@ class VOSystem:
             packed[side, :len(c), 2] = 1.0
         dev = upload(packed, self.device)
         corners, valid = dev[..., :2].contiguous(), dev[..., 2] > 0
-        self.state, pose, metrics = step_mod.track_step_external_corners(
-            self.state, self._prep(left_image, 2), self._prep(right_image, 2),
-            corners[0], valid[0], corners[1], valid[1], self.config)
-        return self._finish(pose, metrics)
+        frame = (self._prep(left_image, 2), self._prep(right_image, 2),
+                 corners[0], valid[0], corners[1], valid[1])
+        config = self.config
+        _, poses, metrics = step_mod._scan(
+            lambda: partial(step_mod.track_step_external_corners,
+                            config=config),
+            self.state, tuple(x[None] for x in frame), self.runners,
+            "corners")
+        first = lambda x: x[0]  # noqa: E731
+        return self._finish(tree_map(first, poses), tree_map(first, metrics))
 
     # -- checkpoint / resume
     def save_checkpoint(self, path: str) -> None:
@@ -245,6 +266,6 @@ class VOSystem:
                 raise ValueError(
                     f"checkpoint {key} has shape {leaves[key].shape}, this "
                     f"config needs {tuple(leaf.shape)}")
-        self.state = convert.to_port(unflatten_like(self.state, leaves),
-                                     self.device)
+        graphs.copy_into(self.state, convert.to_port(
+            unflatten_like(self.state, leaves), self.device))
 

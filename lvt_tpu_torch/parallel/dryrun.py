@@ -138,24 +138,31 @@ def count_syncs(fn):
 
 def _chunks(vo, a, b, chunk: int, after=None, syncs_seen=True) -> dict:
     """``vo.track_chunk`` over the frames of ``a`` and ``b`` in chunks,
-    the collectives and kernel launches counted from 0: each chunk's host
-    seconds (to its end on the device), chunk 1's host syncs (CUDA, where
-    ``syncs_seen``: gloo's syncs happen in its own threads, where the
-    count does not see them), the poses and metrics on the host, and
+    the collectives and the wrappers' kernel launches counted from 0: each
+    chunk's host seconds (to its end on the device), chunk 1's host syncs
+    and chunk 0's kernels as the card ran them (``device_launches``: the
+    graph's warm-up step and each replay, which no wrapper counts) on
+    CUDA where ``syncs_seen`` (not on gloo, whose syncs happen in its own
+    threads, where the count does not see them, and whose step runs
+    eagerly), the poses and metrics on the host, and
     ``after(vo)`` after each chunk (outside the timed region, its
-    collectives not counted)."""
+    collectives not counted), and the modes its runners ran in (graph or
+    eager, core/graphs.py)."""
     from lvt_tpu_torch.ops.collectives import all_reduce
     from lvt_tpu_torch.tree import tree_map
 
     launches = zero_kernel_counters()
     all_reduce.calls = 0
     poses, metrics, snapshots, seconds, syncs = [], [], [], [], None
+    device = None
     on_cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
     for c, lo in enumerate(range(0, a.shape[0], chunk)):
         x, y = a[lo:lo + chunk], b[lo:lo + chunk]
         t0 = time.perf_counter()
         if c == 1 and syncs_seen:
             (p, m), syncs = count_syncs(lambda: vo.track_chunk(x, y))
+        elif c == 0 and syncs_seen and on_cuda:
+            (p, m), device = device_launches(lambda: vo.track_chunk(x, y))
         else:
             p, m = vo.track_chunk(x, y)
             if on_cuda:
@@ -173,7 +180,9 @@ def _chunks(vo, a, b, chunk: int, after=None, syncs_seen=True) -> dict:
         metrics=_host(tree_map(cat, *metrics)),
         collectives=all_reduce.calls,
         launches={k: fn.launches for k, fn in launches.items()},
-        syncs=syncs, chunk_seconds=seconds, after_chunks=snapshots)
+        device_launches=device, first_chunk=min(chunk, a.shape[0]),
+        syncs=syncs, chunk_seconds=seconds, after_chunks=snapshots,
+        modes=sorted({r.mode for r in vo.runners.values()}))
 
 
 def zero_kernel_counters() -> dict:
@@ -192,6 +201,71 @@ def zero_kernel_counters() -> dict:
     return counters
 
 
+# the hand-written kernels' CUDA functions, as a kernel trace names them
+KERNEL_SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
+                  "describe_refine": "describe_refine_kernel",
+                  "hamming_top2": "hamming_top2_kernel",
+                  "pnp_normal_eqs": "pnp_normal_eqs_kernel",
+                  "stream_sum": "stream_sum_kernel"}
+
+
+# spin kernels that open a trace; no count reads them
+TRACE_MARKERS = 16
+
+
+def traced(fn, host=False):
+    """``fn()``'s result and the ``torch.profiler`` trace of it: the
+    device's activity (CUPTI), with ``host`` the host's too. On the card a
+    trace sometimes lacked its first few records (the first replay's
+    input copies and first kernels), so the trace opens with
+    TRACE_MARKERS spin kernels (``spin_kernel``) that take such a loss,
+    then 50 ms with the device idle before the traced work, and 50 ms
+    after it before the window closes (Kineto keeps only what lies inside
+    its window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        for _ in range(TRACE_MARKERS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return out, prof
+
+
+def device_records(prof) -> list:
+    """(name, start ns, end ns) of each kernel, copy and fill on the
+    device in a ``traced`` trace, read from Kineto's records as they are
+    (torch's event tree, which ``key_averages`` builds, costs seconds of
+    host time for a trace of tens of thousands of records)."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", lambda: False)()]
+
+
+def device_launches(fn):
+    """``fn()``'s result and what the card ran during it, from a kernel
+    trace (``traced``): each hand-written kernel's launches by name, a
+    CUDA graph's replays included (no wrapper call counts those); under
+    ``nccl`` the NCCL kernels, under ``markers`` the trace's markers that
+    it kept (of TRACE_MARKERS)."""
+    out, prof = traced(fn)
+    counts = dict.fromkeys([*KERNEL_SYMBOLS, "nccl", "markers"], 0)
+    for name, _, _ in device_records(prof):
+        for kernel, sym in KERNEL_SYMBOLS.items():
+            counts[kernel] += sym in name
+        counts["nccl"] += "nccl" in name.lower()
+        counts["markers"] += "spin_kernel" in name
+    return out, counts
+
+
 def _backend() -> str:
     import torch.distributed as dist
 
@@ -208,6 +282,7 @@ def sharded_stream(rank, n, config, left, right, *, chunk: int,
     host. ``initial``: a whole state (the port's tree, numpy leaves) to
     start from, cut into this rank's block."""
     from lvt_tpu_torch import convert
+    from lvt_tpu_torch.core import graphs
     from lvt_tpu_torch.parallel.sharded_stream import (POINT_AXIS,
                                                        ShardedStreamVO,
                                                        state_specs)
@@ -215,9 +290,9 @@ def sharded_stream(rank, n, config, left, right, *, chunk: int,
     axis = axis or POINT_AXIS
     vo = ShardedStreamVO(config, axis=axis, device=device)
     if initial is not None:
-        vo.state = convert.shard_state(
+        graphs.copy_into(vo.state, convert.shard_state(
             initial, rank, n, axis_of=convert.axes_of(state_specs(axis), axis),
-            device=device)
+            device=device))
     run = _chunks(vo, torch.as_tensor(left).to(device),
                   torch.as_tensor(right).to(device), chunk,
                   after=lambda v: dict(map_size=v.map_size, status=v.status,
@@ -314,12 +389,12 @@ def pnp_sharded(rank, n, pose, points, obs, weights, *, cam: dict,
 def collectives_check(rank, n, *, device: str = "cpu") -> dict:
     """The collectives on a group of all ranks, from values that differ
     per rank: psum_if, pmin_if, por_if, axis_index, axis_size, each
-    under vmap against a loop of unbatched calls, and a plain functional
-    collective under vmap against the same loop."""
+    under vmap against a loop of unbatched calls, and the loop's sum
+    against this rank's own values (which a sum that reduced nothing would
+    return)."""
     import warnings
 
     import torch.distributed as dist
-    from torch.distributed import _functional_collectives as funcol
     from torch.func import vmap
 
     from lvt_tpu_torch.ops import collectives as c
@@ -354,13 +429,12 @@ def collectives_check(rank, n, *, device: str = "cpu") -> dict:
             "por": vmap(lambda v: c.por_if(v, group))(mask),
         }
         out["batched_calls"] = c.all_reduce.calls
-        plain = vmap(lambda v: funcol.wait_tensor(
-            funcol.all_reduce(v, "sum", group)))(x)
     out["fallback_warnings"] = [str(w.message) for w in caught
                                 if "fallback" in str(w.message).lower()]
     out["batched_equal"] = {k: bool(torch.equal(batched[k], loops[k]))
                             for k in loops}
-    out["plain_equal"] = bool(torch.equal(plain, loops["psum"]))
+    # a sum that reduced nothing would return this rank's own values
+    out["unreduced_equal"] = bool(torch.equal(x, loops["psum"]))
     return out
 
 

@@ -9,12 +9,15 @@ body ``core/step.py::track_features`` (lvt_tpu's ``jax.vmap``), in which
 kernel T's batching rule (ops/top2.py) makes one launch per site for all
 S streams. Per-stream LOST flags live in the batched VOState, so a lost
 stream never stalls the others: ``reset`` re-initializes just its slice,
-keeping its pose.
+keeping its pose. The step and the reset select are one step function,
+captured in one CUDA graph and replayed per frame on the card
+(core/graphs.py), the vmapped body and T's batching rule included.
 
 With a ``("stream",)`` mesh (parallel/mesh.py) the S streams split over
 its ranks (processes) in contiguous blocks of S / n, as lvt_tpu's
 ``P("stream")`` lays them out: each rank holds and tracks its own block,
-and no collective runs (streams are independent).
+and no collective runs (streams are independent), so the step is captured
+whatever the group's backend.
 """
 
 from __future__ import annotations
@@ -115,22 +118,35 @@ def reset_lost_streams(states: VOState, config: VOConfig) -> VOState:
     return _reset_lost(states, _initial_state(config, states.status.device))
 
 
+def _with_reset(step, fresh: VOState, auto_reset: bool):
+    """``step(states, imgs1, imgs2) -> (states, poses, metrics)`` followed,
+    with ``auto_reset``, by the reset of each stream it lost to ``fresh``
+    (one stream's initial state): the step function a runner captures."""
+    def fn(states, a, b):
+        states, p, m = step(states, a, b)
+        return (_reset_lost(states, fresh) if auto_reset else states), p, m
+
+    return fn
+
+
+def _step_fn(config: VOConfig, auto_reset: bool, rgbd: bool, device):
+    """One frame of every stream, then (with ``auto_reset``) the reset of
+    each stream it lost."""
+    step = multistream_step_rgbd if rgbd else multistream_step_stereo
+    return _with_reset(lambda st, a, b: step(st, a, b, config),
+                       _initial_state(config, device), auto_reset)
+
+
 def multistream_chunk(states: VOState, imgs1: torch.Tensor,
-                      imgs2: torch.Tensor, config: VOConfig,
+                      imgs2: torch.Tensor, config: VOConfig, runners: dict,
                       auto_reset: bool = True, rgbd: bool = False):
     """N frames of S streams, in order: imgs [N, S, H, W] (left and right,
     or gray and float32 depth); with ``auto_reset`` a lost stream is reset
-    after its frame. Returns (states, poses [N, S], metrics [N, S])."""
-    step = multistream_step_rgbd if rgbd else multistream_step_stereo
-    fresh = _initial_state(config, states.status.device)
-    poses, metrics = [], []
-    for a, b in zip(imgs1, imgs2):
-        states, p, m = step(states, a, b, config)
-        if auto_reset:
-            states = _reset_lost(states, fresh)
-        poses.append(p)
-        metrics.append(m)
-    return step_mod._stack_frames(states, poses, metrics)
+    after its frame. Runs through the runner in ``runners`` (which writes
+    ``states`` in place); returns (states, poses [N, S], metrics [N, S])."""
+    return step_mod._scan(
+        lambda: _step_fn(config, auto_reset, rgbd, states.status.device),
+        states, (imgs1, imgs2), runners, "rgbd" if rgbd else "stereo")
 
 
 class MultiStreamVO:
@@ -150,8 +166,10 @@ class MultiStreamVO:
         self.device = resolve_device(device)
         self.auto_reset = auto_reset
         self.rgbd = rgbd
+        # static buffers, written in place by the runner and never rebound
         self.states = batched_initial_state(config, len(self.local_streams),
                                             device=self.device)
+        self.runners: dict = {}
 
     def _local(self, a: torch.Tensor) -> torch.Tensor:
         """This rank's streams of a whole batch (axis -3); a block that is
@@ -192,9 +210,9 @@ class MultiStreamVO:
         if a.shape != b.shape:
             raise ValueError(f"second-input chunk {tuple(b.shape)} != image "
                              f"chunk {tuple(a.shape)}")
-        self.states, poses, metrics = multistream_chunk(
-            self.states, a, b, self.config, auto_reset=self.auto_reset,
-            rgbd=self.rgbd)
+        _, poses, metrics = multistream_chunk(
+            self.states, a, b, self.config, self.runners,
+            auto_reset=self.auto_reset, rgbd=self.rgbd)
         return poses, metrics
 
     @property

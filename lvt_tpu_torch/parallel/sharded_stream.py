@@ -27,9 +27,16 @@ by valid-candidate rank, so once one rank's block fills, its share of the
 new points drops even if another rank still has free slots, whereas the
 unsharded map fills any free slot. Size the per-rank capacity with the
 headroom one device would need.
+
+The step, collectives included, runs through a runner (core/graphs.py):
+on an NCCL group one CUDA graph captured at the first frame and replayed
+per frame, on gloo eagerly (gloo synchronises the host in its own
+threads).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -88,11 +95,14 @@ def track_step_stereo_sharded(state: VOState, img_left: torch.Tensor,
 
 def track_chunk_stereo_sharded(state: VOState, imgs_left: torch.Tensor,
                                imgs_right: torch.Tensor, config: VOConfig,
-                               group):
-    """N frames in order, the map sharded over ``group``; returns (state,
-    poses [N], metrics [N])."""
-    return step_mod._scan(track_step_stereo_sharded, state, imgs_left,
-                          imgs_right, config, group)
+                               group, runners: dict):
+    """N frames in order, the map sharded over ``group``, through the
+    runner in ``runners`` (which writes ``state`` in place); returns
+    (state, poses [N], metrics [N])."""
+    return step_mod._scan(
+        lambda: partial(track_step_stereo_sharded, config=config,
+                        group=group),
+        state, (imgs_left, imgs_right), runners, "stereo", group=group)
 
 
 class ShardedStreamVO:
@@ -114,7 +124,9 @@ class ShardedStreamVO:
         self.mesh = mesh
         self.group = mesh.get_group(axis)
         self.n_shards = axis_size(self.group)
+        # static buffers, written in place by the runner and never rebound
         self.state = initial_shard(config, self.n_shards, device=self.device)
+        self.runners: dict = {}
         self.last_metrics = None
 
     def _prep(self, img, ndim: int) -> torch.Tensor:
@@ -139,8 +151,8 @@ class ShardedStreamVO:
         if a.shape != b.shape:
             raise ValueError(f"right chunk {tuple(b.shape)} != left chunk "
                              f"{tuple(a.shape)}")
-        self.state, poses, metrics = track_chunk_stereo_sharded(
-            self.state, a, b, self.config, self.group)
+        _, poses, metrics = track_chunk_stereo_sharded(
+            self.state, a, b, self.config, self.group, self.runners)
         self.last_metrics = tree_map(lambda x: x[-1], metrics)
         return poses, metrics
 

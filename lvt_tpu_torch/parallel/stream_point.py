@@ -14,7 +14,8 @@ the batch (ops/collectives.py's batching rule; every rank of a points
 group holds the same streams in the same order). The stream axis needs no
 collective. A lost stream is reset after its frame inside the chunk, as
 lvt_tpu's ``_reset_lost`` does; its status is the same on every rank of
-its points group, so they reset alike.
+its points group, so they reset alike. The step and the reset run through
+a runner (core/graphs.py): a CUDA graph on an NCCL group, eager on gloo.
 """
 
 from __future__ import annotations
@@ -59,22 +60,24 @@ def stream_point_step_stereo(states: VOState, imgs_left: torch.Tensor,
         st, lf, rf, config, group))(states, left, right)
 
 
+def _step_fn(config: VOConfig, group, auto_reset: bool, device):
+    """One frame of this rank's streams, then (with ``auto_reset``) the
+    reset of each stream it lost."""
+    return ms._with_reset(
+        lambda st, a, b: stream_point_step_stereo(st, a, b, config, group),
+        initial_shard(config, axis_size(group), device=device), auto_reset)
+
+
 def stream_point_chunk_stereo(states: VOState, imgs1: torch.Tensor,
                               imgs2: torch.Tensor, config: VOConfig, group,
-                              auto_reset: bool = True):
+                              runners: dict, auto_reset: bool = True):
     """N frames of this rank's streams, imgs [N, S_local, H, W], in order;
-    with ``auto_reset`` a lost stream is reset after its frame. Returns
-    (states, poses [N, S_local], metrics [N, S_local])."""
-    fresh = initial_shard(config, axis_size(group),
-                          device=states.status.device)
-    poses, metrics = [], []
-    for a, b in zip(imgs1, imgs2):
-        states, p, m = stream_point_step_stereo(states, a, b, config, group)
-        if auto_reset:
-            states = ms._reset_lost(states, fresh)
-        poses.append(p)
-        metrics.append(m)
-    return step_mod._stack_frames(states, poses, metrics)
+    with ``auto_reset`` a lost stream is reset after its frame. Runs
+    through the runner in ``runners`` (which writes ``states`` in place);
+    returns (states, poses [N, S_local], metrics [N, S_local])."""
+    return step_mod._scan(
+        lambda: _step_fn(config, group, auto_reset, states.status.device),
+        states, (imgs1, imgs2), runners, "stereo", group=group)
 
 
 def _default_mesh(n_streams: int, device_type: str):
@@ -116,9 +119,11 @@ class StreamPointVO:
         per = n_streams // ns
         first = per * axis_index(stream_group)
         self.local_streams = np.arange(first, first + per)
+        # static buffers, written in place by the runner and never rebound
         self.states = tree_map(
             lambda x: x[None].expand(per, *x.shape).clone(),
             initial_shard(config, axis_size(self.group), device=self.device))
+        self.runners: dict = {}
 
     def _prep(self, imgs, ndim: int) -> torch.Tensor:
         a = torch.as_tensor(imgs)
@@ -147,8 +152,8 @@ class StreamPointVO:
         if a.shape != b.shape:
             raise ValueError(f"right chunk {tuple(b.shape)} != left chunk "
                              f"{tuple(a.shape)}")
-        self.states, poses, metrics = stream_point_chunk_stereo(
-            self.states, a, b, self.config, self.group,
+        _, poses, metrics = stream_point_chunk_stereo(
+            self.states, a, b, self.config, self.group, self.runners,
             auto_reset=self.auto_reset)
         return poses, metrics
 

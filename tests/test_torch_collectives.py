@@ -10,9 +10,9 @@ process count in one spawn. Tolerances:
   * psum_if, pmin_if, por_if, axis_index, axis_size: exact (integer and
     small-integer float sums);
   * the vmap rule: a batched collective bit-equal to a loop of unbatched
-    ones, one collective per batched call, no vmap fallback; a plain
-    functional collective under vmap is not equal to that loop (it
-    reduces nothing), so the comparison catches the silent no-op;
+    ones, one collective per batched call, no vmap fallback; the loop's
+    sum is not any rank's own values, so the comparison catches a
+    collective that silently reduces nothing;
   * resolve_one_to_one(group=) at 2 ranks: bit-equal to lvt_tpu's under
     ``shard_map`` (integer keys);
   * solve_pnp_sharded at 2 and 4 ranks against lvt_tpu's: pose within
@@ -113,9 +113,10 @@ def test_batched_collective_equals_unbatched_ones(ranks, n):
         # one collective per batched call, whatever the batch size
         assert c["batched_calls"] == 3
         assert c["fallback_warnings"] == []
-        # the comparison has teeth: a plain functional collective under
-        # vmap returns each rank's own values, unreduced, without an error
-        assert c["plain_equal"] is False
+        # the comparison has teeth: a collective that reduced nothing (as
+        # a plain functional collective under vmap may, without an error)
+        # would return this rank's own values, which the loop's are not
+        assert c["unreduced_equal"] is False
 
 
 def test_resolve_one_to_one_matches_lvt_tpus_shard_map(ranks):

@@ -20,6 +20,7 @@ anywhere: a wrapper given a tensor that is not on the CPU launches its
 kernel or raises, never falls back.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -796,3 +797,161 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     link = [line for line in lines if "-shared" in line]
     assert len(link) == 1 and link[0].count(".o") == len(sources)
     assert [p.name for p in (tmp_path / "build").iterdir()] == [out.name]
+
+
+def _graph_case(entry: str, device):
+    """A small system of entry point ``entry`` and its frames: (make() ->
+    a new system on ``device``, chunk(system, lo, hi) -> (poses, metrics)
+    of frames lo .. hi - 1, the number of frames)."""
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.core.extract import extract_features
+    from lvt_tpu_torch.core.system import SensorType, VOSystem
+    from lvt_tpu_torch.io import datasets
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
+    n = 6
+    kw = dict(width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+              baseline=0.3, n_points=1500, extent_x=40.0, extent_y=18.0,
+              extent_z=90.0)
+    world = SyntheticWorld(**kw)
+    cfg = VOConfig(fx=260.0, fy=260.0, cx=160.0, cy=120.0, baseline=0.3,
+                   img_width=320, img_height=240, detection_cell_size=80,
+                   max_keypoints_per_cell=60, agast_threshold=15,
+                   near_plane_distance=0.5, far_plane_distance=150.0)
+    u8 = lambda x: np.clip(x, 0, 255).astype(np.uint8)  # noqa: E731
+
+    def chunks(make, a, b):
+        a, b = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+        return make, lambda vo, lo, hi: vo.track_chunk(a[lo:hi], b[lo:hi]), n
+
+    if entry in ("stereo", "stereo_dense_ba"):
+        if entry == "stereo_dense_ba":
+            cfg = cfg.replace(descriptor_mode="dense", local_ba_window=4,
+                              local_ba_every=2)
+        seq = list(world.stereo_sequence(n, speed=0.5))
+        return chunks(lambda: VOSystem(cfg, device=device),
+                      np.stack([u8(f[0]) for f in seq]),
+                      np.stack([u8(f[1]) for f in seq]))
+    if entry == "rgbd":
+        cfg = cfg.replace(triangulation_policy=2)
+        seq = list(world.rgbd_sequence(n, speed=0.5))
+        return chunks(lambda: VOSystem(cfg, SensorType.RGBD, device=device),
+                      np.stack([u8(f[0]) for f in seq]),
+                      np.stack([f[1].astype(np.float32) for f in seq]))
+    if entry == "multistream":
+        worlds = [world, SyntheticWorld(**kw, seed=99)]
+        seqs = [list(w.stereo_sequence(n, speed=0.5)) for w in worlds]
+        return chunks(lambda: MultiStreamVO(cfg, 2, device=device),
+                      np.stack([[u8(f[0]) for f in fs] for fs in zip(*seqs)]),
+                      np.stack([[u8(f[1]) for f in fs] for fs in zip(*seqs)]))
+    if entry == "rectified":
+        rs = np.random.RandomState(5)
+        points = np.stack([rs.uniform(-15, 15, 2500),
+                           rs.uniform(-8, 8, 2500),
+                           rs.uniform(2.0, 30.0, 2500)], -1)
+        shade = rs.uniform(60.0, 215.0, 2500)
+        raw = [np.stack([datasets.render_euroc_raw(
+            points, shade, np.array([0, 0, 0.2 * i]), rt) for i in range(n)])
+            for rt in (False, True)]
+        p = datasets.EUROC_P
+        cfg = VOConfig(fx=float(p[0, 0]), fy=float(p[1, 1]),
+                       cx=float(p[0, 2]), cy=float(p[1, 2]),
+                       baseline=datasets.EUROC_BASELINE, img_width=752,
+                       img_height=480, agast_threshold=15,
+                       detection_cell_size=160, max_keypoints_per_cell=60,
+                       near_plane_distance=0.5, far_plane_distance=100.0,
+                       staged_threshold=0)
+        maps = datasets.euroc_rectify_maps()
+        return chunks(lambda: VOSystem(cfg, device=device,
+                                       rectify_maps=maps), *raw)
+    assert entry == "corners"
+
+    def corners(img):
+        f = extract_features(torch.from_numpy(img), cfg)
+        return f.kp[f.valid].numpy()
+
+    seq = [(u8(l), u8(r)) for l, r, _ in world.stereo_sequence(n, speed=0.5)]
+    seq = [(l, r, corners(l), corners(r)) for l, r in seq]
+
+    def chunk(vo, lo, hi):
+        out = [(vo.track_with_external_corners(*f), vo.last_metrics)
+               for f in seq[lo:hi]]
+        stack = lambda *xs: torch.stack(xs)  # noqa: E731
+        return tuple(type(o[0])(*map(stack, *o)) for o in zip(*out))
+
+    return lambda: VOSystem(cfg, device=device), chunk, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["stereo", "stereo_dense_ba", "rgbd",
+                                   "rectified", "corners", "multistream"])
+def test_graph_replays_equal_the_eager_step(cuda, entry):
+    """Each entry point on the card over 6 frames in chunks of 3, replayed
+    from its captured graph and, in a second system on the same frames,
+    run eagerly under ``disable_graphs()``: poses, every metrics leaf and
+    the final state bit-equal; the same kernels run on the card in the
+    second chunk (a kernel trace, graph replays included); 0 host syncs in
+    a replayed chunk. The wrappers count the Python calls: the eager
+    step's at every frame, the graph's at its warm-up and its capture."""
+    from lvt_tpu_torch.core import graphs
+    from lvt_tpu_torch.parallel.dryrun import (count_syncs, device_launches,
+                                               zero_kernel_counters)
+
+    make, chunk, n = _graph_case(entry, cuda)
+    runs = {}
+    for mode in ("graph", "eager"):
+        ctx = (graphs.disable_graphs() if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            counters = zero_kernel_counters()
+            vo = make()
+            first = chunk(vo, 0, 3)
+            (second, syncs), device = device_launches(
+                lambda: count_syncs(lambda: chunk(vo, 3, n)))
+            runners = list(vo.runners.values())
+            assert len(runners) == 1 and runners[0].mode == mode
+            runs[mode] = dict(
+                out=[first, second], syncs=syncs, vo=vo, device=device,
+                launches={k: f.launches for k, f in counters.items()},
+                replays=runners[0].replays)
+    graph, eager = runs["graph"], runs["eager"]
+    assert graph["replays"] == n and eager["replays"] == 0
+    assert graph["syncs"] == 0 and eager["syncs"] == 0
+    per_frame = {k: v // n for k, v in eager["launches"].items()}
+    assert per_frame["hamming_top2"] > 0
+    assert eager["launches"] == {k: v * n for k, v in per_frame.items()}
+    assert graph["launches"] == {k: v * 2 for k, v in per_frame.items()}
+    second = {k: v * (n - 3) for k, v in per_frame.items()}
+    for mode in ("graph", "eager"):
+        assert {k: runs[mode]["device"][k] for k in second} == second
+    for g, e in zip(graph["out"], eager["out"]):
+        for a, b in zip([*g[0], *g[1]], [*e[0], *e[1]]):
+            assert torch.equal(a, b)
+    state = lambda vo: getattr(vo, "state", None) or vo.states  # noqa: E731
+    for a, b in zip(graphs._leaves(state(graph["vo"])),
+                    graphs._leaves(state(eager["vo"]))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_capture_of_a_step_that_syncs_raises(cuda):
+    """A step that reads a value back to the host runs in the warm-up but
+    cannot be captured: the first replay raises, and the runner does not
+    run the step eagerly instead (the state is left as it was)."""
+    from lvt_tpu_torch.core import graphs
+    from lvt_tpu_torch.geometry.se3 import Pose
+
+    def step(state, x):
+        if float(x.sum()) > 0:          # a host sync
+            x = x * 2
+        return state._replace(t=state.t + 1), x, x
+
+    state = Pose.identity(cuda)
+    runner = graphs.StepGraph(step, state, [torch.zeros(3, device=cuda)])
+    assert runner.mode == "graph"
+    with pytest.raises(RuntimeError):
+        runner.replay(torch.ones(3, device=cuda))
+    torch.cuda.synchronize()
+    assert runner.replays == 0 and runner._graph is None
+    assert torch.equal(state.t.cpu(), torch.zeros(3))

@@ -207,7 +207,9 @@ def test_lost_stream_resets_without_stalling_the_batch():
         if i == 2:
             il[1] = 50
             ir[1] = 50
-        before = ours.states.pose
+        # a copy: the states are static buffers that track overwrites
+        before = ours.states.pose._replace(t=ours.states.pose.t.clone(),
+                                           q=ours.states.pose.q.clone())
         _, m = ours.track(il, ir)
         _, jm = theirs.track(il, ir)
         np.testing.assert_array_equal(m.status.numpy(), np.asarray(jm.status))
