@@ -69,13 +69,26 @@ and the script exits non-zero without printing the final line:
    equal, ``kp`` within 1e-3 px). The synthetic world renders an ideal
    pinhole, so tracking a sequence under the YAML's distortion would be
    meaningless: the distortion is checked on extraction only;
-7. PnP's two reduction ops (``csrc/pnp.cu``; not TPU kernels: they fix
-   the order of lvt_tpu's XLA reductions): ``lvt_tpu_torch::pnp_normal_eqs``
-   (the normal equations, lvt_tpu/solver/pnp.py:155-156) and
-   ``lvt_tpu_torch::stream_sum`` (the robust chi-square's sum, :148), on
-   the inputs they took in one frame of path 3's 8 streams, at S = 1 and
-   S = 8: within 1e-5 of the sum of each output's term magnitudes of the
-   plain version, every stream of the S = 8 launch bit-equal to its S = 1
+7. PnP (not a TPU kernel: lvt_tpu runs solve_pnp,
+   lvt_tpu/solver/pnp.py:109-214, as XLA ops): the fused solve
+   ``lvt_tpu_torch::pnp_solve`` (``csrc/pnp_lm.cu``, one block per stream)
+   on the inputs it took in one more frame of path 3's 8 streams, at S =
+   1 and S = 8, against its plain version on the card stream by stream:
+   pose within 1e-4 m and 1e-4 rad, inlier count equal, chi2 within 1e-4
+   of the plain chi2 or of reprojection_th2 where the plain chi2 is below
+   it; then again on the same inputs with 3-70 valid points per stream
+   (``few_inliers``) (every gap printed; the same checks after paths 1,
+   2, 4, 5, 6, each tree of path 7 and path 8's reference, a VOSystem's
+   8 more frames stacked as 8 streams); every stream of the S = 8 launch
+   bit-equal to its S = 1 launch; the sharded solve's phases
+   (``lvt_tpu_torch::pnp_phase``) on one rank bit-equal to the fused
+   kernel; the kernel timed beside its bound, the plain version captured
+   in a CUDA graph and the phases. Then the plain version's two
+   reduction ops (``csrc/pnp.cu``, no longer on the main path):
+   ``lvt_tpu_torch::pnp_normal_eqs`` and ``lvt_tpu_torch::stream_sum`` on
+   the inputs they took in the plain solves of the same streams: within
+   1e-5 of the sum of each output's term magnitudes of their plain
+   versions, every stream of the S = 8 launch bit-equal to its S = 1
    launch, timed beside the bound and one PyTorch call; path 3's streams
    0 and 1 must equal the single stream (any gap printed, and under 1e-5
    m);
@@ -88,9 +101,9 @@ and the script exits non-zero without printing the final line:
    exactly A 1, P 1, T 2 (map, row) per frame; frame 0's remapped pair and
    features card vs CPU bit-equal; kernel A's float32 kernel, P and T (map
    4096 x 896, row) against their plain versions at its shapes; poses of
-   frames 0-3 card vs CPU within 1e-3 m; PnP's two ops as in phase 7 at
-   this path's M = 4096 (the other paths have path 3's 1024), on the
-   inputs of one more frame: its launches 2-9 as S = 8 streams;
+   frames 0-3 card vs CPU within 1e-3 m; PnP as in phase 7 at this path's
+   M = 4096 (the other paths have path 3's 1024), on 8 more frames as S
+   = 8 streams;
 9. path 6, external corners (``configs.kitti_config()``, path 1's frames):
    corners from the port's own extraction on the card, passed as host
    [N, 2] arrays to ``VOSystem.track_with_external_corners`` for 32 frames
@@ -109,7 +122,7 @@ and the script exits non-zero without printing the final line:
    ``dump_tum`` of an in-process ``VOSystem.track_chunk`` on the card over
    the decoded arrays in the same chunks, every frame TRACKING, aligned
    ATE under 5%, ``measurments.txt`` 48 rows and the reference titles,
-   per frame exactly A 1, P 1, T 4 / 2 / 2, each PnP op 12 and B 0, and
+   per frame exactly A 1, P 1, T 4 / 2 / 2, the PnP solve 1 and B 0, and
    the host syncs of the whole run, by the Python line that made each,
    exactly one per chunk in ``cli._track_sequence`` (statuses and poses)
    and one in ``observability._series_on_host`` (the recorder); without
@@ -130,11 +143,12 @@ and the script exits non-zero without printing the final line:
    all-reduces captured in the graph), 24 frames in units of 3, graph
    and eager: poses, statuses and map sizes bit-equal to
    ``VOSystem`` on the card, 0 host syncs per chunk, per frame exactly A
-   1, P 1, T 4, each PnP op 12 and ``collectives_per_frame`` all-reduces;
+   1, P 1, T 4, PnP's phases 23 and ``collectives_per_frame`` all-reduces;
    kernels A, P and T (map and staged at M / 2 and M / 4 rows) against
-   their plain versions at the shard shapes, T's map site and the PnP ops
-   (and the wide normal equations the sharded solve launches, which must
-   round to the float32 op's bits) timed at M = 512 and 256; whether NCCL
+   their plain versions at the shard shapes, T's map site, the PnP solve
+   and its phases (checked as in phase 7 on the reference's inputs cut to
+   M / n points) and the plain version's two ops timed at M = 512 and
+   256; whether NCCL
    takes 2 ranks on one card (if not, 8b-8d carry their collectives on
    gloo with CUDA tensors, staged through the host, and the backend is
    printed); 8b, ``ShardedStreamVO`` on 2 and 4 ranks over the same
@@ -152,9 +166,9 @@ and the script exits non-zero without printing the final line:
    frames/s of each;
 13. a JSON line with each kernel's launches and largest error against its
    plain version (in all, and by path), times and bound (T per site, per
-   frame of paths 1-2, batched and at path 8's shard rows; the PnP op at
-   S = 1 and 8, and at path 8's M), then the last line ``{"ok": true,
-   "device": {...}}``.
+   frame of paths 1-2, batched and at path 8's shard rows; PnP's solve,
+   phases and ops at S = 1 and 8, and at path 8's M), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every path runs its step as the port does by default: a CUDA graph of the
 step captured at the first frame of each system and entry point and
@@ -177,8 +191,10 @@ eagerly (gloo), 8d graphed, and each says so; path 7's StreamingVO runs
 16 frames graphed in its worker thread, its poses bit-equal to
 ``VOSystem.track``'s.
 
-Every path launches each of PnP's two ops 12 times per frame (2 passes of
-the damping's diagonal or the starting chi-square, and 5 iterations).
+Every path launches the fused PnP solve once per frame; paths 8a-8c,
+whose points are sharded, launch its phases instead, 23 per frame (2
+passes x (a setup + 5 x (normal equations, trial step)) + the last
+demotion). The plain version's two reduction ops run on no path.
 Every kernel's launch count is set to 0 just before a path runs (on
 path 7, each CLI run; on path 8, in each rank) and read just after it. A
 wrapper counts where Python calls it: at every frame of an eager step,
@@ -239,7 +255,14 @@ KERNELS = {
                         "lvt_tpu/ops/patches_pallas.py:109"),
     "hamming_top2": ("cuda", "lvt_tpu_torch/csrc/top2.cu",
                      "lvt_tpu/ops/top2_pallas.py:35"),
-    # not TPU kernels: lvt_tpu's PnP reductions (XLA) in a fixed order
+    # not TPU kernels: lvt_tpu's PnP solve (XLA ops under jit), whole
+    # (one block per stream) and, on the points-sharded paths, split at
+    # its reductions; then the plain version's two reductions in a fixed
+    # order, which the main path no longer runs
+    "pnp_solve": ("cuda", "lvt_tpu_torch/csrc/pnp_lm.cu",
+                  "lvt_tpu/solver/pnp.py:109-214"),
+    "pnp_phase": ("cuda", "lvt_tpu_torch/csrc/pnp_lm.cu",
+                  "lvt_tpu/solver/pnp.py:109-214 (axis_name set)"),
     "pnp_normal_eqs": ("cuda", "lvt_tpu_torch/csrc/pnp.cu",
                        "lvt_tpu/solver/pnp.py:155-156"),
     "stream_sum": ("cuda", "lvt_tpu_torch/csrc/pnp.cu",
@@ -279,9 +302,29 @@ CLI_STAMP0_NS = 1403636579763555584
 CLI_DT_NS = 50000000
 TUM_CLOUD = dict(x=6.0, y=4.5, z=12.0)
 TUM_SPEED = 0.05
-# PnP's normal equations and chi-square sums per frame: 2 passes x (the
-# damping's diagonal or the starting chi-square + 5 LM iterations)
-PNP = 12
+# PnP per frame: one launch of the fused solve; on the points-sharded
+# paths (8a-8c) its phases instead, 2 passes x (a setup + 5 iterations x
+# (normal equations, trial step)) + the last demotion
+PNP_PHASES = 2 * (1 + 2 * 5) + 1
+SHARDED_PATHS = ("path8a", "path8b-2", "path8b-4", "path8c")
+# the plain version's launches of each of its two reduction ops per solve:
+# 2 passes x (the damping's diagonal or the starting chi-square + 5 LM
+# iterations)
+PNP_PLAIN_OPS = 12
+# the work per point that the solve needs (the plain version's, which
+# keeps each projection; csrc/pnp_lm.cu recomputes it and folds all of
+# [H | g]): float32 operations, 2 setups of 64 (projection 30, Cauchy
+# weight 4, Jacobian 14, jw 12, chi-square term 4, a division or log1p
+# counted as one), 10 iterations of 30 at the kept projection (Cauchy
+# weight, Jacobian, jw) and 34 at the trial pose (projection, chi-square
+# term), and 2 demotions of 2; float64 fused multiply-adds, 10 x 54 for
+# [H | g] (H is symmetric: its upper triangle and g, 27 sums per
+# Jacobian row) and 2 x 12 for H's diagonal, all of them sums of a matrix
+# product, so at the tensor cores' float64 rate; bytes, 24 in (points,
+# obs, weights) and 1 out (the inlier mask), and per stream 28 in (t, q)
+# and 40 out (t, q, count, chi2)
+PNP_FP32_PER_POINT = 2 * 64 + 10 * (30 + 34) + 2 * 2
+PNP_FP64_PER_POINT = 10 * 54 + 2 * 12
 # launches each path makes per frame, exactly (path 3's for all S streams
 # at once: one batch, not S)
 NEED_PER_FRAME = {
@@ -306,8 +349,9 @@ NEED_PER_FRAME = {
     "path8c": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
     "path8d": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
 }
-for _need in NEED_PER_FRAME.values():
-    _need.update(pnp_normal_eqs=PNP, stream_sum=PNP)
+for _path, _need in NEED_PER_FRAME.items():
+    _need.update({"pnp_phase": PNP_PHASES} if _path in SHARDED_PATHS
+                 else {"pnp_solve": 1})
 # kernel T's sites in one frame of each path
 T_SITES = {"path1": ("map", "staged", "row"),
            "path2": ("map", "staged", "row", "ba_row"),
@@ -325,8 +369,11 @@ HBM_BYTES_PER_S = 3.35e12
 # Programming Guide, arithmetic instruction throughput): 32-bit integer
 # add/subtract/min/max/logic/compare and float compare on the ALU pipe 64;
 # float32 add/multiply 128; float64 add/multiply/fused multiply-add 64;
-# population count 16
-RATE_PER_SM_CLOCK = {"alu": 64, "fp32": 128, "fp64": 64, "popc": 16}
+# population count 16; and float64 fused multiply-adds on the tensor cores
+# (DMMA) 128: 67 TFLOP/s at 132 SMs and 1.98 GHz (NVIDIA's data sheet),
+# the card's peak for float64 work that is a matrix product
+RATE_PER_SM_CLOCK = {"alu": 64, "fp32": 128, "fp64": 64, "popc": 16,
+                     "fp64_tensor": 128}
 # kernel A on uint8 frames, per PAIR of pixels: Hopper's DPX instructions
 # take the min or max of 3 values in each of two 16-bit lanes, one
 # instruction for two pixels (csrc/perception.cu). FAST: per arc type 16
@@ -1077,8 +1124,11 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
     from lvt_tpu_torch.tree import tree_map
 
     first = tree_map(lambda x: x[:N_CPU_FRAMES[path]], g["poses"])
+    pnp_gaps = check_pnp_solve(path, capture_pnp_inputs(path, _first_frames(
+        lambda: VOSystem(config, device=DEVICE), il, ir)))
     return dict(report, first_poses=first, profile=prof,
-                launches=prof["launches"])
+                launches=prof["launches"],
+                kernel_errs={"pnp_solve": pnp_gaps["max_abs_err"]})
 
 
 def _inside_the_graph(path, vo, drive, u, n) -> dict:
@@ -1197,7 +1247,8 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
         raise AssertionError(f"path3: multi-stream vs single-stream gaps "
                              f"{gaps} m, not under 1e-5 m")
     prof = _profiles("path3", run, drive, profile_dir, "multi-stream frame")
-    pnp_inputs = capture_pnp_inputs("path3", msvo, a[-1], b[-1])
+    pnp_inputs = capture_pnp_inputs("path3", _first_frames(
+        lambda: MultiStreamVO(config, s, device=DEVICE), a, b, 4))
     return dict(report, fps_per_stream=report["fps"] / s, profile=prof,
                 launches=prof["launches"], kernel_errs=kernel_errs,
                 gaps=gaps, equal=all(equal),
@@ -1207,17 +1258,241 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
                 inputs=(a[:MS_CPU[1], :MS_CPU[0]], b[:MS_CPU[1], :MS_CPU[0]]))
 
 
-def capture_pnp_inputs(path, system, a, b) -> dict:
-    """The inputs that PnP's two ops launched with in one more frame
-    (``a``, ``b``) of ``system``: ``pnp_normal_eqs``'s (jac [S, M, 2, 6], w
-    [S, M], r [S, M, 2]) and ``stream_sum``'s (the robust chi-square's terms
-    [S, M]). A MultiStreamVO's vmapped calls reach each op's batching rule,
-    which launches the op once on the streams' real tensors: the first LM
-    iteration's launch is kept. A VOSystem launches at S = 1: launches 2-9
-    of its 12 are stacked as MS_STREAMS streams, so that the op is also
-    checked at S = 8 at this path's M. The frame runs eagerly
-    (``disable_graphs``) on the system's state."""
+def _first_frames(make, a, b, n=MS_STREAMS + 1):
+    """``frames`` for capture_pnp_inputs: a new system ``make()`` tracking
+    the first ``n`` frames of ``a`` and ``b`` (a MultiStreamVO's frames
+    [S, H, W]) with ``track``; returns n. Frame 0 initialises the map,
+    the others are tracked as the path tracks them."""
+    def frames():
+        system = make()
+        for x, y in zip(a[:n], b[:n]):
+            system.track(x, y)
+        return n
+    return frames
+
+
+def capture_pnp_inputs(path, frames) -> dict:
+    """The inputs that the fused PnP solve (``lvt_tpu_torch::pnp_solve``)
+    launched with while ``frames()`` tracked a path's first frames
+    eagerly (``disable_graphs``: a replay calls no Python, so nothing
+    would be recorded), the last MS_STREAMS streams of them: ``args`` (t,
+    q, points, obs, weights) with a leading stream axis and ``cam`` (fx,
+    fy, cx, cy, reprojection_th2). A MultiStreamVO's vmapped call reaches
+    the op's batching rule, which launches once on the streams' real
+    tensors (the last frame's is kept); a VOSystem launches at S = 1, and
+    its last MS_STREAMS frames are stacked as streams, so that the kernel
+    is also checked at S = 8 at this path's M."""
     from lvt_tpu_torch.core.graphs import disable_graphs
+    from lvt_tpu_torch.solver import pnp
+
+    seen, real = [], pnp.pnp_solve_op
+
+    def record(*args):
+        if not torch._C._functorch.is_batchedtensor(args[0]):
+            seen.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                              else x for x in args))
+        return real(*args)
+
+    pnp.pnp_solve_op = record
+    try:
+        with disable_graphs():
+            n = frames()
+    finally:
+        pnp.pnp_solve_op = real
+    if len(seen) != n:
+        raise AssertionError(f"{path}: {len(seen)} launches of pnp_solve in "
+                             f"{n} frames, not one per frame")
+    args = tuple(torch.cat(x)[-MS_STREAMS:]
+                 for x in zip(*(c[:5] for c in seen[-MS_STREAMS:])))
+    return dict(args=args, cam=seen[0][5:])
+
+
+def _solve_outputs(res) -> tuple:
+    """A PnPResult as pnp_solve's outputs (t, q, inlier, count, chi2)."""
+    return (*res.pose, *res[1:])
+
+
+def _plain_solves(args, cam) -> tuple:
+    """The plain version (``solve_pnp_plain``) stream by stream on the
+    card, stacked as pnp_solve's outputs."""
+    from lvt_tpu_torch.geometry.se3 import Pose
+    from lvt_tpu_torch.solver import pnp
+
+    fx, fy, cx, cy, th2 = cam
+    outs = [_solve_outputs(pnp.solve_pnp_plain(
+        Pose(t, q), p, o, w, fx=fx, fy=fy, cx=cx, cy=cy,
+        reprojection_th2=th2)) for t, q, p, o, w in zip(*args)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def _phase_solves(args, cam) -> tuple:
+    """The sharded solve's phases on one rank (every all-reduce the
+    identity), vmapped over the streams: N_PHASES launches."""
+    from lvt_tpu_torch.geometry.se3 import Pose
+    from lvt_tpu_torch.solver import pnp
+
+    kw = dict(zip(("fx", "fy", "cx", "cy", "reprojection_th2"), cam))
+    return torch.func.vmap(lambda t, q, *a: _solve_outputs(
+        pnp.solve_pnp_phases(Pose(t, q), *a, **kw)))(*args)
+
+
+def _graphed(fn):
+    """``fn`` (called once eagerly first) captured in a CUDA graph: its
+    replay, as the main path ran the plain version before the fused
+    kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def _rotation_gap(q1, q2) -> torch.Tensor:
+    """Rotation angle between quaternions [S, 4], in float64."""
+    from lvt_tpu_torch.geometry import quaternion as quat
+
+    rel = quat.multiply(quat.normalize(q1.double()),
+                        quat.conjugate(quat.normalize(q2.double())))
+    return 2 * torch.atan2(rel[:, 1:].norm(dim=-1), rel[:, 0].abs())
+
+
+# the valid points that stream i keeps in check_pnp_solve's few-inlier
+# set: underdetermined to well posed, the LM accept tests near ties
+FEW_INLIERS = (3, 4, 5, 6, 8, 16, 32, 70)
+
+
+def few_inliers(args) -> tuple:
+    """``args`` (a path's captured solve inputs) with stream i's weights
+    cut to its first FEW_INLIERS[i] valid points."""
+    w = args[4]
+    k = torch.tensor(FEW_INLIERS[:w.shape[0]], device=w.device)[:, None]
+    keep = (w > 0) & (torch.cumsum((w > 0).int(), -1) <= k)
+    return (*args[:4], w * keep)
+
+
+def check_pnp_solve(path, inputs) -> dict:
+    """The fused solve against its plain version on the card, on a path's
+    captured inputs (``capture_pnp_inputs``) and on the same inputs with
+    few valid points (``few_inliers``), all S streams in one launch: per
+    stream the pose within 1e-4 m and 1e-4 rad, the inlier count equal and
+    chi2 within 1e-4 of the plain chi2 or, where that is below
+    reprojection_th2 (one point's cost at the threshold; a fit of a few
+    points has a chi2 near 0), of reprojection_th2 (every gap printed);
+    each stream bit-equal to its own S = 1 launch; and the sharded
+    solve's phases on one rank bit-equal to the fused kernel. Returns the
+    largest gaps."""
+    from lvt_tpu_torch.solver import pnp
+
+    cam = inputs["cam"]
+    fmt = lambda x: [float(f"{v:.3g}") for v in x.tolist()]  # noqa: E731
+    gaps = {}
+    for label, args in (("captured", inputs["args"]),
+                        ("few inliers", few_inliers(inputs["args"]))):
+        s, m = args[2].shape[:2]
+        got = pnp.pnp_solve_op(*args, *cam)
+        want = _plain_solves(args, cam)
+        phases = _phase_solves(args, cam)
+        torch.cuda.synchronize()
+        dt = (got[0] - want[0]).double().norm(dim=-1)
+        da = _rotation_gap(got[1], want[1])
+        rel = ((got[4] - want[4]).double().abs()
+               / want[4].double().abs().clamp(min=cam[4]))
+        counts = (got[3].tolist(), want[3].tolist())
+        alone = all(torch.equal(a[0], b[i]) for i in range(s)
+                    for a, b in zip(pnp.pnp_solve_op(
+                        *(x[i:i + 1] for x in args), *cam), got))
+        same = all(torch.equal(a, b) for a, b in zip(phases, got))
+        _say(path, f"pnp_solve S={s} x M={m} ({label}: valid points "
+                   f"{(args[4] > 0).sum(-1).tolist()}) against the plain "
+                   f"version on the card, per stream: pose gap {fmt(dt)} m, "
+                   f"rotation {fmt(da)} rad, chi2 {fmt(rel)} of max(plain "
+                   f"chi2 {fmt(want[4])}, {cam[4]:.4g}); inlier counts "
+                   f"{counts[0]} (plain {counts[1]}); every stream "
+                   f"{'bit-equal' if alone else 'NOT equal'} to its S=1 "
+                   f"launch; the phases on one rank "
+                   f"{'bit-equal' if same else 'NOT equal'} to the fused "
+                   f"kernel")
+        if not (dt.max() < 1e-4 and da.max() < 1e-4 and rel.max() < 1e-4
+                and counts[0] == counts[1]):
+            raise AssertionError(f"{path}: pnp_solve differs from its plain "
+                                 f"version ({label}) beyond 1e-4 m, 1e-4 "
+                                 f"rad, 1e-4 of chi2 or in its inlier counts")
+        if not alone:
+            raise AssertionError(f"{path}: a stream of the S={s} pnp_solve "
+                                 f"launch ({label}) differs from its S=1 "
+                                 f"launch")
+        if not same:
+            raise AssertionError(f"{path}: the phases differ from the fused "
+                                 f"pnp_solve on one rank ({label})")
+        for key, v in (("pose_m", dt.max()), ("rotation_rad", da.max()),
+                       ("chi2_rel", rel.max()),
+                       ("max_abs_err", _max_abs_err(got, want))):
+            gaps[key] = max(float(v), gaps.get(key, 0.0))
+        gaps.update(s=s, m=m)
+    return gaps
+
+
+def pnp_solve_work(s: int, m: int) -> tuple[int, dict]:
+    """Bytes and operations of S fused solves of M points (see
+    PNP_FP32_PER_POINT)."""
+    return (s * (m * 25 + 28 + 40),
+            {"fp32": s * m * PNP_FP32_PER_POINT,
+             "fp64_tensor": s * m * PNP_FP64_PER_POINT})
+
+
+def measure_pnp_solve(card, path, inputs) -> dict:
+    """``check_pnp_solve``, then at S = 1 (stream 0) and S = 8: the fused
+    kernel's device time beside its bound; the plain version's, captured
+    in a CUDA graph and replayed (how the main path ran it before the
+    fused kernel);
+    and the phases' (N_PHASES launches and their glue, one rank, graphed
+    too). No one PyTorch call runs an LM solve: no library time."""
+    from lvt_tpu_torch.solver import pnp
+
+    gaps = check_pnp_solve(path, inputs)
+    cam, rep = inputs["cam"], {}
+    n_streams = inputs["args"][0].shape[0]
+    for s in (1, n_streams):
+        args = tuple(x[:s].contiguous() for x in inputs["args"])
+        m = args[2].shape[1]
+        b_ms, b_by = bound(card, *pnp_solve_work(s, m))
+        rep[s] = dict(
+            s=s, m=m, ms=device_ms(lambda a=args: pnp.pnp_solve_op(*a, *cam),
+                                   REPS),
+            plain_ms=device_ms(_graphed(lambda a=args: _plain_solves(a, cam)),
+                               PLAIN_REPS),
+            phases_ms=device_ms(_graphed(lambda a=args: _phase_solves(a, cam)),
+                                PLAIN_REPS),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        q = rep[s]
+        _say(path, f"pnp_solve S={s} x M={m}: kernel {q['ms']:.4f} ms "
+                   f"(bound {b_ms:.3g} ms, {b_by}), the plain version "
+                   f"graphed {q['plain_ms']:.4f} ms, the phases on one rank "
+                   f"({pnp.N_PHASES} launches) {q['phases_ms']:.4f} ms")
+    return dict(rep[1], batched=rep[n_streams], **gaps)
+
+
+def _phase_report(rep) -> dict:
+    """The phases' entry from ``measure_pnp_solve``'s report: their time
+    for one whole solve (N_PHASES launches) as the kernel's, beside the
+    same plain version and bound; their outputs are the fused kernel's
+    bit for bit, so their error is its error."""
+    keys = ("s", "m", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+    out = {k: rep[k] for k in keys if k in rep}
+    out["ms"] = rep["phases_ms"]
+    if "batched" in rep:
+        out["batched"] = _phase_report(rep["batched"])
+    return out
+
+
+def old_op_inputs(inputs) -> dict:
+    """The inputs that PnP's two reduction ops (``pnp_normal_eqs``,
+    ``stream_sum``) launched with in the plain version's solve of each
+    stream of ``inputs`` on the card (PNP_PLAIN_OPS launches each per
+    stream): each stream's first LM iteration's launch, stacked as
+    streams."""
     from lvt_tpu_torch.solver import pnp
 
     seen = {"pnp_normal_eqs_op": [], "stream_sum_op": []}
@@ -1225,45 +1500,40 @@ def capture_pnp_inputs(path, system, a, b) -> dict:
 
     def recorder(name):
         def record(*args):
-            if not torch._C._functorch.is_batchedtensor(args[0]):
-                seen[name].append(tuple(x.clone() for x in args
-                                        if isinstance(x, torch.Tensor)))
+            seen[name].append(tuple(x.clone() for x in args
+                                    if isinstance(x, torch.Tensor)))
             return real[name](*args)
         return record
 
     for name in seen:
         setattr(pnp, name, recorder(name))
     try:
-        # eager: a replay calls no Python, so nothing would be recorded
-        with disable_graphs():
-            system.track(a, b)
+        _plain_solves(inputs["args"], inputs["cam"])
     finally:
         for name, fn in real.items():
             setattr(pnp, name, fn)
+    s = inputs["args"][0].shape[0]
     for name, calls in seen.items():
-        if len(calls) != PNP:
-            raise AssertionError(f"{path}: {len(calls)} launches of {name} "
-                                 f"in one frame, not {PNP}")
-
-    def pick(calls):
-        if calls[0][0].shape[0] > 1:
-            return calls[1]
-        return tuple(torch.cat(x) for x in zip(*calls[1:1 + MS_STREAMS]))
-
-    return {"pnp_normal_eqs": pick(seen["pnp_normal_eqs_op"]),
-            "stream_sum": pick(seen["stream_sum_op"])}
+        if len(calls) != PNP_PLAIN_OPS * s:
+            raise AssertionError(f"{len(calls)} launches of {name} in {s} "
+                                 f"plain solves, not {PNP_PLAIN_OPS} each")
+    return {name[:-3]: tuple(torch.cat(x) for x in zip(
+        *calls[1::PNP_PLAIN_OPS])) for name, calls in seen.items()}
 
 
 def measure_pnp(card, path, inputs) -> dict:
-    """PnP's two ops on a path's inputs (``capture_pnp_inputs``) at S = 1
-    (stream 0) and S = 8:
+    """PnP's two reduction ops (the plain version's, off the main path) on
+    the inputs they took in the plain solves of a path's captured streams
+    (``old_op_inputs``) at S = 1 (stream 0) and S = 8:
     against their plain versions on the card stream by stream (each output
     within 1e-5 of the sum of its terms' magnitudes: the ops sum in their
     own order by design), each stream of the S = 8 launch
     bit-equal to its own S = 1 launch, then timed beside the bound and one
     PyTorch call. ``pnp_normal_eqs``: 60 bytes in per point, 48 floats out
-    per stream; per point 12 float32 products and 84 float64 fused
-    multiply-adds; the call is one torch.einsum making [H | g] from jw and
+    per stream; per point 12 float32 products and 54 float64 fused
+    multiply-adds at the tensor rate (H's upper triangle and g, as
+    PNP_FP64_PER_POINT; the kernel folds all 84 products of [H | g]); the
+    call is one torch.einsum making [H | g] from jw and
     [jac | r] formed beforehand. ``stream_sum``: 4 bytes in per point, 4
     out per stream, one float32 add per point; the call is ``x.sum(-1)``."""
     from lvt_tpu_torch.solver import pnp
@@ -1282,7 +1552,8 @@ def measure_pnp(card, path, inputs) -> dict:
             plain=per_stream(pnp.normal_equations_plain),
             scale=lambda jac, w, r: (jac.abs(), w, r.abs()),
             work=lambda s, m: (s * m * 15 * 4 + s * 48 * 4,
-                               {"fp32": s * m * 12, "fp64": s * m * 84}),
+                               {"fp32": s * m * 12,
+                                "fp64_tensor": s * m * 54}),
             library=lambda jac, w, r: (lambda jw=jac * w[..., None, None],
                                        x=torch.cat([jac, r[..., None]], -1):
                                        torch.einsum("smki,smkj->sij", jw, x)),
@@ -1426,6 +1697,10 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
         kernel_errs = {k: max(v, kernel_errs.get(k, 0.0))
                        for k, v in errs.items()}
     prof = _profiles("path4", run, drive, profile_dir)
+    kernel_errs["pnp_solve"] = check_pnp_solve("path4", capture_pnp_inputs(
+        "path4", _first_frames(lambda: VOSystem(config, SensorType.RGBD,
+                                                device=DEVICE), gd, dd)))[
+        "max_abs_err"]
 
     k = N_CPU_FRAMES["path4"]
     cpu = VOSystem(config, SensorType.RGBD, device="cpu")
@@ -1593,7 +1868,9 @@ def phase_rectified(config, maps, il, ir, gt, profile_dir=None):
         raise AssertionError(f"path5: CPU vs card pose difference {dt} m")
     return dict(report, profile=prof, launches=prof["launches"],
                 kernel_errs=kernel_errs,
-                pnp_inputs=capture_pnp_inputs("path5", vo, ild[-1], ird[-1]))
+                pnp_inputs=capture_pnp_inputs("path5", _first_frames(
+                    lambda: VOSystem(config, device=DEVICE,
+                                     rectify_maps=maps), ild, ird)))
 
 
 def _external_corners(config, il, ir) -> list:
@@ -1672,7 +1949,17 @@ def phase_external(config, il, ir, gt, profile_dir=None):
                   f"frames 0-{k - 1} differ by at most {dt:.3g} m")
     if not dt < 1e-3:
         raise AssertionError(f"path6: CPU vs card pose difference {dt} m")
-    return dict(report, profile=prof, launches=prof["launches"])
+
+    def first_frames():
+        one = VOSystem(config, device=DEVICE)
+        for i in range(MS_STREAMS + 1):
+            one.track_with_external_corners(il[i], ir[i], *corners[i])
+        return MS_STREAMS + 1
+
+    pnp_gaps = check_pnp_solve("path6", capture_pnp_inputs("path6",
+                                                           first_frames))
+    return dict(report, profile=prof, launches=prof["launches"],
+                kernel_errs={"pnp_solve": pnp_gaps["max_abs_err"]})
 
 
 # ---- path 7: the dataset CLIs on the card
@@ -1996,7 +2283,13 @@ def phase_cli(kitti, euroc, tum) -> dict:
                    f"captured step) {calls}")
         for k in KERNELS:
             launches[k] = launches.get(k, 0) + run_launches[k]
-        for k, v in _tree_kernels(name, config, frames, vo).items():
+        errs = _tree_kernels(name, config, frames, vo)
+        errs["pnp_solve"] = check_pnp_solve(path, capture_pnp_inputs(
+            path, _first_frames(lambda: _cli_reference(name, tree,
+                                                       config_of)[2],
+                                [f[0] for f in frames],
+                                [f[1] for f in frames])))["max_abs_err"]
+        for k, v in errs.items():
             kernel_errs[k] = max(v, kernel_errs.get(k, 0.0))
 
     # the kitti CLI without --record: one host sync per chunk
@@ -2276,7 +2569,8 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
     ref_status = torch.cat([x.status for _, x in ref]).cpu().numpy()
     ref_sizes = torch.cat([x.map_points_count for _, x in ref]).cpu().numpy()
     ref_size = vo.map_size
-    pnp_inputs = capture_pnp_inputs("path8", vo, il[n], ir[n])
+    pnp_inputs = capture_pnp_inputs("path8", _first_frames(
+        lambda: VOSystem(config, device=DEVICE), il, ir))
 
     # ---- 8a: one rank on NCCL, in this process, graph and eager
     runs = {}
@@ -2332,11 +2626,11 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
 
     # ---- the kernels at the shard shapes: T at map and staged with M / n
     # rows (row and BA row keep the replicated features' shapes), A and P
-    # on the replicated pair; the PnP ops (and the wide variant the
-    # sharded solve launches) at M / n points
+    # on the replicated pair; PnP at M / n points: the fused solve and the
+    # phases each rank launches, and the plain version's two ops
     f = extract_features_batched(torch.cat([a[:2], b[:1]]), config)
     imgs = torch.stack([a[0], b[0]])
-    kernel_errs, shard_t, shard_pnp = {}, {}, {}
+    kernel_errs, shard_t, shard_pnp, shard_solve = {}, {}, {}, {}
     for k in SH_RANKS:
         cfg = config.replace(max_map_points=m // k,
                              max_staged_points=config.max_staged_points // k)
@@ -2357,27 +2651,22 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
             lambda args=args, kw=kw: top2.hamming_top2_plain(*args, **kw),
             nbytes, ops)
         shard_t[m // k].update(m=m // k, k=args[1].shape[0])
-        sliced = {name: tuple(x[:, :m // k].contiguous() for x in xs)
-                  for name, xs in pnp_inputs.items()}
-        shard_pnp[m // k] = measure_pnp(card, f"path8 M={m // k}", sliced)
-        jac, w, r_ = (x[:1] for x in sliced["pnp_normal_eqs"])
-        wide = pnp.pnp_normal_eqs_op(jac, w, r_, True)
-        narrow = pnp.pnp_normal_eqs_op(jac, w, r_)
-        if not all(torch.equal(x.float(), y) for x, y in zip(wide, narrow)):
-            raise AssertionError(f"path8: the wide normal equations at M = "
-                                 f"{m // k} do not round to the float32 op's")
-        shard_pnp[m // k]["wide_ms"] = device_ms(
-            lambda: pnp.pnp_normal_eqs_op(jac, w, r_, True), REPS)
+        shard = dict(cam=pnp_inputs["cam"], args=(
+            *pnp_inputs["args"][:2],
+            *(x[:, :m // k].contiguous() for x in pnp_inputs["args"][2:])))
+        shard_solve[m // k] = measure_pnp_solve(card, f"path8-{k}", shard)
+        shard_pnp[m // k] = measure_pnp(card, f"path8 M={m // k}",
+                                        old_op_inputs(shard))
         t_rep, p_rep = shard_t[m // k], shard_pnp[m // k]["pnp_normal_eqs"]
         _say(f"path8-{k}", f"at M = {m // k}: hamming_top2 map "
                            f"{t_rep['ms']:.4f} ms (bound "
                            f"{t_rep['bound_ms']:.4f}, plain "
                            f"{t_rep['plain_ms']:.4f}); pnp_normal_eqs "
-                           f"{p_rep['ms']:.4f} ms, wide (float64 out, bit-"
-                           f"equal after rounding) "
-                           f"{shard_pnp[m // k]['wide_ms']:.4f} ms; "
-                           f"stream_sum "
+                           f"{p_rep['ms']:.4f} ms; stream_sum "
                            f"{shard_pnp[m // k]['stream_sum']['ms']:.4f} ms")
+        for name in ("pnp_solve", "pnp_phase"):
+            kernel_errs[name] = max(shard_solve[m // k]["max_abs_err"],
+                                    kernel_errs.get(name, 0.0))
         for name in ("pnp_normal_eqs", "stream_sum"):
             kernel_errs[name] = max(shard_pnp[m // k][name]["max_abs_err"],
                                     kernel_errs.get(name, 0.0))
@@ -2561,6 +2850,7 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
         r["kernel_errs"] = {}
     runs["path8a"]["kernel_errs"] = kernel_errs
     return dict(runs=runs, shard_t=shard_t, shard_pnp=shard_pnp,
+                shard_solve=shard_solve,
                 backend=backend, nccl=nccl_said)
 
 
@@ -2745,15 +3035,30 @@ def main(argv=None) -> int:
     phase_multistream_cpu(configs["path1"], runs["path3"]["first_poses"],
                           runs["path3"]["inputs"])
     runs["path4"] = phase_rgbd(config4, gray, depth, rot4, pos4, args.profile)
+    # PnP: the fused solve at path 3's M (paths 1, 2, 4 and 6 have the
+    # same) and path 5's 4096, 8 streams in one launch; the phases' time on
+    # one rank beside it (the kernel of paths 8a-8c: phase launches are
+    # timed as a whole solve); the plain version's two ops on their inputs
+    # in the plain solves of the same streams
+    solve3 = runs["path3"].pop("pnp_inputs")
+    report["pnp_solve"] = measure_pnp_solve(card, "path3", solve3)
+    report["pnp_phase"] = _phase_report(report["pnp_solve"])
+    runs["path3"]["kernel_errs"]["pnp_solve"] = report["pnp_solve"][
+        "max_abs_err"]
     for name, rep in measure_pnp(card, "path3",
-                                 runs["path3"].pop("pnp_inputs")).items():
+                                 old_op_inputs(solve3)).items():
         report[name] = rep
         runs["path3"]["kernel_errs"][name] = rep["max_abs_err"]
     euroc = euroc_setup()
     runs["path5"] = phase_rectified(*euroc, args.profile)
     # path 5's M (4096 map points) is the one other than path 3's 1024
+    solve5 = runs["path5"].pop("pnp_inputs")
+    report["pnp_solve"]["path5"] = measure_pnp_solve(card, "path5", solve5)
+    report["pnp_phase"]["path5"] = _phase_report(report["pnp_solve"]["path5"])
+    runs["path5"]["kernel_errs"]["pnp_solve"] = report["pnp_solve"]["path5"][
+        "max_abs_err"]
     for name, rep in measure_pnp(card, "path5",
-                                 runs["path5"].pop("pnp_inputs")).items():
+                                 old_op_inputs(solve5)).items():
         report[name]["path5"] = rep
         runs["path5"]["kernel_errs"][name] = rep["max_abs_err"]
     runs["path6"] = phase_external(configs["path1"], il[:EXT_FRAMES],
@@ -2771,10 +3076,12 @@ def main(argv=None) -> int:
                           runs["path3"].pop("poses"), args.profile)
     runs.update(path8["runs"])
     report["hamming_top2"]["path8"] = path8["shard_t"]
+    report["pnp_solve"]["path8"] = path8["shard_solve"]
+    report["pnp_phase"]["path8"] = {
+        m: _phase_report(rep) for m, rep in path8["shard_solve"].items()}
     for name in ("pnp_normal_eqs", "stream_sum"):
-        report[name]["path8"] = {m: dict(rep[name], **(
-            {"wide_ms": rep["wide_ms"]} if name == "pnp_normal_eqs" else {}))
-            for m, rep in path8["shard_pnp"].items()}
+        report[name]["path8"] = {m: rep[name]
+                                 for m, rep in path8["shard_pnp"].items()}
 
     entries = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -2785,8 +3092,8 @@ def main(argv=None) -> int:
                                        for p, r in runs.items()},
                      reps=REPS, plain_reps=PLAIN_REPS, **report[k])
         # phase 2 checked A, B, P and T at paths 1 and 2's shapes, the
-        # other paths their own (the PnP ops: paths 3 and 5, M = 1024 and
-        # 4096; paths 1, 2, 4 and 6 have path 3's M)
+        # other paths their own (the PnP solve on every path's inputs, its
+        # phases at path 8's; the plain version's ops at paths 3, 5 and 8)
         by_path = {p: report[k]["max_abs_err"] for p in ("path1", "path2")
                    if NEED_PER_FRAME[p].get(k) and k in SITE_KERNELS}
         by_path.update({p: r["kernel_errs"][k] for p, r in runs.items()

@@ -38,13 +38,6 @@
 // block per stream and the serial reduction set its time, and launch
 // latency the rest. M has no upper bound: the point loop runs
 // ceil(M / 256) times.
-//
-// With `wide` set the kernel writes the float64 sums themselves, before
-// that rounding: a solve whose points are sharded over several processes
-// adds these partials across them in float64 and rounds once
-// (lvt_tpu_torch/solver/pnp.py), so the shard count changes only the order
-// of float64 additions. Rounding the wide output gives the float32 output
-// bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -57,17 +50,10 @@ constexpr int NC = 7;            // the 6 Jacobian columns and the residual
 constexpr int NOUT = NP * NC;    // 42
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ void store(float* out, double v) {
-  *out = __double2float_rn(v);
-}
-__device__ __forceinline__ void store(double* out, double v) { *out = v; }
-
-// Out: float (the sums rounded once) or double (the sums themselves).
-template <typename Out>
 __global__ void __launch_bounds__(THREADS) pnp_normal_eqs_kernel(
     const float* __restrict__ jac, const float* __restrict__ w,
-    const float* __restrict__ r, int m, Out* __restrict__ hg,
-    Out* __restrict__ h_diag) {
+    const float* __restrict__ r, int m, float* __restrict__ hg,
+    float* __restrict__ h_diag) {
   __shared__ double part[WARPS][NOUT];
   // this block's stream: its slices of every input and output
   const long long s = blockIdx.x;
@@ -118,9 +104,9 @@ __global__ void __launch_bounds__(THREADS) pnp_normal_eqs_kernel(
   double sum = part[0][o];
 #pragma unroll
   for (int q = 1; q < WARPS; ++q) sum = __dadd_rn(sum, part[q][o]);
-  store(hg + s * NOUT + o, sum);
+  hg[s * NOUT + o] = __double2float_rn(sum);
   const int i = o / NC;
-  if (o % NC == i) store(h_diag + s * NP + i, sum);
+  if (o % NC == i) h_diag[s * NP + i] = __double2float_rn(sum);
 }
 
 // One stream's sum of x[0..n), for the robust chi-square that decides
@@ -169,23 +155,14 @@ extern "C" int lvt_stream_sum(const float* x, int n_streams, int n,
 }
 
 // Inputs jac [S, M, 2, 6], w [S, M], r [S, M, 2] float32; outputs hg
-// [S, 6, 7] (H and g) and h_diag [S, 6], float32, or float64 when `wide`
-// is non-zero. One block per stream.
+// [S, 6, 7] (H and g) and h_diag [S, 6] float32. One block per stream.
 extern "C" int lvt_pnp_normal_eqs(const float* jac, const float* w,
                                   const float* r, int n_streams, int m,
-                                  void* hg, void* h_diag, int wide,
-                                  void* stream) {
+                                  float* hg, float* h_diag, void* stream) {
   if (n_streams > 0) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (wide) {
-      pnp_normal_eqs_kernel<double><<<n_streams, THREADS, 0, st>>>(
-          jac, w, r, m, static_cast<double*>(hg),
-          static_cast<double*>(h_diag));
-    } else {
-      pnp_normal_eqs_kernel<float><<<n_streams, THREADS, 0, st>>>(
-          jac, w, r, m, static_cast<float*>(hg),
-          static_cast<float*>(h_diag));
-    }
+    pnp_normal_eqs_kernel<<<n_streams, THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        jac, w, r, m, hg, h_diag);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,8 +42,12 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "lvt_hamming_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
                          _P, _P],
-    "lvt_pnp_normal_eqs": [_P, _P, _P, _I, _I, _P, _P, _I, _P],
+    "lvt_pnp_normal_eqs": [_P, _P, _P, _I, _I, _P, _P, _P],
     "lvt_stream_sum": [_P, _I, _I, _P, _P],
+    "lvt_pnp_solve": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _P, _P,
+                      _P, _P, _P, _P, _P],
+    "lvt_pnp_phase": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
+                      _F, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -194,6 +194,7 @@ def zero_kernel_counters() -> dict:
                 "brief": perception.brief_planes,
                 "describe_refine": patches.describe_refine_batched,
                 "hamming_top2": top2.hamming_top2,
+                "pnp_solve": pnp.pnp_solve, "pnp_phase": pnp.pnp_phase,
                 "pnp_normal_eqs": pnp.normal_equations,
                 "stream_sum": pnp.stream_sum}
     for fn in counters.values():
@@ -205,6 +206,8 @@ def zero_kernel_counters() -> dict:
 KERNEL_SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
                   "describe_refine": "describe_refine_kernel",
                   "hamming_top2": "hamming_top2_kernel",
+                  "pnp_solve": "pnp_solve_kernel",
+                  "pnp_phase": "pnp_phase_kernel",
                   "pnp_normal_eqs": "pnp_normal_eqs_kernel",
                   "stream_sum": "stream_sum_kernel"}
 

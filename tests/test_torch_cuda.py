@@ -15,7 +15,14 @@ operations, rounded to nearest). PnP's two reduction ops sum in another
 order than their plain versions by design (one fixed order per stream,
 the same at every S): each output within 1e-5 of the sum of its terms'
 magnitudes, and every stream of an S-stream launch bit-equal to its own
-S = 1 launch. The unmarked tests run
+S = 1 launch. PnP's whole solve (``lvt_tpu_torch::pnp_solve``) against
+its plain version (``solve_pnp_plain``, whose 6x6 step is cuSOLVER's and
+not the kernel's LU): pose within 1e-4 m and 1e-4 rad, inlier count
+equal, chi2 within 1e-4 of the plain chi2 or of reprojection_th2 where
+the plain chi2 is below it (a fit of a few points has a chi2 near 0),
+also with 3-6 valid points, none, or all at one pixel; every stream of an
+S-stream launch and the sharded solve's phases (all-reduces as
+identities) bit-equal to the fused kernel. The unmarked tests run
 anywhere: a wrapper given a tensor that is not on the CPU launches its
 kernel or raises, never falls back.
 """
@@ -28,7 +35,10 @@ import pytest
 import torch
 
 from lvt_tpu_torch import kernels
+from lvt_tpu_torch.geometry import quaternion as quat
+from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.ops import hamming, patches, perception, top2
+from lvt_tpu_torch.parallel.dryrun import device_launches
 from lvt_tpu_torch.solver import pnp
 
 
@@ -319,26 +329,18 @@ def test_pnp_normal_eqs_kernel_matches_plain(cuda, s, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,m", [(1, 512), (1, 256), (8, 512), (3, 300)])
-def test_pnp_normal_eqs_wide_output_rounds_to_the_float32_one(cuda, s, m):
-    """The ``wide`` op (float64 sums before their rounding, which a
-    sharded solve adds across its ranks) at the shard shapes of chip_smoke
-    path 8: rounded once, bit-equal to the float32 op; within 1e-5 of the
-    terms' magnitudes of the plain version; one launch under vmap."""
-    jac, w, r = _pnp_inputs(np.random.RandomState(s * m), s, m, cuda)
+def test_pnp_normal_eqs_refuses_wide_on_the_card(cuda):
+    """The float64 (``wide``) normal equations are the CPU's only (the
+    CPU's sharded phases): on the card the op raises before it launches,
+    alone and under vmap."""
+    jac, w, r = _pnp_inputs(np.random.RandomState(4), 2, 256, cuda)
     before = pnp.normal_equations.launches
-    wide = pnp.pnp_normal_eqs_op(jac, w, r, True)
-    narrow = pnp.pnp_normal_eqs_op(jac, w, r)
-    torch.cuda.synchronize()
-    assert pnp.normal_equations.launches == before + 2
-    for a, b in zip(wide, narrow):
-        assert a.dtype == torch.float64 and torch.equal(a.float(), b)
-    _pnp_close(tuple(x.float() for x in wide), jac, w, r)
-    before = pnp.normal_equations.launches
-    got = torch.func.vmap(lambda *a: pnp.normal_equations(*a, wide=True))(
-        jac, w, r)
-    assert pnp.normal_equations.launches == before + 1
-    assert torch.equal(got[0], wide[0]) and torch.equal(got[1], wide[1])
+    with pytest.raises(ValueError, match="wide"):
+        pnp.pnp_normal_eqs_op(jac, w, r, True)
+    with pytest.raises(ValueError, match="wide"):
+        torch.func.vmap(lambda *a: pnp.normal_equations(*a, wide=True))(
+            jac, w, r)
+    assert pnp.normal_equations.launches == before
 
 
 @pytest.mark.cuda
@@ -374,6 +376,209 @@ def test_stream_sum_kernel_matches_plain(cuda, s, n):
     before = pnp.stream_sum.launches
     assert torch.equal(torch.func.vmap(pnp.stream_sum)(x), got)
     assert pnp.stream_sum.launches == before + 1
+
+
+PNP_CAM = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.21)
+
+
+def _quat_matrix(q):
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def _pnp_problem(rs, s, m, device, n_out=None):
+    """``s`` streams of a PnP problem with ``m`` points each, as the
+    tracking step poses it: world points 4-80 m deep in view, their pixels
+    at a true pose with 0.5 px noise, the first ``n_out`` of them outliers
+    (20-90 px off; by default an eighth), a tenth masked, and an initial
+    pose off by about 0.2 m and 0.01 -> (t [S, 3], q [S, 4], points, obs,
+    weights) on ``device``."""
+    cam = PNP_CAM
+    n_out = m // 8 if n_out is None else n_out
+    out = [[] for _ in range(5)]
+    for _ in range(s):
+        z = rs.uniform(4.0, 80.0, m)
+        pts = np.stack([(rs.uniform(50, 1191, m) - cam["cx"]) * z / cam["fx"],
+                        (rs.uniform(30, 346, m) - cam["cy"]) * z / cam["fy"],
+                        z], -1)
+        w3 = rs.randn(3) * 0.05
+        th = np.linalg.norm(w3)
+        q = np.concatenate([[np.cos(th / 2)], np.sin(th / 2) * w3 / th])
+        t = rs.randn(3) * 0.5
+        pc = (pts - t) @ _quat_matrix(q)       # world -> camera: R^T (x - t)
+        uv = np.stack([cam["fx"] * pc[:, 0] / pc[:, 2] + cam["cx"],
+                       cam["fy"] * pc[:, 1] / pc[:, 2] + cam["cy"]], -1)
+        uv += rs.randn(m, 2) * 0.5
+        uv[:n_out] += rs.uniform(20, 90, (n_out, 2))
+        q0 = q + rs.randn(4) * 0.01
+        for acc, x in zip(out, (t + rs.randn(3) * 0.2, q0 / np.linalg.norm(q0),
+                                pts, uv, rs.rand(m) > 0.1)):
+            acc.append(x)
+    return [torch.from_numpy(np.stack(x).astype(np.float32)).to(device)
+            for x in out]
+
+
+def _angle(a, b) -> float:
+    """Rotation angle between two quaternions, in float64."""
+    rel = quat.multiply(quat.normalize(a.double()),
+                        quat.conjugate(quat.normalize(b.double())))
+    return float(2 * torch.atan2(rel[1:].norm(), rel[0].abs()))
+
+
+def _pnp_results(out, i):
+    """Stream i of pnp_solve's outputs as (t, q, inlier, count, chi2)."""
+    return tuple(x[i] for x in out)
+
+
+def _pnp_edge(args, case):
+    """``_pnp_problem``'s streams at an edge of the solve: ``few``, stream
+    i keeps 3 + i % 4 valid points (the fit of 3-6 points has a chi2 near
+    0, where the LM accept tests sit on ties); ``none``, every weight 0
+    (H and g 0, the step 0, nothing accepted); ``one_pixel``, every point
+    the first one, at one pixel (H of rank 2, the damped system near
+    singular)."""
+    t, q, pts, obs, w = args
+    if case == "few":
+        k = 3 + torch.arange(w.shape[0], device=w.device)[:, None] % 4
+        w = w * (torch.cumsum(w, -1) <= k)
+    elif case == "none":
+        w = torch.zeros_like(w)
+    elif case == "one_pixel":
+        pts = pts[:, :1].expand_as(pts).contiguous()
+        obs = obs[:, :1].expand_as(obs).contiguous()
+        w = torch.ones_like(w)
+    return [t, q, pts, obs, w]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,m,case", [
+    (1, 256, "outliers"), (1, 1024, "outliers"), (1, 4096, "outliers"),
+    (8, 256, "outliers"), (8, 1024, "outliers"), (8, 4096, "outliers"),
+    (2, 9000, "outliers"), (8, 1024, "few"), (2, 256, "none"),
+    (2, 1024, "one_pixel")])
+def test_pnp_solve_kernel_matches_plain(cuda, s, m, case):
+    """The fused solve against the plain version stream by stream (pose
+    within 1e-4 m and 1e-4 rad, inlier count equal, chi2 within 1e-4 of
+    the plain chi2 or of reprojection_th2 where the plain chi2 is below
+    it), every stream of the S-stream launch bit-equal to its own S = 1
+    launch; M = 9000 reads the points beyond the kernel's shared-memory
+    stage from device memory; ``few``, ``none`` and ``one_pixel`` are the
+    solve's edges (``_pnp_edge``)."""
+    args = _pnp_problem(np.random.RandomState(7 * s + m), s, m, cuda)
+    if case != "outliers":
+        args = _pnp_edge(args, case)
+    before = pnp.pnp_solve.launches
+    got = pnp.pnp_solve(*args, **PNP_CAM)
+    torch.cuda.synchronize()
+    assert pnp.pnp_solve.launches == before + 1
+    for i in range(s):
+        t, q, inlier, count, chi2 = _pnp_results(got, i)
+        want = pnp.solve_pnp_plain(Pose(args[0][i], args[1][i]),
+                                   *(x[i] for x in args[2:]), **PNP_CAM)
+        dt = float((t - want.pose.t).norm())
+        da = _angle(q, want.pose.q)
+        rel = float((chi2 - want.chi2).abs()
+                    / want.chi2.abs().clamp(min=5.991))
+        assert dt < 1e-4 and da < 1e-4 and rel < 1e-4, (i, dt, da, rel)
+        assert int(count) == int(want.inlier_count) == int(inlier.sum())
+        assert torch.equal(inlier, want.inlier_mask)
+        if case == "outliers":
+            assert int(count) < int(args[4][i].sum()) - m // 16
+        elif case == "none":
+            assert int(count) == 0
+        one = pnp.pnp_solve(*(x[i:i + 1] for x in args), **PNP_CAM)
+        for a, b in zip(one, got):
+            assert torch.equal(a[0], b[i])
+
+
+@pytest.mark.cuda
+def test_pnp_solve_launches_on_every_device_and_thread(cuda):
+    """M = 4096 needs 96 KB of dynamic shared memory, above the default
+    48 KB: the kernel's limit is raised for the device current at each
+    launch, so a solve runs on every card present, whichever was current,
+    and from a thread that never launched before; each bit-equal to the
+    first card's."""
+    import threading
+
+    args = _pnp_problem(np.random.RandomState(3), 2, 4096, cuda)
+    want = pnp.pnp_solve(*args, **PNP_CAM)
+    n = torch.cuda.device_count()
+    for d in range(n):
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(n - 1 - d):
+            got = pnp.pnp_solve(*(x.to(dev) for x in args), **PNP_CAM)
+        torch.cuda.synchronize(dev)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+    out = []
+    worker = threading.Thread(
+        target=lambda: out.append(pnp.pnp_solve(*args, **PNP_CAM)))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    for a, b in zip(out[0], want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,m", [(1, 1024), (8, 1024), (1, 4096), (2, 9000)])
+def test_pnp_phases_equal_the_fused_kernel(cuda, s, m):
+    """The sharded solve's phases with the all-reduces as identities (no
+    group: one rank) under vmap over the streams: N_PHASES launches, and
+    every output bit-equal to the fused kernel's."""
+    args = _pnp_problem(np.random.RandomState(m + s), s, m, cuda)
+    fused = pnp.pnp_solve(*args, **PNP_CAM)
+    before = pnp.pnp_phase.launches
+    res = torch.func.vmap(lambda t, q, *a: tuple(pnp.solve_pnp_phases(
+        Pose(t, q), *a, **PNP_CAM)))(*args)
+    torch.cuda.synchronize()
+    assert pnp.pnp_phase.launches == before + pnp.N_PHASES
+    (t, q), inlier, count, chi2 = res
+    for a, b in zip((t, q, inlier, count, chi2), fused):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pnp_solve_vmap_rule_launches_once(cuda):
+    args = _pnp_problem(np.random.RandomState(11), 3, 1024, cuda)
+    before = pnp.pnp_solve.launches
+    res = torch.func.vmap(lambda t, q, *a: tuple(pnp.solve_pnp(
+        Pose(t, q), *a, **PNP_CAM)))(*args)
+    torch.cuda.synchronize()
+    assert pnp.pnp_solve.launches == before + 1
+    (t, q), inlier, count, chi2 = res
+    for a, b in zip((t, q, inlier, count, chi2),
+                    pnp.pnp_solve(*args, **PNP_CAM)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solve", ["fused", "phases"])
+def test_pnp_solve_captures_in_a_graph_without_syncs(cuda, solve):
+    """One stream's solve: 0 host syncs eagerly, captured in a CUDA graph,
+    and the replay bit-equal to the eager call."""
+    from lvt_tpu_torch.parallel.dryrun import count_syncs
+
+    t, q, *rest = (x[0] for x in _pnp_problem(np.random.RandomState(5), 1,
+                                              1024, cuda))
+    fn = pnp.solve_pnp if solve == "fused" else pnp.solve_pnp_phases
+
+    def call():
+        res = fn(Pose(t, q), *rest, **PNP_CAM)
+        return (*res.pose, *res[1:])
+
+    eager, syncs = count_syncs(call)
+    assert syncs == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(static, eager):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -505,10 +710,11 @@ def test_multistream_on_the_card_matches_the_cpu(cuda, sensor):
     rgbd = sensor == "rgbd"
     gpu = MultiStreamVO(cfg, 2, device=cuda, rgbd=rgbd)
     cpu = MultiStreamVO(cfg, 2, device="cpu", rgbd=rgbd)
-    before = top2.hamming_top2.launches
-    pg, _ = gpu.track_chunk(a.to(cuda), b.to(cuda))
-    torch.cuda.synchronize()
-    assert top2.hamming_top2.launches - before == 4 * (2 if rgbd else 3)
+    (pg, _), ran = device_launches(
+        lambda: gpu.track_chunk(a.to(cuda), b.to(cuda)))
+    # the graph's warm-up step and 4 replays, T once per site for both
+    # streams (what the card ran: a wrapper counts only Python calls)
+    assert ran["hamming_top2"] == 5 * (2 if rgbd else 3)
     pc, _ = cpu.track_chunk(a, b)
     assert (gpu.status == TRACKING).all()
     torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-4, rtol=0)
@@ -553,10 +759,9 @@ def test_rectified_path_on_the_card_matches_the_cpu(cuda):
             assert torch.equal(a.cpu(), b)
     gpu = VOSystem(cfg, device=cuda, rectify_maps=maps)
     cpu = VOSystem(cfg, device="cpu", rectify_maps=maps)
-    before = top2.hamming_top2.launches
-    pg, _ = gpu.track_chunk(il.to(cuda), ir.to(cuda))
-    torch.cuda.synchronize()
-    assert top2.hamming_top2.launches - before == 4 * 2
+    (pg, _), ran = device_launches(
+        lambda: gpu.track_chunk(il.to(cuda), ir.to(cuda)))
+    assert ran["hamming_top2"] == 5 * 2   # the warm-up step, 4 replays
     pc, _ = cpu.track_chunk(il, ir)
     assert gpu.get_state() == TrackingState.TRACKING
     torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-4, rtol=0)
@@ -601,12 +806,11 @@ def test_external_corners_on_the_card_match_the_cpu(cuda):
     for a, b in zip(fg, fc):
         assert torch.equal(a.cpu(), b)
     gpu, cpu = VOSystem(cfg, device=cuda), VOSystem(cfg, device="cpu")
-    counts = [top2.hamming_top2, perception.perception_patch_maps_batched,
-              patches.describe_refine_batched]
-    before = [f.launches for f in counts]
-    pg = [gpu.track_with_external_corners(*f) for f in seq]
-    torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(counts, before)] == [4 * 3, 0, 0]
+    pg, ran = device_launches(
+        lambda: [gpu.track_with_external_corners(*f) for f in seq])
+    # the warm-up step and 4 replays: T at 3 sites, no A, no P
+    assert [ran[k] for k in ("hamming_top2", "perception",
+                             "describe_refine")] == [5 * 3, 0, 0]
     pc = [cpu.track_with_external_corners(*f) for f in seq]
     assert gpu.get_state() == TrackingState.TRACKING
     torch.testing.assert_close(torch.stack([p.t.cpu() for p in pg]),
@@ -720,7 +924,8 @@ def test_one_rank_nccl_sharded_stream_is_vosystem(cuda):
 
 
 @pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2",
-                                  "pnp", "stream_sum"])
+                                  "pnp", "stream_sum", "pnp_solve",
+                                  "pnp_phase"])
 def test_wrapper_never_falls_back_off_the_cpu(call):
     """A tensor on another device than the CPU goes to the kernel path,
     whose argument checks refuse anything that is not on a CUDA device."""
@@ -733,6 +938,16 @@ def test_wrapper_never_falls_back_off_the_cpu(call):
             perception.brief_planes(torch.empty(2, 40, 48, **meta))
         elif call == "stream_sum":
             pnp.stream_sum(torch.empty(5, **meta))
+        elif call == "pnp_solve":
+            pnp.pnp_solve(torch.empty(1, 3, **meta), torch.empty(1, 4, **meta),
+                          torch.empty(1, 5, 3, **meta),
+                          torch.empty(1, 5, 2, **meta),
+                          torch.empty(1, 5, **meta), **PNP_CAM)
+        elif call == "pnp_phase":
+            pnp.pnp_phase(pnp.K_SETUP, 0, torch.empty(1, pnp.NSTATE, **meta),
+                          torch.empty(1, 5, **meta),
+                          torch.empty(1, 5, 3, **meta),
+                          torch.empty(1, 5, 2, **meta), None, None, **PNP_CAM)
         elif call == "pnp":
             pnp.normal_equations(torch.empty(5, 2, 6, **meta),
                                  torch.empty(5, **meta),
@@ -767,7 +982,8 @@ def test_library_name_follows_the_sources():
     assert path == kernels.library_path()
     assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
-        "perception.cu", "brief.cu", "patches.cu", "top2.cu", "pnp.cu"}
+        "perception.cu", "brief.cu", "patches.cu", "top2.cu", "pnp.cu",
+        "pnp_lm.cu"}
 
 
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
