@@ -37,10 +37,21 @@ and the script exits non-zero without printing the final line:
    within 1e-3 m;
 4. path 2, the shipped KITTI config (lvt_tpu_torch/configs/kitti/
    vo_config.yaml: local BA, window 4 every 4 frames) in the dense
-   descriptor mode, 56 frames in chunks of 8: A, B once per frame and T
+   descriptor mode, 42 frames in chunks of 6: A, B once per frame and T
    four times; the number of frames that ran BA (read once after the run)
-   must be the schedule's; then the card against the CPU over frames 0-4
-   (BA runs at frame 4);
+   must be the schedule's; local BA is a CUDA IF node in the graph, so
+   per frame type (``_frame_types``: a new system's frames 5-16 one at a
+   time in a kernel trace) every frame sets the node's predicate once and
+   launches the path's kernels, a BA frame (12, 16; 8 may list fewer)
+   runs exactly an other frame's kernels and as many more as the node's
+   body holds, and the eager step runs the same kernels on every
+   frame; then the card against the CPU over frames 0-8 (BA runs at
+   frames 4 and 8); then the sparse descriptor mode (path 1's config),
+   card vs CPU: frame 0's features bit-equal, the poses of frames 0-3
+   within 1e-3 m; then 8 streams of path 2's config (``MultiStreamVO``,
+   whose vmapped step selects BA) over 9 frames, streams 0 and 1 against
+   the card's ``VOSystem``: poses, map positions and BA runs bit-equal (a
+   gap under 1e-5 m tolerated and printed); then ``measure_if_node``;
 5. path 3, many streams (bench.py --multistream's shape): path 1's config
    through ``MultiStreamVO(config, 8, device="cuda").track_chunk``, 56
    frames in chunks of 8, stream i from frame 2i of the same sequence: every
@@ -74,9 +85,8 @@ and the script exits non-zero without printing the final line:
    ``lvt_tpu_torch::pnp_solve`` (``csrc/pnp_lm.cu``, one block per stream)
    on the inputs it took in one more frame of path 3's 8 streams, at S =
    1 and S = 8, against its plain version on the card stream by stream:
-   pose within 1e-4 m and 1e-4 rad, inlier count equal, chi2 within 1e-4
-   of the plain chi2 or of reprojection_th2 where the plain chi2 is below
-   it; then again on the same inputs with 3-70 valid points per stream
+   every output (pose, inlier mask and count, chi2) bit-equal (the gaps
+   printed); then again on the same inputs with 3-70 valid points per stream
    (``few_inliers``) (every gap printed; the same checks after paths 1,
    2, 4, 5, 6, each tree of path 7 and path 8's reference, a VOSystem's
    8 more frames stacked as 8 streams); every stream of the S = 8 launch
@@ -143,7 +153,9 @@ and the script exits non-zero without printing the final line:
    all-reduces captured in the graph), 24 frames in units of 3, graph
    and eager: poses, statuses and map sizes bit-equal to
    ``VOSystem`` on the card, 0 host syncs per chunk, per frame exactly A
-   1, P 1, T 4, PnP's phases 23 and ``collectives_per_frame`` all-reduces;
+   1, P 1, T 4, PnP's phases 23 and ``collectives_per_frame`` all-reduces
+   (eager; in the graph per frame type, NCCL kernels: 61 on BA frames, 45
+   on the others, ``_frame_types``);
    kernels A, P and T (map and staged at M / 2 and M / 4 rows) against
    their plain versions at the shard shapes, T's map site, the PnP solve
    and its phases (checked as in phase 7 on the reference's inputs cut to
@@ -188,8 +200,13 @@ the peak device memory, and, from one more graphed unit under
 kernel's start to its last one's end, the device kernels per frame and
 each hand-written kernel's launches as the card ran them. 8b and 8c run
 eagerly (gloo), 8d graphed, and each says so; path 7's StreamingVO runs
-16 frames graphed in its worker thread, its poses bit-equal to
-``VOSystem.track``'s.
+16 frames of path 7 kitti's config (local BA) graphed in its worker
+thread, its poses bit-equal to ``VOSystem.track``'s. Local BA is a CUDA
+IF node in every graph whose step is not vmapped (paths 2, 7 kitti, 8a;
+core/graphs.py), so on those paths a frame's kernels depend on its type:
+``_frame_types`` reads them per frame (NEED_PER_FRAME and one predicate
+kernel on every frame; BA's kernels, and on 8a its 4 + 2 per iteration
+all-reduces, on BA frames only).
 
 Every path launches the fused PnP solve once per frame; paths 8a-8c,
 whose points are sharded, launch its phases instead, 23 per frame (2
@@ -217,6 +234,7 @@ the step fire only in an eager step). Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import struct
@@ -225,6 +243,8 @@ import sys
 import time
 import warnings
 import zlib
+from collections import Counter
+from contextlib import nullcontext
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -239,8 +259,8 @@ CHUNK = 16          # path 7's chunks, path 8's reference chunks
 # path 8a's ranks as below)
 RUNS = {"path1": (16, 7), "path2": (6, 7), "path3": (8, 7), "path4": (8, 7),
         "path5": (8, 7), "path8a": (3, 8)}
-N_CPU_FRAMES = {"path1": 4, "path2": 5, "path4": 4, "path5": 4,
-                "path6": 4}
+N_CPU_FRAMES = {"path1": 4, "path2": 9, "path4": 4, "path5": 4,
+                "path6": 4, "sparse": 4}
 REPS = 200          # back-to-back launches per kernel timing
 PLAIN_REPS = 5      # ... per plain-version timing
 DEVICE = "cuda"
@@ -268,6 +288,13 @@ KERNELS = {
     "stream_sum": ("cuda", "lvt_tpu_torch/csrc/pnp.cu",
                    "lvt_tpu/solver/pnp.py:148"),
 }
+# lvt_tpu's one lax.cond (local BA on its schedule) as a CUDA IF node:
+# the predicate kernel and the node it sets, made in a captured graph by
+# core/graphs.py::cond; held against the select it replaces
+IF_NODE = ("cuda", "lvt_tpu_torch/csrc/graph_cond.cu",
+           "lvt_tpu/core/step.py:323 (jax.lax.cond: an XLA conditional, "
+           "not a TPU kernel)")
+IF_REPS = 20        # back-to-back replays per timing of measure_if_node
 # the TPU kernels' counterparts, held against their plain versions at
 # every path's shapes
 SITE_KERNELS = ("perception", "brief", "describe_refine", "hamming_top2")
@@ -352,6 +379,17 @@ NEED_PER_FRAME = {
 for _path, _need in NEED_PER_FRAME.items():
     _need.update({"pnp_phase": PNP_PHASES} if _path in SHARDED_PATHS
                  else {"pnp_solve": 1})
+# on the paths whose local BA is a CUDA IF node in their graph, per frame
+# type (a BA frame, any other): the kernel that sets the node's predicate
+# (csrc/graph_cond.cu) and the NCCL kernels (on one rank NCCL's
+# all-reduce launches none: every traced unit of 8a counts 0).
+# NEED_PER_FRAME's kernels are the same on both types; BA's own, the
+# node's body, run on BA frames only (_frame_types). 8b-8c run eagerly on
+# gloo, BA computed and selected: their wrappers and all-reduces count
+# alike on both types
+NEED_BY_FRAME_TYPE = {
+    path: {"ba": {"if_node": 1, "nccl": 0}, "other": {"if_node": 1, "nccl": 0}}
+    for path in ("path2", "path7-kitti", "path8a")}
 # kernel T's sites in one frame of each path
 T_SITES = {"path1": ("map", "staged", "row"),
            "path2": ("map", "staged", "row", "ba_row"),
@@ -532,7 +570,8 @@ def phase_device() -> dict:
                            "needs one CUDA device")
     name = torch.cuda.get_device_name(0)
     _say("device", f"{name}; torch {torch.__version__}, CUDA "
-                   f"{torch.version.cuda}")
+                   f"{torch.version.cuda}, driver "
+                   f"{_smi('driver_version')}")
     print(_smi("name,power.limit"), flush=True)
     card = dict(name=name, sms=torch.cuda.get_device_properties(0)
                 .multi_processor_count,
@@ -885,8 +924,6 @@ def _run_modes(path, make, drive, n_units, unit_frames):
     the graph's host seconds per timed unit until the call returned, its
     number of graphs and capture seconds per graph, and the peak device
     memory of the path."""
-    from contextlib import nullcontext
-
     from lvt_tpu_torch.core.graphs import disable_graphs
     from lvt_tpu_torch.ops.collectives import all_reduce
     from lvt_tpu_torch.parallel.dryrun import count_syncs, zero_kernel_counters
@@ -1121,13 +1158,17 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
     prof = _profiles(path, run, drive, profile_dir)
     if path == "path1":
         prof.update(_inside_the_graph(path, vo, drive, n_units - 1, chunk))
+    if window > 0:
+        prof["frame_types"] = _frame_types(
+            path, config, lambda: VOSystem(config, device=DEVICE), il, ir,
+            eager=True)
     from lvt_tpu_torch.tree import tree_map
 
     first = tree_map(lambda x: x[:N_CPU_FRAMES[path]], g["poses"])
     pnp_gaps = check_pnp_solve(path, capture_pnp_inputs(path, _first_frames(
         lambda: VOSystem(config, device=DEVICE), il, ir)))
     return dict(report, first_poses=first, profile=prof,
-                launches=prof["launches"],
+                launches=prof["launches"], if_node_launches=prof["if_node"],
                 kernel_errs={"pnp_solve": pnp_gaps["max_abs_err"]})
 
 
@@ -1374,14 +1415,12 @@ def few_inliers(args) -> tuple:
 def check_pnp_solve(path, inputs) -> dict:
     """The fused solve against its plain version on the card, on a path's
     captured inputs (``capture_pnp_inputs``) and on the same inputs with
-    few valid points (``few_inliers``), all S streams in one launch: per
-    stream the pose within 1e-4 m and 1e-4 rad, the inlier count equal and
-    chi2 within 1e-4 of the plain chi2 or, where that is below
-    reprojection_th2 (one point's cost at the threshold; a fit of a few
-    points has a chi2 near 0), of reprojection_th2 (every gap printed);
-    each stream bit-equal to its own S = 1 launch; and the sharded
-    solve's phases on one rank bit-equal to the fused kernel. Returns the
-    largest gaps."""
+    few valid points (``few_inliers``), all S streams in one launch: every
+    output (pose, inlier mask and count, chi2) bit-equal to the plain
+    version's, stream by stream (the gaps printed: pose in m, rotation in
+    rad, chi2 relative to max(plain chi2, reprojection_th2)); each stream
+    bit-equal to its own S = 1 launch; and the sharded solve's phases on
+    one rank bit-equal to the fused kernel. Returns the largest gaps."""
     from lvt_tpu_torch.solver import pnp
 
     cam = inputs["cam"]
@@ -1403,21 +1442,24 @@ def check_pnp_solve(path, inputs) -> dict:
                     for a, b in zip(pnp.pnp_solve_op(
                         *(x[i:i + 1] for x in args), *cam), got))
         same = all(torch.equal(a, b) for a, b in zip(phases, got))
+        plain = all(torch.equal(a, b) for a, b in zip(got, want))
         _say(path, f"pnp_solve S={s} x M={m} ({label}: valid points "
                    f"{(args[4] > 0).sum(-1).tolist()}) against the plain "
                    f"version on the card, per stream: pose gap {fmt(dt)} m, "
                    f"rotation {fmt(da)} rad, chi2 {fmt(rel)} of max(plain "
                    f"chi2 {fmt(want[4])}, {cam[4]:.4g}); inlier counts "
-                   f"{counts[0]} (plain {counts[1]}); every stream "
+                   f"{counts[0]} (plain {counts[1]}); "
+                   f"{'bit-equal' if plain else 'NOT equal'} to the plain "
+                   f"version; every stream "
                    f"{'bit-equal' if alone else 'NOT equal'} to its S=1 "
                    f"launch; the phases on one rank "
                    f"{'bit-equal' if same else 'NOT equal'} to the fused "
                    f"kernel")
-        if not (dt.max() < 1e-4 and da.max() < 1e-4 and rel.max() < 1e-4
-                and counts[0] == counts[1]):
+        if not plain:
             raise AssertionError(f"{path}: pnp_solve differs from its plain "
-                                 f"version ({label}) beyond 1e-4 m, 1e-4 "
-                                 f"rad, 1e-4 of chi2 or in its inlier counts")
+                                 f"version ({label}): pose {dt.max()} m, "
+                                 f"rotation {da.max()} rad, chi2 "
+                                 f"{rel.max()}, counts {counts}")
         if not alone:
             raise AssertionError(f"{path}: a stream of the S={s} pnp_solve "
                                  f"launch ({label}) differs from its S=1 "
@@ -2179,6 +2221,7 @@ def phase_cli(kitti, euroc, tum) -> dict:
     config_of = lambda n: os.path.join(cli.CONFIG_DIR, n,  # noqa: E731
                                        "vo_config.yaml")
     launches, kernel_errs, fps, configs = {}, {}, {}, {}
+    frame_types, if_launches = None, 0
     for name, tree in trees.items():
         path = f"path7-{name}"
         t_decode = 0.0
@@ -2251,6 +2294,16 @@ def phase_cli(kitti, euroc, tum) -> dict:
         _dump(name, ref, poses, seq)
         same = open(out, "rb").read() == open(ref, "rb").read()
         _every_frame_tracking(path, torch.cat(status))
+        if name == "kitti":
+            # one IF-node predicate per replay; the warm-up step selects
+            if run_launches["if_node"] != n:
+                raise AssertionError(f"{path}: {run_launches['if_node']} "
+                                     f"IF-node predicates in {n} replays")
+            frame_types = _frame_types(
+                path, config,
+                lambda: _cli_reference(name, tree, config_of)[2],
+                *(np.stack([f[k] for f in frames[:TRACED_FRAMES[1]]])
+                  for k in (0, 1)))
         est = (trajectory.load_kitti(out)[:, :, 3] if name == "kitti"
                else trajectory.load_tum(out)[1])
         if est.shape != (n, 3):
@@ -2283,6 +2336,7 @@ def phase_cli(kitti, euroc, tum) -> dict:
                    f"captured step) {calls}")
         for k in KERNELS:
             launches[k] = launches.get(k, 0) + run_launches[k]
+        if_launches += run_launches["if_node"]
         errs = _tree_kernels(name, config, frames, vo)
         errs["pnp_solve"] = check_pnp_solve(path, capture_pnp_inputs(
             path, _first_frames(lambda: _cli_reference(name, tree,
@@ -2305,7 +2359,8 @@ def phase_cli(kitti, euroc, tum) -> dict:
                                       "rb").read():
         raise AssertionError("path7-kitti: --record changed the trajectory")
     return dict(launches=launches, kernel_errs=kernel_errs, fps=fps,
-                decoder_build_s=built, root=root, configs=configs)
+                decoder_build_s=built, root=root, configs=configs,
+                frame_types=frame_types, if_node_launches=if_launches)
 
 
 STREAM_FRAMES = 16
@@ -2313,11 +2368,13 @@ STREAM_FRAMES = 16
 
 def phase_streaming(config, il, ir) -> dict:
     """Path 7's streaming shell: ``io.streaming.StreamingVO`` on the card
-    over STREAM_FRAMES frames of path 1 fed from this thread, tracked in
-    its worker thread (each frame a replay of the graph captured there):
-    the VO pose of every frame (``vo.last_pose``, read in the odometry
-    callback) bit-equal to ``VOSystem.track``'s on the same frames, no
-    frame dropped."""
+    with path 7 kitti's config (the shipped YAML: local BA, so its worker
+    thread captures the IF node too) over STREAM_FRAMES frames of path 1
+    fed from this thread, tracked in its worker thread (each frame a
+    replay of the graph captured there): the VO pose of every frame
+    (``vo.last_pose``, read in the odometry callback) bit-equal to
+    ``VOSystem.track``'s on the same frames, no frame dropped, BA on its
+    schedule in the reference."""
     from lvt_tpu_torch.core.system import VOSystem
     from lvt_tpu_torch.io.streaming import StreamingVO
 
@@ -2339,7 +2396,10 @@ def phase_streaming(config, il, ir) -> dict:
         stream.stop()
     seconds = time.perf_counter() - t0
     vo = VOSystem(config, device=DEVICE)
-    want = [vo.track(a, b) for a, b in frames]
+    want, ba = [], []
+    for a, b in frames:
+        want.append(vo.track(a, b))
+        ba.append(bool(vo.last_metrics.local_ba_ran))
     runners = list(stream.vo.runners.values())
     equal = (len(seen) == STREAM_FRAMES
              and [x[0] for x in seen] == list(range(1, STREAM_FRAMES + 1))
@@ -2356,6 +2416,11 @@ def phase_streaming(config, il, ir) -> dict:
     if not equal or [r.mode for r in runners] != ["graph"]:
         raise AssertionError("path7-streaming: StreamingVO's poses differ "
                              "from VOSystem.track's, or it ran eagerly")
+    if ba != _ba_frames(config, range(STREAM_FRAMES)) or not all(
+            r.if_nodes for r in runners):
+        raise AssertionError(f"path7-streaming: BA ran on frames "
+                             f"{[i for i, x in enumerate(ba) if x]}, or the "
+                             f"worker's graph holds no IF node")
     return dict(frames=len(seen), seconds=seconds)
 
 
@@ -2588,6 +2653,11 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
             report = _report_modes("path8a", run)
             _same_modes("path8a", run)
             prof = _profiles("path8a", run, drive, profile_dir)
+            # local BA's all-reduces (the gate's and the refinement's, 4 +
+            # 2 per iteration) run inside the IF node, on BA frames only
+            prof["frame_types"] = _frame_types(
+                "path8a", config,
+                lambda: ShardedStreamVO(config, device=DEVICE), a, b)
         finally:
             dist.destroy_process_group()
     g = run["graph"]
@@ -2621,6 +2691,7 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
         raise AssertionError(f"path8a: collective calls {coll}, not "
                              f"{need_coll} per frame and per captured step")
     runs["path8a"] = dict(report, profile=prof, launches=prof["launches"],
+                          if_node_launches=prof["if_node"],
                           collectives_per_frame=need_coll)
     marks.append(("reference and 8a", time.perf_counter()))
 
@@ -2894,7 +2965,8 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
     hand-written kernels, launched through ctypes, are listed on their
     own); tracing the host slows it. With ``out_dir`` and ``host``, the op
     table is written there."""
-    from lvt_tpu_torch.parallel.dryrun import (KERNEL_SYMBOLS, TRACE_MARKERS,
+    from lvt_tpu_torch.parallel.dryrun import (IF_NODE_SYMBOL,
+                                               KERNEL_SYMBOLS, TRACE_MARKERS,
                                                device_records, traced)
 
     _, prof = traced(run, host=host)
@@ -2928,6 +3000,7 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
     n_kernels = sum(not name.startswith(("Memcpy", "Memset"))
                     for name, _, _ in records)
     n_nccl = sum("nccl" in name.lower() for name, _, _ in records)
+    n_if = sum(IF_NODE_SYMBOL in name for name, _, _ in records)
     lines.append(f"device busy {busy:.2f} ms in {n} frames "
                  f"({busy / n:.3f} ms per frame, the sum of kernel and "
                  f"copy times) of a {span:.2f} ms span; {n_kernels / n:.1f} "
@@ -2943,7 +3016,7 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
         _say("profile", line)
     return dict(kernels, busy_ms_per_frame=busy / n,
                 span_ms_per_frame=span / n, kernels_per_frame=n_kernels / n,
-                nccl=n_nccl, markers=n_markers)
+                nccl=n_nccl, if_node=n_if, markers=n_markers)
 
 
 def _profiles(path, run, drive, profile_dir=None, frame="frame") -> dict:
@@ -2964,6 +3037,14 @@ def _profiles(path, run, drive, profile_dir=None, frame="frame") -> dict:
                f"frames, kernel trace): {got}; "
                f"{prof['kernels_per_frame']:.1f} device kernels per {frame}")
     _check_launches(path, got, n)
+    # one IF-node predicate per replay of a graph holding the node
+    nodes = sum(len(r._branches) for r in run["graph"]["system"]
+                .runners.values())
+    _say(path, f"IF-node predicates the card ran in the profiled graphed "
+               f"unit: {prof['if_node']} ({nodes} node(s) in the graph)")
+    if prof["if_node"] != n * nodes:
+        raise AssertionError(f"{path}: {prof['if_node']} IF-node predicates "
+                             f"in {n} replays of a graph with {nodes} nodes")
     prof["launches"] = got
     if profile_dir:
         _say(path, "profile of one eager unit (stage table):")
@@ -2973,6 +3054,287 @@ def _profiles(path, run, drive, profile_dir=None, frame="frame") -> dict:
         _say_busy(path, eager, frame)
         prof["eager"] = eager
     return prof
+
+
+def measure_if_node(card, config, il, ir) -> dict:
+    """The IF node (core/graphs.py::cond, csrc/graph_cond.cu) at path 2's
+    shapes: local BA's body on the inputs frame 1 of a new eager system
+    gave it, in two graphs of one step ``map = cond(pred, BA, map)``, one
+    with the IF node (the runner of a single-process step) and one with
+    the select it replaces (the same step as a vmapped runner captures
+    it: BA computed and selected, the plain version). Each is replayed
+    with the predicate set (a BA frame) and not (any other frame): the
+    node's result bit-equal to the select's both ways; each graph timed
+    as the mean of IF_REPS back-to-back replays, both ways. The bound is
+    a frame without BA's: the predicate read, the map copied."""
+    from lvt_tpu_torch.core import graphs, step
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.geometry.se3 import Pose
+
+    seen, real = [], step._refine_structure
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    step._refine_structure = record
+    try:
+        with graphs.disable_graphs():
+            VOSystem(config, device=DEVICE).track_chunk(il[:2], ir[:2])
+    finally:
+        step._refine_structure = real
+    args = seen[-1]
+    pos = args[1]
+
+    def step_fn(state, pred):
+        new = graphs.cond(pred, lambda: real(*args), state.t)
+        return state._replace(t=new), new, new
+
+    out, ms = {}, {}
+    for form, batched in (("node", False), ("select", True)):
+        state = Pose(pos.clone(), torch.zeros(4, device=DEVICE))
+        runner = graphs.StepGraph(
+            step_fn, state, [torch.zeros((), dtype=torch.bool,
+                                         device=DEVICE)], batched=batched)
+        for pred in (True, False):
+            state.t.copy_(pos)
+            got, _ = runner.replay(torch.tensor(pred, device=DEVICE))
+            out[form, pred] = got.clone()
+            runner.inputs[0].fill_(pred)
+            ms[form, pred] = device_ms(runner._graph.replay, IF_REPS)
+        if len(runner._branches) != (0 if batched else 1):
+            raise AssertionError(f"if_node: the {form} graph holds "
+                                 f"{len(runner._branches)} IF nodes")
+    err = max(_require_equal(f"if_node ({'BA' if p else 'other'} frame)",
+                             out["node", p], out["select", p])
+              for p in (True, False))
+    nbytes = 1 + 2 * pos.numel() * pos.element_size()
+    b_ms, b_by = bound(card, nbytes, {})
+    _say("if_node", f"local BA under cond at path 2's shapes (M = "
+                    f"{pos.shape[0]}): the IF node's graph bit-equal to the "
+                    f"select's, a BA frame and another; replay ms, node / "
+                    f"select: other frame {ms['node', False]:.4f} / "
+                    f"{ms['select', False]:.4f}, BA frame "
+                    f"{ms['node', True]:.4f} / {ms['select', True]:.4f} "
+                    f"(bound of the other frame {b_ms:.2e} ms, {b_by})")
+    return dict(max_abs_err=err, ms=ms["node", False],
+                plain_ms=ms["select", False], ms_ba_frame=ms["node", True],
+                plain_ms_ba_frame=ms["select", True], bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def _ba_frames(config, frames) -> list:
+    """Whether local BA runs at each frame number of ``frames`` in a
+    system that tracked every frame from 0: once the window is full, every
+    ``local_ba_every`` frames (frame 0 initializes and fills no window)."""
+    w, every = config.local_ba_window, config.local_ba_every
+    return [w > 0 and f >= w and f % every == 0 for f in frames]
+
+
+def _body_kernels(runner) -> int:
+    """The nodes of the body of the IF node in ``runner``'s graph
+    (core/graphs.py::cond: the branch captured as a graph of its own) that
+    a kernel trace lists as kernels: its kernels, and its copies and
+    fills, which a graph's body runs as kernels of CUDA's own
+    (``memcpy32_post``)."""
+    from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.core.graphs import _NODE_TYPES
+
+    (branch,) = runner._branches
+    counts = (ctypes.c_int * len(_NODE_TYPES))()
+    kernels.check(kernels.lib().lvt_graph_node_counts(
+        branch.raw_cuda_graph(), counts, len(_NODE_TYPES)), "node counts")
+    return sum(counts[_NODE_TYPES.index(t)]
+               for t in ("kernel", "memcpy", "memset"))
+
+
+# a kernel trace can miss the last records of an IF node's body the first
+# time a trace sees the node run: 1-10 of 3233-3276 kernels (the body's
+# closing select and copy), the first BA frame of a trace in a process that
+# traced before (measured on the H100); later BA frames of the trace are
+# whole
+TRACED_FRAMES = (5, 17)     # frames traced one at a time: BA at 8, 12, 16
+
+
+def _frame_types(path, config, make, a, b, eager=False) -> dict:
+    """What the card ran per frame type, on a path whose local BA is a CUDA
+    IF node in its graph: a new system ``make()`` tracks frames 0-4 of
+    ``a`` and ``b`` (its graph is captured at frame 0, the node's body
+    first runs at frame 4), then frames 5-16 one ``track_chunk`` each in
+    one kernel trace (``dryrun.frame_launches``). Every frame launches
+    NEED_PER_FRAME and NEED_BY_FRAME_TYPE by its type; every other frame
+    runs the same kernels, and so do the BA frames 12 and 16: an other
+    frame's, and as many more as the node's body holds
+    (``_body_kernels``), so no other frame runs any of BA's. Frame 8, the
+    trace's first BA frame, runs a part of those (TRACED_FRAMES); its
+    shortfall is printed. With ``eager``, the same frames of a system
+    under ``disable_graphs()`` beside it: no predicate, the same kernels
+    on every frame (BA computed and selected)."""
+    from lvt_tpu_torch.core.graphs import disable_graphs
+    from lvt_tpu_torch.parallel.dryrun import frame_launches
+
+    lo, hi = TRACED_FRAMES
+    is_ba = _ba_frames(config, range(lo, hi))
+    if is_ba.count(True) != 3:
+        raise AssertionError(f"{path}: frames {lo}-{hi - 1} hold "
+                             f"{is_ba.count(True)} BA frames, not 3")
+    out = {}
+    for mode in ("graph", "eager") if eager else ("graph",):
+        with disable_graphs() if mode == "eager" else nullcontext():
+            vo = make()
+            vo.track_chunk(a[:lo], b[:lo])
+            (runner,) = vo.runners.values()
+            ran = runner.mode
+            _, frames = frame_launches(
+                lambda i: vo.track_chunk(a[lo + i:lo + i + 1],
+                                         b[lo + i:lo + i + 1]), hi - lo)
+        if ran != mode or not runner.if_nodes:
+            raise AssertionError(f"{path}: the {mode} runner has mode {ran}, "
+                                 f"if_nodes {runner.if_nodes}")
+        for f, ba in zip(frames, is_ba):
+            _check_launches(path, f, 1)
+            need = ({"if_node": 0, "nccl": 0} if mode == "eager" else
+                    NEED_BY_FRAME_TYPE[path]["ba" if ba else "other"])
+            got = {k: f[k] for k in need}
+            if got != need:
+                raise AssertionError(f"{path}: a {'BA' if ba else 'other'} "
+                                     f"frame ({mode}) ran {got}, not {need}")
+        names = [Counter(n for n in f["names"]
+                         if not n.startswith(("Memcpy", "Memset")))
+                 for f in frames]
+        kinds = {t: [k for k, ba in zip(names, is_ba) if ba == (t == "ba")]
+                 for t in ("ba", "other")}
+        nccl = {t: sorted({f["nccl"] for f, ba in zip(frames, is_ba)
+                           if ba == (t == "ba")}) for t in ("ba", "other")}
+        counts = {t: [sum(k.values()) for k in ks] for t, ks in kinds.items()}
+        _say(path, f"{mode}, frames {lo}-{hi - 1} one at a time (kernel "
+                   f"trace): device kernels per BA frame {counts['ba']}, per "
+                   f"other frame {counts['other']}; NCCL kernels per BA "
+                   f"frame {nccl['ba']}, per other frame {nccl['other']}; "
+                   f"IF-node predicates per frame "
+                   f"{1 if mode == 'graph' else 0}; every frame "
+                   f"{NEED_PER_FRAME[path]}")
+        first_ba, *whole = kinds["ba"]
+        for t, ks in (("BA", whole), ("other", kinds["other"])):
+            for k in ks[1:]:
+                if k != ks[0]:
+                    raise AssertionError(
+                        f"{path}: {t} frames ran other kernels ({mode}): "
+                        f"{dict(k - ks[0])} more, {dict(ks[0] - k)} fewer")
+        ba, other = whole[0], kinds["other"][0]
+        if first_ba - ba:
+            raise AssertionError(f"{path}: the trace's first BA frame ran "
+                                 f"kernels the others did not: "
+                                 f"{dict(first_ba - ba)}")
+        short = sum((ba - first_ba).values())
+        if mode == "eager":
+            if ba != other or short:
+                raise AssertionError(f"{path}: the eager step runs other "
+                                     f"kernels on BA frames")
+            continue
+        body = _body_kernels(runner)
+        extra = ba - other
+        _say(path, f"graph: a BA frame runs {sum(extra.values())} kernels "
+                   f"more than another frame; the IF node's body holds "
+                   f"{body} kernel, copy and fill nodes; the trace's first "
+                   f"BA frame lists {short} fewer: {dict(ba - first_ba)}")
+        if other - ba or sum(extra.values()) != body:
+            raise AssertionError(
+                f"{path}: a BA frame's kernels are not another frame's and "
+                f"the node's body's: {dict(other - ba)} only on the other "
+                f"frame, {sum(extra.values())} more on the BA frame, the "
+                f"body {body}")
+        out = dict(kernels_ba=sum(ba.values()),
+                   kernels_other=sum(other.values()), body=body,
+                   nccl_ba=nccl["ba"][0], nccl_other=nccl["other"][0],
+                   first_ba_short=short)
+    return out
+
+
+def phase_sparse(config, il, ir) -> dict:
+    """The sparse descriptor mode (path 1's config with
+    ``descriptor_mode="sparse"``: kernel A, then the per-cell selection and
+    BRIEF at each corner from A's box sums, in torch ops, as lvt_tpu runs
+    it in XLA ops), card against CPU: frame 0's features of the pair
+    bit-equal in every slot, and the poses of frames 0-3 through
+    ``VOSystem`` (graphed on the card) within 1e-3 m."""
+    from lvt_tpu_torch.core.extract import extract_features_batched
+    from lvt_tpu_torch.core.system import VOSystem
+
+    config = config.replace(descriptor_mode="sparse")
+    imgs = torch.stack([il[0], ir[0]])
+    got = extract_features_batched(imgs, config)
+    want = extract_features_batched(imgs.cpu(), config)
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    n = N_CPU_FRAMES["sparse"]
+    vo = VOSystem(config, device=DEVICE)
+    pg, _ = vo.track_chunk(il[:n], ir[:n])
+    pc, _ = VOSystem(config, device="cpu").track_chunk(il[:n].cpu(),
+                                                       ir[:n].cpu())
+    dt = float((pg.t.cpu() - pc.t).abs().max())
+    modes = [r.mode for r in vo.runners.values()]
+    _say("sparse", f"descriptor mode sparse, card ({modes}) vs CPU: frame "
+                   f"0's features {'bit-equal' if same else 'NOT equal'} "
+                   f"in all {want.valid.numel()} slots "
+                   f"({int(want.valid.sum())} valid); poses of frames "
+                   f"0-{n - 1} differ by at most {dt:.3g} m")
+    if not same:
+        raise AssertionError("sparse: frame 0's features differ card vs CPU")
+    if not dt < 1e-3:
+        raise AssertionError(f"sparse: CPU vs card pose difference {dt} m "
+                             f">= 1e-3 m")
+    return dict(pose_gap_m=dt)
+
+
+# multi-stream with local BA (ROADMAP Queue 3's check): S streams of path
+# 2's config, stream i from frame MS_START_STEP * i, over MSBA_FRAMES
+# frames (BA at frames 4 and 8)
+MSBA_FRAMES = 9
+
+
+def phase_multistream_ba(config, il, ir) -> dict:
+    """Many streams with local BA on the card: ``MultiStreamVO(config,
+    MS_STREAMS)`` with path 2's config (its step vmapped, so BA is computed
+    and selected on every frame, in the graph too), MSBA_FRAMES frames in
+    one chunk, against the card's ``VOSystem`` (whose BA is an IF node) on
+    streams 0 and 1's frames: poses and the map's positions bit-equal, BA
+    on the same frames (a pose gap is printed; under 1e-5 m tolerated, as
+    path 3's, 1e-5 m fails)."""
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
+    s, n = MS_STREAMS, MSBA_FRAMES
+    starts = [MS_START_STEP * i for i in range(s)]
+    a = torch.stack([il[k:k + n] for k in starts], 1)
+    b = torch.stack([ir[k:k + n] for k in starts], 1)
+    msvo = MultiStreamVO(config, s, device=DEVICE)
+    poses, metrics = msvo.track_chunk(a, b)
+    gaps, equal = [], []
+    for i in (0, 1):
+        vo = VOSystem(config, device=DEVICE)
+        p, m = vo.track_chunk(a[:, i], b[:, i])
+        gaps.append(float((p.t - poses.t[:, i]).abs().max()))
+        equal.append(torch.equal(p.t, poses.t[:, i])
+                     and torch.equal(p.q, poses.q[:, i])
+                     and torch.equal(vo.state.map.pos,
+                                     msvo.states.map.pos[i])
+                     and torch.equal(m.local_ba_ran,
+                                     metrics.local_ba_ran[:, i]))
+    ran = metrics.local_ba_ran.sum(0).tolist()
+    modes = [r.mode for r in msvo.runners.values()]
+    _say("multistream-ba", f"{s} streams x {n} frames of path 2's config "
+                           f"({modes}; BA ran on {ran} frames per stream): "
+                           f"streams 0 and 1 against the card's VOSystem: "
+                           f"poses, map positions and BA runs "
+                           f"{'EQUAL' if all(equal) else 'differ'} "
+                           f"({equal}); largest pose gaps {gaps} m")
+    if ran != [sum(_ba_frames(config, range(n)))] * s:
+        raise AssertionError(f"multistream-ba: BA ran on {ran} frames, not "
+                             f"the schedule's")
+    if not max(gaps) < 1e-5:
+        raise AssertionError(f"multistream-ba: multi-stream vs single-stream "
+                             f"gaps {gaps} m, not under 1e-5 m")
+    return dict(equal=all(equal), gaps=gaps)
 
 
 def phase_cpu(path, config, il, ir, first_poses):
@@ -3030,6 +3392,10 @@ def main(argv=None) -> int:
         runs[path] = phase_path(path, config, il[:k], ir[:k], gt,
                                 args.profile)
         phase_cpu(path, config, il, ir, runs[path]["first_poses"])
+        if path == "path1":
+            sparse = phase_sparse(config, il, ir)
+    ms_ba = phase_multistream_ba(configs["path2"], il, ir)
+    report["if_node"] = measure_if_node(card, configs["path2"], il, ir)
     runs["path3"] = phase_multistream(configs["path1"], il, ir, rot, gt,
                                       args.profile)
     phase_multistream_cpu(configs["path1"], runs["path3"]["first_poses"],
@@ -3068,8 +3434,8 @@ def main(argv=None) -> int:
         (il[:k].cpu().numpy(), ir[:k].cpu().numpy(), gt[:k]),
         (euroc[2][:k].numpy(), euroc[3][:k].numpy(), euroc[4][:k]),
         tum_setup())
-    runs["path7"]["streaming"] = phase_streaming(configs["path1"], il, ir)
     config8 = sharded_config()
+    runs["path7"]["streaming"] = phase_streaming(config8, il, ir)
     if config8 != runs["path7"]["configs"]["kitti"]:
         raise AssertionError("path8: the config is not path 7 kitti's")
     path8 = phase_sharded(card, config8, configs["path1"], il, ir, gt,
@@ -3106,6 +3472,12 @@ def main(argv=None) -> int:
             p: (r.get("profile") or {}).get(k, {}).get("device_ms")
             for p, r in runs.items()}
         entries.append(entry)
+    if_launches = {p: r.get("if_node_launches", 0) for p, r in runs.items()}
+    entries.append(dict(
+        name="if_node", route=IF_NODE[0], source=IF_NODE[1],
+        replaces=IF_NODE[2], tpu_kernel=False,
+        launches=sum(if_launches.values()), launches_by_path=if_launches,
+        reps=IF_REPS, plain_reps=IF_REPS, **report["if_node"]))
     phase_c_abi(runs["path7"].pop("root"),
                 runs["path7"].pop("configs")["kitti"],
                 il[:C_ABI_FRAMES].cpu().numpy(),
@@ -3136,6 +3508,19 @@ def main(argv=None) -> int:
                     "process: " + ", ".join(
                         f"{name} {a:.2f} / {b:.2f}" for name, (a, b)
                         in runs["path7"]["fps"].items()))
+    types = {"path2": runs["path2"]["profile"]["frame_types"],
+             "path7-kitti": runs["path7"]["frame_types"],
+             "path8a": runs["path8a"]["profile"]["frame_types"]}
+    _say("summary", "local BA as an IF node, device kernels per BA frame / "
+                    "other frame (NCCL kernels): " + ", ".join(
+                        f"{p} {t['kernels_ba']} / {t['kernels_other']} "
+                        f"({t['nccl_ba']} / {t['nccl_other']})"
+                        for p, t in types.items()))
+    _say("summary", f"sparse descriptor mode card vs CPU: poses within "
+                    f"{sparse['pose_gap_m']:.3g} m; {MS_STREAMS} streams "
+                    f"with local BA {'equal' if ms_ba['equal'] else 'NOT '
+                    'equal'} to the single stream (largest gap "
+                    f"{max(ms_ba['gaps'])} m)")
     _say("summary", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

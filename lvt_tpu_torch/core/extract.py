@@ -1,11 +1,14 @@
-"""Feature extraction in two descriptor modes, bit-identical at valid
+"""Feature extraction in three descriptor modes, bit-identical at valid
 keypoints:
 
 * patch (the default): kernel A -> per-cell corner selection -> kernel P
   (BRIEF and subpixel refinement of each slot, read from A's maps);
 * dense: kernel A -> kernel B (BRIEF bit planes of every pixel) ->
   per-cell selection with subpixel refinement on the raw map -> one
-  descriptor gather from the planes.
+  descriptor gather from the planes;
+* sparse: kernel A -> the same selection -> BRIEF at each selected corner
+  from A's box sums (one gather of its 64 pool samples), in torch ops, as
+  lvt_tpu runs this mode in XLA ops.
 
 Port of lvt_tpu/core/extract.py (``_descriptor_mode``,
 ``perception_batched``, ``_select_and_describe``, ``_extract_patch_mode``,
@@ -80,30 +83,33 @@ def _extract_patch_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
 
 
 def _descriptor_mode(config: VOConfig) -> str:
-    """Resolve config.descriptor_mode as lvt_tpu does, except that an unset
-    mode is "patch" on every device (lvt_tpu picks "dense" off the TPU:
-    both give the same features). The sparse mode is not ported."""
+    """Resolve config.descriptor_mode as lvt_tpu does (an explicit mode,
+    else "sparse" when use_dense_brief is off), except that an unset mode
+    is "patch" on every device (lvt_tpu picks "dense" off the TPU: both
+    give the same features)."""
     mode = config.descriptor_mode
     if mode is None:
         mode = "patch" if config.use_dense_brief else "sparse"
-    if mode == "sparse":
-        raise NotImplementedError(
-            "the sparse descriptor mode (descriptor_mode='sparse' or "
-            "use_dense_brief=False) is not ported (ROADMAP Queue 1 item 13)")
-    if mode not in ("patch", "dense"):
+    if mode not in ("patch", "dense", "sparse"):
         raise ValueError(f"unknown descriptor_mode {mode!r}")
     return mode
 
 
-def _extract_dense_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
-    """Kernel A, kernel B, then per-cell selection and one descriptor
-    gather from the planes. Descriptors sample at the integer corner; the
-    subpixel position is the observation only."""
+def _extract_per_cell(imgs: torch.Tensor, config: VOConfig,
+                      mode: str) -> FrameFeatures:
+    """The dense and sparse modes: kernel A (dense: then kernel B), per-cell
+    selection with subpixel refinement on the raw map, then each corner's
+    descriptor from B's planes (dense) or from A's box sums (sparse).
+    Descriptors sample at the integer corner; the subpixel position is the
+    observation only."""
     spread_ties = _spread_ties(imgs)
     if imgs.dtype != torch.uint8:
         imgs = imgs.float()
     with stage("perception"):
-        raw, nms, planes = perception_maps_batched(imgs)
+        if mode == "dense":
+            raw, nms, aux = perception_maps_batched(imgs)
+        else:
+            nms, raw, aux = perception_patch_maps_batched(imgs)
     with stage("corner_select_describe"):
         det = detect.select_corners(
             nms, config.agast_threshold,
@@ -112,8 +118,9 @@ def _extract_dense_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
             corners_low_threshold=config.corners_low_threshold,
             spread_ties=spread_ties, score_raw=raw,
         )
-        desc, valid = brief.descriptors_from_planes(
-            planes, det.kp_int.float(), det.valid)
+        describe = (brief.descriptors_from_planes if mode == "dense"
+                    else brief.descriptors_sparse)
+        desc, valid = describe(aux, det.kp_int.float(), det.valid)
         cap = config.kp_capacity
 
         def pad(a):
@@ -129,9 +136,10 @@ def _extract_dense_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
 
 def extract_features_batched(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
     """[B, H, W] images -> batched FrameFeatures [B, kp_capacity]."""
-    if _descriptor_mode(config) == "dense":
-        return _extract_dense_mode(imgs, config)
-    return _extract_patch_mode(imgs, config)
+    mode = _descriptor_mode(config)
+    if mode == "patch":
+        return _extract_patch_mode(imgs, config)
+    return _extract_per_cell(imgs, config, mode)
 
 
 def extract_features_stereo(img_left: torch.Tensor, img_right: torch.Tensor,

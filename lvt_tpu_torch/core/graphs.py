@@ -24,8 +24,11 @@ host sync, and every hand-written kernel launches on the current stream and
 allocates nothing (kernels.py). Lazy set-up must not happen during
 capture, so a warm-up call runs first, on a side stream and a deep clone
 of the state (it never advances the real state): it builds the kernels,
-makes the cached uploads of ops/brief.py, creates cuSOLVER's handle and
-NCCL's communicator. Capture uses ``capture_error_mode="thread_local"``:
+makes the cached uploads of ops/brief.py, creates cuBLAS's and cuSOLVER's
+handles and workspaces and NCCL's communicator. The warm-up takes every
+branch: :func:`cond` computes both sides outside a capture, so local BA
+(core/step.py::_local_ba_update) runs in it whether or not its frame is
+one of BA's. Capture uses ``capture_error_mode="thread_local"``:
 io/streaming.py tracks in a worker thread while the feeding thread uploads
 through pinned memory. Captures in one process take turns (one lock), and
 no graph is destroyed while one runs: a runner dropped meanwhile, on any
@@ -45,6 +48,17 @@ copied back) when the runner's :attr:`StepGraph.mode` is ``"eager"``:
 The mode is decided before any capture, and a capture that fails raises:
 nothing turns it into an eager run.
 
+lvt_tpu's one ``lax.cond`` (local BA on its schedule) is :func:`cond`.
+Where the runner's :attr:`StepGraph.if_nodes` holds (:func:`if_nodes`: a
+captured step that is not vmapped), the capture puts its true branch in
+a CUDA IF node on the device predicate (CUDA 12.4 or later; the node is
+made by ``csrc/graph_cond.cu``, since PyTorch 2.11 has no API for it), so
+a replay runs the branch only on the frames whose predicate is set, and
+reads the predicate on the device, with no host sync. Everywhere else,
+the eager step, the warm-up and a vmapped step (whose predicate is
+batched: JAX too lowers ``cond`` to a select under ``vmap``), both sides
+are computed and selected.
+
 Launch counts: the kernel wrappers count their launches (``launches``,
 and the collective's ``calls``) where Python calls them. In graph mode
 that is the warm-up step and the captured one; a replay calls no Python,
@@ -55,6 +69,7 @@ trace (``parallel/dryrun.py::device_launches``).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import threading
 import time
@@ -103,6 +118,84 @@ def capturable(device, group=None) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
+def if_nodes(device, group=None, *, batched: bool = False) -> bool:
+    """Whether the runner of a step on ``device`` whose collectives run on
+    ``group`` captures :func:`cond` as a CUDA IF node: where the step is
+    captured (:func:`capturable`) and not vmapped over streams
+    (``batched``: its predicates are batched)."""
+    return capturable(device, group) and not batched
+
+
+# the runner whose warm-up or capture runs on this thread, if it takes
+# cond() as an IF node (set only inside StepGraph._capture)
+_cond = threading.local()
+
+
+def cond(pred: torch.Tensor, run, otherwise: torch.Tensor) -> torch.Tensor:
+    """lvt_tpu's ``lax.cond(pred, run, lambda: otherwise)`` for a tensor
+    result: ``run()`` where the device scalar ``pred`` (bool) is set, else
+    ``otherwise``, of ``run()``'s shape and dtype.
+
+    Inside the capture of a runner whose :attr:`StepGraph.if_nodes` holds,
+    the result is a buffer allocated before the node as a copy of
+    ``otherwise``. ``run()``, followed by the copy of its result into that
+    buffer, is captured as a graph of its own (a ``torch.cuda.CUDAGraph``
+    in a memory pool of its own, on the runner's branch stream, never
+    instantiated; the runner keeps it), and ``csrc/graph_cond.cu`` appends
+    to the step's graph a kernel that sets the node's predicate from
+    ``pred`` and a CUDA IF node whose body is that graph. So the graph
+    after the node reads one fixed address whichever way the node went,
+    and the bits are those of the select. The body may hold kernels,
+    copies and fills only: no stream-ordered allocation (a library that
+    makes one there, as cuSOLVER's one-system solve does, gets the node
+    refused). In that runner's warm-up, ``run()`` runs on the branch
+    stream and is selected, so the libraries' set-up for that stream
+    (cuBLAS's workspace) is made there, outside the capture. Elsewhere
+    ``run()`` is computed and selected (``torch.where``)."""
+    runner = getattr(_cond, "runner", None)
+    if runner is None:
+        return torch.where(pred, run(), otherwise)
+    step_stream = torch.cuda.current_stream()
+    branch_stream = runner._branch_stream
+    if not _cond.capturing:
+        branch_stream.wait_stream(step_stream)
+        with torch.cuda.stream(branch_stream):
+            taken = run()
+        step_stream.wait_stream(branch_stream)
+        taken.record_stream(step_stream)
+        return torch.where(pred, taken, otherwise)
+    from lvt_tpu_torch import kernels
+
+    out = otherwise.clone()
+    branch = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(branch_stream):
+        branch.capture_begin(capture_error_mode="thread_local")
+        try:
+            out.copy_(run())
+        finally:
+            branch.capture_end()
+    runner._branches.append(branch)
+    stage = ctypes.c_int(0)
+    err = kernels.lib().lvt_if_node(step_stream.cuda_stream, pred.data_ptr(),
+                                    branch.raw_cuda_graph(),
+                                    ctypes.byref(stage))
+    if err:
+        counts = (ctypes.c_int * len(_NODE_TYPES))()
+        kernels.lib().lvt_graph_node_counts(branch.raw_cuda_graph(), counts,
+                                            len(_NODE_TYPES))
+        held = {t: c for t, c in zip(_NODE_TYPES, counts) if c}
+        kernels.check(err, f"if_node (step {stage.value}; the branch holds "
+                           f"{held})")
+    return out
+
+
+# cudaGraphNodeType's names, in its order
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+               "wait_event", "event_record", "semaphore_signal",
+               "semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op",
+               "conditional")
+
+
 def _leaves(tree) -> list:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
@@ -129,13 +222,16 @@ class StepGraph:
     frame's per-frame inputs (a frame pair, a depth image, corner arrays);
     each gets a static buffer of its shape and dtype. Fixed inputs (the
     rectification maps) are held by ``step_fn`` as they are. ``group``:
-    the process group of the step's collectives, if any."""
+    the process group of the step's collectives, if any. ``batched``: the
+    step is vmapped over streams (:func:`if_nodes`)."""
 
-    def __init__(self, step_fn, state, example_inputs, *, group=None):
+    def __init__(self, step_fn, state, example_inputs, *, group=None,
+                 batched: bool = False):
         self.step_fn = step_fn
         self.state = state
         self.device = _leaves(state)[0].device
         self.capturable = capturable(self.device, group)
+        self.if_nodes = if_nodes(self.device, group, batched=batched)
         self.inputs = tuple(torch.empty_like(x, memory_format=torch
                                              .contiguous_format)
                             for x in example_inputs)
@@ -143,6 +239,8 @@ class StepGraph:
         self.replays = 0
         self._graph = None
         self._out = None
+        self._branches: list = []   # the IF nodes' bodies (cond)
+        self._branch_stream = None
 
     @property
     def mode(self) -> str:
@@ -161,11 +259,17 @@ class StepGraph:
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
+        if self.if_nodes:
+            self._branch_stream = torch.cuda.Stream(self.device)
+            _cond.runner, _cond.capturing = self, False
         side.wait_stream(current)
-        with torch.cuda.stream(side):
-            scratch = tree_map(torch.clone, self.state)
-            self.step_fn(scratch, *self.inputs)
-            del scratch
+        try:
+            with torch.cuda.stream(side):
+                scratch = tree_map(torch.clone, self.state)
+                self.step_fn(scratch, *self.inputs)
+                del scratch
+        finally:
+            _cond.runner = None
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with _capture_lock:
@@ -179,9 +283,12 @@ class StepGraph:
             try:
                 with torch.cuda.stream(side):
                     graph.capture_begin(capture_error_mode="thread_local")
+                    if self.if_nodes:
+                        _cond.runner, _cond.capturing = self, True
                     try:
                         out = self._step()
                     finally:
+                        _cond.runner = None
                         graph.capture_end()
             finally:
                 if gc_was_on:
@@ -201,7 +308,9 @@ class StepGraph:
         with _dropped_lock:
             if _capturing and getattr(self, "_graph", None) is not None:
                 _dropped.append(self._graph)
+                _dropped.extend(self._branches)
             self._graph = None
+            self._branches = []
 
     def replay(self, *frame):
         """One frame: its inputs copied into the static buffers, then the
@@ -238,7 +347,7 @@ class StepGraph:
 
 
 def runner(runners: dict, kind: str, make_step, state, xs, *,
-           group=None) -> StepGraph:
+           group=None, batched: bool = False) -> StepGraph:
     """The runner in ``runners`` (a system's) of entry point ``kind`` for
     frames shaped as the leading-axis slices of ``xs`` (their dtypes and
     shapes), made on first use with the step function ``make_step()``
@@ -246,5 +355,5 @@ def runner(runners: dict, kind: str, make_step, state, xs, *,
     key = (kind, *((x.dtype, tuple(x.shape[1:])) for x in xs))
     if key not in runners:
         runners[key] = StepGraph(make_step(), state, [x[0] for x in xs],
-                                 group=group)
+                                 group=group, batched=batched)
     return runners[key]

@@ -7,9 +7,11 @@ init frame is a tracking frame over an empty map at a forced-identity pose
 with triangulation forced on, and the lost frame is an output select. Every
 retry and policy branch is computed and then selected with
 ``torch.where``, so the step has fixed shapes and no data-dependent Python
-branch or host sync — the form a CUDA graph can capture. That includes
-local BA: lvt_tpu's ``lax.cond`` on the BA schedule becomes BA computed on
-every frame and selected, as JAX's vmapped path lowers it. lvt_tpu's
+branch or host sync — the form a CUDA graph can capture. lvt_tpu's one
+``lax.cond``, local BA on its schedule, is ``graphs.cond``: in a captured
+step a CUDA IF node on the device predicate, so BA runs only on its
+frames; in the eager step and under vmap BA is computed on every frame
+and selected, as JAX's vmapped path lowers it. lvt_tpu's
 ``jax.jit`` of the step and ``lax.scan`` over a chunk are one CUDA graph of
 the step, captured once and replayed per frame on the state's static
 buffers (core/graphs.py); ``graphs.disable_graphs()`` runs it eagerly.
@@ -206,8 +208,11 @@ def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
     """Slide the observation window by this frame and, every
     ``local_ba_every`` frames once it is full, refine the map structure.
     Returns (window', the window's newest pose, map positions, whether BA
-    ran). BA is computed on every frame and selected (no host sync); the
-    trajectory stays the PnP output."""
+    ran). BA is lvt_tpu's ``lax.cond`` on the schedule, ``graphs.cond``: a
+    CUDA IF node on the device predicate in a captured single-process or
+    NCCL step, computed and selected elsewhere (no host sync either way);
+    the window slides outside it, on every frame. The trajectory stays
+    the PnP output."""
     alive = (map_store.valid & ~slots_invalidated)[None, :].float()
 
     def slide(old, new):
@@ -222,10 +227,9 @@ def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
     )
     do_ba = ((window.n >= config.local_ba_window)
              & (frame_number % config.local_ba_every == 0))
-    refined = _refine_structure(
+    map_pos = graphs.cond(do_ba, lambda: _refine_structure(
         Pose(window.poses_t, window.poses_q), map_store.pos, window.obs,
-        window.w, window.obs_r, window.w_r, config, group)
-    map_pos = torch.where(do_ba, refined, map_store.pos)
+        window.w, window.obs_r, window.w_r, config, group), map_store.pos)
     return (window, Pose(window.poses_t[-1], window.poses_q[-1]), map_pos,
             do_ba)
 
@@ -417,14 +421,15 @@ def track_step_stereo(state: VOState, img_left: torch.Tensor,
 
 
 def _scan(make_step, state: VOState, xs, runners: dict, kind: str, *,
-          group=None):
+          group=None, batched: bool = False):
     """The step over the frames of ``xs`` (their leading axis) in order,
     lvt_tpu's ``lax.scan`` over a chunk: the runner of entry point ``kind``
     in ``runners`` (the caller's cache, core/graphs.py; made on first use
-    from ``make_step()``) replays one graph of the step per frame, writing
+    from ``make_step()``; ``batched``: the step vmaps ``track_features``
+    over streams) replays one graph of the step per frame, writing
     ``state``'s leaves in place. Returns (state, poses [N], metrics [N])."""
     poses, metrics = graphs.runner(runners, kind, make_step, state, xs,
-                                   group=group).run(*xs)
+                                   group=group, batched=batched).run(*xs)
     return state, poses, metrics
 
 

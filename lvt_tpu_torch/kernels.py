@@ -48,6 +48,8 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P],
     "lvt_pnp_phase": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                       _F, _P, _P, _P, _P, _P],
+    "lvt_if_node": [_P, _P, _P, _P],
+    "lvt_graph_node_counts": [_P, _P, _I],
 }
 
 _lib: ctypes.CDLL | None = None

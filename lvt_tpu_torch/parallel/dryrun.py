@@ -253,20 +253,69 @@ def device_records(prof) -> list:
             and not getattr(e, "is_user_annotation", lambda: False)()]
 
 
+# the kernel that sets a CUDA IF node's predicate before the node
+# (csrc/graph_cond.cu, core/graphs.py::cond), one per node and replay
+IF_NODE_SYMBOL = "set_if_kernel"
+
+
+def _count(names) -> dict:
+    """Each hand-written kernel's launches in ``names`` (a trace's record
+    names), the NCCL kernels (``nccl``), the IF nodes' predicate kernels
+    (``if_node``), the markers (``markers``) and every kernel but copies,
+    fills and markers (``kernels``)."""
+    counts = dict.fromkeys([*KERNEL_SYMBOLS, "nccl", "if_node", "markers",
+                            "kernels"], 0)
+    for name in names:
+        for kernel, sym in KERNEL_SYMBOLS.items():
+            counts[kernel] += sym in name
+        counts["nccl"] += "nccl" in name.lower()
+        counts["if_node"] += IF_NODE_SYMBOL in name
+        counts["markers"] += "spin_kernel" in name
+        counts["kernels"] += not name.startswith(
+            ("Memcpy", "Memset")) and "spin_kernel" not in name
+    return counts
+
+
 def device_launches(fn):
     """``fn()``'s result and what the card ran during it, from a kernel
     trace (``traced``): each hand-written kernel's launches by name, a
     CUDA graph's replays included (no wrapper call counts those); under
-    ``nccl`` the NCCL kernels, under ``markers`` the trace's markers that
-    it kept (of TRACE_MARKERS)."""
+    ``nccl`` the NCCL kernels, under ``if_node`` the kernels that set a
+    CUDA IF node's predicate, under ``markers`` the trace's markers that
+    it kept (of TRACE_MARKERS), under ``kernels`` all kernels."""
     out, prof = traced(fn)
-    counts = dict.fromkeys([*KERNEL_SYMBOLS, "nccl", "markers"], 0)
-    for name, _, _ in device_records(prof):
-        for kernel, sym in KERNEL_SYMBOLS.items():
-            counts[kernel] += sym in name
-        counts["nccl"] += "nccl" in name.lower()
-        counts["markers"] += "spin_kernel" in name
-    return out, counts
+    return out, _count(name for name, _, _ in device_records(prof))
+
+
+def frame_launches(track, n: int):
+    """``[track(i) for i in range(n)]`` and what the card ran for each
+    call, from one kernel trace (``traced``) with a marker kernel
+    (``spin_kernel``) queued after each call: per call, the counts of
+    :func:`_count` and the kernels' names in order (``names``). A call is
+    one frame of a system: so launches split by frame type (local BA's
+    frames and the others, core/graphs.py's IF node)."""
+    def run():
+        out = []
+        for i in range(n):
+            out.append(track(i))
+            torch.cuda._sleep(1)
+        return out
+
+    out, prof = traced(run)
+    records = sorted(device_records(prof), key=lambda r: r[1])
+    first = next(i for i, r in enumerate(records)
+                 if "spin_kernel" not in r[0])
+    frames, names = [], []
+    for name, _, _ in records[first:]:
+        if "spin_kernel" in name:
+            frames.append(dict(_count(names), names=names))
+            names = []
+        else:
+            names.append(name)
+    if len(frames) != n:
+        raise RuntimeError(f"the trace holds {len(frames)} frames' markers, "
+                           f"not {n}")
+    return out, frames
 
 
 def _backend() -> str:

@@ -146,7 +146,8 @@ def multistream_chunk(states: VOState, imgs1: torch.Tensor,
     ``states`` in place); returns (states, poses [N, S], metrics [N, S])."""
     return step_mod._scan(
         lambda: _step_fn(config, auto_reset, rgbd, states.status.device),
-        states, (imgs1, imgs2), runners, "rgbd" if rgbd else "stereo")
+        states, (imgs1, imgs2), runners, "rgbd" if rgbd else "stereo",
+        batched=True)
 
 
 class MultiStreamVO:

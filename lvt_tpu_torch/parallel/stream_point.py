@@ -77,7 +77,8 @@ def stream_point_chunk_stereo(states: VOState, imgs1: torch.Tensor,
     returns (states, poses [N, S_local], metrics [N, S_local])."""
     return step_mod._scan(
         lambda: _step_fn(config, group, auto_reset, states.status.device),
-        states, (imgs1, imgs2), runners, "stereo", group=group)
+        states, (imgs1, imgs2), runners, "stereo", group=group,
+        batched=True)
 
 
 def _default_mesh(n_streams: int, device_type: str):

@@ -65,6 +65,25 @@ def _sum64(x: torch.Tensor, dim=None) -> torch.Tensor:
     return (x.sum() if dim is None else x.sum(dim)).float()
 
 
+def _solve64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``solve(a, b)`` in float64 with no error check (no host sync): an LU
+    with partial pivoting, then two triangular solves. The LU factors a
+    batch of two systems, ``a`` and the identity beside it: on the card a
+    batch takes cuBLAS's batched LU, as the S streams of the vmapped
+    multi-stream step do; and the triangular solves are cuBLAS's too.
+    cuSOLVER, which takes one system alone (``solve_ex``), captures
+    stream-ordered allocations of its own into a CUDA graph, and an IF
+    node's body (core/graphs.py::cond) may not hold those. On the CPU all
+    of it is LAPACK's, system by system."""
+    a64 = a.double()
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    lu, pivots, _ = torch.linalg.lu_factor_ex(torch.stack([a64, eye]))
+    p, low, up = torch.lu_unpack(lu[0], pivots[0])
+    y = torch.linalg.solve_triangular(low, p.mT @ b.double()[:, None],
+                                      upper=False, unitriangular=True)
+    return torch.linalg.solve_triangular(up, y, upper=True)[:, 0]
+
+
 def _round_sums(parts: list, group) -> list:
     """Float64 partial sums rounded once to float32, each first summed over
     ``group`` (one collective for all of them) when there is one."""
@@ -319,7 +338,7 @@ def refine_window(
         s_flat = sc.permute(0, 2, 1, 3).reshape(6 * f_dim, 6 * f_dim)
         s_flat = torch.where(fix_rc, eye_flat, s_flat)
         g_flat = torch.where(fix, 0.0, g_red.reshape(6 * f_dim))
-        dc = torch.linalg.solve_ex(s_flat.double(), -g_flat.double())[0]
+        dc = _solve64(s_flat, -g_flat)
         dc = dc.float().reshape(f_dim, 6)
         dp = -_einsum64("mij,mj->mi", hpp_inv,
                         g_p + _einsum64("fmij,fi->mj", h_cp, dc))

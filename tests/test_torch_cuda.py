@@ -22,13 +22,17 @@ equal, chi2 within 1e-4 of the plain chi2 or of reprojection_th2 where
 the plain chi2 is below it (a fit of a few points has a chi2 near 0),
 also with 3-6 valid points, none, or all at one pixel; every stream of an
 S-stream launch and the sharded solve's phases (all-reduces as
-identities) bit-equal to the fused kernel. The unmarked tests run
+identities) bit-equal to the fused kernel. Local BA as a CUDA IF node
+(core/graphs.py::cond): the graph bit-equal to the eager step, in the
+streaming worker thread too, and many streams with BA bit-equal to each
+stream alone. The unmarked tests run
 anywhere: a wrapper given a tensor that is not on the CPU launches its
 kernel or raises, never falls back.
 """
 
 import contextlib
 import os
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -983,7 +987,7 @@ def test_library_name_follows_the_sources():
     assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "perception.cu", "brief.cu", "patches.cu", "top2.cu", "pnp.cu",
-        "pnp_lm.cu"}
+        "pnp_lm.cu", "graph_cond.cu"}
 
 
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
@@ -1041,10 +1045,12 @@ def _graph_case(entry: str, device):
         a, b = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
         return make, lambda vo, lo, hi: vo.track_chunk(a[lo:hi], b[lo:hi]), n
 
-    if entry in ("stereo", "stereo_dense_ba"):
+    if entry in ("stereo", "stereo_dense_ba", "stereo_sparse"):
         if entry == "stereo_dense_ba":
             cfg = cfg.replace(descriptor_mode="dense", local_ba_window=4,
                               local_ba_every=2)
+        if entry == "stereo_sparse":
+            cfg = cfg.replace(descriptor_mode="sparse")
         seq = list(world.stereo_sequence(n, speed=0.5))
         return chunks(lambda: VOSystem(cfg, device=device),
                       np.stack([u8(f[0]) for f in seq]),
@@ -1101,7 +1107,8 @@ def _graph_case(entry: str, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["stereo", "stereo_dense_ba", "rgbd",
-                                   "rectified", "corners", "multistream"])
+                                   "rectified", "corners", "multistream",
+                                   "stereo_sparse"])
 def test_graph_replays_equal_the_eager_step(cuda, entry):
     """Each entry point on the card over 6 frames in chunks of 3, replayed
     from its captured graph and, in a second system on the same frames,
@@ -1171,3 +1178,173 @@ def test_capture_of_a_step_that_syncs_raises(cuda):
     torch.cuda.synchronize()
     assert runner.replays == 0 and runner._graph is None
     assert torch.equal(state.t.cpu(), torch.zeros(3))
+
+
+def _kitti_ba_frames(n):
+    """Path 2's config (the shipped KITTI YAML in dense mode: local BA
+    window 4 every 4 frames) and n frames of chip_smoke's KITTI-geometry
+    world."""
+    from lvt_tpu_torch import configs
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+
+    cfg = configs.kitti_ba_dense_config()
+    world = SyntheticWorld(width=cfg.img_width, height=cfg.img_height,
+                           fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
+                           baseline=cfg.baseline, n_points=6000,
+                           extent_x=80.0, extent_y=20.0, extent_z=160.0)
+    return cfg, [(l.astype(np.uint8), r.astype(np.uint8))
+                 for l, r, _ in world.stereo_sequence(n, speed=0.9)]
+
+
+@pytest.mark.cuda
+def test_ba_under_an_if_node_equals_the_eager_step(cuda):
+    """Path 2's config over 17 frames, one ``track`` each: the graph, whose
+    local BA is a CUDA IF node on its schedule, against the eager step,
+    which computes BA on every frame and selects it, bit for bit: poses,
+    the map's positions after each frame, ``local_ba_ran`` (BA at frames
+    4, 8, 12 and 16). What the card ran per frame (a kernel trace of
+    frames 5-16): A, B, T 4 times and PnP once on every frame; in the
+    graph one kernel setting the node's predicate per frame, the same
+    kernels on each other frame and on BA frames 12 and 16, theirs being
+    an other frame's and as many more as the node's body holds (kernels,
+    and copies and fills, which a body runs as kernels); frame 8, the
+    trace's first BA frame, may list only a part of the body's (a trace
+    can miss the last records of a node's body the first time it sees
+    the node run); in the eager step no predicate and the same kernels on
+    every frame."""
+    import ctypes
+
+    from lvt_tpu_torch.core import graphs
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.parallel.dryrun import frame_launches
+
+    cfg, frames = _kitti_ba_frames(17)
+    runs = {}
+    for mode in ("graph", "eager"):
+        ctx = (graphs.disable_graphs() if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            vo = VOSystem(cfg, device=cuda)
+
+            def track(i):
+                pose = vo.track(*frames[i])
+                return pose, vo.last_metrics, vo.state.map.pos.clone()
+
+            first = [track(i) for i in range(5)]
+            rest, per_frame = frame_launches(lambda i: track(i + 5), 12)
+            (runner,) = vo.runners.values()
+            assert runner.mode == mode and runner.if_nodes
+        runs[mode] = dict(out=[*first, *rest], frames=per_frame,
+                          runner=runner)
+    for (gp, gm, gpos), (ep, em, epos) in zip(runs["graph"]["out"],
+                                              runs["eager"]["out"]):
+        assert torch.equal(gp.t, ep.t) and torch.equal(gp.q, ep.q)
+        assert torch.equal(gpos, epos)
+        assert torch.equal(gm.local_ba_ran, em.local_ba_ran)
+    assert [bool(m.local_ba_ran) for _, m, _ in runs["graph"]["out"]] == [
+        i in (4, 8, 12, 16) for i in range(17)]
+    is_ba = [i in (8, 12, 16) for i in range(5, 17)]
+    need = dict(perception=1, brief=1, hamming_top2=4, pnp_solve=1)
+    for mode, if_node in (("graph", 1), ("eager", 0)):
+        for f in runs[mode]["frames"]:
+            assert {k: f[k] for k in [*need, "if_node"]} == dict(
+                need, if_node=if_node)
+
+    def kernels_of(f):
+        return Counter(n for n in f["names"]
+                       if not n.startswith(("Memcpy", "Memset")))
+
+    graph = [kernels_of(f) for f in runs["graph"]["frames"]]
+    first_ba, *ba = [k for k, b in zip(graph, is_ba) if b]
+    other = [k for k, b in zip(graph, is_ba) if not b]
+    assert not first_ba - ba[0]
+    for kind, ks in (("BA", ba), ("other", other)):
+        for k in ks[1:]:
+            assert k == ks[0], (kind, dict(k - ks[0]), dict(ks[0] - k))
+    (branch,) = runs["graph"]["runner"]._branches
+    counts = (ctypes.c_int * len(graphs._NODE_TYPES))()
+    kernels.lib().lvt_graph_node_counts(branch.raw_cuda_graph(), counts,
+                                        len(counts))
+    # the body's copies and fills run as kernels of CUDA's own
+    # (memcpy32_post), which a kernel trace lists as kernels
+    nodes = sum(counts[graphs._NODE_TYPES.index(t)]
+                for t in ("kernel", "memcpy", "memset"))
+    assert not other[0] - ba[0]
+    assert sum((ba[0] - other[0]).values()) == nodes > 0
+    eager = [kernels_of(f) for f in runs["eager"]["frames"]]
+    for k in eager[1:]:
+        assert k == eager[0], (dict(k - eager[0]), dict(eager[0] - k))
+
+
+@pytest.mark.cuda
+def test_streaming_ba_under_an_if_node_in_its_worker_thread(cuda):
+    """StreamingVO with local BA on (path 2's config) over 9 frames: the
+    graph is captured in its worker thread, the IF node's body included,
+    and every frame's pose is bit-equal to ``VOSystem.track``'s."""
+    import time
+
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.io.streaming import StreamingVO
+
+    cfg, frames = _kitti_ba_frames(9)
+    stream = StreamingVO(cfg, queue_size=len(frames), device=cuda)
+    seen = []
+    stream.on_odometry(lambda odo: seen.append(
+        [x.cpu() for x in stream.vo.last_pose]))
+    stream.start()
+    try:
+        for i, (a, b) in enumerate(frames):
+            stream.feed(float(i), a, b)
+        deadline = time.monotonic() + 120
+        while len(seen) < len(frames) and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        stream.stop()
+    vo = VOSystem(cfg, device=cuda)
+    want = [vo.track(a, b) for a, b in frames]
+    assert len(seen) == len(frames)
+    for (t, q), w in zip(seen, want):
+        assert torch.equal(t, w.t.cpu()) and torch.equal(q, w.q.cpu())
+    (runner,) = stream.vo.runners.values()
+    assert runner.mode == "graph" and runner.if_nodes
+    assert bool(vo.last_metrics.local_ba_ran)
+
+
+@pytest.mark.cuda
+def test_multistream_ba_on_the_card_is_each_stream_alone(cuda):
+    """MultiStreamVO with local BA on (dense mode, window 4 every 4; its
+    vmapped step computes BA on every frame and selects it) with 2 streams
+    of different content over 9 frames on the card, against each stream's
+    VOSystem on the card (BA an IF node in its graph): poses, the map's
+    positions and ``local_ba_ran`` (frames 4 and 8) bit-equal."""
+    from lvt_tpu_torch.config import VOConfig
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
+    kw = dict(width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+              baseline=0.3, n_points=1500, extent_x=40.0, extent_y=18.0,
+              extent_z=90.0)
+    worlds = [SyntheticWorld(**kw), SyntheticWorld(**kw, seed=99)]
+    cfg = VOConfig(fx=260.0, fy=260.0, cx=160.0, cy=120.0, baseline=0.3,
+                   img_width=320, img_height=240, detection_cell_size=80,
+                   max_keypoints_per_cell=60, agast_threshold=15,
+                   near_plane_distance=0.5, far_plane_distance=150.0,
+                   descriptor_mode="dense", local_ba_window=4,
+                   local_ba_every=4)
+    seqs = [list(w.stereo_sequence(9, speed=0.5)) for w in worlds]
+    a = torch.from_numpy(np.stack([[f[0].astype(np.uint8) for f in fs]
+                                   for fs in zip(*seqs)])).to(cuda)
+    b = torch.from_numpy(np.stack([[f[1].astype(np.uint8) for f in fs]
+                                   for fs in zip(*seqs)])).to(cuda)
+    msvo = MultiStreamVO(cfg, 2, device=cuda)
+    poses, metrics = msvo.track_chunk(a, b)
+    assert metrics.local_ba_ran[:, 0].tolist() == [i in (4, 8)
+                                                   for i in range(9)]
+    for s in (0, 1):
+        vo = VOSystem(cfg, device=cuda)
+        p, m = vo.track_chunk(a[:, s], b[:, s])
+        assert torch.equal(p.t, poses.t[:, s]) and torch.equal(
+            p.q, poses.q[:, s]), float((p.t - poses.t[:, s]).abs().max())
+        assert torch.equal(vo.state.map.pos, msvo.states.map.pos[s])
+        assert torch.equal(m.local_ba_ran, metrics.local_ba_ran[:, s])

@@ -85,14 +85,27 @@ def test_descriptor_mode_resolution(world_frames, monkeypatch, mode, want):
                                 dict(use_dense_brief=False),
                                 dict(descriptor_mode="bogus")])
 def test_unported_descriptor_modes_raise(world_frames, kw):
+    """The modes a config can name that the port once refused: "sparse"
+    (asked for either way) is ported now, so it resolves as in lvt_tpu,
+    its features are lvt_tpu's bit for bit and VOSystem takes it
+    (tests/test_torch_sparse.py holds the mode against lvt_tpu); an
+    unknown mode still raises ValueError."""
     world, frames = world_frames
     cfg = _config(world, **kw)
-    err = ValueError if kw.get("descriptor_mode") == "bogus" else (
-        NotImplementedError)
-    with pytest.raises(err):
-        extract.extract_features_batched(torch.from_numpy(frames), cfg)
-    with pytest.raises(err):
-        VOSystem(cfg, device="cpu")
+    if kw.get("descriptor_mode") == "bogus":
+        with pytest.raises(ValueError):
+            extract.extract_features_batched(torch.from_numpy(frames), cfg)
+        with pytest.raises(ValueError):
+            VOSystem(cfg, device="cpu")
+        return
+    assert extract._descriptor_mode(cfg) == "sparse"
+    got = extract.extract_features_batched(torch.from_numpy(frames), cfg)
+    want = jx_extract.extract_features_batched(jnp.asarray(frames), cfg)
+    for field in ("kp", "desc", "valid", "score"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      _t(getattr(want, field)).numpy(),
+                                      err_msg=field)
+    VOSystem(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("h,w", [(120, 200), (120, 256)])

@@ -16,7 +16,15 @@ the CPU (patch mode through XLA, no Pallas kernels). Tolerances:
   * MultiStreamVO with a stream blanked for a frame (lost, then reset in
     the chunk) against lvt_tpu's MultiStreamVO.track_chunk: statuses
     equal, poses within 1e-3 m;
-  * the mode rule: exact;
+  * the mode rule, and the rule that makes lvt_tpu's ``lax.cond`` (local
+    BA) a CUDA IF node only in a captured step that is not vmapped:
+    exact;
+  * the BA helper's selected form (core/step.py::_local_ba_update) against
+    lvt_tpu's ``lax.cond`` form on the inputs of 9 frames of path 2's
+    config: the window and the BA predicate equal, the map bit-equal on
+    frames without BA; on BA frames tests/test_torch_bundle.py's BA
+    tolerance (the writeback decided alike for all but 1% of the points,
+    points refined by both within 1e-2 m);
   * the functional chunk API through a caller's runner cache, in two
     chunks, against ``VOSystem.track_chunk``: bit-equal, one runner;
   * a graph dropped while a capture runs is kept until it ends: exact.
@@ -229,3 +237,122 @@ def test_a_graph_dropped_during_a_capture_outlives_it(monkeypatch, capturing):
     graph = runner._graph = object()      # stands for a captured graph
     del runner
     assert graphs._dropped == ([graph] if capturing else [])
+
+
+def test_ba_cond_rule(tmp_path, monkeypatch):
+    """lvt_tpu's ``lax.cond`` (local BA on its schedule) is a CUDA IF node
+    only in a captured step that is not vmapped: a single-process graph on
+    the card, or one on an NCCL group; the select on the CPU (the eager
+    step), on a gloo group and under vmap (MultiStreamVO's runners are
+    made batched, VOSystem's not). Decided without touching a device;
+    outside a capture ``graphs.cond`` is the select."""
+    assert graphs.if_nodes(torch.device("cuda"))
+    assert not graphs.if_nodes("cuda", batched=True)
+    assert not graphs.if_nodes(torch.device("cpu"))
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                                rank=0, world_size=1)
+        made = True
+    else:
+        made = False
+    try:
+        group = dist.group.WORLD
+        assert not graphs.if_nodes("cuda", group)
+        with monkeypatch.context() as m:
+            m.setattr(dist, "get_backend", lambda group=None: "nccl")
+            assert graphs.if_nodes("cuda", group)
+            assert not graphs.if_nodes("cuda", group, batched=True)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+    made_batched = []
+    real = graphs.if_nodes
+    monkeypatch.setattr(graphs, "if_nodes",
+                        lambda device, group=None, *, batched=False: (
+                            made_batched.append(batched)
+                            or real(device, group, batched=batched)))
+    cfg = ms_config(local_ba_window=4)
+    left, right = divergent_frames(1)
+    VOSystem(cfg, device="cpu").track(left[0, 0], right[0, 0])
+    ms.MultiStreamVO(cfg, 2, device="cpu").track(left[0], right[0])
+    assert made_batched == [False, True]
+
+    calls = []
+    pos = torch.arange(6.0).reshape(2, 3)
+    run = lambda: calls.append(1) or pos + 1  # noqa: E731
+    for pred in (True, False):
+        got = graphs.cond(torch.tensor(pred), run, pos)
+        assert torch.equal(got, pos + 1 if pred else pos)
+    assert calls == [1, 1]
+
+
+def test_local_ba_update_matches_lvt_tpu():
+    """The BA helper's selected form (core/step.py::_local_ba_update, as
+    the eager step, the warm-up and a vmapped step run it) against
+    lvt_tpu's ``lax.cond`` form on the same inputs: the ones the port's
+    step gave it over frames 0-8 of a KITTI-geometry sequence, with path
+    2's config (the shipped KITTI YAML in dense mode: window 4, BA every 4
+    frames, so BA at frames 4 and 8). The window, its newest pose and the
+    BA predicate equal; the map positions bit-equal on the other frames;
+    on BA frames, tests/test_torch_bundle.py's tolerance for BA (its sums
+    are float64 here, float32 in lvt_tpu): the writeback decided alike for
+    all but 1% of the points either side refined, and points refined by
+    both within 1e-2 m."""
+    import jax
+    import jax.numpy as jnp
+
+    from lvt_tpu.config import VOConfig as JxVOConfig
+    from lvt_tpu.core import step as jx_step
+    from lvt_tpu_torch import configs, convert
+    from lvt_tpu_torch.core import step
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.tree import tree_map
+
+    cfg = configs.kitti_ba_dense_config()
+    world = SyntheticWorld(width=cfg.img_width, height=cfg.img_height,
+                           fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
+                           baseline=cfg.baseline, n_points=6000,
+                           extent_x=80.0, extent_y=20.0, extent_z=160.0)
+    seq = list(world.stereo_sequence(9, speed=0.9))
+    calls = []
+    real = step._local_ba_update
+
+    def record(*args):
+        # the state's leaves are the runner's buffers, rewritten later
+        calls.append([tree_map(torch.clone, a) for a in args[:-2]])
+        return real(*args)
+
+    import unittest.mock
+
+    with unittest.mock.patch.object(step, "_local_ba_update", record):
+        VOSystem(cfg, device="cpu").track_chunk(
+            np.stack([f[0].astype(np.uint8) for f in seq]),
+            np.stack([f[1].astype(np.uint8) for f in seq]))
+    assert len(calls) == 9
+    jcfg = JxVOConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    jx_update = jax.jit(jx_step._local_ba_update, static_argnums=9)
+    ran = []
+    for i, args in enumerate(calls):
+        window, pose, pos, do_ba = real(*args, cfg)
+        jargs = [jax.tree.map(jnp.asarray, convert.to_numpy(a))
+                 for a in args]
+        jwindow, jpose, jpos = jx_update(*jargs, jcfg)
+        for name, a, b in zip(window._fields, window, jwindow):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f"frame {i} {name}")
+        np.testing.assert_array_equal(pose.t.numpy(), np.asarray(jpose.t))
+        np.testing.assert_array_equal(pose.q.numpy(), np.asarray(jpose.q))
+        before = args[1].pos.numpy()
+        pos, jpos = pos.numpy(), np.asarray(jpos)
+        moved, jmoved = (pos != before).any(1), (jpos != before).any(1)
+        ran.append(bool(do_ba))
+        if not do_ba:
+            np.testing.assert_array_equal(pos, before)
+            np.testing.assert_array_equal(jpos, before)
+            continue
+        assert jmoved.sum() > 100, f"frame {i}"
+        assert (moved != jmoved).sum() <= 0.01 * (moved | jmoved).sum()
+        both = moved & jmoved
+        np.testing.assert_allclose(pos[both], jpos[both], atol=1e-2)
+    assert ran == [i in (4, 8) for i in range(9)]

@@ -348,16 +348,17 @@ def test_cuda_device_without_cuda_fails_loudly(monkeypatch):
 
 
 def test_unported_options_raise():
-    """The sparse descriptor mode is not ported, in VOSystem or
-    MultiStreamVO; the RGB-D sensor is (tests/test_torch_rgbd.py), and no
-    other exists."""
+    """Every option of lvt_tpu is ported: VOSystem and MultiStreamVO take
+    the sparse descriptor mode (tests/test_torch_sparse.py holds it
+    against lvt_tpu), the RGB-D sensor is ported
+    (tests/test_torch_rgbd.py), and a sensor that does not exist
+    raises."""
     from lvt_tpu_torch.parallel.multistream import MultiStreamVO
 
     cfg = _config(_world())
-    with pytest.raises(NotImplementedError):
-        VOSystem(cfg.replace(descriptor_mode="sparse"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        MultiStreamVO(cfg.replace(descriptor_mode="sparse"), 2, device="cpu")
+    sparse = cfg.replace(descriptor_mode="sparse")
+    assert VOSystem(sparse, device="cpu").config is sparse
+    assert MultiStreamVO(sparse, 2, device="cpu").config is sparse
     with pytest.raises(ValueError):
         VOSystem(cfg, sensor_type=3, device="cpu")
     assert VOSystem(cfg, sensor_type=2, device="cpu").sensor_type == 2
