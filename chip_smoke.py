@@ -52,7 +52,26 @@ and the script exits non-zero without printing the final line:
    whose vmapped step selects BA) over 9 frames, streams 0 and 1 against
    the card's ``VOSystem``: poses, map positions and BA runs bit-equal (a
    gap under 1e-5 m tolerated and printed); then ``measure_if_node``;
-5. path 3, many streams (bench.py --multistream's shape): path 1's config
+5. the benchmark entry point (``lvt_tpu_torch/bench.py``, ``python -m
+   lvt_tpu_torch bench``): its three modes at bench.py's sizes, each
+   printing its JSON line: main (path 1's config, 400 frames, 24 timed
+   chunks of 16), ``--ba`` (local BA window 4) and ``--multistream`` (8
+   streams fed the same frames, 12 timed chunks of 8), on the prefix of
+   the sequence every path takes. Each must capture one graph, in its
+   warm-up chunk, make 0 host syncs in its timed loop, keep TRACKING on
+   every frame (of every stream) that sees at least BENCH_IN_VIEW of the
+   world's points, with the ATE under 5% over them, and BA on its schedule
+   (bench.py's camera drives out of its world: the port and lvt_tpu lose
+   track at frame 160, ``scripts/bench_world.py``); one
+   untimed chunk more in a kernel trace must launch per frame exactly A 1,
+   P 1, T 3 (``--ba`` 4 and one IF-node predicate; ``--multistream`` for
+   all 8 streams at once) and the PnP solve 1. main's poses must equal
+   path 1's over its 112 frames bit for bit, ``--ba``'s frames run BA's
+   body on BA frames only (``_frame_types``) and PnP is held on its
+   inputs, and the 8 streams must equal each other bit for bit and main
+   within 1e-5 m. A, P and T against their plain versions at each mode's
+   shapes;
+6. path 3, many streams (bench.py --multistream's shape): path 1's config
    through ``MultiStreamVO(config, 8, device="cuda").track_chunk``, 56
    frames in chunks of 8, stream i from frame 2i of the same sequence: every
    stream TRACKING with its ATE under 5% of its distance, 0 host syncs in
@@ -67,7 +86,7 @@ and the script exits non-zero without printing the final line:
    the CPU; phase 2 has also timed T's batched launch at 8 streams of
    real descriptor sets (and at TUM fr1's 8192 x 1024) beside its bound
    and 8 single launches;
-6. path 4, RGB-D at 640x480 (the oracle's `rgbd` scenario: its world and
+7. path 4, RGB-D at 640x480 (the oracle's `rgbd` scenario: its world and
    config): ``VOSystem(config, SensorType.RGBD, device="cuda")
    .track_chunk`` over 56 frames (TRACKING, ATE under 5%, 0 syncs, per
    frame exactly one A, one P and two T: map match and staged re-match),
@@ -80,7 +99,7 @@ and the script exits non-zero without printing the final line:
    equal, ``kp`` within 1e-3 px). The synthetic world renders an ideal
    pinhole, so tracking a sequence under the YAML's distortion would be
    meaningless: the distortion is checked on extraction only;
-7. PnP (not a TPU kernel: lvt_tpu runs solve_pnp,
+8. PnP (not a TPU kernel: lvt_tpu runs solve_pnp,
    lvt_tpu/solver/pnp.py:109-214, as XLA ops): the fused solve
    ``lvt_tpu_torch::pnp_solve`` (``csrc/pnp_lm.cu``, one block per stream)
    on the inputs it took in one more frame of path 3's 8 streams, at S =
@@ -102,7 +121,7 @@ and the script exits non-zero without printing the final line:
    launch, timed beside the bound and one PyTorch call; path 3's streams
    0 and 1 must equal the single stream (any gap printed, and under 1e-5
    m);
-8. path 5, EuRoC rectified stereo (``configs.euroc_config()``: 752x480,
+9. path 5, EuRoC rectified stereo (``configs.euroc_config()``: 752x480,
    896 keypoint slots, 4096 map points, no staged points): raw distorted
    uint8 frames of the EuRoC rig (``io.datasets.render_euroc_raw``)
    through ``VOSystem(config, rectify_maps=io.datasets
@@ -111,17 +130,17 @@ and the script exits non-zero without printing the final line:
    exactly A 1, P 1, T 2 (map, row) per frame; frame 0's remapped pair and
    features card vs CPU bit-equal; kernel A's float32 kernel, P and T (map
    4096 x 896, row) against their plain versions at its shapes; poses of
-   frames 0-3 card vs CPU within 1e-3 m; PnP as in phase 7 at this path's
+   frames 0-3 card vs CPU within 1e-3 m; PnP as in phase 8 at this path's
    M = 4096 (the other paths have path 3's 1024), on 8 more frames as S
    = 8 streams;
-9. path 6, external corners (``configs.kitti_config()``, path 1's frames):
+10. path 6, external corners (``configs.kitti_config()``, path 1's frames):
    corners from the port's own extraction on the card, passed as host
    [N, 2] arrays to ``VOSystem.track_with_external_corners`` for 32 frames
    (one call each):
    every frame TRACKING, ATE under 5%, 0 host syncs in the step, exactly A
    0, P 0, T 3 per frame; frame 0's descriptors card vs CPU bit-equal;
    poses of frames 0-3 card vs CPU within 1e-3 m;
-10. path 7, the dataset CLIs: 48 frames each of paths 1 and 5 and of
+11. path 7, the dataset CLIs: 48 frames each of paths 1 and 5 and of
    path 4's camera over a cloud 2-12 m deep (the TUM depth format holds
    13.1 m) written as PNG trees in the KITTI, EuRoC and TUM layouts
    (``write_png``: Python's zlib, no OpenCV), every PNG decoded bit-equal
@@ -140,11 +159,11 @@ and the script exits non-zero without printing the final line:
    their plain versions at each tree's frame 0 (T at the BA row site on
    kitti); frames/s end to end and in process, decode ms per frame and
    the set-up apart;
-11. the C ABI: ``liblvt_c_torch.so`` and ``lvt_tpu_torch/native/
+12. the C ABI: ``liblvt_c_torch.so`` and ``lvt_tpu_torch/native/
    lvt_c_example.c`` built here, 8 KITTI frames through ``lvt_track`` on
    the card in a subprocess: status 1, 2 after each frame, 1 after
    ``lvt_reset``, every pose equal at ``%.9g`` to the in-process card run;
-12. path 8, the sharded modes on ``torch.distributed`` (ranks are
+13. path 8, the sharded modes on ``torch.distributed`` (ranks are
    processes started with the ``spawn`` method by
    ``lvt_tpu_torch.parallel.dryrun.spawn``, after the kernels are built
    here; every rank on ``cuda:0``), with path 7 kitti's config (the
@@ -158,7 +177,7 @@ and the script exits non-zero without printing the final line:
    on the others, ``_frame_types``);
    kernels A, P and T (map and staged at M / 2 and M / 4 rows) against
    their plain versions at the shard shapes, T's map site, the PnP solve
-   and its phases (checked as in phase 7 on the reference's inputs cut to
+   and its phases (checked as in phase 8 on the reference's inputs cut to
    M / n points) and the plain version's two ops timed at M = 512 and
    256; whether NCCL
    takes 2 ranks on one card (if not, 8b-8d carry their collectives on
@@ -176,7 +195,7 @@ and the script exits non-zero without printing the final line:
    bit-equal to path 3's one-process run, no collective; then 8b at 2
    ranks on gloo CPU processes over frames 0-2, within 1e-3 m of the card;
    frames/s of each;
-13. a JSON line with each kernel's launches and largest error against its
+14. a JSON line with each kernel's launches and largest error against its
    plain version (in all, and by path), times and bound (T per site, per
    frame of paths 1-2, batched and at path 8's shard rows; PnP's solve,
    phases and ops at S = 1 and 8, and at path 8's M), then the last line
@@ -213,13 +232,15 @@ whose points are sharded, launch its phases instead, 23 per frame (2
 passes x (a setup + 5 x (normal equations, trial step)) + the last
 demotion). The plain version's two reduction ops run on no path.
 Every kernel's launch count is set to 0 just before a path runs (on
-path 7, each CLI run; on path 8, in each rank) and read just after it. A
+path 7, each CLI run; on path 8, in each rank; on the bench, each mode)
+and read just after it. A
 wrapper counts where Python calls it: at every frame of an eager step,
 at a graph's warm-up and capture (a replay calls no Python). So where a
 graph ran, what the card ran is read from a kernel trace
 (``dryrun.device_launches``): on paths 1-6 and 8a the profiled graphed
 unit, on path 7 each CLI run, in path 8's graphed ranks (8d) chunk 0
-(with the graph's warm-up step). Each must be exactly NEED_PER_FRAME per frame;
+(with the graph's warm-up step), on the bench one untimed chunk after the
+timed ones. Each must be exactly NEED_PER_FRAME per frame;
 the wrappers' counts must be NEED_PER_FRAME per eager frame and twice per
 graph. The ``kernels`` line's launches are the traced ones where a graph
 ran, the wrappers' where the step ran eagerly (8b, 8c). The comparisons
@@ -375,6 +396,11 @@ NEED_PER_FRAME = {
     "path8b-4": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
     "path8c": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
     "path8d": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
+    # the benchmark's modes: main is path 1, --ba path 1's config with
+    # local BA (T also at the BA row match), --multistream path 3's
+    "bench": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
+    "bench-ba": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    "bench-ms": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
 }
 for _path, _need in NEED_PER_FRAME.items():
     _need.update({"pnp_phase": PNP_PHASES} if _path in SHARDED_PATHS
@@ -389,7 +415,7 @@ for _path, _need in NEED_PER_FRAME.items():
 # alike on both types
 NEED_BY_FRAME_TYPE = {
     path: {"ba": {"if_node": 1, "nccl": 0}, "other": {"if_node": 1, "nccl": 0}}
-    for path in ("path2", "path7-kitti", "path8a")}
+    for path in ("path2", "path7-kitti", "path8a", "bench-ba")}
 # kernel T's sites in one frame of each path
 T_SITES = {"path1": ("map", "staged", "row"),
            "path2": ("map", "staged", "row", "ba_row"),
@@ -398,7 +424,10 @@ T_SITES = {"path1": ("map", "staged", "row"),
            "path5": ("map", "row"),
            "path7-kitti": ("map", "staged", "row", "ba_row"),
            "path7-euroc": ("map", "row"),
-           "path7-tum": ("map", "staged")}
+           "path7-tum": ("map", "staged"),
+           "bench": ("map", "staged", "row"),
+           "bench-ba": ("map", "staged", "row", "ba_row"),
+           "bench-ms": ("map", "staged", "row")}
 
 # ---- the card model behind every bound
 # device memory: H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
@@ -542,18 +571,6 @@ def _measure(card, name, run_k, run_p, nbytes, ops, library=None) -> dict:
                 bound_by=b_by,
                 library_ms=None if library is None else device_ms(library,
                                                                   REPS))
-
-
-def _world(config):
-    from lvt_tpu_torch.io.synthetic import SyntheticWorld
-
-    # bench.py's KITTI-geometry world
-    return SyntheticWorld(
-        width=config.img_width, height=config.img_height,
-        fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy,
-        baseline=config.baseline, n_points=6000,
-        extent_x=80.0, extent_y=20.0, extent_z=160.0,
-    )
 
 
 def _smi(query: str) -> str:
@@ -1169,7 +1186,8 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
         lambda: VOSystem(config, device=DEVICE), il, ir)))
     return dict(report, first_poses=first, profile=prof,
                 launches=prof["launches"], if_node_launches=prof["if_node"],
-                kernel_errs={"pnp_solve": pnp_gaps["max_abs_err"]})
+                kernel_errs={"pnp_solve": pnp_gaps["max_abs_err"]},
+                poses=g["poses"])
 
 
 def _inside_the_graph(path, vo, drive, u, n) -> dict:
@@ -3337,6 +3355,229 @@ def phase_multistream_ba(config, il, ir) -> dict:
     return dict(equal=all(equal), gaps=gaps)
 
 
+# the benchmark entry point (lvt_tpu_torch/bench.py, ``python -m
+# lvt_tpu_torch bench``): its three modes at bench.py's sizes on the frames
+# of the sequence every path takes its prefix of (bench.render), then one
+# untimed chunk more of the sequence in a kernel trace
+BENCH_PATHS = ("bench", "bench-ba", "bench-ms")
+# a bench frame sees the world when this many of its 6000 points lie in
+# the left image: bench.py's camera, 0.9 m a frame, drives out of them
+# (206 in view at frame 128, 13 at frame 160, none from frame 173)
+BENCH_IN_VIEW = 100
+
+
+def _points_in_view(config, rot, pos) -> np.ndarray:
+    """Per frame, how many of bench.py's world points lie in the left image
+    of a camera at ``rot``, ``pos`` (in front of it and inside the margin
+    ``SyntheticWorld.render`` draws in)."""
+    from lvt_tpu_torch import bench
+
+    w = bench.world(config)
+    cam = np.einsum("fji,fpj->fpi", rot, w.points[None] - pos[:, None])
+    z = cam[..., 2]
+    front = z > 0.5
+    u = w.fx * cam[..., 0] / np.where(front, z, 1.0) + w.cx
+    v = w.fy * cam[..., 1] / np.where(front, z, 1.0) + w.cy
+    m = 4
+    return (front & (u > m) & (u < w.width - m) & (v > m)
+            & (v < w.height - m)).sum(-1)
+
+
+def _bench_checks(path, out, config, est, rot, gt) -> str:
+    """What every bench mode must hold: one capture, made in the warm-up
+    chunk; 0 host syncs in the timed loop; TRACKING on every frame (of
+    every stream) that sees at least BENCH_IN_VIEW of the world's points
+    (bench.py's camera drives out of them), and the ATE of ``est`` (one
+    stream's positions) under 5% over those frames; BA on its schedule
+    until the first frame that is not TRACKING, and never after it.
+    Returns what it found."""
+    from lvt_tpu_torch.core.state import TRACKING
+
+    if (out["captures_warmup"], out["captures"]) != (1, 1):
+        raise AssertionError(f"{path}: graphs captured after the warm-up "
+                             f"chunk / in all: {out['captures_warmup']} / "
+                             f"{out['captures']}, not 1 / 1")
+    if out["syncs"] != 0:
+        raise AssertionError(f"{path}: {out['syncs']} host syncs in the "
+                             f"timed loop")
+    status = out["metrics"].status.cpu()
+    status = status if status.ndim == 2 else status[:, None]
+    n = status.shape[0]
+    seen = _points_in_view(config, rot[:n], gt[:n])
+    gone = seen < BENCH_IN_VIEW
+    k = int(np.argmax(gone)) if gone.any() else n
+    if not gone[k:].all():
+        raise AssertionError(f"{path}: the world comes back into view")
+    for i in range(status.shape[1]):
+        _every_frame_tracking(f"{path} stream {i}", status[:k, i])
+    tracking = (status[:, 0] == TRACKING).tolist()
+    lost = tracking.index(False) if False in tracking else n
+    ran = out["metrics"].local_ba_ran.cpu()
+    ran = (ran if ran.ndim == 1 else ran[:, 0]).tolist()
+    want = _ba_frames(config, range(lost)) + [False] * (n - lost)
+    if ran != want:
+        raise AssertionError(f"{path}: BA ran on {sum(ran)} frames, the "
+                             f"schedule says {sum(want)}")
+    return (f"frames 0-{k - 1} see at least {BENCH_IN_VIEW} of the world's "
+            f"points and are TRACKING (frame {k} sees "
+            f"{seen[k] if k < n else '-'}, frame {n - 1} {seen[-1]}), the "
+            f"first frame not TRACKING {lost if lost < n else '-'}; "
+            + _check_ate(path, est[:k], gt[:k])
+            + (f" over frames 0-{k - 1}; BA on {sum(want)} frames"
+               if config.local_ba_window else f" over frames 0-{k - 1}"))
+
+
+def _bench_trace(path, system, a, b, n) -> dict:
+    """One untimed chunk more (``a``, ``b``: its ``n`` frames) in a kernel
+    trace: per frame exactly NEED_PER_FRAME and one IF-node predicate per
+    node in the graph; returns the traced launches."""
+    from lvt_tpu_torch.parallel.dryrun import device_launches
+
+    _, got = device_launches(lambda: system.track_chunk(a, b))
+    launches = {k: got.get(k, 0) for k in KERNELS}
+    _check_launches(path, launches, n)
+    nodes = sum(len(r._branches) for r in system.runners.values())
+    if got["if_node"] != n * nodes:
+        raise AssertionError(f"{path}: {got['if_node']} IF-node predicates "
+                             f"in {n} replays of a graph with {nodes} nodes")
+    _say(path, f"one untimed chunk more ({n} frames, kernel trace): "
+               f"{launches}, IF-node predicates {got['if_node']} ({nodes} "
+               f"node(s)); {got['kernels'] / n:.1f} device kernels per frame")
+    return dict(launches=launches, if_node=got["if_node"])
+
+
+def phase_bench(il, ir, rot, gt, path1_poses) -> dict:
+    """The benchmark entry point's three modes on the card
+    (``bench.run_main``, ``--ba``, ``bench.run_multistream``: what ``python
+    -m lvt_tpu_torch bench`` runs), at bench.py's sizes, on the prefix of
+    the sequence every path takes (``il``, ``ir`` on the card; bench.py's
+    frames). Each prints its JSON line and must hold ``_bench_checks``;
+    the wrappers' counts (set to 0 just before) are NEED_PER_FRAME twice
+    per graph (its warm-up and captured step), and one untimed chunk more
+    in a kernel trace is NEED_PER_FRAME per frame (``_bench_trace``; the
+    ``kernels`` line's launches). main's poses are path 1's, bit for bit,
+    over path 1's frames (the same config, frames and chunks of 16);
+    ``--ba``'s frames run BA's body on BA frames only (``_frame_types``)
+    and the PnP kernel is held on its inputs; the streams of
+    ``--multistream`` (all fed the same frames) are bit-equal to each other
+    and within 1e-5 m of main. Kernels A, P and T against their plain
+    versions at each mode's shapes (``check_path_kernels``, on its first
+    timed frames)."""
+    from lvt_tpu_torch import bench
+    from lvt_tpu_torch.core.extract import extract_features_batched
+    from lvt_tpu_torch.core.system import VOSystem
+    from lvt_tpu_torch.parallel.dryrun import zero_kernel_counters
+
+    runs, fps = {}, {}
+    n = bench.CHUNK * (bench.N_CHUNKS + 1)
+    for path, ba in (("bench", False), ("bench-ba", True)):
+        counters = zero_kernel_counters()
+        out = bench.run_main(ba=ba, chunk=bench.CHUNK,
+                             n_chunks=bench.N_CHUNKS, frames=(il, ir),
+                             device=DEVICE)
+        wrappers = {k: fn.launches for k, fn in counters.items()}
+        print(json.dumps(out["line"]), flush=True)
+        vo, config = out["system"], out["config"]
+        _check_launches(path, wrappers, 2 * len(vo.runners))
+        ate = _bench_checks(path, out, config, out["poses"].t.cpu().numpy(),
+                            rot, gt)
+        _say(path, f"{out['fps']:.2f} frames/s over {bench.N_CHUNKS} timed "
+                   f"chunks of {bench.CHUNK} ({out['seconds']:.4f} s), "
+                   f"{n} frames in all: 1 graph captured in the warm-up "
+                   f"chunk, 0 host syncs in the timed loop; {ate}; wrapper "
+                   f"counts {wrappers}")
+        trace = _bench_trace(path, vo, il[n:n + bench.CHUNK],
+                             ir[n:n + bench.CHUNK], bench.CHUNK)
+        if ba and trace["if_node"] != bench.CHUNK:
+            raise AssertionError(f"{path}: the graph holds no IF node")
+        # the first timed frames (the untimed chunk's see no world)
+        j = bench.CHUNK
+        imgs = torch.stack([il[j], ir[j]])
+        f = extract_features_batched(torch.stack([il[j], il[j + 1], ir[j]]),
+                                     config)
+        sites = t_site_inputs(config, _streams(f, [0]), _streams(f, [1]),
+                              _streams(f, [2]))
+        errs = check_path_kernels(
+            path, config, imgs,
+            lambda dev: extract_features_batched(imgs.to(dev), config),
+            {k: sites[k] for k in T_SITES[path]})
+        if ba:
+            _frame_types(path, config,
+                         lambda: VOSystem(config, device=DEVICE), il, ir)
+            errs["pnp_solve"] = check_pnp_solve(
+                path, capture_pnp_inputs(path, _first_frames(
+                    lambda: VOSystem(config, device=DEVICE), il,
+                    ir)))["max_abs_err"]
+        else:
+            k = path1_poses.t.shape[0]
+            same = (torch.equal(out["poses"].t[:k], path1_poses.t)
+                    and torch.equal(out["poses"].q[:k], path1_poses.q))
+            _say(path, f"poses of frames 0-{k - 1} against path 1's (the "
+                       f"same frames, config and chunks): "
+                       f"{'EQUAL' if same else 'differ'}")
+            if not same:
+                raise AssertionError(f"{path}: poses differ from path 1's")
+            single = out["poses"]
+        fps[path] = out["fps"]
+        runs[path] = dict(fps=out["fps"], mode="graph", line=out["line"],
+                          launches=trace["launches"],
+                          if_node_launches=trace["if_node"],
+                          kernel_errs=errs)
+        del out, vo
+
+    path = "bench-ms"
+    s, chunk = bench.MS_STREAMS, bench.MS_CHUNK
+    m = chunk * (bench.MS_N_CHUNKS + 1)
+    counters = zero_kernel_counters()
+    out = bench.run_multistream(streams=s, chunk=chunk,
+                                n_chunks=bench.MS_N_CHUNKS, frames=(il, ir),
+                                device=DEVICE)
+    wrappers = {k: fn.launches for k, fn in counters.items()}
+    print(json.dumps(out["line"]), flush=True)
+    msvo, config = out["system"], out["config"]
+    _check_launches(path, wrappers, 2 * len(msvo.runners))
+    t, q = out["poses"].t, out["poses"].q
+    ate = _bench_checks(path, out, config, t[:, 0].cpu().numpy(), rot, gt)
+    alike = all(torch.equal(t[:, i], t[:, 0]) and torch.equal(q[:, i],
+                                                              q[:, 0])
+                for i in range(1, s))
+    gap = float((t[:, 0] - single.t[:m]).abs().max())
+    _say(path, f"{out['fps']:.2f} frames/s per card ({out['streams']} "
+               f"streams, {out['world']} device(s)) over "
+               f"{bench.MS_N_CHUNKS} timed chunks of {chunk} "
+               f"({out['seconds']:.4f} s): 1 graph captured in the warm-up "
+               f"chunk, 0 host syncs in the timed loop; every stream: {ate}; "
+               f"the {s} streams "
+               f"{'EQUAL' if alike else 'differ'}; stream 0 against main's "
+               f"single stream over frames 0-{m - 1}: largest gap {gap:.3g} "
+               f"m; wrapper counts {wrappers}")
+    if not alike:
+        raise AssertionError(f"{path}: streams fed the same frames differ")
+    if not gap < 1e-5:
+        raise AssertionError(f"{path}: stream 0 is {gap} m from the single "
+                             f"stream, not under 1e-5 m")
+    a = bench.stream_frames(il[m:m + chunk], s)
+    b = bench.stream_frames(ir[m:m + chunk], s)
+    trace = _bench_trace(path, msvo, a, b, chunk)
+    a, b = (bench.stream_frames(x[chunk:chunk + 2], s) for x in (il, ir))
+    imgs = torch.cat([a[0], b[0]])
+    f0 = extract_features_batched(imgs, config)
+    f1 = extract_features_batched(a[1], config)
+    sites = t_site_inputs(config, _streams(f0, slice(0, s)), f1,
+                          _streams(f0, slice(s, 2 * s)))
+    errs = check_path_kernels(
+        path, config, imgs,
+        lambda dev: extract_features_batched(imgs.to(dev), config),
+        {k: sites[k] for k in T_SITES[path]})
+    fps[path] = out["fps"]
+    runs[path] = dict(fps=out["fps"], mode="graph", line=out["line"],
+                      launches=trace["launches"],
+                      if_node_launches=trace["if_node"], kernel_errs=errs)
+    _say("bench", "frames/s, main / --ba / --multistream (per card): "
+                  + " / ".join(f"{fps[p]:.2f}" for p in BENCH_PATHS))
+    return runs
+
+
 def phase_cpu(path, config, il, ir, first_poses):
     """The first frames of a path again through the port on the CPU."""
     from lvt_tpu_torch.core.extract import extract_features_stereo
@@ -3367,16 +3608,20 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     card = phase_device()
+    from lvt_tpu_torch import bench
     from lvt_tpu_torch.configs import kitti_ba_dense_config, kitti_config
 
     configs = {"path1": kitti_config(), "path2": kitti_ba_dense_config()}
+    # bench.py's sequence, whose prefix every path of its camera takes: the
+    # benchmark's frames and one chunk more
     n = max(_n_frames("path1"),
-            MS_START_STEP * (MS_STREAMS - 1) + _n_frames("path3"))
-    frames = list(_world(configs["path1"]).stereo_sequence(n, speed=0.9))
-    il = torch.from_numpy(np.stack([f[0].astype(np.uint8) for f in frames]))
-    ir = torch.from_numpy(np.stack([f[1].astype(np.uint8) for f in frames]))
-    rot = np.array([f[2][0] for f in frames])
-    gt = np.array([f[2][1] for f in frames])
+            MS_START_STEP * (MS_STREAMS - 1) + _n_frames("path3"),
+            bench.CHUNK * (bench.N_CHUNKS + 2))
+    t0 = time.perf_counter()
+    il, ir, rot, gt = bench.render(configs["path1"], n)
+    _say("frames", f"{n} frames of bench.py's sequence rendered in "
+                   f"{time.perf_counter() - t0:.1f} s")
+    il, ir = torch.from_numpy(il), torch.from_numpy(ir)
     config4, gray, depth, rot4, pos4 = rgbd_setup()
 
     il, ir = il.to(DEVICE), ir.to(DEVICE)
@@ -3394,6 +3639,7 @@ def main(argv=None) -> int:
         phase_cpu(path, config, il, ir, runs[path]["first_poses"])
         if path == "path1":
             sparse = phase_sparse(config, il, ir)
+    runs.update(phase_bench(il, ir, rot, gt, runs["path1"].pop("poses")))
     ms_ba = phase_multistream_ba(configs["path2"], il, ir)
     report["if_node"] = measure_if_node(card, configs["path2"], il, ir)
     runs["path3"] = phase_multistream(configs["path1"], il, ir, rot, gt,

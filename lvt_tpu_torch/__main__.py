@@ -1,4 +1,4 @@
-"""``python -m lvt_tpu_torch kitti|euroc|tum|synthetic``: see cli.py."""
+"""``python -m lvt_tpu_torch kitti|euroc|tum|synthetic|bench``: see cli.py."""
 
 import sys
 

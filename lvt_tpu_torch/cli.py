@@ -1,11 +1,15 @@
 """Command line of the port: the reference's three example drivers
-(examples/kitti, examples/euroc, examples/tum_rgbd) and a dataset-free
-synthetic run, as lvt_tpu/cli.py has them.
+(examples/kitti, examples/euroc, examples/tum_rgbd), a dataset-free
+synthetic run and the benchmark, as lvt_tpu/cli.py has them.
 
     python -m lvt_tpu_torch kitti --sequences-dir D --seq 0 [--output 00.txt]
     python -m lvt_tpu_torch euroc --root D --dataset MH_01_easy [--output MH_01_easy.txt]
     python -m lvt_tpu_torch tum   --dataset-dir D [--freiburg 1] [--output tum_trajectory.txt]
     python -m lvt_tpu_torch synthetic [--frames 30]
+    python -m lvt_tpu_torch bench [--ba] [--multistream [--streams 8]]
+
+``bench`` is lvt_tpu's bench.py and its three modes (lvt_tpu_torch/bench.py):
+one JSON line of frames/s per card on a synthetic KITTI-geometry sequence.
 
 Every subcommand takes ``--device`` (default ``cuda``; without CUDA the
 run fails instead of falling back to the CPU). Trajectories are written
@@ -260,6 +264,13 @@ def main(argv=None) -> int:
     s.add_argument("--frames", type=int, default=30)
     _common(s)
     s.set_defaults(fn=run_synthetic)
+
+    from lvt_tpu_torch import bench
+
+    b = sub.add_parser("bench", help="the benchmark: frames/s per card on "
+                                     "synthetic KITTI-geometry frames")
+    bench.add_arguments(b)
+    b.set_defaults(fn=bench.run)
 
     args = p.parse_args(argv)
     return args.fn(args)

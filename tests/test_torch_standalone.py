@@ -210,7 +210,7 @@ def test_ate_rmse_agrees():
     assert synthetic.ate_rmse(gt, gt) == 0.0
 
 
-SHELLS = ("cli.py", "capi.py", "observability.py", "viz.py", "viz_html.py",
+SHELLS = ("cli.py", "bench.py", "capi.py", "observability.py", "viz.py", "viz_html.py",
           "io/trajectory.py", "io/native_loader.py", "io/datasets.py",
           "io/streaming.py", "io/ros2_bridge.py", "__main__.py")
 
