@@ -44,14 +44,26 @@ and the script exits non-zero without printing the final line:
    time in a kernel trace) every frame sets the node's predicate once and
    launches the path's kernels, a BA frame (12, 16; 8 may list fewer)
    runs exactly an other frame's kernels and as many more as the node's
-   body holds, and the eager step runs the same kernels on every
-   frame; then the card against the CPU over frames 0-8 (BA runs at
-   frames 4 and 8); then the sparse descriptor mode (path 1's config),
+   body holds (local BA's kernel ``ba_refine`` on BA frames, none on the
+   others), and the eager step runs the same kernels on every frame
+   (``ba_refine`` once: BA computed and selected); then the card against
+   the CPU over frames 0-8 (BA runs at frames 4 and 8); then local BA's
+   kernel (``lvt_tpu_torch::ba_refine``, csrc/ba.cu: the whole body, one
+   block per stream; not a TPU kernel) on the windows it took at frames 4
+   and 8 in one launch, and on them cut to 3-8 observed points, against
+   its plain version (``refine_structure_plain``, torch ops) on the card:
+   every output (positions, chi2, n_obs, the accept bits) bit-equal, and
+   each stream bit-equal to its own S = 1 launch (the same after the
+   bench's ``--ba``, on path 7 kitti's windows, and on the 8-stream unit's
+   8 windows of frame 8, where it is timed at S = 1 and 8 beside its
+   bound and the plain version captured in a CUDA graph); then the sparse
+   descriptor mode (path 1's config),
    card vs CPU: frame 0's features bit-equal, the poses of frames 0-3
    within 1e-3 m; then 8 streams of path 2's config (``MultiStreamVO``,
    whose vmapped step selects BA) over 9 frames, streams 0 and 1 against
    the card's ``VOSystem``: poses, map positions and BA runs bit-equal (a
-   gap under 1e-5 m tolerated and printed); then ``measure_if_node``;
+   gap under 1e-5 m tolerated and printed); then ``measure_if_node``
+   (with the node's body count);
 5. the benchmark entry point (``lvt_tpu_torch/bench.py``, ``python -m
    lvt_tpu_torch bench``): its three modes at bench.py's sizes, each
    printing its JSON line: main (path 1's config, 400 frames, 24 timed
@@ -198,7 +210,8 @@ and the script exits non-zero without printing the final line:
 14. a JSON line with each kernel's launches and largest error against its
    plain version (in all, and by path), times and bound (T per site, per
    frame of paths 1-2, batched and at path 8's shard rows; PnP's solve,
-   phases and ops at S = 1 and 8, and at path 8's M), then the last line
+   phases and ops at S = 1 and 8, and at path 8's M; ``ba_refine`` at S =
+   1 and 8), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path runs its step as the port does by default: a CUDA graph of the
@@ -230,7 +243,10 @@ all-reduces, on BA frames only).
 Every path launches the fused PnP solve once per frame; paths 8a-8c,
 whose points are sharded, launch its phases instead, 23 per frame (2
 passes x (a setup + 5 x (normal equations, trial step)) + the last
-demotion). The plain version's two reduction ops run on no path.
+demotion). The plain version's two reduction ops run on no path. Local
+BA's kernel runs on BA_KERNEL_PATHS (path 2, path 7 kitti, the bench's
+``--ba``): once per BA frame in a graph, once per frame eagerly, once in
+a graph's warm-up and once in its capture; 8a-8c keep BA's torch ops.
 Every kernel's launch count is set to 0 just before a path runs (on
 path 7, each CLI run; on path 8, in each rank; on the bench, each mode)
 and read just after it. A
@@ -308,7 +324,17 @@ KERNELS = {
                        "lvt_tpu/solver/pnp.py:155-156"),
     "stream_sum": ("cuda", "lvt_tpu_torch/csrc/pnp.cu",
                    "lvt_tpu/solver/pnp.py:148"),
+    # not a TPU kernel: lvt_tpu's local BA body (XLA ops under jit, the run
+    # branch of the lax.cond at lvt_tpu/core/step.py:269-318), one block
+    # per stream, on the unsharded BA paths (the sharded step keeps the
+    # torch ops and their all-reduces)
+    "ba_refine": ("cuda", "lvt_tpu_torch/csrc/ba.cu",
+                  "lvt_tpu/solver/bundle.py:93-378"),
 }
+# the paths whose local BA body is the ba_refine kernel: once per BA frame
+# in a graph (the IF node's body), once per frame in an eager step (BA
+# computed and selected), once in a graph's warm-up and once in its capture
+BA_KERNEL_PATHS = ("path2", "path7-kitti", "bench-ba")
 # lvt_tpu's one lax.cond (local BA on its schedule) as a CUDA IF node:
 # the predicate kernel and the node it sets, made in a captured graph by
 # core/graphs.py::cond; held against the select it replaces
@@ -373,6 +399,34 @@ PNP_PLAIN_OPS = 12
 # and 40 out (t, q, count, chi2)
 PNP_FP32_PER_POINT = 2 * 64 + 10 * (30 + 34) + 2 * 2
 PNP_FP64_PER_POINT = 10 * 54 + 2 * 12
+# local BA's body (csrc/ba.cu), the work the function needs: per LM
+# iteration, per observation that takes part (a gated weight > 0; left and
+# right apart) 82 float32 operations (the camera point 15, the projection
+# and e2 13, the Cauchy weight 4, the Jacobian's factors 6, jc_w 12, and at
+# the trial state the camera point, projection, e2 and the chi-square term
+# 32) and 144 float64 fused multiply-adds (jc 24 and jp 12, the non-zero
+# products; h_cp 36; the symmetric products by their upper triangles, as
+# PnP's H: h_pp 12, h_cc 42; g_p = J_p^T W r 6, g_c 12); per point that
+# takes part 60 float32 (h_pp's inverse 50, the point step 10) and, for F
+# poses of which F - 1 are free, 18 F + 9 (the point step) + 54 (F - 1)
+# (h_cp h_pp^-1) + S's Schur sums by its upper triangle, 108 per pair of
+# free poses and 63 per free pose (the upper half of a diagonal block) +
+# 18 (F - 1) (g_red's) float64;
+# the 6 (F - 1) reduced system's LU and solves, n^3 / 3 + n^2; once, per
+# observation with a positive input weight 152 float32 (the gate's two
+# sweeps and the weights' third, at 30 each; the starting chi-square 32;
+# the fit before and after, 30 each) and per map point 15 (the trust
+# region). Every float64 operation is a sum of a matrix product, so at the
+# tensor cores' float64 rate. Bytes: per stream the window's poses (28 F),
+# per point its position in and out (24) and per pose its two
+# observations and weights (24 F), and chi2, n_obs and the accept bits
+BA_FP32_PER_OBS_ITER = 82
+BA_FP64_PER_OBS_ITER = 144
+BA_FP32_PER_POINT_ITER = 60
+BA_FP32_PER_OBS = 152
+BA_FP32_PER_POINT = 15
+# the points that stream i keeps in check_ba_refine's few-point windows
+FEW_BA_POINTS = (3, 8, 16, 40, 100, 200, 400, 700)
 # launches each path makes per frame, exactly (path 3's for all S streams
 # at once: one batch, not S)
 NEED_PER_FRAME = {
@@ -414,7 +468,9 @@ for _path, _need in NEED_PER_FRAME.items():
 # gloo, BA computed and selected: their wrappers and all-reduces count
 # alike on both types
 NEED_BY_FRAME_TYPE = {
-    path: {"ba": {"if_node": 1, "nccl": 0}, "other": {"if_node": 1, "nccl": 0}}
+    path: {"ba": {"if_node": 1, "nccl": 0,
+                  "ba_refine": int(path in BA_KERNEL_PATHS)},
+           "other": {"if_node": 1, "nccl": 0, "ba_refine": 0}}
     for path in ("path2", "path7-kitti", "path8a", "bench-ba")}
 # kernel T's sites in one frame of each path
 T_SITES = {"path1": ("map", "staged", "row"),
@@ -1051,10 +1107,14 @@ def _report_modes(path, run, per=1) -> dict:
                 syncs=run["graph"]["syncs"])
 
 
-def _check_launches(path, launches, n_frames) -> None:
+def _check_launches(path, launches, n_frames, ba_frames=None) -> None:
     """Each kernel launched exactly NEED_PER_FRAME times per frame (and the
-    path's other kernels never)."""
+    path's other kernels never); on BA_KERNEL_PATHS local BA's kernel
+    ``ba_frames`` times (None: once per frame, as an eager step, a graph's
+    warm-up and its capture compute BA on every frame)."""
     need = {k: NEED_PER_FRAME[path].get(k, 0) * n_frames for k in KERNELS}
+    if path in BA_KERNEL_PATHS:
+        need["ba_refine"] = n_frames if ba_frames is None else ba_frames
     bad = {k: (launches.get(k, 0), v) for k, v in need.items()
            if launches.get(k, 0) != v}
     if bad:
@@ -1172,7 +1232,7 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
                              f"says {want_ba}")
     _check_wrapper_counts(path, run, n)
 
-    prof = _profiles(path, run, drive, profile_dir)
+    prof = _profiles(path, run, drive, profile_dir, config=config)
     if path == "path1":
         prof.update(_inside_the_graph(path, vo, drive, n_units - 1, chunk))
     if window > 0:
@@ -1530,6 +1590,176 @@ def measure_pnp_solve(card, path, inputs) -> dict:
                    f"(bound {b_ms:.3g} ms, {b_by}), the plain version "
                    f"graphed {q['plain_ms']:.4f} ms, the phases on one rank "
                    f"({pnp.N_PHASES} launches) {q['phases_ms']:.4f} ms")
+    return dict(rep[1], batched=rep[n_streams], **gaps)
+
+
+def capture_ba_inputs(path, frames, config) -> dict:
+    """The inputs that local BA's kernel (``lvt_tpu_torch::ba_refine``)
+    launched with at the BA frames while ``frames()`` tracked a path's
+    first frames eagerly (``disable_graphs``: an eager step computes BA on
+    every frame, and a replay calls no Python): ``args`` (t, q, pos, obs,
+    w, obs_r, w_r) with a leading stream axis and ``cam`` (fx, fy, cx, cy,
+    baseline, reprojection_th2, iterations). A VOSystem's BA frames are
+    stacked as streams; a MultiStreamVO's vmapped call reaches the op's
+    batching rule, which launches once on the streams' real tensors (the
+    last BA frame's are kept)."""
+    from lvt_tpu_torch.core.graphs import disable_graphs
+    from lvt_tpu_torch.solver import bundle
+
+    seen, real = [], bundle.ba_refine_op
+
+    def record(*args):
+        if not torch._C._functorch.is_batchedtensor(args[0]):
+            seen.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                              else x for x in args))
+        return real(*args)
+
+    bundle.ba_refine_op = record
+    try:
+        with disable_graphs():
+            n = frames()
+    finally:
+        bundle.ba_refine_op = real
+    if len(seen) != n:
+        raise AssertionError(f"{path}: {len(seen)} launches of ba_refine in "
+                             f"{n} eager frames, not one per frame")
+    ba = [c for c, b in zip(seen, _ba_frames(config, range(n))) if b]
+    args = (ba[-1][:7] if ba[-1][0].shape[0] > 1 else
+            tuple(torch.cat(x) for x in zip(*(c[:7] for c in ba))))
+    return dict(args=args, cam=seen[0][7:])
+
+
+def few_ba_points(args) -> tuple:
+    """``args`` (captured BA windows) with stream i's observations cut to
+    its first FEW_BA_POINTS[i] observed points."""
+    w, w_r = args[4], args[6]
+    seen = ((w > 0) | (w_r > 0)).any(1)                       # [S, M]
+    k = torch.tensor(FEW_BA_POINTS[:w.shape[0]], device=w.device)[:, None]
+    keep = (seen & (torch.cumsum(seen.int(), -1) <= k))[:, None]
+    return (*args[:4], w * keep, args[5], w_r * keep)
+
+
+def _ba_plain(args, cam) -> tuple:
+    """The plain version (torch ops, ``refine_structure_plain``) stream by
+    stream on the card, stacked as ba_refine's outputs."""
+    from lvt_tpu_torch.geometry.se3 import Pose
+    from lvt_tpu_torch.solver import bundle
+
+    fx, fy, cx, cy, baseline, th2, iters = cam
+    outs = [bundle.refine_structure_plain(
+        Pose(*a[:2]), *a[2:], fx=fx, fy=fy, cx=cx, cy=cy, baseline=baseline,
+        iterations=iters, reprojection_th2=th2) for a in zip(*args)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def check_ba_refine(path, inputs) -> dict:
+    """Local BA's kernel against its plain version on the card, on a path's
+    captured BA windows (``capture_ba_inputs``) and on the same windows cut
+    to few points (``few_ba_points``), all S streams in one launch: every
+    output (positions, chi2, n_obs, the accept bits) bit-equal to the
+    plain version's, stream by stream (the gaps printed), and each stream
+    bit-equal to its own S = 1 launch. Returns the largest gaps."""
+    from lvt_tpu_torch.solver import bundle
+
+    cam = inputs["cam"]
+    gaps = {}
+    for label, args in (("captured", inputs["args"]),
+                        ("few points", few_ba_points(inputs["args"]))):
+        s, m = args[2].shape[:2]
+        got = bundle.ba_refine_op(*args, *cam)
+        want = _ba_plain(args, cam)
+        torch.cuda.synchronize()
+        plain = all(torch.equal(a, b) for a, b in zip(got, want))
+        alone = all(torch.equal(a[0], b[i]) for i in range(s)
+                    for a, b in zip(bundle.ba_refine_op(
+                        *(x[i:i + 1] for x in args), *cam), got))
+        dp = (got[0] - want[0]).double().norm(dim=-1).amax(-1)
+        rel = ((got[1] - want[1]).double().abs()
+               / want[1].double().abs().clamp(min=1e-30))
+        moved = (want[0] != args[2]).any(-1).sum(-1).tolist()
+        _say(path, f"ba_refine S={s} x F={args[3].shape[1]} x M={m} "
+                   f"({label}) against the plain version on the card, per "
+                   f"stream: position gap {dp.tolist()} m, chi2 "
+                   f"{rel.tolist()} relative, n_obs {got[2].tolist()} "
+                   f"(plain {want[2].tolist()}), accepted steps "
+                   f"{got[3].sum(-1).tolist()} (plain "
+                   f"{want[3].sum(-1).tolist()}), points refined {moved}; "
+                   f"{'bit-equal' if plain else 'NOT equal'} to the plain "
+                   f"version; every stream "
+                   f"{'bit-equal' if alone else 'NOT equal'} to its S=1 "
+                   f"launch")
+        if not plain:
+            raise AssertionError(f"{path}: ba_refine differs from its plain "
+                                 f"version ({label}): positions "
+                                 f"{dp.max()} m, chi2 {rel.max()}")
+        if not alone:
+            raise AssertionError(f"{path}: a stream of the S={s} ba_refine "
+                                 f"launch ({label}) differs from its S=1 "
+                                 f"launch")
+        for key, v in (("pos_m", dp.max()), ("chi2_rel", rel.max()),
+                       ("max_abs_err", _max_abs_err(got, want))):
+            gaps[key] = max(float(v), gaps.get(key, 0.0))
+        gaps.update(s=s, m=m)
+    return gaps
+
+
+def ba_refine_work(args, cam) -> tuple[int, dict]:
+    """Bytes and operations of the BA bodies of ``args`` (see
+    BA_FP32_PER_OBS_ITER): the observations and points that take part
+    (the plain version's gate and mask), the observations with a
+    positive input weight."""
+    from lvt_tpu_torch.geometry.se3 import Pose
+    from lvt_tpu_torch.solver import bundle
+
+    fx, fy, cx, cy, baseline, th2, iters = cam
+    s, f, m = args[3].shape[:3]
+    n_obs = n_pts = n_in = 0
+    for t, q, pos, obs, w, obs_r, w_r in zip(*args):
+        wg, wg_r = bundle.chi2_gate_weights(
+            Pose(t, q), pos, obs, w, fx=fx, fy=fy, cx=cx, cy=cy,
+            baseline=baseline, obs_right=obs_r, w_right=w_r)
+        use = (((wg > 0).sum(0) >= 2) & (((wg > 0) & (wg_r > 0)).sum(0) >= 1))
+        n_obs += int(((wg > 0) & use).sum() + ((wg_r > 0) & use).sum())
+        n_pts += int(use.sum())
+        n_in += int((w > 0).sum() + (w_r > 0).sum())
+    free, n = f - 1, 6 * (f - 1)
+    schur = 108 * free * (free - 1) // 2 + 63 * free
+    fp64_pt = 18 * f + 9 + 54 * free + schur + 18 * free
+    fp64 = iters * (BA_FP64_PER_OBS_ITER * n_obs + fp64_pt * n_pts
+                    + s * (n ** 3 // 3 + n * n))
+    fp32 = (iters * (BA_FP32_PER_OBS_ITER * n_obs
+                     + BA_FP32_PER_POINT_ITER * n_pts)
+            + BA_FP32_PER_OBS * n_in + BA_FP32_PER_POINT * s * m)
+    nbytes = s * (28 * f + 24 * m + 24 * f * m + 4 + 8 + iters)
+    return nbytes, {"fp32": fp32, "fp64_tensor": fp64}
+
+
+def measure_ba_refine(card, path, inputs) -> dict:
+    """``check_ba_refine``, then at S = 1 (stream 0) and S = all: the
+    kernel's device time beside its bound; at S = 1 the plain version's,
+    captured in a CUDA graph and replayed (the IF node's body before this
+    kernel; it runs stream by stream, so S streams take S times as long).
+    No one PyTorch call runs a bundle adjustment: no library time."""
+    from lvt_tpu_torch.solver import bundle
+
+    gaps = check_ba_refine(path, inputs)
+    cam, rep = inputs["cam"], {}
+    n_streams = inputs["args"][0].shape[0]
+    for s in sorted({1, n_streams}):
+        args = tuple(x[:s].contiguous() for x in inputs["args"])
+        b_ms, b_by = bound(card, *ba_refine_work(args, cam))
+        rep[s] = dict(
+            s=s, f=args[3].shape[1], m=args[2].shape[1],
+            ms=device_ms(lambda a=args: bundle.ba_refine_op(*a, *cam), REPS),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        q = rep[s]
+        if s == 1:
+            q["plain_ms"] = device_ms(
+                _graphed(lambda a=args: _ba_plain(a, cam)), PLAIN_REPS)
+        _say(path, f"ba_refine S={s} x F={q['f']} x M={q['m']}: kernel "
+                   f"{q['ms']:.4f} ms (bound {b_ms:.3g} ms, {b_by})"
+                   + (f", the plain version graphed {q['plain_ms']:.4f} ms"
+                      if s == 1 else ""))
     return dict(rep[1], batched=rep[n_streams], **gaps)
 
 
@@ -2273,10 +2503,6 @@ def phase_cli(kitti, euroc, tum) -> dict:
             os.chdir(cwd)
         if rc != 0:
             raise AssertionError(f"{path}: the CLI returned {rc}")
-        # one graph: the card ran its warm-up step and n replays; the
-        # wrappers were called at its warm-up and capture
-        _check_launches(path, run_launches, n + 1)
-        _check_launches(path, calls, 2)
         n_chunks = -(-n // CHUNK)
         # by design the loop's one read per chunk (its statuses and poses,
         # cli._track_sequence) and the recorder's one transfer per chunk
@@ -2298,6 +2524,12 @@ def phase_cli(kitti, euroc, tum) -> dict:
         seq, config, vo = _cli_reference(name, tree, config_of)
         t_setup = time.perf_counter() - t0
         configs[name] = config
+        # one graph: the card ran its warm-up step (which computes BA) and
+        # n replays (BA on its schedule); the wrappers were called at its
+        # warm-up and capture
+        _check_launches(path, run_launches, n + 1,
+                        1 + sum(_ba_frames(config, range(n))))
+        _check_launches(path, calls, 2)
         frames = list(seq)
         t0 = time.perf_counter()
         poses, status = [], []
@@ -2970,7 +3202,8 @@ def _say_busy(path, prof, frame="frame") -> None:
 
 def _profile(run, n, out_dir=None, host=False) -> dict:
     """torch.profiler over ``run()``, one unit of ``n`` frames: each
-    hand-written kernel's launches and mean device time per launch; the
+    hand-written kernel's launches (local BA's kernel's by its own count)
+    and mean device time per launch; the
     device kernels per frame (a graph's too: the trace lists the kernels a
     replay launches); the device's busy time, the sum of all kernel and
     copy times, and its span, from the first kernel's start to the last
@@ -2985,9 +3218,12 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
     table is written there."""
     from lvt_tpu_torch.parallel.dryrun import (IF_NODE_SYMBOL,
                                                KERNEL_SYMBOLS, TRACE_MARKERS,
-                                               device_records, traced)
+                                               ba_launches, device_records,
+                                               traced)
 
+    ba0 = ba_launches()
     _, prof = traced(run, host=host)
+    n_ba = ba_launches() - ba0
     records = [r for r in device_records(prof) if r[0] not in STAGES]
     n_markers = sum("spin_kernel" in name for name, _, _ in records)
     records = [r for r in records if "spin_kernel" not in r[0]]
@@ -3012,6 +3248,10 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
             lines.append(f"kernel {name:<15} {len(mine):>5} launches, "
                          f"{kernels[name]['device_ms']:.4f} ms each "
                          f"(profiler device time)")
+    # local BA's kernel runs in an IF node's body, whose records a trace
+    # can lose: its launches are its own count (dryrun.ba_launches)
+    if n_ba or "ba_refine" in kernels:
+        kernels.setdefault("ba_refine", dict(device_ms=None))["launches"] = n_ba
     busy = sum(end - start for _, start, end in records) / 1e6
     span = (max(end for _, _, end in records)
             - min(start for _, start, _ in records)) / 1e6
@@ -3037,16 +3277,23 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
                 nccl=n_nccl, if_node=n_if, markers=n_markers)
 
 
-def _profiles(path, run, drive, profile_dir=None, frame="frame") -> dict:
+def _profiles(path, run, drive, profile_dir=None, frame="frame",
+              config=None) -> dict:
     """One more unit of the graph system (its last unit's frames again)
     under the profiler: its device busy share, its kernels per frame and
     the launches of each hand-written kernel that the card ran, which must
-    be NEED_PER_FRAME per frame (returned as ``launches``). With
+    be NEED_PER_FRAME per frame, and on BA_KERNEL_PATHS local BA's kernel
+    once per BA frame of the unit by ``config``'s schedule (returned as
+    ``launches``). With
     ``profile_dir`` also one unit of the eager system, whose stage table
     the profiler ranges give."""
     from lvt_tpu_torch.core.graphs import disable_graphs
 
     n, last = run["unit_frames"], len(run["graph"]["times"]) + 1
+    ba = None
+    if config is not None:
+        start = run["graph"]["system"].frame_number
+        ba = sum(_ba_frames(config, range(start, start + n)))
     _say(path, "profile of one graphed unit:")
     prof = _profile(lambda: drive(run["graph"]["system"], last), n)
     _say_busy(path, prof, frame)
@@ -3054,7 +3301,7 @@ def _profiles(path, run, drive, profile_dir=None, frame="frame") -> dict:
     _say(path, f"launches the card ran in the profiled graphed unit ({n} "
                f"frames, kernel trace): {got}; "
                f"{prof['kernels_per_frame']:.1f} device kernels per {frame}")
-    _check_launches(path, got, n)
+    _check_launches(path, got, n, ba)
     # one IF-node predicate per replay of a graph holding the node
     nodes = sum(len(r._branches) for r in run["graph"]["system"]
                 .runners.values())
@@ -3108,7 +3355,7 @@ def measure_if_node(card, config, il, ir) -> dict:
         new = graphs.cond(pred, lambda: real(*args), state.t)
         return state._replace(t=new), new, new
 
-    out, ms = {}, {}
+    out, ms, body = {}, {}, None
     for form, batched in (("node", False), ("select", True)):
         state = Pose(pos.clone(), torch.zeros(4, device=DEVICE))
         runner = graphs.StepGraph(
@@ -3123,6 +3370,8 @@ def measure_if_node(card, config, il, ir) -> dict:
         if len(runner._branches) != (0 if batched else 1):
             raise AssertionError(f"if_node: the {form} graph holds "
                                  f"{len(runner._branches)} IF nodes")
+        if not batched:
+            body = _body_kernels(runner)
     err = max(_require_equal(f"if_node ({'BA' if p else 'other'} frame)",
                              out["node", p], out["select", p])
               for p in (True, False))
@@ -3134,11 +3383,12 @@ def measure_if_node(card, config, il, ir) -> dict:
                     f"select: other frame {ms['node', False]:.4f} / "
                     f"{ms['select', False]:.4f}, BA frame "
                     f"{ms['node', True]:.4f} / {ms['select', True]:.4f} "
-                    f"(bound of the other frame {b_ms:.2e} ms, {b_by})")
+                    f"(bound of the other frame {b_ms:.2e} ms, {b_by}); the "
+                    f"node's body holds {body} kernel, copy and fill nodes")
     return dict(max_abs_err=err, ms=ms["node", False],
                 plain_ms=ms["select", False], ms_ba_frame=ms["node", True],
                 plain_ms_ba_frame=ms["select", True], bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, body_nodes=body)
 
 
 def _ba_frames(config, frames) -> list:
@@ -3166,11 +3416,11 @@ def _body_kernels(runner) -> int:
                for t in ("kernel", "memcpy", "memset"))
 
 
-# a kernel trace can miss the last records of an IF node's body the first
-# time a trace sees the node run: 1-10 of 3233-3276 kernels (the body's
-# closing select and copy), the first BA frame of a trace in a process that
-# traced before (measured on the H100); later BA frames of the trace are
-# whole
+# a kernel trace can miss the last records of an IF node's body: 1-10 of
+# 3233-3276 kernels (the body's closing select and copy) the first time a
+# trace saw the node run, with BA's torch body (8a); with local BA's
+# kernel as the body (its launch and a copy), its records on any BA frame
+# of a trace (measured on the H100)
 TRACED_FRAMES = (5, 17)     # frames traced one at a time: BA at 8, 12, 16
 
 
@@ -3180,12 +3430,14 @@ def _frame_types(path, config, make, a, b, eager=False) -> dict:
     ``a`` and ``b`` (its graph is captured at frame 0, the node's body
     first runs at frame 4), then frames 5-16 one ``track_chunk`` each in
     one kernel trace (``dryrun.frame_launches``). Every frame launches
-    NEED_PER_FRAME and NEED_BY_FRAME_TYPE by its type; every other frame
-    runs the same kernels, and so do the BA frames 12 and 16: an other
-    frame's, and as many more as the node's body holds
-    (``_body_kernels``), so no other frame runs any of BA's. Frame 8, the
-    trace's first BA frame, runs a part of those (TRACED_FRAMES); its
-    shortfall is printed. With ``eager``, the same frames of a system
+    NEED_PER_FRAME and NEED_BY_FRAME_TYPE by its type (local BA's own
+    kernel by its own count); every other frame runs the same kernels,
+    and a BA frame an other frame's and the node's body's
+    (``_body_kernels``; a trace can lose records of the body,
+    TRACED_FRAMES: with local BA's kernel as the body it lists no more
+    than the body holds; with BA's torch body, 8a, the trace's first BA
+    frame lists a part of it and every later one all of it), so no other
+    frame runs any of BA's. With ``eager``, the same frames of a system
     under ``disable_graphs()`` beside it: no predicate, the same kernels
     on every frame (BA computed and selected)."""
     from lvt_tpu_torch.core.graphs import disable_graphs
@@ -3210,9 +3462,14 @@ def _frame_types(path, config, make, a, b, eager=False) -> dict:
             raise AssertionError(f"{path}: the {mode} runner has mode {ran}, "
                                  f"if_nodes {runner.if_nodes}")
         for f, ba in zip(frames, is_ba):
-            _check_launches(path, f, 1)
-            need = ({"if_node": 0, "nccl": 0} if mode == "eager" else
+            want = int(ba or mode == "eager")
+            _check_launches(path, f, 1, want)
+            need = ({"if_node": 0, "nccl": 0,
+                     "ba_refine": int(path in BA_KERNEL_PATHS)}
+                    if mode == "eager" else
                     NEED_BY_FRAME_TYPE[path]["ba" if ba else "other"])
+            if path in BA_KERNEL_PATHS:
+                need = dict(need, ba_refine=want)
             got = {k: f[k] for k in need}
             if got != need:
                 raise AssertionError(f"{path}: a {'BA' if ba else 'other'} "
@@ -3232,40 +3489,49 @@ def _frame_types(path, config, make, a, b, eager=False) -> dict:
                    f"IF-node predicates per frame "
                    f"{1 if mode == 'graph' else 0}; every frame "
                    f"{NEED_PER_FRAME[path]}")
-        first_ba, *whole = kinds["ba"]
-        for t, ks in (("BA", whole), ("other", kinds["other"])):
-            for k in ks[1:]:
-                if k != ks[0]:
-                    raise AssertionError(
-                        f"{path}: {t} frames ran other kernels ({mode}): "
-                        f"{dict(k - ks[0])} more, {dict(ks[0] - k)} fewer")
-        ba, other = whole[0], kinds["other"][0]
-        if first_ba - ba:
-            raise AssertionError(f"{path}: the trace's first BA frame ran "
-                                 f"kernels the others did not: "
-                                 f"{dict(first_ba - ba)}")
-        short = sum((ba - first_ba).values())
+        other = kinds["other"][0]
+        for k in kinds["other"][1:]:
+            if k != other:
+                raise AssertionError(
+                    f"{path}: other frames ran other kernels ({mode}): "
+                    f"{dict(k - other)} more, {dict(other - k)} fewer")
         if mode == "eager":
-            if ba != other or short:
+            if any(k != other for k in kinds["ba"]):
                 raise AssertionError(f"{path}: the eager step runs other "
                                      f"kernels on BA frames")
             continue
+        # a BA frame runs another frame's kernels and the node's body
+        # (TRACED_FRAMES: a kernel trace can lose records of the body)
         body = _body_kernels(runner)
-        extra = ba - other
-        _say(path, f"graph: a BA frame runs {sum(extra.values())} kernels "
-                   f"more than another frame; the IF node's body holds "
-                   f"{body} kernel, copy and fill nodes; the trace's first "
-                   f"BA frame lists {short} fewer: {dict(ba - first_ba)}")
-        if other - ba or sum(extra.values()) != body:
+        extra = [k - other for k in kinds["ba"]]
+        seen = [sum(e.values()) for e in extra]
+        _say(path, f"graph: BA frames list {seen} kernels more than another "
+                   f"frame in the trace "
+                   f"({[dict(e) for e in extra] if body < 10 else '...'}); "
+                   f"the IF node's body holds {body} kernel, copy and fill "
+                   f"nodes")
+        missing = [dict(other - k) for k in kinds["ba"]]
+        if path in BA_KERNEL_PATHS:
+            # local BA's kernel and a copy: the trace may lose their records
+            # on any BA frame, so it lists no more than the body; which
+            # frames run the kernel is its own count (NEED_BY_FRAME_TYPE)
+            bad = max(seen) > body
+        else:
+            # BA's torch body (8a): the trace's first BA frame may list
+            # fewer of it, every later one exactly it, and the same kernels
+            first_ba, *whole = kinds["ba"]
+            bad = (any(k != whole[0] for k in whole[1:])
+                   or bool(first_ba - whole[0])
+                   or any(x != body for x in seen[1:]))
+        if any(missing) or bad:
             raise AssertionError(
                 f"{path}: a BA frame's kernels are not another frame's and "
-                f"the node's body's: {dict(other - ba)} only on the other "
-                f"frame, {sum(extra.values())} more on the BA frame, the "
-                f"body {body}")
-        out = dict(kernels_ba=sum(ba.values()),
+                f"the node's body's: {missing} missing on BA frames, {seen} "
+                f"more, the body {body}")
+        out = dict(kernels_ba=sum(other.values()) + body,
                    kernels_other=sum(other.values()), body=body,
                    nccl_ba=nccl["ba"][0], nccl_other=nccl["other"][0],
-                   first_ba_short=short)
+                   traced_body=seen)
     return out
 
 
@@ -3325,6 +3591,8 @@ def phase_multistream_ba(config, il, ir) -> dict:
     starts = [MS_START_STEP * i for i in range(s)]
     a = torch.stack([il[k:k + n] for k in starts], 1)
     b = torch.stack([ir[k:k + n] for k in starts], 1)
+    ba_inputs = capture_ba_inputs("multistream-ba", _first_frames(
+        lambda: MultiStreamVO(config, s, device=DEVICE), a, b, n), config)
     msvo = MultiStreamVO(config, s, device=DEVICE)
     poses, metrics = msvo.track_chunk(a, b)
     gaps, equal = [], []
@@ -3352,7 +3620,7 @@ def phase_multistream_ba(config, il, ir) -> dict:
     if not max(gaps) < 1e-5:
         raise AssertionError(f"multistream-ba: multi-stream vs single-stream "
                              f"gaps {gaps} m, not under 1e-5 m")
-    return dict(equal=all(equal), gaps=gaps)
+    return dict(equal=all(equal), gaps=gaps, ba_inputs=ba_inputs)
 
 
 # the benchmark entry point (lvt_tpu_torch/bench.py, ``python -m
@@ -3433,9 +3701,13 @@ def _bench_trace(path, system, a, b, n) -> dict:
     node in the graph; returns the traced launches."""
     from lvt_tpu_torch.parallel.dryrun import device_launches
 
+    ba = 0
+    if path in BA_KERNEL_PATHS:   # BA's frames by their frame numbers
+        start = system.frame_number
+        ba = sum(_ba_frames(system.config, range(start, start + n)))
     _, got = device_launches(lambda: system.track_chunk(a, b))
     launches = {k: got.get(k, 0) for k in KERNELS}
-    _check_launches(path, launches, n)
+    _check_launches(path, launches, n, ba)
     nodes = sum(len(r._branches) for r in system.runners.values())
     if got["if_node"] != n * nodes:
         raise AssertionError(f"{path}: {got['if_node']} IF-node predicates "
@@ -3508,6 +3780,9 @@ def phase_bench(il, ir, rot, gt, path1_poses) -> dict:
                 path, capture_pnp_inputs(path, _first_frames(
                     lambda: VOSystem(config, device=DEVICE), il,
                     ir)))["max_abs_err"]
+            errs["ba_refine"] = check_ba_refine(path, capture_ba_inputs(
+                path, _first_frames(lambda: VOSystem(config, device=DEVICE),
+                                    il, ir), config))["max_abs_err"]
         else:
             k = path1_poses.t.shape[0]
             same = (torch.equal(out["poses"].t[:k], path1_poses.t)
@@ -3607,9 +3882,19 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     t_start = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(name):
+        """Adds the seconds since the last lap to phase ``name``'s."""
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - last[0]
+        last[0] = now
+
     card = phase_device()
+    lap("device and build")
     from lvt_tpu_torch import bench
     from lvt_tpu_torch.configs import kitti_ba_dense_config, kitti_config
+    from lvt_tpu_torch.core.system import VOSystem
 
     configs = {"path1": kitti_config(), "path2": kitti_ba_dense_config()}
     # bench.py's sequence, whose prefix every path of its camera takes: the
@@ -3625,12 +3910,14 @@ def main(argv=None) -> int:
     config4, gray, depth, rot4, pos4 = rgbd_setup()
 
     il, ir = il.to(DEVICE), ir.to(DEVICE)
+    lap("frames")
     report = phase_kernels(card, kernel_inputs(configs["path1"], il[:2],
                                                ir[:2]))
     report["hamming_top2"]["batched"] = measure_t_batched(
         card, t_batched_inputs(configs["path1"], il, config4,
                                gray.to(DEVICE)))
     torch.cuda.synchronize()
+    lap("kernels")
     runs = {}
     for path, config in configs.items():
         k = _n_frames(path)
@@ -3639,14 +3926,31 @@ def main(argv=None) -> int:
         phase_cpu(path, config, il, ir, runs[path]["first_poses"])
         if path == "path1":
             sparse = phase_sparse(config, il, ir)
+        lap(path)
+    # local BA's kernel on path 2's BA windows (frames 4 and 8)
+    runs["path2"]["kernel_errs"]["ba_refine"] = check_ba_refine(
+        "path2", capture_ba_inputs("path2", _first_frames(
+            lambda: VOSystem(configs["path2"], device=DEVICE), il, ir),
+            configs["path2"]))["max_abs_err"]
+    lap("ba_refine checks")
     runs.update(phase_bench(il, ir, rot, gt, runs["path1"].pop("poses")))
+    lap("bench")
     ms_ba = phase_multistream_ba(configs["path2"], il, ir)
+    lap("multistream-ba")
+    # local BA's kernel timed on the 8-stream unit's windows of a BA frame
+    # (path 2's config, M = 1024), at S = 1 and 8
+    report["ba_refine"] = measure_ba_refine(card, "multistream-ba",
+                                            ms_ba.pop("ba_inputs"))
+    lap("ba_refine timing")
     report["if_node"] = measure_if_node(card, configs["path2"], il, ir)
+    lap("if_node")
     runs["path3"] = phase_multistream(configs["path1"], il, ir, rot, gt,
                                       args.profile)
     phase_multistream_cpu(configs["path1"], runs["path3"]["first_poses"],
                           runs["path3"]["inputs"])
+    lap("path3")
     runs["path4"] = phase_rgbd(config4, gray, depth, rot4, pos4, args.profile)
+    lap("path4")
     # PnP: the fused solve at path 3's M (paths 1, 2, 4 and 6 have the
     # same) and path 5's 4096, 8 streams in one launch; the phases' time on
     # one rank beside it (the kernel of paths 8a-8c: phase launches are
@@ -3661,6 +3965,7 @@ def main(argv=None) -> int:
                                  old_op_inputs(solve3)).items():
         report[name] = rep
         runs["path3"]["kernel_errs"][name] = rep["max_abs_err"]
+    lap("pnp timing")
     euroc = euroc_setup()
     runs["path5"] = phase_rectified(*euroc, args.profile)
     # path 5's M (4096 map points) is the one other than path 3's 1024
@@ -3673,15 +3978,24 @@ def main(argv=None) -> int:
                                  old_op_inputs(solve5)).items():
         report[name]["path5"] = rep
         runs["path5"]["kernel_errs"][name] = rep["max_abs_err"]
+    lap("path5")
     runs["path6"] = phase_external(configs["path1"], il[:EXT_FRAMES],
                                    ir[:EXT_FRAMES], gt, args.profile)
+    lap("path6")
     k = CHUNK * 3
     runs["path7"] = phase_cli(
         (il[:k].cpu().numpy(), ir[:k].cpu().numpy(), gt[:k]),
         (euroc[2][:k].numpy(), euroc[3][:k].numpy(), euroc[4][:k]),
         tum_setup())
+    lap("path7")
     config8 = sharded_config()
+    runs["path7"]["kernel_errs"]["ba_refine"] = check_ba_refine(
+        "path7-kitti", capture_ba_inputs("path7-kitti", _first_frames(
+            lambda: VOSystem(config8, device=DEVICE), il, ir), config8))[
+        "max_abs_err"]
+    lap("ba_refine checks")
     runs["path7"]["streaming"] = phase_streaming(config8, il, ir)
+    lap("path7")
     if config8 != runs["path7"]["configs"]["kitti"]:
         raise AssertionError("path8: the config is not path 7 kitti's")
     path8 = phase_sharded(card, config8, configs["path1"], il, ir, gt,
@@ -3694,6 +4008,7 @@ def main(argv=None) -> int:
     for name in ("pnp_normal_eqs", "stream_sum"):
         report[name]["path8"] = {m: rep[name]
                                  for m, rep in path8["shard_pnp"].items()}
+    lap("path8")
 
     entries = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -3728,6 +4043,7 @@ def main(argv=None) -> int:
                 runs["path7"].pop("configs")["kitti"],
                 il[:C_ABI_FRAMES].cpu().numpy(),
                 ir[:C_ABI_FRAMES].cpu().numpy())
+    lap("c_abi")
     _say("summary", f"path 3's streams 0 and 1 "
                     f"{'equal' if runs['path3']['equal'] else 'NOT equal'} "
                     f"to the single stream (largest gap "
@@ -3767,6 +4083,8 @@ def main(argv=None) -> int:
                     f"with local BA {'equal' if ms_ba['equal'] else 'NOT '
                     'equal'} to the single stream (largest gap "
                     f"{max(ms_ba['gaps'])} m)")
+    _say("summary", "seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()))
     _say("summary", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

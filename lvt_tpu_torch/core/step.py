@@ -167,39 +167,21 @@ def _staged_update(staged, pose: Pose, feats: FrameFeatures, feature_matched,
     return staged_out, promo, feature_matched
 
 
-def _norm3(v):
-    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
-                      + v[..., 2] * v[..., 2])
-
-
 def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig,
                       group=None):
-    """One windowed BA over the map: chi-square gate, refine, then keep a
-    refined point only inside a relative trust region (10% of its distance
-    to the camera + 0.5 m) and only if it fits the gated observations
-    better under the original window poses. Returns positions [M, 3]."""
-    cam = dict(fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy)
-    stereo = dict(baseline=config.baseline, obs_right=obs_r)
-    w, w_r = bundle.chi2_gate_weights(poses, pos, obs, w, w_right=w_r,
-                                      group=group, **stereo, **cam)
-    # only points with >= 2 left observations and >= 1 stereo pair
-    n_l = (w > 0).sum(0)
-    n_s = ((w > 0) & (w_r > 0)).sum(0)
-    use = ((n_l >= 2) & (n_s >= 1)).float()
-    w, w_r = w * use[None], w_r * use[None]
-    res = bundle.refine_window(
-        poses, pos, obs, w, w_right=w_r, **stereo, **cam,
-        iterations=config.local_ba_iterations,
-        reprojection_th2=config.reprojection_th2, n_fixed_poses=1,
-        group=group)
-    dist = _norm3(pos - poses.t[-1][None])
-    ok = (use > 0) & (_norm3(res.points - pos) <= 0.1 * dist + 0.5)
-    e2_old = bundle.weighted_point_e2(poses, pos, obs, w, w_right=w_r,
-                                      **stereo, **cam)
-    e2_new = bundle.weighted_point_e2(poses, res.points, obs, w, w_right=w_r,
-                                      **stereo, **cam)
-    ok = ok & (e2_new <= e2_old)
-    return torch.where(ok[:, None], res.points, pos)
+    """One windowed BA over the map (``bundle.refine_structure_plain``):
+    the gate, the refinement, the trust region and the improvement test.
+    Returns positions [M, 3]. Without a group, one launch of the op
+    ``lvt_tpu_torch::ba_refine`` (``bundle.ba_refine``: the kernel of
+    csrc/ba.cu on the card, the torch ops on the CPU); with one, the torch
+    ops and their all-reduces."""
+    kw = dict(fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy,
+              baseline=config.baseline, iterations=config.local_ba_iterations,
+              reprojection_th2=config.reprojection_th2)
+    if group is None:
+        return bundle.ba_refine(poses, pos, obs, w, obs_r, w_r, **kw)[0]
+    return bundle.refine_structure_plain(poses, pos, obs, w, obs_r, w_r,
+                                         group=group, **kw)[0]
 
 
 def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,

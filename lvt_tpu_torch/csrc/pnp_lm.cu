@@ -71,6 +71,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lm_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -82,7 +84,6 @@ constexpr int N_PASSES = 2;
 constexpr int N_ITERS = 5;
 constexpr int CAP = 8192;         // points per stream staged in shared memory
 constexpr int SM_FLOATS = 6;      // x, y, z, u, v, w per staged point
-constexpr unsigned FULL = 0xffffffffu;
 
 // The state of one stream's solve, NSTATE floats (shared memory in the
 // fused kernel, a row of device memory between the phases).
@@ -102,10 +103,6 @@ enum : int {
 
 // the phases of the sharded solve (lvt_tpu_torch/solver/pnp.py)
 enum : int { K_SETUP = 0, K_NORMAL = 1, K_TRIAL = 2, K_FINAL = 3 };
-
-struct Cam {
-  float fx, fy, cx, cy, th2;
-};
 
 // One stream's points: staged in shared memory (p < cap), else read from
 // device memory; w is the working weight row (w_mask) in device memory.
@@ -143,39 +140,7 @@ struct Points {
   }
 };
 
-// ---- the plain version's arithmetic, operation by operation
-
-// row i of matvec(m, v) (geometry/se3.py): (v0 m_i0 + v1 m_i1) + v2 m_i2
-__device__ __forceinline__ float mv(const float* m, int i, float a, float b,
-                                    float c) {
-  return __fadd_rn(
-      __fadd_rn(__fmul_rn(a, m[3 * i]), __fmul_rn(b, m[3 * i + 1])),
-      __fmul_rn(c, m[3 * i + 2]));
-}
-
-struct Proj {
-  float px, py, pz, iz, rx, ry, e2;
-};
-
-// _project_residuals and the squared error at the pose (r, t)
-__device__ __forceinline__ Proj project(const float* r, const float* t,
-                                        float x, float y, float z, float u,
-                                        float v, const Cam& c) {
-  Proj o;
-  o.px = __fadd_rn(mv(r, 0, x, y, z), t[0]);
-  o.py = __fadd_rn(mv(r, 1, x, y, z), t[1]);
-  o.pz = __fadd_rn(mv(r, 2, x, y, z), t[2]);
-  o.iz = __fdiv_rn(1.0f, fabsf(o.pz) < 1e-9f ? 1e-9f : o.pz);
-  o.rx = __fsub_rn(__fadd_rn(__fmul_rn(__fmul_rn(c.fx, o.px), o.iz), c.cx), u);
-  o.ry = __fsub_rn(__fadd_rn(__fmul_rn(__fmul_rn(c.fy, o.py), o.iz), c.cy), v);
-  o.e2 = __fadd_rn(__fmul_rn(o.rx, o.rx), __fmul_rn(o.ry, o.ry));
-  return o;
-}
-
-// w_mask * _cauchy_weights(e2, delta2)
-__device__ __forceinline__ float cauchy(float wm, float e2, const Cam& c) {
-  return __fmul_rn(wm, __fdiv_rn(1.0f, __fadd_rn(1.0f, __fdiv_rn(e2, c.th2))));
-}
+// ---- the plain version's arithmetic (lm_common.cuh has the rest)
 
 // w_mask * delta2 * log1p(e2 / delta2): one term of the robust chi-square
 __device__ __forceinline__ float rho(float wm, float e2, const Cam& c) {
@@ -203,34 +168,6 @@ __device__ __forceinline__ void jacobian(const Proj& p, const Cam& c,
   jv[4] = __fmul_rn(fyyz, p.px);
   jv[5] = __fmul_rn(fyz, p.px);
   jv[6] = p.ry;
-}
-
-// quaternion.to_matrix, row major
-__device__ void to_matrix(const float* q, float* m) {
-  const float w = q[0], x = q[1], y = q[2], z = q[3];
-  const float xx = __fmul_rn(x, x), yy = __fmul_rn(y, y), zz = __fmul_rn(z, z);
-  const float xy = __fmul_rn(x, y), xz = __fmul_rn(x, z), yz = __fmul_rn(y, z);
-  const float wx = __fmul_rn(w, x), wy = __fmul_rn(w, y), wz = __fmul_rn(w, z);
-  m[0] = __fsub_rn(1.0f, __fmul_rn(2.0f, __fadd_rn(yy, zz)));
-  m[1] = __fmul_rn(2.0f, __fsub_rn(xy, wz));
-  m[2] = __fmul_rn(2.0f, __fadd_rn(xz, wy));
-  m[3] = __fmul_rn(2.0f, __fadd_rn(xy, wz));
-  m[4] = __fsub_rn(1.0f, __fmul_rn(2.0f, __fadd_rn(xx, zz)));
-  m[5] = __fmul_rn(2.0f, __fsub_rn(yz, wx));
-  m[6] = __fmul_rn(2.0f, __fsub_rn(xz, wy));
-  m[7] = __fmul_rn(2.0f, __fadd_rn(yz, wx));
-  m[8] = __fsub_rn(1.0f, __fmul_rn(2.0f, __fadd_rn(xx, yy)));
-}
-
-// quaternion.normalize: q / sqrt(((q0^2 + q1^2) + q2^2) + q3^2)
-__device__ void normalize(float* q) {
-  const float d = __fadd_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(q[0], q[0]), __fmul_rn(q[1], q[1])),
-                __fmul_rn(q[2], q[2])),
-      __fmul_rn(q[3], q[3]));
-  const float s = __fsqrt_rn(d);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = __fdiv_rn(q[i], s);
 }
 
 // quaternion.from_matrix: the four Shepperd candidates, the first of the
@@ -278,16 +215,7 @@ __device__ void from_matrix(const float* m, float* q) {
 
 // r_wc = to_matrix(q)^T, t_wc = -matvec(r_wc, t)
 __device__ void init_pose(float* st) {
-  float r_cw[9];
-  to_matrix(st + S_Q, r_cw);
-  float* r = st + S_R;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) r[3 * i + j] = r_cw[3 * j + i];
-  const float* t = st + S_T;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) st[S_TW + i] = -mv(r, i, t[0], t[1], t[2]);
+  world_to_camera(st + S_T, st + S_Q, st + S_R, st + S_TW);
 }
 
 // the pass's damping lambda = tau max(diag H) + 1e-12, nu = 2, and its
@@ -374,27 +302,7 @@ __device__ void trial(float* st, const double* hg) {
 #pragma unroll
   for (int i = 0; i < NP; ++i) finite = finite && isfinite(d[i]);
 
-  const float w0 = d[3], w1 = d[4], w2 = d[5];
-  const float theta2 = __fadd_rn(
-      __fadd_rn(__fmul_rn(w0, w0), __fmul_rn(w1, w1)), __fmul_rn(w2, w2));
-  const float theta = __fsqrt_rn(__fadd_rn(theta2, 1e-20f));
-  const float half = __fmul_rn(0.5f, theta);
-  const float sinc = theta < 1e-6f ? __fsub_rn(0.5f, __fdiv_rn(theta2, 48.0f))
-                                   : __fdiv_rn(sinf(half), theta);
-  float dq[4] = {cosf(half), __fmul_rn(sinc, w0), __fmul_rn(sinc, w1),
-                 __fmul_rn(sinc, w2)};
-  normalize(dq);
-  float dr[9];
-  to_matrix(dq, dr);
-  const float* r = st + S_R;
-  const float* t = st + S_TW;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      st[S_TR_R + 3 * i + k] = mv(dr, i, r[k], r[3 + k], r[6 + k]);
-    st[S_TR_T + i] = __fadd_rn(mv(dr, i, t[0], t[1], t[2]), d[i]);
-  }
+  retract(st + S_R, st + S_TW, d, st + S_TR_R, st + S_TR_T);
   st[S_TR_OK] = finite ? 1.0f : 0.0f;
 }
 

@@ -48,6 +48,11 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P],
     "lvt_pnp_phase": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                       _F, _P, _P, _P, _P, _P],
+    "lvt_ba_refine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                      _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    "lvt_ba_max_window": [],
+    "lvt_ba_launches": [_P],
+    "lvt_ba_scratch_per_point": [_I],
     "lvt_if_node": [_P, _P, _P, _P],
     "lvt_graph_node_counts": [_P, _P, _I],
 }

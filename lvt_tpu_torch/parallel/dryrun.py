@@ -188,7 +188,7 @@ def _chunks(vo, a, b, chunk: int, after=None, syncs_seen=True) -> dict:
 def zero_kernel_counters() -> dict:
     """Every kernel wrapper by name, each launch count set to 0."""
     from lvt_tpu_torch.ops import patches, perception, top2
-    from lvt_tpu_torch.solver import pnp
+    from lvt_tpu_torch.solver import bundle, pnp
 
     counters = {"perception": perception.perception_patch_maps_batched,
                 "brief": perception.brief_planes,
@@ -196,7 +196,7 @@ def zero_kernel_counters() -> dict:
                 "hamming_top2": top2.hamming_top2,
                 "pnp_solve": pnp.pnp_solve, "pnp_phase": pnp.pnp_phase,
                 "pnp_normal_eqs": pnp.normal_equations,
-                "stream_sum": pnp.stream_sum}
+                "stream_sum": pnp.stream_sum, "ba_refine": bundle.ba_refine}
     for fn in counters.values():
         fn.launches = 0
     return counters
@@ -209,7 +209,8 @@ KERNEL_SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
                   "pnp_solve": "pnp_solve_kernel",
                   "pnp_phase": "pnp_phase_kernel",
                   "pnp_normal_eqs": "pnp_normal_eqs_kernel",
-                  "stream_sum": "stream_sum_kernel"}
+                  "stream_sum": "stream_sum_kernel",
+                  "ba_refine": "ba_refine_kernel"}
 
 
 # spin kernels that open a trace; no count reads them
@@ -276,15 +277,30 @@ def _count(names) -> dict:
     return counts
 
 
+def ba_launches() -> int:
+    """Local BA's kernel's launches on the current device so far, counted by
+    the kernel itself (``bundle.device_launches``; 0 where it never
+    loaded)."""
+    from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.solver import bundle
+
+    return bundle.device_launches() if kernels._lib is not None else 0
+
+
 def device_launches(fn):
     """``fn()``'s result and what the card ran during it, from a kernel
     trace (``traced``): each hand-written kernel's launches by name, a
     CUDA graph's replays included (no wrapper call counts those); under
     ``nccl`` the NCCL kernels, under ``if_node`` the kernels that set a
     CUDA IF node's predicate, under ``markers`` the trace's markers that
-    it kept (of TRACE_MARKERS), under ``kernels`` all kernels."""
+    it kept (of TRACE_MARKERS), under ``kernels`` all kernels. Local BA's
+    kernel, which runs in an IF node's body whose records a trace can
+    lose, from the kernel's own count (``ba_launches``)."""
+    before = ba_launches()
     out, prof = traced(fn)
-    return out, _count(name for name, _, _ in device_records(prof))
+    counts = _count(name for name, _, _ in device_records(prof))
+    counts["ba_refine"] = ba_launches() - before
+    return out, counts
 
 
 def frame_launches(track, n: int):
@@ -293,12 +309,16 @@ def frame_launches(track, n: int):
     (``spin_kernel``) queued after each call: per call, the counts of
     :func:`_count` and the kernels' names in order (``names``). A call is
     one frame of a system: so launches split by frame type (local BA's
-    frames and the others, core/graphs.py's IF node)."""
+    frames and the others, core/graphs.py's IF node). Local BA's kernel
+    from its own count, read after each call (``device_launches``)."""
+    ba = [ba_launches()]
+
     def run():
         out = []
         for i in range(n):
             out.append(track(i))
             torch.cuda._sleep(1)
+            ba.append(ba_launches())
         return out
 
     out, prof = traced(run)
@@ -315,6 +335,8 @@ def frame_launches(track, n: int):
     if len(frames) != n:
         raise RuntimeError(f"the trace holds {len(frames)} frames' markers, "
                            f"not {n}")
+    for f, a, b in zip(frames, ba, ba[1:]):
+        f["ba_refine"] = b - a     # the kernel's own count (device_launches)
     return out, frames
 
 

@@ -27,6 +27,20 @@ and are rounded to float32 after it (:func:`_round_sums`); the
 observation count is a ``psum``. The per-point blocks (``h_pp``,
 ``h_cp``, the point updates) stay local, and the reduced camera solve
 runs on every rank alike. On one rank the result is the unsharded bits.
+
+Local BA's whole body (the gate, the refinement and the writeback test of
+core/step.py) is the custom op ``lvt_tpu_torch::ba_refine`` over a leading
+stream axis S, built as PnP's solve is (solver/pnp.py):
+
+* CUDA: one launch of the hand-written kernel of ``csrc/ba.cu`` for all S
+  streams, one thread block per stream running the whole body on chip
+  (lvt_tpu runs it as XLA ops; it is not a TPU kernel);
+* CPU: :func:`refine_structure_plain` stream by stream, the torch ops this
+  module has always run; on the card it is a reference for the tests and
+  chip_smoke.py, and the body of the sharded step (``group``), whose sums
+  go to the group between its ops;
+* fake tensors: the output shapes; ``torch.func.vmap``: a rule that folds
+  vmap's axis into the stream axis.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 
+from lvt_tpu_torch import kernels
 from lvt_tpu_torch.device import scalar
 from lvt_tpu_torch.geometry import quaternion as quat
 from lvt_tpu_torch.geometry.se3 import Pose, matvec
@@ -99,6 +114,7 @@ class BAResult(NamedTuple):
     points: torch.Tensor   # [M, 3] refined world points
     chi2: torch.Tensor     # robust total error after refinement
     n_obs: torch.Tensor    # observations used
+    accepted: torch.Tensor  # [iterations] bool: the steps taken
 
 
 def _poses_to_w2c(poses: Pose):
@@ -169,15 +185,26 @@ def _sq(r):
     return r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]
 
 
+def _check_stereo(w_right, baseline) -> None:
+    """Right-camera observations need their weights and a stereo baseline
+    (lvt_tpu asserts the same)."""
+    if w_right is None or not baseline:
+        raise ValueError("right-camera observations need w_right and a "
+                         "nonzero baseline")
+
+
 def _blocks(obs, w, baseline, obs_right, w_right):
     """Observation blocks: (pixels, weights, camera x-offset)."""
     blocks = [(obs, w.float(), 0.0)]
     if obs_right is not None:
-        if w_right is None or not baseline:
-            raise ValueError("right-camera observations need w_right and a "
-                             "nonzero baseline")
+        _check_stereo(w_right, baseline)
         blocks.append((obs_right, w_right.float(), -float(baseline)))
     return blocks
+
+
+# the chi-square gate's floor (chi2_gate_weights' default, which the step
+# and local BA's kernel use)
+GATE_TH2 = 0.5
 
 
 def chi2_gate_weights(
@@ -189,7 +216,7 @@ def chi2_gate_weights(
     baseline: float = 0.0,
     obs_right: torch.Tensor | None = None,
     w_right: torch.Tensor | None = None,
-    gate_th2: float = 0.5,
+    gate_th2: float = GATE_TH2,
     group=None,
 ):
     """Per-observation chi-square gate at the current state, before BA:
@@ -303,7 +330,7 @@ def refine_window(
         jp = _einsum64("fmij,fjk->fmik", dpi, r_wc)
         return jc, jp
 
-    def iteration(s: _BAState) -> _BAState:
+    def iteration(s: _BAState) -> tuple[_BAState, torch.Tensor]:
         h_cp = h_pp = g_p = 0.0
         cam_parts = []     # per block: h_cc's and g_c's float64 partials
         p_l = _camera_points(s.r_wc, s.t_wc, s.points)
@@ -355,18 +382,182 @@ def refine_window(
             lam=torch.where(ok, s.lam / three, s.lam * s.nu),
             nu=torch.where(ok, 2.0, s.nu * 2.0),
             chi2=torch.where(ok, chi2_new, s.chi2),
-        )
+        ), ok
 
     r_wc, t_wc = _poses_to_w2c(poses)
     state = _BAState(r_wc, t_wc, points,
                      lam=torch.full((), 1e-4, dtype=dtype, device=dev),
                      nu=torch.full((), 2.0, dtype=dtype, device=dev),
                      chi2=robust_chi2(r_wc, t_wc, points))
+    accepted = []
     for _ in range(iterations):
-        state = iteration(state)
+        state, ok = iteration(state)
+        accepted.append(ok)
     return BAResult(
         poses=_w2c_to_poses(state.r_wc, state.t_wc),
         points=state.points,
         chi2=state.chi2,
         n_obs=psum_if(sum((w_b > 0).sum() for _, w_b, _ in blocks), group),
+        accepted=(torch.stack(accepted) if accepted else
+                  torch.zeros(0, dtype=torch.bool, device=dev)),
     )
+
+
+def _norm3(v):
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                      + v[..., 2] * v[..., 2])
+
+
+def refine_structure_plain(poses: Pose, pos, obs, w, obs_r, w_r, *, fx, fy,
+                           cx, cy, baseline, iterations, reprojection_th2,
+                           group=None):
+    """Local BA's body as torch ops: chi-square gate, refine, then keep a
+    refined point only inside a relative trust region (10% of its distance
+    to the newest camera + 0.5 m) and only if it fits the gated
+    observations better under the original window poses. Returns
+    (positions [M, 3], the refinement's chi2, its n_obs and its accept
+    bits [iterations]). The CPU kernel of ``lvt_tpu_torch::ba_refine``, and
+    with a ``group`` the sharded step's body."""
+    cam = dict(fx=fx, fy=fy, cx=cx, cy=cy)
+    stereo = dict(baseline=baseline, obs_right=obs_r)
+    w, w_r = chi2_gate_weights(poses, pos, obs, w, w_right=w_r, group=group,
+                               **stereo, **cam)
+    # only points with >= 2 left observations and >= 1 stereo pair
+    n_l = (w > 0).sum(0)
+    n_s = ((w > 0) & (w_r > 0)).sum(0)
+    use = ((n_l >= 2) & (n_s >= 1)).float()
+    w, w_r = w * use[None], w_r * use[None]
+    res = refine_window(
+        poses, pos, obs, w, w_right=w_r, **stereo, **cam,
+        iterations=iterations, reprojection_th2=reprojection_th2,
+        n_fixed_poses=1, group=group)
+    dist = _norm3(pos - poses.t[-1][None])
+    ok = (use > 0) & (_norm3(res.points - pos) <= 0.1 * dist + 0.5)
+    e2_old = weighted_point_e2(poses, pos, obs, w, w_right=w_r, **stereo,
+                               **cam)
+    e2_new = weighted_point_e2(poses, res.points, obs, w, w_right=w_r,
+                               **stereo, **cam)
+    ok = ok & (e2_new <= e2_old)
+    return (torch.where(ok[:, None], res.points, pos), res.chi2, res.n_obs,
+            res.accepted)
+
+
+# ---- the fused body: lvt_tpu_torch::ba_refine
+
+
+@torch.library.custom_op("lvt_tpu_torch::ba_refine", mutates_args=(),
+                         device_types="cuda")
+def ba_refine_op(t: torch.Tensor, q: torch.Tensor, pos: torch.Tensor,
+                 obs: torch.Tensor, w: torch.Tensor, obs_r: torch.Tensor,
+                 w_r: torch.Tensor, fx: float, fy: float, cx: float,
+                 cy: float, baseline: float, th2: float, iterations: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """S streams' local BA bodies: window poses t [S, F, 3], q [S, F, 4],
+    map positions pos [S, M, 3], observations obs, obs_r [S, F, M, 2] and
+    weights w, w_r [S, F, M] float32, the camera, the stereo baseline,
+    reprojection_th2 and the LM iterations -> positions [S, M, 3], chi2
+    [S] float32, n_obs [S] int64, accept bits [S, iterations] bool.
+
+    CUDA: one launch of ``csrc/ba.cu``'s kernel for all streams (one block
+    per stream; every order fixed by F and M, whatever S). A window of more
+    than the kernel's static limit of poses raises."""
+    s, f, m = obs.shape[:3]
+    dev = pos.device
+    for x, name, shape in ((t, "t", (s, f, 3)), (q, "q", (s, f, 4)),
+                           (pos, "pos", (s, m, 3)),
+                           (obs, "obs", (s, f, m, 2)), (w, "w", (s, f, m)),
+                           (obs_r, "obs_r", (s, f, m, 2)),
+                           (w_r, "w_r", (s, f, m))):
+        kernels.require(x, name, torch.float32, shape, dev)
+    lib = kernels.lib()
+    if not 1 <= f <= lib.lvt_ba_max_window():
+        raise ValueError(f"ba_refine: a window of {f} poses; the kernel "
+                         f"takes 1 to {lib.lvt_ba_max_window()}")
+    # the plain version's refusal (its _blocks), on the card as on the CPU
+    _check_stereo(w_r, baseline)
+    if iterations < 0:
+        raise ValueError(f"ba_refine: {iterations} iterations")
+    f32 = dict(dtype=torch.float32, device=dev)
+    # outputs and scratch allocated before the launch: inside a CUDA graph's
+    # capture they come from the graph's pool, and the launch itself
+    # allocates nothing (an IF node's body may hold no allocation)
+    scratch = torch.empty((s, m * lib.lvt_ba_scratch_per_point(f)), **f32)
+    out = torch.empty((s, m, 3), **f32)
+    chi2 = torch.empty((s,), **f32)
+    n_obs = torch.empty((s,), dtype=torch.int64, device=dev)
+    accepted = torch.empty((s, iterations), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lvt_ba_refine(
+            t.data_ptr(), q.data_ptr(), pos.data_ptr(), obs.data_ptr(),
+            w.data_ptr(), obs_r.data_ptr(), w_r.data_ptr(), s, f, m,
+            iterations, fx, fy, cx, cy, th2, -baseline, GATE_TH2,
+            scratch.data_ptr(), out.data_ptr(), chi2.data_ptr(),
+            n_obs.data_ptr(), accepted.data_ptr(), kernels.stream_ptr(pos))
+    kernels.check(err, "ba_refine")
+    ba_refine.launches += 1
+    return out, chi2, n_obs, accepted
+
+
+@ba_refine_op.register_kernel("cpu")
+def _ba_refine_cpu(t, q, pos, obs, w, obs_r, w_r, fx, fy, cx, cy, baseline,
+                   th2, iterations):
+    outs = [refine_structure_plain(
+        Pose(*a[:2]), *a[2:], fx=fx, fy=fy, cx=cx, cy=cy, baseline=baseline,
+        iterations=iterations, reprojection_th2=th2)
+        for a in zip(t, q, pos, obs, w, obs_r, w_r)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+@ba_refine_op.register_fake
+def _ba_refine_fake(t, q, pos, obs, w, obs_r, w_r, fx, fy, cx, cy, baseline,
+                    th2, iterations):
+    s, m = pos.shape[:2]
+    return (pos.new_empty((s, m, 3)), pos.new_empty((s,)),
+            pos.new_empty((s,), dtype=torch.int64),
+            pos.new_empty((s, iterations), dtype=torch.bool))
+
+
+def _ba_refine_vmap(info, in_dims, t, q, pos, obs, w, obs_r, w_r, *rest):
+    b = info.batch_size
+    outs = ba_refine_op(*kernels.fold_streams(
+        info, in_dims[:7], (t, q, pos, obs, w, obs_r, w_r)), *rest)
+    return (tuple(x.view(b, x.shape[0] // b, *x.shape[1:]) for x in outs),
+            (0,) * 4)
+
+
+ba_refine_op.register_vmap(_ba_refine_vmap)
+
+
+def ba_refine(poses: Pose, pos, obs, w, obs_r, w_r, *, fx, fy, cx, cy,
+              baseline, iterations, reprojection_th2):
+    """One window's local BA body (``ba_refine_op`` at S = 1): (positions
+    [M, 3], chi2, n_obs, accept bits). CPU tensors take
+    :func:`refine_structure_plain`, CUDA tensors one launch of the kernel
+    (any other device raises), and under ``torch.func.vmap`` one launch
+    serves every stream."""
+    if pos.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pos: expected a CUDA tensor, got {pos.device}")
+    outs = ba_refine_op(
+        *(x.float()[None].contiguous()
+          for x in (poses.t, poses.q, pos, obs, w, obs_r, w_r)),
+        float(fx), float(fy), float(cx), float(cy), float(baseline),
+        float(reprojection_th2), int(iterations))
+    return tuple(x[0] for x in outs)
+
+
+ba_refine.launches = 0
+
+
+def device_launches(device=None) -> int:
+    """The kernel's launches on a CUDA ``device`` so far, as the card ran
+    them: the kernel counts itself, so a CUDA graph's replays count too,
+    inside an IF node's body as well (a kernel trace can lose that body's
+    records). Synchronizes the device; for tests and chip_smoke.py."""
+    import ctypes
+
+    n = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        kernels.check(kernels.lib().lvt_ba_launches(ctypes.byref(n)),
+                      "ba_refine (launch count)")
+    return n.value

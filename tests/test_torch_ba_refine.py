@@ -1,0 +1,239 @@
+"""Local BA's whole body as one op, ``lvt_tpu_torch::ba_refine``, on the
+CPU, where it is its plain version stream by stream
+(``bundle.refine_structure_plain``: the torch ops of the gate, the
+refinement and the writeback test); the CUDA kernel of csrc/ba.cu is held
+against it bit for bit in tests/test_torch_cuda.py and by chip_smoke.py.
+
+Tolerances:
+  * the op against the plain body, and ``step._refine_structure`` against
+    both: bit-equal (positions, chi2, n_obs, the accept bits);
+  * the port's ``_local_ba_update`` with the window full against lvt_tpu's
+    on the same numpy inputs: the window bit-equal; points within 1e-2 m
+    (tests/test_torch_bundle.py's bound: the port sums in float64 and
+    rounds once, lvt_tpu in float32 in XLA's order, and the Schur solve
+    amplifies that rounding); the writeback decided alike for all but 1%
+    of the refined points; untouched points bit-equal;
+  * the op under ``torch.func.vmap`` over 2 streams against each stream
+    alone, and with a one-rank gloo group (the torch ops and their
+    all-reduces) against the op: bit-equal;
+  * right-camera observations with a baseline of 0: refused by the op and
+    its plain version with one ValueError, as lvt_tpu's gate asserts.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from lvt_tpu.config import VOConfig as JxVOConfig
+from lvt_tpu.core import state as jx_state
+from lvt_tpu.core import step as jx_step
+from lvt_tpu.geometry.se3 import Pose as JxPose
+from lvt_tpu.solver import bundle as jx_bundle
+from lvt_tpu_torch.config import VOConfig
+from lvt_tpu_torch.core import state, step
+from lvt_tpu_torch.geometry.se3 import Pose
+from lvt_tpu_torch.parallel import mesh as mesh_mod
+from lvt_tpu_torch.solver import bundle
+from test_bundle import BASELINE, CX, CY, FX, FY, make_ba_problem
+from test_torch_system import share_the_cores  # noqa: F401
+
+CAM = dict(fx=FX, fy=FY, cx=CX, cy=CY, baseline=BASELINE)
+ITERS = 6
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+def _window(case: str, seed: int = 42, m: int = 200):
+    """A stereo BA window from ``make_ba_problem`` (F = 4 poses, M points
+    8-30 m deep) as numpy arrays (t, q, pos, obs, w, obs_r, w_r):
+    ``noisy`` 0.5 px noise; ``outliers`` 20 points 120 px off in the left
+    image; ``masked`` 50 points unobserved; ``exact`` none of it. A fifth
+    of the right observations missing in all but ``exact``."""
+    rng = np.random.RandomState(seed)
+    noise = {"exact": 0.0, "outliers": 0.2}.get(case, 0.5)
+    _, _, poses_n, pts_n, obs, obs_r, w = make_ba_problem(
+        rng, m=m, pixel_noise=noise)
+    obs, obs_r, w = (np.asarray(x).copy() for x in (obs, obs_r, w))
+    w_r = w.copy()
+    if case != "exact":
+        w_r[rng.rand(*w.shape) < 0.2] = 0.0
+    if case == "outliers":
+        obs[:, :20] += 120.0
+    if case == "masked":
+        obs[:, :50] = 1e5
+        w[:, :50] = 0.0
+        w_r[:, :50] = 0.0
+    return (np.asarray(poses_n.t), np.asarray(poses_n.q), np.asarray(pts_n),
+            obs, w, obs_r, w_r)
+
+
+def _plain(args):
+    t, q, *rest = args
+    return bundle.refine_structure_plain(Pose(t, q), *rest, iterations=ITERS,
+                                         reprojection_th2=5.991, **CAM)
+
+
+def _op(args):
+    t, q, *rest = args
+    return bundle.ba_refine(Pose(t, q), *rest, iterations=ITERS,
+                            reprojection_th2=5.991, **CAM)
+
+
+def _config(cls):
+    return cls(fx=FX, fy=FY, cx=CX, cy=CY, baseline=BASELINE, img_width=640,
+               img_height=480, max_map_points=200, max_staged_points=64,
+               local_ba_window=4, local_ba_every=4,
+               local_ba_iterations=ITERS)
+
+
+@pytest.mark.parametrize("case", ["exact", "noisy", "outliers", "masked"])
+def test_op_on_the_cpu_is_the_plain_body(case):
+    args = [_t(x) for x in _window(case)]
+    got = _op(args)
+    want = _plain(args)
+    assert [x.dtype for x in got] == [torch.float32, torch.float32,
+                                      torch.int64, torch.bool]
+    assert got[0].shape == (200, 3) and got[3].shape == (ITERS,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    t, q, *rest = args
+    assert torch.equal(step._refine_structure(Pose(t, q), *rest,
+                                              _config(VOConfig)), want[0])
+    moved = (want[0] != args[2]).any(-1)
+    assert int(moved.sum()) > (50 if case != "exact" else 0)
+    if case == "masked":   # unobserved points keep their bits
+        assert not moved[:50].any()
+
+
+@pytest.mark.parametrize("case", ["noisy", "outliers"])
+def test_ba_update_matches_lvt_tpu(case):
+    """lvt_tpu's ``_local_ba_update`` (the ``run`` branch of its lax.cond)
+    and the port's on the same window, which fills with this frame at
+    frame 8 (BA's schedule: window 4, every 4)."""
+    t, q, pos, obs, w, obs_r, w_r = _window(case, seed=7)
+    f, m = w.shape
+    # the window before this frame: a stale frame, then frames 0 .. F - 2
+    pad = lambda x: np.concatenate([np.zeros_like(x[:1]) + 3.0, x[:-1]])  # noqa: E731
+    old = dict(poses_t=pad(t), poses_q=pad(q), obs=pad(obs), w=pad(w),
+               obs_r=pad(obs_r), w_r=pad(w_r))
+    desc = np.zeros((m, 8), np.uint32)
+    counters = np.zeros(m, np.int32)
+    valid = np.ones(m, bool)
+    invalid = np.zeros(m, bool)
+    new = (obs[-1], w[-1], obs_r[-1], w_r[-1])
+
+    jx = jx_step._local_ba_update(
+        jx_state.ObsWindow(**{k: jnp.asarray(v) for k, v in old.items()},
+                           n=jnp.asarray(f - 1, jnp.int32)),
+        jx_state.PointStore(jnp.asarray(pos), jnp.asarray(desc),
+                            jnp.asarray(counters), jnp.asarray(counters),
+                            jnp.asarray(valid)),
+        JxPose(jnp.asarray(t[-1]), jnp.asarray(q[-1])),
+        *(jnp.asarray(x) for x in new), jnp.asarray(invalid),
+        jnp.asarray(8, jnp.int32), _config(JxVOConfig))
+    pt = step._local_ba_update(
+        state.ObsWindow(**{k: _t(v) for k, v in old.items()},
+                        n=torch.tensor(f - 1, dtype=torch.int32)),
+        state.PointStore(_t(pos), _t(desc.view(np.int32)), _t(counters),
+                         _t(counters), _t(valid)),
+        Pose(_t(t[-1]), _t(q[-1])), *(_t(x) for x in new), _t(invalid),
+        torch.tensor(8, dtype=torch.int32), _config(VOConfig))
+    assert bool(pt[3])
+    for name in ("poses_t", "poses_q", "obs", "w", "obs_r", "w_r"):
+        np.testing.assert_array_equal(getattr(pt[0], name).numpy(),
+                                      np.asarray(getattr(jx[0], name)), name)
+    got, want = pt[2].numpy(), np.asarray(jx[2])
+    moved_p = (got != pos).any(1)
+    moved_j = (want != pos).any(1)
+    assert moved_j.sum() > 50
+    assert int((moved_p != moved_j).sum()) <= 0.01 * moved_j.sum()
+    np.testing.assert_allclose(got, want, atol=1e-2)
+    np.testing.assert_array_equal(got[~moved_p & ~moved_j],
+                                  pos[~moved_p & ~moved_j])
+
+
+def test_vmap_rule_two_streams_equal_each_alone():
+    a, b = ([_t(x) for x in _window(c, seed=s)]
+            for c, s in (("noisy", 1), ("outliers", 2)))
+    stacked = [torch.stack(x) for x in zip(a, b)]
+    got = torch.func.vmap(lambda t, q, *r: _op((t, q, *r)))(*stacked)
+    for i, args in enumerate((a, b)):
+        for g, w in zip(got, _op(args)):
+            assert torch.equal(g[i], w)
+
+
+def test_fake_tensors_and_the_op_registration():
+    """``torch.library.opcheck`` on the op (its schema, the fake kernel's
+    shapes and dtypes against the CPU kernel's, autograd registration)."""
+    args = [_t(x)[None] for x in _window("noisy", m=48)]
+    torch.library.opcheck(
+        bundle.ba_refine_op,
+        (*args, FX, FY, CX, CY, BASELINE, 5.991, ITERS),
+        test_utils=("test_schema", "test_autograd_registration",
+                    "test_faketensor"))
+
+
+def test_group_body_of_one_rank_is_the_op(tmp_path):
+    """With a one-rank gloo group the step keeps the torch ops and their
+    all-reduces (the sharded step's body); on one rank that is the op's
+    result bit for bit."""
+    args = [_t(x) for x in _window("outliers", seed=3)]
+    t, q, *rest = args
+    mesh_mod.init("gloo", 1, 0, f"file://{tmp_path / 'rdv'}")
+    try:
+        got = step._refine_structure(Pose(t, q), *rest, _config(VOConfig),
+                                     group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, _op(args)[0])
+
+
+def test_a_window_without_a_baseline_is_refused_as_in_lvt_tpu():
+    """Right-camera observations beside a baseline of 0 (what the step
+    passes for an RGB-D config with local BA and no baseline: right weights
+    all 0): the op refuses them with the plain version's ValueError, and
+    lvt_tpu's gate asserts; the card's op raises the same error
+    (tests/test_torch_cuda.py)."""
+    t, q, pos, obs, w, obs_r, w_r = _window("noisy", m=48)
+    w_r = np.zeros_like(w_r)
+    args = [_t(x) for x in (pos, obs, w, obs_r, w_r)]
+    kw = dict(CAM, baseline=0.0, iterations=ITERS, reprojection_th2=5.991)
+    for fn in (bundle.ba_refine, bundle.refine_structure_plain):
+        with pytest.raises(ValueError, match="nonzero baseline"):
+            fn(Pose(_t(t), _t(q)), *args, **kw)
+    with pytest.raises(AssertionError):
+        jx_bundle.chi2_gate_weights(
+            JxPose(jnp.asarray(t), jnp.asarray(q)), jnp.asarray(pos),
+            jnp.asarray(obs), jnp.asarray(w), fx=FX, fy=FY, cx=CX, cy=CY,
+            baseline=0.0, obs_right=jnp.asarray(obs_r),
+            w_right=jnp.asarray(w_r))
+
+
+def test_rgbd_local_ba_leaves_the_map_as_it_was():
+    """An RGB-D config with local BA (a baseline, no right camera): the
+    step passes right weights all 0, so the op refines no point, and every
+    frame's pose and the final map are those of the same config without
+    BA, bit for bit (the card: tests/test_torch_cuda.py)."""
+    from lvt_tpu.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.core.system import SensorType, VOSystem
+    from test_torch_multistream import WORLD, _config as ms_config, _u8
+
+    seq = list(SyntheticWorld(**WORLD).rgbd_sequence(7, speed=0.3))
+    gray = np.stack([_u8(g) for g, _, _ in seq])
+    depth = np.stack([d.astype(np.float32) for _, d, _ in seq])
+    runs = []
+    for window in (4, 0):
+        cfg = ms_config(triangulation_policy=2).replace(
+            local_ba_window=window, local_ba_every=2)
+        vo = VOSystem(cfg, SensorType.RGBD, device="cpu")
+        poses, _ = vo.track_chunk(gray, depth)
+        runs.append((poses, vo.state.map))
+    (p_ba, map_ba), (p_off, map_off) = runs
+    assert torch.equal(p_ba.t, p_off.t) and torch.equal(p_ba.q, p_off.q)
+    assert torch.equal(map_ba.pos, map_off.pos)
+    assert torch.equal(map_ba.valid, map_off.valid)
+    assert int(map_ba.valid.sum()) > 100

@@ -22,7 +22,10 @@ equal, chi2 within 1e-4 of the plain chi2 or of reprojection_th2 where
 the plain chi2 is below it (a fit of a few points has a chi2 near 0),
 also with 3-6 valid points, none, or all at one pixel; every stream of an
 S-stream launch and the sharded solve's phases (all-reduces as
-identities) bit-equal to the fused kernel. Local BA as a CUDA IF node
+identities) bit-equal to the fused kernel. Local BA's whole body
+(``lvt_tpu_torch::ba_refine``) against its plain version
+(``refine_structure_plain``): every output bit-equal, and every stream
+of an S-stream launch bit-equal to its own. Local BA as a CUDA IF node
 (core/graphs.py::cond): the graph bit-equal to the eager step, in the
 streaming worker thread too, and many streams with BA bit-equal to each
 stream alone. The unmarked tests run
@@ -929,7 +932,7 @@ def test_one_rank_nccl_sharded_stream_is_vosystem(cuda):
 
 @pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2",
                                   "pnp", "stream_sum", "pnp_solve",
-                                  "pnp_phase"])
+                                  "pnp_phase", "ba_refine"])
 def test_wrapper_never_falls_back_off_the_cpu(call):
     """A tensor on another device than the CPU goes to the kernel path,
     whose argument checks refuse anything that is not on a CUDA device."""
@@ -952,6 +955,15 @@ def test_wrapper_never_falls_back_off_the_cpu(call):
                           torch.empty(1, 5, **meta),
                           torch.empty(1, 5, 3, **meta),
                           torch.empty(1, 5, 2, **meta), None, None, **PNP_CAM)
+        elif call == "ba_refine":
+            from lvt_tpu_torch.solver import bundle
+
+            w = torch.empty(4, 5, **meta)
+            x = torch.empty(4, 5, 2, **meta)
+            bundle.ba_refine(Pose(torch.empty(4, 3, **meta),
+                                  torch.empty(4, 4, **meta)),
+                             torch.empty(5, 3, **meta), x, w, x, w,
+                             iterations=6, reprojection_th2=5.991, **BA_CAM)
         elif call == "pnp":
             pnp.normal_equations(torch.empty(5, 2, 6, **meta),
                                  torch.empty(5, **meta),
@@ -987,7 +999,7 @@ def test_library_name_follows_the_sources():
     assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "perception.cu", "brief.cu", "patches.cu", "top2.cu", "pnp.cu",
-        "pnp_lm.cu", "graph_cond.cu"}
+        "pnp_lm.cu", "graph_cond.cu", "ba.cu"}
 
 
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
@@ -1055,8 +1067,12 @@ def _graph_case(entry: str, device):
         return chunks(lambda: VOSystem(cfg, device=device),
                       np.stack([u8(f[0]) for f in seq]),
                       np.stack([u8(f[1]) for f in seq]))
-    if entry == "rgbd":
+    if entry in ("rgbd", "rgbd_ba"):
         cfg = cfg.replace(triangulation_policy=2)
+        if entry == "rgbd_ba":
+            # local BA with no right camera: the kernel runs on its
+            # schedule with no stereo pair and refines no point
+            cfg = cfg.replace(local_ba_window=4, local_ba_every=2)
         seq = list(world.rgbd_sequence(n, speed=0.5))
         return chunks(lambda: VOSystem(cfg, SensorType.RGBD, device=device),
                       np.stack([u8(f[0]) for f in seq]),
@@ -1107,8 +1123,8 @@ def _graph_case(entry: str, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["stereo", "stereo_dense_ba", "rgbd",
-                                   "rectified", "corners", "multistream",
-                                   "stereo_sparse"])
+                                   "rgbd_ba", "rectified", "corners",
+                                   "multistream", "stereo_sparse"])
 def test_graph_replays_equal_the_eager_step(cuda, entry):
     """Each entry point on the card over 6 frames in chunks of 3, replayed
     from its captured graph and, in a second system on the same frames,
@@ -1147,7 +1163,15 @@ def test_graph_replays_equal_the_eager_step(cuda, entry):
     assert graph["launches"] == {k: v * 2 for k, v in per_frame.items()}
     second = {k: v * (n - 3) for k, v in per_frame.items()}
     for mode in ("graph", "eager"):
-        assert {k: runs[mode]["device"][k] for k in second} == second
+        want = dict(second)
+        if mode == "graph" and want["ba_refine"]:
+            # local BA's kernel runs in the graph's IF node on BA frames
+            # only (its launches are its own count: dryrun.device_launches)
+            cfg = graph["vo"].config
+            want["ba_refine"] = sum(f >= cfg.local_ba_window
+                                    and f % cfg.local_ba_every == 0
+                                    for f in range(3, n))
+        assert {k: runs[mode]["device"][k] for k in second} == want
     for g, e in zip(graph["out"], eager["out"]):
         for a, b in zip([*g[0], *g[1]], [*e[0], *e[1]]):
             assert torch.equal(a, b)
@@ -1155,6 +1179,38 @@ def test_graph_replays_equal_the_eager_step(cuda, entry):
     for a, b in zip(graphs._leaves(state(graph["vo"])),
                     graphs._leaves(state(eager["vo"]))):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rgbd_local_ba_on_the_card_leaves_the_map_as_it_was(cuda):
+    """An RGB-D config with local BA on the card (the kernel in the graph's
+    IF node on BA frames; right weights all 0): poses and the final map
+    bit-equal to the same config without BA on the card, and within 1e-3 m
+    of the CPU's run (tests/test_torch_ba_refine.py holds the CPU's to its
+    BA-off run). With a baseline of 0 the card's step raises the CPU's
+    ValueError at the first frame."""
+    from lvt_tpu_torch.core.system import SensorType, VOSystem
+
+    make, _, n = _graph_case("rgbd_ba", cuda)
+    cfg = make().config
+    runs = {}
+    for name, c, dev in (("ba", cfg, cuda),
+                         ("off", cfg.replace(local_ba_window=0), cuda),
+                         ("cpu", cfg, "cpu")):
+        vo = VOSystem(c, SensorType.RGBD, device=dev)
+        poses, _ = _graph_case("rgbd_ba", dev)[1](vo, 0, n)
+        runs[name] = (poses, vo.state.map)
+    (p_ba, m_ba), (p_off, m_off) = runs["ba"], runs["off"]
+    assert torch.equal(p_ba.t, p_off.t) and torch.equal(p_ba.q, p_off.q)
+    assert torch.equal(m_ba.pos, m_off.pos)
+    assert int(m_ba.valid.sum()) > 100
+    gap = (p_ba.t.cpu() - runs["cpu"][0].t).abs().max()
+    assert float(gap) < 1e-3
+    no_baseline = cfg.replace(baseline=0.0)
+    for dev in (cuda, "cpu"):
+        vo = VOSystem(no_baseline, SensorType.RGBD, device=dev)
+        with pytest.raises(ValueError, match="nonzero baseline"):
+            _graph_case("rgbd_ba", dev)[1](vo, 0, 1)
 
 
 @pytest.mark.cuda
@@ -1203,15 +1259,15 @@ def test_ba_under_an_if_node_equals_the_eager_step(cuda):
     which computes BA on every frame and selects it, bit for bit: poses,
     the map's positions after each frame, ``local_ba_ran`` (BA at frames
     4, 8, 12 and 16). What the card ran per frame (a kernel trace of
-    frames 5-16): A, B, T 4 times and PnP once on every frame; in the
+    frames 5-16): A, B, T 4 times and PnP once on every frame; local BA's
+    kernel (its own count) once on each BA frame and on no other in the
+    graph, once on every frame in the eager step; in the
     graph one kernel setting the node's predicate per frame, the same
-    kernels on each other frame and on BA frames 12 and 16, theirs being
-    an other frame's and as many more as the node's body holds (kernels,
-    and copies and fills, which a body runs as kernels); frame 8, the
-    trace's first BA frame, may list only a part of the body's (a trace
-    can miss the last records of a node's body the first time it sees
-    the node run); in the eager step no predicate and the same kernels on
-    every frame."""
+    kernels on each other frame, a BA frame's being
+    an other frame's and at most as many more as the node's body holds
+    (kernels, and copies and fills, which a body runs as kernels; a trace
+    can miss records of a node's body); in the eager step no predicate and
+    the same kernels on every frame."""
     import ctypes
 
     from lvt_tpu_torch.core import graphs
@@ -1246,21 +1302,19 @@ def test_ba_under_an_if_node_equals_the_eager_step(cuda):
     is_ba = [i in (8, 12, 16) for i in range(5, 17)]
     need = dict(perception=1, brief=1, hamming_top2=4, pnp_solve=1)
     for mode, if_node in (("graph", 1), ("eager", 0)):
-        for f in runs[mode]["frames"]:
-            assert {k: f[k] for k in [*need, "if_node"]} == dict(
-                need, if_node=if_node)
+        for f, ba in zip(runs[mode]["frames"], is_ba):
+            assert {k: f[k] for k in [*need, "if_node", "ba_refine"]} == dict(
+                need, if_node=if_node, ba_refine=int(ba or mode == "eager"))
 
     def kernels_of(f):
         return Counter(n for n in f["names"]
                        if not n.startswith(("Memcpy", "Memset")))
 
     graph = [kernels_of(f) for f in runs["graph"]["frames"]]
-    first_ba, *ba = [k for k, b in zip(graph, is_ba) if b]
+    ba = [k for k, b in zip(graph, is_ba) if b]
     other = [k for k, b in zip(graph, is_ba) if not b]
-    assert not first_ba - ba[0]
-    for kind, ks in (("BA", ba), ("other", other)):
-        for k in ks[1:]:
-            assert k == ks[0], (kind, dict(k - ks[0]), dict(ks[0] - k))
+    for k in other[1:]:
+        assert k == other[0], (dict(k - other[0]), dict(other[0] - k))
     (branch,) = runs["graph"]["runner"]._branches
     counts = (ctypes.c_int * len(graphs._NODE_TYPES))()
     kernels.lib().lvt_graph_node_counts(branch.raw_cuda_graph(), counts,
@@ -1269,8 +1323,10 @@ def test_ba_under_an_if_node_equals_the_eager_step(cuda):
     # (memcpy32_post), which a kernel trace lists as kernels
     nodes = sum(counts[graphs._NODE_TYPES.index(t)]
                 for t in ("kernel", "memcpy", "memset"))
-    assert not other[0] - ba[0]
-    assert sum((ba[0] - other[0]).values()) == nodes > 0
+    assert nodes > 0
+    for k in ba:
+        assert not other[0] - k
+        assert sum((k - other[0]).values()) <= nodes
     eager = [kernels_of(f) for f in runs["eager"]["frames"]]
     for k in eager[1:]:
         assert k == eager[0], (dict(k - eager[0]), dict(eager[0] - k))
@@ -1348,3 +1404,137 @@ def test_multistream_ba_on_the_card_is_each_stream_alone(cuda):
             p.q, poses.q[:, s]), float((p.t - poses.t[:, s]).abs().max())
         assert torch.equal(vo.state.map.pos, msvo.states.map.pos[s])
         assert torch.equal(m.local_ba_ran, metrics.local_ba_ran[:, s])
+
+
+# ---- local BA's whole body: lvt_tpu_torch::ba_refine (csrc/ba.cu)
+
+BA_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+              baseline=0.537165718864)
+
+
+def _ba_problem(rs, s, m, device, case="noisy", f=4):
+    """``s`` streams of a local BA window as the tracking step poses it,
+    with KITTI 00's camera: ``m`` map points 4-60 m deep seen by ``f``
+    poses 0.9 m apart along the optical axis (a small turn each), their
+    left and right pixels with 0.5 px noise; the poses off by 2 cm and the
+    points by 5 cm. ``case``: ``noisy`` (a sixteenth of the left
+    observations 10-40 px off, a tenth of each frame's points unobserved,
+    a fifth of the right ones), ``few`` (only 12 points observed), ``none``
+    (no observation). -> (t [S, F, 3], q [S, F, 4], pos [S, M, 3], obs
+    [S, F, M, 2], w [S, F, M], obs_r, w_r) float32 on ``device``."""
+    fx, fy, cx, cy, base = (BA_CAM[k] for k in ("fx", "fy", "cx", "cy",
+                                                "baseline"))
+    out = [[] for _ in range(7)]
+    for _ in range(s):
+        z = rs.uniform(4.0, 60.0, m)
+        pts = np.stack([(rs.uniform(0, 1241, m) - cx) * z / fx,
+                        (rs.uniform(0, 376, m) - cy) * z / fy, z], -1)
+        ts, qs, obs, obs_r, w, w_r = [], [], [], [], [], []
+        for i in range(f):
+            w3 = np.array([0.0, 0.01 * i, 0.0]) + rs.randn(3) * 1e-3
+            th = np.linalg.norm(w3)
+            q = np.concatenate([[np.cos(th / 2)], np.sin(th / 2) * w3 / th])
+            t = np.array([0.0, 0.0, -0.9 * (f - 1 - i)]) + rs.randn(3) * 0.02
+            pc = (pts - t) @ _quat_matrix(q)
+            for cam_x, acc in ((0.0, obs), (base, obs_r)):
+                p = pc - [cam_x, 0.0, 0.0]
+                acc.append(np.stack([fx * p[:, 0] / p[:, 2] + cx,
+                                     fy * p[:, 1] / p[:, 2] + cy], -1)
+                           + rs.randn(m, 2) * 0.5)
+            obs[-1][rs.rand(m) < 1 / 16] += rs.uniform(10, 40, 2)
+            w.append(rs.rand(m) > 0.1)
+            w_r.append(w[-1] & (rs.rand(m) > 0.2))
+            q0 = q + rs.randn(4) * 1e-3
+            ts.append(t + rs.randn(3) * 0.02)
+            qs.append(q0 / np.linalg.norm(q0))
+        w, w_r = np.stack(w), np.stack(w_r)
+        if case == "few":
+            w[:, 12:] = False
+            w_r[:, 12:] = False
+        elif case == "none":
+            w[:] = False
+            w_r[:] = False
+        for acc, x in zip(out, (ts, qs, pts + rs.randn(m, 3) * 0.05, obs, w,
+                                obs_r, w_r)):
+            acc.append(np.asarray(x))
+    return [torch.from_numpy(np.stack(x).astype(np.float32)).to(device)
+            for x in out]
+
+
+def _ba_plain(args, iterations=6):
+    """The plain version (torch ops) stream by stream, stacked as
+    ba_refine's outputs."""
+    from lvt_tpu_torch.solver import bundle
+
+    outs = [bundle.refine_structure_plain(
+        Pose(*a[:2]), *a[2:], iterations=iterations, reprojection_th2=5.991,
+        **BA_CAM) for a in zip(*args)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,m,case,f", [
+    (1, 1024, "noisy", 4), (4, 1024, "noisy", 4), (2, 4096, "noisy", 4),
+    (2, 300, "few", 4), (1, 256, "none", 4), (2, 512, "noisy", 2),
+    (2, 512, "noisy", 3), (2, 512, "noisy", 5)])
+def test_ba_refine_kernel_matches_plain(cuda, s, m, case, f):
+    """Local BA's body in one launch against the plain version stream by
+    stream, every output bit-equal (positions, chi2, n_obs, the accept
+    bits), and every stream of the S-stream launch bit-equal to its own
+    S = 1 launch; windows of 2 to 5 poses (the reduced solve at each
+    size)."""
+    from lvt_tpu_torch.solver import bundle
+
+    args = _ba_problem(np.random.RandomState(13 * s + m + f), s, m, cuda,
+                       case, f)
+    cam = tuple(float(BA_CAM[k]) for k in ("fx", "fy", "cx", "cy",
+                                            "baseline"))
+    before = bundle.ba_refine.launches
+    got = bundle.ba_refine_op(*args, *cam, 5.991, 6)
+    torch.cuda.synchronize()
+    assert bundle.ba_refine.launches == before + 1
+    want = _ba_plain(args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), (
+            i, float((g.double() - w.double()).abs().max()))
+    for i in range(s):
+        one = bundle.ba_refine_op(*(x[i:i + 1] for x in args), *cam, 5.991, 6)
+        for a, b in zip(one, got):
+            assert torch.equal(a[0], b[i])
+    if case == "none":
+        assert torch.equal(got[0], args[2]) and int(got[2].sum()) == 0
+
+
+@pytest.mark.cuda
+def test_ba_refine_vmap_rule_launches_once(cuda):
+    """``bundle.ba_refine`` under ``torch.func.vmap`` over 3 streams: one
+    launch, each stream the op's."""
+    from lvt_tpu_torch.solver import bundle
+
+    args = _ba_problem(np.random.RandomState(5), 3, 512, cuda)
+    before = bundle.ba_refine.launches
+    got = torch.func.vmap(lambda t, q, *a: bundle.ba_refine(
+        Pose(t, q), *a, iterations=6, reprojection_th2=5.991, **BA_CAM))(
+            *args)
+    torch.cuda.synchronize()
+    assert bundle.ba_refine.launches == before + 1
+    cam = tuple(float(BA_CAM[k]) for k in ("fx", "fy", "cx", "cy",
+                                            "baseline"))
+    for a, b in zip(got, bundle.ba_refine_op(*args, *cam, 5.991, 6)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ba_refine_refuses_a_window_beyond_the_kernels_limit(cuda):
+    """The kernel takes windows of 1 to its static limit of poses; a longer
+    one raises before any launch, never falls back."""
+    from lvt_tpu_torch.solver import bundle
+
+    limit = kernels.lib().lvt_ba_max_window()
+    args = _ba_problem(np.random.RandomState(2), 1, 64, cuda, f=limit + 1)
+    before = bundle.ba_refine.launches
+    with pytest.raises(ValueError, match="window"):
+        bundle.ba_refine(Pose(args[0][0], args[1][0]),
+                         *(x[0] for x in args[2:]), iterations=6,
+                         reprojection_th2=5.991, **BA_CAM)
+    assert bundle.ba_refine.launches == before
