@@ -49,14 +49,16 @@ and the script exits non-zero without printing the final line:
    (``ba_refine`` once: BA computed and selected); then the card against
    the CPU over frames 0-8 (BA runs at frames 4 and 8); then local BA's
    kernel (``lvt_tpu_torch::ba_refine``, csrc/ba.cu: the whole body, one
-   block per stream; not a TPU kernel) on the windows it took at frames 4
-   and 8 in one launch, and on them cut to 3-8 observed points, against
-   its plain version (``refine_structure_plain``, torch ops) on the card:
-   every output (positions, chi2, n_obs, the accept bits) bit-equal, and
-   each stream bit-equal to its own S = 1 launch (the same after the
-   bench's ``--ba``, on path 7 kitti's windows, and on the 8-stream unit's
-   8 windows of frame 8, where it is timed at S = 1 and 8 beside its
-   bound and the plain version captured in a CUDA graph); then the sparse
+   cluster of blocks per stream; not a TPU kernel) on the windows it took
+   at frames 4 and 8 in one launch, and on them cut to 3-8 observed
+   points, against its plain version (``refine_structure_plain``, torch
+   ops) on the card: every output (positions, chi2, n_obs, the accept
+   bits) bit-equal, and each stream bit-equal to its own S = 1 launch (the
+   same after the bench's ``--ba``, on path 7 kitti's windows, and on the
+   8-stream unit's 8 windows of frame 8, where it is timed at S = 1 and 8
+   beside its bound and the plain version captured in a CUDA graph; the
+   kernel's cluster size, threads per block and ptxas's registers and
+   spills printed at the build); then the sparse
    descriptor mode (path 1's config),
    card vs CPU: frame 0's features bit-equal, the poses of frames 0-3
    within 1e-3 m; then 8 streams of path 2's config (``MultiStreamVO``,
@@ -325,9 +327,9 @@ KERNELS = {
     "stream_sum": ("cuda", "lvt_tpu_torch/csrc/pnp.cu",
                    "lvt_tpu/solver/pnp.py:148"),
     # not a TPU kernel: lvt_tpu's local BA body (XLA ops under jit, the run
-    # branch of the lax.cond at lvt_tpu/core/step.py:269-318), one block
-    # per stream, on the unsharded BA paths (the sharded step keeps the
-    # torch ops and their all-reduces)
+    # branch of the lax.cond at lvt_tpu/core/step.py:269-318), one cluster
+    # of blocks per stream, on the unsharded BA paths (the sharded step
+    # keeps the torch ops and their all-reduces)
     "ba_refine": ("cuda", "lvt_tpu_torch/csrc/ba.cu",
                   "lvt_tpu/solver/bundle.py:93-378"),
 }
@@ -657,6 +659,10 @@ def phase_device() -> dict:
     kernels.lib()
     _say("device", f"kernels built in {kernels.build_seconds:.2f} s "
                    f"({kernels.library_path().name})")
+    card["ba_geometry"] = ba_geometry()
+    _say("device", "ba_refine: a cluster of {cluster} blocks of {threads} "
+                   "threads per stream; ptxas: {ptxas}".format(
+                       **card["ba_geometry"]))
     return card
 
 
@@ -665,6 +671,21 @@ def _distinct(shape, b, rows, cols) -> int:
     hit = torch.zeros(shape, dtype=torch.bool, device=rows.device)
     hit[b, rows, cols] = True
     return int(hit.sum())
+
+
+def ba_geometry() -> dict:
+    """Local BA's kernel as built: blocks per stream (its cluster), threads
+    per block, and ptxas's lines on it (stack frame and spills; registers,
+    shared memory) from the verbose build's report."""
+    from lvt_tpu_torch import kernels
+
+    shape = (ctypes.c_int * 2)()
+    kernels.check(kernels.lib().lvt_ba_geometry(shape), "ba_refine (shape)")
+    ptxas = kernels.ptxas_report("ba_refine_kernel")
+    if not ptxas:
+        raise AssertionError("no ptxas report on ba_refine_kernel in the "
+                             "verbose build")
+    return dict(cluster=shape[0], threads=shape[1], ptxas="; ".join(ptxas))
 
 
 def p_inputs(config, imgs) -> tuple:
@@ -1739,7 +1760,8 @@ def measure_ba_refine(card, path, inputs) -> dict:
     kernel's device time beside its bound; at S = 1 the plain version's,
     captured in a CUDA graph and replayed (the IF node's body before this
     kernel; it runs stream by stream, so S streams take S times as long).
-    No one PyTorch call runs a bundle adjustment: no library time."""
+    No one PyTorch call runs a bundle adjustment: no library time. The
+    report carries the kernel's shape as built (``ba_geometry``)."""
     from lvt_tpu_torch.solver import bundle
 
     gaps = check_ba_refine(path, inputs)
@@ -1757,10 +1779,13 @@ def measure_ba_refine(card, path, inputs) -> dict:
             q["plain_ms"] = device_ms(
                 _graphed(lambda a=args: _ba_plain(a, cam)), PLAIN_REPS)
         _say(path, f"ba_refine S={s} x F={q['f']} x M={q['m']}: kernel "
-                   f"{q['ms']:.4f} ms (bound {b_ms:.3g} ms, {b_by})"
+                   f"{q['ms']:.4f} ms (bound {b_ms:.3g} ms, {b_by}; a "
+                   f"cluster of {card['ba_geometry']['cluster']} blocks of "
+                   f"{card['ba_geometry']['threads']} threads per stream)"
                    + (f", the plain version graphed {q['plain_ms']:.4f} ms"
                       if s == 1 else ""))
-    return dict(rep[1], batched=rep[n_streams], **gaps)
+    return dict(rep[1], batched=rep[n_streams], **gaps,
+                **card["ba_geometry"])
 
 
 def _phase_report(rep) -> dict:

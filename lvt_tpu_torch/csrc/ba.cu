@@ -1,42 +1,79 @@
-// Local BA's whole body for Hopper: one thread block per stream computes,
-// in one launch for all S streams (ba_refine_kernel), what
-// lvt_tpu_torch/core/step.py::_refine_structure computes without a group:
-// the chi-square gate of the window's observations (solver/bundle.py::
-// chi2_gate_weights), the points that take part (>= 2 left observations
-// and >= 1 stereo pair), the predicated Levenberg-Marquardt iterations of
-// bundle.py::refine_window (the Schur complement onto the cameras, the
-// gauge fix, the reduced solve, the back-substitution for the points, the
-// retraction and the accept test), then the trust region and the
-// improvement test of each refined point (two bundle.py::
-// weighted_point_e2 sums) and the select. It is not a TPU kernel: lvt_tpu
-// runs this as XLA ops under jit (lvt_tpu/solver/bundle.py:93-378, called
-// from the lax.cond of lvt_tpu/core/step.py:269-318). In PyTorch the same
-// body was about 3200 small kernels, copies and fills once per BA frame.
+// Local BA's whole body for Hopper: one thread-block cluster of CLUSTER
+// blocks per stream computes, in one launch for all S streams
+// (ba_refine_kernel), what lvt_tpu_torch/core/step.py::_refine_structure
+// computes without a group: the chi-square gate of the window's
+// observations (solver/bundle.py::chi2_gate_weights), the points that take
+// part (>= 2 left observations and >= 1 stereo pair), the predicated
+// Levenberg-Marquardt iterations of bundle.py::refine_window (the Schur
+// complement onto the cameras, the gauge fix, the reduced solve, the
+// back-substitution for the points, the retraction and the accept test),
+// then the trust region and the improvement test of each refined point
+// (two bundle.py::weighted_point_e2 sums) and the select. It is not a TPU
+// kernel: lvt_tpu runs this as XLA ops under jit
+// (lvt_tpu/solver/bundle.py:93-378, called from the lax.cond of
+// lvt_tpu/core/step.py:269-318). In PyTorch the same body was about 3200
+// small kernels, copies and fills once per BA frame.
 //
-// What stays where. The poses (world to camera, current, original and
-// trial), lambda, nu, the chi-square and the reduced camera system live in
-// shared memory. Everything per point lives in a scratch row of device
-// memory per stream (structure of arrays, so a warp reads 32 points in one
-// transaction), which at M = 1024 and F = 4 is 0.7 MB and stays in L2:
-// the current and trial positions, the gated weights, the old fit e2, the
-// mask `use`, and per iteration h_cp [F, 6, 3], h_cp h_pp^-1 [F, 6, 3],
-// g_p [3] and h_pp^-1 [3, 3].
+// What bounds it. The work is a few float64 multiply-adds per
+// observation and iteration (the bound is ~1e-4 ms at M = 1024), but every
+// iteration is a chain of dependent phases: per-point blocks, sums over
+// the points, a small dense solve, per-point steps, a sum over the points
+// again. On one SM per stream the sums and the per-point work took 3/4 of
+// an iteration and the solve the rest. So the points are spread over a
+// cluster of SMs, and the solve over the threads of each block.
 //
-// One iteration. (1) Thread-per-point: every observation block (left, then
-// right camera) and pose gives the residual, the Cauchy weight and the
-// Jacobians; per point h_cp, h_pp and g_p, h_pp^-1 (the adjugate, as
-// _inv33) and h_cp h_pp^-1. (2) Warp-per-sum: the sums over the points,
-// each warp one task with its lanes striding over the points: S's 6x6
-// block (f, g) (Schur term), h_cc's and g_c's block (camera b, pose f)
-// (its Jacobians recomputed from the point: the same operations, so the
-// same bits), or g_red's Schur term of pose f. The fixed pose's rows and
+// Who does what. Block rank r of a stream's cluster owns the contiguous
+// slice [r M / C, (r + 1) M / C) of the M points (C = CLUSTER; a slice may
+// be empty) and runs every per-point phase on its slice only: the gate's
+// sweeps, the mask, the fit at the original state, the per-point blocks,
+// the steps, the trial chi-square and the writeback. Everything per point
+// lives in a scratch row of device memory per stream (structure of
+// arrays), of which each block reads and writes its own slice: the
+// current and trial positions, the gated weights, the old fit e2, the mask
+// `use`, and per iteration h_cp [F, 6, 3], h_cp h_pp^-1 [F, 6, 3], g_p [3]
+// and h_pp^-1 [3, 3]. Every sum over the points is a float64 partial per
+// block over its slice; after a cluster barrier every block reads all C
+// partials from the others' shared memory (distributed shared memory) and
+// adds them in rank order 0..C-1, then rounds once to float32. So every
+// block holds the same totals without a broadcast, assembles and solves
+// the reduced system itself, and takes the same accept decision; rank 0
+// alone writes chi2, n_obs and the accept bits. The poses (world to camera,
+// current, original and trial), lambda, nu and the reduced system live in
+// each block's shared memory.
+//
+// One iteration. (1) A lane pair per point, the even lane observing the
+// left camera and the odd one the right (their rounded terms traded by a
+// shuffle and added in block order): every observation block and pose
+// gives the residual, the Cauchy weight and the Jacobians; per point h_cp,
+// h_pp and g_p, h_pp^-1 (the adjugate, as _inv33) and h_cp h_pp^-1, each
+// lane writing half the rows. (2) Warp-per-sum over the block's slice, each
+// warp one task with its lanes striding over the points, folded over the
+// lanes (lm_common.cuh::fold): S's 6x6 block (f, g) (Schur term), h_cc's
+// and g_c's block (camera b, pose f) (its Jacobians recomputed from the
+// point: the same operations, so the same bits), or g_red's Schur term of
+// pose f. The fixed pose's rows and
 // columns become the identity (the gauge fix), so no task computes them.
-// (3) The reduced system assembled in float32 as the plain version does,
-// widened, and solved by one warp: LU with partial pivoting, then the two
-// triangular solves. (4) Thread-per-point: dp = -h_pp^-1 (g_p + h_cp^T dc),
-// the trial positions; the poses retracted. (5) The robust chi-square at
-// the trial state, and the accept test on thread 0: a rejected step keeps
-// the state and only adapts lambda; a non-finite dc or dp is rejected.
+// (3) The exchange: a cluster barrier, then the reduced system assembled
+// from the C partials in float32 as the plain version does, widened. (4)
+// The solve: LU with partial pivoting by the block, then the two
+// triangular solves by one warp. (5) Thread-per-point: dp = -h_pp^-1 (g_p
+// + h_cp^T dc), the trial positions; the poses retracted. (6) The robust
+// chi-square at the trial state (a lane pair per point, as the gate's
+// sweeps; a cluster sum, with the count of non-finite dp), and the accept
+// test: a rejected step keeps the state and only adapts lambda; a
+// non-finite dc or dp is rejected.
+//
+// The solve. The LU keeps, for every element, the sequence of operations
+// of cuBLAS's getf2 (see lu_factor), but rows are relabelled by a
+// permutation instead of moved, the pivot is found by a warp's integer
+// max/min reductions on the magnitudes' bits, the pivot row is read from
+// shared memory (a broadcast), and the trailing update's (n - k - 1)^2
+// independent fused multiply-adds are spread over the block's threads.
+// The rows have an odd stride, so a column's rows lie in distinct banks.
+// The first 6 steps are skipped: the gauge fix makes the first 6 columns
+// those of the identity, where each such step computes l = 0 x 1 = +0 and
+// a_ij + (-0 x 0) = a_ij for every a_ij (signed zeros and NaNs included),
+// so the matrix keeps its bits. The triangular solves keep every step.
 //
 // Rounding. The per-point float32 arithmetic is the plain version's
 // operation by operation (lm_common.cuh: __fmul_rn and friends, no fused
@@ -44,32 +81,74 @@
 // kernels call them). Every contraction the plain version runs through
 // bundle.py::_einsum64 / _wide / _sum64 is a float64 sum of products of
 // float32 numbers (exact in float64), rounded once to float32; here the
-// same products are summed in float64 in a fixed order and rounded once
-// (an exact product added is a fused multiply-add of its two factors),
-// which gives the same float32 except where the exact sum lies within
-// ~1e-16 relative of a float32 rounding boundary. The float64 solve
-// follows the order of operations of the one the plain version runs on
-// the card (cuBLAS's batched LU and triangular solves; see lu_solve): a
+// same products are summed in float64 in a fixed order (each block's
+// slice in its fixed order, then the blocks in rank order) and rounded
+// once (an exact product added is a fused multiply-add of its two
+// factors). Another order moves a float64 sum by ~1e-16 of its terms'
+// magnitudes, so it rounds to the same float32 unless its terms cancel:
+// tests/test_torch_ba_refine.py finds every sum over slices of C = 1 to
+// 16 points equal where the terms cancel by less than 2^20, and a few of
+// h_cc's entries (cancelling by 2^26 or more) a float32 apart, as they
+// are between the card's einsum and the CPU's; the body's outputs stay
+// the plain version's bits.
+// The float64 solve follows the order of operations of the one the plain
+// version runs on the card (cuBLAS's batched LU and triangular solves): a
 // window of few points leaves the reduced system ill-conditioned enough
 // that another order moves dc by a float32 ulp. Every order here depends
-// on M and F alone, so a stream of an S-stream launch gets the bits of its
-// own S = 1 launch.
+// on M, F and C alone, never on S or on which SMs are free, so a stream of
+// an S-stream launch gets the bits of its own S = 1 launch.
 //
 // Sizes: any M; F up to MAX_F poses (the wrapper refuses more), the first
 // pose fixed.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "lm_common.cuh"
 
+// A phase boundary, and one inside the solve (read by thread 0):
+// scripts/torch_ba_phase_clocks.py defines them to read the SM clock; the
+// kernel's own build leaves nothing of them.
+#ifndef BA_PHASE_CLOCK
+#define BA_PHASE_CLOCK(slot)
+#endif
+#ifndef BA_SOLVE_CLOCK
+#define BA_SOLVE_CLOCK(part)
+#endif
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int CLUSTER = 8;          // blocks per stream (the portable limit)
+constexpr int THREADS = 256;        // threads per block
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_F = 8;            // window poses per stream
 constexpr int MAX_N = 6 * MAX_F;    // the reduced camera system's size
+constexpr int LDA = MAX_N + 1;      // its row stride: odd, see lu_factor
 constexpr int NB = 2;               // observation blocks: left, right camera
 constexpr int CP = 18;              // a point's 6 x 3 block of h_cp per pose
+constexpr int SMALL = 4;            // the most values of one small sum
+
+// One iteration's sums over the points, as a block's float64 partials
+// (Shared::iter), one task's each: per pair of free poses (f, g) S's 6x6
+// block (SCHUR values, row major), per camera block b and free pose f
+// h_cc's 6x6 block and g_c's 6 (CAM), per free pose f g_red's Schur term
+// (GRED); every index of a free pose is 1..F-1.
+constexpr int SCHUR = 36, CAM = 42, GRED = 6;
+constexpr int MAX_FREE = MAX_F - 1;
+constexpr int ITER_SUMS =
+    SCHUR * MAX_FREE * MAX_FREE + NB * CAM * MAX_FREE + GRED * MAX_FREE;
+
+__device__ __forceinline__ int schur_at(int f, int g, int nf) {
+  return SCHUR * ((f - 1) * nf + g - 1);
+}
+__device__ __forceinline__ int cam_at(int b, int f, int nf) {
+  return SCHUR * nf * nf + CAM * (b * nf + f - 1);
+}
+__device__ __forceinline__ int gred_at(int f, int nf) {
+  return SCHUR * nf * nf + NB * CAM * nf + GRED * (f - 1);
+}
 
 // ba_refine_kernel's launches on this device since the library was loaded:
 // counted by the kernel itself, so that a CUDA graph's replays count too (a
@@ -114,23 +193,26 @@ __host__ __device__ constexpr int scratch_per_point(int f_dim) {
   return 3 + 3 + NB * f_dim + 1 + 1 + 2 * f_dim * CP + 3 + 9;
 }
 
-// shared state of a stream's block
+// shared state of one block of a stream's cluster
 struct Shared {
   float r0[MAX_F][9], t0[MAX_F][3];    // the original poses, world to camera
   float r[MAX_F][9], t[MAX_F][3];      // the current ones
   float rt[MAX_F][9], tt[MAX_F][3];    // the trial ones
   float tn[3];                         // the newest pose's position
-  float sc[MAX_F * MAX_F * 36];        // S's Schur sums, rounded
-  float hcc[NB][MAX_F][36], gc[NB][MAX_F][6], gpart[MAX_F][6];
-  double a[MAX_N][MAX_N];              // the reduced system, then its LU
-  double b[MAX_N];                     // its right-hand side, then dc
+  double a[MAX_N][LDA];  // the reduced system, then its LU (rows by perm)
+  double b[MAX_N];       // its right-hand side
+  double y[MAX_N];       // b permuted, then the solution
+  int perm[MAX_N];       // the LU's row labels: logical row i is a[perm[i]]
   float dc[MAX_N];
-  double part[WARPS][4];
-  int part_i[WARPS];
-  double sums[4];
+  double part[WARPS][SMALL];  // a small sum's partials of the warps
+  double red[2][SMALL];  // this block's partial of a small sum (read by the
+                         // cluster), alternating between two buffers
+  double sums[SMALL];    // the cluster's totals of a small sum
+  double iter[ITER_SUMS];  // this block's partials of an iteration's sums
+                           // (read by the cluster)
   float lam, nu, chi2, gate;
   int cur;       // which of Scratch::pts holds the current positions
-  int bad;       // a non-finite dc or dp
+  int bad;       // a non-finite dc
 };
 
 // ---- one observation, operation by operation
@@ -203,12 +285,16 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x < lo ? lo : x;
 }
 
-// ---- block reductions; every thread calls them
+// ---- sums over the cluster; every thread of every block calls them
 
-// The N float64 values of every thread summed over the block (each warp by
-// an xor butterfly, then the warps in order by thread o), into sh.sums.
+// The N float64 values of every thread summed over the stream's points
+// into sh.sums: this block's partial (each warp by an xor butterfly, then
+// the warps in order) into sh.red[par], a cluster barrier, then every
+// block adds the C blocks' partials in rank order. `par` alternates, so a
+// buffer is written again only after the next call's barrier, by which
+// every block has read it.
 template <int N>
-__device__ void block_sum(double (&v)[N], Shared& sh) {
+__device__ void cluster_sum(double (&v)[N], Shared& sh, int& par) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int o = 0; o < N; ++o) {
@@ -222,65 +308,65 @@ __device__ void block_sum(double (&v)[N], Shared& sh) {
     double s = sh.part[0][threadIdx.x];
 #pragma unroll
     for (int q = 1; q < WARPS; ++q) s = __dadd_rn(s, sh.part[q][threadIdx.x]);
+    sh.red[par][threadIdx.x] = s;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (threadIdx.x < N) {
+    double* mine = &sh.red[par][threadIdx.x];
+    double s = *cluster.map_shared_rank(mine, 0);
+#pragma unroll
+    for (int r = 1; r < CLUSTER; ++r)
+      s = __dadd_rn(s, *cluster.map_shared_rank(mine, r));
     sh.sums[threadIdx.x] = s;
   }
   __syncthreads();
+  par ^= 1;
 }
 
-__device__ int block_count(int v, Shared& sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// The cluster's total of an iteration's partial sh.iter[off]: the C
+// blocks' partials in rank order, rounded once
+__device__ __forceinline__ float iter_total(cg::cluster_group& cluster,
+                                            Shared& sh, int off) {
+  double* mine = sh.iter + off;
+  double s = *cluster.map_shared_rank(mine, 0);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  if (lane == 0) sh.part_i[warp] = v;
-  __syncthreads();
-  int s = 0;
-#pragma unroll
-  for (int q = 0; q < WARPS; ++q) s += sh.part_i[q];
-  __syncthreads();
-  return s;
-}
-
-// A warp's N float64 partial sums over its lanes (xor butterfly): every
-// lane ends with the totals.
-template <int N>
-__device__ __forceinline__ void warp_sum(double (&v)[N]) {
-#pragma unroll
-  for (int o = 0; o < N; ++o) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[o] = __dadd_rn(v[o], __shfl_xor_sync(FULL, v[o], off));
-  }
+  for (int r = 1; r < CLUSTER; ++r)
+    s = __dadd_rn(s, *cluster.map_shared_rank(mine, r));
+  return __double2float_rn(s);
 }
 
 // ---- the gate (chi2_gate_weights) and the points that take part
 
-// Sweep of the window at the original state: the float64 sums of the
-// weights and of weight x e2 of both blocks, with each weight w_b cut to
-// w_b * (e2 <= cut) if `trim`, into sh.sums: [sum w_0, sum w_1, sum w_0 e2,
-// sum w_1 e2].
-__device__ void gate_moments(const Window& in, int f_dim, int m, float x_off,
-                             const Cam& c, bool trim, float cut, Shared& sh) {
-  double v[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int p = threadIdx.x; p < m; p += THREADS) {
+// Sweep of the block's points [lo, hi) at the original state: the float64
+// sums of the weights and of weight x e2 of both blocks, with each weight
+// w_b cut to w_b * (e2 <= cut) if `trim`, into v (zero before): [sum w_0,
+// sum w_1, sum w_0 e2, sum w_1 e2]; lanes 2q and 2q + 1 share a point, the
+// even one summing the left block, the odd one the right.
+__device__ void gate_moments(const Window& in, int lo, int hi, int f_dim,
+                             int m, float x_off, const Cam& c, bool trim,
+                             float cut, const Shared& sh, double (&v)[4]) {
+  const int b = threadIdx.x & 1;
+  double sw = 0.0, se = 0.0;
+  for (int p = lo + (threadIdx.x >> 1); p < hi; p += THREADS / 2) {
     const float x = in.pos[3 * p], y = in.pos[3 * p + 1],
                 z = in.pos[3 * p + 2];
-    for (int b = 0; b < NB; ++b) {
-      for (int f = 0; f < f_dim; ++f) {
-        const long long o = static_cast<long long>(f) * m + p;
-        float lx, ly, lz;
-        camera_point(sh.r0[f], sh.t0[f], x, y, z, lx, ly, lz);
-        const Proj pr = project_cam(b == 0 ? lx : __fadd_rn(lx, x_off), ly,
-                                    lz, in.obs[b][2 * o], in.obs[b][2 * o + 1],
-                                    c);
-        const float w = trim ? __fmul_rn(in.w[b][o], pr.e2 <= cut ? 1.0f : 0.0f)
-                             : in.w[b][o];
-        v[b] = __dadd_rn(v[b], static_cast<double>(w));
-        v[2 + b] = __dadd_rn(v[2 + b],
-                             static_cast<double>(__fmul_rn(w, pr.e2)));
-      }
+    for (int f = 0; f < f_dim; ++f) {
+      const long long o = static_cast<long long>(f) * m + p;
+      float lx, ly, lz;
+      camera_point(sh.r0[f], sh.t0[f], x, y, z, lx, ly, lz);
+      const Proj pr = project_cam(b == 0 ? lx : __fadd_rn(lx, x_off), ly, lz,
+                                  in.obs[b][2 * o], in.obs[b][2 * o + 1], c);
+      const float w = trim ? __fmul_rn(in.w[b][o], pr.e2 <= cut ? 1.0f : 0.0f)
+                           : in.w[b][o];
+      sw = __dadd_rn(sw, static_cast<double>(w));
+      se = __dadd_rn(se, static_cast<double>(__fmul_rn(w, pr.e2)));
     }
   }
-  block_sum<4>(v, sh);
+  v[0] = b == 0 ? sw : 0.0;
+  v[1] = b == 0 ? 0.0 : sw;
+  v[2] = b == 0 ? se : 0.0;
+  v[3] = b == 0 ? 0.0 : se;
 }
 
 // mean_e2: (sum w e2) / clamp(sum w, min=1), the sums rounded once each
@@ -296,126 +382,174 @@ __device__ float mean_e2(const Shared& sh) {
 
 // ---- the reduced camera solve
 
-// The n x n system in sh.a, sh.b solved by one warp, in the order of
-// operations of bundle.py::_solve64 on the card (cuBLAS's batched LU and
-// its triangular solves; scripts/torch_ba_lu_probe.py matched each step on
-// every system it recorded, bit for bit in float64): the LU with partial
-// pivoting as LAPACK's getf2 (at column k the first row of largest
-// magnitude swapped in, the column below the pivot scaled by the pivot's
-// reciprocal, the trailing block updated with fused multiply-adds); the
-// row swaps applied to b; then both triangular solves by blocks of rows
-// from the top: within a block column by column (b_i -= b_k a_ik fused;
-// the upper solve from the bottom, each b_k first divided by a_kk), then
-// every row beyond the block less the block's dot product, summed with
-// fused multiply-adds in ascending order. Blocks of TRSM_NB rows; a system
-// of at most TRSM_WHOLE rows is one block (the probe: n = 18 one block,
-// n = 24 to 48 blocks of 8). x is left in sh.b.
+// The n x n system in sh.a, sh.b solved in the order of operations of
+// bundle.py::_solve64 on the card (cuBLAS's batched LU and its triangular
+// solves; scripts/torch_ba_lu_probe.py matched each step on every system it
+// recorded, bit for bit in float64): the LU with partial pivoting as
+// LAPACK's getf2 (at column k the first row of largest magnitude swapped
+// in, a NaN never winning; the column below the pivot scaled by the
+// pivot's reciprocal, 1 / a_kk by __ddiv_rn; the trailing block updated as
+// a_ij = fma(-l_i, a_kj, a_ij)); the row swaps applied to b; then both
+// triangular solves by blocks of rows from the top: within a block column
+// by column (b_i -= b_k a_ik fused; the upper solve from the bottom, each
+// b_k first divided by a_kk), then every row beyond the block less the
+// block's dot product, summed with fused multiply-adds in ascending order.
+// Blocks of TRSM_NB rows; a system of at most TRSM_WHOLE rows is one block
+// (the probe: n = 18 one block, n = 24 to 48 blocks of 8).
+//
+// Who does it. The LU (lu_factor) is the whole block's: every warp finds
+// the pivot itself (the same one), a swap relabels rows (sh.perm) instead
+// of moving them, the trailing update's elements are spread over all the
+// block's threads, and a step's multipliers are written during the next
+// step's pivot search (no later step reads them). The triangular solves
+// (lu_solve) are warp 0's, each row block's chain in registers and
+// shuffles. Each element still sees the same operations in the same
+// order. The rows' stride LDA is odd, so 32 lanes reading a column hit
+// distinct banks. x is left in sh.y.
 constexpr int TRSM_NB = 8;
 constexpr int TRSM_WHOLE = 18;
 
-__device__ void lu_solve(Shared& sh, int n, int lane) {
-  for (int k = 0; k < n; ++k) {
-    // pivot: the first row of largest |a_ik|, i >= k (a NaN never wins)
-    double best = -1.0;
+__device__ void lu_factor(Shared& sh, int n) {
+  const int lane = threadIdx.x & 31;
+  BA_SOLVE_CLOCK(0);
+  for (int i = threadIdx.x; i < n; i += THREADS) sh.perm[i] = i;
+  __syncthreads();
+  double rcp = 0.0;   // the last step's reciprocal
+  // steps 0..5 (the gauge-fixed identity columns) leave every bit: skipped
+  for (int k = 6; k < n; ++k) {
+    // the last step's multipliers l_i = a_ik x rcp (rows below it: the same
+    // physical rows whatever this step relabels)
+    if (k > 6) {
+      for (int i = k + threadIdx.x; i < n; i += THREADS) {
+        double* row = sh.a[sh.perm[i]];
+        row[k - 1] = __dmul_rn(row[k - 1], rcp);
+      }
+    }
+    // pivot: the first row of largest |a_ik|, i >= k, a NaN never winning,
+    // found by every warp alike. Each lane's first largest as a key (the
+    // bits of |a_ik|, which order as the values do, plus 1; 0 for none or
+    // a NaN), then the warp's largest key, high word then low word, and
+    // the first row holding it
+    unsigned long long best = 0ull;
     int p = n;
     for (int i = k + lane; i < n; i += 32) {
-      const double v = fabs(sh.a[i][k]);
-      if (v > best) {
-        best = v;
+      const double v = fabs(sh.a[sh.perm[i]][k]);
+      const unsigned long long key =
+          isnan(v) ? 0ull
+                   : static_cast<unsigned long long>(__double_as_longlong(v)) + 1ull;
+      if (key > best) {
+        best = key;
         p = i;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const double ob = __shfl_xor_sync(FULL, best, off);
-      const int op = __shfl_xor_sync(FULL, p, off);
-      if (ob > best || (ob == best && op < p)) {
-        best = ob;
-        p = op;
-      }
+    const unsigned hi = static_cast<unsigned>(best >> 32);
+    const unsigned lo = static_cast<unsigned>(best);
+    const unsigned top = __reduce_max_sync(FULL, hi);
+    const unsigned low = __reduce_max_sync(FULL, hi == top ? lo : 0u);
+    p = static_cast<int>(__reduce_min_sync(
+        FULL, hi == top && lo == low ? static_cast<unsigned>(p) : ~0u));
+    const int rk = sh.perm[k];
+    if (p == n || isnan(sh.a[rk][k])) p = k;
+    const int rp = sh.perm[p];
+    BA_SOLVE_CLOCK(1);
+    __syncthreads();   // every read of perm done
+    // logical rows k and p swapped: rows below k read perm, but row p as rk
+    if (threadIdx.x == 0) {
+      sh.perm[p] = rk;
+      sh.perm[k] = rp;
     }
-    if (p == n || isnan(sh.a[k][k])) p = k;
-    // rows k and p swapped, and b with them (the same swaps in the same
-    // order as applied to b after the factorization)
-    if (p != k) {
-      for (int j = lane; j < n; j += 32) {
-        const double tmp = sh.a[k][j];
-        sh.a[k][j] = sh.a[p][j];
-        sh.a[p][j] = tmp;
-      }
-      if (lane == 0) {
-        const double tmp = sh.b[k];
-        sh.b[k] = sh.b[p];
-        sh.b[p] = tmp;
-      }
+    const double* piv = sh.a[rp];
+    rcp = __ddiv_rn(1.0, piv[k]);
+    BA_SOLVE_CLOCK(2);
+    // the trailing (r x r) block, element e = (k + 1 + e / r, k + 1 + e % r)
+    // on thread e % THREADS: a_ij = fma(-l_i, a_kj, a_ij), l_i = a_ik x rcp
+    const int r = n - k - 1;
+    for (int e = threadIdx.x; e < r * r; e += THREADS) {
+      const int i = k + 1 + e / r, j = k + 1 + e % r;
+      double* row = sh.a[i == p ? rk : sh.perm[i]];
+      row[j] = __fma_rn(-__dmul_rn(row[k], rcp), piv[j], row[j]);
     }
-    __syncwarp();
-    const double rcp = __ddiv_rn(1.0, sh.a[k][k]);
-    for (int i = k + 1 + lane; i < n; i += 32) {   // a row per lane
-      const double l = __dmul_rn(sh.a[i][k], rcp);
-      sh.a[i][k] = l;
-      for (int j = k + 1; j < n; ++j)
-        sh.a[i][j] = __fma_rn(-l, sh.a[k][j], sh.a[i][j]);
-    }
-    __syncwarp();
+    BA_SOLVE_CLOCK(3);
+    __syncthreads();
+    BA_SOLVE_CLOCK(4);
   }
-  const int nb = n <= TRSM_WHOLE ? n : TRSM_NB;
-  // the unit lower solve, blocks from the top
-  for (int bs = 0; bs < n; bs += nb) {
-    const int be = min(n, bs + nb);
-    for (int k = bs; k < be; ++k) {
-      const double bk = sh.b[k];
-      for (int i = k + 1 + lane; i < be; i += 32)
-        sh.b[i] = __fma_rn(-bk, sh.a[i][k], sh.b[i]);
-      __syncwarp();
-    }
-    for (int i = be + lane; i < n; i += 32) {
-      double d = 0.0;
-      for (int k = bs; k < be; ++k) d = __fma_rn(sh.a[i][k], sh.b[k], d);
-      sh.b[i] = __dsub_rn(sh.b[i], d);
-    }
-    __syncwarp();
-  }
-  // the upper solve, the same blocks from the last
-  for (int bs = (n - 1) / nb * nb; bs >= 0; bs -= nb) {
-    const int be = min(n, bs + nb);
-    for (int k = be - 1; k >= bs; --k) {
-      const double bk = __ddiv_rn(sh.b[k], sh.a[k][k]);
-      __syncwarp();
-      if (lane == 0) sh.b[k] = bk;
-      for (int i = bs + lane; i < k; i += 32)
-        sh.b[i] = __fma_rn(-bk, sh.a[i][k], sh.b[i]);
-      __syncwarp();
-    }
-    for (int i = lane; i < bs; i += 32) {
-      double d = 0.0;
-      for (int k = bs; k < be; ++k) d = __fma_rn(sh.a[i][k], sh.b[k], d);
-      sh.b[i] = __dsub_rn(sh.b[i], d);
-    }
-    __syncwarp();
-  }
+  // (the last step, k = n - 1, has no rows below it)
 }
 
-// ---- the sums over the points (warp tasks)
+// The triangular solves of lu_factor's factors, by warp 0 (lane = its
+// lane): x is left in sh.y.
+__device__ void lu_solve(Shared& sh, int n, int lane) {
+  for (int i = lane; i < n; i += 32) sh.y[i] = sh.b[sh.perm[i]];
+  __syncwarp();
+  const int nb = n <= TRSM_WHOLE ? n : TRSM_NB;
+  // The triangular solves, each block's rows on lanes 0 .. nb - 1 (lane t
+  // row bs + t, its y in a register, y_k from lane k - bs by a shuffle),
+  // then the rows beyond the block on all lanes.
+  // The unit lower solve, blocks from the top: within a block, at column k
+  // every later row's y_i = fma(-y_k, l_ik, y_i)
+  for (int bs = 0; bs < n; bs += nb) {
+    const int be = min(n, bs + nb), t = bs + lane;
+    const double* row = sh.a[sh.perm[t < be ? t : bs]];
+    double yv = t < be ? sh.y[t] : 0.0;
+    for (int k = bs; k < be - 1; ++k) {
+      const double yk = __shfl_sync(FULL, yv, k - bs);
+      if (t > k && t < be) yv = __fma_rn(-yk, row[k], yv);
+    }
+    if (t < be) sh.y[t] = yv;
+    __syncwarp();
+    for (int i = be + lane; i < n; i += 32) {
+      const double* ri = sh.a[sh.perm[i]];
+      double d = 0.0;
+      for (int k = bs; k < be; ++k) d = __fma_rn(ri[k], sh.y[k], d);
+      sh.y[i] = __dsub_rn(sh.y[i], d);
+    }
+    __syncwarp();
+  }
+  BA_SOLVE_CLOCK(5);
+  // the upper solve, the same blocks from the last: within a block, from
+  // its last row, y_k = y_k / u_kk, then every earlier row's y_i =
+  // fma(-y_k, u_ik, y_i)
+  for (int bs = (n - 1) / nb * nb; bs >= 0; bs -= nb) {
+    const int be = min(n, bs + nb), t = bs + lane;
+    const double* row = sh.a[sh.perm[t < be ? t : bs]];
+    double yv = t < be ? sh.y[t] : 0.0;
+    for (int k = be - 1; k >= bs; --k) {
+      if (t == k) yv = __ddiv_rn(yv, row[k]);
+      const double yk = __shfl_sync(FULL, yv, k - bs);
+      if (t >= bs && t < k) yv = __fma_rn(-yk, row[k], yv);
+    }
+    if (t < be) sh.y[t] = yv;
+    __syncwarp();
+    for (int i = lane; i < bs; i += 32) {
+      const double* ri = sh.a[sh.perm[i]];
+      double d = 0.0;
+      for (int k = bs; k < be; ++k) d = __fma_rn(ri[k], sh.y[k], d);
+      sh.y[i] = __dsub_rn(sh.y[i], d);
+    }
+    __syncwarp();
+  }
+  BA_SOLVE_CLOCK(6);
+}
 
-// Rows 3 h .. 3 h + 2 of the Schur term S[f, g] = sum_m (h_cp
-// h_pp^-1)[f, m] h_cp[g, m]^T: 18 sums (half the block, so that the
-// accumulators stay in registers)
-__device__ void task_schur(const Scratch& s, int m, int f, int g, int h,
-                           int f_dim, int lane, Shared& sh) {
-  double acc[18];
+// ---- the sums over the block's points (warp tasks)
+
+// The Schur term S[f, g] = sum_m (h_cp h_pp^-1)[f, m] h_cp[g, m]^T over
+// the points [lo, hi): 36 partials into out
+__device__ void task_schur(const Scratch& s, int lo, int hi, int m, int f,
+                           int g, int lane, double* out) {
+  double acc[SCHUR];
 #pragma unroll
-  for (int o = 0; o < 18; ++o) acc[o] = 0.0;
-  const float* a = s.a + (static_cast<long long>(f) * CP + 9 * h) * m;
+  for (int o = 0; o < SCHUR; ++o) acc[o] = 0.0;
+  const float* a = s.a + static_cast<long long>(f) * CP * m;
   const float* hc = s.hcp + static_cast<long long>(g) * CP * m;
-  for (int p = lane; p < m; p += 32) {
-    float hb[CP], ab[9];
+  for (int p = lo + lane; p < hi; p += 32) {
+    float hb[CP], ab[CP];
 #pragma unroll
     for (int q = 0; q < CP; ++q) hb[q] = hc[static_cast<long long>(q) * m + p];
 #pragma unroll
-    for (int q = 0; q < 9; ++q) ab[q] = a[static_cast<long long>(q) * m + p];
+    for (int q = 0; q < CP; ++q) ab[q] = a[static_cast<long long>(q) * m + p];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < 6; ++i) {
 #pragma unroll
       for (int j = 0; j < 6; ++j) {
         double t = __fma_rn(ab[3 * i], hb[3 * j], acc[6 * i + j]);
@@ -424,62 +558,60 @@ __device__ void task_schur(const Scratch& s, int m, int f, int g, int h,
       }
     }
   }
-  warp_sum(acc);
-  if (lane == 0) {
-    float* out = sh.sc + (f * f_dim + g) * 36 + 18 * h;
-#pragma unroll
-    for (int o = 0; o < 18; ++o) out[o] = __double2float_rn(acc[o]);
-  }
+  fold<0, 32>(acc, lane);
+  fold<32, 4>(acc, lane);
+  out[lane] = acc[0];
+  if ((lane & 7) == 0) out[32 + (lane >> 3)] = acc[32];
 }
 
-// Rows 3 h .. 3 h + 2 of h_cc's block and of g_c's (camera b, pose f):
-// 18 + 3 sums over the points of sum_k jc_w[k]_i jc[k]_j and sum_k
-// jc_w[k]_i r_k, jc_w = jc wr
-__device__ void task_camera(const Window& in, const Scratch& s, int m,
-                            int f_dim, int b, int f, int h, float x_off,
-                            const Cam& c, int lane, Shared& sh) {
-  double acc[21];
+// h_cc's block and g_c's (camera b, pose f) over the points [lo, hi): 36 +
+// 6 partials of sum_k jc_w[k]_i jc[k]_j and sum_k jc_w[k]_i r_k, jc_w = jc
+// wr, into out
+__device__ void task_camera(const Window& in, const Scratch& s, int lo,
+                            int hi, int m, int f_dim, int b, int f,
+                            float x_off, const Cam& c, int lane,
+                            const Shared& sh, double* out) {
+  double acc[CAM];
 #pragma unroll
-  for (int o = 0; o < 21; ++o) acc[o] = 0.0;
+  for (int o = 0; o < CAM; ++o) acc[o] = 0.0;
   const float* pts = s.pts[sh.cur];
   const float* wg = s.wg + static_cast<long long>(b * f_dim + f) * m;
-  for (int p = lane; p < m; p += 32) {
+  for (int p = lo + lane; p < hi; p += 32) {
     const long long o = static_cast<long long>(f) * m + p;
     const Obs ob = observe(sh.r[f], sh.t[f], pts[p], pts[m + p],
                            pts[2 * m + p], in.obs[b][2 * o],
                            in.obs[b][2 * o + 1], wg[p], b, x_off, c);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float jw0 = __fmul_rn(ob.jc[0][3 * h + i], ob.wr);
-      const float jw1 = __fmul_rn(ob.jc[1][3 * h + i], ob.wr);
+    for (int i = 0; i < 6; ++i) {
+      const float jw0 = __fmul_rn(ob.jc[0][i], ob.wr);
+      const float jw1 = __fmul_rn(ob.jc[1][i], ob.wr);
 #pragma unroll
       for (int j = 0; j < 6; ++j) {
         const double t = __fma_rn(jw0, ob.jc[0][j], acc[6 * i + j]);
         acc[6 * i + j] = __fma_rn(jw1, ob.jc[1][j], t);
       }
-      const double t = __fma_rn(jw0, ob.rx, acc[18 + i]);
-      acc[18 + i] = __fma_rn(jw1, ob.ry, t);
+      const double t = __fma_rn(jw0, ob.rx, acc[36 + i]);
+      acc[36 + i] = __fma_rn(jw1, ob.ry, t);
     }
   }
-  warp_sum(acc);
-  if (lane == 0) {
-#pragma unroll
-    for (int o = 0; o < 18; ++o)
-      sh.hcc[b][f][18 * h + o] = __double2float_rn(acc[o]);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      sh.gc[b][f][3 * h + i] = __double2float_rn(acc[18 + i]);
-  }
+  fold<0, 32>(acc, lane);
+  fold<32, 8>(acc, lane);
+  fold<40, 2>(acc, lane);
+  out[lane] = acc[0];
+  if ((lane & 3) == 0) out[32 + (lane >> 2)] = acc[32];
+  if ((lane & 15) == 0) out[40 + (lane >> 4)] = acc[40];
 }
 
-// g_red's Schur term of pose f: sum_m (h_cp h_pp^-1)[f, m] g_p[m], 6 sums
-__device__ void task_gred(const Scratch& s, int m, int f, int lane,
-                          Shared& sh) {
+// g_red's Schur term of pose f over the points [lo, hi): sum_m (h_cp
+// h_pp^-1)[f, m] g_p[m], 6 partials into out
+__device__ void task_gred(const Scratch& s, int lo, int hi, int m, int f,
+                          int lane, double* out) {
   double acc[6];
 #pragma unroll
   for (int o = 0; o < 6; ++o) acc[o] = 0.0;
   const float* a = s.a + static_cast<long long>(f) * CP * m;
-  for (int p = lane; p < m; p += 32) {
+#pragma unroll 4
+  for (int p = lo + lane; p < hi; p += 32) {
     const float g0 = s.gp[p], g1 = s.gp[m + p], g2 = s.gp[2 * m + p];
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
@@ -488,80 +620,100 @@ __device__ void task_gred(const Scratch& s, int m, int f, int lane,
       acc[i] = __fma_rn(a[static_cast<long long>(3 * i + 2) * m + p], g2, t);
     }
   }
-  warp_sum(acc);
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < 6; ++i) sh.gpart[f][i] = __double2float_rn(acc[i]);
-  }
+  fold<0, 4>(acc, lane);
+  fold<4, 2>(acc, lane);
+  if ((lane & 7) == 0) out[lane >> 3] = acc[0];
+  if ((lane & 15) == 0) out[4 + (lane >> 4)] = acc[4];
 }
 
 // ---- the steps of one iteration
 
-// (1) per point: h_cp [F, 6, 3] (each block's float64 sum over the two
-// Jacobian rows rounded, the blocks added in float32), h_pp and g_p (each
-// block's float64 sum over the poses and rows rounded, then added),
+// (1) per point of [lo, hi): h_cp [F, 6, 3] (each block's float64 sum over
+// the two Jacobian rows rounded, the blocks added in float32), h_pp and g_p
+// (each block's float64 sum over the poses and rows rounded, then added),
 // h_pp^-1 = _inv33(h_pp, lambda), and h_cp h_pp^-1 for the poses that are
-// not fixed
-__device__ void point_blocks(const Window& in, const Scratch& s, int m,
-                             int f_dim, float x_off, const Cam& c,
-                             Shared& sh) {
+// not fixed. Lanes 2q and 2q + 1 share a point: each observes its own
+// block (left on the even lane, right on the odd), they trade the rounded
+// terms by a shuffle and add them in block order, and each writes rows
+// 3b .. 3b + 2 of h_cp and of h_cp h_pp^-1 (b its lane's parity).
+__device__ void point_blocks(const Window& in, const Scratch& s, int lo,
+                             int hi, int m, int f_dim, float x_off,
+                             const Cam& c, const Shared& sh) {
   const float* pts = s.pts[sh.cur];
   const float lam = sh.lam;
-  for (int p = threadIdx.x; p < m; p += THREADS) {
+  const int b = threadIdx.x & 1;
+  // warp-uniform rounds (the shuffles need every lane): 16 points a warp
+  for (int base = lo + (threadIdx.x >> 5) * 16; base < hi;
+       base += THREADS / 2) {
+    const int pt = base + ((threadIdx.x & 31) >> 1);
+    const bool on = pt < hi;
+    const int p = on ? pt : base;
     const float x = pts[p], y = pts[m + p], z = pts[2 * m + p];
-    // per block b: h_pp's (00 01 02 11 12 22) and g_p's float64 sums over
-    // the poses
-    double ah[NB][6] = {}, ag[NB][3] = {};
+    // this block's h_pp (00 01 02 11 12 22) and g_p float64 sums over the
+    // poses
+    double ah[6] = {}, ag[3] = {};
     for (int f = 0; f < f_dim; ++f) {
       const long long o = static_cast<long long>(f) * m + p;
+      const Obs ob = observe(sh.r[f], sh.t[f], x, y, z, in.obs[b][2 * o],
+                             in.obs[b][2 * o + 1],
+                             s.wg[static_cast<long long>(b) * f_dim * m + o],
+                             b, x_off, c);
       float hcp[CP];
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const Obs ob = observe(sh.r[f], sh.t[f], x, y, z, in.obs[b][2 * o],
-                               in.obs[b][2 * o + 1],
-                               s.wg[static_cast<long long>(b) * f_dim * m + o],
-                               b, x_off, c);
+      for (int i = 0; i < 6; ++i) {
+        const float jw0 = __fmul_rn(ob.jc[0][i], ob.wr);
+        const float jw1 = __fmul_rn(ob.jc[1][i], ob.wr);
 #pragma unroll
-        for (int i = 0; i < 6; ++i) {
-          const float jw0 = __fmul_rn(ob.jc[0][i], ob.wr);
-          const float jw1 = __fmul_rn(ob.jc[1][i], ob.wr);
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            const float v = __double2float_rn(
-                __fma_rn(jw1, ob.jp[1][j], __dmul_rn(jw0, ob.jp[0][j])));
-            hcp[3 * i + j] = b == 0 ? __fadd_rn(0.0f, v)
-                                    : __fadd_rn(hcp[3 * i + j], v);
-          }
-        }
-        // h_pp's and g_p's terms: (sum_k jp_ki jp_kj) wr, (sum_k jp_ki r_k) wr
-        const double wr = ob.wr;
-        int o6 = 0;
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-#pragma unroll
-          for (int j = i; j < 3; ++j, ++o6) {
-            const double t = __fma_rn(ob.jp[1][i], ob.jp[1][j],
-                                      __dmul_rn(ob.jp[0][i], ob.jp[0][j]));
-            ah[b][o6] = __dadd_rn(ah[b][o6], __dmul_rn(t, wr));
-          }
-          const double t = __fma_rn(ob.jp[1][i], ob.ry,
-                                    __dmul_rn(ob.jp[0][i], ob.rx));
-          ag[b][i] = __dadd_rn(ag[b][i], __dmul_rn(t, wr));
+        for (int j = 0; j < 3; ++j) {
+          const float mine = __double2float_rn(
+              __fma_rn(jw1, ob.jp[1][j], __dmul_rn(jw0, ob.jp[0][j])));
+          const float other = __shfl_xor_sync(FULL, mine, 1);
+          hcp[3 * i + j] = __fadd_rn(__fadd_rn(0.0f, b == 0 ? mine : other),
+                                     b == 0 ? other : mine);
         }
       }
-      float* dst = s.hcp + static_cast<long long>(f) * CP * m + p;
+      // h_pp's and g_p's terms: (sum_k jp_ki jp_kj) wr, (sum_k jp_ki r_k) wr
+      const double wr = ob.wr;
+      int o6 = 0;
 #pragma unroll
-      for (int q = 0; q < CP; ++q) dst[static_cast<long long>(q) * m] = hcp[q];
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = i; j < 3; ++j, ++o6) {
+          const double t = __fma_rn(ob.jp[1][i], ob.jp[1][j],
+                                    __dmul_rn(ob.jp[0][i], ob.jp[0][j]));
+          ah[o6] = __dadd_rn(ah[o6], __dmul_rn(t, wr));
+        }
+        const double t = __fma_rn(ob.jp[1][i], ob.ry,
+                                  __dmul_rn(ob.jp[0][i], ob.rx));
+        ag[i] = __dadd_rn(ag[i], __dmul_rn(t, wr));
+      }
+      if (on) {
+        float* dst = s.hcp + static_cast<long long>(f) * CP * m + p;
+        if (b == 0) {
+#pragma unroll
+          for (int q = 0; q < 9; ++q) dst[static_cast<long long>(q) * m] = hcp[q];
+        } else {
+#pragma unroll
+          for (int q = 9; q < CP; ++q) dst[static_cast<long long>(q) * m] = hcp[q];
+        }
+      }
     }
     float hpp[6], gp[3];
 #pragma unroll
-    for (int o6 = 0; o6 < 6; ++o6)
-      hpp[o6] = __fadd_rn(__fadd_rn(0.0f, __double2float_rn(ah[0][o6])),
-                          __double2float_rn(ah[1][o6]));
+    for (int o6 = 0; o6 < 6; ++o6) {
+      const float mine = __double2float_rn(ah[o6]);
+      const float other = __shfl_xor_sync(FULL, mine, 1);
+      hpp[o6] = __fadd_rn(__fadd_rn(0.0f, b == 0 ? mine : other),
+                          b == 0 ? other : mine);
+    }
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      gp[i] = __fadd_rn(__fadd_rn(0.0f, __double2float_rn(ag[0][i])),
-                        __double2float_rn(ag[1][i]));
+    for (int i = 0; i < 3; ++i) {
+      const float mine = __double2float_rn(ag[i]);
+      const float other = __shfl_xor_sync(FULL, mine, 1);
+      gp[i] = __fadd_rn(__fadd_rn(0.0f, b == 0 ? mine : other),
+                        b == 0 ? other : mine);
+    }
+    if (!on) continue;
     // _inv33(h_pp, lam): the adjugate of h_pp + lam I over its determinant
     const float lam_i[3][3] = {{__fmul_rn(lam, 1.0f), __fmul_rn(lam, 0.0f),
                                 __fmul_rn(lam, 0.0f)},
@@ -595,18 +747,22 @@ __device__ void point_blocks(const Window& in, const Scratch& s, int m,
         __fdiv_rn(1.0f, fabsf(det) < 1e-18f ? 1e-18f : det);
     float hinv[9];
 #pragma unroll
-    for (int q = 0; q < 9; ++q) {
-      hinv[q] = __fmul_rn(cof[q], inv_det);
-      s.hinv[static_cast<long long>(q) * m + p] = hinv[q];
+    for (int q = 0; q < 9; ++q) hinv[q] = __fmul_rn(cof[q], inv_det);
+    if (b == 0) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) s.hinv[static_cast<long long>(q) * m + p] = hinv[q];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        s.gp[static_cast<long long>(i) * m + p] = gp[i];
     }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) s.gp[static_cast<long long>(i) * m + p] = gp[i];
-    // h_cp h_pp^-1: [6, 3] x [3, 3] per pose, float64 sums rounded once
+    // h_cp h_pp^-1: [6, 3] x [3, 3] per pose, float64 sums rounded once;
+    // rows 3b .. 3b + 2, of the h_cp rows this lane wrote
     for (int f = 1; f < f_dim; ++f) {
-      const float* hcp = s.hcp + static_cast<long long>(f) * CP * m + p;
-      float* a = s.a + static_cast<long long>(f) * CP * m + p;
+      const float* hcp = s.hcp + (static_cast<long long>(f) * CP + 9 * b) * m + p;
+      float* a = s.a + (static_cast<long long>(f) * CP + 9 * b) * m + p;
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
+      for (int i = 0; i < 3; ++i) {
         const float h0 = hcp[static_cast<long long>(3 * i) * m];
         const float h1 = hcp[static_cast<long long>(3 * i + 1) * m];
         const float h2 = hcp[static_cast<long long>(3 * i + 2) * m];
@@ -622,24 +778,28 @@ __device__ void point_blocks(const Window& in, const Scratch& s, int m,
   }
 }
 
-// (3) the reduced system in float32 as bundle.py builds it, widened:
-// S = -Schur, plus (h_cc + lam I) on the diagonal blocks; g_red = g_c -
-// Schur term; the fixed pose's rows and columns the identity, its
-// right-hand side zero; b = -g_red
+// (3) the exchange: the reduced system in float32 as bundle.py builds it,
+// from the cluster's totals of the iteration's sums, widened: S = -Schur,
+// plus (h_cc + lam I) on the diagonal blocks; g_red = g_c - Schur term;
+// the fixed pose's rows and columns the identity, its right-hand side
+// zero; b = -g_red
 __device__ void assemble(int f_dim, Shared& sh) {
-  const int n = 6 * f_dim;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = 6 * f_dim, nf = f_dim - 1;
   const float lam = sh.lam;
   for (int e = threadIdx.x; e < n * n; e += THREADS) {
     const int r = e / n, c = e % n;
-    const int f = r / 6, i = r % 6, g = c / 6, j = c % 6;
     float v;
     if (r < 6 || c < 6) {
       v = r == c ? 1.0f : 0.0f;
     } else {
-      v = -sh.sc[(f * f_dim + g) * 36 + 6 * i + j];
+      const int f = r / 6, i = r % 6, g = c / 6, j = c % 6;
+      const int o = 6 * i + j;
+      v = -iter_total(cluster, sh, schur_at(f, g, nf) + o);
       if (f == g) {
-        const float hcc = __fadd_rn(__fadd_rn(0.0f, sh.hcc[0][f][6 * i + j]),
-                                    sh.hcc[1][f][6 * i + j]);
+        const float hcc = __fadd_rn(
+            __fadd_rn(0.0f, iter_total(cluster, sh, cam_at(0, f, nf) + o)),
+            iter_total(cluster, sh, cam_at(1, f, nf) + o));
         v = __fadd_rn(v, __fadd_rn(hcc, __fmul_rn(lam, i == j ? 1.0f : 0.0f)));
       }
     }
@@ -649,34 +809,45 @@ __device__ void assemble(int f_dim, Shared& sh) {
     const int f = r / 6, i = r % 6;
     float g = 0.0f;
     if (r >= 6) {
-      const float gc = __fadd_rn(__fadd_rn(0.0f, sh.gc[0][f][i]), sh.gc[1][f][i]);
-      g = __fsub_rn(gc, sh.gpart[f][i]);
+      const int o = 36 + i;
+      const float gc = __fadd_rn(
+          __fadd_rn(0.0f, iter_total(cluster, sh, cam_at(0, f, nf) + o)),
+          iter_total(cluster, sh, cam_at(1, f, nf) + o));
+      g = __fsub_rn(gc, iter_total(cluster, sh, gred_at(f, nf) + i));
     }
     sh.b[r] = -g;
   }
 }
 
-// (4) per point: dp = -h_pp^-1 (g_p + sum_f h_cp[f]^T dc_f) and the trial
-// position; a non-finite dp marks the step bad
-__device__ void point_steps(const Scratch& s, int m, int f_dim, Shared& sh) {
+// (5) per point of [lo, hi): dp = -h_pp^-1 (g_p + sum_f h_cp[f]^T dc_f)
+// and the trial position; returns whether a dp of the thread's points is
+// not finite
+__device__ bool point_steps(const Scratch& s, int lo, int hi, int m,
+                            int f_dim, const Shared& sh) {
   const float* pts = s.pts[sh.cur];
   float* trial = s.pts[1 - sh.cur];
   bool bad = false;
-  for (int p = threadIdx.x; p < m; p += THREADS) {
-    float t[3];
+  for (int p = lo + threadIdx.x; p < hi; p += THREADS) {
+    // per j, sum_f sum_i h_cp[f]_ij dc_fi in that order; a pose's 18
+    // values of h_cp loaded at once
+    double acc[3] = {0.0, 0.0, 0.0};
+    for (int f = 0; f < f_dim; ++f) {
+      const float* hcp = s.hcp + static_cast<long long>(f) * CP * m + p;
+      float h[CP];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      double acc = 0.0;
-      for (int f = 0; f < f_dim; ++f) {
-        const float* hcp = s.hcp + static_cast<long long>(f) * CP * m + p;
+      for (int q = 0; q < CP; ++q) h[q] = hcp[static_cast<long long>(q) * m];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
 #pragma unroll
         for (int i = 0; i < 6; ++i)
-          acc = __fma_rn(hcp[static_cast<long long>(3 * i + j) * m],
-                         sh.dc[6 * f + i], acc);
+          acc[j] = __fma_rn(h[3 * i + j], sh.dc[6 * f + i], acc[j]);
       }
-      t[j] = __fadd_rn(s.gp[static_cast<long long>(j) * m + p],
-                       __double2float_rn(acc));
     }
+    float t[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      t[j] = __fadd_rn(s.gp[static_cast<long long>(j) * m + p],
+                       __double2float_rn(acc[j]));
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       double acc = __dmul_rn(s.hinv[static_cast<long long>(3 * i) * m + p], t[0]);
@@ -688,32 +859,34 @@ __device__ void point_steps(const Scratch& s, int m, int f_dim, Shared& sh) {
           __fadd_rn(pts[static_cast<long long>(i) * m + p], dp);
     }
   }
-  if (bad) sh.bad = 1;
+  return bad;
 }
 
-// (5) the robust chi-square's two blocks at the poses (r, t) and the
-// positions pts, float64 sums of float32 terms, into sh.sums[0..1]
-__device__ void robust_chi2(const Window& in, const Scratch& s, int m,
-                            int f_dim, float x_off, const Cam& c,
-                            const float (*r)[9], const float (*t)[3],
-                            const float* pts, Shared& sh) {
-  double v[2] = {0.0, 0.0};
-  for (int p = threadIdx.x; p < m; p += THREADS) {
+// (6) the robust chi-square's two blocks at the poses (r, t) and the
+// positions pts over the points [lo, hi), float64 sums of float32 terms,
+// into v[0..1] (zero before); lanes 2q and 2q + 1 share a point, the even
+// one summing the left block, the odd one the right
+__device__ void robust_chi2(const Window& in, const Scratch& s, int lo,
+                            int hi, int m, int f_dim, float x_off,
+                            const Cam& c, const float (*r)[9],
+                            const float (*t)[3], const float* pts,
+                            double (&v)[3]) {
+  const int b = threadIdx.x & 1;
+  const float* wg = s.wg + static_cast<long long>(b) * f_dim * m;
+  double acc = 0.0;
+  for (int p = lo + (threadIdx.x >> 1); p < hi; p += THREADS / 2) {
     const float x = pts[p], y = pts[m + p], z = pts[2 * m + p];
-    for (int b = 0; b < NB; ++b) {
-      for (int f = 0; f < f_dim; ++f) {
-        const long long o = static_cast<long long>(f) * m + p;
-        float lx, ly, lz;
-        camera_point(r[f], t[f], x, y, z, lx, ly, lz);
-        const Proj pr = project_cam(b == 0 ? lx : __fadd_rn(lx, x_off), ly,
-                                    lz, in.obs[b][2 * o], in.obs[b][2 * o + 1],
-                                    c);
-        const float w = s.wg[static_cast<long long>(b) * f_dim * m + o];
-        v[b] = __dadd_rn(v[b], static_cast<double>(rho(w, pr.e2, c)));
-      }
+    for (int f = 0; f < f_dim; ++f) {
+      const long long o = static_cast<long long>(f) * m + p;
+      float lx, ly, lz;
+      camera_point(r[f], t[f], x, y, z, lx, ly, lz);
+      const Proj pr = project_cam(b == 0 ? lx : __fadd_rn(lx, x_off), ly, lz,
+                                  in.obs[b][2 * o], in.obs[b][2 * o + 1], c);
+      acc = __dadd_rn(acc, static_cast<double>(rho(wg[o], pr.e2, c)));
     }
   }
-  block_sum<2>(v, sh);
+  v[0] = b == 0 ? acc : 0.0;
+  v[1] = b == 0 ? 0.0 : acc;
 }
 
 // the total of the robust chi-square's two rounded blocks
@@ -744,25 +917,35 @@ __device__ float point_e2(const Window& in, const Scratch& s, int m,
   return total;
 }
 
-// ---- the whole body: one block per stream
+// ---- the whole body: one cluster per stream
 
-__global__ void __launch_bounds__(THREADS, 1) ba_refine_kernel(
-    const float* __restrict__ t_in, const float* __restrict__ q_in,
-    const float* __restrict__ pos_in, const float* __restrict__ obs_l,
-    const float* __restrict__ w_l, const float* __restrict__ obs_r,
-    const float* __restrict__ w_r, int f_dim, int m, int iters, Cam cam,
-    float x_off, float gate_th2, float* __restrict__ scratch,
-    float* __restrict__ pos_out, float* __restrict__ chi2_out,
-    long long* __restrict__ n_obs_out, unsigned char* __restrict__ accepted) {
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+    __launch_bounds__(THREADS, 1) ba_refine_kernel(
+        const float* __restrict__ t_in, const float* __restrict__ q_in,
+        const float* __restrict__ pos_in, const float* __restrict__ obs_l,
+        const float* __restrict__ w_l, const float* __restrict__ obs_r,
+        const float* __restrict__ w_r, int f_dim, int m, int iters, Cam cam,
+        float x_off, float gate_th2, float* __restrict__ scratch,
+        float* __restrict__ pos_out, float* __restrict__ chi2_out,
+        long long* __restrict__ n_obs_out,
+        unsigned char* __restrict__ accepted) {
   __shared__ Shared sh;
-  const long long st = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long st = blockIdx.x / CLUSTER;
   const long long fm = static_cast<long long>(f_dim) * m;
   const Window in{t_in + st * f_dim * 3, q_in + st * f_dim * 4,
                   pos_in + st * m * 3, {obs_l + st * fm * 2, obs_r + st * fm * 2},
                   {w_l + st * fm, w_r + st * fm}};
   const Scratch s(scratch + st * scratch_per_point(f_dim) * m, f_dim, m);
+  // this block's points
+  const int lo = static_cast<int>(static_cast<long long>(rank) * m / CLUSTER);
+  const int hi =
+      static_cast<int>(static_cast<long long>(rank + 1) * m / CLUSTER);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (st == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ull);
+  int par = 0;   // cluster_sum's buffer
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ull);
+  BA_PHASE_CLOCK(0);
 
   if (threadIdx.x < f_dim) {
     const int f = threadIdx.x;
@@ -785,17 +968,25 @@ __global__ void __launch_bounds__(THREADS, 1) ba_refine_kernel(
 
   // the gate: gate = max(gate_th2, 3 x the mean e2 of the observations
   // with e2 <= 4 x the plain mean)
-  gate_moments(in, f_dim, m, x_off, cam, false, 0.0f, sh);
+  {
+    double v[4] = {0.0, 0.0, 0.0, 0.0};
+    gate_moments(in, lo, hi, f_dim, m, x_off, cam, false, 0.0f, sh, v);
+    cluster_sum(v, sh, par);
+  }
   if (threadIdx.x == 0) sh.gate = __fmul_rn(4.0f, mean_e2(sh));
   __syncthreads();
-  gate_moments(in, f_dim, m, x_off, cam, true, sh.gate, sh);
+  {
+    double v[4] = {0.0, 0.0, 0.0, 0.0};
+    gate_moments(in, lo, hi, f_dim, m, x_off, cam, true, sh.gate, sh, v);
+    cluster_sum(v, sh, par);
+  }
   if (threadIdx.x == 0) sh.gate = clamp_min(__fmul_rn(3.0f, mean_e2(sh)), gate_th2);
   __syncthreads();
 
   // the gated weights, `use`, the positions, and the fit at the original
   // state; the observation count
   int n_obs = 0;
-  for (int p = threadIdx.x; p < m; p += THREADS) {
+  for (int p = lo + threadIdx.x; p < hi; p += THREADS) {
     const float x = in.pos[3 * p], y = in.pos[3 * p + 1], z = in.pos[3 * p + 2];
     float wgt[NB][MAX_F];
     int n_l = 0, n_s = 0;
@@ -826,60 +1017,78 @@ __global__ void __launch_bounds__(THREADS, 1) ba_refine_kernel(
     s.pts[0][2 * m + p] = z;
   }
   __syncthreads();
-  for (int p = threadIdx.x; p < m; p += THREADS) {
+  for (int p = lo + threadIdx.x; p < hi; p += THREADS) {
     s.e2_old[p] = point_e2(in, s, m, f_dim, p, in.pos[3 * p],
                            in.pos[3 * p + 1], in.pos[3 * p + 2], x_off, cam, sh);
   }
-  n_obs = block_count(n_obs, sh);
-  robust_chi2(in, s, m, f_dim, x_off, cam, sh.r0, sh.t0, s.pts[0], sh);
+  {
+    // the chi-square at the start, and the count (exact in float64)
+    double v[3] = {0.0, 0.0, static_cast<double>(n_obs)};
+    robust_chi2(in, s, lo, hi, m, f_dim, x_off, cam, sh.r0, sh.t0, s.pts[0], v);
+    cluster_sum(v, sh, par);
+  }
   if (threadIdx.x == 0) {
     sh.chi2 = chi2_total(sh);
-    n_obs_out[st] = n_obs;
+    if (rank == 0) n_obs_out[st] = static_cast<long long>(sh.sums[2]);
   }
   __syncthreads();
+  BA_PHASE_CLOCK(1);
 
   const int n = 6 * f_dim, nf = f_dim - 1;
   for (int it = 0; it < iters; ++it) {
-    point_blocks(in, s, m, f_dim, x_off, cam, sh);
+    point_blocks(in, s, lo, hi, m, f_dim, x_off, cam, sh);
     if (threadIdx.x == 0) sh.bad = 0;
     __syncthreads();
-    // the sums over the points, of the free poses f, g >= 1: Schur
-    // blocks (f, g) and camera blocks (b, f) by halves, g_red's terms (f)
-    const int n_schur = 2 * nf * nf, n_cam = 2 * NB * nf;
+    BA_PHASE_CLOCK(2 + 6 * it);
+    // this block's partials of the sums over the points, of the free poses
+    // f, g >= 1: Schur blocks (f, g), camera blocks (b, f), g_red's terms
+    // (f), each task's at schur_at, cam_at or gred_at
+    const int n_schur = nf * nf, n_cam = NB * nf;
     for (int task = warp; task < n_schur + n_cam + nf; task += WARPS) {
       if (task < n_schur) {
-        const int k = task / 2;
-        task_schur(s, m, 1 + k / nf, 1 + k % nf, task % 2, f_dim, lane, sh);
+        const int f = 1 + task / nf, g = 1 + task % nf;
+        task_schur(s, lo, hi, m, f, g, lane, sh.iter + schur_at(f, g, nf));
       } else if (task < n_schur + n_cam) {
-        const int k = (task - n_schur) / 2;
-        task_camera(in, s, m, f_dim, k / nf, 1 + k % nf, (task - n_schur) % 2,
-                    x_off, cam, lane, sh);
+        const int b = (task - n_schur) / nf, f = 1 + (task - n_schur) % nf;
+        task_camera(in, s, lo, hi, m, f_dim, b, f, x_off, cam, lane, sh,
+                    sh.iter + cam_at(b, f, nf));
       } else {
-        task_gred(s, m, 1 + task - n_schur - n_cam, lane, sh);
+        const int f = 1 + task - n_schur - n_cam;
+        task_gred(s, lo, hi, m, f, lane, sh.iter + gred_at(f, nf));
       }
     }
-    __syncthreads();
+    BA_PHASE_CLOCK(3 + 6 * it);
+    // every block's partials written; the last iteration's were read by
+    // every block before the trial's cluster_sum
+    cluster.sync();
     assemble(f_dim, sh);
     __syncthreads();
+    BA_PHASE_CLOCK(4 + 6 * it);
+    lu_factor(sh, n);
     if (warp == 0) {
       lu_solve(sh, n, lane);
       for (int r = lane; r < n; r += 32) {
-        sh.dc[r] = __double2float_rn(sh.b[r]);
+        sh.dc[r] = __double2float_rn(sh.y[r]);
         if (!isfinite(sh.dc[r])) sh.bad = 1;
       }
     }
     __syncthreads();
+    BA_PHASE_CLOCK(5 + 6 * it);
     if (threadIdx.x < f_dim) {
       const int f = threadIdx.x;
       retract(sh.r[f], sh.t[f], sh.dc + 6 * f, sh.rt[f], sh.tt[f]);
     }
-    point_steps(s, m, f_dim, sh);
+    const bool bad_dp = point_steps(s, lo, hi, m, f_dim, sh);
     __syncthreads();
-    robust_chi2(in, s, m, f_dim, x_off, cam, sh.rt, sh.tt, s.pts[1 - sh.cur],
-                sh);
+    // the trial's chi-square, and the count of non-finite dp
+    double v[3] = {0.0, 0.0, bad_dp ? 1.0 : 0.0};
+    robust_chi2(in, s, lo, hi, m, f_dim, x_off, cam, sh.rt, sh.tt,
+                s.pts[1 - sh.cur], v);
+    BA_PHASE_CLOCK(6 + 6 * it);
+    cluster_sum(v, sh, par);
     if (threadIdx.x == 0) {
       const float chi2_new = chi2_total(sh);
-      const bool ok = chi2_new < sh.chi2 && sh.bad == 0;
+      const bool ok = chi2_new < sh.chi2 && sh.bad == 0 && sh.sums[2] == 0.0;
       if (ok) {
         for (int f = 0; f < f_dim; ++f) {
 #pragma unroll
@@ -895,16 +1104,17 @@ __global__ void __launch_bounds__(THREADS, 1) ba_refine_kernel(
         sh.lam = __fmul_rn(sh.lam, sh.nu);
         sh.nu = __fmul_rn(sh.nu, 2.0f);
       }
-      accepted[st * iters + it] = ok;
+      if (rank == 0) accepted[st * iters + it] = ok;
     }
     __syncthreads();
+    BA_PHASE_CLOCK(7 + 6 * it);
   }
 
   // the writeback: a refined point is kept where it takes part, stays
   // within 10% of its distance to the newest camera + 0.5 m, and fits the
   // gated observations at the original poses no worse than before
   const float* pts = s.pts[sh.cur];
-  for (int p = threadIdx.x; p < m; p += THREADS) {
+  for (int p = lo + threadIdx.x; p < hi; p += THREADS) {
     const float x0 = in.pos[3 * p], y0 = in.pos[3 * p + 1], z0 = in.pos[3 * p + 2];
     const float x = pts[p], y = pts[m + p], z = pts[2 * m + p];
     const float dist = norm3(__fsub_rn(x0, sh.tn[0]), __fsub_rn(y0, sh.tn[1]),
@@ -919,7 +1129,10 @@ __global__ void __launch_bounds__(THREADS, 1) ba_refine_kernel(
     out[1] = ok ? y : y0;
     out[2] = ok ? z : z0;
   }
-  if (threadIdx.x == 0) chi2_out[st] = sh.chi2;
+  if (rank == 0 && threadIdx.x == 0) chi2_out[st] = sh.chi2;
+  BA_PHASE_CLOCK(2 + 6 * iters);
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
 }
 
 }  // namespace
@@ -929,9 +1142,17 @@ __global__ void __launch_bounds__(THREADS, 1) ba_refine_kernel(
 // w_l, w_r [S, F, M] float32; the camera, the right camera's x offset in
 // the left frame (-baseline), the gate's floor, the LM iterations;
 // scratch [S, M * lvt_ba_scratch_per_point(F)] float32; outputs pos [S, M, 3],
-// chi2 [S] float32, n_obs [S] int64, accepted [S, iters] bool. One block
-// per stream; F <= lvt_ba_max_window().
+// chi2 [S] float32, n_obs [S] int64, accepted [S, iters] bool. One cluster
+// of lvt_ba_geometry()'s blocks per stream; F <= lvt_ba_max_window().
 extern "C" int lvt_ba_max_window() { return MAX_F; }
+
+// The kernel's shape: blocks per stream (the cluster) and threads per
+// block, into out[0..1]
+extern "C" int lvt_ba_geometry(int* out) {
+  out[0] = CLUSTER;
+  out[1] = THREADS;
+  return 0;
+}
 
 // The launches of the kernel on the current device so far (g_launches),
 // read after the device has finished all it was given
@@ -958,8 +1179,13 @@ extern "C" int lvt_ba_refine(const float* t, const float* q, const float* pos,
                              long long* n_obs, void* accepted, void* stream) {
   if (f_dim < 1 || f_dim > MAX_F || m < 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (CLUSTER > 8) {   // beyond the portable cluster size: asked for
+    const cudaError_t err = cudaFuncSetAttribute(
+        ba_refine_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (n_streams > 0) {
-    ba_refine_kernel<<<n_streams, THREADS, 0,
+    ba_refine_kernel<<<n_streams * CLUSTER, THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         t, q, pos, obs_l, w_l, obs_r, w_r, f_dim, m, iters,
         Cam{fx, fy, cx, cy, th2}, x_off, gate_th2, scratch, pos_out, chi2,

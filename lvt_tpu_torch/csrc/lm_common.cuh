@@ -7,7 +7,7 @@
 // nvcc contracts no multiply and add into a fused one and the card rounds
 // as torch's kernels do. A divisor that the plain version keeps as a
 // device scalar (device.scalar) is divided by here too, never multiplied
-// by its reciprocal.
+// by its reciprocal. Besides, a warp's fold of float64 partial sums.
 
 #pragma once
 
@@ -113,6 +113,33 @@ __device__ void world_to_camera(const float* t, const float* q, float* r,
     for (int j = 0; j < 3; ++j) r[3 * i + j] = r_cw[3 * j + i];
 #pragma unroll
   for (int i = 0; i < 3; ++i) tw[i] = -mv(r, i, t[0], t[1], t[2]);
+}
+
+// The xor butterfly over a warp of the N values v[B, B + N) of each lane
+// (N a power of two, at most 32), each lane keeping at each level the
+// half of the values that its bit OFF selects and taking its partner's sum
+// of that half: after it, lane l holds in v[B] value l / (32 / N), summed
+// over the 32 lanes in exactly the full butterfly's pairs (a + b == b + a),
+// with N - 1 + the remaining levels' shuffles instead of 5 N. Every index
+// is a constant, so v stays in registers.
+template <int B, int N, int OFF = 16, int T>
+__device__ __forceinline__ void fold(double (&v)[T], int lane) {
+  if constexpr (OFF > 0) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = (lane & OFF) != 0;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const double send = up ? v[B + j] : v[B + j + H];
+        const double keep = up ? v[B + j + H] : v[B + j];
+        v[B + j] = __dadd_rn(keep, __shfl_xor_sync(FULL, send, OFF));
+      }
+      fold<B, H, OFF / 2>(v, lane);
+    } else {
+      v[B] = __dadd_rn(v[B], __shfl_xor_sync(FULL, v[B], OFF));
+      fold<B, 1, OFF / 2>(v, lane);
+    }
+  }
 }
 
 // _retract(r, t, d) for xi = d = (v, w): R' = exp([w]x) R, t' = exp([w]x)

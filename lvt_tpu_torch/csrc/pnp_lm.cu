@@ -457,33 +457,6 @@ struct Scratch {
   int part_i[WARPS];
 };
 
-// The xor butterfly over a warp of the N values v[B, B + N) of each lane
-// (N a power of two, at most 32), each lane keeping at each level the
-// half of the values that its bit OFF selects and taking its partner's sum
-// of that half: after it, lane l holds in v[B] value l / (32 / N), summed
-// over the 32 lanes in exactly the full butterfly's pairs (a + b == b + a),
-// with N - 1 + the remaining levels' shuffles instead of 5 N. Every index
-// is a constant, so v stays in registers.
-template <int B, int N, int OFF = 16, int T>
-__device__ __forceinline__ void fold(double (&v)[T], int lane) {
-  if constexpr (OFF > 0) {
-    if constexpr (N > 1) {
-      constexpr int H = N / 2;
-      const bool up = (lane & OFF) != 0;
-#pragma unroll
-      for (int j = 0; j < H; ++j) {
-        const double send = up ? v[B + j] : v[B + j + H];
-        const double keep = up ? v[B + j + H] : v[B + j];
-        v[B + j] = __dadd_rn(keep, __shfl_xor_sync(FULL, send, OFF));
-      }
-      fold<B, H, OFF / 2>(v, lane);
-    } else {
-      v[B] = __dadd_rn(v[B], __shfl_xor_sync(FULL, v[B], OFF));
-      fold<B, 1, OFF / 2>(v, lane);
-    }
-  }
-}
-
 // Each warp folds acc[0..N) over its lanes (N = 6: H's diagonal, a full
 // butterfly per value; N = 42: [H | g], `fold` on 32 + 8 + 2 values);
 // thread o < N then adds the warps' sums in warp order into out[o]

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "lvt_ba_refine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                       _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     "lvt_ba_max_window": [],
+    "lvt_ba_geometry": [_P],
     "lvt_ba_launches": [_P],
     "lvt_ba_scratch_per_point": [_I],
     "lvt_if_node": [_P, _P, _P, _P],
@@ -59,6 +60,7 @@ _SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of the nvcc run, if any
+build_report: str = ""   # nvcc's output of a verbose build (ptxas's report)
 
 
 def _nvcc() -> str:
@@ -100,8 +102,9 @@ def build(verbose: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` into one shared library (skipped when
     the library for these exact sources exists): one nvcc per source, all
     started together, then one link. ``verbose`` adds ``-Xptxas -v`` and
-    prints nvcc's report of registers and spills."""
-    global build_seconds
+    prints nvcc's report of registers and spills (also kept in
+    ``build_report``)."""
+    global build_seconds, build_report
     out = library_path()
     if out.exists() and not verbose:
         return out
@@ -123,6 +126,7 @@ def build(verbose: bool = False) -> Path:
             obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     if verbose:
+        build_report = report
         print(report)
     os.replace(tmp, out)   # atomic: a concurrent loader never sees a partial .so
     return out
@@ -140,6 +144,21 @@ def lib() -> ctypes.CDLL:
         handle.lvt_error_string.restype = ctypes.c_char_p
         _lib = handle
     return _lib
+
+
+def ptxas_report(kernel: str, report: str | None = None) -> list[str]:
+    """ptxas's lines on one kernel (its mangled name holds ``kernel``) in
+    a verbose build's report: the stack frame and spills, and the
+    registers, barriers and shared memory it uses."""
+    lines = (build_report if report is None else report).splitlines()
+    out, inside = [], False
+    for line in lines:
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("spill" in line or "Used" in line):
+            out.append(line.split(":", 1)[-1].strip()
+                       if "Used" in line else line.strip())
+    return out
 
 
 def check(err: int, name: str) -> None:

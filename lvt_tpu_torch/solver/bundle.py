@@ -33,8 +33,10 @@ core/step.py) is the custom op ``lvt_tpu_torch::ba_refine`` over a leading
 stream axis S, built as PnP's solve is (solver/pnp.py):
 
 * CUDA: one launch of the hand-written kernel of ``csrc/ba.cu`` for all S
-  streams, one thread block per stream running the whole body on chip
-  (lvt_tpu runs it as XLA ops; it is not a TPU kernel);
+  streams, one thread-block cluster per stream running the whole body on
+  chip, its blocks splitting the points and adding their sums over
+  distributed shared memory in rank order (lvt_tpu runs it as XLA ops; it
+  is not a TPU kernel);
 * CPU: :func:`refine_structure_plain` stream by stream, the torch ops this
   module has always run; on the card it is a reference for the tests and
   chip_smoke.py, and the body of the sharded step (``group``), whose sums
@@ -459,9 +461,10 @@ def ba_refine_op(t: torch.Tensor, q: torch.Tensor, pos: torch.Tensor,
     reprojection_th2 and the LM iterations -> positions [S, M, 3], chi2
     [S] float32, n_obs [S] int64, accept bits [S, iterations] bool.
 
-    CUDA: one launch of ``csrc/ba.cu``'s kernel for all streams (one block
-    per stream; every order fixed by F and M, whatever S). A window of more
-    than the kernel's static limit of poses raises."""
+    CUDA: one launch of ``csrc/ba.cu``'s kernel for all streams (one
+    cluster of blocks per stream; every order fixed by F, M and the cluster
+    size, whatever S). A window of more than the kernel's static limit of
+    poses raises, and so does a launch the card refuses."""
     s, f, m = obs.shape[:3]
     dev = pos.device
     for x, name, shape in ((t, "t", (s, f, 3)), (q, "q", (s, f, 4)),

@@ -17,7 +17,18 @@ Tolerances:
     alone, and with a one-rank gloo group (the torch ops and their
     all-reduces) against the op: bit-equal;
   * right-camera observations with a baseline of 0: refused by the op and
-    its plain version with one ValueError, as lvt_tpu's gate asserts.
+    its plain version with one ValueError, as lvt_tpu's gate asserts;
+  * the kernel's premise, that every sum over the points may be taken as
+    float64 partials over C contiguous slices of the points added in rank
+    order (csrc/ba.cu: one partial per block of a stream's cluster), for
+    C = 1, 4, 8 and 16 on every window here: those rounded once equal
+    ``_einsum64`` / ``_sum64`` over all the points bit for bit wherever
+    the sum's terms cancel by less than 2^20 (a float64 sum then keeps
+    more than 30 bits, and its order moves no float32); a few of h_cc's
+    entries cancel by 2^26 or more and round to a neighbouring float32 in
+    another order (so do they between the card's einsum and the CPU's),
+    but the body's outputs with every such sum taken in slices are the
+    plain version's, bit for bit.
 """
 
 import jax.numpy as jnp
@@ -36,6 +47,7 @@ from lvt_tpu_torch.core import state, step
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.parallel import mesh as mesh_mod
 from lvt_tpu_torch.solver import bundle
+from lvt_tpu_torch.solver.pnp import _cauchy_weights
 from test_bundle import BASELINE, CX, CY, FX, FY, make_ba_problem
 from test_torch_system import share_the_cores  # noqa: F401
 
@@ -237,3 +249,121 @@ def test_rgbd_local_ba_leaves_the_map_as_it_was():
     assert torch.equal(map_ba.pos, map_off.pos)
     assert torch.equal(map_ba.valid, map_off.valid)
     assert int(map_ba.valid.sum()) > 100
+
+
+def _jacobians(r_wc, p_l, p, inv_z):
+    """refine_window's block_jacobians: (jc [F, M, 2, 6], jp [F, M, 2, 3])."""
+    x, y = p[..., 0], p[..., 1]
+    fxz, fyz = FX * inv_z, FY * inv_z
+    zeros = torch.zeros_like(fxz)
+    dpi = torch.stack([torch.stack([fxz, zeros, -fxz * x * inv_z], -1),
+                       torch.stack([zeros, fyz, -fyz * y * inv_z], -1)], -2)
+    dp_dxi = torch.cat([torch.eye(3).expand(*p_l.shape[:-1], 3, 3),
+                        -bundle._skew(p_l)], dim=-1)
+    return (bundle._einsum64("fmij,fmjk->fmik", dpi, dp_dxi),
+            bundle._einsum64("fmij,fjk->fmik", dpi, r_wc))
+
+
+def _sums_over_points(args):
+    """BA's sums over the points of a window at its starting state, as the
+    plain version takes them: the contractions ((equation, operands), the
+    point axis named m) of h_cc, g_c, the Schur term and g_red's, and the
+    [F, M] terms that chi2_gate_weights and the robust chi-square sum."""
+    t, q, pos, obs, w, obs_r, w_r = args
+    poses = Pose(t, q)
+    w, w_r = bundle.chi2_gate_weights(poses, pos, obs, w, obs_right=obs_r,
+                                      w_right=w_r, **CAM)
+    r_wc, t_wc = bundle._poses_to_w2c(poses)
+    p_l = bundle._camera_points(r_wc, t_wc, pos)
+    delta2 = torch.tensor(5.991)
+    contractions, terms = [], []
+    h_cp = h_pp = g_p = 0.0
+    for obs_b, w_b, x_off in bundle._blocks(obs, w, BASELINE, obs_r, w_r):
+        r, p, inv_z = bundle._project(p_l, x_off, obs_b, FX, FY, CX, CY)
+        e2 = bundle._sq(r)
+        wr = w_b * _cauchy_weights(e2, delta2)
+        jc, jp = _jacobians(r_wc, p_l, p, inv_z)
+        jc_w = jc * wr[..., None, None]
+        contractions += [("fmki,fmkj->fij", (jc_w, jc)),
+                         ("fmki,fmk->fi", (jc_w, r))]
+        h_cp = h_cp + bundle._einsum64("fmki,fmkj->fmij", jc_w, jp)
+        h_pp = h_pp + bundle._einsum64("fmki,fmkj,fm->mij", jp, jp, wr)
+        g_p = g_p + bundle._einsum64("fmki,fmk,fm->mi", jp, r, wr)
+        terms += [w_b, w_b * e2, w_b * delta2 * torch.log1p(e2 / delta2)]
+    a = bundle._einsum64("fmij,mjk->fmik", h_cp,
+                         bundle._inv33(h_pp, torch.tensor(1e-4)))
+    contractions += [("fmik,gmjk->fgij", (a, h_cp)), ("fmik,mk->fi", (a, g_p))]
+    return contractions, terms
+
+
+def _in_slices(equation, operands, c, wide=bundle._wide):
+    """The contraction as float64 partials over c contiguous slices of the
+    points (rank r: [r M / c, (r + 1) M / c)), added in rank order, not
+    rounded."""
+    subs = equation.split("->")[0].split(",")
+    m = operands[0].shape[subs[0].index("m")]
+    total = 0.0
+    for r in range(c):
+        lo, hi = r * m // c, (r + 1) * m // c
+        total = total + wide(equation, *(
+            x.narrow(sub.index("m"), lo, hi - lo)
+            for x, sub in zip(operands, subs)))
+    return total
+
+
+CASES = ("exact", "noisy", "outliers", "masked")
+
+
+@pytest.mark.parametrize("c", [1, 4, 8, 16])
+def test_partials_over_point_slices_round_to_the_plain_sums(c):
+    """The premise of local BA's kernel (a cluster of c blocks per stream,
+    each summing its slice of the points in float64, the partials added in
+    rank order and rounded once), sum by sum: on every window of this
+    file, the gate's moments and the robust chi-square equal the plain
+    version's ``_sum64``, and every entry of h_cc, g_c, the Schur term and
+    g_red's equals its ``_einsum64`` where its terms cancel by less than
+    2^20 (nearly all of them)."""
+    held = total = 0
+    for case in CASES:
+        contractions, terms = _sums_over_points(
+            [_t(x) for x in _window(case)])
+        for equation, operands in contractions:
+            want = bundle._einsum64(equation, *operands)
+            got = _in_slices(equation, operands, c).float()
+            assert bool(want.abs().amax() > 0), (case, equation)
+            mag = bundle._wide(equation, *(x.abs() for x in operands))
+            kept = mag < 2.0 ** 20 * bundle._wide(equation, *operands).abs()
+            assert torch.equal(got[kept], want[kept]), (case, equation, c)
+            held += int(kept.sum())
+            total += want.numel()
+        for x in terms:
+            assert torch.equal(_in_slices("fm->", (x,), c).float(),
+                               bundle._sum64(x)), (case, c)
+    assert held >= 0.9 * total, (held, total)
+
+
+@pytest.mark.parametrize("c", [1, 4, 8, 16])
+def test_the_body_with_point_slice_partials_is_the_plain_body(c,
+                                                              monkeypatch):
+    """The plain body with every one of refine_window's sums over the
+    points (h_cc, g_c, the Schur term, g_red's) taken as float64 partials
+    over c slices of the points in rank order, as the kernel takes them:
+    its outputs (positions, chi2, n_obs, the accept bits) are the plain
+    version's bit for bit on every window of this file, the entries that
+    cancel by 2^26 or more included."""
+    wide = bundle._wide
+
+    def in_slices(equation, *operands):
+        subs, out = equation.split("->")
+        if "m" in out or not all("m" in x for x in subs.split(",")):
+            return wide(equation, *operands)
+        return _in_slices(equation, operands, c, wide)
+
+    for case in CASES:
+        args = [_t(x) for x in _window(case)]
+        want = _plain(args)
+        with monkeypatch.context() as patch:
+            patch.setattr(bundle, "_wide", in_slices)
+            got = _plain(args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (case, c)

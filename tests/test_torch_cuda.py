@@ -1002,6 +1002,35 @@ def test_library_name_follows_the_sources():
         "pnp_lm.cu", "graph_cond.cu", "ba.cu"}
 
 
+def test_ptxas_report_picks_one_kernels_lines():
+    """``kernels.ptxas_report``: of a verbose build's report, the lines on
+    the kernel whose mangled name holds the name asked for (its stack
+    frame and spills, then its registers and shared memory), none of
+    another kernel's."""
+    report = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113"
+        "set_if_kernelEyPKb' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_113"
+        "set_if_kernelEyPKb\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 8 registers, 380 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116"
+        "ba_refine_kernelEPKfS1_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116"
+        "ba_refine_kernelEPKfS1_\n"
+        "    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 40664 bytes "
+        "smem, 504 bytes cmem[0]\n")
+    assert kernels.ptxas_report("ba_refine_kernel", report) == [
+        "16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 168 registers, used 1 barriers, 40664 bytes smem, 504 bytes "
+        "cmem[0]"]
+    assert kernels.ptxas_report("no_such_kernel", report) == []
+
+
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     """One nvcc per source (all started before any is waited on), then one
     link of the objects; the objects are removed afterwards. A stand-in
@@ -1476,13 +1505,17 @@ def _ba_plain(args, iterations=6):
 @pytest.mark.parametrize("s,m,case,f", [
     (1, 1024, "noisy", 4), (4, 1024, "noisy", 4), (2, 4096, "noisy", 4),
     (2, 300, "few", 4), (1, 256, "none", 4), (2, 512, "noisy", 2),
-    (2, 512, "noisy", 3), (2, 512, "noisy", 5)])
+    (2, 512, "noisy", 3), (2, 512, "noisy", 5), (2, 5, "noisy", 4),
+    (2, 1000, "noisy", 4), (1, 1023, "noisy", 4), (2, 512, "noisy", 8),
+    (16, 256, "noisy", 4), (20, 256, "noisy", 4)])
 def test_ba_refine_kernel_matches_plain(cuda, s, m, case, f):
     """Local BA's body in one launch against the plain version stream by
     stream, every output bit-equal (positions, chi2, n_obs, the accept
     bits), and every stream of the S-stream launch bit-equal to its own
-    S = 1 launch; windows of 2 to 5 poses (the reduced solve at each
-    size)."""
+    S = 1 launch; windows of 2 to 8 poses (the reduced solve at each
+    size, up to the kernel's limit); fewer points than a stream's cluster
+    has blocks (M = 5), slices of unequal size (M = 1000, 1023), and 16
+    and 20 streams (128 and 160 blocks beside the card's 132 SMs)."""
     from lvt_tpu_torch.solver import bundle
 
     args = _ba_problem(np.random.RandomState(13 * s + m + f), s, m, cuda,
