@@ -212,8 +212,8 @@ and the script exits non-zero without printing the final line:
 14. a JSON line with each kernel's launches and largest error against its
    plain version (in all, and by path), times and bound (T per site, per
    frame of paths 1-2, batched and at path 8's shard rows; PnP's solve,
-   phases and ops at S = 1 and 8, and at path 8's M; ``ba_refine`` at S =
-   1 and 8), then the last line
+   phases and ops at S = 1 and 8, and at path 8's M; ``ba_refine`` and
+   the tracking kernels at S = 1 and 8), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path runs its step as the port does by default: a CUDA graph of the
@@ -245,7 +245,19 @@ all-reduces, on BA frames only).
 Every path launches the fused PnP solve once per frame; paths 8a-8c,
 whose points are sharded, launch its phases instead, 23 per frame (2
 passes x (a setup + 5 x (normal equations, trial step)) + the last
-demotion). The plain version's two reduction ops run on no path. Local
+demotion). The plain version's two reduction ops run on no path. Every
+unsharded path launches the tracking branch's four kernels (``csrc/track.cu``, not
+TPU kernels: ``predict_project``, ``upkeep_pre``, ``staged_promote``,
+which paths 5 and 7 euroc, without staged points, do not run, and
+``triangulate_insert``) once per frame each; 8a-8c run their plain
+versions (torch ops and collectives). Wherever PnP's inputs are captured
+(``capture_pnp_inputs``: after paths 1-6, each tree of path 7, path 8's
+reference, the bench's modes) the same frames' inputs of the four
+kernels are held bit-equal to their plain versions on the card, frame 0
+as launched and the last 8 streams in one launch, each stream against
+its S = 1 launch (``check_track_kernels``); after path 2 they are timed
+on path 1's inputs at S = 1 and 8 beside their bounds and their plain
+versions graphed (``measure_track_kernels``). Local
 BA's kernel runs on BA_KERNEL_PATHS (path 2, path 7 kitti, the bench's
 ``--ba``): once per BA frame in a graph, once per frame eagerly, once in
 a graph's warm-up and once in its capture; 8a-8c keep BA's torch ops.
@@ -332,7 +344,28 @@ KERNELS = {
     # keeps the torch ops and their all-reduces)
     "ba_refine": ("cuda", "lvt_tpu_torch/csrc/ba.cu",
                   "lvt_tpu/solver/bundle.py:93-378"),
+    # not TPU kernels: the tracking branch's per-point work around kernel
+    # T, which XLA fuses under jit (core/track.py); on every unsharded path
+    # (the sharded step keeps the torch ops and their collectives)
+    "predict_project": ("cuda", "lvt_tpu_torch/csrc/track.cu",
+                        "lvt_tpu/core/motion.py:36 + "
+                        "lvt_tpu/ops/matching.py:83-100"),
+    "upkeep_pre": ("cuda", "lvt_tpu_torch/csrc/track.cu",
+                   "lvt_tpu/core/map.py:71-99 + "
+                   "lvt_tpu/core/step.py:171-190"),
+    "staged_promote": ("cuda", "lvt_tpu_torch/csrc/track.cu",
+                       "lvt_tpu/core/step.py:190-231 + "
+                       "lvt_tpu/core/map.py:28-68"),
+    "triangulate_insert": ("cuda", "lvt_tpu_torch/csrc/track.cu",
+                           "lvt_tpu/ops/triangulate.py:40-160 + "
+                           "lvt_tpu/core/step.py:111-155"),
 }
+# the tracking branch's four ops, in the step's order
+TRACK_KERNELS = ("predict_project", "upkeep_pre", "staged_promote",
+                 "triangulate_insert")
+# the paths whose config has no staged set (staged_threshold 0): no staged
+# re-match, so no staged_promote
+NO_STAGED_PATHS = ("path5", "path7-euroc")
 # the paths whose local BA body is the ba_refine kernel: once per BA frame
 # in a graph (the IF node's body), once per frame in an eager step (BA
 # computed and selected), once in a graph's warm-up and once in its capture
@@ -461,6 +494,10 @@ NEED_PER_FRAME = {
 for _path, _need in NEED_PER_FRAME.items():
     _need.update({"pnp_phase": PNP_PHASES} if _path in SHARDED_PATHS
                  else {"pnp_solve": 1})
+    if _path not in SHARDED_PATHS:
+        _need.update(dict.fromkeys(TRACK_KERNELS, 1))
+        if _path in NO_STAGED_PATHS:
+            del _need["staged_promote"]
 # on the paths whose local BA is a CUDA IF node in their graph, per frame
 # type (a BA frame, any other): the kernel that sets the node's predicate
 # (csrc/graph_cond.cu) and the NCCL kernels (on one rank NCCL's
@@ -1263,12 +1300,13 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
     from lvt_tpu_torch.tree import tree_map
 
     first = tree_map(lambda x: x[:N_CPU_FRAMES[path]], g["poses"])
-    pnp_gaps = check_pnp_solve(path, capture_pnp_inputs(path, _first_frames(
-        lambda: VOSystem(config, device=DEVICE), il, ir)))
+    captured = capture_pnp_inputs(path, _first_frames(
+        lambda: VOSystem(config, device=DEVICE), il, ir))
+    pnp_gaps = check_pnp_solve(path, captured)
     return dict(report, first_poses=first, profile=prof,
                 launches=prof["launches"], if_node_launches=prof["if_node"],
                 kernel_errs={"pnp_solve": pnp_gaps["max_abs_err"]},
-                poses=g["poses"])
+                poses=g["poses"], track_inputs=captured["track"])
 
 
 def _inside_the_graph(path, vo, drive, u, n) -> dict:
@@ -1422,29 +1460,51 @@ def capture_pnp_inputs(path, frames) -> dict:
     tensors (the last frame's is kept); a VOSystem launches at S = 1, and
     its last MS_STREAMS frames are stacked as streams, so that the kernel
     is also checked at S = 8 at this path's M."""
+    from lvt_tpu_torch.core import track
     from lvt_tpu_torch.core.graphs import disable_graphs
     from lvt_tpu_torch.solver import pnp
 
-    seen, real = [], pnp.pnp_solve_op
+    ops = [(pnp, "pnp_solve")] + [(track, k) for k in TRACK_KERNELS]
+    seen = {name: [] for _, name in ops}
+    real = {name: getattr(mod, f"{name}_op") for mod, name in ops}
 
-    def record(*args):
-        if not torch._C._functorch.is_batchedtensor(args[0]):
-            seen.append(tuple(x.clone() if isinstance(x, torch.Tensor)
-                              else x for x in args))
-        return real(*args)
+    def recorder(name):
+        def record(*args):
+            if not torch._C._functorch.is_batchedtensor(args[0]):
+                seen[name].append(tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in args))
+            return real[name](*args)
+        return record
 
-    pnp.pnp_solve_op = record
+    for mod, name in ops:
+        setattr(mod, f"{name}_op", recorder(name))
     try:
         with disable_graphs():
             n = frames()
     finally:
-        pnp.pnp_solve_op = real
-    if len(seen) != n:
-        raise AssertionError(f"{path}: {len(seen)} launches of pnp_solve in "
-                             f"{n} frames, not one per frame")
+        for mod, name in ops:
+            setattr(mod, f"{name}_op", real[name])
+    solves = seen.pop("pnp_solve")
+    if len(solves) != n:
+        raise AssertionError(f"{path}: {len(solves)} launches of pnp_solve "
+                             f"in {n} frames, not one per frame")
     args = tuple(torch.cat(x)[-MS_STREAMS:]
-                 for x in zip(*(c[:5] for c in seen[-MS_STREAMS:])))
-    return dict(args=args, cam=seen[0][5:])
+                 for x in zip(*(c[:5] for c in solves[-MS_STREAMS:])))
+    # the tracking branch's ops: one launch per frame each (none on a path
+    # without staged points for staged_promote), the last MS_STREAMS
+    # streams held against their plain versions at once
+    tracked = {}
+    for name, calls in seen.items():
+        need = NEED_PER_FRAME.get(path)   # path 8's reference: every op
+        want = n if need is None or need.get(name) else 0
+        if len(calls) != want:
+            raise AssertionError(f"{path}: {len(calls)} launches of {name} "
+                                 f"in {n} frames, not {want}")
+        if calls:
+            tracked[name] = _last_streams(calls)
+    _track_errs(path, check_track_kernels(path, tracked))
+    return dict(args=args, cam=solves[0][5:], track=tracked)
 
 
 def _solve_outputs(res) -> tuple:
@@ -1612,6 +1672,179 @@ def measure_pnp_solve(card, path, inputs) -> dict:
                    f"graphed {q['plain_ms']:.4f} ms, the phases on one rank "
                    f"({pnp.N_PHASES} launches) {q['phases_ms']:.4f} ms")
     return dict(rep[1], batched=rep[n_streams], **gaps)
+
+
+# the largest gap of each of the tracking branch's kernels to its plain
+# version on each path's inputs ({kernel: {path: gap}}), from
+# check_track_kernels at every capture_pnp_inputs
+TRACK_ERRS = {k: {} for k in TRACK_KERNELS}
+# the work per item that each of the tracking branch's functions needs,
+# besides its bytes (every output written once, each input read once):
+# predict_project per map point, the camera point (9 multiplies, 9 adds),
+# the projection (a division, 4 multiplies, 2 adds) and 6 compares, 31
+# float32; upkeep_pre per staged point the same 31, per map point 6 ALU
+# (the counters and the cull); staged_promote per staged point 12 ALU (the
+# acceptance, the key and its atomicMin, the counters) and per map slot 4
+# (the free slots' ranks); triangulate_insert per feature, stereo: the
+# normal equations' 36 products and 27 sums and the adjugate chain's 9 and
+# 6 in float64 (87), the rest in float32 (the normalised coordinates 8,
+# the adjugate 27, the determinant and 1 / det 6, the two projections and
+# gates 28, the world point 15: 84), and per map or staged slot 4 ALU. The
+# pose algebra once per stream is left out (under 200 operations).
+TRACK_WORK = {"predict_project": ("map", {"fp32": 31}),
+              "upkeep_pre": ("staged", {"fp32": 31}),
+              "staged_promote": ("staged", {"alu": 12}),
+              "triangulate_insert": ("features", {"fp32": 84, "fp64": 87})}
+
+
+def _last_streams(calls) -> dict:
+    """One op's captured launches: the first (frame 0, the init frame, as
+    launched) and the last MS_STREAMS streams of them stacked as one
+    launch's streams (a VOSystem's last frames, a MultiStreamVO's last
+    frame), each as the op's arguments."""
+    nt = sum(isinstance(x, torch.Tensor) for x in calls[0])
+    last = [torch.cat(x)[-MS_STREAMS:]
+            for x in zip(*(c[:nt] for c in calls[-MS_STREAMS:]))]
+    return dict(first=list(calls[0]), last=last + list(calls[0][nt:]))
+
+
+def _track_errs(path, errs) -> None:
+    for k, v in errs.items():
+        TRACK_ERRS[k][path] = max(v, TRACK_ERRS[k].get(path, 0.0))
+
+
+def _track_plain(name, args) -> tuple:
+    """The op's plain version (core/track.py's ``*_plain``, torch ops)
+    stream by stream on the card: the op's CPU kernel, on CUDA tensors."""
+    from lvt_tpu_torch.core import track
+
+    nt = sum(isinstance(x, torch.Tensor) for x in args)
+    return track._per_stream(getattr(track, f"_{name}_flat"), nt, args)
+
+
+def _stream_slice(args, i) -> list:
+    return [x[i:i + 1] if isinstance(x, torch.Tensor) else x for x in args]
+
+
+def check_track_kernels(path, tracked) -> dict:
+    """The tracking branch's kernels (``lvt_tpu_torch::predict_project``,
+    ``upkeep_pre``, ``staged_promote``, ``triangulate_insert``; csrc/
+    track.cu) against their plain versions on the card, on the inputs a
+    path's first frames gave them (``capture_pnp_inputs``): frame 0 as
+    launched and the last MS_STREAMS streams in one launch, every output
+    bit-equal (NaN where the plain version has one), and each stream of
+    the S-stream launch bit-equal to its own S = 1 launch. Returns each
+    kernel's largest gap (0.0: bit-equal)."""
+    from lvt_tpu_torch.core import track
+
+    errs, said = {}, []
+    for name, sets in tracked.items():
+        op = getattr(track, f"{name}_op")
+        for label, args in (("frame 0", sets["first"]),
+                            ("last streams", sets["last"])):
+            s = args[0].shape[0]
+            got = op(*args)
+            want = _track_plain(name, args)
+            err = _require_equal_nan(f"{path}: {name} ({label}, S={s})", got,
+                                     want)
+            for i in range(s):
+                _require_equal_nan(
+                    f"{path}: {name} stream {i} of the S={s} launch against "
+                    f"its S=1 launch",
+                    [x[0] for x in op(*_stream_slice(args, i))],
+                    [x[i] for x in got])
+            errs[name] = max(err, errs.get(name, 0.0))
+        said.append(f"{name} S={sets['last'][0].shape[0]}")
+    _say(path, f"tracking kernels bit-equal to their plain versions on the "
+               f"card on this path's frame 0 and its last streams, each "
+               f"stream equal to its S=1 launch: {', '.join(said)}")
+    return errs
+
+
+def _require_equal_nan(name: str, got, want) -> float:
+    """``_require_equal`` where a NaN of the kernel matches a NaN of the
+    plain version at the same place (a point triangulated from a
+    degenerate pair); the gap is the largest over the finite elements."""
+    got, want = _flat(got), _flat(want)
+    torch.cuda.synchronize()
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} outputs, plain {len(want)}")
+    gap = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: output {i} is {g.dtype} "
+                                 f"{tuple(g.shape)}, plain {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        fin = torch.ones_like(g, dtype=torch.bool)
+        if g.is_floating_point():
+            fin = g.isfinite() & w.isfinite()
+            same = (torch.equal(g.isnan(), w.isnan())
+                    and torch.equal(torch.where(g.isnan(), 0, g),
+                                    torch.where(w.isnan(), 0, w)))
+        else:
+            same = torch.equal(g, w)
+        d = (g.double() - w.double()).abs()[fin]
+        err = float(d.max()) if d.numel() else 0.0
+        if not same:
+            raise AssertionError(f"{name}: output {i} differs from the plain "
+                                 f"version in {int((g != w).sum())} of "
+                                 f"{g.numel()} elements (largest finite gap "
+                                 f"{err})")
+        gap = max(gap, err)
+    return gap
+
+
+def track_work(name, args, outs) -> tuple[int, dict]:
+    """Bytes (each input read once, each output written once) and
+    operations (TRACK_WORK) of one launch of op ``name``."""
+    tensors = [x for x in args if isinstance(x, torch.Tensor)]
+    nbytes = sum(x.numel() * x.element_size() for x in [*tensors, *outs])
+    s = tensors[0].shape[0]
+    what, per = TRACK_WORK[name]
+    if what == "map":
+        items = tensors[7].shape[1]
+    elif what == "staged":
+        items = tensors[9 if name == "upkeep_pre" else 4].shape[1]
+    else:
+        items = tensors[4].shape[1]
+    ops = {p: s * items * v for p, v in per.items()}
+    if name in ("upkeep_pre", "staged_promote", "triangulate_insert"):
+        slots = tensors[0 if name == "upkeep_pre" else 11].shape[1]
+        ops["alu"] = ops.get("alu", 0) + s * slots * (
+            6 if name == "upkeep_pre" else 4)
+    return nbytes, ops
+
+
+def measure_track_kernels(card, path, tracked) -> dict:
+    """Each tracking kernel on a path's captured inputs (``tracked``:
+    ``capture_pnp_inputs``) at S = 1 (the last stream) and S =
+    MS_STREAMS: its device time beside its bound, and its plain version's
+    (the torch ops the step ran before the kernel), captured in a CUDA
+    graph and replayed. No one PyTorch call computes any of them: no
+    library time."""
+    from lvt_tpu_torch.core import track
+
+    rep = {}
+    for name, sets in tracked.items():
+        op = getattr(track, f"{name}_op")
+        full = sets["last"]
+        s_all = full[0].shape[0]
+        by_s = {}
+        for s in (1, s_all):
+            args = ([x[-s:].contiguous() if isinstance(x, torch.Tensor)
+                     else x for x in full])
+            b_ms, b_by = bound(card, *track_work(name, args, op(*args)))
+            by_s[s] = dict(
+                s=s, ms=device_ms(lambda a=args: op(*a), REPS),
+                plain_ms=device_ms(_graphed(
+                    lambda a=args: _track_plain(name, a)), PLAIN_REPS),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            q = by_s[s]
+            _say(path, f"{name} S={s}: kernel {q['ms']:.4f} ms (bound "
+                       f"{b_ms:.3g} ms, {b_by}), the plain version graphed "
+                       f"{q['plain_ms']:.4f} ms")
+        rep[name] = dict(by_s[1], batched=by_s[s_all])
+    return rep
 
 
 def capture_ba_inputs(path, frames, config) -> dict:
@@ -3252,18 +3485,26 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
     records = [r for r in device_records(prof) if r[0] not in STAGES]
     n_markers = sum("spin_kernel" in name for name, _, _ in records)
     records = [r for r in records if "spin_kernel" not in r[0]]
-    lines = []
+    lines, stages = [], {}
     if host:
         events = prof.key_averages()
+        kernels_in = _stage_kernels(prof, records)
         lines.append(f"{'stage':<22} {'host ms/frame':>14} "
-                     f"{'device ms/frame':>16}")
+                     f"{'device ms/frame':>16} {'kernels/frame':>14}")
         for e in events:
             # a range is listed twice: on the host, and as its span on the
             # device's timeline (idle gaps included), which is left out
             if e.key in STAGES and not _on_device(e):
+                stages[e.key] = dict(
+                    host_ms=e.cpu_time_total / 1e3 / n,
+                    device_ms=_device_us(e) / 1e3 / n,
+                    kernels=(kernels_in[e.key] / n if kernels_in else None))
+                k_col = ("not measured" if not kernels_in
+                         else f"{stages[e.key]['kernels']:.1f}")
                 lines.append(f"{e.key:<22} "
-                             f"{e.cpu_time_total / 1e3 / n:>14.3f} "
-                             f"{_device_us(e) / 1e3 / n:>16.3f}")
+                             f"{stages[e.key]['host_ms']:>14.3f} "
+                             f"{stages[e.key]['device_ms']:>16.3f} "
+                             f"{k_col:>14}")
     kernels = {}
     for name, sym in KERNEL_SYMBOLS.items():
         mine = [end - start for key, start, end in records if sym in key]
@@ -3299,7 +3540,31 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
         _say("profile", line)
     return dict(kernels, busy_ms_per_frame=busy / n,
                 span_ms_per_frame=span / n, kernels_per_frame=n_kernels / n,
-                nccl=n_nccl, if_node=n_if, markers=n_markers)
+                nccl=n_nccl, if_node=n_if, markers=n_markers, stages=stages)
+
+
+def _stage_kernels(prof, records) -> Counter:
+    """Device kernels (copies and fills left out) per stage of a traced
+    eager step: those that start inside the stage's span on the device's
+    timeline (the profiler's GPU user annotation of each range; an eager
+    step runs on one stream, so a stage's kernels lie inside its span).
+    Empty where the trace holds no such spans."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and getattr(e, "is_user_annotation", lambda: False)()
+             and e.name() in STAGES]
+    starts = sorted(start for key, start, _ in records
+                    if not key.startswith(("Memcpy", "Memset")))
+    out = Counter()
+    for name, start, end in spans:
+        out[name] += (bisect.bisect_left(starts, end)
+                      - bisect.bisect_left(starts, start))
+    return out
 
 
 def _profiles(path, run, drive, profile_dir=None, frame="frame",
@@ -3952,6 +4217,12 @@ def main(argv=None) -> int:
         if path == "path1":
             sparse = phase_sparse(config, il, ir)
         lap(path)
+    # the tracking branch's kernels timed on path 1's inputs (the main
+    # path), at S = 1 and 8
+    report.update(measure_track_kernels(card, "path1",
+                                        runs["path1"].pop("track_inputs")))
+    runs["path2"].pop("track_inputs")
+    lap("track kernels timing")
     # local BA's kernel on path 2's BA windows (frames 4 and 8)
     runs["path2"]["kernel_errs"]["ba_refine"] = check_ba_refine(
         "path2", capture_ba_inputs("path2", _first_frames(
@@ -4050,6 +4321,8 @@ def main(argv=None) -> int:
                    if NEED_PER_FRAME[p].get(k) and k in SITE_KERNELS}
         by_path.update({p: r["kernel_errs"][k] for p, r in runs.items()
                         if k in r.get("kernel_errs", {})})
+        # the tracking kernels at every path's capture (check_track_kernels)
+        by_path.update(TRACK_ERRS.get(k, {}))
         entry.update(max_abs_err=max(by_path.values()),
                      max_abs_err_by_path=by_path)
         # the profiler's device time per launch in each path's graphed

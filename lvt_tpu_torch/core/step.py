@@ -40,38 +40,18 @@ from functools import partial
 import torch
 from torch.profiler import record_function as stage
 
-from lvt_tpu_torch.config import MATCHES_WINDOW_INIT, VOConfig
-from lvt_tpu_torch.core import extract, graphs
-from lvt_tpu_torch.core import map as map_ops
+from lvt_tpu_torch.config import VOConfig
+from lvt_tpu_torch.core import extract, graphs, track
 from lvt_tpu_torch.core.features import FrameFeatures
-from lvt_tpu_torch.core.motion import predict_next_pose
 from lvt_tpu_torch.core.state import (LOST, NOT_INITIALIZED, TRACKING,
                                       ObsWindow, PointStore, StepMetrics,
                                       VOState)
-from lvt_tpu_torch.geometry import se3
+from lvt_tpu_torch.core.track import select as _select
 from lvt_tpu_torch.geometry.se3 import Pose
-from lvt_tpu_torch.ops import hamming, matching, triangulate, undistort
-from lvt_tpu_torch.ops.collectives import (axis_index, axis_size, por_if,
-                                           psum_if)
+from lvt_tpu_torch.ops import matching, undistort
+from lvt_tpu_torch.ops.collectives import psum_if
 from lvt_tpu_torch.solver import bundle
 from lvt_tpu_torch.solver.pnp import solve_pnp
-from lvt_tpu_torch.tree import tree_map
-
-
-def _select(pred, a, b):
-    """Leaf-wise select of two containers on a scalar predicate."""
-    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
-
-
-def _shard_partition_mask(insert_mask, group):
-    """Partition insertion candidates, the same on every rank, across the
-    group's ranks so each point lands in exactly one shard, balanced by the
-    candidates' valid rank (round-robin over the feature index would let
-    clustered candidates overfill one shard)."""
-    if group is None:
-        return insert_mask
-    rank = torch.cumsum(insert_mask.to(torch.int32), dim=0) - 1
-    return insert_mask & (rank % axis_size(group) == axis_index(group))
 
 
 def _image_bounds(config: VOConfig):
@@ -99,72 +79,6 @@ def _row_match(left: FrameFeatures, right: FrameFeatures, left_excluded,
         abs_threshold=config.descriptor_matching_threshold,
         img_rows=config.img_height,
     )
-
-
-def _triangulate_new_points(left: FrameFeatures, right: FrameFeatures | None,
-                            feature_matched, pose: Pose, config: VOConfig):
-    """Stereo: row-match the untracked left features and triangulate them.
-    RGB-D (``right`` None): back-project every depth-valid feature, matched
-    or not, as the reference does; duplicates are culled by the untracked
-    counter. Returns (points_world [K, 3], desc [K, W], valid [K])."""
-    if right is None:
-        res = triangulate.backproject_rgbd(
-            left.kp, left.depth, left.valid, pose,
-            fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy)
-        return res.points_world, left.desc, res.valid
-    rm = _row_match(left, right, feature_matched, config)
-    k = left.kp.shape[0]
-    uv_right = right.kp[torch.clamp(rm.right_idx, 0, k - 1)]
-    res = triangulate.triangulate_stereo(
-        left.kp, uv_right, rm.left_matched, pose,
-        baseline=config.baseline, reprojection_th2=config.reprojection_th2,
-        **_camera_kwargs(config))
-    return res.points_world, left.desc, res.valid
-
-
-def _policy_need_triangulation(config: VOConfig, window, map_size):
-    """Triangulation policies; ``window`` is oldest-first [3] f32 including
-    the current frame's match count."""
-    if config.triangulation_policy == 2:
-        return torch.ones((), dtype=torch.bool, device=window.device)
-    if config.triangulation_policy == 3:
-        return map_size < 1000
-    ratio = 0.99
-    return (window[1] <= ratio * window[0]) & (window[2] <= ratio * window[1])
-
-
-def _staged_update(staged, pose: Pose, feats: FrameFeatures, feature_matched,
-                   map_size, config: VOConfig, group=None):
-    """Re-match staged points against the unmatched features; delete misses,
-    promote survivors. Returns (staged', promotion candidates, marks)."""
-    cam = _camera_kwargs(config)
-    k = feats.kp.shape[0]
-    w2c = se3.world_to_camera(pose)
-    pts_cam = se3.transform_points(w2c, staged.pos)
-    uv = se3.project_points(pts_cam, config.fx, config.fy, config.cx, config.cy)
-    visible = staged.valid & se3.visibility_mask(
-        pts_cam, uv, cam["near"], cam["far"],
-        cam["min_x"], cam["max_x"], cam["min_y"], cam["max_y"])
-    (d1, d2, best, n_cand), _ = matching.dual_radius_top2(
-        staged.desc, feats.desc, uv, visible, feats.kp,
-        feats.valid & ~feature_matched,
-        config.tracking_radius, config.tracking_radius)
-    idx = hamming.accept_matches(d1, d2, best, n_cand,
-                                 config.tracking_ratio_test_threshold,
-                                 config.descriptor_matching_threshold)
-    idx = hamming.resolve_one_to_one(idx, d1, k, group)
-    matched = idx >= 0
-    feature_matched = feature_matched | por_if(hamming.claim_mask(idx, k),
-                                               group)
-
-    ctr = torch.where(matched, staged.counter + 1, staged.counter)
-    promote = staged.valid & matched & (
-        (staged.counter + 1 == config.staged_threshold)
-        | (map_size < config.map_soft_cap))
-    staged_out = staged._replace(counter=ctr,
-                                 valid=staged.valid & matched & ~promote)
-    promo = (staged.pos, staged.desc, ctr, staged.age, promote)
-    return staged_out, promo, feature_matched
 
 
 def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig,
@@ -224,21 +138,21 @@ def _track_branch(state: VOState, left: FrameFeatures,
     lvt_tpu's jax.named_scope."""
     cam = _camera_kwargs(config)
     k = left.kp.shape[0]
-    identity = Pose.identity(left.kp.device)
 
+    # the motion model and the map's projection at its prediction (op
+    # predict_project; its stage also holds the query side of map_matching)
     with stage("motion_predict"):
-        motion, predicted = predict_next_pose(state.motion, state.pose)
-        predicted = _select(is_init, identity, predicted)
-        motion = _select(is_init, state.motion, motion)
+        motion, predicted, uv, visible = track.predict_project(
+            state.motion, state.pose, is_init, state.map.pos,
+            state.map.valid, cam, group)
 
     with stage("map_matching"):
-        mm = matching.find_map_matches(
-            state.map.pos, state.map.desc, state.map.valid, predicted, left,
+        mm = matching.match_projected(
+            uv, visible, state.map.desc, left,
             tracking_radius=config.tracking_radius,
             ratio_threshold=config.tracking_ratio_test_threshold,
             abs_threshold=config.descriptor_matching_threshold,
-            retry_min_matches=config.n_matches_threshold, group=group,
-            **cam)
+            retry_min_matches=config.n_matches_threshold, group=group)
     matches_count = mm.matches_count
     is_tracking = (matches_count >= config.min_num_matches_for_tracking) | is_init
 
@@ -249,33 +163,38 @@ def _track_branch(state: VOState, left: FrameFeatures,
                         fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy,
                         reprojection_th2=config.reprojection_th2,
                         group=group)
-    pose_opt = _select(is_init, identity, pnp.pose)
 
+    # the map's bookkeeping and cull, the frame's pose and the staged
+    # points' projection at it (op upkeep_pre; its stage also holds the
+    # query side of staged_update)
+    staged_on = config.staged_threshold > 0
     with stage("map_bookkeeping"):
-        map_bookkept = map_ops.apply_match_bookkeeping(state.map, mm.match_idx)
-        map_clean, feature_matched = map_ops.clean_untracked(
-            map_bookkept, mm.match_idx, mm.feature_matched,
-            config.untracked_threshold, group)
-    map_size = psum_if(map_clean.size(), group)
+        up = track.upkeep_pre(
+            state.map, mm.match_idx, mm.feature_matched, left.valid, pnp.pose,
+            is_init, state.staged if staged_on else None,
+            config.untracked_threshold, cam, group)
+    pose_opt, map_bookkept, map_clean = up.pose, up.bookkept, up.clean
 
-    if config.staged_threshold > 0:
+    if staged_on:
+        # re-match the staged points against the unclaimed features (kernel
+        # T), delete misses, promote survivors (op staged_promote)
         with stage("staged_update"):
-            staged_out, promo, feature_matched = _staged_update(
-                state.staged, pose_opt, left, feature_matched, map_size,
-                config, group)
-            p_pos, p_desc, p_ctr, p_age, p_mask = promo
-            ins_promo = map_ops.insert_points(
-                map_clean, p_pos, p_desc, p_mask, new_counter=p_ctr,
-                new_age=p_age)
-            map_after_promo = ins_promo.store
+            top2, _ = matching.dual_radius_top2(
+                state.staged.desc, left.desc, up.staged_uv,
+                up.staged_visible, left.kp, up.staged_targets,
+                config.tracking_radius, config.tracking_radius)
+            promo = track.staged_promote(
+                top2, state.staged, up.feature_matched, up.map_size,
+                map_clean,
+                ratio_threshold=config.tracking_ratio_test_threshold,
+                abs_threshold=config.descriptor_matching_threshold,
+                staged_threshold=config.staged_threshold,
+                map_soft_cap=config.map_soft_cap, group=group)
+        staged_out, map_after_promo = promo.staged, promo.map
+        feature_matched = promo.feature_matched
     else:
-        staged_out = state.staged
-        map_after_promo = map_clean
-
-    window = torch.cat([state.last_matches[1:], matches_count[None].float()])
-    map_size_after_promo = psum_if(map_after_promo.size(), group)
-    need_tri = _policy_need_triangulation(
-        config, window, map_size_after_promo) | is_init
+        staged_out, map_after_promo = state.staged, map_clean
+        feature_matched = up.feature_matched
 
     # lvt_tpu builds one stereo Hamming matrix for the triangulation row
     # match and the BA row match; here each row match computes its
@@ -284,25 +203,31 @@ def _track_branch(state: VOState, left: FrameFeatures,
     want_ba_rm = (config.local_ba_window > 0 and right is not None
                   and config.baseline != 0.0)
 
+    # stereo: row-match the unclaimed left features (kernel T) and
+    # triangulate the pairs; RGB-D: back-project every depth-valid feature,
+    # matched or not, as the reference does (duplicates are culled by the
+    # untracked counter); then the policy and the insertions (op
+    # triangulate_insert)
     with stage("triangulation"):
-        pts, desc, tri_valid = _triangulate_new_points(
-            left, right, feature_matched, pose_opt, config)
-        # with a group each rank inserts its share of the candidates
-        tri_valid = _shard_partition_mask(tri_valid & need_tri, group)
-        to_map = ((map_size_after_promo < config.map_soft_cap)
-                  | (config.staged_threshold == 0))
-        ins_map = map_ops.insert_points(map_after_promo, pts, desc,
-                                        tri_valid & to_map)
-        ins_staged = map_ops.insert_points(staged_out, pts, desc,
-                                           tri_valid & ~to_map)
+        row_top2 = None
+        if right is not None:
+            r = config.row_matching_vertical_search_radius
+            window_rows, query_ok = matching.row_window(
+                left, feature_matched, vertical_search_radius=r,
+                img_rows=config.img_height)
+            row_top2 = matching.row_top2(left, right, window_rows, query_ok)
+        tri = track.triangulate_insert(
+            row_top2, left, right, pose_opt, map_after_promo, staged_out,
+            state.last_matches, matches_count, is_init, cam,
+            track.TriangulationParams.of(config), group)
 
-    final_map, pose_final, ba_window = ins_map.store, pose_opt, state.ba
+    final_map, pose_final, ba_window = tri.map, pose_opt, state.ba
     ba_ran = torch.zeros((), dtype=torch.bool, device=left.kp.device)
     if config.local_ba_window > 0:
         removed = map_bookkept.valid & ~map_clean.valid
-        recycled = ins_map.taken
-        if config.staged_threshold > 0:
-            recycled = recycled | ins_promo.taken
+        recycled = tri.map_taken
+        if staged_on:
+            recycled = recycled | promo.taken
         with stage("local_ba"):
             if want_ba_rm:
                 # right-camera observations of the map-matched features
@@ -318,15 +243,10 @@ def _track_branch(state: VOState, left: FrameFeatures,
                 removed | recycled, state.frame_number, config, group)
         final_map = final_map._replace(pos=refined_pos)
 
-    map_size_final = psum_if(ins_map.store.size(), group)
-    init_window = torch.stack([
-        map_size_final.float(),
-        torch.full((), MATCHES_WINDOW_INIT, device=window.device),
-        torch.full((), MATCHES_WINDOW_INIT, device=window.device)])
-    window = torch.where(is_init, init_window, window)
+    map_size_final, window = tri.map_size, tri.window
     new_state = VOState(
         map=_select(is_tracking, final_map, map_bookkept),
-        staged=_select(is_tracking, ins_staged.store, state.staged),
+        staged=_select(is_tracking, tri.staged, state.staged),
         pose=_select(is_tracking, pose_final, state.pose),
         motion=motion,
         last_matches=torch.where(is_tracking, window, state.last_matches),
@@ -357,9 +277,8 @@ def _track_branch(state: VOState, left: FrameFeatures,
         mean_feature_x=mean_of(obs[:, 0]),
         mean_feature_y=mean_of(obs[:, 1]),
         inlier_count=pnp.inlier_count.to(torch.int32),
-        triangulated_points=torch.where(
-            is_tracking, psum_if(ins_map.n_inserted + ins_staged.n_inserted,
-                                 group), 0).to(torch.int32),
+        triangulated_points=torch.where(is_tracking, tri.n_inserted,
+                                        0).to(torch.int32),
         used_wide_radius=mm.used_wide_radius & ~is_init,
         status=new_state.status,
         local_ba_ran=ba_ran & is_tracking & ~is_init,

@@ -54,6 +54,11 @@ _SIGNATURES = {
     "lvt_ba_geometry": [_P],
     "lvt_ba_launches": [_P],
     "lvt_ba_scratch_per_point": [_I],
+    "lvt_predict_project": [_P] * 9 + [_I, _I] + [_P] * 6,
+    "lvt_upkeep_pre": [_P] * 11 + [_I] * 5 + [_P] * 11,
+    "lvt_staged_promote": [_P] * 16 + [_I] * 4 + [_F, _F, _I, _I] + [_P] * 10,
+    "lvt_triangulate_insert": ([_P] * 24 + [_I] * 5 + [_P, _I, _I, _I, _F]
+                               + [_P] * 17),
     "lvt_if_node": [_P, _P, _P, _P],
     "lvt_graph_node_counts": [_P, _P, _I],
 }

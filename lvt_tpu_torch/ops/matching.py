@@ -47,18 +47,43 @@ def _accept_resolve(top2, ratio_th, abs_th, num_feats, group):
     return hamming.resolve_one_to_one(idx, d1, num_feats, group), d1, d2
 
 
+def project_visible(pos, valid, pose, *, fx, fy, cx, cy, near, far,
+                    min_x, max_x, min_y, max_y):
+    """Pixels [M, 2] of world points [M, 3] seen from the camera-in-world
+    ``pose``, and which of the ``valid`` points lie in the frustum and the
+    image bounds [M]: the query side of a projection match."""
+    pts_cam = se3.transform_points(se3.world_to_camera(pose), pos)
+    uv = se3.project_points(pts_cam, fx, fy, cx, cy)
+    return uv, valid & se3.visibility_mask(pts_cam, uv, near, far, min_x,
+                                           max_x, min_y, max_y)
+
+
 def find_map_matches(
     map_pos, map_desc, map_valid, pose, feats: FrameFeatures, *,
     fx, fy, cx, cy, near, far, min_x, max_x, min_y, max_y,
     tracking_radius: int, ratio_threshold: float, abs_threshold: float,
     retry_min_matches: int, group=None,
 ) -> MapMatchResult:
+    uv, visible = project_visible(map_pos, map_valid, pose, fx=fx, fy=fy,
+                                  cx=cx, cy=cy, near=near, far=far,
+                                  min_x=min_x, max_x=max_x, min_y=min_y,
+                                  max_y=max_y)
+    return match_projected(uv, visible, map_desc, feats,
+                           tracking_radius=tracking_radius,
+                           ratio_threshold=ratio_threshold,
+                           abs_threshold=abs_threshold,
+                           retry_min_matches=retry_min_matches, group=group)
+
+
+def match_projected(uv, visible, map_desc, feats: FrameFeatures, *,
+                    tracking_radius: int, ratio_threshold: float,
+                    abs_threshold: float, retry_min_matches: int,
+                    group=None) -> MapMatchResult:
+    """:func:`find_map_matches` from the map's projection (``uv``,
+    ``visible``: :func:`project_visible`): kernel T under both radii, the
+    acceptance and one-to-one resolution of each, the wide radius where
+    the narrow one matched too few."""
     k = feats.kp.shape[0]
-    w2c = se3.world_to_camera(pose)
-    pts_cam = se3.transform_points(w2c, map_pos)
-    uv = se3.project_points(pts_cam, fx, fy, cx, cy)
-    visible = map_valid & se3.visibility_mask(pts_cam, uv, near, far,
-                                              min_x, max_x, min_y, max_y)
     top2_narrow, top2_wide = dual_radius_top2(
         map_desc, feats.desc, uv, visible, feats.kp, feats.valid,
         tracking_radius, 2 * tracking_radius)
@@ -89,6 +114,24 @@ class RowMatchResult(NamedTuple):
     count: torch.Tensor          # [] int64
 
 
+def row_window(left: FrameFeatures, left_excluded: torch.Tensor, *,
+               vertical_search_radius: int, img_rows: int):
+    """The query side of a row match: each left feature's window of right
+    rows, floor(y_l) -+ r clamped to the image, [K, 2] (lo, hi), and which
+    left features query [K] (valid and not excluded)."""
+    query_ok = left.valid & ~left_excluded
+    y_l = torch.floor(left.kp[:, 1])
+    lo = torch.clamp(y_l - vertical_search_radius, min=0.0)
+    hi = torch.clamp(y_l + vertical_search_radius, max=float(img_rows))
+    return torch.stack([lo, hi], dim=-1), query_ok
+
+
+def row_top2(left: FrameFeatures, right: FrameFeatures, window, query_ok):
+    """Kernel T in row mode: (d1, d2, best, n_cand) per left feature."""
+    return hamming_top2(left.desc, right.desc, window, query_ok, right.kp,
+                        right.valid, r2a=0.0, r2b=0.0, row_mode=True)[0]
+
+
 def row_match(
     left: FrameFeatures, right: FrameFeatures, left_excluded: torch.Tensor, *,
     vertical_search_radius: int, ratio_threshold: float,
@@ -96,14 +139,11 @@ def row_match(
 ) -> RowMatchResult:
     """Epipolar row matching: right candidates lie within
     floor(y_l) -+ r rows (clamped to the image)."""
+    window, query_ok = row_window(
+        left, left_excluded, vertical_search_radius=vertical_search_radius,
+        img_rows=img_rows)
+    d1, d2, best, n_cand = row_top2(left, right, window, query_ok)
     k = left.kp.shape[0]
-    query_ok = left.valid & ~left_excluded
-    y_l = torch.floor(left.kp[:, 1])
-    lo = torch.clamp(y_l - vertical_search_radius, min=0.0)
-    hi = torch.clamp(y_l + vertical_search_radius, max=float(img_rows))
-    (d1, d2, best, n_cand), _ = hamming_top2(
-        left.desc, right.desc, torch.stack([lo, hi], dim=-1), query_ok,
-        right.kp, right.valid, r2a=0.0, r2b=0.0, row_mode=True)
     idx = hamming.accept_matches(d1, d2, best, n_cand, ratio_threshold,
                                  abs_threshold)
     idx = hamming.resolve_one_to_one(idx, d1, k)

@@ -187,6 +187,7 @@ def _chunks(vo, a, b, chunk: int, after=None, syncs_seen=True) -> dict:
 
 def zero_kernel_counters() -> dict:
     """Every kernel wrapper by name, each launch count set to 0."""
+    from lvt_tpu_torch.core import track
     from lvt_tpu_torch.ops import patches, perception, top2
     from lvt_tpu_torch.solver import bundle, pnp
 
@@ -196,7 +197,8 @@ def zero_kernel_counters() -> dict:
                 "hamming_top2": top2.hamming_top2,
                 "pnp_solve": pnp.pnp_solve, "pnp_phase": pnp.pnp_phase,
                 "pnp_normal_eqs": pnp.normal_equations,
-                "stream_sum": pnp.stream_sum, "ba_refine": bundle.ba_refine}
+                "stream_sum": pnp.stream_sum, "ba_refine": bundle.ba_refine,
+                **{name: getattr(track, name) for name in track.OPS}}
     for fn in counters.values():
         fn.launches = 0
     return counters
@@ -210,7 +212,11 @@ KERNEL_SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
                   "pnp_phase": "pnp_phase_kernel",
                   "pnp_normal_eqs": "pnp_normal_eqs_kernel",
                   "stream_sum": "stream_sum_kernel",
-                  "ba_refine": "ba_refine_kernel"}
+                  "ba_refine": "ba_refine_kernel",
+                  "predict_project": "predict_project_kernel",
+                  "upkeep_pre": "upkeep_pre_kernel",
+                  "staged_promote": "staged_promote_kernel",
+                  "triangulate_insert": "triangulate_insert_kernel"}
 
 
 # spin kernels that open a trace; no count reads them

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Where a frame of path 1 (the port's main path) goes, stage by stage, on
+the card: chip_smoke.py's eager profile unit (``chip_smoke._profile`` with
+the host trace: the step's profiler ranges, host and device ms per frame
+and device kernels per frame of each stage), the same frames replayed
+from the step's CUDA graph (device kernels and busy ms per frame), and
+the graph's frames/s over TIMED units after them (host clock around
+``track_chunk`` and a sync; no trace).
+
+    python3 scripts/torch_stage_table.py [--root DIR] [--out DIR]
+
+``--root`` imports ``lvt_tpu_torch`` from another checkout (for example
+the parent commit unpacked with ``git archive``), so that two trees can be
+compared in one run on one card: run parent, change, change, parent. The
+profiling code is this checkout's chip_smoke.py either way. Prints the
+tables and, as the last line, one JSON object. Needs CUDA; imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+UNIT = 16   # frames per unit: a warm-up unit, the profiled one, then TIMED
+TIMED = 3
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=HERE,
+                   help="the checkout whose lvt_tpu_torch is profiled")
+    p.add_argument("--out", help="write the eager unit's op table here")
+    args = p.parse_args(argv)
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from lvt_tpu_torch import bench
+    from lvt_tpu_torch.configs import kitti_config
+    from lvt_tpu_torch.core.graphs import disable_graphs
+    from lvt_tpu_torch.core.system import VOSystem
+
+    import lvt_tpu_torch
+    if not os.path.abspath(lvt_tpu_torch.__file__).startswith(root):
+        raise RuntimeError(f"lvt_tpu_torch came from {lvt_tpu_torch.__file__}"
+                           f", not {root}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    config = kitti_config()
+    il, ir, _, _ = bench.render(config, (2 + TIMED) * UNIT)
+    il = torch.from_numpy(il).to("cuda")
+    ir = torch.from_numpy(ir).to("cuda")
+    out = dict(root=root, card=card)
+    for mode in ("eager", "graph"):
+        vo = VOSystem(config, device="cuda")
+        if mode == "eager":
+            with disable_graphs():
+                vo.track_chunk(il[:UNIT], ir[:UNIT])
+                prof = chip_smoke._profile(
+                    lambda: vo.track_chunk(il[UNIT:2 * UNIT],
+                                           ir[UNIT:2 * UNIT]), UNIT,
+                    args.out, host=True)
+        else:
+            vo.track_chunk(il[:UNIT], ir[:UNIT])
+            prof = chip_smoke._profile(
+                lambda: vo.track_chunk(il[UNIT:2 * UNIT], ir[UNIT:2 * UNIT]),
+                UNIT)
+            fps = []
+            for u in range(2, 2 + TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vo.track_chunk(il[u * UNIT:(u + 1) * UNIT],
+                               ir[u * UNIT:(u + 1) * UNIT])
+                torch.cuda.synchronize()
+                fps.append(UNIT / (time.perf_counter() - t0))
+            out["graph_fps"] = sorted(fps)
+        out[mode] = {k: prof[k] for k in ("busy_ms_per_frame",
+                                          "span_ms_per_frame",
+                                          "kernels_per_frame", "stages")}
+        torch.cuda.synchronize()
+    print(f"[stage-table] {root} on {card}: eager "
+          f"{out['eager']['kernels_per_frame']:.1f} kernels and "
+          f"{out['eager']['busy_ms_per_frame']:.3f} busy ms per frame, graph "
+          f"{out['graph']['kernels_per_frame']:.1f} and "
+          f"{out['graph']['busy_ms_per_frame']:.3f}; graph frames/s "
+          f"{', '.join(f'{x:.2f}' for x in out['graph_fps'])}", flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

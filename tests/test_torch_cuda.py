@@ -49,6 +49,11 @@ from lvt_tpu_torch.parallel.dryrun import device_launches
 from lvt_tpu_torch.solver import pnp
 
 
+# the tracking branch's four ops (core/track.py, csrc/track.cu)
+TRACK_OPS = ("predict_project", "upkeep_pre", "staged_promote",
+             "triangulate_insert")
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -932,13 +937,17 @@ def test_one_rank_nccl_sharded_stream_is_vosystem(cuda):
 
 @pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2",
                                   "pnp", "stream_sum", "pnp_solve",
-                                  "pnp_phase", "ba_refine"])
+                                  "pnp_phase", "ba_refine", *TRACK_OPS])
 def test_wrapper_never_falls_back_off_the_cpu(call):
     """A tensor on another device than the CPU goes to the kernel path,
     whose argument checks refuse anything that is not on a CUDA device."""
     meta = dict(device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        if call == "perception":
+        if call in TRACK_OPS:
+            args = _track_problem(np.random.RandomState(0), call, 1, "cpu")
+            _track_wrapper(call, [x.to("meta") if isinstance(x, torch.Tensor)
+                                  else x for x in args])
+        elif call == "perception":
             perception.perception_patch_maps_batched(
                 torch.empty(2, 40, 48, dtype=torch.uint8, **meta))
         elif call == "brief":
@@ -999,7 +1008,7 @@ def test_library_name_follows_the_sources():
     assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "perception.cu", "brief.cu", "patches.cu", "top2.cu", "pnp.cu",
-        "pnp_lm.cu", "graph_cond.cu", "ba.cu"}
+        "pnp_lm.cu", "graph_cond.cu", "ba.cu", "track.cu"}
 
 
 def test_ptxas_report_picks_one_kernels_lines():
@@ -1571,3 +1580,308 @@ def test_ba_refine_refuses_a_window_beyond_the_kernels_limit(cuda):
                          *(x[0] for x in args[2:]), iterations=6,
                          reprojection_th2=5.991, **BA_CAM)
     assert bundle.ba_refine.launches == before
+
+
+# ---- the tracking branch's four ops (core/track.py, csrc/track.cu)
+
+TRACK_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, near=0.01,
+                 far=500.0, min_x=0.0, max_x=1241.0, min_y=0.0, max_y=376.0)
+BIG = 1.0e9
+
+
+def _track_op(name):
+    from lvt_tpu_torch.core import track
+
+    return getattr(track, f"{name}_op")
+
+
+def _unit_q(rs, s, spread):
+    q = np.concatenate([np.ones((s, 1)), rs.randn(s, 3) * spread], -1)
+    return (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _store_arrays(rs, s, c, case):
+    """A point store's leaves [S, c, ...]: ``case`` ``full`` (no free
+    slot), ``empty`` (every slot free), ``crowded`` (a few free), else
+    about half free."""
+    frac = {"full": 1.0, "empty": 0.0, "crowded": 0.97}.get(case, 0.5)
+    return [rs.randn(s, c, 3).astype(np.float32) * 20,
+            rs.randint(-2**31, 2**31, (s, c, 8), dtype=np.int64
+                       ).astype(np.int32),
+            rs.randint(0, 12, (s, c)).astype(np.int32),
+            rs.randint(0, 30, (s, c)).astype(np.int32),
+            rs.rand(s, c) < frac]
+
+
+def _top2_arrays(rs, s, n, k, conflicts=True):
+    """Kernel T's outputs at one site [S, n]: integer distances in f32 (BIG
+    where no candidate), candidate counts 0, 1 or more, and best indices of
+    which a third fall in a few targets, so the one-to-one resolution has
+    work to do."""
+    n_cand = rs.choice([0, 1, 2, 3, 9], (s, n), p=[0.1, 0.15, 0.35, 0.2, 0.2])
+    d1 = rs.randint(0, 90, (s, n)).astype(np.float32)
+    d2 = d1 + rs.randint(0, 70, (s, n)).astype(np.float32)
+    best = rs.randint(0, k, (s, n))
+    if conflicts:
+        crowd = rs.rand(s, n) < 0.3
+        best[crowd] = rs.randint(0, max(1, k // 50), crowd.sum())
+    d2[n_cand < 2] = BIG
+    d1[n_cand < 1] = BIG
+    best[n_cand < 1] = 0
+    return [d1, d2.astype(np.float32), best.astype(np.int64),
+            n_cand.astype(np.int64)]
+
+
+def _track_problem(rs, name, s, device, case="random", m=1024, k=1536,
+                   n=1024, rgbd=False, policy=1, staged_threshold=2):
+    """Seeded inputs of one of TRACK_OPS for ``s`` streams, as the tracking
+    step gives them, in the op's argument order. ``case``: the stores'
+    occupancy (``_store_arrays``: ``full``, ``empty``, ``crowded``) or
+    ``none`` (no promotion, no triangulation candidate)."""
+    cam = [float(TRACK_CAM[key]) for key in (
+        "fx", "fy", "cx", "cy", "near", "far", "min_x", "max_x", "min_y",
+        "max_y")]
+    t = (rs.randn(s, 3) * 5).astype(np.float32)
+    q = _unit_q(rs, s, 0.05)
+    is_init = rs.rand(s) < 0.25
+    is_init[1:2] = True
+    is_init[0] = case == "init"
+    if name == "predict_project":
+        lq, av = _unit_q(rs, s, 0.05), _unit_q(rs, s, 0.02)
+        lp = (t + rs.randn(s, 3)).astype(np.float32)
+        lv = (rs.randn(s, 3) * 0.5).astype(np.float32)
+        # stream 2: the angular velocity is the rotation since the last
+        # frame (slerp's near-parallel branch); stream 3: its negation
+        for i, sign in ((2, 1.0), (3, -1.0)):
+            if i < s:
+                lq_inv = lq[i] * np.array([1, -1, -1, -1], np.float32)
+                av[i] = sign * _qmul(q[i], lq_inv)
+        cam_pts = rs.uniform([-80, -30, -5], [80, 30, 120], (s, m, 3))
+        cam_pts[:, :8, 2] = [0.0, 1e-13, -1e-13, 0.01, 500.0, -0.0, 1e-30,
+                             600.0][:min(8, m)]
+        pos = (cam_pts + t[:, None]).astype(np.float32)
+        arrays = [lq, lp, lv, av, t, q, is_init, pos, rs.rand(s, m) > 0.1]
+        scalars = [cam]
+    elif name == "upkeep_pre":
+        store = _store_arrays(rs, s, m, case)
+        match_idx = np.where(rs.rand(s, m) < 0.5, -1, -2).astype(np.int64)
+        fm = np.zeros((s, k), bool)
+        for i in range(s):
+            hit = rs.choice(m, min(m, k) // 2, replace=False)
+            match_idx[i, hit] = rs.choice(k, hit.size, replace=False)
+            fm[i, match_idx[i, hit]] = True
+        fvalid = rs.rand(s, k) > 0.1
+        staged_pos = (rs.uniform([-80, -30, -5], [80, 30, 120], (s, n, 3))
+                      + t[:, None]).astype(np.float32)
+        arrays = [store[2], store[3], store[4], match_idx, fm & fvalid,
+                  fvalid, t, q, is_init, staged_pos, rs.rand(s, n) > 0.3]
+        scalars = [10, cam]
+    elif name == "staged_promote":
+        top2 = _top2_arrays(rs, s, n, k)
+        if case == "none":
+            top2[3][:] = 0
+        staged = _store_arrays(rs, s, n, "random")
+        staged[2] = rs.randint(0, 3, (s, n)).astype(np.int32)
+        staged[4] = rs.rand(s, n) > 0.3
+        mp = _store_arrays(rs, s, m, case)
+        map_size = np.array([rs.choice([mp[4][i].sum(), 100, 400])
+                             for i in range(s)], np.int64)
+        arrays = [*top2, *staged, rs.rand(s, k) > 0.7, map_size, *mp]
+        scalars = [0.8, 30.0, staged_threshold, 250]
+    else:
+        kp = np.stack([rs.uniform(0, 1241, (s, k)),
+                       rs.uniform(0, 376, (s, k))], -1).astype(np.float32)
+        z = rs.uniform(2.0, 300.0, (s, k))
+        disp = TRACK_CAM["fx"] * 0.537165718864 / z
+        rkp = (kp - np.stack([disp, np.zeros_like(disp)], -1)
+               + rs.randn(s, k, 2) * 0.4).astype(np.float32)
+        rkp[rs.rand(s, k) < 0.1] += 8.0
+        top2 = _top2_arrays(rs, s, k, k, conflicts=False)
+        keep = rs.rand(s, k) < 0.8
+        top2[2] = np.where(keep, np.arange(k), top2[2]).astype(np.int64)
+        top2[2][top2[3] < 1] = 0
+        depth = np.where(rs.rand(s, k) < 0.1, 0.0,
+                         rs.uniform(0.3, 10.0, (s, k))).astype(np.float32)
+        if rgbd:
+            top2 = [x[:, :0] for x in top2]
+            rkp = rkp[:, :0]
+        else:
+            depth = depth[:, :0]
+        last = np.stack([np.full(s, 1e9), rs.uniform(100, 600, s),
+                         rs.uniform(100, 600, s)], -1).astype(np.float32)
+        count = rs.randint(0, 700, s).astype(np.int64)
+        if case == "none":
+            is_init[:] = False
+            policy = 1
+            count[:] = 10**6
+        arrays = [*top2, kp, rkp, depth, rs.rand(s, k) > 0.1,
+                  rs.randint(-2**31, 2**31, (s, k, 8), dtype=np.int64
+                             ).astype(np.int32), t, q,
+                  *_store_arrays(rs, s, m, case),
+                  *_store_arrays(rs, s, n, case), last, count, is_init]
+        scalars = [rgbd, cam + [0.6, 30.0, 0.537165718864, 5.991],
+                   [policy, staged_threshold, 250]]
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in arrays] + scalars
+
+
+def _qmul(a, b):
+    aw, ax, ay, az = a
+    bw, bx, by, bz = b
+    return np.array([aw * bw - ax * bx - ay * by - az * bz,
+                     aw * bx + ax * bw + ay * bz - az * by,
+                     aw * by - ax * bz + ay * bw + az * bx,
+                     aw * bz + ax * by - ay * bx + az * bw], np.float32)
+
+
+def _track_wrapper(name, args):
+    """The single-stream wrapper of op ``name`` (core/track.py) on stream 0
+    of the op's arguments ``args``."""
+    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.core.features import FrameFeatures
+    from lvt_tpu_torch.core.motion import MotionState
+    from lvt_tpu_torch.core.state import PointStore
+
+    a = [x[0] if isinstance(x, torch.Tensor) else x for x in args]
+    cam = dict(TRACK_CAM)
+    if name == "predict_project":
+        return track.predict_project(MotionState(*a[:4]), Pose(a[4], a[5]),
+                                     a[6], a[7], a[8], cam)
+    if name == "upkeep_pre":
+        store = PointStore(a[9].new_zeros((a[0].shape[0], 3)), None, a[0],
+                           a[1], a[2])
+        staged = (PointStore(a[9], None, None, None, a[10])
+                  if a[9].shape[0] else None)
+        return track.upkeep_pre(store, a[3], a[4], a[5], Pose(a[6], a[7]),
+                                a[8], staged, a[11], cam)
+    if name == "staged_promote":
+        return track.staged_promote(
+            a[0:4], PointStore(*a[4:9]), a[9], a[10], PointStore(*a[11:16]),
+            ratio_threshold=a[16], abs_threshold=a[17],
+            staged_threshold=a[18], map_soft_cap=a[19])
+    rgbd, fl, ints = a[24:27]
+    zero = a[4][:, 0] * 0
+    left = FrameFeatures(a[4], a[8], zero, a[6] if rgbd else zero, a[7])
+    right = None if rgbd else FrameFeatures(a[5], a[8], zero, zero, a[7])
+    prm = track.TriangulationParams(*fl[10:14], *ints)
+    return track.triangulate_insert(
+        None if rgbd else a[0:4], left, right, Pose(a[9], a[10]),
+        PointStore(*a[11:16]), PointStore(*a[16:21]), a[21], a[22], a[23],
+        cam, prm)
+
+
+def _track_plain(name, args):
+    """The op's plain version stream by stream (its CPU kernel, on the
+    tensors' own device)."""
+    from lvt_tpu_torch.core import track
+
+    n_tensors = sum(isinstance(x, torch.Tensor) for x in args)
+    flat = getattr(track, f"_{name}_flat")
+    return track._per_stream(flat, n_tensors, args)
+
+
+def _assert_outputs_equal(got, want, label=""):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, (label, i)
+        assert torch.equal(g, w) or (
+            g.is_floating_point() and torch.equal(g.isnan(), w.isnan())
+            and torch.equal(g.nan_to_num(), w.nan_to_num())), (
+            f"{label}: output {i} differs in "
+            f"{int((g != w).sum())} of {g.numel()} elements")
+
+
+TRACK_CASES = [
+    ("predict_project", 1, "random", {}), ("predict_project", 8, "init", {}),
+    ("predict_project", 8, "random", {"m": 4096}),
+    ("upkeep_pre", 1, "random", {}), ("upkeep_pre", 8, "random", {}),
+    ("upkeep_pre", 8, "full", {"n": 0}), ("upkeep_pre", 2, "random",
+                                          {"m": 8192, "k": 2048}),
+    ("staged_promote", 1, "random", {}), ("staged_promote", 8, "random", {}),
+    ("staged_promote", 8, "full", {}), ("staged_promote", 8, "empty", {}),
+    ("staged_promote", 8, "crowded", {}), ("staged_promote", 8, "none", {}),
+    ("staged_promote", 2, "random", {"m": 50, "k": 300, "n": 400}),
+    ("triangulate_insert", 1, "random", {}),
+    ("triangulate_insert", 8, "random", {}),
+    ("triangulate_insert", 8, "full", {}),
+    ("triangulate_insert", 8, "empty", {}),
+    ("triangulate_insert", 8, "crowded", {}),
+    ("triangulate_insert", 8, "none", {}),
+    ("triangulate_insert", 2, "random", {"m": 50, "k": 300, "n": 40}),
+    ("triangulate_insert", 8, "random", {"policy": 2}),
+    ("triangulate_insert", 8, "random", {"policy": 3, "m": 4096}),
+    ("triangulate_insert", 8, "random", {"staged_threshold": 0, "m": 4096,
+                                         "k": 896}),
+    ("triangulate_insert", 1, "random", {"rgbd": True, "policy": 2,
+                                         "staged_threshold": 0, "m": 8192,
+                                         "k": 1024}),
+    ("triangulate_insert", 8, "random", {"rgbd": True, "k": 1024}),
+]
+
+
+def _case_id(c):
+    name, s, case, kw = c
+    return "-".join([name, f"s{s}", case,
+                     *(f"{k}{v}" for k, v in sorted(kw.items()))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", TRACK_CASES, ids=[_case_id(c) for c in
+                                                TRACK_CASES])
+def test_track_kernel_matches_plain(cuda, c):
+    """Each of the tracking branch's kernels against its plain version on
+    the card, every output bit-equal (NaN where the plain version has
+    one), and each stream of an S-stream launch bit-equal to its own S =
+    1 launch; the stores' edges: no free slot, every slot free, fewer
+    free slots than new points, no candidate, more candidates than map
+    slots."""
+    name, s, case, kw = c
+    args = _track_problem(np.random.RandomState(len(name) + s), name, s,
+                          cuda, case, **kw)
+    op = _track_op(name)
+    got = op(*args)
+    _assert_outputs_equal(got, _track_plain(name, args), name)
+    for i in range(s):
+        alone = op(*(x[i:i + 1] if isinstance(x, torch.Tensor) else x
+                     for x in args))
+        _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
+                              f"{name} stream {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRACK_OPS)
+def test_track_op_vmap_rule_launches_once(cuda, name):
+    """Under ``torch.func.vmap`` over 3 streams the op launches once, and
+    gives each stream the bits of its S = 1 call."""
+    from lvt_tpu_torch.core import track
+
+    args = _track_problem(np.random.RandomState(7), name, 3, cuda)
+    tensors = [x for x in args if isinstance(x, torch.Tensor)]
+    rest = args[len(tensors):]
+    op = _track_op(name)
+    wrapper = getattr(track, name)
+    before = wrapper.launches
+    got = torch.func.vmap(lambda *a: op(*(x[None] for x in a), *rest))(
+        *tensors)
+    assert wrapper.launches == before + 1
+    for i in range(3):
+        alone = op(*(x[i:i + 1] for x in tensors), *rest)
+        _assert_outputs_equal([x[i, 0] for x in got], [x[0] for x in alone],
+                              f"{name} stream {i}")
+
+
+@pytest.mark.cuda
+def test_track_ops_capture_in_a_graph(cuda):
+    """The four launches captured in a CUDA graph and replayed give the
+    eager launches' bits."""
+    ops = [(_track_op(name), _track_problem(np.random.RandomState(3), name,
+                                            2, cuda)) for name in TRACK_OPS]
+    eager = [op(*args) for op, args in ops]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [op(*args) for op, args in ops]
+    graph.replay()
+    torch.cuda.synchronize()
+    for (name, got), want in zip(zip(TRACK_OPS, outs), eager):
+        _assert_outputs_equal(got, want, name)
