@@ -212,8 +212,9 @@ and the script exits non-zero without printing the final line:
 14. a JSON line with each kernel's launches and largest error against its
    plain version (in all, and by path), times and bound (T per site, per
    frame of paths 1-2, batched and at path 8's shard rows; PnP's solve,
-   phases and ops at S = 1 and 8, and at path 8's M; ``ba_refine`` and
-   the tracking kernels at S = 1 and 8), then the last line
+   phases and ops at S = 1 and 8, and at path 8's M; ``ba_refine``, the
+   tracking kernels, the selection and the map match's acceptance at S =
+   1 and 8), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path runs its step as the port does by default: a CUDA graph of the
@@ -250,14 +251,23 @@ unsharded path launches the tracking branch's four kernels (``csrc/track.cu``, n
 TPU kernels: ``predict_project``, ``upkeep_pre``, ``staged_promote``,
 which paths 5 and 7 euroc, without staged points, do not run, and
 ``triangulate_insert``) once per frame each; 8a-8c run their plain
-versions (torch ops and collectives). Wherever PnP's inputs are captured
+versions (torch ops and collectives). Every path that extracts (all but
+path 6) launches the corner selection's kernel (``select_corners``,
+``csrc/select.cu``) once per frame for all its images, and every
+unsharded path the map match's acceptance after T (``map_accept``,
+``csrc/track.cu``) once per frame (path 3 once for its 8 streams); neither
+is a TPU kernel. Wherever PnP's inputs are captured
 (``capture_pnp_inputs``: after paths 1-6, each tree of path 7, path 8's
-reference, the bench's modes) the same frames' inputs of the four
+reference, the bench's modes) the same frames' inputs of these six
 kernels are held bit-equal to their plain versions on the card, frame 0
-as launched and the last 8 streams in one launch, each stream against
-its S = 1 launch (``check_track_kernels``); after path 2 they are timed
-on path 1's inputs at S = 1 and 8 beside their bounds and their plain
-versions graphed (``measure_track_kernels``). Local
+as launched and the last 8 streams (images) in one launch, each stream
+against its S = 1 launch, the selection also with the low-corner
+fallback never and always taken (``check_track_kernels``; the selection
+also on TUM fr1's one cell of 640 x 480 keeping 1000, at 1 and 8 images,
+after path 4); after path 2 they are timed on path 1's inputs at S = 1
+(the selection: a frame's 2 images) and 8 beside their bounds, their
+plain versions graphed and, for the selection, ``torch.topk`` of its
+packed keys (``measure_track_kernels``). Local
 BA's kernel runs on BA_KERNEL_PATHS (path 2, path 7 kitti, the bench's
 ``--ba``): once per BA frame in a graph, once per frame eagerly, once in
 a graph's warm-up and once in its capture; 8a-8c keep BA's torch ops.
@@ -359,10 +369,24 @@ KERNELS = {
     "triangulate_insert": ("cuda", "lvt_tpu_torch/csrc/track.cu",
                            "lvt_tpu/ops/triangulate.py:40-160 + "
                            "lvt_tpu/core/step.py:111-155"),
+    # not TPU kernels: the per-cell corner selection with its padding and
+    # clamps (XLA ops under jit; every path that extracts: not path 6),
+    # and the map match after kernel T with the step's glue before PnP
+    # (every unsharded path)
+    "select_corners": ("cuda", "lvt_tpu_torch/csrc/select.cu",
+                       "lvt_tpu/ops/detect.py:280-382 + "
+                       "lvt_tpu/core/extract.py:115,168-189"),
+    "map_accept": ("cuda", "lvt_tpu_torch/csrc/track.cu",
+                   "lvt_tpu/ops/matching.py:76-151 + "
+                   "lvt_tpu/core/step.py:400-401"),
 }
 # the tracking branch's four ops, in the step's order
 TRACK_KERNELS = ("predict_project", "upkeep_pre", "staged_promote",
                  "triangulate_insert")
+# the selection and the map match's acceptance: captured and checked with
+# the tracking branch's ops (STEP_OPS, check_track_kernels), timed apart
+SELECT_ACCEPT = ("select_corners", "map_accept")
+STEP_OPS = TRACK_KERNELS + SELECT_ACCEPT
 # the paths whose config has no staged set (staged_threshold 0): no staged
 # re-match, so no staged_promote
 NO_STAGED_PATHS = ("path5", "path7-euroc")
@@ -495,9 +519,11 @@ for _path, _need in NEED_PER_FRAME.items():
     _need.update({"pnp_phase": PNP_PHASES} if _path in SHARDED_PATHS
                  else {"pnp_solve": 1})
     if _path not in SHARDED_PATHS:
-        _need.update(dict.fromkeys(TRACK_KERNELS, 1))
+        _need.update(dict.fromkeys(TRACK_KERNELS, 1), map_accept=1)
         if _path in NO_STAGED_PATHS:
             del _need["staged_promote"]
+    if _path != "path6":   # external corners: no selection
+        _need["select_corners"] = 1
 # on the paths whose local BA is a CUDA IF node in their graph, per frame
 # type (a BA frame, any other): the kernel that sets the node's predicate
 # (csrc/graph_cond.cu) and the NCCL kernels (on one rank NCCL's
@@ -1462,9 +1488,11 @@ def capture_pnp_inputs(path, frames) -> dict:
     is also checked at S = 8 at this path's M."""
     from lvt_tpu_torch.core import track
     from lvt_tpu_torch.core.graphs import disable_graphs
+    from lvt_tpu_torch.ops import detect, matching
     from lvt_tpu_torch.solver import pnp
 
-    ops = [(pnp, "pnp_solve")] + [(track, k) for k in TRACK_KERNELS]
+    ops = ([(pnp, "pnp_solve")] + [(track, k) for k in TRACK_KERNELS]
+           + [(detect, "select_corners"), (matching, "map_accept")])
     seen = {name: [] for _, name in ops}
     real = {name: getattr(mod, f"{name}_op") for mod, name in ops}
 
@@ -1491,9 +1519,10 @@ def capture_pnp_inputs(path, frames) -> dict:
                              f"in {n} frames, not one per frame")
     args = tuple(torch.cat(x)[-MS_STREAMS:]
                  for x in zip(*(c[:5] for c in solves[-MS_STREAMS:])))
-    # the tracking branch's ops: one launch per frame each (none on a path
-    # without staged points for staged_promote), the last MS_STREAMS
-    # streams held against their plain versions at once
+    # the step's ops: one launch per frame each (none on a path without
+    # staged points for staged_promote, none of select_corners at external
+    # corners), the last MS_STREAMS streams (images for select_corners)
+    # held against their plain versions at once
     tracked = {}
     for name, calls in seen.items():
         need = NEED_PER_FRAME.get(path)   # path 8's reference: every op
@@ -1677,7 +1706,7 @@ def measure_pnp_solve(card, path, inputs) -> dict:
 # the largest gap of each of the tracking branch's kernels to its plain
 # version on each path's inputs ({kernel: {path: gap}}), from
 # check_track_kernels at every capture_pnp_inputs
-TRACK_ERRS = {k: {} for k in TRACK_KERNELS}
+TRACK_ERRS = {k: {} for k in STEP_OPS}
 # the work per item that each of the tracking branch's functions needs,
 # besides its bytes (every output written once, each input read once):
 # predict_project per map point, the camera point (9 multiplies, 9 adds),
@@ -1697,6 +1726,34 @@ TRACK_WORK = {"predict_project": ("map", {"fp32": 31}),
               "triangulate_insert": ("features", {"fp32": 84, "fp64": 87})}
 
 
+# the work per item of the selection and the acceptance, besides their
+# bytes: select_corners per pixel of the cell grid, its key (the fold of
+# -0.0, the order map's compare and xor, the packing with the reversed
+# index: 6 ALU) and one comparison with the selection's threshold key (1),
+# and with the dither two 8-bit reversals, a multiply-add and a shift (6
+# ALU) and the f32 add; map_accept per query, at each radius the
+# acceptance (3), the key (2), its atomicMin (1) and the winner's test
+# (2), then the selects and the outputs (8): 24 ALU
+SELECT_KEY_ALU = 7
+SELECT_ACCEPT_WORK = {"select_corners": (SELECT_KEY_ALU + 6, 1),
+                      "map_accept": 24}
+
+
+def _library_call(name, args):
+    """The one PyTorch call that computes op ``name``'s core on the same
+    inputs, for ``library_ms``: select_corners' selection, ``torch.topk``
+    of the packed int64 keys [B, cells, cell pixels] (built once, not
+    timed); None for the others (no one call computes them)."""
+    from lvt_tpu_torch.ops import detect
+
+    if name != "select_corners":
+        return None
+    nms, _, _, cell, k, _, spread, _ = args
+    keys = detect.packed_keys(detect.cell_values(nms, *nms.shape[1:], cell,
+                                                 spread))
+    return lambda: torch.topk(keys, k, dim=-1, largest=True, sorted=True)
+
+
 def _last_streams(calls) -> dict:
     """One op's captured launches: the first (frame 0, the init frame, as
     launched) and the last MS_STREAMS streams of them stacked as one
@@ -1713,13 +1770,35 @@ def _track_errs(path, errs) -> None:
         TRACK_ERRS[k][path] = max(v, TRACK_ERRS[k].get(path, 0.0))
 
 
-def _track_plain(name, args) -> tuple:
-    """The op's plain version (core/track.py's ``*_plain``, torch ops)
-    stream by stream on the card: the op's CPU kernel, on CUDA tensors."""
+def _step_op(name):
+    """The custom op of one of STEP_OPS."""
     from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.ops import detect, matching
 
+    mod = {"select_corners": detect, "map_accept": matching}.get(name, track)
+    return getattr(mod, f"{name}_op")
+
+
+def _track_plain(name, args) -> tuple:
+    """The op's plain version (core/track.py's ``*_plain``, ops/detect.py's
+    ``select_corners_plain``, ops/matching.py's ``map_accept_plain``: torch
+    ops) stream by stream on the card: the op's CPU kernel, on CUDA
+    tensors."""
+    from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.ops import detect, matching
+
+    if name == "select_corners":
+        return detect.select_corners_plain(*args)
     nt = sum(isinstance(x, torch.Tensor) for x in args)
-    return track._per_stream(getattr(track, f"_{name}_flat"), nt, args)
+    mod = matching if name == "map_accept" else track
+    return kernels.per_stream(getattr(mod, f"_{name}_flat"), nt, args)
+
+
+# select_corners' corners_low_threshold (its argument 5) in
+# check_track_kernels' extra runs: 0 never takes the low-corner fallback,
+# the second always does
+LOW_BRANCHES = (0, 1 << 30)
 
 
 def _stream_slice(args, i) -> list:
@@ -1727,21 +1806,26 @@ def _stream_slice(args, i) -> list:
 
 
 def check_track_kernels(path, tracked) -> dict:
-    """The tracking branch's kernels (``lvt_tpu_torch::predict_project``,
-    ``upkeep_pre``, ``staged_promote``, ``triangulate_insert``; csrc/
-    track.cu) against their plain versions on the card, on the inputs a
-    path's first frames gave them (``capture_pnp_inputs``): frame 0 as
-    launched and the last MS_STREAMS streams in one launch, every output
-    bit-equal (NaN where the plain version has one), and each stream of
-    the S-stream launch bit-equal to its own S = 1 launch. Returns each
-    kernel's largest gap (0.0: bit-equal)."""
-    from lvt_tpu_torch.core import track
-
+    """The step's kernels of STEP_OPS (``lvt_tpu_torch::predict_project``,
+    ``upkeep_pre``, ``staged_promote``, ``triangulate_insert``,
+    ``map_accept``: csrc/track.cu; ``select_corners``: csrc/select.cu)
+    against their plain versions on the card, on the inputs a path's first
+    frames gave them (``capture_pnp_inputs``): frame 0 as launched and the
+    last MS_STREAMS streams (images, for select_corners) in one launch,
+    every output bit-equal (NaN where the plain version has one), and each
+    stream of the S-stream launch bit-equal to its own S = 1 launch;
+    select_corners also with the low-corner fallback never and always
+    taken (LOW_BRANCHES). Returns each kernel's largest gap (0.0:
+    bit-equal)."""
     errs, said = {}, []
     for name, sets in tracked.items():
-        op = getattr(track, f"{name}_op")
-        for label, args in (("frame 0", sets["first"]),
-                            ("last streams", sets["last"])):
+        op = _step_op(name)
+        runs = [("frame 0", sets["first"]), ("last streams", sets["last"])]
+        if name == "select_corners":   # both fallback branches
+            runs += [(f"last streams, corners_low_threshold {low}",
+                      [*sets["last"][:5], low, *sets["last"][6:]])
+                     for low in LOW_BRANCHES]
+        for label, args in runs:
             s = args[0].shape[0]
             got = op(*args)
             want = _track_plain(name, args)
@@ -1755,7 +1839,7 @@ def check_track_kernels(path, tracked) -> dict:
                     [x[i] for x in got])
             errs[name] = max(err, errs.get(name, 0.0))
         said.append(f"{name} S={sets['last'][0].shape[0]}")
-    _say(path, f"tracking kernels bit-equal to their plain versions on the "
+    _say(path, f"step kernels bit-equal to their plain versions on the "
                f"card on this path's frame 0 and its last streams, each "
                f"stream equal to its S=1 launch: {', '.join(said)}")
     return errs
@@ -1796,10 +1880,23 @@ def _require_equal_nan(name: str, got, want) -> float:
 
 def track_work(name, args, outs) -> tuple[int, dict]:
     """Bytes (each input read once, each output written once) and
-    operations (TRACK_WORK) of one launch of op ``name``."""
+    operations (TRACK_WORK, SELECT_ACCEPT_WORK) of one launch of op
+    ``name``."""
     tensors = [x for x in args if isinstance(x, torch.Tensor)]
     nbytes = sum(x.numel() * x.element_size() for x in [*tensors, *outs])
     s = tensors[0].shape[0]
+    if name == "select_corners":
+        from lvt_tpu_torch.ops import detect
+
+        _, h, w = args[0].shape
+        s_y, s_x, ncy, ncx = detect._cell_geometry(h, w, args[3])
+        px = s * ncy * s_y * ncx * s_x
+        alu, fp32 = SELECT_ACCEPT_WORK["select_corners"]
+        return nbytes, ({"alu": px * alu, "fp32": px * fp32} if args[6]
+                        else {"alu": px * SELECT_KEY_ALU})
+    if name == "map_accept":
+        return nbytes, {"alu": s * args[2].shape[1]
+                        * SELECT_ACCEPT_WORK["map_accept"]}
     what, per = TRACK_WORK[name]
     if what == "map":
         items = tensors[7].shape[1]
@@ -1816,34 +1913,39 @@ def track_work(name, args, outs) -> tuple[int, dict]:
 
 
 def measure_track_kernels(card, path, tracked) -> dict:
-    """Each tracking kernel on a path's captured inputs (``tracked``:
-    ``capture_pnp_inputs``) at S = 1 (the last stream) and S =
-    MS_STREAMS: its device time beside its bound, and its plain version's
-    (the torch ops the step ran before the kernel), captured in a CUDA
-    graph and replayed. No one PyTorch call computes any of them: no
-    library time."""
-    from lvt_tpu_torch.core import track
-
+    """Each of the step's kernels (STEP_OPS) on a path's captured inputs
+    (``tracked``: ``capture_pnp_inputs``) at S = 1 (the last stream;
+    select_corners: the last frame's 2 images) and S = MS_STREAMS: its
+    device time beside its bound, its plain version's (the torch ops the
+    step ran before the kernel) captured in a CUDA graph and replayed, and
+    where one PyTorch call computes its core (``_library_call``) that
+    call's time."""
     rep = {}
     for name, sets in tracked.items():
-        op = getattr(track, f"{name}_op")
+        op = _step_op(name)
         full = sets["last"]
         s_all = full[0].shape[0]
+        sizes = (2 if name == "select_corners" else 1, s_all)
         by_s = {}
-        for s in (1, s_all):
+        for s in sizes:
             args = ([x[-s:].contiguous() if isinstance(x, torch.Tensor)
                      else x for x in full])
             b_ms, b_by = bound(card, *track_work(name, args, op(*args)))
+            library = _library_call(name, args)
             by_s[s] = dict(
                 s=s, ms=device_ms(lambda a=args: op(*a), REPS),
                 plain_ms=device_ms(_graphed(
                     lambda a=args: _track_plain(name, a)), PLAIN_REPS),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=None if library is None else device_ms(library,
+                                                                  REPS))
             q = by_s[s]
+            lib = ("" if library is None else
+                   f", the library call {q['library_ms']:.4f} ms")
             _say(path, f"{name} S={s}: kernel {q['ms']:.4f} ms (bound "
                        f"{b_ms:.3g} ms, {b_by}), the plain version graphed "
-                       f"{q['plain_ms']:.4f} ms")
-        rep[name] = dict(by_s[1], batched=by_s[s_all])
+                       f"{q['plain_ms']:.4f} ms{lib}")
+        rep[name] = dict(by_s[sizes[0]], batched=by_s[s_all])
     return rep
 
 
@@ -2190,14 +2292,16 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
     """Path 4: VOSystem(SensorType.RGBD).track_chunk on the card; kernels
     A, P and T against their plain versions at the shapes of its frame 0,
     for one stream and for RGBD_MS[0] (``check_path_kernels``); the card
-    against the CPU; MultiStreamVO(rgbd=True); and the TUM fr1 camera's
-    extraction (with its distortion) card against CPU."""
+    against the CPU; MultiStreamVO(rgbd=True); the TUM fr1 camera's
+    extraction (with its distortion) card against CPU, and its one-cell
+    selection (``select_corners``) against the plain version."""
     from lvt_tpu_torch.configs import tum_rgbd_config
     from lvt_tpu_torch.core.extract import extract_features_rgbd
     from lvt_tpu_torch.core.graphs import disable_graphs
     from lvt_tpu_torch.core.state import TRACKING
     from lvt_tpu_torch.core.system import SensorType, TrackingState, VOSystem
     from lvt_tpu_torch.io.synthetic import SyntheticWorld, ate_rmse
+    from lvt_tpu_torch.ops import perception
     from lvt_tpu_torch.parallel.multistream import MultiStreamVO
 
     n = gray.shape[0]
@@ -2299,6 +2403,15 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
                   f"{dkp:.3g} px")
     if not same or not dkp < 1e-3 or int(fh.valid.sum()) == 0:
         raise AssertionError("path4: TUM fr1 extraction differs card vs CPU")
+    # the TUM fr1 YAML's selection (one cell of 640 x 480 keeping 1000) on
+    # kernel A's maps of path 4's first MS_STREAMS gray frames: 1 image as
+    # extraction launches it, and all of them in one launch
+    nms = perception.perception_patch_maps_batched(gd[:MS_STREAMS])[0]
+    args = [nms, nms.new_zeros((0,)), float(tum.agast_threshold),
+            tum.detection_cell_size, tum.max_keypoints_per_cell,
+            tum.corners_low_threshold, True, tum.kp_capacity]
+    _track_errs("path4-tum", check_track_kernels("path4 (TUM fr1 selection)", {
+        "select_corners": dict(first=[nms[:1], *args[1:]], last=args)}))
     return dict(report, profile=prof, launches=prof["launches"],
                 kernel_errs=kernel_errs)
 
@@ -3267,17 +3380,19 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
     host = a.cpu().numpy(), b.cpu().numpy()
     sharded_job = dryrun.job(dryrun.sharded_stream, config, *host,
                              chunk=SH_CHUNK, device=DEVICE)
+    secs = {k: [] for k in ("2 ranks", "4 ranks", "2 CPU ranks")}
     results = {
         2: dryrun.spawn([sharded_job, dryrun.job(
             dryrun.multistream, ms_config, *md, chunk=MD_CHUNK,
             device=DEVICE)], 2, device=DEVICE, backend=backend,
-            timeout_s=SH_TIMEOUT_S),
+            timeout_s=SH_TIMEOUT_S, seconds=secs["2 ranks"]),
     }
     marks.append(("2 ranks (8b, 8d)", time.perf_counter()))
     results[4] = dryrun.spawn([sharded_job, dryrun.job(
         dryrun.stream_point, config, *sp, n_stream=SP_MESH[0],
         n_point=SP_MESH[1], chunk=SP_CHUNK, device=DEVICE)], 4,
-        device=DEVICE, backend=backend, timeout_s=SH_TIMEOUT_S)
+        device=DEVICE, backend=backend, timeout_s=SH_TIMEOUT_S,
+        seconds=secs["4 ranks"])
     marks.append(("4 ranks (8b, 8c)", time.perf_counter()))
     card_2 = None
     h = SH_HORIZON
@@ -3415,7 +3530,7 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
     k = SH_CPU_FRAMES
     cpu = dryrun.spawn([dryrun.job(dryrun.sharded_stream, config,
                                    host[0][:k], host[1][:k], chunk=k)], 2,
-                       timeout_s=SH_TIMEOUT_S)
+                       timeout_s=SH_TIMEOUT_S, seconds=secs["2 CPU ranks"])
     dt = _gap(cpu[0][0]["poses"][0], card_2[:k])
     _say("path8b-2", f"card vs CPU (2 gloo CPU ranks), frames 0-{k - 1}: "
                      f"poses differ by at most {dt:.3g} m")
@@ -3425,6 +3540,18 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
     _say("path8", "seconds by part (spawned ranks' start-up included): "
                   + ", ".join(f"{name} {t - marks[i][1]:.1f}" for i, (name, t)
                               in enumerate(marks[1:])))
+    # where a spawned run's seconds go, per rank: the start-up (the
+    # interpreter, the imports, unpickling the jobs), the process group,
+    # the kernels' library with the CUDA context, and each job (the
+    # frames, their gloo collectives, a job's own set-up)
+    _say("path8", "seconds per rank of each spawned run (start-up, group, "
+                  "library, jobs): " + "; ".join(
+                      f"{name}: " + ", ".join(
+                          f"{r['start']:.1f} / {r['group']:.1f} / "
+                          f"{r.get('library', 0.0):.1f} / "
+                          + " + ".join(f"{j:.1f}" for j in r["jobs"])
+                          for r in rs)
+                      for name, rs in secs.items()))
     for r in runs.values():
         r["kernel_errs"] = {}
     runs["path8a"]["kernel_errs"] = kernel_errs
@@ -3436,7 +3563,7 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
 STAGES = ("rectify", "perception", "corner_select", "patch_describe",
           "corner_select_describe", "motion_predict", "map_matching",
           "pnp_solve", "map_bookkeeping", "staged_update", "triangulation",
-          "local_ba")
+          "local_ba", "step_tail")
 
 
 def _device_us(e) -> float:

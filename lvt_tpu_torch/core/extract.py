@@ -1,11 +1,12 @@
 """Feature extraction in three descriptor modes, bit-identical at valid
 keypoints:
 
-* patch (the default): kernel A -> per-cell corner selection -> kernel P
-  (BRIEF and subpixel refinement of each slot, read from A's maps);
+* patch (the default): kernel A -> per-cell corner selection (the op
+  ``lvt_tpu_torch::select_corners``, csrc/select.cu) -> kernel P (BRIEF
+  and subpixel refinement of each slot, read from A's maps);
 * dense: kernel A -> kernel B (BRIEF bit planes of every pixel) ->
-  per-cell selection with subpixel refinement on the raw map -> one
-  descriptor gather from the planes;
+  per-cell selection with subpixel refinement on the raw map (the same
+  op) -> one descriptor gather from the planes;
 * sparse: kernel A -> the same selection -> BRIEF at each selected corner
   from A's box sums (one gather of its 64 pool samples), in torch ops, as
   lvt_tpu runs this mode in XLA ops.
@@ -32,19 +33,19 @@ from lvt_tpu_torch.ops.perception import (perception_maps_batched,
                                           perception_patch_maps_batched)
 
 
-def _pad_to(arr: torch.Tensor, capacity: int, axis: int = 0) -> torch.Tensor:
-    n = arr.shape[axis]
-    if n == capacity:
-        return arr
-    assert n < capacity, f"detector output {n} exceeds capacity {capacity}"
-    shape = list(arr.shape)
-    shape[axis] = capacity - n
-    return torch.cat([arr, arr.new_zeros(shape)], dim=axis)
-
-
 def _spread_ties(imgs: torch.Tensor) -> bool:
     """Plateau-dither selection only for integer-valued (uint8) frames."""
     return imgs.dtype == torch.uint8
+
+
+def _select(nms, config: VOConfig, spread_ties: bool, raw=None) -> tuple:
+    """Per-cell selection into the slot buffers (``detect.select_slots``:
+    one launch for all images of the frame on the card)."""
+    return detect.select_slots(
+        nms, config.agast_threshold, cell_size=config.detection_cell_size,
+        max_per_cell=config.max_keypoints_per_cell,
+        corners_low_threshold=config.corners_low_threshold,
+        spread_ties=spread_ties, capacity=config.kp_capacity, score_raw=raw)
 
 
 def _extract_patch_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
@@ -55,29 +56,15 @@ def _extract_patch_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
     with stage("perception"):
         nms, raw, smooth = perception_patch_maps_batched(imgs)
     with stage("corner_select"):
-        det = detect.select_corners(
-            nms, config.agast_threshold,
-            cell_size=config.detection_cell_size,
-            max_per_cell=config.max_keypoints_per_cell,
-            corners_low_threshold=config.corners_low_threshold,
-            img_hw=(h, w), spread_ties=spread_ties,
-        )
-    cap = config.kp_capacity
-
-    def pad(a):
-        return _pad_to(a, cap, axis=1)
-
-    xi = pad(det.kp_int[..., 0])
-    yi = pad(det.kp_int[..., 1])
-    sel_valid = pad(det.valid)
-    xc, yc = pt.clamp_coords(xi, yi, h, w)
+        xi, yi, xc, yc, score, sel_valid, _, _ = _select(nms, config,
+                                                         spread_ties)
     with stage("patch_describe"):
         desc, valid, kp = pt.describe_refine_batched(
-            smooth, raw, xc.contiguous(), yc.contiguous(), xi.contiguous(),
-            yi.contiguous(), sel_valid.contiguous(), h, w)
+            smooth, raw, xc, yc, xi, yi, sel_valid, h, w)
     return FrameFeatures(
-        kp=kp, desc=desc, score=pad(det.score),
-        depth=torch.zeros((bsz, cap), dtype=torch.float32, device=imgs.device),
+        kp=kp, desc=desc, score=score,
+        depth=torch.zeros((bsz, config.kp_capacity), dtype=torch.float32,
+                          device=imgs.device),
         valid=valid,
     )
 
@@ -111,26 +98,16 @@ def _extract_per_cell(imgs: torch.Tensor, config: VOConfig,
         else:
             nms, raw, aux = perception_patch_maps_batched(imgs)
     with stage("corner_select_describe"):
-        det = detect.select_corners(
-            nms, config.agast_threshold,
-            cell_size=config.detection_cell_size,
-            max_per_cell=config.max_keypoints_per_cell,
-            corners_low_threshold=config.corners_low_threshold,
-            spread_ties=spread_ties, score_raw=raw,
-        )
+        _, _, _, _, score, sel_valid, kp, corner = _select(
+            nms, config, spread_ties, raw)
         describe = (brief.descriptors_from_planes if mode == "dense"
                     else brief.descriptors_sparse)
-        desc, valid = describe(aux, det.kp_int.float(), det.valid)
-        cap = config.kp_capacity
-
-        def pad(a):
-            return _pad_to(a, cap, axis=1)
-
+        desc, valid = describe(aux, corner, sel_valid)
         return FrameFeatures(
-            kp=pad(det.kp), desc=pad(desc), score=pad(det.score),
-            depth=torch.zeros((imgs.shape[0], cap), dtype=torch.float32,
-                              device=imgs.device),
-            valid=pad(valid),
+            kp=kp, desc=desc.contiguous(), score=score,
+            depth=torch.zeros((imgs.shape[0], config.kp_capacity),
+                              dtype=torch.float32, device=imgs.device),
+            valid=valid,
         )
 
 
@@ -195,8 +172,9 @@ def describe_external_corners_batched(imgs: torch.Tensor,
     zeros = torch.zeros((imgs.shape[0], cap), dtype=torch.float32,
                         device=imgs.device)
     return FrameFeatures(
-        kp=_pad_to(corners.float(), cap, axis=1), desc=_pad_to(desc, cap, 1),
-        score=zeros, depth=zeros.clone(), valid=_pad_to(valid, cap, 1))
+        kp=detect.pad_to(corners.float(), cap, axis=1),
+        desc=detect.pad_to(desc, cap, 1), score=zeros, depth=zeros.clone(),
+        valid=detect.pad_to(valid, cap, 1))
 
 
 def describe_external_corners(img: torch.Tensor, corners: torch.Tensor,

@@ -75,6 +75,7 @@ import threading
 import time
 
 import torch
+from torch.profiler import record_function
 
 from lvt_tpu_torch.tree import flatten_with_path, tree_map
 
@@ -251,7 +252,8 @@ class StepGraph:
 
     def _step(self):
         new, pose, metrics = self.step_fn(self.state, *self.inputs)
-        copy_into(self.state, new)
+        with record_function("step_tail"):
+            copy_into(self.state, new)
         return pose, metrics
 
     def _capture(self) -> None:

@@ -156,8 +156,7 @@ def _track_branch(state: VOState, left: FrameFeatures,
     matches_count = mm.matches_count
     is_tracking = (matches_count >= config.min_num_matches_for_tracking) | is_init
 
-    obs = left.kp[torch.clamp(mm.match_idx, 0, k - 1)]
-    weights = (mm.match_idx >= 0).float()
+    obs, weights = mm.obs, mm.weights
     with stage("pnp_solve"):
         pnp = solve_pnp(predicted, state.map.pos, obs, weights,
                         fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy,
@@ -244,46 +243,49 @@ def _track_branch(state: VOState, left: FrameFeatures,
         final_map = final_map._replace(pos=refined_pos)
 
     map_size_final, window = tri.map_size, tri.window
-    new_state = VOState(
-        map=_select(is_tracking, final_map, map_bookkept),
-        staged=_select(is_tracking, tri.staged, state.staged),
-        pose=_select(is_tracking, pose_final, state.pose),
-        motion=motion,
-        last_matches=torch.where(is_tracking, window, state.last_matches),
-        frame_number=state.frame_number + 1,
-        status=torch.where(is_tracking, TRACKING, LOST).to(torch.int32),
-        ba=_select(is_tracking & ~is_init, ba_window, state.ba),
-    )
-    out_pose = _select(is_tracking, pose_final, state.pose)
+    # the selects on is_tracking and the metrics (stage step_tail, with
+    # track_features' lost-frame select)
+    with stage("step_tail"):
+        new_state = VOState(
+            map=_select(is_tracking, final_map, map_bookkept),
+            staged=_select(is_tracking, tri.staged, state.staged),
+            pose=_select(is_tracking, pose_final, state.pose),
+            motion=motion,
+            last_matches=torch.where(is_tracking, window, state.last_matches),
+            frame_number=state.frame_number + 1,
+            status=torch.where(is_tracking, TRACKING, LOST).to(torch.int32),
+            ba=_select(is_tracking & ~is_init, ba_window, state.ba),
+        )
+        out_pose = _select(is_tracking, pose_final, state.pose)
 
-    matched_mask = mm.match_idx >= 0
-    n_matched = torch.clamp(matches_count, min=1)
+        matched_mask = mm.match_idx >= 0
+        n_matched = torch.clamp(matches_count, min=1)
 
-    def mean_of(v):
-        return psum_if(torch.where(matched_mask, v, 0.0).sum(),
-                       group) / n_matched
+        def mean_of(v):
+            return psum_if(torch.where(matched_mask, v, 0.0).sum(),
+                           group) / n_matched
 
-    metrics = StepMetrics(
-        map_points_count=torch.where(
-            is_init, map_size_final,
-            psum_if(state.map.size(), group)).to(torch.int32),
-        staged_points_count=psum_if(state.staged.size(),
-                                    group).to(torch.int32),
-        image_keypoints=left.count().to(torch.int32),
-        tracked_map_points=matches_count.to(torch.int32),
-        mean_age=mean_of(map_bookkept.age.float()),
-        mean_closest_descriptor_distance=mean_of(mm.d1),
-        mean_second_descriptor_distance=mean_of(mm.d2),
-        mean_feature_x=mean_of(obs[:, 0]),
-        mean_feature_y=mean_of(obs[:, 1]),
-        inlier_count=pnp.inlier_count.to(torch.int32),
-        triangulated_points=torch.where(is_tracking, tri.n_inserted,
-                                        0).to(torch.int32),
-        used_wide_radius=mm.used_wide_radius & ~is_init,
-        status=new_state.status,
-        local_ba_ran=ba_ran & is_tracking & ~is_init,
-    )
-    return new_state, out_pose, metrics
+        metrics = StepMetrics(
+            map_points_count=torch.where(
+                is_init, map_size_final,
+                psum_if(state.map.size(), group)).to(torch.int32),
+            staged_points_count=psum_if(state.staged.size(),
+                                        group).to(torch.int32),
+            image_keypoints=left.count().to(torch.int32),
+            tracked_map_points=matches_count.to(torch.int32),
+            mean_age=mean_of(map_bookkept.age.float()),
+            mean_closest_descriptor_distance=mean_of(mm.d1),
+            mean_second_descriptor_distance=mean_of(mm.d2),
+            mean_feature_x=mean_of(obs[:, 0]),
+            mean_feature_y=mean_of(obs[:, 1]),
+            inlier_count=pnp.inlier_count.to(torch.int32),
+            triangulated_points=torch.where(is_tracking, tri.n_inserted,
+                                            0).to(torch.int32),
+            used_wide_radius=mm.used_wide_radius & ~is_init,
+            status=new_state.status,
+            local_ba_ran=ba_ran & is_tracking & ~is_init,
+        )
+        return new_state, out_pose, metrics
 
 
 def track_features(state: VOState, left: FrameFeatures,
@@ -299,14 +301,15 @@ def track_features(state: VOState, left: FrameFeatures,
     is_lost = state.status == LOST
     tracked_state, pose, metrics = _track_branch(state, left, right, config,
                                                  is_init, group)
-    lost_state = state._replace(frame_number=state.frame_number + 1)
-    lost_metrics = StepMetrics.zero(state.status.device)._replace(
-        map_points_count=psum_if(state.map.size(), group).to(torch.int32),
-        status=torch.full((), LOST, dtype=torch.int32,
-                          device=state.status.device))
-    return (_select(is_lost, lost_state, tracked_state),
-            _select(is_lost, state.pose, pose),
-            _select(is_lost, lost_metrics, metrics))
+    with stage("step_tail"):
+        lost_state = state._replace(frame_number=state.frame_number + 1)
+        lost_metrics = StepMetrics.zero(state.status.device)._replace(
+            map_points_count=psum_if(state.map.size(), group).to(torch.int32),
+            status=torch.full((), LOST, dtype=torch.int32,
+                              device=state.status.device))
+        return (_select(is_lost, lost_state, tracked_state),
+                _select(is_lost, state.pose, pose),
+                _select(is_lost, lost_metrics, metrics))
 
 
 def _check_config(config: VOConfig) -> None:

@@ -39,6 +39,7 @@ their collectives instead: a collective cannot run inside a kernel.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import NamedTuple
 
 import torch
@@ -104,33 +105,9 @@ def _ptrs(*ts) -> list[int]:
     return [t.data_ptr() for t in ts]
 
 
-def _per_stream(plain, n_tensors: int, args) -> tuple:
-    """A CPU kernel: ``plain`` (flat single-stream tensors in and out) on
-    each stream of the [S, ...] tensor arguments, the outputs stacked."""
-    s = args[0].shape[0]
-    outs = [plain(*(a[i] for a in args[:n_tensors]), *args[n_tensors:])
-            for i in range(s)]
-    return tuple(torch.stack(o) for o in zip(*outs))
-
-
 def _register(name: str, cpu, fake, n_tensors: int) -> None:
-    """The CPU kernel, fake kernel and vmap rule of the op ``{name}_op``
-    (``kernels.fold_streams``: vmap's axis B and the stream axis S fold
-    into one axis of B * S streams, the op runs once, looked up here when
-    the rule runs, and the outputs unfold to [B, S, ...])."""
-    op = globals()[f"{name}_op"]
-    op.register_kernel("cpu")(cpu)
-    op.register_fake(fake)
-
-    def rule(info, in_dims, *args):
-        b = info.batch_size
-        flat = kernels.fold_streams(info, in_dims[:n_tensors],
-                                    args[:n_tensors])
-        outs = globals()[f"{name}_op"](*flat, *args[n_tensors:])
-        return (tuple(x.view(b, x.shape[0] // b, *x.shape[1:]) for x in outs),
-                (0,) * len(outs))
-
-    op.register_vmap(rule)
+    kernels.register_stream_op(sys.modules[__name__], name, cpu, fake,
+                               n_tensors)
 
 
 def _check_device(t: torch.Tensor, name: str) -> None:
@@ -218,7 +195,7 @@ def _predict_project_fake(lq, lp, lv, av, t, q, is_init, pos, valid, cam):
 
 
 _register("predict_project",
-          lambda *a: _per_stream(_predict_project_flat, 9, a),
+          lambda *a: kernels.per_stream(_predict_project_flat, 9, a),
           _predict_project_fake, 9)
 
 
@@ -352,7 +329,8 @@ def _upkeep_pre_fake(counter, age, valid, match_idx, fm, feat_valid, t, q,
             valid.new_empty((s, n)))
 
 
-_register("upkeep_pre", lambda *a: _per_stream(_upkeep_pre_flat, 11, a),
+_register("upkeep_pre",
+          lambda *a: kernels.per_stream(_upkeep_pre_flat, 11, a),
           _upkeep_pre_fake, 11)
 
 
@@ -509,7 +487,7 @@ def _staged_promote_fake(d1, d2, best, n_cand, s_pos, s_desc, s_ctr, s_age,
 
 
 _register("staged_promote",
-          lambda *a: _per_stream(_staged_promote_flat, 16, a),
+          lambda *a: kernels.per_stream(_staged_promote_flat, 16, a),
           _staged_promote_fake, 16)
 
 
@@ -749,7 +727,7 @@ def _triangulate_insert_fake(d1, d2, best, n_cand, kp, right_kp, depth,
 
 
 _register("triangulate_insert",
-          lambda *a: _per_stream(_triangulate_insert_flat, 24, a),
+          lambda *a: kernels.per_stream(_triangulate_insert_flat, 24, a),
           _triangulate_insert_fake, 24)
 
 

@@ -1,6 +1,7 @@
-// The tracking branch's per-point work around kernel T, four kernels over
-// a leading stream axis S (lvt_tpu_torch/core/track.py; lvt_tpu runs this
-// work as XLA ops under jit, none of it a TPU kernel):
+// The tracking branch's per-point work around kernel T, five kernels over
+// a leading stream axis S (lvt_tpu_torch/core/track.py and, for the map
+// match, ops/matching.py; lvt_tpu runs this work as XLA ops under jit, none
+// of it a TPU kernel):
 //
 // * predict_project_kernel: the motion model (core/motion.py), the init
 //   frame's identity pose, and the map's projection and visibility at the
@@ -15,7 +16,10 @@
 // * triangulate_insert_kernel: the row match's acceptance and resolution,
 //   stereo triangulation (ops/triangulate.py) or RGB-D back-projection, the
 //   triangulation policy, and the insertions into the map and the staged
-//   set; one block per stream.
+//   set; one block per stream;
+// * map_accept_kernel: the map match's acceptance and one-to-one
+//   resolution at both radii, the wide retry, the claims, the count and
+//   PnP's observations and weights; one block per stream.
 //
 // Every float operation is written as the plain version's torch ops round
 // it (__fmul_rn / __fadd_rn / __fdiv_rn: nvcc contracts nothing; `1.0 / x`
@@ -663,6 +667,80 @@ __global__ void __launch_bounds__(THREADS) triangulate_insert_kernel(
   }
 }
 
+// ---- K5
+
+// The map match after kernel T (ops/matching.py::match_projected) and the
+// step's glue before PnP: each radius's acceptance and one-to-one
+// resolution, the wide radius where the narrow one resolved fewer than
+// retry_min, the match index (-2 invisible, -1 unmatched), the distances
+// of the radius used, the claims of the valid features, the count, and
+// PnP's observations (the matched feature's keypoint, feature 0's where
+// unmatched) and weights. T's outputs as it writes them: fout [S, 2 (d1,
+// d2), 2 (narrow, wide), M] f32, iout [S, 2 (best, n_cand), 2, M] int64.
+// One block per stream.
+__global__ void __launch_bounds__(THREADS) map_accept_kernel(
+    const float* __restrict__ fout, const long long* __restrict__ iout,
+    const uint8_t* __restrict__ visible, const uint8_t* __restrict__ fvalid,
+    const float* __restrict__ kp, int m, int k, float ratio, float abs_th,
+    int retry_min, long long* __restrict__ match_idx,
+    float* __restrict__ d1_out, float* __restrict__ d2_out,
+    uint8_t* __restrict__ fm_out, long long* __restrict__ count_out,
+    uint8_t* __restrict__ wide_out, float* __restrict__ obs,
+    float* __restrict__ weights) {
+  // best_key of each radius [k + 1], then the claims [k]
+  extern __shared__ int smem[];
+  int* key_a = smem;
+  int* key_b = smem + k + 1;
+  uint8_t* claims = reinterpret_cast<uint8_t*>(key_b + k + 1);
+  __shared__ int warp_sums[WARPS];
+  const long long s = blockIdx.x;
+  const float* f = fout + 4 * s * m;
+  const long long* g = iout + 4 * s * m;
+  const Top2 a{f, f + 2 * m, g, g + 2 * m};
+  const Top2 b{f + m, f + 3 * m, g + m, g + 3 * m};
+  for (int j = threadIdx.x; j < k; j += THREADS) claims[j] = 0;
+  resolve_keys(a.d1, a.d2, a.best, a.n_cand, m, k, ratio, abs_th, key_a);
+  resolve_keys(b.d1, b.d2, b.best, b.n_cand, m, k, ratio, abs_th, key_b);
+  int mine = 0;
+  for (int q = threadIdx.x; q < m; q += THREADS)
+    mine += resolved(a.d1, a.d2, a.best, a.n_cand, q, m, ratio, abs_th,
+                     key_a) >= 0;
+  const bool wide = block_count(mine, warp_sums) < retry_min;
+  // the radius used, pointer by pointer (a selected struct would live in
+  // local memory)
+  const float* ud1 = wide ? b.d1 : a.d1;
+  const float* ud2 = wide ? b.d2 : a.d2;
+  const long long* ubest = wide ? b.best : a.best;
+  const long long* un = wide ? b.n_cand : a.n_cand;
+  const int* key_u = wide ? key_b : key_a;
+  mine = 0;
+  for (int q = threadIdx.x; q < m; q += THREADS) {
+    const long long idx = resolved(ud1, ud2, ubest, un, q, m, ratio, abs_th,
+                                   key_u);
+    const long long at = s * m + q;
+    const long long mi = visible[at] ? (idx >= 0 ? idx : -1) : -2;
+    const long long src = mi < 0 ? 0 : (mi > k - 1 ? k - 1 : mi);
+    match_idx[at] = mi;
+    d1_out[at] = ud1[q];
+    d2_out[at] = ud2[q];
+    obs[2 * at] = kp[2 * (s * k + src)];
+    obs[2 * at + 1] = kp[2 * (s * k + src) + 1];
+    weights[at] = mi >= 0 ? 1.0f : 0.0f;
+    if (idx >= 0) {
+      claims[idx] = 1;
+      ++mine;
+    }
+  }
+  // (block_count's barriers order the claims before they are read)
+  const int count = block_count(mine, warp_sums);
+  for (int j = threadIdx.x; j < k; j += THREADS)
+    fm_out[s * k + j] = claims[j] && fvalid[s * k + j];
+  if (threadIdx.x == 0) {
+    count_out[s] = count;
+    wide_out[s] = wide;
+  }
+}
+
 // Raises the kernel's dynamic shared memory limit to `bytes` when it
 // exceeds the default 48 KB (a host-side call, allowed during capture).
 template <typename K>
@@ -802,6 +880,29 @@ extern "C" int lvt_triangulate_insert(
         StoreOut{spos_out, sdesc_out, sctr_out, sage_out,
                  static_cast<uint8_t*>(svalid_out)},
         n_inserted, map_size, window, pts, static_cast<uint8_t*>(cand));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: T's outputs at the map site (fout [S, 2, 2, M] f32, iout [S, 2, 2, M]
+// int64), visible [S, M], the features' validity [S, K] and keypoints [S,
+// K, 2] -> match_idx [S, M] int64, d1, d2 [S, M] f32, claims [S, K], the
+// count [S] int64, the wide radius used [S], obs [S, M, 2] and weights
+// [S, M] f32. One block a stream.
+extern "C" int lvt_map_accept(
+    const float* fout, const long long* iout, const void* visible,
+    const void* fvalid, const float* kp, int n_streams, int m, int k,
+    float ratio, float abs_th, int retry_min, long long* match_idx,
+    float* d1, float* d2, void* fm, long long* count, void* wide, float* obs,
+    float* weights, void* stream) {
+  if (n_streams > 0) {
+    const size_t smem = sizeof(int) * 2 * (k + 1) + k;
+    map_accept_kernel<<<n_streams, THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        fout, iout, static_cast<const uint8_t*>(visible),
+        static_cast<const uint8_t*>(fvalid), kp, m, k, ratio, abs_th,
+        retry_min, match_idx, d1, d2, static_cast<uint8_t*>(fm), count,
+        static_cast<uint8_t*>(wide), obs, weights);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,6 +59,10 @@ _SIGNATURES = {
     "lvt_staged_promote": [_P] * 16 + [_I] * 4 + [_F, _F, _I, _I] + [_P] * 10,
     "lvt_triangulate_insert": ([_P] * 24 + [_I] * 5 + [_P, _I, _I, _I, _F]
                                + [_P] * 17),
+    "lvt_map_accept": [_P] * 5 + [_I] * 3 + [_F, _F, _I] + [_P] * 9,
+    "lvt_select_geometry": [_I] * 5 + [_P],
+    "lvt_select_corners": ([_P, _P] + [_I] * 6 + [_F, _F] + [_I] * 6
+                           + [_P] * 11),
     "lvt_if_node": [_P, _P, _P, _P],
     "lvt_graph_node_counts": [_P, _P, _I],
 }
@@ -187,6 +191,37 @@ def fold_streams(info, in_dims, tensors) -> list[torch.Tensor]:
         x = x.expand(b, *x.shape) if d is None else x.movedim(d, 0)
         flat.append(x.reshape(b * x.shape[1], *x.shape[2:]).contiguous())
     return flat
+
+
+def per_stream(plain, n_tensors: int, args) -> tuple:
+    """The CPU kernel of an op over a leading stream axis S: ``plain``
+    (flat single-stream tensors in and out) on each stream of the [S, ...]
+    tensor arguments (the first ``n_tensors``), the outputs stacked."""
+    s = args[0].shape[0]
+    outs = [plain(*(a[i] for a in args[:n_tensors]), *args[n_tensors:])
+            for i in range(s)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def register_stream_op(module, name: str, cpu, fake, n_tensors: int) -> None:
+    """The CPU kernel, fake kernel and vmap rule of the op ``{name}_op`` of
+    ``module`` over a leading stream axis (its first ``n_tensors``
+    arguments are tensors): vmap's axis B and the stream axis S fold into
+    one axis of B * S streams (:func:`fold_streams`), the op runs once,
+    looked up on the module when the rule runs (so a wrapper patched over
+    it sees the folded launch), and the outputs unfold to [B, S, ...]."""
+    op = getattr(module, f"{name}_op")
+    op.register_kernel("cpu")(cpu)
+    op.register_fake(fake)
+
+    def rule(info, in_dims, *args):
+        b = info.batch_size
+        flat = fold_streams(info, in_dims[:n_tensors], args[:n_tensors])
+        outs = getattr(module, f"{name}_op")(*flat, *args[n_tensors:])
+        return (tuple(x.view(b, x.shape[0] // b, *x.shape[1:]) for x in outs),
+                (0,) * len(outs))
+
+    op.register_vmap(rule)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,

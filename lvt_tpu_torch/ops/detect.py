@@ -10,15 +10,31 @@ Tie order (lvt_tpu's ``approx_max_k`` returns the lowest index first among
 equal scores, ``torch.topk`` does not): :func:`top_k_lowest_index_first`
 ranks packed int64 keys (score bits << 32 | reversed index), which are
 unique, so the selection is deterministic and equal to JAX's.
+
+Extraction selects through the custom op ``lvt_tpu_torch::select_corners``
+(:func:`select_slots`, one call for all images of a frame): the selection,
+its padding to the slot capacity and kernel P's clamped corners (patch
+mode) or the subpixel refinement on the raw map (the dense and sparse
+modes), written straight into the slot buffers the next stage reads. Built
+as kernel T's op (ops/top2.py): CUDA tensors launch the hand-written kernel
+of ``csrc/select.cu`` once; CPU tensors take the plain version
+(:func:`select_corners_plain`, the torch ops extraction ran before); a fake
+kernel gives the shapes, and a vmap rule folds vmap's axis into the image
+axis.
 """
 
 from __future__ import annotations
 
+import ctypes
+import sys
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from lvt_tpu_torch import kernels
+from lvt_tpu_torch.ops.brief import PATCH, PATCH_C0, PATCH_R0
 
 
 # Bresenham circle of radius 3 (dx, dy), the FAST-9/16 ring, clockwise.
@@ -159,19 +175,44 @@ def _subpixel_refine(score_raw: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     return x.float() + dx, y.float() + dy
 
 
-def top_k_lowest_index_first(vals: torch.Tensor, k: int):
-    """Top-k along the last axis of an f32 tensor, descending, equal values
-    ordered by ascending index (lax.top_k / approx_max_k order).
-    Returns (values, indices int64)."""
+def packed_keys(vals: torch.Tensor) -> torch.Tensor:
+    """The unique int64 key of each f32 value along the last axis: the
+    order-preserving integer image of its bits above the reversed index,
+    so that keys descend as values do, equal values by ascending index."""
     n = vals.shape[-1]
     bits = (vals + 0.0).view(torch.int32)   # + 0.0 folds -0.0 into +0.0
     # order-preserving map of f32 bits onto signed integers
     bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
     rev = (n - 1) - torch.arange(n, dtype=torch.int64, device=vals.device)
-    keys = (bits << 32) | rev
-    top = torch.topk(keys, k, dim=-1, largest=True, sorted=True).values
+    return (bits << 32) | rev
+
+
+def top_k_lowest_index_first(vals: torch.Tensor, k: int):
+    """Top-k along the last axis of an f32 tensor, descending, equal values
+    ordered by ascending index (lax.top_k / approx_max_k order).
+    Returns (values, indices int64)."""
+    n = vals.shape[-1]
+    top = torch.topk(packed_keys(vals), k, dim=-1, largest=True,
+                     sorted=True).values
     idx = (n - 1) - (top & 0xFFFFFFFF)
     return torch.gather(vals, -1, idx), idx
+
+
+def cell_values(score: torch.Tensor, h: int, w: int, cell_size: int,
+                spread_ties: bool) -> torch.Tensor:
+    """The [B, cells, cell pixels] values that selection ranks: the map
+    padded with zeros to the cell grid (cropped to it where larger), plus
+    the plateau dither with ``spread_ties``, cell by cell in row-major
+    order."""
+    bsz = score.shape[0]
+    s_y, s_x, ncy, ncx = _cell_geometry(h, w, cell_size)
+    gy, gx = ncy * s_y, ncx * s_x
+    sp = score[:, :min(gy, score.shape[1]), :min(gx, score.shape[2])]
+    sp = F.pad(sp, (0, gx - sp.shape[2], 0, gy - sp.shape[1]))
+    if spread_ties:
+        sp = sp + _plateau_dither(gy, gx, score.device)
+    cells = sp.reshape(bsz, ncy, s_y, ncx, s_x).permute(0, 1, 3, 2, 4)
+    return cells.reshape(bsz, ncy * ncx, s_y * s_x)
 
 
 def select_corners(
@@ -195,13 +236,7 @@ def select_corners(
     bsz = score.shape[0]
     h, w = img_hw if img_hw is not None else score.shape[1:]
     s_y, s_x, ncy, ncx = _cell_geometry(h, w, cell_size)
-    gy, gx = ncy * s_y, ncx * s_x
-    sp = score[:, :min(gy, score.shape[1]), :min(gx, score.shape[2])]
-    sp = F.pad(sp, (0, gx - sp.shape[2], 0, gy - sp.shape[1]))
-    if spread_ties:
-        sp = sp + _plateau_dither(gy, gx, score.device)
-    cells = sp.reshape(bsz, ncy, s_y, ncx, s_x).permute(0, 1, 3, 2, 4)
-    cells = cells.reshape(bsz, ncy * ncx, s_y * s_x)
+    cells = cell_values(score, h, w, cell_size, spread_ties)
 
     top_keys, flat_idx = top_k_lowest_index_first(cells, max_per_cell)
     cell_ids = torch.arange(ncy * ncx, device=score.device)[:, None]
@@ -212,10 +247,9 @@ def select_corners(
     x = x2.reshape(bsz, -1)
     top_scores = top_scores.reshape(bsz, -1)
 
-    t = np.float32(threshold)
-    t_low = float(np.floor(t * np.float32(0.5) + np.float32(0.5)))
-    use_low = (top_scores > float(t)).sum(dim=-1) < corners_low_threshold
-    t_eff = torch.where(use_low, t_low, float(t))            # [B] f32
+    t, t_low = _thresholds(threshold)
+    use_low = (top_scores > t).sum(dim=-1) < corners_low_threshold
+    t_eff = torch.where(use_low, t_low, t)                   # [B] f32
     valid = top_scores > t_eff[:, None]
 
     xi = torch.clamp(x, max=w - 1)
@@ -230,3 +264,149 @@ def select_corners(
         count=valid.sum(dim=-1), threshold_used=t_eff, kp_int=kp_int,
     )
 
+
+
+def pad_to(arr: torch.Tensor, capacity: int, axis: int = 0) -> torch.Tensor:
+    """``arr`` padded with zeros along ``axis`` to ``capacity`` (lvt_tpu's
+    extract ``_pad_to``)."""
+    n = arr.shape[axis]
+    if n == capacity:
+        return arr
+    assert n < capacity, f"detector output {n} exceeds capacity {capacity}"
+    shape = list(arr.shape)
+    shape[axis] = capacity - n
+    return torch.cat([arr, arr.new_zeros(shape)], dim=axis)
+
+
+def _thresholds(threshold) -> tuple[float, float]:
+    """(t, t_low) as float32 values: the threshold and the low-corner
+    fallback's floor(t * 0.5 + 0.5), rounded as lvt_tpu rounds them."""
+    t = np.float32(threshold)
+    return float(t), float(np.floor(t * np.float32(0.5) + np.float32(0.5)))
+
+
+def select_corners_plain(nms, raw, threshold: float, cell_size: int,
+                         max_per_cell: int, corners_low_threshold: int,
+                         spread_ties: bool, capacity: int) -> tuple:
+    """The plain version of ``lvt_tpu_torch::select_corners`` on [B, H, W]
+    maps: :func:`select_corners` at the maps' extent, each output padded
+    with zeros to ``capacity`` slots, and kernel P's clamped corners
+    (``patches.clamp_coords``). Returns (xi, yi, xc, yc [B, capacity]
+    int32, score f32, valid bool, kp, corner [B, capacity, 2] f32); with
+    an empty ``raw`` (patch mode) kp and corner are [B, 0, 2], else kp is
+    the corner refined on ``raw`` and corner the integer corner."""
+    from lvt_tpu_torch.ops.patches import clamp_coords
+
+    b, h, w = nms.shape
+    subpixel = raw.numel() > 0
+    det = select_corners(nms, threshold, cell_size=cell_size,
+                         max_per_cell=max_per_cell,
+                         corners_low_threshold=corners_low_threshold,
+                         img_hw=(h, w), spread_ties=spread_ties,
+                         score_raw=raw if subpixel else None)
+
+    def pad(a):
+        return pad_to(a, capacity, axis=1)
+
+    xi = pad(det.kp_int[..., 0]).contiguous()
+    yi = pad(det.kp_int[..., 1]).contiguous()
+    xc, yc = clamp_coords(xi, yi, h, w)
+    if subpixel:
+        kp, corner = pad(det.kp), pad(det.kp_int.float())
+    else:
+        kp, corner = nms.new_zeros((b, 0, 2)), nms.new_zeros((b, 0, 2))
+    return xi, yi, xc, yc, pad(det.score), pad(det.valid), kp, corner
+
+
+@torch.library.custom_op("lvt_tpu_torch::select_corners", mutates_args=(),
+                         device_types="cuda")
+def select_corners_op(nms: torch.Tensor, raw: torch.Tensor,
+                      threshold: float, cell_size: int, max_per_cell: int,
+                      corners_low_threshold: int, spread_ties: bool,
+                      capacity: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor]:
+    """B images: the NMS map [B, H, W] f32 and the raw score map [B, H, W]
+    (empty: patch mode) -> :func:`select_corners_plain`'s outputs.
+
+    CUDA: one launch of ``csrc/select.cu``'s ``select_corners_kernel``,
+    grid (tiles, cells, images): each block keeps its tile's top
+    ``max_per_cell`` by a radix select in shared memory, the last block of
+    a cell merges its tiles' candidates and writes the cell's slots, the
+    last cell of an image applies the low-corner fallback (the counters
+    are a scratch the wrapper allocates and the launch zeroes)."""
+    b, h, w = nms.shape
+    dev = nms.device
+    kernels.require(nms, "nms", torch.float32, (b, h, w), dev)
+    subpixel = raw.numel() > 0
+    if subpixel:
+        kernels.require(raw, "raw", torch.float32, (b, h, w), dev)
+    geo = (ctypes.c_int * 5)()
+    if kernels.lib().lvt_select_geometry(h, w, cell_size, max_per_cell,
+                                         capacity, geo):
+        raise ValueError(
+            f"select_corners: cells of {min(cell_size, h)}x"
+            f"{min(cell_size, w)} px keeping {max_per_cell} each in "
+            f"{capacity} slots exceed the kernel's bounds (csrc/select.cu: "
+            f"a tile of at most 24576 px, a merge of at most 28672 keys)")
+    ncells, tiles, kt = geo[0], geo[1], geo[2]
+    cand = torch.empty((b * ncells * tiles * kt,), dtype=torch.int64,
+                       device=dev)
+    counters = torch.empty((b * ncells + 2 * b,), dtype=torch.int32,
+                           device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    outs = (*(torch.empty((b, capacity), **i32) for _ in range(4)),
+            torch.empty((b, capacity), dtype=torch.float32, device=dev),
+            torch.empty((b, capacity), dtype=torch.bool, device=dev),
+            *(torch.empty((b, capacity if subpixel else 0, 2),
+                          dtype=torch.float32, device=dev)
+              for _ in range(2)))
+    t, t_low = _thresholds(threshold)
+    err = kernels.lib().lvt_select_corners(
+        nms.data_ptr(), raw.data_ptr() if subpixel else None, b, h, w,
+        cell_size, max_per_cell, capacity, t, t_low,
+        int(corners_low_threshold), int(spread_ties), PATCH_C0,
+        w - PATCH + PATCH_C0, PATCH_R0, h - PATCH + PATCH_R0,
+        cand.data_ptr(), counters.data_ptr(),
+        *(x.data_ptr() for x in outs[:6]),
+        *((x.data_ptr() if subpixel else None) for x in outs[6:]),
+        kernels.stream_ptr(nms))
+    kernels.check(err, "select_corners")
+    select_slots.launches += 1
+    return outs
+
+
+def _select_corners_fake(nms, raw, threshold, cell_size, max_per_cell,
+                         corners_low_threshold, spread_ties, capacity):
+    b = nms.shape[0]
+    n_kp = capacity if raw.numel() > 0 else 0
+    return (*(nms.new_empty((b, capacity), dtype=torch.int32)
+              for _ in range(4)),
+            nms.new_empty((b, capacity)),
+            nms.new_empty((b, capacity), dtype=torch.bool),
+            nms.new_empty((b, n_kp, 2)), nms.new_empty((b, n_kp, 2)))
+
+
+kernels.register_stream_op(sys.modules[__name__], "select_corners",
+                           select_corners_plain, _select_corners_fake, 2)
+
+
+def select_slots(nms: torch.Tensor, threshold, *, cell_size: int,
+                 max_per_cell: int, corners_low_threshold: int,
+                 spread_ties: bool, capacity: int,
+                 score_raw: torch.Tensor | None = None) -> tuple:
+    """Per-cell selection on [B, H, W] maps into ``capacity`` slots per
+    image (the op ``lvt_tpu_torch::select_corners``; ``score_raw`` given:
+    the subpixel refinement on it). CPU tensors take the plain version,
+    CUDA tensors the kernel (any other device raises); under
+    ``torch.func.vmap`` one launch serves every image."""
+    if nms.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nms: expected a CUDA tensor, got {nms.device}")
+    raw = nms.new_zeros((0,)) if score_raw is None else score_raw
+    return select_corners_op(nms, raw, float(threshold), int(cell_size),
+                             int(max_per_cell), int(corners_low_threshold),
+                             bool(spread_ties), int(capacity))
+
+
+select_slots.launches = 0

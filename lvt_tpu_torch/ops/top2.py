@@ -185,6 +185,24 @@ def hamming_top2_batched(q_desc, t_desc, q_meta, q_valid, t_meta, t_valid,
                                     _mode(r2a, r2b, row_mode)))
 
 
+def _check_device(t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"q_desc: expected a CUDA tensor, got {t.device}")
+
+
+def hamming_top2_packed(q_desc, t_desc, q_meta, q_valid, t_meta, t_valid, *,
+                        r2a: float, r2b: float, row_mode: bool = False):
+    """:func:`hamming_top2` as the op writes it, (fout [2, 2, M] f32, iout
+    [2, 2, M] int64) in :func:`_pack`'s layout: what the map match's
+    acceptance op reads (ops/matching.py)."""
+    _check_device(q_desc)
+    fout, iout = hamming_top2_op(q_desc[None], t_desc[None], q_meta[None],
+                                 q_valid[None], t_meta[None], t_valid[None],
+                                 float(r2a), float(r2b),
+                                 _mode(r2a, r2b, row_mode))
+    return fout[0], iout[0]
+
+
 def hamming_top2(
     q_desc: torch.Tensor,   # [M, 8] int32 query descriptors
     t_desc: torch.Tensor,   # [K, 8] int32 target descriptors
@@ -202,13 +220,9 @@ def hamming_top2(
     row mode ignores both radii. The op with S = 1: CPU tensors take the
     plain version, CUDA tensors the kernel (any other device raises), and
     under ``torch.func.vmap`` one launch serves every stream."""
-    if q_desc.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"q_desc: expected a CUDA tensor, got "
-                         f"{q_desc.device}")
-    out = hamming_top2_batched(q_desc[None], t_desc[None], q_meta[None],
-                               q_valid[None], t_meta[None], t_valid[None],
-                               r2a=r2a, r2b=r2b, row_mode=row_mode)
-    return tuple(tuple(x[0] for x in o) for o in out)
+    return _unpack(*hamming_top2_packed(q_desc, t_desc, q_meta, q_valid,
+                                        t_meta, t_valid, r2a=r2a, r2b=r2b,
+                                        row_mode=row_mode))
 
 
 hamming_top2.launches = 0

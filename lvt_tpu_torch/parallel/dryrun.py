@@ -38,16 +38,37 @@ import numpy as np
 import torch
 
 
-def _child(jobs, rank, n, init_method, backend, device, out) -> None:
+def _child(jobs, rank, n, init_method, backend, device, out,
+           started) -> None:
+    """One rank: the process group, the kernels' library (CUDA), the jobs
+    in order; puts (rank, ok, results or the trace, seconds) where seconds
+    holds the rank's start-up (``started``, the parent's wall clock when
+    it started the ranks, to the child's first line: the interpreter, the
+    imports and unpickling the jobs), the process group's set-up, the
+    library's load (with the CUDA context) and each job's."""
+    secs = dict(start=time.time() - started)
     torch.set_num_threads(1)
     try:
         from lvt_tpu_torch.parallel import mesh as mesh_mod
 
+        t0 = time.perf_counter()
         mesh_mod.init(backend, n, rank, init_method, device=device)
-        results = [fn(rank, n, *args, **kw) for fn, args, kw in jobs]
-        out.put((rank, True, results))
+        secs["group"] = time.perf_counter() - t0
+        if device == "cuda":
+            from lvt_tpu_torch import kernels
+
+            t0 = time.perf_counter()
+            kernels.lib()
+            torch.cuda.synchronize()
+            secs["library"] = time.perf_counter() - t0
+        results, secs["jobs"] = [], []
+        for fn, args, kw in jobs:
+            t0 = time.perf_counter()
+            results.append(fn(rank, n, *args, **kw))
+            secs["jobs"].append(time.perf_counter() - t0)
+        out.put((rank, True, results, secs))
     except Exception:  # noqa: BLE001 - re-raised in the parent, with its trace
-        out.put((rank, False, traceback.format_exc()))
+        out.put((rank, False, traceback.format_exc(), secs))
         return
     import torch.distributed as dist
 
@@ -61,21 +82,25 @@ def job(fn, *args, **kw):
 
 
 def spawn(jobs, n: int, *, device: str = "cpu", backend: str | None = None,
-          timeout_s: float = 900.0) -> list:
+          timeout_s: float = 900.0, seconds: list | None = None) -> list:
     """Run ``jobs`` (a list of :func:`job`) in order in each of ``n``
     spawned processes joined in one process group; returns
     ``[rank 0's results, rank 1's, ...]``, each a list with one entry per
-    job. ``backend`` defaults to gloo on the CPU and NCCL on CUDA."""
+    job. ``backend`` defaults to gloo on the CPU and NCCL on CUDA. Given a
+    list, ``seconds`` receives each rank's seconds (:func:`_child`) in
+    rank order."""
     import multiprocessing as mp
 
     backend = backend or ("nccl" if device == "cuda" else "gloo")
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    results = {}
+    results, secs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
+        started = time.time()
         procs = [ctx.Process(target=_child, daemon=True,
-                             args=(jobs, r, n, init, backend, device, out))
+                             args=(jobs, r, n, init, backend, device, out,
+                                   started))
                  for r in range(n)]
         for p in procs:
             p.start()
@@ -83,7 +108,7 @@ def spawn(jobs, n: int, *, device: str = "cpu", backend: str | None = None,
             deadline = time.monotonic() + timeout_s
             while len(results) < n:
                 try:
-                    rank, ok, value = out.get(timeout=1.0)
+                    rank, ok, value, secs[rank] = out.get(timeout=1.0)
                 except queue.Empty:
                     dead = [r for r, p in enumerate(procs)
                             if p.exitcode not in (None, 0)
@@ -105,6 +130,8 @@ def spawn(jobs, n: int, *, device: str = "cpu", backend: str | None = None,
                 if p.is_alive():
                     p.kill()
                     p.join()
+    if seconds is not None:
+        seconds.extend(secs[r] for r in range(n))
     return [results[r] for r in range(n)]
 
 
@@ -188,7 +215,7 @@ def _chunks(vo, a, b, chunk: int, after=None, syncs_seen=True) -> dict:
 def zero_kernel_counters() -> dict:
     """Every kernel wrapper by name, each launch count set to 0."""
     from lvt_tpu_torch.core import track
-    from lvt_tpu_torch.ops import patches, perception, top2
+    from lvt_tpu_torch.ops import detect, matching, patches, perception, top2
     from lvt_tpu_torch.solver import bundle, pnp
 
     counters = {"perception": perception.perception_patch_maps_batched,
@@ -198,7 +225,9 @@ def zero_kernel_counters() -> dict:
                 "pnp_solve": pnp.pnp_solve, "pnp_phase": pnp.pnp_phase,
                 "pnp_normal_eqs": pnp.normal_equations,
                 "stream_sum": pnp.stream_sum, "ba_refine": bundle.ba_refine,
-                **{name: getattr(track, name) for name in track.OPS}}
+                **{name: getattr(track, name) for name in track.OPS},
+                "select_corners": detect.select_slots,
+                "map_accept": matching.map_accept}
     for fn in counters.values():
         fn.launches = 0
     return counters
@@ -216,7 +245,9 @@ KERNEL_SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
                   "predict_project": "predict_project_kernel",
                   "upkeep_pre": "upkeep_pre_kernel",
                   "staged_promote": "staged_promote_kernel",
-                  "triangulate_insert": "triangulate_insert_kernel"}
+                  "triangulate_insert": "triangulate_insert_kernel",
+                  "select_corners": "select_corners_kernel",
+                  "map_accept": "map_accept_kernel"}
 
 
 # spin kernels that open a trace; no count reads them

@@ -937,7 +937,8 @@ def test_one_rank_nccl_sharded_stream_is_vosystem(cuda):
 
 @pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2",
                                   "pnp", "stream_sum", "pnp_solve",
-                                  "pnp_phase", "ba_refine", *TRACK_OPS])
+                                  "pnp_phase", "ba_refine", *TRACK_OPS,
+                                  "select_corners", "map_accept"])
 def test_wrapper_never_falls_back_off_the_cpu(call):
     """A tensor on another device than the CPU goes to the kernel path,
     whose argument checks refuse anything that is not on a CUDA device."""
@@ -947,6 +948,24 @@ def test_wrapper_never_falls_back_off_the_cpu(call):
             args = _track_problem(np.random.RandomState(0), call, 1, "cpu")
             _track_wrapper(call, [x.to("meta") if isinstance(x, torch.Tensor)
                                   else x for x in args])
+        elif call == "select_corners":
+            from lvt_tpu_torch.ops import detect
+
+            detect.select_slots(torch.empty(2, 40, 48, **meta), 20.0,
+                                cell_size=16, max_per_cell=4,
+                                corners_low_threshold=10, spread_ties=True,
+                                capacity=128)
+        elif call == "map_accept":
+            from lvt_tpu_torch.core.features import FrameFeatures
+            from lvt_tpu_torch.ops import matching
+
+            matching.map_accept(
+                torch.empty(2, 2, 5, **meta),
+                torch.empty(2, 2, 5, dtype=torch.int64, **meta),
+                torch.empty(5, dtype=torch.bool, **meta),
+                FrameFeatures(torch.empty(6, 2, **meta), None, None, None,
+                              torch.empty(6, dtype=torch.bool, **meta)),
+                ratio_threshold=0.8, abs_threshold=30.0, retry_min_matches=4)
         elif call == "perception":
             perception.perception_patch_maps_batched(
                 torch.empty(2, 40, 48, dtype=torch.uint8, **meta))
@@ -1008,7 +1027,7 @@ def test_library_name_follows_the_sources():
     assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "perception.cu", "brief.cu", "patches.cu", "top2.cu", "pnp.cu",
-        "pnp_lm.cu", "graph_cond.cu", "ba.cu", "track.cu"}
+        "pnp_lm.cu", "graph_cond.cu", "ba.cu", "track.cu", "select.cu"}
 
 
 def test_ptxas_report_picks_one_kernels_lines():
@@ -1777,7 +1796,7 @@ def _track_plain(name, args):
 
     n_tensors = sum(isinstance(x, torch.Tensor) for x in args)
     flat = getattr(track, f"_{name}_flat")
-    return track._per_stream(flat, n_tensors, args)
+    return kernels.per_stream(flat, n_tensors, args)
 
 
 def _assert_outputs_equal(got, want, label=""):
@@ -1885,3 +1904,225 @@ def test_track_ops_capture_in_a_graph(cuda):
     torch.cuda.synchronize()
     for (name, got), want in zip(zip(TRACK_OPS, outs), eager):
         _assert_outputs_equal(got, want, name)
+
+
+# ---- corner selection (ops/detect.py, csrc/select.cu) and the map match's
+# acceptance (ops/matching.py, csrc/track.cu's map_accept_kernel)
+
+def sparse_map(rs, b, h, w, density=0.04, top=120):
+    """NMS-like [B, H, W] maps: integer scores at a few pixels, zero
+    elsewhere (what kernel A's NMS leaves on uint8 frames)."""
+    keep = rs.rand(b, h, w) < density
+    return np.where(keep, rs.randint(1, top, (b, h, w)), 0).astype(np.float32)
+
+
+def _select_config(name):
+    """(config, frame dtype) of each path's selection: path 1's KITTI
+    (uint8, dithered), path 2's dense KITTI (subpixel on the raw map),
+    path 4's default 640x480, TUM fr1's one cell of 307,200 px keeping
+    1000, EuRoC's rectified float frames (no dither)."""
+    from lvt_tpu_torch import configs
+    from lvt_tpu_torch.config import VOConfig
+
+    if name == "kitti":
+        return configs.kitti_config(), "uint8"
+    if name == "kitti-dense":
+        return configs.kitti_ba_dense_config(), "uint8"
+    if name == "rgbd":
+        return VOConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0,
+                        baseline=0.1, img_width=640, img_height=480), "uint8"
+    if name == "tum":
+        return configs.tum_rgbd_config(1), "uint8"
+    return configs.euroc_config(), "float32"
+
+
+SELECT_CASES = [("kitti", 2, "frames"), ("kitti", 16, "frames"),
+                ("kitti", 32, "frames"), ("kitti", 3, "fallback"),
+                ("kitti", 2, "plateau"), ("kitti-dense", 2, "frames"),
+                ("rgbd", 4, "frames"), ("tum", 1, "frames"),
+                ("tum", 8, "frames"), ("tum", 3, "fallback"),
+                ("euroc", 2, "frames"), ("euroc", 2, "fallback")]
+
+
+def select_problem(rs, name, b, kind, device):
+    """The op's arguments for ``b`` images at a path's shape: kernel A's
+    maps of random frames (``frames``), sparse maps whose images differ in
+    strength so that some take the low-corner fallback and some not
+    (``fallback``), or a plateau of equal scores wider than a cell keeps
+    (``plateau``)."""
+    config, dtype = _select_config(name)
+    h, w = config.img_height, config.img_width
+    subpixel = config.descriptor_mode == "dense"
+    if kind == "frames":
+        imgs = torch.from_numpy(_frames(rs, b, h, w)).to(device)
+        if dtype == "float32":
+            imgs = imgs.float() + torch.from_numpy(
+                rs.rand(b, h, w).astype(np.float32)).to(device)
+        maps = (perception.perception_maps_batched(imgs) if subpixel
+                else perception.perception_patch_maps_batched(imgs))
+        nms, raw = (maps[1], maps[0]) if subpixel else (maps[0], maps[1])
+    else:
+        if kind == "fallback":
+            # every other image too sparse to reach the low-corner count
+            nms = np.stack([sparse_map(rs, 1, h, w, (2e-4, 4e-3)[i % 2])[0]
+                            for i in range(b)])
+        else:
+            nms = np.zeros((b, h, w), np.float32)
+            nms[:, 8:300:2, 4:1200:2] = 40.0
+            nms[:, 10:200:8, 9:900:6] = 55.0
+        if dtype == "float32":
+            nms = nms * rs.uniform(0.5, 1.5, nms.shape).astype(np.float32)
+        nms = torch.from_numpy(nms).to(device)
+        raw = nms + 1.0
+    raw = raw if subpixel else nms.new_zeros((0,))
+    return (nms.contiguous(), raw.contiguous(),
+            float(config.agast_threshold), config.detection_cell_size,
+            config.max_keypoints_per_cell, config.corners_low_threshold,
+            dtype == "uint8", config.kp_capacity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SELECT_CASES,
+                         ids=["-".join(map(str, c)) for c in SELECT_CASES])
+def test_select_kernel_matches_plain(cuda, case):
+    """Kernel CS against its plain version (the torch ops on the card),
+    every slot of every output bit-equal, one launch; each image alone
+    equal to its slot rows of the batch."""
+    from lvt_tpu_torch.ops import detect
+
+    name, b, kind = case
+    args = select_problem(np.random.RandomState(b), name, b, kind, cuda)
+    before = detect.select_slots.launches
+    got = detect.select_corners_op(*args)
+    torch.cuda.synchronize()
+    assert detect.select_slots.launches == before + 1
+    _assert_outputs_equal(got, detect.select_corners_plain(*args),
+                          f"select_corners {case}")
+    if kind == "fallback":   # both branches occur
+        t, _ = detect._thresholds(args[2])
+        strong = ((got[4] > t) & got[5]).sum(1)
+        assert (strong < args[5]).any() and (strong >= args[5]).any()
+    for i in range(b):
+        alone = detect.select_corners_op(args[0][i:i + 1],
+                                         args[1][i:i + 1] if args[1].numel()
+                                         else args[1], *args[2:])
+        _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
+                              f"select_corners image {i}")
+
+
+def top2_out(rs, m, k, n_cand, visible):
+    """One radius's top-2 as kernel T gives it: d1 <= d2 small integers
+    (ties across queries), hamming.BIG where there is no candidate, best a
+    feature index, n_cand 0, 1 or more; none for invisible queries."""
+    n = np.where(visible, n_cand, 0).astype(np.int64)
+    d1 = rs.randint(0, 12, m).astype(np.float32) * 4
+    d2 = d1 + rs.randint(0, 40, m).astype(np.float32)
+    best = rs.randint(0, k, m).astype(np.int64)
+    d1 = np.where(n >= 1, d1, hamming.BIG).astype(np.float32)
+    d2 = np.where(n >= 2, d2, hamming.BIG).astype(np.float32)
+    return d1, d2, np.where(n >= 1, best, 0), n
+
+
+def accept_problem(rs, m, k, case):
+    """Kernel T's outputs at both radii, visibility, and the features'
+    validity and keypoints, for a map match whose narrow radius suffices
+    (``narrow``) or leaves the retry its turn (``wide``)."""
+    visible = rs.rand(m) > 0.2
+    n_a = rs.choice([0, 1, 2, 3, 7], m, p=[0.3, 0.2, 0.2, 0.2, 0.1])
+    if case == "wide":
+        n_a = np.where(rs.rand(m) < 0.8, 0, n_a)
+    n_b = np.maximum(n_a, rs.choice([0, 1, 2, 5], m))
+    narrow = top2_out(rs, m, k, n_a, visible)
+    wide = top2_out(rs, m, k, n_b, visible)
+    # a few queries share a feature and a distance: the lower query wins
+    narrow[2][:6] = 5
+    narrow[0][:6] = np.where(narrow[3][:6] > 0, 8.0, hamming.BIG)
+    kp = rs.uniform(0, 300, (k, 2)).astype(np.float32)
+    valid = rs.rand(k) > 0.1
+    return narrow, wide, visible, valid, kp
+
+
+def accept_args(rs, s, m, k, device, cases=("narrow", "wide")):
+    """The map_accept op's tensors for ``s`` streams (their cases in
+    turn): fout, iout (kernel T's layout), visible, feat_valid, feat_kp."""
+    probs = [accept_problem(rs, m, k, cases[i % len(cases)])
+             for i in range(s)]
+    packed = [top2._pack(tuple(map(torch.from_numpy, p[0])),
+                         tuple(map(torch.from_numpy, p[1]))) for p in probs]
+    return [torch.stack([p[j] for p in packed]).to(device)
+            for j in (0, 1)] + [
+        torch.from_numpy(np.stack([p[i] for p in probs])).to(device)
+        for i in (2, 3, 4)]
+
+
+ACCEPT_CASES = [(1, 1024, 1536), (8, 1024, 1536), (16, 1024, 1536),
+                (2, 4096, 896), (1, 8192, 1024), (8, 8192, 1024),
+                (4, 50, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ACCEPT_CASES,
+                         ids=["s%d-m%d-k%d" % c for c in ACCEPT_CASES])
+def test_map_accept_kernel_matches_plain(cuda, shape):
+    """Kernel MM against its plain version on the card, every output
+    bit-equal, at the paths' shapes (S = 1, 8, 16 at KITTI's 1024 x 1536;
+    EuRoC's 4096 x 896; TUM's 8192 x 1024; more features than queries),
+    narrow and wide streams in turn; each stream equal to its S = 1
+    launch."""
+    from lvt_tpu_torch.ops import matching
+
+    s, m, k = shape
+    args = accept_args(np.random.RandomState(m + s), s, m, k, cuda)
+    scalars = (0.8, 30.0, max(1, m // 25))
+    before = matching.map_accept.launches
+    got = matching.map_accept_op(*args, *scalars)
+    torch.cuda.synchronize()
+    assert matching.map_accept.launches == before + 1
+    want = kernels.per_stream(matching._map_accept_flat, 5,
+                              [*args, *scalars])
+    _assert_outputs_equal(got, want, f"map_accept {shape}")
+    for i in range(s):
+        alone = matching.map_accept_op(*(x[i:i + 1] for x in args), *scalars)
+        _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
+                              f"map_accept stream {i}")
+
+
+@pytest.mark.cuda
+def test_map_accept_vmap_rule_launches_once(cuda):
+    """Under ``torch.func.vmap`` over 3 streams the op launches once, and
+    gives each stream the bits of its S = 1 call."""
+    from lvt_tpu_torch.ops import matching
+
+    args = accept_args(np.random.RandomState(3), 3, 1024, 1536, cuda)
+    scalars = (0.8, 30.0, 40)
+    before = matching.map_accept.launches
+    got = torch.func.vmap(lambda *a: matching.map_accept_op(
+        *(x[None] for x in a), *scalars))(*args)
+    assert matching.map_accept.launches == before + 1
+    for i in range(3):
+        alone = matching.map_accept_op(*(x[i:i + 1] for x in args), *scalars)
+        _assert_outputs_equal([x[i, 0] for x in got], [x[0] for x in alone],
+                              f"stream {i}")
+
+
+@pytest.mark.cuda
+def test_select_and_accept_capture_in_a_graph(cuda):
+    """Both launches captured in a CUDA graph (the selection's memset node
+    with it) and replayed twice give the eager launches' bits."""
+    from lvt_tpu_torch.ops import detect, matching
+
+    sel = select_problem(np.random.RandomState(1), "kitti", 2, "frames",
+                         cuda)
+    acc = accept_args(np.random.RandomState(2), 2, 1024, 1536, cuda)
+    eager = (detect.select_corners_op(*sel),
+             matching.map_accept_op(*acc, 0.8, 30.0, 40))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = (detect.select_corners_op(*sel),
+                matching.map_accept_op(*acc, 0.8, 30.0, 40))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            _assert_outputs_equal(got, want, "replay")
