@@ -115,7 +115,8 @@ and the script exits non-zero without printing the final line:
    meaningless: the distortion is checked on extraction only;
 8. PnP (not a TPU kernel: lvt_tpu runs solve_pnp,
    lvt_tpu/solver/pnp.py:109-214, as XLA ops): the fused solve
-   ``lvt_tpu_torch::pnp_solve`` (``csrc/pnp_lm.cu``, one block per stream)
+   ``lvt_tpu_torch::pnp_solve`` (``csrc/pnp_lm.cu``, one block per stream,
+   one sweep over the points per LM iteration, the step on one warp)
    on the inputs it took in one more frame of path 3's 8 streams, at S =
    1 and S = 8, against its plain version on the card stream by stream:
    every output (pose, inlier mask and count, chi2) bit-equal (the gaps
@@ -253,7 +254,8 @@ which paths 5 and 7 euroc, without staged points, do not run, and
 ``triangulate_insert``) once per frame each; 8a-8c run their plain
 versions (torch ops and collectives). Every path that extracts (all but
 path 6) launches the corner selection's kernel (``select_corners``,
-``csrc/select.cu``) once per frame for all its images, and every
+``csrc/select.cu``: a thread-block cluster per cell) once per frame for
+all its images, and every
 unsharded path the map match's acceptance after T (``map_accept``,
 ``csrc/track.cu``) once per frame (path 3 once for its 8 streams); neither
 is a TPU kernel. Wherever PnP's inputs are captured
@@ -700,20 +702,24 @@ def _smi(query: str) -> str:
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
 
 
-def phase_device() -> dict:
-    from lvt_tpu_torch import kernels
-
+def card_info() -> dict:
+    """The card's name, SM count and maximum SM clock (for the bounds)."""
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: chip_smoke "
                            "needs one CUDA device")
-    name = torch.cuda.get_device_name(0)
-    _say("device", f"{name}; torch {torch.__version__}, CUDA "
+    return dict(name=torch.cuda.get_device_name(0),
+                sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                clock_hz=1e6 * float(_smi("clocks.max.sm").split()[0]))
+
+
+def phase_device() -> dict:
+    from lvt_tpu_torch import kernels
+
+    card = card_info()
+    _say("device", f"{card['name']}; torch {torch.__version__}, CUDA "
                    f"{torch.version.cuda}, driver "
                    f"{_smi('driver_version')}")
     print(_smi("name,power.limit"), flush=True)
-    card = dict(name=name, sms=torch.cuda.get_device_properties(0)
-                .multi_processor_count,
-                clock_hz=1e6 * float(_smi("clocks.max.sm").split()[0]))
     _say("device", f"{card['sms']} SMs, max SM clock "
                    f"{card['clock_hz'] / 1e6:.0f} MHz; bounds at "
                    f"{HBM_BYTES_PER_S / 1e12} TB/s and {RATE_PER_SM_CLOCK} "
@@ -726,6 +732,14 @@ def phase_device() -> dict:
     _say("device", "ba_refine: a cluster of {cluster} blocks of {threads} "
                    "threads per stream; ptxas: {ptxas}".format(
                        **card["ba_geometry"]))
+    card["pnp_geometry"] = pnp_geometry()
+    _say("device", "pnp_solve: {cluster} block of {threads} threads per "
+                   "stream; ptxas: {ptxas}".format(**card["pnp_geometry"]))
+    card["select_geometry"] = select_geometry()
+    _say("device", "select_corners: a cluster of {cluster} blocks per cell "
+                   "(TUM fr1's cell: {cluster_tum}); its launches: "
+                   "{launch_shapes}; ptxas: {ptxas}".format(
+                       **card["select_geometry"]))
     return card
 
 
@@ -749,6 +763,64 @@ def ba_geometry() -> dict:
         raise AssertionError("no ptxas report on ba_refine_kernel in the "
                              "verbose build")
     return dict(cluster=shape[0], threads=shape[1], ptxas="; ".join(ptxas))
+
+
+def _ptxas(kernel: str) -> str:
+    from lvt_tpu_torch import kernels
+
+    lines = kernels.ptxas_report(kernel)
+    if not lines:
+        raise AssertionError(f"no ptxas report on {kernel} in the verbose "
+                             f"build")
+    return "; ".join(lines)
+
+
+def pnp_geometry() -> dict:
+    """PnP's fused solve as built: blocks per stream (its cluster: one),
+    threads per block, and ptxas's lines on it."""
+    from lvt_tpu_torch import kernels
+
+    shape = (ctypes.c_int * 3)()
+    kernels.check(kernels.lib().lvt_pnp_shape(shape), "pnp_solve (shape)")
+    return dict(cluster=shape[0], threads=shape[1],
+                ptxas=_ptxas("pnp_solve_kernel"))
+
+
+def select_geometry() -> dict:
+    """The corner selection's kernel as built: blocks per cell (its
+    cluster) at path 1's KITTI cells and at TUM fr1's one cell, threads per
+    block as the wrapper picks them (``detect.select_threads``) at path 1's
+    pair, path 3's 16 images and TUM fr1's cell at 1 and 8 images, with how
+    many clusters the card runs at once at that size
+    (cudaOccupancyMaxActiveClusters) beside the launch's clusters, and
+    ptxas's lines on its instances (8 or 16 blocks, 512 or 256 threads)."""
+    from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.configs import kitti_config, tum_rgbd_config
+    from lvt_tpu_torch.ops import detect
+
+    def shape(config):
+        geo = (ctypes.c_int * 7)()
+        if kernels.lib().lvt_select_geometry(
+                config.img_height, config.img_width,
+                config.detection_cell_size, config.max_keypoints_per_cell,
+                config.kp_capacity, geo):
+            raise AssertionError("select_corners refuses a path's config")
+        return geo
+
+    kitti, tum = kitti_config(), tum_rgbd_config(1)
+    shapes = {}
+    for label, config, b in (("path1", kitti, 2), ("path3", kitti, 16),
+                             ("tum1", tum, 1), ("tum8", tum, 8)):
+        dims = (b, config.img_height, config.img_width,
+                config.detection_cell_size, config.max_keypoints_per_cell,
+                config.kp_capacity)
+        threads = detect.select_threads(0, *dims)
+        n = kernels.lib().lvt_select_max_clusters(*dims, threads)
+        shapes[label] = (f"{threads} threads, {n} clusters at once for "
+                           f"{b * shape(config)[0]}")
+    return dict(cluster=shape(kitti)[1], cluster_tum=shape(tum)[1],
+                threads=int(shapes["path1"].split()[0]), launch_shapes=shapes,
+                ptxas=_ptxas("select_corners_kernel"))
 
 
 def p_inputs(config, imgs) -> tuple:
@@ -1700,7 +1772,8 @@ def measure_pnp_solve(card, path, inputs) -> dict:
                    f"(bound {b_ms:.3g} ms, {b_by}), the plain version "
                    f"graphed {q['plain_ms']:.4f} ms, the phases on one rank "
                    f"({pnp.N_PHASES} launches) {q['phases_ms']:.4f} ms")
-    return dict(rep[1], batched=rep[n_streams], **gaps)
+    return dict(rep[1], batched=rep[n_streams], **gaps,
+                **card["pnp_geometry"])
 
 
 # the largest gap of each of the tracking branch's kernels to its plain
@@ -1946,6 +2019,8 @@ def measure_track_kernels(card, path, tracked) -> dict:
                        f"{b_ms:.3g} ms, {b_by}), the plain version graphed "
                        f"{q['plain_ms']:.4f} ms{lib}")
         rep[name] = dict(by_s[sizes[0]], batched=by_s[s_all])
+        if name == "select_corners":
+            rep[name].update(card["select_geometry"])
     return rep
 
 
@@ -2236,8 +2311,19 @@ def measure_pnp(card, path, inputs) -> dict:
                     raise AssertionError(f"{name}: stream {i} of S={s} "
                                          f"differs from its S=1 launch")
             b_ms, b_by = bound(card, *k["work"](s, m))
+            extra = {}
+            if name == "pnp_normal_eqs":
+                # why pnp_solve sums all 42 entries of [H | g]: H is not
+                # symmetric to the bit (jw_i rounded before its product)
+                h = got[0][..., :6]
+                extra["h_bit_symmetric_streams"] = int(
+                    (h == h.transpose(-1, -2)).all(-1).all(-1).sum())
+                _say("pnp", f"pnp_normal_eqs S={s} ({path}'s inputs): H "
+                            f"bit-symmetric in "
+                            f"{extra['h_bit_symmetric_streams']} of {s} "
+                            f"streams")
             rep[s] = dict(
-                s=s, m=m, max_abs_err=err, max_rel_err=rel,
+                s=s, m=m, max_abs_err=err, max_rel_err=rel, **extra,
                 ms=device_ms(lambda a=args: k["op"](*a), REPS),
                 plain_ms=device_ms(lambda a=args: k["plain"](*a), PLAIN_REPS),
                 library_ms=device_ms(k["library"](*args), REPS),

@@ -142,11 +142,9 @@ __device__ __forceinline__ void fold(double (&v)[T], int lane) {
   }
 }
 
-// _retract(r, t, d) for xi = d = (v, w): R' = exp([w]x) R, t' = exp([w]x)
-// t + v, into (r_out, t_out)
-__device__ void retract(const float* r, const float* t, const float* d,
-                        float* r_out, float* t_out) {
-  const float w0 = d[3], w1 = d[4], w2 = d[5];
+// _retract's rotation exp([w]x) of w = (w0, w1, w2), row major
+__device__ __forceinline__ void exp_rotation(float w0, float w1, float w2,
+                                             float (&dr)[9]) {
   const float theta2 = __fadd_rn(
       __fadd_rn(__fmul_rn(w0, w0), __fmul_rn(w1, w1)), __fmul_rn(w2, w2));
   const float theta = __fsqrt_rn(__fadd_rn(theta2, 1e-20f));
@@ -156,15 +154,38 @@ __device__ void retract(const float* r, const float* t, const float* d,
   float dq[4] = {cosf(half), __fmul_rn(sinc, w0), __fmul_rn(sinc, w1),
                  __fmul_rn(sinc, w2)};
   normalize(dq);
-  float dr[9];
   to_matrix(dq, dr);
+}
+
+// Entry e of _retract's result (e < 9: R'[e / 3][e % 3]; else t'[e - 9])
+// from dr = exp([w]x) and the entry's inputs: (x0, x1, x2) = (r[k], r[3 +
+// k], r[6 + k]) for e = 3 i + k < 9, the pose's t for e >= 9 (then plus
+// v, the step's translation v[e - 9]); e may vary by lane (the row of dr
+// is picked by selects, so dr stays in registers)
+__device__ __forceinline__ float retract_entry(const float (&dr)[9], int e,
+                                               float x0, float x1, float x2,
+                                               float v) {
+  const int i = e < 9 ? e / 3 : e - 9;
+  const float row[3] = {i == 0 ? dr[0] : (i == 1 ? dr[3] : dr[6]),
+                        i == 0 ? dr[1] : (i == 1 ? dr[4] : dr[7]),
+                        i == 0 ? dr[2] : (i == 1 ? dr[5] : dr[8])};
+  const float x = mv(row, 0, x0, x1, x2);
+  return e < 9 ? x : __fadd_rn(x, v);
+}
+
+// _retract(r, t, d) for xi = d = (v, w): R' = exp([w]x) R, t' = exp([w]x)
+// t + v, into (r_out, t_out)
+__device__ void retract(const float* r, const float* t, const float* d,
+                        float* r_out, float* t_out) {
+  float dr[9];
+  exp_rotation(d[3], d[4], d[5], dr);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
+  for (int e = 0; e < 9; ++e)
+    r_out[e] = retract_entry(dr, e, r[e % 3], r[3 + e % 3], r[6 + e % 3],
+                             0.0f);
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
-      r_out[3 * i + k] = mv(dr, i, r[k], r[3 + k], r[6 + k]);
-    t_out[i] = __fadd_rn(mv(dr, i, t[0], t[1], t[2]), d[i]);
-  }
+  for (int i = 0; i < 3; ++i)
+    t_out[i] = retract_entry(dr, 9 + i, t[0], t[1], t[2], d[i]);
 }
 
 }  // namespace

@@ -18,15 +18,32 @@
 // the pose where it is needed: the same operations on the same inputs, so
 // the same bits as the plain version's cached copy, without a store.
 //
+// One sweep per LM iteration. The plain version's iteration takes [H | g]
+// from the state's projection, which is the last accepted trial's (or the
+// pass's start pose's). So the sweep over the points at a trial pose sums
+// both the trial chi-square and [H | g] at that pose (its Cauchy weights
+// and Jacobian); the accept test keeps those sums as the next iteration's
+// [H | g] (two buffers in shared memory, one index flipped), a rejection
+// the old ones. A pass's setup sweep sums [H | g] at its start pose (H's
+// diagonal sets lambda) and its chi-square; its last iteration sums the
+// chi-square alone (pass 1's setup follows the demotion). A solve is 13
+// sweeps (2 setups, 10 trials, the final one) and 13 block reductions,
+// where a sweep for [H | g] and one for the trial chi-square per iteration
+// took 23 and 25.
+//
 // Order of the sums. Each reduction over the points runs in the order
 // csrc/pnp.cu fixed (ROADMAP H8): thread t accumulates its points in
 // order, each warp folds its lanes with an xor butterfly, and the 8 warps'
-// partial sums are added in warp order. The normal equations [H | g] and
-// H's diagonal are summed in float64 and rounded once to float32 (the
-// products jw_i * x_j are exact there); the robust chi-square in float32.
-// The order depends on M alone, so a stream of an S-stream launch gets the
-// bits of its own S = 1 launch, and H equals lvt_tpu_torch::pnp_normal_eqs
-// on the same Jacobians bit for bit.
+// partial sums are added in warp order. The normal equations [H | g] are
+// summed in float64 and rounded once to float32 (the products jw_i * x_j
+// are exact there); the robust chi-square in float32. H's diagonal is the
+// diagonal of those sums: pnp.cu's h_diag adds the same products in the
+// same pairs. The order depends on M alone, so a stream of an S-stream
+// launch gets the bits of its own S = 1 launch, and H equals
+// lvt_tpu_torch::pnp_normal_eqs on the same Jacobians bit for bit. H is
+// not symmetric to the bit (jw_i = jac_i * w is rounded to float32 before
+// its product with jac_j, so H[i][j] and H[j][i] add other products): all
+// 42 sums are kept.
 //
 // Rounding. The per-point arithmetic (projection, Cauchy weight, Jacobian,
 // chi-square term) and the pose algebra use __fmul_rn / __fadd_rn /
@@ -38,14 +55,18 @@
 // wherever libdevice's sinf, cosf or log1pf round other than torch's
 // kernels do, or the 6x6 solve other than below.
 //
-// The damped solve (H + lambda I) delta = -g runs in float32 on one thread,
-// in registers: LU with partial pivoting (the first row of largest
-// magnitude), as torch.linalg.solve_ex and jnp.linalg.solve factor it, in
-// the order of operations of solve_ex on the card (solve6). Cholesky would
-// need H + lambda I positive definite, which a rank-deficient H with
-// lambda near 1e-12 is not to float32 precision. A singular or non-finite
-// system divides by a zero or NaN pivot, so delta is not finite, and the
-// accept test rejects the step, as in the plain version.
+// The step on one warp. Between two sweeps warp 0 alone adds the warps'
+// partial sums (a lane per sum), runs the accept test, and solves the
+// damped system (H + lambda I) delta = -g in float32: LU with partial
+// pivoting (the first row of largest magnitude), as torch.linalg.solve_ex
+// and jnp.linalg.solve factor it, in the order of operations of solve_ex
+// on the card, lane i holding row i; then the retraction, lane e computing
+// entry e of the trial pose. The other 7 warps wait at one barrier.
+// Cholesky would need H + lambda I positive definite, which a
+// rank-deficient H with lambda near 1e-12 is not to float32 precision. A
+// singular or non-finite system divides by a zero or NaN pivot, so delta is
+// not finite, and the accept test rejects the step, as in the plain
+// version.
 //
 // The sharded solve (pnp_phase_kernel): a collective cannot run inside a
 // kernel, so the same __device__ code also launches split at each
@@ -62,12 +83,15 @@
 // projection per setup and per trial) and 564 float64 fused multiply-adds
 // (H's upper triangle and g, 54 per normal-equation sweep, and H's
 // diagonal twice) at the tensor cores' float64 rate; at M = 1024 the
-// float32 work sets it, about 2.4e-5 ms. This kernel does more: each
-// normal-equation sweep recomputes the projection and folds all 84 of
-// [H | g]'s products on the FMA pipe. One block, one SM, per stream does
-// it all: the 10 normal-equation sweeps (float64 products and float32 ->
-// float64 conversions, 16 a clock per SM), the 25 serial block reductions
-// and the 10 serial 6x6 solves set its time. M has no upper bound.
+// float32 work sets it, about 2.4e-5 ms. This kernel does more: each of
+// its 10 sweeps for [H | g] folds all 84 of its products on the FMA pipe,
+// with 24 float32 -> float64 conversions a point. One block, one SM, per
+// stream does it all; at M = 1024 the sweeps take 45% of its cycles, the
+// block reductions 15%, the 10 steps on warp 0 31%, the accept tests 7%
+// (scripts/torch_pnp_clocks.py). Measured and dropped: the conversions
+// by integer operations (the sweeps 1.8x slower), skipping points of
+// weight 0 (a warp's lanes run together: nothing saved), a warp maximum
+// for the pivot (slower than the scan). M has no upper bound.
 
 #include <cuda_runtime.h>
 
@@ -84,6 +108,25 @@ constexpr int N_PASSES = 2;
 constexpr int N_ITERS = 5;
 constexpr int CAP = 8192;         // points per stream staged in shared memory
 constexpr int SM_FLOATS = 6;      // x, y, z, u, v, w per staged point
+
+// Phase markers: nothing here; scripts/torch_pnp_clocks.py defines them to
+// stamp the SM clock (PNP_CLOCK: after a block barrier; PNP_CLOCK_WARP:
+// inside warp 0's step) at slot `slot`, the start of a phase of kind
+// `kind`
+#ifndef PNP_CLOCK
+#define PNP_CLOCK(slot, kind)
+#define PNP_CLOCK_WARP(slot, kind)
+#endif
+enum : int {
+  CLK_STAGE, CLK_SWEEP, CLK_REDUCE, CLK_SOLVE, CLK_RETRACT, CLK_ACCEPT,
+  CLK_END, CLK_BACKSUB
+};
+// the stamps' slots: the stage, then per pass the setup (sweep, reduction,
+// start, and the step: LU, back substitution, retraction) and per
+// iteration (trial sweep, reduction, accept, the step), then the final
+// sweep, its reduction, the result and the end
+constexpr int CLK_PASS = 6 + 6 * N_ITERS;
+constexpr int CLK_FINAL = 1 + N_PASSES * CLK_PASS;
 
 // The state of one stream's solve, NSTATE floats (shared memory in the
 // fused kernel, a row of device memory between the phases).
@@ -211,7 +254,7 @@ __device__ void from_matrix(const float* m, float* q) {
   }
 }
 
-// ---- the steps one thread takes on the state
+// ---- the steps on the state (lane 0 of warp 0, or all of warp 0)
 
 // r_wc = to_matrix(q)^T, t_wc = -matvec(r_wc, t)
 __device__ void init_pose(float* st) {
@@ -219,12 +262,12 @@ __device__ void init_pose(float* st) {
 }
 
 // the pass's damping lambda = tau max(diag H) + 1e-12, nu = 2, and its
-// starting chi-square, from the summed diagonal and chi-square
-__device__ void start_pass(float* st, const double* h_diag, double chi2) {
-  float h_max = __double2float_rn(h_diag[0]);
+// starting chi-square, from the summed [H | g] and chi-square
+__device__ void start_pass(float* st, const double* hg, double chi2) {
+  float h_max = __double2float_rn(hg[0]);
 #pragma unroll
   for (int i = 1; i < NP; ++i) {
-    const float h = __double2float_rn(h_diag[i]);
+    const float h = __double2float_rn(hg[i * NC + i]);
     if (!isnan(h_max) && (h > h_max || isnan(h))) h_max = h;
   }
   st[S_LAM] = __fadd_rn(__fmul_rn(1e-5f, h_max), 1e-12f);
@@ -232,97 +275,113 @@ __device__ void start_pass(float* st, const double* h_diag, double chi2) {
   st[S_CHI2] = __double2float_rn(chi2);
 }
 
-// (H + lambda I) delta = -g by LU with partial pivoting, in registers
-// (every index a constant after unrolling), in the order of operations of
-// the solve torch.linalg.solve_ex runs on the card for one 6x6 system
-// (LAPACK's getf2 and getrs): at column k the first row of largest
-// magnitude is swapped in, the column below the pivot scaled by the
-// pivot's reciprocal, the rest updated with fused multiply-adds; then the
-// triangular solves with fused multiply-adds and a division by each
-// diagonal entry. On 400 systems of the plain solve this gave
-// solve_ex's bits for every one (the same operations in the same order).
-__device__ __forceinline__ void solve6(float (&a)[NP][NP], float (&b)[NP]) {
+// The LM step from the summed [H | g] on warp 0: the trial pose
+// _retract(r_wc, t_wc, delta) and whether delta is finite, into the state.
+// (H + lambda I) delta = -g by LU with partial pivoting, lane i < 6
+// holding row i of [H + lambda I | -g] in registers (every index a
+// constant after unrolling), in the order of operations of the solve
+// torch.linalg.solve_ex runs on the card for one 6x6 system (LAPACK's
+// getf2 and getrs). At column k every lane scans the column as one thread
+// would (a NaN never wins, a NaN pivot candidate keeps its row, ties go
+// to the lowest row); the pivot row goes to every lane, which keeps it as
+// U's row k, and trades places with row k; the rows below are updated
+// with the pivot's reciprocal and fused multiply-adds, a lane each. Then
+// every lane runs the back substitution on its copy of U (a division by
+// each diagonal entry and fused multiply-adds: a chain no lane could
+// shorten). On 400 systems of the plain solve this gave solve_ex's bits
+// for every one (the same operations in the same order). Then lane e < 12
+// computes entry e of the trial pose, its inputs read before the solve.
+__device__ void lm_step(float* st, const double* hg, int lane,
+                        [[maybe_unused]] int clk = 0) {
+  PNP_CLOCK_WARP(clk, CLK_SOLVE);
+  const int e = lane < 12 ? lane : 0;
+  const int k3 = e < 9 ? e % 3 : 0;
+  const float* in = e < 9 ? st + S_R + k3 : st + S_TW;
+  const float x0 = in[0], x1 = in[e < 9 ? 3 : 1], x2 = in[e < 9 ? 6 : 2];
+  const float lam = st[S_LAM];
+  const int i0 = lane < NP ? lane : 0;
+  float row[NP], b;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    row[j] = __double2float_rn(hg[i0 * NC + j]);
+    if (j == lane) row[j] = __fadd_rn(row[j], lam);
+  }
+  b = -__double2float_rn(hg[i0 * NC + NP]);
+  float u[NP][NP], d[NP];   // U and the forward-eliminated -g
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
+    float col[NP];
+#pragma unroll
+    for (int i = k; i < NP; ++i) col[i] = __shfl_sync(FULL, row[k], i);
     int p = k;
-    float best = fabsf(a[k][k]);
+    float best = fabsf(col[k]);
 #pragma unroll
     for (int i = k + 1; i < NP; ++i) {
-      if (fabsf(a[i][k]) > best) {
-        best = fabsf(a[i][k]);
+      if (fabsf(col[i]) > best) {
+        best = fabsf(col[i]);
         p = i;
       }
     }
+    // the pivot row, and rows k and p trading places (the columns left of
+    // k are used no more)
 #pragma unroll
-    for (int i = k + 1; i < NP; ++i) {
-      if (i == p) {
+    for (int j = k; j < NP; ++j) u[k][j] = __shfl_sync(FULL, row[j], p);
+    d[k] = __shfl_sync(FULL, b, p);
+    const int src = lane == k ? p : (lane == p ? k : lane);
 #pragma unroll
-        for (int j = k; j < NP; ++j) {
-          const float tmp = a[k][j];
-          a[k][j] = a[i][j];
-          a[i][j] = tmp;
-        }
-        const float tmp = b[k];
-        b[k] = b[i];
-        b[i] = tmp;
-      }
-    }
-    const float r = __fdiv_rn(1.0f, a[k][k]);
+    for (int j = k; j < NP; ++j) row[j] = __shfl_sync(FULL, row[j], src);
+    b = __shfl_sync(FULL, b, src);
+    const float r = __frcp_rn(u[k][k]);   // = __fdiv_rn(1.0f, u[k][k])
+    if (lane > k) {
+      const float l = __fmul_rn(row[k], r);
 #pragma unroll
-    for (int i = k + 1; i < NP; ++i) {
-      const float l = __fmul_rn(a[i][k], r);
-#pragma unroll
-      for (int j = k + 1; j < NP; ++j)
-        a[i][j] = __fmaf_rn(-l, a[k][j], a[i][j]);
-      b[i] = __fmaf_rn(-l, b[k], b[i]);
+      for (int j = k + 1; j < NP; ++j) row[j] = __fmaf_rn(-l, u[k][j], row[j]);
+      b = __fmaf_rn(-l, d[k], b);
     }
   }
-#pragma unroll
-  for (int k = NP - 1; k >= 0; --k) {
-    b[k] = __fdiv_rn(b[k], a[k][k]);
-#pragma unroll
-    for (int i = 0; i < k; ++i) b[i] = __fmaf_rn(-a[i][k], b[k], b[i]);
-  }
-}
-
-// the LM step from the summed [H | g]: the trial pose _retract(r_wc, t_wc,
-// delta) and whether delta is finite
-__device__ void trial(float* st, const double* hg) {
-  float a[NP][NP], d[NP];
-  const float lam = st[S_LAM];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-#pragma unroll
-    for (int j = 0; j < NP; ++j) a[i][j] = __double2float_rn(hg[i * NC + j]);
-    a[i][i] = __fadd_rn(a[i][i], lam);
-    d[i] = -__double2float_rn(hg[i * NC + NP]);
-  }
-  solve6(a, d);
+  PNP_CLOCK_WARP(clk + 1, CLK_BACKSUB);
   bool finite = true;
 #pragma unroll
-  for (int i = 0; i < NP; ++i) finite = finite && isfinite(d[i]);
+  for (int k = NP - 1; k >= 0; --k) {
+    d[k] = __fdiv_rn(d[k], u[k][k]);
+#pragma unroll
+    for (int i = 0; i < k; ++i) d[i] = __fmaf_rn(-u[i][k], d[k], d[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j) finite = finite && isfinite(d[j]);
 
-  retract(st + S_R, st + S_TW, d, st + S_TR_R, st + S_TR_T);
-  st[S_TR_OK] = finite ? 1.0f : 0.0f;
+  PNP_CLOCK_WARP(clk + 2, CLK_RETRACT);
+  float dr[9];
+  exp_rotation(d[3], d[4], d[5], dr);
+  const float v = e < 9 ? 0.0f : (e == 9 ? d[0] : (e == 10 ? d[1] : d[2]));
+  const float x = retract_entry(dr, e, x0, x1, x2, v);
+  if (lane < 12) st[S_TR_R + lane] = x;   // S_TR_T follows S_TR_R
+  if (lane == 0) st[S_TR_OK] = finite ? 1.0f : 0.0f;
+  __syncwarp();
 }
 
-// accept = chi2_new < chi2 and the step finite: keep the trial pose,
-// lambda / 3, nu = 2; else lambda nu, nu 2 nu
-__device__ void accept(float* st, double chi2_new_sum) {
-  const float chi2_new = __double2float_rn(chi2_new_sum);
+// accept = chi2_new < chi2 and the step finite (every lane of warp 0 reads
+// the same answer; lane 0 then writes): keep the trial pose, lambda / 3,
+// nu = 2; else lambda nu, nu 2 nu
+__device__ bool accept(float* st, float chi2_new, int lane) {
   const bool ok = chi2_new < st[S_CHI2] && st[S_TR_OK] != 0.0f;
-  if (ok) {
+  __syncwarp();
+  if (lane == 0) {
+    if (ok) {
 #pragma unroll
-    for (int i = 0; i < 9; ++i) st[S_R + i] = st[S_TR_R + i];
+      for (int i = 0; i < 9; ++i) st[S_R + i] = st[S_TR_R + i];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) st[S_TW + i] = st[S_TR_T + i];
-    st[S_LAM] = __fdiv_rn(st[S_LAM], 3.0f);
-    st[S_NU] = 2.0f;
-    st[S_CHI2] = chi2_new;
-  } else {
-    st[S_LAM] = __fmul_rn(st[S_LAM], st[S_NU]);
-    st[S_NU] = __fmul_rn(st[S_NU], 2.0f);
+      for (int i = 0; i < 3; ++i) st[S_TW + i] = st[S_TR_T + i];
+      st[S_LAM] = __fdiv_rn(st[S_LAM], 3.0f);
+      st[S_NU] = 2.0f;
+      st[S_CHI2] = chi2_new;
+    } else {
+      st[S_LAM] = __fmul_rn(st[S_LAM], st[S_NU]);
+      st[S_NU] = __fmul_rn(st[S_NU], 2.0f);
+    }
   }
+  __syncwarp();
+  return ok;
 }
 
 // the result: t = -matvec(r_cw, t_wc), q = from_matrix(r_cw), r_cw = r_wc^T
@@ -340,91 +399,49 @@ __device__ void finish(float* st) {
 
 // ---- sweeps over a thread's points (every thread of the block)
 
-// At the pose: (if `demote`) w_mask *= (e2 <= delta2), then H's diagonal
-// (float64, 6 sums) and the chi-square's terms (float32)
-__device__ void sweep_setup(const Points& pts, int m, const float* st,
-                            const Cam& c, bool demote, double (&acc)[NP],
-                            float& chi) {
+// At the pose (r, t): (if DEMOTE) w_mask *= (e2 <= delta2), then (if
+// CHI) the chi-square's terms (float32) and (if HG) [H | g] = sum jw^T
+// [jac | r], jw = jac * w (float64)
+template <bool DEMOTE, bool HG, bool CHI = true>
+__device__ void sweep(const Points& pts, int m, const float* rs,
+                      const float* ts, const Cam& c, double (&acc)[NOUT],
+                      float& chi) {
   float r[9], t[3];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) r[i] = st[S_R + i];
+  for (int i = 0; i < 9; ++i) r[i] = rs[i];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) t[i] = st[S_TW + i];
+  for (int i = 0; i < 3; ++i) t[i] = ts[i];
+  if constexpr (HG) {
 #pragma unroll
-  for (int i = 0; i < NP; ++i) acc[i] = 0.0;
+    for (int o = 0; o < NOUT; ++o) acc[o] = 0.0;
+  }
   chi = 0.0f;
   for (int p = threadIdx.x; p < m; p += THREADS) {
     float x, y, z, u, v, wm;
     pts.get(p, x, y, z, u, v, wm);
     const Proj pr = project(r, t, x, y, z, u, v, c);
-    if (demote) {
+    if constexpr (DEMOTE) {
       wm = __fmul_rn(wm, pr.e2 <= c.th2 ? 1.0f : 0.0f);
       pts.set_w(p, wm);
     }
-    const float w = cauchy(wm, pr.e2, c);
-    float ju[NC], jv[NC];
-    jacobian(pr, c, ju, jv);
+    if constexpr (HG) {
+      const float w = cauchy(wm, pr.e2, c);
+      float rows[2][NC];
+      jacobian(pr, c, rows[0], rows[1]);
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const double a = __fmul_rn(ju[i], w);
-      acc[i] = __fma_rn(a, static_cast<double>(ju[i]), acc[i]);
-    }
+      for (int k = 0; k < 2; ++k) {
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const double a = __fmul_rn(jv[i], w);
-      acc[i] = __fma_rn(a, static_cast<double>(jv[i]), acc[i]);
-    }
-    chi = __fadd_rn(chi, rho(wm, pr.e2, c));
-  }
-}
-
-// At the pose: [H | g] = sum jw^T [jac | r], jw = jac * w (float64)
-__device__ void sweep_normal(const Points& pts, int m, const float* st,
-                             const Cam& c, double (&acc)[NOUT]) {
-  float r[9], t[3];
+        for (int i = 0; i < NP; ++i) {
+          const double a = __fmul_rn(rows[k][i], w);
 #pragma unroll
-  for (int i = 0; i < 9; ++i) r[i] = st[S_R + i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) t[i] = st[S_TW + i];
-#pragma unroll
-  for (int o = 0; o < NOUT; ++o) acc[o] = 0.0;
-  for (int p = threadIdx.x; p < m; p += THREADS) {
-    float x, y, z, u, v, wm;
-    pts.get(p, x, y, z, u, v, wm);
-    const Proj pr = project(r, t, x, y, z, u, v, c);
-    const float w = cauchy(wm, pr.e2, c);
-    float rows[2][NC];
-    jacobian(pr, c, rows[0], rows[1]);
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const double a = __fmul_rn(rows[k][i], w);
-#pragma unroll
-        for (int j = 0; j < NC; ++j)
-          acc[i * NC + j] =
-              __fma_rn(a, static_cast<double>(rows[k][j]), acc[i * NC + j]);
+          for (int j = 0; j < NC; ++j)
+            acc[i * NC + j] =
+                __fma_rn(a, static_cast<double>(rows[k][j]), acc[i * NC + j]);
+        }
       }
     }
+    if constexpr (CHI) chi = __fadd_rn(chi, rho(wm, pr.e2, c));
   }
-}
-
-// At the trial pose: the chi-square's terms (float32)
-__device__ float sweep_trial(const Points& pts, int m, const float* st,
-                             const Cam& c) {
-  float r[9], t[3];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) r[i] = st[S_TR_R + i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) t[i] = st[S_TR_T + i];
-  float chi = 0.0f;
-  for (int p = threadIdx.x; p < m; p += THREADS) {
-    float x, y, z, u, v, wm;
-    pts.get(p, x, y, z, u, v, wm);
-    const Proj pr = project(r, t, x, y, z, u, v, c);
-    chi = __fadd_rn(chi, rho(wm, pr.e2, c));
-  }
-  return chi;
 }
 
 // At the pose: the last demotion, the inlier mask (w_mask > 0) if `inlier`
@@ -449,7 +466,7 @@ __device__ int sweep_final(const Points& pts, int m, const float* st,
   return n;
 }
 
-// ---- block reductions in the fixed order; every thread calls them
+// ---- block reductions in the fixed order
 
 struct Scratch {
   double part[WARPS][NOUT];
@@ -457,59 +474,47 @@ struct Scratch {
   int part_i[WARPS];
 };
 
-// Each warp folds acc[0..N) over its lanes (N = 6: H's diagonal, a full
-// butterfly per value; N = 42: [H | g], `fold` on 32 + 8 + 2 values);
-// thread o < N then adds the warps' sums in warp order into out[o]
-// (shared or device memory). The sums are those of csrc/pnp.cu's
-// pnp_normal_eqs_kernel, bit for bit.
-template <int N>
-__device__ void block_sum(double (&acc)[N], Scratch& sc, double* out) {
+// Every thread: each warp folds acc[0..42) ([H | g], if HG: `fold` on
+// 32 + 8 + 2 values, the full butterfly's pairs) and the chi-square (an
+// xor butterfly) over its lanes into sc; then a block barrier.
+template <bool HG>
+__device__ void publish(double (&acc)[NOUT], float chi, Scratch& sc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if constexpr (N == NOUT) {
+  if constexpr (HG) {
     fold<0, 32>(acc, lane);
     fold<32, 8>(acc, lane);
     fold<40, 2>(acc, lane);
     sc.part[warp][lane] = acc[0];
     if ((lane & 3) == 0) sc.part[warp][32 + (lane >> 2)] = acc[32];
     if ((lane & 15) == 0) sc.part[warp][40 + (lane >> 4)] = acc[40];
-  } else {
-#pragma unroll
-    for (int o = 0; o < N; ++o) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[o] = __dadd_rn(acc[o], __shfl_xor_sync(FULL, acc[o], off));
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int o = 0; o < N; ++o) sc.part[warp][o] = acc[o];
-    }
   }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    double s = sc.part[0][threadIdx.x];
 #pragma unroll
-    for (int q = 1; q < WARPS; ++q) s = __dadd_rn(s, sc.part[q][threadIdx.x]);
-    out[threadIdx.x] = s;
-  }
+  for (int off = 16; off > 0; off >>= 1)
+    chi = __fadd_rn(chi, __shfl_xor_sync(FULL, chi, off));
+  if (lane == 0) sc.part_f[warp] = chi;
   __syncthreads();
 }
 
-// The float32 sum, as csrc/pnp.cu's stream_sum_kernel; widened exactly
-// into *out by thread 0.
-__device__ void block_sum_f(float acc, Scratch& sc, double* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Warp 0, after publish: the warps' sums added in warp order, [H | g]
+// into hg[0..42) (if HG; lane l its entries l and 32 + l), and the
+// chi-square's total, which every lane returns. These are the sums of
+// csrc/pnp.cu's pnp_normal_eqs_kernel and stream_sum_kernel, bit for bit.
+template <bool HG>
+__device__ float warp_total(const Scratch& sc, double* hg, int lane) {
+  if constexpr (HG) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc = __fadd_rn(acc, __shfl_xor_sync(FULL, acc, off));
-  if (lane == 0) sc.part_f[warp] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = sc.part_f[0];
+    for (int o = lane; o < NOUT; o += 32) {
+      double s = sc.part[0][o];
 #pragma unroll
-    for (int q = 1; q < WARPS; ++q) s = __fadd_rn(s, sc.part_f[q]);
-    *out = static_cast<double>(s);
+      for (int q = 1; q < WARPS; ++q) s = __dadd_rn(s, sc.part[q][o]);
+      hg[o] = s;
+    }
   }
-  __syncthreads();
+  float s = sc.part_f[0];
+#pragma unroll
+  for (int q = 1; q < WARPS; ++q) s = __fadd_rn(s, sc.part_f[q]);
+  __syncwarp();
+  return s;
 }
 
 __device__ int block_sum_i(int acc, Scratch& sc) {
@@ -536,11 +541,13 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_solve_kernel(
     long long* __restrict__ count, float* __restrict__ chi2_out) {
   extern __shared__ float sm[];
   __shared__ float st[NSTATE];
-  __shared__ double tot[NOUT + 1];   // the last sums; tot[NOUT]: a chi-square
+  __shared__ double hg[2][NOUT];   // [H | g]: the step's, and the trial's
   __shared__ Scratch sc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long s = blockIdx.x;
   const Points pts{X + s * m * 3, obs + s * m * 2, w_scratch + s * m, sm, cap};
   weights += s * m;
+  PNP_CLOCK(0, CLK_STAGE);
   for (int p = threadIdx.x; p < m; p += THREADS) {
     if (p < cap) {
       sm[p] = pts.X[3 * p];
@@ -562,31 +569,59 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_solve_kernel(
   }
   __syncthreads();
 
+  double acc[NOUT];
+  float chi;
+  int cur = 0;   // hg[cur]: the [H | g] of the next step (warp 0's)
   for (int pass = 0; pass < N_PASSES; ++pass) {
-    {
-      double acc[NP];
-      float chi;
-      // the previous pass's outliers leave (raw chi2 > delta2)
-      sweep_setup(pts, m, st, cam, pass > 0, acc, chi);
-      block_sum<NP>(acc, sc, tot);
-      block_sum_f(chi, sc, tot + NOUT);
+    [[maybe_unused]] const int base = 1 + pass * CLK_PASS;
+    PNP_CLOCK(base, CLK_SWEEP);
+    // at the pass's start pose, the previous pass's outliers gone (raw
+    // chi2 > delta2): [H | g] and the chi-square
+    if (pass > 0) {
+      sweep<true, true>(pts, m, st + S_R, st + S_TW, cam, acc, chi);
+    } else {
+      sweep<false, true>(pts, m, st + S_R, st + S_TW, cam, acc, chi);
     }
-    if (threadIdx.x == 0) start_pass(st, tot, tot[NOUT]);
+    PNP_CLOCK(base + 1, CLK_REDUCE);
+    publish<true>(acc, chi, sc);
+    if (warp == 0) {
+      cur = 0;
+      const float total = warp_total<true>(sc, hg[cur], lane);
+      PNP_CLOCK_WARP(base + 2, CLK_ACCEPT);
+      if (lane == 0) start_pass(st, hg[cur], total);
+      __syncwarp();
+      lm_step(st, hg[cur], lane, base + 3);
+    }
     __syncthreads();
     for (int it = 0; it < N_ITERS; ++it) {
-      {
-        double acc[NOUT];
-        sweep_normal(pts, m, st, cam, acc);
-        block_sum<NOUT>(acc, sc, tot);
+      [[maybe_unused]] const int at = base + 6 + 6 * it;
+      const bool more = it + 1 < N_ITERS;   // a step follows this sweep
+      PNP_CLOCK(at, CLK_SWEEP);
+      if (more) {
+        sweep<false, true>(pts, m, st + S_TR_R, st + S_TR_T, cam, acc, chi);
+        PNP_CLOCK(at + 1, CLK_REDUCE);
+        publish<true>(acc, chi, sc);
+      } else {
+        sweep<false, false>(pts, m, st + S_TR_R, st + S_TR_T, cam, acc, chi);
+        PNP_CLOCK(at + 1, CLK_REDUCE);
+        publish<false>(acc, chi, sc);
       }
-      if (threadIdx.x == 0) trial(st, tot);
-      __syncthreads();
-      block_sum_f(sweep_trial(pts, m, st, cam), sc, tot + NOUT);
-      if (threadIdx.x == 0) accept(st, tot[NOUT]);
+      if (warp == 0) {
+        const float total = more ? warp_total<true>(sc, hg[1 - cur], lane)
+                                 : warp_total<false>(sc, nullptr, lane);
+        PNP_CLOCK_WARP(at + 2, CLK_ACCEPT);
+        // accepted: the trial's [H | g] is the next step's
+        if (accept(st, total, lane) && more) cur = 1 - cur;
+        if (more) lm_step(st, hg[cur], lane, at + 3);
+      }
       __syncthreads();
     }
   }
-  const int n = block_sum_i(sweep_final(pts, m, st, cam, inlier + s * m), sc);
+  PNP_CLOCK(CLK_FINAL, CLK_SWEEP);
+  const int mine = sweep_final(pts, m, st, cam, inlier + s * m);
+  PNP_CLOCK(CLK_FINAL + 1, CLK_REDUCE);
+  const int n = block_sum_i(mine, sc);
+  PNP_CLOCK(CLK_FINAL + 2, CLK_ACCEPT);
   if (threadIdx.x == 0) {
     finish(st);
 #pragma unroll
@@ -596,6 +631,7 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_solve_kernel(
     count[s] = n;
     chi2_out[s] = st[S_CHI2];
   }
+  PNP_CLOCK(CLK_FINAL + 3, CLK_END);
 }
 
 // ---- one phase of the sharded solve: one block per stream
@@ -616,47 +652,72 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_phase_kernel(
     const double* __restrict__ tot_a, const double* __restrict__ tot_b,
     double* __restrict__ part_a, double* __restrict__ part_b) {
   __shared__ float st[NSTATE];
+  __shared__ double hg[NOUT];
   __shared__ Scratch sc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long s = blockIdx.x;
   const Points pts{X + s * m * 3, obs + s * m * 2, w_out + s * m, nullptr, 0};
   w_in += s * m;
   for (int p = threadIdx.x; p < m; p += THREADS) pts.w[p] = w_in[p];
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < NSTATE; ++i) st[i] = state_in[s * NSTATE + i];
+  if (warp == 0) {
+    for (int i = lane; i < NSTATE; i += 32) st[i] = state_in[s * NSTATE + i];
+    if (kind == K_NORMAL && flag != 0) {
+      // start_pass reads H's diagonal where [H | g] has it
+      for (int i = lane; i < NP; i += 32) hg[i * NC + i] = tot_a[s * NP + i];
+    } else if (kind == K_TRIAL) {
+      for (int i = lane; i < NOUT; i += 32) hg[i] = tot_a[s * NOUT + i];
+    }
+    __syncwarp();
     if (kind == K_SETUP && flag == 0) {
-      init_pose(st);
+      if (lane == 0) init_pose(st);
     } else if (kind == K_NORMAL && flag != 0) {
-      start_pass(st, tot_a + s * NP, tot_b[s]);
+      if (lane == 0) start_pass(st, hg, tot_b[s]);
     } else if (kind != K_TRIAL) {
-      accept(st, tot_b[s]);
+      accept(st, __double2float_rn(tot_b[s]), lane);
     } else {
-      trial(st, tot_a + s * NOUT);
+      lm_step(st, hg, lane);
     }
   }
   __syncthreads();
-  if (kind == K_SETUP) {
-    double acc[NP];
-    float chi;
-    sweep_setup(pts, m, st, cam, flag != 0, acc, chi);
-    block_sum<NP>(acc, sc, part_a + s * NP);
-    block_sum_f(chi, sc, part_b + s);
-  } else if (kind == K_NORMAL) {
-    double acc[NOUT];
-    sweep_normal(pts, m, st, cam, acc);
-    block_sum<NOUT>(acc, sc, part_a + s * NOUT);
-    if (threadIdx.x == 0) part_b[s] = 0.0;
+  double acc[NOUT];
+  float chi;
+  if (kind == K_SETUP || kind == K_NORMAL) {
+    if (kind == K_SETUP && flag != 0) {
+      sweep<true, true>(pts, m, st + S_R, st + S_TW, cam, acc, chi);
+    } else if (kind == K_SETUP) {
+      sweep<false, true>(pts, m, st + S_R, st + S_TW, cam, acc, chi);
+    } else {   // the normal equations alone
+      sweep<false, true, false>(pts, m, st + S_R, st + S_TW, cam, acc, chi);
+    }
+    publish<true>(acc, chi, sc);
+    if (warp == 0) {
+      const float total = warp_total<true>(sc, hg, lane);
+      if (kind == K_SETUP) {
+        for (int i = lane; i < NP; i += 32)
+          part_a[s * NP + i] = hg[i * NC + i];
+        if (lane == 0) part_b[s] = static_cast<double>(total);
+      } else {
+        for (int i = lane; i < NOUT; i += 32) part_a[s * NOUT + i] = hg[i];
+        if (lane == 0) part_b[s] = 0.0;
+      }
+    }
   } else if (kind == K_TRIAL) {
-    block_sum_f(sweep_trial(pts, m, st, cam), sc, part_b + s);
+    sweep<false, false>(pts, m, st + S_TR_R, st + S_TR_T, cam, acc, chi);
+    publish<false>(acc, chi, sc);
+    if (warp == 0) {
+      const float total = warp_total<false>(sc, nullptr, lane);
+      if (lane == 0) part_b[s] = static_cast<double>(total);
+    }
   } else {
     const int n = block_sum_i(sweep_final(pts, m, st, cam, nullptr), sc);
     if (threadIdx.x == 0) {
       finish(st);
       part_b[s] = n;
     }
-    __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < NSTATE; ++i) state_out[s * NSTATE + i] = st[i];
+  __syncthreads();
+  if (warp == 0) {
+    for (int i = lane; i < NSTATE; i += 32) state_out[s * NSTATE + i] = st[i];
   }
 }
 
@@ -691,6 +752,15 @@ extern "C" int lvt_pnp_solve(const float* t0, const float* q0, const float* X,
         t_out, q_out, static_cast<unsigned char*>(inlier), count, chi2);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fused solve's shape: out[0] blocks per stream, out[1] threads per
+// block, out[2] points per stream staged in shared memory
+extern "C" int lvt_pnp_shape(int* out) {
+  out[0] = 1;
+  out[1] = THREADS;
+  out[2] = CAP;
+  return 0;
 }
 
 // One phase (`kind`, `flag`: see pnp_phase_kernel) of S streams: state

@@ -24,40 +24,63 @@
 // selected slots score above t, ``valid`` compares against t_low. Slots
 // past ncells * k are zero.
 //
-// Design: a cell (62,500 px on KITTI, 307,200 in TUM's one cell) is split
-// into `tiles` tiles of about TILE_TARGET pixels (fewer, larger tiles where
-// tiles * k candidates would not fit a block's merge), one block of
-// THREADS each (grid (tiles, cells, images)). A block loads its tile's
-// keys into shared memory, counting their top digit as it goes, and keeps
-// the tile's top k: a radix select, 8 bits a pass from the top, with an
-// early exit once the bin holds exactly what is still needed (per-tile
-// top-k is exact: the cell's top k lies in the union of its tiles'), its
-// candidates written to a global scratch. The last block of a cell to
-// finish (an atomic arrival count) merges the candidates the same way,
-// sorts the k survivors (a bitonic network in shared memory) and writes
-// the cell's slots; the last cell of an image to finish writes the
-// image's ``valid`` and its pad slots. The counters are zeroed by a memset
-// node queued before the launch (no kernel, so a CUDA graph replays it;
-// the scratch is the wrapper's, so concurrent launches share nothing).
-// scripts/torch_select_clocks.py stamps each phase's clocks per block.
+// Design: one thread-block cluster per cell (grid (C, cells, images),
+// C = 8 blocks, 16 where a cell's rows need it). Block rank r owns the
+// cell's rows [r R, (r + 1) R), a contiguous range of cell-local index,
+// and keeps each pixel's 32-bit order-preserving value (the key's upper
+// half) in shared memory, read two rows a warp at a time, the top digit
+// counted as it loads; the reversed index is the value's position. The
+// cluster selects the k-th largest value T by a radix select, 8 bits a
+// pass from the top: each block histograms its values that share the
+// prefix so far, the blocks' histograms are added through distributed
+// shared memory (integer sums, so their order does not matter) and every
+// block finds the same digit; a pass stops once the digit's bin holds
+// exactly what is still needed. The pixels above T are taken; the ones equal to T (a bin not
+// exhausted after 32 bits) are cut lowest cell index first, by a prefix
+// over the ranks' counts in rank order and over the threads' contiguous
+// chunks within a block. A survivor's slot is the count of the cell's
+// survivors with a larger key: each block copies the cell's (at most k)
+// survivors out of the others' shared memory and counts, and writes its
+// own survivors' slots. The low-corner fallback needs every cell of an
+// image: each block adds its count above t to a per-image counter, and
+// rank 0 of each cluster counts the cluster in on a per-image arrival
+// counter (both zeroed by a memset node queued before the launch, so a
+// CUDA graph replays it); the image's last cluster writes ``valid`` and
+// the pad slots with all its blocks. No scratch in device memory besides
+// the counters. A block has 512 threads where the card runs all of a
+// launch's clusters at once, else 256 (fewer registers a block: more
+// clusters at once; path 3's 160 clusters). scripts/torch_select_clocks.py
+// stamps each phase's clocks per block.
 //
 // What bounds it: the maps (3.7 MB for a KITTI pair) are read once; the
 // select's passes run in shared memory, so the work is a few shared-memory
-// sweeps per pixel and the block-serial merge of each cell's candidates.
+// sweeps per pixel, one exchange of histograms per pass and one of the
+// survivors per cell. On the card the chain of cluster barriers sets its
+// time: a pass costs about 5k cycles, its count, its barrier and exchange
+// and its digit (scripts/torch_select_clocks.py); gathering a small bin's
+// values across the cluster to cut passes cost more than the passes on
+// path 1's frames.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+// a block's threads: 512, or 256 where a launch has more clusters than the
+// card runs at once at 512 (256 threads take fewer registers a block: more
+// clusters at once, each slower; the wrapper picks)
+constexpr int THREADS_WIDE = 512;
+constexpr int THREADS_NARROW = 256;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int TILE_TARGET = 4096;   // pixels a tile aims at
-constexpr int MAX_TILE = 24576;     // pixels a tile may hold (192 KB of keys)
-constexpr int MAX_CAND = 16384;     // candidates a cell's merge may hold
-constexpr int SMEM_KEYS = 28672;    // keys in a block's dynamic shared memory
-constexpr int UNROLL = 8;           // loads a thread has in flight
+constexpr int UNROLL = 8;            // loads a lane has in flight in a row
+constexpr int BATCH = 8;             // shared-memory reads a lane batches
+constexpr int SMEM_MAX = 232448;     // shared memory a block may take
+constexpr int SMEM_STATIC = 8192;    // ... of which the static arrays' share
+constexpr int CLUSTER_PORTABLE = 8;
+constexpr int CLUSTER_MAX = 16;
 
 typedef unsigned long long u64;
 
@@ -73,8 +96,8 @@ struct Geometry {
   int ncx, ncells;     // cells per grid row, per image
   int n;               // pixels per cell
   int k;               // slots per cell
-  int tiles, tile;     // blocks per cell, pixels per tile (the last fewer)
-  int kt;              // candidates a full tile keeps: min(k, tile)
+  int cluster;         // blocks per cell
+  int rows;            // cell rows per block (R)
   int cap;             // slots per image
 };
 
@@ -114,13 +137,13 @@ __device__ __forceinline__ float map_at(const float* img, const Geometry& g,
                             : 0.0f;
 }
 
-// top_k_lowest_index_first's key of value v at cell index i, as an
-// unsigned 64-bit integer (the signed key with its sign bit flipped)
-__device__ __forceinline__ u64 key_of(float v, int rev) {
+// The upper half of top_k_lowest_index_first's key of value v: the
+// order-preserving image of its bits as an unsigned integer (the signed
+// image with its sign bit flipped)
+__device__ __forceinline__ unsigned value_of(float v) {
   int bits = __float_as_int(__fadd_rn(v, 0.0f));   // folds -0.0 into +0.0
   if (bits < 0) bits ^= 0x7fffffff;
-  return (static_cast<u64>(static_cast<unsigned>(bits) ^ 0x80000000u) << 32) |
-         static_cast<unsigned>(rev);
+  return static_cast<unsigned>(bits) ^ 0x80000000u;
 }
 
 // detect._parab_offset: (sm - 2 s0) + sp, 0.5 (sm - sp) / denom, clamped
@@ -134,130 +157,85 @@ __device__ __forceinline__ float parab(float sm, float s0, float sp) {
   return r != r ? r : fminf(fmaxf(r, -0.5f), 0.5f);
 }
 
-// The selection of radix_select: the keys with (key & msk) >= pre
-struct Sel {
-  u64 pre, msk;
-};
-
-// The `need` largest of the unique keys keys[0, len) (1 <= need <= len),
-// 8 bits a pass from the top: each pass histograms the keys that share the
-// prefix so far (one shared atomic per key: on the card that beat one per
-// warp and digit, whether by __match_any_sync or by a warp vote on one
-// digit, scripts/torch_select_clocks.py), and warp 0 finds the bin where
-// the count from the top reaches `need`.
-// Every key of a higher bin is taken; the pass stops once the bin holds
-// exactly what is still needed. `hist` holds the top digit's histogram
-// already (the caller counted it as it loaded the keys). Every thread
-// calls it.
-__device__ Sel radix_select(const u64* keys, int len, int need,
-                            unsigned* hist, int* pick) {
+// The block's exclusive prefix of one int per thread in thread order, and
+// the block's total (two barriers)
+template <int THREADS>
+__device__ __forceinline__ int block_scan(int mine, int* warp_sums,
+                                          int& total) {
+  constexpr int WARPS = THREADS / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  u64 pre = 0, msk = 0;
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    if (shift < 56) {
-      for (int i = threadIdx.x; i < 256; i += THREADS) hist[i] = 0;
-      __syncthreads();
-      for (int i = threadIdx.x; i < len; i += THREADS) {
-        const u64 key = keys[i];
-        if ((key & msk) == pre) atomicAdd(&hist[(key >> shift) & 0xffu], 1u);
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // lane l holds bins 255 - 8 l down to 248 - 8 l
-      int c[8], sum = 0;
+  int incl = mine;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        c[j] = static_cast<int>(hist[255 - 8 * lane - j]);
-        sum += c[j];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int up = __shfl_up_sync(FULL, incl, off);
-        if (lane >= off) incl += up;
-      }
-      int run = incl - sum;
-      if (run < need && need <= incl) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (run + c[j] >= need) {
-            pick[0] = 255 - 8 * lane - j;
-            pick[1] = run;
-            pick[2] = c[j];
-            break;
-          }
-          run += c[j];
-        }
-      }
-    }
-    __syncthreads();
-    const int bin = pick[0], above = pick[1], count = pick[2];
-    need -= above;
-    pre |= static_cast<u64>(bin) << shift;
-    msk |= 0xffull << shift;
-    if (count == need) break;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += up;
   }
-  return Sel{pre, msk};
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = incl - mine;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int s = warp_sums[w];
+    if (w < warp) before += s;
+    total += s;
+  }
+  __syncthreads();
+  return before;
 }
 
-// The selected keys of keys[0, len) into out[*counter ...), in no order
-// (one shared atomic per warp); *counter must be 0 and the keys visible
-// to every thread. Every thread calls it.
-__device__ void compact(const u64* keys, int len, Sel s, u64* out,
-                        int* counter) {
+// Appends `key` to out[*counter ...) where `take` (one shared atomic per
+// warp); every lane of the warp calls it
+__device__ __forceinline__ void append(bool take, u64 key, u64* out,
+                                       int* counter) {
   const int lane = threadIdx.x & 31;
-  for (int base = 0; base < len; base += THREADS) {
-    const int i = base + threadIdx.x;
-    const u64 key = i < len ? keys[i] : 0;
-    const bool take = i < len && (key & s.msk) >= s.pre;
-    const unsigned ballot = __ballot_sync(FULL, take);
-    int at = 0;
-    if (lane == 0 && ballot) at = atomicAdd(counter, __popc(ballot));
-    at = __shfl_sync(FULL, at, 0);
-    if (take) out[at + __popc(ballot & ((1u << lane) - 1u))] = key;
-  }
+  const unsigned ballot = __ballot_sync(FULL, take);
+  int at = 0;
+  if (lane == 0 && ballot) at = atomicAdd(counter, __popc(ballot));
+  at = __shfl_sync(FULL, at, 0);
+  if (take) out[at + __popc(ballot & ((1u << lane) - 1u))] = key;
 }
 
-// The block's sum of one int per thread (two barriers)
-__device__ __forceinline__ int block_sum(int mine, int* warp_sums) {
+// The keys of every block's list (list[0, *n) in each block of the
+// cluster) into out[0, total), rank by rank; every thread calls it
+template <int C, int THREADS>
+__device__ void copy_ranks(cg::cluster_group& cluster, u64* list, int* n,
+                           u64* out, int total) {
+  int end[C];   // rank q's keys end at out[end[q]]
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mine += __shfl_xor_sync(FULL, mine, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = mine;
-  __syncthreads();
-  int total = 0;
+  for (int q = 0; q < C; ++q) end[q] = *cluster.map_shared_rank(n, q);
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) total += warp_sums[w];
-  __syncthreads();
-  return total;
-}
-
-// a[0, p) (p a power of two) sorted into descending order: a bitonic
-// network, one compare-exchange per thread and pair (on the card it beat
-// ranking by counting, scripts/torch_select_clocks.py). Every thread
-// calls it.
-__device__ void sort_desc(u64* a, int p) {
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < p / 2; t += THREADS) {
-        const int lo = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
-        const u64 x = a[lo], y = a[lo + stride];
-        if ((x < y) == ((lo & size) == 0)) {
-          a[lo] = y;
-          a[lo + stride] = x;
-        }
+  for (int q = 1; q < C; ++q) end[q] += end[q - 1];
+  for (int e = threadIdx.x; e < total; e += THREADS) {
+    int q = 0, at = e;
+#pragma unroll
+    for (int r = 0; r < C - 1; ++r) {
+      if (e >= end[r]) {
+        q = r + 1;
+        at = e - end[r];
       }
-      __syncthreads();
     }
+    out[e] = cluster.map_shared_rank(list, q)[at];
   }
 }
 
-// The smallest power of two >= n
-__host__ __device__ __forceinline__ int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
+// How many of keys[0, n) exceed `key`, a lane's share each, summed over
+// the warp (every lane gets it); every lane of the warp calls it
+__device__ __forceinline__ int count_above(const u64* keys, int n, u64 key,
+                                           int lane) {
+  int r = 0, r1 = 0, r2 = 0, r3 = 0;
+  int j = lane;
+  for (; j + 96 < n; j += 128) {
+    r += keys[j] > key;
+    r1 += keys[j + 32] > key;
+    r2 += keys[j + 64] > key;
+    r3 += keys[j + 96] > key;
+  }
+  for (; j < n; j += 32) r += keys[j] > key;
+  r += (r1 + r2) + r3;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(FULL, r, o);
+  return r;
 }
 
 // Slot `at` of the selected key: the corner (clamped to the image), the
@@ -296,146 +274,274 @@ __device__ int write_slot(const float* img, const float* raw,
   return score > p.t;
 }
 
-__global__ void __launch_bounds__(THREADS) select_corners_kernel(
-    const float* __restrict__ map, const float* __restrict__ raw, Geometry g,
-    Params p, u64* __restrict__ cand, int* __restrict__ counters, Out o) {
-  // the tile's keys; in the merge the cell's candidates, then its top k
-  extern __shared__ u64 keys[];
-  __shared__ unsigned hist[256];
+// One cluster of C blocks per cell, grid (C, cells, B). Dynamic shared
+// memory: the block's survivors' keys [k], the cell's survivors' keys
+// [k], the survivors' slots [k] and the block's values [R s_x].
+template <int C, int THREADS>
+__global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(THREADS)
+    select_corners_kernel(const float* __restrict__ map,
+                          const float* __restrict__ raw, Geometry g,
+                          Params p, int* __restrict__ counters, Out o) {
+  constexpr int WARPS = THREADS / 32;
+  extern __shared__ u64 dyn[];
+  u64* surv = dyn;                 // this block's survivors, in no order
+  u64* all = dyn + g.k;            // the cell's, rank by rank
+  int* slot = reinterpret_cast<int*>(dyn + 2 * g.k);   // surv[s]'s rank
+  unsigned* vals = reinterpret_cast<unsigned*>(slot + g.k);
+  __shared__ unsigned hist[2][256];   // a pass's histogram, read remotely
+  __shared__ unsigned tot[256];       // the cluster's
   __shared__ int pick[3];
   __shared__ int warp_sums[WARPS];
-  __shared__ int counter;
-  __shared__ int last;
-  const int tile = blockIdx.x, cell = blockIdx.y, b = blockIdx.z;
+  __shared__ int n_surv;              // this block's survivors, read remotely
+  __shared__ int n_ties;              // its pixels at T, read remotely
+  __shared__ int last;                // set by rank 0: the image's last cell
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cell = blockIdx.y, b = blockIdx.z;
   const int cy = cell / g.ncx, cx = cell - cy * g.ncx;
   const long long hw = static_cast<long long>(g.h) * g.w;
   const float* img = map + b * hw;
-  const long long cell_id = static_cast<long long>(b) * g.ncells + cell;
-  int* arrivals = counters;                          // [B * ncells]
-  int* img_count = counters + g.ncells * gridDim.z;  // [B]
-  int* img_arrivals = img_count + gridDim.z;         // [B]
+  int* img_count = counters;                 // [B]
+  int* img_arrivals = counters + gridDim.z;  // [B]
+  const int r0 = rank * g.rows;
+  const int nrows = max(0, min(g.s_y - r0, g.rows));
+  const int len = nrows * g.s_x, lo = r0 * g.s_x;
 
-  // the tile's top candidates: its keys into shared memory (UNROLL loads in
-  // flight a thread), their top digit counted on the way
+  // the block's values into shared memory, two rows a warp at a time
+  // (2 UNROLL loads in flight a lane), their top digit counted on the way
+  // (one shared atomic a warp where its digits agree, else one a pixel: on
+  // the card that beat one for the lanes sharing lane 0's digit and one for
+  // each other lane, scripts/torch_select_clocks.py)
   SELECT_CLOCK(0);
-  for (int i = threadIdx.x; i < 256; i += THREADS) hist[i] = 0;
-  if (threadIdx.x == 0) counter = 0;
+  for (int i = threadIdx.x; i < 256; i += THREADS) hist[0][i] = 0;
+  if (threadIdx.x == 0) n_surv = 0;
   __syncthreads();
-  const int lo = tile * g.tile, len = min(g.n - lo, g.tile);
-  for (int base = 0; base < len; base += THREADS * UNROLL) {
-    float v[UNROLL];
-    int yx[UNROLL][2];
+  for (int row0 = 2 * warp; row0 < nrows; row0 += 2 * WARPS) {
+    const int xb = cx * g.s_x;
+    for (int c0 = 0; c0 < g.s_x; c0 += 32 * UNROLL) {
+      float v[2][UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int i = lo + base + u * THREADS + threadIdx.x;
-      const int ly = i / g.s_x;
-      yx[u][0] = cy * g.s_y + ly;
-      yx[u][1] = cx * g.s_x + (i - ly * g.s_x);
-      v[u] = i < lo + len ? map_at(img, g, yx[u][0], yx[u][1]) : 0.0f;
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int y = cy * g.s_y + r0 + row0 + h;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = base + u * THREADS + threadIdx.x;
-      const float w = p.spread ? __fadd_rn(v[u], dither_at(yx[u][0],
-                                                           yx[u][1]))
-                               : v[u];
-      if (j < len) {
-        const u64 key = key_of(w, g.n - 1 - (lo + j));
-        keys[j] = key;
-        atomicAdd(&hist[key >> 56], 1u);
+        for (int u = 0; u < UNROLL; ++u) {
+          const int c = c0 + 32 * u + lane;
+          v[h][u] = c < g.s_x && row0 + h < nrows ? map_at(img, g, y, xb + c)
+                                                  : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + h, y = cy * g.s_y + r0 + row;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int c = c0 + 32 * u + lane;
+          const bool in = c < g.s_x && row < nrows;
+          const unsigned act = __ballot_sync(FULL, in);
+          if (act == 0) break;
+          const float wv =
+              p.spread ? __fadd_rn(v[h][u], dither_at(y, xb + c)) : v[h][u];
+          const unsigned val = value_of(wv);
+          if (in) vals[row * g.s_x + c] = val;
+          const unsigned d = val >> 24;
+          const unsigned d0 = __shfl_sync(FULL, d, 0);
+          if (__all_sync(FULL, !in || d == d0)) {
+            if (lane == 0) atomicAdd(&hist[0][d0], __popc(act));
+          } else if (in) {
+            atomicAdd(&hist[0][d], 1u);
+          }
+        }
       }
     }
   }
   __syncthreads();
-  SELECT_CLOCK(1);
-  const Sel tile_sel = radix_select(keys, len, min(g.k, len), hist, pick);
-  SELECT_CLOCK(2);
-  compact(keys, len, tile_sel, cand + (cell_id * g.tiles + tile) * g.kt,
-          &counter);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(&arrivals[cell_id], 1) == g.tiles - 1;
-  __syncthreads();
-  SELECT_CLOCK(3);
-  if (!last) return;
-  __threadfence();
 
-  // the cell's last block: its tiles' candidates (contiguous: only the
-  // last tile may keep fewer than kt), their top k, sorted
-  const int total = (g.tiles - 1) * g.kt +
-                    min(g.k, g.n - (g.tiles - 1) * g.tile);
-  const u64* src = cand + cell_id * g.tiles * g.kt;
-  for (int i = threadIdx.x; i < 256; i += THREADS) hist[i] = 0;
-  if (threadIdx.x == 0) counter = 0;
-  __syncthreads();
-#pragma unroll UNROLL
-  for (int j = threadIdx.x; j < total; j += THREADS) {
-    const u64 key = __ldcg(src + j);
-    keys[j] = key;
-    atomicAdd(&hist[key >> 56], 1u);
+  // the cell's k-th largest value T: a radix select over the cluster
+  SELECT_CLOCK(1);
+  unsigned pre = 0, msk = 0;
+  int need = g.k;
+  bool exact = false;
+  for (int pass = 0, shift = 24; shift >= 0; ++pass, shift -= 8) {
+    unsigned* h = hist[pass & 1];
+    if (pass > 0) {   // h was zeroed in the last pass
+      for (int base = threadIdx.x; base < len; base += BATCH * THREADS) {
+        unsigned u[BATCH];
+#pragma unroll
+        for (int i = 0; i < BATCH; ++i) {
+          const int j = base + i * THREADS;
+          u[i] = j < len ? vals[j] : ~pre;   // ~pre never has the prefix
+        }
+#pragma unroll
+        for (int i = 0; i < BATCH; ++i)
+          if ((u[i] & msk) == pre) atomicAdd(&h[(u[i] >> shift) & 0xffu], 1u);
+      }
+    }
+    SELECT_CLOCK(9 + 3 * pass);
+    cluster.sync();
+    for (int i = threadIdx.x; i < 256; i += THREADS) {
+      unsigned s = 0;
+#pragma unroll
+      for (int q = 0; q < C; ++q) s += cluster.map_shared_rank(h, q)[i];
+      tot[i] = s;
+      // the next pass's buffer: every block read it in the last pass,
+      // before this pass's cluster barrier
+      hist[(pass + 1) & 1][i] = 0;
+    }
+    __syncthreads();
+    SELECT_CLOCK(10 + 3 * pass);
+    if (warp == 0) {
+      // lane l holds bins 255 - 8 l down to 248 - 8 l
+      int c[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = static_cast<int>(tot[255 - 8 * lane - j]);
+        sum += c[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int up = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl += up;
+      }
+      int run = incl - sum;
+      if (run < need && need <= incl) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (run + c[j] >= need) {
+            pick[0] = 255 - 8 * lane - j;
+            pick[1] = run;
+            pick[2] = c[j];
+            break;
+          }
+          run += c[j];
+        }
+      }
+    }
+    __syncthreads();
+    SELECT_CLOCK(11 + 3 * pass);
+    const int bin = pick[0], above = pick[1], count = pick[2];
+    need -= above;
+    pre |= static_cast<unsigned>(bin) << shift;
+    msk |= 0xffu << shift;
+    if (count == need) {
+      exact = true;   // the bin is taken whole
+      break;
+    }
   }
-  const int p2 = pow2_at_least(g.k);
-  u64* top = keys + total;
-  for (int j = g.k + threadIdx.x; j < p2; j += THREADS) top[j] = 0;
+
+  // the survivors: every value above T (or in T's exhausted bin), then
+  // the `need` pixels at T of lowest cell index
+  SELECT_CLOCK(2);
+  for (int base = 0; base < len; base += BATCH * THREADS) {
+    unsigned u[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int j = base + i * THREADS + threadIdx.x;
+      u[i] = j < len ? vals[j] : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int j = base + i * THREADS + threadIdx.x;
+      const bool take =
+          j < len && (exact ? (u[i] & msk) >= pre : u[i] > pre);
+      append(take, (static_cast<u64>(u[i]) << 32) |
+                       static_cast<unsigned>(g.n - 1 - (lo + j)),
+             surv, &n_surv);
+    }
+  }
+  if (!exact) {
+    // thread t's contiguous chunk of the block's values, in index order
+    const int chunk = (len + THREADS - 1) / THREADS;
+    const int j0 = min(len, threadIdx.x * chunk), j1 = min(len, j0 + chunk);
+    int mine = 0;
+    for (int j = j0; j < j1; ++j) mine += vals[j] == pre;
+    int ties;
+    int before = block_scan<THREADS>(mine, warp_sums, ties);
+    if (threadIdx.x == 0) n_ties = ties;
+    cluster.sync();
+    int below = 0;   // the ties of the lower ranks
+    for (int q = 0; q < rank; ++q)
+      below += *cluster.map_shared_rank(&n_ties, q);
+    const int take = min(ties, max(0, need - below));
+    for (int j = j0; j < j1 && before < take; ++j) {
+      if (vals[j] == pre) {
+        surv[atomicAdd(&n_surv, 1)] =
+            (static_cast<u64>(pre) << 32) |
+            static_cast<unsigned>(g.n - 1 - (lo + j));
+        ++before;
+      }
+    }
+  }
   __syncthreads();
+
+  // the cell's survivors out of every block's shared memory, rank by rank
+  SELECT_CLOCK(3);
+  cluster.sync();
+  copy_ranks<C, THREADS>(cluster, surv, &n_surv, all, g.k);
+  cluster.sync();   // no block reads another's shared memory after this
+
+  // each survivor's slot: the survivors of the cell with a larger key
   SELECT_CLOCK(4);
-  compact(keys, total, radix_select(keys, total, g.k, hist, pick), top,
-          &counter);
+  const int mine_n = n_surv;
+  for (int s = warp; s < mine_n; s += WARPS) {   // a warp per survivor
+    const int r = count_above(all, g.k, surv[s], lane);
+    if (lane == 0) slot[s] = r;
+  }
   __syncthreads();
   SELECT_CLOCK(5);
-  sort_desc(top, p2);
-  SELECT_CLOCK(6);
   int above_t = 0;
-  for (int r = threadIdx.x; r < g.k; r += THREADS)
+  for (int s = threadIdx.x; s < mine_n; s += THREADS)
     above_t += write_slot(img, raw ? raw + b * hw : nullptr, g, p, o,
-                          static_cast<long long>(b) * g.cap + cell * g.k + r,
-                          cy, cx, top[r]);
+                          static_cast<long long>(b) * g.cap + cell * g.k +
+                              slot[s],
+                          cy, cx, surv[s]);
+  int count;
+  block_scan<THREADS>(above_t, warp_sums, count);
+  SELECT_CLOCK(6);
+  if (threadIdx.x == 0) atomicAdd(&img_count[b], count);
   __threadfence();
-  const int count = block_sum(above_t, warp_sums);
-  SELECT_CLOCK(7);
-  if (threadIdx.x == 0) {
-    atomicAdd(&img_count[b], count);
+  cluster.sync();   // the cell's slots and counts are in device memory
+  if (rank == 0 && threadIdx.x == 0) {
     __threadfence();
-    last = atomicAdd(&img_arrivals[b], 1) == g.ncells - 1;
+    const int is_last = atomicAdd(&img_arrivals[b], 1) == g.ncells - 1;
+    for (int q = 0; q < C; ++q) *cluster.map_shared_rank(&last, q) = is_last;
   }
-  __syncthreads();
+  cluster.sync();
+  SELECT_CLOCK(7);
   if (!last) return;
   __threadfence();
 
-  // the image's last cell: the fallback, ``valid``, the pad slots
+  // the image's last cell: the fallback, ``valid``, the pad slots, the
+  // slots split over the cluster's blocks
   const int n_above = atomicAdd(&img_count[b], 0);
   const float t_eff = n_above < p.low_count ? p.t_low : p.t;
   const int used = g.ncells * g.k;
   const long long row = static_cast<long long>(b) * g.cap;
-  for (int base = 0; base < used; base += THREADS * UNROLL) {
-    float sc[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int s = base + u * THREADS + threadIdx.x;
-      sc[u] = s < used ? __ldcg(o.score + row + s) : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int s = base + u * THREADS + threadIdx.x;
-      if (s < used) o.valid[row + s] = sc[u] > t_eff;
-    }
-  }
-  for (int s = used + threadIdx.x; s < g.cap; s += THREADS) {
+  const int per = (g.cap + C - 1) / C;
+  const int s0 = rank * per, s1 = min(g.cap, s0 + per);
+  for (int s = s0 + threadIdx.x; s < s1; s += THREADS) {
     const long long at = row + s;
-    o.xi[at] = 0;
-    o.yi[at] = 0;
-    o.xc[at] = min(max(0, p.x0), p.x1);
-    o.yc[at] = min(max(0, p.y0), p.y1);
-    o.score[at] = 0.0f;
-    o.valid[at] = 0;
-    if (o.kp) {
-      o.kp[2 * at] = o.kp[2 * at + 1] = 0.0f;
-      o.corner[2 * at] = o.corner[2 * at + 1] = 0.0f;
+    if (s < used) {
+      o.valid[at] = __ldcg(o.score + at) > t_eff;
+    } else {
+      o.xi[at] = 0;
+      o.yi[at] = 0;
+      o.xc[at] = min(max(0, p.x0), p.x1);
+      o.yc[at] = min(max(0, p.y0), p.y1);
+      o.score[at] = 0.0f;
+      o.valid[at] = 0;
+      if (o.kp) {
+        o.kp[2 * at] = o.kp[2 * at + 1] = 0.0f;
+        o.corner[2 * at] = o.corner[2 * at + 1] = 0.0f;
+      }
     }
   }
   SELECT_CLOCK(8);
 }
+
+// Dynamic shared memory of a block holding `px` values of a cell keeping k
+long long smem_bytes(long long px, int k) { return 20ll * k + 4 * px; }
 
 // The launch's geometry for an h x w map, or false where a bound is
 // exceeded (the wrapper checks first and raises)
@@ -451,72 +557,144 @@ bool geometry(int h, int w, int cell_size, int k, int cap, Geometry& g) {
   g.n = g.s_y * g.s_x;
   g.k = k;
   g.cap = cap;
-  int tiles = (g.n + TILE_TARGET - 1) / TILE_TARGET;
-  const int most = MAX_CAND / k > 1 ? MAX_CAND / k : 1;
-  if (tiles > most) tiles = most;
-  g.tile = (g.n + tiles - 1) / tiles;
-  g.tiles = (g.n + g.tile - 1) / g.tile;
-  g.kt = k < g.tile ? k : g.tile;
-  const long long merge =
-      static_cast<long long>(g.tiles) * g.kt + pow2_at_least(k);
-  return k <= g.n && g.tile <= MAX_TILE && merge <= SMEM_KEYS &&
+  g.cluster = CLUSTER_PORTABLE;
+  g.rows = (g.s_y + g.cluster - 1) / g.cluster;
+  if (smem_bytes(static_cast<long long>(g.rows) * g.s_x, k) >
+      SMEM_MAX - SMEM_STATIC) {
+    g.cluster = CLUSTER_MAX;
+    g.rows = (g.s_y + g.cluster - 1) / g.cluster;
+  }
+  return k <= g.n &&
+         smem_bytes(static_cast<long long>(g.rows) * g.s_x, k) <=
+             SMEM_MAX - SMEM_STATIC &&
          static_cast<long long>(g.ncells) * k <= cap && g.ncells <= 65535;
 }
 
-size_t smem_bytes(const Geometry& g) {
-  const int merge = g.tiles * g.kt + pow2_at_least(g.k);
-  return sizeof(u64) * (g.tile > merge ? g.tile : merge);
+template <int C, int THREADS>
+cudaError_t prepare(const Geometry& g) {
+  const int smem = static_cast<int>(
+      smem_bytes(static_cast<long long>(g.rows) * g.s_x, g.k));
+  cudaError_t err = cudaFuncSetAttribute(
+      select_corners_kernel<C, THREADS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && C > CLUSTER_PORTABLE)
+    err = cudaFuncSetAttribute(select_corners_kernel<C, THREADS>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  return err;
+}
+
+template <int C, int THREADS>
+int max_active_clusters(const Geometry& g, int batch) {
+  if (prepare<C, THREADS>(g) != cudaSuccess) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, g.ncells, batch);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes =
+      smem_bytes(static_cast<long long>(g.rows) * g.s_x, g.k);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, select_corners_kernel<C, THREADS>,
+                                     &cfg) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int C, int THREADS>
+cudaError_t launch(const Geometry& g, int batch, const float* map,
+                   const float* raw, const Params& p, int* counters,
+                   const Out& o, cudaStream_t s) {
+  const cudaError_t err = prepare<C, THREADS>(g);
+  if (err != cudaSuccess) return err;
+  select_corners_kernel<C, THREADS>
+      <<<dim3(C, g.ncells, batch), THREADS,
+         smem_bytes(static_cast<long long>(g.rows) * g.s_x, g.k), s>>>(
+          map, raw, g, p, counters, o);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // The geometry of a launch on [B, h, w] maps: out[0] cells per image,
-// out[1] tiles (blocks) per cell, out[2] candidates per tile (the
-// scratch's [B, cells, tiles, out[2]] keys), out[3] pixels per tile,
-// out[4] dynamic shared memory bytes. Returns 0, or 1 where a bound is
-// exceeded.
+// out[1] blocks per cell (the cluster), out[2] cell rows per block, out[3]
+// pixels per block, out[4] dynamic shared memory bytes, out[5] the most
+// pixels a block may hold at this k, out[6] threads per block at most
+// (the wrapper takes fewer where lvt_select_max_clusters says so). Returns 0,
+// or 1 where a bound is exceeded (out[5] then says how many pixels a block
+// may hold, out[1] the largest cluster).
 extern "C" int lvt_select_geometry(int h, int w, int cell_size, int k,
                                    int cap, int* out) {
-  Geometry g;
-  if (!geometry(h, w, cell_size, k, cap, g)) return 1;
+  Geometry g{};
+  const bool ok = geometry(h, w, cell_size, k, cap, g);
   out[0] = g.ncells;
-  out[1] = g.tiles;
-  out[2] = g.kt;
-  out[3] = g.tile;
-  out[4] = static_cast<int>(smem_bytes(g));
-  return 0;
+  out[1] = g.cluster;
+  out[2] = g.rows;
+  out[3] = g.rows * g.s_x;
+  out[4] = static_cast<int>(
+      smem_bytes(static_cast<long long>(g.rows) * g.s_x, k));
+  const long long most = (SMEM_MAX - SMEM_STATIC - smem_bytes(0, k)) / 4;
+  out[5] = static_cast<int>(most > 0 ? most : 0);
+  out[6] = THREADS_WIDE;
+  return ok ? 0 : 1;
+}
+
+// How many of a launch's clusters of blocks of `threads` (512 or 256) the
+// card runs at once (cudaOccupancyMaxActiveClusters at its shared memory),
+// or -1
+extern "C" int lvt_select_max_clusters(int batch, int h, int w,
+                                       int cell_size, int k, int cap,
+                                       int threads) {
+  Geometry g;
+  if (!geometry(h, w, cell_size, k, cap, g)) return -1;
+  const bool wide = threads == THREADS_WIDE;
+  if (!wide && threads != THREADS_NARROW) return -1;
+  if (g.cluster == CLUSTER_PORTABLE)
+    return wide ? max_active_clusters<CLUSTER_PORTABLE, THREADS_WIDE>(g, batch)
+                : max_active_clusters<CLUSTER_PORTABLE, THREADS_NARROW>(g,
+                                                                      batch);
+  return wide ? max_active_clusters<CLUSTER_MAX, THREADS_WIDE>(g, batch)
+              : max_active_clusters<CLUSTER_MAX, THREADS_NARROW>(g, batch);
 }
 
 // CS: the NMS map [B, h, w] f32 (and the raw score map, or null) -> the
 // slots [B, cap]: xi, yi, xc, yc int32, score f32, valid bool, and with
-// the raw map kp and corner [B, cap, 2] f32. cand: the [B, cells, tiles,
-// kt] u64 scratch; counters: [B * cells + 2 B] int32 scratch, zeroed here
-// by a memset node on the stream. Grid (tiles, cells, B).
+// the raw map kp and corner [B, cap, 2] f32; blocks of `threads` (512 or
+// 256). counters: [2 B] int32 scratch, zeroed here by a memset node on the
+// stream. Grid (cluster, cells, B).
 extern "C" int lvt_select_corners(
     const float* map, const float* raw, int batch, int h, int w,
-    int cell_size, int k, int cap, float t, float t_low, int low_count,
-    int spread, int x0, int x1, int y0, int y1, void* cand, int* counters,
-    int* xi, int* yi, int* xc, int* yc, float* score, void* valid,
-    float* kp, float* corner, void* stream) {
+    int cell_size, int k, int cap, int threads, float t, float t_low,
+    int low_count, int spread, int x0, int x1, int y0, int y1, int* counters,
+    int* xi, int* yi, int* xc, int* yc, float* score, void* valid, float* kp,
+    float* corner, void* stream) {
   Geometry g;
-  if (!geometry(h, w, cell_size, k, cap, g))
+  if (!geometry(h, w, cell_size, k, cap, g) ||
+      (threads != THREADS_WIDE && threads != THREADS_NARROW))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch < 1) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(
-      counters, 0, sizeof(int) * (static_cast<size_t>(batch) * g.ncells +
-                                  2 * static_cast<size_t>(batch)), s);
+      counters, 0, sizeof(int) * 2 * static_cast<size_t>(batch), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(g);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(select_corners_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const Params p{t, t_low, low_count, spread, x0, x1, y0, y1};
   const Out o{xi, yi, xc, yc, score, static_cast<uint8_t*>(valid), kp, corner};
-  select_corners_kernel<<<dim3(g.tiles, g.ncells, batch), THREADS, smem, s>>>(
-      map, raw, g, p, static_cast<u64*>(cand), counters, o);
-  return static_cast<int>(cudaGetLastError());
+  const bool wide = threads == THREADS_WIDE;
+  if (g.cluster == CLUSTER_PORTABLE) {
+    err = wide ? launch<CLUSTER_PORTABLE, THREADS_WIDE>(g, batch, map, raw, p,
+                                                        counters, o, s)
+               : launch<CLUSTER_PORTABLE, THREADS_NARROW>(g, batch, map, raw,
+                                                          p, counters, o, s);
+  } else {
+    err = wide ? launch<CLUSTER_MAX, THREADS_WIDE>(g, batch, map, raw, p,
+                                                   counters, o, s)
+               : launch<CLUSTER_MAX, THREADS_NARROW>(g, batch, map, raw, p,
+                                                     counters, o, s);
+  }
+  return static_cast<int>(err);
 }

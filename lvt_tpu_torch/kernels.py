@@ -46,6 +46,7 @@ _SIGNATURES = {
     "lvt_stream_sum": [_P, _I, _I, _P, _P],
     "lvt_pnp_solve": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _P, _P,
                       _P, _P, _P, _P, _P],
+    "lvt_pnp_shape": [_P],
     "lvt_pnp_phase": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                       _F, _P, _P, _P, _P, _P],
     "lvt_ba_refine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
@@ -61,8 +62,9 @@ _SIGNATURES = {
                                + [_P] * 17),
     "lvt_map_accept": [_P] * 5 + [_I] * 3 + [_F, _F, _I] + [_P] * 9,
     "lvt_select_geometry": [_I] * 5 + [_P],
-    "lvt_select_corners": ([_P, _P] + [_I] * 6 + [_F, _F] + [_I] * 6
-                           + [_P] * 11),
+    "lvt_select_max_clusters": [_I] * 7,
+    "lvt_select_corners": ([_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 6
+                           + [_P] * 10),
     "lvt_if_node": [_P, _P, _P, _P],
     "lvt_graph_node_counts": [_P, _P, _I],
 }

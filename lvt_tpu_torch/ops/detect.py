@@ -26,6 +26,7 @@ axis.
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 from typing import NamedTuple
 
@@ -318,6 +319,23 @@ def select_corners_plain(nms, raw, threshold: float, cell_size: int,
     return xi, yi, xc, yc, pad(det.score), pad(det.valid), kp, corner
 
 
+@functools.lru_cache(maxsize=None)
+def select_threads(device: int, batch: int, h: int, w: int, cell_size: int,
+                   max_per_cell: int, capacity: int) -> int:
+    """Threads a block of ``csrc/select.cu``'s launch takes on CUDA device
+    ``device``: 512 where the card runs all the launch's clusters at once
+    with blocks of 512 (cudaOccupancyMaxActiveClusters), else 256 (fewer
+    registers a block, so more clusters at once). Asked once per shape, in
+    the first (eager) frame, before any capture."""
+    with torch.cuda.device(device):
+        geo = (ctypes.c_int * 7)()
+        kernels.lib().lvt_select_geometry(h, w, cell_size, max_per_cell,
+                                          capacity, geo)
+        fit = kernels.lib().lvt_select_max_clusters(
+            batch, h, w, cell_size, max_per_cell, capacity, geo[6])
+    return geo[6] if batch * geo[0] <= fit else geo[6] // 2
+
+
 @torch.library.custom_op("lvt_tpu_torch::select_corners", mutates_args=(),
                          device_types="cuda")
 def select_corners_op(nms: torch.Tensor, raw: torch.Tensor,
@@ -331,30 +349,32 @@ def select_corners_op(nms: torch.Tensor, raw: torch.Tensor,
     (empty: patch mode) -> :func:`select_corners_plain`'s outputs.
 
     CUDA: one launch of ``csrc/select.cu``'s ``select_corners_kernel``,
-    grid (tiles, cells, images): each block keeps its tile's top
-    ``max_per_cell`` by a radix select in shared memory, the last block of
-    a cell merges its tiles' candidates and writes the cell's slots, the
-    last cell of an image applies the low-corner fallback (the counters
-    are a scratch the wrapper allocates and the launch zeroes)."""
+    a thread-block cluster per cell (grid (blocks per cell, cells,
+    images)): each block holds a range of the cell's rows in shared
+    memory, the cluster finds the cell's ``max_per_cell``-th largest value
+    by a radix select over distributed shared memory and writes the
+    cell's slots, the last cell of an image applies the low-corner
+    fallback (its two counters per image are a scratch the wrapper
+    allocates and the launch zeroes); blocks of ``select_threads``."""
     b, h, w = nms.shape
     dev = nms.device
     kernels.require(nms, "nms", torch.float32, (b, h, w), dev)
     subpixel = raw.numel() > 0
     if subpixel:
         kernels.require(raw, "raw", torch.float32, (b, h, w), dev)
-    geo = (ctypes.c_int * 5)()
+    geo = (ctypes.c_int * 7)()
     if kernels.lib().lvt_select_geometry(h, w, cell_size, max_per_cell,
                                          capacity, geo):
+        s_y, s_x = min(cell_size, h), min(cell_size, w)
         raise ValueError(
-            f"select_corners: cells of {min(cell_size, h)}x"
-            f"{min(cell_size, w)} px keeping {max_per_cell} each in "
-            f"{capacity} slots exceed the kernel's bounds (csrc/select.cu: "
-            f"a tile of at most 24576 px, a merge of at most 28672 keys)")
-    ncells, tiles, kt = geo[0], geo[1], geo[2]
-    cand = torch.empty((b * ncells * tiles * kt,), dtype=torch.int64,
-                       device=dev)
-    counters = torch.empty((b * ncells + 2 * b,), dtype=torch.int32,
-                           device=dev)
+            f"select_corners: cells of {s_y}x{s_x} px keeping "
+            f"{max_per_cell} each in {capacity} slots exceed the kernel's "
+            f"bounds (csrc/select.cu): at most {max_per_cell} per cell of "
+            f"{s_y * s_x} px, {geo[0]} cells x {max_per_cell} within the "
+            f"{capacity} slots, and a cluster of at most {geo[1]} blocks "
+            f"holding a cell's rows, {geo[3]} px a block here where one may "
+            f"hold {geo[5]} at this max_per_cell")
+    counters = torch.empty((2 * b,), dtype=torch.int32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     outs = (*(torch.empty((b, capacity), **i32) for _ in range(4)),
             torch.empty((b, capacity), dtype=torch.float32, device=dev),
@@ -363,12 +383,14 @@ def select_corners_op(nms: torch.Tensor, raw: torch.Tensor,
                           dtype=torch.float32, device=dev)
               for _ in range(2)))
     t, t_low = _thresholds(threshold)
+    threads = select_threads(dev.index, b, h, w, cell_size, max_per_cell,
+                             capacity)
     err = kernels.lib().lvt_select_corners(
         nms.data_ptr(), raw.data_ptr() if subpixel else None, b, h, w,
-        cell_size, max_per_cell, capacity, t, t_low,
+        cell_size, max_per_cell, capacity, threads, t, t_low,
         int(corners_low_threshold), int(spread_ties), PATCH_C0,
         w - PATCH + PATCH_C0, PATCH_R0, h - PATCH + PATCH_R0,
-        cand.data_ptr(), counters.data_ptr(),
+        counters.data_ptr(),
         *(x.data_ptr() for x in outs[:6]),
         *((x.data_ptr() if subpixel else None) for x in outs[6:]),
         kernels.stream_ptr(nms))

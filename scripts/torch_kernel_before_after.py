@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-"""lvt_tpu_torch's kernels A, B and T of two trees on one NVIDIA GPU, in
-one run.
+"""lvt_tpu_torch's kernels A, B and T, PnP's fused solve and the corner
+selection of two trees on one NVIDIA GPU, in one run.
 
     git archive <parent commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_before_after.py --parent build/parent
 
 Runs kernels A (perception), B (dense BRIEF planes) and T (Hamming
-top-2, the single-stream call at its four sites) of the parent tree
-("old") and of this tree ("new") in turns, old, new, new, old, one process
-each, on the same inputs: those of ``chip_smoke.kernel_inputs`` at the
-main paths' shapes (a uint8 KITTI pair, its box sums, and T's arguments
-from the descriptors of two frames), made once by this tree. Each process
-builds its tree's kernels (printing ptxas's registers and spills) and
-measures them with this tree's ``chip_smoke.measure_a_b``: each kernel
-against its plain version, bit for bit, timed with
+top-2, the single-stream call at its four sites), ``pnp_solve`` and
+``select_corners`` of the parent tree ("old") and of this tree ("new") in
+turns, old, new, new, old, one process each, on the same inputs: those of
+``chip_smoke.kernel_inputs`` at the main paths' shapes (a uint8 KITTI
+pair, its box sums, and T's arguments from the descriptors of two
+frames); PnP problems as ``tests/test_torch_cuda.py`` poses them at M =
+1024 and 4096 points and S = 1 and 8 streams; kernel A's maps of path
+1's KITTI pair, path 3's 16 images and TUM fr1's one cell (one random
+640 x 480 frame) for the selection; all made once by this tree. Each
+process builds its tree's kernels (printing ptxas's registers and
+spills) and measures them with this tree's ``chip_smoke.measure_a_b``:
+each kernel against its plain version, bit for bit, timed with
 ``chip_smoke.device_ms``, with ``chip_smoke.bound``; A also on the pair
-made non-integer float32; T timed with ``device_ms`` at each site. The
-parent tree's wrappers must take the same arguments as this tree's.
+made non-integer float32; T, the solve and the selection timed with
+``device_ms`` at each of their shapes. The parent tree's wrappers must
+take the same arguments as this tree's.
 
 The script then checks that old and new give the same bits (A's three maps
-on both pairs, B's planes, T's outputs at every site), says for A and B
-whether every new run was faster than every old run, prints T's times,
-and writes every run and the mean of each side to ``--out`` (default
+on both pairs, B's planes, T's, the solve's and the selection's outputs at
+every shape), says for A, B, the solve and the selection whether every
+new run was faster than every old run, prints T's times, and writes every
+run and the mean of each side to ``--out`` (default
 ``build/before_after/result.json``, under the checkout). It needs the
 card: without one it fails.
 """
@@ -41,6 +47,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, "build", "before_after")
 ORDER = ("old", "new", "new", "old")
+PNP_SHAPES = ((1024, 1), (1024, 8), (4096, 1), (4096, 8))
 
 
 def _smoke():
@@ -57,25 +64,65 @@ def _smoke():
 def prepare(path: str) -> None:
     sys.path.insert(0, ROOT)
     smoke = _smoke()
+    from lvt_tpu_torch import bench
     from lvt_tpu_torch.configs import kitti_config
 
     config = kitti_config()
-    frames = list(smoke._world(config).stereo_sequence(2, speed=0.9))
-    il, ir = (torch.from_numpy(np.stack([f[i].astype(np.uint8)
-                                         for f in frames])).cuda()
-              for i in (0, 1))
-    inp = smoke.kernel_inputs(config, il, ir)
+    left, right = (torch.from_numpy(x).cuda()
+                   for x in bench.render(config, 8)[:2])
+    inp = smoke.kernel_inputs(config, left[:2], right[:2])
     torch.save(dict(imgs=inp["imgs"], smooth=inp["p_args"][0],
-                    t_sites=inp["sites"]), path)
+                    t_sites=inp["sites"], pnp=pnp_problems(),
+                    select=select_problems(config, left, right)), path)
+
+
+def pnp_problems() -> dict:
+    """The fused solve's arguments at each (M, S) of PNP_SHAPES:
+    tests/test_torch_cuda.py's problems, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_cuda", os.path.join(ROOT, "tests", "test_torch_cuda.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    cam = dict(cases.PNP_CAM, reprojection_th2=5.991)
+    return {f"M={m} S={s}": (cases._pnp_problem(np.random.RandomState(m + s),
+                                                 s, m, "cuda"),
+                              tuple(cam.values()))
+            for m, s in PNP_SHAPES}
+
+
+def select_problems(config, left, right) -> dict:
+    """The selection's arguments on kernel A's maps: path 1's KITTI pair,
+    path 3's 16 images (8 frames of bench.py's sequence) and TUM fr1's one
+    cell of 640 x 480 keeping 1000 (a random frame)."""
+    from lvt_tpu_torch.configs import tum_rgbd_config
+    from lvt_tpu_torch.ops import perception
+
+    kitti = torch.stack([left, right], 1).flatten(0, 1)
+    tum = tum_rgbd_config(1)
+    frame = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (1, tum.img_height, tum.img_width)).astype(np.uint8)).cuda()
+    out = {}
+    for name, c, imgs in (("path1 KITTI pair", config, kitti[:2]),
+                          ("path3 16 images", config, kitti),
+                          ("TUM fr1 cell", tum, frame)):
+        nms = perception.perception_patch_maps_batched(imgs)[0]
+        out[name] = (nms, nms.new_zeros((0,)), float(c.agast_threshold),
+                     c.detection_cell_size, c.max_keypoints_per_cell,
+                     c.corners_low_threshold, True, c.kp_capacity)
+    return out
 
 
 def worker(side: str, root: str, inputs: str, out: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import lvt_tpu_torch  # noqa: F401  (this side's package, first)
-    from lvt_tpu_torch.ops import perception, top2
+    from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.ops import detect, perception, top2
+    from lvt_tpu_torch.solver import pnp
 
     smoke = _smoke()
-    card = smoke.phase_device()
+    card = smoke.card_info()
+    print(smoke._smi("name,power.limit"), flush=True)
+    kernels.build(verbose=True)   # prints ptxas's registers and spills
     inp = torch.load(inputs, map_location="cuda")
     imgs, smooth = inp["imgs"], inp["smooth"]
     rep = smoke.measure_a_b(card, imgs, smooth)
@@ -88,6 +135,15 @@ def worker(side: str, root: str, inputs: str, out: str) -> None:
         outs[f"t_{site}"] = smoke._flat(top2.hamming_top2(*a, **kw))
         rep["hamming_top2"][site] = dict(ms=smoke.device_ms(
             lambda a=a, kw=kw: top2.hamming_top2(*a, **kw), smoke.REPS))
+    for group, op, sites in (("pnp_solve", pnp.pnp_solve_op, inp["pnp"]),
+                             ("select_corners", detect.select_corners_op,
+                              inp["select"])):
+        rep[group] = {}
+        for site, args in sites.items():
+            args = (*args[0], *args[1]) if group == "pnp_solve" else args
+            outs[f"{group}:{site}"] = smoke._flat(op(*args))
+            rep[group][site] = dict(ms=smoke.device_ms(
+                lambda a=args: op(*a), smoke.REPS))
     torch.save({k: [t.cpu() for t in v] for k, v in outs.items()}, out)
     print(json.dumps(dict(side=side, card=card, kernels=rep)), flush=True)
 
@@ -144,8 +200,17 @@ def main(argv=None) -> int:
                                      "the old one")
     print("old and new give the same bits: A's nms, raw and smooth on the "
           "uint8 and the float32 pair, B's planes, T's outputs at "
-          f"{', '.join(k[2:] for k in old if k.startswith('t_'))}",
-          flush=True)
+          f"{', '.join(k[2:] for k in old if k.startswith('t_'))}; "
+          f"{', '.join(k for k in old if ':' in k)}", flush=True)
+    for group in ("pnp_solve", "select_corners"):
+        for site in runs[0]["kernels"][group]:
+            ms = [r["kernels"][group][site]["ms"] for r in runs]
+            by = {s: [m for m, r in zip(ms, runs) if r["side"] == s]
+                  for s in ("old", "new")}
+            verdict = ("faster in every run" if max(by["new"]) < min(by["old"])
+                       else "NOT faster in every run")
+            print(f"{group} {site} ms by run ({', '.join(ORDER)}): {ms}: "
+                  f"new {verdict}", flush=True)
     for site in runs[0]["kernels"]["hamming_top2"]:
         print(f"hamming_top2 at {site} ms by run ({', '.join(ORDER)}): "
               f"{[r['kernels']['hamming_top2'][site]['ms'] for r in runs]}",

@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
 """Where the corner selection's kernel spends its time: the SM clock at
-each phase boundary of ``csrc/select.cu``'s kernel, in every block, for
-variants of its block size and tile size.
+each phase boundary of ``csrc/select.cu``'s kernel, in every block, at
+each block size it takes.
 
-For each variant the script writes two copies of
-``lvt_tpu_torch/csrc/select.cu`` into ``build/select_clocks/`` with
-``THREADS`` and ``TILE_TARGET`` set: one as it is, and one that defines
-the kernel's ``SELECT_CLOCK(slot)`` markers as a block barrier and a
-``clock64()`` stamp by thread 0. It builds them with nvcc for sm_90a (ptxas's
-registers and spills printed) and launches them on kernel A's maps of
-random uint8 frames at path 1's shape (a KITTI pair, 250-px cells keeping
-150, 1536 slots), path 3's 16 images, and TUM fr1's one cell of 640 x 480
-keeping 1000 at 1 and 8 images.
+The script writes two copies of ``lvt_tpu_torch/csrc/select.cu`` (or of
+``--source``) into ``build/select_clocks/``: one as it is, and one that
+defines the kernel's
+``SELECT_CLOCK(slot)`` markers as a block barrier and a ``clock64()``
+stamp by thread 0. It builds them with nvcc for sm_90a (ptxas's registers
+and spills printed) and launches them on kernel A's maps of uint8
+frames: bench.py's sequence at path 1's shape (a KITTI pair, 250-px
+cells keeping 150, 1536 slots) and path 3's 16 images, and path 4's
+synthetic RGB-D world at TUM fr1's one cell of 640 x 480 keeping 1000, at
+1 and 8 images.
 
-It prints, per variant and shape: the plain copy's device time (the mean
-of 200 launches, ``chip_smoke.device_ms``) and whether its outputs equal
-the plain version's (``detect.select_corners_plain``); then the instrumented copy's clocks (cycles) between
-stamps, the median and the largest over the blocks: the tile's load, its
-select, its compaction and publication; in each cell's merging block the
-candidates' load, their select and compaction, their sort, and the
-slot writes; in each image's last block the fallback and ``valid``.
+It prints, per block size and shape: the blocks per cell (the cluster) and
+how many clusters the card runs at once
+(``cudaOccupancyMaxActiveClusters``), the plain copy's device time (the
+mean of 200 launches, ``chip_smoke.device_ms``) and whether its outputs
+equal the plain version's (``detect.select_corners_plain``); then the
+instrumented copy's clocks (cycles) between stamps, the median and the
+largest over the blocks: the load of the block's values, the select's
+passes (each with the cluster's histogram exchange), the survivors and
+the tie cut, the exchange of the cell's survivors, their ranks, the slot
+writes, the count above t and the arrival; in each image's last cluster
+the fallback and ``valid``.
 
-    python3 scripts/torch_select_clocks.py [--variants 256:4096 512:8192]
+    python3 scripts/torch_select_clocks.py [--threads 512 256]
+        [--source DIR/select.cu --tag T]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc;
 prints the card's name and power limit. Imports nothing of JAX.
@@ -31,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,29 +45,29 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT)]
 CSRC = ROOT / "lvt_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "select_clocks"
-SLOTS = 9
+SLOTS = 21
 STAMPS = ('__device__ long long* g_clk;\n'
           '#define SELECT_CLOCK(slot) do { __syncthreads(); '
           'if (threadIdx.x == 0) g_clk[(blockIdx.x + gridDim.x * '
-          '(blockIdx.y + gridDim.y * (long long)blockIdx.z)) * 9 + (slot)] '
+          '(blockIdx.y + gridDim.y * (long long)blockIdx.z)) * 21 + (slot)] '
           '= clock64(); } while (0)\n')
 SET_CLK = ('\nextern "C" int lvt_select_set_clk(long long* p) {\n'
            '  return static_cast<int>(cudaMemcpyToSymbol(g_clk, &p, '
            'sizeof(p)));\n}\n')
-PHASES = (("tile load", 0, 1), ("tile select", 1, 2),
-          ("tile compaction and publication", 2, 3),
-          ("merge: candidates' load", 3, 4),
-          ("merge: select and compaction", 4, 5),
-          ("merge: sort", 5, 6), ("merge: slot writes", 6, 7),
-          ("image: fallback and valid", 7, 8))
+PHASES = (("load", 0, 1), ("select passes", 1, 2),
+          ("survivors and ties", 2, 3), ("exchange", 3, 4), ("ranks", 4, 5),
+          ("slot writes", 5, 6), ("count and arrival", 6, 7),
+          ("image: fallback and valid", 7, 8),
+          *((f"pass {p}: count", 8 + 3 * p, 9 + 3 * p)
+            for p in range(1, 4)),
+          *((f"pass {p}: {what}", 9 + 3 * p + i, 10 + 3 * p + i)
+            for p in range(4)
+            for i, what in enumerate(("cluster barrier and exchange",
+                                      "digit"))))
 
 
-def source(threads: int, tile: int, clocks: bool) -> str:
-    src = (CSRC / "select.cu").read_text()
-    for name, value in (("THREADS", threads), ("TILE_TARGET", tile)):
-        src, n = re.subn(rf"constexpr int {name} = \d+;",
-                         f"constexpr int {name} = {value};", src)
-        assert n == 1, name
+def source(path: Path, clocks: bool) -> str:
+    src = path.read_text()
     if clocks:
         src = src.replace("#include <stdint.h>\n",
                           "#include <stdint.h>\n" + STAMPS, 1) + SET_CLK
@@ -85,14 +90,17 @@ def build(tag: str, src: str) -> tuple[ctypes.CDLL, str]:
         "lvt_select_geometry"]
     lib.lvt_select_corners.argtypes = kernels._SIGNATURES[
         "lvt_select_corners"]
+    lib.lvt_select_max_clusters.argtypes = kernels._SIGNATURES[
+        "lvt_select_max_clusters"]
     return lib, " ".join(kernels.ptxas_report("select_corners_kernel",
                                               res.stderr + res.stdout))
 
 
-def launcher(lib, args):
+def launcher(lib, args, threads):
     """A function that launches ``lib``'s kernel on the op's arguments
-    (``detect.select_corners_op``'s, patch mode) into fixed outputs, and
-    the outputs, and the grid's block count."""
+    (``detect.select_corners_op``'s, patch mode) into fixed outputs, the
+    outputs, the grid's block count, the blocks per cell and the clusters
+    the card runs at once."""
     import torch
 
     from lvt_tpu_torch import kernels
@@ -101,13 +109,11 @@ def launcher(lib, args):
 
     nms, _, threshold, cell, k, low, spread, cap = args
     b, h, w = nms.shape
-    geo = (ctypes.c_int * 5)()
+    geo = (ctypes.c_int * 7)()
     if lib.lvt_select_geometry(h, w, cell, k, cap, geo):
         raise ValueError("geometry out of the kernel's bounds")
     dev = nms.device
-    cand = torch.empty(b * geo[0] * geo[1] * geo[2], dtype=torch.int64,
-                       device=dev)
-    counters = torch.empty(b * geo[0] + 2 * b, dtype=torch.int32, device=dev)
+    counters = torch.empty(2 * b, dtype=torch.int32, device=dev)
     outs = (*(torch.empty((b, cap), dtype=torch.int32, device=dev)
               for _ in range(4)),
             torch.empty((b, cap), dtype=torch.float32, device=dev),
@@ -116,33 +122,44 @@ def launcher(lib, args):
 
     def run():
         err = lib.lvt_select_corners(
-            nms.data_ptr(), None, b, h, w, cell, k, cap, t, t_low, low,
+            nms.data_ptr(), None, b, h, w, cell, k, cap, threads, t, t_low,
+            low,
             int(spread), PATCH_C0, w - PATCH + PATCH_C0, PATCH_R0,
-            h - PATCH + PATCH_R0, cand.data_ptr(), counters.data_ptr(),
+            h - PATCH + PATCH_R0, counters.data_ptr(),
             *(x.data_ptr() for x in outs), None, None,
             kernels.stream_ptr(nms))
         if err:
             raise RuntimeError(f"launch failed ({err})")
-    return run, outs, geo[1] * geo[0] * b
+    return (run, outs, geo[1] * geo[0] * b, geo[1],
+            lib.lvt_select_max_clusters(b, h, w, cell, k, cap, threads))
 
 
 def shapes(device) -> dict:
-    """The op's arguments on kernel A's maps of random frames."""
+    """The op's arguments on kernel A's maps: path 1's KITTI pair and path
+    3's 16 images (8 frames of bench.py's sequence), and TUM fr1's one cell
+    on 1 and 8 frames of path 4's synthetic RGB-D world (640 x 480)."""
     import numpy as np
     import torch
 
+    import chip_smoke
+    from lvt_tpu_torch import bench
     from lvt_tpu_torch.configs import kitti_config, tum_rgbd_config
+    from lvt_tpu_torch.io.synthetic import SyntheticWorld
     from lvt_tpu_torch.ops import perception
 
-    rs = np.random.RandomState(0)
+    kitti, tum = kitti_config(), tum_rgbd_config(1)
+    left, right = bench.render(kitti, 8)[:2]
+    pairs = torch.from_numpy(np.stack([left, right], 1).reshape(
+        16, kitti.img_height, kitti.img_width)).to(device)
+    gray = torch.from_numpy(np.stack([
+        np.clip(g, 0, 255).astype(np.uint8) for g, _, _ in
+        SyntheticWorld().rgbd_sequence(8, speed=chip_smoke.RGBD_SPEED)])
+    ).to(device)
     out = {}
-    for name, config, b in (("path1 KITTI pair", kitti_config(), 2),
-                            ("path3 16 images", kitti_config(), 16),
-                            ("TUM fr1 1 image", tum_rgbd_config(1), 1),
-                            ("TUM fr1 8 images", tum_rgbd_config(1), 8)):
-        h, w = config.img_height, config.img_width
-        imgs = torch.from_numpy(rs.randint(0, 256, (b, h, w)).astype(
-            np.uint8)).to(device)
+    for name, config, imgs in (("path1 KITTI pair", kitti, pairs[:2]),
+                               ("path3 16 images", kitti, pairs),
+                               ("TUM fr1 1 image", tum, gray[:1]),
+                               ("TUM fr1 8 images", tum, gray)):
         nms = perception.perception_patch_maps_batched(imgs)[0]
         out[name] = (nms, nms.new_zeros((0,)), float(config.agast_threshold),
                      config.detection_cell_size,
@@ -153,8 +170,11 @@ def shapes(device) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--variants", nargs="+", default=["256:4096"],
-                   help="THREADS:TILE_TARGET pairs")
+    p.add_argument("--threads", nargs="+", type=int, default=[512, 256],
+                   help="block sizes (the kernel takes 512 and 256)")
+    p.add_argument("--source", type=Path, default=CSRC / "select.cu",
+                   help="the select.cu to clock")
+    p.add_argument("--tag", default="tree", help="a name for the builds")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -170,15 +190,14 @@ def main(argv=None) -> int:
     problems = shapes("cuda")
     want = {name: detect.select_corners_plain(*a)[:6]
             for name, a in problems.items()}
-    for v in args.variants:
-        threads, tile = map(int, v.split(":"))
-        tag = f"t{threads}_s{tile}"
-        lib, ptx = build(tag, source(threads, tile, False))
-        clk_lib, _ = build(tag + "_clk", source(threads, tile, True))
-        clk_lib.lvt_select_set_clk.argtypes = [ctypes.c_void_p]
-        print(f"[{tag}] ptxas: {ptx}", flush=True)
+    lib, ptx = build(args.tag, source(args.source, False))
+    clk_lib, _ = build(args.tag + "_clk", source(args.source, True))
+    clk_lib.lvt_select_set_clk.argtypes = [ctypes.c_void_p]
+    print(f"[{args.tag}] ptxas: {ptx}", flush=True)
+    for threads in args.threads:
+        tag = f"{args.tag} {threads} threads"
         for name, a in problems.items():
-            run, outs, blocks = launcher(lib, a)
+            run, outs, blocks, cluster, fit = launcher(lib, a, threads)
             run()
             torch.cuda.synchronize()
             same = all(torch.equal(x, y) for x, y in zip(outs, want[name]))
@@ -186,7 +205,7 @@ def main(argv=None) -> int:
             clk = torch.zeros(blocks * SLOTS, dtype=torch.int64,
                               device="cuda")
             clk_lib.lvt_select_set_clk(clk.data_ptr())
-            run_c, _, _ = launcher(clk_lib, a)
+            run_c = launcher(clk_lib, a, threads)[0]
             run_c()
             torch.cuda.synchronize()
             c = clk.view(blocks, SLOTS).cpu().numpy()
@@ -197,7 +216,8 @@ def main(argv=None) -> int:
                 if len(d):
                     parts.append(f"{label} {int(np.median(d))} / "
                                  f"{int(d.max())} ({len(d)} blocks)")
-            print(f"[{tag}] {name}: {blocks} blocks, {ms:.4f} ms, outputs "
+            print(f"[{tag}] {name}: {blocks} blocks in clusters of "
+                  f"{cluster} ({fit} clusters at once), {ms:.4f} ms, outputs "
                   f"{'equal' if same else 'DIFFER'}; cycles median / max: "
                   + "; ".join(parts), flush=True)
     return 0

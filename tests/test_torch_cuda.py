@@ -462,6 +462,12 @@ def _pnp_edge(args, case):
         pts = pts[:, :1].expand_as(pts).contiguous()
         obs = obs[:, :1].expand_as(obs).contiguous()
         w = torch.ones_like(w)
+    elif case == "ray":
+        ray = torch.linspace(0.5, 3.0, pts.shape[1], device=pts.device)
+        pts = (t[:, None] + ray[None, :, None] * (pts[:, :1] - t[:, None])
+               ).contiguous()
+        obs = obs[:, :1].expand_as(obs).contiguous()
+        w = torch.ones_like(w)
     return [t, q, pts, obs, w]
 
 
@@ -470,17 +476,21 @@ def _pnp_edge(args, case):
     (1, 256, "outliers"), (1, 1024, "outliers"), (1, 4096, "outliers"),
     (8, 256, "outliers"), (8, 1024, "outliers"), (8, 4096, "outliers"),
     (2, 9000, "outliers"), (8, 1024, "few"), (2, 256, "none"),
-    (2, 1024, "one_pixel")])
+    (2, 1024, "one_pixel"), (1, 8193, "outliers"), (16, 1024, "outliers"),
+    (1, 1, "small"), (2, 255, "small"), (2, 257, "small"), (4, 64, "ray")])
 def test_pnp_solve_kernel_matches_plain(cuda, s, m, case):
     """The fused solve against the plain version stream by stream (pose
     within 1e-4 m and 1e-4 rad, inlier count equal, chi2 within 1e-4 of
     the plain chi2 or of reprojection_th2 where the plain chi2 is below
     it), every stream of the S-stream launch bit-equal to its own S = 1
     launch; M = 9000 reads the points beyond the kernel's shared-memory
-    stage from device memory; ``few``, ``none`` and ``one_pixel`` are the
-    solve's edges (``_pnp_edge``)."""
-    args = _pnp_problem(np.random.RandomState(7 * s + m), s, m, cuda)
-    if case != "outliers":
+    stage from device memory (8193: one point past it); ``few``,
+    ``none``, ``one_pixel`` and ``ray`` are the solve's edges
+    (``_pnp_edge``); ``small`` M (1, and 255 and 257 about the block's 256
+    threads) has no extra outliers."""
+    args = _pnp_problem(np.random.RandomState(7 * s + m), s, m, cuda,
+                        0 if case == "small" else None)
+    if case not in ("outliers", "small"):
         args = _pnp_edge(args, case)
     before = pnp.pnp_solve.launches
     got = pnp.pnp_solve(*args, **PNP_CAM)
@@ -504,6 +514,51 @@ def test_pnp_solve_kernel_matches_plain(cuda, s, m, case):
         one = pnp.pnp_solve(*(x[i:i + 1] for x in args), **PNP_CAM)
         for a, b in zip(one, got):
             assert torch.equal(a[0], b[i])
+
+
+PNP_EXACT_CASES = [(1, 1, "small"), (2, 255, "small"), (2, 257, "small"),
+                   (1, 8193, "outliers"), (16, 1024, "outliers"),
+                   (2, 1024, "one_pixel"), (4, 64, "ray"), (8, 1024, "few"),
+                   (2, 256, "none")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,m,case", PNP_EXACT_CASES)
+def test_pnp_solve_kernel_is_the_plain_version_bit_for_bit(cuda, s, m, case):
+    """Every output of the fused solve bit-equal to the plain version's on
+    the card, stream by stream: M of 1, about the block's 256 threads and
+    one past the shared-memory stage, 16 streams, and the edges whose LM
+    steps are rejected (``ray``: every point on one ray from the camera,
+    a singular system; ``one_pixel``; ``few``; ``none``)."""
+    args = _pnp_problem(np.random.RandomState(5 * s + m), s, m, cuda,
+                        0 if case == "small" else None)
+    if case not in ("outliers", "small"):
+        args = _pnp_edge(args, case)
+    got = pnp.pnp_solve(*args, **PNP_CAM)
+    for i in range(s):
+        want = pnp.solve_pnp_plain(Pose(args[0][i], args[1][i]),
+                                   *(x[i] for x in args[2:]), **PNP_CAM)
+        for a, b in zip(_pnp_results(got, i),
+                        (*want.pose, want.inlier_mask, want.inlier_count,
+                         want.chi2)):
+            assert torch.equal(a, b), (case, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,m", [(1, 1024), (8, 1024), (8, 4096)])
+def test_pnp_normal_eqs_h_is_not_bit_symmetric(cuda, s, m):
+    """The premise of summing H's upper triangle alone fails: jw_i = jac_i
+    w is rounded to float32 before its product with jac_j, so H[i][j] and
+    H[j][i] add other products, and the op's H (the sums pnp_solve also
+    takes) is symmetric only to rounding, not to the bit. pnp_solve keeps
+    all 42 sums."""
+    jac, w, r = _pnp_inputs(np.random.RandomState(s * m), s, m, cuda)
+    h = pnp.pnp_normal_eqs_op(jac, w, r)[0][..., :6]
+    torch.cuda.synchronize()
+    ht = h.transpose(-1, -2)
+    assert not torch.equal(h, ht)
+    assert ((h - ht).abs() <= 1e-5 * h.abs().amax((-1, -2), keepdim=True)
+            ).all()
 
 
 @pytest.mark.cuda
@@ -2008,6 +2063,101 @@ def test_select_kernel_matches_plain(cuda, case):
                                          else args[1], *args[2:])
         _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
                               f"select_corners image {i}")
+
+
+# (B, H, W, cell, keep, density, dither, raw map): the selection's edges
+SELECT_EDGES = {
+    "one-block-cell": (2, 1, 200, 64, 20, 0.2, True, False),
+    "rows-fewer-than-the-cluster": (2, 5, 300, 64, 30, 0.1, True, True),
+    "keep-more-than-a-block-holds": (3, 64, 96, 32, 200, 0.3, True, False),
+    "16-images": (16, 120, 256, 64, 40, 0.05, True, False),
+    "ties-at-0": (2, 64, 96, 32, 60, 0.01, False, False),
+    "ties-at-0-raw": (2, 64, 96, 32, 60, 0.01, False, True),
+    "ties-at-0-wide-cells": (2, 128, 192, 64, 40, 0.002, False, False),
+    "dense-bin": (2, 128, 256, 128, 100, 0.4, True, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SELECT_EDGES))
+def test_select_kernel_at_its_edges(cuda, case):
+    """The cluster kernel at the edges of its design, every slot bit-equal
+    to the plain version: a cell of one row (one block of the cluster
+    holds it all), fewer rows than blocks, more kept than a block holds
+    pixels (k = 200 of a 32 x 32 cell, 128 px a block), 16 images in one
+    launch, and no dither with fewer non-zero pixels than a cell keeps
+    (ties at 0, cut lowest index first across the blocks, in narrow and
+    wide cells), and a dense first bin (more passes)."""
+    from lvt_tpu_torch.ops import detect
+
+    b, h, w, cell, keep, density, dither, subpixel = SELECT_EDGES[case]
+    rs = np.random.RandomState(len(case))
+    nms = sparse_map(rs, b, h, w, density)
+    if case == "dense-bin":   # scores spread over [32, 64): one top bin
+        nms = np.where(nms > 0, rs.uniform(32, 64, nms.shape), 0)
+    nms = torch.from_numpy(nms.astype(np.float32)).to(cuda)
+    raw = nms + 0.5 if subpixel else nms.new_zeros((0,))
+    ncells = -(-h // min(cell, h)) * -(-w // min(cell, w))
+    cap = -(-ncells * keep // 128) * 128
+    args = (nms, raw, 20.0, cell, keep, 40, dither, cap)
+    got = detect.select_corners_op(*args)
+    torch.cuda.synchronize()
+    _assert_outputs_equal(got, detect.select_corners_plain(*args),
+                          f"select_corners {case}")
+    for i in (0, b - 1):
+        alone = detect.select_corners_op(
+            nms[i:i + 1], raw[i:i + 1] if subpixel else raw, *args[2:])
+        _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
+                              f"select_corners {case} image {i}")
+
+
+@pytest.mark.cuda
+def test_select_kernel_geometry_runs_in_one_wave(cuda):
+    """Path 1's KITTI pair (20 cells) and TUM fr1's one cell at 1 and 8
+    images fit the card at once at the kernel's shared memory with blocks
+    of 512 threads (cudaOccupancyMaxActiveClusters), which the wrapper
+    takes for them; path 3's 16 images (160 clusters) do not, and take
+    256; both block sizes give the plain version's bits there; a cell too
+    large for 16 blocks is refused with the bounds the geometry entry
+    reports."""
+    import ctypes
+
+    from lvt_tpu_torch import configs
+    from lvt_tpu_torch.ops import detect
+
+    for config, b in ((configs.kitti_config(), 2),
+                      (configs.tum_rgbd_config(1), 1),
+                      (configs.tum_rgbd_config(1), 8),
+                      (configs.kitti_config(), 16)):
+        dims = (b, config.img_height, config.img_width,
+                config.detection_cell_size, config.max_keypoints_per_cell,
+                config.kp_capacity)
+        geo = (ctypes.c_int * 7)()
+        assert kernels.lib().lvt_select_geometry(*dims[1:], geo) == 0
+        assert geo[1] == 8 and geo[6] == 512
+        fit = kernels.lib().lvt_select_max_clusters(*dims, 512)
+        threads = detect.select_threads(torch.cuda.current_device(), *dims)
+        assert (fit >= b * geo[0]) == (b < 16), (config.img_width, b, fit)
+        assert threads == (512 if b < 16 else 256)
+    args = select_problem(np.random.RandomState(5), "kitti", 16, "frames",
+                          cuda)
+    want = detect.select_corners_plain(*args)
+    for threads in (512, 256):
+        detect.select_threads.cache_clear()
+        real = kernels.lib().lvt_select_max_clusters
+        kernels.lib().lvt_select_max_clusters = (
+            lambda *a, n=10 ** 6 if threads == 512 else 0: n)
+        try:
+            got = detect.select_corners_op(*args)
+            torch.cuda.synchronize()
+        finally:
+            kernels.lib().lvt_select_max_clusters = real
+            detect.select_threads.cache_clear()
+        _assert_outputs_equal(got, want, f"select_corners {threads} threads")
+    nms = torch.zeros((1, 4000, 4000), device=cuda)
+    with pytest.raises(ValueError, match="a cluster of at most 16 blocks"):
+        detect.select_corners_op(nms, nms.new_zeros((0,)), 20.0, 4000, 100,
+                                 40, True, 128)
 
 
 def top2_out(rs, m, k, n_cand, visible):

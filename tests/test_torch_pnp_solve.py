@@ -180,3 +180,104 @@ def test_the_cpu_launches_no_kernel():
                          *(x[0] for x in args[2:]), **CAM)
     assert (pnp.pnp_solve.launches, pnp.pnp_phase.launches,
             pnp.normal_equations.launches, pnp.stream_sum.launches) == before
+
+
+# ---- the premises of csrc/pnp_lm.cu's schedule
+
+def _one_sweep_solve(pose, points, obs, weights, *, fx, fy, cx, cy,
+                     reprojection_th2=5.991):
+    """The fused kernel's schedule in torch ops: one sweep over the points
+    per LM iteration, at the trial pose, giving the trial chi-square and
+    [H | g] there (but in a pass's last iteration); the accept test keeps
+    the trial's [H | g] for the next step, a rejection the old one.
+    Returns the result and the rejected steps of each pass."""
+    pb = pnp._problem(points, obs, fx, fy, cx, cy, reprojection_th2)
+    three = pnp.scalar(3.0, points)
+    r_wc, t_wc = pnp._initial(pose)
+    w_mask = weights.to(points.dtype)
+    rejected = []
+    for _ in range(pnp.N_PASSES):
+        proj = pb.project(r_wc, t_wc)
+        hg, h_diag = pb.normal_equations(proj, w_mask)
+        lam, nu = pnp._lam0(h_diag), torch.tensor(2.0)
+        chi2, e2 = pb.chi2(proj[3], w_mask), proj[3]
+        n_rejected = 0
+        for it in range(pnp.N_ITERS_PER_PASS):
+            r_new, t_new, finite = pb.step(r_wc, t_wc, lam, hg)
+            proj_new = pb.project(r_new, t_new)   # the iteration's one sweep
+            chi2_new = pb.chi2(proj_new[3], w_mask)
+            more = it + 1 < pnp.N_ITERS_PER_PASS
+            hg_new = pb.normal_equations(proj_new, w_mask)[0] if more else None
+            if bool((chi2_new < chi2) & finite):
+                r_wc, t_wc, chi2, e2 = r_new, t_new, chi2_new, proj_new[3]
+                lam, nu = lam / three, torch.tensor(2.0)
+                hg = hg_new
+            else:
+                lam, nu = lam * nu, nu * 2.0
+                n_rejected += 1
+        rejected.append(n_rejected)
+        w_mask = w_mask * (e2 <= pb.delta2)
+    inlier = w_mask > 0
+    return (pnp.PnPResult(pnp._final(r_wc, t_wc), inlier, inlier.sum(), chi2),
+            rejected)
+
+
+def _assert_same_solve(got: pnp.PnPResult, want: pnp.PnPResult):
+    for a, b in zip(_outputs(got), _outputs(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed,rejects", [(0, False), (3, False),
+                                          (5, False), (1, True), (2, True),
+                                          (4, True)])
+@pytest.mark.parametrize("n_out", [0, 30], ids=["clean", "outliers"])
+def test_one_sweep_schedule_is_the_plain_solve(seed, rejects, n_out):
+    """[H | g] taken at the trial projection and selected on accept, the
+    last iteration of a pass adding none: bit-equal to solve_pnp_plain;
+    the ``rejects`` seeds reject at least one step in each pass."""
+    t, q, pts, obs, w = (x[0] for x in _streams(seed, 1, 256, n_out))
+    got, rejected = _one_sweep_solve(Pose(t, q), pts, obs, w, **CAM)
+    _assert_same_solve(got, pnp.solve_pnp_plain(Pose(t, q), pts, obs, w,
+                                                **CAM))
+    if rejects:
+        assert min(rejected) >= 1, rejected
+
+
+@pytest.mark.parametrize("seed", [1, 3])
+def test_one_sweep_schedule_on_a_singular_system(seed):
+    """Every point on one ray from the initial camera centre, at one
+    observed pixel (H rank-deficient): the schedule is bit-equal to
+    solve_pnp_plain and rejects steps in both passes."""
+    t, q, pts, obs, w = (x[0] for x in _streams(seed, 1, 64, 0))
+    s = torch.linspace(0.5, 3.0, pts.shape[0])[:, None]
+    pts = t + s * (pts[:1] - t)
+    obs = obs[:1].expand_as(obs).contiguous()
+    w = torch.ones_like(w)
+    got, rejected = _one_sweep_solve(Pose(t, q), pts, obs, w, **CAM)
+    _assert_same_solve(got, pnp.solve_pnp_plain(Pose(t, q), pts, obs, w,
+                                                **CAM))
+    assert min(rejected) >= 1, rejected
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_normal_equations_are_not_symmetric_to_the_bit(seed):
+    """Why the kernel sums all 42 entries of [H | g] and not H's upper
+    triangle: jw_i = jac_i * w is rounded to float32 before its exact
+    float64 product with jac_j, so H[i][j] and H[j][i] add other products
+    (most of them differ), and H rounded to float32 is not symmetric, in
+    the kernel's sums (modelled here in float64) as in the plain
+    version's."""
+    rs = np.random.RandomState(seed)
+    jac = (rs.randn(1024, 2, 6) * [1e3, 1e3, 3e2, 5e2, 8e2, 4e2]).astype(
+        np.float32)
+    w = rs.rand(1024).astype(np.float32)
+    jw = (jac * w[:, None, None]).astype(np.float32)
+    terms = (jw.astype(np.float64)[..., :, None]
+             * jac.astype(np.float64)[..., None, :])
+    assert (terms != np.swapaxes(terms, -1, -2)).mean() > 0.5
+    h = terms.sum((0, 1)).astype(np.float32)
+    assert not np.array_equal(h, h.T)
+    np.testing.assert_allclose(h, h.T, rtol=1e-6, atol=0)
+    hg = pnp.normal_equations_plain(*map(torch.from_numpy, (
+        jac, w, rs.randn(1024, 2).astype(np.float32))))[0]
+    assert not torch.equal(hg[:, :6], hg[:, :6].T)

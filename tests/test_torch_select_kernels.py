@@ -202,6 +202,139 @@ def test_select_op_opcheck(subpixel):
 
 # ---- the map match after kernel T
 
+# ---- the premise of csrc/select.cu: one thread-block cluster per cell
+
+def _cluster_select(nms, spread, cap, threshold, cell, per_cell, low,
+                    cluster):
+    """A numpy model of the kernel's selection at ``cluster`` blocks per
+    cell: block rank r holds the cell's rows [r R, (r + 1) R) (R =
+    ceil(s_y / cluster)) as 32-bit order-preserving values; a radix select
+    8 bits a pass adds the ranks' histograms of the values sharing the
+    prefix and stops once a bin holds exactly what is still needed; the
+    values at the k-th largest T (a bin left after 32 bits) are cut lowest
+    cell index first, rank by rank; each survivor's slot is the count of
+    the cell's survivors with a larger 64-bit key. Returns the selection's
+    outputs xi, yi, score, valid [B, capacity] as select_corners_plain
+    gives them."""
+    b, h, w = nms.shape
+    s_y, s_x, _, ncx = detect._cell_geometry(h, w, cell)
+    n = s_y * s_x
+    vals = detect.cell_values(torch.from_numpy(nms), h, w, cell,
+                              spread).numpy()
+    bits = (vals + np.float32(0.0)).view(np.int32)
+    u = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits).view(np.uint32) ^ \
+        np.uint32(0x80000000)
+    rows = -(-s_y // cluster)
+    ranges = [(min(n, r * rows * s_x), min(n, (r + 1) * rows * s_x))
+              for r in range(cluster)]
+    ncells = vals.shape[1]
+    idx = np.zeros((b, ncells, per_cell), np.int64)
+    for bi in range(b):
+        for c in range(ncells):
+            uc = u[bi, c]
+            pre, msk, need, exact = 0, 0, per_cell, False
+            for shift in (24, 16, 8, 0):
+                hist = sum(np.bincount((uc[lo:hi][(uc[lo:hi] & msk) == pre]
+                                        >> shift) & 0xFF, minlength=256)
+                           for lo, hi in ranges)
+                run, d = 0, 255
+                while run + hist[d] < need:
+                    run += hist[d]
+                    d -= 1
+                need -= run
+                pre |= d << shift
+                msk |= 0xFF << shift
+                if hist[d] == need:
+                    exact = True
+                    break
+            take = (uc & msk) >= pre if exact else uc > pre
+            if not exact:
+                below = 0
+                for lo, hi in ranges:
+                    ties = lo + np.nonzero(uc[lo:hi] == pre)[0]
+                    take[ties[:min(len(ties), max(0, need - below))]] = True
+                    below += len(ties)
+            sel = np.nonzero(take)[0]
+            assert len(sel) == per_cell
+            keys = (uc[sel].astype(np.uint64) << np.uint64(32)) | \
+                (n - 1 - sel).astype(np.uint64)
+            idx[bi, c, (keys[None, :] > keys[:, None]).sum(1)] = sel
+    cy, cx = np.arange(ncells) // ncx, np.arange(ncells) % ncx
+    y2 = (cy[:, None] * s_y + idx // s_x).reshape(b, -1)
+    x2 = (cx[:, None] * s_x + idx % s_x).reshape(b, -1)
+    xi, yi = np.minimum(x2, w - 1), np.minimum(y2, h - 1)
+    v = np.where((y2 < h) & (x2 < w), nms[np.arange(b)[:, None], yi, xi],
+                 np.float32(0.0))
+    if spread:
+        d = detect._dither_at(torch.from_numpy(y2), torch.from_numpy(x2))
+        d = d.numpy()
+        v = (v + d) - d
+    t, t_low = detect._thresholds(threshold)
+    t_eff = np.where((v > np.float32(t)).sum(1) < low, np.float32(t_low),
+                     np.float32(t))
+    pad = cap - xi.shape[1]
+    return [np.pad(a, ((0, 0), (0, pad))) for a in
+            (xi.astype(np.int32), yi.astype(np.int32), v.astype(np.float32),
+             v > t_eff[:, None])]
+
+
+def _cluster_case(name):
+    """(nms, spread, capacity, threshold, cell, per_cell, low) of this
+    file's selection cases, TUM fr1's one cell, and cells with fewer
+    non-zero pixels than they keep (ties at 0 without the dither)."""
+    rs = np.random.RandomState(11)
+    if name == "sparse":
+        return sparse_map(rs, 2, 64, 96), True, 128, 20.0, 32, 12, 200
+    if name == "float":
+        nms = sparse_map(rs, 2, 64, 96)
+        return (nms * rs.uniform(0.5, 1.5, nms.shape).astype(np.float32),
+                False, 128, 20.0, 32, 12, 200)
+    if name == "plateau":
+        nms = np.zeros((1, 64, 128), np.float32)
+        nms[0, 8:56:2, 4:124:2] = 40.0
+        nms[0, 10:50:8, 9:100:6] = 55.0
+        return nms, False, 256, 20.0, 32, 20, 200
+    if name == "ragged":
+        return (sparse_map(rs, 2, 70, 150, density=0.08), True, 256, 20.0,
+                32, 16, 200)
+    if name == "fallback":
+        return (sparse_map(rs, 3, 64, 128, density=0.02), True, 512, 25.0,
+                32, 24, 100)
+    if name == "zeros":   # fewer non-zero pixels than a cell keeps
+        return (sparse_map(rs, 2, 64, 96, density=0.003), False, 128, 20.0,
+                32, 12, 200)
+    if name == "dense-bin":   # many values in T's first bin: more passes
+        nms = np.where(rs.rand(2, 128, 256) < 0.4,
+                       rs.uniform(32, 64, (2, 128, 256)), 0)
+        return nms.astype(np.float32), True, 256, 20.0, 128, 100, 200
+    if name == "zeros-wide":   # ... ties at 0 over a wider cell
+        return (sparse_map(rs, 2, 128, 192, density=0.002), False, 256,
+                20.0, 64, 40, 200)
+    nms = sparse_map(rs, 1, 480, 640, density=0.01)   # TUM fr1's one cell
+    return nms, True, 1024, 20.0, 640, 1000, 200
+
+
+@pytest.mark.parametrize("cluster", [1, 4, 8, 16])
+@pytest.mark.parametrize("name", ["sparse", "float", "plateau", "ragged",
+                                  "fallback", "zeros", "zeros-wide",
+                                  "dense-bin", "tum"])
+def test_cluster_selection_model_is_the_plain_version(name, cluster):
+    """The kernel's cluster design (rank ranges of cell index, a 32-bit
+    value select with the lowest-index tie cut, slots by counting) gives
+    select_corners_plain's slots bit for bit at 1, 4, 8 and 16 blocks per
+    cell, dither on and off (ties at the k-th value and at 0), and a
+    dense first bin (more passes)."""
+    nms, spread, cap, threshold, cell, per_cell, low = _cluster_case(name)
+    got = _cluster_select(nms, spread, cap, threshold, cell, per_cell, low,
+                          cluster)
+    want = detect.select_corners_plain(
+        torch.from_numpy(nms), torch.zeros(0), threshold, cell, per_cell,
+        low, spread, cap)
+    for a, bw, label in zip(got, (want[0], want[1], want[4], want[5]),
+                            ("xi", "yi", "score", "valid")):
+        np.testing.assert_array_equal(a, bw.numpy(), err_msg=label)
+
+
 def _jax_map_match(monkeypatch, narrow, wide, visible, valid, kp, kw):
     """lvt_tpu's find_map_matches with its top-2 stage returning
     ``narrow`` and ``wide`` (lvt_tpu's own acceptance, resolution, retry
