@@ -740,6 +740,11 @@ def phase_device() -> dict:
                    "(TUM fr1's cell: {cluster_tum}); its launches: "
                    "{launch_shapes}; ptxas: {ptxas}".format(
                        **card["select_geometry"]))
+    card["track_geometry"] = track_geometry()
+    for name, geo in card["track_geometry"].items():
+        _say("device", "{name}: clusters of {threads}-thread blocks, "
+                       "{launch_shapes}; ptxas: {ptxas}".format(name=name,
+                                                                **geo))
     return card
 
 
@@ -821,6 +826,35 @@ def select_geometry() -> dict:
     return dict(cluster=shape(kitti)[1], cluster_tum=shape(tum)[1],
                 threads=int(shapes["path1"].split()[0]), launch_shapes=shapes,
                 ptxas=_ptxas("select_corners_kernel"))
+
+
+def track_geometry() -> dict:
+    """The cluster kernels of csrc/track.cu (``staged_promote``,
+    ``triangulate_insert``) as built: the blocks per stream the wrapper
+    picks (``track.cluster_size``) at path 1's shape and at path 3's
+    MS_STREAMS streams, with how many clusters the card runs at once
+    (cudaOccupancyMaxActiveClusters), threads per block, and ptxas's lines
+    on each."""
+    from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.configs import kitti_config
+    from lvt_tpu_torch.core import track
+
+    config = kitti_config()
+    k, m, n = (config.kp_capacity, config.max_map_points,
+               config.max_staged_points)
+    shape = (ctypes.c_int * 2)()
+    kernels.check(kernels.lib().lvt_track_shape(shape), "track (shape)")
+    out = {}
+    for op, name in enumerate(("staged_promote", "triangulate_insert")):
+        one = track.cluster_size(name, 0, 1, k, m, n)
+        many = track.cluster_size(name, 0, MS_STREAMS, k, m, n)
+        fit = kernels.lib().lvt_track_max_clusters(op, many, k, m, n, 0)
+        out[name] = dict(
+            cluster=one, threads=shape[1],
+            launch_shapes=(f"S=1: {one} blocks a stream; S={MS_STREAMS}: "
+                           f"{many}, {fit} such clusters at once"),
+            ptxas=_ptxas(f"{name}_kernel"))
+    return out
 
 
 def p_inputs(config, imgs) -> tuple:
@@ -2021,6 +2055,7 @@ def measure_track_kernels(card, path, tracked) -> dict:
         rep[name] = dict(by_s[sizes[0]], batched=by_s[s_all])
         if name == "select_corners":
             rep[name].update(card["select_geometry"])
+        rep[name].update(card["track_geometry"].get(name, {}))
     return rep
 
 

@@ -23,7 +23,9 @@ Each op is built as kernel T's (ops/top2.py):
 
 * CUDA: one launch of its hand-written kernel of ``csrc/track.cu`` for
   all S streams, every float operation in the plain version's order and
-  rounding, so the kernel gives the plain version's bits;
+  rounding, so the kernel gives the plain version's bits (``staged_promote``
+  and ``triangulate_insert``: a thread-block cluster per stream, of
+  :func:`cluster_size` blocks);
 * CPU: the plain version (``*_plain``, the torch ops the step ran before)
   stream by stream; on the card the plain versions are a reference for the
   tests and chip_smoke.py, never the main path;
@@ -39,6 +41,7 @@ their collectives instead: a collective cannot run inside a kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 from typing import NamedTuple
 
@@ -64,6 +67,10 @@ OPS = ("predict_project", "upkeep_pre", "staged_promote",
 # feature slots the kernels hold per stream in shared memory (kernel T's
 # bound, ops/top2.py)
 MAX_K = 2048
+# blocks per stream of the cluster kernels (staged_promote,
+# triangulate_insert), the wrapper's choices in order (cluster_size)
+CLUSTERS = (8, 4, 2, 1)
+_CLUSTER_OPS = ("staged_promote", "triangulate_insert")
 
 
 def select(pred, a, b):
@@ -118,6 +125,27 @@ def _check_device(t: torch.Tensor, name: str) -> None:
 def _require_k(k: int) -> None:
     if k > MAX_K:
         raise ValueError(f"K={k} feature slots exceed the kernels' {MAX_K}")
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_size(name: str, device: int, s: int, k: int, m: int, n: int,
+                 rgbd: bool = False) -> int:
+    """Blocks per stream of op ``name``'s launch (``staged_promote``:
+    ``n`` staged points, ``m`` map slots, ``k`` features;
+    ``triangulate_insert``: ``k`` features, ``m`` and ``n`` slots) on CUDA
+    device ``device``: the largest of CLUSTERS at which the card runs all
+    ``s`` streams' clusters at once (cudaOccupancyMaxActiveClusters at the
+    shape's shared memory), else the largest it runs at all. Asked once per
+    shape, in the first (eager) frame, before any capture."""
+    with torch.cuda.device(device):
+        fits = {c: kernels.lib().lvt_track_max_clusters(
+            _CLUSTER_OPS.index(name), c, k, m, n, int(rgbd))
+            for c in CLUSTERS}
+    runs = [c for c in CLUSTERS if fits[c] > 0]
+    if not runs:
+        raise ValueError(f"{name}: K={k}, M={m}, N={n} exceed a block's "
+                         f"shared memory at every cluster size {CLUSTERS}")
+    return next((c for c in runs if fits[c] >= s), runs[0])
 
 
 # ---- K1: lvt_tpu_torch::predict_project
@@ -431,10 +459,13 @@ def staged_promote_op(d1: torch.Tensor, d2: torch.Tensor, best: torch.Tensor,
     -> the staged counter' [S, N] int32 and valid' [S, N], claims' [S, K],
     the map' (pos, desc, counter, age, valid) and the slots taken [S, M].
 
-    CUDA: one launch of ``csrc/track.cu``'s ``staged_promote_kernel``, one
-    block per stream: the resolution's minimum per feature an atomicMin
-    in shared memory, the promotions compacted and the free slots ranked
-    by block-wide prefix sums."""
+    CUDA: one launch of ``csrc/track.cu``'s ``staged_promote_kernel``, a
+    thread-block cluster of :func:`cluster_size` blocks per stream, each
+    block a range of the staged points, of the features (the resolution's
+    targets) and of the map's slots: the resolution's minimum per feature
+    an atomicMin in its owner's shared memory, the promotions compacted
+    and the free slots ranked by prefix sums in index order, within a
+    block and over the blocks' counts in rank order."""
     s, n = staged_pos.shape[0], staged_pos.shape[1]
     m, k = map_pos.shape[1], feature_matched.shape[1]
     _require_k(k)
@@ -463,6 +494,7 @@ def staged_promote_op(d1: torch.Tensor, d2: torch.Tensor, best: torch.Tensor,
             torch.empty_like(map_desc), torch.empty_like(map_counter),
             torch.empty_like(map_age), torch.empty_like(map_valid),
             torch.empty_like(map_valid))
+    cluster = cluster_size("staged_promote", dev.index, s, k, m, n)
     with torch.cuda.device(dev):
         err = kernels.lib().lvt_staged_promote(
             *_ptrs(d1, d2, best, n_cand, staged_pos, staged_desc,
@@ -470,7 +502,7 @@ def staged_promote_op(d1: torch.Tensor, d2: torch.Tensor, best: torch.Tensor,
                    map_size, map_pos, map_desc, map_counter, map_age,
                    map_valid), s, n, m, k, float(ratio_threshold),
             float(abs_threshold), int(staged_threshold), int(map_soft_cap),
-            *_ptrs(*outs), kernels.stream_ptr(map_pos))
+            cluster, *_ptrs(*outs), kernels.stream_ptr(map_pos))
     kernels.check(err, "staged_promote")
     staged_promote.launches += 1
     return outs
@@ -653,10 +685,14 @@ def triangulate_insert_op(
     [S, K, 3] and the candidates [S, K] bool.
 
     CUDA: one launch of ``csrc/track.cu``'s ``triangulate_insert_kernel``,
-    one block per stream: the row resolution's atomicMin in shared memory,
-    the triangulation per feature in the plain version's order (its
-    float64 multiply-add chains included), the candidates compacted and
-    the free slots ranked by block-wide prefix sums."""
+    a thread-block cluster of :func:`cluster_size` blocks per stream, each
+    block a range of the features (as queries and as the row resolution's
+    targets) and of the map's and the staged set's slots: the row
+    resolution's atomicMin in the target owner's shared memory, the
+    triangulation per feature in the plain version's order (its float64
+    multiply-add chains included), the candidates compacted and the free
+    slots ranked by prefix sums in index order, within a block and over
+    the blocks' counts in rank order."""
     s, k = kp.shape[0], kp.shape[1]
     m, n = map_pos.shape[1], staged_pos.shape[1]
     _require_k(k)
@@ -698,6 +734,8 @@ def triangulate_insert_op(
             torch.empty((s, 3), dtype=f32, device=dev),
             torch.empty((s, k, 3), dtype=f32, device=dev),
             torch.empty((s, k), dtype=torch.bool, device=dev))
+    cluster = cluster_size("triangulate_insert", dev.index, s, k, m, n,
+                           bool(rgbd))
     with torch.cuda.device(dev):
         err = kernels.lib().lvt_triangulate_insert(
             *_ptrs(d1, d2, best, n_cand, kp, right_kp, depth, feat_valid,
@@ -705,7 +743,7 @@ def triangulate_insert_op(
                    map_valid, staged_pos, staged_desc, staged_counter,
                    staged_age, staged_valid, last_matches, matches_count,
                    is_init), s, k, m, n, int(rgbd), _floats(*floats),
-            *(int(i) for i in ints), float(MATCHES_WINDOW_INIT),
+            *(int(i) for i in ints), float(MATCHES_WINDOW_INIT), cluster,
             *_ptrs(*outs), kernels.stream_ptr(kp))
     kernels.check(err, "triangulate_insert")
     triangulate_insert.launches += 1

@@ -11,12 +11,14 @@
 //   and the staged points' projection; one block per stream;
 // * staged_promote_kernel: the staged re-match's acceptance, one-to-one
 //   resolution and claims (ops/hamming.py), the counters, and the
-//   promotions inserted into the map (core/map.py::insert_points); one
-//   block per stream;
+//   promotions inserted into the map (core/map.py::insert_points); a
+//   thread-block cluster per stream, the staged points, the features
+//   (the resolution's targets) and the map's slots spread over its blocks;
 // * triangulate_insert_kernel: the row match's acceptance and resolution,
 //   stereo triangulation (ops/triangulate.py) or RGB-D back-projection, the
 //   triangulation policy, and the insertions into the map and the staged
-//   set; one block per stream;
+//   set; a thread-block cluster per stream, the features (queries and
+//   targets), the map's and the staged set's slots spread over its blocks;
 // * map_accept_kernel: the map match's acceptance and one-to-one
 //   resolution at both radii, the wide retry, the claims, the count and
 //   PnP's observations and weights; one block per stream.
@@ -27,23 +29,52 @@
 // value), and the libdevice acosf / sinf / sqrtf are the functions torch's
 // CUDA ops call, so each kernel gives the plain version's bits.
 // resolve_one_to_one's scatter-amin is an atomicMin in shared memory
-// (deterministic: a minimum); insert_points' stable argsort and cumsum are
-// block-wide prefix sums of flags, in index order. Nothing is allocated
-// here: every output comes from the wrapper.
+// (deterministic: a minimum), in the cluster kernels into the shared memory
+// of the block that owns the target; insert_points' stable argsort and
+// cumsum are prefix sums of flags in index order, block-wide and, in the
+// cluster kernels, over the blocks' counts in rank order. Nothing is
+// allocated here: every output comes from the wrapper.
+//
+// What bounds the two cluster kernels: their bytes and operations take the
+// card well under a microsecond (chip_smoke.py's bound); their time is the
+// chain of a stream's steps, each a memory latency or a barrier. A cluster
+// of C blocks per stream issues every independent load at the start,
+// spreads the float64 triangulation over C SMs and exchanges only integer
+// counts and keys over distributed shared memory: four cluster barriers,
+// each arrive with release semantics ~1k cycles on the card but the last
+// (scripts/torch_track_clocks.py stamps each phase's clocks per block at
+// the TRACK_CLOCK markers).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 #include "lm_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int PROJ_THREADS = 256;   // predict_project: one point a thread
 constexpr int THREADS = 512;        // the one-block-per-stream kernels
 constexpr int WARPS = THREADS / 32;
+// the cluster kernels (staged_promote, triangulate_insert): a block's
+// threads (one feature each at C = 8 up to K = 2048), and the most blocks
+// a stream's cluster takes (the portable cluster size)
+constexpr int CLUSTER_THREADS = 256;
+constexpr int CLUSTER_WARPS = CLUSTER_THREADS / 32;
+constexpr int CLUSTER_MAX = 8;
+constexpr int SMEM_MAX = 232448;    // shared memory a block may take
 constexpr int IMAX = 0x7fffffff;
 constexpr int DESC_WORDS = 8;
+
+// Phase markers: nothing here; scripts/torch_track_clocks.py defines them
+// to stamp the SM clock in each block
+#ifndef TRACK_CLOCK
+#define TRACK_CLOCK(slot)
+#endif
 
 // the camera: projection and the visible bounds (core/track.py CAM_KEYS)
 struct View {
@@ -168,7 +199,7 @@ __device__ void predict(const float* lq, const float* lp, const float* lv,
 
 // The exclusive count of the block's set flags before this thread's and,
 // in `total`, the block's count: flags in thread order are index order.
-// Every thread of the block calls it (it holds two barriers).
+// Every thread of a cluster kernel's block calls it (two barriers).
 __device__ __forceinline__ int block_rank(bool flag, int* warp_sums,
                                           int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -178,7 +209,7 @@ __device__ __forceinline__ int block_rank(bool flag, int* warp_sums,
   int before = 0;
   total = 0;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
+  for (int w = 0; w < CLUSTER_WARPS; ++w) {
     const int c = warp_sums[w];
     before += w < warp ? c : 0;
     total += c;
@@ -271,55 +302,6 @@ __device__ __forceinline__ Store offset(Store s, long long i) {
 __device__ __forceinline__ StoreOut offset(StoreOut s, long long i) {
   return StoreOut{s.pos + 3 * i, s.desc + DESC_WORDS * i, s.counter + i,
                   s.age + i, s.valid + i};
-}
-
-// The new points of one insertion (core/map.py::insert_points): positions
-// [k, 3], descriptors [k, 8], counters and ages [k] (null: zeros)
-struct NewPoints {
-  const float* pos;
-  const int* desc;
-  const int* counter;
-  const int* age;
-};
-
-// insert_points of one stream: the free slots of `st` (c of them), in
-// slot order, take the new points order[0, n_new) in turn; `taken` (may be
-// null) marks them. Returns the points inserted. Every thread calls it.
-__device__ int insert(Store st, StoreOut out, uint8_t* taken, int c,
-                      const NewPoints& np, const int* order, int n_new,
-                      int* warp_sums) {
-  int carry = 0;
-  for (int base = 0; base < c; base += THREADS) {
-    const int p = base + threadIdx.x;
-    const bool free_slot = p < c && !st.valid[p];
-    int total;
-    const int rank = carry + block_rank(free_slot, warp_sums, total);
-    if (p < c) {
-      const bool take = free_slot && rank < n_new;
-      if (take) {
-        const int src = order[rank];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) out.pos[3 * p + i] = np.pos[3 * src + i];
-#pragma unroll
-        for (int w = 0; w < DESC_WORDS; ++w)
-          out.desc[DESC_WORDS * p + w] = np.desc[DESC_WORDS * src + w];
-        out.counter[p] = np.counter ? np.counter[src] : 0;
-        out.age[p] = np.age ? np.age[src] : 0;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) out.pos[3 * p + i] = st.pos[3 * p + i];
-#pragma unroll
-        for (int w = 0; w < DESC_WORDS; ++w)
-          out.desc[DESC_WORDS * p + w] = st.desc[DESC_WORDS * p + w];
-        out.counter[p] = st.counter[p];
-        out.age[p] = st.age[p];
-      }
-      out.valid[p] = st.valid[p] || take;
-      if (taken) taken[p] = take;
-    }
-    carry += total;
-  }
-  return carry < n_new ? carry : n_new;
 }
 
 // ---- K1
@@ -420,7 +402,15 @@ __global__ void __launch_bounds__(THREADS) upkeep_pre_kernel(
   if (threadIdx.x == 0) map_size[s] = size;
 }
 
-// ---- K3
+// ---- K3 and K4: one thread-block cluster per stream
+//
+// Grid (C, S), a cluster of the C blocks of a stream (launched with the
+// cluster dimension as an attribute: C is the wrapper's choice). Block rank
+// r owns one contiguous range of each axis (range_of): of the queries (K
+// features, or N staged points), of the resolution's K + 1 targets, and of
+// the map's and the staged set's slots. Every integer the kernels exchange
+// is a count or a prefix in index order, so the insertion order and every
+// bit of the outputs are those of one block walking the axes in order.
 
 struct Top2 {
   const float* d1;
@@ -429,53 +419,319 @@ struct Top2 {
   const long long* n_cand;
 };
 
-__global__ void __launch_bounds__(THREADS) staged_promote_kernel(
+// The contiguous range of an axis of n that block `r` of `c` owns
+struct Range {
+  int lo, hi, per;
+};
+
+__host__ __device__ __forceinline__ int per_block(int n, int c) {
+  return (n + c - 1) / c;
+}
+
+__device__ __forceinline__ Range range_of(int n, int c, int r) {
+  const int per = per_block(n, c);
+  const int lo = min(n, r * per);
+  return Range{lo, min(n, lo + per), per};
+}
+
+// A split cluster barrier: arrive (releasing this thread's writes, to
+// shared and to global memory, at cluster scope), then wait (acquiring
+// every other thread's of the cluster). Every thread of every block calls
+// both, in turn.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// An arrive that orders no memory: for the last barrier, which only keeps
+// a block's shared memory alive until the others have read it (their reads
+// are complete: each thread used the values before it arrived)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// The exclusive prefix over the cluster's ranks of each of the N counts
+// each block published (pub[j]), into pre[j][0..c] (pre[j][c]: the
+// cluster's total), by warp 0; the caller syncs the block after it
+template <int N>
+__device__ void rank_prefix(cg::cluster_group& cluster, int c, int* pub,
+                            int (*pre)[CLUSTER_MAX + 1]) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int v = lane < c ? *cluster.map_shared_rank(pub + j, lane) : 0;
+    int incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += up;
+    }
+    if (lane <= c) pre[j][lane] = incl - v;
+  }
+}
+
+// A descriptor's 8 words: two 16-byte loads where the row is aligned (the
+// rows of an input whose base is), else word by word
+__device__ __forceinline__ void load_desc(const int* p, int* d) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const int4 a = reinterpret_cast<const int4*>(p)[0];
+    const int4 b = reinterpret_cast<const int4*>(p)[1];
+    d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
+    d[4] = b.x; d[5] = b.y; d[6] = b.z; d[7] = b.w;
+  } else {
+#pragma unroll
+    for (int w = 0; w < DESC_WORDS; ++w) d[w] = p[w];
+  }
+}
+
+// A descriptor row of an output: the wrapper allocates the outputs, so
+// their 32-byte rows are 16-byte aligned
+__device__ __forceinline__ void store_desc(int* p, const int* d) {
+  reinterpret_cast<int4*>(p)[0] = make_int4(d[0], d[1], d[2], d[3]);
+  reinterpret_cast<int4*>(p)[1] = make_int4(d[4], d[5], d[6], d[7]);
+}
+
+// The pass-through copy of slot p of a store, issued with the kernel's
+// other loads (its stores wait for the loads they all wait for); the slots
+// taken are written again after barrier 3, which orders the two
+__device__ __forceinline__ void copy_slot(Store in, StoreOut out, int p) {
+  int d[DESC_WORDS];
+  load_desc(in.desc + DESC_WORDS * p, d);
+  const float x = in.pos[3 * p], y = in.pos[3 * p + 1], z = in.pos[3 * p + 2];
+  const int ctr = in.counter[p], age = in.age[p];
+  store_desc(out.desc + DESC_WORDS * p, d);
+  out.pos[3 * p] = x;
+  out.pos[3 * p + 1] = y;
+  out.pos[3 * p + 2] = z;
+  out.counter[p] = ctr;
+  out.age[p] = age;
+}
+
+// An insertion's record of one new point in its owner's shared memory,
+// REC words: the descriptor [0, 8), the position [8, 11), the counter, the
+// age, 16-byte aligned (read by another block as four vectors)
+constexpr int REC = 16;
+
+// The local free ranks of the block's slots [r.lo, r.hi) of a store in
+// index order (free_rank[i], -1 where the slot holds a point; the validity
+// kept in val[i]); returns the block's free slots. Every thread calls it.
+__device__ int rank_free(const uint8_t* val, int n_slots, int* free_rank,
+                         int* warp_sums) {
+  int carry = 0;
+  for (int base = 0; base < n_slots; base += CLUSTER_THREADS) {
+    const int i = base + threadIdx.x;
+    const bool free_slot = i < n_slots && !val[i];
+    int total;
+    const int r = block_rank(free_slot, warp_sums, total);
+    if (i < n_slots) free_rank[i] = free_slot ? carry + r : -1;
+    carry += total;
+  }
+  return carry;
+}
+
+// insert_points on the block's slots [r.lo, r.hi) of one stream's store:
+// a free slot of global free rank g < n_new takes the new point of global
+// candidate rank g, its record read out of its owner's shared memory (the
+// owner: the rank whose candidates' prefix cand_pre holds g); every slot's
+// validity, and `taken` (may be null). The other slots keep their
+// pass-through copy (copy_slot).
+__device__ void insert_slots(cg::cluster_group& cluster, int c,
+                             const Range& r, const int* free_rank,
+                             const uint8_t* val, int free_before,
+                             const int* cand_pre, int n_new, int* recs,
+                             StoreOut out, uint8_t* taken) {
+  for (int i = threadIdx.x; i < r.hi - r.lo; i += CLUSTER_THREADS) {
+    const int g = free_before + free_rank[i];
+    const bool take = free_rank[i] >= 0 && g < n_new;
+    const int p = r.lo + i;
+    if (take) {
+      int o = 0;
+      while (o + 1 < c && cand_pre[o + 1] <= g) ++o;
+      const int4* src = reinterpret_cast<const int4*>(
+          cluster.map_shared_rank(recs, o) + REC * (g - cand_pre[o]));
+      const int4 d0 = src[0], d1 = src[1], pc = src[2], ag = src[3];
+      const int d[DESC_WORDS] = {d0.x, d0.y, d0.z, d0.w,
+                                 d1.x, d1.y, d1.z, d1.w};
+      store_desc(out.desc + DESC_WORDS * p, d);
+      out.pos[3 * p] = __int_as_float(pc.x);
+      out.pos[3 * p + 1] = __int_as_float(pc.y);
+      out.pos[3 * p + 2] = __int_as_float(pc.z);
+      out.counter[p] = pc.w;
+      out.age[p] = ag.x;
+    }
+    out.valid[p] = val[i] || take;
+    if (taken) taken[p] = take;
+  }
+}
+
+// The owner of target t (of the K + 1) and t's place in its key array
+__device__ __forceinline__ int* target_key(cg::cluster_group& cluster,
+                                           int* key, int per, int t) {
+  const int o = t / per;
+  return cluster.map_shared_rank(key, o) + (t - o * per);
+}
+
+// ---- K3
+
+// Dynamic shared memory of staged_promote_kernel (the carving below)
+__host__ __device__ inline size_t staged_smem(int n, int m, int k, int c) {
+  const size_t q = per_block(n, c), t = per_block(k + 1, c),
+               s = per_block(m, c);
+  return 4 * (REC * q + t + 3 * q + s) + t + s + q;
+}
+
+// Block rank r: its staged queries' acceptance (their target and key),
+// counters, validity and rows (the promotions' records), its targets'
+// keys and claims, its map slots' validity and free ranks are loaded at
+// once, and its map slots copied through. Exchange 1 (cluster barrier 1):
+// the keys are set. Each accepted query's key goes to its target's owner
+// (atomicMin over distributed shared memory: a minimum, whatever the
+// order). Exchange 2: a query won its target where the owner's key is its
+// own; the claims go to the owners; the promotions are compacted in index
+// order (block_rank), and the free slots' counts read. Exchange 3: each
+// block reads the ranks' promotion counts and fills its free slots of
+// global rank below their total from the owners' records. Exchange 4: no
+// block leaves while another may read its shared memory.
+__global__ void __launch_bounds__(CLUSTER_THREADS) staged_promote_kernel(
     Top2 top2, Store staged, const uint8_t* __restrict__ fm,
     const long long* __restrict__ map_size, Store map, int n, int m, int k,
     float ratio, float abs_th, int staged_threshold, int soft_cap,
-    int* sctr_out, uint8_t* __restrict__ svalid_out,
+    int* __restrict__ sctr_out, uint8_t* __restrict__ svalid_out,
     uint8_t* __restrict__ fm_out, StoreOut map_out,
     uint8_t* __restrict__ taken) {
-  // best_key [k + 1], then order [n] (the promotions in staged order),
-  // then claims [k]
-  extern __shared__ int smem[];
-  int* best_key = smem;
-  int* order = smem + k + 1;
-  uint8_t* claims = reinterpret_cast<uint8_t*>(order + n);
-  __shared__ int warp_sums[WARPS];
-  const long long s = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long s = blockIdx.y;
+  const Range rq = range_of(n, c, rank), rt = range_of(k + 1, c, rank),
+              rm = range_of(m, c, rank);
+  const int nq = rq.hi - rq.lo, nt = rt.hi - rt.lo, nm = rm.hi - rm.lo;
+  extern __shared__ int4 dyn[];
+  int* recs = reinterpret_cast<int*>(dyn);   // [per q][REC]
+  int* key = recs + REC * rq.per;            // [per t], read by the cluster
+  int* qidx = key + rt.per;                  // [per q] accepted target or -1
+  int* qkey = qidx + rq.per;                 // [per q]
+  int* qctr = qkey + rq.per;                 // [per q]
+  int* mfree = qctr + rq.per;                // [per m]
+  uint8_t* claims = reinterpret_cast<uint8_t*>(mfree + rm.per);   // [per t]
+  uint8_t* mval = claims + rt.per;           // [per m]
+  uint8_t* qval = mval + rm.per;             // [per q]
+  __shared__ int warp_sums[CLUSTER_WARPS];
+  __shared__ int pub[2];   // free map slots, promotions: read by the cluster
+  __shared__ int pre[2][CLUSTER_MAX + 1];
+  const int tid = threadIdx.x;
+
+  TRACK_CLOCK(10);
+  for (int i = tid; i < nt; i += CLUSTER_THREADS) key[i] = IMAX;
+  cluster_arrive();   // 1: the keys are set before any block's atomicMin
+  TRACK_CLOCK(11);
   const Top2 t2{top2.d1 + s * n, top2.d2 + s * n, top2.best + s * n,
                 top2.n_cand + s * n};
-  const Store st = offset(staged, s * n);
-  for (int f = threadIdx.x; f < k; f += THREADS) claims[f] = fm[s * k + f];
-  resolve_keys(t2.d1, t2.d2, t2.best, t2.n_cand, n, k, ratio, abs_th,
-               best_key);
+  const Store st = offset(staged, s * n), mp = offset(map, s * m);
+  const StoreOut mo = offset(map_out, s * m);
+  const int most = max(max(nq, nt), nm);
+  for (int i = tid; i < most; i += CLUSTER_THREADS) {
+    if (i < nq) {
+      const int q = rq.lo + i;
+      const float d1 = t2.d1[q];
+      const long long idx =
+          accept(d1, t2.d2[q], t2.best[q], t2.n_cand[q], ratio, abs_th);
+      int* r = recs + REC * i;
+      load_desc(st.desc + DESC_WORDS * q, r);
+      r[8] = __float_as_int(st.pos[3 * q]);
+      r[9] = __float_as_int(st.pos[3 * q + 1]);
+      r[10] = __float_as_int(st.pos[3 * q + 2]);
+      r[12] = st.age[q];
+      qctr[i] = st.counter[q];
+      qval[i] = st.valid[q];
+      qidx[i] = static_cast<int>(idx);
+      qkey[i] = resolve_key(d1, q, n);
+    }
+    if (i < nt && rt.lo + i < k) claims[i] = fm[s * k + rt.lo + i];
+    if (i < nm) {
+      mval[i] = mp.valid[rm.lo + i];
+      copy_slot(mp, mo, rm.lo + i);
+    }
+  }
+  const int n_free = rank_free(mval, nm, mfree, warp_sums);
+  if (tid == 0) pub[0] = n_free;
   const bool small_map = map_size[s] < soft_cap;
+  TRACK_CLOCK(12);
+  cluster_wait();
+  TRACK_CLOCK(13);
+  // the resolution: each accepted query's key to its target's owner
+  for (int i = tid; i < nq; i += CLUSTER_THREADS)
+    if (qidx[i] >= 0)
+      atomicMin(target_key(cluster, key, rt.per, qidx[i]), qkey[i]);
+  cluster_arrive();   // 2: the keys are final, the free counts published
+  TRACK_CLOCK(14);
+  cluster_wait();
+  TRACK_CLOCK(15);
+  rank_prefix<1>(cluster, c, pub, pre);
+  // the promotion flags, the claims to their owners, the staged outputs
+  // (kept in qctr, qval and stored after barrier 3's arrive: its release
+  // would wait for global stores), and the promotions' records compacted
+  // in place in index order (a record moves to its rank, never above its
+  // own index: each pass reads its records before block_rank's first
+  // barrier)
   int carry = 0;
-  for (int base = 0; base < n; base += THREADS) {
-    const int q = base + threadIdx.x;
+  for (int base = 0; base < nq; base += CLUSTER_THREADS) {
+    const int i = base + tid;
     bool promote = false;
-    if (q < n) {
-      const long long idx = resolved(t2.d1, t2.d2, t2.best, t2.n_cand, q, n,
-                                     ratio, abs_th, best_key);
-      const bool matched = idx >= 0;
-      if (matched) claims[idx] = 1;
-      const int c = st.counter[q];
-      const bool v = st.valid[q];
-      promote = v && matched && (c + 1 == staged_threshold || small_map);
-      sctr_out[s * n + q] = matched ? c + 1 : c;
-      svalid_out[s * n + q] = v && matched && !promote;
+    int r[13];
+    if (i < nq) {
+      const int idx = qidx[i];
+      bool matched = false;
+      if (idx >= 0) {
+        matched = *target_key(cluster, key, rt.per, idx) == qkey[i];
+        if (matched) {
+          const int o = idx / rt.per;
+          *cluster.map_shared_rank(claims + (idx - o * rt.per), o) = 1;
+        }
+      }
+      const int cnt = qctr[i];
+      const bool v = qval[i];
+      promote = v && matched && (cnt + 1 == staged_threshold || small_map);
+      qctr[i] = matched ? cnt + 1 : cnt;
+      qval[i] = v && matched && !promote;
+      if (promote) {
+#pragma unroll
+        for (int w = 0; w < 11; ++w) r[w] = recs[REC * i + w];
+        r[11] = cnt + 1;
+        r[12] = recs[REC * i + 12];
+      }
     }
     int total;
-    const int rank = block_rank(promote, warp_sums, total);
-    if (promote) order[carry + rank] = q;
+    const int at = carry + block_rank(promote, warp_sums, total);
+    if (promote) {
+#pragma unroll
+      for (int w = 0; w < 13; ++w) recs[REC * at + w] = r[w];
+    }
     carry += total;
   }
-  // (block_rank's barriers order the claims and the counters before this)
-  for (int f = threadIdx.x; f < k; f += THREADS) fm_out[s * k + f] = claims[f];
-  const NewPoints np{st.pos, st.desc, sctr_out + s * n, st.age};
-  insert(offset(map, s * m), offset(map_out, s * m), taken + s * m, m, np,
-         order, carry, warp_sums);
+  if (tid == 0) pub[1] = carry;
+  TRACK_CLOCK(16);
+  cluster_arrive();   // 3: claims, records and promotion counts
+  for (int i = tid; i < nq; i += CLUSTER_THREADS) {
+    sctr_out[s * n + rq.lo + i] = qctr[i];
+    svalid_out[s * n + rq.lo + i] = qval[i];
+  }
+  cluster_wait();
+  TRACK_CLOCK(17);
+  rank_prefix<1>(cluster, c, pub + 1, pre + 1);
+  for (int i = tid; i < nt; i += CLUSTER_THREADS)
+    if (rt.lo + i < k) fm_out[s * k + rt.lo + i] = claims[i];
+  __syncthreads();
+  insert_slots(cluster, c, rm, mfree, mval, pre[0][rank], pre[1],
+               pre[1][c], recs, mo, taken + s * m);
+  TRACK_CLOCK(18);
+  cluster_arrive_relaxed();   // 4: no block leaves while another reads its
+  cluster_wait();             // shared memory
+  TRACK_CLOCK(19);
 }
 
 // ---- K4
@@ -562,7 +818,30 @@ struct Features {
   const int* desc;      // [k, 8] left
 };
 
-__global__ void __launch_bounds__(THREADS) triangulate_insert_kernel(
+// Dynamic shared memory of triangulate_insert_kernel (the carving below)
+__host__ __device__ inline size_t tri_smem(int k, int m, int n, int rgbd,
+                                           int c) {
+  const size_t f = per_block(k, c), t = rgbd ? 0 : per_block(k + 1, c),
+               a = per_block(m, c), b = per_block(n, c);
+  return 4 * (REC * f + t + 6 * f + a + b) + a + b + f;
+}
+
+// Block rank r: its features' acceptance (target and key), keypoints, the
+// right keypoint of their best match (and feature 0's: a query that loses
+// its target pairs with it), descriptors (the candidates' records), depth
+// and validity (RGB-D), its targets' keys, the map's and the staged set's
+// slots' validity and free ranks are loaded at once, and the slots copied
+// through. Exchange 1: the keys are set; each accepted query's key goes to
+// its target's owner (atomicMin over distributed shared memory). Exchange
+// 2: the map's size (the ranks' valid counts) sets the policy and the
+// split; each block triangulates its features (triangulate_pair, the
+// plain version's operations in its order) or back-projects them, writes
+// their world points and candidate flags, and compacts its candidates'
+// records in index order. Exchange 3: each block fills its free slots of
+// the store that takes the candidates (to_map: the map, else the staged
+// set) from the owners' records. Exchange 4: no block leaves while another
+// may read its records. Rank 0 writes the stream's scalars.
+__global__ void __launch_bounds__(CLUSTER_THREADS) triangulate_insert_kernel(
     Top2 top2, Features feats, int k, int rgbd, const float* __restrict__ pt,
     const float* __restrict__ pq, Store map, int m, Store staged, int n,
     const float* __restrict__ last_matches,
@@ -570,25 +849,112 @@ __global__ void __launch_bounds__(THREADS) triangulate_insert_kernel(
     const uint8_t* __restrict__ is_init, TriParams prm, StoreOut map_out,
     uint8_t* __restrict__ map_taken, StoreOut staged_out,
     long long* __restrict__ n_inserted, long long* __restrict__ map_size_out,
-    float* __restrict__ window_out, float* pts,
+    float* __restrict__ window_out, float* __restrict__ pts,
     uint8_t* __restrict__ cand) {
-  // best_key [k + 1] (stereo), then the candidates of the map and of the
-  // staged set in feature order [k] each
-  extern __shared__ int smem[];
-  int* best_key = smem;
-  int* order_map = smem + k + 1;
-  int* order_staged = order_map + k;
-  __shared__ int warp_sums[WARPS];
-  __shared__ float rot[9];
-  const long long s = blockIdx.x;
-  const Store mp = offset(map, s * m);
-  // the map's size after the promotions, the policy and the split
-  int kept = 0;
-  for (int p = threadIdx.x; p < m; p += THREADS) kept += mp.valid[p];
-  const int map_size = block_count(kept, warp_sums);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long s = blockIdx.y;
+  const Range rf = range_of(k, c, rank),
+              rt = range_of(rgbd ? 0 : k + 1, c, rank),
+              rm = range_of(m, c, rank), rn = range_of(n, c, rank);
+  const int nf = rf.hi - rf.lo, nt = rt.hi - rt.lo, nm = rm.hi - rm.lo,
+            nn = rn.hi - rn.lo;
+  extern __shared__ int4 dyn[];
+  int* recs = reinterpret_cast<int*>(dyn);   // [per f][REC]
+  int* key = recs + REC * rf.per;            // [per t], read by the cluster
+  int* fidx = key + rt.per;                  // [per f] accepted target or -1
+  int* fkey = fidx + rf.per;                 // [per f]
+  float* fkp = reinterpret_cast<float*>(fkey + rf.per);   // [per f][4]
+  int* mfree = reinterpret_cast<int*>(fkp + 4 * rf.per);  // [per m]
+  int* nfree = mfree + rm.per;               // [per n]
+  uint8_t* mval = reinterpret_cast<uint8_t*>(nfree + rn.per);   // [per m]
+  uint8_t* nval = mval + rm.per;             // [per n]
+  uint8_t* fok = nval + rn.per;              // [per f] (RGB-D)
+  __shared__ int warp_sums[CLUSTER_WARPS];
+  // valid map slots, free map slots, free staged slots, candidates: read
+  // by the cluster
+  __shared__ int pub[4];
+  __shared__ int pre[4][CLUSTER_MAX + 1];
+  __shared__ float rot[9], rkp0[2];
+  const int tid = threadIdx.x;
+  const long long o = s * k;
+
+  TRACK_CLOCK(0);
+  for (int i = tid; i < nt; i += CLUSTER_THREADS) key[i] = IMAX;
+  cluster_arrive();   // 1: the keys are set before any block's atomicMin
+  TRACK_CLOCK(1);
+  const Top2 t2{top2.d1 + o, top2.d2 + o, top2.best + o, top2.n_cand + o};
+  const Store mp = offset(map, s * m), sp = offset(staged, s * n);
+  const StoreOut mo = offset(map_out, s * m), so = offset(staged_out, s * n);
+  if (tid == 0) {
+    to_matrix(pq + 4 * s, rot);
+    if (!rgbd && k > 0) {
+      rkp0[0] = feats.rkp[2 * o];
+      rkp0[1] = feats.rkp[2 * o + 1];
+    }
+  }
+  const int most = max(max(nf, nm), nn);
+  for (int i = tid; i < most; i += CLUSTER_THREADS) {
+    if (i < nf) {
+      const long long f = o + rf.lo + i;
+      float* kp4 = fkp + 4 * i;
+      kp4[0] = feats.kp[2 * f];
+      kp4[1] = feats.kp[2 * f + 1];
+      load_desc(feats.desc + DESC_WORDS * f, recs + REC * i);
+      if (rgbd) {
+        kp4[2] = feats.depth[f];
+        fok[i] = feats.valid[f];
+      } else {
+        const int q = rf.lo + i;
+        const float d1 = t2.d1[q];
+        const long long best = t2.best[q];
+        fidx[i] = static_cast<int>(
+            accept(d1, t2.d2[q], best, t2.n_cand[q], prm.ratio, prm.abs_th));
+        fkey[i] = resolve_key(d1, q, k);
+        // the right keypoint of the match, if it resolves
+        const long long r = best < 0 ? 0 : (best > k - 1 ? k - 1 : best);
+        kp4[2] = feats.rkp[2 * (o + r)];
+        kp4[3] = feats.rkp[2 * (o + r) + 1];
+      }
+    }
+    if (i < nm) {
+      mval[i] = mp.valid[rm.lo + i];
+      copy_slot(mp, mo, rm.lo + i);
+    }
+    if (i < nn) {
+      nval[i] = sp.valid[rn.lo + i];
+      copy_slot(sp, so, rn.lo + i);
+    }
+  }
+  const int map_free = rank_free(mval, nm, mfree, warp_sums);
+  const int staged_free = rank_free(nval, nn, nfree, warp_sums);
+  if (tid == 0) {
+    pub[0] = nm - map_free;
+    pub[1] = map_free;
+    pub[2] = staged_free;
+  }
+  // the stream's scalars, read before the exchanges too
   const bool init = is_init[s] != 0;
-  float window[3] = {last_matches[3 * s + 1], last_matches[3 * s + 2],
-                     static_cast<float>(matches_count[s])};
+  const float window[3] = {last_matches[3 * s + 1], last_matches[3 * s + 2],
+                           static_cast<float>(matches_count[s])};
+  const float t[3] = {pt[3 * s], pt[3 * s + 1], pt[3 * s + 2]};
+  TRACK_CLOCK(2);
+  cluster_wait();
+  TRACK_CLOCK(3);
+  // the row resolution: each accepted query's key to its target's owner
+  if (!rgbd)
+    for (int i = tid; i < nf; i += CLUSTER_THREADS)
+      if (fidx[i] >= 0)
+        atomicMin(target_key(cluster, key, rt.per, fidx[i]), fkey[i]);
+  cluster_arrive();   // 2: the keys are final, the counts published
+  TRACK_CLOCK(4);
+  cluster_wait();
+  TRACK_CLOCK(5);
+  rank_prefix<3>(cluster, c, pub, pre);
+  __syncthreads();
+  // the map's size, the policy and the split (uniform over the cluster)
+  const int map_size = pre[0][c];
   bool need_tri;
   if (prm.policy == 2) {
     need_tri = true;
@@ -600,64 +966,86 @@ __global__ void __launch_bounds__(THREADS) triangulate_insert_kernel(
   }
   need_tri = need_tri || init;
   const bool to_map = map_size < prm.soft_cap || prm.staged_threshold == 0;
-  if (threadIdx.x == 0) {
-    const float* q = pq + 4 * s;
-    to_matrix(q, rot);
-  }
-  const float* t = pt + 3 * s;
-  const long long o = s * k;
-  const Top2 t2{top2.d1 + o, top2.d2 + o, top2.best + o, top2.n_cand + o};
-  if (!rgbd)
-    resolve_keys(t2.d1, t2.d2, t2.best, t2.n_cand, k, k, prm.ratio,
-                 prm.abs_th, best_key);
-  __syncthreads();
-  int carry_map = 0, carry_staged = 0;
-  for (int base = 0; base < k; base += THREADS) {
-    const int f = base + threadIdx.x;
-    bool take_map = false, take_staged = false;
-    if (f < k) {
-      const float ul = feats.kp[2 * (o + f)], vl = feats.kp[2 * (o + f) + 1];
+  // each feature's point and candidate flag (kept in fkp, fok and stored
+  // after barrier 3's arrive, as staged_promote_kernel's outputs); the
+  // candidates' records compacted in place in index order (as there)
+  int carry = 0;
+  for (int base = 0; base < nf; base += CLUSTER_THREADS) {
+    const int i = base + tid;
+    bool take = false;
+    float w[3];
+    int d[DESC_WORDS];
+    if (i < nf) {
+      float* kp4 = fkp + 4 * i;
+      const float ul = kp4[0], vl = kp4[1];
       float pc[3];
       bool ok;
       if (rgbd) {
-        const float d = feats.depth[o + f];
-        pc[0] = __fdiv_rn(__fmul_rn(__fsub_rn(ul, prm.cam.cx), d), prm.cam.fx);
-        pc[1] = __fdiv_rn(__fmul_rn(__fsub_rn(vl, prm.cam.cy), d), prm.cam.fy);
-        pc[2] = d;
-        ok = feats.valid[o + f];
+        const float dp = kp4[2];
+        pc[0] = __fdiv_rn(__fmul_rn(__fsub_rn(ul, prm.cam.cx), dp),
+                          prm.cam.fx);
+        pc[1] = __fdiv_rn(__fmul_rn(__fsub_rn(vl, prm.cam.cy), dp),
+                          prm.cam.fy);
+        pc[2] = dp;
+        ok = fok[i];
       } else {
-        const long long idx = resolved(t2.d1, t2.d2, t2.best, t2.n_cand, f, k,
-                                       prm.ratio, prm.abs_th, best_key);
-        const long long r = idx < 0 ? 0 : (idx > k - 1 ? k - 1 : idx);
-        ok = triangulate_pair(ul, vl, feats.rkp[2 * (o + r)],
-                              feats.rkp[2 * (o + r) + 1], idx >= 0, prm, pc);
+        const int idx = fidx[i];
+        const bool won =
+            idx >= 0 && *target_key(cluster, key, rt.per, idx) == fkey[i];
+        // a query that lost its target pairs with feature 0 (the clamp of
+        // -1), as the plain version's gather does
+        ok = triangulate_pair(ul, vl, won ? kp4[2] : rkp0[0],
+                              won ? kp4[3] : rkp0[1], won, prm, pc);
       }
       // the world point: matvec(R, p) + t
-      float* w = pts + 3 * (o + f);
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-        w[i] = __fadd_rn(mv(rot, i, pc[0], pc[1], pc[2]), t[i]);
-      const bool c = ok && need_tri;
-      cand[o + f] = c;
-      take_map = c && to_map;
-      take_staged = c && !to_map;
+      for (int j = 0; j < 3; ++j) {
+        w[j] = __fadd_rn(mv(rot, j, pc[0], pc[1], pc[2]), t[j]);
+        kp4[j] = w[j];
+      }
+      take = ok && need_tri;
+      fok[i] = take;
+      if (take) {
+#pragma unroll
+        for (int j = 0; j < DESC_WORDS; ++j) d[j] = recs[REC * i + j];
+      }
     }
-    int total_map, total_staged;
-    const int rank_map = block_rank(take_map, warp_sums, total_map);
-    const int rank_staged = block_rank(take_staged, warp_sums, total_staged);
-    if (take_map) order_map[carry_map + rank_map] = f;
-    if (take_staged) order_staged[carry_staged + rank_staged] = f;
-    carry_map += total_map;
-    carry_staged += total_staged;
+    int total;
+    const int at = carry + block_rank(take, warp_sums, total);
+    if (take) {
+      int* r = recs + REC * at;
+#pragma unroll
+      for (int j = 0; j < DESC_WORDS; ++j) r[j] = d[j];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) r[8 + j] = __float_as_int(w[j]);
+      r[11] = 0;
+      r[12] = 0;
+    }
+    carry += total;
   }
-  const NewPoints np{pts + 3 * o, feats.desc + DESC_WORDS * o, nullptr,
-                     nullptr};
-  const int in_map = insert(mp, offset(map_out, s * m), map_taken + s * m, m,
-                            np, order_map, carry_map, warp_sums);
-  const int in_staged = insert(offset(staged, s * n), offset(staged_out, s * n),
-                               nullptr, n, np, order_staged, carry_staged,
-                               warp_sums);
-  if (threadIdx.x == 0) {
+  if (tid == 0) pub[3] = carry;
+  TRACK_CLOCK(6);
+  cluster_arrive();   // 3: the records and the candidate counts
+  for (int i = tid; i < 3 * nf; i += CLUSTER_THREADS)
+    pts[3 * (o + rf.lo) + i] = fkp[4 * (i / 3) + i % 3];
+  for (int i = tid; i < nf; i += CLUSTER_THREADS) cand[o + rf.lo + i] = fok[i];
+  cluster_wait();
+  TRACK_CLOCK(7);
+  rank_prefix<1>(cluster, c, pub + 3, pre + 3);
+  __syncthreads();
+  const int n_new = pre[3][c];
+  const int to_map_n = to_map ? n_new : 0, to_staged_n = to_map ? 0 : n_new;
+  insert_slots(cluster, c, rm, mfree, mval, pre[1][rank], pre[3], to_map_n,
+               recs, mo, map_taken + s * m);
+  insert_slots(cluster, c, rn, nfree, nval, pre[2][rank], pre[3],
+               to_staged_n, recs, so, nullptr);
+  TRACK_CLOCK(8);
+  cluster_arrive_relaxed();   // 4: no block leaves while another reads its
+                              // shared memory
+  if (rank == 0 && tid == 0) {
+    // insert_points' count: the free slots filled, at most the new points
+    const int in_map = min(pre[1][c], to_map_n);
+    const int in_staged = min(pre[2][c], to_staged_n);
     const int size = map_size + in_map;
     n_inserted[s] = in_map + in_staged;
     map_size_out[s] = size;
@@ -665,6 +1053,8 @@ __global__ void __launch_bounds__(THREADS) triangulate_insert_kernel(
     window_out[3 * s + 1] = init ? prm.window_init : window[1];
     window_out[3 * s + 2] = init ? prm.window_init : window[2];
   }
+  cluster_wait();
+  TRACK_CLOCK(9);
 }
 
 // ---- K5
@@ -751,6 +1141,57 @@ cudaError_t smem_limit(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// A cluster kernel's launch configuration: grid (c, S), clusters of c
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+
+  ClusterLaunch(int c, int n_streams, size_t smem, void* stream) : cfg{} {
+    cfg.gridDim = dim3(c, n_streams);
+    cfg.blockDim = dim3(CLUSTER_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = c;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// One launch of a cluster kernel with c blocks a stream (1 to CLUSTER_MAX)
+// and `smem` bytes of dynamic shared memory a block
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int c, int n_streams,
+                           size_t smem, void* stream, Args&&... args) {
+  if (c < 1 || c > CLUSTER_MAX || smem > SMEM_MAX)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = smem_limit(kernel, smem);
+  if (err != cudaSuccess || n_streams < 1) return err;
+  ClusterLaunch l(c, n_streams, smem, stream);
+  return cudaLaunchKernelEx(&l.cfg, kernel, std::forward<Args>(args)...);
+}
+
+// How many clusters of c blocks of a cluster kernel the card runs at once
+// (cudaOccupancyMaxActiveClusters), 0 where a block cannot hold `smem`
+template <typename... Params>
+int max_clusters(void (*kernel)(Params...), int c, size_t smem) {
+  if (c < 1 || c > CLUSTER_MAX || smem > SMEM_MAX ||
+      smem_limit(kernel, smem) != cudaSuccess) {
+    cudaGetLastError();   // leaves no error for the next launch to report
+    return 0;
+  }
+  ClusterLaunch l(c, 1, smem, nullptr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<void*>(kernel),
+                                     &l.cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
 }  // namespace
 
 // K1: motion state (lq [S, 4], lp [S, 3], lv [S, 3], av [S, 4]), the last
@@ -805,7 +1246,8 @@ extern "C" int lvt_upkeep_pre(
 // int64), the staged set (pos, desc, counter, age, valid [S, N]), the claims
 // [S, K], the map size [S] int64, the map (pos, desc, counter, age, valid
 // [S, M]) -> staged counter', valid' [S, N], claims' [S, K], the map' (5
-// leaves) and its slots taken [S, M]. One block a stream.
+// leaves) and its slots taken [S, M]. A cluster of `cluster` blocks a
+// stream (1 to 8).
 extern "C" int lvt_staged_promote(
     const float* d1, const float* d2, const long long* best,
     const long long* n_cand, const float* spos, const int* sdesc,
@@ -813,26 +1255,21 @@ extern "C" int lvt_staged_promote(
     const long long* map_size, const float* mpos, const int* mdesc,
     const int* mctr, const int* mage, const void* mvalid, int n_streams,
     int n, int m, int k, float ratio, float abs_th, int staged_threshold,
-    int soft_cap, int* sctr_out, void* svalid_out, void* fm_out,
-    float* mpos_out, int* mdesc_out, int* mctr_out, int* mage_out,
-    void* mvalid_out, void* taken, void* stream) {
-  const size_t smem = sizeof(int) * (k + 1 + n) + k;
-  const cudaError_t err = smem_limit(staged_promote_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_streams > 0) {
-    staged_promote_kernel<<<n_streams, THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-        Top2{d1, d2, best, n_cand},
-        Store{spos, sdesc, sctr, sage, static_cast<const uint8_t*>(svalid)},
-        static_cast<const uint8_t*>(fm), map_size,
-        Store{mpos, mdesc, mctr, mage, static_cast<const uint8_t*>(mvalid)},
-        n, m, k, ratio, abs_th, staged_threshold, soft_cap, sctr_out,
-        static_cast<uint8_t*>(svalid_out), static_cast<uint8_t*>(fm_out),
-        StoreOut{mpos_out, mdesc_out, mctr_out, mage_out,
-                 static_cast<uint8_t*>(mvalid_out)},
-        static_cast<uint8_t*>(taken));
-  }
-  return static_cast<int>(cudaGetLastError());
+    int soft_cap, int cluster, int* sctr_out, void* svalid_out,
+    void* fm_out, float* mpos_out, int* mdesc_out, int* mctr_out,
+    int* mage_out, void* mvalid_out, void* taken, void* stream) {
+  const cudaError_t err = launch_cluster(
+      staged_promote_kernel, cluster, n_streams,
+      staged_smem(n, m, k, cluster), stream, Top2{d1, d2, best, n_cand},
+      Store{spos, sdesc, sctr, sage, static_cast<const uint8_t*>(svalid)},
+      static_cast<const uint8_t*>(fm), map_size,
+      Store{mpos, mdesc, mctr, mage, static_cast<const uint8_t*>(mvalid)},
+      n, m, k, ratio, abs_th, staged_threshold, soft_cap, sctr_out,
+      static_cast<uint8_t*>(svalid_out), static_cast<uint8_t*>(fm_out),
+      StoreOut{mpos_out, mdesc_out, mctr_out, mage_out,
+               static_cast<uint8_t*>(mvalid_out)},
+      static_cast<uint8_t*>(taken));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // K4: the row site's top-2 ([S, K]; unread with rgbd), the left keypoints
@@ -843,7 +1280,8 @@ extern "C" int lvt_staged_promote(
 // and absolute thresholds, the baseline, reprojection_th2 -> the map' (5
 // leaves), its slots taken [S, M], the staged set' (5 leaves), the points
 // inserted [S] int64, the map size [S] int64, the window [S, 3], the world
-// points [S, K, 3], the candidates [S, K]. One block a stream.
+// points [S, K, 3], the candidates [S, K]. A cluster of `cluster` blocks a
+// stream (1 to 8).
 extern "C" int lvt_triangulate_insert(
     const float* d1, const float* d2, const long long* best,
     const long long* n_cand, const float* kp, const float* rkp,
@@ -854,34 +1292,51 @@ extern "C" int lvt_triangulate_insert(
     const float* last_matches, const long long* matches_count,
     const void* is_init, int n_streams, int k, int m, int n, int rgbd,
     const float* fl, int policy, int staged_threshold, int soft_cap,
-    float window_init, float* mpos_out, int* mdesc_out, int* mctr_out,
-    int* mage_out, void* mvalid_out, void* map_taken, float* spos_out,
-    int* sdesc_out, int* sctr_out, int* sage_out, void* svalid_out,
-    long long* n_inserted, long long* map_size, float* window, float* pts,
-    void* cand, void* stream) {
-  const size_t smem = sizeof(int) * (3 * k + 1);
-  const cudaError_t err = smem_limit(triangulate_insert_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_streams > 0) {
-    const TriParams prm{view_of(fl), fl[10], fl[11], fl[12], fl[13], policy,
-                        staged_threshold, soft_cap, window_init};
-    triangulate_insert_kernel<<<n_streams, THREADS, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-        Top2{d1, d2, best, n_cand},
-        Features{kp, rkp, depth, static_cast<const uint8_t*>(fvalid), desc},
-        k, rgbd, t, q,
-        Store{mpos, mdesc, mctr, mage, static_cast<const uint8_t*>(mvalid)},
-        m, Store{spos, sdesc, sctr, sage, static_cast<const uint8_t*>(svalid)},
-        n, last_matches, matches_count, static_cast<const uint8_t*>(is_init),
-        prm,
-        StoreOut{mpos_out, mdesc_out, mctr_out, mage_out,
-                 static_cast<uint8_t*>(mvalid_out)},
-        static_cast<uint8_t*>(map_taken),
-        StoreOut{spos_out, sdesc_out, sctr_out, sage_out,
-                 static_cast<uint8_t*>(svalid_out)},
-        n_inserted, map_size, window, pts, static_cast<uint8_t*>(cand));
-  }
-  return static_cast<int>(cudaGetLastError());
+    float window_init, int cluster, float* mpos_out, int* mdesc_out,
+    int* mctr_out, int* mage_out, void* mvalid_out, void* map_taken,
+    float* spos_out, int* sdesc_out, int* sctr_out, int* sage_out,
+    void* svalid_out, long long* n_inserted, long long* map_size,
+    float* window, float* pts, void* cand, void* stream) {
+  const TriParams prm{view_of(fl), fl[10], fl[11], fl[12], fl[13], policy,
+                      staged_threshold, soft_cap, window_init};
+  const cudaError_t err = launch_cluster(
+      triangulate_insert_kernel, cluster, n_streams,
+      tri_smem(k, m, n, rgbd, cluster), stream, Top2{d1, d2, best, n_cand},
+      Features{kp, rkp, depth, static_cast<const uint8_t*>(fvalid), desc},
+      k, rgbd, t, q,
+      Store{mpos, mdesc, mctr, mage, static_cast<const uint8_t*>(mvalid)},
+      m, Store{spos, sdesc, sctr, sage, static_cast<const uint8_t*>(svalid)},
+      n, last_matches, matches_count, static_cast<const uint8_t*>(is_init),
+      prm,
+      StoreOut{mpos_out, mdesc_out, mctr_out, mage_out,
+               static_cast<uint8_t*>(mvalid_out)},
+      static_cast<uint8_t*>(map_taken),
+      StoreOut{spos_out, sdesc_out, sctr_out, sage_out,
+               static_cast<uint8_t*>(svalid_out)},
+      n_inserted, map_size, window, pts, static_cast<uint8_t*>(cand));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The cluster kernels' shape: out[0] the most blocks a stream's cluster
+// takes, out[1] threads per block
+extern "C" int lvt_track_shape(int* out) {
+  out[0] = CLUSTER_MAX;
+  out[1] = CLUSTER_THREADS;
+  return 0;
+}
+
+// How many clusters of `cluster` blocks the card runs at once of op 0
+// (staged_promote: N staged points, M map slots, K features) or op 1
+// (triangulate_insert: K features, M and N slots, rgbd) at its shared
+// memory for this shape (cudaOccupancyMaxActiveClusters); 0 where a block
+// cannot hold it
+extern "C" int lvt_track_max_clusters(int op, int cluster, int k, int m,
+                                      int n, int rgbd) {
+  if (cluster < 1 || cluster > CLUSTER_MAX) return 0;
+  return op == 0 ? max_clusters(staged_promote_kernel, cluster,
+                                staged_smem(n, m, k, cluster))
+                 : max_clusters(triangulate_insert_kernel, cluster,
+                                tri_smem(k, m, n, rgbd, cluster));
 }
 
 // K5: T's outputs at the map site (fout [S, 2, 2, M] f32, iout [S, 2, 2, M]

@@ -57,9 +57,12 @@ _SIGNATURES = {
     "lvt_ba_scratch_per_point": [_I],
     "lvt_predict_project": [_P] * 9 + [_I, _I] + [_P] * 6,
     "lvt_upkeep_pre": [_P] * 11 + [_I] * 5 + [_P] * 11,
-    "lvt_staged_promote": [_P] * 16 + [_I] * 4 + [_F, _F, _I, _I] + [_P] * 10,
-    "lvt_triangulate_insert": ([_P] * 24 + [_I] * 5 + [_P, _I, _I, _I, _F]
-                               + [_P] * 17),
+    "lvt_staged_promote": ([_P] * 16 + [_I] * 4 + [_F, _F, _I, _I, _I]
+                           + [_P] * 10),
+    "lvt_triangulate_insert": ([_P] * 24 + [_I] * 5
+                               + [_P, _I, _I, _I, _F, _I] + [_P] * 17),
+    "lvt_track_shape": [_P],
+    "lvt_track_max_clusters": [_I] * 6,
     "lvt_map_accept": [_P] * 5 + [_I] * 3 + [_F, _F, _I] + [_P] * 9,
     "lvt_select_geometry": [_I] * 5 + [_P],
     "lvt_select_max_clusters": [_I] * 7,

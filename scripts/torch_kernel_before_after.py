@@ -1,32 +1,37 @@
 #!/usr/bin/env python3
-"""lvt_tpu_torch's kernels A, B and T, PnP's fused solve and the corner
-selection of two trees on one NVIDIA GPU, in one run.
+"""lvt_tpu_torch's kernels A, B and T, PnP's fused solve, the corner
+selection and the tracking branch's staged promotion and triangulation of
+two trees on one NVIDIA GPU, in one run.
 
     git archive <parent commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_before_after.py --parent build/parent
 
 Runs kernels A (perception), B (dense BRIEF planes) and T (Hamming
-top-2, the single-stream call at its four sites), ``pnp_solve`` and
-``select_corners`` of the parent tree ("old") and of this tree ("new") in
+top-2, the single-stream call at its four sites), ``pnp_solve``,
+``select_corners``, ``staged_promote`` and ``triangulate_insert`` of the
+parent tree ("old") and of this tree ("new") in
 turns, old, new, new, old, one process each, on the same inputs: those of
 ``chip_smoke.kernel_inputs`` at the main paths' shapes (a uint8 KITTI
 pair, its box sums, and T's arguments from the descriptors of two
 frames); PnP problems as ``tests/test_torch_cuda.py`` poses them at M =
 1024 and 4096 points and S = 1 and 8 streams; kernel A's maps of path
 1's KITTI pair, path 3's 16 images and TUM fr1's one cell (one random
-640 x 480 frame) for the selection; all made once by this tree. Each
+640 x 480 frame) for the selection; the two tracking ops at path 1's,
+path 3's and path 5's shapes as ``scripts/torch_track_clocks.py`` poses
+them (the ``cuda`` tests' problems); all made once by this tree. Each
 process builds its tree's kernels (printing ptxas's registers and
 spills) and measures them with this tree's ``chip_smoke.measure_a_b``:
 each kernel against its plain version, bit for bit, timed with
 ``chip_smoke.device_ms``, with ``chip_smoke.bound``; A also on the pair
-made non-integer float32; T, the solve and the selection timed with
-``device_ms`` at each of their shapes. The parent tree's wrappers must
+made non-integer float32; T, the solve, the selection and the tracking
+ops timed with ``device_ms`` at each of their shapes. The parent tree's wrappers must
 take the same arguments as this tree's.
 
 The script then checks that old and new give the same bits (A's three maps
-on both pairs, B's planes, T's, the solve's and the selection's outputs at
-every shape), says for A, B, the solve and the selection whether every
-new run was faster than every old run, prints T's times, and writes every
+on both pairs, B's planes, T's, the solve's, the selection's and the
+tracking ops' outputs at every shape; NaN where the other has NaN), says
+for A, B, the solve, the selection and the tracking ops whether every new
+run was faster than every old run, prints T's times, and writes every
 run and the mean of each side to ``--out`` (default
 ``build/before_after/result.json``, under the checkout). It needs the
 card: without one it fails.
@@ -48,6 +53,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, "build", "before_after")
 ORDER = ("old", "new", "new", "old")
 PNP_SHAPES = ((1024, 1), (1024, 8), (4096, 1), (4096, 8))
+TRACK_OPS = ("staged_promote", "triangulate_insert")
 
 
 def _smoke():
@@ -73,16 +79,33 @@ def prepare(path: str) -> None:
     inp = smoke.kernel_inputs(config, left[:2], right[:2])
     torch.save(dict(imgs=inp["imgs"], smooth=inp["p_args"][0],
                     t_sites=inp["sites"], pnp=pnp_problems(),
-                    select=select_problems(config, left, right)), path)
+                    select=select_problems(config, left, right),
+                    **track_problems()), path)
+
+
+def _load(name: str, *path: str):
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(ROOT, *path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def track_problems() -> dict:
+    """``staged_promote``'s and ``triangulate_insert``'s arguments at
+    scripts/torch_track_clocks.py's shapes, on the card."""
+    cases = _load("test_torch_cuda", "tests", "test_torch_cuda.py")
+    clocks = _load("torch_track_clocks", "scripts", "torch_track_clocks.py")
+    out = {name: {} for name in TRACK_OPS}
+    for (name, label), (_, args) in clocks.problems(cases, "cuda").items():
+        out[name][label] = args
+    return out
 
 
 def pnp_problems() -> dict:
     """The fused solve's arguments at each (M, S) of PNP_SHAPES:
     tests/test_torch_cuda.py's problems, loaded from its file."""
-    spec = importlib.util.spec_from_file_location(
-        "test_torch_cuda", os.path.join(ROOT, "tests", "test_torch_cuda.py"))
-    cases = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cases)
+    cases = _load("test_torch_cuda", "tests", "test_torch_cuda.py")
     cam = dict(cases.PNP_CAM, reprojection_th2=5.991)
     return {f"M={m} S={s}": (cases._pnp_problem(np.random.RandomState(m + s),
                                                  s, m, "cuda"),
@@ -116,6 +139,7 @@ def worker(side: str, root: str, inputs: str, out: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import lvt_tpu_torch  # noqa: F401  (this side's package, first)
     from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.core import track
     from lvt_tpu_torch.ops import detect, perception, top2
     from lvt_tpu_torch.solver import pnp
 
@@ -137,7 +161,9 @@ def worker(side: str, root: str, inputs: str, out: str) -> None:
             lambda a=a, kw=kw: top2.hamming_top2(*a, **kw), smoke.REPS))
     for group, op, sites in (("pnp_solve", pnp.pnp_solve_op, inp["pnp"]),
                              ("select_corners", detect.select_corners_op,
-                              inp["select"])):
+                              inp["select"]),
+                             *((name, getattr(track, f"{name}_op"), inp[name])
+                               for name in TRACK_OPS)):
         rep[group] = {}
         for site, args in sites.items():
             args = (*args[0], *args[1]) if group == "pnp_solve" else args
@@ -195,14 +221,16 @@ def main(argv=None) -> int:
     new = next(r for s, r in results if s == "new")
     for key in old:
         for a, b in zip(old[key], new[key], strict=True):
-            if not torch.equal(a, b):
+            if not (torch.equal(a, b) or (
+                    a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+                    and torch.equal(a.nan_to_num(), b.nan_to_num()))):
                 raise AssertionError(f"{key}: the new kernel differs from "
                                      "the old one")
     print("old and new give the same bits: A's nms, raw and smooth on the "
           "uint8 and the float32 pair, B's planes, T's outputs at "
           f"{', '.join(k[2:] for k in old if k.startswith('t_'))}; "
           f"{', '.join(k for k in old if ':' in k)}", flush=True)
-    for group in ("pnp_solve", "select_corners"):
+    for group in ("pnp_solve", "select_corners", *TRACK_OPS):
         for site in runs[0]["kernels"][group]:
             ms = [r["kernels"][group][site]["ms"] for r in runs]
             by = {s: [m for m, r in zip(ms, runs) if r["side"] == s]

@@ -42,6 +42,7 @@ import pytest
 import torch
 
 from lvt_tpu_torch import kernels
+from lvt_tpu_torch.core.track import CLUSTERS
 from lvt_tpu_torch.geometry import quaternion as quat
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.ops import hamming, patches, perception, top2
@@ -1676,9 +1677,10 @@ def _unit_q(rs, s, spread):
 
 def _store_arrays(rs, s, c, case):
     """A point store's leaves [S, c, ...]: ``case`` ``full`` (no free
-    slot), ``empty`` (every slot free), ``crowded`` (a few free), else
-    about half free."""
-    frac = {"full": 1.0, "empty": 0.0, "crowded": 0.97}.get(case, 0.5)
+    slot; also ``none_full``), ``empty`` (every slot free), ``crowded`` (a
+    few free), else about half free."""
+    frac = {"full": 1.0, "empty": 0.0, "crowded": 0.97}.get(
+        case.removeprefix("none_"), 0.5)
     return [rs.randn(s, c, 3).astype(np.float32) * 20,
             rs.randint(-2**31, 2**31, (s, c, 8), dtype=np.int64
                        ).astype(np.int32),
@@ -1711,7 +1713,8 @@ def _track_problem(rs, name, s, device, case="random", m=1024, k=1536,
     """Seeded inputs of one of TRACK_OPS for ``s`` streams, as the tracking
     step gives them, in the op's argument order. ``case``: the stores'
     occupancy (``_store_arrays``: ``full``, ``empty``, ``crowded``) or
-    ``none`` (no promotion, no triangulation candidate)."""
+    ``none`` (no promotion, no triangulation candidate; ``none_full``
+    beside full stores)."""
     cam = [float(TRACK_CAM[key]) for key in (
         "fx", "fy", "cx", "cy", "near", "far", "min_x", "max_x", "min_y",
         "max_y")]
@@ -1752,7 +1755,7 @@ def _track_problem(rs, name, s, device, case="random", m=1024, k=1536,
         scalars = [10, cam]
     elif name == "staged_promote":
         top2 = _top2_arrays(rs, s, n, k)
-        if case == "none":
+        if case.startswith("none"):
             top2[3][:] = 0
         staged = _store_arrays(rs, s, n, "random")
         staged[2] = rs.randint(0, 3, (s, n)).astype(np.int32)
@@ -1784,7 +1787,7 @@ def _track_problem(rs, name, s, device, case="random", m=1024, k=1536,
         last = np.stack([np.full(s, 1e9), rs.uniform(100, 600, s),
                          rs.uniform(100, 600, s)], -1).astype(np.float32)
         count = rs.randint(0, 700, s).astype(np.int64)
-        if case == "none":
+        if case.startswith("none"):
             is_init[:] = False
             policy = 1
             count[:] = 10**6
@@ -1890,7 +1893,25 @@ TRACK_CASES = [
                                          "staged_threshold": 0, "m": 8192,
                                          "k": 1024}),
     ("triangulate_insert", 8, "random", {"rgbd": True, "k": 1024}),
+    # the cluster kernels (staged_promote, triangulate_insert): more streams
+    # than path 3's, K at _require_k's bound, a map smaller than the
+    # cluster's blocks (the last ranges empty), no candidate beside full
+    # stores, and row widths that are 16-byte multiples and that are not
+    *((name, s, "random", {}) for name in TRACK_OPS[2:] for s in (16, 20)),
+    *((name, 2, "random", {"k": 2048}) for name in TRACK_OPS[2:]),
+    *((name, 2, "random", {"m": 9, "k": 10, "n": 3})
+      for name in TRACK_OPS[2:]),
+    *((name, 2, "none_full", {}) for name in TRACK_OPS[2:]),
+    *((name, 3, "random", {"m": 64, "k": 128, "n": 32})
+      for name in TRACK_OPS[2:]),
+    *((name, 3, "random", {"m": 51, "k": 301, "n": 41})
+      for name in TRACK_OPS[2:]),
 ]
+# the cluster kernels' cases held at every cluster size the wrapper can
+# choose (core/track.py CLUSTERS)
+CLUSTER_CASES = [c for c in TRACK_CASES if c[0] in TRACK_OPS[2:]
+                 and c[1] <= 8
+                 and c[2] in ("random", "full", "none", "none_full")]
 
 
 def _case_id(c):
@@ -1920,6 +1941,76 @@ def test_track_kernel_matches_plain(cuda, c):
                      for x in args))
         _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
                               f"{name} stream {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("c", CLUSTER_CASES, ids=[_case_id(c) for c in
+                                                  CLUSTER_CASES])
+def test_track_cluster_kernel_at_every_cluster_size(cuda, monkeypatch, c,
+                                                     cluster):
+    """``staged_promote`` and ``triangulate_insert`` launched with each
+    cluster size the wrapper may choose (``track.cluster_size``), every
+    output bit-equal to the plain version's, each stream to its S = 1
+    launch; a size whose blocks cannot hold the shape is refused."""
+    from lvt_tpu_torch.core import track
+
+    monkeypatch.setattr(track, "cluster_size", lambda *a, **kw: cluster)
+    name, s, case, kw = c
+    args = _track_problem(np.random.RandomState(len(name) + s), name, s,
+                          cuda, case, **kw)
+    op = _track_op(name)
+    if name == "staged_promote":   # (K, M, N, rgbd)
+        dims = (args[9].shape[1], args[11].shape[1], args[0].shape[1], 0)
+    else:
+        dims = (args[4].shape[1], args[11].shape[1], args[16].shape[1],
+                int(args[24]))
+    if not kernels.lib().lvt_track_max_clusters(TRACK_OPS[2:].index(name),
+                                                cluster, *dims):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            op(*args)
+        return
+    got = op(*args)
+    _assert_outputs_equal(got, _track_plain(name, args), f"{name} C={cluster}")
+    for i in range(s):
+        alone = op(*(x[i:i + 1] if isinstance(x, torch.Tensor) else x
+                     for x in args))
+        _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
+                              f"{name} C={cluster} stream {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRACK_OPS[2:])
+def test_track_cluster_kernel_reads_rows_at_any_alignment(cuda, name):
+    """The cluster kernels on inputs whose rows start 4 bytes past a
+    16-byte boundary (each tensor a view one element into its storage:
+    descriptors read word by word) give the bits of the aligned inputs."""
+    args = _track_problem(np.random.RandomState(9), name, 3, cuda,
+                          m=64, k=128, n=32)
+    shifted = [torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+               .view_as(x).copy_(x) if isinstance(x, torch.Tensor) else x
+               for x in args]
+    assert shifted[4].data_ptr() % 16 == 4
+    op = _track_op(name)
+    _assert_outputs_equal(op(*shifted), op(*args), name)
+    _assert_outputs_equal(op(*shifted), _track_plain(name, args), name)
+
+
+@pytest.mark.cuda
+def test_track_cluster_size_fits_the_streams(cuda):
+    """The wrapper's choice: 8 blocks a stream at path 1's and path 3's
+    shapes, and at 20 streams; every choice runs S clusters at once or is
+    the largest that runs."""
+    from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.core import track
+
+    for name in TRACK_OPS[2:]:
+        for s in (1, 8, 20):
+            c = track.cluster_size(name, 0, s, 1536, 1024, 1024)
+            assert c == 8, (name, s, c)
+            fit = kernels.lib().lvt_track_max_clusters(
+                TRACK_OPS[2:].index(name), c, 1536, 1024, 1024, 0)
+            assert fit >= s, (name, s, fit)
 
 
 @pytest.mark.cuda

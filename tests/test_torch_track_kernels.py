@@ -17,7 +17,12 @@ Tolerances:
     for triangulate_stereo);
   * the op against its plain version, the single-stream wrapper against
     the op, the op under ``torch.func.vmap`` against each stream alone:
-    bit-equal.
+    bit-equal;
+  * a numpy model of csrc/track.cu's cluster decomposition of
+    ``staged_promote`` and ``triangulate_insert`` (each block a range of
+    the queries, of the resolution's targets and of the slots; integers
+    exchanged in rank order) against the plain version: bit-equal, NaN for
+    NaN.
 """
 
 import dataclasses
@@ -43,7 +48,8 @@ from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.core.motion import MotionState
 from lvt_tpu_torch.core.state import PointStore
 from lvt_tpu_torch.geometry.se3 import Pose
-from lvt_tpu_torch.ops import matching
+from lvt_tpu_torch.config import MATCHES_WINDOW_INIT
+from lvt_tpu_torch.ops import matching, triangulate
 from tests.test_torch_cuda import (TRACK_CAM, TRACK_CASES, TRACK_OPS,
                                    _assert_outputs_equal, _case_id,
                                    _track_op, _track_plain, _track_problem,
@@ -505,3 +511,200 @@ def test_the_sharded_step_calls_no_op(monkeypatch, tmp_path):
     finally:
         dist.destroy_process_group()
     assert counts == dict.fromkeys(TRACK_OPS, 0)
+
+
+# ---- the cluster kernels' decomposition (csrc/track.cu), modelled in numpy
+
+IMAX = np.iinfo(np.int32).max
+# the cases of the model (_track_problem's): the stores' occupancy, no
+# candidate, ragged ranges (the last blocks' ranges empty at C = 8 and 16)
+MODEL_CASES = [("random", {}), ("full", {}), ("empty", {}), ("none", {}),
+               ("none_full", {}), ("random", {"m": 50, "k": 300, "n": 40}),
+               ("random", {"m": 9, "k": 10, "n": 3})]
+TRI_MODEL_CASES = MODEL_CASES + [
+    ("random", {"rgbd": True}), ("random", {"policy": 3}),
+    ("random", {"staged_threshold": 0})]
+SMALL = {"m": 256, "k": 384, "n": 200}   # the sizes where a case has none
+
+
+def _blocks(n, c):
+    """Each block's range [lo, hi) of an axis of n over a cluster of c
+    (track.cu's range_of), and the range's length."""
+    per = -(-n // c)
+    return [(min(n, r * per), min(n, (r + 1) * per)) for r in range(c)], per
+
+
+def _accept(d1, d2, best, n_cand, ratio, abs_th):
+    ok = (((n_cand >= 2) & (d1 < np.float32(ratio) * d2))
+          | ((n_cand == 1) & (d1 <= np.float32(abs_th))))
+    return np.where(ok, best, -1)
+
+
+def _resolve(idx, d1, k, c):
+    """The one-to-one resolution over a cluster of c: each block's accepted
+    queries send their key to the owner of their target (of the K + 1 in
+    blocks), which keeps the minimum; a query won where its owner's key is
+    its own. Returns the resolved index (-1: lost or rejected)."""
+    n = idx.shape[0]
+    key = (np.where(idx >= 0, d1, 0).astype(np.int32) * np.int32(n + 1)
+           + np.arange(n, dtype=np.int32))
+    _, per = _blocks(k + 1, c)
+    keys = np.full((c, per), IMAX, np.int32)   # row o: owner o's keys
+    for lo, hi in _blocks(n, c)[0]:
+        for q in range(lo, hi):
+            if idx[q] >= 0:
+                o, at = divmod(int(idx[q]), per)
+                keys[o, at] = min(keys[o, at], key[q])
+    won = np.array([idx[q] >= 0 and keys[divmod(int(idx[q]), per)] == key[q]
+                    for q in range(n)], bool)
+    return np.where(won, idx, -1)
+
+
+def _insert(store, new, cand, c):
+    """insert_points over a cluster of c: block b's free slots in index
+    order after the ranks' free counts before b, a slot of global free rank
+    g taking the candidate of global rank g, found through the prefix of
+    the blocks' candidate counts (``cand``: each block's candidates, new
+    point indices in index order). Returns (store', taken, inserted)."""
+    pos, desc, ctr, age, valid = (np.array(x) for x in store)
+    n_pos, n_desc, n_ctr, n_age = new
+    blocks, _ = _blocks(valid.shape[0], c)
+    free_before = np.cumsum([0] + [int((~valid[lo:hi]).sum())
+                                   for lo, hi in blocks])
+    cand_pre = np.cumsum([0] + [len(x) for x in cand])
+    taken = np.zeros_like(valid)
+    for b, (lo, hi) in enumerate(blocks):
+        local = np.cumsum(~valid[lo:hi]) - 1
+        for i in range(hi - lo):
+            g = free_before[b] + local[i]
+            if valid[lo + i] or g >= cand_pre[-1]:
+                continue
+            o = int(np.searchsorted(cand_pre, g, side="right")) - 1
+            src = cand[o][g - cand_pre[o]]
+            p = lo + i
+            pos[p], desc[p], ctr[p], age[p] = (n_pos[src], n_desc[src],
+                                               n_ctr[src], n_age[src])
+            taken[p] = True
+    return ((pos, desc, ctr, age, valid | taken), taken,
+            min(free_before[-1], cand_pre[-1]))
+
+
+def _staged_model(a, c):
+    """staged_promote of one stream (the op's arguments as numpy) over a
+    cluster of c blocks."""
+    (d1, d2, best, n_cand, s_pos, s_desc, s_ctr, s_age, s_valid, fm,
+     map_size, *mp), (ratio, abs_th, thr, cap) = a[:16], a[16:]
+    k = fm.shape[0]
+    won = _resolve(_accept(d1, d2, best, n_cand, ratio, abs_th), d1, k, c)
+    matched = won >= 0
+    # the claims, each owner's range of the features with its winners
+    t_blocks, _ = _blocks(k + 1, c)
+    claims = np.concatenate([fm[lo:min(hi, k)] | np.isin(
+        np.arange(lo, min(hi, k)), won[matched]) for lo, hi in t_blocks])
+    ctr = np.where(matched, s_ctr + 1, s_ctr).astype(np.int32)
+    promote = s_valid & matched & ((s_ctr + 1 == thr) | (map_size < cap))
+    cand = [np.nonzero(promote[lo:hi])[0] + lo
+            for lo, hi in _blocks(d1.shape[0], c)[0]]
+    store, taken, _ = _insert(mp, (s_pos, s_desc, ctr, s_age), cand, c)
+    return (ctr, s_valid & matched & ~promote, claims, *store, taken)
+
+
+def _tri_model(a, c):
+    """triangulate_insert of one stream (the op's arguments, tensors)
+    over a cluster of c blocks: the map's size from the blocks' counts, the
+    row resolution by owners, each block's features triangulated (the
+    plain version's elementwise ops on its slice), the candidates inserted
+    by global rank."""
+    rgbd, fl, ints = a[24:]
+    cam = dict(zip(track.CAM_KEYS, fl[:len(track.CAM_KEYS)]))
+    prm = track._params(fl, ints)
+    (d1, d2, best, n_cand, kp, right_kp, depth, feat_valid, desc, t, q,
+     *stores, last, count, is_init) = a[:24]
+    mp, st = [_np(x) for x in stores[:5]], [_np(x) for x in stores[5:]]
+    k = kp.shape[0]
+    f_blocks, _ = _blocks(k, c)
+    map_size = sum(int(mp[4][lo:hi].sum())
+                   for lo, hi in _blocks(mp[4].shape[0], c)[0])
+    window = np.array([_np(last)[1], _np(last)[2], np.float32(_np(count))],
+                      np.float32)
+    if prm.policy == 2:
+        need = True
+    elif prm.policy == 3:
+        need = map_size < 1000
+    else:
+        r = np.float32(0.99)
+        need = window[1] <= r * window[0] and window[2] <= r * window[1]
+    need = bool(need) or bool(is_init)
+    to_map = map_size < prm.map_soft_cap or prm.staged_threshold == 0
+    pose = Pose(t, q)
+    if not rgbd:
+        won = torch.from_numpy(_resolve(
+            _accept(*(_np(x) for x in (d1, d2, best, n_cand)),
+                    prm.ratio_threshold, prm.abs_threshold), _np(d1), k, c))
+    pts, ok = [], []
+    for lo, hi in f_blocks:
+        if hi == lo:
+            continue
+        if rgbd:
+            res = triangulate.backproject_rgbd(
+                kp[lo:hi], depth[lo:hi], feat_valid[lo:hi], pose,
+                fx=cam["fx"], fy=cam["fy"], cx=cam["cx"], cy=cam["cy"])
+        else:
+            res = triangulate.triangulate_stereo(
+                kp[lo:hi], right_kp[torch.clamp(won[lo:hi], 0, k - 1)],
+                won[lo:hi] >= 0, pose, baseline=prm.baseline,
+                reprojection_th2=prm.reprojection_th2, **cam)
+        pts.append(_np(res.points_world))
+        ok.append(_np(res.valid))
+    pts = np.concatenate(pts) if pts else np.zeros((0, 3), np.float32)
+    cand = (np.concatenate(ok) if ok else np.zeros(0, bool)) & need
+    lists = [np.nonzero(cand[lo:hi])[0] + lo for lo, hi in f_blocks]
+    zero = np.zeros(k, np.int32)
+    new = (pts, _np(desc), zero, zero)
+    none = [np.zeros(0, np.int64)] * c
+    mp, taken, in_map = _insert(mp, new, lists if to_map else none, c)
+    st, _, in_st = _insert(st, new, none if to_map else lists, c)
+    size = map_size + in_map
+    if bool(is_init):
+        window = np.array([size, MATCHES_WINDOW_INIT, MATCHES_WINDOW_INIT],
+                          np.float32)
+    return (*mp, taken, *st, in_map + in_st, size, window, pts, cand)
+
+
+@pytest.mark.parametrize("c", [1, 2, 8, 16])
+@pytest.mark.parametrize("case,kw", MODEL_CASES,
+                         ids=[_case_id(("", 0, c, kw)) for c, kw in
+                              MODEL_CASES])
+def test_staged_promote_cluster_model_is_the_plain_version(case, kw, c):
+    """csrc/track.cu's staged_promote_kernel as a numpy model over a
+    cluster of c blocks (c = 16 past the kernel's 8: the decomposition
+    holds at any c) against staged_promote_plain, stream by stream, every
+    output equal; the ragged shapes leave the last blocks' ranges empty."""
+    args = _track_problem(np.random.RandomState(c), "staged_promote", 2,
+                          "cpu", case, **(kw or SMALL))
+    want = _track_plain("staged_promote", args)
+    for i in range(2):
+        a = [_np(x[i]) if isinstance(x, torch.Tensor) else x for x in args]
+        for g, w in zip(_staged_model(a, c), (x[i] for x in want)):
+            np.testing.assert_array_equal(np.asarray(g), _np(w))
+
+
+@pytest.mark.parametrize("c", [1, 2, 8, 16])
+@pytest.mark.parametrize("case,kw", TRI_MODEL_CASES,
+                         ids=[_case_id(("", 0, c, kw)) for c, kw in
+                              TRI_MODEL_CASES])
+def test_triangulate_insert_cluster_model_is_the_plain_version(case, kw, c):
+    """csrc/track.cu's triangulate_insert_kernel as a numpy model over a
+    cluster of c blocks against triangulate_insert_plain, stream by stream,
+    every output equal, NaN for NaN (degenerate pairs)."""
+    kw = dict(SMALL, **kw) if set(kw) <= {"rgbd", "policy",
+                                          "staged_threshold"} else kw
+    args = _track_problem(np.random.RandomState(c), "triangulate_insert", 2,
+                          "cpu", case, **kw)
+    want = _track_plain("triangulate_insert", args)
+    for i in range(2):
+        a = [x[i] if isinstance(x, torch.Tensor) else x for x in args]
+        got = _tri_model(a, c)
+        assert len(got) == len(want)
+        for g, w in zip(got, (x[i] for x in want)):
+            np.testing.assert_array_equal(np.asarray(g), _np(w))
