@@ -8,7 +8,7 @@
 //   prediction (ops/matching.py::project_visible); grid (point blocks, S);
 // * upkeep_pre_kernel: the map's match bookkeeping and cull with the
 //   un-mark of the culled points' features (core/map.py), the frame's pose
-//   and the staged points' projection; one block per stream;
+//   and the staged points' projection; one block per stream, two barriers;
 // * staged_promote_kernel: the staged re-match's acceptance, one-to-one
 //   resolution and claims (ops/hamming.py), the counters, and the
 //   promotions inserted into the map (core/map.py::insert_points); a
@@ -21,7 +21,7 @@
 //   targets), the map's and the staged set's slots spread over its blocks;
 // * map_accept_kernel: the map match's acceptance and one-to-one
 //   resolution at both radii, the wide retry, the claims, the count and
-//   PnP's observations and weights; one block per stream.
+//   PnP's observations and weights; one block per stream, three barriers.
 //
 // Every float operation is written as the plain version's torch ops round
 // it (__fmul_rn / __fadd_rn / __fdiv_rn: nvcc contracts nothing; `1.0 / x`
@@ -35,9 +35,14 @@
 // cluster kernels, over the blocks' counts in rank order. Nothing is
 // allocated here: every output comes from the wrapper.
 //
-// What bounds the two cluster kernels: their bytes and operations take the
-// card well under a microsecond (chip_smoke.py's bound); their time is the
-// chain of a stream's steps, each a memory latency or a barrier. A cluster
+// What bounds these kernels: their bytes and operations take the card well
+// under a microsecond (chip_smoke.py's bound); their time is the chain of a
+// stream's steps, each a memory latency or a barrier. A block barrier waits
+// for every load issued before it. The two one-block kernels give each
+// thread one query or map point, one staged point and at most two features
+// (K <= 2048), issue all of their loads before the first barrier (one
+// round trip of ~50 KB on one SM), keep them in registers or shared memory
+// to the end, and need two barriers each. A cluster
 // of C blocks per stream issues every independent load at the start,
 // spreads the float64 triangulation over C SMs and exchanges only integer
 // counts and keys over distributed shared memory: four cluster barriers,
@@ -58,8 +63,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int PROJ_THREADS = 256;   // predict_project: one point a thread
-constexpr int THREADS = 512;        // the one-block-per-stream kernels
+// the one-block-per-stream kernels (upkeep_pre, map_accept): a query, a map
+// point and a staged point a thread, and two features (K <= 2 THREADS)
+constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
+static_assert(WARPS == 32, "block_sum2 reads a warp's sum a lane");
 // the cluster kernels (staged_promote, triangulate_insert): a block's
 // threads (one feature each at C = 8 up to K = 2048), and the most blocks
 // a stream's cluster takes (the portable cluster size)
@@ -218,19 +226,45 @@ __device__ __forceinline__ int block_rank(bool flag, int* warp_sums,
   return before + __popc(ballot & ((1u << lane) - 1u));
 }
 
-// The block's sum of one int per thread
-__device__ __forceinline__ int block_count(int mine, int* warp_sums) {
-  int total;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mine += __shfl_xor_sync(FULL, mine, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = mine;
+// The block's sums of two ints a thread, in every thread of a block of
+// THREADS: one barrier (each warp's slot is written once, and read after it
+// by one lane of every warp)
+__device__ __forceinline__ int2 block_sum2(int a, int b, int2* warp_sums) {
+  a = __reduce_add_sync(FULL, a);
+  b = __reduce_add_sync(FULL, b);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) warp_sums[threadIdx.x >> 5] = make_int2(a, b);
   __syncthreads();
-  total = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) total += warp_sums[w];
-  __syncthreads();
-  return total;
+  const int2 w = warp_sums[lane];
+  return make_int2(__reduce_add_sync(FULL, w.x), __reduce_add_sync(FULL, w.y));
+}
+
+// A load issued where it stands: a coherent load (ptxas keeps it ahead of
+// the next barrier, which waits for it; a read-only one it may sink past
+// the barrier to its use) whose value is an opaque register (so it is
+// neither moved nor issued again where the value is used)
+__device__ __forceinline__ int load_now(const int* p) {
+  int x = __ldca(p);
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ int load_now(const uint8_t* p) {
+  int x = __ldca(p);
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ float load_now(const float* p) {
+  float x = __ldca(p);
+  asm volatile("" : "+f"(x));
+  return x;
+}
+
+__device__ __forceinline__ long long load_now(const long long* p) {
+  long long x = __ldca(p);
+  asm volatile("" : "+l"(x));
+  return x;
 }
 
 // hamming.accept_matches -> the match index, -1 if rejected
@@ -246,34 +280,6 @@ __device__ __forceinline__ long long accept(float d1, float d2, long long best,
 // distance (an integer in f32, truncated), then its index
 __device__ __forceinline__ int resolve_key(float d1, int q, int n) {
   return __float2int_rz(d1) * (n + 1) + q;
-}
-
-// One stream's queries' accepted matches reduced to each target's
-// smallest key (best_key [k + 1], IMAX where none)
-__device__ void resolve_keys(const float* d1, const float* d2,
-                             const long long* best, const long long* n_cand,
-                             int n, int k, float ratio, float abs_th,
-                             int* best_key) {
-  for (int j = threadIdx.x; j <= k; j += THREADS) best_key[j] = IMAX;
-  __syncthreads();
-  for (int q = threadIdx.x; q < n; q += THREADS) {
-    const long long idx = accept(d1[q], d2[q], best[q], n_cand[q], ratio,
-                                 abs_th);
-    if (idx >= 0) atomicMin(&best_key[idx], resolve_key(d1[q], q, n));
-  }
-  __syncthreads();
-}
-
-// The resolved match of query q: its accepted match if it won its target
-__device__ __forceinline__ long long resolved(const float* d1, const float* d2,
-                                              const long long* best,
-                                              const long long* n_cand, int q,
-                                              int n, float ratio,
-                                              float abs_th,
-                                              const int* best_key) {
-  const long long idx = accept(d1[q], d2[q], best[q], n_cand[q], ratio,
-                               abs_th);
-  return idx >= 0 && best_key[idx] == resolve_key(d1[q], q, n) ? idx : -1;
 }
 
 // A point store: pos [c, 3] f32, desc [c, 8] i32, counter, age [c] i32,
@@ -340,6 +346,47 @@ __global__ void __launch_bounds__(PROJ_THREADS) predict_project_kernel(
 
 // ---- K2
 
+// A staged point's pixel and visibility at the frame's pose (r, tw)
+struct Seen {
+  float u, v;
+  bool vis;
+};
+
+__device__ __forceinline__ Seen project_staged(const float* r, const float* tw,
+                                               float x, float y, float z,
+                                               bool valid, const View& cam) {
+  float px, py, pz;
+  Seen o;
+  camera_point(r, tw, x, y, z, px, py, pz);
+  project_px(px, py, pz, cam, o.u, o.v);
+  o.vis = valid && in_view(pz, o.u, o.v, cam);
+  return o;
+}
+
+// apply_match_bookkeeping and clean_untracked for one map point: its
+// counter' and age', whether it stays, and the feature it un-marks (-1:
+// none; the claim mask drops K)
+struct Kept {
+  int counter, age;
+  bool stays;
+  int unmark;
+};
+
+__device__ __forceinline__ Kept bookkeep(int ctr, int ag, bool v,
+                                        long long idx, int threshold, int k) {
+  const int c = ctr + (v && idx < 0);
+  const bool remove = v && c >= threshold;
+  return Kept{c, ag + (v && idx >= 0), v && !remove,
+              remove && idx >= 0 && idx < k ? static_cast<int>(idx) : -1};
+}
+
+// Every input of the thread's map point, staged point and two features,
+// and the pose, is loaded before the first barrier, which orders the
+// un-marks' clearing before they are set; the second (with the warp sums
+// of the kept count) orders them before they are read. Every warp builds
+// the pose's rotation itself (the same function: the same bits). The
+// thread's own outputs go out after the last barrier. Further tiles of
+// THREADS (M or N > THREADS) load and write as they go, two at a time.
 __global__ void __launch_bounds__(THREADS) upkeep_pre_kernel(
     const int* __restrict__ counter, const int* __restrict__ age,
     const uint8_t* __restrict__ valid, const long long* __restrict__ match_idx,
@@ -352,54 +399,97 @@ __global__ void __launch_bounds__(THREADS) upkeep_pre_kernel(
     uint8_t* __restrict__ targets, long long* __restrict__ map_size,
     float* __restrict__ pose_out, float* __restrict__ suv,
     uint8_t* __restrict__ svis) {
-  extern __shared__ uint8_t unmark[];   // [k]
-  __shared__ float r[9], tw[3];
-  __shared__ int warp_sums[WARPS];
+  extern __shared__ uint32_t unmark_words[];   // the un-marks, a byte [k]
+  uint8_t* const unmark = reinterpret_cast<uint8_t*>(unmark_words);
+  __shared__ int2 warp_sums[WARPS];
   const long long s = blockIdx.x;
-  for (int f = threadIdx.x; f < k; f += THREADS) unmark[f] = 0;
-  if (threadIdx.x == 0) {
-    float po[7];
-    const bool init = is_init[s] != 0;
-    for (int i = 0; i < 3; ++i) po[i] = init ? 0.0f : pt[3 * s + i];
-    for (int i = 0; i < 4; ++i)
-      po[3 + i] = init ? (i == 0 ? 1.0f : 0.0f) : pq[4 * s + i];
+  const int tid = threadIdx.x;
+  TRACK_CLOCK(50);
+  for (int w = tid; 4 * w < k; w += THREADS) unmark_words[w] = 0;
+  const long long ip = s * m + tid, is = s * n + tid;
+  int ctr = 0, ag = 0, v = 0;
+  long long idx = -1;
+  if (tid < m) {
+    ctr = load_now(counter + ip);
+    ag = load_now(age + ip);
+    v = load_now(valid + ip);
+    idx = load_now(match_idx + ip);
+  }
+  float x = 0.0f, y = 0.0f, z = 0.0f;
+  int sv = 0;
+  if (tid < n) {
+    x = load_now(spos + 3 * is);
+    y = load_now(spos + 3 * is + 1);
+    z = load_now(spos + 3 * is + 2);
+    sv = load_now(svalid + is);
+  }
+  // the two features' claim (bits 0, 2) and validity (bits 1, 3)
+  int fbits = 0;
+#pragma unroll
+  for (int t = 0, f = tid; t < 2; ++t, f += THREADS)
+    if (f < k)
+      fbits |= ((load_now(fm + s * k + f) != 0) |
+                (load_now(fvalid + s * k + f) != 0) << 1) << 2 * t;
+  // PnP's pose, the identity on the init frame
+  const bool init = load_now(is_init + s) != 0;
+  float po[7];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    const float pnp = load_now(i < 3 ? pt + 3 * s + i : pq + 4 * s + i - 3);
+    po[i] = init ? (i == 3 ? 1.0f : 0.0f) : pnp;
+  }
+  __syncthreads();   // 1: the un-marks cleared
+  TRACK_CLOCK(51);
+  float r[9], tw[3];
+  world_to_camera(po, po + 3, r, tw);
+  if (tid == 0)
     for (int i = 0; i < 7; ++i) pose_out[7 * s + i] = po[i];
-    world_to_camera(po, po + 3, r, tw);
-  }
-  __syncthreads();
-  // apply_match_bookkeeping, then clean_untracked with its un-marks
-  int kept = 0;
-  for (int p = threadIdx.x; p < m; p += THREADS) {
+  const Kept own = bookkeep(ctr, ag, v != 0, idx, threshold, k);
+  int kept = tid < m && own.stays;
+  if (tid < m && own.unmark >= 0) unmark[own.unmark] = 1;
+  const Seen seen = project_staged(r, tw, x, y, z, sv != 0, cam);
+#pragma unroll 2
+  for (int p = tid + THREADS; p < m; p += THREADS) {
     const long long i = s * m + p;
-    const bool v = valid[i];
-    const long long idx = match_idx[i];
-    const int c = counter[i] + (v && idx < 0);
-    counter_out[i] = c;
-    age_out[i] = age[i] + (v && idx >= 0);
-    const bool remove = v && c >= threshold;
-    valid_out[i] = v && !remove;
-    kept += v && !remove;
-    if (remove && idx >= 0) unmark[idx] = 1;
+    const Kept o = bookkeep(counter[i], age[i], valid[i] != 0, match_idx[i],
+                            threshold, k);
+    counter_out[i] = o.counter;
+    age_out[i] = o.age;
+    valid_out[i] = o.stays;
+    kept += o.stays;
+    if (o.unmark >= 0) unmark[o.unmark] = 1;
   }
-  // the staged points at the frame's pose
-  for (int p = threadIdx.x; p < n; p += THREADS) {
+#pragma unroll 2
+  for (int p = tid + THREADS; p < n; p += THREADS) {
     const long long i = s * n + p;
-    float px, py, pz, u, v;
-    camera_point(r, tw, spos[3 * i], spos[3 * i + 1], spos[3 * i + 2], px, py,
-                 pz);
-    project_px(px, py, pz, cam, u, v);
-    suv[2 * i] = u;
-    suv[2 * i + 1] = v;
-    svis[i] = svalid[i] && in_view(pz, u, v, cam);
+    const Seen o = project_staged(r, tw, spos[3 * i], spos[3 * i + 1],
+                                  spos[3 * i + 2], svalid[i] != 0, cam);
+    suv[2 * i] = o.u;
+    suv[2 * i + 1] = o.v;
+    svis[i] = o.vis;
   }
-  const int size = block_count(kept, warp_sums);   // holds the barrier
-  for (int f = threadIdx.x; f < k; f += THREADS) {
-    const long long i = s * k + f;
-    const bool claimed = fm[i] && !unmark[f];
-    fm_out[i] = claimed;
-    targets[i] = fvalid[i] && !claimed;
+  const int size = block_sum2(kept, 0, warp_sums).x;   // 2: the un-marks set
+  TRACK_CLOCK(52);
+  if (tid < m) {
+    counter_out[ip] = own.counter;
+    age_out[ip] = own.age;
+    valid_out[ip] = own.stays;
   }
-  if (threadIdx.x == 0) map_size[s] = size;
+  if (tid < n) {
+    suv[2 * is] = seen.u;
+    suv[2 * is + 1] = seen.v;
+    svis[is] = seen.vis;
+  }
+  // the claims less the un-marked, and the staged match's targets
+#pragma unroll
+  for (int t = 0, f = tid; t < 2; ++t, f += THREADS) {
+    if (f >= k) break;
+    const bool claimed = (fbits >> 2 * t & 1) && !unmark[f];
+    fm_out[s * k + f] = claimed;
+    targets[s * k + f] = (fbits >> 2 * t & 2) && !claimed;
+  }
+  if (tid == 0) map_size[s] = size;
+  TRACK_CLOCK(59);
 }
 
 // ---- K3 and K4: one thread-block cluster per stream
@@ -1059,6 +1149,31 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) triangulate_insert_kernel(
 
 // ---- K5
 
+// One query's match at radius r (0 narrow, 1 wide) from T's outputs (f, g:
+// the stream's fout and iout): its distances and its accepted target (-1 if
+// rejected)
+struct Match {
+  float d1, d2;
+  long long idx;
+};
+
+__device__ __forceinline__ Match load_match(const float* f, const long long* g,
+                                            int m, int q, int r, float ratio,
+                                            float abs_th) {
+  const float d1 = f[r * m + q], d2 = f[(2 + r) * m + q];
+  return Match{d1, d2, accept(d1, d2, g[r * m + q], g[(2 + r) * m + q], ratio,
+                              abs_th)};
+}
+
+// PnP's observation of a query matched to target idx (clamped as the
+// plain version's gather clamps), feature 0's where unmatched (idx < 0),
+// from the stream's keypoints staged in shared memory
+__device__ __forceinline__ float2 keypoint(const float2* kp_s, long long idx,
+                                           int k) {
+  if (k < 1) return make_float2(0.0f, 0.0f);
+  return kp_s[idx < 0 ? 0 : static_cast<int>(idx > k - 1 ? k - 1 : idx)];
+}
+
 // The map match after kernel T (ops/matching.py::match_projected) and the
 // step's glue before PnP: each radius's acceptance and one-to-one
 // resolution, the wide radius where the narrow one resolved fewer than
@@ -1067,7 +1182,18 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) triangulate_insert_kernel(
 // PnP's observations (the matched feature's keypoint, feature 0's where
 // unmatched) and weights. T's outputs as it writes them: fout [S, 2 (d1,
 // d2), 2 (narrow, wide), M] f32, iout [S, 2 (best, n_cand), 2, M] int64.
-// One block per stream.
+//
+// One block per stream. Before the first barrier each thread loads its
+// query at both radii and its visibility, and stages its two features'
+// keypoints and validity in shared memory: one round trip, no load waiting
+// on another (PnP's observation is read from the staged keypoints). A key
+// encodes its query (distance x (M + 1) + index: unique for T's
+// distances), so a target has a winner exactly where its key is set: each
+// radius's count is the number of atomicMins that found their target's key
+// unset (targets 0..K, K the slot of a best of K), and the claims are read
+// from the keys. Two barriers: keys set; matches resolved, with the warp
+// sums of the two counts. Further tiles of THREADS queries (M > THREADS)
+// load in the resolution pass and again, the radius used, in the outputs'.
 __global__ void __launch_bounds__(THREADS) map_accept_kernel(
     const float* __restrict__ fout, const long long* __restrict__ iout,
     const uint8_t* __restrict__ visible, const uint8_t* __restrict__ fvalid,
@@ -1075,60 +1201,97 @@ __global__ void __launch_bounds__(THREADS) map_accept_kernel(
     int retry_min, long long* __restrict__ match_idx,
     float* __restrict__ d1_out, float* __restrict__ d2_out,
     uint8_t* __restrict__ fm_out, long long* __restrict__ count_out,
-    uint8_t* __restrict__ wide_out, float* __restrict__ obs,
+    uint8_t* __restrict__ wide_out, float2* __restrict__ obs,
     float* __restrict__ weights) {
-  // best_key of each radius [k + 1], then the claims [k]
-  extern __shared__ int smem[];
-  int* key_a = smem;
-  int* key_b = smem + k + 1;
-  uint8_t* claims = reinterpret_cast<uint8_t*>(key_b + k + 1);
-  __shared__ int warp_sums[WARPS];
+  // best_key of each radius [2][k + 1], the keypoints [k] and the
+  // features' validity [k]
+  extern __shared__ int keys[];
+  int* const key_a = keys;
+  int* const key_b = keys + k + 1;
+  float2* const kp_s = reinterpret_cast<float2*>(keys + 2 * (k + 1));
+  uint8_t* const fv_s = reinterpret_cast<uint8_t*>(kp_s + k);
+  __shared__ int2 warp_sums[WARPS];
   const long long s = blockIdx.x;
+  const int tid = threadIdx.x;
   const float* f = fout + 4 * s * m;
   const long long* g = iout + 4 * s * m;
-  const Top2 a{f, f + 2 * m, g, g + 2 * m};
-  const Top2 b{f + m, f + 3 * m, g + m, g + 3 * m};
-  for (int j = threadIdx.x; j < k; j += THREADS) claims[j] = 0;
-  resolve_keys(a.d1, a.d2, a.best, a.n_cand, m, k, ratio, abs_th, key_a);
-  resolve_keys(b.d1, b.d2, b.best, b.n_cand, m, k, ratio, abs_th, key_b);
-  int mine = 0;
-  for (int q = threadIdx.x; q < m; q += THREADS)
-    mine += resolved(a.d1, a.d2, a.best, a.n_cand, q, m, ratio, abs_th,
-                     key_a) >= 0;
-  const bool wide = block_count(mine, warp_sums) < retry_min;
-  // the radius used, pointer by pointer (a selected struct would live in
-  // local memory)
-  const float* ud1 = wide ? b.d1 : a.d1;
-  const float* ud2 = wide ? b.d2 : a.d2;
-  const long long* ubest = wide ? b.best : a.best;
-  const long long* un = wide ? b.n_cand : a.n_cand;
-  const int* key_u = wide ? key_b : key_a;
-  mine = 0;
-  for (int q = threadIdx.x; q < m; q += THREADS) {
-    const long long idx = resolved(ud1, ud2, ubest, un, q, m, ratio, abs_th,
-                                   key_u);
-    const long long at = s * m + q;
-    const long long mi = visible[at] ? (idx >= 0 ? idx : -1) : -2;
-    const long long src = mi < 0 ? 0 : (mi > k - 1 ? k - 1 : mi);
-    match_idx[at] = mi;
-    d1_out[at] = ud1[q];
-    d2_out[at] = ud2[q];
-    obs[2 * at] = kp[2 * (s * k + src)];
-    obs[2 * at + 1] = kp[2 * (s * k + src) + 1];
-    weights[at] = mi >= 0 ? 1.0f : 0.0f;
-    if (idx >= 0) {
-      claims[idx] = 1;
-      ++mine;
+  TRACK_CLOCK(40);
+  for (int j = tid; j <= k; j += THREADS) key_a[j] = key_b[j] = IMAX;
+  Match a{0.0f, 0.0f, -1}, b{0.0f, 0.0f, -1};
+  bool vis = false;
+  if (tid < m) {
+    a = load_match(f, g, m, tid, 0, ratio, abs_th);
+    b = load_match(f, g, m, tid, 1, ratio, abs_th);
+    vis = visible[s * m + tid] != 0;
+  }
+  // the thread's two features loaded together, then staged
+  float2 kq[2];
+  bool fq[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const long long i = s * k + tid + t * THREADS;
+    if (tid + t * THREADS < k) {
+      kq[t] = make_float2(kp[2 * i], kp[2 * i + 1]);
+      fq[t] = fvalid[i] != 0;
     }
   }
-  // (block_count's barriers order the claims before they are read)
-  const int count = block_count(mine, warp_sums);
-  for (int j = threadIdx.x; j < k; j += THREADS)
-    fm_out[s * k + j] = claims[j] && fvalid[s * k + j];
-  if (threadIdx.x == 0) {
-    count_out[s] = count;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    if (tid + t * THREADS < k) {
+      kp_s[tid + t * THREADS] = kq[t];
+      fv_s[tid + t * THREADS] = fq[t];
+    }
+  }
+  __syncthreads();   // 1: the keys set, the features staged
+  TRACK_CLOCK(41);
+  const int ka = resolve_key(a.d1, tid, m), kb = resolve_key(b.d1, tid, m);
+  int na = 0, nb = 0;
+  if (a.idx >= 0) na += atomicMin(&key_a[a.idx], ka) == IMAX;
+  if (b.idx >= 0) nb += atomicMin(&key_b[b.idx], kb) == IMAX;
+#pragma unroll 2
+  for (int q = tid + THREADS; q < m; q += THREADS) {
+    const Match x = load_match(f, g, m, q, 0, ratio, abs_th);
+    const Match y = load_match(f, g, m, q, 1, ratio, abs_th);
+    if (x.idx >= 0)
+      na += atomicMin(&key_a[x.idx], resolve_key(x.d1, q, m)) == IMAX;
+    if (y.idx >= 0)
+      nb += atomicMin(&key_b[y.idx], resolve_key(y.d1, q, m)) == IMAX;
+  }
+  const int2 won = block_sum2(na, nb, warp_sums);   // 2: matches resolved
+  TRACK_CLOCK(42);
+  const bool wide = won.x < retry_min;
+  const int* key_u = wide ? key_b : key_a;
+  if (tid < m) {
+    const long long idx = wide ? b.idx : a.idx;
+    const bool ok = idx >= 0 && key_u[idx] == (wide ? kb : ka);
+    const long long at = s * m + tid;
+    const long long mi = vis ? (ok ? idx : -1) : -2;
+    match_idx[at] = mi;
+    d1_out[at] = wide ? b.d1 : a.d1;
+    d2_out[at] = wide ? b.d2 : a.d2;
+    obs[at] = keypoint(kp_s, mi, k);
+    weights[at] = mi >= 0 ? 1.0f : 0.0f;
+  }
+#pragma unroll 2
+  for (int q = tid + THREADS; q < m; q += THREADS) {
+    const Match u = load_match(f, g, m, q, wide, ratio, abs_th);
+    const bool ok = u.idx >= 0 && key_u[u.idx] == resolve_key(u.d1, q, m);
+    const long long at = s * m + q;
+    const long long mi = visible[at] ? (ok ? u.idx : -1) : -2;
+    match_idx[at] = mi;
+    d1_out[at] = u.d1;
+    d2_out[at] = u.d2;
+    obs[at] = keypoint(kp_s, mi, k);
+    weights[at] = mi >= 0 ? 1.0f : 0.0f;
+  }
+#pragma unroll
+  for (int t = 0, j = tid; t < 2; ++t, j += THREADS)
+    if (j < k) fm_out[s * k + j] = key_u[j] != IMAX && fv_s[j];
+  if (tid == 0) {
+    count_out[s] = wide ? won.y : won.x;
     wide_out[s] = wide;
   }
+  TRACK_CLOCK(49);
 }
 
 // Raises the kernel's dynamic shared memory limit to `bytes` when it
@@ -1228,8 +1391,10 @@ extern "C" int lvt_upkeep_pre(
     const float* cam, int* counter_out, int* age_out, void* valid_out,
     void* fm_out, void* targets, long long* map_size, float* pose_out,
     float* suv, void* svis, void* stream) {
+  if (k > 2 * THREADS) return static_cast<int>(cudaErrorInvalidValue);
   if (n_streams > 0) {
-    upkeep_pre_kernel<<<n_streams, THREADS, k,
+    const size_t smem = (k + 3) / 4 * 4;   // the un-marks, cleared by words
+    upkeep_pre_kernel<<<n_streams, THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         counter, age, static_cast<const uint8_t*>(valid), match_idx,
         static_cast<const uint8_t*>(fm), static_cast<const uint8_t*>(fvalid),
@@ -1350,14 +1515,16 @@ extern "C" int lvt_map_accept(
     float ratio, float abs_th, int retry_min, long long* match_idx,
     float* d1, float* d2, void* fm, long long* count, void* wide, float* obs,
     float* weights, void* stream) {
+  if (k > 2 * THREADS) return static_cast<int>(cudaErrorInvalidValue);
   if (n_streams > 0) {
-    const size_t smem = sizeof(int) * 2 * (k + 1) + k;
+    // the keys, the keypoints and the validity: under 48 KB
+    const size_t smem = sizeof(int) * 2 * (k + 1) + sizeof(float2) * k + k;
     map_accept_kernel<<<n_streams, THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         fout, iout, static_cast<const uint8_t*>(visible),
         static_cast<const uint8_t*>(fvalid), kp, m, k, ratio, abs_th,
         retry_min, match_idx, d1, d2, static_cast<uint8_t*>(fm), count,
-        static_cast<uint8_t*>(wide), obs, weights);
+        static_cast<uint8_t*>(wide), reinterpret_cast<float2*>(obs), weights);
   }
   return static_cast<int>(cudaGetLastError());
 }

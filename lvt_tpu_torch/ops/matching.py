@@ -119,9 +119,13 @@ def map_accept_op(fout: torch.Tensor, iout: torch.Tensor,
 
     CUDA: one launch of ``csrc/track.cu``'s ``map_accept_kernel``, one
     block per stream: each radius's resolution an atomicMin per feature in
-    shared memory, the counts block-wide sums."""
+    shared memory, the counts those that found a feature's key unset, the
+    claims read from the keys."""
     s, m = visible.shape
     k = feat_valid.shape[1]
+    if k > top2.MAX_K:
+        raise ValueError(f"K={k} feature slots exceed the kernel's "
+                         f"{top2.MAX_K}")
     dev = visible.device
     for x, name, dtype, shape in (
             (fout, "fout", torch.float32, (s, 2, 2, m)),

@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """lvt_tpu_torch's kernels A, B and T, PnP's fused solve, the corner
-selection and the tracking branch's staged promotion and triangulation of
-two trees on one NVIDIA GPU, in one run.
+selection, the tracking branch's staged promotion and triangulation, the
+map match's acceptance and the map's upkeep of two trees on one NVIDIA
+GPU, in one run.
 
     git archive <parent commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_before_after.py --parent build/parent
 
 Runs kernels A (perception), B (dense BRIEF planes) and T (Hamming
 top-2, the single-stream call at its four sites), ``pnp_solve``,
-``select_corners``, ``staged_promote`` and ``triangulate_insert`` of the
-parent tree ("old") and of this tree ("new") in
+``select_corners``, ``staged_promote``, ``triangulate_insert``,
+``map_accept`` and ``upkeep_pre`` of the parent tree ("old") and of this
+tree ("new") in
 turns, old, new, new, old, one process each, on the same inputs: those of
 ``chip_smoke.kernel_inputs`` at the main paths' shapes (a uint8 KITTI
 pair, its box sums, and T's arguments from the descriptors of two
 frames); PnP problems as ``tests/test_torch_cuda.py`` poses them at M =
 1024 and 4096 points and S = 1 and 8 streams; kernel A's maps of path
 1's KITTI pair, path 3's 16 images and TUM fr1's one cell (one random
-640 x 480 frame) for the selection; the two tracking ops at path 1's,
+640 x 480 frame) for the selection; the four tracking ops at path 1's,
 path 3's and path 5's shapes as ``scripts/torch_track_clocks.py`` poses
 them (the ``cuda`` tests' problems); all made once by this tree. Each
 process builds its tree's kernels (printing ptxas's registers and
@@ -53,7 +55,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, "build", "before_after")
 ORDER = ("old", "new", "new", "old")
 PNP_SHAPES = ((1024, 1), (1024, 8), (4096, 1), (4096, 8))
-TRACK_OPS = ("staged_promote", "triangulate_insert")
+TRACK_OPS = ("staged_promote", "triangulate_insert", "map_accept",
+             "upkeep_pre")
 
 
 def _smoke():
@@ -92,8 +95,8 @@ def _load(name: str, *path: str):
 
 
 def track_problems() -> dict:
-    """``staged_promote``'s and ``triangulate_insert``'s arguments at
-    scripts/torch_track_clocks.py's shapes, on the card."""
+    """The arguments of TRACK_OPS at scripts/torch_track_clocks.py's
+    shapes, on the card."""
     cases = _load("test_torch_cuda", "tests", "test_torch_cuda.py")
     clocks = _load("torch_track_clocks", "scripts", "torch_track_clocks.py")
     out = {name: {} for name in TRACK_OPS}
@@ -140,7 +143,7 @@ def worker(side: str, root: str, inputs: str, out: str) -> None:
     import lvt_tpu_torch  # noqa: F401  (this side's package, first)
     from lvt_tpu_torch import kernels
     from lvt_tpu_torch.core import track
-    from lvt_tpu_torch.ops import detect, perception, top2
+    from lvt_tpu_torch.ops import detect, matching, perception, top2
     from lvt_tpu_torch.solver import pnp
 
     smoke = _smoke()
@@ -162,8 +165,9 @@ def worker(side: str, root: str, inputs: str, out: str) -> None:
     for group, op, sites in (("pnp_solve", pnp.pnp_solve_op, inp["pnp"]),
                              ("select_corners", detect.select_corners_op,
                               inp["select"]),
-                             *((name, getattr(track, f"{name}_op"), inp[name])
-                               for name in TRACK_OPS)):
+                             *((name, getattr(matching if name == "map_accept"
+                                              else track, f"{name}_op"),
+                                inp[name]) for name in TRACK_OPS)):
         rep[group] = {}
         for site, args in sites.items():
             args = (*args[0], *args[1]) if group == "pnp_solve" else args

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the tracking branch's staged promotion and triangulation kernels
-spend their time: the SM clock at each phase boundary of ``csrc/track.cu``'s
-``staged_promote_kernel`` and ``triangulate_insert_kernel``, in every block.
+"""Where the tracking branch's kernels spend their time: the SM clock at
+each phase boundary of ``csrc/track.cu``'s ``staged_promote_kernel``,
+``triangulate_insert_kernel``, ``map_accept_kernel`` and
+``upkeep_pre_kernel``, in every block.
 
 The script writes two copies of a ``track.cu`` (by default that of
 ``--root``; ``--source`` names another, beside its ``lm_common.cuh``) into
@@ -11,12 +12,13 @@ by thread 0 (kept in shared memory until the kernel's last marker). It
 builds them with nvcc for sm_90a (ptxas's registers and spills printed)
 and launches each through the ``lvt_tpu_torch`` package of
 ``--root`` (by default this tree: the wrappers that go with the source) on
-the ``cuda`` tests' problems (this tree's
-``tests/test_torch_cuda.py::_track_problem``, made in a child process) at
-path 1's shape (K = 1536 features, M = N = 1024, one stream), path 3's (8
-streams) and path 5's (M = 4096, K = 896; ``staged_threshold`` 0 for
-the triangulation), the triangulation with policy 2 (every frame
-triangulates).
+the ``cuda`` tests' problems (this tree's ``tests/test_torch_cuda.py``:
+``_track_problem``, and ``accept_args`` for the map match; made in a child
+process) at path 1's shape (K = 1536 features, M = N = 1024, one stream),
+path 3's (8 streams) and path 5's (M = 4096, K = 896; no staged set for
+``upkeep_pre``, ``staged_threshold`` 0 for the triangulation), the
+triangulation with policy 2 (every frame triangulates). ``--ops`` picks
+the kernels (default: all four).
 
 It prints, per op and shape: the blocks of the launch and the blocks per
 stream, the plain copy's device time (the mean of 200 launches,
@@ -26,7 +28,7 @@ cycles per phase (between consecutive stamps), the median and the largest
 over the blocks, and the whole (first stamp to last).
 
     python3 scripts/torch_track_clocks.py [--root DIR] [--source FILE]
-        [--tag T]
+        [--tag T] [--ops NAME ...]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc;
 prints the card's name and power limit. Imports nothing of JAX.
@@ -43,20 +45,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "build" / "track_clocks"
-SLOTS = 40
+SLOTS = 80
 # thread 0 stamps into shared memory (a global store ahead of a cluster
 # barrier's release would make the release wait for it); a kernel's first
-# marker (slot 0, 10, 20, 30) clears the stamps, its last (9, 19, 25, 34)
-# writes them out
+# marker (slot 0, 10, ..., 70) clears the stamps, its last (9, 19, ..., 79;
+# 25 and 34 in a parent's one-block kernels) writes them out
 STAMPS = ('__device__ long long* g_clk;\n'
           '__device__ __forceinline__ void track_stamp(int slot) {\n'
-          '  __shared__ long long clk_s[40];\n'
+          f'  __shared__ long long clk_s[{SLOTS}];\n'
           '  if (threadIdx.x != 0) return;\n'
-          '  if (slot % 10 == 0) for (int i = 0; i < 40; ++i) clk_s[i] = 0;\n'
+          '  if (slot % 10 == 0)\n'
+          f'    for (int i = 0; i < {SLOTS}; ++i) clk_s[i] = 0;\n'
           '  clk_s[slot] = clock64();\n'
-          '  if (slot == 9 || slot == 19 || slot == 25 || slot == 34)\n'
-          '    for (int i = 0; i < 40; ++i) g_clk[(blockIdx.x + gridDim.x * '
-          '(long long)blockIdx.y) * 40 + i] = clk_s[i];\n'
+          '  if (slot % 10 == 9 || slot == 25 || slot == 34)\n'
+          f'    for (int i = 0; i < {SLOTS}; ++i)\n'
+          '      g_clk[(blockIdx.x + gridDim.x * (long long)blockIdx.y) * '
+          f'{SLOTS} + i] = clk_s[i];\n'
           '}\n'
           '#define TRACK_CLOCK(slot) do { __syncthreads(); '
           'track_stamp(slot); } while (0)\n')
@@ -81,11 +85,38 @@ PHASES = {
     23: "insertion into the map", 24: "insertion into the staged set",
     30: "claims copy and resolution", 31: "promotion passes",
     32: "claims out", 33: "insertion",
+    # map_accept and upkeep_pre: one block a stream, every input loaded
+    # before the first of two barriers
+    40: "keys set, loads, features staged",
+    41: "atomicMin both radii, counts", 42: "outputs",
+    50: "un-marks cleared, loads",
+    51: "pose, bookkeeping, un-marks, staged projection, kept count",
+    52: "claims and targets out",
+    # the same two as PRs 15-16 wrote them (the markers of a parent's copy)
+    60: "narrow resolution", 61: "wide resolution", 62: "narrow count",
+    63: "outputs and claims", 64: "count", 65: "claims out",
+    70: "pose (thread 0)", 71: "bookkeeping and cull",
+    72: "staged projection", 73: "kept count", 74: "claims and targets out",
 }
-# (label, streams, _track_problem's sizes, the triangulation's extras)
+# (label, streams, the problem's sizes, each op's extras)
 SHAPES = (("path 1", 1, {}, {}), ("path 3", 8, {}, {}),
-          ("path 5", 1, {"m": 4096, "k": 896}, {"staged_threshold": 0}))
-OPS = ("staged_promote", "triangulate_insert")
+          ("path 5", 1, {"m": 4096, "k": 896},
+           {"triangulate_insert": {"staged_threshold": 0},
+            "upkeep_pre": {"n": 0}}))
+OPS = ("staged_promote", "triangulate_insert", "map_accept", "upkeep_pre")
+# map_accept's scalars: the tests' ratio and absolute thresholds, and a
+# retry at m / 25 matches
+ACCEPT_SCALARS = (0.8, 30.0)
+
+
+def op_and_plain(name):
+    """Op ``name``'s custom op and its plain version's flat form (the
+    op's CPU kernel, one stream)."""
+    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.ops import matching
+
+    mod = matching if name == "map_accept" else track
+    return getattr(mod, f"{name}_op"), getattr(mod, f"_{name}_flat")
 
 
 def source(path: Path, clocks: bool) -> str:
@@ -158,10 +189,17 @@ def problems(cases, device="cpu") -> dict:
     out = {}
     for name in OPS:
         for label, s, sizes, extra in SHAPES:
-            kw = dict(sizes, **(dict(extra, policy=2)
-                                if name == "triangulate_insert" else {}))
-            out[name, label] = (kw, cases._track_problem(
-                np.random.RandomState(s), name, s, device, **kw))
+            kw = dict(sizes, **extra.get(name, {}))
+            if name == "triangulate_insert":
+                kw["policy"] = 2
+            rs = np.random.RandomState(s)
+            if name == "map_accept":
+                m, k = kw.get("m", 1024), kw.get("k", 1536)
+                args = [*cases.accept_args(rs, s, m, k, device),
+                        *ACCEPT_SCALARS, max(1, m // 25)]
+            else:
+                args = cases._track_problem(rs, name, s, device, **kw)
+            out[name, label] = (kw, args)
     return out
 
 
@@ -186,6 +224,8 @@ def main(argv=None) -> int:
                    help="the track.cu to clock (beside its lm_common.cuh; "
                         "default: --root's)")
     p.add_argument("--tag", default="tree", help="a name for the builds")
+    p.add_argument("--ops", nargs="+", choices=OPS, default=list(OPS),
+                   help="the kernels to clock")
     p.add_argument("--make-inputs", type=Path, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.make_inputs:
@@ -205,7 +245,6 @@ def main(argv=None) -> int:
     import torch
 
     from lvt_tpu_torch import kernels
-    from lvt_tpu_torch.core import track
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -223,12 +262,13 @@ def main(argv=None) -> int:
             for which, so in (("plain", plain_so), ("clocked", clk_so))}
     print(f"[{args.tag}] {src} through {root}; ptxas: {ptx}", flush=True)
     for (op_name, label), (kw, a) in torch.load(inputs).items():
+        if op_name not in args.ops:
+            continue
         a = [x.cuda() if isinstance(x, torch.Tensor) else x for x in a]
         s = a[0].shape[0]
-        op = getattr(track, f"{op_name}_op")
-        want = kernels.per_stream(getattr(track, f"_{op_name}_flat"),
-                                  sum(isinstance(x, torch.Tensor) for x in a),
-                                  a)
+        op, flat = op_and_plain(op_name)
+        want = kernels.per_stream(flat, sum(isinstance(x, torch.Tensor)
+                                            for x in a), a)
         kernels._lib = libs["plain"]
         try:
             smoke._require_equal_nan(op_name, op(*a), want)

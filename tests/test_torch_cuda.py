@@ -1741,6 +1741,8 @@ def _track_problem(rs, name, s, device, case="random", m=1024, k=1536,
         scalars = [cam]
     elif name == "upkeep_pre":
         store = _store_arrays(rs, s, m, case)
+        if case == "cull":   # counters about the cull's threshold of 10
+            store[2] = rs.randint(8, 11, (s, m)).astype(np.int32)
         match_idx = np.where(rs.rand(s, m) < 0.5, -1, -2).astype(np.int64)
         fm = np.zeros((s, k), bool)
         for i in range(s):
@@ -1874,6 +1876,12 @@ TRACK_CASES = [
     ("upkeep_pre", 1, "random", {}), ("upkeep_pre", 8, "random", {}),
     ("upkeep_pre", 8, "full", {"n": 0}), ("upkeep_pre", 2, "random",
                                           {"m": 8192, "k": 2048}),
+    # upkeep_pre: the init frame, path 5's map without a staged set,
+    # counters at the cull's threshold, and tiles of both point axes
+    ("upkeep_pre", 8, "init", {}),
+    ("upkeep_pre", 1, "random", {"m": 4096, "k": 896, "n": 0}),
+    ("upkeep_pre", 8, "cull", {}),
+    ("upkeep_pre", 2, "cull", {"m": 3000, "k": 2048, "n": 2500}),
     ("staged_promote", 1, "random", {}), ("staged_promote", 8, "random", {}),
     ("staged_promote", 8, "full", {}), ("staged_promote", 8, "empty", {}),
     ("staged_promote", 8, "crowded", {}), ("staged_promote", 8, "none", {}),
@@ -2283,11 +2291,37 @@ def accept_problem(rs, m, k, case):
     return narrow, wide, visible, valid, kp
 
 
-def accept_args(rs, s, m, k, device, cases=("narrow", "wide")):
+def accept_edge(prob, edge):
+    """``accept_problem``'s problem at an edge of map_accept_kernel's order:
+    ``invisible`` (no query in view, so T gives none a candidate), ``ties``
+    (every fifth query on feature 5 at distance 8, both radii: the lowest
+    query wins) or ``best_k`` (every seventh query accepted at target K,
+    the resolution's extra slot: counted, never claimed, K - 1's
+    keypoint); any other edge leaves it as it is."""
+    narrow, wide, visible, valid, kp = prob
+    m, k = visible.shape[0], kp.shape[0]
+    big = np.float32(hamming.BIG)
+    if edge == "invisible":
+        visible = np.zeros(m, bool)
+        none = (np.full(m, big), np.full(m, big), np.zeros(m, np.int64),
+                np.zeros(m, np.int64))
+        return none, none, visible, valid, kp
+    if edge in ("ties", "best_k"):
+        at = np.arange(0, m, 5) if edge == "ties" else np.arange(1, m, 7)
+        target, d1 = (5, 8.0) if edge == "ties" else (k, 4.0)
+        narrow, wide = ([x.copy() for x in narrow], [x.copy() for x in wide])
+        for d1s, d2s, best, n_cand in (narrow, wide):
+            d1s[at], d2s[at], best[at], n_cand[at] = d1, big, target, 1
+        narrow, wide = tuple(narrow), tuple(wide)
+    return narrow, wide, visible, valid, kp
+
+
+def accept_args(rs, s, m, k, device, cases=("narrow", "wide"), edge=None):
     """The map_accept op's tensors for ``s`` streams (their cases in
-    turn): fout, iout (kernel T's layout), visible, feat_valid, feat_kp."""
-    probs = [accept_problem(rs, m, k, cases[i % len(cases)])
-             for i in range(s)]
+    turn, each at ``accept_edge``'s ``edge``): fout, iout (kernel T's
+    layout), visible, feat_valid, feat_kp."""
+    probs = [accept_edge(accept_problem(rs, m, k, cases[i % len(cases)]),
+                         edge) for i in range(s)]
     packed = [top2._pack(tuple(map(torch.from_numpy, p[0])),
                          tuple(map(torch.from_numpy, p[1]))) for p in probs]
     return [torch.stack([p[j] for p in packed]).to(device)
@@ -2296,25 +2330,49 @@ def accept_args(rs, s, m, k, device, cases=("narrow", "wide")):
         for i in (2, 3, 4)]
 
 
+# (S, M, K) and (S, M, K, edge): accept_edge's edges, and stream 0's
+# narrow count at the retry's threshold (``retry_at``: the narrow radius
+# used) and one below it (``retry_below``: the wide retry taken)
 ACCEPT_CASES = [(1, 1024, 1536), (8, 1024, 1536), (16, 1024, 1536),
                 (2, 4096, 896), (1, 8192, 1024), (8, 8192, 1024),
-                (4, 50, 300)]
+                (4, 50, 300), (1, 1024, 1536, "retry_at"),
+                (8, 1024, 1536, "retry_below"), (8, 1024, 1536, "invisible"),
+                (8, 1024, 1536, "ties"), (8, 1024, 1536, "best_k"),
+                (2, 4096, 896, "best_k"), (2, 8192, 1024, "ties"),
+                (4, 50, 300, "best_k")]
+
+
+def accept_retry(args, edge, m):
+    """map_accept's retry threshold for ACCEPT_CASES' edge: stream 0's
+    narrow count (``retry_at``) or one more (``retry_below``), else the
+    tests' m / 25."""
+    from lvt_tpu_torch.ops import matching
+
+    if edge not in ("retry_at", "retry_below"):
+        return max(1, m // 25)
+    narrow = matching._map_accept_flat(*(x[0].cpu() for x in args), 0.8,
+                                       30.0, 0)[4]
+    return int(narrow) + (edge == "retry_below")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ACCEPT_CASES,
-                         ids=["s%d-m%d-k%d" % c for c in ACCEPT_CASES])
+                         ids=["-".join(["s%d-m%d-k%d" % c[:3], *c[3:]])
+                              for c in ACCEPT_CASES])
 def test_map_accept_kernel_matches_plain(cuda, shape):
     """Kernel MM against its plain version on the card, every output
     bit-equal, at the paths' shapes (S = 1, 8, 16 at KITTI's 1024 x 1536;
     EuRoC's 4096 x 896; TUM's 8192 x 1024; more features than queries),
-    narrow and wide streams in turn; each stream equal to its S = 1
-    launch."""
+    narrow and wide streams in turn, and at the edges of the kernel's
+    order (the retry's threshold, no query visible, ties on one feature,
+    a best of K); each stream equal to its S = 1 launch."""
     from lvt_tpu_torch.ops import matching
 
-    s, m, k = shape
-    args = accept_args(np.random.RandomState(m + s), s, m, k, cuda)
-    scalars = (0.8, 30.0, max(1, m // 25))
+    s, m, k, *edge = shape
+    edge = edge[0] if edge else None
+    args = accept_args(np.random.RandomState(m + s), s, m, k, cuda,
+                       edge=edge)
+    scalars = (0.8, 30.0, accept_retry(args, edge, m))
     before = matching.map_accept.launches
     got = matching.map_accept_op(*args, *scalars)
     torch.cuda.synchronize()
@@ -2322,10 +2380,25 @@ def test_map_accept_kernel_matches_plain(cuda, shape):
     want = kernels.per_stream(matching._map_accept_flat, 5,
                               [*args, *scalars])
     _assert_outputs_equal(got, want, f"map_accept {shape}")
+    if edge in ("retry_at", "retry_below"):
+        assert bool(got[5][0]) == (edge == "retry_below")
     for i in range(s):
         alone = matching.map_accept_op(*(x[i:i + 1] for x in args), *scalars)
         _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
                               f"map_accept stream {i}")
+
+
+@pytest.mark.cuda
+def test_map_accept_refuses_more_features_than_a_block_holds(cuda):
+    """The kernel gives each thread two features: K = 2049 is refused
+    before a launch (K <= 2048 is kernel T's bound too)."""
+    from lvt_tpu_torch.ops import matching
+
+    args = accept_args(np.random.RandomState(1), 1, 64, 2049, cuda)
+    before = matching.map_accept.launches
+    with pytest.raises(ValueError, match="2048"):
+        matching.map_accept_op(*args, 0.8, 30.0, 10)
+    assert matching.map_accept.launches == before
 
 
 @pytest.mark.cuda

@@ -4,6 +4,10 @@
 version; the CUDA kernels (csrc/select.cu, csrc/track.cu) are held against
 the plain versions in tests/test_torch_cuda.py.
 
+A numpy model of ``map_accept_kernel``'s order (the counts and claims
+from the targets' keys, tiles of the block's threads) is held against the
+plain version.
+
 Tolerance: none. The selection is integer keys, masks and a handful of f32
 operations in lvt_tpu's order (the subpixel fit); the acceptance is
 integer keys, indices, counts and masks, with d1 / d2 small integers in
@@ -29,7 +33,7 @@ from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.ops import detect, matching, top2
 from tests.test_torch_cuda import (_assert_outputs_equal, accept_args,
-                                   accept_problem, sparse_map)
+                                   accept_problem, accept_retry, sparse_map)
 from tests.test_torch_system import share_the_cores  # noqa: F401
 
 # ---- corner selection
@@ -482,3 +486,97 @@ def test_find_map_matches_through_the_op_matches_lvt_tpu():
     np.testing.assert_array_equal(got.weights.numpy(),
                                   (idx >= 0).astype(np.float32))
     assert bool(got.used_wide_radius) and int(got.matches_count) > 10
+
+
+# ---- map_accept_kernel's order (csrc/track.cu), modelled in numpy
+
+IMAX = np.iinfo(np.int32).max
+# (M, K, edge) of tests/test_torch_cuda.py's accept_edge and accept_retry
+ACCEPT_MODEL_CASES = [(1024, 1536, None), (1024, 1536, "retry_at"),
+                      (1024, 1536, "retry_below"), (1024, 1536, "invisible"),
+                      (1024, 1536, "ties"), (50, 300, None),
+                      (4096, 896, None), (8192, 1024, "ties"),
+                      (1024, 1536, "best_k"), (4096, 896, "best_k")]
+
+
+def _match(fout, iout, r, lo, hi, ratio, abs_th, m):
+    """Queries [lo, hi) at radius r: d1, d2, the accepted target and the
+    key (distance x (M + 1) + query)."""
+    d1, d2 = fout[0, r, lo:hi], fout[1, r, lo:hi]
+    idx = np.where((((iout[1, r, lo:hi] >= 2) & (d1 < np.float32(ratio) * d2))
+                    | ((iout[1, r, lo:hi] == 1) & (d1 <= np.float32(abs_th)))),
+                   iout[0, r, lo:hi], -1)
+    key = (np.where(idx >= 0, d1, 0).astype(np.int32) * np.int32(m + 1)
+           + np.arange(lo, hi, dtype=np.int32))
+    return d1, d2, idx, key
+
+
+def _accept_model(fout, iout, visible, fvalid, kp, ratio, abs_th, retry_min,
+                  threads):
+    """map_accept of one stream (numpy) in map_accept_kernel's order with a
+    block of ``threads``: both radii's keys by atomic minima over tiles of
+    the queries, each radius's count the number of minima that found their
+    target's key unset (targets 0..K), summed per thread, per warp, then
+    over the warps' sums; the claims read from the keys; tile 0's outputs
+    from what its threads loaded first, later tiles' from the radius used
+    loaded again; the observations from the staged keypoints."""
+    m, k = visible.shape[0], fvalid.shape[0]
+    keys = np.full((2, k + 1), IMAX, np.int32)
+    won = np.zeros((2, threads), np.int64)   # first claims, per thread
+    for lo in range(0, m, threads):
+        for r in (0, 1):
+            _, _, idx, key = _match(fout, iout, r, lo, min(m, lo + threads),
+                                    ratio, abs_th, m)
+            for t in np.nonzero(idx >= 0)[0]:
+                won[r, t] += keys[r, idx[t]] == IMAX
+                keys[r, idx[t]] = min(keys[r, idx[t]], key[t])
+    won = won.reshape(2, -1, 32).sum(2).sum(1)
+    wide = bool(won[0] < retry_min)
+    ku = keys[int(wide)]
+    out = [np.zeros(m, np.int64), np.zeros(m, np.float32),
+           np.zeros(m, np.float32), None, None, None,
+           np.zeros((m, 2), np.float32), np.zeros(m, np.float32)]
+    for lo in range(0, m, threads):
+        hi = min(m, lo + threads)
+        d1, d2, idx, key = _match(fout, iout, int(wide), lo, hi, ratio,
+                                  abs_th, m)
+        ok = (idx >= 0) & (ku[np.clip(idx, 0, k)] == key)
+        mi = np.where(visible[lo:hi], np.where(ok, idx, -1), -2)
+        out[0][lo:hi], out[1][lo:hi], out[2][lo:hi] = mi, d1, d2
+        out[6][lo:hi], out[7][lo:hi] = kp[np.clip(mi, 0, k - 1)], mi >= 0
+    out[3] = (ku[:k] != IMAX) & fvalid
+    out[4], out[5] = np.int64(won[int(wide)]), wide
+    return out
+
+
+@pytest.mark.parametrize("threads", [1024, 64])
+@pytest.mark.parametrize("m,k,edge", ACCEPT_MODEL_CASES,
+                         ids=["m%d-k%d-%s" % c for c in ACCEPT_MODEL_CASES])
+def test_map_accept_kernel_model_is_the_plain_version(m, k, edge, threads):
+    """csrc/track.cu's map_accept_kernel as a numpy model (tiles of a
+    block's threads, the counts from the minima that found a target's key
+    unset, the claims from the keys) against map_accept_plain, stream by
+    stream, every output equal: the narrow count at the retry's threshold
+    and one below it, no query visible, ties on one feature, more features
+    than queries, M = 4096 and 8192, accepted targets of K (counted, never
+    claimed)."""
+
+    args = accept_args(np.random.RandomState(m + threads), 2, m, k, "cpu",
+                       edge=edge)
+    retry = accept_retry(args, edge, m)
+    want = matching.map_accept_op(*args, 0.8, 30.0, retry)
+    for i in range(2):
+        got = _accept_model(*(x[i].numpy() for x in args), 0.8, 30.0, retry,
+                            threads)
+        for name, g, w in zip(matching.ACCEPT_FIELDS, got, want):
+            np.testing.assert_array_equal(np.asarray(g), w[i].numpy(),
+                                          err_msg=f"{name} stream {i}")
+    idx = want[0].numpy()
+    if edge in ("retry_at", "retry_below"):
+        assert bool(want[5][0]) == (edge == "retry_below")
+    if edge == "invisible":
+        assert (idx == -2).all() and not want[4].any()
+    if edge == "best_k":
+        assert (idx == k).any()
+    if edge == "ties":
+        assert ((idx == 5).sum(1) <= 1).all()

@@ -22,7 +22,9 @@ Tolerances:
     ``staged_promote`` and ``triangulate_insert`` (each block a range of
     the queries, of the resolution's targets and of the slots; integers
     exchanged in rank order) against the plain version: bit-equal, NaN for
-    NaN.
+    NaN; one of ``upkeep_pre_kernel``'s order (tiles of the block's
+    threads, the un-marks after the first barrier, the kept count by
+    warps, the pose per warp): bit-equal.
 """
 
 import dataclasses
@@ -708,3 +710,81 @@ def test_triangulate_insert_cluster_model_is_the_plain_version(case, kw, c):
         assert len(got) == len(want)
         for g, w in zip(got, (x[i] for x in want)):
             np.testing.assert_array_equal(np.asarray(g), _np(w))
+
+
+# ---- upkeep_pre_kernel's order (csrc/track.cu), modelled in numpy
+
+UPKEEP_MODEL_CASES = [("random", {}), ("init", {}), ("random", {"n": 0}),
+                      ("cull", {}),
+                      ("cull", {"m": 3000, "k": 2048, "n": 2500})]
+
+
+def _upkeep_model(a, threads):
+    """upkeep_pre of one stream (the op's arguments, tensors) in
+    upkeep_pre_kernel's order with a block of ``threads``: thread p holds
+    map point p and staged point p (tile 0, loaded before the first
+    barrier) and takes the later tiles of ``threads`` as they come; the
+    un-marks set after the first barrier (the claim mask drops K); the kept
+    count summed per thread, per warp, then over the warps' sums; every
+    warp building the frame's pose and rotation itself and projecting its
+    lanes' staged points with them."""
+    (counter, age, valid, match_idx, fm, fvalid, t, q, is_init, spos,
+     svalid), (thr, cam) = a[:11], a[11:]
+    ctr, ag, v, idx = (_np(x) for x in (counter, age, valid, match_idx))
+    m, k, n = ctr.shape[0], fm.shape[0], spos.shape[0]
+    c_out, age_out = np.zeros_like(ctr), np.zeros_like(ag)
+    v_out, unmark = np.zeros_like(v), np.zeros(k, bool)
+    kept = np.zeros(threads, np.int64)
+    for lo in range(0, m, threads):
+        sl = slice(lo, min(m, lo + threads))
+        c = ctr[sl] + (v[sl] & (idx[sl] < 0))
+        remove = v[sl] & (c >= thr)
+        c_out[sl], age_out[sl] = c, ag[sl] + (v[sl] & (idx[sl] >= 0))
+        v_out[sl] = v[sl] & ~remove
+        kept[:sl.stop - lo] += v_out[sl]
+        um = np.where(remove & (idx[sl] >= 0) & (idx[sl] < k), idx[sl], -1)
+        unmark[um[um >= 0]] = True
+    size = kept.reshape(-1, 32).sum(1).sum()
+    cam = dict(zip(track.CAM_KEYS, cam))
+    uv = torch.zeros((n, 2))
+    vis = torch.zeros(n, dtype=torch.bool)
+    for w in range(threads // 32):
+        pose = track.select(is_init, Pose.identity(), Pose(t, q))
+        lanes = (np.arange(32 * w, 32 * (w + 1))[None]
+                 + np.arange(0, n, threads)[:, None]).ravel()
+        lanes = torch.from_numpy(lanes[lanes < n])
+        uv[lanes], vis[lanes] = matching.project_visible(
+            spos[lanes], svalid[lanes], pose, **cam)
+    fm_out = _np(fm) & ~unmark
+    return (c_out, age_out, v_out, fm_out, _np(fvalid) & ~fm_out,
+            np.int64(size), _np(torch.cat(list(pose))), _np(uv), _np(vis))
+
+
+@pytest.mark.parametrize("threads", [1024, 64])
+@pytest.mark.parametrize("case,kw", UPKEEP_MODEL_CASES,
+                         ids=[_case_id(("", 0, c, kw)) for c, kw in
+                              UPKEEP_MODEL_CASES])
+def test_upkeep_pre_kernel_model_is_the_plain_version(case, kw, threads):
+    """csrc/track.cu's upkeep_pre_kernel as a numpy model (tiles of a
+    block's threads, the un-marks after the first barrier, the kept count
+    by warps, the pose per warp) against upkeep_pre_plain, stream by
+    stream, every output equal; ``cull`` puts counters about the
+    threshold, so points culled at it hold features, and the tiles at 64
+    threads (and past 1024 points) run several passes of both axes."""
+    args = _track_problem(np.random.RandomState(threads), "upkeep_pre", 2,
+                          "cpu", case, **kw)
+    want = _track_plain("upkeep_pre", args)
+    culled_holding = at_threshold = 0
+    for i in range(2):
+        a = [x[i] if isinstance(x, torch.Tensor) else x for x in args]
+        got = _upkeep_model(a, threads)
+        assert len(got) == len(want)
+        for g, w in zip(got, (x[i] for x in want)):
+            np.testing.assert_array_equal(np.asarray(g), _np(w))
+        culled = _np(a[2]) & ~got[2]
+        culled_holding += int((culled & (_np(a[3]) >= 0)).sum())
+        at_threshold += int((culled & (got[0] == a[11])).sum())
+    if case == "cull":
+        assert culled_holding > 0 and at_threshold > 0
+    if case == "init":
+        np.testing.assert_array_equal(_np(want[6][0]), [0, 0, 0, 1, 0, 0, 0])
