@@ -257,19 +257,25 @@ path 6) launches the corner selection's kernel (``select_corners``,
 ``csrc/select.cu``: a thread-block cluster per cell) once per frame for
 all its images, and every
 unsharded path the map match's acceptance after T (``map_accept``,
-``csrc/track.cu``) once per frame (path 3 once for its 8 streams); neither
-is a TPU kernel. Wherever PnP's inputs are captured
+``csrc/track.cu``) and the step's tail (``step_tail``, ``csrc/tail.cu``:
+the selects on the frame's outcome and the metrics) once per frame (path
+3 once for its 8 streams), and every path the runner's copy of the new
+state into its static buffers (``copy_leaves``, ``csrc/tail.cu``) once
+per frame; none is a TPU kernel. Wherever PnP's inputs are captured
 (``capture_pnp_inputs``: after paths 1-6, each tree of path 7, path 8's
-reference, the bench's modes) the same frames' inputs of these six
+reference, the bench's modes) the same frames' inputs of these seven
 kernels are held bit-equal to their plain versions on the card, frame 0
 as launched and the last 8 streams (images) in one launch, each stream
 against its S = 1 launch, the selection also with the low-corner
 fallback never and always taken (``check_track_kernels``; the selection
 also on TUM fr1's one cell of 640 x 480 keeping 1000, at 1 and 8 images,
-after path 4); after path 2 they are timed on path 1's inputs at S = 1
-(the selection: a frame's 2 images) and 8 beside their bounds, their
-plain versions graphed and, for the selection, ``torch.topk`` of its
-packed keys (``measure_track_kernels``). Local
+after path 4), and the copy of the tail's new state bit-equal to it,
+also with two buffers swapped (``check_copy_leaves``); after path 2 they
+are timed on path 1's inputs at S = 1 (the selection: a frame's 2
+images) and 8 beside their bounds, their plain versions graphed and, for
+the selection, ``torch.topk`` of its packed keys, for the copy
+``torch._foreach_copy_`` (``measure_track_kernels``,
+``measure_copy_leaves``). Local
 BA's kernel runs on BA_KERNEL_PATHS (path 2, path 7 kitti, the bench's
 ``--ba``): once per BA frame in a graph, once per frame eagerly, once in
 a graph's warm-up and once in its capture; 8a-8c keep BA's torch ops.
@@ -381,6 +387,15 @@ KERNELS = {
     "map_accept": ("cuda", "lvt_tpu_torch/csrc/track.cu",
                    "lvt_tpu/ops/matching.py:76-151 + "
                    "lvt_tpu/core/step.py:400-401"),
+    # not TPU kernels: the step's tail, the selects on the frame's outcome
+    # and the metrics (XLA ops under jit; every unsharded path), and the
+    # runner's copy of the new state into its static buffers (lvt_tpu's
+    # lax.scan carries its state in XLA's buffers; every path)
+    "step_tail": ("cuda", "lvt_tpu_torch/csrc/tail.cu",
+                  "lvt_tpu/core/step.py:531-570 + "
+                  "lvt_tpu/core/step.py:597-612"),
+    "copy_leaves": ("cuda", "lvt_tpu_torch/csrc/tail.cu",
+                    "lvt_tpu/core/step.py:665 (lax.scan's carry)"),
 }
 # the tracking branch's four ops, in the step's order
 TRACK_KERNELS = ("predict_project", "upkeep_pre", "staged_promote",
@@ -388,7 +403,7 @@ TRACK_KERNELS = ("predict_project", "upkeep_pre", "staged_promote",
 # the selection and the map match's acceptance: captured and checked with
 # the tracking branch's ops (STEP_OPS, check_track_kernels), timed apart
 SELECT_ACCEPT = ("select_corners", "map_accept")
-STEP_OPS = TRACK_KERNELS + SELECT_ACCEPT
+STEP_OPS = TRACK_KERNELS + SELECT_ACCEPT + ("step_tail",)
 # the paths whose config has no staged set (staged_threshold 0): no staged
 # re-match, so no staged_promote
 NO_STAGED_PATHS = ("path5", "path7-euroc")
@@ -520,8 +535,10 @@ NEED_PER_FRAME = {
 for _path, _need in NEED_PER_FRAME.items():
     _need.update({"pnp_phase": PNP_PHASES} if _path in SHARDED_PATHS
                  else {"pnp_solve": 1})
+    _need["copy_leaves"] = 1   # the runner's copy of the new state
     if _path not in SHARDED_PATHS:
-        _need.update(dict.fromkeys(TRACK_KERNELS, 1), map_accept=1)
+        _need.update(dict.fromkeys(TRACK_KERNELS, 1), map_accept=1,
+                     step_tail=1)
         if _path in NO_STAGED_PATHS:
             del _need["staged_promote"]
     if _path != "path6":   # external corners: no selection
@@ -745,6 +762,8 @@ def phase_device() -> dict:
         _say("device", "{name}: clusters of {threads}-thread blocks, "
                        "{launch_shapes}; ptxas: {ptxas}".format(name=name,
                                                                 **geo))
+    for name in ("predict_project", "step_tail", "copy_leaves"):
+        _say("device", f"{name}: ptxas: {_ptxas(name + '_kernel')}")
     return card
 
 
@@ -1592,33 +1611,39 @@ def capture_pnp_inputs(path, frames) -> dict:
     tensors (the last frame's is kept); a VOSystem launches at S = 1, and
     its last MS_STREAMS frames are stacked as streams, so that the kernel
     is also checked at S = 8 at this path's M."""
-    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.core import tail, track
     from lvt_tpu_torch.core.graphs import disable_graphs
     from lvt_tpu_torch.ops import detect, matching
     from lvt_tpu_torch.solver import pnp
 
-    ops = ([(pnp, "pnp_solve")] + [(track, k) for k in TRACK_KERNELS]
-           + [(detect, "select_corners"), (matching, "map_accept")])
-    seen = {name: [] for _, name in ops}
-    real = {name: getattr(mod, f"{name}_op") for mod, name in ops}
+    # the step's tail launches from tail._launch, through the op or (one
+    # stream outside vmap) straight from tail.step_tail
+    ops = ([(pnp, "pnp_solve", "pnp_solve_op")]
+           + [(track, k, f"{k}_op") for k in TRACK_KERNELS]
+           + [(detect, "select_corners", "select_corners_op"),
+              (matching, "map_accept", "map_accept_op"),
+              (tail, "step_tail", "_launch")])
+    seen = {name: [] for _, name, _ in ops}
+    real = {name: getattr(mod, attr) for mod, name, attr in ops}
 
     def recorder(name):
         def record(*args):
-            if not torch._C._functorch.is_batchedtensor(args[0]):
+            flat = _tail_launch_flat(*args) if name == "step_tail" else args
+            if not torch._C._functorch.is_batchedtensor(flat[0]):
                 seen[name].append(tuple(
                     x.clone() if isinstance(x, torch.Tensor) else x
-                    for x in args))
+                    for x in flat))
             return real[name](*args)
         return record
 
-    for mod, name in ops:
-        setattr(mod, f"{name}_op", recorder(name))
+    for mod, name, attr in ops:
+        setattr(mod, attr, recorder(name))
     try:
         with disable_graphs():
             n = frames()
     finally:
-        for mod, name in ops:
-            setattr(mod, f"{name}_op", real[name])
+        for mod, name, attr in ops:
+            setattr(mod, attr, real[name])
     solves = seen.pop("pnp_solve")
     if len(solves) != n:
         raise AssertionError(f"{path}: {len(solves)} launches of pnp_solve "
@@ -1813,7 +1838,7 @@ def measure_pnp_solve(card, path, inputs) -> dict:
 # the largest gap of each of the tracking branch's kernels to its plain
 # version on each path's inputs ({kernel: {path: gap}}), from
 # check_track_kernels at every capture_pnp_inputs
-TRACK_ERRS = {k: {} for k in STEP_OPS}
+TRACK_ERRS = {k: {} for k in (*STEP_OPS, "copy_leaves")}
 # the work per item that each of the tracking branch's functions needs,
 # besides its bytes (every output written once, each input read once):
 # predict_project per map point, the camera point (9 multiplies, 9 adds),
@@ -1841,6 +1866,10 @@ TRACK_WORK = {"predict_project": ("map", {"fp32": 31}),
 # ALU) and the f32 add; map_accept per query, at each radius the
 # acceptance (3), the key (2), its atomicMin (1) and the winner's test
 # (2), then the selects and the outputs (8): 24 ALU
+# step_tail per matched map slot of a stream not lost: the five sums'
+# adds (the selects and the counts are data movement and integer work
+# under its bytes)
+TAIL_FP32_PER_SLOT = 5
 SELECT_KEY_ALU = 7
 SELECT_ACCEPT_WORK = {"select_corners": (SELECT_KEY_ALU + 6, 1),
                       "map_accept": 24}
@@ -1877,24 +1906,55 @@ def _track_errs(path, errs) -> None:
         TRACK_ERRS[k][path] = max(v, TRACK_ERRS[k].get(path, 0.0))
 
 
+def _tail_flat(args) -> tuple:
+    """``step_tail_op``'s arguments (three lists of tensors and the
+    threshold) as one flat tuple, as the other ops take theirs."""
+    state, new, inputs, min_matches = args
+    return (*state, *new, *inputs, min_matches)
+
+
+def _tail_launch_flat(state, new, inp, min_matches, lead) -> tuple:
+    """A launch of ``tail._launch`` as :func:`_tail_flat`'s arguments of
+    the op: a stream axis of 1 where the launch had none (``lead`` ()),
+    ``ba_ran`` [S, 0] where it was None."""
+    ba = inp.feat_valid[..., :0] if inp.ba_ran is None else inp.ba_ran
+    lists = (state, new, [*inp[:-1], ba])
+    if not lead:
+        lists = tuple([x[None] for x in xs] for xs in lists)
+    return _tail_flat((*lists, min_matches))
+
+
+def _tail_lists(flat) -> tuple:
+    """:func:`_tail_flat`'s inverse."""
+    from lvt_tpu_torch.core import tail
+
+    n, k = len(tail.PATHS), len(tail.TailInputs._fields)
+    return (list(flat[:n]), list(flat[n:2 * n]), list(flat[2 * n:2 * n + k]),
+            flat[2 * n + k])
+
+
 def _step_op(name):
-    """The custom op of one of STEP_OPS."""
-    from lvt_tpu_torch.core import track
+    """The custom op of one of STEP_OPS, on flat arguments."""
+    from lvt_tpu_torch.core import tail, track
     from lvt_tpu_torch.ops import detect, matching
 
+    if name == "step_tail":
+        return lambda *a: tail.step_tail_op(*_tail_lists(a))
     mod = {"select_corners": detect, "map_accept": matching}.get(name, track)
     return getattr(mod, f"{name}_op")
 
 
 def _track_plain(name, args) -> tuple:
     """The op's plain version (core/track.py's ``*_plain``, ops/detect.py's
-    ``select_corners_plain``, ops/matching.py's ``map_accept_plain``: torch
-    ops) stream by stream on the card: the op's CPU kernel, on CUDA
-    tensors."""
+    ``select_corners_plain``, ops/matching.py's ``map_accept_plain``,
+    core/tail.py's ``step_tail_plain``: torch ops) stream by stream on the
+    card: the op's CPU kernel, on CUDA tensors."""
     from lvt_tpu_torch import kernels
-    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.core import tail, track
     from lvt_tpu_torch.ops import detect, matching
 
+    if name == "step_tail":
+        return tail._step_tail_cpu(*_tail_lists(args))
     if name == "select_corners":
         return detect.select_corners_plain(*args)
     nt = sum(isinstance(x, torch.Tensor) for x in args)
@@ -1946,10 +2006,50 @@ def check_track_kernels(path, tracked) -> dict:
                     [x[i] for x in got])
             errs[name] = max(err, errs.get(name, 0.0))
         said.append(f"{name} S={sets['last'][0].shape[0]}")
+    if "step_tail" in tracked:
+        errs["copy_leaves"] = check_copy_leaves(path, tracked["step_tail"])
+        said.append("copy_leaves")
     _say(path, f"step kernels bit-equal to their plain versions on the "
                f"card on this path's frame 0 and its last streams, each "
                f"stream equal to its S=1 launch: {', '.join(said)}")
     return errs
+
+
+def _tail_states(flat) -> tuple:
+    """The state and the tail's new state of captured ``step_tail``
+    arguments (leaves with the stream axis), as VOStates."""
+    from lvt_tpu_torch.core import tail
+    from lvt_tpu_torch.tree import from_leaves
+
+    n = len(tail.PATHS)
+    out = _step_op("step_tail")(*flat)
+    return (from_leaves(tail._TEMPLATE, flat[:n]),
+            from_leaves(tail._TEMPLATE, out[:n]))
+
+
+def check_copy_leaves(path, sets) -> float:
+    """The runner's copy (``core/graphs.py::copy_leaves``, csrc/tail.cu's
+    copy_leaves_kernel) on the card: the tail's new state of frame 0 and
+    of the last streams copied into clones of their states, every leaf
+    bit-equal to its source; and two of a state's buffers swapped (each a
+    source of the other), which it must read before it writes. Returns
+    0.0 (bit-equal) or raises."""
+    from lvt_tpu_torch.core import graphs
+    from lvt_tpu_torch.geometry.se3 import Pose
+    from lvt_tpu_torch.tree import leaves, tree_map
+
+    for label in ("first", "last"):
+        state, new = _tail_states(sets[label])
+        dst = tree_map(torch.clone, state)
+        graphs.copy_leaves(dst, new)
+        _require_equal_nan(f"{path}: copy_leaves ({label})", leaves(dst),
+                           leaves(new))
+    a, b = dst.map.counter, dst.map.age
+    want = (b.clone(), a.clone())
+    graphs.copy_leaves(Pose(a, b), Pose(b, a))
+    _require_equal_nan(f"{path}: copy_leaves of two swapped buffers",
+                       [a, b], list(want))
+    return 0.0
 
 
 def _require_equal_nan(name: str, got, want) -> float:
@@ -2004,6 +2104,8 @@ def track_work(name, args, outs) -> tuple[int, dict]:
     if name == "map_accept":
         return nbytes, {"alu": s * args[2].shape[1]
                         * SELECT_ACCEPT_WORK["map_accept"]}
+    if name == "step_tail":
+        return tail_work(args, outs)
     what, per = TRACK_WORK[name]
     if what == "map":
         items = tensors[7].shape[1]
@@ -2017,6 +2119,44 @@ def track_work(name, args, outs) -> tuple[int, dict]:
         ops["alu"] = ops.get("alu", 0) + s * slots * (
             6 if name == "upkeep_pre" else 4)
     return nbytes, ops
+
+
+def tail_work(args, outs) -> tuple[int, dict]:
+    """Bytes and operations that one launch of ``step_tail`` needs on this
+    launch's data, stream by stream: each output leaf of the state and the
+    pose read once from the one source its stream's flags pick and written
+    once; the metrics written; the scalars read; the state's map validity
+    where the count needs it apart from that source (a tracking frame
+    after the first), its staged validity and the features' validity on
+    frames that are not lost, ``match_idx`` on those frames, and the
+    bookkept age, d1, d2 and the observation (x, y) of each matched slot
+    of theirs, whose five adds are the float work."""
+    from lvt_tpu_torch.core import tail
+    from lvt_tpu_torch.core.state import LOST, NOT_INITIALIZED
+
+    state, _, inputs, min_matches = _tail_lists(args)
+    inp = tail.TailInputs(*inputs)
+    nb = lambda x: x.numel() * x.element_size()  # noqa: E731
+    n_state = len(tail.PATHS) + 2
+    status = state[tail.STATUS]
+    live, init = status != LOST, status == NOT_INITIALIZED
+    tracking = live & ((inp.matches_count >= min_matches) | init)
+    nbytes = 2 * sum(nb(x) for x in outs[:n_state])
+    nbytes += sum(nb(x) for x in outs[n_state:])
+    nbytes += sum(nb(x) for x in (inp.matches_count, inp.map_size,
+                                  inp.inlier_count, inp.n_inserted,
+                                  inp.used_wide_radius))
+    if inp.ba_ran.dim() == 1:
+        nbytes += nb(inp.ba_ran)
+    per = lambda x, rows: nb(x) // x.shape[0] * int(rows.sum())  # noqa: E731
+    nbytes += per(state[tail._IDX[".map.valid"]], tracking & ~init)
+    nbytes += per(state[tail._IDX[".staged.valid"]], tracking)
+    nbytes += per(inp.feat_valid, live) + per(inp.match_idx, live)
+    matched = int(((inp.match_idx >= 0) & live[:, None]).sum())
+    nbytes += matched * (inp.bookkept_age.element_size()
+                         + inp.d1.element_size() + inp.d2.element_size()
+                         + 2 * inp.obs.element_size())
+    return nbytes, {"fp32": matched * TAIL_FP32_PER_SLOT}
 
 
 def measure_track_kernels(card, path, tracked) -> dict:
@@ -2057,6 +2197,43 @@ def measure_track_kernels(card, path, tracked) -> dict:
             rep[name].update(card["select_geometry"])
         rep[name].update(card["track_geometry"].get(name, {}))
     return rep
+
+
+def measure_copy_leaves(card, path, tracked) -> dict:
+    """The runner's copy (``graphs.copy_leaves``: one launch for every
+    leaf) of the tail's new state on a path's captured frames at S = 1
+    (the last stream) and S = MS_STREAMS (path 3's state) into clones of
+    the state: its device time beside its bound (each byte read once and
+    written once), the plain copy's (``copy_into``: a ``copy_`` per leaf)
+    graphed, and ``torch._foreach_copy_`` of the leaves, one PyTorch call
+    that copies a list of tensors."""
+    from lvt_tpu_torch.core import graphs
+    from lvt_tpu_torch.tree import leaves, tree_map
+
+    full = tracked["step_tail"]["last"]
+    s_all = full[0].shape[0]
+    by_s = {}
+    for s in (1, s_all):
+        state, new = _tail_states([x[-s:].contiguous()
+                                   if isinstance(x, torch.Tensor) else x
+                                   for x in full])
+        dst = tree_map(torch.clone, state)
+        src, into = leaves(new), leaves(dst)
+        nbytes = 2 * sum(x.numel() * x.element_size() for x in src)
+        b_ms, b_by = bound(card, nbytes, {})
+        by_s[s] = dict(
+            s=s, ms=device_ms(lambda: graphs.copy_leaves(dst, new), REPS),
+            plain_ms=device_ms(_graphed(lambda: graphs.copy_into(dst, new)),
+                               PLAIN_REPS),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda: torch._foreach_copy_(into, src),
+                                 REPS))
+        q = by_s[s]
+        _say(path, f"copy_leaves S={s} ({nbytes // 2} bytes): kernel "
+                   f"{q['ms']:.4f} ms (bound {b_ms:.3g} ms, {b_by}), the "
+                   f"plain copy graphed {q['plain_ms']:.4f} ms, "
+                   f"torch._foreach_copy_ {q['library_ms']:.4f} ms")
+    return dict(by_s[1], batched=by_s[s_all])
 
 
 def capture_ba_inputs(path, frames, config) -> dict:
@@ -3736,9 +3913,10 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
     lines, stages = [], {}
     if host:
         events = prof.key_averages()
-        kernels_in = _stage_kernels(prof, records)
+        kernels_in, busy_in = _stage_kernels(prof, records)
         lines.append(f"{'stage':<22} {'host ms/frame':>14} "
-                     f"{'device ms/frame':>16} {'kernels/frame':>14}")
+                     f"{'device ms/frame':>16} {'kernels/frame':>14} "
+                     f"{'span busy ms/frame':>19}")
         for e in events:
             # a range is listed twice: on the host, and as its span on the
             # device's timeline (idle gaps included), which is left out
@@ -3746,13 +3924,17 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
                 stages[e.key] = dict(
                     host_ms=e.cpu_time_total / 1e3 / n,
                     device_ms=_device_us(e) / 1e3 / n,
-                    kernels=(kernels_in[e.key] / n if kernels_in else None))
+                    kernels=(kernels_in[e.key] / n if kernels_in else None),
+                    span_busy_ms=(busy_in[e.key] / 1e6 / n if kernels_in
+                                  else None))
                 k_col = ("not measured" if not kernels_in
                          else f"{stages[e.key]['kernels']:.1f}")
+                b_col = ("not measured" if not kernels_in
+                         else f"{stages[e.key]['span_busy_ms']:.4f}")
                 lines.append(f"{e.key:<22} "
                              f"{stages[e.key]['host_ms']:>14.3f} "
                              f"{stages[e.key]['device_ms']:>16.3f} "
-                             f"{k_col:>14}")
+                             f"{k_col:>14} {b_col:>19}")
     kernels = {}
     for name, sym in KERNEL_SYMBOLS.items():
         mine = [end - start for key, start, end in records if sym in key]
@@ -3791,12 +3973,13 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
                 nccl=n_nccl, if_node=n_if, markers=n_markers, stages=stages)
 
 
-def _stage_kernels(prof, records) -> Counter:
+def _stage_kernels(prof, records) -> tuple[Counter, Counter]:
     """Device kernels (copies and fills left out) per stage of a traced
     eager step: those that start inside the stage's span on the device's
     timeline (the profiler's GPU user annotation of each range; an eager
-    step runs on one stream, so a stage's kernels lie inside its span).
-    Empty where the trace holds no such spans."""
+    step runs on one stream, so a stage's kernels lie inside its span);
+    and the device time (ns) of every record, kernels, copies and fills,
+    that starts there. Empty where the trace holds no such spans."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -3808,11 +3991,15 @@ def _stage_kernels(prof, records) -> Counter:
              and e.name() in STAGES]
     starts = sorted(start for key, start, _ in records
                     if not key.startswith(("Memcpy", "Memset")))
-    out = Counter()
+    timed = sorted((start, end - start) for _, start, end in records)
+    out, busy = Counter(), Counter()
     for name, start, end in spans:
         out[name] += (bisect.bisect_left(starts, end)
                       - bisect.bisect_left(starts, start))
-    return out
+        lo = bisect.bisect_left(timed, (start,))
+        hi = bisect.bisect_left(timed, (end,))
+        busy[name] += sum(d for _, d in timed[lo:hi])
+    return out, busy
 
 
 def _profiles(path, run, drive, profile_dir=None, frame="frame",
@@ -4467,8 +4654,9 @@ def main(argv=None) -> int:
         lap(path)
     # the tracking branch's kernels timed on path 1's inputs (the main
     # path), at S = 1 and 8
-    report.update(measure_track_kernels(card, "path1",
-                                        runs["path1"].pop("track_inputs")))
+    track1 = runs["path1"].pop("track_inputs")
+    report.update(measure_track_kernels(card, "path1", track1))
+    report["copy_leaves"] = measure_copy_leaves(card, "path1", track1)
     runs["path2"].pop("track_inputs")
     lap("track kernels timing")
     # local BA's kernel on path 2's BA windows (frames 4 and 8)

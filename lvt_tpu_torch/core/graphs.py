@@ -13,8 +13,9 @@ in a ``torch.cuda.CUDAGraph`` and replays it for every frame, so a chunk of
 N frames is N replays of one graph (``jit`` of the step, as lvt_tpu's
 ``track_step_*``; one graph serves a chunk of any length, ``track`` and
 the external corners). The state lives in static buffers between replays:
-the graph ends by copying the new state into them (one ``copy_`` per
-leaf), so replays chain with no host work. A frame is copied into static
+the graph ends by copying the new state into them (:func:`copy_leaves`:
+on the card one launch for every leaf), so replays chain with no host
+work. A frame is copied into static
 input buffers (device to device) before its replay; the replay's pose and
 metrics are static buffers too, which the next replay overwrites.
 :meth:`StepGraph.run` copies them out per frame.
@@ -77,13 +78,16 @@ import time
 import torch
 from torch.profiler import record_function
 
-from lvt_tpu_torch.tree import flatten_with_path, tree_map
+from lvt_tpu_torch.tree import leaves, tree_map
 
 _disabled = 0
 _disabled_lock = threading.Lock()
-# captures take turns; graphs dropped while one runs wait in _dropped
+# captures take turns; graphs dropped while one runs wait in _dropped.
+# _dropped_lock is re-entrant: a runner can be finalized on a thread that
+# already holds it (the collector runs at an allocation there, or a graph
+# freed there held the last reference to another runner)
 _capture_lock = threading.Lock()
-_dropped_lock = threading.Lock()
+_dropped_lock = threading.RLock()
 _capturing = False
 _dropped: list = []
 
@@ -197,20 +201,57 @@ _NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
                "conditional")
 
 
-def _leaves(tree) -> list:
-    return [leaf for _, leaf in flatten_with_path(tree)]
+def _unaliased(dsts, srcs) -> list:
+    """``srcs``, each that shares storage with one of ``dsts`` cloned, so
+    that no buffer is read after it was overwritten."""
+    held = {d.untyped_storage().data_ptr() for d in dsts}
+    return [s.clone() if s.untyped_storage().data_ptr() in held else s
+            for s in srcs]
 
 
 def copy_into(dst, src) -> None:
     """Every leaf of ``src`` into the same leaf of ``dst`` (a state's
     static buffers). A source that shares storage with a buffer is copied
     first, so no buffer is read after it was overwritten."""
-    dsts, srcs = _leaves(dst), _leaves(src)
-    held = {d.untyped_storage().data_ptr() for d in dsts}
-    srcs = [s.clone() if s.untyped_storage().data_ptr() in held else s
-            for s in srcs]
-    for d, s in zip(dsts, srcs):
+    dsts = leaves(dst)
+    for d, s in zip(dsts, _unaliased(dsts, leaves(src))):
         d.copy_(s)
+
+
+def copy_leaves(dst, src) -> None:
+    """The runner's copy of a step's new state ``src`` into its static
+    buffers ``dst``: :func:`copy_into`'s contract (a source that shares
+    storage with a buffer is cloned first). CUDA tensors: one launch of
+    ``csrc/tail.cu``'s ``copy_leaves_kernel`` for every leaf (a table of
+    pointers and sizes by value, at most ``tail_shape()[0]`` leaves; each
+    leaf's dtype and shape its buffer's, both contiguous); CPU tensors:
+    :func:`copy_into`."""
+    from lvt_tpu_torch import kernels
+    from lvt_tpu_torch.core.tail import tail_shape
+
+    dsts = leaves(dst)
+    if dsts[0].device.type == "cpu":
+        copy_into(dst, src)
+        return
+    pairs = list(zip(dsts, _unaliased(dsts, leaves(src))))
+    for d, s in pairs:
+        kernels.require(d, "copy_leaves dst", d.dtype)
+        kernels.require(s, "copy_leaves src", d.dtype, d.shape, d.device)
+    if len(pairs) > tail_shape()[0]:
+        raise ValueError(f"copy_leaves: {len(pairs)} leaves exceed the "
+                         f"kernel's {tail_shape()[0]}")
+    ptrs = (ctypes.c_void_p * (2 * len(pairs)))(*(
+        t.data_ptr() for d, s in pairs for t in (s, d)))
+    nbytes = (ctypes.c_longlong * len(pairs))(*(
+        d.numel() * d.element_size() for d, _ in pairs))
+    with torch.cuda.device(dsts[0].device):
+        err = kernels.lib().lvt_copy_leaves(ptrs, nbytes, len(pairs),
+                                            kernels.stream_ptr(dsts[0]))
+    kernels.check(err, "copy_leaves")
+    copy_leaves.launches += 1
+
+
+copy_leaves.launches = 0
 
 
 class StepGraph:
@@ -230,7 +271,7 @@ class StepGraph:
                  batched: bool = False):
         self.step_fn = step_fn
         self.state = state
-        self.device = _leaves(state)[0].device
+        self.device = leaves(state)[0].device
         self.capturable = capturable(self.device, group)
         self.if_nodes = if_nodes(self.device, group, batched=batched)
         self.inputs = tuple(torch.empty_like(x, memory_format=torch
@@ -253,7 +294,7 @@ class StepGraph:
     def _step(self):
         new, pose, metrics = self.step_fn(self.state, *self.inputs)
         with record_function("step_tail"):
-            copy_into(self.state, new)
+            copy_leaves(self.state, new)
         return pose, metrics
 
     def _capture(self) -> None:
@@ -268,7 +309,7 @@ class StepGraph:
         try:
             with torch.cuda.stream(side):
                 scratch = tree_map(torch.clone, self.state)
-                self.step_fn(scratch, *self.inputs)
+                copy_leaves(scratch, self.step_fn(scratch, *self.inputs)[0])
                 del scratch
         finally:
             _cond.runner = None

@@ -41,15 +41,12 @@ import torch
 from torch.profiler import record_function as stage
 
 from lvt_tpu_torch.config import VOConfig
-from lvt_tpu_torch.core import extract, graphs, track
+from lvt_tpu_torch.core import extract, graphs, tail, track
 from lvt_tpu_torch.core.features import FrameFeatures
-from lvt_tpu_torch.core.state import (LOST, NOT_INITIALIZED, TRACKING,
-                                      ObsWindow, PointStore, StepMetrics,
+from lvt_tpu_torch.core.state import (NOT_INITIALIZED, ObsWindow, PointStore,
                                       VOState)
-from lvt_tpu_torch.core.track import select as _select
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.ops import matching, undistort
-from lvt_tpu_torch.ops.collectives import psum_if
 from lvt_tpu_torch.solver import bundle
 from lvt_tpu_torch.solver.pnp import solve_pnp
 
@@ -135,7 +132,9 @@ def _track_branch(state: VOState, left: FrameFeatures,
                   group=None):
     """Tracking frame, and through ``is_init`` the initialization frame;
     ``right`` is None for RGB-D. Stages carry profiler ranges named as
-    lvt_tpu's jax.named_scope."""
+    lvt_tpu's jax.named_scope. Returns the tracked values as a VOState
+    (its ``frame_number`` and ``status`` the state's) and what the tail
+    reads besides (``tail.TailInputs``)."""
     cam = _camera_kwargs(config)
     k = left.kp.shape[0]
 
@@ -154,7 +153,6 @@ def _track_branch(state: VOState, left: FrameFeatures,
             abs_threshold=config.descriptor_matching_threshold,
             retry_min_matches=config.n_matches_threshold, group=group)
     matches_count = mm.matches_count
-    is_tracking = (matches_count >= config.min_num_matches_for_tracking) | is_init
 
     obs, weights = mm.obs, mm.weights
     with stage("pnp_solve"):
@@ -221,7 +219,7 @@ def _track_branch(state: VOState, left: FrameFeatures,
             track.TriangulationParams.of(config), group)
 
     final_map, pose_final, ba_window = tri.map, pose_opt, state.ba
-    ba_ran = torch.zeros((), dtype=torch.bool, device=left.kp.device)
+    ba_ran = None
     if config.local_ba_window > 0:
         removed = map_bookkept.valid & ~map_clean.valid
         recycled = tri.map_taken
@@ -242,50 +240,14 @@ def _track_branch(state: VOState, left: FrameFeatures,
                 removed | recycled, state.frame_number, config, group)
         final_map = final_map._replace(pos=refined_pos)
 
-    map_size_final, window = tri.map_size, tri.window
-    # the selects on is_tracking and the metrics (stage step_tail, with
-    # track_features' lost-frame select)
-    with stage("step_tail"):
-        new_state = VOState(
-            map=_select(is_tracking, final_map, map_bookkept),
-            staged=_select(is_tracking, tri.staged, state.staged),
-            pose=_select(is_tracking, pose_final, state.pose),
-            motion=motion,
-            last_matches=torch.where(is_tracking, window, state.last_matches),
-            frame_number=state.frame_number + 1,
-            status=torch.where(is_tracking, TRACKING, LOST).to(torch.int32),
-            ba=_select(is_tracking & ~is_init, ba_window, state.ba),
-        )
-        out_pose = _select(is_tracking, pose_final, state.pose)
-
-        matched_mask = mm.match_idx >= 0
-        n_matched = torch.clamp(matches_count, min=1)
-
-        def mean_of(v):
-            return psum_if(torch.where(matched_mask, v, 0.0).sum(),
-                           group) / n_matched
-
-        metrics = StepMetrics(
-            map_points_count=torch.where(
-                is_init, map_size_final,
-                psum_if(state.map.size(), group)).to(torch.int32),
-            staged_points_count=psum_if(state.staged.size(),
-                                        group).to(torch.int32),
-            image_keypoints=left.count().to(torch.int32),
-            tracked_map_points=matches_count.to(torch.int32),
-            mean_age=mean_of(map_bookkept.age.float()),
-            mean_closest_descriptor_distance=mean_of(mm.d1),
-            mean_second_descriptor_distance=mean_of(mm.d2),
-            mean_feature_x=mean_of(obs[:, 0]),
-            mean_feature_y=mean_of(obs[:, 1]),
-            inlier_count=pnp.inlier_count.to(torch.int32),
-            triangulated_points=torch.where(is_tracking, tri.n_inserted,
-                                            0).to(torch.int32),
-            used_wide_radius=mm.used_wide_radius & ~is_init,
-            status=new_state.status,
-            local_ba_ran=ba_ran & is_tracking & ~is_init,
-        )
-        return new_state, out_pose, metrics
+    new = VOState(map=final_map, staged=tri.staged, pose=pose_final,
+                  motion=motion, last_matches=tri.window,
+                  frame_number=state.frame_number, status=state.status,
+                  ba=ba_window)
+    return new, tail.TailInputs(
+        map_bookkept.counter, map_bookkept.age, mm.match_idx, mm.d1, mm.d2,
+        obs, left.valid, matches_count, tri.map_size, pnp.inlier_count,
+        tri.n_inserted, mm.used_wide_radius, ba_ran)
 
 
 def track_features(state: VOState, left: FrameFeatures,
@@ -296,20 +258,14 @@ def track_features(state: VOState, left: FrameFeatures,
     frame counter, as a pure output select. ``group``: the state's stores
     are this rank's blocks of stores sharded over the group (module
     docstring); the status is the same on every rank, so every rank takes
-    the same selects and the collectives line up."""
+    the same selects and the collectives line up. The selects on the
+    frame's outcome and the metrics are the profiler range ``step_tail``:
+    one launch of the op ``lvt_tpu_torch::step_tail`` (core/tail.py)."""
     is_init = state.status == NOT_INITIALIZED
-    is_lost = state.status == LOST
-    tracked_state, pose, metrics = _track_branch(state, left, right, config,
-                                                 is_init, group)
+    new, inputs = _track_branch(state, left, right, config, is_init, group)
     with stage("step_tail"):
-        lost_state = state._replace(frame_number=state.frame_number + 1)
-        lost_metrics = StepMetrics.zero(state.status.device)._replace(
-            map_points_count=psum_if(state.map.size(), group).to(torch.int32),
-            status=torch.full((), LOST, dtype=torch.int32,
-                              device=state.status.device))
-        return (_select(is_lost, lost_state, tracked_state),
-                _select(is_lost, state.pose, pose),
-                _select(is_lost, lost_metrics, metrics))
+        return tail.step_tail(state, new, inputs,
+                              config.min_num_matches_for_tracking, group)
 
 
 def _check_config(config: VOConfig) -> None:

@@ -190,7 +190,9 @@ def predict_project_op(last_q: torch.Tensor, last_position: torch.Tensor,
     visible [S, M] bool.
 
     CUDA: one launch of ``csrc/track.cu``'s ``predict_project_kernel``,
-    grid (point blocks, S); each block recomputes the pose algebra."""
+    grid (point blocks of 128, S); every thread issues its point's loads
+    and the stream's pose inputs, then builds the pose algebra itself (no
+    shared memory, no barrier)."""
     s, m = map_pos.shape[0], map_pos.shape[1]
     dev = map_pos.device
     for x, name, shape in ((last_q, "last_q", (s, 4)),

@@ -5,7 +5,8 @@
 //
 // * predict_project_kernel: the motion model (core/motion.py), the init
 //   frame's identity pose, and the map's projection and visibility at the
-//   prediction (ops/matching.py::project_visible); grid (point blocks, S);
+//   prediction (ops/matching.py::project_visible); grid (point blocks of
+//   PROJ_THREADS, S), no shared memory and no barrier;
 // * upkeep_pre_kernel: the map's match bookkeeping and cull with the
 //   un-mark of the culled points' features (core/map.py), the frame's pose
 //   and the staged points' projection; one block per stream, two barriers;
@@ -62,7 +63,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int PROJ_THREADS = 256;   // predict_project: one point a thread
+// predict_project: one point a thread; 128 spreads path 1's M = 1024 over
+// 8 blocks (SMs) a stream and path 5's 4096 over 32
+constexpr int PROJ_THREADS = 128;
 // the one-block-per-stream kernels (upkeep_pre, map_accept): a query, a map
 // point and a staged point a thread, and two features (K <= 2 THREADS)
 constexpr int THREADS = 1024;
@@ -312,6 +315,12 @@ __device__ __forceinline__ StoreOut offset(StoreOut s, long long i) {
 
 // ---- K1
 
+// Every thread issues its point's loads, then the stream's motion state,
+// pose and init flag (the same addresses in every thread of the block), and
+// builds the prediction and the rotation itself (the same functions: the
+// same bits); block 0's thread 0 writes motion' and the prediction. So the
+// chain is one round trip of loads, the pose algebra, the projection and
+// the stores: no thread-0 prologue, no barrier.
 __global__ void __launch_bounds__(PROJ_THREADS) predict_project_kernel(
     const float* __restrict__ lq, const float* __restrict__ lp,
     const float* __restrict__ lv, const float* __restrict__ av,
@@ -320,28 +329,51 @@ __global__ void __launch_bounds__(PROJ_THREADS) predict_project_kernel(
     const uint8_t* __restrict__ valid, int m, View cam,
     float* __restrict__ motion_out, float* __restrict__ pred_out,
     float* __restrict__ uv, uint8_t* __restrict__ vis) {
-  __shared__ float r[9], tw[3];
   const long long s = blockIdx.y;
-  if (threadIdx.x == 0) {
-    float mo[14], pr[7];
-    predict(lq + 4 * s, lp + 3 * s, lv + 3 * s, av + 4 * s, t + 3 * s,
-            q + 4 * s, is_init[s] != 0, mo, pr);
-    world_to_camera(pr, pr + 3, r, tw);
-    if (blockIdx.x == 0) {
-      for (int i = 0; i < 14; ++i) motion_out[14 * s + i] = mo[i];
-      for (int i = 0; i < 7; ++i) pred_out[7 * s + i] = pr[i];
-    }
-  }
-  __syncthreads();
   const int p = blockIdx.x * PROJ_THREADS + threadIdx.x;
-  if (p >= m) return;
+  const bool own = p < m;
   const long long i = s * m + p;
-  float px, py, pz, u, v;
-  camera_point(r, tw, pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], px, py, pz);
-  project_px(px, py, pz, cam, u, v);
-  uv[2 * i] = u;
-  uv[2 * i + 1] = v;
-  vis[i] = valid[i] && in_view(pz, u, v, cam);
+  TRACK_CLOCK(80);
+  float x = 0.0f, y = 0.0f, z = 0.0f;
+  int v = 0;
+  if (own) {
+    x = load_now(pos + 3 * i);
+    y = load_now(pos + 3 * i + 1);
+    z = load_now(pos + 3 * i + 2);
+    v = load_now(valid + i);
+  }
+  // lq 4, lp 3, lv 3, av 4, t 3, q 4
+  float in[21];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    in[j] = load_now(lq + 4 * s + j);
+    in[10 + j] = load_now(av + 4 * s + j);
+    in[17 + j] = load_now(q + 4 * s + j);
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    in[4 + j] = load_now(lp + 3 * s + j);
+    in[7 + j] = load_now(lv + 3 * s + j);
+    in[14 + j] = load_now(t + 3 * s + j);
+  }
+  const bool init = load_now(is_init + s) != 0;
+  float mo[14], pr[7], r[9], tw[3];
+  predict(in, in + 4, in + 7, in + 10, in + 14, in + 17, init, mo, pr);
+  world_to_camera(pr, pr + 3, r, tw);
+  TRACK_CLOCK(81);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    for (int j = 0; j < 14; ++j) motion_out[14 * s + j] = mo[j];
+    for (int j = 0; j < 7; ++j) pred_out[7 * s + j] = pr[j];
+  }
+  if (own) {
+    float px, py, pz, u, w;
+    camera_point(r, tw, x, y, z, px, py, pz);
+    project_px(px, py, pz, cam, u, w);
+    uv[2 * i] = u;
+    uv[2 * i + 1] = w;
+    vis[i] = v != 0 && in_view(pz, u, w, cam);
+  }
+  TRACK_CLOCK(89);
 }
 
 // ---- K2

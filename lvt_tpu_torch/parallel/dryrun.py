@@ -214,7 +214,7 @@ def _chunks(vo, a, b, chunk: int, after=None, syncs_seen=True) -> dict:
 
 def zero_kernel_counters() -> dict:
     """Every kernel wrapper by name, each launch count set to 0."""
-    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.core import graphs, tail, track
     from lvt_tpu_torch.ops import detect, matching, patches, perception, top2
     from lvt_tpu_torch.solver import bundle, pnp
 
@@ -227,7 +227,9 @@ def zero_kernel_counters() -> dict:
                 "stream_sum": pnp.stream_sum, "ba_refine": bundle.ba_refine,
                 **{name: getattr(track, name) for name in track.OPS},
                 "select_corners": detect.select_slots,
-                "map_accept": matching.map_accept}
+                "map_accept": matching.map_accept,
+                "step_tail": tail.step_tail,
+                "copy_leaves": graphs.copy_leaves}
     for fn in counters.values():
         fn.launches = 0
     return counters
@@ -247,7 +249,9 @@ KERNEL_SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
                   "staged_promote": "staged_promote_kernel",
                   "triangulate_insert": "triangulate_insert_kernel",
                   "select_corners": "select_corners_kernel",
-                  "map_accept": "map_accept_kernel"}
+                  "map_accept": "map_accept_kernel",
+                  "step_tail": "step_tail_kernel",
+                  "copy_leaves": "copy_leaves_kernel"}
 
 
 # spin kernels that open a trace; no count reads them

@@ -43,3 +43,15 @@ def unflatten_like(tree, leaves: dict):
         return leaves[prefix]
 
     return build(tree, "")
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in field order (``flatten_with_path``'s)."""
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def from_leaves(tree, values):
+    """``tree``'s structure with ``values`` (in field order) as its
+    leaves."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)

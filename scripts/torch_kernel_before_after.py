@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """lvt_tpu_torch's kernels A, B and T, PnP's fused solve, the corner
 selection, the tracking branch's staged promotion and triangulation, the
-map match's acceptance and the map's upkeep of two trees on one NVIDIA
-GPU, in one run.
+map match's acceptance, the map's upkeep and the motion model's
+prediction and projection of two trees on one NVIDIA GPU, in one run.
 
     git archive <parent commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_before_after.py --parent build/parent
@@ -10,7 +10,8 @@ GPU, in one run.
 Runs kernels A (perception), B (dense BRIEF planes) and T (Hamming
 top-2, the single-stream call at its four sites), ``pnp_solve``,
 ``select_corners``, ``staged_promote``, ``triangulate_insert``,
-``map_accept`` and ``upkeep_pre`` of the parent tree ("old") and of this
+``map_accept``, ``upkeep_pre`` and ``predict_project`` of the parent tree
+("old") and of this
 tree ("new") in
 turns, old, new, new, old, one process each, on the same inputs: those of
 ``chip_smoke.kernel_inputs`` at the main paths' shapes (a uint8 KITTI
@@ -18,7 +19,7 @@ pair, its box sums, and T's arguments from the descriptors of two
 frames); PnP problems as ``tests/test_torch_cuda.py`` poses them at M =
 1024 and 4096 points and S = 1 and 8 streams; kernel A's maps of path
 1's KITTI pair, path 3's 16 images and TUM fr1's one cell (one random
-640 x 480 frame) for the selection; the four tracking ops at path 1's,
+640 x 480 frame) for the selection; the five tracking ops at path 1's,
 path 3's and path 5's shapes as ``scripts/torch_track_clocks.py`` poses
 them (the ``cuda`` tests' problems); all made once by this tree. Each
 process builds its tree's kernels (printing ptxas's registers and
@@ -56,7 +57,7 @@ WORK = os.path.join(ROOT, "build", "before_after")
 ORDER = ("old", "new", "new", "old")
 PNP_SHAPES = ((1024, 1), (1024, 8), (4096, 1), (4096, 8))
 TRACK_OPS = ("staged_promote", "triangulate_insert", "map_accept",
-             "upkeep_pre")
+             "upkeep_pre", "predict_project")
 
 
 def _smoke():

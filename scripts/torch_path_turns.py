@@ -1,5 +1,5 @@
-"""Frames/s of chip_smoke.py's timed paths 5 and 8a in one tree, for a
-comparison of two trees on one card in turns.
+"""Frames/s of chip_smoke.py's timed paths 1, 3, 5, 6 and 8a in one tree,
+for a comparison of two trees on one card in turns.
 
 Run from a checkout (or give its root with --root): the script imports that
 tree's chip_smoke.py and lvt_tpu_torch, so two trees are compared by running
@@ -12,11 +12,15 @@ parent:
 
 Each path runs as chip_smoke.py runs it (``_run_modes``: the graphed step
 and an eager one on the same frames, unit by unit in turns, at the path's
-RUNS settings): path 5, the rectified EuRoC step; path 8a, ShardedStreamVO
-on one NCCL rank with the shipped KITTI YAML's local BA (BA's torch body
-and its all-reduces in a CUDA IF node). Prints one JSON line per path:
-median and spread of frames/s, graph and eager, capture seconds, and the
-card's name and power limit. Needs one CUDA device.
+RUNS settings): path 1, VOSystem.track_chunk on the KITTI frames; path 3,
+MultiStreamVO with 8 streams (frames/s summed over the streams); path 5,
+the rectified EuRoC step; path 6, one track_with_external_corners call a
+frame; path 8a, ShardedStreamVO on one NCCL rank with the shipped KITTI
+YAML's local BA (BA's torch body and its all-reduces in a CUDA IF node).
+``--reps`` runs the chosen paths that many times in the process. Prints one
+JSON line per path and run: median and spread of frames/s, graph and
+eager, the graph's host ms a frame, capture seconds, and the card's name
+and power limit. Needs one CUDA device.
 """
 
 import argparse
@@ -25,6 +29,7 @@ import os
 import subprocess
 import sys
 import tempfile
+from functools import partial
 
 
 def main(argv=None) -> int:
@@ -32,7 +37,9 @@ def main(argv=None) -> int:
     p.add_argument("--root", default=".", help="the tree to run")
     p.add_argument("--label", default=None, help="names the tree's lines")
     p.add_argument("--paths", nargs="+", default=["path5", "path8a"],
-                   choices=["path5", "path8a"])
+                   choices=["path1", "path3", "path5", "path6", "path8a"])
+    p.add_argument("--reps", type=int, default=1,
+                   help="runs of the chosen paths, one after another")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -47,8 +54,62 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     cs.phase_device()
     label = args.label or root
-    for path in args.paths:
-        if path == "path5":
+    kitti = {}
+
+    def frames(n):
+        """The first n frames of path 1's sequence on the card."""
+        from lvt_tpu_torch import bench
+        from lvt_tpu_torch.configs import kitti_config
+
+        if kitti.get("n", 0) < n:
+            il, ir, _, _ = bench.render(kitti_config(), n)
+            kitti.update(n=n, il=torch.from_numpy(il).to(cs.DEVICE),
+                         ir=torch.from_numpy(ir).to(cs.DEVICE))
+        return kitti["il"][:n], kitti["ir"][:n]
+
+    for path in [p for _ in range(args.reps) for p in args.paths]:
+        if path in ("path1", "path3"):
+            from lvt_tpu_torch.configs import kitti_config
+            from lvt_tpu_torch.core.system import VOSystem
+            from lvt_tpu_torch.parallel.multistream import MultiStreamVO
+
+            chunk, n_units = cs.RUNS[path]
+            n, s = chunk * n_units, cs.MS_STREAMS
+            if path == "path1":
+                a, b = frames(n)
+                make = partial(VOSystem, kitti_config(), device=cs.DEVICE)
+            else:
+                il, ir = frames(n + cs.MS_START_STEP * (s - 1))
+                starts = [cs.MS_START_STEP * i for i in range(s)]
+                a = torch.stack([il[k:k + n] for k in starts], 1)
+                b = torch.stack([ir[k:k + n] for k in starts], 1)
+                make = partial(MultiStreamVO, kitti_config(), s,
+                               device=cs.DEVICE)
+            run = cs._run_modes(path, make, cs._chunks_of(a, b, chunk),
+                                n_units, chunk)
+            rep = cs._report_modes(path, run, per=s if path == "path3" else 1)
+        elif path == "path6":
+            from lvt_tpu_torch.configs import kitti_config
+            from lvt_tpu_torch.core.system import VOSystem
+
+            config = kitti_config()
+            il, ir = frames(cs.EXT_FRAMES)
+            corners = cs._external_corners(config, il, ir)
+            unit = cs.EXT_UNIT
+
+            def drive(vo, u):
+                out = [(vo.track_with_external_corners(il[i], ir[i],
+                                                       *corners[i]),
+                        vo.last_metrics)
+                       for i in range(u * unit, (u + 1) * unit)]
+                stack = lambda *xs: torch.stack(xs)  # noqa: E731
+                return tuple(type(o[0])(*map(stack, *o)) for o in zip(*out))
+
+            run = cs._run_modes(path, lambda: VOSystem(config,
+                                                       device=cs.DEVICE),
+                                drive, cs.EXT_FRAMES // unit, unit)
+            rep = cs._report_modes(path, run)
+        elif path == "path5":
             from lvt_tpu_torch.core.system import VOSystem
 
             config, maps, il, ir, _ = cs.euroc_setup()
@@ -84,7 +145,8 @@ def main(argv=None) -> int:
         print(json.dumps(dict(
             tree=label, path=path, fps=rep["fps"],
             fps_eager=rep["fps_eager"], fps_spread=rep["fps_spread"],
-            capture_s=rep["capture_s"], card=card)), flush=True)
+            host_ms=rep["host_ms"], capture_s=rep["capture_s"], card=card)),
+            flush=True)
     return 0
 
 

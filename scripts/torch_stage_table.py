@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a frame of path 1 (the port's main path) goes, stage by stage, on
 the card: chip_smoke.py's eager profile unit (``chip_smoke._profile`` with
-the host trace: the step's profiler ranges, host and device ms per frame
-and device kernels per frame of each stage), the same frames replayed
-from the step's CUDA graph (device kernels and busy ms per frame), and
-the graph's frames/s over TIMED units after them (host clock around
-``track_chunk`` and a sync; no trace).
+the host trace: the step's profiler ranges, host and device ms per frame,
+device kernels per frame and the busy ms of the records inside each
+stage's span), the same frames replayed from the step's CUDA graph
+(device kernels and busy ms per frame), and each mode's frames/s over
+TIMED units after them (host clock around ``track_chunk`` and a sync; no
+trace; the eager system under ``disable_graphs``).
 
     python3 scripts/torch_stage_table.py [--root DIR] [--out DIR]
 
@@ -20,6 +21,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -67,18 +69,12 @@ def main(argv=None) -> int:
     out = dict(root=root, card=card)
     for mode in ("eager", "graph"):
         vo = VOSystem(config, device="cuda")
-        if mode == "eager":
-            with disable_graphs():
-                vo.track_chunk(il[:UNIT], ir[:UNIT])
-                prof = chip_smoke._profile(
-                    lambda: vo.track_chunk(il[UNIT:2 * UNIT],
-                                           ir[UNIT:2 * UNIT]), UNIT,
-                    args.out, host=True)
-        else:
+        with disable_graphs() if mode == "eager" else contextlib.nullcontext():
             vo.track_chunk(il[:UNIT], ir[:UNIT])
             prof = chip_smoke._profile(
                 lambda: vo.track_chunk(il[UNIT:2 * UNIT], ir[UNIT:2 * UNIT]),
-                UNIT)
+                UNIT, args.out if mode == "eager" else None,
+                host=mode == "eager")
             fps = []
             for u in range(2, 2 + TIMED):
                 torch.cuda.synchronize()
@@ -87,17 +83,21 @@ def main(argv=None) -> int:
                                ir[u * UNIT:(u + 1) * UNIT])
                 torch.cuda.synchronize()
                 fps.append(UNIT / (time.perf_counter() - t0))
-            out["graph_fps"] = sorted(fps)
+        out[f"{mode}_fps"] = sorted(fps)
         out[mode] = {k: prof[k] for k in ("busy_ms_per_frame",
                                           "span_ms_per_frame",
                                           "kernels_per_frame", "stages")}
         torch.cuda.synchronize()
+    tail = out["eager"]["stages"].get("step_tail", {})
     print(f"[stage-table] {root} on {card}: eager "
           f"{out['eager']['kernels_per_frame']:.1f} kernels and "
           f"{out['eager']['busy_ms_per_frame']:.3f} busy ms per frame, graph "
           f"{out['graph']['kernels_per_frame']:.1f} and "
-          f"{out['graph']['busy_ms_per_frame']:.3f}; graph frames/s "
-          f"{', '.join(f'{x:.2f}' for x in out['graph_fps'])}", flush=True)
+          f"{out['graph']['busy_ms_per_frame']:.3f}; step_tail "
+          f"{tail.get('kernels')} kernels and {tail.get('span_busy_ms')} "
+          f"busy ms per frame (eager unit); frames/s graph "
+          f"{', '.join(f'{x:.2f}' for x in out['graph_fps'])}, eager "
+          f"{', '.join(f'{x:.2f}' for x in out['eager_fps'])}", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the tracking branch's kernels spend their time: the SM clock at
 each phase boundary of ``csrc/track.cu``'s ``staged_promote_kernel``,
-``triangulate_insert_kernel``, ``map_accept_kernel`` and
-``upkeep_pre_kernel``, in every block.
+``triangulate_insert_kernel``, ``map_accept_kernel``,
+``upkeep_pre_kernel`` and ``predict_project_kernel``, in every block.
 
 The script writes two copies of a ``track.cu`` (by default that of
 ``--root``; ``--source`` names another, beside its ``lm_common.cuh``) into
@@ -18,7 +18,7 @@ process) at path 1's shape (K = 1536 features, M = N = 1024, one stream),
 path 3's (8 streams) and path 5's (M = 4096, K = 896; no staged set for
 ``upkeep_pre``, ``staged_threshold`` 0 for the triangulation), the
 triangulation with policy 2 (every frame triangulates). ``--ops`` picks
-the kernels (default: all four).
+the kernels (default: all five).
 
 It prints, per op and shape: the blocks of the launch and the blocks per
 stream, the plain copy's device time (the mean of 200 launches,
@@ -45,10 +45,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "build" / "track_clocks"
-SLOTS = 80
+SLOTS = 90
+# the most blocks a stream of a clocked launch takes (predict_project at
+# M = 4096 in blocks of 128)
+MAX_BLOCKS = 64
 # thread 0 stamps into shared memory (a global store ahead of a cluster
 # barrier's release would make the release wait for it); a kernel's first
-# marker (slot 0, 10, ..., 70) clears the stamps, its last (9, 19, ..., 79;
+# marker (slot 0, 10, ..., 80) clears the stamps, its last (9, 19, ..., 89;
 # 25 and 34 in a parent's one-block kernels) writes them out
 STAMPS = ('__device__ long long* g_clk;\n'
           '__device__ __forceinline__ void track_stamp(int slot) {\n'
@@ -97,13 +100,18 @@ PHASES = {
     63: "outputs and claims", 64: "count", 65: "claims out",
     70: "pose (thread 0)", 71: "bookkeeping and cull",
     72: "staged projection", 73: "kept count", 74: "claims and targets out",
+    # predict_project: a point a thread, no barrier but the markers' (in a
+    # parent's copy: thread 0's pose behind the block's barrier)
+    80: "loads and the pose algebra (a parent's: thread 0's, the barrier)",
+    81: "projection and stores (a parent's: the point's loads too)",
 }
 # (label, streams, the problem's sizes, each op's extras)
 SHAPES = (("path 1", 1, {}, {}), ("path 3", 8, {}, {}),
           ("path 5", 1, {"m": 4096, "k": 896},
            {"triangulate_insert": {"staged_threshold": 0},
             "upkeep_pre": {"n": 0}}))
-OPS = ("staged_promote", "triangulate_insert", "map_accept", "upkeep_pre")
+OPS = ("staged_promote", "triangulate_insert", "map_accept", "upkeep_pre",
+       "predict_project")
 # map_accept's scalars: the tests' ratio and absolute thresholds, and a
 # retry at m / 25 matches
 ACCEPT_SCALARS = (0.8, 30.0)
@@ -276,14 +284,14 @@ def main(argv=None) -> int:
         except AssertionError as e:
             same = f"DIFFER ({e})"
         ms = smoke.device_ms(lambda: op(*a), smoke.REPS)
-        clk = torch.zeros(8 * s * SLOTS, dtype=torch.int64,
+        clk = torch.zeros(MAX_BLOCKS * s * SLOTS, dtype=torch.int64,
                           device="cuda")
         clk_so.lvt_track_set_clk(clk.data_ptr())
         kernels._lib = libs["clocked"]
         op(*a)
         torch.cuda.synchronize()
         kernels._lib = real
-        c = clk.view(8 * s, SLOTS).cpu().numpy()
+        c = clk.view(MAX_BLOCKS * s, SLOTS).cpu().numpy()
         blocks = int((c > 0).any(1).sum())
         shape = ", ".join(f"{k}={v}" for k, v in kw.items())
         print(f"[{args.tag}] {op_name} {label} (S={s}"

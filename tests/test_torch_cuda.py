@@ -33,6 +33,7 @@ anywhere: a wrapper given a tensor that is not on the CPU launches its
 kernel or raises, never falls back.
 """
 
+import collections
 import contextlib
 import os
 from collections import Counter
@@ -1083,7 +1084,8 @@ def test_library_name_follows_the_sources():
     assert path.name.startswith("liblvt_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "perception.cu", "brief.cu", "patches.cu", "top2.cu", "pnp.cu",
-        "pnp_lm.cu", "graph_cond.cu", "ba.cu", "track.cu", "select.cu"}
+        "pnp_lm.cu", "graph_cond.cu", "ba.cu", "track.cu", "select.cu",
+        "tail.cu"}
 
 
 def test_ptxas_report_picks_one_kernels_lines():
@@ -1249,6 +1251,7 @@ def test_graph_replays_equal_the_eager_step(cuda, entry):
     from lvt_tpu_torch.core import graphs
     from lvt_tpu_torch.parallel.dryrun import (count_syncs, device_launches,
                                                zero_kernel_counters)
+    from lvt_tpu_torch.tree import leaves
 
     make, chunk, n = _graph_case(entry, cuda)
     runs = {}
@@ -1289,8 +1292,8 @@ def test_graph_replays_equal_the_eager_step(cuda, entry):
         for a, b in zip([*g[0], *g[1]], [*e[0], *e[1]]):
             assert torch.equal(a, b)
     state = lambda vo: getattr(vo, "state", None) or vo.states  # noqa: E731
-    for a, b in zip(graphs._leaves(state(graph["vo"])),
-                    graphs._leaves(state(eager["vo"]))):
+    for a, b in zip(leaves(state(graph["vo"])),
+                    leaves(state(eager["vo"]))):
         assert torch.equal(a, b)
 
 
@@ -2440,3 +2443,254 @@ def test_select_and_accept_capture_in_a_graph(cuda):
         torch.cuda.synchronize()
         for got, want in zip(outs, eager):
             _assert_outputs_equal(got, want, "replay")
+
+
+# ---- the step's tail (core/tail.py, csrc/tail.cu's step_tail_kernel) and
+# the runner's copy of the state (core/graphs.py, copy_leaves_kernel)
+
+TAIL_MIN_MATCHES = 10
+
+
+def tail_problem(rs, s, device, m=1024, n=1024, k=1536, f=0, ba=None,
+                 statuses=(1, 2, 3)):
+    """Seeded arguments of ``lvt_tpu_torch::step_tail`` for ``s`` streams
+    (the state's leaves, the tracked values', the TailInputs; lists of
+    [S, ...] tensors), as the step gives them: stores about half full, a
+    BA window of ``f`` poses ([0]-sized at 0), local BA's flag where
+    ``ba`` (default: f > 0), stream i's status ``statuses[i % len]`` (1
+    init, 2 tracking, 3 lost), and its match count from none to most of
+    the map (every third stream under TAIL_MIN_MATCHES); the observations
+    and distances fractional, so the means' sums round."""
+    from lvt_tpu_torch.core import tail
+
+    ba = f > 0 if ba is None else ba
+    f32 = np.float32
+
+    def state_like():
+        return [*_store_arrays(rs, s, m, "random"),
+                *_store_arrays(rs, s, n, "random"),
+                rs.randn(s, 3).astype(f32), _unit_q(rs, s, 0.1),
+                _unit_q(rs, s, 0.1), rs.randn(s, 3).astype(f32),
+                rs.randn(s, 3).astype(f32), _unit_q(rs, s, 0.05),
+                (rs.rand(s, 3) * 500).astype(f32),
+                rs.randint(0, 1000, s).astype(np.int32),
+                np.array([statuses[i % len(statuses)] for i in range(s)],
+                         np.int32),
+                rs.randn(s, f, 3).astype(f32),
+                _unit_q(rs, s * f, 0.1).reshape(s, f, 4),
+                (rs.rand(s, f, m, 2) * 900).astype(f32),
+                (rs.rand(s, f, m) < 0.5).astype(f32),
+                (rs.rand(s, f, m, 2) * 900).astype(f32),
+                (rs.rand(s, f, m) < 0.3).astype(f32),
+                rs.randint(0, f + 1, s).astype(np.int32)]
+
+    frac = np.array([(0.005, 0.4, 0.9)[i % 3] for i in range(s)])
+    matched = rs.rand(s, m) < frac[:, None]
+    idx = np.where(matched, rs.randint(0, k, (s, m)), -1).astype(np.int64)
+    inputs = [rs.randint(0, 12, (s, m)).astype(np.int32),
+              rs.randint(0, 300, (s, m)).astype(np.int32), idx,
+              (rs.randint(0, 90, (s, m)) + rs.rand(s, m)).astype(f32),
+              np.where(rs.rand(s, m) < 0.2, BIG,
+                       rs.randint(0, 160, (s, m)) + rs.rand(s, m)
+                       ).astype(f32),
+              np.where(matched[..., None], rs.rand(s, m, 2) * [1241, 376],
+                       np.nan).astype(f32),
+              rs.rand(s, k) < 0.8, matched.sum(1).astype(np.int64),
+              rs.randint(0, m + 1, s).astype(np.int64),
+              rs.randint(0, m + 1, s).astype(np.int64),
+              rs.randint(0, 400, s).astype(np.int64), rs.rand(s) < 0.5,
+              rs.rand(s) < 0.5 if ba else np.zeros((s, 0), bool)]
+    to = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+          for x in (*state_like(), *state_like(), *inputs)]
+    n_leaves = len(tail.PATHS)
+    return to[:n_leaves], to[n_leaves:2 * n_leaves], to[2 * n_leaves:]
+
+
+def _tail_plain(args):
+    """The op's plain version stream by stream (its CPU kernel, on the
+    tensors' own device)."""
+    from lvt_tpu_torch.core import tail
+
+    return tail._step_tail_cpu(*args, TAIL_MIN_MATCHES)
+
+
+def _tail_stream(args, i):
+    return [[x[i:i + 1] for x in xs] for xs in args]
+
+
+# (streams, problem keywords): paths 1 (BA off), 2 (a window of 4), 3 and
+# 8d (8 streams), 4 (RGB-D: K = 1000), 5 (M = 4096, K = 896), 7 tum's M =
+# 8192, 20 streams, and sizes that are no multiple of a 16-byte unit
+TAIL_CASES = [
+    (1, {}), (1, {"f": 4}), (8, {}), (8, {"f": 4}), (1, {"k": 1000}),
+    (1, {"m": 4096, "k": 896}), (8, {"m": 4096, "k": 896}),
+    (2, {"m": 8192, "n": 8192, "k": 1000}), (20, {}), (20, {"f": 4}),
+    (3, {"m": 51, "n": 41, "k": 301, "f": 3}), (3, {"m": 1, "n": 0, "k": 5}),
+    (3, {"f": 4, "ba": False}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kw", TAIL_CASES,
+                         ids=["-".join([f"s{s}", *(f"{k}{v}" for k, v in
+                                                    sorted(kw.items()))])
+                              for s, kw in TAIL_CASES])
+def test_step_tail_kernel_matches_plain(cuda, s, kw):
+    """The tail's kernel against its plain version on the card, every
+    output bit-equal (NaN where the plain version has one), and each
+    stream of the S-stream launch bit-equal to its own S = 1 launch: every
+    status, match counts on both sides of the threshold, BA windows of 0,
+    3 and 4 poses, unaligned leaves."""
+    from lvt_tpu_torch.core import tail
+
+    args = tail_problem(np.random.RandomState(s), s, cuda, **kw)
+    got = tail.step_tail_op(*args, TAIL_MIN_MATCHES)
+    _assert_outputs_equal(got, _tail_plain(args), "step_tail")
+    for i in range(s):
+        alone = tail.step_tail_op(*_tail_stream(args, i), TAIL_MIN_MATCHES)
+        _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
+                              f"step_tail stream {i}")
+
+
+@pytest.mark.cuda
+def test_step_tail_refuses_a_map_past_its_sums(cuda):
+    from lvt_tpu_torch.core import tail
+
+    m = tail.tail_shape()[1] + 1
+    args = tail_problem(np.random.RandomState(0), 1, cuda, m=m, n=4, k=8)
+    with pytest.raises(ValueError, match="map slots"):
+        tail.step_tail_op(*args, TAIL_MIN_MATCHES)
+
+
+@pytest.mark.cuda
+def test_step_tail_vmap_rule_launches_once(cuda):
+    """Under ``torch.func.vmap`` over 3 streams the op launches once, and
+    gives each stream the bits of its S = 1 call."""
+    from lvt_tpu_torch.core import tail
+
+    args = tail_problem(np.random.RandomState(5), 3, cuda, f=4)
+    sizes = [len(xs) for xs in args]
+    flat = [x for xs in args for x in xs]
+
+    def one(*xs):
+        it = iter(x[None] for x in xs)
+        return tail.step_tail_op(*([next(it) for _ in range(n)]
+                                   for n in sizes), TAIL_MIN_MATCHES)
+
+    before = tail.step_tail.launches
+    got = torch.func.vmap(one)(*flat)
+    assert tail.step_tail.launches == before + 1
+    for i in range(3):
+        alone = tail.step_tail_op(*_tail_stream(args, i), TAIL_MIN_MATCHES)
+        _assert_outputs_equal([x[i, 0] for x in got], [x[0] for x in alone],
+                              f"step_tail stream {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [0, 4])
+def test_step_tail_one_stream_launches_without_the_op(cuda, f):
+    """``tail.step_tail`` on one stream's tensors outside vmap launches the
+    kernel itself (no stream axis in or out): one launch, the bits of the
+    op's S = 1 launch, every output with the one stream's shape."""
+    from lvt_tpu_torch.core import tail
+    from lvt_tpu_torch.core.state import VOState
+    from lvt_tpu_torch.tree import from_leaves, leaves
+
+    args = tail_problem(np.random.RandomState(7 + f), 3, cuda, f=f)
+    for i in range(3):
+        state, new, inputs = ([x[i] for x in xs] for xs in args)
+        *rest, ba = inputs
+        inp = tail.TailInputs(*rest, ba if f else None)
+        before = tail.step_tail.launches
+        got = tail.step_tail(from_leaves(tail._TEMPLATE, state),
+                             from_leaves(tail._TEMPLATE, new), inp,
+                             TAIL_MIN_MATCHES)
+        assert tail.step_tail.launches == before + 1
+        assert isinstance(got[0], VOState)
+        flat = [*leaves(got[0]), *got[1], *got[2]]
+        want = tail.step_tail_op(*_tail_stream(args, i), TAIL_MIN_MATCHES)
+        assert [x.shape for x in flat] == [x.shape[1:] for x in want]
+        _assert_outputs_equal(flat, [x[0] for x in want],
+                              f"step_tail stream {i}")
+
+
+def _tail_state(args, i=0):
+    from lvt_tpu_torch.core import tail
+    from lvt_tpu_torch.tree import from_leaves
+
+    return from_leaves(tail._TEMPLATE, [x[i] for x in args[0]])
+
+
+@pytest.mark.cuda
+def test_copy_leaves_kernel_copies_every_leaf(cuda):
+    """The runner's copy on the card: one launch for a VOState's 26
+    leaves, every byte of each (leaves of 0 elements, of 12 bytes and at
+    offsets that are no multiple of 16 included); more leaves than a
+    launch takes are refused, with no launch."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import leaves, tree_map
+
+    args = tail_problem(np.random.RandomState(1), 2, cuda, m=51, n=41,
+                        k=301, f=3)
+    src = _tail_state(args)
+    dst = tree_map(torch.zeros_like, src)
+    before = graphs.copy_leaves.launches
+    graphs.copy_leaves(dst, src)
+    assert graphs.copy_leaves.launches == before + 1
+    for d, s in zip(leaves(dst), leaves(src)):
+        assert torch.equal(d.nan_to_num(), s.nan_to_num())
+    # sources and buffers at odd offsets into larger storages
+    store = torch.arange(8199, dtype=torch.int32, device=cuda).to(torch.uint8)
+    out = torch.zeros(8199, dtype=torch.uint8, device=cuda)
+    graphs.copy_leaves(Pose(out[3:4003], out[4100:8196]),
+                       Pose(store[1:4001], store[4099:8195]))
+    assert torch.equal(out[3:4003], store[1:4001])
+    assert torch.equal(out[4100:8196], store[4099:8195])
+    per = tail.tail_shape()[0]
+    tree = collections.namedtuple("Leaves", [f"x{i}" for i in range(per + 3)])
+    many = tree(*(torch.full((5,), i, dtype=torch.int32, device=cuda)
+                  for i in range(per + 3)))
+    into = tree_map(torch.zeros_like, many)
+    before = graphs.copy_leaves.launches
+    with pytest.raises(ValueError, match="leaves exceed"):
+        graphs.copy_leaves(into, many)
+    assert graphs.copy_leaves.launches == before
+    assert not any(x.any() for x in into)
+
+
+@pytest.mark.cuda
+def test_copy_leaves_reads_every_source_before_writing(cuda):
+    """A source that is also a buffer (two leaves swapped) is cloned before
+    the one launch, so every element is read before it is written."""
+    from lvt_tpu_torch.core import graphs
+
+    a = torch.arange(70000, dtype=torch.float32, device=cuda)
+    b = -a
+    graphs.copy_leaves(Pose(a, b), Pose(b, a))
+    assert torch.equal(a, torch.arange(70000, dtype=torch.float32,
+                                       device=cuda).neg())
+    assert torch.equal(b, torch.arange(70000, dtype=torch.float32,
+                                       device=cuda))
+
+
+@pytest.mark.cuda
+def test_step_tail_and_copy_capture_in_a_graph(cuda):
+    """The tail's launch and the copy captured in a CUDA graph and
+    replayed give the eager launches' bits."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import from_leaves, leaves, tree_map
+
+    args = tail_problem(np.random.RandomState(3), 2, cuda, f=4)
+    eager = tail.step_tail_op(*args, TAIL_MIN_MATCHES)
+    buf = tree_map(torch.zeros_like, from_leaves(tail._TEMPLATE, args[0]))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = tail.step_tail_op(*args, TAIL_MIN_MATCHES)
+        graphs.copy_leaves(buf, from_leaves(tail._TEMPLATE,
+                                            outs[:len(tail.PATHS)]))
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_outputs_equal(outs, eager, "step_tail")
+    _assert_outputs_equal(leaves(buf), eager[:len(tail.PATHS)],
+                          "copy_leaves")

@@ -30,6 +30,8 @@ the CPU (patch mode through XLA, no Pallas kernels). Tolerances:
   * a graph dropped while a capture runs is kept until it ends: exact.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +44,7 @@ from lvt_tpu_torch.core.state import LOST, TRACKING
 from lvt_tpu_torch.core.system import TrackingState, VOSystem
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.parallel import multistream as ms
+from lvt_tpu_torch.tree import leaves
 from tests.test_torch_multistream import _config as ms_config
 from tests.test_torch_multistream import divergent_frames
 from tests.test_torch_system import _config, _world
@@ -114,7 +117,7 @@ def test_disable_graphs_runs_the_same_step(runs):
     for a, b in zip([*p, *m], [*ep, *em]):
         assert torch.equal(a, b)
     assert torch.equal(pose.t, epose.t) and torch.equal(pose.q, epose.q)
-    for a, b in zip(graphs._leaves(vo.state), graphs._leaves(evo.state)):
+    for a, b in zip(leaves(vo.state), leaves(evo.state)):
         assert torch.equal(a, b)
 
 
@@ -237,6 +240,22 @@ def test_a_graph_dropped_during_a_capture_outlives_it(monkeypatch, capturing):
     graph = runner._graph = object()      # stands for a captured graph
     del runner
     assert graphs._dropped == ([graph] if capturing else [])
+
+
+def test_a_runner_finalized_under_the_drop_lock_does_not_wait_for_it():
+    """A runner whose last reference goes on a thread that holds
+    ``_dropped_lock`` (as when the collector runs inside a capture's
+    clean-up) is finalized there instead of waiting for the lock forever."""
+    def drop():
+        runner = graphs.StepGraph.__new__(graphs.StepGraph)
+        runner._graph, runner._branches = object(), []
+        with graphs._dropped_lock:
+            del runner
+
+    worker = threading.Thread(target=drop, daemon=True)
+    worker.start()
+    worker.join(10)
+    assert not worker.is_alive()
 
 
 def test_ba_cond_rule(tmp_path, monkeypatch):
