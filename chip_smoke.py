@@ -259,23 +259,36 @@ all its images, and every
 unsharded path the map match's acceptance after T (``map_accept``,
 ``csrc/track.cu``) and the step's tail (``step_tail``, ``csrc/tail.cu``:
 the selects on the frame's outcome and the metrics) once per frame (path
-3 once for its 8 streams), and every path the runner's copy of the new
-state into its static buffers (``copy_leaves``, ``csrc/tail.cu``) once
-per frame; none is a TPU kernel. Wherever PnP's inputs are captured
-(``capture_pnp_inputs``: after paths 1-6, each tree of path 7, path 8's
-reference, the bench's modes) the same frames' inputs of these seven
-kernels are held bit-equal to their plain versions on the card, frame 0
-as launched and the last 8 streams (images) in one launch, each stream
-against its S = 1 launch, the selection also with the low-corner
-fallback never and always taken (``check_track_kernels``; the selection
-also on TUM fr1's one cell of 640 x 480 keeping 1000, at 1 and 8 images,
-after path 4), and the copy of the tail's new state bit-equal to it,
-also with two buffers swapped (``check_copy_leaves``); after path 2 they
-are timed on path 1's inputs at S = 1 (the selection: a frame's 2
+3 once for its 8 streams). The tail's launch ends the frame (the new
+state into the runner's buffers, MultiStreamVO's reset, the pose and the
+metrics into the chunk's rows, the next frame into the input buffers, a
+counter on the card), so a graphed frame is one replay and nothing else
+from the host; every chunk starts with one launch of the runner's copy
+(``copy_leaves``, ``csrc/tail.cu``: its table, frame 0), on every path
+(NEED_PER_CHUNK), and paths 8a-8c end each frame with one more after
+their tail's torch ops; none is a TPU kernel. Paths 1-7 hold the host's
+launches around a graphed unit's replays (path 6: its calls, path 7:
+StreamingVO's worker thread) at exactly, per chunk, the caller's uploads,
+the chunk's start and one replay a frame with nothing between
+(``host_between_replays``, a trace's runtime-API records named by what
+they ran on the card). Wherever
+PnP's inputs are captured (``capture_pnp_inputs``: after paths 1-6, each
+tree of path 7, path 8's reference, the bench's modes) the same frames'
+inputs of these seven kernels are held bit-equal to their plain versions
+on the card, frame 0 as launched and the last 8 streams (images) in one
+launch, each stream against its S = 1 launch, the selection also with
+the low-corner fallback never and always taken (``check_track_kernels``;
+the selection also on TUM fr1's one cell of 640 x 480 keeping 1000, at 1
+and 8 images, after path 4), and the tail ending a runner's frame
+against the plain tail and the runner's copies, with the reset on and
+off and two buffers swapped, and the copies (a chunk's start, a group's
+frame end, a state) against torch ops (``check_frame_end``); after path
+2 they are timed on path 1's inputs at S = 1 (the selection: a frame's 2
 images) and 8 beside their bounds, their plain versions graphed and, for
-the selection, ``torch.topk`` of its packed keys, for the copy
-``torch._foreach_copy_`` (``measure_track_kernels``,
-``measure_copy_leaves``). Local
+the selection, ``torch.topk`` of its packed keys (``measure_track_kernels``);
+the tail ending a frame also at M = 4096, 8192 and 16384
+(``measure_step_tail``); the chunk's start against
+``torch._foreach_copy_`` (``measure_copy_leaves``). Local
 BA's kernel runs on BA_KERNEL_PATHS (path 2, path 7 kitti, the bench's
 ``--ba``): once per BA frame in a graph, once per frame eagerly, once in
 a graph's warm-up and once in its capture; 8a-8c keep BA's torch ops.
@@ -288,9 +301,9 @@ graph ran, what the card ran is read from a kernel trace
 (``dryrun.device_launches``): on paths 1-6 and 8a the profiled graphed
 unit, on path 7 each CLI run, in path 8's graphed ranks (8d) chunk 0
 (with the graph's warm-up step), on the bench one untimed chunk after the
-timed ones. Each must be exactly NEED_PER_FRAME per frame;
-the wrappers' counts must be NEED_PER_FRAME per eager frame and twice per
-graph. The ``kernels`` line's launches are the traced ones where a graph
+timed ones. Each must be exactly NEED_PER_FRAME per frame and
+NEED_PER_CHUNK per chunk; the wrappers' counts must be NEED_PER_FRAME per
+eager frame and twice per graph, and NEED_PER_CHUNK per chunk in both. The ``kernels`` line's launches are the traced ones where a graph
 ran, the wrappers' where the step ran eagerly (8b, 8c). The comparisons
 of phase 2 and the cross-checks after each path (path 7's in-process
 runs, path 8's unsharded reference) are not counted.
@@ -535,14 +548,23 @@ NEED_PER_FRAME = {
 for _path, _need in NEED_PER_FRAME.items():
     _need.update({"pnp_phase": PNP_PHASES} if _path in SHARDED_PATHS
                  else {"pnp_solve": 1})
-    _need["copy_leaves"] = 1   # the runner's copy of the new state
-    if _path not in SHARDED_PATHS:
+    if _path in SHARDED_PATHS:
+        # the frame's end after the tail's torch ops (the unsharded paths'
+        # tail ends the frame itself)
+        _need["copy_leaves"] = 1
+    else:
         _need.update(dict.fromkeys(TRACK_KERNELS, 1), map_accept=1,
                      step_tail=1)
         if _path in NO_STAGED_PATHS:
             del _need["staged_promote"]
     if _path != "path6":   # external corners: no selection
         _need["select_corners"] = 1
+# launches each chunk makes on every path, exactly: its start (the
+# runner's table, frame 0's inputs; core/graphs.py::Epilogue.start)
+NEED_PER_CHUNK = {"copy_leaves": 1}
+# chunks per unit of _run_modes: a track_chunk call, but on path 6 one
+# track_with_external_corners call a frame (a chunk of one)
+CHUNKS_PER_UNIT = {"path6": EXT_UNIT}
 # on the paths whose local BA is a CUDA IF node in their graph, per frame
 # type (a BA frame, any other): the kernel that sets the node's predicate
 # (csrc/graph_cond.cu) and the NCCL kernels (on one rank NCCL's
@@ -1251,7 +1273,7 @@ def _run_modes(path, make, drive, n_units, unit_frames):
     if modes != ["graph"]:
         raise AssertionError(f"{path}: the main path ran {modes}, not the "
                              f"graph")
-    return dict(run, unit_frames=unit_frames, host=host,
+    return dict(run, unit_frames=unit_frames, units=n_units, host=host,
                 graphs=len(runners),
                 capture_s=[x.capture_seconds for x in runners],
                 memory=torch.cuda.max_memory_allocated())
@@ -1316,12 +1338,15 @@ def _report_modes(path, run, per=1) -> dict:
                 syncs=run["graph"]["syncs"])
 
 
-def _check_launches(path, launches, n_frames, ba_frames=None) -> None:
-    """Each kernel launched exactly NEED_PER_FRAME times per frame (and the
-    path's other kernels never); on BA_KERNEL_PATHS local BA's kernel
-    ``ba_frames`` times (None: once per frame, as an eager step, a graph's
-    warm-up and its capture compute BA on every frame)."""
-    need = {k: NEED_PER_FRAME[path].get(k, 0) * n_frames for k in KERNELS}
+def _check_launches(path, launches, n_frames, ba_frames=None,
+                    chunks=0) -> None:
+    """Each kernel launched exactly NEED_PER_FRAME times per frame and
+    NEED_PER_CHUNK times per chunk (and the path's other kernels never); on
+    BA_KERNEL_PATHS local BA's kernel ``ba_frames`` times (None: once per
+    frame, as an eager step, a graph's warm-up and its capture compute BA
+    on every frame)."""
+    need = {k: NEED_PER_FRAME[path].get(k, 0) * n_frames
+            + NEED_PER_CHUNK.get(k, 0) * chunks for k in KERNELS}
     if path in BA_KERNEL_PATHS:
         need["ba_refine"] = n_frames if ba_frames is None else ba_frames
     bad = {k: (launches.get(k, 0), v) for k, v in need.items()
@@ -1335,13 +1360,14 @@ def _check_wrapper_counts(path, run, n_frames) -> None:
     """The wrappers' counts in each mode of ``_run_modes``: the eager
     step's launches, NEED_PER_FRAME per frame; the graph's calls, made at
     each graph's warm-up and capture (a replay calls none), NEED_PER_FRAME
-    twice per graph."""
+    twice per graph; in both modes NEED_PER_CHUNK per chunk (its start)."""
     g, e = run["graph"]["launches"], run["eager"]["launches"]
+    chunks = run["units"] * CHUNKS_PER_UNIT.get(path, 1)
     _say(path, f"wrapper counts: eager {e} over {n_frames} frames; graph "
                f"{g}, the calls of the warm-up and the captured step of "
-               f"{run['graphs']} graph(s)")
-    _check_launches(path, e, n_frames)
-    _check_launches(path, g, 2 * run["graphs"])
+               f"{run['graphs']} graph(s); {chunks} chunks each")
+    _check_launches(path, e, n_frames, chunks=chunks)
+    _check_launches(path, g, 2 * run["graphs"], chunks=chunks)
 
 
 def _same_features(name, got, want) -> None:
@@ -1444,6 +1470,8 @@ def phase_path(path, config, il, ir, gt, profile_dir=None):
     prof = _profiles(path, run, drive, profile_dir, config=config)
     if path == "path1":
         prof.update(_inside_the_graph(path, vo, drive, n_units - 1, chunk))
+    prof["host_launches"] = host_between_replays(
+        path, lambda: drive(vo, n_units - 1), 1, chunk)
     if window > 0:
         prof["frame_types"] = _frame_types(
             path, config, lambda: VOSystem(config, device=DEVICE), il, ir,
@@ -1492,6 +1520,98 @@ def _inside_the_graph(path, vo, drive, u, n) -> dict:
                f"the graph's replay, {100 * (1 - inside / frame_ms):.1f}% "
                f"outside it")
     return dict(frame_ms=frame_ms, inside_ms=inside)
+
+
+# the runtime API calls that launch work on the card from the host, by
+# their names' starts, as a trace of the host's activity records them: a
+# graph's replay, and kernels, copies and fills
+GRAPH_LAUNCH = "cudaGraphLaunch"
+HOST_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
+                 "cudaMemset", "cuMemset", "cudaMemPrefetch")
+
+
+def _host_launches(prof) -> list[str]:
+    """Each runtime-API call of a ``dryrun.traced`` trace (host=True) that
+    launched work on the card, in order, named by what it ran there (the
+    card's record of the same correlation id): ``replay`` (a graph's
+    launch), ``start`` (``copy_leaves_kernel``, a chunk's start), ``HtoD``,
+    ``DtoH``, ``DtoD`` (copies), ``Memset``, ``port <kernel>`` (another of
+    the port's kernels) or ``aten <kernel>``; the trace's TRACE_MARKERS
+    opening spin kernels left out."""
+    from torch.autograd import DeviceType
+
+    from lvt_tpu_torch.parallel.dryrun import KERNEL_SYMBOLS, TRACE_MARKERS
+
+    events = list(prof.profiler.kineto_results.events())
+    ran = {}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            ran.setdefault(e.correlation_id(), e.name())
+    calls = sorted((e.start_ns(), e.name(), ran.get(e.correlation_id(), ""))
+                   for e in events if e.device_type() == DeviceType.CPU
+                   and e.name().startswith((GRAPH_LAUNCH, *HOST_LAUNCHES)))
+    out = []
+    for _, api, what in calls[TRACE_MARKERS:]:
+        if api.startswith(GRAPH_LAUNCH):
+            out.append("replay")
+        elif "copy_leaves_kernel" in what:
+            out.append("start")
+        elif what.startswith(("Memcpy", "Memset")):
+            out.append(what.split()[1] if what.startswith("Memcpy")
+                       else "Memset")
+        elif any(sym in what for sym in KERNEL_SYMBOLS.values()):
+            out.append(f"port {what}")
+        else:
+            out.append(f"aten {what or api}")
+    return out
+
+
+def host_between_replays(path, fn, chunks, frames, uploads=0,
+                         caller_kernels=0) -> dict:
+    """What the host launched while ``fn()`` tracked ``chunks`` chunks of
+    ``frames`` frames, graphed, its runner's graph already captured (paths
+    1-5: a unit of one chunk; path 6: calls of one frame, a chunk each;
+    path 7: StreamingVO's worker thread, a frame a chunk): the runtime-API
+    records of a trace of the host's and the card's activity, each named
+    by what it ran on the card (``_host_launches``). The reads of results
+    (``DtoH``) and ``caller_kernels`` ATen kernels a chunk (path 7's
+    shell reading a pose) are the caller's; the rest must be exactly, per
+    chunk, ``uploads`` host-to-device copies (the caller's inputs: path
+    6's corners, path 7's two images), the chunk's start (one
+    ``copy_leaves_kernel``: NEED_PER_CHUNK), then one replay a frame with
+    nothing between: no device-to-device copy, fill or other kernel from
+    the host."""
+    from lvt_tpu_torch.parallel.dryrun import traced
+
+    _, prof = traced(fn, host=True)
+    got = _host_launches(prof)
+    reads = got.count("DtoH")
+    aten = [k for k in got if k.startswith("aten ")]
+    rest = [k for k in got if k != "DtoH" and not k.startswith("aten ")]
+    want = (["HtoD"] * uploads + ["start"] * sum(NEED_PER_CHUNK.values())
+            + ["replay"] * frames) * chunks
+    runs, last = [], None
+    for k in rest:      # run-length form, for the report
+        if k == last:
+            runs[-1][1] += 1
+        else:
+            runs.append([k, 1])
+        last = k
+    _say(path, f"host launches around {chunks} graphed chunk(s) of {frames} "
+               f"frame(s) (the trace's runtime-API records, by what they ran "
+               f"on the card): "
+               + ", ".join(f"{k} x{n}" for k, n in runs)
+               + f"; the caller's reads {reads}, ATen kernels {len(aten)} "
+               f"{sorted(set(aten))}")
+    if rest != want or len(aten) != caller_kernels * chunks:
+        raise AssertionError(
+            f"{path}: the host launched {runs} and {len(aten)} ATen kernels "
+            f"around the replays, not per chunk {uploads} uploads, the "
+            f"chunk's start and {frames} replays with nothing between, and "
+            f"{caller_kernels} of the caller's kernels")
+    return dict(chunks=chunks, frames=frames, uploads=uploads * chunks,
+                starts=chunks, between=0, reads=reads,
+                caller_kernels=len(aten))
 
 
 def _relative_gt(rot, pos, start, n):
@@ -1576,6 +1696,9 @@ def phase_multistream(config, il, ir, rot, pos, profile_dir=None):
         raise AssertionError(f"path3: multi-stream vs single-stream gaps "
                              f"{gaps} m, not under 1e-5 m")
     prof = _profiles("path3", run, drive, profile_dir, "multi-stream frame")
+    prof["host_launches"] = host_between_replays(
+        "path3", lambda: drive(run["graph"]["system"], n_units - 1), 1,
+        chunk)
     pnp_inputs = capture_pnp_inputs("path3", _first_frames(
         lambda: MultiStreamVO(config, s, device=DEVICE), a, b, 4))
     return dict(report, fps_per_stream=report["fps"] / s, profile=prof,
@@ -1907,16 +2030,17 @@ def _track_errs(path, errs) -> None:
 
 
 def _tail_flat(args) -> tuple:
-    """``step_tail_op``'s arguments (three lists of tensors and the
-    threshold) as one flat tuple, as the other ops take theirs."""
+    """The tail's arguments in list form (three lists of tensors with a
+    stream axis, ``tail._plain_streams``'s, and the threshold) as one flat
+    tuple, as the other ops take theirs."""
     state, new, inputs, min_matches = args
     return (*state, *new, *inputs, min_matches)
 
 
-def _tail_launch_flat(state, new, inp, min_matches, lead) -> tuple:
-    """A launch of ``tail._launch`` as :func:`_tail_flat`'s arguments of
-    the op: a stream axis of 1 where the launch had none (``lead`` ()),
-    ``ba_ran`` [S, 0] where it was None."""
+def _tail_launch_flat(state, new, inp, min_matches, lead, *_) -> tuple:
+    """A launch of ``tail._launch`` (inside a runner's frame or not) as
+    :func:`_tail_flat`'s arguments: a stream axis of 1 where the launch
+    had none (``lead`` ()), ``ba_ran`` [S, 0] where it was None."""
     ba = inp.feat_valid[..., :0] if inp.ba_ran is None else inp.ba_ran
     lists = (state, new, [*inp[:-1], ba])
     if not lead:
@@ -1933,13 +2057,25 @@ def _tail_lists(flat) -> tuple:
             flat[2 * n + k])
 
 
+def _tail_op(*flat) -> list:
+    """One launch of the tail's kernel (``tail._launch``, fresh outputs)
+    on :func:`_tail_flat`'s arguments: the new state's leaves, the pose
+    and the metrics, [S, ...] each."""
+    from lvt_tpu_torch.core import tail
+
+    state, new, inputs, min_matches = _tail_lists(flat)
+    ba = inputs[-1]
+    inp = tail.TailInputs(*inputs[:-1], None if ba.dim() == 2 else ba)
+    return tail._launch(state, new, inp, min_matches, (state[0].shape[0],))
+
+
 def _step_op(name):
     """The custom op of one of STEP_OPS, on flat arguments."""
     from lvt_tpu_torch.core import tail, track
     from lvt_tpu_torch.ops import detect, matching
 
     if name == "step_tail":
-        return lambda *a: tail.step_tail_op(*_tail_lists(a))
+        return _tail_op
     mod = {"select_corners": detect, "map_accept": matching}.get(name, track)
     return getattr(mod, f"{name}_op")
 
@@ -1954,7 +2090,7 @@ def _track_plain(name, args) -> tuple:
     from lvt_tpu_torch.ops import detect, matching
 
     if name == "step_tail":
-        return tail._step_tail_cpu(*_tail_lists(args))
+        return tail._plain_streams(*_tail_lists(args))
     if name == "select_corners":
         return detect.select_corners_plain(*args)
     nt = sum(isinstance(x, torch.Tensor) for x in args)
@@ -2007,49 +2143,149 @@ def check_track_kernels(path, tracked) -> dict:
             errs[name] = max(err, errs.get(name, 0.0))
         said.append(f"{name} S={sets['last'][0].shape[0]}")
     if "step_tail" in tracked:
-        errs["copy_leaves"] = check_copy_leaves(path, tracked["step_tail"])
-        said.append("copy_leaves")
+        ends = check_frame_end(path, tracked["step_tail"])
+        errs["step_tail"] = max(errs["step_tail"], ends["step_tail"])
+        errs["copy_leaves"] = ends["copy_leaves"]
+        said.append("step_tail ending a runner's frame (the reset on and "
+                    "off, swapped buffers), copy_leaves (a chunk's start, "
+                    "a group's frame end, a state)")
     _say(path, f"step kernels bit-equal to their plain versions on the "
                f"card on this path's frame 0 and its last streams, each "
                f"stream equal to its S=1 launch: {', '.join(said)}")
     return errs
 
 
-def _tail_states(flat) -> tuple:
-    """The state and the tail's new state of captured ``step_tail``
-    arguments (leaves with the stream axis), as VOStates."""
-    from lvt_tpu_torch.core import tail
-    from lvt_tpu_torch.tree import from_leaves
-
-    n = len(tail.PATHS)
-    out = _step_op("step_tail")(*flat)
-    return (from_leaves(tail._TEMPLATE, flat[:n]),
-            from_leaves(tail._TEMPLATE, out[:n]))
+def _swapped(new, buffers):
+    """The tracked values ``new`` with the map's counter and age taken from
+    each other's buffers of ``buffers`` (sources at other addresses than
+    their buffers: the kernel reads them before its barrier where it holds
+    the whole state, and refuses them elsewhere)."""
+    return new._replace(map=new.map._replace(counter=buffers.map.age,
+                                             age=buffers.map.counter))
 
 
-def check_copy_leaves(path, sets) -> float:
-    """The runner's copy (``core/graphs.py::copy_leaves``, csrc/tail.cu's
-    copy_leaves_kernel) on the card: the tail's new state of frame 0 and
-    of the last streams copied into clones of their states, every leaf
-    bit-equal to its source; and two of a state's buffers swapped (each a
-    source of the other), which it must read before it writes. Returns
-    0.0 (bit-equal) or raises."""
-    from lvt_tpu_torch.core import graphs
+def _frame_end_inputs(s: int, frames: int) -> list:
+    """A chunk's two inputs for checks of a frame's end: uint8 [frames, S,
+    37, 41] (an odd width: 1-byte units) and float32 [frames, S, 5]."""
+    g = torch.Generator(device=DEVICE).manual_seed(s)
+    return [torch.randint(0, 256, (frames, s, 37, 41), generator=g,
+                          device=DEVICE, dtype=torch.uint8),
+            torch.randn((frames, s, 5), generator=g, device=DEVICE)]
+
+
+def check_frame_end(path, sets) -> dict:
+    """The end of a frame on the card, on a path's captured ``step_tail``
+    launches (frame 0 as launched and the last streams):
+
+    * ``step_tail`` inside a runner's frame (core/graphs.py::Epilogue):
+      the kernel writes the new state into clones of the state's buffers,
+      with the runner's reset off and on (a stream's state as the fresh
+      one), and with the map's counter and age taken from each other's
+      buffers; against the plain tail (torch ops), ``tail.reset_lost``
+      and the copies: the buffers, row 0 of a chunk of 2 frames and frame
+      1 in the input buffers bit-equal (NaN for NaN), the counter 1 (the
+      swapped buffers refused, nothing written, where the state exceeds
+      the units the kernel holds over its barrier: path 7 tum's);
+    * ``copy_leaves``: the chunk's start (frame 0 in the input buffers),
+      the frame's end after the plain tail (``Epilogue.finish``: the
+      group paths', one launch) against the same as torch ops
+      (``Epilogue.finish_plain``), and a new state copied whole, also
+      from two swapped buffers.
+
+    Returns each kernel's largest gap (0.0: bit-equal) or raises."""
+    from lvt_tpu_torch.core import graphs, tail
     from lvt_tpu_torch.geometry.se3 import Pose
-    from lvt_tpu_torch.tree import leaves, tree_map
+    from lvt_tpu_torch.tree import from_leaves, leaves, tree_map
 
     for label in ("first", "last"):
-        state, new = _tail_states(sets[label])
+        state_l, new_l, inputs, min_matches = _tail_lists(sets[label])
+        s = state_l[0].shape[0]
+        inp = tail.TailInputs(*inputs[:-1],
+                              None if inputs[-1].dim() == 2 else inputs[-1])
+        state = from_leaves(tail._TEMPLATE, state_l)
+        fresh = from_leaves(tail._TEMPLATE, [x[-1].clone() for x in state_l])
+        chunk = _frame_end_inputs(s, 2)
+        for reset, swap in ((False, False), (True, False), (False, True)):
+            buffers = tree_map(torch.clone, state)
+            new = from_leaves(tail._TEMPLATE, list(new_l))
+            plain_new = _swapped(new, state) if swap else new
+            want, pose, metrics = tail._unpack(state, tail._plain_streams(
+                state_l, leaves(plain_new), inputs, min_matches))
+            if reset:
+                want = tail.reset_lost(want, fresh)
+            epilogue = graphs.Epilogue(
+                buffers, [torch.empty_like(x[0]) for x in chunk],
+                reset=fresh if reset else None)
+            rows = epilogue.start(chunk)
+            _require_equal_nan(f"{path}: copy_leaves, a chunk's start",
+                               list(epilogue.inputs), [x[0] for x in chunk])
+            what = (f"{path}: step_tail ending a runner's frame ({label}, "
+                    f"S={s}, reset {'on' if reset else 'off'}"
+                    f"{', swapped buffers' if swap else ''})")
+            units = tail._units(
+                ((x.numel() // s * x.element_size(), (x,))
+                 for i, x in enumerate(leaves(buffers)) if i in tail.KINDS),
+                s)
+            if swap and units > tail.tail_shape()[4]:
+                # the rest of the state streams after the barrier: a
+                # source over another buffer is refused, nothing written
+                try:
+                    tail._launch(leaves(buffers), leaves(_swapped(
+                        new, buffers)), inp, min_matches, (s,), epilogue)
+                except ValueError:
+                    _require_equal_nan(f"{what}: refused, the state",
+                                       leaves(buffers), leaves(state))
+                    continue
+                raise AssertionError(f"{what}: {units} units a stream, "
+                                     f"not refused")
+            tail._launch(leaves(buffers), leaves(_swapped(new, buffers)
+                                                 if swap else new),
+                         inp, min_matches, (s,), epilogue)
+            _require_equal_nan(f"{what}: the state", leaves(buffers),
+                               leaves(want))
+            _require_equal_nan(f"{what}: row 0",
+                               [x[0] for x in graphs._rows_of(rows)],
+                               [*pose, *metrics])
+            _require_equal_nan(f"{what}: the next frame",
+                               list(epilogue.inputs), [x[1] for x in chunk])
+            if int(epilogue.table[:8].view(torch.int64).cpu()) != 1:
+                raise AssertionError(f"{what}: the counter did not advance")
+        # a group path's frame end (the reset, then one copy_leaves)
+        # against the reset and the copies as torch ops
+        want, pose, metrics = tail._unpack(state, tail._plain_streams(
+            state_l, new_l, inputs, min_matches))
+        ends = []
+        for plain in (False, True):
+            buffers = tree_map(torch.clone, state)
+            epilogue = graphs.Epilogue(
+                buffers, [torch.empty_like(x[0]) for x in chunk], reset=fresh)
+            rows = epilogue.start(chunk)
+            if plain:
+                epilogue.counter = torch.zeros((), dtype=torch.int64,
+                                               device=DEVICE)
+                epilogue.finish_plain(tail.reset_lost(want, fresh), pose,
+                                      metrics)
+            else:
+                epilogue.finish(want, pose, metrics)
+            ends.append([*leaves(buffers), *graphs._rows_of(rows),
+                         *epilogue.inputs])
+        # row 1 of the chunk is not written yet: rows 0 only
+        n_rows = len(graphs._rows_of(rows))
+        keep = lambda xs: [  # noqa: E731
+            x[0] if len(tail.PATHS) <= i < len(tail.PATHS) + n_rows else x
+            for i, x in enumerate(xs)]
+        _require_equal_nan(f"{path}: copy_leaves ending a group's frame "
+                           f"({label}, S={s})", keep(ends[0]), keep(ends[1]))
         dst = tree_map(torch.clone, state)
-        graphs.copy_leaves(dst, new)
+        graphs.copy_leaves(dst, want)
         _require_equal_nan(f"{path}: copy_leaves ({label})", leaves(dst),
-                           leaves(new))
+                           leaves(want))
     a, b = dst.map.counter, dst.map.age
-    want = (b.clone(), a.clone())
+    swapped = (b.clone(), a.clone())
     graphs.copy_leaves(Pose(a, b), Pose(b, a))
     _require_equal_nan(f"{path}: copy_leaves of two swapped buffers",
-                       [a, b], list(want))
-    return 0.0
+                       [a, b], list(swapped))
+    return {"step_tail": 0.0, "copy_leaves": 0.0}
 
 
 def _require_equal_nan(name: str, got, want) -> float:
@@ -2199,40 +2435,165 @@ def measure_track_kernels(card, path, tracked) -> dict:
     return rep
 
 
+# frames of the chunks the timing of step_tail and copy_leaves runs in:
+# more than device_ms's launches (3 + REPS a round, a few rounds), so that
+# every timed launch copies a next frame; the inputs are left unset
+TIMING_FRAMES = 1024
+
+
+def _tiled(flat, r: int) -> tuple:
+    """Captured ``step_tail`` arguments with the map r times as large: each
+    map leaf and the map's tail inputs (bookkept counter and age,
+    match_idx, d1, d2, the observations) repeated r times along the map
+    axis."""
+    from lvt_tpu_torch.core import tail
+
+    state, new, inputs, min_matches = _tail_lists(flat)
+    tile = lambda x: torch.cat([x] * r, 1).contiguous()  # noqa: E731
+    maps = [i for i, p in enumerate(tail.PATHS) if p.startswith(".map.")]
+    state, new = ([tile(x) if i in maps else x for i, x in enumerate(xs)]
+                  for xs in (state, new))
+    inputs = [tile(x) if i < 6 else x for i, x in enumerate(inputs)]
+    return _tail_flat((state, new, inputs, min_matches))
+
+
+def measure_step_tail(card, path, tracked) -> dict:
+    """``step_tail`` as it ends a graphed frame (inside a runner's frame:
+    the state into the runner's buffers, the rows, the next frame's KITTI
+    pair, 2 x 1241 x 376 bytes a stream, into the input buffers, the
+    counter advanced) on the captured inputs at S = 1 (the last stream)
+    and S = MS_STREAMS, and at S = 1 with the map tiled to M = 4096, 8192
+    and 16384: its device time beside its bound (``tail_work``, the pair
+    read and written), and the plain version's (the plain tail and
+    ``Epilogue.finish_plain``: torch ops) graphed. The rest of the entry
+    (max_abs_err) is the checks'."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import from_leaves, leaves
+
+    full = tracked["step_tail"]["last"]
+    s_all = full[0].shape[0]
+    out = {}
+    for s, r in ((1, 1), (s_all, 1), (1, 4), (1, 8), (1, 16)):
+        flat = _tiled([x[-s:].contiguous() if isinstance(x, torch.Tensor)
+                       else x for x in full], r)
+        state_l, new_l, inputs, min_matches = _tail_lists(flat)
+        inp = tail.TailInputs(*inputs[:-1],
+                              None if inputs[-1].dim() == 2 else inputs[-1])
+        state = from_leaves(tail._TEMPLATE, state_l)
+        pair = [torch.empty((TIMING_FRAMES, s, 376, 1241), dtype=torch.uint8,
+                            device=DEVICE) for _ in range(2)]
+        times = {}
+        for form in ("kernel", "plain"):
+            buffers = from_leaves(tail._TEMPLATE,
+                                  [x.clone() for x in state_l])
+            epilogue = graphs.Epilogue(buffers,
+                                       [torch.empty_like(x[0]) for x in pair])
+            epilogue.start(pair)
+            if form == "kernel":
+                def run(b=buffers, e=epilogue):
+                    tail._launch(leaves(b), new_l, inp, min_matches, (s,), e)
+                times[form] = device_ms(run, REPS)
+                done = int(epilogue.table[:8].view(torch.int64).cpu())
+            else:
+                epilogue.counter = torch.zeros((), dtype=torch.int64,
+                                               device=DEVICE)
+
+                def run(b=buffers, e=epilogue):
+                    e.finish_plain(*tail._unpack(b, tail._plain_streams(
+                        leaves(b), new_l, inputs, min_matches)))
+                times[form] = device_ms(_graphed(run), PLAIN_REPS)
+                done = int(epilogue.counter.cpu())
+            if done >= TIMING_FRAMES:
+                raise AssertionError(f"{path}: step_tail's timing ran "
+                                     f"{done} frames of a chunk of "
+                                     f"{TIMING_FRAMES}")
+        outs = [*state_l, *state_l[tail._IDX[".pose.t"]:
+                                   tail._IDX[".pose.q"] + 1],
+                *[torch.empty((s,), dtype=d, device=DEVICE)
+                  for d in tail.METRIC_DTYPES]]
+        nbytes, ops = tail_work(flat, outs)
+        pair_bytes = 2 * sum(x[0].numel() for x in pair)
+        b_ms, b_by = bound(card, nbytes + pair_bytes, ops)
+        m = state_l[tail._IDX[".map.valid"]].shape[1]
+        out[(s, m)] = dict(s=s, m=m, ms=times["kernel"],
+                           plain_ms=times["plain"], bound_ms=b_ms,
+                           bound_by=b_by, bound_bytes=nbytes + pair_bytes,
+                           library_ms=None)
+        _say(path, f"step_tail ending a frame, S={s}, M={m} (the next "
+                   f"pair {pair_bytes // 2} bytes, read and written): kernel "
+                   f"{times['kernel']:.4f} ms (bound {b_ms:.3g} ms, {b_by}, "
+                   f"{nbytes + pair_bytes} bytes), the plain version "
+                   f"graphed {times['plain']:.4f} ms")
+    m1 = min(m for _, m in out)
+    first = out.pop((1, m1))
+    first["batched"] = out.pop((s_all, m1))
+    first["by_map"] = {m: v for (_, m), v in out.items()}
+    return first
+
+
 def measure_copy_leaves(card, path, tracked) -> dict:
-    """The runner's copy (``graphs.copy_leaves``: one launch for every
-    leaf) of the tail's new state on a path's captured frames at S = 1
-    (the last stream) and S = MS_STREAMS (path 3's state) into clones of
-    the state: its device time beside its bound (each byte read once and
-    written once), the plain copy's (``copy_into``: a ``copy_`` per leaf)
-    graphed, and ``torch._foreach_copy_`` of the leaves, one PyTorch call
-    that copies a list of tensors."""
-    from lvt_tpu_torch.core import graphs
-    from lvt_tpu_torch.tree import leaves, tree_map
+    """The runner's copies that remain (``graphs.copy_leaves``): a chunk's
+    start as the main path runs it (the table and frame 0, a KITTI pair,
+    into the input buffers; S = 1, and S = MS_STREAMS: path 3's 16
+    images), its device time beside its bound (the pair read once and
+    written once), the plain copies' (a ``copy_`` per input) graphed, and
+    ``torch._foreach_copy_`` of the inputs, one PyTorch call that copies a
+    list of tensors; and a group path's frame end (8a: the state, the
+    rows, the next pair, the counter) at S = 1."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import from_leaves, leaves
 
     full = tracked["step_tail"]["last"]
     s_all = full[0].shape[0]
     by_s = {}
     for s in (1, s_all):
-        state, new = _tail_states([x[-s:].contiguous()
-                                   if isinstance(x, torch.Tensor) else x
-                                   for x in full])
-        dst = tree_map(torch.clone, state)
-        src, into = leaves(new), leaves(dst)
-        nbytes = 2 * sum(x.numel() * x.element_size() for x in src)
+        state_l, new_l, inputs, min_matches = _tail_lists(
+            [x[-s:].contiguous() if isinstance(x, torch.Tensor) else x
+             for x in full])
+        pair = [torch.empty((2, s, 376, 1241), dtype=torch.uint8,
+                            device=DEVICE) for _ in range(2)]
+        buffers = from_leaves(tail._TEMPLATE, [x.clone() for x in state_l])
+        epilogue = graphs.Epilogue(buffers,
+                                   [torch.empty_like(x[0]) for x in pair])
+        nbytes = 2 * sum(x[0].numel() for x in pair)
         b_ms, b_by = bound(card, nbytes, {})
+        into, src = list(epilogue.inputs), [x[0] for x in pair]
+
+        def plain():
+            for d, x in zip(into, src):
+                d.copy_(x)
+
         by_s[s] = dict(
-            s=s, ms=device_ms(lambda: graphs.copy_leaves(dst, new), REPS),
-            plain_ms=device_ms(_graphed(lambda: graphs.copy_into(dst, new)),
-                               PLAIN_REPS),
+            s=s, ms=device_ms(lambda: epilogue.start(pair), REPS),
+            plain_ms=device_ms(_graphed(plain), PLAIN_REPS),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=device_ms(lambda: torch._foreach_copy_(into, src),
                                  REPS))
         q = by_s[s]
-        _say(path, f"copy_leaves S={s} ({nbytes // 2} bytes): kernel "
-                   f"{q['ms']:.4f} ms (bound {b_ms:.3g} ms, {b_by}), the "
-                   f"plain copy graphed {q['plain_ms']:.4f} ms, "
-                   f"torch._foreach_copy_ {q['library_ms']:.4f} ms")
+        _say(path, f"copy_leaves starting a chunk, S={s} ({nbytes // 2} "
+                   f"bytes): kernel {q['ms']:.4f} ms (bound {b_ms:.3g} ms, "
+                   f"{b_by}), the plain copies graphed {q['plain_ms']:.4f} "
+                   f"ms, torch._foreach_copy_ {q['library_ms']:.4f} ms")
+        if s == 1:
+            state = from_leaves(tail._TEMPLATE, state_l)
+            want, pose, metrics = tail._unpack(state, tail._plain_streams(
+                state_l, new_l, inputs, min_matches))
+            big = [torch.empty((TIMING_FRAMES, 1, 376, 1241),
+                               dtype=torch.uint8, device=DEVICE)
+                   for _ in range(2)]
+            frame_end = graphs.Epilogue(
+                buffers, [torch.empty_like(x[0]) for x in big])
+            frame_end.start(big)
+            frame_ms = device_ms(lambda: frame_end.finish(want, pose,
+                                                          metrics), REPS)
+            state_bytes = sum(x.numel() * x.element_size()
+                              for x in leaves(want))
+            f_ms, _ = bound(card, 2 * state_bytes + nbytes, {})
+            q.update(frame_end_ms=frame_ms, frame_end_bound_ms=f_ms)
+            _say(path, f"copy_leaves ending a group path's frame, S=1 (the "
+                       f"state {state_bytes} bytes, the rows, the next "
+                       f"pair): kernel {frame_ms:.4f} ms (bound {f_ms:.3g} "
+                       f"ms, bytes)")
     return dict(by_s[1], batched=by_s[s_all])
 
 
@@ -2647,6 +3008,8 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
         kernel_errs = {k: max(v, kernel_errs.get(k, 0.0))
                        for k, v in errs.items()}
     prof = _profiles("path4", run, drive, profile_dir)
+    prof["host_launches"] = host_between_replays(
+        "path4", lambda: drive(vo, n_units - 1), 1, chunk)
     kernel_errs["pnp_solve"] = check_pnp_solve("path4", capture_pnp_inputs(
         "path4", _first_frames(lambda: VOSystem(config, SensorType.RGBD,
                                                 device=DEVICE), gd, dd)))[
@@ -2817,6 +3180,8 @@ def phase_rectified(config, maps, il, ir, gt, profile_dir=None):
         {k: sites[k] for k in T_SITES["path5"]})
     _say("path5", "frame 0's remapped pair card vs CPU bit-equal (float32)")
     prof = _profiles("path5", run, drive, profile_dir)
+    prof["host_launches"] = host_between_replays(
+        "path5", lambda: drive(vo, n_units - 1), 1, chunk)
     k = N_CPU_FRAMES["path5"]
     cpu = VOSystem(config, device="cpu", rectify_maps=maps)
     p, _ = cpu.track_chunk(il[:k], ir[:k])
@@ -2898,6 +3263,11 @@ def phase_external(config, il, ir, gt, profile_dir=None):
         raise AssertionError("path6: frame 0's descriptors differ card vs "
                              "CPU")
     prof = _profiles("path6", run, drive, profile_dir)
+    last = range((n // EXT_UNIT - 1) * EXT_UNIT, n // EXT_UNIT * EXT_UNIT)
+    prof["host_launches"] = host_between_replays(
+        "path6", lambda: [vo.track_with_external_corners(il[i], ir[i],
+                                                         *corners[i])
+                          for i in last], EXT_UNIT, 1, uploads=1)
     k = N_CPU_FRAMES["path6"]
     cpu = VOSystem(config, device="cpu")
     dt = max(float((cpu.track_with_external_corners(
@@ -3196,9 +3566,10 @@ def phase_cli(kitti, euroc, tum) -> dict:
         # one graph: the card ran its warm-up step (which computes BA) and
         # n replays (BA on its schedule); the wrappers were called at its
         # warm-up and capture
+        chunks = -(-n // CHUNK)
         _check_launches(path, run_launches, n + 1,
-                        1 + sum(_ba_frames(config, range(n))))
-        _check_launches(path, calls, 2)
+                        1 + sum(_ba_frames(config, range(n))), chunks)
+        _check_launches(path, calls, 2, chunks=chunks)
         frames = list(seq)
         t0 = time.perf_counter()
         poses, status = [], []
@@ -3285,6 +3656,10 @@ def phase_cli(kitti, euroc, tum) -> dict:
 STREAM_FRAMES = 16
 
 
+# frames StreamingVO's worker tracks inside a trace after STREAM_FRAMES
+STREAM_TRACED = 4
+
+
 def phase_streaming(config, il, ir) -> dict:
     """Path 7's streaming shell: ``io.streaming.StreamingVO`` on the card
     with path 7 kitti's config (the shipped YAML: local BA, so its worker
@@ -3293,30 +3668,50 @@ def phase_streaming(config, il, ir) -> dict:
     replay of the graph captured there): the VO pose of every frame
     (``vo.last_pose``, read in the odometry callback) bit-equal to
     ``VOSystem.track``'s on the same frames, no frame dropped, BA on its
-    schedule in the reference."""
+    schedule in the reference; then STREAM_TRACED more frames in a trace,
+    whose worker-thread launches ``host_between_replays`` holds."""
     from lvt_tpu_torch.core.system import VOSystem
     from lvt_tpu_torch.io.streaming import StreamingVO
 
     frames = [(il[i].cpu().numpy(), ir[i].cpu().numpy())
-              for i in range(STREAM_FRAMES)]
+              for i in range(STREAM_FRAMES + STREAM_TRACED)]
     stream = StreamingVO(config, queue_size=STREAM_FRAMES, device=DEVICE)
-    seen = []
-    stream.on_odometry(lambda odo: seen.append(
-        (odo.frame_number, *(x.cpu() for x in stream.vo.last_pose))))
+    seen, traced_seen, tracing = [], [], [False]
+
+    def on_odometry(odo):
+        if tracing[0]:      # the traced frames: no device work here
+            traced_seen.append(odo.frame_number)
+        else:
+            seen.append((odo.frame_number,
+                         *(x.cpu() for x in stream.vo.last_pose)))
+
+    def track(lo, hi, done):
+        for i in range(lo, hi):
+            stream.feed(float(i), *frames[i])
+        deadline = time.monotonic() + 120
+        while len(done) < hi - lo and time.monotonic() < deadline:
+            time.sleep(0.01)
+
+    def traced_frames():
+        tracing[0] = True
+        track(STREAM_FRAMES, STREAM_FRAMES + STREAM_TRACED, traced_seen)
+
+    stream.on_odometry(on_odometry)
     t0 = time.perf_counter()
     stream.start()
     try:
-        for i, (a, b) in enumerate(frames):
-            stream.feed(float(i), a, b)
-        deadline = time.monotonic() + 120
-        while len(seen) < STREAM_FRAMES and time.monotonic() < deadline:
-            time.sleep(0.01)
+        track(0, STREAM_FRAMES, seen)
+        seconds = time.perf_counter() - t0
+        # the worker thread's frames, a chunk of one each: the caller's two
+        # uploads, the start, the replay; the shell's reads and pose kernel
+        host = host_between_replays("path7-streaming", traced_frames,
+                                    STREAM_TRACED, 1, uploads=2,
+                                    caller_kernels=1)
     finally:
         stream.stop()
-    seconds = time.perf_counter() - t0
     vo = VOSystem(config, device=DEVICE)
     want, ba = [], []
-    for a, b in frames:
+    for a, b in frames[:STREAM_FRAMES]:
         want.append(vo.track(a, b))
         ba.append(bool(vo.last_metrics.local_ba_ran))
     runners = list(stream.vo.runners.values())
@@ -3340,7 +3735,7 @@ def phase_streaming(config, il, ir) -> dict:
         raise AssertionError(f"path7-streaming: BA ran on frames "
                              f"{[i for i, x in enumerate(ba) if x]}, or the "
                              f"worker's graph holds no IF node")
-    return dict(frames=len(seen), seconds=seconds)
+    return dict(frames=len(seen), seconds=seconds, host_launches=host)
 
 
 C_ABI_FRAMES = 8
@@ -3500,9 +3895,11 @@ def _check_rank_counts(path, ranks, n_frames, need_coll) -> None:
     for rank, r in enumerate(ranks):
         graph = r["modes"] == ["graph"]
         steps = 2 if graph else n_frames
-        _check_launches(path, r["launches"], steps)
+        _check_launches(path, r["launches"], steps,
+                        chunks=len(r["chunk_seconds"]))
         if graph:
-            _check_launches(path, r["device_launches"], r["first_chunk"] + 1)
+            _check_launches(path, r["device_launches"], r["first_chunk"] + 1,
+                            chunks=1)
         if r["collectives"] != need_coll * steps:
             raise AssertionError(f"{path}: rank {rank} ran {r['collectives']}"
                                  f" collectives, not {need_coll} x {steps}")
@@ -4026,7 +4423,7 @@ def _profiles(path, run, drive, profile_dir=None, frame="frame",
     _say(path, f"launches the card ran in the profiled graphed unit ({n} "
                f"frames, kernel trace): {got}; "
                f"{prof['kernels_per_frame']:.1f} device kernels per {frame}")
-    _check_launches(path, got, n, ba)
+    _check_launches(path, got, n, ba, chunks=CHUNKS_PER_UNIT.get(path, 1))
     # one IF-node predicate per replay of a graph holding the node
     nodes = sum(len(r._branches) for r in run["graph"]["system"]
                 .runners.values())
@@ -4085,11 +4482,12 @@ def measure_if_node(card, config, il, ir) -> dict:
         state = Pose(pos.clone(), torch.zeros(4, device=DEVICE))
         runner = graphs.StepGraph(
             step_fn, state, [torch.zeros((), dtype=torch.bool,
-                                         device=DEVICE)], batched=batched)
+                                         device=DEVICE)], batched=batched,
+            outputs=(pos, pos))
         for pred in (True, False):
             state.t.copy_(pos)
-            got, _ = runner.replay(torch.tensor(pred, device=DEVICE))
-            out[form, pred] = got.clone()
+            got, _ = runner.run(torch.tensor([pred], device=DEVICE))
+            out[form, pred] = got[0].clone()
             runner.inputs[0].fill_(pred)
             ms[form, pred] = device_ms(runner._graph.replay, IF_REPS)
         if len(runner._branches) != (0 if batched else 1):
@@ -4188,7 +4586,7 @@ def _frame_types(path, config, make, a, b, eager=False) -> dict:
                                  f"if_nodes {runner.if_nodes}")
         for f, ba in zip(frames, is_ba):
             want = int(ba or mode == "eager")
-            _check_launches(path, f, 1, want)
+            _check_launches(path, f, 1, want, chunks=1)
             need = ({"if_node": 0, "nccl": 0,
                      "ba_refine": int(path in BA_KERNEL_PATHS)}
                     if mode == "eager" else
@@ -4432,7 +4830,7 @@ def _bench_trace(path, system, a, b, n) -> dict:
         ba = sum(_ba_frames(system.config, range(start, start + n)))
     _, got = device_launches(lambda: system.track_chunk(a, b))
     launches = {k: got.get(k, 0) for k in KERNELS}
-    _check_launches(path, launches, n, ba)
+    _check_launches(path, launches, n, ba, chunks=1)
     nodes = sum(len(r._branches) for r in system.runners.values())
     if got["if_node"] != n * nodes:
         raise AssertionError(f"{path}: {got['if_node']} IF-node predicates "
@@ -4475,7 +4873,8 @@ def phase_bench(il, ir, rot, gt, path1_poses) -> dict:
         wrappers = {k: fn.launches for k, fn in counters.items()}
         print(json.dumps(out["line"]), flush=True)
         vo, config = out["system"], out["config"]
-        _check_launches(path, wrappers, 2 * len(vo.runners))
+        _check_launches(path, wrappers, 2 * len(vo.runners),
+                        chunks=bench.N_CHUNKS + 1)
         ate = _bench_checks(path, out, config, out["poses"].t.cpu().numpy(),
                             rot, gt)
         _say(path, f"{out['fps']:.2f} frames/s over {bench.N_CHUNKS} timed "
@@ -4535,7 +4934,8 @@ def phase_bench(il, ir, rot, gt, path1_poses) -> dict:
     wrappers = {k: fn.launches for k, fn in counters.items()}
     print(json.dumps(out["line"]), flush=True)
     msvo, config = out["system"], out["config"]
-    _check_launches(path, wrappers, 2 * len(msvo.runners))
+    _check_launches(path, wrappers, 2 * len(msvo.runners),
+                    chunks=bench.MS_N_CHUNKS + 1)
     t, q = out["poses"].t, out["poses"].q
     ate = _bench_checks(path, out, config, t[:, 0].cpu().numpy(), rot, gt)
     alike = all(torch.equal(t[:, i], t[:, 0]) and torch.equal(q[:, i],
@@ -4656,6 +5056,10 @@ def main(argv=None) -> int:
     # path), at S = 1 and 8
     track1 = runs["path1"].pop("track_inputs")
     report.update(measure_track_kernels(card, "path1", track1))
+    # step_tail as it ends a graphed frame; the op's launch (fresh outputs,
+    # no chunk) beside it
+    report["step_tail"] = dict(measure_step_tail(card, "path1", track1),
+                               op=report["step_tail"])
     report["copy_leaves"] = measure_copy_leaves(card, "path1", track1)
     runs["path2"].pop("track_inputs")
     lap("track kernels timing")

@@ -250,6 +250,15 @@ def _track_branch(state: VOState, left: FrameFeatures,
         tri.n_inserted, mm.used_wide_radius, ba_ran)
 
 
+def track_branch(state: VOState, left: FrameFeatures,
+                 right: FrameFeatures | None, config: VOConfig, group=None):
+    """The step before its tail: the tracked values as a VOState and what
+    the tail reads besides (``tail.TailInputs``); the body that
+    parallel/multistream.py vmaps over streams before one tail for all."""
+    is_init = state.status == NOT_INITIALIZED
+    return _track_branch(state, left, right, config, is_init, group)
+
+
 def track_features(state: VOState, left: FrameFeatures,
                    right: FrameFeatures | None, config: VOConfig,
                    group=None):
@@ -260,9 +269,10 @@ def track_features(state: VOState, left: FrameFeatures,
     docstring); the status is the same on every rank, so every rank takes
     the same selects and the collectives line up. The selects on the
     frame's outcome and the metrics are the profiler range ``step_tail``:
-    one launch of the op ``lvt_tpu_torch::step_tail`` (core/tail.py)."""
-    is_init = state.status == NOT_INITIALIZED
-    new, inputs = _track_branch(state, left, right, config, is_init, group)
+    one launch of the op ``lvt_tpu_torch::step_tail`` (core/tail.py),
+    which inside the runner's frame also ends it (then the pose and
+    metrics are in the chunk's rows, and None here)."""
+    new, inputs = track_branch(state, left, right, config, group)
     with stage("step_tail"):
         return tail.step_tail(state, new, inputs,
                               config.min_num_matches_for_tracking, group)
@@ -281,15 +291,18 @@ def track_step_stereo(state: VOState, img_left: torch.Tensor,
 
 
 def _scan(make_step, state: VOState, xs, runners: dict, kind: str, *,
-          group=None, batched: bool = False):
+          group=None, batched: bool = False, make_reset=None):
     """The step over the frames of ``xs`` (their leading axis) in order,
     lvt_tpu's ``lax.scan`` over a chunk: the runner of entry point ``kind``
     in ``runners`` (the caller's cache, core/graphs.py; made on first use
-    from ``make_step()``; ``batched``: the step vmaps ``track_features``
+    from ``make_step()`` and ``make_reset()``, the initial state a stream
+    it loses is reset to; ``batched``: the step vmaps the tracking body
     over streams) replays one graph of the step per frame, writing
-    ``state``'s leaves in place. Returns (state, poses [N], metrics [N])."""
+    ``state``'s leaves in place. Returns (state, poses [N], metrics
+    [N])."""
     poses, metrics = graphs.runner(runners, kind, make_step, state, xs,
-                                   group=group, batched=batched).run(*xs)
+                                   group=group, batched=batched,
+                                   make_reset=make_reset).run(*xs)
     return state, poses, metrics
 
 
@@ -373,3 +386,17 @@ def track_step_external_corners(state: VOState, img_left: torch.Tensor,
         torch.stack([corners_left_valid, corners_right_valid]), config)
     left, right = (FrameFeatures(*(a[i] for a in feats)) for i in (0, 1))
     return track_features(state, left, right, config)
+
+
+def track_step_packed_corners(state: VOState, img_left: torch.Tensor,
+                              img_right: torch.Tensor, packed: torch.Tensor,
+                              config: VOConfig):
+    """:func:`track_step_external_corners` on the caller's corners as one
+    upload, ``packed`` [2, kp_capacity, 3] (x, y, valid > 0) for the left
+    and the right image: unpacked inside the step (on the card inside its
+    graph, so a call launches only the upload and the runner's chunk of
+    one from the host)."""
+    valid = packed[..., 2] > 0
+    return track_step_external_corners(
+        state, img_left, img_right, packed[0, :, :2], valid[0],
+        packed[1, :, :2], valid[1], config)

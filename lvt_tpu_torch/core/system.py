@@ -217,7 +217,8 @@ class VOSystem:
         """One stereo frame (rectified grayscale) described at the caller's
         corners, [N, 2] (x, y) per image, N free per call: padded on the
         host to kp_capacity (corners past it are dropped), uploaded with
-        their validity as one array, then tracked."""
+        their validity as one array, then tracked (the step unpacks it: a
+        call launches the upload and the runner's chunk of one frame)."""
         if self.sensor_type != SensorType.STEREO:
             raise ValueError("track_with_external_corners: stereo input only")
         cap = self.config.kp_capacity
@@ -226,13 +227,11 @@ class VOSystem:
             c = np.asarray(c, np.float32).reshape(-1, 2)[:cap]
             packed[side, :len(c), :2] = c
             packed[side, :len(c), 2] = 1.0
-        dev = upload(packed, self.device)
-        corners, valid = dev[..., :2].contiguous(), dev[..., 2] > 0
         frame = (self._prep(left_image, 2), self._prep(right_image, 2),
-                 corners[0], valid[0], corners[1], valid[1])
+                 upload(packed, self.device))
         config = self.config
         _, poses, metrics = step_mod._scan(
-            lambda: partial(step_mod.track_step_external_corners,
+            lambda: partial(step_mod.track_step_packed_corners,
                             config=config),
             self.state, tuple(x[None] for x in frame), self.runners,
             "corners")

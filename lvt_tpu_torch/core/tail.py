@@ -1,5 +1,5 @@
-"""The step's tail as one custom op over a leading stream axis S,
-``lvt_tpu_torch::step_tail`` (the profiler range ``step_tail``; port of
+"""The step's tail as one kernel over a leading stream axis S (the
+profiler range ``step_tail``; port of
 lvt_tpu/core/step.py:531-570 and :597-612, XLA ops that XLA fuses on the
 TPU; not a TPU kernel): every leaf of the new state as
 
@@ -17,24 +17,27 @@ the CPU and the sharded step (``psum_if`` of each rank's sum) give one
 result. lvt_tpu's ``jnp.sum`` takes XLA's order, so the means agree with
 lvt_tpu's to float32 rounding, not bit for bit.
 
-The op is built as core/track.py's ops are:
+On the card the tail is one launch of ``csrc/tail.cu``'s
+``step_tail_kernel`` for all S streams (a thread-block cluster a stream),
+bit-equal to the plain version: :func:`step_tail` on one stream's tensors,
+:func:`step_tail_streams` on S streams after the vmapped body
+(parallel/multistream.py). On the CPU both run the plain version
+(:func:`step_tail_plain`, the torch code the step ran before); on the card
+that is a reference for the tests and chip_smoke.py, never the main path.
 
-* CUDA: one launch of ``csrc/tail.cu``'s ``step_tail_kernel`` for all S
-  streams, bit-equal to the plain version; one stream outside vmap (the
-  single-stream step) launches it from :func:`step_tail` directly, without
-  the op's dispatch and its stream axis's views, which cost an eager step
-  as much host time as the launch;
-* CPU: the plain version (:func:`step_tail_plain`, the torch code the step
-  ran before) stream by stream; on the card a reference for the tests and
-  chip_smoke.py, never the main path;
-* fake tensors: the output shapes; ``torch.func.vmap``: a rule that folds
-  vmap's axis into the stream axis (one launch for every stream of the
-  multi-stream step).
+Inside a runner's frame (core/graphs.py: the runner's ``Epilogue`` is
+active and the tail's state is the runner's) the same launch also ends the
+frame on the device: it writes the new state into the runner's buffers
+(the state it reads), resets a stream it lost to the runner's fresh state
+but its pose where the runner resets (:func:`reset_lost`), writes the pose
+and the metrics into row i of the chunk's outputs and frame i + 1's inputs
+into the runner's input buffers, and advances i, a counter in the runner's
+table; :func:`step_tail` then returns the state and no pose or metrics.
+Elsewhere (the CPU, a group) the runner ends the frame itself
+(``Epilogue.finish``).
 
 With a ``group`` (the sharded-map modes) :func:`step_tail` runs the plain
 version with its collectives: a collective cannot run inside a kernel.
-The runner's copy of the new state into its static buffers is one launch
-of ``copy_leaves_kernel`` of the same source (core/graphs.py::copy_leaves).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from lvt_tpu_torch import kernels
+from lvt_tpu_torch.core import graphs
 from lvt_tpu_torch.core.motion import MotionState
 from lvt_tpu_torch.core.state import (LOST, NOT_INITIALIZED, TRACKING,
                                       ObsWindow, PointStore, StepMetrics,
@@ -53,7 +57,8 @@ from lvt_tpu_torch.core.state import (LOST, NOT_INITIALIZED, TRACKING,
 from lvt_tpu_torch.core.track import select
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.ops.collectives import psum_if
-from lvt_tpu_torch.tree import flatten_with_path, from_leaves, leaves
+from lvt_tpu_torch.tree import (flatten_with_path, from_leaves, leaves,
+                                tree_map)
 
 
 class TailInputs(NamedTuple):
@@ -92,9 +97,36 @@ KINDS = {i: _FIELD_KIND[p.split(".")[1]] for i, p in enumerate(PATHS)
          if i not in (FRAME, STATUS)}
 _IDX = {p: PATHS.index(p) for p in (".map.counter", ".map.age", ".map.valid",
                                     ".staged.valid", ".pose.t", ".pose.q")}
-# StepMetrics' leaves' dtypes, in field order
+# StepMetrics' leaves' dtypes, in field order, and their bytes
 METRIC_DTYPES = ((torch.int32,) * 4 + (torch.float32,) * 5
                  + (torch.int32,) * 2 + (torch.bool, torch.int32, torch.bool))
+METRIC_BYTES = tuple(torch.empty((), dtype=d).element_size()
+                     for d in METRIC_DTYPES)
+
+
+def reset_lost(states: VOState, fresh: VOState) -> VOState:
+    """Every LOST stream of ``states`` (leaves [S, ...]) takes ``fresh``
+    (one stream's initial state) in its slice, keeping its pose; the
+    others are untouched (lvt_tpu/parallel/multistream.py's
+    ``_reset_lost``; the kernel's reset, csrc/tail.cu)."""
+    lost = states.status == LOST
+
+    def sel(new, old):
+        return torch.where(lost.reshape(lost.shape + (1,) * (old.ndim - 1)),
+                           new, old)
+
+    return tree_map(sel, fresh, states)._replace(pose=states.pose)
+
+
+def row_templates(state: VOState) -> tuple:
+    """One frame's (pose, metrics) of a step on ``state`` (one stream, or
+    leaves [S, ...]): tensors of their shapes and dtypes, for a runner's
+    rows."""
+    lead = tuple(state.status.shape)
+    return (tree_map(torch.empty_like, state.pose),
+            StepMetrics(*(torch.empty(lead, dtype=d,
+                                      device=state.status.device)
+                          for d in METRIC_DTYPES)))
 
 
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:
@@ -173,7 +205,8 @@ def step_tail_plain(state: VOState, new: VOState, inp: TailInputs,
 
 
 def _inputs(values) -> TailInputs:
-    """One stream's TailInputs from the op's list (``ba_ran`` [0]: None)."""
+    """One stream's TailInputs from a list whose ``ba_ran`` is [0] where
+    there is no local BA (None)."""
     *rest, ba = values
     return TailInputs(*rest, None if ba.dim() == 1 else ba)
 
@@ -182,7 +215,14 @@ def _outputs(state, pose, metrics) -> list:
     return [*leaves(state), *pose, *metrics]
 
 
-def _step_tail_cpu(state, new, inputs, min_matches):
+def _plain_streams(state: list, new: list, inputs: list,
+                   min_matches: int) -> list:
+    """The plain version of S streams in list form: the state's and the
+    tracked values' leaves [S, ...] (PATHS' order), the TailInputs [S, ...]
+    (``ba_ran`` [S, 0]: no local BA) -> the new state's leaves, the pose
+    (t, q) and StepMetrics' 14 leaves, [S, ...] each; stream by stream on
+    any device (the CPU's multi-stream tail; on the card the kernel's
+    reference)."""
     outs = []
     for i in range(state[0].shape[0]):
         st, nw = (from_leaves(_TEMPLATE, [x[i] for x in xs])
@@ -193,18 +233,13 @@ def _step_tail_cpu(state, new, inputs, min_matches):
 
 
 @functools.lru_cache(maxsize=None)
-def tail_shape() -> tuple[int, int]:
-    """csrc/tail.cu's limits: leaves a launch, the largest M of
-    step_tail."""
-    out = (ctypes.c_int * 2)()
+def tail_shape() -> tuple[int, int, int, int, int]:
+    """csrc/tail.cu's limits: leaves a launch, a chunk table's bytes, rows,
+    a frame's inputs, and the units of a stream's state that step_tail
+    holds over its barrier."""
+    out = (ctypes.c_int * 5)()
     kernels.check(kernels.lib().lvt_tail_shape(out), "tail (shape)")
     return tuple(out)
-
-
-def _batched(t: torch.Tensor) -> bool:
-    """Whether ``t`` is a tensor of ``torch.func.vmap`` (then the op's
-    batching rule folds the streams)."""
-    return torch._C._functorch.is_batchedtensor(t)
 
 
 def _ptrs(*ts) -> ctypes.Array:
@@ -212,13 +247,31 @@ def _ptrs(*ts) -> ctypes.Array:
         None if t is None else t.data_ptr() for t in ts))
 
 
+def _units(leaves5, s: int) -> int:
+    """A stream's units of the kernel's table (csrc/tail.cu make_table):
+    each leaf's bytes a stream in the widest of 16, 8, 4 and 1 that divides
+    them and its five addresses (``leaves5``: (bytes, tensors) a leaf)."""
+    units = 0
+    for nbytes, ts in leaves5:
+        bits = nbytes
+        for t in ts:
+            bits |= 0 if t is None else t.data_ptr()
+        units += nbytes // next(u for u in (16, 8, 4, 1) if bits % u == 0)
+    return units
+
+
 def _launch(state: list, new: list, inp: TailInputs, min_matches: int,
-            lead: tuple) -> list:
-    """One launch of ``csrc/tail.cu``'s ``step_tail_kernel``: the op's CUDA
-    kernel (``lead`` (S,): every tensor [S, ...]) and :func:`step_tail`'s
-    on one stream's tensors (``lead`` (): no stream axis, no views in or
-    out). ``inp.ba_ran`` None: no local BA. Returns the new state's
-    leaves, the pose (t, q) and StepMetrics' 14 leaves."""
+            lead: tuple, epilogue=None):
+    """One launch of ``csrc/tail.cu``'s ``step_tail_kernel`` on S streams'
+    tensors (``lead`` (S,): every tensor [S, ...]) or on one stream's
+    (``lead`` (): no stream axis). ``inp.ba_ran`` None: no local BA.
+    Without an ``epilogue`` returns the new state's leaves, the pose (t, q)
+    and StepMetrics' 14 leaves, new tensors. With the runner's
+    (core/graphs.py::Epilogue, whose state is ``state``) the launch ends
+    the frame (module docstring) and returns None. Nothing is cloned: a
+    source may be the buffer it goes to, and may overlap another buffer
+    only where the kernel holds every unit of a stream's state over its
+    barrier (``tail_shape()[4]`` units); elsewhere that is refused."""
     s = lead[0] if lead else 1
     dev = state[0].device
     if len(state) != len(PATHS) or len(new) != len(PATHS):
@@ -231,9 +284,6 @@ def _launch(state: list, new: list, inp: TailInputs, min_matches: int,
     m, n = state[_IDX[".map.valid"]].shape[-1], \
         state[_IDX[".staged.valid"]].shape[-1]
     k = inp.feat_valid.shape[-1]
-    if m > tail_shape()[1]:
-        raise ValueError(f"step_tail: M={m} map slots exceed the kernel's "
-                         f"{tail_shape()[1]}")
     i64, f32 = torch.int64, torch.float32
     for x, name, dtype, shape in (
             (inp.bookkept_counter, "bookkept_counter", torch.int32, (m,)),
@@ -251,107 +301,111 @@ def _launch(state: list, new: list, inp: TailInputs, min_matches: int,
         if x is not None:
             kernels.require(x, name, dtype, (*lead, *shape), dev)
     t, q = state[_IDX[".pose.t"]], state[_IDX[".pose.q"]]
-    outs = ([torch.empty_like(x) for x in state]
-            + [torch.empty_like(t), torch.empty_like(q)]
-            + [t.new_empty(lead, dtype=d) for d in METRIC_DTYPES])
     fallback = list(state)
     fallback[_IDX[".map.counter"]] = inp.bookkept_counter
     fallback[_IDX[".map.age"]] = inp.bookkept_age
-    rows = [(new[i], fallback[i], state[i], outs[i], KINDS[i])
-            for i in KINDS]
-    rows += [(new[i], state[i], state[i], outs[len(PATHS) + j], TRACK)
-             for j, i in enumerate((_IDX[".pose.t"], _IDX[".pose.q"]))]
-    ptrs = _ptrs(*(x for r in rows for x in r[:4]))
-    nbytes = (ctypes.c_longlong * len(rows))(*(
-        r[3].numel() // max(s, 1) * r[3].element_size() for r in rows))
-    kinds = (ctypes.c_int * len(rows))(*(r[4] for r in rows))
+    order = list(KINDS)
+    nbytes = [state[i].numel() // s * state[i].element_size() for i in order]
+    if epilogue is None:
+        outs = ([torch.empty_like(x) for x in state]
+                + [torch.empty_like(t), torch.empty_like(q)]
+                + [t.new_empty(lead, dtype=d) for d in METRIC_DTYPES])
+        dst, rows, fresh, chunk = outs[:len(PATHS)], outs[len(PATHS):], \
+            None, None
+        inputs = ()
+    else:
+        outs, rows = None, None
+        dst = leaves(epilogue.state)
+        fresh = None if epilogue.reset is None else leaves(epilogue.reset)
+        chunk = epilogue.table
+        inputs = epilogue.inputs if chunk is not None else ()
+        srcs = [y for i in order for y in (new[i], fallback[i])]
+        bufs = [dst[i] for i in order for _ in range(2)]
+        if any(graphs.overlapping(bufs, srcs)) and _units(
+                ((b, (new[i], fallback[i], state[i],
+                      None if fresh is None else fresh[i], dst[i]))
+                 for b, i in zip(nbytes, order)), s) > tail_shape()[4]:
+            raise ValueError(
+                "step_tail: a source overlaps another of the runner's "
+                "buffers, and a stream's state exceeds the "
+                f"{tail_shape()[4]} units the kernel holds over its barrier")
+    pose_row = {_IDX[".pose.t"]: 0, _IDX[".pose.q"]: 1}
+    ptrs = _ptrs(*(x for i in order for x in (
+        new[i], fallback[i], state[i], None if fresh is None else fresh[i],
+        dst[i])))
+    kinds = (ctypes.c_int * len(order))(*(KINDS[i] for i in order))
+    row_of = (ctypes.c_int * len(order))(*(pose_row.get(i, -1)
+                                           for i in order))
+    reset = (None, None) if fresh is None else (fresh[FRAME], fresh[STATUS])
     scalars = _ptrs(state[STATUS], state[FRAME], inp.matches_count,
                     state[_IDX[".map.valid"]], state[_IDX[".staged.valid"]],
                     inp.bookkept_age, inp.match_idx, inp.d1, inp.d2, inp.obs,
                     inp.feat_valid, inp.map_size, inp.inlier_count,
-                    inp.n_inserted, inp.used_wide_radius, inp.ba_ran)
-    written = _ptrs(outs[FRAME], outs[STATUS], *outs[len(PATHS) + 2:])
+                    inp.n_inserted, inp.used_wide_radius, inp.ba_ran, *reset)
+    written = _ptrs(dst[FRAME], dst[STATUS])
+    row_bytes = (ctypes.c_longlong * 16)(
+        t.numel() // s * t.element_size(), q.numel() // s * q.element_size(),
+        *METRIC_BYTES)
+    in_dst = _ptrs(*inputs) if inputs else None
+    in_bytes = (ctypes.c_longlong * max(len(inputs), 1))(*(
+        x.numel() * x.element_size() for x in inputs))
     with torch.cuda.device(dev):
         err = kernels.lib().lvt_step_tail(
-            ptrs, nbytes, kinds, len(rows), scalars, written, s, m, n, k,
-            int(min_matches), kernels.stream_ptr(state[0]))
+            ptrs, (ctypes.c_longlong * len(order))(*nbytes), kinds, row_of,
+            len(order), scalars, written,
+            None if chunk is None else chunk.data_ptr(),
+            None if rows is None else _ptrs(*rows), row_bytes, in_dst,
+            in_bytes, len(inputs), s, m, n, k, int(min_matches),
+            kernels.stream_ptr(state[0]))
     kernels.check(err, "step_tail")
     step_tail.launches += 1
+    if epilogue is not None:
+        epilogue.fused = True
     return outs
 
 
-@torch.library.custom_op("lvt_tpu_torch::step_tail", mutates_args=(),
-                         device_types="cuda")
-def step_tail_op(state: list[torch.Tensor], new: list[torch.Tensor],
-                 inputs: list[torch.Tensor],
-                 min_matches: int) -> list[torch.Tensor]:
-    """S streams: the state's leaves [S, ...] (PATHS' order), the tracked
-    values' (the same shapes; frame_number and status not read), the
-    TailInputs [S, ...] (``ba_ran`` [S, 0]: no local BA), and
-    min_num_matches_for_tracking -> the new state's leaves, the pose (t
-    [S, 3], q [S, 4]) and StepMetrics' 14 leaves [S].
-
-    CUDA: one launch of ``csrc/tail.cu``'s ``step_tail_kernel``, grid
-    (the five means' blocks, the scalars' block, the leaves' copy blocks;
-    S)."""
-    s = state[0].shape[0]
-    *rest, ba = inputs
-    if ba.dim() == 2:   # no local BA
-        kernels.require(ba, "ba_ran", torch.bool, (s, 0), state[0].device)
-        ba = None
-    return _launch(state, new, TailInputs(*rest, ba), min_matches, (s,))
-
-
-@step_tail_op.register_fake
-def _step_tail_fake(state, new, inputs, min_matches):
-    s = state[0].shape[0]
-    t, q = state[_IDX[".pose.t"]], state[_IDX[".pose.q"]]
-    return ([torch.empty_like(x) for x in state]
-            + [torch.empty_like(t), torch.empty_like(q)]
-            + [t.new_empty((s,), dtype=d) for d in METRIC_DTYPES])
-
-
-def _step_tail_vmap(info, in_dims, state, new, inputs, min_matches):
-    """Batching rule: vmap's axis B folded into the stream axis of every
-    tensor, one launch, the outputs unfolded to [B, S, ...]."""
-    b = info.batch_size
-    lists = (state, new, inputs)
-    flat = iter(kernels.fold_streams(
-        info, [d for dims in in_dims[:3] for d in dims],
-        [x for xs in lists for x in xs]))
-    outs = step_tail_op(*([next(flat) for _ in xs] for xs in lists),
-                        min_matches)
-    return ([x.view(b, x.shape[0] // b, *x.shape[1:]) for x in outs],
-            [0] * len(outs))
-
-
-step_tail_op.register_kernel("cpu")(_step_tail_cpu)
-step_tail_op.register_vmap(_step_tail_vmap)
+def _unpack(state, outs) -> tuple:
+    n = len(PATHS)
+    return (from_leaves(state, outs[:n]), Pose(*outs[n:n + 2]),
+            StepMetrics(*outs[n + 2:]))
 
 
 def step_tail(state: VOState, new: VOState, inp: TailInputs,
               min_matches: int, group=None):
-    """:func:`step_tail_plain` for one stream: CPU tensors take the plain
-    version, CUDA tensors the kernel, and under ``torch.func.vmap`` one
-    launch serves every stream. With a ``group``, the plain version."""
-    if group is not None:
+    """:func:`step_tail_plain` for one stream: CUDA tensors take the
+    kernel (one launch), CPU tensors and a ``group`` the plain version.
+    Inside the frame of the runner whose state is ``state``, the kernel
+    ends the frame (module docstring) and this returns (state, None,
+    None)."""
+    if group is not None or state.status.device.type != "cuda":
         return step_tail_plain(state, new, inp, min_matches, group)
-    dev = state.status.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"step_tail: expected a CUDA tensor, got {dev}")
-    st, nw = leaves(state), leaves(new)
-    if dev.type == "cuda" and not any(map(_batched, (*st, *nw, *inp[:-1]))):
-        # one stream outside vmap: the launch itself, without the op's
-        # stream axis ([None] in, [0] out)
-        outs = _launch(st, nw, inp, min_matches, ())
-    else:
-        ba = inp.feat_valid[:0] if inp.ba_ran is None else inp.ba_ran
-        outs = [x[0] for x in step_tail_op(
-            [x[None] for x in st], [x[None] for x in nw],
-            [x[None] for x in (*inp[:-1], ba)], int(min_matches))]
-    n = len(PATHS)
-    return (from_leaves(state, outs[:n]), Pose(*outs[n:n + 2]),
-            StepMetrics(*outs[n + 2:]))
+    epilogue = graphs.active_epilogue(state)
+    outs = _launch(leaves(state), leaves(new), inp, min_matches, (),
+                   epilogue)
+    return (state, None, None) if epilogue is not None else _unpack(state,
+                                                                     outs)
+
+
+def step_tail_streams(states: VOState, new: VOState, inp: TailInputs,
+                      min_matches: int):
+    """The tail of S streams (every leaf and input with a leading [S]; the
+    vmapped body's outputs): one launch of the kernel on the card, the
+    plain version stream by stream on the CPU. Inside the frame of the
+    runner whose state is ``states``, the kernel ends the frame and this
+    returns (states, None, None)."""
+    s = states.status.shape[0]
+    st = leaves(states)
+    nw = [x.contiguous() for x in leaves(new)]
+    inp = TailInputs(*(None if x is None else x.contiguous() for x in inp))
+    if states.status.device.type != "cuda":
+        ba = (inp.feat_valid.new_zeros((s, 0)) if inp.ba_ran is None
+              else inp.ba_ran)
+        return _unpack(states, _plain_streams(st, nw, [*inp[:-1], ba],
+                                              min_matches))
+    epilogue = graphs.active_epilogue(states)
+    outs = _launch(st, nw, inp, min_matches, (s,), epilogue)
+    return (states, None, None) if epilogue is not None else _unpack(states,
+                                                                     outs)
 
 
 step_tail.launches = 0

@@ -68,8 +68,9 @@ _SIGNATURES = {
     "lvt_select_max_clusters": [_I] * 7,
     "lvt_select_corners": ([_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 6
                            + [_P] * 10),
-    "lvt_step_tail": [_P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
-    "lvt_copy_leaves": [_P, _P, _I, _P],
+    "lvt_step_tail": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    "lvt_copy_leaves": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                        _P],
     "lvt_tail_shape": [_P],
     "lvt_if_node": [_P, _P, _P, _P],
     "lvt_graph_node_counts": [_P, _P, _I],

@@ -7,11 +7,13 @@ kernels A and P (A and B in dense mode) launch once for all streams; the
 per-stream state machine is then ``torch.func.vmap`` of the single-stream
 body ``core/step.py::track_features`` (lvt_tpu's ``jax.vmap``), in which
 kernel T's batching rule (ops/top2.py) makes one launch per site for all
-S streams. Per-stream LOST flags live in the batched VOState, so a lost
-stream never stalls the others: ``reset`` re-initializes just its slice,
-keeping its pose. The step and the reset select are one step function,
-captured in one CUDA graph and replayed per frame on the card
-(core/graphs.py), the vmapped body and T's batching rule included.
+S streams; one tail (core/tail.py) then serves every stream. Per-stream
+LOST flags live in the batched VOState, so a lost stream never stalls the
+others: the auto-reset re-initializes just its slice, keeping its pose.
+The step is captured in one CUDA graph and replayed per frame on the card
+(core/graphs.py), the vmapped body and T's batching rule included; the
+reset is the runner's, inside the tail's launch on the card
+(``tail.reset_lost`` elsewhere).
 
 With a ``("stream",)`` mesh (parallel/mesh.py) the S streams split over
 its ranks (processes) in contiguous blocks of S / n, as lvt_tpu's
@@ -25,12 +27,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.func import vmap
+from torch.profiler import record_function as stage
 
 from lvt_tpu_torch.config import VOConfig
-from lvt_tpu_torch.core import extract
+from lvt_tpu_torch.core import extract, tail
 from lvt_tpu_torch.core import step as step_mod
 from lvt_tpu_torch.core.features import FrameFeatures
-from lvt_tpu_torch.core.state import LOST, VOState
+from lvt_tpu_torch.core.state import VOState
 from lvt_tpu_torch.device import resolve_device
 from lvt_tpu_torch.ops.collectives import axis_index, axis_size
 from lvt_tpu_torch.tree import tree_map
@@ -69,18 +72,41 @@ def _split(feats: FrameFeatures, s: int):
             FrameFeatures(*(a[s:] for a in feats)))
 
 
+def _branch(fn):
+    """``fn`` (the tracking body of one stream -> (tracked values,
+    TailInputs)) with its TailInputs as a tuple without ``ba_ran`` where
+    that is None (no local BA), as ``vmap`` returns tensors only."""
+    def run(*args):
+        new, inp = fn(*args)
+        return new, tuple(x for x in inp if x is not None)
+
+    return run
+
+
+def _tail(states: VOState, branch, config: VOConfig):
+    """The tail of every stream after the vmapped body's ``branch`` (its
+    tracked values and tail inputs, [S, ...] each, ``_branch``'s form):
+    one launch for all."""
+    new, inp = branch
+    inp = tail.TailInputs(*inp, *[None] * (len(tail.TailInputs._fields)
+                                           - len(inp)))
+    with stage("step_tail"):
+        return tail.step_tail_streams(states, new, inp,
+                                      config.min_num_matches_for_tracking)
+
+
 def multistream_step_stereo(states: VOState, imgs_left: torch.Tensor,
                             imgs_right: torch.Tensor, config: VOConfig):
     """One frame for every stream: [S, H, W] left and right -> (states,
     poses [S], metrics [S]). One extraction over the 2S images, then the
-    vmapped tracking body."""
+    vmapped tracking body and one tail."""
     step_mod._check_config(config)
     s = imgs_left.shape[0]
     left, right = _split(extract.extract_features_batched(
         torch.cat([imgs_left, imgs_right]), config), s)
-    return vmap(lambda st, lf, rf: step_mod.track_features(st, lf, rf,
-                                                           config))(
-        states, left, right)
+    return _tail(states, vmap(_branch(lambda st, lf, rf: step_mod
+                                      .track_branch(st, lf, rf, config)))(
+        states, left, right), config)
 
 
 def multistream_step_rgbd(states: VOState, imgs_gray: torch.Tensor,
@@ -88,53 +114,24 @@ def multistream_step_rgbd(states: VOState, imgs_gray: torch.Tensor,
     """One RGB-D frame for every stream: [S, H, W] gray and float32 metric
     depth -> (states, poses [S], metrics [S]). One extraction over the S
     gray images, then per stream (vmapped) the depth lookup and
-    tracking."""
+    tracking, and one tail."""
     step_mod._check_config(config)
     feats = extract.extract_features_batched(imgs_gray, config)
 
     def one(st, f, depth):
-        return step_mod.track_features(
+        return step_mod.track_branch(
             st, extract.apply_depth(f, depth, config), None, config)
 
-    return vmap(one)(states, feats, imgs_depth)
-
-
-def _reset_lost(states: VOState, fresh: VOState) -> VOState:
-    """Every LOST stream takes ``fresh`` (one stream's initial state) in
-    its slice, keeping its last pose; the others are untouched."""
-    lost = states.status == LOST
-
-    def sel(new, old):
-        return torch.where(lost.reshape(lost.shape + (1,) * (old.ndim - 1)),
-                           new, old)
-
-    return tree_map(sel, fresh, states)._replace(pose=states.pose)
+    return _tail(states, vmap(_branch(one))(states, feats, imgs_depth),
+                 config)
 
 
 def reset_lost_streams(states: VOState, config: VOConfig) -> VOState:
     """Per-stream auto-reset: a stream in LOST is re-initialized in place
     (the ROS shell's reset-on-lost policy). Its accumulated pose is kept,
     so odometry continues from where tracking was lost."""
-    return _reset_lost(states, _initial_state(config, states.status.device))
-
-
-def _with_reset(step, fresh: VOState, auto_reset: bool):
-    """``step(states, imgs1, imgs2) -> (states, poses, metrics)`` followed,
-    with ``auto_reset``, by the reset of each stream it lost to ``fresh``
-    (one stream's initial state): the step function a runner captures."""
-    def fn(states, a, b):
-        states, p, m = step(states, a, b)
-        return (_reset_lost(states, fresh) if auto_reset else states), p, m
-
-    return fn
-
-
-def _step_fn(config: VOConfig, auto_reset: bool, rgbd: bool, device):
-    """One frame of every stream, then (with ``auto_reset``) the reset of
-    each stream it lost."""
-    step = multistream_step_rgbd if rgbd else multistream_step_stereo
-    return _with_reset(lambda st, a, b: step(st, a, b, config),
-                       _initial_state(config, device), auto_reset)
+    return tail.reset_lost(states, _initial_state(config,
+                                                  states.status.device))
 
 
 def multistream_chunk(states: VOState, imgs1: torch.Tensor,
@@ -144,10 +141,14 @@ def multistream_chunk(states: VOState, imgs1: torch.Tensor,
     or gray and float32 depth); with ``auto_reset`` a lost stream is reset
     after its frame. Runs through the runner in ``runners`` (which writes
     ``states`` in place); returns (states, poses [N, S], metrics [N, S])."""
+    step = multistream_step_rgbd if rgbd else multistream_step_stereo
+    dev = states.status.device
     return step_mod._scan(
-        lambda: _step_fn(config, auto_reset, rgbd, states.status.device),
+        lambda: lambda st, a, b: step(st, a, b, config),
         states, (imgs1, imgs2), runners, "rgbd" if rgbd else "stereo",
-        batched=True)
+        batched=True,
+        make_reset=(lambda: _initial_state(config, dev)) if auto_reset
+        else None)
 
 
 class MultiStreamVO:

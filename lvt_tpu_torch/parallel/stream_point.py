@@ -14,8 +14,9 @@ the batch (ops/collectives.py's batching rule; every rank of a points
 group holds the same streams in the same order). The stream axis needs no
 collective. A lost stream is reset after its frame inside the chunk, as
 lvt_tpu's ``_reset_lost`` does; its status is the same on every rank of
-its points group, so they reset alike. The step and the reset run through
-a runner (core/graphs.py): a CUDA graph on an NCCL group, eager on gloo.
+its points group, so they reset alike. The step runs through a runner
+(core/graphs.py), which resets the lost streams at the end of the frame
+(``tail.reset_lost``): a CUDA graph on an NCCL group, eager on gloo.
 """
 
 from __future__ import annotations
@@ -60,14 +61,6 @@ def stream_point_step_stereo(states: VOState, imgs_left: torch.Tensor,
         st, lf, rf, config, group))(states, left, right)
 
 
-def _step_fn(config: VOConfig, group, auto_reset: bool, device):
-    """One frame of this rank's streams, then (with ``auto_reset``) the
-    reset of each stream it lost."""
-    return ms._with_reset(
-        lambda st, a, b: stream_point_step_stereo(st, a, b, config, group),
-        initial_shard(config, axis_size(group), device=device), auto_reset)
-
-
 def stream_point_chunk_stereo(states: VOState, imgs1: torch.Tensor,
                               imgs2: torch.Tensor, config: VOConfig, group,
                               runners: dict, auto_reset: bool = True):
@@ -75,10 +68,15 @@ def stream_point_chunk_stereo(states: VOState, imgs1: torch.Tensor,
     with ``auto_reset`` a lost stream is reset after its frame. Runs
     through the runner in ``runners`` (which writes ``states`` in place);
     returns (states, poses [N, S_local], metrics [N, S_local])."""
+    dev = states.status.device
     return step_mod._scan(
-        lambda: _step_fn(config, group, auto_reset, states.status.device),
+        lambda: lambda st, a, b: stream_point_step_stereo(st, a, b, config,
+                                                          group),
         states, (imgs1, imgs2), runners, "stereo", group=group,
-        batched=True)
+        batched=True,
+        make_reset=(lambda: initial_shard(config, axis_size(group),
+                                          device=dev))
+        if auto_reset else None)
 
 
 def _default_mesh(n_streams: int, device_type: str):

@@ -20,7 +20,11 @@ YAML's local BA (BA's torch body and its all-reduces in a CUDA IF node).
 ``--reps`` runs the chosen paths that many times in the process. Prints one
 JSON line per path and run: median and spread of frames/s, graph and
 eager, the graph's host ms a frame, capture seconds, and the card's name
-and power limit. Needs one CUDA device.
+and power limit; for paths 1, 3, 5 and 6 also one more graphed unit
+traced with the host's activity (the tree's ``dryrun.traced``): the
+card's busy ms and kernels a frame, and the host's launches a frame by
+runtime-API call (graph replays apart; the trace's opening markers left
+out). Needs one CUDA device.
 """
 
 import argparse
@@ -29,7 +33,47 @@ import os
 import subprocess
 import sys
 import tempfile
+from collections import Counter
 from functools import partial
+
+# the runtime API calls that launch work on the card from the host, by
+# their names' starts: a graph's replay, and kernels, copies and fills
+GRAPH_LAUNCH = "cudaGraphLaunch"
+LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+            "cuMemset")
+
+
+def traced_unit(run, drive, n_units: int, chunk: int) -> dict:
+    """The graphed system of ``run`` tracks its last unit again under the
+    profiler (host and card): busy ms and kernels a frame on the card
+    (copies and fills in the busy time, not in the kernels), and the host's
+    launches a frame by call, the trace's opening markers left out."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from lvt_tpu_torch.parallel.dryrun import TRACE_MARKERS, traced
+
+    _, prof = traced(lambda: drive(run["graph"]["system"], n_units - 1),
+                     host=True)
+    events = list(prof.profiler.kineto_results.events())
+    device = [(e.name(), e.end_ns() - e.start_ns()) for e in events
+              if e.device_type() == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", lambda: False)()
+              and "spin_kernel" not in e.name()]
+    host = [e.name() for e in sorted(
+        (e for e in events if e.device_type() == DeviceType.CPU
+         and e.name().startswith((GRAPH_LAUNCH, *LAUNCHES))),
+        key=lambda e: e.start_ns())][TRACE_MARKERS:]
+    torch.cuda.synchronize()
+    names = Counter(n[:60] for n, _ in device)
+    return dict(
+        kernel_names={k: v / chunk for k, v in names.most_common()},
+        busy_ms=sum(d for _, d in device) / 1e6 / chunk,
+        kernels=sum(not n.startswith(("Memcpy", "Memset"))
+                    for n, _ in device) / chunk,
+        replays=sum(n.startswith(GRAPH_LAUNCH) for n in host) / chunk,
+        host_launches={k: v / chunk for k, v in Counter(
+            n for n in host if not n.startswith(GRAPH_LAUNCH)).items()})
 
 
 def main(argv=None) -> int:
@@ -85,9 +129,10 @@ def main(argv=None) -> int:
                 b = torch.stack([ir[k:k + n] for k in starts], 1)
                 make = partial(MultiStreamVO, kitti_config(), s,
                                device=cs.DEVICE)
-            run = cs._run_modes(path, make, cs._chunks_of(a, b, chunk),
-                                n_units, chunk)
+            drive = cs._chunks_of(a, b, chunk)
+            run = cs._run_modes(path, make, drive, n_units, chunk)
             rep = cs._report_modes(path, run, per=s if path == "path3" else 1)
+            rep["trace"] = traced_unit(run, drive, n_units, chunk)
         elif path == "path6":
             from lvt_tpu_torch.configs import kitti_config
             from lvt_tpu_torch.core.system import VOSystem
@@ -109,17 +154,21 @@ def main(argv=None) -> int:
                                                        device=cs.DEVICE),
                                 drive, cs.EXT_FRAMES // unit, unit)
             rep = cs._report_modes(path, run)
+            rep["trace"] = traced_unit(run, drive, cs.EXT_FRAMES // unit,
+                                       unit)
         elif path == "path5":
             from lvt_tpu_torch.core.system import VOSystem
 
             config, maps, il, ir, _ = cs.euroc_setup()
             chunk, n_units = cs.RUNS[path]
             a, b = il.to(cs.DEVICE), ir.to(cs.DEVICE)
+            drive = cs._chunks_of(a, b, chunk)
             run = cs._run_modes(
                 path, lambda: VOSystem(config, device=cs.DEVICE,
                                        rectify_maps=maps),
-                cs._chunks_of(a, b, chunk), n_units, chunk)
+                drive, n_units, chunk)
             rep = cs._report_modes(path, run)
+            rep["trace"] = traced_unit(run, drive, n_units, chunk)
         else:
             from lvt_tpu_torch import bench
             from lvt_tpu_torch.configs import kitti_config
@@ -145,7 +194,8 @@ def main(argv=None) -> int:
         print(json.dumps(dict(
             tree=label, path=path, fps=rep["fps"],
             fps_eager=rep["fps_eager"], fps_spread=rep["fps_spread"],
-            host_ms=rep["host_ms"], capture_s=rep["capture_s"], card=card)),
+            host_ms=rep["host_ms"], capture_s=rep["capture_s"],
+            trace=rep.get("trace"), card=card)),
             flush=True)
     return 0
 

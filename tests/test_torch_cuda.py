@@ -1247,7 +1247,9 @@ def test_graph_replays_equal_the_eager_step(cuda, entry):
     the final state bit-equal; the same kernels run on the card in the
     second chunk (a kernel trace, graph replays included); 0 host syncs in
     a replayed chunk. The wrappers count the Python calls: the eager
-    step's at every frame, the graph's at its warm-up and its capture."""
+    step's at every frame, the graph's at its warm-up and its capture, and
+    in both modes one ``copy_leaves`` a chunk (its start) and none a
+    frame (the step's tail ends it)."""
     from lvt_tpu_torch.core import graphs
     from lvt_tpu_torch.parallel.dryrun import (count_syncs, device_launches,
                                                zero_kernel_counters)
@@ -1273,11 +1275,19 @@ def test_graph_replays_equal_the_eager_step(cuda, entry):
     graph, eager = runs["graph"], runs["eager"]
     assert graph["replays"] == n and eager["replays"] == 0
     assert graph["syncs"] == 0 and eager["syncs"] == 0
-    per_frame = {k: v // n for k, v in eager["launches"].items()}
-    assert per_frame["hamming_top2"] > 0
-    assert eager["launches"] == {k: v * n for k, v in per_frame.items()}
-    assert graph["launches"] == {k: v * 2 for k, v in per_frame.items()}
-    second = {k: v * (n - 3) for k, v in per_frame.items()}
+    # a chunk starts with one copy_leaves (its table, frame 0's inputs);
+    # the external corners' entry point is a chunk of one frame a call
+    chunks = (n, n - 3) if entry == "corners" else (2, 1)
+    per_chunk = {k: int(k == "copy_leaves") for k in eager["launches"]}
+    per_frame = {k: (v - per_chunk[k] * chunks[0]) // n
+                 for k, v in eager["launches"].items()}
+    assert per_frame["hamming_top2"] > 0 and per_frame["copy_leaves"] == 0
+    assert eager["launches"] == {k: v * n + per_chunk[k] * chunks[0]
+                                 for k, v in per_frame.items()}
+    assert graph["launches"] == {k: v * 2 + per_chunk[k] * chunks[0]
+                                 for k, v in per_frame.items()}
+    second = {k: v * (n - 3) + per_chunk[k] * chunks[1]
+              for k, v in per_frame.items()}
     for mode in ("graph", "eager"):
         want = dict(second)
         if mode == "graph" and want["ba_refine"]:
@@ -1343,10 +1353,11 @@ def test_capture_of_a_step_that_syncs_raises(cuda):
         return state._replace(t=state.t + 1), x, x
 
     state = Pose.identity(cuda)
-    runner = graphs.StepGraph(step, state, [torch.zeros(3, device=cuda)])
+    x = torch.zeros(3, device=cuda)
+    runner = graphs.StepGraph(step, state, [x], outputs=(x, x))
     assert runner.mode == "graph"
     with pytest.raises(RuntimeError):
-        runner.replay(torch.ones(3, device=cuda))
+        runner.run(torch.ones(1, 3, device=cuda))
     torch.cuda.synchronize()
     assert runner.replays == 0 and runner._graph is None
     assert torch.equal(state.t.cpu(), torch.zeros(3))
@@ -2453,12 +2464,12 @@ TAIL_MIN_MATCHES = 10
 
 def tail_problem(rs, s, device, m=1024, n=1024, k=1536, f=0, ba=None,
                  statuses=(1, 2, 3)):
-    """Seeded arguments of ``lvt_tpu_torch::step_tail`` for ``s`` streams
-    (the state's leaves, the tracked values', the TailInputs; lists of
-    [S, ...] tensors), as the step gives them: stores about half full, a
-    BA window of ``f`` poses ([0]-sized at 0), local BA's flag where
-    ``ba`` (default: f > 0), stream i's status ``statuses[i % len]`` (1
-    init, 2 tracking, 3 lost), and its match count from none to most of
+    """Seeded arguments of the tail's kernel (``tail._launch``) for ``s``
+    streams (the state's leaves, the tracked values', the TailInputs;
+    lists of [S, ...] tensors), as the step gives them: stores about half
+    full, a BA window of ``f`` poses ([0]-sized at 0), local BA's flag
+    where ``ba`` (default: f > 0), stream i's status ``statuses[i % len]``
+    (1 init, 2 tracking, 3 lost), and its match count from none to most of
     the map (every third stream under TAIL_MIN_MATCHES); the observations
     and distances fractional, so the means' sums round."""
     from lvt_tpu_torch.core import tail
@@ -2507,24 +2518,47 @@ def tail_problem(rs, s, device, m=1024, n=1024, k=1536, f=0, ba=None,
 
 
 def _tail_plain(args):
-    """The op's plain version stream by stream (its CPU kernel, on the
-    tensors' own device)."""
+    """The tail's plain version stream by stream (``tail._plain_streams``,
+    on the tensors' own device)."""
     from lvt_tpu_torch.core import tail
 
-    return tail._step_tail_cpu(*args, TAIL_MIN_MATCHES)
+    return tail._plain_streams(*args, TAIL_MIN_MATCHES)
 
 
 def _tail_stream(args, i):
     return [[x[i:i + 1] for x in xs] for xs in args]
 
 
+def _tail_inputs(values, lead) -> "TailInputs":
+    """TailInputs of ``tail_problem``'s inputs for a launch over ``lead``
+    (() or (S,)): the no-BA placeholder, one axis more than ``lead``,
+    becomes None."""
+    from lvt_tpu_torch.core import tail
+
+    *rest, ba = values
+    return tail.TailInputs(*rest, None if ba.dim() > len(lead) else ba)
+
+
+def _tail_launch(args, lead):
+    """One launch of the tail's kernel on ``tail_problem``'s lists (a
+    stream axis: ``lead`` (S,))."""
+    from lvt_tpu_torch.core import tail
+
+    return tail._launch(*args[:2], _tail_inputs(args[2], lead),
+                        TAIL_MIN_MATCHES, lead)
+
+
 # (streams, problem keywords): paths 1 (BA off), 2 (a window of 4), 3 and
 # 8d (8 streams), 4 (RGB-D: K = 1000), 5 (M = 4096, K = 896), 7 tum's M =
-# 8192, 20 streams, and sizes that are no multiple of a 16-byte unit
+# 8192, twice that (16384: 8 slots a thread), a map whose threads stream
+# their slots in batches (M = 40000), 20 streams, and sizes that are no
+# multiple of a 16-byte unit
 TAIL_CASES = [
     (1, {}), (1, {"f": 4}), (8, {}), (8, {"f": 4}), (1, {"k": 1000}),
     (1, {"m": 4096, "k": 896}), (8, {"m": 4096, "k": 896}),
-    (2, {"m": 8192, "n": 8192, "k": 1000}), (20, {}), (20, {"f": 4}),
+    (2, {"m": 8192, "n": 8192, "k": 1000}),
+    (2, {"m": 16384, "n": 16384, "k": 1000}),
+    (1, {"m": 40000, "n": 64, "k": 1000}), (20, {}), (20, {"f": 4}),
     (3, {"m": 51, "n": 41, "k": 301, "f": 3}), (3, {"m": 1, "n": 0, "k": 5}),
     (3, {"f": 4, "ba": False}),
 ]
@@ -2540,58 +2574,24 @@ def test_step_tail_kernel_matches_plain(cuda, s, kw):
     output bit-equal (NaN where the plain version has one), and each
     stream of the S-stream launch bit-equal to its own S = 1 launch: every
     status, match counts on both sides of the threshold, BA windows of 0,
-    3 and 4 poses, unaligned leaves."""
-    from lvt_tpu_torch.core import tail
-
+    3 and 4 poses, unaligned leaves, maps of any size (states whose units
+    the cluster holds over its barrier, 4 or 8 a thread, and larger ones
+    whose rest streams after it)."""
     args = tail_problem(np.random.RandomState(s), s, cuda, **kw)
-    got = tail.step_tail_op(*args, TAIL_MIN_MATCHES)
+    got = _tail_launch(args, (s,))
     _assert_outputs_equal(got, _tail_plain(args), "step_tail")
     for i in range(s):
-        alone = tail.step_tail_op(*_tail_stream(args, i), TAIL_MIN_MATCHES)
+        alone = _tail_launch(_tail_stream(args, i), (1,))
         _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
-                              f"step_tail stream {i}")
-
-
-@pytest.mark.cuda
-def test_step_tail_refuses_a_map_past_its_sums(cuda):
-    from lvt_tpu_torch.core import tail
-
-    m = tail.tail_shape()[1] + 1
-    args = tail_problem(np.random.RandomState(0), 1, cuda, m=m, n=4, k=8)
-    with pytest.raises(ValueError, match="map slots"):
-        tail.step_tail_op(*args, TAIL_MIN_MATCHES)
-
-
-@pytest.mark.cuda
-def test_step_tail_vmap_rule_launches_once(cuda):
-    """Under ``torch.func.vmap`` over 3 streams the op launches once, and
-    gives each stream the bits of its S = 1 call."""
-    from lvt_tpu_torch.core import tail
-
-    args = tail_problem(np.random.RandomState(5), 3, cuda, f=4)
-    sizes = [len(xs) for xs in args]
-    flat = [x for xs in args for x in xs]
-
-    def one(*xs):
-        it = iter(x[None] for x in xs)
-        return tail.step_tail_op(*([next(it) for _ in range(n)]
-                                   for n in sizes), TAIL_MIN_MATCHES)
-
-    before = tail.step_tail.launches
-    got = torch.func.vmap(one)(*flat)
-    assert tail.step_tail.launches == before + 1
-    for i in range(3):
-        alone = tail.step_tail_op(*_tail_stream(args, i), TAIL_MIN_MATCHES)
-        _assert_outputs_equal([x[i, 0] for x in got], [x[0] for x in alone],
                               f"step_tail stream {i}")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", [0, 4])
 def test_step_tail_one_stream_launches_without_the_op(cuda, f):
-    """``tail.step_tail`` on one stream's tensors outside vmap launches the
-    kernel itself (no stream axis in or out): one launch, the bits of the
-    op's S = 1 launch, every output with the one stream's shape."""
+    """``tail.step_tail`` on one stream's tensors launches the kernel
+    without a stream axis in or out: one launch, the bits of an S = 1
+    launch with the axis, every output with the one stream's shape."""
     from lvt_tpu_torch.core import tail
     from lvt_tpu_torch.core.state import VOState
     from lvt_tpu_torch.tree import from_leaves, leaves
@@ -2608,7 +2608,7 @@ def test_step_tail_one_stream_launches_without_the_op(cuda, f):
         assert tail.step_tail.launches == before + 1
         assert isinstance(got[0], VOState)
         flat = [*leaves(got[0]), *got[1], *got[2]]
-        want = tail.step_tail_op(*_tail_stream(args, i), TAIL_MIN_MATCHES)
+        want = _tail_launch(_tail_stream(args, i), (1,))
         assert [x.shape for x in flat] == [x.shape[1:] for x in want]
         _assert_outputs_equal(flat, [x[0] for x in want],
                               f"step_tail stream {i}")
@@ -2681,12 +2681,12 @@ def test_step_tail_and_copy_capture_in_a_graph(cuda):
     from lvt_tpu_torch.tree import from_leaves, leaves, tree_map
 
     args = tail_problem(np.random.RandomState(3), 2, cuda, f=4)
-    eager = tail.step_tail_op(*args, TAIL_MIN_MATCHES)
+    eager = _tail_launch(args, (2,))
     buf = tree_map(torch.zeros_like, from_leaves(tail._TEMPLATE, args[0]))
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        outs = tail.step_tail_op(*args, TAIL_MIN_MATCHES)
+        outs = _tail_launch(args, (2,))
         graphs.copy_leaves(buf, from_leaves(tail._TEMPLATE,
                                             outs[:len(tail.PATHS)]))
     graph.replay()
@@ -2694,3 +2694,234 @@ def test_step_tail_and_copy_capture_in_a_graph(cuda):
     _assert_outputs_equal(outs, eager, "step_tail")
     _assert_outputs_equal(leaves(buf), eager[:len(tail.PATHS)],
                           "copy_leaves")
+
+
+def _tail_aliased(new, buffers, alias):
+    """The tracked values ``new`` with leaves that alias the runner's
+    ``buffers``: the staged set as the buffers themselves ("same"), or the
+    map's counter and age from each other's buffers and, where M = N, the
+    map's and staged set's validity too ("swapped": other addresses, which
+    the kernel reads before its barrier)."""
+    if alias == "same":
+        return new._replace(staged=buffers.staged)
+    if alias != "swapped":
+        return new
+    out = new._replace(map=new.map._replace(counter=buffers.map.age,
+                                            age=buffers.map.counter))
+    if buffers.map.valid.shape == buffers.staged.valid.shape:
+        out = out._replace(
+            map=out.map._replace(valid=buffers.staged.valid),
+            staged=out.staged._replace(valid=buffers.map.valid))
+    return out
+
+
+def _table_counter(epilogue) -> int:
+    """The runner's counter: the first 8 bytes of its chunk table."""
+    return int(epilogue.table[:8].view(torch.int64).cpu())
+
+
+# (streams, 0: one stream without a stream axis; reset; alias; frames in
+# the chunk; problem keywords): path 1's state (6802 units a stream, 4 a
+# thread), path 2's (BA: 12953, 8 a thread) and path 5's (M = 4096, no
+# staged set: 13586), and M = 16384 (108562 units: the rest streams)
+EPILOGUE_CASES = [
+    (0, False, "none", 1, {}), (0, False, "same", 16, {"f": 4}),
+    (0, False, "swapped", 2, {"m": 51, "n": 41, "k": 301, "f": 3}),
+    (1, True, "none", 2, {}), (3, True, "swapped", 2,
+                               {"m": 40, "n": 40, "k": 30, "f": 2}),
+    (8, True, "same", 16, {}), (8, False, "none", 16, {"f": 4}),
+    (20, True, "none", 2, {"f": 4}), (20, False, "swapped", 1, {}),
+    (1, False, "swapped", 2, {"f": 4}),
+    (1, True, "swapped", 2, {"m": 4096, "n": 0, "k": 896}),
+    (2, True, "same", 16, {"m": 16384, "n": 16384, "k": 1000}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,reset,alias,frames,kw", EPILOGUE_CASES,
+                         ids=[f"s{s}-{'reset' if r else 'noreset'}-{a}-n{f}"
+                              f"{'-m' + str(kw['m']) if 'm' in kw else ''}"
+                              for s, r, a, f, kw in EPILOGUE_CASES])
+def test_step_tail_ends_the_frame_as_the_plain_tail_and_the_copies(
+        cuda, s, reset, alias, frames, kw):
+    """The kernel inside a runner's frame (core/graphs.py::Epilogue), frame
+    after frame of a chunk, against the plain tail of the same buffers
+    followed by the runner's copies: the buffers bit-equal (NaN for NaN)
+    to the plain new state, after ``tail.reset_lost`` where the runner
+    resets; row i of the chunk's rows to the plain pose and metrics; frame
+    i + 1 of the chunk's two inputs in the input buffers; the counter i +
+    1. New values that alias the buffers (the same buffer, or swapped:
+    nothing is cloned) included; one stream without a stream axis and
+    1-20 streams; states held over the barrier and a state that
+    streams."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import from_leaves, leaves, tree_map
+
+    n_streams = max(s, 1)
+    args = tail_problem(np.random.RandomState(30 + s), n_streams, cuda, **kw)
+    if s == 0:
+        args = [[x[0] for x in xs] for xs in args]
+    lead = (s,) if s else ()
+    buffers = from_leaves(tail._TEMPLATE, [x.clone() for x in args[0]])
+    new_vals = from_leaves(tail._TEMPLATE, args[1])
+    fresh = (from_leaves(tail._TEMPLATE, [x[0].clone() for x in
+                                          tail_problem(np.random.RandomState(
+                                              5), 1, cuda, **kw)[0]])
+             if reset else None)
+    rs = np.random.RandomState(frames)
+    chunk = [torch.from_numpy(rs.randint(0, 255, (frames, 37, 41),
+                                         dtype=np.uint8)).to(cuda),
+             torch.from_numpy(rs.randn(frames, 5).astype(np.float32))
+             .to(cuda)]
+    epilogue = graphs.Epilogue(buffers, [torch.empty_like(x[0])
+                                         for x in chunk], reset=fresh)
+    rows = epilogue.start(chunk)
+    for i in range(frames):
+        before = tree_map(torch.clone, buffers)
+        plain = [x.unsqueeze(0) if not s else x for x in leaves(before)]
+        lists = [plain, [x.unsqueeze(0) if not s else x for x in leaves(
+            _tail_aliased(new_vals, before, alias))],
+                 [x.unsqueeze(0) if not s else x for x in args[2]]]
+        want = [x[0] if not s else x for x in _tail_plain(lists)]
+        want_state, pose, metrics = tail._unpack(before, want)
+        if reset:
+            want_state = tail.reset_lost(want_state, fresh)
+        before_launches = tail.step_tail.launches
+        out = tail._launch(leaves(buffers), leaves(_tail_aliased(
+            new_vals, buffers, alias)), _tail_inputs(args[2], lead),
+            TAIL_MIN_MATCHES, lead, epilogue)
+        assert out is None and epilogue.fused
+        assert tail.step_tail.launches == before_launches + 1
+        torch.cuda.synchronize()
+        _assert_outputs_equal(leaves(buffers), leaves(want_state),
+                              f"frame {i} state")
+        _assert_outputs_equal([x[i] for x in graphs._rows_of(rows)],
+                              [*pose, *metrics], f"frame {i} rows")
+        for buf, x in zip(epilogue.inputs, chunk):
+            assert torch.equal(buf, x[min(i + 1, frames - 1)])
+        assert _table_counter(epilogue) == i + 1
+
+
+@pytest.mark.cuda
+def test_step_tail_refuses_overlap_past_what_it_holds(cuda):
+    """A state whose units the kernel does not hold over its barrier (M =
+    16384: the rest streams after it) with a source that overlaps another
+    of the runner's buffers: refused before the launch (nothing cloned,
+    nothing written, the counter where it was); the same state whose
+    sources are their own buffers ends the frame."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import from_leaves, leaves, tree_map
+
+    args = tail_problem(np.random.RandomState(9), 1, cuda, m=16384,
+                        n=16384, k=1000)
+    buffers = from_leaves(tail._TEMPLATE, [x.clone() for x in args[0]])
+    new_vals = from_leaves(tail._TEMPLATE, args[1])
+    chunk = [torch.zeros((2, 1, 7), dtype=torch.uint8, device=cuda)]
+    epilogue = graphs.Epilogue(buffers, [torch.empty_like(chunk[0][0])])
+    epilogue.start(chunk)
+    before = tree_map(torch.clone, buffers)
+    launches = tail.step_tail.launches
+    with pytest.raises(ValueError, match="overlaps another"):
+        tail._launch(leaves(buffers), leaves(_tail_aliased(
+            new_vals, buffers, "swapped")), _tail_inputs(args[2], (1,)),
+            TAIL_MIN_MATCHES, (1,), epilogue)
+    assert tail.step_tail.launches == launches
+    _assert_outputs_equal(leaves(buffers), leaves(before), "untouched")
+    assert _table_counter(epilogue) == 0
+    tail._launch(leaves(buffers), leaves(_tail_aliased(
+        new_vals, buffers, "same")), _tail_inputs(args[2], (1,)),
+        TAIL_MIN_MATCHES, (1,), epilogue)
+    assert tail.step_tail.launches == launches + 1
+    assert _table_counter(epilogue) == 1
+
+
+@pytest.mark.cuda
+def test_step_tail_ending_frames_captures_in_a_graph(cuda):
+    """One frame's launch inside a runner's frame captured in a CUDA graph
+    and replayed for a chunk of 16 frames (after one start) gives the
+    eager launches' bits: the buffers, every row, the inputs; the graph
+    replays no start, and replays past the chunk's end write no row."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import from_leaves, leaves
+
+    args = tail_problem(np.random.RandomState(8), 8, cuda, f=4)
+    rs = np.random.RandomState(3)
+    chunk = [torch.from_numpy(rs.randint(0, 255, (16, 8, 64, 48),
+                                         dtype=np.uint8)).to(cuda)]
+    fresh = from_leaves(tail._TEMPLATE, [x[0].clone() for x in args[0]])
+    runs = []
+    for mode in ("eager", "graph"):
+        buffers = from_leaves(tail._TEMPLATE, [x.clone() for x in args[0]])
+        epilogue = graphs.Epilogue(buffers, [torch.empty_like(chunk[0][0])],
+                                   reset=fresh)
+
+        def frame():
+            tail._launch(leaves(buffers), args[1],
+                         _tail_inputs(args[2], (8,)), TAIL_MIN_MATCHES,
+                         (8,), epilogue)
+
+        rows = epilogue.start(chunk)
+        if mode == "graph":
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                frame()
+            for _ in range(16):
+                graph.replay()
+        else:
+            for _ in range(16):
+                frame()
+        torch.cuda.synchronize()
+        runs.append([x.clone() for x in (*leaves(buffers),
+                                         *graphs._rows_of(rows),
+                                         epilogue.inputs[0])])
+        if mode == "graph":
+            graph.replay()         # past the chunk's end: no row written
+            torch.cuda.synchronize()
+            for a, b in zip(runs[-1][len(tail.PATHS):-1],
+                            graphs._rows_of(rows)):
+                assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    _assert_outputs_equal(runs[1], runs[0], "graph against eager")
+    assert torch.equal(runs[1][-1], chunk[0][15])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", ["none", "same", "swapped"])
+def test_copy_leaves_ends_a_frame_as_the_cpu_does(cuda, alias):
+    """The end of a frame whose tail ran as torch ops (a group's, or a step
+    without the tail): ``Epilogue.finish`` on the card (one copy_leaves
+    launch: the reset, the state, the rows by the counter, the next
+    frame's inputs) against the same on the CPU, over a chunk of 3 frames:
+    the buffers, every row and the input buffers bit-equal, the counter
+    3."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import from_leaves, leaves, tree_map
+
+    args = tail_problem(np.random.RandomState(4), 3, "cpu", m=40, n=40,
+                        k=30, f=2)
+    chunk = [torch.arange(3 * 7 * 5, dtype=torch.float32).reshape(3, 7, 5),
+             torch.arange(3 * 11, dtype=torch.uint8).reshape(3, 11)]
+    fresh = from_leaves(tail._TEMPLATE, [x[0].clone() for x in args[1]])
+    out = {}
+    for dev in ("cpu", cuda):
+        to = lambda x: x.to(dev, copy=True)  # noqa: E731
+        buffers = from_leaves(tail._TEMPLATE, [to(x) for x in args[0]])
+        epilogue = graphs.Epilogue(buffers, [to(x[0]) * 0 for x in chunk],
+                                   reset=tree_map(to, fresh))
+        rows = epilogue.start([to(x) for x in chunk])
+        before = graphs.copy_leaves.launches
+        for _ in range(3):
+            state, pose, metrics = tail._unpack(
+                buffers, tail._plain_streams(leaves(buffers),
+                                             [to(x) for x in args[1]],
+                                             [to(x) for x in args[2]],
+                                             TAIL_MIN_MATCHES))
+            epilogue.finish(_tail_aliased(state, buffers, alias), pose,
+                            metrics)
+        if dev != "cpu":
+            assert graphs.copy_leaves.launches == before + 3
+            assert _table_counter(epilogue) == 3
+        out[str(dev)] = [x.cpu() for x in (*leaves(buffers),
+                                            *graphs._rows_of(rows),
+                                            *epilogue.inputs)]
+    _assert_outputs_equal(out["cuda"], out["cpu"], "the frame's end")

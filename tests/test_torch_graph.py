@@ -195,9 +195,45 @@ def test_runner_refuses_a_frame_of_another_shape():
     runner = graphs.StepGraph(lambda st, x: (st, x, x),
                               Pose.identity("cpu"), [torch.zeros(2)])
     with pytest.raises(ValueError, match="frame input"):
-        runner.replay(torch.zeros(3))
+        runner.run(torch.zeros(1, 3))
     with pytest.raises(ValueError, match="frame input"):
-        runner.replay(torch.zeros(2, dtype=torch.uint8))
+        runner.run(torch.zeros(1, 2, dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("sizes", [(1,), (3, 1), (2, 4)])
+def test_a_chunk_starts_once_then_each_frame_is_one_step(sizes):
+    """The runner's contract on the CPU, with a step that is not the VO
+    step (so its frame ends in ``Epilogue.finish``): a chunk of N frames
+    is one start (frame 0 in the input buffer, the counter at 0) and N
+    calls of the step, each on the frame the previous one left in the
+    buffer; row i of the chunk's new tensors holds frame i's outputs; the
+    counter reads N after the chunk, and the buffer the chunk's last
+    frame. The next chunk starts over."""
+    calls = []
+
+    def step(state, x):
+        calls.append(x.clone())
+        return (state._replace(t=state.t + x[:3], q=state.q.flip(0)),
+                x * 2, x.sum())
+
+    state = Pose(torch.zeros(3), torch.arange(4.0))
+    runner = graphs.StepGraph(step, state, [torch.zeros(5)],
+                              outputs=(torch.zeros(5), torch.zeros(())))
+    total = torch.zeros(3)
+    for n in sizes:
+        calls.clear()
+        xs = torch.randn(n, 5)
+        doubled, sums = runner.run(xs)
+        assert [torch.equal(c, x) for c, x in zip(calls, xs)] == [True] * n
+        assert len(calls) == n
+        assert torch.equal(doubled, xs * 2) and doubled is not xs
+        assert torch.equal(sums, xs.sum(1))
+        assert int(runner.epilogue.counter) == n
+        assert torch.equal(runner.inputs[0], xs[-1])
+        total += xs[:, :3].sum(0)
+        assert torch.allclose(state.t, total)
+    assert torch.equal(state.q, torch.arange(4.0).flip(0) if sum(sizes) % 2
+                       else torch.arange(4.0))
 
 
 def test_copy_into_reads_every_source_before_writing():

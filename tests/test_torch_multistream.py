@@ -116,6 +116,40 @@ def test_reset_lost_streams_resets_only_the_lost_slice():
     assert torch.equal(out.pose.t, st.pose.t)       # the pose is kept
 
 
+@pytest.mark.parametrize("statuses", [(LOST, TRACKING, NOT_INITIALIZED),
+                                      (TRACKING, LOST, LOST)])
+def test_the_runners_reset_is_lvt_tpus_reset_lost(statuses):
+    """The reset that ends a MultiStreamVO frame where the tail did not
+    (``Epilogue.finish``: ``tail.reset_lost``, which csrc/tail.cu folds
+    into the tail's launch on the card) against lvt_tpu's ``_reset_lost``
+    on a state of random leaves whose streams are lost, tracking and
+    init: every leaf equal; a lost stream's pose kept."""
+    from lvt_tpu_torch.core import graphs, tail
+    from lvt_tpu_torch.tree import from_leaves, leaves, tree_map
+
+    cfg = _config(local_ba_window=2)
+    rs = np.random.RandomState(len(statuses) + statuses[0])
+    base = ms.batched_initial_state(cfg, 3, device="cpu")
+    new = tree_map(lambda x: torch.from_numpy(
+        (rs.rand(*x.shape) * 9).astype(x.numpy().dtype)), base)
+    new = new._replace(status=torch.tensor(statuses, dtype=torch.int32))
+    buffers = tree_map(torch.zeros_like, base)
+    fresh = from_leaves(base, [x[0].clone() for x in leaves(base)])
+    epilogue = graphs.Epilogue(buffers, [], reset=fresh, chunked=False)
+    epilogue.finish(new, None, None)
+    theirs = jax.tree.structure(jx_ms.batched_initial_state(cfg, 3))
+    want = jx_ms._reset_lost(jax.tree.unflatten(theirs, [
+        jnp.asarray(x) for x in leaves(convert.to_numpy(new))]), cfg)
+    for (key, a), (_, b) in zip(flatten_with_path(convert.to_numpy(buffers)),
+                                flatten_with_path(jax.tree.map(np.asarray,
+                                                               want))):
+        np.testing.assert_array_equal(a, b, err_msg=key)
+    lost = [i for i, st in enumerate(statuses) if st == LOST]
+    assert torch.equal(buffers.pose.t[lost], new.pose.t[lost])
+    assert (buffers.status[lost] == NOT_INITIALIZED).all()
+    assert torch.equal(tail.reset_lost(new, fresh).map.pos, buffers.map.pos)
+
+
 def test_multistream_step_matches_lvt_tpu(frames9):
     left, right = frames9
     cfg = _config()
