@@ -15,10 +15,11 @@ and the script exits non-zero without printing the final line:
    their plain PyTorch versions on the card, bit for bit, at paths 1 and
    2's shapes: a uint8 KITTI pair and its [2, 376, 1241] maps (A also
    on the same pair made non-integer float32), the 2 x
-   1536 keypoint slots selected on it, and T at its four sites with the
+   1536 keypoint slots selected on it, and T at its sites with the
    real descriptor sets of two frames (map match, dual radius, 1024 x 1536;
-   staged re-match, one radius, 1024 x 1536; row match and BA row match,
-   row window, 1536 x 1536). Each kernel is timed as the mean of REPS
+   staged re-match, one radius, 1024 x 1536; the row match, row window
+   computed from the keypoints, 1536 x 1536, and the dual row launch that
+   serves the triangulation's and local BA's row matches at once). Each kernel is timed as the mean of REPS
    back-to-back launches between one pair of CUDA events (queued while a
    spin kernel holds the card, so host time between launches is not
    counted); the plain versions the same way with PLAIN_REPS; and each
@@ -37,8 +38,9 @@ and the script exits non-zero without printing the final line:
    within 1e-3 m;
 4. path 2, the shipped KITTI config (lvt_tpu_torch/configs/kitti/
    vo_config.yaml: local BA, window 4 every 4 frames) in the dense
-   descriptor mode, 42 frames in chunks of 6: A, B once per frame and T
-   four times; the number of frames that ran BA (read once after the run)
+   descriptor mode, 42 frames in chunks of 6: A, B once per frame, T
+   three times (one dual row launch) and local BA's observations
+   (``ba_observe``) once; the number of frames that ran BA (read once after the run)
    must be the schedule's; local BA is a CUDA IF node in the graph, so
    per frame type (``_frame_types``: a new system's frames 5-16 one at a
    time in a kernel trace) every frame sets the node's predicate once and
@@ -78,7 +80,8 @@ and the script exits non-zero without printing the final line:
    (bench.py's camera drives out of its world: the port and lvt_tpu lose
    track at frame 160, ``scripts/bench_world.py``); one
    untimed chunk more in a kernel trace must launch per frame exactly A 1,
-   P 1, T 3 (``--ba`` 4 and one IF-node predicate; ``--multistream`` for
+   P 1, T 3 (``--ba`` also ``ba_observe`` 1 and one IF-node predicate;
+   ``--multistream`` for
    all 8 streams at once) and the PnP solve 1. main's poses must equal
    path 1's over its 112 frames bit for bit, ``--ba``'s frames run BA's
    body on BA frames only (``_frame_types``) and PnP is held on its
@@ -166,7 +169,7 @@ and the script exits non-zero without printing the final line:
    ``dump_tum`` of an in-process ``VOSystem.track_chunk`` on the card over
    the decoded arrays in the same chunks, every frame TRACKING, aligned
    ATE under 5%, ``measurments.txt`` 48 rows and the reference titles,
-   per frame exactly A 1, P 1, T 4 / 2 / 2, the PnP solve 1 and B 0, and
+   per frame exactly A 1, P 1, T 3 / 2 / 2, the PnP solve 1 and B 0, and
    the host syncs of the whole run, by the Python line that made each,
    exactly one per chunk in ``cli._track_sequence`` (statuses and poses)
    and one in ``observability._series_on_host`` (the recorder); without
@@ -187,7 +190,7 @@ and the script exits non-zero without printing the final line:
    all-reduces captured in the graph), 24 frames in units of 3, graph
    and eager: poses, statuses and map sizes bit-equal to
    ``VOSystem`` on the card, 0 host syncs per chunk, per frame exactly A
-   1, P 1, T 4, PnP's phases 23 and ``collectives_per_frame`` all-reduces
+   1, P 1, T 3, PnP's phases 23 and ``collectives_per_frame`` all-reduces
    (eager; in the graph per frame type, NCCL kernels: 61 on BA frames, 45
    on the others, ``_frame_types``);
    kernels A, P and T (map and staged at M / 2 and M / 4 rows) against
@@ -322,6 +325,7 @@ import os
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 import zlib
@@ -390,6 +394,12 @@ KERNELS = {
     "triangulate_insert": ("cuda", "lvt_tpu_torch/csrc/track.cu",
                            "lvt_tpu/ops/triangulate.py:40-160 + "
                            "lvt_tpu/core/step.py:111-155"),
+    # not a TPU kernel: local BA's row match after kernel T and the
+    # observation window's slide (XLA ops under jit), on the unsharded BA
+    # paths (the sharded step keeps the torch ops)
+    "ba_observe": ("cuda", "lvt_tpu_torch/csrc/track.cu",
+                   "lvt_tpu/core/step.py:486-512 + "
+                   "lvt_tpu/core/step.py:232-267"),
     # not TPU kernels: the per-cell corner selection with its padding and
     # clamps (XLA ops under jit; every path that extracts: not path 6),
     # and the map match after kernel T with the step's glue before PnP
@@ -414,9 +424,14 @@ KERNELS = {
 TRACK_KERNELS = ("predict_project", "upkeep_pre", "staged_promote",
                  "triangulate_insert")
 # the selection and the map match's acceptance: captured and checked with
-# the tracking branch's ops (STEP_OPS, check_track_kernels), timed apart
+# the tracking branch's ops (STEP_OPS, check_track_kernels), timed apart;
+# local BA's observations (BA paths only) and kernel T's row-mode launches
+# (T_ROW: the stereo paths' one row launch a frame, single or dual)
 SELECT_ACCEPT = ("select_corners", "map_accept")
-STEP_OPS = TRACK_KERNELS + SELECT_ACCEPT + ("step_tail",)
+T_ROW = "hamming_top2_row"
+STEP_OPS = TRACK_KERNELS + SELECT_ACCEPT + ("step_tail", "ba_observe", T_ROW)
+# the paths without a right camera: no row launch of kernel T
+RGBD_PATHS = ("path4", "path7-tum")
 # the paths whose config has no staged set (staged_threshold 0): no staged
 # re-match, so no staged_promote
 NO_STAGED_PATHS = ("path5", "path7-euroc")
@@ -520,29 +535,30 @@ FEW_BA_POINTS = (3, 8, 16, 40, 100, 200, 400, 700)
 # at once: one batch, not S)
 NEED_PER_FRAME = {
     "path1": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
-    "path2": {"perception": 1, "brief": 1, "hamming_top2": 4},
+    "path2": {"perception": 1, "brief": 1, "hamming_top2": 3},
     "path3": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
     "path4": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
     # staged_threshold 0: no staged re-match
     "path5": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
     # descriptors from the box sums at the corners: no A, no P
     "path6": {"hamming_top2": 3},
-    # the CLIs (patch mode): kitti with the shipped YAML's local BA (T also
-    # at the BA row match), euroc without staged points, tum with them
-    "path7-kitti": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    # the CLIs (patch mode): kitti with the shipped YAML's local BA (T's
+    # row launch serving both row matches), euroc without staged points,
+    # tum with them
+    "path7-kitti": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
     "path7-euroc": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
     "path7-tum": {"perception": 1, "describe_refine": 1, "hamming_top2": 2},
-    # the sharded modes, per rank: path 7 kitti's config (T also at the BA
-    # row match) on 8a-8c, path 3's on 8d (per rank, for its 4 streams)
-    "path8a": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
-    "path8b-2": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
-    "path8b-4": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
-    "path8c": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    # the sharded modes, per rank: path 7 kitti's config (T's dual row
+    # launch) on 8a-8c, path 3's on 8d (per rank, for its 4 streams)
+    "path8a": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
+    "path8b-2": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
+    "path8b-4": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
+    "path8c": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
     "path8d": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
     # the benchmark's modes: main is path 1, --ba path 1's config with
-    # local BA (T also at the BA row match), --multistream path 3's
+    # local BA (T's dual row launch), --multistream path 3's
     "bench": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
-    "bench-ba": {"perception": 1, "describe_refine": 1, "hamming_top2": 4},
+    "bench-ba": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
     "bench-ms": {"perception": 1, "describe_refine": 1, "hamming_top2": 3},
 }
 for _path, _need in NEED_PER_FRAME.items():
@@ -557,6 +573,8 @@ for _path, _need in NEED_PER_FRAME.items():
                      step_tail=1)
         if _path in NO_STAGED_PATHS:
             del _need["staged_promote"]
+        if _path in BA_KERNEL_PATHS:   # local BA's observations
+            _need["ba_observe"] = 1
     if _path != "path6":   # external corners: no selection
         _need["select_corners"] = 1
 # launches each chunk makes on every path, exactly: its start (the
@@ -580,15 +598,15 @@ NEED_BY_FRAME_TYPE = {
     for path in ("path2", "path7-kitti", "path8a", "bench-ba")}
 # kernel T's sites in one frame of each path
 T_SITES = {"path1": ("map", "staged", "row"),
-           "path2": ("map", "staged", "row", "ba_row"),
+           "path2": ("map", "staged", "row_dual"),
            "path3": ("map", "staged", "row"),
            "path4": ("map", "staged"),
            "path5": ("map", "row"),
-           "path7-kitti": ("map", "staged", "row", "ba_row"),
+           "path7-kitti": ("map", "staged", "row_dual"),
            "path7-euroc": ("map", "row"),
            "path7-tum": ("map", "staged"),
            "bench": ("map", "staged", "row"),
-           "bench-ba": ("map", "staged", "row", "ba_row"),
+           "bench-ba": ("map", "staged", "row_dual"),
            "bench-ms": ("map", "staged", "row")}
 
 # ---- the card model behind every bound
@@ -784,7 +802,8 @@ def phase_device() -> dict:
         _say("device", "{name}: clusters of {threads}-thread blocks, "
                        "{launch_shapes}; ptxas: {ptxas}".format(name=name,
                                                                 **geo))
-    for name in ("predict_project", "step_tail", "copy_leaves"):
+    for name in ("predict_project", "ba_observe", "step_tail",
+                 "copy_leaves"):
         _say("device", f"{name}: ptxas: {_ptxas(name + '_kernel')}")
     return card
 
@@ -935,9 +954,10 @@ def t_site_inputs(config, l0, l1, r0=None) -> dict:
     (left ``l0``, right ``r0``) and of frame 1 (left ``l1``). Frame 1's
     features stand for the map points (max_map_points of them) and the
     staged points (max_staged_points); with ``r0`` also the row matches of
-    frame 0's left features against its right ones (the triangulation row
-    match queries the unmatched features, the BA row match the matched
-    ones: half and half here)."""
+    frame 0's left features against its right ones, T computing each
+    query's window from its keypoint: ``row`` the triangulation's (the
+    unmatched features), ``row_dual`` both sets in one launch (the BA row
+    match queries the matched ones: half and half here)."""
     rad = float(config.tracking_radius)
     m, ms = config.max_map_points, config.max_staged_points
     matched = torch.from_numpy(np.random.RandomState(0).rand(
@@ -951,14 +971,13 @@ def t_site_inputs(config, l0, l1, r0=None) -> dict:
                     l0.valid & ~matched), dict(r2a=rad * rad, r2b=rad * rad)),
     }
     if r0 is not None:
-        y_l = torch.floor(l0.kp[..., 1])
-        vr = config.row_matching_vertical_search_radius
-        window = torch.stack(
-            [torch.clamp(y_l - vr, min=0.0),
-             torch.clamp(y_l + vr, max=float(config.img_height))], -1)
-        for site, left in (("row", ~matched), ("ba_row", matched)):
-            sites[site] = ((l0.desc, r0.desc, window, l0.valid & left, r0.kp,
-                            r0.valid), dict(r2a=0.0, r2b=0.0, row_mode=True))
+        kw = dict(row_mode=True,
+                  row_radius=float(config.row_matching_vertical_search_radius),
+                  img_rows=float(config.img_height))
+        row = (l0.desc, r0.desc, l0.kp, l0.valid, r0.kp, r0.valid,
+               matched.expand_as(l0.valid))
+        sites["row"] = (row, kw)
+        sites["row_dual"] = ((*row, row[-1]), kw)
     return {k: (tuple(x.contiguous() for x in a), kw)
             for k, (a, kw) in sites.items()}
 
@@ -971,7 +990,7 @@ def _streams(feats, idx):
 def kernel_inputs(config, il, ir) -> dict:
     """The kernels' inputs at paths 1 and 2's shapes, from two uint8 frames
     per side (``il``, ``ir`` on the card): the first pair (kernel A); P's
-    arguments on it; and T's arguments at its four sites, single-stream,
+    arguments on it; and T's arguments at its sites, single-stream,
     from the real descriptor sets of both frames."""
     from lvt_tpu_torch.core.extract import extract_features_batched
 
@@ -1007,18 +1026,47 @@ def p_bytes(p_args) -> int:
 
 def t_work(args, kw, out) -> tuple[int, dict]:
     """Kernel T's bytes and operations at one site, from its arguments and
-    its (plain) outputs: descriptors, coordinates and flags in; d1, d2,
-    best, n_cand for two predicates out; per valid pair the mask test
+    its (plain) outputs: descriptors, coordinates and flags (row modes:
+    the query sets' masks) in; d1, d2, best, n_cand for two predicates
+    out; per pair of a querying feature and a valid target the mask test
     (radius: 2 sub, 2 mul, 1 add and 2 compares; window: 2 compares); per
-    candidate pair 8 XOR + popcount, 7 adds and 4 to pack and keep the
-    key."""
+    candidate pair 8 XOR + popcount and 7 adds, and per predicate that
+    keeps it 4 to pack and keep the key (the dual radius mode's candidates
+    are the wide radius's, which hold the narrow one's). The row modes'
+    querying features are those of their sets (``row_work``)."""
     q_n, t_n = args[0].shape[0], args[1].shape[0]
+    nbytes = ((q_n + t_n) * (32 + 8 + 1) + q_n * (len(args) - 6)
+              + q_n * 2 * (4 + 4 + 8 + 8))
+    if kw.get("row_mode", False):
+        return nbytes, row_work(args[3], args[5], args[6],
+                                args[7] if len(args) > 7 else None,
+                                out[0][3], out[1][3])
     n_valid = int(args[3].sum()) * int(args[5].sum())
     n_cand = int(out[1 if kw["r2b"] > kw["r2a"] else 0][3].sum())
-    radius = not kw.get("row_mode", False)
-    return ((q_n + t_n) * (32 + 8 + 1) + q_n * 2 * (4 + 4 + 8 + 8),
-            {"fp32": 5 * n_valid * radius, "alu": 2 * n_valid + 19 * n_cand,
-             "popc": 8 * n_cand})
+    return nbytes, {"fp32": 5 * n_valid, "alu": 2 * n_valid + 19 * n_cand,
+                    "popc": 8 * n_cand}
+
+
+def row_work(q_valid, t_valid, q_excl, q_incl, n_cand_a, n_cand_b) -> dict:
+    """Kernel T's operations in a row mode ([..., M] query masks, [..., K]
+    targets, the predicates' per-query candidate counts; ``q_incl`` None in
+    the single mode): the window test for each query of set a (q_valid &
+    ~q_excl) or set b (q_valid & q_incl) against each valid target, once
+    where a query is in both sets; the distance (8 XOR + popcount, 7 adds)
+    of each candidate pair of those queries once, since a query's
+    candidates do not depend on the set that asks; the key's 4 for each
+    set that keeps the pair."""
+    in_a = q_valid & ~q_excl
+    in_b = in_a if q_incl is None else q_valid & q_incl
+    asks = in_a | in_b
+    n_t = t_valid.sum(-1, keepdim=True)
+    n_valid = int((asks.sum(-1, keepdim=True) * n_t).sum())
+    n_a = int(torch.where(in_a, n_cand_a, 0).sum())
+    n_b = 0 if q_incl is None else int(torch.where(in_b, n_cand_b, 0).sum())
+    n_dist = n_a + (0 if q_incl is None
+                    else int(torch.where(in_b & ~in_a, n_cand_b, 0).sum()))
+    return {"alu": 2 * n_valid + 15 * n_dist + 4 * (n_a + n_b),
+            "popc": 8 * n_dist}
 
 
 def t_batched_inputs(config, il, config4, gray) -> dict:
@@ -1162,7 +1210,7 @@ def phase_kernels(card, inp) -> dict:
         # kernel copies out (ops/patches.py::_windows' gather)
         library=lambda: smooth[b_idx, rows, cols])
 
-    # ---- T at its four sites
+    # ---- T at its sites (the row match alone and the dual row launch)
     t_sites = {}
     for site, (a, kw) in inp["sites"].items():
         nbytes, ops = t_work(a, kw, top2.hamming_top2_plain(*a, **kw))
@@ -1736,23 +1784,26 @@ def capture_pnp_inputs(path, frames) -> dict:
     is also checked at S = 8 at this path's M."""
     from lvt_tpu_torch.core import tail, track
     from lvt_tpu_torch.core.graphs import disable_graphs
-    from lvt_tpu_torch.ops import detect, matching
+    from lvt_tpu_torch.ops import detect, matching, top2
     from lvt_tpu_torch.solver import pnp
 
     # the step's tail launches from tail._launch, through the op or (one
     # stream outside vmap) straight from tail.step_tail
     ops = ([(pnp, "pnp_solve", "pnp_solve_op")]
-           + [(track, k, f"{k}_op") for k in TRACK_KERNELS]
+           + [(track, k, f"{k}_op") for k in (*TRACK_KERNELS, "ba_observe")]
            + [(detect, "select_corners", "select_corners_op"),
               (matching, "map_accept", "map_accept_op"),
-              (tail, "step_tail", "_launch")])
+              (tail, "step_tail", "_launch"),
+              (top2, T_ROW, "hamming_top2_op")])
     seen = {name: [] for _, name, _ in ops}
     real = {name: getattr(mod, attr) for mod, name, attr in ops}
 
     def recorder(name):
         def record(*args):
             flat = _tail_launch_flat(*args) if name == "step_tail" else args
-            if not torch._C._functorch.is_batchedtensor(flat[0]):
+            if name == T_ROW and args[-1] not in top2.ROW_MODES:
+                pass    # kernel T at a radius site
+            elif not torch._C._functorch.is_batchedtensor(flat[0]):
                 seen[name].append(tuple(
                     x.clone() if isinstance(x, torch.Tensor) else x
                     for x in flat))
@@ -1775,12 +1826,15 @@ def capture_pnp_inputs(path, frames) -> dict:
                  for x in zip(*(c[:5] for c in solves[-MS_STREAMS:])))
     # the step's ops: one launch per frame each (none on a path without
     # staged points for staged_promote, none of select_corners at external
-    # corners), the last MS_STREAMS streams (images for select_corners)
-    # held against their plain versions at once
+    # corners, ba_observe on the BA paths, kernel T's row launch where a
+    # right camera is), the last MS_STREAMS streams (images for
+    # select_corners) held against their plain versions at once
     tracked = {}
     for name, calls in seen.items():
         need = NEED_PER_FRAME.get(path)   # path 8's reference: every op
-        want = n if need is None or need.get(name) else 0
+        on = (path not in RGBD_PATHS if name == T_ROW
+              else need is None or need.get(name))
+        want = n if on else 0
         if len(calls) != want:
             raise AssertionError(f"{path}: {len(calls)} launches of {name} "
                                  f"in {n} frames, not {want}")
@@ -1993,6 +2047,12 @@ TRACK_WORK = {"predict_project": ("map", {"fp32": 31}),
 # adds (the selects and the counts are data movement and integer work
 # under its bytes)
 TAIL_FP32_PER_SLOT = 5
+# ba_observe per query (a left feature) the acceptance (3), the key (2),
+# its atomicMin (1) and the winner's test (2); per map slot its liveness
+# from five masks (6), the clamps and the right index's test (6); per slot
+# and window row the weights' two products with the liveness (float32)
+BA_OBSERVE_ALU_PER_QUERY = 8
+BA_OBSERVE_ALU_PER_SLOT = 12
 SELECT_KEY_ALU = 7
 SELECT_ACCEPT_WORK = {"select_corners": (SELECT_KEY_ALU + 6, 1),
                       "map_accept": 24}
@@ -2007,7 +2067,7 @@ def _library_call(name, args):
 
     if name != "select_corners":
         return None
-    nms, _, _, cell, k, _, spread, _ = args
+    nms, _, _, _, cell, k, _, spread, _ = args
     keys = detect.packed_keys(detect.cell_values(nms, *nms.shape[1:], cell,
                                                  spread))
     return lambda: torch.topk(keys, k, dim=-1, largest=True, sorted=True)
@@ -2072,10 +2132,12 @@ def _tail_op(*flat) -> list:
 def _step_op(name):
     """The custom op of one of STEP_OPS, on flat arguments."""
     from lvt_tpu_torch.core import tail, track
-    from lvt_tpu_torch.ops import detect, matching
+    from lvt_tpu_torch.ops import detect, matching, top2
 
     if name == "step_tail":
         return _tail_op
+    if name == T_ROW:
+        return top2.hamming_top2_op
     mod = {"select_corners": detect, "map_accept": matching}.get(name, track)
     return getattr(mod, f"{name}_op")
 
@@ -2087,18 +2149,20 @@ def _track_plain(name, args) -> tuple:
     card: the op's CPU kernel, on CUDA tensors."""
     from lvt_tpu_torch import kernels
     from lvt_tpu_torch.core import tail, track
-    from lvt_tpu_torch.ops import detect, matching
+    from lvt_tpu_torch.ops import detect, matching, top2
 
     if name == "step_tail":
         return tail._plain_streams(*_tail_lists(args))
     if name == "select_corners":
         return detect.select_corners_plain(*args)
+    if name == T_ROW:
+        return top2._hamming_top2_cpu(*args)
     nt = sum(isinstance(x, torch.Tensor) for x in args)
     mod = matching if name == "map_accept" else track
     return kernels.per_stream(getattr(mod, f"_{name}_flat"), nt, args)
 
 
-# select_corners' corners_low_threshold (its argument 5) in
+# select_corners' corners_low_threshold (its argument 6) in
 # check_track_kernels' extra runs: 0 never takes the low-corner fallback,
 # the second always does
 LOW_BRANCHES = (0, 1 << 30)
@@ -2126,7 +2190,7 @@ def check_track_kernels(path, tracked) -> dict:
         runs = [("frame 0", sets["first"]), ("last streams", sets["last"])]
         if name == "select_corners":   # both fallback branches
             runs += [(f"last streams, corners_low_threshold {low}",
-                      [*sets["last"][:5], low, *sets["last"][6:]])
+                      [*sets["last"][:6], low, *sets["last"][7:]])
                      for low in LOW_BRANCHES]
         for label, args in runs:
             s = args[0].shape[0]
@@ -2332,11 +2396,20 @@ def track_work(name, args, outs) -> tuple[int, dict]:
         from lvt_tpu_torch.ops import detect
 
         _, h, w = args[0].shape
-        s_y, s_x, ncy, ncx = detect._cell_geometry(h, w, args[3])
+        s_y, s_x, ncy, ncx = detect._cell_geometry(h, w, args[4])
         px = s * ncy * s_y * ncx * s_x
         alu, fp32 = SELECT_ACCEPT_WORK["select_corners"]
-        return nbytes, ({"alu": px * alu, "fp32": px * fp32} if args[6]
+        return nbytes, ({"alu": px * alu, "fp32": px * fp32} if args[7]
                         else {"alu": px * SELECT_KEY_ALU})
+    if name == T_ROW:
+        # per stream, on each predicate's candidate counts
+        iout = outs[1]
+        dual = args[7].shape[1] > 0
+        return nbytes, row_work(args[3], args[5], args[6],
+                                args[7] if dual else None, iout[:, 1, 0],
+                                iout[:, 1, 1])
+    if name == "ba_observe":
+        return ba_observe_work(args, outs)
     if name == "map_accept":
         return nbytes, {"alu": s * args[2].shape[1]
                         * SELECT_ACCEPT_WORK["map_accept"]}
@@ -2355,6 +2428,29 @@ def track_work(name, args, outs) -> tuple[int, dict]:
         ops["alu"] = ops.get("alu", 0) + s * slots * (
             6 if name == "upkeep_pre" else 4)
     return nbytes, ops
+
+
+def ba_observe_work(args, outs) -> tuple[int, dict]:
+    """Bytes and operations that one launch of ``ba_observe`` needs: T's
+    second set (d1, d2, best, n_cand; the first set is not read), the
+    rows of the window that stay (1 to F - 1 of its six leaves; the
+    oldest row is dropped), ``n``, match_idx, the map match's observations
+    and weights, the right keypoints, PnP's pose, the five masks and the
+    frame number read once; the slid window and do_ba written once."""
+    nb = lambda x: x.numel() * x.element_size()  # noqa: E731
+    fout, iout, *rest = args[:21]
+    (match_idx, obs, weights, right_kp, t, q, *window, n, map_valid,
+     bookkept_valid, clean_valid, map_taken, promo_taken, frame) = rest
+    s, k = fout.shape[0], fout.shape[3]
+    f, m = window[0].shape[1], map_valid.shape[1]
+    nbytes = (nb(fout) + nb(iout)) // 2
+    nbytes += sum(nb(x) // f * (f - 1) for x in window)
+    nbytes += sum(nb(x) for x in (
+        match_idx, obs, weights, right_kp, t, q, n, map_valid,
+        bookkept_valid, clean_valid, map_taken, promo_taken, frame, *outs))
+    return nbytes, {"alu": s * (BA_OBSERVE_ALU_PER_QUERY * k
+                                + BA_OBSERVE_ALU_PER_SLOT * m),
+                    "fp32": s * 2 * f * m}
 
 
 def tail_work(args, outs) -> tuple[int, dict]:
@@ -3068,7 +3164,8 @@ def phase_rgbd(config, gray, depth, rot, pos, profile_dir=None):
     # kernel A's maps of path 4's first MS_STREAMS gray frames: 1 image as
     # extraction launches it, and all of them in one launch
     nms = perception.perception_patch_maps_batched(gd[:MS_STREAMS])[0]
-    args = [nms, nms.new_zeros((0,)), float(tum.agast_threshold),
+    args = [nms, nms.new_zeros((0,)), nms.new_zeros((0,), dtype=torch.int32),
+            float(tum.agast_threshold),
             tum.detection_cell_size, tum.max_keypoints_per_cell,
             tum.corners_low_threshold, True, tum.kp_capacity]
     _track_errs("path4-tum", check_track_kernels("path4 (TUM fr1 selection)", {
@@ -4073,22 +4170,30 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
                               + SP_FRAMES] for i in range(SP_MESH[0])], 1)
                .cpu().numpy() for x in (il, ir))
     host = a.cpu().numpy(), b.cpu().numpy()
-    sharded_job = dryrun.job(dryrun.sharded_stream, config, *host,
-                             chunk=SH_CHUNK, device=DEVICE)
     secs = {k: [] for k in ("2 ranks", "4 ranks", "2 CPU ranks")}
-    results = {
-        2: dryrun.spawn([sharded_job, dryrun.job(
-            dryrun.multistream, ms_config, *md, chunk=MD_CHUNK,
-            device=DEVICE)], 2, device=DEVICE, backend=backend,
-            timeout_s=SH_TIMEOUT_S, seconds=secs["2 ranks"]),
-    }
-    marks.append(("2 ranks (8b, 8d)", time.perf_counter()))
-    results[4] = dryrun.spawn([sharded_job, dryrun.job(
-        dryrun.stream_point, config, *sp, n_stream=SP_MESH[0],
-        n_point=SP_MESH[1], chunk=SP_CHUNK, device=DEVICE)], 4,
-        device=DEVICE, backend=backend, timeout_s=SH_TIMEOUT_S,
-        seconds=secs["4 ranks"])
-    marks.append(("4 ranks (8b, 8c)", time.perf_counter()))
+    # the ranks read their frames from files (dryrun.SavedArray), not from
+    # their pickled jobs
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = {name: tuple(dryrun.SavedArray.save(x, tmp, f"{name}{i}")
+                             for i, x in enumerate(arrays))
+                 for name, arrays in (("host", host), ("md", md),
+                                      ("sp", sp))}
+        sharded_job = dryrun.job(dryrun.sharded_stream, config,
+                                 *saved["host"], chunk=SH_CHUNK,
+                                 device=DEVICE)
+        results = {
+            2: dryrun.spawn([sharded_job, dryrun.job(
+                dryrun.multistream, ms_config, *saved["md"], chunk=MD_CHUNK,
+                device=DEVICE)], 2, device=DEVICE, backend=backend,
+                timeout_s=SH_TIMEOUT_S, seconds=secs["2 ranks"]),
+        }
+        marks.append(("2 ranks (8b, 8d)", time.perf_counter()))
+        results[4] = dryrun.spawn([sharded_job, dryrun.job(
+            dryrun.stream_point, config, *saved["sp"], n_stream=SP_MESH[0],
+            n_point=SP_MESH[1], chunk=SP_CHUNK, device=DEVICE)], 4,
+            device=DEVICE, backend=backend, timeout_s=SH_TIMEOUT_S,
+            seconds=secs["4 ranks"])
+        marks.append(("4 ranks (8b, 8c)", time.perf_counter()))
     card_2 = None
     h = SH_HORIZON
     for k in SH_RANKS:
@@ -4714,8 +4819,19 @@ def phase_multistream_ba(config, il, ir) -> dict:
     starts = [MS_START_STEP * i for i in range(s)]
     a = torch.stack([il[k:k + n] for k in starts], 1)
     b = torch.stack([ir[k:k + n] for k in starts], 1)
-    ba_inputs = capture_ba_inputs("multistream-ba", _first_frames(
-        lambda: MultiStreamVO(config, s, device=DEVICE), a, b, n), config)
+    # local BA's kernel's windows, and the step's kernels (ba_observe and
+    # kernel T's dual row launch among them) on the streams' inputs in one
+    # launch each, every stream against its S = 1 launch
+    ba = {}
+
+    def frames():
+        ba.update(capture_ba_inputs("multistream-ba", _first_frames(
+            lambda: MultiStreamVO(config, s, device=DEVICE), a, b, n),
+            config))
+        return n
+
+    capture_pnp_inputs("multistream-ba", frames)
+    ba_inputs = ba
     msvo = MultiStreamVO(config, s, device=DEVICE)
     poses, metrics = msvo.track_chunk(a, b)
     gaps, equal = [], []
@@ -5055,13 +5171,23 @@ def main(argv=None) -> int:
     # the tracking branch's kernels timed on path 1's inputs (the main
     # path), at S = 1 and 8
     track1 = runs["path1"].pop("track_inputs")
-    report.update(measure_track_kernels(card, "path1", track1))
+    report.update(measure_track_kernels(
+        card, "path1", {k: v for k, v in track1.items() if k != T_ROW}))
+    # kernel T's row modes on the inputs the paths gave them: path 1's
+    # single row launch, path 2's dual (both row matches); local BA's
+    # observations on path 2's
+    track2 = runs["path2"].pop("track_inputs")
+    rows = measure_track_kernels(card, "path1", {T_ROW: track1[T_ROW]})
+    rep2 = measure_track_kernels(card, "path2", {
+        k: track2[k] for k in ("ba_observe", T_ROW)})
+    report["ba_observe"] = rep2["ba_observe"]
+    report["hamming_top2"]["row_modes"] = dict(single=rows[T_ROW],
+                                               dual=rep2[T_ROW])
     # step_tail as it ends a graphed frame; the op's launch (fresh outputs,
     # no chunk) beside it
     report["step_tail"] = dict(measure_step_tail(card, "path1", track1),
                                op=report["step_tail"])
     report["copy_leaves"] = measure_copy_leaves(card, "path1", track1)
-    runs["path2"].pop("track_inputs")
     lap("track kernels timing")
     # local BA's kernel on path 2's BA windows (frames 4 and 8)
     runs["path2"]["kernel_errs"]["ba_refine"] = check_ba_refine(
@@ -5161,8 +5287,12 @@ def main(argv=None) -> int:
                    if NEED_PER_FRAME[p].get(k) and k in SITE_KERNELS}
         by_path.update({p: r["kernel_errs"][k] for p, r in runs.items()
                         if k in r.get("kernel_errs", {})})
-        # the tracking kernels at every path's capture (check_track_kernels)
+        # the tracking kernels at every path's capture (check_track_kernels),
+        # kernel T's row launches among them
         by_path.update(TRACK_ERRS.get(k, {}))
+        if k == "hamming_top2":
+            by_path.update({f"{p} (row launches)": e
+                            for p, e in TRACK_ERRS[T_ROW].items()})
         entry.update(max_abs_err=max(by_path.values()),
                      max_abs_err_by_path=by_path)
         # the profiler's device time per launch in each path's graphed

@@ -6,7 +6,7 @@ keypoints:
   and subpixel refinement of each slot, read from A's maps);
 * dense: kernel A -> kernel B (BRIEF bit planes of every pixel) ->
   per-cell selection with subpixel refinement on the raw map (the same
-  op) -> one descriptor gather from the planes;
+  op), which also reads each slot's descriptor from the planes;
 * sparse: kernel A -> the same selection -> BRIEF at each selected corner
   from A's box sums (one gather of its 64 pool samples), in torch ops, as
   lvt_tpu runs this mode in XLA ops.
@@ -38,14 +38,17 @@ def _spread_ties(imgs: torch.Tensor) -> bool:
     return imgs.dtype == torch.uint8
 
 
-def _select(nms, config: VOConfig, spread_ties: bool, raw=None) -> tuple:
+def _select(nms, config: VOConfig, spread_ties: bool, raw=None,
+            planes=None) -> tuple:
     """Per-cell selection into the slot buffers (``detect.select_slots``:
-    one launch for all images of the frame on the card)."""
+    one launch for all images of the frame on the card; with kernel B's
+    ``planes``, each slot's descriptor from them)."""
     return detect.select_slots(
         nms, config.agast_threshold, cell_size=config.detection_cell_size,
         max_per_cell=config.max_keypoints_per_cell,
         corners_low_threshold=config.corners_low_threshold,
-        spread_ties=spread_ties, capacity=config.kp_capacity, score_raw=raw)
+        spread_ties=spread_ties, capacity=config.kp_capacity, score_raw=raw,
+        planes=planes)
 
 
 def _extract_patch_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
@@ -56,8 +59,8 @@ def _extract_patch_mode(imgs: torch.Tensor, config: VOConfig) -> FrameFeatures:
     with stage("perception"):
         nms, raw, smooth = perception_patch_maps_batched(imgs)
     with stage("corner_select"):
-        xi, yi, xc, yc, score, sel_valid, _, _ = _select(nms, config,
-                                                         spread_ties)
+        xi, yi, xc, yc, score, sel_valid = _select(nms, config,
+                                                   spread_ties)[:6]
     with stage("patch_describe"):
         desc, valid, kp = pt.describe_refine_batched(
             smooth, raw, xc, yc, xi, yi, sel_valid, h, w)
@@ -85,10 +88,10 @@ def _descriptor_mode(config: VOConfig) -> str:
 def _extract_per_cell(imgs: torch.Tensor, config: VOConfig,
                       mode: str) -> FrameFeatures:
     """The dense and sparse modes: kernel A (dense: then kernel B), per-cell
-    selection with subpixel refinement on the raw map, then each corner's
-    descriptor from B's planes (dense) or from A's box sums (sparse).
-    Descriptors sample at the integer corner; the subpixel position is the
-    observation only."""
+    selection with subpixel refinement on the raw map, and each corner's
+    descriptor from B's planes (dense: in the selection's launch) or from
+    A's box sums (sparse). Descriptors sample at the integer corner; the
+    subpixel position is the observation only."""
     spread_ties = _spread_ties(imgs)
     if imgs.dtype != torch.uint8:
         imgs = imgs.float()
@@ -98,11 +101,11 @@ def _extract_per_cell(imgs: torch.Tensor, config: VOConfig,
         else:
             nms, raw, aux = perception_patch_maps_batched(imgs)
     with stage("corner_select_describe"):
-        _, _, _, _, score, sel_valid, kp, corner = _select(
-            nms, config, spread_ties, raw)
-        describe = (brief.descriptors_from_planes if mode == "dense"
-                    else brief.descriptors_sparse)
-        desc, valid = describe(aux, corner, sel_valid)
+        dense = mode == "dense"
+        (_, _, _, _, score, sel_valid, kp, corner, desc, valid) = _select(
+            nms, config, spread_ties, raw, aux if dense else None)
+        if not dense:
+            desc, valid = brief.descriptors_sparse(aux, corner, sel_valid)
         return FrameFeatures(
             kp=kp, desc=desc.contiguous(), score=score,
             depth=torch.zeros((imgs.shape[0], config.kp_capacity),

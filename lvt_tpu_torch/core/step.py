@@ -46,7 +46,7 @@ from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.core.state import (NOT_INITIALIZED, ObsWindow, PointStore,
                                       VOState)
 from lvt_tpu_torch.geometry.se3 import Pose
-from lvt_tpu_torch.ops import matching, undistort
+from lvt_tpu_torch.ops import matching, top2, undistort
 from lvt_tpu_torch.solver import bundle
 from lvt_tpu_torch.solver.pnp import solve_pnp
 
@@ -67,17 +67,6 @@ def _camera_kwargs(config: VOConfig) -> dict:
                 min_x=min_x, max_x=max_x, min_y=min_y, max_y=max_y)
 
 
-def _row_match(left: FrameFeatures, right: FrameFeatures, left_excluded,
-               config: VOConfig):
-    return matching.row_match(
-        left, right, left_excluded,
-        vertical_search_radius=config.row_matching_vertical_search_radius,
-        ratio_threshold=config.triangulation_ratio_test_threshold,
-        abs_threshold=config.descriptor_matching_threshold,
-        img_rows=config.img_height,
-    )
-
-
 def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig,
                       group=None):
     """One windowed BA over the map (``bundle.refine_structure_plain``):
@@ -96,30 +85,31 @@ def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig,
 
 
 def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
-                     obs_new, w_new, obs_r_new, w_r_new, slots_invalidated,
+                     obs_new, w_new, row_packed, match_idx, right_kp,
+                     bookkept_valid, clean_valid, map_taken, promo_taken,
                      frame_number, config: VOConfig, group=None):
     """Slide the observation window by this frame and, every
     ``local_ba_every`` frames once it is full, refine the map structure.
-    Returns (window', the window's newest pose, map positions, whether BA
-    ran). BA is lvt_tpu's ``lax.cond`` on the schedule, ``graphs.cond``: a
-    CUDA IF node on the device predicate in a captured single-process or
-    NCCL step, computed and selected elsewhere (no host sync either way);
-    the window slides outside it, on every frame. The trajectory stays
-    the PnP output."""
-    alive = (map_store.valid & ~slots_invalidated)[None, :].float()
-
-    def slide(old, new):
-        return torch.cat([old[1:], new[None]], 0)
-
-    window = ObsWindow(
-        poses_t=slide(ba.poses_t, pose_opt.t),
-        poses_q=slide(ba.poses_q, pose_opt.q),
-        obs=slide(ba.obs, obs_new), w=slide(ba.w, w_new) * alive,
-        obs_r=slide(ba.obs_r, obs_r_new), w_r=slide(ba.w_r, w_r_new) * alive,
-        n=torch.clamp(ba.n + 1, max=config.local_ba_window),
-    )
-    do_ba = ((window.n >= config.local_ba_window)
-             & (frame_number % config.local_ba_every == 0))
+    lvt_tpu's ``_local_ba_update`` with the BA row match folded in: the
+    right observations come from kernel T's second row set
+    (``row_packed``; None without a right camera) at each slot's feature
+    (``match_idx``), and the slots invalidated this frame from the map's
+    validity after the bookkeeping and the cull and the slots the
+    insertions and promotions took (``promo_taken`` None without a staged
+    set). The row match, the observations and the slide are one launch of
+    the op ``lvt_tpu_torch::ba_observe`` (core/track.py; with a group its
+    plain version), on every frame. Returns (window', the window's newest
+    pose, map positions, whether BA ran). BA is lvt_tpu's ``lax.cond`` on
+    the schedule, ``graphs.cond``: a CUDA IF node on the device predicate
+    in a captured single-process or NCCL step, computed and selected
+    elsewhere (no host sync either way). The trajectory stays the PnP
+    output."""
+    window, do_ba = track.ba_observe(
+        row_packed, match_idx, obs_new, w_new, right_kp, pose_opt, ba,
+        map_store.valid, bookkept_valid, clean_valid, map_taken, promo_taken,
+        frame_number, ratio_threshold=config.triangulation_ratio_test_threshold,
+        abs_threshold=config.descriptor_matching_threshold,
+        local_ba_every=config.local_ba_every, group=group)
     map_pos = graphs.cond(do_ba, lambda: _refine_structure(
         Pose(window.poses_t, window.poses_q), map_store.pos, window.obs,
         window.w, window.obs_r, window.w_r, config, group), map_store.pos)
@@ -136,7 +126,6 @@ def _track_branch(state: VOState, left: FrameFeatures,
     (its ``frame_number`` and ``status`` the state's) and what the tail
     reads besides (``tail.TailInputs``)."""
     cam = _camera_kwargs(config)
-    k = left.kp.shape[0]
 
     # the motion model and the map's projection at its prediction (op
     # predict_project; its stage also holds the query side of map_matching)
@@ -176,12 +165,12 @@ def _track_branch(state: VOState, left: FrameFeatures,
         # re-match the staged points against the unclaimed features (kernel
         # T), delete misses, promote survivors (op staged_promote)
         with stage("staged_update"):
-            top2, _ = matching.dual_radius_top2(
+            staged_top2, _ = matching.dual_radius_top2(
                 state.staged.desc, left.desc, up.staged_uv,
                 up.staged_visible, left.kp, up.staged_targets,
                 config.tracking_radius, config.tracking_radius)
             promo = track.staged_promote(
-                top2, state.staged, up.feature_matched, up.map_size,
+                staged_top2, state.staged, up.feature_matched, up.map_size,
                 map_clean,
                 ratio_threshold=config.tracking_ratio_test_threshold,
                 abs_threshold=config.descriptor_matching_threshold,
@@ -194,9 +183,9 @@ def _track_branch(state: VOState, left: FrameFeatures,
         feature_matched = up.feature_matched
 
     # lvt_tpu builds one stereo Hamming matrix for the triangulation row
-    # match and the BA row match; here each row match computes its
-    # distances inside kernel T, since recomputing 1536 x 1536 distances
-    # costs less than writing and reading back a 9.4 MB matrix
+    # match and the BA row match (complementary query sets); here kernel T
+    # computes the distances itself, and one launch in its dual row mode
+    # serves both sets over the same window
     want_ba_rm = (config.local_ba_window > 0 and right is not None
                   and config.baseline != 0.0)
 
@@ -206,13 +195,15 @@ def _track_branch(state: VOState, left: FrameFeatures,
     # untracked counter); then the policy and the insertions (op
     # triangulate_insert)
     with stage("triangulation"):
-        row_top2 = None
+        row_packed = row_top2 = None
         if right is not None:
-            r = config.row_matching_vertical_search_radius
-            window_rows, query_ok = matching.row_window(
-                left, feature_matched, vertical_search_radius=r,
+            row_packed = matching.row_top2_packed(
+                left, right, feature_matched,
+                mm.feature_matched if want_ba_rm else None,
+                vertical_search_radius=(
+                    config.row_matching_vertical_search_radius),
                 img_rows=config.img_height)
-            row_top2 = matching.row_top2(left, right, window_rows, query_ok)
+            row_top2 = top2._unpack(*row_packed)[0]
         tri = track.triangulate_insert(
             row_top2, left, right, pose_opt, map_after_promo, staged_out,
             state.last_matches, matches_count, is_init, cam,
@@ -221,23 +212,17 @@ def _track_branch(state: VOState, left: FrameFeatures,
     final_map, pose_final, ba_window = tri.map, pose_opt, state.ba
     ba_ran = None
     if config.local_ba_window > 0:
-        removed = map_bookkept.valid & ~map_clean.valid
-        recycled = tri.map_taken
-        if staged_on:
-            recycled = recycled | promo.taken
+        # right-camera observations of the map-matched features from T's
+        # second row set; no right camera (or no baseline): no stereo
+        # anchor, so BA is inert
         with stage("local_ba"):
-            if want_ba_rm:
-                # right-camera observations of the map-matched features
-                rm_ba = _row_match(left, right, ~mm.feature_matched, config)
-                r_idx = rm_ba.right_idx[torch.clamp(mm.match_idx, 0, k - 1)]
-                obs_r = right.kp[torch.clamp(r_idx, 0, k - 1)]
-                w_r = ((mm.match_idx >= 0) & (r_idx >= 0)).float()
-            else:
-                # no right camera: no stereo anchor, so BA is inert
-                obs_r, w_r = torch.zeros_like(obs), torch.zeros_like(weights)
             ba_window, pose_final, refined_pos, ba_ran = _local_ba_update(
-                state.ba, final_map, pose_opt, obs, weights, obs_r, w_r,
-                removed | recycled, state.frame_number, config, group)
+                state.ba, final_map, pose_opt, obs, weights,
+                row_packed if want_ba_rm else None, mm.match_idx,
+                right.kp if want_ba_rm else None, map_bookkept.valid,
+                map_clean.valid, tri.map_taken,
+                promo.taken if staged_on else None, state.frame_number,
+                config, group)
         final_map = final_map._replace(pos=refined_pos)
 
     new = VOState(map=final_map, staged=tri.staged, pose=pose_final,

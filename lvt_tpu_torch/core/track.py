@@ -17,7 +17,11 @@ that XLA fuses on the TPU; none of them is a TPU kernel):
 * ``lvt_tpu_torch::triangulate_insert`` — the row match's acceptance and
   resolution, stereo triangulation (or RGB-D back-projection), the
   triangulation policy, and the insertion of the new points into the map
-  or the staged set (ops/triangulate.py:40-160, core/step.py:111-155).
+  or the staged set (ops/triangulate.py:40-160, core/step.py:111-155);
+* ``lvt_tpu_torch::ba_observe`` — with local BA on, the BA row match's
+  acceptance and resolution, each map slot's right-camera observation,
+  and the observation window's slide by this frame with its schedule
+  (core/step.py:486-512, :232-267).
 
 Each op is built as kernel T's (ops/top2.py):
 
@@ -51,9 +55,9 @@ from lvt_tpu_torch import kernels
 from lvt_tpu_torch.config import MATCHES_WINDOW_INIT
 from lvt_tpu_torch.core import map as map_ops
 from lvt_tpu_torch.core.motion import MotionState, predict_next_pose
-from lvt_tpu_torch.core.state import PointStore
+from lvt_tpu_torch.core.state import ObsWindow, PointStore
 from lvt_tpu_torch.geometry.se3 import Pose
-from lvt_tpu_torch.ops import hamming, matching, triangulate
+from lvt_tpu_torch.ops import hamming, matching, top2, triangulate
 from lvt_tpu_torch.ops.collectives import (axis_index, axis_size, por_if,
                                            psum_if)
 from lvt_tpu_torch.tree import tree_map
@@ -63,7 +67,7 @@ CAM_KEYS = ("fx", "fy", "cx", "cy", "near", "far", "min_x", "max_x", "min_y",
             "max_y")
 # the ops, in the step's order
 OPS = ("predict_project", "upkeep_pre", "staged_promote",
-       "triangulate_insert")
+       "triangulate_insert", "ba_observe")
 # feature slots the kernels hold per stream in shared memory (kernel T's
 # bound, ops/top2.py)
 MAX_K = 2048
@@ -805,3 +809,192 @@ def triangulate_insert(row_top2, left, right, pose: Pose, store: PointStore,
 
 
 triangulate_insert.launches = 0
+
+
+# ---- K6: lvt_tpu_torch::ba_observe
+
+def ba_observe_plain(row_b, match_idx, obs, weights, right_kp, pose: Pose,
+                     ba: ObsWindow, map_valid, bookkept_valid, clean_valid,
+                     map_taken, promo_taken, frame_number, *,
+                     ratio_threshold: float, abs_threshold: float,
+                     local_ba_every: int):
+    """Local BA's observations of this frame and the window's slide: the
+    BA row match from its top-2 (``row_b``: kernel T's second row set, the
+    map-matched features; acceptance and one-to-one resolution over the
+    right features), each map slot's right observation (the right keypoint
+    of its feature's row match, right feature 0's where none) and weight;
+    without a right camera (``right_kp`` [0, 2]) both zero, BA inert. The
+    window slides by this frame (PnP's pose, the map match's observations
+    ``obs`` and ``weights``), its weights cleared at the slots that are not
+    alive (invalid, culled, ``map_taken`` or ``promo_taken``: recycled;
+    ``promo_taken`` None without a staged set), ``n`` saturating at the
+    window; BA is due where the window is full and ``frame_number`` is a
+    multiple of ``local_ba_every``. Returns (window', do_ba)."""
+    f = ba.poses_t.shape[0]
+    k = right_kp.shape[0]
+    if k == 0:
+        obs_r, w_r = torch.zeros_like(obs), torch.zeros_like(weights)
+    else:
+        d1, d2, best, n_cand = row_b
+        idx = hamming.accept_matches(d1, d2, best, n_cand, ratio_threshold,
+                                     abs_threshold)
+        idx = hamming.resolve_one_to_one(idx, d1, k)
+        r_idx = idx[torch.clamp(match_idx, 0, k - 1)]
+        obs_r = right_kp[torch.clamp(r_idx, 0, k - 1)]
+        w_r = ((match_idx >= 0) & (r_idx >= 0)).float()
+    removed = bookkept_valid & ~clean_valid
+    recycled = map_taken if promo_taken is None else map_taken | promo_taken
+    alive = (map_valid & ~(removed | recycled))[None, :].float()
+
+    def slide(old, new):
+        return torch.cat([old[1:], new[None]], 0)
+
+    window = ObsWindow(
+        poses_t=slide(ba.poses_t, pose.t), poses_q=slide(ba.poses_q, pose.q),
+        obs=slide(ba.obs, obs), w=slide(ba.w, weights) * alive,
+        obs_r=slide(ba.obs_r, obs_r), w_r=slide(ba.w_r, w_r) * alive,
+        n=torch.clamp(ba.n + 1, max=f))
+    do_ba = (window.n >= f) & (frame_number % local_ba_every == 0)
+    return window, do_ba
+
+
+def _ba_observe_flat(fout, iout, match_idx, obs, weights, right_kp, t, q,
+                     poses_t, poses_q, w_obs, w_w, w_obs_r, w_w_r, n,
+                     map_valid, bookkept_valid, clean_valid, map_taken,
+                     promo_taken, frame_number, ratio, abs_th, every):
+    window, do_ba = ba_observe_plain(
+        top2._unpack(fout, iout)[1], match_idx, obs, weights, right_kp,
+        Pose(t, q), ObsWindow(poses_t, poses_q, w_obs, w_w, w_obs_r, w_w_r,
+                              n),
+        map_valid, bookkept_valid, clean_valid, map_taken,
+        promo_taken if promo_taken.shape[0] else None, frame_number,
+        ratio_threshold=ratio, abs_threshold=abs_th, local_ba_every=every)
+    return (*window, do_ba)
+
+
+@torch.library.custom_op("lvt_tpu_torch::ba_observe", mutates_args=(),
+                         device_types="cuda")
+def ba_observe_op(fout: torch.Tensor, iout: torch.Tensor,
+                  match_idx: torch.Tensor, obs: torch.Tensor,
+                  weights: torch.Tensor, right_kp: torch.Tensor,
+                  t: torch.Tensor, q: torch.Tensor, poses_t: torch.Tensor,
+                  poses_q: torch.Tensor, w_obs: torch.Tensor,
+                  w_w: torch.Tensor, w_obs_r: torch.Tensor,
+                  w_w_r: torch.Tensor, n: torch.Tensor,
+                  map_valid: torch.Tensor, bookkept_valid: torch.Tensor,
+                  clean_valid: torch.Tensor, map_taken: torch.Tensor,
+                  promo_taken: torch.Tensor, frame_number: torch.Tensor,
+                  ratio_threshold: float, abs_threshold: float,
+                  local_ba_every: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor]:
+    """S streams: kernel T's dual row outputs (fout [S, 2, 2, K] f32, iout
+    [S, 2, 2, K] int64, ``top2._pack``'s layout; the second set is read;
+    K = 0: no right camera), the map match's match_idx [S, M] int64, obs
+    [S, M, 2] and weights [S, M] f32, the right keypoints [S, K, 2], PnP's
+    pose (t [S, 3], q [S, 4]), the window (poses_t [S, F, 3], poses_q [S,
+    F, 4], obs [S, F, M, 2], w [S, F, M], obs_r [S, F, M, 2], w_r [S, F,
+    M] f32, n [S] int32), the map's validity after the insertions, after
+    the bookkeeping and after the cull, the slots the insertions and the
+    promotions took ([S, M] bool; promo_taken [S, 0] without a staged
+    set), the frame number [S] int32 -> the window' (its seven leaves) and
+    do_ba [S] bool.
+
+    CUDA: one launch of ``csrc/track.cu``'s ``ba_observe_kernel``, grid
+    (1 + copy blocks, S): block 0 of a stream (1024 threads) resolves the
+    row match over the right features (an atomicMin a target in shared
+    memory, two barriers) and writes the window's newest row, its poses,
+    ``n`` and ``do_ba``; the copy blocks slide the older rows."""
+    s, k = fout.shape[0], fout.shape[3]
+    m, f = match_idx.shape[1], poses_t.shape[1]
+    _require_k(k)
+    if f < 1:
+        raise ValueError("ba_observe: the window needs at least one pose")
+    if local_ba_every < 1:
+        raise ValueError(f"local_ba_every={local_ba_every}: must be >= 1")
+    dev = match_idx.device
+    f32, b8, i32 = torch.float32, torch.bool, torch.int32
+    np_ = promo_taken.shape[1]
+    for x, name, dtype, shape in (
+            (fout, "fout", f32, (s, 2, 2, k)),
+            (iout, "iout", torch.int64, (s, 2, 2, k)),
+            (match_idx, "match_idx", torch.int64, (s, m)),
+            (obs, "obs", f32, (s, m, 2)), (weights, "weights", f32, (s, m)),
+            (right_kp, "right_kp", f32, (s, k, 2)),
+            (t, "t", f32, (s, 3)), (q, "q", f32, (s, 4)),
+            (poses_t, "poses_t", f32, (s, f, 3)),
+            (poses_q, "poses_q", f32, (s, f, 4)),
+            (w_obs, "w_obs", f32, (s, f, m, 2)), (w_w, "w_w", f32, (s, f, m)),
+            (w_obs_r, "w_obs_r", f32, (s, f, m, 2)),
+            (w_w_r, "w_w_r", f32, (s, f, m)), (n, "n", i32, (s,)),
+            (map_valid, "map_valid", b8, (s, m)),
+            (bookkept_valid, "bookkept_valid", b8, (s, m)),
+            (clean_valid, "clean_valid", b8, (s, m)),
+            (map_taken, "map_taken", b8, (s, m)),
+            (promo_taken, "promo_taken", b8, (s, m if np_ else 0)),
+            (frame_number, "frame_number", i32, (s,))):
+        kernels.require(x, name, dtype, shape, dev)
+    outs = (torch.empty_like(poses_t), torch.empty_like(poses_q),
+            torch.empty_like(w_obs), torch.empty_like(w_w),
+            torch.empty_like(w_obs_r), torch.empty_like(w_w_r),
+            torch.empty_like(n), torch.empty((s,), dtype=b8, device=dev))
+    err = kernels.lib().lvt_ba_observe(
+        *_ptrs(fout, iout, match_idx, obs, weights, right_kp, t, q, poses_t,
+               poses_q, w_obs, w_w, w_obs_r, w_w_r, n, map_valid,
+               bookkept_valid, clean_valid, map_taken),
+        promo_taken.data_ptr() if np_ else None, frame_number.data_ptr(), s,
+        k, m, f, float(ratio_threshold), float(abs_threshold),
+        int(local_ba_every), *_ptrs(*outs), kernels.stream_ptr(match_idx))
+    kernels.check(err, "ba_observe")
+    ba_observe.launches += 1
+    return outs
+
+
+def _ba_observe_fake(fout, iout, match_idx, obs, weights, right_kp, t, q,
+                     poses_t, poses_q, w_obs, w_w, w_obs_r, w_w_r, n,
+                     *rest):
+    return (torch.empty_like(poses_t), torch.empty_like(poses_q),
+            torch.empty_like(w_obs), torch.empty_like(w_w),
+            torch.empty_like(w_obs_r), torch.empty_like(w_w_r),
+            torch.empty_like(n), n.new_empty(n.shape, dtype=torch.bool))
+
+
+_register("ba_observe",
+          lambda *a: kernels.per_stream(_ba_observe_flat, 21, a),
+          _ba_observe_fake, 21)
+
+
+def ba_observe(row_packed, match_idx, obs, weights, right_kp, pose: Pose,
+               ba: ObsWindow, map_valid, bookkept_valid, clean_valid,
+               map_taken, promo_taken, frame_number, *,
+               ratio_threshold: float, abs_threshold: float,
+               local_ba_every: int, group=None):
+    """:func:`ba_observe_plain` for one stream, from kernel T's packed dual
+    row outputs (``row_packed``: (fout, iout); None without a right camera,
+    and then ``right_kp`` None), as :func:`predict_project` dispatches.
+    Returns (window', do_ba)."""
+    kw = dict(ratio_threshold=ratio_threshold, abs_threshold=abs_threshold,
+              local_ba_every=local_ba_every)
+    if right_kp is None:
+        right_kp = obs[:0]
+        row_packed = (obs.new_zeros((2, 2, 0)),
+                      match_idx.new_zeros((2, 2, 0)))
+    if group is not None:
+        return ba_observe_plain(
+            top2._unpack(*row_packed)[1], match_idx, obs, weights, right_kp,
+            pose, ba, map_valid, bookkept_valid, clean_valid, map_taken,
+            promo_taken, frame_number, **kw)
+    _check_device(match_idx, "match_idx")
+    if promo_taken is None:
+        promo_taken = map_taken[:0]
+    out = [x[0] for x in ba_observe_op(
+        *(x[None] for x in (*row_packed, match_idx, obs, weights, right_kp,
+                            *pose, *ba, map_valid, bookkept_valid,
+                            clean_valid, map_taken, promo_taken,
+                            frame_number)),
+        float(ratio_threshold), float(abs_threshold), int(local_ba_every))]
+    return ObsWindow(*out[:7]), out[7]
+
+
+ba_observe.launches = 0

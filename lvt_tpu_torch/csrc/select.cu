@@ -22,7 +22,12 @@
 // __fdiv_rn: nvcc contracts nothing, so each rounding is torch's). The
 // low-corner fallback is per image: when fewer than low_count of its
 // selected slots score above t, ``valid`` compares against t_low. Slots
-// past ncells * k are zero.
+// past ncells * k are zero. Given kernel B's bit planes (the dense mode),
+// each slot also gets its 8 descriptor words read from the planes at its
+// corner (lvt_tpu/ops/brief.py:234-251 descriptors_from_planes, at the
+// integer corner, which the rounding and the clamps leave as it is), and
+// the descriptor's validity: ``valid`` and the corner at least BORDER
+// pixels inside the image; the words are zero where that is false.
 //
 // Design: one thread-block cluster per cell (grid (C, cells, images),
 // C = 8 blocks, 16 where a cell's rows need it). Block rank r owns the
@@ -81,6 +86,8 @@ constexpr int SMEM_MAX = 232448;     // shared memory a block may take
 constexpr int SMEM_STATIC = 8192;    // ... of which the static arrays' share
 constexpr int CLUSTER_PORTABLE = 8;
 constexpr int CLUSTER_MAX = 16;
+constexpr int DESC_WORDS = 8;        // a descriptor's words: B's planes
+constexpr int BORDER = 20;           // ops/brief.py BORDER
 
 typedef unsigned long long u64;
 
@@ -117,6 +124,9 @@ struct Out {
   uint8_t* valid;
   float* kp;       // [B, cap, 2] subpixel, or null
   float* corner;   // [B, cap, 2] the integer corner as f32, or null
+  const int* planes;   // [B, 8, h, w] kernel B's planes, or null
+  int* desc;           // [B, cap, 8] the descriptors (with the planes)
+  uint8_t* dvalid;     // [B, cap] the descriptors' validity
 };
 
 // detect._bitrev8 of an int's low byte
@@ -270,6 +280,21 @@ __device__ int write_slot(const float* img, const float* raw,
         __fadd_rn(static_cast<float>(yi), parab(c[-g.w], s0, c[g.w]));
     o.corner[2 * at] = static_cast<float>(xi);
     o.corner[2 * at + 1] = static_cast<float>(yi);
+  }
+  if (o.planes) {
+    // the descriptor at the corner, whose validity the image's last
+    // cluster completes; dvalid holds the border test until then
+    const long long hw = static_cast<long long>(g.h) * g.w;
+    const int* px = o.planes + (at / g.cap) * DESC_WORDS * hw +
+                    static_cast<long long>(yi) * g.w + xi;
+    int words[DESC_WORDS];
+#pragma unroll
+    for (int d = 0; d < DESC_WORDS; ++d) words[d] = px[d * hw];
+    int4* out = reinterpret_cast<int4*>(o.desc + DESC_WORDS * at);
+    out[0] = make_int4(words[0], words[1], words[2], words[3]);
+    out[1] = make_int4(words[4], words[5], words[6], words[7]);
+    o.dvalid[at] = xi >= BORDER && xi < g.w - BORDER && yi >= BORDER &&
+                   yi < g.h - BORDER;
   }
   return score > p.t;
 }
@@ -523,7 +548,16 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(THREADS)
   for (int s = s0 + threadIdx.x; s < s1; s += THREADS) {
     const long long at = row + s;
     if (s < used) {
-      o.valid[at] = __ldcg(o.score + at) > t_eff;
+      const bool v = __ldcg(o.score + at) > t_eff;
+      o.valid[at] = v;
+      if (o.planes) {
+        const bool dv = v && __ldcg(o.dvalid + at);
+        o.dvalid[at] = dv;
+        if (!dv) {
+          int4* out = reinterpret_cast<int4*>(o.desc + DESC_WORDS * at);
+          out[0] = out[1] = make_int4(0, 0, 0, 0);
+        }
+      }
     } else {
       o.xi[at] = 0;
       o.yi[at] = 0;
@@ -534,6 +568,11 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(THREADS)
       if (o.kp) {
         o.kp[2 * at] = o.kp[2 * at + 1] = 0.0f;
         o.corner[2 * at] = o.corner[2 * at + 1] = 0.0f;
+      }
+      if (o.planes) {
+        int4* out = reinterpret_cast<int4*>(o.desc + DESC_WORDS * at);
+        out[0] = out[1] = make_int4(0, 0, 0, 0);
+        o.dvalid[at] = 0;
       }
     }
   }
@@ -662,20 +701,24 @@ extern "C" int lvt_select_max_clusters(int batch, int h, int w,
               : max_active_clusters<CLUSTER_MAX, THREADS_NARROW>(g, batch);
 }
 
-// CS: the NMS map [B, h, w] f32 (and the raw score map, or null) -> the
-// slots [B, cap]: xi, yi, xc, yc int32, score f32, valid bool, and with
-// the raw map kp and corner [B, cap, 2] f32; blocks of `threads` (512 or
-// 256). counters: [2 B] int32 scratch, zeroed here by a memset node on the
-// stream. Grid (cluster, cells, B).
+// CS: the NMS map [B, h, w] f32 (and the raw score map, or null; and
+// kernel B's planes [B, 8, h, w] int32, or null) -> the slots [B, cap]:
+// xi, yi, xc, yc int32, score f32, valid bool, with the raw map kp and
+// corner [B, cap, 2] f32, with the planes desc [B, cap, 8] int32 and its
+// validity [B, cap]; blocks of `threads` (512 or 256). counters: [2 B]
+// int32 scratch, zeroed here by a memset node on the stream. Grid
+// (cluster, cells, B).
 extern "C" int lvt_select_corners(
     const float* map, const float* raw, int batch, int h, int w,
     int cell_size, int k, int cap, int threads, float t, float t_low,
-    int low_count, int spread, int x0, int x1, int y0, int y1, int* counters,
-    int* xi, int* yi, int* xc, int* yc, float* score, void* valid, float* kp,
-    float* corner, void* stream) {
+    int low_count, int spread, int x0, int x1, int y0, int y1,
+    const int* planes, int* counters, int* xi, int* yi, int* xc, int* yc,
+    float* score, void* valid, float* kp, float* corner, int* desc,
+    void* dvalid, void* stream) {
   Geometry g;
   if (!geometry(h, w, cell_size, k, cap, g) ||
-      (threads != THREADS_WIDE && threads != THREADS_NARROW))
+      (threads != THREADS_WIDE && threads != THREADS_NARROW) ||
+      (planes != nullptr && (raw == nullptr || desc == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch < 1) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -683,7 +726,9 @@ extern "C" int lvt_select_corners(
       counters, 0, sizeof(int) * 2 * static_cast<size_t>(batch), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Params p{t, t_low, low_count, spread, x0, x1, y0, y1};
-  const Out o{xi, yi, xc, yc, score, static_cast<uint8_t*>(valid), kp, corner};
+  const Out o{xi,     yi,     xc,   yc,     score, static_cast<uint8_t*>(valid),
+              kp,     corner, planes, desc,
+              static_cast<uint8_t*>(dvalid)};
   const bool wide = threads == THREADS_WIDE;
   if (g.cluster == CLUSTER_PORTABLE) {
     err = wide ? launch<CLUSTER_PORTABLE, THREADS_WIDE>(g, batch, map, raw, p,

@@ -5,7 +5,10 @@
 // re-match (one radius), the stereo row match and the BA row match (row
 // window). In lvt_tpu the [M, K] Hamming matrix it reads is XLA's work
 // (XOR + popcount, outside the Pallas kernel); here the distance is
-// computed in the kernel and the matrix never exists.
+// computed in the kernel and the matrix never exists. lvt_tpu builds one
+// row Hamming matrix for both row matches (their query sets are
+// complementary); its counterpart here is the dual row mode, one launch
+// that computes the top-2 of both query sets over the same window.
 //
 // One launch serves S independent streams (the multi-stream step, where
 // lvt_tpu vmaps the matching): blockIdx.y is the stream, and each stream
@@ -15,7 +18,12 @@
 //
 // Per query row it builds the candidate mask from the validity flags and
 // either the radius tests (dx*dx + dy*dy < r2) or the row window
-// (lo <= y_r <= hi). For a candidate the distance is the sum of
+// (lo <= y_r <= hi). In the row modes the query metadata is the left
+// keypoint, and the window is computed here as lvt_tpu's row_match does
+// (lvt_tpu/ops/matching.py:189-191): lo = max(floor(y) - r, 0) and
+// hi = min(floor(y) + r, rows) in float32 (a NaN stays NaN, as torch's
+// clamp keeps it, and matches nothing); the query set is valid & ~excl
+// (ROW), and in ROW_DUAL the second predicate's valid & incl. For a candidate the distance is the sum of
 // __popc(q[w] ^ t[w]) over the 8 descriptor words; keys (d << 11 | col)
 // are unique per row, so their minimum is the top-1 with the lowest column
 // winning ties, exactly as in the TPU kernel, and the decode to
@@ -52,7 +60,12 @@ constexpr int ROWS = 4;         // query rows per block
 constexpr int WARPS = 8;        // warps per block, splitting the columns
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Mode { RADIUS_DUAL = 0, RADIUS_SINGLE = 1, ROW = 2 };
+enum Mode { RADIUS_DUAL = 0, RADIUS_SINGLE = 1, ROW = 2, ROW_DUAL = 3 };
+
+// two predicates, each reduced apart
+__host__ __device__ constexpr bool dual(int mode) {
+  return mode == RADIUS_DUAL || mode == ROW_DUAL;
+}
 
 struct Top2 {
   int k1, k2, nc;
@@ -106,9 +119,10 @@ template <int MODE>
 __global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
     const int4* __restrict__ q_desc, const int4* __restrict__ t_desc,
     const float* __restrict__ qm, const uint8_t* __restrict__ qv,
-    const float* __restrict__ tm, const uint8_t* __restrict__ tv, int m,
-    int k, float r2a, float r2b, float* __restrict__ fout,
-    long long* __restrict__ iout) {
+    const float* __restrict__ tm, const uint8_t* __restrict__ tv,
+    const uint8_t* __restrict__ qx, const uint8_t* __restrict__ qi, int m,
+    int k, float r2a, float r2b, float row_r, float rows,
+    float* __restrict__ fout, long long* __restrict__ iout) {
   __shared__ int part[WARPS][ROWS][2][3];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -119,24 +133,42 @@ __global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
   t_desc += s * k * 2;
   qm += s * m * 2;
   qv += s * m;
+  if (MODE == ROW || MODE == ROW_DUAL) qx += s * m;
+  if (MODE == ROW_DUAL) qi += s * m;
   tm += s * k * 2;
   tv += s * k;
   fout += s * 4 * m;
   iout += s * 4 * m;
 
   uint32_t q[ROWS][8];
+  // radius modes: the query's (x, y); row modes: its window (lo, hi)
   float q0[ROWS], q1[ROWS];
-  bool ok[ROWS];
+  bool oka[ROWS], okb[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = row0 + r;
-    ok[r] = row < m && qv[row];
-    const int4 lo = ok[r] ? q_desc[2 * row] : make_int4(0, 0, 0, 0);
-    const int4 hi = ok[r] ? q_desc[2 * row + 1] : make_int4(0, 0, 0, 0);
+    const bool v = row < m && qv[row];
+    if (MODE == ROW || MODE == ROW_DUAL) {
+      oka[r] = v && !qx[row];
+      okb[r] = MODE == ROW_DUAL && v && qi[row];
+    } else {
+      oka[r] = v;
+      okb[r] = v;
+    }
+    const bool ok = oka[r] || okb[r];
+    const int4 lo = ok ? q_desc[2 * row] : make_int4(0, 0, 0, 0);
+    const int4 hi = ok ? q_desc[2 * row + 1] : make_int4(0, 0, 0, 0);
     q[r][0] = lo.x; q[r][1] = lo.y; q[r][2] = lo.z; q[r][3] = lo.w;
     q[r][4] = hi.x; q[r][5] = hi.y; q[r][6] = hi.z; q[r][7] = hi.w;
-    q0[r] = ok[r] ? qm[2 * row] : 0.0f;
-    q1[r] = ok[r] ? qm[2 * row + 1] : 0.0f;
+    q0[r] = ok ? qm[2 * row] : 0.0f;
+    q1[r] = ok ? qm[2 * row + 1] : 0.0f;
+    if (MODE == ROW || MODE == ROW_DUAL) {
+      // matching.row_match's window: the clamps keep a NaN
+      const float y = floorf(q1[r]);
+      const float lo_y = __fsub_rn(y, row_r), hi_y = __fadd_rn(y, row_r);
+      q0[r] = lo_y < 0.0f ? 0.0f : lo_y;
+      q1[r] = hi_y > rows ? rows : hi_y;
+    }
   }
 
   Top2 a[ROWS], b[ROWS];
@@ -154,16 +186,17 @@ __global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
     bool pa[ROWS], pb[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      if (MODE == ROW) {
+      if (MODE == ROW || MODE == ROW_DUAL) {
         // (q0, q1) is the (lo, hi) row window
-        pa[r] = ok[r] && ty >= q0[r] && ty <= q1[r];
-        pb[r] = false;
+        const bool in = ty >= q0[r] && ty <= q1[r];
+        pa[r] = oka[r] && in;
+        pb[r] = okb[r] && in;
       } else {
         const float dx = __fsub_rn(tx, q0[r]);
         const float dy = __fsub_rn(ty, q1[r]);
         const float dr2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        pa[r] = ok[r] && dr2 < r2a;
-        pb[r] = MODE == RADIUS_DUAL && ok[r] && dr2 < r2b;
+        pa[r] = oka[r] && dr2 < r2a;
+        pb[r] = MODE == RADIUS_DUAL && oka[r] && dr2 < r2b;
       }
       any = any || pa[r] || pb[r];
     }
@@ -182,7 +215,7 @@ __global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     warp_reduce(a[r]);
-    if (MODE == RADIUS_DUAL) warp_reduce(b[r]);
+    if (dual(MODE)) warp_reduce(b[r]);
     if (lane == 0) {
       part[warp][r][0][0] = a[r].k1;
       part[warp][r][0][1] = a[r].k2;
@@ -200,7 +233,7 @@ __global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
   const int r = t >> 1;
   const int row = row0 + r;
   if (row >= m) return;
-  const int p = (MODE == RADIUS_DUAL) ? (t & 1) : 0;  // one predicate, twice
+  const int p = dual(MODE) ? (t & 1) : 0;  // one predicate, twice
   Top2 acc{IMAX, IMAX, 0};
 #pragma unroll
   for (int w = 0; w < WARPS; ++w)
@@ -210,30 +243,34 @@ __global__ void __launch_bounds__(WARPS * 32) hamming_top2_kernel(
 
 }  // namespace
 
-// Inputs [S, M, 8], [S, K, 8], [S, M, 2], [S, M], [S, K, 2], [S, K];
-// outputs fout, iout [S, 2, 2, M]. The grid is (row blocks, S).
+// Inputs [S, M, 8], [S, K, 8], [S, M, 2], [S, M], [S, K, 2], [S, K], and
+// in the row modes the exclusion [S, M] (and in ROW_DUAL the second set
+// [S, M]); outputs fout, iout [S, 2, 2, M]. The grid is (row blocks, S).
 extern "C" int lvt_hamming_top2(const int* q_desc, const int* t_desc,
                                 const float* q_meta, const uint8_t* q_valid,
                                 const float* t_meta, const uint8_t* t_valid,
+                                const uint8_t* q_excl, const uint8_t* q_incl,
                                 int n_streams, int m, int k, float r2a,
-                                float r2b, int mode, float* fout,
-                                long long* iout, void* stream) {
-  if (n_streams > 65535) return static_cast<int>(cudaErrorInvalidValue);
+                                float r2b, float row_r, float rows, int mode,
+                                float* fout, long long* iout, void* stream) {
+  if (n_streams > 65535 || mode < RADIUS_DUAL || mode > ROW_DUAL)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 blocks((m + ROWS - 1) / ROWS, n_streams);
   if (blocks.x > 0 && blocks.y > 0) {
     const auto* qd = reinterpret_cast<const int4*>(q_desc);
     const auto* td = reinterpret_cast<const int4*>(t_desc);
     const auto s = static_cast<cudaStream_t>(stream);
-    if (mode == RADIUS_DUAL) {
-      hamming_top2_kernel<RADIUS_DUAL><<<blocks, WARPS * 32, 0, s>>>(
-          qd, td, q_meta, q_valid, t_meta, t_valid, m, k, r2a, r2b, fout, iout);
-    } else if (mode == RADIUS_SINGLE) {
-      hamming_top2_kernel<RADIUS_SINGLE><<<blocks, WARPS * 32, 0, s>>>(
-          qd, td, q_meta, q_valid, t_meta, t_valid, m, k, r2a, r2b, fout, iout);
-    } else {
-      hamming_top2_kernel<ROW><<<blocks, WARPS * 32, 0, s>>>(
-          qd, td, q_meta, q_valid, t_meta, t_valid, m, k, r2a, r2b, fout, iout);
+#define LVT_T_LAUNCH(MODE)                                                   \
+  hamming_top2_kernel<MODE><<<blocks, WARPS * 32, 0, s>>>(                   \
+      qd, td, q_meta, q_valid, t_meta, t_valid, q_excl, q_incl, m, k, r2a, \
+      r2b, row_r, rows, fout, iout)
+    switch (mode) {
+      case RADIUS_DUAL: LVT_T_LAUNCH(RADIUS_DUAL); break;
+      case RADIUS_SINGLE: LVT_T_LAUNCH(RADIUS_SINGLE); break;
+      case ROW: LVT_T_LAUNCH(ROW); break;
+      default: LVT_T_LAUNCH(ROW_DUAL); break;
     }
+#undef LVT_T_LAUNCH
   }
   return static_cast<int>(cudaGetLastError());
 }

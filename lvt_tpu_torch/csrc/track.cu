@@ -22,7 +22,13 @@
 //   targets), the map's and the staged set's slots spread over its blocks;
 // * map_accept_kernel: the map match's acceptance and one-to-one
 //   resolution at both radii, the wide retry, the claims, the count and
-//   PnP's observations and weights; one block per stream, three barriers.
+//   PnP's observations and weights; one block per stream, two barriers;
+// * ba_observe_kernel: with local BA on, the BA row match's acceptance and
+//   one-to-one resolution (kernel T's second row set), each map slot's
+//   right-camera observation, and the observation window's slide with its
+//   schedule (core/step.py's local BA); a block per stream for the
+//   resolution and the newest row, two barriers, and copy blocks beside it
+//   for the older rows.
 //
 // Every float operation is written as the plain version's torch ops round
 // it (__fmul_rn / __fadd_rn / __fdiv_rn: nvcc contracts nothing; `1.0 / x`
@@ -1326,6 +1332,163 @@ __global__ void __launch_bounds__(THREADS) map_accept_kernel(
   TRACK_CLOCK(49);
 }
 
+// ---- K6
+
+// The BA row match and the window's slide (core/track.py::
+// ba_observe_plain). T's outputs as it writes them (fout [S, 2, 2, K],
+// iout [S, 2, 2, K]; the second predicate is the BA row set, the
+// map-matched left features, so load_match's radius index 1 reads it).
+//
+// Grid (1 + copy blocks, S). Block 0 of a stream: before the first barrier
+// each thread clears its targets' keys, loads its two queries' top-2 and
+// accepts them, stages its two right keypoints in shared memory and loads
+// its map slot's match, observation, weight and the five masks of its
+// liveness; it also copies the window's poses (the oldest dropped, PnP's
+// pose appended). Between the barriers each accepted query takes an
+// atomicMin of its key (distance x (K + 1) + index, unique) at its target
+// and leaves its target and key in shared memory. After the second a map
+// slot's right index is its feature's target where the feature's key won
+// (-1 elsewhere), its observation the right keypoint there (clamped as
+// the plain version's gathers clamp), and the window's newest row is
+// written with the weights times the slot's liveness (a product with 1 or
+// 0, as the plain version's). Without a right camera (K = 0) the right
+// observations and weights are zero. The copy blocks move the F - 1 older
+// rows down by one, a (row, slot) item a thread, weights times liveness.
+__global__ void __launch_bounds__(THREADS) ba_observe_kernel(
+    const float* __restrict__ fout, const long long* __restrict__ iout,
+    const long long* __restrict__ match_idx, const float2* __restrict__ obs,
+    const float* __restrict__ weights, const float2* __restrict__ rkp,
+    const float* __restrict__ t, const float* __restrict__ q,
+    const float* __restrict__ poses_t, const float* __restrict__ poses_q,
+    const float2* __restrict__ w_obs, const float* __restrict__ w_w,
+    const float2* __restrict__ w_obs_r, const float* __restrict__ w_w_r,
+    const int* __restrict__ n_in, const uint8_t* __restrict__ mvalid,
+    const uint8_t* __restrict__ bvalid, const uint8_t* __restrict__ cvalid,
+    const uint8_t* __restrict__ taken, const uint8_t* __restrict__ ptaken,
+    const int* __restrict__ frame, int k, int m, int f, float ratio,
+    float abs_th, int every, float* __restrict__ poses_t_out,
+    float* __restrict__ poses_q_out, float2* __restrict__ obs_out,
+    float* __restrict__ w_out, float2* __restrict__ obs_r_out,
+    float* __restrict__ w_r_out, int* __restrict__ n_out,
+    uint8_t* __restrict__ do_ba) {
+  const long long s = blockIdx.y;
+  const long long fm = static_cast<long long>(f) * m;
+  const long long wb = s * fm;   // the stream's window rows
+  const int tid = threadIdx.x;
+  // a slot is alive where the map holds it after the insertions and
+  // nothing culled or recycled it this frame
+  auto alive = [&](int j) {
+    const long long i = s * m + j;
+    const bool removed = bvalid[i] && !cvalid[i];
+    const bool recycled = taken[i] || (ptaken != nullptr && ptaken[i]);
+    return mvalid[i] && !(removed || recycled) ? 1.0f : 0.0f;
+  };
+  if (blockIdx.x > 0) {
+    // the older rows: row r + 1 of the window becomes row r
+    const long long items = static_cast<long long>(f - 1) * m;
+    for (long long i = static_cast<long long>(blockIdx.x - 1) * THREADS + tid;
+         i < items; i += static_cast<long long>(gridDim.x - 1) * THREADS) {
+      const int j = static_cast<int>(i % m);
+      const long long from = wb + i + m, to = wb + i;
+      const float2 o = w_obs[from], o_r = w_obs_r[from];
+      const float w = w_w[from], w_r = w_w_r[from];
+      const float a = alive(j);
+      obs_out[to] = o;
+      obs_r_out[to] = o_r;
+      w_out[to] = __fmul_rn(w, a);
+      w_r_out[to] = __fmul_rn(w_r, a);
+    }
+    return;
+  }
+  // the right keypoints [k], the key of each target [k + 1], each query's
+  // accepted target and key [k]
+  extern __shared__ float2 rkp_s[];
+  int* const keys = reinterpret_cast<int*>(rkp_s + k);
+  int* const q_idx = keys + k + 1;
+  int* const q_key = q_idx + k;
+  const float* fo = fout + 4 * s * k;
+  const long long* io = iout + 4 * s * k;
+  TRACK_CLOCK(60);
+  for (int j = tid; j <= k; j += THREADS) keys[j] = IMAX;
+  Match mq[2];
+  float2 kq[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int qi = tid + u * THREADS;
+    mq[u] = Match{0.0f, 0.0f, -1};
+    if (qi < k) {
+      mq[u] = load_match(fo, io, k, qi, 1, ratio, abs_th);
+      kq[u] = rkp[s * k + qi];
+    }
+  }
+  long long mi = -1;
+  float2 o0 = make_float2(0.0f, 0.0f);
+  float w0 = 0.0f, a0 = 0.0f;
+  if (tid < m) {
+    const long long i = s * m + tid;
+    mi = match_idx[i];
+    o0 = obs[i];
+    w0 = weights[i];
+    a0 = alive(tid);
+  }
+  // the poses: the oldest dropped, PnP's appended
+  for (int i = tid; i < 7 * f; i += THREADS) {
+    const bool is_t = i < 3 * f;
+    const int c = is_t ? i : i - 3 * f, w = is_t ? 3 : 4, r = c / w;
+    const float* src = is_t ? poses_t + s * 3 * f : poses_q + s * 4 * f;
+    const float* now = is_t ? t + 3 * s : q + 4 * s;
+    float* dst = is_t ? poses_t_out + s * 3 * f : poses_q_out + s * 4 * f;
+    dst[c] = r < f - 1 ? src[c + w] : now[c - r * w];
+  }
+  if (tid == 0) {
+    const int n1 = min(n_in[s] + 1, f);
+    n_out[s] = n1;
+    do_ba[s] = n1 >= f && frame[s] % every == 0;
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+    if (tid + u * THREADS < k) rkp_s[tid + u * THREADS] = kq[u];
+  __syncthreads();   // 1: the keys clear, the right keypoints staged
+  TRACK_CLOCK(61);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int qi = tid + u * THREADS;
+    if (qi < k) {
+      const int key = resolve_key(mq[u].d1, qi, k);
+      const int target = static_cast<int>(mq[u].idx);
+      if (target >= 0) atomicMin(&keys[target], key);
+      q_idx[qi] = target;
+      q_key[qi] = key;
+    }
+  }
+  __syncthreads();   // 2: the row match resolved
+  TRACK_CLOCK(62);
+  const long long last = wb + static_cast<long long>(f - 1) * m;
+  for (int j = tid; j < m; j += THREADS) {
+    if (j >= THREADS) {
+      const long long i = s * m + j;
+      mi = match_idx[i];
+      o0 = obs[i];
+      w0 = weights[i];
+      a0 = alive(j);
+    }
+    float2 o_r = make_float2(0.0f, 0.0f);
+    float w_r = 0.0f;
+    if (k > 0) {
+      const int qq = mi < 0 ? 0 : static_cast<int>(mi > k - 1 ? k - 1 : mi);
+      const int target = q_idx[qq];
+      const int r = target >= 0 && keys[target] == q_key[qq] ? target : -1;
+      o_r = rkp_s[r < 0 ? 0 : r];
+      w_r = mi >= 0 && r >= 0 ? 1.0f : 0.0f;
+    }
+    obs_out[last + j] = o0;
+    w_out[last + j] = __fmul_rn(w0, a0);
+    obs_r_out[last + j] = o_r;
+    w_r_out[last + j] = __fmul_rn(w_r, a0);
+  }
+  TRACK_CLOCK(69);
+}
+
 // Raises the kernel's dynamic shared memory limit to `bytes` when it
 // exceeds the default 48 KB (a host-side call, allowed during capture).
 template <typename K>
@@ -1557,6 +1720,53 @@ extern "C" int lvt_map_accept(
         static_cast<const uint8_t*>(fvalid), kp, m, k, ratio, abs_th,
         retry_min, match_idx, d1, d2, static_cast<uint8_t*>(fm), count,
         static_cast<uint8_t*>(wide), reinterpret_cast<float2*>(obs), weights);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: T's dual row outputs (fout [S, 2, 2, K] f32, iout [S, 2, 2, K]
+// int64; K = 0 without a right camera), match_idx [S, M] int64, obs [S, M,
+// 2], weights [S, M], the right keypoints [S, K, 2], PnP's pose (t [S, 3],
+// q [S, 4]), the window (poses_t [S, F, 3], poses_q [S, F, 4], obs [S, F,
+// M, 2], w [S, F, M], obs_r, w_r, n [S] int32), the map's validity after
+// the insertions, the bookkeeping and the cull, the slots taken by the
+// insertions and the promotions (null: none) [S, M], the frame number [S]
+// -> the window' (seven leaves) and do_ba [S]. Grid (1 + copy blocks, S).
+extern "C" int lvt_ba_observe(
+    const float* fout, const long long* iout, const long long* match_idx,
+    const float* obs, const float* weights, const float* rkp, const float* t,
+    const float* q, const float* poses_t, const float* poses_q,
+    const float* w_obs, const float* w_w, const float* w_obs_r,
+    const float* w_w_r, const int* n, const void* mvalid, const void* bvalid,
+    const void* cvalid, const void* taken, const void* ptaken,
+    const int* frame, int n_streams, int k, int m, int f, float ratio,
+    float abs_th, int every, float* poses_t_out, float* poses_q_out,
+    float* obs_out, float* w_out, float* obs_r_out, float* w_r_out,
+    int* n_out, void* do_ba, void* stream) {
+  if (k > 2 * THREADS || f < 1 || every < 1 || n_streams > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_streams > 0) {
+    const long long items = static_cast<long long>(f - 1) * m;
+    const int copy = static_cast<int>(
+        items > 0 ? (items + THREADS - 1) / THREADS : 0);
+    const int copy_blocks = copy < 64 ? copy : 64;
+    // the right keypoints, the keys, the queries' targets and keys: under
+    // 48 KB
+    const size_t smem = sizeof(float2) * k + sizeof(int) * (3 * k + 1);
+    ba_observe_kernel<<<dim3(1 + copy_blocks, n_streams), THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        fout, iout, match_idx, reinterpret_cast<const float2*>(obs),
+        weights, reinterpret_cast<const float2*>(rkp), t, q, poses_t,
+        poses_q, reinterpret_cast<const float2*>(w_obs), w_w,
+        reinterpret_cast<const float2*>(w_obs_r), w_w_r, n,
+        static_cast<const uint8_t*>(mvalid),
+        static_cast<const uint8_t*>(bvalid),
+        static_cast<const uint8_t*>(cvalid),
+        static_cast<const uint8_t*>(taken),
+        static_cast<const uint8_t*>(ptaken), frame, k, m, f, ratio, abs_th,
+        every, poses_t_out, poses_q_out, reinterpret_cast<float2*>(obs_out),
+        w_out, reinterpret_cast<float2*>(obs_r_out), w_r_out, n_out,
+        static_cast<uint8_t*>(do_ba));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,8 +40,8 @@ _SIGNATURES = {
     "lvt_brief_planes": [_P, _P, _I, _I, _I, _P],
     "lvt_describe_refine": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _P],
-    "lvt_hamming_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
-                         _P, _P],
+    "lvt_hamming_top2": [_P] * 8 + [_I, _I, _I, _F, _F, _F, _F, _I, _P, _P,
+                                    _P],
     "lvt_pnp_normal_eqs": [_P, _P, _P, _I, _I, _P, _P, _P],
     "lvt_stream_sum": [_P, _I, _I, _P, _P],
     "lvt_pnp_solve": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _P, _P,
@@ -64,10 +64,11 @@ _SIGNATURES = {
     "lvt_track_shape": [_P],
     "lvt_track_max_clusters": [_I] * 6,
     "lvt_map_accept": [_P] * 5 + [_I] * 3 + [_F, _F, _I] + [_P] * 9,
+    "lvt_ba_observe": [_P] * 21 + [_I] * 4 + [_F, _F, _I] + [_P] * 9,
     "lvt_select_geometry": [_I] * 5 + [_P],
     "lvt_select_max_clusters": [_I] * 7,
     "lvt_select_corners": ([_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 6
-                           + [_P] * 10),
+                           + [_P] * 13),
     "lvt_step_tail": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 6 + [_P],
     "lvt_copy_leaves": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                         _P],

@@ -286,16 +286,21 @@ def _thresholds(threshold) -> tuple[float, float]:
     return float(t), float(np.floor(t * np.float32(0.5) + np.float32(0.5)))
 
 
-def select_corners_plain(nms, raw, threshold: float, cell_size: int,
+def select_corners_plain(nms, raw, planes, threshold: float, cell_size: int,
                          max_per_cell: int, corners_low_threshold: int,
                          spread_ties: bool, capacity: int) -> tuple:
     """The plain version of ``lvt_tpu_torch::select_corners`` on [B, H, W]
     maps: :func:`select_corners` at the maps' extent, each output padded
     with zeros to ``capacity`` slots, and kernel P's clamped corners
     (``patches.clamp_coords``). Returns (xi, yi, xc, yc [B, capacity]
-    int32, score f32, valid bool, kp, corner [B, capacity, 2] f32); with
-    an empty ``raw`` (patch mode) kp and corner are [B, 0, 2], else kp is
-    the corner refined on ``raw`` and corner the integer corner."""
+    int32, score f32, valid bool, kp, corner [B, capacity, 2] f32, desc
+    [B, capacity, 8] int32, desc_valid [B, capacity] bool); with an empty
+    ``raw`` (patch mode) kp and corner are [B, 0, 2], else kp is the
+    corner refined on ``raw`` and corner the integer corner; with kernel
+    B's ``planes`` [B, 8, H, W] (dense mode; else empty) desc and
+    desc_valid are ``brief.descriptors_from_planes`` at the corners, else
+    [B, 0, 8] and [B, 0]."""
+    from lvt_tpu_torch.ops import brief
     from lvt_tpu_torch.ops.patches import clamp_coords
 
     b, h, w = nms.shape
@@ -316,7 +321,15 @@ def select_corners_plain(nms, raw, threshold: float, cell_size: int,
         kp, corner = pad(det.kp), pad(det.kp_int.float())
     else:
         kp, corner = nms.new_zeros((b, 0, 2)), nms.new_zeros((b, 0, 2))
-    return xi, yi, xc, yc, pad(det.score), pad(det.valid), kp, corner
+    valid = pad(det.valid)
+    if planes.numel() > 0:
+        desc, desc_valid = brief.descriptors_from_planes(planes, corner, valid)
+        desc = desc.contiguous()
+    else:
+        desc = xi.new_zeros((b, 0, brief.N_BITS // 32))
+        desc_valid = valid.new_zeros((b, 0))
+    return (xi, yi, xc, yc, pad(det.score), valid, kp, corner, desc,
+            desc_valid)
 
 
 @functools.lru_cache(maxsize=None)
@@ -339,14 +352,16 @@ def select_threads(device: int, batch: int, h: int, w: int, cell_size: int,
 @torch.library.custom_op("lvt_tpu_torch::select_corners", mutates_args=(),
                          device_types="cuda")
 def select_corners_op(nms: torch.Tensor, raw: torch.Tensor,
-                      threshold: float, cell_size: int, max_per_cell: int,
-                      corners_low_threshold: int, spread_ties: bool,
-                      capacity: int
+                      planes: torch.Tensor, threshold: float, cell_size: int,
+                      max_per_cell: int, corners_low_threshold: int,
+                      spread_ties: bool, capacity: int
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor, torch.Tensor, torch.Tensor,
-                                 torch.Tensor, torch.Tensor]:
-    """B images: the NMS map [B, H, W] f32 and the raw score map [B, H, W]
-    (empty: patch mode) -> :func:`select_corners_plain`'s outputs.
+                                 torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """B images: the NMS map [B, H, W] f32, the raw score map [B, H, W]
+    (empty: patch mode) and kernel B's planes [B, 8, H, W] int32 (empty:
+    not the dense mode) -> :func:`select_corners_plain`'s outputs.
 
     CUDA: one launch of ``csrc/select.cu``'s ``select_corners_kernel``,
     a thread-block cluster per cell (grid (blocks per cell, cells,
@@ -355,13 +370,22 @@ def select_corners_op(nms: torch.Tensor, raw: torch.Tensor,
     by a radix select over distributed shared memory and writes the
     cell's slots, the last cell of an image applies the low-corner
     fallback (its two counters per image are a scratch the wrapper
-    allocates and the launch zeroes); blocks of ``select_threads``."""
+    allocates and the launch zeroes); blocks of ``select_threads``. With
+    the planes each slot's 8 descriptor words are read from them at its
+    corner as the slot is written, and the fallback's pass zeroes those of
+    the slots that end invalid or within the border."""
     b, h, w = nms.shape
     dev = nms.device
     kernels.require(nms, "nms", torch.float32, (b, h, w), dev)
     subpixel = raw.numel() > 0
     if subpixel:
         kernels.require(raw, "raw", torch.float32, (b, h, w), dev)
+    dense = planes.numel() > 0
+    if dense:
+        if not subpixel:
+            raise ValueError("select_corners: the planes' descriptors need "
+                             "the raw map's corners")
+        kernels.require(planes, "planes", torch.int32, (b, 8, h, w), dev)
     geo = (ctypes.c_int * 7)()
     if kernels.lib().lvt_select_geometry(h, w, cell_size, max_per_cell,
                                          capacity, geo):
@@ -381,7 +405,10 @@ def select_corners_op(nms: torch.Tensor, raw: torch.Tensor,
             torch.empty((b, capacity), dtype=torch.bool, device=dev),
             *(torch.empty((b, capacity if subpixel else 0, 2),
                           dtype=torch.float32, device=dev)
-              for _ in range(2)))
+              for _ in range(2)),
+            torch.empty((b, capacity if dense else 0, 8), **i32),
+            torch.empty((b, capacity if dense else 0), dtype=torch.bool,
+                        device=dev))
     t, t_low = _thresholds(threshold)
     threads = select_threads(dev.index, b, h, w, cell_size, max_per_cell,
                              capacity)
@@ -390,45 +417,55 @@ def select_corners_op(nms: torch.Tensor, raw: torch.Tensor,
         cell_size, max_per_cell, capacity, threads, t, t_low,
         int(corners_low_threshold), int(spread_ties), PATCH_C0,
         w - PATCH + PATCH_C0, PATCH_R0, h - PATCH + PATCH_R0,
-        counters.data_ptr(),
+        planes.data_ptr() if dense else None, counters.data_ptr(),
         *(x.data_ptr() for x in outs[:6]),
-        *((x.data_ptr() if subpixel else None) for x in outs[6:]),
+        *((x.data_ptr() if subpixel else None) for x in outs[6:8]),
+        *((x.data_ptr() if dense else None) for x in outs[8:]),
         kernels.stream_ptr(nms))
     kernels.check(err, "select_corners")
     select_slots.launches += 1
     return outs
 
 
-def _select_corners_fake(nms, raw, threshold, cell_size, max_per_cell,
-                         corners_low_threshold, spread_ties, capacity):
+def _select_corners_fake(nms, raw, planes, threshold, cell_size,
+                         max_per_cell, corners_low_threshold, spread_ties,
+                         capacity):
     b = nms.shape[0]
     n_kp = capacity if raw.numel() > 0 else 0
+    n_desc = capacity if planes.numel() > 0 else 0
     return (*(nms.new_empty((b, capacity), dtype=torch.int32)
               for _ in range(4)),
             nms.new_empty((b, capacity)),
             nms.new_empty((b, capacity), dtype=torch.bool),
-            nms.new_empty((b, n_kp, 2)), nms.new_empty((b, n_kp, 2)))
+            nms.new_empty((b, n_kp, 2)), nms.new_empty((b, n_kp, 2)),
+            nms.new_empty((b, n_desc, 8), dtype=torch.int32),
+            nms.new_empty((b, n_desc), dtype=torch.bool))
 
 
 kernels.register_stream_op(sys.modules[__name__], "select_corners",
-                           select_corners_plain, _select_corners_fake, 2)
+                           select_corners_plain, _select_corners_fake, 3)
 
 
 def select_slots(nms: torch.Tensor, threshold, *, cell_size: int,
                  max_per_cell: int, corners_low_threshold: int,
                  spread_ties: bool, capacity: int,
-                 score_raw: torch.Tensor | None = None) -> tuple:
+                 score_raw: torch.Tensor | None = None,
+                 planes: torch.Tensor | None = None) -> tuple:
     """Per-cell selection on [B, H, W] maps into ``capacity`` slots per
     image (the op ``lvt_tpu_torch::select_corners``; ``score_raw`` given:
-    the subpixel refinement on it). CPU tensors take the plain version,
+    the subpixel refinement on it; ``planes`` given, kernel B's: each
+    slot's descriptor from them). CPU tensors take the plain version,
     CUDA tensors the kernel (any other device raises); under
     ``torch.func.vmap`` one launch serves every image."""
     if nms.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms: expected a CUDA tensor, got {nms.device}")
     raw = nms.new_zeros((0,)) if score_raw is None else score_raw
-    return select_corners_op(nms, raw, float(threshold), int(cell_size),
-                             int(max_per_cell), int(corners_low_threshold),
-                             bool(spread_ties), int(capacity))
+    planes = (nms.new_zeros((0,), dtype=torch.int32) if planes is None
+              else planes)
+    return select_corners_op(nms, raw, planes, float(threshold),
+                             int(cell_size), int(max_per_cell),
+                             int(corners_low_threshold), bool(spread_ties),
+                             int(capacity))
 
 
 select_slots.launches = 0

@@ -1,8 +1,9 @@
 """Projection matching (map -> frame) and stereo row matching.
 
 Port of lvt_tpu/ops/matching.py. Both radii of the map match, and the row
-window of the row match, reduce through kernel T (ops/top2.py), which
-takes the descriptors and computes the Hamming distances itself. After T,
+window of the row matches, reduce through kernel T (ops/top2.py), which
+takes the descriptors and computes the Hamming distances (and in row mode
+each query's window) itself. After T,
 the map match's acceptance, one-to-one resolution, wide retry and claims,
 and the step's observations for PnP, are the custom op
 ``lvt_tpu_torch::map_accept`` (:func:`map_accept`), built as kernel T's op:
@@ -236,49 +237,16 @@ def match_projected(uv, visible, map_desc, feats: FrameFeatures, *,
     return MapMatchResult(projection=uv, visible=visible, **out)
 
 
-class RowMatchResult(NamedTuple):
-    right_idx: torch.Tensor      # [K] int64, -1 = none
-    left_matched: torch.Tensor   # [K] bool
-    right_matched: torch.Tensor  # [K] bool
-    count: torch.Tensor          # [] int64
-
-
-def row_window(left: FrameFeatures, left_excluded: torch.Tensor, *,
-               vertical_search_radius: int, img_rows: int):
-    """The query side of a row match: each left feature's window of right
-    rows, floor(y_l) -+ r clamped to the image, [K, 2] (lo, hi), and which
-    left features query [K] (valid and not excluded)."""
-    query_ok = left.valid & ~left_excluded
-    y_l = torch.floor(left.kp[:, 1])
-    lo = torch.clamp(y_l - vertical_search_radius, min=0.0)
-    hi = torch.clamp(y_l + vertical_search_radius, max=float(img_rows))
-    return torch.stack([lo, hi], dim=-1), query_ok
-
-
-def row_top2(left: FrameFeatures, right: FrameFeatures, window, query_ok):
-    """Kernel T in row mode: (d1, d2, best, n_cand) per left feature."""
-    return hamming_top2(left.desc, right.desc, window, query_ok, right.kp,
-                        right.valid, r2a=0.0, r2b=0.0, row_mode=True)[0]
-
-
-def row_match(
-    left: FrameFeatures, right: FrameFeatures, left_excluded: torch.Tensor, *,
-    vertical_search_radius: int, ratio_threshold: float,
-    abs_threshold: float, img_rows: int,
-) -> RowMatchResult:
-    """Epipolar row matching: right candidates lie within
-    floor(y_l) -+ r rows (clamped to the image)."""
-    window, query_ok = row_window(
-        left, left_excluded, vertical_search_radius=vertical_search_radius,
-        img_rows=img_rows)
-    d1, d2, best, n_cand = row_top2(left, right, window, query_ok)
-    k = left.kp.shape[0]
-    idx = hamming.accept_matches(d1, d2, best, n_cand, ratio_threshold,
-                                 abs_threshold)
-    idx = hamming.resolve_one_to_one(idx, d1, k)
-    left_matched = idx >= 0
-    return RowMatchResult(
-        right_idx=idx, left_matched=left_matched,
-        right_matched=hamming.claim_mask(idx, k) & right.valid,
-        count=left_matched.sum(),
-    )
+def row_top2_packed(left: FrameFeatures, right: FrameFeatures,
+                    left_excluded, left_included=None, *,
+                    vertical_search_radius: int, img_rows: int):
+    """Kernel T in row mode, packed as the op writes it (fout [2, 2, K] f32,
+    iout [2, 2, K] int64; ``top2._pack``): each valid left feature not in
+    ``left_excluded`` queries the right features within floor(y_l) -+ r
+    rows (clamped to the image; the kernel computes the window), and with
+    ``left_included`` the valid left features in it query the same window
+    as the second predicate, in the same launch."""
+    return top2.hamming_top2_packed(
+        left.desc, right.desc, left.kp, left.valid, right.kp, right.valid,
+        left_excluded, left_included, row_mode=True,
+        row_radius=float(vertical_search_radius), img_rows=float(img_rows))

@@ -15,7 +15,8 @@ one CPU thread and, on ``cuda``, device ``cuda:0`` (ranks that share one
 card share it). The jobs (:func:`sharded_stream`, :func:`stream_point`,
 :func:`multistream`, :func:`pnp_sharded`, :func:`collectives_check`,
 :func:`resolve_check`, :func:`stream_indices`, :func:`loaded_modules`) live here so that a child imports only the port;
-the tests and ``chip_smoke.py`` reuse them.
+the tests and ``chip_smoke.py`` reuse them. A job's frames may come as
+:class:`SavedArray` files, which each rank reads itself.
 
 The command line runs, at a tiny size (96x64 noise frames, 256 map
 points): the stream-parallel ``MultiStreamVO(mesh=...)``,
@@ -33,6 +34,7 @@ import sys
 import tempfile
 import time
 import traceback
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -79,6 +81,24 @@ def job(fn, *args, **kw):
     """One job for :func:`spawn`: ``fn(rank, n, *args, **kw)`` in every
     rank (``fn`` importable from a module of the port)."""
     return (fn, args, kw)
+
+
+class SavedArray(NamedTuple):
+    """A job's array argument as a file that ``np.save`` wrote: each rank
+    reads it itself, so :func:`spawn` does not pickle the frames into
+    every rank's start, one rank after another."""
+    path: str
+
+    @staticmethod
+    def save(array, directory: str, name: str) -> "SavedArray":
+        path = os.path.join(directory, f"{name}.npy")
+        np.save(path, np.ascontiguousarray(array))
+        return SavedArray(path)
+
+
+def _array(x):
+    """A job's array argument: a :class:`SavedArray` read, else as given."""
+    return np.load(x.path) if isinstance(x, SavedArray) else x
 
 
 def spawn(jobs, n: int, *, device: str = "cpu", backend: str | None = None,
@@ -248,6 +268,7 @@ KERNEL_SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
                   "upkeep_pre": "upkeep_pre_kernel",
                   "staged_promote": "staged_promote_kernel",
                   "triangulate_insert": "triangulate_insert_kernel",
+                  "ba_observe": "ba_observe_kernel",
                   "select_corners": "select_corners_kernel",
                   "map_accept": "map_accept_kernel",
                   "step_tail": "step_tail_kernel",
@@ -403,6 +424,7 @@ def sharded_stream(rank, n, config, left, right, *, chunk: int,
                                                        state_specs)
 
     axis = axis or POINT_AXIS
+    left, right = _array(left), _array(right)
     vo = ShardedStreamVO(config, axis=axis, device=device)
     if initial is not None:
         graphs.copy_into(vo.state, convert.shard_state(
@@ -434,6 +456,7 @@ def stream_point(rank, n, config, left, right, *, n_stream: int,
     from lvt_tpu_torch.parallel import mesh as mesh_mod
     from lvt_tpu_torch.parallel.stream_point import StreamPointVO
 
+    left, right = _array(left), _array(right)
     mesh = mesh_mod.stream_point_mesh(n_stream, n_point,
                                       device_type=torch.device(device).type)
     vo = StreamPointVO(config, left.shape[1], mesh=mesh, device=device)
@@ -461,6 +484,7 @@ def multistream(rank, n, config, left, right, *, chunk: int,
                                                   local_stream_indices)
     from lvt_tpu_torch.parallel.multistream import MultiStreamVO
 
+    left, right = _array(left), _array(right)
     s = left.shape[1]
     mesh = mesh_mod.stream_mesh(device_type=torch.device(device).type)
     left, right = torch.as_tensor(left), torch.as_tensor(right)

@@ -133,7 +133,9 @@ def select_problems(config, left, right) -> dict:
                           ("path3 16 images", config, kitti),
                           ("TUM fr1 cell", tum, frame)):
         nms = perception.perception_patch_maps_batched(imgs)[0]
-        out[name] = (nms, nms.new_zeros((0,)), float(c.agast_threshold),
+        out[name] = (nms, nms.new_zeros((0,)),
+                     nms.new_zeros((0,), dtype=torch.int32),
+                     float(c.agast_threshold),
                      c.detection_cell_size, c.max_keypoints_per_cell,
                      c.corners_low_threshold, True, c.kp_capacity)
     return out

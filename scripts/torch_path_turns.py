@@ -1,4 +1,4 @@
-"""Frames/s of chip_smoke.py's timed paths 1, 3, 5, 6 and 8a in one tree,
+"""Frames/s of chip_smoke.py's timed paths 1, 2, 3, 5, 6 and 8a in one tree,
 for a comparison of two trees on one card in turns.
 
 Run from a checkout (or give its root with --root): the script imports that
@@ -12,7 +12,9 @@ parent:
 
 Each path runs as chip_smoke.py runs it (``_run_modes``: the graphed step
 and an eager one on the same frames, unit by unit in turns, at the path's
-RUNS settings): path 1, VOSystem.track_chunk on the KITTI frames; path 3,
+RUNS settings): path 1, VOSystem.track_chunk on the KITTI frames; path 2,
+the same with the shipped KITTI YAML in the dense mode (local BA in a CUDA
+IF node); path 3,
 MultiStreamVO with 8 streams (frames/s summed over the streams); path 5,
 the rectified EuRoC step; path 6, one track_with_external_corners call a
 frame; path 8a, ShardedStreamVO on one NCCL rank with the shipped KITTI
@@ -20,7 +22,7 @@ YAML's local BA (BA's torch body and its all-reduces in a CUDA IF node).
 ``--reps`` runs the chosen paths that many times in the process. Prints one
 JSON line per path and run: median and spread of frames/s, graph and
 eager, the graph's host ms a frame, capture seconds, and the card's name
-and power limit; for paths 1, 3, 5 and 6 also one more graphed unit
+and power limit; for paths 1, 2, 3, 5 and 6 also one more graphed unit
 traced with the host's activity (the tree's ``dryrun.traced``): the
 card's busy ms and kernels a frame, and the host's launches a frame by
 runtime-API call (graph replays apart; the trace's opening markers left
@@ -81,7 +83,8 @@ def main(argv=None) -> int:
     p.add_argument("--root", default=".", help="the tree to run")
     p.add_argument("--label", default=None, help="names the tree's lines")
     p.add_argument("--paths", nargs="+", default=["path5", "path8a"],
-                   choices=["path1", "path3", "path5", "path6", "path8a"])
+                   choices=["path1", "path2", "path3", "path5", "path6",
+                            "path8a"])
     p.add_argument("--reps", type=int, default=1,
                    help="runs of the chosen paths, one after another")
     args = p.parse_args(argv)
@@ -112,16 +115,18 @@ def main(argv=None) -> int:
         return kitti["il"][:n], kitti["ir"][:n]
 
     for path in [p for _ in range(args.reps) for p in args.paths]:
-        if path in ("path1", "path3"):
-            from lvt_tpu_torch.configs import kitti_config
+        if path in ("path1", "path2", "path3"):
+            from lvt_tpu_torch.configs import (kitti_ba_dense_config,
+                                               kitti_config)
             from lvt_tpu_torch.core.system import VOSystem
             from lvt_tpu_torch.parallel.multistream import MultiStreamVO
 
             chunk, n_units = cs.RUNS[path]
             n, s = chunk * n_units, cs.MS_STREAMS
-            if path == "path1":
+            if path in ("path1", "path2"):
                 a, b = frames(n)
-                make = partial(VOSystem, kitti_config(), device=cs.DEVICE)
+                make = partial(VOSystem, kitti_config() if path == "path1"
+                               else kitti_ba_dense_config(), device=cs.DEVICE)
             else:
                 il, ir = frames(n + cs.MS_START_STEP * (s - 1))
                 starts = [cs.MS_START_STEP * i for i in range(s)]

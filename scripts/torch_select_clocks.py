@@ -107,7 +107,7 @@ def launcher(lib, args, threads):
     from lvt_tpu_torch.ops import detect
     from lvt_tpu_torch.ops.brief import PATCH, PATCH_C0, PATCH_R0
 
-    nms, _, threshold, cell, k, low, spread, cap = args
+    nms, _, _, threshold, cell, k, low, spread, cap = args
     b, h, w = nms.shape
     geo = (ctypes.c_int * 7)()
     if lib.lvt_select_geometry(h, w, cell, k, cap, geo):
@@ -125,8 +125,8 @@ def launcher(lib, args, threads):
             nms.data_ptr(), None, b, h, w, cell, k, cap, threads, t, t_low,
             low,
             int(spread), PATCH_C0, w - PATCH + PATCH_C0, PATCH_R0,
-            h - PATCH + PATCH_R0, counters.data_ptr(),
-            *(x.data_ptr() for x in outs), None, None,
+            h - PATCH + PATCH_R0, None, counters.data_ptr(),
+            *(x.data_ptr() for x in outs), None, None, None, None,
             kernels.stream_ptr(nms))
         if err:
             raise RuntimeError(f"launch failed ({err})")
@@ -161,7 +161,9 @@ def shapes(device) -> dict:
                                ("TUM fr1 1 image", tum, gray[:1]),
                                ("TUM fr1 8 images", tum, gray)):
         nms = perception.perception_patch_maps_batched(imgs)[0]
-        out[name] = (nms, nms.new_zeros((0,)), float(config.agast_threshold),
+        out[name] = (nms, nms.new_zeros((0,)),
+                     nms.new_zeros((0,), dtype=torch.int32),
+                     float(config.agast_threshold),
                      config.detection_cell_size,
                      config.max_keypoints_per_cell,
                      config.corners_low_threshold, True, config.kp_capacity)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where a frame of path 1 (the port's main path) goes, stage by stage, on
-the card: chip_smoke.py's eager profile unit (``chip_smoke._profile`` with
+"""Where a frame of path 1 (the port's main path) or path 2 (the shipped
+KITTI YAML in the dense mode, local BA on) goes, stage by stage, on the
+card: chip_smoke.py's eager profile unit (``chip_smoke._profile`` with
 the host trace: the step's profiler ranges, host and device ms per frame,
 device kernels per frame and the busy ms of the records inside each
 stage's span), the same frames replayed from the step's CUDA graph
@@ -8,7 +9,7 @@ stage's span), the same frames replayed from the step's CUDA graph
 TIMED units after them (host clock around ``track_chunk`` and a sync; no
 trace; the eager system under ``disable_graphs``).
 
-    python3 scripts/torch_stage_table.py [--root DIR] [--out DIR]
+    python3 scripts/torch_stage_table.py [--path path1|path2] [--root DIR] [--out DIR]
 
 ``--root`` imports ``lvt_tpu_torch`` from another checkout (for example
 the parent commit unpacked with ``git archive``), so that two trees can be
@@ -37,6 +38,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=HERE,
                    help="the checkout whose lvt_tpu_torch is profiled")
+    p.add_argument("--path", default="path1", choices=["path1", "path2"],
+                   help="path 1 (kitti_config) or path 2 "
+                        "(kitti_ba_dense_config)")
     p.add_argument("--out", help="write the eager unit's op table here")
     args = p.parse_args(argv)
 
@@ -50,7 +54,7 @@ def main(argv=None) -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from lvt_tpu_torch import bench
-    from lvt_tpu_torch.configs import kitti_config
+    from lvt_tpu_torch.configs import kitti_ba_dense_config, kitti_config
     from lvt_tpu_torch.core.graphs import disable_graphs
     from lvt_tpu_torch.core.system import VOSystem
 
@@ -62,11 +66,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    config = kitti_config()
-    il, ir, _, _ = bench.render(config, (2 + TIMED) * UNIT)
+    config = (kitti_config() if args.path == "path1"
+              else kitti_ba_dense_config())
+    # both paths take the prefix of bench.py's sequence (chip_smoke.py)
+    il, ir, _, _ = bench.render(kitti_config(), (2 + TIMED) * UNIT)
     il = torch.from_numpy(il).to("cuda")
     ir = torch.from_numpy(ir).to("cuda")
-    out = dict(root=root, card=card)
+    out = dict(root=root, card=card, path=args.path)
     for mode in ("eager", "graph"):
         vo = VOSystem(config, device="cuda")
         with disable_graphs() if mode == "eager" else contextlib.nullcontext():
@@ -89,7 +95,7 @@ def main(argv=None) -> int:
                                           "kernels_per_frame", "stages")}
         torch.cuda.synchronize()
     tail = out["eager"]["stages"].get("step_tail", {})
-    print(f"[stage-table] {root} on {card}: eager "
+    print(f"[stage-table] {args.path} of {root} on {card}: eager "
           f"{out['eager']['kernels_per_frame']:.1f} kernels and "
           f"{out['eager']['busy_ms_per_frame']:.3f} busy ms per frame, graph "
           f"{out['graph']['kernels_per_frame']:.1f} and "

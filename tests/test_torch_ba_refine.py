@@ -45,6 +45,7 @@ from lvt_tpu.solver import bundle as jx_bundle
 from lvt_tpu_torch.config import VOConfig
 from lvt_tpu_torch.core import state, step
 from lvt_tpu_torch.geometry.se3 import Pose
+from lvt_tpu_torch.ops import hamming
 from lvt_tpu_torch.parallel import mesh as mesh_mod
 from lvt_tpu_torch.solver import bundle
 from lvt_tpu_torch.solver.pnp import _cauchy_weights
@@ -95,6 +96,24 @@ def _op(args):
                             reprojection_th2=5.991, **CAM)
 
 
+def jx_ba_observations(row_b, match_idx, right_kp, ratio, abs_th):
+    """lvt_tpu's BA row match after its top-2 (``row_b``: d1, d2, best,
+    n_cand of the map-matched features; ``ops/hamming.py``'s acceptance and
+    one-to-one resolution, as its ``row_match`` runs them) and the right
+    observations it gathers at each map slot (lvt_tpu/core/step.py:
+    506-508): (obs_r_new, w_r_new)."""
+    from lvt_tpu.ops import hamming as jx_hamming
+
+    d1, d2, best, n_cand = (jnp.asarray(np.asarray(x)) for x in row_b)
+    k = d1.shape[0]
+    idx = jx_hamming.accept_matches(d1, d2, best, n_cand, ratio, abs_th)
+    idx = jx_hamming.resolve_one_to_one(idx, d1, k)
+    mi = jnp.asarray(np.asarray(match_idx))
+    r_idx = idx[jnp.clip(mi, 0, k - 1)]
+    obs_r = jnp.asarray(np.asarray(right_kp))[jnp.clip(r_idx, 0, k - 1)]
+    return obs_r, ((mi >= 0) & (r_idx >= 0)).astype(jnp.float32)
+
+
 def _config(cls):
     return cls(fx=FX, fy=FY, cx=CX, cy=CY, baseline=BASELINE, img_width=640,
                img_height=480, max_map_points=200, max_staged_points=64,
@@ -125,7 +144,9 @@ def test_op_on_the_cpu_is_the_plain_body(case):
 def test_ba_update_matches_lvt_tpu(case):
     """lvt_tpu's ``_local_ba_update`` (the ``run`` branch of its lax.cond)
     and the port's on the same window, which fills with this frame at
-    frame 8 (BA's schedule: window 4, every 4)."""
+    frame 8 (BA's schedule: window 4, every 4); the port's takes the BA
+    row match's top-2, lvt_tpu's the right observations its step gathers
+    from the same top-2 (``jx_ba_observations``)."""
     t, q, pos, obs, w, obs_r, w_r = _window(case, seed=7)
     f, m = w.shape
     # the window before this frame: a stale frame, then frames 0 .. F - 2
@@ -136,7 +157,24 @@ def test_ba_update_matches_lvt_tpu(case):
     counters = np.zeros(m, np.int32)
     valid = np.ones(m, bool)
     invalid = np.zeros(m, bool)
-    new = (obs[-1], w[-1], obs_r[-1], w_r[-1])
+    # this frame: slot j matched to feature j where observed, and the BA
+    # row match's top-2 that pairs feature j with right feature j (its
+    # right observation) where the right camera observed it
+    seen, seen_r = w[-1] > 0, w_r[-1] > 0
+    match_idx = np.where(seen, np.arange(m), -1).astype(np.int64)
+    big = np.float32(hamming.BIG)
+    row_b = (np.where(seen_r, 0.0, big).astype(np.float32),
+             np.full(m, big, np.float32), np.arange(m, dtype=np.int64),
+             seen_r.astype(np.int64))
+    fout = np.stack([np.stack([row_b[0], row_b[0]]),
+                     np.stack([row_b[1], row_b[1]])])
+    iout = np.stack([np.stack([row_b[2], row_b[2]]),
+                     np.stack([row_b[3], row_b[3]])])
+    cfg = _config(VOConfig)
+    obs_r_new, w_r_new = jx_ba_observations(
+        row_b, match_idx, obs_r[-1], cfg.triangulation_ratio_test_threshold,
+        cfg.descriptor_matching_threshold)
+    np.testing.assert_array_equal(np.asarray(w_r_new), w_r[-1])
 
     jx = jx_step._local_ba_update(
         jx_state.ObsWindow(**{k: jnp.asarray(v) for k, v in old.items()},
@@ -145,15 +183,18 @@ def test_ba_update_matches_lvt_tpu(case):
                             jnp.asarray(counters), jnp.asarray(counters),
                             jnp.asarray(valid)),
         JxPose(jnp.asarray(t[-1]), jnp.asarray(q[-1])),
-        *(jnp.asarray(x) for x in new), jnp.asarray(invalid),
-        jnp.asarray(8, jnp.int32), _config(JxVOConfig))
+        jnp.asarray(obs[-1]), jnp.asarray(w[-1]), obs_r_new, w_r_new,
+        jnp.asarray(invalid), jnp.asarray(8, jnp.int32),
+        _config(JxVOConfig))
     pt = step._local_ba_update(
         state.ObsWindow(**{k: _t(v) for k, v in old.items()},
                         n=torch.tensor(f - 1, dtype=torch.int32)),
         state.PointStore(_t(pos), _t(desc.view(np.int32)), _t(counters),
                          _t(counters), _t(valid)),
-        Pose(_t(t[-1]), _t(q[-1])), *(_t(x) for x in new), _t(invalid),
-        torch.tensor(8, dtype=torch.int32), _config(VOConfig))
+        Pose(_t(t[-1]), _t(q[-1])), _t(obs[-1]), _t(w[-1]),
+        (_t(fout), _t(iout)), _t(match_idx), _t(obs_r[-1]), _t(valid),
+        _t(valid), _t(invalid), None, torch.tensor(8, dtype=torch.int32),
+        cfg)
     assert bool(pt[3])
     for name in ("poses_t", "poses_q", "obs", "w", "obs_r", "w_r"):
         np.testing.assert_array_equal(getattr(pt[0], name).numpy(),

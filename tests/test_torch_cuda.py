@@ -51,9 +51,11 @@ from lvt_tpu_torch.parallel.dryrun import device_launches
 from lvt_tpu_torch.solver import pnp
 
 
-# the tracking branch's four ops (core/track.py, csrc/track.cu)
+# the tracking branch's five ops (core/track.py, csrc/track.cu), of which
+# two are thread-block cluster kernels
 TRACK_OPS = ("predict_project", "upkeep_pre", "staged_promote",
-             "triangulate_insert")
+             "triangulate_insert", "ba_observe")
+CLUSTER_OPS = TRACK_OPS[2:4]
 
 
 @pytest.fixture
@@ -147,33 +149,61 @@ def test_patch_kernel_matches_plain(cuda, k, selected):
     assert got[1].any() == (selected == "some")
 
 
+T_MODES = ["dual", "single", "row", "row_dual"]
+
+
+def _row_queries(rs, shape):
+    """Row-mode queries: left keypoints [..., M, 2] whose rows reach past
+    both image edges, one at a fraction under a row, a NaN row (no window)
+    and whole rows at the window's edges; the triangulation's exclusion
+    and the BA's set, which overlap."""
+    q = rs.uniform(0, 300, (*shape, 2)).astype(np.float32)
+    y = q[..., 1]
+    y[..., 2::17] = -3.0
+    y[..., 3::17] = 301.5
+    y[..., 4::17] = np.float32(np.nextafter(np.float32(120.0), 0))
+    y[..., 5::29] = np.nan
+    y[..., 6::11] = np.floor(y[..., 6::11])
+    return q, rs.rand(*shape) > 0.6, rs.rand(*shape) > 0.5
+
+
+def _top2_kw(mode):
+    if mode.startswith("row"):
+        return dict(row_mode=True, row_radius=2.0, img_rows=300.0)
+    return dict(r2a=25.0**2, r2b=(50.0 if mode == "dual" else 25.0)**2)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+@pytest.mark.parametrize("mode", T_MODES)
 @pytest.mark.parametrize("mk", [(1024, 1536), (1536, 1536), (101, 2048),
                                 (3, 333)])
 def test_top2_kernel_matches_plain(cuda, mode, mk):
     """Kernel T (Hamming distances + masked dual top-2) against the matrix
     followed by the plain top-2: equal bit for bit, with duplicate
     target descriptors, invalid query rows, and M not a multiple of the
-    kernel's 4 rows per block."""
+    kernel's 4 rows per block (row modes: the window computed inside from
+    each keypoint, NaN and rows past the edges among them; the dual row
+    launch's second predicate equal to a single launch of its set)."""
     rs = np.random.RandomState(2)
     m, k = mk
     t_desc = _desc(rs, k)
     t_desc[1::3] = t_desc[::3][:t_desc[1::3].shape[0]]
     q_desc = _desc(rs, m)
     t_kp = torch.from_numpy(rs.uniform(0, 300, (k, 2)).astype(np.float32))
-    if mode == "row":
-        y = np.floor(rs.uniform(0, 300, m)).astype(np.float32)
-        q = torch.from_numpy(np.stack([y - 2, y + 2], -1))
-        kw = dict(r2a=0.0, r2b=0.0, row_mode=True)
+    sets = []
+    if mode.startswith("row"):
+        q, excl, incl = _row_queries(rs, (m,))
+        q = torch.from_numpy(q)
+        sets = [excl] + [incl] * (mode == "row_dual")
     else:
         q = torch.from_numpy(rs.uniform(0, 300, (m, 2)).astype(np.float32))
-        kw = dict(r2a=25.0**2, r2b=(50.0 if mode == "dual" else 25.0)**2)
+    kw = _top2_kw(mode)
     q_valid = rs.rand(m) > 0.1
     q_valid[:2] = False
     args = [torch.from_numpy(a).to(cuda) for a in (q_desc, t_desc)] + [
         q.to(cuda), torch.from_numpy(q_valid).to(cuda), t_kp.to(cuda),
-        torch.from_numpy(rs.rand(k) > 0.1).to(cuda)]
+        torch.from_numpy(rs.rand(k) > 0.1).to(cuda)] + [
+        torch.from_numpy(x).to(cuda) for x in sets]
     before = top2.hamming_top2.launches
     got = top2.hamming_top2(*args, **kw)
     torch.cuda.synchronize()
@@ -182,27 +212,31 @@ def test_top2_kernel_matches_plain(cuda, mode, mk):
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             assert a.dtype == b.dtype and torch.equal(a, b)
+    if mode == "row_dual":
+        alone = top2.hamming_top2(*args[:6], ~args[7], **kw)
+        _equal_outputs((got[1],), (alone[0],))
+        _equal_outputs((got[0],), top2.hamming_top2(*args[:7], **kw)[:1])
 
 
 def _top2_streams(rs, s, m, k, mode, device):
     """Kernel T's arguments for ``s`` streams ([S, ...], contiguous) with
-    duplicate targets and invalid rows, and its keyword arguments."""
+    duplicate targets and invalid rows (row modes: ``_row_queries``), and
+    its keyword arguments."""
     t_desc = np.stack([_desc(rs, k) for _ in range(s)])
     t_desc[:, 1::3] = t_desc[:, ::3][:, :t_desc[:, 1::3].shape[1]]
     q_desc = np.stack([_desc(rs, m) for _ in range(s)])
     t_kp = rs.uniform(0, 300, (s, k, 2)).astype(np.float32)
-    if mode == "row":
-        y = np.floor(rs.uniform(0, 300, (s, m))).astype(np.float32)
-        q = np.stack([y - 2, y + 2], -1)
-        kw = dict(r2a=0.0, r2b=0.0, row_mode=True)
+    sets = []
+    if mode.startswith("row"):
+        q, excl, incl = _row_queries(rs, (s, m))
+        sets = [excl] + [incl] * (mode == "row_dual")
     else:
         q = rs.uniform(0, 300, (s, m, 2)).astype(np.float32)
-        kw = dict(r2a=25.0**2, r2b=(50.0 if mode == "dual" else 25.0)**2)
     q_valid = rs.rand(s, m) > 0.1
     q_valid[:, :2] = False
     args = [torch.from_numpy(a).to(device) for a in (
-        q_desc, t_desc, q, q_valid, t_kp, rs.rand(s, k) > 0.1)]
-    return args, kw
+        q_desc, t_desc, q, q_valid, t_kp, rs.rand(s, k) > 0.1, *sets)]
+    return args, _top2_kw(mode)
 
 
 def _equal_outputs(got, want):
@@ -213,8 +247,8 @@ def _equal_outputs(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["dual", "single", "row"])
-@pytest.mark.parametrize("s", [1, 3, 8])
+@pytest.mark.parametrize("mode", T_MODES)
+@pytest.mark.parametrize("s", [1, 3, 8, 20])
 @pytest.mark.parametrize("mk", [(1024, 1536), (101, 2048), (3, 333)])
 def test_top2_batched_launch_matches_plain(cuda, mode, s, mk):
     """Kernel T over a stream axis: one launch for S streams, bit-equal to
@@ -243,7 +277,7 @@ def test_top2_kernel_at_tum_map_match_shape(cuda, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+@pytest.mark.parametrize("mode", T_MODES)
 def test_top2_single_stream_is_a_batch_of_one(cuda, mode):
     """The single-stream call (S = 1) gives the bits of the plain version,
     which the kernel before the stream axis matched bit for bit, and each
@@ -260,13 +294,14 @@ def test_top2_single_stream_is_a_batch_of_one(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dual", "row_dual"])
 @pytest.mark.parametrize("unbatched", [None, 2, 5])
-def test_top2_vmap_rule_launches_once(cuda, unbatched):
+def test_top2_vmap_rule_launches_once(cuda, unbatched, mode):
     """Under torch.func.vmap the single-stream call reaches the kernel in
     one launch for all streams, an unbatched argument expanded."""
-    args, kw = _top2_streams(np.random.RandomState(12), 4, 300, 500, "dual",
+    args, kw = _top2_streams(np.random.RandomState(12), 4, 300, 500, mode,
                              cuda)
-    in_dims = [0] * 6
+    in_dims = [0] * len(args)
     if unbatched is not None:
         in_dims[unbatched] = None
         args[unbatched] = args[unbatched][0]
@@ -1427,7 +1462,10 @@ def test_ba_under_an_if_node_equals_the_eager_step(cuda):
     assert [bool(m.local_ba_ran) for _, m, _ in runs["graph"]["out"]] == [
         i in (4, 8, 12, 16) for i in range(17)]
     is_ba = [i in (8, 12, 16) for i in range(5, 17)]
-    need = dict(perception=1, brief=1, hamming_top2=4, pnp_solve=1)
+    # T's one dual row launch serves both row matches; local BA's
+    # observations one launch a frame
+    need = dict(perception=1, brief=1, hamming_top2=3, pnp_solve=1,
+                ba_observe=1)
     for mode, if_node in (("graph", 1), ("eager", 0)):
         for f, ba in zip(runs[mode]["frames"], is_ba):
             assert {k: f[k] for k in [*need, "if_node", "ba_refine"]} == dict(
@@ -1722,13 +1760,65 @@ def _top2_arrays(rs, s, n, k, conflicts=True):
             n_cand.astype(np.int64)]
 
 
+def _ba_observe_arrays(rs, s, m, k, n, f, case):
+    """ba_observe's tensors for ``s`` streams: T's dual row outputs (the
+    second set's with crowded targets; ``case`` ``none``: no candidate),
+    the map match's (one-to-one) matches, PnP's pose, a window of ``f``
+    poses whose weights hold NaN, -0.0 and negatives, ``n`` from 0 to f
+    (``empty``: 0, ``full``: f; ``finite``: no NaN), the map's masks
+    (culled and recycled slots; ``n`` 0: no staged set) and frame numbers
+    (BA due and not)."""
+    two = [_top2_arrays(rs, s, k, k) if k else
+           [np.zeros((s, 0), np.float32)] * 2 + [np.zeros((s, 0), np.int64)] * 2
+           for _ in range(2)]
+    if case == "none":
+        two[1][3][:] = 0
+        two[1][0][:] = BIG
+    fout = np.stack([np.stack([two[0][i], two[1][i]], 1) for i in (0, 1)],
+                    1).astype(np.float32)
+    iout = np.stack([np.stack([two[0][i], two[1][i]], 1) for i in (2, 3)],
+                    1).astype(np.int64)
+    match_idx = np.where(rs.rand(s, m) < 0.6, -1, -2).astype(np.int64)
+    for i in range(s if k else 0):
+        hit = rs.choice(m, min(m, k) // 2, replace=False)
+        match_idx[i, hit] = rs.choice(k, hit.size, replace=False)
+    kp = rs.uniform(0, 1241, (s, k, 2)).astype(np.float32)
+    obs = np.take_along_axis(kp, np.clip(match_idx, 0, max(k - 1, 0))[
+        ..., None], 1) if k else np.zeros((s, m, 2), np.float32)
+    weights = (match_idx >= 0).astype(np.float32)
+    rkp = rs.uniform(0, 1241, (s, k, 2)).astype(np.float32)
+    t = (rs.randn(s, 3) * 5).astype(np.float32)
+    q = _unit_q(rs, s, 0.05)
+    poses_t = (rs.randn(s, f, 3) * 5).astype(np.float32)
+    poses_q = np.stack([_unit_q(rs, f, 0.05) for _ in range(s)])
+    w_obs = rs.uniform(0, 1241, (s, f, m, 2)).astype(np.float32)
+    w_obs_r = rs.uniform(0, 1241, (s, f, m, 2)).astype(np.float32)
+    nan = 0.5 if case == "finite" else np.nan
+    w_w = rs.choice([0.0, 1.0, 0.37, -2.5, -0.0, nan], (s, f, m),
+                    p=[0.3, 0.4, 0.1, 0.1, 0.05, 0.05]).astype(np.float32)
+    w_w_r = rs.choice([0.0, 1.0, nan, -0.0], (s, f, m),
+                      p=[0.4, 0.5, 0.05, 0.05]).astype(np.float32)
+    n_win = {"empty": np.zeros(s), "full": np.full(s, f)}.get(
+        case, rs.randint(0, f + 1, s)).astype(np.int32)
+    mvalid = rs.rand(s, m) > 0.2
+    bvalid = mvalid | (rs.rand(s, m) < 0.1)
+    cvalid = bvalid & (rs.rand(s, m) > 0.1)
+    taken = rs.rand(s, m) < 0.1
+    ptaken = rs.rand(s, m if n else 0) < 0.1
+    frame = rs.choice([4, 5, 8, 12, 3, 0], s).astype(np.int32)
+    return [fout, iout, match_idx, obs, weights, rkp, t, q, poses_t,
+            poses_q, w_obs, w_w, w_obs_r, w_w_r, n_win, mvalid, bvalid,
+            cvalid, taken, ptaken, frame]
+
+
 def _track_problem(rs, name, s, device, case="random", m=1024, k=1536,
-                   n=1024, rgbd=False, policy=1, staged_threshold=2):
+                   n=1024, rgbd=False, policy=1, staged_threshold=2, f=4):
     """Seeded inputs of one of TRACK_OPS for ``s`` streams, as the tracking
     step gives them, in the op's argument order. ``case``: the stores'
     occupancy (``_store_arrays``: ``full``, ``empty``, ``crowded``) or
     ``none`` (no promotion, no triangulation candidate; ``none_full``
-    beside full stores)."""
+    beside full stores); ba_observe: ``_ba_observe_arrays``' (``f`` poses,
+    K = 0: no right camera)."""
     cam = [float(TRACK_CAM[key]) for key in (
         "fx", "fy", "cx", "cy", "near", "far", "min_x", "max_x", "min_y",
         "max_y")]
@@ -1737,7 +1827,10 @@ def _track_problem(rs, name, s, device, case="random", m=1024, k=1536,
     is_init = rs.rand(s) < 0.25
     is_init[1:2] = True
     is_init[0] = case == "init"
-    if name == "predict_project":
+    if name == "ba_observe":
+        arrays = _ba_observe_arrays(rs, s, m, k, n, f, case)
+        scalars = [0.6, 30.0, 4]
+    elif name == "predict_project":
         lq, av = _unit_q(rs, s, 0.05), _unit_q(rs, s, 0.02)
         lp = (t + rs.randn(s, 3)).astype(np.float32)
         lv = (rs.randn(s, 3) * 0.5).astype(np.float32)
@@ -1837,6 +1930,15 @@ def _track_wrapper(name, args):
 
     a = [x[0] if isinstance(x, torch.Tensor) else x for x in args]
     cam = dict(TRACK_CAM)
+    if name == "ba_observe":
+        from lvt_tpu_torch.core.state import ObsWindow
+
+        right = a[0].shape[-1] > 0
+        return track.ba_observe(
+            (a[0], a[1]) if right else None, a[2], a[3], a[4],
+            a[5] if right else None, Pose(a[6], a[7]), ObsWindow(*a[8:15]),
+            *a[15:19], a[19] if a[19].shape[0] else None, a[20],
+            ratio_threshold=a[21], abs_threshold=a[22], local_ba_every=a[23])
     if name == "predict_project":
         return track.predict_project(MotionState(*a[:4]), Pose(a[4], a[5]),
                                      a[6], a[7], a[8], cam)
@@ -1919,19 +2021,30 @@ TRACK_CASES = [
     # than path 3's, K at _require_k's bound, a map smaller than the
     # cluster's blocks (the last ranges empty), no candidate beside full
     # stores, and row widths that are 16-byte multiples and that are not
-    *((name, s, "random", {}) for name in TRACK_OPS[2:] for s in (16, 20)),
-    *((name, 2, "random", {"k": 2048}) for name in TRACK_OPS[2:]),
+    *((name, s, "random", {}) for name in CLUSTER_OPS for s in (16, 20)),
+    *((name, 2, "random", {"k": 2048}) for name in CLUSTER_OPS),
     *((name, 2, "random", {"m": 9, "k": 10, "n": 3})
-      for name in TRACK_OPS[2:]),
-    *((name, 2, "none_full", {}) for name in TRACK_OPS[2:]),
+      for name in CLUSTER_OPS),
+    *((name, 2, "none_full", {}) for name in CLUSTER_OPS),
     *((name, 3, "random", {"m": 64, "k": 128, "n": 32})
-      for name in TRACK_OPS[2:]),
+      for name in CLUSTER_OPS),
     *((name, 3, "random", {"m": 51, "k": 301, "n": 41})
-      for name in TRACK_OPS[2:]),
+      for name in CLUSTER_OPS),
+    # ba_observe: path 2's window (F = 4, M = 1024, K = 1536), an empty and
+    # a full window, no candidate, no staged set, no right camera, F from
+    # 1 to 8, M past a block's threads, K at the bound, S up to 20
+    ("ba_observe", 1, "random", {}), ("ba_observe", 8, "random", {}),
+    ("ba_observe", 8, "empty", {}), ("ba_observe", 8, "full", {}),
+    ("ba_observe", 8, "none", {}), ("ba_observe", 2, "random", {"n": 0}),
+    ("ba_observe", 3, "random", {"k": 0}),
+    ("ba_observe", 3, "random", {"f": 1}),
+    ("ba_observe", 2, "full", {"f": 8, "m": 3000}),
+    ("ba_observe", 2, "random", {"k": 2048, "m": 64}),
+    ("ba_observe", 20, "random", {"f": 2, "m": 300, "k": 200}),
 ]
 # the cluster kernels' cases held at every cluster size the wrapper can
 # choose (core/track.py CLUSTERS)
-CLUSTER_CASES = [c for c in TRACK_CASES if c[0] in TRACK_OPS[2:]
+CLUSTER_CASES = [c for c in TRACK_CASES if c[0] in CLUSTER_OPS
                  and c[1] <= 8
                  and c[2] in ("random", "full", "none", "none_full")]
 
@@ -1987,7 +2100,7 @@ def test_track_cluster_kernel_at_every_cluster_size(cuda, monkeypatch, c,
     else:
         dims = (args[4].shape[1], args[11].shape[1], args[16].shape[1],
                 int(args[24]))
-    if not kernels.lib().lvt_track_max_clusters(TRACK_OPS[2:].index(name),
+    if not kernels.lib().lvt_track_max_clusters(CLUSTER_OPS.index(name),
                                                 cluster, *dims):
         with pytest.raises(RuntimeError, match="failed to launch"):
             op(*args)
@@ -2002,7 +2115,7 @@ def test_track_cluster_kernel_at_every_cluster_size(cuda, monkeypatch, c,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", TRACK_OPS[2:])
+@pytest.mark.parametrize("name", CLUSTER_OPS)
 def test_track_cluster_kernel_reads_rows_at_any_alignment(cuda, name):
     """The cluster kernels on inputs whose rows start 4 bytes past a
     16-byte boundary (each tensor a view one element into its storage:
@@ -2026,12 +2139,12 @@ def test_track_cluster_size_fits_the_streams(cuda):
     from lvt_tpu_torch import kernels
     from lvt_tpu_torch.core import track
 
-    for name in TRACK_OPS[2:]:
+    for name in CLUSTER_OPS:
         for s in (1, 8, 20):
             c = track.cluster_size(name, 0, s, 1536, 1024, 1024)
             assert c == 8, (name, s, c)
             fit = kernels.lib().lvt_track_max_clusters(
-                TRACK_OPS[2:].index(name), c, 1536, 1024, 1024, 0)
+                CLUSTER_OPS.index(name), c, 1536, 1024, 1024, 0)
             assert fit >= s, (name, s, fit)
 
 
@@ -2107,6 +2220,7 @@ def _select_config(name):
 SELECT_CASES = [("kitti", 2, "frames"), ("kitti", 16, "frames"),
                 ("kitti", 32, "frames"), ("kitti", 3, "fallback"),
                 ("kitti", 2, "plateau"), ("kitti-dense", 2, "frames"),
+                ("kitti-dense", 16, "frames"), ("kitti-dense", 3, "fallback"),
                 ("rgbd", 4, "frames"), ("tum", 1, "frames"),
                 ("tum", 8, "frames"), ("tum", 3, "fallback"),
                 ("euroc", 2, "frames"), ("euroc", 2, "fallback")]
@@ -2117,7 +2231,8 @@ def select_problem(rs, name, b, kind, device):
     maps of random frames (``frames``), sparse maps whose images differ in
     strength so that some take the low-corner fallback and some not
     (``fallback``), or a plateau of equal scores wider than a cell keeps
-    (``plateau``)."""
+    (``plateau``); in the dense mode kernel B's planes of the frames (else
+    random words), from which the op reads each slot's descriptor."""
     config, dtype = _select_config(name)
     h, w = config.img_height, config.img_width
     subpixel = config.descriptor_mode == "dense"
@@ -2129,7 +2244,11 @@ def select_problem(rs, name, b, kind, device):
         maps = (perception.perception_maps_batched(imgs) if subpixel
                 else perception.perception_patch_maps_batched(imgs))
         nms, raw = (maps[1], maps[0]) if subpixel else (maps[0], maps[1])
+        planes = maps[2]
     else:
+        planes = torch.from_numpy(rs.randint(
+            -2**31, 2**31, (b, 8, h, w), dtype=np.int64).astype(np.int32)
+        ).to(device)
         if kind == "fallback":
             # every other image too sparse to reach the low-corner count
             nms = np.stack([sparse_map(rs, 1, h, w, (2e-4, 4e-3)[i % 2])[0]
@@ -2143,7 +2262,8 @@ def select_problem(rs, name, b, kind, device):
         nms = torch.from_numpy(nms).to(device)
         raw = nms + 1.0
     raw = raw if subpixel else nms.new_zeros((0,))
-    return (nms.contiguous(), raw.contiguous(),
+    planes = planes if subpixel else planes.new_zeros((0,))
+    return (nms.contiguous(), raw.contiguous(), planes.contiguous(),
             float(config.agast_threshold), config.detection_cell_size,
             config.max_keypoints_per_cell, config.corners_low_threshold,
             dtype == "uint8", config.kp_capacity)
@@ -2154,8 +2274,9 @@ def select_problem(rs, name, b, kind, device):
                          ids=["-".join(map(str, c)) for c in SELECT_CASES])
 def test_select_kernel_matches_plain(cuda, case):
     """Kernel CS against its plain version (the torch ops on the card),
-    every slot of every output bit-equal, one launch; each image alone
-    equal to its slot rows of the batch."""
+    every slot of every output bit-equal (the dense mode's descriptors
+    too), one launch; each image alone equal to its slot rows of the
+    batch."""
     from lvt_tpu_torch.ops import detect
 
     name, b, kind = case
@@ -2167,13 +2288,14 @@ def test_select_kernel_matches_plain(cuda, case):
     _assert_outputs_equal(got, detect.select_corners_plain(*args),
                           f"select_corners {case}")
     if kind == "fallback":   # both branches occur
-        t, _ = detect._thresholds(args[2])
+        t, _ = detect._thresholds(args[3])
         strong = ((got[4] > t) & got[5]).sum(1)
-        assert (strong < args[5]).any() and (strong >= args[5]).any()
+        assert (strong < args[6]).any() and (strong >= args[6]).any()
+    if args[2].numel():
+        assert got[9].any() and (got[5] & ~got[9]).any()
     for i in range(b):
-        alone = detect.select_corners_op(args[0][i:i + 1],
-                                         args[1][i:i + 1] if args[1].numel()
-                                         else args[1], *args[2:])
+        alone = detect.select_corners_op(
+            *(x[i:i + 1] if x.numel() else x for x in args[:3]), *args[3:])
         _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
                               f"select_corners image {i}")
 
@@ -2200,7 +2322,8 @@ def test_select_kernel_at_its_edges(cuda, case):
     pixels (k = 200 of a 32 x 32 cell, 128 px a block), 16 images in one
     launch, and no dither with fewer non-zero pixels than a cell keeps
     (ties at 0, cut lowest index first across the blocks, in narrow and
-    wide cells), and a dense first bin (more passes)."""
+    wide cells), and a dense first bin (more passes); with the raw map
+    also the dense mode's descriptors from random planes."""
     from lvt_tpu_torch.ops import detect
 
     b, h, w, cell, keep, density, dither, subpixel = SELECT_EDGES[case]
@@ -2210,16 +2333,19 @@ def test_select_kernel_at_its_edges(cuda, case):
         nms = np.where(nms > 0, rs.uniform(32, 64, nms.shape), 0)
     nms = torch.from_numpy(nms.astype(np.float32)).to(cuda)
     raw = nms + 0.5 if subpixel else nms.new_zeros((0,))
+    planes = (torch.from_numpy(rs.randint(-2**31, 2**31, (b, 8, h, w),
+                                          dtype=np.int64).astype(np.int32))
+              .to(cuda) if subpixel else nms.new_zeros((0,), dtype=torch.int32))
     ncells = -(-h // min(cell, h)) * -(-w // min(cell, w))
     cap = -(-ncells * keep // 128) * 128
-    args = (nms, raw, 20.0, cell, keep, 40, dither, cap)
+    args = (nms, raw, planes, 20.0, cell, keep, 40, dither, cap)
     got = detect.select_corners_op(*args)
     torch.cuda.synchronize()
     _assert_outputs_equal(got, detect.select_corners_plain(*args),
                           f"select_corners {case}")
     for i in (0, b - 1):
         alone = detect.select_corners_op(
-            nms[i:i + 1], raw[i:i + 1] if subpixel else raw, *args[2:])
+            *(x[i:i + 1] if x.numel() else x for x in args[:3]), *args[3:])
         _assert_outputs_equal([x[0] for x in alone], [x[i] for x in got],
                               f"select_corners {case} image {i}")
 
@@ -2269,8 +2395,9 @@ def test_select_kernel_geometry_runs_in_one_wave(cuda):
         _assert_outputs_equal(got, want, f"select_corners {threads} threads")
     nms = torch.zeros((1, 4000, 4000), device=cuda)
     with pytest.raises(ValueError, match="a cluster of at most 16 blocks"):
-        detect.select_corners_op(nms, nms.new_zeros((0,)), 20.0, 4000, 100,
-                                 40, True, 128)
+        detect.select_corners_op(nms, nms.new_zeros((0,)),
+                                 nms.new_zeros((0,), dtype=torch.int32),
+                                 20.0, 4000, 100, 40, True, 128)
 
 
 def top2_out(rs, m, k, n_cand, visible):

@@ -348,7 +348,10 @@ def test_local_ba_update_matches_lvt_tpu():
     lvt_tpu's ``lax.cond`` form on the same inputs: the ones the port's
     step gave it over frames 0-8 of a KITTI-geometry sequence, with path
     2's config (the shipped KITTI YAML in dense mode: window 4, BA every 4
-    frames, so BA at frames 4 and 8). The window, its newest pose and the
+    frames, so BA at frames 4 and 8); lvt_tpu's takes the right
+    observations that its step gathers from the BA row match's top-2 (the
+    port's kernel T output, ``jx_ba_observations``) and the slots the
+    masks invalidate. The window, its newest pose and the
     BA predicate equal; the map positions bit-equal on the other frames;
     on BA frames, tests/test_torch_bundle.py's tolerance for BA (its sums
     are float64 here, float32 in lvt_tpu): the writeback decided alike for
@@ -362,7 +365,9 @@ def test_local_ba_update_matches_lvt_tpu():
     from lvt_tpu_torch import configs, convert
     from lvt_tpu_torch.core import step
     from lvt_tpu_torch.io.synthetic import SyntheticWorld
+    from lvt_tpu_torch.ops import top2
     from lvt_tpu_torch.tree import tree_map
+    from tests.test_torch_ba_refine import jx_ba_observations
 
     cfg = configs.kitti_ba_dense_config()
     world = SyntheticWorld(width=cfg.img_width, height=cfg.img_height,
@@ -375,7 +380,9 @@ def test_local_ba_update_matches_lvt_tpu():
 
     def record(*args):
         # the state's leaves are the runner's buffers, rewritten later
-        calls.append([tree_map(torch.clone, a) for a in args[:-2]])
+        calls.append([None if a is None
+                      else tuple(map(torch.clone, a)) if type(a) is tuple
+                      else tree_map(torch.clone, a) for a in args[:-2]])
         return real(*args)
 
     import unittest.mock
@@ -390,9 +397,18 @@ def test_local_ba_update_matches_lvt_tpu():
     ran = []
     for i, args in enumerate(calls):
         window, pose, pos, do_ba = real(*args, cfg)
+        (ba, store, pose_opt, obs, w, row_packed, match_idx, right_kp,
+         bookkept, clean, taken, promo, frame) = args
+        obs_r, w_r = jx_ba_observations(
+            top2._unpack(*row_packed)[1], match_idx, right_kp,
+            cfg.triangulation_ratio_test_threshold,
+            cfg.descriptor_matching_threshold)
+        invalid = (bookkept & ~clean) | taken | promo
         jargs = [jax.tree.map(jnp.asarray, convert.to_numpy(a))
-                 for a in args]
-        jwindow, jpose, jpos = jx_update(*jargs, jcfg)
+                 for a in (ba, store, pose_opt, obs, w)]
+        jwindow, jpose, jpos = jx_update(
+            *jargs, obs_r, w_r, jnp.asarray(invalid.numpy()),
+            jnp.asarray(frame.numpy()), jcfg)
         for name, a, b in zip(window._fields, window, jwindow):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                           err_msg=f"frame {i} {name}")

@@ -1,5 +1,5 @@
 """lvt_tpu_torch matching (Hamming matrix, the top-2 kernel's plain
-version in its three modes, acceptance, one-to-one resolution, map
+version in its four modes, acceptance, one-to-one resolution, map
 matching, row matching) against lvt_tpu on the same numpy inputs.
 
 Tolerance: none. Distances, indices, counts and masks are integers or
@@ -67,23 +67,62 @@ def top2_problem():
     t_kp = rs.uniform(0, 300, (k, 2)).astype(np.float32)
     q_valid = rs.rand(m) > 0.15
     t_valid = rs.rand(k) > 0.15
-    y_l = np.floor(rs.uniform(0, 300, m)).astype(np.float32)
-    window = np.stack([np.maximum(y_l - 2, 0), np.minimum(y_l + 2, 300)],
-                      -1).astype(np.float32)
+    # left keypoints for the row modes, a few near the image's edges, and
+    # two query sets that overlap (the triangulation's excludes, the BA's
+    # includes)
+    q_kp = rs.uniform(0, 300, (m, 2)).astype(np.float32)
+    q_kp[:3, 1] = [0.5, 299.7, 1.2]
+    excl = rs.rand(m) > 0.6
+    incl = rs.rand(m) > 0.5
     return dict(dist=dist, q_uv=q_uv, t_kp=t_kp, q_valid=q_valid,
-                t_valid=t_valid, window=window)
+                t_valid=t_valid, q_kp=q_kp, excl=excl, incl=incl)
 
 
-@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+def _jx_row_window(q_kp, radius, img_rows):
+    """lvt_tpu's row window (lvt_tpu/ops/matching.py:189-191), the Pallas
+    kernel's (lo, hi) query metadata in row mode."""
+    y_l = jnp.floor(jnp.asarray(q_kp)[:, 1])
+    return jnp.stack([jnp.maximum(y_l - radius, 0.0),
+                      jnp.minimum(y_l + radius, float(img_rows))], axis=-1)
+
+
+def _jx_row_sets(dist, q_kp, q_valid, t_kp, t_valid, excl, incl, radius,
+                 img_rows):
+    """lvt_tpu's Pallas top-2 (interpret mode) in row mode on its own
+    window: the first set (valid & ~excl) and, with ``incl``, the second
+    (valid & incl) as the two predicates of a dual row launch."""
+    window = _jx_row_window(q_kp, radius, img_rows)
+    sets = [q_valid & ~excl] + ([] if incl is None else [q_valid & incl])
+    outs = [jx_top2(jnp.asarray(dist), window, jnp.asarray(ok),
+                    jnp.asarray(t_kp), jnp.asarray(t_valid), r2a=0.0,
+                    r2b=0.0, row_mode=True, interpret=True)[0]
+            for ok in sets]
+    return outs[0], outs[-1]
+
+
+@pytest.mark.parametrize("mode", ["dual", "single", "row", "row_dual"])
 def test_top2_plain_matches_pallas_kernel(top2_problem, mode):
+    """The plain top-2 against lvt_tpu's Pallas kernel in interpret mode:
+    radius modes on the same coordinates; the row modes from the left
+    keypoints (the window computed inside) against the kernel on lvt_tpu's
+    own window, single and dual (two overlapping query sets, each equal to
+    its own single-set launch)."""
     p = top2_problem
-    q = p["window"] if mode == "row" else p["q_uv"]
-    kw = {"dual": dict(r2a=40.0**2, r2b=80.0**2),
-          "single": dict(r2a=25.0**2, r2b=25.0**2),
-          "row": dict(r2a=0.0, r2b=0.0, row_mode=True)}[mode]
-    args = (p["dist"], q, p["q_valid"], p["t_kp"], p["t_valid"])
-    want = jx_top2(*map(jnp.asarray, args), interpret=True, **kw)
-    got = top2.masked_dual_top2_plain(*map(_t, args), **kw)
+    if mode.startswith("row"):
+        incl = p["incl"] if mode == "row_dual" else None
+        args = (p["dist"], p["q_kp"], p["q_valid"], p["t_kp"], p["t_valid"],
+                p["excl"])
+        want = _jx_row_sets(*args, incl, 2, 300)
+        got = top2.masked_dual_top2_plain(
+            *map(_t, args), None if incl is None else _t(incl),
+            row_mode=True, row_radius=2.0, img_rows=300.0)
+        assert (p["q_valid"] & ~p["excl"] & p["incl"]).sum() > 10
+    else:
+        kw = {"dual": dict(r2a=40.0**2, r2b=80.0**2),
+              "single": dict(r2a=25.0**2, r2b=25.0**2)}[mode]
+        args = (p["dist"], p["q_uv"], p["q_valid"], p["t_kp"], p["t_valid"])
+        want = jx_top2(*map(jnp.asarray, args), interpret=True, **kw)
+        got = top2.masked_dual_top2_plain(*map(_t, args), **kw)
     for g, w in zip(got, want):
         d1, d2, best, nc = (np.asarray(x) for x in w)
         np.testing.assert_array_equal(g[3].numpy(), nc)
@@ -94,14 +133,16 @@ def test_top2_plain_matches_pallas_kernel(top2_problem, mode):
         assert has.sum() > 20 and (nc > 1).sum() > 5
 
 
-@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+@pytest.mark.parametrize("mode", ["dual", "single", "row", "row_dual"])
 def test_hamming_top2_plain_matches_hamming_then_pallas_kernel(mode):
     """Kernel T's plain version, which takes descriptors, against lvt_tpu's
     Hamming matrix followed by its Pallas top-2 kernel (interpret mode):
     repeated target descriptors give equal distances, whole query rows
     are invalid or have no valid target in reach, and a few targets sit
-    on the radius."""
-    rs = np.random.RandomState({"dual": 5, "single": 6, "row": 7}[mode])
+    on the radius (row modes: the window from the keypoints inside, two
+    overlapping query sets in the dual one, against lvt_tpu's window)."""
+    rs = np.random.RandomState({"dual": 5, "single": 6, "row": 7,
+                                "row_dual": 8}[mode])
     m, k = 150, 260
     q_desc, t_desc = _desc(rs, m), _desc(rs, k)
     t_desc[1::5] = t_desc[::5][:t_desc[1::5].shape[0]]   # duplicate targets
@@ -110,21 +151,31 @@ def test_hamming_top2_plain_matches_hamming_then_pallas_kernel(mode):
     q_valid = rs.rand(m) > 0.1
     q_valid[:4] = False                                  # all-invalid rows
     t_valid = rs.rand(k) > 0.1
-    if mode == "row":
-        y = np.floor(rs.uniform(0, 200, m)).astype(np.float32)
-        q = np.stack([np.maximum(y - 2, 0), np.minimum(y + 2, 200)],
-                     -1).astype(np.float32)
-        q[4:8] = [-50.0, -40.0]                          # no target in reach
-        kw = dict(r2a=0.0, r2b=0.0, row_mode=True)
+    dist = jx_hamming.hamming_matrix(jnp.asarray(q_desc), jnp.asarray(t_desc))
+    if mode.startswith("row"):
+        q = rs.uniform(0, 200, (m, 2)).astype(np.float32)
+        q[4:8, 1] = [-50.0, -40.0, -45.5, -60.0]         # no target in reach
+        q[8, 1] = t_kp[0, 1] + 2.0                        # target 0 at the edge
+        excl = rs.rand(m) > 0.7
+        excl[:8] = False
+        incl = (rs.rand(m) > 0.4) | excl if mode == "row_dual" else None
+        got = top2.hamming_top2(
+            _t(q_desc), _t(t_desc), *map(_t, (q, q_valid, t_kp, t_valid,
+                                              excl)),
+            None if incl is None else _t(incl), row_mode=True,
+            row_radius=2.0, img_rows=200.0)
+        want = _jx_row_sets(dist, q, q_valid, t_kp, t_valid, excl, incl, 2,
+                            200)
+        if incl is not None:
+            assert (q_valid & ~excl & incl).sum() > 10   # overlapping sets
     else:
         q = rs.uniform(0, 200, (m, 2)).astype(np.float32)
         q[4:8] = -500.0                                  # no target in reach
         q[8] = t_kp[0] + np.float32([30.0, 0.0])         # target 0 on the radius
         kw = dict(r2a=30.0**2, r2b=(60.0 if mode == "dual" else 30.0)**2)
-    args = (q, q_valid, t_kp, t_valid)
-    got = top2.hamming_top2(_t(q_desc), _t(t_desc), *map(_t, args), **kw)
-    dist = jx_hamming.hamming_matrix(jnp.asarray(q_desc), jnp.asarray(t_desc))
-    want = jx_top2(dist, *map(jnp.asarray, args), interpret=True, **kw)
+        args = (q, q_valid, t_kp, t_valid)
+        got = top2.hamming_top2(_t(q_desc), _t(t_desc), *map(_t, args), **kw)
+        want = jx_top2(dist, *map(jnp.asarray, args), interpret=True, **kw)
     for g, w in zip(got, want):
         d1, d2, best, nc = (np.asarray(x) for x in w)
         np.testing.assert_array_equal(g[3].numpy(), nc)
@@ -222,7 +273,11 @@ def test_find_map_matches_matches_lvt_tpu(n_true):
     assert int(got.matches_count) > n_true // 3
 
 
-def test_row_match_matches_lvt_tpu():
+def test_row_top2_then_acceptance_matches_lvt_tpus_row_match():
+    """Kernel T's single row mode (the window from the keypoints) followed
+    by the acceptance, the one-to-one resolution and the claims, the ops
+    ``ba_observe``'s plain version runs on T's set, give lvt_tpu's
+    ``row_match``."""
     rs = np.random.RandomState(11)
     k = 512
     kp_l, desc_l, valid_l = _frame_features(rs, k)
@@ -233,20 +288,25 @@ def test_row_match_matches_lvt_tpu():
     valid_r = rs.rand(k) > 0.1
     excluded = rs.rand(k) > 0.7
     score = np.zeros(k, np.float32)
-    kw = dict(vertical_search_radius=2, ratio_threshold=0.6,
-              abs_threshold=80.0, img_rows=240)
+    window = dict(vertical_search_radius=2, img_rows=240)
+    accept = dict(ratio_threshold=0.6, abs_threshold=80.0)
     left = (kp_l, desc_l, score, score, valid_l)
     right = (kp_r, desc_r, score, score, valid_r)
-    got = matching.row_match(FrameFeatures(*map(_t, left)),
-                             FrameFeatures(*map(_t, right)), _t(excluded),
-                             **kw)
+    d1, d2, best, n_cand = top2._unpack(*matching.row_top2_packed(
+        FrameFeatures(*map(_t, left)), FrameFeatures(*map(_t, right)),
+        _t(excluded), **window))[0]
+    idx = hamming.accept_matches(d1, d2, best, n_cand, *accept.values())
+    idx = hamming.resolve_one_to_one(idx, d1, k)
+    got = dict(right_idx=idx, left_matched=idx >= 0,
+               right_matched=hamming.claim_mask(idx, k) & _t(valid_r),
+               count=(idx >= 0).sum())
     want = jx_matching.row_match(JxFeatures(*map(jnp.asarray, left)),
                                  JxFeatures(*map(jnp.asarray, right)),
                                  jnp.asarray(excluded), use_kernel=False,
-                                 use_mxu=False, **kw)
-    for name in ("right_idx", "left_matched", "right_matched", "count"):
-        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                 use_mxu=False, **window, **accept)
+    for name, value in got.items():
+        np.testing.assert_array_equal(value.numpy(),
                                       np.asarray(getattr(want, name)),
                                       err_msg=name)
-    assert int(got.count) > 100
+    assert int(got["count"]) > 100
 

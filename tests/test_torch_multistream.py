@@ -289,29 +289,31 @@ def test_no_vmap_fallback_in_the_step(mode):
     assert (msvo.status == TRACKING).all()
 
 
-@pytest.mark.parametrize("mode", ["dual", "single", "row"])
+@pytest.mark.parametrize("mode", ["dual", "single", "row", "row_dual"])
 @pytest.mark.parametrize("unbatched", [None, 1, 4])
 def test_top2_vmap_rule_matches_a_loop_of_plain(mode, unbatched):
     """vmap of the single-stream kernel T call over 3 streams (one
     argument unbatched where ``unbatched`` names it) against
-    hamming_top2_plain stream by stream: bit-equal."""
+    hamming_top2_plain stream by stream: bit-equal (row modes: the
+    keypoints, the exclusion and, dual, the second set batched too)."""
     rs = np.random.RandomState(5)
     s, m, k = 3, 45, 70
     q_desc = rs.randint(-2**31, 2**31 - 1, (s, m, 8)).astype(np.int32)
     t_desc = rs.randint(-2**31, 2**31 - 1, (s, k, 8)).astype(np.int32)
     t_desc[:, 1::3] = t_desc[:, ::3][:, :t_desc[:, 1::3].shape[1]]
     t_kp = rs.uniform(0, 60, (s, k, 2)).astype(np.float32)
-    if mode == "row":
-        y = np.floor(rs.uniform(0, 60, (s, m))).astype(np.float32)
-        q_meta = np.stack([y - 2, y + 2], -1)
-        kw = dict(r2a=0.0, r2b=0.0, row_mode=True)
+    q_meta = rs.uniform(0, 60, (s, m, 2)).astype(np.float32)
+    sets = []
+    if mode.startswith("row"):
+        kw = dict(row_mode=True, row_radius=2.0, img_rows=60.0)
+        sets = [rs.rand(s, m) > 0.6] + [rs.rand(s, m) > 0.5] * (
+            mode == "row_dual")
     else:
-        q_meta = rs.uniform(0, 60, (s, m, 2)).astype(np.float32)
         kw = dict(r2a=12.0**2, r2b=(24.0 if mode == "dual" else 12.0)**2)
     args = [torch.from_numpy(a) for a in (
         q_desc, t_desc, q_meta, rs.rand(s, m) > 0.1, t_kp,
-        rs.rand(s, k) > 0.1)]
-    in_dims = [0] * 6
+        rs.rand(s, k) > 0.1, *sets)]
+    in_dims = [0] * len(args)
     if unbatched is not None:
         in_dims[unbatched] = None
         args[unbatched] = args[unbatched][0]

@@ -40,7 +40,7 @@ from tests.test_torch_system import share_the_cores  # noqa: F401
 
 def _select_port(nms, raw, spread, cap, threshold, cell, per_cell, low):
     raw_t = torch.zeros(0) if raw is None else torch.from_numpy(raw)
-    return detect.select_corners_op(torch.from_numpy(nms), raw_t,
+    return detect.select_corners_op(torch.from_numpy(nms), raw_t, NO_PLANES,
                                     float(threshold), cell, per_cell, low,
                                     spread, cap)
 
@@ -70,7 +70,10 @@ def _select_jax(nms, raw, spread, cap, threshold, cell, per_cell, low):
     return out, np.asarray(det.threshold_used)
 
 
-NAMES = ("xi", "yi", "xc", "yc", "score", "valid", "kp", "corner")
+NAMES = ("xi", "yi", "xc", "yc", "score", "valid", "kp", "corner", "desc",
+         "desc_valid")
+# no planes: the patch and sparse modes' selection
+NO_PLANES = torch.zeros(0, dtype=torch.int32)
 
 
 def _check_selection(nms, raw=None, *, spread, threshold=20.0, cell=32,
@@ -92,8 +95,8 @@ def _check_selection(nms, raw=None, *, spread, threshold=20.0, cell=32,
     # wrapper the step calls is the op
     plain = detect.select_corners_plain(
         torch.from_numpy(nms), torch.zeros(0) if raw is None
-        else torch.from_numpy(raw), threshold, cell, per_cell, low, spread,
-        cap)
+        else torch.from_numpy(raw), NO_PLANES, threshold, cell, per_cell,
+        low, spread, cap)
     _assert_outputs_equal(got, plain, "select_corners")
     wrapped = detect.select_slots(
         torch.from_numpy(nms), threshold, cell_size=cell,
@@ -186,22 +189,65 @@ def test_select_vmap_rule_is_each_image_alone():
     nms = torch.from_numpy(sparse_map(rs, 6, 48, 80)).view(3, 2, 48, 80)
     raw = torch.zeros(0)
     rest = (20.0, 32, 10, 50, True, 128)
-    got = torch.func.vmap(lambda n: detect.select_corners_op(n, raw, *rest))(
-        nms)
+    got = torch.func.vmap(lambda n: detect.select_corners_op(
+        n, raw, NO_PLANES, *rest))(nms)
     for i in range(3):
-        alone = detect.select_corners_op(nms[i], raw, *rest)
+        alone = detect.select_corners_op(nms[i], raw, NO_PLANES, *rest)
         _assert_outputs_equal([x[i] for x in got], alone, f"frame {i}")
 
 
-@pytest.mark.parametrize("subpixel", [False, True], ids=["patch", "raw"])
-def test_select_op_opcheck(subpixel):
+@pytest.mark.parametrize("mode", ["patch", "raw", "dense"])
+def test_select_op_opcheck(mode):
     """``torch.library.opcheck``: schema, fake kernel, autograd
-    registration and AOT dispatch on the CPU kernel."""
+    registration and AOT dispatch on the CPU kernel (dense: with kernel
+    B's planes, the descriptors too)."""
     rs = np.random.RandomState(2)
     nms = torch.from_numpy(sparse_map(rs, 2, 40, 72))
-    raw = nms + 1.0 if subpixel else torch.zeros(0)
+    raw = nms + 1.0 if mode != "patch" else torch.zeros(0)
+    planes = (torch.from_numpy(rs.randint(-2**31, 2**31 - 1, (2, 8, 40, 72),
+                                          dtype=np.int64).astype(np.int32))
+              if mode == "dense" else NO_PLANES)
     torch.library.opcheck(detect.select_corners_op,
-                          (nms, raw, 20.0, 32, 8, 30, True, 128))
+                          (nms, raw, planes, 20.0, 32, 8, 30, True, 128))
+
+
+@pytest.mark.parametrize("spread", [True, False],
+                         ids=["uint8-dither", "float-no-dither"])
+def test_dense_select_descriptors_match_lvt_tpu(spread):
+    """The dense mode's selection with kernel B's planes: each slot's
+    descriptor and its validity equal lvt_tpu's ``descriptors_from_planes``
+    (lvt_tpu/ops/brief.py:234-251) at lvt_tpu's selected integer corners
+    and validity, every slot (zeros where invalid, within the border or
+    padded); the selection's other outputs as without the planes."""
+    from lvt_tpu.ops import brief as jx_brief
+
+    rs = np.random.RandomState(12)
+    b, h, w = 2, 96, 128
+    raw = rs.randint(0, 60, (b, h, w)).astype(np.float32)
+    if not spread:
+        raw = raw + rs.rand(b, h, w).astype(np.float32)
+    nms = np.where(rs.rand(b, h, w) < 0.05, raw, 0).astype(np.float32)
+    planes = rs.randint(-2**31, 2**31 - 1, (b, 8, h, w),
+                        dtype=np.int64).astype(np.int32)
+    cap, args = 192, (20.0, 32, 16, 200, spread)
+    got = detect.select_corners_op(
+        torch.from_numpy(nms), torch.from_numpy(raw),
+        torch.from_numpy(planes), *args, cap)
+    alone = _select_port(nms, raw, spread, cap, *args[:4])
+    _assert_outputs_equal(got[:8], alone[:8], "select_corners, planes")
+    want, _ = _select_jax(nms, raw, spread, cap, *args[:4])
+    corner = np.where(want["valid"][..., None], want["corner"], 0.0)
+    jd, jv = jax.vmap(jx_brief.descriptors_from_planes)(
+        jnp.asarray(planes.view(np.uint32)), jnp.asarray(corner),
+        jnp.asarray(want["valid"]))
+    np.testing.assert_array_equal(got[9].numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(got[8].numpy(),
+                                  np.asarray(jd).view(np.int32))
+    border = (~np.asarray(jv) & want["valid"]).sum()
+    assert np.asarray(jv).sum() > 20 and border > 0
+    _assert_outputs_equal(got, detect.select_corners_plain(
+        torch.from_numpy(nms), torch.from_numpy(raw),
+        torch.from_numpy(planes), *args, cap), "select_corners_plain")
 
 
 # ---- the map match after kernel T
@@ -332,8 +378,8 @@ def test_cluster_selection_model_is_the_plain_version(name, cluster):
     got = _cluster_select(nms, spread, cap, threshold, cell, per_cell, low,
                           cluster)
     want = detect.select_corners_plain(
-        torch.from_numpy(nms), torch.zeros(0), threshold, cell, per_cell,
-        low, spread, cap)
+        torch.from_numpy(nms), torch.zeros(0), NO_PLANES, threshold, cell,
+        per_cell, low, spread, cap)
     for a, bw, label in zip(got, (want[0], want[1], want[4], want[5]),
                             ("xi", "yi", "score", "valid")):
         np.testing.assert_array_equal(a, bw.numpy(), err_msg=label)

@@ -40,18 +40,20 @@ from lvt_tpu.core import step as jx_step
 from lvt_tpu.core.features import FrameFeatures as JxFeatures
 from lvt_tpu.core.motion import MotionState as JxMotion
 from lvt_tpu.core.motion import predict_next_pose as jx_predict
+from lvt_tpu.core.state import ObsWindow as JxWindow
 from lvt_tpu.core.state import PointStore as JxStore
 from lvt_tpu.geometry import se3 as jx_se3
 from lvt_tpu.geometry.se3 import Pose as JxPose
+from lvt_tpu.ops import matching as jx_matching
 from lvt_tpu_torch.config import VOConfig
 from lvt_tpu_torch.core import map as map_ops
 from lvt_tpu_torch.core import track
 from lvt_tpu_torch.core.features import FrameFeatures
 from lvt_tpu_torch.core.motion import MotionState
-from lvt_tpu_torch.core.state import PointStore
+from lvt_tpu_torch.core.state import ObsWindow, PointStore
 from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.config import MATCHES_WINDOW_INIT
-from lvt_tpu_torch.ops import matching, triangulate
+from lvt_tpu_torch.ops import matching, top2, triangulate
 from tests.test_torch_cuda import (TRACK_CAM, TRACK_CASES, TRACK_OPS,
                                    _assert_outputs_equal, _case_id,
                                    _track_op, _track_plain, _track_problem,
@@ -88,6 +90,9 @@ def _wrapper_outputs(name, res) -> tuple:
     if name == "staged_promote":
         return (res.staged.counter, res.staged.valid, res.feature_matched,
                 *res.map, res.taken)
+    if name == "ba_observe":
+        window, do_ba = res
+        return (*window, do_ba)
     return (*res.map, res.map_taken, *res.staged, res.n_inserted,
             res.map_size, res.window, res.points, res.valid)
 
@@ -125,8 +130,10 @@ def test_track_op_vmap_rule_is_each_stream_alone(name):
 @pytest.mark.parametrize("name", TRACK_OPS)
 def test_track_op_opcheck(name):
     """``torch.library.opcheck``: schema, fake kernel, autograd
-    registration and AOT dispatch on the CPU kernel."""
+    registration and AOT dispatch on the CPU kernel (ba_observe's window
+    without NaN: opcheck compares its runs with NaN unequal to itself)."""
     args = _track_problem(np.random.RandomState(5), name, 2, "cpu",
+                          "finite" if name == "ba_observe" else "random",
                           m=64, k=96, n=48)
     torch.library.opcheck(_track_op(name), tuple(args))
 
@@ -400,9 +407,9 @@ def test_triangulate_insert_plain_matches_lvt_tpu(sensor, policy, is_init):
     rf = None if rgbd else _features(right)
     row_top2 = None
     if not rgbd:
-        win, ok = matching.row_window(lf, torch.from_numpy(fm),
-                                      vertical_search_radius=2, img_rows=376)
-        row_top2 = matching.row_top2(lf, rf, win, ok)
+        row_top2 = top2._unpack(*matching.row_top2_packed(
+            lf, rf, torch.from_numpy(fm), vertical_search_radius=2,
+            img_rows=376))[0]
     got = track.triangulate_insert_plain(
         row_top2, lf.kp, None if rgbd else rf.kp, lf.depth if rgbd else None,
         lf.valid, lf.desc, Pose(torch.from_numpy(t), torch.from_numpy(q)),
@@ -439,6 +446,92 @@ def test_triangulate_insert_plain_matches_lvt_tpu(sensor, policy, is_init):
     assert int(got.map_size) == int(final)
     np.testing.assert_array_equal(_np(got.window), want_window)
     assert v.sum() > (50 if bool(need) else -1)
+
+
+@pytest.mark.parametrize("case", ["frame", "empty", "full", "culled",
+                                  "none"])
+def test_ba_observe_plain_matches_lvt_tpu(case):
+    """ba_observe's plain version, fed kernel T's dual row launch (the
+    triangulation's and the BA's query sets), against lvt_tpu's BA row
+    match and observations (lvt_tpu/core/step.py:486-512: ``row_match``
+    over the map-matched features, the gathers of r_idx, obs_r and w_r)
+    and its ``_local_ba_update`` (its slide, :232-267), bit for bit: the
+    seven leaves of the window and the schedule (BA due on the full
+    window only). ``empty``: n = 0; ``full``: n = F, BA due;
+    ``culled``: many slots culled and recycled; ``none``: no map match."""
+    rs = np.random.RandomState(["frame", "empty", "full", "culled",
+                                "none"].index(case))
+    k, m, f = 384, 256, 4
+    left, right = _scene(rs, k, 300)
+    kw = dict(local_ba_window=f, local_ba_every=4,
+              row_matching_vertical_search_radius=2,
+              triangulation_ratio_test_threshold=0.6,
+              descriptor_matching_threshold=30.0)
+    jconfig = _jx_config(**kw)
+    mm_fm = rs.rand(k) < (0.0 if case == "none" else 0.6)
+    mm_fm &= left[4]
+    tri_excl = mm_fm | (rs.rand(k) < 0.1)   # after the promotions' claims
+    match_idx = np.full(m, -1, np.int64)
+    match_idx[rs.rand(m) < 0.2] = -2
+    claimed = np.flatnonzero(mm_fm)
+    slots = rs.choice(m, min(m, claimed.size), replace=False)
+    match_idx[slots] = rs.permutation(claimed)[:slots.size]
+    obs = left[0][np.clip(match_idx, 0, k - 1)]
+    weights = (match_idx >= 0).astype(np.float32)
+    t = np.array([0.3, -0.1, 2.0], np.float32)
+    q = np.array([1.0, 0.01, -0.02, 0.005], np.float32)
+    q /= np.linalg.norm(q)
+    n = {"empty": 0, "full": f}.get(case, 2)
+    win = (rs.randn(f, 3).astype(np.float32),
+           rs.randn(f, 4).astype(np.float32),
+           rs.uniform(0, 1241, (f, m, 2)).astype(np.float32),
+           (rs.rand(f, m) < 0.6).astype(np.float32),
+           rs.uniform(0, 1241, (f, m, 2)).astype(np.float32),
+           (rs.rand(f, m) < 0.4).astype(np.float32), np.int32(n))
+    cull = 0.3 if case == "culled" else 0.05
+    mvalid = rs.rand(m) > 0.2
+    bvalid = mvalid | (rs.rand(m) < cull)
+    cvalid = bvalid & (rs.rand(m) > cull)
+    taken, ptaken = rs.rand(m) < cull, rs.rand(m) < cull
+    frame = np.int32(8 if case == "full" else 9)   # BA due, or not
+
+    lf, rf = _features(left), _features(right)
+    packed = matching.row_top2_packed(
+        lf, rf, torch.from_numpy(tri_excl), torch.from_numpy(mm_fm),
+        vertical_search_radius=2, img_rows=376)
+    got, do_ba = track.ba_observe_plain(
+        top2._unpack(*packed)[1], torch.from_numpy(match_idx),
+        torch.from_numpy(obs), torch.from_numpy(weights), rf.kp,
+        Pose(torch.from_numpy(t), torch.from_numpy(q)),
+        ObsWindow(*map(torch.as_tensor, win)), *map(torch.from_numpy, (
+            mvalid, bvalid, cvalid, taken, ptaken)), torch.tensor(frame),
+        ratio_threshold=0.6, abs_threshold=30.0, local_ba_every=4)
+
+    jl, jr = _features(left, jax=True), _features(right, jax=True)
+    rm_ba = jx_matching.row_match(
+        jl, jr, jnp.logical_not(jnp.asarray(mm_fm)),
+        vertical_search_radius=2, ratio_threshold=0.6, abs_threshold=30.0,
+        img_rows=376, use_kernel=False, use_mxu=False)
+    jmi = jnp.asarray(match_idx)
+    r_idx = rm_ba.right_idx[jnp.clip(jmi, 0, k - 1)]
+    obs_r = jr.kp[jnp.clip(r_idx, 0, k - 1)]
+    w_r = ((jmi >= 0) & (r_idx >= 0)).astype(jnp.float32)
+    removed = jnp.asarray(bvalid & ~cvalid)
+    recycled = jnp.asarray(taken | ptaken)
+    store = JxStore(*map(jnp.asarray, _stores_np(rs, m, 0.5)))
+    store = store._replace(valid=jnp.asarray(mvalid))
+    want, pose, pos = jx_step._local_ba_update(
+        JxWindow(*map(jnp.asarray, win)), store,
+        JxPose(jnp.asarray(t), jnp.asarray(q)), jnp.asarray(obs),
+        jnp.asarray(weights), obs_r, w_r, removed | recycled,
+        jnp.asarray(frame), jconfig)
+    for name, g, w in zip(want._fields, got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w), err_msg=name)
+    # lvt_tpu's schedule (:259): BA ran exactly where its positions moved
+    due = (want.n >= f) & (jnp.asarray(frame) % jconfig.local_ba_every == 0)
+    assert bool(do_ba) == bool(due) == (case == "full")
+    assert np.array_equal(np.asarray(pos), np.asarray(store.pos)) != due
+    assert (int(np.asarray(w_r).sum()) > 20) == (case != "none")
 
 
 # ---- the step's calls
@@ -487,6 +580,8 @@ def test_step_calls_each_op_once_per_frame(monkeypatch, staged_threshold):
     want = {name: 3 for name in TRACK_OPS}
     if staged_threshold == 0:
         want["staged_promote"] = 0
+    if config.local_ba_window == 0:
+        want["ba_observe"] = 0
     assert counts == want
     counts.update(dict.fromkeys(TRACK_OPS, 0))
     MultiStreamVO(config, 3, device="cpu").track_chunk(
