@@ -190,9 +190,14 @@ and the script exits non-zero without printing the final line:
    all-reduces captured in the graph), 24 frames in units of 3, graph
    and eager: poses, statuses and map sizes bit-equal to
    ``VOSystem`` on the card, 0 host syncs per chunk, per frame exactly A
-   1, P 1, T 3, PnP's phases 23 and ``collectives_per_frame`` all-reduces
-   (eager; in the graph per frame type, NCCL kernels: 61 on BA frames, 45
-   on the others, ``_frame_types``);
+   1, P 1, T 3, PnP's phases 23, ``predict_project``, ``upkeep_pre`` and
+   ``ba_observe`` 1 each (their kernels on the rank's block), and
+   ``collectives_per_frame`` all-reduces (eager: 60; in the graph 60 on BA
+   frames, 45 on the others, whose NCCL kernels ``_frame_types`` reads:
+   none on one rank), local BA's phases (``ba_phase``, BA_PHASES a BA by
+   the kernel's own count: on BA frames only in the graph, on every frame
+   eagerly); the three tracking ops on 8a's eager frames bit-equal to
+   their plain group versions (``check_group_ops``);
    kernels A, P and T (map and staged at M / 2 and M / 4 rows) against
    their plain versions at the shard shapes, T's map site, the PnP solve
    and its phases (checked as in phase 8 on the reference's inputs cut to
@@ -244,8 +249,8 @@ thread, its poses bit-equal to ``VOSystem.track``'s. Local BA is a CUDA
 IF node in every graph whose step is not vmapped (paths 2, 7 kitti, 8a;
 core/graphs.py), so on those paths a frame's kernels depend on its type:
 ``_frame_types`` reads them per frame (NEED_PER_FRAME and one predicate
-kernel on every frame; BA's kernels, and on 8a its 4 + 2 per iteration
-all-reduces, on BA frames only).
+kernel on every frame; BA's kernels, on 8a its phases and their 3 + 2
+per iteration all-reduces, on BA frames only).
 
 Every path launches the fused PnP solve once per frame; paths 8a-8c,
 whose points are sharded, launch its phases instead, 23 per frame (2
@@ -254,8 +259,10 @@ demotion). The plain version's two reduction ops run on no path. Every
 unsharded path launches the tracking branch's four kernels (``csrc/track.cu``, not
 TPU kernels: ``predict_project``, ``upkeep_pre``, ``staged_promote``,
 which paths 5 and 7 euroc, without staged points, do not run, and
-``triangulate_insert``) once per frame each; 8a-8c run their plain
-versions (torch ops and collectives). Every path that extracts (all but
+``triangulate_insert``) once per frame each; 8a-8c launch the first two
+on the rank's block (``upkeep_pre`` followed by its two collectives) and
+run the plain versions of the other two (torch ops and collectives).
+Every path that extracts (all but
 path 6) launches the corner selection's kernel (``select_corners``,
 ``csrc/select.cu``: a thread-block cluster per cell) once per frame for
 all its images, and every
@@ -294,7 +301,15 @@ the tail ending a frame also at M = 4096, 8192 and 16384
 ``torch._foreach_copy_`` (``measure_copy_leaves``). Local
 BA's kernel runs on BA_KERNEL_PATHS (path 2, path 7 kitti, the bench's
 ``--ba``): once per BA frame in a graph, once per frame eagerly, once in
-a graph's warm-up and once in its capture; 8a-8c keep BA's torch ops.
+a graph's warm-up and once in its capture. On 8a-8c its phases
+(``ba_phase``, ``bundle.refine_structure_phases``: ``ba_refine``'s code
+split at its sums over the points, an all-reduce of their float64
+partials between launches) run BA_PHASES times per BA the same way, and
+BA's torch ops on no path; wherever ``ba_refine`` is held against its
+plain version, the phases on one rank are held bit-equal to it, at S
+streams in one launch per phase, each stream alone, and on the windows
+cut to M / 2 and M / 4 points (``check_ba_phase``), and timed beside it
+on the 8-stream unit's windows (``measure_ba_refine``).
 Every kernel's launch count is set to 0 just before a path runs (on
 path 7, each CLI run; on path 8, in each rank; on the bench, each mode)
 and read just after it. A
@@ -373,15 +388,19 @@ KERNELS = {
                        "lvt_tpu/solver/pnp.py:155-156"),
     "stream_sum": ("cuda", "lvt_tpu_torch/csrc/pnp.cu",
                    "lvt_tpu/solver/pnp.py:148"),
-    # not a TPU kernel: lvt_tpu's local BA body (XLA ops under jit, the run
+    # not TPU kernels: lvt_tpu's local BA body (XLA ops under jit, the run
     # branch of the lax.cond at lvt_tpu/core/step.py:269-318), one cluster
-    # of blocks per stream, on the unsharded BA paths (the sharded step
-    # keeps the torch ops and their all-reduces)
+    # of blocks per stream, whole on the unsharded BA paths and, on the
+    # points-sharded paths (8a-8c; lvt_tpu's psum_axis under shard_map),
+    # split at its sums over the points
     "ba_refine": ("cuda", "lvt_tpu_torch/csrc/ba.cu",
                   "lvt_tpu/solver/bundle.py:93-378"),
+    "ba_phase": ("cuda", "lvt_tpu_torch/csrc/ba.cu",
+                 "lvt_tpu/solver/bundle.py:93-395 (psum_axis set)"),
     # not TPU kernels: the tracking branch's per-point work around kernel
-    # T, which XLA fuses under jit (core/track.py); on every unsharded path
-    # (the sharded step keeps the torch ops and their collectives)
+    # T, which XLA fuses under jit (core/track.py); on every unsharded path,
+    # and predict_project and upkeep_pre on the sharded ones too (the
+    # sharded step keeps the torch ops and collectives of the other two)
     "predict_project": ("cuda", "lvt_tpu_torch/csrc/track.cu",
                         "lvt_tpu/core/motion.py:36 + "
                         "lvt_tpu/ops/matching.py:83-100"),
@@ -395,8 +414,7 @@ KERNELS = {
                            "lvt_tpu/ops/triangulate.py:40-160 + "
                            "lvt_tpu/core/step.py:111-155"),
     # not a TPU kernel: local BA's row match after kernel T and the
-    # observation window's slide (XLA ops under jit), on the unsharded BA
-    # paths (the sharded step keeps the torch ops)
+    # observation window's slide (XLA ops under jit), on every BA path
     "ba_observe": ("cuda", "lvt_tpu_torch/csrc/track.cu",
                    "lvt_tpu/core/step.py:486-512 + "
                    "lvt_tpu/core/step.py:232-267"),
@@ -485,6 +503,12 @@ TUM_SPEED = 0.05
 # (normal equations, trial step)) + the last demotion
 PNP_PHASES = 2 * (1 + 2 * 5) + 1
 SHARDED_PATHS = ("path8a", "path8b-2", "path8b-4", "path8c")
+# local BA's body on the points-sharded paths, per BA: the launches of its
+# phases (bundle.n_phases) at path 8's config's 6 LM iterations: the
+# gate's two, the weights and first chi-square, 6 x (sums, trial step),
+# the writeback
+BA_ITERATIONS = 6
+BA_PHASES = 4 + 2 * BA_ITERATIONS
 # the plain version's launches of each of its two reduction ops per solve:
 # 2 passes x (the damping's diagonal or the starting chi-square + 5 LM
 # iterations)
@@ -566,8 +590,12 @@ for _path, _need in NEED_PER_FRAME.items():
                  else {"pnp_solve": 1})
     if _path in SHARDED_PATHS:
         # the frame's end after the tail's torch ops (the unsharded paths'
-        # tail ends the frame itself)
+        # tail ends the frame itself); the tracking ops that launch their
+        # kernels on a rank's block (core/track.py GROUP_OPS), local BA's
+        # observations among them
         _need["copy_leaves"] = 1
+        _need.update(dict.fromkeys(("predict_project", "upkeep_pre",
+                                    "ba_observe"), 1))
     else:
         _need.update(dict.fromkeys(TRACK_KERNELS, 1), map_accept=1,
                      step_tail=1)
@@ -593,8 +621,9 @@ CHUNKS_PER_UNIT = {"path6": EXT_UNIT}
 # alike on both types
 NEED_BY_FRAME_TYPE = {
     path: {"ba": {"if_node": 1, "nccl": 0,
-                  "ba_refine": int(path in BA_KERNEL_PATHS)},
-           "other": {"if_node": 1, "nccl": 0, "ba_refine": 0}}
+                  "ba_refine": int(path in BA_KERNEL_PATHS),
+                  "ba_phase": BA_PHASES * (path in SHARDED_PATHS)},
+           "other": {"if_node": 1, "nccl": 0, "ba_refine": 0, "ba_phase": 0}}
     for path in ("path2", "path7-kitti", "path8a", "bench-ba")}
 # kernel T's sites in one frame of each path
 T_SITES = {"path1": ("map", "staged", "row"),
@@ -714,10 +743,13 @@ def device_ms(fn, reps: int) -> float:
 
 
 def _flat(out):
-    """Output tensors of a call, nested tuples flattened."""
+    """Output tensors of a call, nested tuples flattened (other values
+    left out)."""
     if isinstance(out, torch.Tensor):
         return [out]
-    return [t for o in out for t in _flat(o)]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return []
 
 
 def _max_abs_err(got, want) -> float:
@@ -1392,11 +1424,15 @@ def _check_launches(path, launches, n_frames, ba_frames=None,
     NEED_PER_CHUNK times per chunk (and the path's other kernels never); on
     BA_KERNEL_PATHS local BA's kernel ``ba_frames`` times (None: once per
     frame, as an eager step, a graph's warm-up and its capture compute BA
-    on every frame)."""
+    on every frame), on SHARDED_PATHS its phases BA_PHASES times as
+    often."""
     need = {k: NEED_PER_FRAME[path].get(k, 0) * n_frames
             + NEED_PER_CHUNK.get(k, 0) * chunks for k in KERNELS}
     if path in BA_KERNEL_PATHS:
         need["ba_refine"] = n_frames if ba_frames is None else ba_frames
+    if path in SHARDED_PATHS:
+        need["ba_phase"] = BA_PHASES * (n_frames if ba_frames is None
+                                        else ba_frames)
     bad = {k: (launches.get(k, 0), v) for k, v in need.items()
            if launches.get(k, 0) != v}
     if bad:
@@ -2752,13 +2788,69 @@ def _ba_plain(args, cam) -> tuple:
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
+def _ba_phases(args, cam) -> tuple:
+    """The sharded body's phases on one rank (every all-reduce the
+    identity), vmapped over the streams: ``bundle.n_phases`` launches of
+    ``ba_phase`` for all S streams, as ba_refine's outputs."""
+    from lvt_tpu_torch.geometry.se3 import Pose
+    from lvt_tpu_torch.solver import bundle
+
+    kw = dict(zip(("fx", "fy", "cx", "cy", "baseline", "reprojection_th2",
+                   "iterations"), cam))
+    return torch.func.vmap(lambda t, q, *a: bundle.refine_structure_phases(
+        Pose(t, q), *a, **kw).outputs())(*args)
+
+
+def _first_points(args, m: int) -> tuple:
+    """BA windows cut to their first m points (a rank's block)."""
+    t, q, pos, obs, w, obs_r, w_r = args
+    return (t, q, *(x[:, :m].contiguous() for x in (pos,)),
+            *(x[:, :, :m].contiguous() for x in (obs, w, obs_r, w_r)))
+
+
+def check_ba_phase(path, label, args, cam, got) -> float:
+    """The sharded body's phases on one rank against ``ba_refine``'s
+    outputs ``got`` on the same windows: all S streams in each phase's one
+    launch, and each stream alone (S = 1); then on the windows cut to M /
+    2 and M / 4 points (the blocks of 2 and 4 ranks) against ``ba_refine``
+    there. Every output bit-equal; returns the largest gap to ``got``."""
+    from lvt_tpu_torch.solver import bundle
+
+    s, m = args[2].shape[:2]
+    phases = _ba_phases(args, cam)
+    same = all(torch.equal(a, b) for a, b in zip(phases, got))
+    alone = all(torch.equal(a[0], b[i]) for i in range(s)
+                for a, b in zip(_ba_phases(
+                    tuple(x[i:i + 1] for x in args), cam), phases))
+    cuts = {}
+    for k in (2, 4):
+        cut = _first_points(args, m // k)
+        cuts[m // k] = all(torch.equal(a, b) for a, b in zip(
+            _ba_phases(cut, cam), bundle.ba_refine_op(*cut, *cam)))
+    torch.cuda.synchronize()
+    _say(path, f"ba_phase S={s} x M={m} ({label}), {bundle.n_phases(cam[6])}"
+               f" launches each on one rank: "
+               f"{'bit-equal' if same else 'NOT equal'} to ba_refine; every "
+               f"stream {'bit-equal' if alone else 'NOT equal'} to its S=1 "
+               f"phases; cut to M = " + ", ".join(
+                   f"{mk} {'bit-equal' if v else 'NOT equal'}"
+                   for mk, v in cuts.items()) + " to ba_refine there")
+    if not (same and alone and all(cuts.values())):
+        raise AssertionError(f"{path}: ba_phase differs from ba_refine "
+                             f"({label}): S launch {same}, S=1 {alone}, "
+                             f"cuts {cuts}")
+    return _max_abs_err(phases, got)
+
+
 def check_ba_refine(path, inputs) -> dict:
     """Local BA's kernel against its plain version on the card, on a path's
     captured BA windows (``capture_ba_inputs``) and on the same windows cut
     to few points (``few_ba_points``), all S streams in one launch: every
     output (positions, chi2, n_obs, the accept bits) bit-equal to the
     plain version's, stream by stream (the gaps printed), and each stream
-    bit-equal to its own S = 1 launch. Returns the largest gaps."""
+    bit-equal to its own S = 1 launch; and the sharded body's phases on
+    one rank bit-equal to it (``check_ba_phase``). Returns the largest
+    gaps (``phase_max_abs_err``: the phases' to the plain version)."""
     from lvt_tpu_torch.solver import bundle
 
     cam = inputs["cam"]
@@ -2796,8 +2888,11 @@ def check_ba_refine(path, inputs) -> dict:
             raise AssertionError(f"{path}: a stream of the S={s} ba_refine "
                                  f"launch ({label}) differs from its S=1 "
                                  f"launch")
+        phase_err = check_ba_phase(path, label, args, cam, got)
         for key, v in (("pos_m", dp.max()), ("chi2_rel", rel.max()),
-                       ("max_abs_err", _max_abs_err(got, want))):
+                       ("max_abs_err", _max_abs_err(got, want)),
+                       ("phase_max_abs_err",
+                        phase_err + _max_abs_err(got, want))):
             gaps[key] = max(float(v), gaps.get(key, 0.0))
         gaps.update(s=s, m=m)
     return gaps
@@ -2836,11 +2931,14 @@ def ba_refine_work(args, cam) -> tuple[int, dict]:
 
 def measure_ba_refine(card, path, inputs) -> dict:
     """``check_ba_refine``, then at S = 1 (stream 0) and S = all: the
-    kernel's device time beside its bound; at S = 1 the plain version's,
+    kernel's device time beside its bound, and the sharded body's phases
+    on one rank (``_ba_phases``: ``bundle.n_phases`` launches, graphed) as
+    a whole BA beside the same bound; at S = 1 the plain version's,
     captured in a CUDA graph and replayed (the IF node's body before this
     kernel; it runs stream by stream, so S streams take S times as long).
     No one PyTorch call runs a bundle adjustment: no library time. The
-    report carries the kernel's shape as built (``ba_geometry``)."""
+    report carries the kernel's shape as built (``ba_geometry``) and the
+    phases' entry (``phases``)."""
     from lvt_tpu_torch.solver import bundle
 
     gaps = check_ba_refine(path, inputs)
@@ -2852,6 +2950,8 @@ def measure_ba_refine(card, path, inputs) -> dict:
         rep[s] = dict(
             s=s, f=args[3].shape[1], m=args[2].shape[1],
             ms=device_ms(lambda a=args: bundle.ba_refine_op(*a, *cam), REPS),
+            phases_ms=device_ms(_graphed(lambda a=args: _ba_phases(a, cam)),
+                                PLAIN_REPS),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
         q = rep[s]
         if s == 1:
@@ -2862,9 +2962,22 @@ def measure_ba_refine(card, path, inputs) -> dict:
                    f"cluster of {card['ba_geometry']['cluster']} blocks of "
                    f"{card['ba_geometry']['threads']} threads per stream)"
                    + (f", the plain version graphed {q['plain_ms']:.4f} ms"
-                      if s == 1 else ""))
-    return dict(rep[1], batched=rep[n_streams], **gaps,
-                **card["ba_geometry"])
+                      if s == 1 else "")
+                   + f"; ba_phase, the whole body as "
+                   f"{bundle.n_phases(cam[6])} launches on one rank, graphed "
+                   f"{q['phases_ms']:.4f} ms")
+    keys = ("s", "f", "m", "bound_ms", "bound_by", "library_ms")
+
+    def phases(q):
+        return dict({k: q[k] for k in keys}, ms=q["phases_ms"],
+                    launches_per_ba=bundle.n_phases(cam[6]))
+
+    out = dict(rep[1], batched=rep[n_streams], **gaps, **card["ba_geometry"])
+    out["phases"] = dict(phases(rep[1]), plain_ms=rep[1]["plain_ms"],
+                         max_abs_err=gaps["phase_max_abs_err"],
+                         batched=phases(rep[n_streams]),
+                         **card["ba_geometry"])
+    return out
 
 
 def _phase_report(rep) -> dict:
@@ -3950,10 +4063,12 @@ def collectives_per_frame(config) -> int:
     """All-reduces in one frame of the sharded step (the tests' count,
     tests/test_torch_sharded.py): map match 5, PnP 25, the un-mark OR 1,
     map sizes 3, the staged re-match 2, the metrics 8, the lost frame's
-    map size 1; with local BA 4 + 2 per iteration."""
+    map size 1; with local BA one per phase but the last, 3 + 2 per
+    iteration (the gate's two moments, the first chi-square with the
+    observation count, per iteration the sums and the trial chi-square)."""
     n = 45 - (2 if config.staged_threshold == 0 else 0)
     if config.local_ba_window > 0:
-        n += 4 + 2 * config.local_ba_iterations
+        n += 3 + 2 * config.local_ba_iterations
     return n
 
 
@@ -3977,12 +4092,15 @@ def _gap(a, b) -> float:
     return float(np.abs(np.asarray(a) - np.asarray(b)).max())
 
 
-def _check_rank_counts(path, ranks, n_frames, need_coll) -> None:
+def _check_rank_counts(path, ranks, n_frames, need_coll,
+                       config=None) -> None:
     """Each rank's counts (``dryrun._chunks``): the wrappers' launches and
     the collectives' calls, per frame of an eager run or at a graph's
     warm-up and capture (twice NEED_PER_FRAME); where a graph ran, the
     kernels the card ran in chunk 0 (a kernel trace: NEED_PER_FRAME per
-    frame and the warm-up step)."""
+    frame and the warm-up step; with ``config``, whose local BA is an IF
+    node of the graph, BA's phases on the warm-up and the BA frames by its
+    schedule)."""
     r = ranks[0]
     _say(path, f"rank 0 ({r['modes'][0]}): the wrappers counted "
                f"{r['launches']}" + (
@@ -3995,11 +4113,106 @@ def _check_rank_counts(path, ranks, n_frames, need_coll) -> None:
         _check_launches(path, r["launches"], steps,
                         chunks=len(r["chunk_seconds"]))
         if graph:
+            ba = None if config is None else 1 + sum(
+                _ba_frames(config, range(r["first_chunk"])))
             _check_launches(path, r["device_launches"], r["first_chunk"] + 1,
-                            chunks=1)
+                            ba, chunks=1)
         if r["collectives"] != need_coll * steps:
             raise AssertionError(f"{path}: rank {rank} ran {r['collectives']}"
                                  f" collectives, not {need_coll} x {steps}")
+
+
+# frames of 8a's eager step whose routed tracking ops are held against
+# their plain group versions (check_group_ops): BA runs at frame 4
+GROUP_FRAMES = 5
+
+
+def _clone(x):
+    """A copy of every tensor in ``x`` (tuples, named ones included, lists
+    and dicts of tensors and other values), the rest as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+def _group_plain(name, args, kw):
+    """The plain group version of a routed tracking op (core/track.py
+    GROUP_OPS) on the arguments its wrapper took in the step."""
+    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.ops import top2
+
+    if name == "predict_project":
+        return track.predict_project_plain(*args[:6])
+    if name == "upkeep_pre":
+        store, staged = args[0], args[6]
+        staged_pos, staged_valid = ((store.pos[:0], store.valid[:0])
+                                    if staged is None
+                                    else (staged.pos, staged.valid))
+        return track.upkeep_pre_plain(*args[:6], staged_pos, staged_valid,
+                                      *args[7:10])
+    row_packed, match_idx, obs = args[:3]
+    right_kp = args[4]
+    if right_kp is None:
+        right_kp = obs[:0]
+        row_packed = (obs.new_zeros((2, 2, 0)),
+                      match_idx.new_zeros((2, 2, 0)))
+    return track.ba_observe_plain(
+        top2._unpack(*row_packed)[1], match_idx, obs, args[3], right_kp,
+        *args[5:], **{k: v for k, v in kw.items() if k != "group"})
+
+
+def check_group_ops(path, make, a, b) -> dict:
+    """The tracking ops that launch their kernels under a group
+    (``track.GROUP_OPS``) against their plain group versions, on the
+    arguments the sharded step gave their wrappers over GROUP_FRAMES eager
+    frames of ``make()`` (a system on the current group): every output
+    bit-equal (NaN for NaN), one call per frame. Returns the largest gap
+    per op."""
+    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.core.graphs import disable_graphs
+
+    calls = {name: [] for name in track.GROUP_OPS}
+    real = {name: getattr(track, name) for name in track.GROUP_OPS}
+
+    def recorder(name):
+        def record(*args, **kw):
+            calls[name].append((_clone(args), _clone(kw)))
+            return real[name](*args, **kw)
+        # the op adds its launches to the module's wrapper, this one while
+        # it stands in for the real one
+        record.launches = real[name].launches
+        return record
+
+    for name in calls:
+        setattr(track, name, recorder(name))
+    try:
+        with disable_graphs():
+            make().track_chunk(a[:GROUP_FRAMES], b[:GROUP_FRAMES])
+    finally:
+        for name, fn in real.items():
+            fn.launches = getattr(track, name).launches
+            setattr(track, name, fn)
+    errs = {}
+    for name, seen in calls.items():
+        if len(seen) != GROUP_FRAMES:
+            raise AssertionError(f"{path}: {len(seen)} calls of {name} in "
+                                 f"{GROUP_FRAMES} frames")
+        errs[name] = 0.0
+        for args, kw in seen:
+            errs[name] = max(errs[name], _require_equal_nan(
+                f"{path} {name}", real[name](*args, **kw),
+                _group_plain(name, args, kw)))
+    _say(path, f"{', '.join(calls)} on the rank's block over "
+               f"{GROUP_FRAMES} eager frames of the sharded step: bit-equal "
+               f"(NaN for NaN) to their plain group versions, one call each "
+               f"per frame")
+    return errs
 
 
 def _nccl_two_ranks() -> tuple[str, str]:
@@ -4065,12 +4278,16 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
             map_size, backend8a = svo.map_size, dist.get_backend(svo.group)
             report = _report_modes("path8a", run)
             _same_modes("path8a", run)
-            prof = _profiles("path8a", run, drive, profile_dir)
-            # local BA's all-reduces (the gate's and the refinement's, 4 +
-            # 2 per iteration) run inside the IF node, on BA frames only
+            prof = _profiles("path8a", run, drive, profile_dir,
+                             config=config)
+            # local BA's phases and their all-reduces (3 + 2 per
+            # iteration) run inside the IF node, on BA frames only
             prof["frame_types"] = _frame_types(
                 "path8a", config,
                 lambda: ShardedStreamVO(config, device=DEVICE), a, b)
+            group_errs = check_group_ops(
+                "path8a", lambda: ShardedStreamVO(config, device=DEVICE), a,
+                b)
         finally:
             dist.destroy_process_group()
     g = run["graph"]
@@ -4254,7 +4471,7 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
         if not err < 0.05 * dist:
             raise AssertionError(f"{path}: ATE {err:.4f} m is not under 5% "
                                  f"of {dist:.2f} m")
-        _check_rank_counts(path, ranks, n, need_coll)
+        _check_rank_counts(path, ranks, n, need_coll, config)
         runs[path] = dict(launches=_rank_launches(ranks), fps=fps, gap=gap_h,
                           gap_all=gap, ate_pct=100 * err / dist,
                           size_gaps=size_gaps, backend=ranks[0]["backend"],
@@ -4354,7 +4571,7 @@ def phase_sharded(card, config, ms_config, il, ir, gt, ms_poses,
                       for name, rs in secs.items()))
     for r in runs.values():
         r["kernel_errs"] = {}
-    runs["path8a"]["kernel_errs"] = kernel_errs
+    runs["path8a"]["kernel_errs"] = dict(kernel_errs, **group_errs)
     return dict(runs=runs, shard_t=shard_t, shard_pnp=shard_pnp,
                 shard_solve=shard_solve,
                 backend=backend, nccl=nccl_said)
@@ -4401,14 +4618,14 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
     hand-written kernels, launched through ctypes, are listed on their
     own); tracing the host slows it. With ``out_dir`` and ``host``, the op
     table is written there."""
-    from lvt_tpu_torch.parallel.dryrun import (IF_NODE_SYMBOL,
+    from lvt_tpu_torch.parallel.dryrun import (BA_KERNELS, IF_NODE_SYMBOL,
                                                KERNEL_SYMBOLS, TRACE_MARKERS,
                                                ba_launches, device_records,
                                                traced)
 
     ba0 = ba_launches()
     _, prof = traced(run, host=host)
-    n_ba = ba_launches() - ba0
+    n_ba = {k: v - ba0[k] for k, v in ba_launches().items()}
     records = [r for r in device_records(prof) if r[0] not in STAGES]
     n_markers = sum("spin_kernel" in name for name, _, _ in records)
     records = [r for r in records if "spin_kernel" not in r[0]]
@@ -4446,10 +4663,11 @@ def _profile(run, n, out_dir=None, host=False) -> dict:
             lines.append(f"kernel {name:<15} {len(mine):>5} launches, "
                          f"{kernels[name]['device_ms']:.4f} ms each "
                          f"(profiler device time)")
-    # local BA's kernel runs in an IF node's body, whose records a trace
-    # can lose: its launches are its own count (dryrun.ba_launches)
-    if n_ba or "ba_refine" in kernels:
-        kernels.setdefault("ba_refine", dict(device_ms=None))["launches"] = n_ba
+    # local BA's kernels run in an IF node's body, whose records a trace
+    # can lose: their launches are their own counts (dryrun.ba_launches)
+    for k in BA_KERNELS:
+        if n_ba[k] or k in kernels:
+            kernels.setdefault(k, dict(device_ms=None))["launches"] = n_ba[k]
     busy = sum(end - start for _, start, end in records) / 1e6
     span = (max(end for _, _, end in records)
             - min(start for _, start, _ in records)) / 1e6
@@ -4519,7 +4737,7 @@ def _profiles(path, run, drive, profile_dir=None, frame="frame",
     n, last = run["unit_frames"], len(run["graph"]["times"]) + 1
     ba = None
     if config is not None:
-        start = run["graph"]["system"].frame_number
+        start = int(run["graph"]["system"].state.frame_number)
         ba = sum(_ba_frames(config, range(start, start + n)))
     _say(path, "profile of one graphed unit:")
     prof = _profile(lambda: drive(run["graph"]["system"], last), n)
@@ -4646,9 +4864,9 @@ def _body_kernels(runner) -> int:
 
 # a kernel trace can miss the last records of an IF node's body: 1-10 of
 # 3233-3276 kernels (the body's closing select and copy) the first time a
-# trace saw the node run, with BA's torch body (8a); with local BA's
-# kernel as the body (its launch and a copy), its records on any BA frame
-# of a trace (measured on the H100)
+# trace saw the node run, with BA's former torch body on 8a; with local
+# BA's kernel as the body (its launch and a copy), its records on any BA
+# frame of a trace (measured on the H100)
 TRACED_FRAMES = (5, 17)     # frames traced one at a time: BA at 8, 12, 16
 
 
@@ -4659,13 +4877,11 @@ def _frame_types(path, config, make, a, b, eager=False) -> dict:
     first runs at frame 4), then frames 5-16 one ``track_chunk`` each in
     one kernel trace (``dryrun.frame_launches``). Every frame launches
     NEED_PER_FRAME and NEED_BY_FRAME_TYPE by its type (local BA's own
-    kernel by its own count); every other frame runs the same kernels,
-    and a BA frame an other frame's and the node's body's
-    (``_body_kernels``; a trace can lose records of the body,
-    TRACED_FRAMES: with local BA's kernel as the body it lists no more
-    than the body holds; with BA's torch body, 8a, the trace's first BA
-    frame lists a part of it and every later one all of it), so no other
-    frame runs any of BA's. With ``eager``, the same frames of a system
+    kernels, ``ba_refine`` or on 8a ``ba_phase``, by their own counts);
+    every other frame runs the same kernels, and a BA frame an other
+    frame's and the node's body's (``_body_kernels``; a trace can lose
+    records of the body, TRACED_FRAMES, so it lists no more than the body
+    holds), so no other frame runs any of BA's. With ``eager``, the same frames of a system
     under ``disable_graphs()`` beside it: no predicate, the same kernels
     on every frame (BA computed and selected)."""
     from lvt_tpu_torch.core.graphs import disable_graphs
@@ -4692,12 +4908,13 @@ def _frame_types(path, config, make, a, b, eager=False) -> dict:
         for f, ba in zip(frames, is_ba):
             want = int(ba or mode == "eager")
             _check_launches(path, f, 1, want, chunks=1)
-            need = ({"if_node": 0, "nccl": 0,
-                     "ba_refine": int(path in BA_KERNEL_PATHS)}
+            need = ({"if_node": 0, "nccl": 0}
                     if mode == "eager" else
                     NEED_BY_FRAME_TYPE[path]["ba" if ba else "other"])
             if path in BA_KERNEL_PATHS:
                 need = dict(need, ba_refine=want)
+            if path in SHARDED_PATHS:
+                need = dict(need, ba_phase=BA_PHASES * want)
             got = {k: f[k] for k in need}
             if got != need:
                 raise AssertionError(f"{path}: a {'BA' if ba else 'other'} "
@@ -4739,18 +4956,11 @@ def _frame_types(path, config, make, a, b, eager=False) -> dict:
                    f"the IF node's body holds {body} kernel, copy and fill "
                    f"nodes")
         missing = [dict(other - k) for k in kinds["ba"]]
-        if path in BA_KERNEL_PATHS:
-            # local BA's kernel and a copy: the trace may lose their records
-            # on any BA frame, so it lists no more than the body; which
-            # frames run the kernel is its own count (NEED_BY_FRAME_TYPE)
-            bad = max(seen) > body
-        else:
-            # BA's torch body (8a): the trace's first BA frame may list
-            # fewer of it, every later one exactly it, and the same kernels
-            first_ba, *whole = kinds["ba"]
-            bad = (any(k != whole[0] for k in whole[1:])
-                   or bool(first_ba - whole[0])
-                   or any(x != body for x in seen[1:]))
+        # local BA's kernel and a copy, or on 8a its phases, their
+        # all-reduces' copies and a copy: the trace may lose their records
+        # on any BA frame, so it lists no more than the body; which frames
+        # run the kernels is their own count (NEED_BY_FRAME_TYPE)
+        bad = max(seen) > body
         if any(missing) or bad:
             raise AssertionError(
                 f"{path}: a BA frame's kernels are not another frame's and "
@@ -5020,9 +5230,11 @@ def phase_bench(il, ir, rot, gt, path1_poses) -> dict:
                 path, capture_pnp_inputs(path, _first_frames(
                     lambda: VOSystem(config, device=DEVICE), il,
                     ir)))["max_abs_err"]
-            errs["ba_refine"] = check_ba_refine(path, capture_ba_inputs(
+            gaps = check_ba_refine(path, capture_ba_inputs(
                 path, _first_frames(lambda: VOSystem(config, device=DEVICE),
-                                    il, ir), config))["max_abs_err"]
+                                    il, ir), config))
+            errs.update(ba_refine=gaps["max_abs_err"],
+                        ba_phase=gaps["phase_max_abs_err"])
         else:
             k = path1_poses.t.shape[0]
             same = (torch.equal(out["poses"].t[:k], path1_poses.t)
@@ -5189,11 +5401,13 @@ def main(argv=None) -> int:
                                op=report["step_tail"])
     report["copy_leaves"] = measure_copy_leaves(card, "path1", track1)
     lap("track kernels timing")
-    # local BA's kernel on path 2's BA windows (frames 4 and 8)
-    runs["path2"]["kernel_errs"]["ba_refine"] = check_ba_refine(
-        "path2", capture_ba_inputs("path2", _first_frames(
-            lambda: VOSystem(configs["path2"], device=DEVICE), il, ir),
-            configs["path2"]))["max_abs_err"]
+    # local BA's kernel, and its phases on one rank, on path 2's BA
+    # windows (frames 4 and 8)
+    gaps = check_ba_refine("path2", capture_ba_inputs("path2", _first_frames(
+        lambda: VOSystem(configs["path2"], device=DEVICE), il, ir),
+        configs["path2"]))
+    runs["path2"]["kernel_errs"].update(ba_refine=gaps["max_abs_err"],
+                                        ba_phase=gaps["phase_max_abs_err"])
     lap("ba_refine checks")
     runs.update(phase_bench(il, ir, rot, gt, runs["path1"].pop("poses")))
     lap("bench")
@@ -5203,6 +5417,7 @@ def main(argv=None) -> int:
     # (path 2's config, M = 1024), at S = 1 and 8
     report["ba_refine"] = measure_ba_refine(card, "multistream-ba",
                                             ms_ba.pop("ba_inputs"))
+    report["ba_phase"] = report["ba_refine"].pop("phases")
     lap("ba_refine timing")
     report["if_node"] = measure_if_node(card, configs["path2"], il, ir)
     lap("if_node")
@@ -5251,10 +5466,11 @@ def main(argv=None) -> int:
         tum_setup())
     lap("path7")
     config8 = sharded_config()
-    runs["path7"]["kernel_errs"]["ba_refine"] = check_ba_refine(
-        "path7-kitti", capture_ba_inputs("path7-kitti", _first_frames(
-            lambda: VOSystem(config8, device=DEVICE), il, ir), config8))[
-        "max_abs_err"]
+    gaps = check_ba_refine("path7-kitti", capture_ba_inputs(
+        "path7-kitti", _first_frames(lambda: VOSystem(config8, device=DEVICE),
+                                     il, ir), config8))
+    runs["path7"]["kernel_errs"].update(ba_refine=gaps["max_abs_err"],
+                                        ba_phase=gaps["phase_max_abs_err"])
     lap("ba_refine checks")
     runs["path7"]["streaming"] = phase_streaming(config8, il, ir)
     lap("path7")

@@ -73,15 +73,18 @@ def _refine_structure(poses: Pose, pos, obs, w, obs_r, w_r, config: VOConfig,
     the gate, the refinement, the trust region and the improvement test.
     Returns positions [M, 3]. Without a group, one launch of the op
     ``lvt_tpu_torch::ba_refine`` (``bundle.ba_refine``: the kernel of
-    csrc/ba.cu on the card, the torch ops on the CPU); with one, the torch
-    ops and their all-reduces."""
+    csrc/ba.cu on the card, the torch ops on the CPU); with one, the
+    launches of its phases, ``lvt_tpu_torch::ba_phase``, with the
+    all-reduces of their sums between them
+    (``bundle.refine_structure_phases``; on the CPU each phase's torch
+    ops)."""
     kw = dict(fx=config.fx, fy=config.fy, cx=config.cx, cy=config.cy,
               baseline=config.baseline, iterations=config.local_ba_iterations,
               reprojection_th2=config.reprojection_th2)
     if group is None:
         return bundle.ba_refine(poses, pos, obs, w, obs_r, w_r, **kw)[0]
-    return bundle.refine_structure_plain(poses, pos, obs, w, obs_r, w_r,
-                                         group=group, **kw)[0]
+    return bundle.refine_structure_phases(poses, pos, obs, w, obs_r, w_r,
+                                          group=group, **kw).positions
 
 
 def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
@@ -97,8 +100,7 @@ def _local_ba_update(ba: ObsWindow, map_store: PointStore, pose_opt: Pose,
     validity after the bookkeeping and the cull and the slots the
     insertions and promotions took (``promo_taken`` None without a staged
     set). The row match, the observations and the slide are one launch of
-    the op ``lvt_tpu_torch::ba_observe`` (core/track.py; with a group its
-    plain version), on every frame. Returns (window', the window's newest
+    the op ``lvt_tpu_torch::ba_observe`` (core/track.py), on every frame. Returns (window', the window's newest
     pose, map positions, whether BA ran). BA is lvt_tpu's ``lax.cond`` on
     the schedule, ``graphs.cond``: a CUDA IF node on the device predicate
     in a captured single-process or NCCL step, computed and selected

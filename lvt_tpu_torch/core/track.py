@@ -38,8 +38,16 @@ Each op is built as kernel T's (ops/top2.py):
   launches each op once for all streams.
 
 The step (core/step.py) calls the single-stream wrappers below. With a
-``group`` (the sharded-map modes) the wrappers run the plain versions with
-their collectives instead: a collective cannot run inside a kernel.
+``group`` (the sharded-map modes: the stores are this rank's blocks)
+``predict_project`` and ``ba_observe``, which reduce nothing over the
+points, launch their kernels on the rank's block, and ``upkeep_pre``
+launches its kernel and then runs its plain version's two collectives on
+the kernel's outputs (the un-marks' OR, the map size's sum), which come
+after all its per-point work; that gives the plain group version's bits.
+``staged_promote``, ``triangulate_insert`` and the map match's
+``map_accept`` reduce over the ranks in the middle of their work, so
+under a group they run their plain versions with the collectives between
+the torch ops.
 """
 
 from __future__ import annotations
@@ -75,6 +83,8 @@ MAX_K = 2048
 # triangulate_insert), the wrapper's choices in order (cluster_size)
 CLUSTERS = (8, 4, 2, 1)
 _CLUSTER_OPS = ("staged_promote", "triangulate_insert")
+# the ops that launch their kernels under a group too (the sharded step)
+GROUP_OPS = ("predict_project", "upkeep_pre", "ba_observe")
 
 
 def select(pred, a, b):
@@ -237,10 +247,8 @@ def predict_project(motion: MotionState, pose: Pose, is_init, map_pos,
                     map_valid, cam: dict, group=None):
     """:func:`predict_project_plain` for one stream: CPU tensors take the
     plain version, CUDA tensors the kernel, and under ``torch.func.vmap``
-    one launch serves every stream. With a ``group``, the plain version."""
-    if group is not None:
-        return predict_project_plain(motion, pose, is_init, map_pos,
-                                     map_valid, cam)
+    one launch serves every stream. With a ``group`` the same, on the
+    rank's block of the map: the op reduces nothing over the points."""
     _check_device(map_pos, "map_pos")
     mo, pred, uv, vis = predict_project_op(
         *(x[None] for x in (*motion, *pose, is_init, map_pos, map_valid)),
@@ -372,15 +380,16 @@ def upkeep_pre(store: PointStore, match_idx, feature_matched, feat_valid,
                pnp_pose: Pose, is_init, staged: PointStore | None,
                untracked_threshold: int, cam: dict, group=None) -> Upkeep:
     """:func:`upkeep_pre_plain` for one stream (``staged`` None: no staged
-    set), as :func:`predict_project` dispatches."""
+    set), as :func:`predict_project` dispatches. With a ``group`` the
+    kernel runs on the rank's block, then the plain version's two
+    collectives on its outputs: the features this rank's cull un-marked
+    (``feature_matched & ~`` its claims', the claims being the same on
+    every rank) OR-reduced, the claims and the staged targets recomputed
+    from them, and the map size summed."""
     if staged is None:
         staged_pos, staged_valid = store.pos[:0], store.valid[:0]
     else:
         staged_pos, staged_valid = staged.pos, staged.valid
-    if group is not None:
-        return upkeep_pre_plain(store, match_idx, feature_matched,
-                                feat_valid, pnp_pose, is_init, staged_pos,
-                                staged_valid, untracked_threshold, cam, group)
     _check_device(store.pos, "store.pos")
     (counter, age, valid, fm, targets, size, pose, uv,
      vis) = (x[0] for x in upkeep_pre_op(
@@ -388,6 +397,10 @@ def upkeep_pre(store: PointStore, match_idx, feature_matched, feat_valid,
                              match_idx, feature_matched, feat_valid,
                              *pnp_pose, is_init, staged_pos, staged_valid)),
          int(untracked_threshold), [float(cam[key]) for key in CAM_KEYS]))
+    if group is not None:
+        fm = feature_matched & ~por_if(feature_matched & ~fm, group)
+        targets = feat_valid & ~fm
+        size = psum_if(size, group)
     bookkept = store._replace(counter=counter, age=age)
     return Upkeep(bookkept, bookkept._replace(valid=valid), fm, targets,
                   size, Pose(pose[0:3], pose[3:7]), uv, vis)
@@ -980,11 +993,6 @@ def ba_observe(row_packed, match_idx, obs, weights, right_kp, pose: Pose,
         right_kp = obs[:0]
         row_packed = (obs.new_zeros((2, 2, 0)),
                       match_idx.new_zeros((2, 2, 0)))
-    if group is not None:
-        return ba_observe_plain(
-            top2._unpack(*row_packed)[1], match_idx, obs, weights, right_kp,
-            pose, ba, map_valid, bookkept_valid, clean_valid, map_taken,
-            promo_taken, frame_number, **kw)
     _check_device(match_idx, "match_idx")
     if promo_taken is None:
         promo_taken = map_taken[:0]

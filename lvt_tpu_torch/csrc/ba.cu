@@ -12,7 +12,8 @@
 // kernel: lvt_tpu runs this as XLA ops under jit
 // (lvt_tpu/solver/bundle.py:93-378, called from the lax.cond of
 // lvt_tpu/core/step.py:269-318). In PyTorch the same body was about 3200
-// small kernels, copies and fills once per BA frame.
+// small kernels, copies and fills once per BA frame. ba_phase_kernel runs
+// the same body in phases, for the sharded step (below).
 //
 // What bounds it. The work is a few float64 multiply-adds per
 // observation and iteration (the bound is ~1e-4 ms at M = 1024), but every
@@ -97,6 +98,25 @@
 // that another order moves dc by a float32 ulp. Every order here depends
 // on M, F and C alone, never on S or on which SMs are free, so a stream of
 // an S-stream launch gets the bits of its own S = 1 launch.
+//
+// The sharded body (ba_phase_kernel). Where the points are a rank's block
+// of a map sharded over ranks (lvt_tpu's psum_axis), every sum over the
+// points must be summed over the ranks, and a collective cannot run inside
+// a kernel. So the same body runs as one launch per phase, split where the
+// body sums over the points: the gate's first moments, its second ones,
+// the gated weights with the first chi-square and the count, per LM
+// iteration the per-point blocks with the iteration's sums and then the
+// solve with the trial step and its chi-square, and last the accept test
+// and the writeback. A phase writes its cluster's float64 totals (the
+// blocks' partials added in rank order, as ba_refine_kernel adds them);
+// the caller all-reduces them, and the next phase rounds each total once.
+// What ba_refine_kernel keeps in shared memory between these points (the
+// poses, lambda, nu, chi2, which positions are current, the accept bits)
+// goes through a state row per stream, its scratch row from phase to
+// phase (each block copies its slice). So on one rank every phase sees
+// ba_refine_kernel's values, and the result is its bits. The accept test
+// runs at the start of the next phase; a non-finite dp counts over this
+// rank's points only, as in the plain group version.
 //
 // Sizes: any M; F up to MAX_F poses (the wrapper refuses more), the first
 // pose fixed.
@@ -212,7 +232,9 @@ struct Shared {
                            // (read by the cluster)
   float lam, nu, chi2, gate;
   int cur;       // which of Scratch::pts holds the current positions
-  int bad;       // a non-finite dc
+  int bad;       // a non-finite dc (ba_phase_kernel: or dp)
+  float n_obs;   // ba_phase_kernel: the observation count
+  bool ok;       // ba_phase_kernel: the accept test's outcome
 };
 
 // ---- one observation, operation by operation
@@ -369,14 +391,15 @@ __device__ void gate_moments(const Window& in, int lo, int hi, int f_dim,
   v[3] = b == 0 ? 0.0 : se;
 }
 
-// mean_e2: (sum w e2) / clamp(sum w, min=1), the sums rounded once each
-__device__ float mean_e2(const Shared& sh) {
+// mean_e2: (sum w e2) / clamp(sum w, min=1) from the gate's moments
+// (gate_moments' order), each rounded once
+__device__ float mean_e2(const double* sums) {
   const float n = clamp_min(
-      __fadd_rn(__fadd_rn(0.0f, __double2float_rn(sh.sums[0])),
-                __double2float_rn(sh.sums[1])),
+      __fadd_rn(__fadd_rn(0.0f, __double2float_rn(sums[0])),
+                __double2float_rn(sums[1])),
       1.0f);
-  const float e = __fadd_rn(__fadd_rn(0.0f, __double2float_rn(sh.sums[2])),
-                            __double2float_rn(sh.sums[3]));
+  const float e = __fadd_rn(__fadd_rn(0.0f, __double2float_rn(sums[2])),
+                            __double2float_rn(sums[3]));
   return __fdiv_rn(e, n);
 }
 
@@ -779,12 +802,13 @@ __device__ void point_blocks(const Window& in, const Scratch& s, int lo,
 }
 
 // (3) the exchange: the reduced system in float32 as bundle.py builds it,
-// from the cluster's totals of the iteration's sums, widened: S = -Schur,
-// plus (h_cc + lam I) on the diagonal blocks; g_red = g_c - Schur term;
-// the fixed pose's rows and columns the identity, its right-hand side
-// zero; b = -g_red
-__device__ void assemble(int f_dim, Shared& sh) {
-  cg::cluster_group cluster = cg::this_cluster();
+// from the totals of the iteration's sums (total(off): the sum at offset
+// off of the iteration's layout, rounded once), widened: S = -Schur, plus
+// (h_cc + lam I) on the diagonal blocks; g_red = g_c - Schur term; the
+// fixed pose's rows and columns the identity, its right-hand side zero;
+// b = -g_red
+template <class Total>
+__device__ void assemble(int f_dim, Shared& sh, Total total) {
   const int n = 6 * f_dim, nf = f_dim - 1;
   const float lam = sh.lam;
   for (int e = threadIdx.x; e < n * n; e += THREADS) {
@@ -795,11 +819,11 @@ __device__ void assemble(int f_dim, Shared& sh) {
     } else {
       const int f = r / 6, i = r % 6, g = c / 6, j = c % 6;
       const int o = 6 * i + j;
-      v = -iter_total(cluster, sh, schur_at(f, g, nf) + o);
+      v = -total(schur_at(f, g, nf) + o);
       if (f == g) {
         const float hcc = __fadd_rn(
-            __fadd_rn(0.0f, iter_total(cluster, sh, cam_at(0, f, nf) + o)),
-            iter_total(cluster, sh, cam_at(1, f, nf) + o));
+            __fadd_rn(0.0f, total(cam_at(0, f, nf) + o)),
+            total(cam_at(1, f, nf) + o));
         v = __fadd_rn(v, __fadd_rn(hcc, __fmul_rn(lam, i == j ? 1.0f : 0.0f)));
       }
     }
@@ -811,9 +835,9 @@ __device__ void assemble(int f_dim, Shared& sh) {
     if (r >= 6) {
       const int o = 36 + i;
       const float gc = __fadd_rn(
-          __fadd_rn(0.0f, iter_total(cluster, sh, cam_at(0, f, nf) + o)),
-          iter_total(cluster, sh, cam_at(1, f, nf) + o));
-      g = __fsub_rn(gc, iter_total(cluster, sh, gred_at(f, nf) + i));
+          __fadd_rn(0.0f, total(cam_at(0, f, nf) + o)),
+          total(cam_at(1, f, nf) + o));
+      g = __fsub_rn(gc, total(gred_at(f, nf) + i));
     }
     sh.b[r] = -g;
   }
@@ -889,10 +913,10 @@ __device__ void robust_chi2(const Window& in, const Scratch& s, int lo,
   v[1] = b == 0 ? 0.0 : acc;
 }
 
-// the total of the robust chi-square's two rounded blocks
-__device__ float chi2_total(const Shared& sh) {
-  return __fadd_rn(__fadd_rn(0.0f, __double2float_rn(sh.sums[0])),
-                   __double2float_rn(sh.sums[1]));
+// the total of the robust chi-square's two blocks, each rounded once
+__device__ float chi2_total(double left, double right) {
+  return __fadd_rn(__fadd_rn(0.0f, __double2float_rn(left)),
+                   __double2float_rn(right));
 }
 
 // weighted_point_e2 at the original poses of the point (x, y, z): each
@@ -917,43 +941,26 @@ __device__ float point_e2(const Window& in, const Scratch& s, int m,
   return total;
 }
 
-// ---- the whole body: one cluster per stream
+// ---- the body's parts, shared by ba_refine_kernel (the whole body in one
+// launch) and ba_phase_kernel (the body split at its sums over the points)
 
-__global__ void __cluster_dims__(CLUSTER, 1, 1)
-    __launch_bounds__(THREADS, 1) ba_refine_kernel(
-        const float* __restrict__ t_in, const float* __restrict__ q_in,
-        const float* __restrict__ pos_in, const float* __restrict__ obs_l,
-        const float* __restrict__ w_l, const float* __restrict__ obs_r,
-        const float* __restrict__ w_r, int f_dim, int m, int iters, Cam cam,
-        float x_off, float gate_th2, float* __restrict__ scratch,
-        float* __restrict__ pos_out, float* __restrict__ chi2_out,
-        long long* __restrict__ n_obs_out,
-        unsigned char* __restrict__ accepted) {
-  __shared__ Shared sh;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const long long st = blockIdx.x / CLUSTER;
-  const long long fm = static_cast<long long>(f_dim) * m;
-  const Window in{t_in + st * f_dim * 3, q_in + st * f_dim * 4,
-                  pos_in + st * m * 3, {obs_l + st * fm * 2, obs_r + st * fm * 2},
-                  {w_l + st * fm, w_r + st * fm}};
-  const Scratch s(scratch + st * scratch_per_point(f_dim) * m, f_dim, m);
-  // this block's points
-  const int lo = static_cast<int>(static_cast<long long>(rank) * m / CLUSTER);
-  const int hi =
-      static_cast<int>(static_cast<long long>(rank + 1) * m / CLUSTER);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int par = 0;   // cluster_sum's buffer
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ull);
-  BA_PHASE_CLOCK(0);
-
+// The window's poses world to camera, original and current alike (the
+// trial ones zero), the newest pose's position, lambda and nu at their
+// start; then a barrier
+__device__ void init_state(const Window& in, int f_dim, Shared& sh) {
   if (threadIdx.x < f_dim) {
     const int f = threadIdx.x;
     world_to_camera(in.t + 3 * f, in.q + 4 * f, sh.r0[f], sh.t0[f]);
 #pragma unroll
-    for (int i = 0; i < 9; ++i) sh.r[f][i] = sh.r0[f][i];
+    for (int i = 0; i < 9; ++i) {
+      sh.r[f][i] = sh.r0[f][i];
+      sh.rt[f][i] = 0.0f;
+    }
 #pragma unroll
-    for (int i = 0; i < 3; ++i) sh.t[f][i] = sh.t0[f][i];
+    for (int i = 0; i < 3; ++i) {
+      sh.t[f][i] = sh.t0[f][i];
+      sh.tt[f][i] = 0.0f;
+    }
     if (f == f_dim - 1) {
 #pragma unroll
       for (int i = 0; i < 3; ++i) sh.tn[i] = in.t[3 * f + i];
@@ -963,28 +970,20 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
     sh.cur = 0;
     sh.lam = 1e-4f;
     sh.nu = 2.0f;
+    sh.chi2 = 0.0f;
+    sh.gate = 0.0f;
+    sh.bad = 0;
+    sh.n_obs = 0.0f;
   }
   __syncthreads();
+}
 
-  // the gate: gate = max(gate_th2, 3 x the mean e2 of the observations
-  // with e2 <= 4 x the plain mean)
-  {
-    double v[4] = {0.0, 0.0, 0.0, 0.0};
-    gate_moments(in, lo, hi, f_dim, m, x_off, cam, false, 0.0f, sh, v);
-    cluster_sum(v, sh, par);
-  }
-  if (threadIdx.x == 0) sh.gate = __fmul_rn(4.0f, mean_e2(sh));
-  __syncthreads();
-  {
-    double v[4] = {0.0, 0.0, 0.0, 0.0};
-    gate_moments(in, lo, hi, f_dim, m, x_off, cam, true, sh.gate, sh, v);
-    cluster_sum(v, sh, par);
-  }
-  if (threadIdx.x == 0) sh.gate = clamp_min(__fmul_rn(3.0f, mean_e2(sh)), gate_th2);
-  __syncthreads();
-
-  // the gated weights, `use`, the positions, and the fit at the original
-  // state; the observation count
+// The gated weights (the gate sh.gate), `use`, the positions, and the fit
+// at the original state, of the block's points [lo, hi); returns the
+// thread's count of observations with a positive weight
+__device__ int setup_points(const Window& in, const Scratch& s, int lo,
+                            int hi, int f_dim, int m, float x_off,
+                            const Cam& cam, const Shared& sh) {
   int n_obs = 0;
   for (int p = lo + threadIdx.x; p < hi; p += THREADS) {
     const float x = in.pos[3 * p], y = in.pos[3 * p + 1], z = in.pos[3 * p + 2];
@@ -1021,98 +1020,97 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
     s.e2_old[p] = point_e2(in, s, m, f_dim, p, in.pos[3 * p],
                            in.pos[3 * p + 1], in.pos[3 * p + 2], x_off, cam, sh);
   }
-  {
-    // the chi-square at the start, and the count (exact in float64)
-    double v[3] = {0.0, 0.0, static_cast<double>(n_obs)};
-    robust_chi2(in, s, lo, hi, m, f_dim, x_off, cam, sh.r0, sh.t0, s.pts[0], v);
-    cluster_sum(v, sh, par);
+  return n_obs;
+}
+
+// This block's partials of an iteration's sums over the points, of the
+// free poses f, g >= 1: Schur blocks (f, g), camera blocks (b, f), g_red's
+// terms (f), each task's at schur_at, cam_at or gred_at of sh.iter
+__device__ void block_partials(const Window& in, const Scratch& s, int lo,
+                               int hi, int m, int f_dim, float x_off,
+                               const Cam& cam, Shared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nf = f_dim - 1, n_schur = nf * nf, n_cam = NB * nf;
+  for (int task = warp; task < n_schur + n_cam + nf; task += WARPS) {
+    if (task < n_schur) {
+      const int f = 1 + task / nf, g = 1 + task % nf;
+      task_schur(s, lo, hi, m, f, g, lane, sh.iter + schur_at(f, g, nf));
+    } else if (task < n_schur + n_cam) {
+      const int b = (task - n_schur) / nf, f = 1 + (task - n_schur) % nf;
+      task_camera(in, s, lo, hi, m, f_dim, b, f, x_off, cam, lane, sh,
+                  sh.iter + cam_at(b, f, nf));
+    } else {
+      const int f = 1 + task - n_schur - n_cam;
+      task_gred(s, lo, hi, m, f, lane, sh.iter + gred_at(f, nf));
+    }
   }
-  if (threadIdx.x == 0) {
-    sh.chi2 = chi2_total(sh);
-    if (rank == 0) n_obs_out[st] = static_cast<long long>(sh.sums[2]);
+}
+
+// (4) the reduced system's solve: dc into sh.dc, sh.bad set where it is not
+// finite; then a barrier
+__device__ void camera_solve(Shared& sh, int n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  lu_factor(sh, n);
+  if (warp == 0) {
+    lu_solve(sh, n, lane);
+    for (int r = lane; r < n; r += 32) {
+      sh.dc[r] = __double2float_rn(sh.y[r]);
+      if (!isfinite(sh.dc[r])) sh.bad = 1;
+    }
   }
   __syncthreads();
-  BA_PHASE_CLOCK(1);
+}
 
-  const int n = 6 * f_dim, nf = f_dim - 1;
-  for (int it = 0; it < iters; ++it) {
-    point_blocks(in, s, lo, hi, m, f_dim, x_off, cam, sh);
-    if (threadIdx.x == 0) sh.bad = 0;
-    __syncthreads();
-    BA_PHASE_CLOCK(2 + 6 * it);
-    // this block's partials of the sums over the points, of the free poses
-    // f, g >= 1: Schur blocks (f, g), camera blocks (b, f), g_red's terms
-    // (f), each task's at schur_at, cam_at or gred_at
-    const int n_schur = nf * nf, n_cam = NB * nf;
-    for (int task = warp; task < n_schur + n_cam + nf; task += WARPS) {
-      if (task < n_schur) {
-        const int f = 1 + task / nf, g = 1 + task % nf;
-        task_schur(s, lo, hi, m, f, g, lane, sh.iter + schur_at(f, g, nf));
-      } else if (task < n_schur + n_cam) {
-        const int b = (task - n_schur) / nf, f = 1 + (task - n_schur) % nf;
-        task_camera(in, s, lo, hi, m, f_dim, b, f, x_off, cam, lane, sh,
-                    sh.iter + cam_at(b, f, nf));
-      } else {
-        const int f = 1 + task - n_schur - n_cam;
-        task_gred(s, lo, hi, m, f, lane, sh.iter + gred_at(f, nf));
-      }
-    }
-    BA_PHASE_CLOCK(3 + 6 * it);
-    // every block's partials written; the last iteration's were read by
-    // every block before the trial's cluster_sum
-    cluster.sync();
-    assemble(f_dim, sh);
-    __syncthreads();
-    BA_PHASE_CLOCK(4 + 6 * it);
-    lu_factor(sh, n);
-    if (warp == 0) {
-      lu_solve(sh, n, lane);
-      for (int r = lane; r < n; r += 32) {
-        sh.dc[r] = __double2float_rn(sh.y[r]);
-        if (!isfinite(sh.dc[r])) sh.bad = 1;
-      }
-    }
-    __syncthreads();
-    BA_PHASE_CLOCK(5 + 6 * it);
-    if (threadIdx.x < f_dim) {
-      const int f = threadIdx.x;
-      retract(sh.r[f], sh.t[f], sh.dc + 6 * f, sh.rt[f], sh.tt[f]);
-    }
-    const bool bad_dp = point_steps(s, lo, hi, m, f_dim, sh);
-    __syncthreads();
-    // the trial's chi-square, and the count of non-finite dp
-    double v[3] = {0.0, 0.0, bad_dp ? 1.0 : 0.0};
-    robust_chi2(in, s, lo, hi, m, f_dim, x_off, cam, sh.rt, sh.tt,
-                s.pts[1 - sh.cur], v);
-    BA_PHASE_CLOCK(6 + 6 * it);
-    cluster_sum(v, sh, par);
-    if (threadIdx.x == 0) {
-      const float chi2_new = chi2_total(sh);
-      const bool ok = chi2_new < sh.chi2 && sh.bad == 0 && sh.sums[2] == 0.0;
-      if (ok) {
-        for (int f = 0; f < f_dim; ++f) {
-#pragma unroll
-          for (int i = 0; i < 9; ++i) sh.r[f][i] = sh.rt[f][i];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) sh.t[f][i] = sh.tt[f][i];
-        }
-        sh.lam = __fdiv_rn(sh.lam, 3.0f);
-        sh.nu = 2.0f;
-        sh.chi2 = chi2_new;
-        sh.cur = 1 - sh.cur;
-      } else {
-        sh.lam = __fmul_rn(sh.lam, sh.nu);
-        sh.nu = __fmul_rn(sh.nu, 2.0f);
-      }
-      if (rank == 0) accepted[st * iters + it] = ok;
-    }
-    __syncthreads();
-    BA_PHASE_CLOCK(7 + 6 * it);
+// (5)-(6) the trial: the poses retracted by dc, the points' steps and trial
+// positions, then the robust chi-square's two blocks at the trial state
+// into v[0..1] and whether a dp of the thread's points is not finite into
+// v[2]
+__device__ void trial_sums(const Window& in, const Scratch& s, int lo,
+                           int hi, int m, int f_dim, float x_off,
+                           const Cam& cam, Shared& sh, double (&v)[3]) {
+  if (threadIdx.x < f_dim) {
+    const int f = threadIdx.x;
+    retract(sh.r[f], sh.t[f], sh.dc + 6 * f, sh.rt[f], sh.tt[f]);
   }
+  const bool bad_dp = point_steps(s, lo, hi, m, f_dim, sh);
+  __syncthreads();
+  v[0] = v[1] = 0.0;
+  v[2] = bad_dp ? 1.0 : 0.0;
+  robust_chi2(in, s, lo, hi, m, f_dim, x_off, cam, sh.rt, sh.tt,
+              s.pts[1 - sh.cur], v);
+}
 
-  // the writeback: a refined point is kept where it takes part, stays
-  // within 10% of its distance to the newest camera + 0.5 m, and fits the
-  // gated observations at the original poses no worse than before
+// The accept test's outcome (by one thread): a step whose chi-square falls
+// and that is finite (`finite`) takes the trial state, and lambda falls;
+// else the state stays and lambda rises. Returns whether it was taken
+__device__ bool accept(Shared& sh, float chi2_new, bool finite,
+                       int f_dim) {
+  const bool ok = chi2_new < sh.chi2 && finite;
+  if (ok) {
+    for (int f = 0; f < f_dim; ++f) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) sh.r[f][i] = sh.rt[f][i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) sh.t[f][i] = sh.tt[f][i];
+    }
+    sh.lam = __fdiv_rn(sh.lam, 3.0f);
+    sh.nu = 2.0f;
+    sh.chi2 = chi2_new;
+    sh.cur = 1 - sh.cur;
+  } else {
+    sh.lam = __fmul_rn(sh.lam, sh.nu);
+    sh.nu = __fmul_rn(sh.nu, 2.0f);
+  }
+  return ok;
+}
+
+// The writeback of the block's points [lo, hi) into out [M, 3]: a refined
+// point is kept where it takes part, stays within 10% of its distance to
+// the newest camera + 0.5 m, and fits the gated observations at the
+// original poses no worse than before
+__device__ void writeback(const Window& in, const Scratch& s, int lo, int hi,
+                          int m, int f_dim, float x_off, const Cam& cam,
+                          const Shared& sh, float* out) {
   const float* pts = s.pts[sh.cur];
   for (int p = lo + threadIdx.x; p < hi; p += THREADS) {
     const float x0 = in.pos[3 * p], y0 = in.pos[3 * p + 1], z0 = in.pos[3 * p + 2];
@@ -1124,13 +1122,368 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
               step <= __fadd_rn(__fmul_rn(0.1f, dist), 0.5f);
     ok = ok && point_e2(in, s, m, f_dim, p, x, y, z, x_off, cam, sh) <=
                    s.e2_old[p];
-    float* out = pos_out + st * m * 3 + 3 * p;
-    out[0] = ok ? x : x0;
-    out[1] = ok ? y : y0;
-    out[2] = ok ? z : z0;
+    out[3 * p] = ok ? x : x0;
+    out[3 * p + 1] = ok ? y : y0;
+    out[3 * p + 2] = ok ? z : z0;
   }
+}
+
+// one stream's window in the launch's arrays
+__device__ __forceinline__ Window window_of(
+    long long st, int f_dim, int m, const float* t_in, const float* q_in,
+    const float* pos_in, const float* obs_l, const float* w_l,
+    const float* obs_r, const float* w_r) {
+  const long long fm = static_cast<long long>(f_dim) * m;
+  return Window{t_in + st * f_dim * 3, q_in + st * f_dim * 4,
+                pos_in + st * m * 3, {obs_l + st * fm * 2, obs_r + st * fm * 2},
+                {w_l + st * fm, w_r + st * fm}};
+}
+
+// ---- the whole body: one cluster per stream
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+    __launch_bounds__(THREADS, 1) ba_refine_kernel(
+        const float* __restrict__ t_in, const float* __restrict__ q_in,
+        const float* __restrict__ pos_in, const float* __restrict__ obs_l,
+        const float* __restrict__ w_l, const float* __restrict__ obs_r,
+        const float* __restrict__ w_r, int f_dim, int m, int iters, Cam cam,
+        float x_off, float gate_th2, float* __restrict__ scratch,
+        float* __restrict__ pos_out, float* __restrict__ chi2_out,
+        long long* __restrict__ n_obs_out,
+        unsigned char* __restrict__ accepted) {
+  __shared__ Shared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long st = blockIdx.x / CLUSTER;
+  const Window in = window_of(st, f_dim, m, t_in, q_in, pos_in, obs_l, w_l,
+                              obs_r, w_r);
+  const Scratch s(scratch + st * scratch_per_point(f_dim) * m, f_dim, m);
+  // this block's points
+  const int lo = static_cast<int>(static_cast<long long>(rank) * m / CLUSTER);
+  const int hi =
+      static_cast<int>(static_cast<long long>(rank + 1) * m / CLUSTER);
+  int par = 0;   // cluster_sum's buffer
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ull);
+  BA_PHASE_CLOCK(0);
+
+  init_state(in, f_dim, sh);
+
+  // the gate: gate = max(gate_th2, 3 x the mean e2 of the observations
+  // with e2 <= 4 x the plain mean)
+  {
+    double v[4] = {0.0, 0.0, 0.0, 0.0};
+    gate_moments(in, lo, hi, f_dim, m, x_off, cam, false, 0.0f, sh, v);
+    cluster_sum(v, sh, par);
+  }
+  if (threadIdx.x == 0) sh.gate = __fmul_rn(4.0f, mean_e2(sh.sums));
+  __syncthreads();
+  {
+    double v[4] = {0.0, 0.0, 0.0, 0.0};
+    gate_moments(in, lo, hi, f_dim, m, x_off, cam, true, sh.gate, sh, v);
+    cluster_sum(v, sh, par);
+  }
+  if (threadIdx.x == 0)
+    sh.gate = clamp_min(__fmul_rn(3.0f, mean_e2(sh.sums)), gate_th2);
+  __syncthreads();
+
+  // the gated weights, `use`, the positions, and the fit at the original
+  // state; the observation count
+  const int n_obs = setup_points(in, s, lo, hi, f_dim, m, x_off, cam, sh);
+  {
+    // the chi-square at the start, and the count (exact in float64)
+    double v[3] = {0.0, 0.0, static_cast<double>(n_obs)};
+    robust_chi2(in, s, lo, hi, m, f_dim, x_off, cam, sh.r0, sh.t0, s.pts[0], v);
+    cluster_sum(v, sh, par);
+  }
+  if (threadIdx.x == 0) {
+    sh.chi2 = chi2_total(sh.sums[0], sh.sums[1]);
+    if (rank == 0) n_obs_out[st] = static_cast<long long>(sh.sums[2]);
+  }
+  __syncthreads();
+  BA_PHASE_CLOCK(1);
+
+  const int n = 6 * f_dim;
+  for (int it = 0; it < iters; ++it) {
+    point_blocks(in, s, lo, hi, m, f_dim, x_off, cam, sh);
+    if (threadIdx.x == 0) sh.bad = 0;
+    __syncthreads();
+    BA_PHASE_CLOCK(2 + 6 * it);
+    block_partials(in, s, lo, hi, m, f_dim, x_off, cam, sh);
+    BA_PHASE_CLOCK(3 + 6 * it);
+    // every block's partials written; the last iteration's were read by
+    // every block before the trial's cluster_sum
+    cluster.sync();
+    assemble(f_dim, sh, [&](int off) { return iter_total(cluster, sh, off); });
+    __syncthreads();
+    BA_PHASE_CLOCK(4 + 6 * it);
+    camera_solve(sh, n);
+    BA_PHASE_CLOCK(5 + 6 * it);
+    // the trial's chi-square, and the count of non-finite dp
+    double v[3];
+    trial_sums(in, s, lo, hi, m, f_dim, x_off, cam, sh, v);
+    BA_PHASE_CLOCK(6 + 6 * it);
+    cluster_sum(v, sh, par);
+    if (threadIdx.x == 0) {
+      const bool ok = accept(sh, chi2_total(sh.sums[0], sh.sums[1]),
+                             sh.bad == 0 && sh.sums[2] == 0.0, f_dim);
+      if (rank == 0) accepted[st * iters + it] = ok;
+    }
+    __syncthreads();
+    BA_PHASE_CLOCK(7 + 6 * it);
+  }
+
+  writeback(in, s, lo, hi, m, f_dim, x_off, cam, sh, pos_out + st * m * 3);
   if (rank == 0 && threadIdx.x == 0) chi2_out[st] = sh.chi2;
   BA_PHASE_CLOCK(2 + 6 * iters);
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
+}
+
+// ---- the body split at its sums over the points: one launch per phase
+
+// ba_phase_kernel's launches on this device since the library was loaded
+// (as g_launches)
+__device__ unsigned long long g_phase_launches;
+
+// The phases, in launch order (solver/bundle.py's K_*): the gate's first
+// moments; its second ones; the gated weights, the fit at the original
+// state and the first chi-square with the observation count; per LM
+// iteration its sums, then its trial step; then the last accept test and
+// the writeback
+enum : int { K_GATE1, K_GATE2, K_SETUP, K_SUMS, K_TRIAL, K_FINAL };
+
+// A stream's state row between the phases, floats (bundle.py's
+// state_size): the poses world to camera (original, current, trial; 9 + 3
+// each), the newest pose's position, lambda, nu, chi2, the gate, which of
+// Scratch::pts is current, whether the trial step was not finite (dc, or
+// a dp of this rank's points), the observation count, then the accept
+// bits
+constexpr int ST_SCALARS = 7;
+__host__ __device__ constexpr int state_size(int f_dim, int iters) {
+  return 36 * f_dim + 3 + ST_SCALARS + iters;
+}
+__host__ __device__ constexpr int iter_sums(int f_dim) {
+  return SCHUR * (f_dim - 1) * (f_dim - 1) + NB * CAM * (f_dim - 1) +
+         GRED * (f_dim - 1);
+}
+// the float64 partials a phase writes per stream
+__host__ __device__ constexpr int part_size(int kind, int f_dim) {
+  return kind == K_GATE1 || kind == K_GATE2 ? 4
+         : kind == K_SETUP                  ? 3
+         : kind == K_SUMS                   ? iter_sums(f_dim)
+         : kind == K_TRIAL                  ? 2
+                                            : 0;
+}
+// ... and the all-reduced ones it reads (the previous phase's)
+__host__ __device__ constexpr int tot_size(int kind, int it, int f_dim) {
+  return kind == K_GATE1                      ? 0
+         : kind == K_GATE2 || kind == K_SETUP ? 4
+         : kind == K_TRIAL                    ? iter_sums(f_dim)
+         : it == 0                            ? 3
+                                              : 2;
+}
+
+__device__ void load_state(const float* row, int f_dim, Shared& sh) {
+  for (int e = threadIdx.x; e < 36 * f_dim + 3; e += THREADS) {
+    const int field = e / (12 * f_dim) * 2 + (e % (12 * f_dim)) / (9 * f_dim);
+    const int at = e % (12 * f_dim);
+    if (e >= 36 * f_dim) {
+      sh.tn[e - 36 * f_dim] = row[e];
+    } else if (at < 9 * f_dim) {
+      float(*r)[9] = field == 0 ? sh.r0 : field == 2 ? sh.r : sh.rt;
+      r[at / 9][at % 9] = row[e];
+    } else {
+      float(*t)[3] = field == 1 ? sh.t0 : field == 3 ? sh.t : sh.tt;
+      t[(at - 9 * f_dim) / 3][(at - 9 * f_dim) % 3] = row[e];
+    }
+  }
+  if (threadIdx.x == 0) {
+    const float* x = row + 36 * f_dim + 3;
+    sh.lam = x[0];
+    sh.nu = x[1];
+    sh.chi2 = x[2];
+    sh.gate = x[3];
+    sh.cur = x[4] != 0.0f;
+    sh.bad = x[5] != 0.0f;
+    sh.n_obs = x[6];
+  }
+  __syncthreads();
+}
+
+// the state row from sh (by one block; the accept bits from `acc_in`,
+// none for the first phase, with bit `slot` set to `ok` if slot >= 0)
+__device__ void store_state(float* row, int f_dim, int iters, const Shared& sh,
+                            const float* acc_in, int slot, bool ok) {
+  for (int e = threadIdx.x; e < 36 * f_dim + 3; e += THREADS) {
+    const int field = e / (12 * f_dim) * 2 + (e % (12 * f_dim)) / (9 * f_dim);
+    const int at = e % (12 * f_dim);
+    if (e >= 36 * f_dim) {
+      row[e] = sh.tn[e - 36 * f_dim];
+    } else if (at < 9 * f_dim) {
+      const float(*r)[9] = field == 0 ? sh.r0 : field == 2 ? sh.r : sh.rt;
+      row[e] = r[at / 9][at % 9];
+    } else {
+      const float(*t)[3] = field == 1 ? sh.t0 : field == 3 ? sh.t : sh.tt;
+      row[e] = t[(at - 9 * f_dim) / 3][(at - 9 * f_dim) % 3];
+    }
+  }
+  float* x = row + 36 * f_dim + 3;
+  if (threadIdx.x == 0) {
+    x[0] = sh.lam;
+    x[1] = sh.nu;
+    x[2] = sh.chi2;
+    x[3] = sh.gate;
+    x[4] = static_cast<float>(sh.cur);
+    x[5] = static_cast<float>(sh.bad);
+    x[6] = sh.n_obs;
+  }
+  for (int i = threadIdx.x; i < iters; i += THREADS) {
+    const float prev = acc_in == nullptr ? 0.0f : acc_in[i];
+    x[ST_SCALARS + i] = i == slot ? (ok ? 1.0f : 0.0f) : prev;
+  }
+}
+
+// One phase of ba_refine_kernel's body for S streams, one cluster per
+// stream and its blocks' slices of the points as there. Between the
+// phases a stream's state row (state_in -> state_out) and scratch row
+// (scratch_in -> scratch_out: K_SUMS and K_TRIAL copy their block's slice
+// and work on the copy; K_SETUP writes a new one; K_FINAL reads it) carry
+// what ba_refine_kernel keeps in shared memory and its scratch. A phase
+// writes part [S, part_size], the cluster's float64 totals of its sums over
+// the points (its blocks' partials added in rank order); the all-reduced
+// totals come back as the next phase's tot [S, tot_size], rounded once
+// there, so on one rank every sum is ba_refine_kernel's. The accept test
+// of a trial runs at the start of the next K_SUMS or K_FINAL; a non-finite
+// dp counts over this rank's points only (the plain group version's test).
+// `it`: the LM iteration of K_SUMS and K_TRIAL; K_FINAL's is `iters`.
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+    __launch_bounds__(THREADS, 1) ba_phase_kernel(
+        int kind, int it, const float* __restrict__ t_in,
+        const float* __restrict__ q_in, const float* __restrict__ pos_in,
+        const float* __restrict__ obs_l, const float* __restrict__ w_l,
+        const float* __restrict__ obs_r, const float* __restrict__ w_r,
+        int f_dim, int m, int iters, Cam cam, float x_off, float gate_th2,
+        const float* __restrict__ state_in, float* __restrict__ state_out,
+        const float* __restrict__ scratch_in, float* __restrict__ scratch_out,
+        const double* __restrict__ tot, double* __restrict__ part,
+        float* __restrict__ pos_out) {
+  __shared__ Shared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long st = blockIdx.x / CLUSTER;
+  const Window in = window_of(st, f_dim, m, t_in, q_in, pos_in, obs_l, w_l,
+                              obs_r, w_r);
+  const int lo = static_cast<int>(static_cast<long long>(rank) * m / CLUSTER);
+  const int hi =
+      static_cast<int>(static_cast<long long>(rank + 1) * m / CLUSTER);
+  const int ns = state_size(f_dim, iters), spp = scratch_per_point(f_dim);
+  const float* row_in = state_in == nullptr ? nullptr : state_in + st * ns;
+  float* row_out = state_out + st * ns;
+  const double* sums_in = tot + st * tot_size(kind, it, f_dim);
+  double* sums_out = part + st * part_size(kind, f_dim);
+  int par = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_phase_launches, 1ull);
+
+  if (kind == K_GATE1) {
+    init_state(in, f_dim, sh);
+  } else {
+    load_state(row_in, f_dim, sh);
+  }
+  // the scratch row: K_SUMS and K_TRIAL work on a copy of their slice,
+  // K_SUMS of the rows it reads before it writes the rest (the positions,
+  // the gated weights, the old fit and the mask), K_TRIAL of all of them
+  float* base = kind == K_FINAL
+                    ? const_cast<float*>(scratch_in) + st * spp * m
+                    : (kind >= K_SETUP ? scratch_out + st * spp * m : nullptr);
+  const int rows = kind == K_SUMS ? 3 + 3 + NB * f_dim + 1 + 1
+                   : kind == K_TRIAL ? spp
+                                     : 0;
+  if (rows > 0) {
+    const float* src = scratch_in + st * spp * m;
+    for (int r = 0; r < rows; ++r) {
+      const long long row = static_cast<long long>(r) * m;
+      for (int p = lo + threadIdx.x; p < hi; p += THREADS)
+        base[row + p] = src[row + p];
+    }
+    __syncthreads();
+  }
+  const Scratch s(base, f_dim, m);
+
+  if (kind == K_GATE1 || kind == K_GATE2) {
+    // the second sweep keeps the observations with e2 <= 4 x the mean
+    const float cut =
+        kind == K_GATE2 ? __fmul_rn(4.0f, mean_e2(sums_in)) : 0.0f;
+    double v[4] = {0.0, 0.0, 0.0, 0.0};
+    gate_moments(in, lo, hi, f_dim, m, x_off, cam, kind == K_GATE2, cut, sh,
+                 v);
+    cluster_sum(v, sh, par);
+    if (rank == 0 && threadIdx.x < 4) sums_out[threadIdx.x] = sh.sums[threadIdx.x];
+  } else if (kind == K_SETUP) {
+    if (threadIdx.x == 0)
+      sh.gate = clamp_min(__fmul_rn(3.0f, mean_e2(sums_in)), gate_th2);
+    __syncthreads();
+    const int n_obs = setup_points(in, s, lo, hi, f_dim, m, x_off, cam, sh);
+    double v[3] = {0.0, 0.0, static_cast<double>(n_obs)};
+    robust_chi2(in, s, lo, hi, m, f_dim, x_off, cam, sh.r0, sh.t0, s.pts[0], v);
+    cluster_sum(v, sh, par);
+    if (rank == 0 && threadIdx.x < 3) sums_out[threadIdx.x] = sh.sums[threadIdx.x];
+  }
+
+  // K_SUMS and K_FINAL: the starting chi-square, or the last trial's accept
+  // test (its chi-square all-reduced, its finiteness this rank's)
+  int slot = -1;
+  bool ok = false;
+  if (kind == K_SUMS || kind == K_FINAL) {
+    if (threadIdx.x == 0) {
+      if (it == 0) {
+        sh.chi2 = chi2_total(sums_in[0], sums_in[1]);
+        sh.n_obs = static_cast<float>(sums_in[2]);
+      } else {
+        ok = accept(sh, chi2_total(sums_in[0], sums_in[1]), sh.bad == 0, f_dim);
+      }
+    }
+    if (it > 0) slot = it - 1;
+    __syncthreads();
+  }
+  if (kind == K_SUMS) {
+    point_blocks(in, s, lo, hi, m, f_dim, x_off, cam, sh);
+    __syncthreads();
+    block_partials(in, s, lo, hi, m, f_dim, x_off, cam, sh);
+    cluster.sync();
+    // the cluster's totals, in rank order, a share of them by each block
+    const int n_iter = iter_sums(f_dim);
+    for (int e = rank * THREADS + threadIdx.x; e < n_iter;
+         e += CLUSTER * THREADS) {
+      double* mine = sh.iter + e;
+      double x = *cluster.map_shared_rank(mine, 0);
+#pragma unroll
+      for (int r = 1; r < CLUSTER; ++r)
+        x = __dadd_rn(x, *cluster.map_shared_rank(mine, r));
+      sums_out[e] = x;
+    }
+  } else if (kind == K_TRIAL) {
+    if (threadIdx.x == 0) sh.bad = 0;
+    assemble(f_dim, sh, [&](int off) { return __double2float_rn(sums_in[off]); });
+    __syncthreads();
+    camera_solve(sh, 6 * f_dim);
+    double v[3];
+    trial_sums(in, s, lo, hi, m, f_dim, x_off, cam, sh, v);
+    cluster_sum(v, sh, par);
+    if (threadIdx.x == 0 && sh.sums[2] != 0.0) sh.bad = 1;
+    if (rank == 0 && threadIdx.x < 2) sums_out[threadIdx.x] = sh.sums[threadIdx.x];
+    __syncthreads();
+  } else if (kind == K_FINAL) {
+    writeback(in, s, lo, hi, m, f_dim, x_off, cam, sh, pos_out + st * m * 3);
+  }
+  // every block holds the same state: rank 0 writes it (the accept bit of
+  // thread 0's test)
+  if (rank == 0) {
+    if (threadIdx.x == 0) sh.ok = ok;
+    __syncthreads();
+    store_state(row_out, f_dim, iters, sh,
+                row_in == nullptr ? nullptr : row_in + 36 * f_dim + 3 + ST_SCALARS,
+                slot, sh.ok);
+  }
   // no block leaves while another may still read its shared memory
   cluster.sync();
 }
@@ -1190,6 +1543,67 @@ extern "C" int lvt_ba_refine(const float* t, const float* q, const float* pos,
         t, q, pos, obs_l, w_l, obs_r, w_r, f_dim, m, iters,
         Cam{fx, fy, cx, cy, th2}, x_off, gate_th2, scratch, pos_out, chi2,
         n_obs, static_cast<unsigned char*>(accepted));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The phased body's layout for F poses and `iters` LM iterations, into
+// out[0..2]: the state row's floats, the scratch's floats per point, an
+// iteration's float64 sums (the wrapper checks them against its own)
+extern "C" int lvt_ba_phase_shape(int f_dim, int iters, int* out) {
+  out[0] = state_size(f_dim, iters);
+  out[1] = scratch_per_point(f_dim);
+  out[2] = iter_sums(f_dim);
+  return 0;
+}
+
+// The launches of ba_phase_kernel on the current device so far
+extern "C" int lvt_ba_phase_launches(long long* out) {
+  unsigned long long n = 0;
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(&n, g_phase_launches, sizeof n);
+  *out = static_cast<long long>(n);
+  return static_cast<int>(err);
+}
+
+// One phase (kind, it) of S streams' sharded BA bodies (ba_phase_kernel):
+// the window as lvt_ba_refine takes it; state_in [S, state_size] (null for
+// K_GATE1), state_out [S, state_size]; scratch_in [S, M * scratch per
+// point] (K_SUMS, K_TRIAL, K_FINAL), scratch_out (K_SETUP, K_SUMS,
+// K_TRIAL); tot [S, tot_size] float64 (null for K_GATE1, and where it
+// holds nothing), part [S, part_size] float64; pos_out [S, M, 3] (K_FINAL;
+// the scratch and pos_out may be null where M = 0). One cluster of
+// lvt_ba_geometry()'s blocks per stream; F <= lvt_ba_max_window().
+extern "C" int lvt_ba_phase(int kind, int it, const float* t, const float* q,
+                            const float* pos, const float* obs_l,
+                            const float* w_l, const float* obs_r,
+                            const float* w_r, int n_streams, int f_dim, int m,
+                            int iters, float fx, float fy, float cx, float cy,
+                            float th2, float x_off, float gate_th2,
+                            const float* state_in, float* state_out,
+                            const float* scratch_in, float* scratch_out,
+                            const double* tot, double* part, float* pos_out,
+                            void* stream) {
+  const bool first = kind == K_GATE1;
+  const bool reads = kind == K_SUMS || kind == K_TRIAL || kind == K_FINAL;
+  const bool keeps = kind == K_SETUP || kind == K_SUMS || kind == K_TRIAL;
+  if (f_dim < 1 || f_dim > MAX_F || m < 0 || iters < 0 || kind < K_GATE1 ||
+      kind > K_FINAL || it < 0 ||
+      (kind == K_FINAL ? it != iters
+                       : (kind == K_SUMS || kind == K_TRIAL) && it >= iters) ||
+      (!first && (state_in == nullptr ||
+                  (tot == nullptr && tot_size(kind, it, f_dim) > 0))) ||
+      state_out == nullptr || (m > 0 && reads && scratch_in == nullptr) ||
+      (m > 0 && keeps && scratch_out == nullptr) ||
+      (m > 0 && kind == K_FINAL && pos_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_streams > 0) {
+    ba_phase_kernel<<<n_streams * CLUSTER, THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        kind, it, t, q, pos, obs_l, w_l, obs_r, w_r, f_dim, m, iters,
+        Cam{fx, fy, cx, cy, th2}, x_off, gate_th2, state_in, state_out,
+        scratch_in, scratch_out, tot, part, pos_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,6 +55,10 @@ _SIGNATURES = {
     "lvt_ba_geometry": [_P],
     "lvt_ba_launches": [_P],
     "lvt_ba_scratch_per_point": [_I],
+    "lvt_ba_phase": ([_I, _I] + [_P] * 7 + [_I] * 4 + [_F] * 7 + [_P] * 7
+                     + [_P]),
+    "lvt_ba_phase_shape": [_I, _I, _P],
+    "lvt_ba_phase_launches": [_P],
     "lvt_predict_project": [_P] * 9 + [_I, _I] + [_P] * 6,
     "lvt_upkeep_pre": [_P] * 11 + [_I] * 5 + [_P] * 11,
     "lvt_staged_promote": ([_P] * 16 + [_I] * 4 + [_F, _F, _I, _I, _I]

@@ -245,6 +245,7 @@ def zero_kernel_counters() -> dict:
                 "pnp_solve": pnp.pnp_solve, "pnp_phase": pnp.pnp_phase,
                 "pnp_normal_eqs": pnp.normal_equations,
                 "stream_sum": pnp.stream_sum, "ba_refine": bundle.ba_refine,
+                "ba_phase": bundle.ba_phase,
                 **{name: getattr(track, name) for name in track.OPS},
                 "select_corners": detect.select_slots,
                 "map_accept": matching.map_accept,
@@ -264,6 +265,7 @@ KERNEL_SYMBOLS = {"perception": "perception_kernel", "brief": "brief_kernel",
                   "pnp_normal_eqs": "pnp_normal_eqs_kernel",
                   "stream_sum": "stream_sum_kernel",
                   "ba_refine": "ba_refine_kernel",
+                  "ba_phase": "ba_phase_kernel",
                   "predict_project": "predict_project_kernel",
                   "upkeep_pre": "upkeep_pre_kernel",
                   "staged_promote": "staged_promote_kernel",
@@ -339,14 +341,23 @@ def _count(names) -> dict:
     return counts
 
 
-def ba_launches() -> int:
-    """Local BA's kernel's launches on the current device so far, counted by
-    the kernel itself (``bundle.device_launches``; 0 where it never
-    loaded)."""
+def ba_launches() -> dict:
+    """Local BA's kernels' launches on the current device so far, counted
+    by each kernel itself (``bundle.device_launches`` and
+    ``phase_device_launches``; 0 where the library never loaded):
+    {"ba_refine": n, "ba_phase": n}."""
     from lvt_tpu_torch import kernels
     from lvt_tpu_torch.solver import bundle
 
-    return bundle.device_launches() if kernels._lib is not None else 0
+    if kernels._lib is None:
+        return dict.fromkeys(BA_KERNELS, 0)
+    return {"ba_refine": bundle.device_launches(),
+            "ba_phase": bundle.phase_device_launches()}
+
+
+# the kernels that count their own launches (local BA's: an IF node's body,
+# whose records a trace can lose)
+BA_KERNELS = ("ba_refine", "ba_phase")
 
 
 def device_launches(fn):
@@ -357,11 +368,12 @@ def device_launches(fn):
     CUDA IF node's predicate, under ``markers`` the trace's markers that
     it kept (of TRACE_MARKERS), under ``kernels`` all kernels. Local BA's
     kernel, which runs in an IF node's body whose records a trace can
-    lose, from the kernel's own count (``ba_launches``)."""
+    lose, from the kernels' own counts (``ba_launches``)."""
     before = ba_launches()
     out, prof = traced(fn)
     counts = _count(name for name, _, _ in device_records(prof))
-    counts["ba_refine"] = ba_launches() - before
+    after = ba_launches()
+    counts.update({k: after[k] - before[k] for k in BA_KERNELS})
     return out, counts
 
 
@@ -398,7 +410,8 @@ def frame_launches(track, n: int):
         raise RuntimeError(f"the trace holds {len(frames)} frames' markers, "
                            f"not {n}")
     for f, a, b in zip(frames, ba, ba[1:]):
-        f["ba_refine"] = b - a     # the kernel's own count (device_launches)
+        # the kernels' own counts (device_launches)
+        f.update({k: b[k] - a[k] for k in BA_KERNELS})
     return out, frames
 
 
@@ -523,6 +536,67 @@ def pnp_sharded(rank, n, pose, points, obs, weights, *, cam: dict,
     return dict(t=res.pose.t.cpu().numpy(), q=res.pose.q.cpu().numpy(),
                 inlier_count=int(res.inlier_count), chi2=float(res.chi2),
                 inlier_mask=res.inlier_mask.cpu().numpy())
+
+
+def ba_phases_check(rank, n, window, *, cam: dict, poison=None,
+                    device: str = "cpu") -> dict:
+    """Local BA's sharded body on this rank's contiguous block of a
+    window's points (``window``: t, q, pos, obs, w, obs_r, w_r as whole
+    arrays), as the phases (``refine_structure_phases``) and as the plain
+    group version (``refine_structure_plain(group=)``): each one's
+    positions of the block, chi2, n_obs and accept bits, and its
+    all-reduces; of the phases also each trial's non-finite flag as its
+    K_TRIAL launch left it in the state row (``trial_bad``, one per LM
+    iteration). ``poison`` (rank, call): on that rank the point step's
+    call-th call (0-based, in each body) returns a non-finite dp at the
+    block's first point, a fault of this rank's block alone."""
+    import torch.distributed as dist
+
+    from lvt_tpu_torch.geometry.se3 import Pose
+    from lvt_tpu_torch.ops.collectives import all_reduce
+    from lvt_tpu_torch.solver import bundle
+
+    t, q, pos, obs, w, obs_r, w_r = (torch.as_tensor(np.asarray(x)).to(device)
+                                     for x in window)
+    blk = slice(rank * pos.shape[0] // n, (rank + 1) * pos.shape[0] // n)
+    args = (Pose(t, q), pos[blk], obs[:, blk], w[:, blk], obs_r[:, blk],
+            w_r[:, blk])
+    group = dist.group.WORLD
+    real, calls = bundle._point_step, [0]
+    real_phase, bad = bundle.ba_phase, []
+
+    def phase(kind, it, *a, **kw):
+        res = real_phase(kind, it, *a, **kw)
+        if kind == bundle.K_TRIAL:
+            bad.append(float(res[0][0, bundle._offset(obs.shape[0], "bad")]))
+        return res
+
+    def point_step(*a):
+        dp = real(*a)
+        if poison is not None and rank == poison[0] and \
+                calls[0] == poison[1]:
+            dp = dp.clone()
+            dp[0, 0] = float("inf")
+        calls[0] += 1
+        return dp
+
+    out = {}
+    bundle._point_step, bundle.ba_phase = point_step, phase
+    phase.launches = 0
+    try:
+        for name, fn in (("phases", lambda: bundle.refine_structure_phases(
+                              *args, group=group, **cam).outputs()),
+                         ("plain", lambda: bundle.refine_structure_plain(
+                              *args, group=group, **cam))):
+            calls[0], before = 0, all_reduce.calls
+            res = fn()
+            out[name] = [x.cpu().numpy() for x in res]
+            out[f"{name}_collectives"] = all_reduce.calls - before
+    finally:
+        bundle._point_step, bundle.ba_phase = real, real_phase
+        real_phase.launches += phase.launches
+    out["trial_bad"] = bad
+    return out
 
 
 def collectives_check(rank, n, *, device: str = "cpu") -> dict:

@@ -18,15 +18,16 @@ IF node); path 3,
 MultiStreamVO with 8 streams (frames/s summed over the streams); path 5,
 the rectified EuRoC step; path 6, one track_with_external_corners call a
 frame; path 8a, ShardedStreamVO on one NCCL rank with the shipped KITTI
-YAML's local BA (BA's torch body and its all-reduces in a CUDA IF node).
+YAML's local BA (BA's body and its all-reduces in a CUDA IF node).
 ``--reps`` runs the chosen paths that many times in the process. Prints one
 JSON line per path and run: median and spread of frames/s, graph and
 eager, the graph's host ms a frame, capture seconds, and the card's name
-and power limit; for paths 1, 2, 3, 5 and 6 also one more graphed unit
-traced with the host's activity (the tree's ``dryrun.traced``): the
-card's busy ms and kernels a frame, and the host's launches a frame by
-runtime-API call (graph replays apart; the trace's opening markers left
-out). Needs one CUDA device.
+and power limit; for every path also one more graphed unit traced with
+the host's activity (the tree's ``dryrun.traced``): the card's busy ms
+and kernels a frame, and the host's launches a frame by runtime-API call
+(graph replays apart; the trace's opening markers left out); for path 8a
+also the tree's ``chip_smoke._frame_types``: the kernels of a BA frame
+and of any other frame (``frame_types``). Needs one CUDA device.
 """
 
 import argparse
@@ -185,15 +186,19 @@ def main(argv=None) -> int:
             il, ir, _, _ = bench.render(kitti_config(), chunk * n_units)
             a, b = (torch.from_numpy(x).to(cs.DEVICE) for x in (il, ir))
             config = cs.sharded_config()
+            make = partial(ShardedStreamVO, config, device=cs.DEVICE)
+            drive = cs._chunks_of(a, b, chunk)
             with tempfile.TemporaryDirectory() as tmp:
                 mesh.init("nccl", 1, 0, "file://" + os.path.join(tmp, "rdv"),
                           device=cs.DEVICE)
                 try:
-                    run = cs._run_modes(
-                        path, lambda: ShardedStreamVO(config,
-                                                      device=cs.DEVICE),
-                        cs._chunks_of(a, b, chunk), n_units, chunk)
+                    run = cs._run_modes(path, make, drive, n_units, chunk)
                     rep = cs._report_modes(path, run)
+                    rep["trace"] = traced_unit(run, drive, n_units, chunk)
+                    n_types = max(cs.TRACED_FRAMES)
+                    fa, fb = frames(n_types)
+                    rep["trace"]["frame_types"] = cs._frame_types(
+                        path, config, make, fa, fb)
                 finally:
                     dist.destroy_process_group()
         print(json.dumps(dict(

@@ -14,8 +14,15 @@ Tolerances:
     amplifies that rounding); the writeback decided alike for all but 1%
     of the refined points; untouched points bit-equal;
   * the op under ``torch.func.vmap`` over 2 streams against each stream
-    alone, and with a one-rank gloo group (the torch ops and their
-    all-reduces) against the op: bit-equal;
+    alone, and the step with a one-rank gloo group (the launches of the
+    sharded body's phases and their all-reduces) against the op:
+    bit-equal;
+  * the sharded body's phases (``refine_structure_phases``: the op
+    ``lvt_tpu_torch::ba_phase``, each phase's torch ops on the CPU) with
+    identity all-reduces against the plain body on every window here, cut
+    to 3-8 observed points or to 5 points, and at 0 iterations: bit-equal;
+    under vmap against each stream alone: bit-equal; ``opcheck`` of every
+    phase;
   * right-camera observations with a baseline of 0: refused by the op and
     its plain version with one ValueError, as lvt_tpu's gate asserts;
   * the kernel's premise, that every sum over the points may be taken as
@@ -230,19 +237,32 @@ def test_fake_tensors_and_the_op_registration():
                     "test_faketensor"))
 
 
-def test_group_body_of_one_rank_is_the_op(tmp_path):
-    """With a one-rank gloo group the step keeps the torch ops and their
-    all-reduces (the sharded step's body); on one rank that is the op's
-    result bit for bit."""
+def test_group_body_of_one_rank_is_the_op(tmp_path, monkeypatch):
+    """With a one-rank gloo group the step runs the sharded body's phases
+    (``bundle.refine_structure_phases``: ``n_phases`` calls of the op
+    ``ba_phase``) and their 3 + 2 per iteration all-reduces; on one rank
+    that is the op's result bit for bit."""
+    from lvt_tpu_torch.ops.collectives import all_reduce
+
     args = [_t(x) for x in _window("outliers", seed=3)]
     t, q, *rest = args
+    calls, real = [], bundle.ba_phase_op
+    monkeypatch.setattr(bundle, "ba_phase_op",
+                        lambda *a: calls.append(a[0]) or real(*a))
     mesh_mod.init("gloo", 1, 0, f"file://{tmp_path / 'rdv'}")
     try:
+        before = all_reduce.calls
         got = step._refine_structure(Pose(t, q), *rest, _config(VOConfig),
                                      group=dist.group.WORLD)
+        n_coll = all_reduce.calls - before
     finally:
         dist.destroy_process_group()
     assert torch.equal(got, _op(args)[0])
+    assert calls == [bundle.K_GATE1, bundle.K_GATE2, bundle.K_SETUP,
+                     *[bundle.K_SUMS, bundle.K_TRIAL] * ITERS,
+                     bundle.K_FINAL]
+    assert len(calls) == bundle.n_phases(ITERS)
+    assert n_coll == 3 + 2 * ITERS
 
 
 def test_a_window_without_a_baseline_is_refused_as_in_lvt_tpu():
@@ -408,3 +428,104 @@ def test_the_body_with_point_slice_partials_is_the_plain_body(c,
             got = _plain(args)
         for g, w in zip(got, want):
             assert torch.equal(g, w), (case, c)
+
+
+# ---- the sharded body's phases: lvt_tpu_torch::ba_phase
+
+
+def _phases(args, iterations=ITERS):
+    t, q, *rest = args
+    return bundle.refine_structure_phases(
+        Pose(t, q), *rest, iterations=iterations, reprojection_th2=5.991,
+        **CAM)
+
+
+def _few_points(args, k):
+    """The window with its observations cut to its first k observed
+    points (chip_smoke.py's few_ba_points)."""
+    w, w_r = args[4], args[6]
+    seen = ((w > 0) | (w_r > 0)).any(0)
+    keep = (seen & (torch.cumsum(seen.int(), -1) <= k)).float()[None]
+    return [*args[:4], w * keep, args[5], w_r * keep]
+
+
+def _first_points(args, m):
+    """The window cut to its first m points."""
+    t, q, pos, obs, w, obs_r, w_r = args
+    return [t, q, pos[:m], obs[:, :m], w[:, :m], obs_r[:, :m], w_r[:, :m]]
+
+
+PHASE_CASES = ([(case, "whole", ITERS) for case in CASES]
+               + [("outliers", f"few{k}", ITERS) for k in (3, 5, 8)]
+               + [("noisy", "first5", ITERS), ("noisy", "whole", 0),
+                  ("masked", "few8", 0)])
+
+
+@pytest.mark.parametrize("case,cut,iterations", PHASE_CASES)
+def test_phases_with_identity_all_reduces_are_the_plain_body(case, cut,
+                                                             iterations):
+    """The phases, each launch's partial sums passed on as they are (the
+    all-reduce of one rank), give the plain body's outputs bit for bit:
+    positions, chi2, n_obs and the accept bits."""
+    args = [_t(x) for x in _window(case)]
+    if cut.startswith("few"):
+        args = _few_points(args, int(cut[3:]))
+    elif cut.startswith("first"):
+        args = _first_points(args, int(cut[5:]))
+    t, q, *rest = args
+    want = bundle.refine_structure_plain(
+        Pose(t, q), *rest, iterations=iterations, reprojection_th2=5.991,
+        **CAM)
+    got = _phases(args, iterations).outputs()
+    assert [x.dtype for x in got] == [torch.float32, torch.float32,
+                                      torch.int64, torch.bool]
+    assert got[3].shape == (iterations,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), case
+
+
+def test_phases_under_vmap_equal_each_stream_alone():
+    a, b = ([_t(x) for x in _window(c, seed=s)]
+            for c, s in (("noisy", 1), ("outliers", 2)))
+    stacked = [torch.stack(x) for x in zip(a, b)]
+    got = torch.func.vmap(lambda *x: _phases(x).outputs())(*stacked)
+    for i, args in enumerate((a, b)):
+        for g, w in zip(got, _phases(args).outputs()):
+            assert torch.equal(g[i], w)
+
+
+def _phase_calls():
+    """The op's arguments at each phase of one window's body (M = 48, 2
+    iterations), by kind: the first call of each."""
+    seen, real = {}, bundle.ba_phase_op
+
+    def record(*a):
+        seen.setdefault(a[0], a)
+        return real(*a)
+
+    bundle.ba_phase_op = record
+    try:
+        _phases([_t(x) for x in _window("noisy", m=48)], 2)
+    finally:
+        bundle.ba_phase_op = real
+    return seen
+
+
+@pytest.mark.parametrize("kind", range(6))
+def test_phase_op_registration(kind):
+    """``torch.library.opcheck`` on each phase of the op (its schema, the
+    fake kernel's shapes and dtypes against the CPU kernel's, autograd
+    registration), on the arguments the body gave it."""
+    args = _phase_calls()[kind]
+    torch.library.opcheck(
+        bundle.ba_phase_op, args,
+        test_utils=("test_schema", "test_autograd_registration",
+                    "test_faketensor"))
+    state, scratch, part, out = bundle.ba_phase_op(*args)
+    f, m = args[7].shape[1:3]
+    assert state.shape == (1, bundle.state_size(f, 2))
+    assert part.shape == (1, bundle.part_size(kind, f))
+    assert part.dtype == torch.float64
+    keeps = kind in (bundle.K_SETUP, bundle.K_SUMS, bundle.K_TRIAL)
+    assert scratch.shape == (1, m * bundle.scratch_per_point(f) * keeps)
+    assert out.shape == (1, m if kind == bundle.K_FINAL else 0, 3)

@@ -21,7 +21,13 @@ process count in one spawn. Tolerances:
   * the port's sharded PnP against its unsharded solve_pnp on the same
     points: the same bound (the 2 and 4 partial sums are added in float64
     and rounded once, which is not the unsharded float32 order);
-  * local_stream_indices: contiguous blocks in rank order.
+  * local_stream_indices: contiguous blocks in rank order;
+  * local BA's sharded body at 2 ranks, each rank a block of a window's
+    points: the phases (``refine_structure_phases``, the body of the
+    sharded step) bit-equal to the plain group version
+    (``refine_structure_plain(group=)``) on every rank, also where one
+    rank's point step turns non-finite (its accept test is its own); 3 +
+    2 per iteration all-reduces against the plain version's 4 + 2.
 """
 
 import jax
@@ -38,9 +44,15 @@ from lvt_tpu_torch.geometry.se3 import Pose
 from lvt_tpu_torch.parallel import dryrun
 from lvt_tpu_torch.solver.pnp import solve_pnp
 from tests.test_pnp import FX, FY, CX, CY, make_world, observe, small_pose
+from tests.test_torch_ba_refine import CAM as BA_WINDOW_CAM
+from tests.test_torch_ba_refine import ITERS as BA_ITERS
+from tests.test_torch_ba_refine import _window
 
 CAM = dict(fx=FX, fy=FY, cx=CX, cy=CY)
 N_STREAMS = 8
+BA_CAM = dict(BA_WINDOW_CAM, iterations=BA_ITERS, reprojection_th2=5.991)
+# rank 1's third point step (LM iteration 2) turns non-finite
+BA_POISON = (1, 2)
 
 
 def pnp_problem():
@@ -82,6 +94,10 @@ def ranks():
         if n == 2:
             jobs["resolve"] = dryrun.job(dryrun.resolve_check, match_idx,
                                          d1, 16)
+            window = _window("outliers", seed=3)
+            for key, poison in (("ba", None), ("ba_poison", BA_POISON)):
+                jobs[key] = dryrun.job(dryrun.ba_phases_check, window,
+                                       cam=BA_CAM, poison=poison)
         res = dryrun.spawn(list(jobs.values()), n)
         out[n] = [dict(zip(jobs, r)) for r in res]
     return out
@@ -182,3 +198,39 @@ def test_dryrun_command_line_runs_the_modes(capsys):
         assert w["pnp_sharded"]["inlier_count"] == 64
         assert w["multistream"]["collectives"] == 0
         assert w["sharded_stream"]["collectives"] > 0
+
+
+@pytest.mark.parametrize("key", ["ba", "ba_poison"])
+def test_ba_phases_are_the_plain_group_body(ranks, key):
+    """Each rank's phases against its plain group body, bit for bit: the
+    block's positions, chi2, n_obs and accept bits; the phases' 3 + 2 per
+    iteration all-reduces (the gate's two moments, the first chi-square
+    with the observation count, per iteration the sums and the trial
+    chi-square) against the plain version's 4 + 2 (the count apart)."""
+    for res in ranks[2]:
+        got = res[key]
+        for a, b in zip(got["phases"], got["plain"]):
+            np.testing.assert_array_equal(a, b)
+        assert got["phases_collectives"] == 3 + 2 * BA_ITERS
+        assert got["plain_collectives"] == 4 + 2 * BA_ITERS
+    # both ranks hold the same sums, so the same state
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(ranks[2][0][key]["phases"][i],
+                                      ranks[2][1][key]["phases"][i])
+    # each trial's non-finite flag is its own rank's: only the poisoned
+    # rank's trial is flagged (a count all-reduced with the chi-square
+    # would flag it on both ranks)
+    for rank, res in enumerate(ranks[2]):
+        want = [0.0] * BA_ITERS
+        if key == "ba_poison" and rank == BA_POISON[0]:
+            want[BA_POISON[1]] = 1.0
+        assert res[key]["trial_bad"] == want
+    if key == "ba_poison":
+        # the poisoned step was taken without the fault and is refused with
+        # it, on both ranks: the non-finite point makes the trial
+        # chi-square non-finite wherever it is summed (a weight of 0 times
+        # a non-finite term is NaN), so the accept bits stay equal
+        it = BA_POISON[1]
+        for res in ranks[2]:
+            assert res["ba"]["phases"][3][it]
+            assert not res["ba_poison"]["phases"][3][it]

@@ -25,7 +25,11 @@ S-stream launch and the sharded solve's phases (all-reduces as
 identities) bit-equal to the fused kernel. Local BA's whole body
 (``lvt_tpu_torch::ba_refine``) against its plain version
 (``refine_structure_plain``): every output bit-equal, and every stream
-of an S-stream launch bit-equal to its own. Local BA as a CUDA IF node
+of an S-stream launch bit-equal to its own; the sharded body's phases
+(``lvt_tpu_torch::ba_phase``) on one rank bit-equal to it, and each
+stream to its own S = 1 phases. The tracking ops that launch their
+kernels under a group (``track.GROUP_OPS``), on a one-rank group:
+bit-equal to their plain group versions. Local BA as a CUDA IF node
 (core/graphs.py::cond): the graph bit-equal to the eager step, in the
 streaming worker thread too, and many streams with BA bit-equal to each
 stream alone. The unmarked tests run
@@ -1029,7 +1033,8 @@ def test_one_rank_nccl_sharded_stream_is_vosystem(cuda):
 
 @pytest.mark.parametrize("call", ["perception", "brief", "patches", "top2",
                                   "pnp", "stream_sum", "pnp_solve",
-                                  "pnp_phase", "ba_refine", *TRACK_OPS,
+                                  "pnp_phase", "ba_refine", "ba_phase",
+                                  *TRACK_OPS,
                                   "select_corners", "map_accept"])
 def test_wrapper_never_falls_back_off_the_cpu(call):
     """A tensor on another device than the CPU goes to the kernel path,
@@ -1084,6 +1089,16 @@ def test_wrapper_never_falls_back_off_the_cpu(call):
                                   torch.empty(4, 4, **meta)),
                              torch.empty(5, 3, **meta), x, w, x, w,
                              iterations=6, reprojection_th2=5.991, **BA_CAM)
+        elif call == "ba_phase":
+            from lvt_tpu_torch.solver import bundle
+
+            w = torch.empty(1, 4, 5, **meta)
+            x = torch.empty(1, 4, 5, 2, **meta)
+            bundle.ba_phase(bundle.K_GATE1, 0, None, None,
+                            torch.empty(1, 4, 3, **meta),
+                            torch.empty(1, 4, 4, **meta),
+                            torch.empty(1, 5, 3, **meta), x, w, x, w, None,
+                            iterations=6, reprojection_th2=5.991, **BA_CAM)
         elif call == "pnp":
             pnp.normal_equations(torch.empty(5, 2, 6, **meta),
                                  torch.empty(5, **meta),
@@ -1709,6 +1724,150 @@ def test_ba_refine_refuses_a_window_beyond_the_kernels_limit(cuda):
     assert bundle.ba_refine.launches == before
 
 
+# ---- the sharded body's phases: lvt_tpu_torch::ba_phase (csrc/ba.cu)
+
+def _ba_phases(args, iterations=6):
+    """The sharded body's phases on one rank (no group: every all-reduce
+    the identity), vmapped over the streams: one launch per phase for all
+    of them, as ba_refine's outputs."""
+    from lvt_tpu_torch.solver import bundle
+
+    return torch.func.vmap(lambda t, q, *a: bundle.refine_structure_phases(
+        Pose(t, q), *a, iterations=iterations, reprojection_th2=5.991,
+        **BA_CAM).outputs())(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,m,case,f,iterations", [
+    (1, 1024, "noisy", 4, 6), (8, 1024, "noisy", 4, 6),
+    (2, 4096, "noisy", 4, 6), (2, 300, "few", 4, 6), (1, 256, "none", 4, 6),
+    (2, 512, "noisy", 1, 6), (2, 512, "noisy", 2, 6), (2, 512, "noisy", 3, 6),
+    (2, 512, "noisy", 8, 6), (2, 5, "noisy", 4, 6), (3, 1023, "noisy", 6, 6),
+    (5, 1000, "noisy", 5, 6), (8, 256, "noisy", 7, 6),
+    (2, 512, "noisy", 4, 0), (2, 512, "noisy", 4, 1)])
+def test_ba_phase_on_one_rank_is_ba_refine(cuda, s, m, case, f, iterations):
+    """The phases of local BA's body, each all-reduce the identity (one
+    rank), against the whole body in one launch of ``ba_refine``: every
+    output bit-equal (positions, chi2, n_obs, the accept bits), ``n_phases``
+    launches for all S streams, and every stream bit-equal to its own S = 1
+    phases; S = 1 to 8, F = 1 to 8, M up to 4096, 0 and 1 iterations."""
+    from lvt_tpu_torch.solver import bundle
+
+    args = _ba_problem(np.random.RandomState(7 * s + m + f), s, m, cuda,
+                       case, f)
+    cam = tuple(float(BA_CAM[k]) for k in ("fx", "fy", "cx", "cy",
+                                            "baseline"))
+    before = bundle.ba_phase.launches
+    got = _ba_phases(args, iterations)
+    torch.cuda.synchronize()
+    assert bundle.ba_phase.launches == before + bundle.n_phases(iterations)
+    want = bundle.ba_refine_op(*args, *cam, 5.991, iterations)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), (
+            i, float((g.double() - w.double()).abs().max()))
+    for i in range(s):
+        one = _ba_phases([x[i:i + 1] for x in args], iterations)
+        for a, b in zip(one, got):
+            assert torch.equal(a[0], b[i])
+
+
+@pytest.mark.cuda
+def test_ba_phase_counts_its_launches_on_the_card(cuda):
+    """The kernel's own count (``bundle.phase_device_launches``) advances
+    by one per phase, in a CUDA graph's replays too."""
+    from lvt_tpu_torch.solver import bundle
+
+    args = _ba_problem(np.random.RandomState(3), 1, 256, cuda)
+    _ba_phases(args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _ba_phases(args)
+    before = bundle.phase_device_launches()
+    graph.replay()
+    graph.replay()
+    assert bundle.phase_device_launches() == before + 2 * bundle.n_phases(6)
+
+
+@pytest.mark.cuda
+def test_ba_phase_refuses_a_window_beyond_the_kernels_limit(cuda):
+    """As ``ba_refine``: a window beyond the kernel's limit of poses raises
+    before any launch, never falls back."""
+    from lvt_tpu_torch.solver import bundle
+
+    limit = kernels.lib().lvt_ba_max_window()
+    args = _ba_problem(np.random.RandomState(2), 1, 64, cuda, f=limit + 1)
+    before = bundle.ba_phase.launches
+    with pytest.raises(ValueError, match="window"):
+        _ba_phases(args)
+    assert bundle.ba_phase.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,case", [(1024, "noisy"), (301, "few")])
+def test_ba_phase_on_two_ranks_sharing_the_card(cuda, m, case):
+    """The phases over 2 ranks sharing the card (gloo carries the float64
+    partials through the host), each rank on its block of the window's
+    points, against the plain group body on the same ranks and blocks:
+    every output bit-equal on each rank, both ranks' sums and so their
+    chi2, n_obs and accept bits equal, the phases' 3 + 2 per iteration
+    all-reduces, no trial flagged non-finite. ``few``: every observed
+    point in rank 0's block."""
+    from lvt_tpu_torch.parallel import dryrun
+
+    window = [x[0].numpy() for x in _ba_problem(
+        np.random.RandomState(11), 1, m, "cpu", case)]
+    cam = dict(BA_CAM, iterations=6, reprojection_th2=5.991)
+    res = dryrun.spawn([dryrun.job(dryrun.ba_phases_check, window, cam=cam,
+                                   device="cuda")],
+                       2, device="cuda", backend="gloo")
+    for (got,) in res:
+        for i, (a, b) in enumerate(zip(got["phases"], got["plain"])):
+            np.testing.assert_array_equal(a, b, err_msg=f"output {i}")
+        assert got["phases_collectives"] == 3 + 2 * 6
+        assert got["plain_collectives"] == 4 + 2 * 6
+        assert got["trial_bad"] == [0.0] * 6
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(res[0][0]["phases"][i],
+                                      res[1][0]["phases"][i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["predict_project", "upkeep_pre",
+                                  "ba_observe"])
+def test_routed_ops_under_a_group_on_the_card(cuda, name, tmp_path):
+    """On a one-rank gloo group (CUDA tensors) the wrappers of
+    ``track.GROUP_OPS`` launch their kernels and give their plain group
+    versions' outputs bit for bit, on each routed case of TRACK_CASES."""
+    import torch.distributed as dist
+
+    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.parallel import mesh as mesh_mod
+
+    cases = [c for c in TRACK_CASES if c[0] == name and c[1] <= 8]
+    mesh_mod.init("gloo", 1, 0, f"file://{tmp_path / 'rdv'}")
+    try:
+        for _, s, case, kw in cases:
+            args = _track_problem(np.random.RandomState(s), name, s, cuda,
+                                  case, **kw)
+            before = getattr(track, name).launches
+            got = _track_wrapper(name, args, dist.group.WORLD)
+            assert getattr(track, name).launches == before + 1
+            want = _track_plain_group(name, args, dist.group.WORLD)
+            _assert_outputs_equal(_leaves(got), _leaves(want),
+                                  f"{name} {case}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaves(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [leaf for v in x for leaf in _leaves(v)]
+    return []
+
+
 # ---- the tracking branch's four ops (core/track.py, csrc/track.cu)
 
 TRACK_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, near=0.01,
@@ -1920,9 +2079,10 @@ def _qmul(a, b):
                      aw * bz + ax * by - ay * bx + az * bw], np.float32)
 
 
-def _track_wrapper(name, args):
+def _track_wrapper(name, args, group=None):
     """The single-stream wrapper of op ``name`` (core/track.py) on stream 0
-    of the op's arguments ``args``."""
+    of the op's arguments ``args``, with ``group`` if given (the ops of
+    ``track.GROUP_OPS``)."""
     from lvt_tpu_torch.core import track
     from lvt_tpu_torch.core.features import FrameFeatures
     from lvt_tpu_torch.core.motion import MotionState
@@ -1938,17 +2098,18 @@ def _track_wrapper(name, args):
             (a[0], a[1]) if right else None, a[2], a[3], a[4],
             a[5] if right else None, Pose(a[6], a[7]), ObsWindow(*a[8:15]),
             *a[15:19], a[19] if a[19].shape[0] else None, a[20],
-            ratio_threshold=a[21], abs_threshold=a[22], local_ba_every=a[23])
+            ratio_threshold=a[21], abs_threshold=a[22], local_ba_every=a[23],
+            group=group)
     if name == "predict_project":
         return track.predict_project(MotionState(*a[:4]), Pose(a[4], a[5]),
-                                     a[6], a[7], a[8], cam)
+                                     a[6], a[7], a[8], cam, group)
     if name == "upkeep_pre":
         store = PointStore(a[9].new_zeros((a[0].shape[0], 3)), None, a[0],
                            a[1], a[2])
         staged = (PointStore(a[9], None, None, None, a[10])
                   if a[9].shape[0] else None)
         return track.upkeep_pre(store, a[3], a[4], a[5], Pose(a[6], a[7]),
-                                a[8], staged, a[11], cam)
+                                a[8], staged, a[11], cam, group)
     if name == "staged_promote":
         return track.staged_promote(
             a[0:4], PointStore(*a[4:9]), a[9], a[10], PointStore(*a[11:16]),
@@ -1963,6 +2124,30 @@ def _track_wrapper(name, args):
         None if rgbd else a[0:4], left, right, Pose(a[9], a[10]),
         PointStore(*a[11:16]), PointStore(*a[16:21]), a[21], a[22], a[23],
         cam, prm)
+
+
+def _track_plain_group(name, args, group):
+    """The plain version with ``group`` of one of ``track.GROUP_OPS`` on
+    stream 0 of the op's arguments ``args``, as its wrapper's result."""
+    from lvt_tpu_torch.core import track
+    from lvt_tpu_torch.core.motion import MotionState
+    from lvt_tpu_torch.core.state import ObsWindow, PointStore
+
+    a = [x[0] if isinstance(x, torch.Tensor) else x for x in args]
+    cam = dict(TRACK_CAM)
+    if name == "ba_observe":
+        return track.ba_observe_plain(
+            top2._unpack(a[0], a[1])[1], a[2], a[3], a[4], a[5],
+            Pose(a[6], a[7]), ObsWindow(*a[8:15]), *a[15:19],
+            a[19] if a[19].shape[0] else None, a[20], ratio_threshold=a[21],
+            abs_threshold=a[22], local_ba_every=a[23])
+    if name == "predict_project":
+        return track.predict_project_plain(
+            MotionState(*a[:4]), Pose(a[4], a[5]), a[6], a[7], a[8], cam)
+    store = PointStore(a[9].new_zeros((a[0].shape[0], 3)), None, a[0], a[1],
+                       a[2])
+    return track.upkeep_pre_plain(store, a[3], a[4], a[5], Pose(a[6], a[7]),
+                                  a[8], a[9], a[10], a[11], cam, group)
 
 
 def _track_plain(name, args):

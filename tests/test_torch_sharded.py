@@ -100,12 +100,13 @@ def per_frame_collectives(cfg) -> int:
     chi-square and 5 x (normal equations, chi-square); the inlier count),
     the un-mark OR 1, map sizes 3, the staged re-match 2 (pmin, OR), the
     metrics 8 (5 means, map, staged and new points) and the lost frame's
-    map size 1; with local BA 4 + 2 per iteration (the gate's two
-    moments, the first chi-square, per iteration the normal equations
-    with the Schur terms and the chi-square, the observation count)."""
+    map size 1; with local BA's phases 3 + 2 per iteration (the gate's
+    two moments, the first chi-square with the observation count, per
+    iteration the normal equations with the Schur terms and the trial
+    chi-square)."""
     n = 45 - (2 if cfg.staged_threshold == 0 else 0)
     if cfg.local_ba_window > 0:
-        n += 4 + 2 * cfg.local_ba_iterations
+        n += 3 + 2 * cfg.local_ba_iterations
     return n
 
 

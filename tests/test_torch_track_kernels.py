@@ -593,7 +593,11 @@ def test_step_calls_each_op_once_per_frame(monkeypatch, staged_threshold):
 
 def test_the_sharded_step_calls_no_op(monkeypatch, tmp_path):
     """With a group (a one-rank gloo group, ``ShardedStreamVO``) the step
-    runs the plain versions and their collectives: no op is called."""
+    calls no op whose collectives sit in the middle of its work
+    (``staged_promote``, ``triangulate_insert``: their plain versions and
+    collectives run); ``predict_project``, ``upkeep_pre`` and, with local
+    BA, ``ba_observe``, which reduce over no rank mid-way, are called once
+    per frame on the rank's block."""
     import torch.distributed as dist
 
     from lvt_tpu_torch.parallel import mesh as mesh_mod
@@ -601,13 +605,51 @@ def test_the_sharded_step_calls_no_op(monkeypatch, tmp_path):
     from tests.test_torch_system import _config
 
     world, il, ir = _small_frames(2)
+    config = _config(world)
     counts = _count_op_calls(monkeypatch)
     mesh_mod.init("gloo", 1, 0, f"file://{tmp_path / 'rdv'}")
     try:
-        ShardedStreamVO(_config(world), device="cpu").track_chunk(il, ir)
+        ShardedStreamVO(config, device="cpu").track_chunk(il, ir)
     finally:
         dist.destroy_process_group()
-    assert counts == dict.fromkeys(TRACK_OPS, 0)
+    want = dict.fromkeys(TRACK_OPS, 0)
+    want.update(predict_project=2, upkeep_pre=2,
+                ba_observe=2 * (config.local_ba_window > 0))
+    assert counts == want
+
+
+ROUTED_CASES = [c for c in TRACK_CASES if c[0] in track.GROUP_OPS
+                and c[1] <= 8 and c[2] != "init"]
+
+
+@pytest.mark.parametrize("c", ROUTED_CASES,
+                         ids=[_case_id(c) for c in ROUTED_CASES])
+def test_routed_wrappers_under_a_group_are_the_plain_group_versions(
+        c, tmp_path):
+    """On a one-rank gloo group the wrappers that launch their kernels
+    under a group (``track.GROUP_OPS``) give their plain group versions'
+    outputs bit for bit, stream 0 of each case; ``upkeep_pre`` with its
+    two collectives."""
+    import torch.distributed as dist
+
+    from lvt_tpu_torch.ops.collectives import all_reduce
+    from lvt_tpu_torch.parallel import mesh as mesh_mod
+    from tests.test_torch_cuda import _track_plain_group
+
+    name, s, case, kw = c
+    args = _track_problem(np.random.RandomState(11), name, s, "cpu", case,
+                          **kw)
+    mesh_mod.init("gloo", 1, 0, f"file://{tmp_path / 'rdv'}")
+    try:
+        group = dist.group.WORLD
+        before = all_reduce.calls
+        got = _wrapper_outputs(name, _track_wrapper(name, args, group))
+        n_coll = all_reduce.calls - before
+        want = _wrapper_outputs(name, _track_plain_group(name, args, group))
+    finally:
+        dist.destroy_process_group()
+    _assert_outputs_equal(got, want, name)
+    assert n_coll == (2 if name == "upkeep_pre" else 0)
 
 
 # ---- the cluster kernels' decomposition (csrc/track.cu), modelled in numpy
